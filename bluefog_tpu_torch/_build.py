@@ -1,0 +1,117 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""Build and load the CUDA kernels under ``csrc/`` at first use.
+
+Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``. The sources
+include no PyTorch header, so a build takes seconds rather than the
+minutes a ``torch.utils.cpp_extension`` build of the same code takes; the
+wrappers pass ``data_ptr()`` pointers and the current stream.
+
+Libraries land in ``build/torch_kernels/`` at the root of the checkout,
+named by a hash of their source and flags, so an edited source rebuilds
+and an unchanged one is reused. A failed build raises with the compiler's
+output; nothing falls back to the plain PyTorch versions.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "build", "wire_library"]
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+
+NVCC_FLAGS = (
+    "-O3",
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-fmad=false",
+    "-std=c++17",
+    "-Xptxas=-v",
+)
+
+
+def build_dir() -> Path:
+    return _PKG.parent / "build" / "torch_kernels"
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the
+    toolkit's default location."""
+    candidates = []
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(str(Path(os.environ[var]) / "bin" / "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME); the CUDA kernels of "
+        "bluefog_tpu_torch are built from source at first use"
+    )
+
+
+def _library_path(source: Path) -> Path:
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return build_dir() / f"lib{source.stem}_{digest}.so"
+
+
+def _command(source: Path, out: Path) -> List[str]:
+    return [find_nvcc(), *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC",
+            "-o", str(out), str(source)]
+
+
+def build(sources: List[str]) -> Dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` in ``sources`` that is not built
+    yet, one ``nvcc`` per source, all started together. Returns
+    ``{name: library path}``; the compiler's output of each build is kept
+    beside its library as ``.log``. Raises if any build fails."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    libs = {name: _library_path(_CSRC / f"{name}.cu") for name in sources}
+    running = []
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            _command(_CSRC / f"{name}.cu", tmp),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running.append((name, lib, tmp, proc))
+    failures = []
+    for name, lib, tmp, proc in running:
+        output, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(output)
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (exit {proc.returncode}):\n{output}")
+            continue
+        os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+    return libs
+
+
+@functools.lru_cache(maxsize=None)
+def wire_library() -> ctypes.CDLL:
+    """The wire kernels (``csrc/wire_kernels.cu``), built if needed, with
+    every entry point's argument and return types declared."""
+    lib = ctypes.CDLL(str(build(["wire_kernels"])["wire_kernels"]))
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.bf_wire_encode.argtypes = [vp, vp, vp, ll, ci, vp]
+    lib.bf_wire_encode.restype = ci
+    lib.bf_wire_decode_accumulate.argtypes = [
+        vp, vp, vp, vp, vp, ci, ll, ci, ci, vp,
+    ]
+    lib.bf_wire_decode_accumulate.restype = ci
+    return lib

@@ -1,0 +1,166 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""Weighted combines over the stacked worker axis.
+
+Counterpart of ``bluefog_tpu/collective/inner.py``. There every function
+runs inside ``shard_map`` on one worker's block and a round is a
+``lax.ppermute``; here ``x`` is the whole ``[N, ...]`` worker tensor and a
+round is a gather along the leading axis: row ``j`` of round ``r`` is
+``x[src[r, j]]``, or zeros when ``src[r, j] == -1`` (what ``ppermute``
+delivers to a non-destination, whose weight is 0). The arithmetic follows
+the JAX functions op for op, so the stacked results equal the mesh
+results slot for slot.
+"""
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from bluefog_tpu_torch.collective import kernels
+from bluefog_tpu_torch.collective.plan import CommPlan
+
+__all__ = [
+    "weighted_combine",
+    "weighted_combine_operands",
+    "weighted_combine_quantized",
+    "weighted_combine_quantized_operands",
+    "neighbor_allreduce",
+    "plan_operands",
+]
+
+
+def _weight_dtype(x: torch.Tensor) -> torch.dtype:
+    """Float inputs combine in their own dtype; integers in float32."""
+    return x.dtype if x.is_floating_point() else torch.float32
+
+
+def plan_operands(plan: CommPlan, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(src [R, N] int32, self_w [N] f32, recv_w [R, N] f32)`` of a plan,
+    on ``device``."""
+    self_w, recv_w = plan.weight_operands()
+    return (
+        torch.from_numpy(np.array(plan.sources())).to(device),
+        torch.from_numpy(self_w).to(device),
+        torch.from_numpy(recv_w).to(device),
+    )
+
+
+def _gather(x: torch.Tensor, src_r: torch.Tensor) -> torch.Tensor:
+    """One round of the stacked ``ppermute``: row ``j`` is
+    ``x[src_r[j]]``, zeros where ``src_r[j] < 0``."""
+    idx = src_r.to(torch.long)
+    got = x.index_select(0, idx.clamp(min=0))
+    has = (idx >= 0).view((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(has, got, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _col(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Per-worker vector ``[N]`` shaped to broadcast against ``like``."""
+    return v.to(like.dtype).view((-1,) + (1,) * (like.dim() - 1))
+
+
+def weighted_combine_operands(
+    x: torch.Tensor, src: torch.Tensor, self_w: torch.Tensor, recv_w: torch.Tensor
+) -> torch.Tensor:
+    """``y_j = self_w[j] * x_j + sum_r recv_w[r, j] * x_{src[r, j]}``, the
+    weights as runtime operands."""
+    xw = x.to(_weight_dtype(x))
+    y = xw * _col(self_w, xw)
+    for r in range(src.shape[0]):
+        y = y + _gather(xw, src[r]) * _col(recv_w[r], xw)
+    return y
+
+
+def weighted_combine(x: torch.Tensor, plan: CommPlan) -> torch.Tensor:
+    """:func:`weighted_combine_operands` with the plan's weights."""
+    return weighted_combine_operands(x, *plan_operands(plan, x.device))
+
+
+def neighbor_allreduce(x: torch.Tensor, plan: CommPlan) -> torch.Tensor:
+    """Weighted neighbor averaging over a static plan."""
+    return weighted_combine(x, plan)
+
+
+def _check_combine_normalized(plan: CommPlan, what: str) -> None:
+    """The difference-form quantized combine equals the exact combine
+    only when each receiver's weights sum to 1; refuse otherwise (the
+    error would be O(x) and silent)."""
+    col_sums = plan.weight_matrix().sum(axis=0)
+    if not np.allclose(col_sums, 1.0, atol=1e-6):
+        bad = int(np.argmax(np.abs(col_sums - 1.0)))
+        raise ValueError(
+            f"{what} requires a normalized combine (receiver weights "
+            f"summing to 1); rank {bad} sums to {col_sums[bad]:.6f}. "
+            "Push-sum/column-stochastic plans are not supported."
+        )
+
+
+def _chunk_quantize(xf: torch.Tensor):
+    """Stacked int8 block quantization of ``[N, n]`` f32: ``(q [N, C,
+    512] int8, s [N, C] f32, xhat [N, n])`` (``inner._chunk_quantize``
+    per worker)."""
+    q, s = kernels.encode_reference(kernels.pad_blocks(xf), "int8")
+    return q, s, _dequant8(q, s, xf.shape[1])
+
+
+def _chunk_quantize4(xf: torch.Tensor):
+    """Stacked int4 block quantization: ``(packed [N, C, 256], s16 [N, C]
+    bf16, xhat [N, n])`` (``inner._chunk_quantize4`` per worker)."""
+    p, s16 = kernels.encode_reference(kernels.pad_blocks(xf), "int4")
+    return p, s16, _dequant4(p, s16, xf.shape[1])
+
+
+def _dequant8(q: torch.Tensor, s: torch.Tensor, n: int) -> torch.Tensor:
+    return kernels.unpad_blocks(kernels.dequantize(q, s), n)
+
+
+def _dequant4(packed: torch.Tensor, s16: torch.Tensor, n: int) -> torch.Tensor:
+    return kernels.unpad_blocks(kernels.dequantize(packed, s16), n)
+
+
+def weighted_combine_quantized_operands(
+    x: torch.Tensor,
+    src: torch.Tensor,
+    recv_w: torch.Tensor,
+    wire: str = "int8",
+    inplace: bool = False,
+) -> torch.Tensor:
+    """Quantized-wire combine in the difference form
+    ``y = x + sum_r w_r (x_hat_r - x_hat_self)`` (exact consensus is a
+    fixed point): one :func:`kernels.encode` of every worker's flat
+    payload, then one :func:`kernels.decode_accumulate` with all rounds
+    folded in — the monolithic int8/int4 branch of the JAX function.
+
+    ``x`` must be float32 (the combine dtype of the kernels). With
+    ``inplace=True`` and a contiguous ``x`` whose per-worker size is a
+    multiple of 512, ``x`` itself is the accumulator and is overwritten;
+    otherwise a padded copy is."""
+    if x.dtype != torch.float32:
+        raise ValueError(
+            f"the quantized wire combines float32 payloads, got {x.dtype}"
+        )
+    n_workers = x.shape[0]
+    flat = x.reshape(n_workers, -1)
+    n = flat.shape[1]
+    aligned = n % kernels.CHUNK == 0 and flat.is_contiguous()
+    if inplace and aligned and flat.data_ptr() == x.data_ptr():
+        acc = flat
+    else:
+        acc = kernels.pad_blocks(flat)
+        if acc is flat:
+            acc = flat.clone()
+    payload, scales = kernels.encode(acc, wire)
+    kernels.decode_accumulate(acc, payload, scales, src, recv_w, wire)
+    if acc is flat:
+        return x
+    return kernels.unpad_blocks(acc, n).reshape(x.shape)
+
+
+def weighted_combine_quantized(
+    x: torch.Tensor, plan: CommPlan, wire: str = "int8"
+) -> torch.Tensor:
+    """:func:`weighted_combine_quantized_operands` with the plan's
+    weights; validates that the plan is normalized."""
+    _check_combine_normalized(plan, f"compression={wire!r}")
+    src, _self_w, recv_w = plan_operands(plan, x.device)
+    return weighted_combine_quantized_operands(x, src, recv_w, wire=wire)

@@ -1,0 +1,303 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""The block-scaled quantized wire: ``encode`` and ``decode_accumulate``.
+
+Counterpart of ``bluefog_tpu/collective/kernels.py``. Each function has a
+hand-written CUDA kernel for Hopper (``csrc/wire_kernels.cu``, built at
+first use by :mod:`bluefog_tpu_torch._build`) and a plain PyTorch version
+(``*_reference``) that runs the composite arithmetic of
+``bluefog_tpu/collective/inner.py`` op for op. A CUDA tensor always takes
+the kernel; a CPU tensor takes the plain version; anything else raises.
+
+Stacked layout: ``N`` workers are the leading axis. A worker's flat
+payload is cut into ``C`` blocks of :data:`CHUNK` elements, each with one
+scale: int8 lanes with an f32 scale, or int4 nibbles packed two per int8
+lane (element ``k`` in the low nibble of lane ``k``, element ``256 + k``
+in the high nibble) with a bf16 scale.
+
+The JAX ``ppermute`` of the received payloads is fused into
+:func:`decode_accumulate`: round ``r`` reads worker ``src[r, j]``'s payload
+row directly, so no received copy exists.
+"""
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+__all__ = [
+    "CHUNK",
+    "pad_blocks",
+    "unpad_blocks",
+    "encode",
+    "encode_reference",
+    "decode_accumulate",
+    "decode_accumulate_reference",
+    "dequantize",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+CHUNK = 512
+_HALF = CHUNK // 2
+_WIRES = ("int8", "int4")
+
+
+def _check_wire(wire: str) -> bool:
+    """True for the packed (int4) wire; raises on an unknown tier."""
+    if wire not in _WIRES:
+        raise ValueError(f"wire must be one of {_WIRES}, got {wire!r}")
+    return wire == "int4"
+
+
+def pad_blocks(x: torch.Tensor) -> torch.Tensor:
+    """``[N, n]`` -> ``[N, C * CHUNK]`` with a zero tail (``x`` itself
+    when ``n`` is already a multiple of :data:`CHUNK`)."""
+    n = x.shape[1]
+    tail = -n % CHUNK
+    if tail == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, tail))
+
+
+def unpad_blocks(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pad_blocks`: the first ``n`` elements per row."""
+    return x.reshape(x.shape[0], -1)[:, :n]
+
+
+# -- plain versions --------------------------------------------------------------
+
+
+def _pack_nibbles(q: torch.Tensor) -> torch.Tensor:
+    """``[..., 512]`` int4 values (int8 storage) -> ``[..., 256]`` lanes,
+    deinterleaved halves (``inner._pack_nibbles``)."""
+    lo = q[..., :_HALF].to(torch.int32) & 0x0F
+    hi = (q[..., _HALF:].to(torch.int32) & 0x0F) << 4
+    byte = lo | hi  # 0..255; map to the int8 with the same bits
+    return (byte - ((byte >> 7) << 8)).to(torch.int8)
+
+
+def _unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_pack_nibbles`: ``[..., 256]`` -> ``[..., 512]``
+    int8 in [-8, 7]. The low nibble is sign-extended as ``((b & 15) ^ 8)
+    - 8`` (equal to the JAX ``(b << 4) >> 4`` for every byte, without an
+    int8 shift that overflows); the high one by an arithmetic shift."""
+    lo = ((p & 0x0F) ^ 8) - 8
+    hi = p >> 4
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+# The JAX quantizers write the scale as ``max(absmax, tiny) / 127.0`` (or
+# ``/ 7.0``), but XLA's algebraic simplifier rewrites a division by a
+# constant into a multiplication by the constant's f32 reciprocal, on the
+# CPU as on the TPU. The JAX programs' wire bits are therefore those of
+# ``max(absmax, tiny) * f32(1/127)``, which differ in the last bit from a
+# true division on a few percent of int8 blocks and on about half of the
+# int4 blocks. The port follows the programs.
+RECIP_127 = float.fromhex("0x1.020408p-7")  # f32(1/127), bits 0x3c010204
+RECIP_7 = float.fromhex("0x1.24924ap-3")  # f32(1/7), bits 0x3e124925
+
+
+def _quantize_blocks(x2: torch.Tensor, packed: bool):
+    """``[..., C, 512]`` f32 -> ``(q int8 [..., C, 512], s [..., C],
+    s_f32 [..., C])``: ``inner._chunk_quantize`` / ``_chunk_quantize4``
+    per block (the int4 scale snaps to bf16 before the divide)."""
+    amax = torch.amax(x2.abs(), dim=-1)
+    tiny = torch.finfo(torch.float32).tiny
+    s = torch.clamp(amax, min=tiny) * (RECIP_7 if packed else RECIP_127)
+    if packed:
+        s_wire = s.to(torch.bfloat16)
+        sw = s_wire.to(torch.float32)
+        lim = 7
+    else:
+        s_wire = sw = s
+        lim = 127
+    q = torch.clamp(torch.round(x2 / sw[..., None]), -lim, lim).to(torch.int8)
+    return q, s_wire, sw
+
+
+def dequantize(payload: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``(payload [..., C, 512|256], scales [..., C])`` -> ``[..., C, 512]``
+    f32 reconstruction (``inner._dequant8`` / ``_dequant4``; every step is
+    exact in f32)."""
+    q = _unpack_nibbles(payload) if payload.shape[-1] == _HALF else payload
+    return q.to(torch.float32) * scales.to(torch.float32)[..., None]
+
+
+def encode_reference(x: torch.Tensor, wire: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`encode`."""
+    packed = _check_wire(wire)
+    n_workers = x.shape[0]
+    x2 = x.reshape(n_workers, -1, CHUNK)
+    q, s_wire, _sw = _quantize_blocks(x2, packed)
+    return (_pack_nibbles(q) if packed else q), s_wire
+
+
+def decode_accumulate_reference(
+    acc: torch.Tensor,
+    payload: torch.Tensor,
+    scales: torch.Tensor,
+    src: torch.Tensor,
+    w: torch.Tensor,
+    wire: str,
+) -> torch.Tensor:
+    """Plain version of :func:`decode_accumulate`: the composite combine of
+    ``inner.weighted_combine_quantized_operands`` with an explicit
+    ``index_select`` for each round's ``ppermute`` (non-destinations
+    receive a zero payload and a zero scale, as ``ppermute`` delivers)."""
+    _check_wire(wire)
+    n_workers = acc.shape[0]
+    a3 = acc.view(n_workers, -1, CHUNK)
+    deq_s = dequantize(payload, scales)
+    out = a3
+    for r in range(src.shape[0]):
+        idx = src[r].to(torch.long)
+        has = (idx >= 0)
+        safe = idx.clamp(min=0)
+        rq = torch.where(
+            has[:, None, None], payload.index_select(0, safe),
+            torch.zeros((), dtype=payload.dtype, device=payload.device),
+        )
+        rs = torch.where(
+            has[:, None], scales.index_select(0, safe),
+            torch.zeros((), dtype=scales.dtype, device=scales.device),
+        )
+        out = out + (dequantize(rq, rs) - deq_s) * w[r][:, None, None]
+    a3.copy_(out)
+    return acc
+
+
+# -- kernels -------------------------------------------------------------------
+
+_LAUNCHES = {"encode": 0, "decode_accumulate": 0}
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last :func:`reset_launch_counts` (the
+    plain versions never count)."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda_operand(t: torch.Tensor, name: str, dtype, device,
+                        vector: bool = True) -> None:
+    """Device, dtype and contiguity; ``vector`` operands are read and
+    written with 8- and 16-byte accesses, so they must be 16-byte
+    aligned."""
+    _require(t.device == device, f"{name} is on {t.device}, expected {device}")
+    _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+    _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(not vector or t.data_ptr() % 16 == 0,
+             f"{name} must be 16-byte aligned")
+
+
+def _raise_on_status(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what} kernel launch failed with cudaError {status}")
+
+
+def _dispatch_device(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"wire kernels run on cuda or cpu, got {t.device}")
+    return t.device.type
+
+
+def encode(x: torch.Tensor, wire: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize ``x [N, C * 512]`` f32 block by block: returns ``(payload
+    [N, C, 512] int8 or [N, C, 256] packed int4, scales [N, C] f32 or
+    bf16)`` — the JAX wire bits (replaces ``kernels.encode``)."""
+    packed = _check_wire(wire)
+    _require(x.dim() == 2 and x.shape[1] % CHUNK == 0,
+             f"encode takes [N, C*{CHUNK}], got {tuple(x.shape)}")
+    if _dispatch_device(x) == "cpu":
+        return encode_reference(x, wire)
+    from bluefog_tpu_torch import _build
+
+    _check_cuda_operand(x, "x", torch.float32, x.device)
+    n_workers, n = x.shape
+    n_chunks = n // CHUNK
+    payload = torch.empty(
+        (n_workers, n_chunks, _HALF if packed else CHUNK),
+        dtype=torch.int8, device=x.device,
+    )
+    scales = torch.empty(
+        (n_workers, n_chunks),
+        dtype=torch.bfloat16 if packed else torch.float32, device=x.device,
+    )
+    lib = _build.wire_library()
+    status = lib.bf_wire_encode(
+        _ptr(x), _ptr(payload), _ptr(scales), n_workers * n_chunks,
+        int(packed), _stream(x),
+    )
+    _raise_on_status(status, "encode")
+    _LAUNCHES["encode"] += 1
+    return payload, scales
+
+
+def decode_accumulate(
+    acc: torch.Tensor,
+    payload: torch.Tensor,
+    scales: torch.Tensor,
+    src: torch.Tensor,
+    w: torch.Tensor,
+    wire: str,
+) -> torch.Tensor:
+    """The difference-form combine epilogue, all rounds in one pass and
+    ``acc [N, C * 512]`` f32 updated in place:
+
+        acc[j] += (deq(payload[src[r, j]]) - deq(payload[j])) * w[r, j]
+
+    for ``r = 0 .. R-1`` in order, where ``src [R, N]`` int32 names each
+    round's sender (-1: none; that round adds ``(0 - deq_self) * 0``) and
+    ``w [R, N]`` f32 the receiver weights. ``payload``/``scales`` are the
+    :func:`encode` outputs of all workers. Returns ``acc`` (replaces
+    ``kernels.decode_accumulate``)."""
+    packed = _check_wire(wire)
+    n_workers = acc.shape[0]
+    _require(acc.dim() == 2 and acc.shape[1] % CHUNK == 0,
+             f"acc must be [N, C*{CHUNK}], got {tuple(acc.shape)}")
+    n_chunks = acc.shape[1] // CHUNK
+    _require(tuple(payload.shape) == (n_workers, n_chunks, _HALF if packed else CHUNK),
+             f"payload shape {tuple(payload.shape)} does not match acc")
+    _require(tuple(scales.shape) == (n_workers, n_chunks),
+             f"scales shape {tuple(scales.shape)} does not match acc")
+    _require(src.dim() == 2 and src.shape[1] == n_workers
+             and tuple(w.shape) == tuple(src.shape),
+             "src and w must both be [R, N]")
+    if _dispatch_device(acc) == "cpu":
+        return decode_accumulate_reference(acc, payload, scales, src, w, wire)
+    from bluefog_tpu_torch import _build
+
+    dev = acc.device
+    _check_cuda_operand(acc, "acc", torch.float32, dev)
+    _check_cuda_operand(payload, "payload", torch.int8, dev)
+    _check_cuda_operand(
+        scales, "scales", torch.bfloat16 if packed else torch.float32, dev,
+        vector=False,
+    )
+    _check_cuda_operand(src, "src", torch.int32, dev, vector=False)
+    _check_cuda_operand(w, "w", torch.float32, dev, vector=False)
+    lib = _build.wire_library()
+    status = lib.bf_wire_decode_accumulate(
+        _ptr(acc), _ptr(payload), _ptr(scales), _ptr(src), _ptr(w),
+        n_workers, n_chunks, src.shape[0], int(packed), _stream(acc),
+    )
+    _raise_on_status(status, "decode_accumulate")
+    _LAUNCHES["decode_accumulate"] += 1
+    return acc

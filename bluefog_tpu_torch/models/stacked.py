@@ -1,0 +1,178 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""N virtual workers of one model, parameters in one flat buffer.
+
+The JAX package trains a worker-stacked params pytree inside
+``shard_map``; the optimizer packs its leaves (in ``jax.tree_util`` order)
+into one flat payload per dtype group for the gossip. Here that packed
+payload IS the parameter store: one ``[N, C * 512]`` f32 buffer whose row
+``j`` holds worker ``j``'s parameters in the flax tree order, each leaf in
+the JAX element order (conv kernels HWIO, dense kernels ``[in, out]``),
+with a zero tail to the next 512-element wire block. Each worker's
+forward runs through ``torch.func.functional_call`` on (permuted) views
+of its row, so gradients land in the same flat layout and the optimizer
+gossips the buffer in place, with no pack or unpack copy.
+
+Only parameters are gossiped; BatchNorm statistics stay per worker in
+:attr:`StackedModel.buffers` (``[N, ...]`` each).
+"""
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
+
+from bluefog_tpu_torch.collective.kernels import CHUNK
+from bluefog_tpu_torch.context import resolve_device
+
+__all__ = ["ParamSlot", "StackedModel", "jax_order"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSlot:
+    """One parameter's place in a worker row."""
+
+    name: str  # dotted module path, the flax tree path joined by "."
+    shape: Tuple[int, ...]  # PyTorch layout
+    offset: int
+    numel: int
+
+    @property
+    def jax_shape(self) -> Tuple[int, ...]:
+        if len(self.shape) == 4:  # OIHW -> HWIO
+            o, i, kh, kw = self.shape
+            return (kh, kw, i, o)
+        if len(self.shape) == 2:  # [out, in] -> [in, out]
+            return (self.shape[1], self.shape[0])
+        return self.shape
+
+
+def to_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """A PyTorch-layout parameter as a view in the JAX layout."""
+    if t.dim() == 4:
+        return t.permute(2, 3, 1, 0)
+    if t.dim() == 2:
+        return t.t()
+    return t
+
+
+def from_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_jax_layout`."""
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    if t.dim() == 2:
+        return t.t()
+    return t
+
+
+def jax_order(names) -> List[str]:
+    """Dotted parameter names sorted as ``jax.tree_util`` flattens the
+    nested flax dict (keys sorted at every level: ``BottleneckBlock_10``
+    before ``BottleneckBlock_2``, ``bias`` before ``kernel``)."""
+    return sorted(names, key=lambda n: tuple(n.split(".")))
+
+
+class StackedModel:
+    """``size`` workers of ``module`` with their parameters in one flat
+    ``[size, width]`` f32 buffer (see module docstring), on ``device``
+    (default ``"cuda"``)."""
+
+    def __init__(self, module: nn.Module, size: int, device=None):
+        self.device = resolve_device(device)
+        self.module = module.to(self.device)
+        self.size = size
+        shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
+        slots, off = [], 0
+        for name in jax_order(shapes):
+            n = 1
+            for d in shapes[name]:
+                n *= d
+            slots.append(ParamSlot(name, shapes[name], off, n))
+            off += n
+        self.slots: List[ParamSlot] = slots
+        self.n_params = off
+        self.width = -(-off // CHUNK) * CHUNK
+        self.buffers: Dict[str, torch.Tensor] = {
+            name: buf.detach().unsqueeze(0).repeat(
+                (size,) + (1,) * buf.dim()
+            ).contiguous()
+            for name, buf in module.named_buffers()
+        }
+
+    @torch.no_grad()
+    def pack(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One worker row ``[width]`` from PyTorch-layout tensors by name."""
+        row = torch.zeros(self.width, dtype=torch.float32, device=self.device)
+        for s in self.slots:
+            row[s.offset:s.offset + s.numel].view(s.jax_shape).copy_(
+                to_jax_layout(tensors[s.name])
+            )
+        return row
+
+    def _jax_views(self, row: torch.Tensor) -> List[torch.Tensor]:
+        """JAX-layout views of one worker row, in slot order."""
+        return [row[s.offset:s.offset + s.numel].view(s.jax_shape) for s in self.slots]
+
+    def views(self, row: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """PyTorch-layout views of one worker row, by parameter name."""
+        return {s.name: from_jax_layout(v) for s, v in zip(self.slots, self._jax_views(row))}
+
+    def replicate(self) -> torch.Tensor:
+        """``[size, width]`` with every worker holding ``module``'s current
+        parameters (the JAX benchmark's ``stack(params)``)."""
+        row = self.pack(dict(self.module.named_parameters()))
+        return row.unsqueeze(0).repeat(self.size, 1).contiguous()
+
+    @torch.no_grad()
+    def load_buffers(self, tensors: Dict[str, torch.Tensor]) -> None:
+        """Set the BatchNorm statistics: one set for every worker, or
+        one per worker (``[size, ...]`` each)."""
+        for name, buf in self.buffers.items():
+            buf.copy_(tensors[name].to(buf.device).expand_as(buf))
+
+    def _worker_state(self, jax_views: List[torch.Tensor], j: int) -> Dict[str, torch.Tensor]:
+        state = {s.name: from_jax_layout(v) for s, v in zip(self.slots, jax_views)}
+        state.update({name: buf[j] for name, buf in self.buffers.items()})
+        return state
+
+    def forward(self, params: torch.Tensor, images: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """Logits ``[size, B, classes]`` of every worker on its images
+        ``[size, B, H, W, 3]`` (NHWC). ``train=True`` uses and updates
+        the batch statistics."""
+        self.module.train(train)
+        with torch.no_grad():
+            return torch.stack([
+                functional_call(self.module,
+                                self._worker_state(self._jax_views(params[j]), j),
+                                (images[j],))
+                for j in range(self.size)
+            ])
+
+    def loss_and_grad(self, params: torch.Tensor, images: torch.Tensor,
+                      labels: torch.Tensor, grads: torch.Tensor = None):
+        """Training forward and backward of every worker: returns ``(loss
+        [size] f32, grads [size, width])`` with the gradient in the flat
+        JAX layout (zero in the tail), and updates the batch statistics.
+        The loss is the mean softmax cross-entropy of the integer labels
+        (``optax.softmax_cross_entropy_with_integer_labels(...).mean()``)."""
+        self.module.train(True)
+        if grads is None:
+            grads = torch.empty_like(params)
+        losses = torch.empty(self.size, dtype=torch.float32, device=params.device)
+        for j in range(self.size):
+            # the gradient is taken with respect to each parameter's own
+            # view: with respect to the whole row, the backward of every
+            # slice would build and add a row-sized zero-padded gradient
+            leaves = [v.requires_grad_(True) for v in self._jax_views(params[j].detach())]
+            logits = functional_call(
+                self.module, self._worker_state(leaves, j), (images[j],)
+            )
+            loss = F.cross_entropy(logits.to(torch.float32), labels[j])
+            for dst, g in zip(self._jax_views(grads[j]), torch.autograd.grad(loss, leaves)):
+                dst.copy_(g)
+            losses[j] = loss.detach()
+        grads[:, self.n_params:].zero_()
+        return losses, grads

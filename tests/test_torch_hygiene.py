@@ -1,0 +1,72 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""Import hygiene of the PyTorch/CUDA port, and its refusal to fall back
+to the CPU silently.
+
+``bluefog_tpu_torch`` and ``chip_smoke.py`` run on a machine with no JAX
+and no networkx, so neither may import ``jax``, ``flax``, ``optax``,
+``networkx`` or anything of the JAX package ``bluefog_tpu``.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import bluefog_tpu_torch as bft
+from bluefog_tpu_torch.collective import kernels
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "networkx", "bluefog_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "bluefog_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_sources_exist():
+    names = {p.name for p in _port_sources()}
+    assert {"chip_smoke.py", "kernels.py", "optimizers.py", "resnet.py"} <= names
+    assert (ROOT / "bluefog_tpu_torch" / "csrc" / "wire_kernels.cu").is_file()
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_networkx_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bft.init()
+    assert not bft.is_initialized()
+    ctx = bft.init(device="cpu")
+    try:
+        assert ctx.device.type == "cpu"
+    finally:
+        bft.shutdown()
+
+
+def test_wrappers_take_plain_versions_only_on_cpu():
+    """A CPU tensor takes the plain version and counts no launch; any
+    other device is refused rather than computed elsewhere."""
+    kernels.reset_launch_counts()
+    x = torch.randn(2, 1024)
+    p, s = kernels.encode(x, "int8")
+    kernels.decode_accumulate(x.clone(), p, s, torch.tensor([[1, 0]], dtype=torch.int32),
+                              torch.full((1, 2), 0.5), "int8")
+    assert kernels.launch_counts() == {"encode": 0, "decode_accumulate": 0}
+    with pytest.raises(ValueError):
+        kernels.encode(x.to("meta"), "int8")
