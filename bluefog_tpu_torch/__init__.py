@@ -5,10 +5,12 @@ N virtual workers live on one GPU as the leading axis of ``[N, ...]``
 tensors; a gossip round is a gather along that axis. The facade mirrors
 ``bluefog_tpu``'s names for the ported slice: ``init`` and the topology
 queries, ``worker_values`` and ``neighbor_allreduce`` (exact or with the
-int8/int4 wire), and the neighbor-allreduce gossip optimizers. The
-quantized wire runs through hand-written CUDA kernels for Hopper
-(``csrc/wire_kernels.cu``). Entry points run on ``"cuda"`` unless
-``device="cpu"`` is passed.
+int8/int4 wire), the neighbor-allreduce gossip optimizers (with the
+int8/int4 wires and their error-feedback tiers int8_ef/int4_ef), the
+window ops (``win_*``, the associated-p lane) and the window optimizers
+(win-put, pull-get, push-sum). The quantized wires run through
+hand-written CUDA kernels for Hopper (``csrc/wire_kernels.cu``). Entry
+points run on ``"cuda"`` unless ``device="cpu"`` is passed.
 """
 
 from bluefog_tpu_torch import topology
@@ -23,7 +25,30 @@ from bluefog_tpu_torch.context import (
 from bluefog_tpu_torch.optimizers import (
     DistributedAdaptThenCombineOptimizer,
     DistributedNeighborAllreduceOptimizer,
+    DistributedPullGetOptimizer,
+    DistributedPushSumOptimizer,
+    DistributedWinPutOptimizer,
     sgd,
+)
+from bluefog_tpu_torch.windows import (
+    get_current_created_window_names,
+    get_win_version,
+    turn_off_win_ops_with_associated_p,
+    turn_on_win_ops_with_associated_p,
+    win_accumulate,
+    win_accumulate_nonblocking,
+    win_associated_p,
+    win_create,
+    win_free,
+    win_get,
+    win_get_nonblocking,
+    win_poll,
+    win_put,
+    win_put_nonblocking,
+    win_read,
+    win_update,
+    win_update_then_collect,
+    win_wait,
 )
 
 
@@ -69,4 +94,25 @@ __all__ = [
     "sgd",
     "DistributedNeighborAllreduceOptimizer",
     "DistributedAdaptThenCombineOptimizer",
+    "DistributedWinPutOptimizer",
+    "DistributedPullGetOptimizer",
+    "DistributedPushSumOptimizer",
+    "win_create",
+    "win_free",
+    "win_read",
+    "win_put",
+    "win_put_nonblocking",
+    "win_get",
+    "win_get_nonblocking",
+    "win_accumulate",
+    "win_accumulate_nonblocking",
+    "win_update",
+    "win_update_then_collect",
+    "win_wait",
+    "win_poll",
+    "get_win_version",
+    "get_current_created_window_names",
+    "turn_on_win_ops_with_associated_p",
+    "turn_off_win_ops_with_associated_p",
+    "win_associated_p",
 ]

@@ -108,10 +108,15 @@ def wire_library() -> ctypes.CDLL:
     every entry point's argument and return types declared."""
     lib = ctypes.CDLL(str(build(["wire_kernels"])["wire_kernels"]))
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.bf_wire_encode.argtypes = [vp, vp, vp, ll, ci, vp]
-    lib.bf_wire_encode.restype = ci
-    lib.bf_wire_decode_accumulate.argtypes = [
-        vp, vp, vp, vp, vp, ci, ll, ci, ci, vp,
-    ]
-    lib.bf_wire_decode_accumulate.restype = ci
+    signatures = {
+        "bf_wire_encode": [vp, vp, vp, ll, ci, vp],
+        "bf_wire_encode_diff": [vp, vp, vp, vp, ll, ci, vp],
+        "bf_wire_decode": [vp, vp, vp, vp, ci, ll, ci, vp],
+        "bf_wire_decode_add": [vp, vp, vp, vp, ci, ll, ci, vp],
+        "bf_wire_decode_accumulate": [vp, vp, vp, vp, vp, ci, ll, ci, ci, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ci
     return lib

@@ -24,6 +24,8 @@ __all__ = [
     "weighted_combine_operands",
     "weighted_combine_quantized",
     "weighted_combine_quantized_operands",
+    "weighted_combine_quantized_ef_operands",
+    "ef_state_zeros",
     "neighbor_allreduce",
     "plan_operands",
 ]
@@ -164,3 +166,82 @@ def weighted_combine_quantized(
     _check_combine_normalized(plan, f"compression={wire!r}")
     src, _self_w, recv_w = plan_operands(plan, x.device)
     return weighted_combine_quantized_operands(x, src, recv_w, wire=wire)
+
+
+def ef_state_zeros(n_workers: int, n: int, n_rounds: int, device):
+    """Fresh CHOCO copies for an ``[N, n]`` payload on ``n_rounds``
+    rounds: ``(xhat_self [N, d], xhat_recv [R, N, d])`` f32 zeros, with
+    ``d`` = ``n`` padded to whole 512-element blocks (the padded tail
+    stays zero)."""
+    d = -(-n // kernels.CHUNK) * kernels.CHUNK
+    return (
+        torch.zeros((n_workers, d), dtype=torch.float32, device=device),
+        torch.zeros((n_rounds, n_workers, d), dtype=torch.float32, device=device),
+    )
+
+
+def weighted_combine_quantized_ef_operands(
+    x: torch.Tensor,
+    state: Tuple[torch.Tensor, torch.Tensor],
+    src: torch.Tensor,
+    recv_w: torch.Tensor,
+    wire: str = "int8",
+    inplace: bool = False,
+) -> torch.Tensor:
+    """Quantized wire with memory (CHOCO-style difference compression),
+    the monolithic branch of the JAX function: every worker keeps a
+    public copy ``xhat_self`` of itself and integrated copies
+    ``xhat_recv[r]`` of its round-``r`` source, ships ``q = Q(x -
+    xhat_self)``, and sender and receivers add the same dequantized
+    update to their copies, so the copies stay bit-identical
+    (``xhat_recv[r][j] == xhat_self[src[r, j]]``). The combine uses the
+    copies: ``y = x + sum_r w_r (xhat_recv[r] - xhat_self)``.
+
+    ``state = (xhat_self [N, d], xhat_recv [R, N, d])`` f32 (see
+    :func:`ef_state_zeros`) is updated in place — the JAX function
+    returns a new state; here each round's copy is one contiguous
+    ``[N, d]`` slab. Step 1 is one :func:`kernels.encode_diff`, step 2
+    one :func:`kernels.decode_add` per round, step 3 the accumulate in
+    plain torch, round by round, as JAX computes it outside any kernel.
+
+    ``src [R, N]`` is a compiled plan's (:func:`plan_operands`): its
+    ranks are in range by construction. ``x`` must be float32 ``[N,
+    ...]`` with ``n`` elements per worker;
+    with ``inplace=True`` and a contiguous, block-aligned ``x`` the result
+    overwrites ``x``. The combine is always monolithic: the JAX
+    function's chunked wavefront (``chunks``) does not apply on one card,
+    so there is no such argument."""
+    kernels._check_wire(wire)
+    if x.dtype != torch.float32:
+        raise ValueError(
+            f"the quantized wire combines float32 payloads, got {x.dtype}"
+        )
+    xhat_self, xhat_recv = state
+    n_workers = x.shape[0]
+    flat = x.reshape(n_workers, -1)
+    n = flat.shape[1]
+    d = -(-n // kernels.CHUNK) * kernels.CHUNK
+    if (tuple(xhat_self.shape) != (n_workers, d)
+            or tuple(xhat_recv.shape) != (src.shape[0], n_workers, d)):
+        raise ValueError(
+            f"error-feedback state {tuple(xhat_self.shape)} / "
+            f"{tuple(xhat_recv.shape)} does not fit x {tuple(x.shape)} on "
+            f"{src.shape[0]} rounds"
+        )
+    aligned = n % kernels.CHUNK == 0 and flat.is_contiguous()
+    if inplace and aligned and flat.data_ptr() == x.data_ptr():
+        y = flat
+    else:
+        y = kernels.pad_blocks(flat)
+        if y is flat:
+            y = flat.clone()
+    payload, scales = kernels.encode_diff(y, xhat_self, wire)
+    diff = torch.empty_like(y)
+    for r in range(src.shape[0]):
+        hat_r = kernels.decode_add(xhat_recv[r], payload, scales, src[r], wire,
+                                   src_in_range=True)
+        torch.sub(hat_r, xhat_self, out=diff)
+        y.add_(diff.mul_(_col(recv_w[r], diff)))
+    if y is flat:
+        return x
+    return kernels.unpad_blocks(y, n).reshape(x.shape)

@@ -1,5 +1,6 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
-"""The block-scaled quantized wire: ``encode`` and ``decode_accumulate``.
+"""The block-scaled quantized wire: ``encode``, ``encode_diff``,
+``decode``, ``decode_add`` and ``decode_accumulate``.
 
 Counterpart of ``bluefog_tpu/collective/kernels.py``. Each function has a
 hand-written CUDA kernel for Hopper (``csrc/wire_kernels.cu``, built at
@@ -14,9 +15,16 @@ scale: int8 lanes with an f32 scale, or int4 nibbles packed two per int8
 lane (element ``k`` in the low nibble of lane ``k``, element ``256 + k``
 in the high nibble) with a bf16 scale.
 
-The JAX ``ppermute`` of the received payloads is fused into
-:func:`decode_accumulate`: round ``r`` reads worker ``src[r, j]``'s payload
-row directly, so no received copy exists.
+The JAX ``ppermute`` of the received payloads is fused into the decoders:
+round ``r`` reads worker ``src[r, j]``'s payload row directly (``-1``
+delivers a zero payload with a zero scale, as ``ppermute`` does), so no
+received copy exists.
+
+The error-feedback copies (:func:`encode_diff` on the sender,
+:func:`decode_add` on every receiver) integrate ``q * s`` with a multiply
+and then an add, rounded separately, in the kernels and in the plain
+versions alike, so the copies stay bit-identical; the plain versions never
+use a fused multiply-add (``torch.addcmul``).
 """
 
 import ctypes
@@ -30,6 +38,12 @@ __all__ = [
     "unpad_blocks",
     "encode",
     "encode_reference",
+    "encode_diff",
+    "encode_diff_reference",
+    "decode",
+    "decode_reference",
+    "decode_add",
+    "decode_add_reference",
     "decode_accumulate",
     "decode_accumulate_reference",
     "dequantize",
@@ -132,6 +146,52 @@ def encode_reference(x: torch.Tensor, wire: str) -> Tuple[torch.Tensor, torch.Te
     return (_pack_nibbles(q) if packed else q), s_wire
 
 
+def encode_diff_reference(
+    x: torch.Tensor, h: torch.Tensor, wire: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`encode_diff` (``h`` updated in place)."""
+    packed = _check_wire(wire)
+    n_workers = x.shape[0]
+    h3 = h.view(n_workers, -1, CHUNK)
+    q, s_wire, sw = _quantize_blocks(x.reshape(n_workers, -1, CHUNK) - h3, packed)
+    h3.add_(q.to(torch.float32) * sw[..., None])
+    return (_pack_nibbles(q) if packed else q), s_wire
+
+
+def _receive(payload: torch.Tensor, scales: torch.Tensor, src_r: torch.Tensor):
+    """One round of the stacked ``ppermute`` of a wire pair: row ``j`` is
+    sender ``src_r[j]``'s, or a zero payload with a zero scale where
+    ``src_r[j] < 0``."""
+    idx = src_r.to(torch.long)
+    has = idx >= 0
+    safe = idx.clamp(min=0)
+    zero = lambda t: torch.zeros((), dtype=t.dtype, device=t.device)
+    rq = torch.where(has[:, None, None], payload.index_select(0, safe), zero(payload))
+    rs = torch.where(has[:, None], scales.index_select(0, safe), zero(scales))
+    return rq, rs
+
+
+def decode_reference(
+    payload: torch.Tensor, scales: torch.Tensor, src_r, wire: str
+) -> torch.Tensor:
+    """Plain version of :func:`decode`."""
+    _check_wire(wire)
+    if src_r is not None:
+        payload, scales = _receive(payload, scales, src_r)
+    return dequantize(payload, scales).reshape(payload.shape[0], -1)
+
+
+def decode_add_reference(
+    base: torch.Tensor, payload: torch.Tensor, scales: torch.Tensor,
+    src_r: torch.Tensor, wire: str,
+) -> torch.Tensor:
+    """Plain version of :func:`decode_add`."""
+    _check_wire(wire)
+    b3 = base.view(base.shape[0], -1, CHUNK)
+    b3.add_(dequantize(*_receive(payload, scales, src_r)))
+    return base
+
+
 def decode_accumulate_reference(
     acc: torch.Tensor,
     payload: torch.Tensor,
@@ -150,17 +210,7 @@ def decode_accumulate_reference(
     deq_s = dequantize(payload, scales)
     out = a3
     for r in range(src.shape[0]):
-        idx = src[r].to(torch.long)
-        has = (idx >= 0)
-        safe = idx.clamp(min=0)
-        rq = torch.where(
-            has[:, None, None], payload.index_select(0, safe),
-            torch.zeros((), dtype=payload.dtype, device=payload.device),
-        )
-        rs = torch.where(
-            has[:, None], scales.index_select(0, safe),
-            torch.zeros((), dtype=scales.dtype, device=scales.device),
-        )
+        rq, rs = _receive(payload, scales, src[r])
         out = out + (dequantize(rq, rs) - deq_s) * w[r][:, None, None]
     a3.copy_(out)
     return acc
@@ -168,7 +218,8 @@ def decode_accumulate_reference(
 
 # -- kernels -------------------------------------------------------------------
 
-_LAUNCHES = {"encode": 0, "decode_accumulate": 0}
+_LAUNCHES = {"encode": 0, "encode_diff": 0, "decode": 0, "decode_add": 0,
+             "decode_accumulate": 0}
 
 
 def launch_counts() -> dict:
@@ -218,6 +269,21 @@ def _dispatch_device(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _wire_buffers(x: torch.Tensor, packed: bool):
+    """Uninitialised ``(payload, scales)`` for the blocks of ``x [N, C *
+    512]``."""
+    n_workers, n_chunks = x.shape[0], x.shape[1] // CHUNK
+    payload = torch.empty(
+        (n_workers, n_chunks, _HALF if packed else CHUNK),
+        dtype=torch.int8, device=x.device,
+    )
+    scales = torch.empty(
+        (n_workers, n_chunks),
+        dtype=torch.bfloat16 if packed else torch.float32, device=x.device,
+    )
+    return payload, scales
+
+
 def encode(x: torch.Tensor, wire: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize ``x [N, C * 512]`` f32 block by block: returns ``(payload
     [N, C, 512] int8 or [N, C, 256] packed int4, scales [N, C] f32 or
@@ -230,24 +296,145 @@ def encode(x: torch.Tensor, wire: str) -> Tuple[torch.Tensor, torch.Tensor]:
     from bluefog_tpu_torch import _build
 
     _check_cuda_operand(x, "x", torch.float32, x.device)
-    n_workers, n = x.shape
-    n_chunks = n // CHUNK
-    payload = torch.empty(
-        (n_workers, n_chunks, _HALF if packed else CHUNK),
-        dtype=torch.int8, device=x.device,
-    )
-    scales = torch.empty(
-        (n_workers, n_chunks),
-        dtype=torch.bfloat16 if packed else torch.float32, device=x.device,
-    )
-    lib = _build.wire_library()
-    status = lib.bf_wire_encode(
-        _ptr(x), _ptr(payload), _ptr(scales), n_workers * n_chunks,
+    payload, scales = _wire_buffers(x, packed)
+    status = _build.wire_library().bf_wire_encode(
+        _ptr(x), _ptr(payload), _ptr(scales), payload.shape[0] * payload.shape[1],
         int(packed), _stream(x),
     )
     _raise_on_status(status, "encode")
     _LAUNCHES["encode"] += 1
     return payload, scales
+
+
+def encode_diff(
+    x: torch.Tensor, h: torch.Tensor, wire: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The error-feedback (CHOCO) sender: quantize ``x - h`` block by
+    block (``x``, ``h`` ``[N, C * 512]`` f32) and return ``(payload,
+    scales)`` as :func:`encode` does, and integrate the very ``q`` it
+    ships into the sender's public copy, ``h <- h + q * s``. Unlike the
+    JAX function, which returns the new copy, ``h`` is updated in place
+    (replaces ``kernels.encode_diff``)."""
+    packed = _check_wire(wire)
+    _require(x.dim() == 2 and x.shape[1] % CHUNK == 0,
+             f"encode_diff takes [N, C*{CHUNK}], got {tuple(x.shape)}")
+    _require(tuple(h.shape) == tuple(x.shape),
+             f"h shape {tuple(h.shape)} does not match x {tuple(x.shape)}")
+    if _dispatch_device(x) == "cpu":
+        return encode_diff_reference(x, h, wire)
+    from bluefog_tpu_torch import _build
+
+    _check_cuda_operand(x, "x", torch.float32, x.device)
+    _check_cuda_operand(h, "h", torch.float32, x.device)
+    payload, scales = _wire_buffers(x, packed)
+    status = _build.wire_library().bf_wire_encode_diff(
+        _ptr(x), _ptr(h), _ptr(payload), _ptr(scales), payload.shape[0] * payload.shape[1],
+        int(packed), _stream(x),
+    )
+    _raise_on_status(status, "encode_diff")
+    _LAUNCHES["encode_diff"] += 1
+    return payload, scales
+
+
+def _check_wire_pair(payload, scales, n_workers, n_chunks, packed) -> None:
+    _require(tuple(payload.shape) == (n_workers, n_chunks, _HALF if packed else CHUNK),
+             f"payload shape {tuple(payload.shape)} does not match "
+             f"[{n_workers}, {n_chunks}] blocks")
+    _require(tuple(scales.shape) == (n_workers, n_chunks),
+             f"scales shape {tuple(scales.shape)} does not match the payload")
+
+
+def _check_round_sources(src_r: torch.Tensor, n_workers: int, in_range: bool) -> None:
+    """``src_r [N]`` with every entry in ``[-1, N)``. The range check
+    reads the tensor back (on the card, a synchronisation); callers whose
+    ``src`` comes from a compiled plan, whose ranks are in range by
+    construction, skip it with ``in_range=True``."""
+    _require(src_r.dim() == 1 and src_r.shape[0] == n_workers,
+             f"src must be [{n_workers}], got {tuple(src_r.shape)}")
+    if not in_range and src_r.numel():
+        lo, hi = (int(v) for v in torch.aminmax(src_r.to(torch.int32)))
+        _require(lo >= -1 and hi < n_workers,
+                 f"src entries must lie in [-1, {n_workers}), got {lo}..{hi}")
+
+
+def _check_cuda_pair(payload, scales, src_r, dev, packed) -> None:
+    _check_cuda_operand(payload, "payload", torch.int8, dev)
+    _check_cuda_operand(
+        scales, "scales", torch.bfloat16 if packed else torch.float32, dev,
+        vector=False,
+    )
+    if src_r is not None:
+        _check_cuda_operand(src_r, "src", torch.int32, dev, vector=False)
+
+
+def decode(
+    payload: torch.Tensor, scales: torch.Tensor, src_r, wire: str,
+    src_in_range: bool = False,
+) -> torch.Tensor:
+    """Full-width reconstruction ``[N, C * 512]`` f32 of a wire pair:
+    row ``j`` is ``deq(payload[src_r[j]])``, zeros where ``src_r[j] ==
+    -1``; ``src_r=None`` decodes every row's own payload (replaces
+    ``kernels.decode``). ``src_in_range=True`` skips the range check of
+    ``src_r`` (see :func:`decode_add`)."""
+    packed = _check_wire(wire)
+    _require(payload.dim() == 3, f"payload must be [N, C, w], got {tuple(payload.shape)}")
+    n_workers, n_chunks = payload.shape[:2]
+    _check_wire_pair(payload, scales, n_workers, n_chunks, packed)
+    on_cpu = _dispatch_device(payload) == "cpu"
+    if src_r is not None:
+        _check_round_sources(src_r, n_workers, src_in_range)
+    if on_cpu:
+        return decode_reference(payload, scales, src_r, wire)
+    from bluefog_tpu_torch import _build
+
+    dev = payload.device
+    _check_cuda_pair(payload, scales, src_r, dev, packed)
+    out = torch.empty((n_workers, n_chunks * CHUNK), dtype=torch.float32, device=dev)
+    status = _build.wire_library().bf_wire_decode(
+        _ptr(out), _ptr(payload), _ptr(scales),
+        None if src_r is None else _ptr(src_r), n_workers, n_chunks,
+        int(packed), _stream(out),
+    )
+    _raise_on_status(status, "decode")
+    _LAUNCHES["decode"] += 1
+    return out
+
+
+def decode_add(
+    base: torch.Tensor, payload: torch.Tensor, scales: torch.Tensor,
+    src_r: torch.Tensor, wire: str, src_in_range: bool = False,
+) -> torch.Tensor:
+    """The error-feedback receive integration, ``base[j] +=
+    deq(payload[src_r[j]])`` in place on ``base [N, C * 512]`` f32, with
+    ``src_r [N]`` int32 naming each row's sender. ``src_r[j] == -1`` adds
+    the zero payload (``+0.0``: a ``-0.0`` in ``base`` becomes ``+0.0``,
+    as XLA's add of what ``ppermute`` delivers does). Returns ``base``
+    (replaces ``kernels.decode_add``).
+
+    ``src_r`` is checked to lie in ``[-1, N)``, which on the card reads
+    it back; ``src_in_range=True`` (a source row of a compiled plan)
+    skips that synchronisation."""
+    packed = _check_wire(wire)
+    _require(base.dim() == 2 and base.shape[1] % CHUNK == 0,
+             f"base must be [N, C*{CHUNK}], got {tuple(base.shape)}")
+    n_workers, n_chunks = base.shape[0], base.shape[1] // CHUNK
+    _check_wire_pair(payload, scales, n_workers, n_chunks, packed)
+    on_cpu = _dispatch_device(base) == "cpu"
+    _check_round_sources(src_r, n_workers, src_in_range)
+    if on_cpu:
+        return decode_add_reference(base, payload, scales, src_r, wire)
+    from bluefog_tpu_torch import _build
+
+    dev = base.device
+    _check_cuda_operand(base, "base", torch.float32, dev)
+    _check_cuda_pair(payload, scales, src_r, dev, packed)
+    status = _build.wire_library().bf_wire_decode_add(
+        _ptr(base), _ptr(payload), _ptr(scales), _ptr(src_r), n_workers,
+        n_chunks, int(packed), _stream(base),
+    )
+    _raise_on_status(status, "decode_add")
+    _LAUNCHES["decode_add"] += 1
+    return base
 
 
 def decode_accumulate(
@@ -273,10 +460,7 @@ def decode_accumulate(
     _require(acc.dim() == 2 and acc.shape[1] % CHUNK == 0,
              f"acc must be [N, C*{CHUNK}], got {tuple(acc.shape)}")
     n_chunks = acc.shape[1] // CHUNK
-    _require(tuple(payload.shape) == (n_workers, n_chunks, _HALF if packed else CHUNK),
-             f"payload shape {tuple(payload.shape)} does not match acc")
-    _require(tuple(scales.shape) == (n_workers, n_chunks),
-             f"scales shape {tuple(scales.shape)} does not match acc")
+    _check_wire_pair(payload, scales, n_workers, n_chunks, packed)
     _require(src.dim() == 2 and src.shape[1] == n_workers
              and tuple(w.shape) == tuple(src.shape),
              "src and w must both be [R, N]")
@@ -286,15 +470,9 @@ def decode_accumulate(
 
     dev = acc.device
     _check_cuda_operand(acc, "acc", torch.float32, dev)
-    _check_cuda_operand(payload, "payload", torch.int8, dev)
-    _check_cuda_operand(
-        scales, "scales", torch.bfloat16 if packed else torch.float32, dev,
-        vector=False,
-    )
-    _check_cuda_operand(src, "src", torch.int32, dev, vector=False)
+    _check_cuda_pair(payload, scales, src, dev, packed)
     _check_cuda_operand(w, "w", torch.float32, dev, vector=False)
-    lib = _build.wire_library()
-    status = lib.bf_wire_decode_accumulate(
+    status = _build.wire_library().bf_wire_decode_accumulate(
         _ptr(acc), _ptr(payload), _ptr(scales), _ptr(src), _ptr(w),
         n_workers, n_chunks, src.shape[0], int(packed), _stream(acc),
     )

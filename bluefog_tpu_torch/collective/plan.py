@@ -21,7 +21,13 @@ from bluefog_tpu_torch.collective import compiler
 from bluefog_tpu_torch.collective.compiler import CompiledEdges
 from bluefog_tpu_torch.topology.graphs import edges as topo_edges
 
-__all__ = ["CommRound", "CommPlan", "plan_from_matrix", "plan_from_topology"]
+__all__ = [
+    "CommRound",
+    "CommPlan",
+    "perms_from_edges",
+    "plan_from_matrix",
+    "plan_from_topology",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +96,15 @@ class CommPlan:
             for s, d in rnd.perm:
                 w[s, d] = rnd.recv_weights[d]
         return w
+
+
+def perms_from_edges(
+    edges: Iterable[Tuple[int, int]], size: int
+) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
+    """Pack directed edges into partial-permutation rounds (the compiler's
+    ``auto`` decomposition): the structure lowering of the window ops
+    (:mod:`bluefog_tpu_torch.windows`)."""
+    return compiler.compile_edges(edges, size).perms
 
 
 def plan_from_matrix(

@@ -1,5 +1,6 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
-"""Runtime context: worker count, device and the active topology.
+"""Runtime context: worker count, device, the active topology, and the
+window registry.
 
 Counterpart of ``bluefog_tpu/context.py``. A worker is one slot on the
 leading axis of a ``[size, ...]`` tensor on one device (README "Worker
@@ -7,10 +8,15 @@ model"); a topology is the numpy weight matrix of
 :mod:`bluefog_tpu_torch.topology`. Entry points run on the card: with
 ``device=None`` the context takes ``"cuda"`` and raises when CUDA is
 absent; the CPU is used only when the caller asks for it.
+
+The windows of :mod:`bluefog_tpu_torch.windows` and the associated-p
+switch live on the context, so :func:`shutdown` (and a new :func:`init`)
+drops them with it.
 """
 
+import itertools
 import threading
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -25,10 +31,12 @@ __all__ = [
     "shutdown",
     "is_initialized",
     "get_context",
+    "release_associated_p",
 ]
 
 _lock = threading.Lock()
 _context: Optional["BluefogContext"] = None
+_ctx_uid = itertools.count()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,6 +73,17 @@ class BluefogContext:
         self._topo_weighted = False
         self.topo_version = 0
         self._plan_cache: Optional[tuple] = None
+        self.uid = next(_ctx_uid)
+        # name -> windows._Window
+        self.windows: Dict[str, object] = {}
+        # host-side lowering caches of the window ops, keyed on structure
+        self.op_cache: Dict[tuple, object] = {}
+        # results of the nonblocking window ops, by handle
+        self.handles: Dict[int, object] = {}
+        # the associated-p lane: the user switch, and the holds of the
+        # live push-sum optimizers
+        self.p_switch = False
+        self.p_refcount = 0
         topo_fn = topology_fn if topology_fn is not None else ExponentialGraph
         self.set_topology(topo_fn(self.size), is_weighted)
 
@@ -102,6 +121,18 @@ class BluefogContext:
             self._plan_cache = cached = (self.topo_version, plan)
         return cached[1]
 
+    def p_enabled(self) -> bool:
+        """Whether window ops carry the associated-p lane: switched on by
+        the user or held by a live push-sum optimizer."""
+        return self.p_switch or self.p_refcount > 0
+
+    def acquire_associated_p(self) -> int:
+        """Take a hold on the p lane (each push-sum optimizer takes one,
+        so freeing one cannot disable the lane under another); returns
+        this context's id, for :func:`release_associated_p`."""
+        self.p_refcount += 1
+        return self.uid
+
     def in_neighbor_ranks(self, rank: Optional[int] = None):
         if rank is None:
             return [self.in_neighbor_ranks(r) for r in range(self.size)]
@@ -135,6 +166,16 @@ def shutdown() -> None:
     global _context
     with _lock:
         _context = None
+
+
+def release_associated_p(ctx_uid: int) -> None:
+    """Release a hold taken by :meth:`BluefogContext.acquire_associated_p`,
+    only against the same context: a hold taken before a shutdown must
+    not decrement a newer context's count."""
+    ctx = _context
+    if ctx is None or ctx.uid != ctx_uid:
+        return
+    ctx.p_refcount = max(ctx.p_refcount - 1, 0)
 
 
 def is_initialized() -> bool:

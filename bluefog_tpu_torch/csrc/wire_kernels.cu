@@ -1,10 +1,13 @@
 // Copyright 2026. Licensed under the Apache License, Version 2.0.
 //
-// Block-scaled quantized gossip wire for Hopper (sm_90a): encode and
-// decode_accumulate.
+// Block-scaled quantized gossip wire for Hopper (sm_90a): encode,
+// encode_diff, decode, decode_add and decode_accumulate.
 //
 // Replaces the Pallas kernels of bluefog_tpu/collective/kernels.py:
 //   bf_wire_encode             <- encode            (_encode8_body / _encode4_body)
+//   bf_wire_encode_diff        <- encode_diff       (_encode_diff8_body / _encode_diff4_body)
+//   bf_wire_decode             <- decode            (_make_decode_body)
+//   bf_wire_decode_add         <- decode_add        (_make_decode_add_body)
 //   bf_wire_decode_accumulate  <- decode_accumulate (_make_dacc_body)
 //
 // Layout: N workers stacked on the leading axis; each worker's flat f32
@@ -18,19 +21,25 @@
 // as an IEEE divide (__fdiv_rn), round half to even (__float2int_rn), the
 // int4 scale snapped to bf16 before it divides (__float2bfloat16_rn), zero
 // guard fmaxf(absmax, FLT_MIN), and no FMA contraction (explicit __fmul_rn
-// / __fadd_rn, and the file is built with -fmad=false). Subnormals are
-// kept (no -ftz), as numpy keeps them.
+// / __fadd_rn / __fsub_rn, and the file is built with -fmad=false).
+// Subnormals are kept (no -ftz), as numpy keeps them.
 //
-// Bound: both kernels move a few bytes per element and do a handful of
-// f32 operations on each, so they are bound by device memory bandwidth.
+// The error-feedback (CHOCO) copies rest on one invariant: the sender's
+// copy h + q*s (encode_diff) and every receiver's copy base + q*s
+// (decode_add) are the same two roundings, a multiply then an add, of the
+// same q and s, so they stay bit-identical however many steps they run.
+//
+// Bound: every kernel moves a few bytes per element and does a handful of
+// f32 operations on each, so all are bound by device memory bandwidth.
 // Design: one warp per (worker, block); each lane owns 16 elements, read
 // and written with 16-byte (int8 wire) or 8-byte (int4 wire) accesses so a
 // warp touches contiguous 2 KiB of f32 and 512/256 B of payload. The block
 // absmax is a warp shuffle reduction; nothing goes through shared memory.
-// decode_accumulate reads every round's sender row straight from the
-// senders' payload (the stacked ppermute is fused into the gather), keeps
-// the accumulator in registers across all rounds and writes it once.
-// TMA copies and deeper pipelining are left for a later change.
+// A round's sender row src[j] is read straight from the senders' payload:
+// the stacked ppermute is fused into the gather, and src[j] == -1 delivers
+// a zero payload with a zero scale, as ppermute does. decode_accumulate
+// keeps the accumulator in registers across all rounds and writes it
+// once. TMA copies and deeper pipelining are left for a later change.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -136,17 +145,32 @@ __device__ __forceinline__ float load_scale(const void* scales, long long i) {
   return static_cast<const float*>(scales)[i];
 }
 
+// Block g of a round's receive: the payload integers and the scale of
+// sender row i (i < 0: the zero payload and zero scale ppermute delivers).
 template <bool PACKED>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-encode_kernel(const float* __restrict__ x, int8_t* __restrict__ payload,
-              void* __restrict__ scales, long long n_blocks) {
-  const long long g =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (g >= n_blocks) return;
+__device__ __forceinline__ float load_sender(const int8_t* payload,
+                                             const void* scales, int i,
+                                             long long n_chunks, long long c,
+                                             int lane, int (&q)[kPerLane]) {
+  if (i < 0) {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) q[k] = 0;
+    return 0.0f;
+  }
+  const long long gi = (long long)i * n_chunks + c;
+  load_q<PACKED>(payload + gi * (PACKED ? kHalf : kChunk), lane, q);
+  return load_scale<PACKED>(scales, gi);
+}
 
-  float v[kPerLane];
-  load_block<PACKED>(x + g * kChunk, lane, v);
+// Quantize block g, whose lane values are v: the block absmax is a warp
+// reduction; writes the lane's payload bytes and (lane 0) the wire scale.
+// Returns the scale the payload was divided by (the int4 one snapped to
+// bf16) and the lane's integers in q, as the copies integrate them.
+template <bool PACKED>
+__device__ __forceinline__ float quantize_block(const float (&v)[kPerLane],
+                                                int lane, long long g,
+                                                int8_t* payload, void* scales,
+                                                int (&q)[kPerLane]) {
   float amax = 0.0f;
 #pragma unroll
   for (int k = 0; k < kPerLane; ++k) amax = fmaxf(amax, fabsf(v[k]));
@@ -160,22 +184,115 @@ encode_kernel(const float* __restrict__ x, int8_t* __restrict__ payload,
     int8_t* b = reinterpret_cast<int8_t*>(&out);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const int lo = quantize(v[k], sw, 7);
-      const int hi = quantize(v[8 + k], sw, 7);
-      b[k] = static_cast<int8_t>(static_cast<uint8_t>((lo & 15) | ((hi & 15) << 4)));
+      q[k] = quantize(v[k], sw, 7);
+      q[8 + k] = quantize(v[8 + k], sw, 7);
+      b[k] = static_cast<int8_t>(
+          static_cast<uint8_t>((q[k] & 15) | ((q[8 + k] & 15) << 4)));
     }
     *reinterpret_cast<uint2*>(payload + g * kHalf + 8 * lane) = out;
     if (lane == 0) static_cast<__nv_bfloat16*>(scales)[g] = s16;
-  } else {
-    uint4 out;
-    int8_t* b = reinterpret_cast<int8_t*>(&out);
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      b[k] = static_cast<int8_t>(quantize(v[k], s, 127));
-    }
-    *reinterpret_cast<uint4*>(payload + g * kChunk + kPerLane * lane) = out;
-    if (lane == 0) static_cast<float*>(scales)[g] = s;
+    return sw;
   }
+  uint4 out;
+  int8_t* b = reinterpret_cast<int8_t*>(&out);
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    q[k] = quantize(v[k], s, 127);
+    b[k] = static_cast<int8_t>(q[k]);
+  }
+  *reinterpret_cast<uint4*>(payload + g * kChunk + kPerLane * lane) = out;
+  if (lane == 0) static_cast<float*>(scales)[g] = s;
+  return s;
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+encode_kernel(const float* __restrict__ x, int8_t* __restrict__ payload,
+              void* __restrict__ scales, long long n_blocks) {
+  const long long g =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (g >= n_blocks) return;
+
+  float v[kPerLane];
+  int q[kPerLane];
+  load_block<PACKED>(x + g * kChunk, lane, v);
+  quantize_block<PACKED>(v, lane, g, payload, scales, q);
+}
+
+// The CHOCO sender: quantize d = x - h, and integrate the shipped q into
+// the sender's public copy, h <- h + q * s, in place.
+template <bool PACKED>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+encode_diff_kernel(const float* __restrict__ x, float* __restrict__ h,
+                   int8_t* __restrict__ payload, void* __restrict__ scales,
+                   long long n_blocks) {
+  const long long g =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (g >= n_blocks) return;
+
+  float d[kPerLane], hv[kPerLane];
+  int q[kPerLane];
+  load_block<PACKED>(x + g * kChunk, lane, d);
+  load_block<PACKED>(h + g * kChunk, lane, hv);
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) d[k] = __fsub_rn(d[k], hv[k]);
+  const float sw = quantize_block<PACKED>(d, lane, g, payload, scales, q);
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    hv[k] = __fadd_rn(hv[k], __fmul_rn(static_cast<float>(q[k]), sw));
+  }
+  store_block<PACKED>(h + g * kChunk, lane, hv);
+}
+
+// out[j] = deq(payload[src[j]]) (src == nullptr: src[j] = j).
+template <bool PACKED>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+decode_kernel(float* __restrict__ out, const int8_t* __restrict__ payload,
+              const void* __restrict__ scales, const int32_t* __restrict__ src,
+              int n_workers, long long n_chunks) {
+  const long long g =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (g >= (long long)n_workers * n_chunks) return;
+  const int j = static_cast<int>(g / n_chunks);
+  const long long c = g - (long long)j * n_chunks;
+
+  int q[kPerLane];
+  const float s = load_sender<PACKED>(payload, scales, src ? src[j] : j,
+                                      n_chunks, c, lane, q);
+  float o[kPerLane];
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) o[k] = __fmul_rn(static_cast<float>(q[k]), s);
+  store_block<PACKED>(out + g * kChunk, lane, o);
+}
+
+// base[j] += deq(payload[src[j]]) in place. A missing sender adds the
+// zero payload (+0.0), as XLA adds what ppermute delivers: a -0.0 in base
+// becomes +0.0, so the row is not skipped.
+template <bool PACKED>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+decode_add_kernel(float* __restrict__ base, const int8_t* __restrict__ payload,
+                  const void* __restrict__ scales,
+                  const int32_t* __restrict__ src, int n_workers,
+                  long long n_chunks) {
+  const long long g =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (g >= (long long)n_workers * n_chunks) return;
+  const int j = static_cast<int>(g / n_chunks);
+  const long long c = g - (long long)j * n_chunks;
+
+  int q[kPerLane];
+  const float s = load_sender<PACKED>(payload, scales, src[j], n_chunks, c, lane, q);
+  float b[kPerLane];
+  load_block<PACKED>(base + g * kChunk, lane, b);
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    b[k] = __fadd_rn(b[k], __fmul_rn(static_cast<float>(q[k]), s));
+  }
+  store_block<PACKED>(base + g * kChunk, lane, b);
 }
 
 template <bool PACKED>
@@ -192,7 +309,6 @@ decode_accumulate_kernel(float* __restrict__ acc,
   if (g >= (long long)n_workers * n_chunks) return;
   const int j = static_cast<int>(g / n_chunks);
   const long long c = g - (long long)j * n_chunks;
-  const int width = PACKED ? kHalf : kChunk;
 
   float a[kPerLane];
   load_block<PACKED>(acc + g * kChunk, lane, a);
@@ -201,25 +317,16 @@ decode_accumulate_kernel(float* __restrict__ acc,
   // bits every receiver reconstructs.
   int q[kPerLane];
   float deq_s[kPerLane];
-  load_q<PACKED>(payload + g * width, lane, q);
-  const float s_self = load_scale<PACKED>(scales, g);
+  const float s_self = load_sender<PACKED>(payload, scales, j, n_chunks, c, lane, q);
 #pragma unroll
   for (int k = 0; k < kPerLane; ++k) {
     deq_s[k] = __fmul_rn(static_cast<float>(q[k]), s_self);
   }
 
   for (int r = 0; r < n_rounds; ++r) {
-    const int i = src[r * n_workers + j];
     const float wr = w[r * n_workers + j];
-    float s_r = 0.0f;
-    if (i >= 0) {
-      const long long gi = (long long)i * n_chunks + c;
-      load_q<PACKED>(payload + gi * width, lane, q);
-      s_r = load_scale<PACKED>(scales, gi);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) q[k] = 0;  // ppermute delivers zeros
-    }
+    const float s_r = load_sender<PACKED>(payload, scales, src[r * n_workers + j],
+                                          n_chunks, c, lane, q);
 #pragma unroll
     for (int k = 0; k < kPerLane; ++k) {
       const float deq_r = __fmul_rn(static_cast<float>(q[k]), s_r);
@@ -248,6 +355,64 @@ int bf_wire_encode(const float* x, int8_t* payload, void* scales,
     } else {
       encode_kernel<false><<<grid_for(n_blocks), kWarpsPerBlock * 32, 0, st>>>(
           x, payload, scales, n_blocks);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, h [n_blocks * 512] f32 -> payload, scales of Q(x - h); h += deq(q) in
+// place. Returns cudaGetLastError().
+int bf_wire_encode_diff(const float* x, float* h, int8_t* payload,
+                        void* scales, long long n_blocks, int packed,
+                        void* stream) {
+  if (n_blocks > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (packed) {
+      encode_diff_kernel<true>
+          <<<grid_for(n_blocks), kWarpsPerBlock * 32, 0, st>>>(
+              x, h, payload, scales, n_blocks);
+    } else {
+      encode_diff_kernel<false>
+          <<<grid_for(n_blocks), kWarpsPerBlock * 32, 0, st>>>(
+              x, h, payload, scales, n_blocks);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [n_workers, n_chunks * 512] f32 <- deq of sender row src[j] (src may
+// be null: every row decodes its own). Returns cudaGetLastError().
+int bf_wire_decode(float* out, const int8_t* payload, const void* scales,
+                   const int32_t* src, int n_workers, long long n_chunks,
+                   int packed, void* stream) {
+  const long long warps = (long long)n_workers * n_chunks;
+  if (warps > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (packed) {
+      decode_kernel<true><<<grid_for(warps), kWarpsPerBlock * 32, 0, st>>>(
+          out, payload, scales, src, n_workers, n_chunks);
+    } else {
+      decode_kernel<false><<<grid_for(warps), kWarpsPerBlock * 32, 0, st>>>(
+          out, payload, scales, src, n_workers, n_chunks);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// base [n_workers, n_chunks * 512] f32 += deq of sender row src[j], in
+// place. Returns cudaGetLastError().
+int bf_wire_decode_add(float* base, const int8_t* payload, const void* scales,
+                       const int32_t* src, int n_workers, long long n_chunks,
+                       int packed, void* stream) {
+  const long long warps = (long long)n_workers * n_chunks;
+  if (warps > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (packed) {
+      decode_add_kernel<true><<<grid_for(warps), kWarpsPerBlock * 32, 0, st>>>(
+          base, payload, scales, src, n_workers, n_chunks);
+    } else {
+      decode_add_kernel<false><<<grid_for(warps), kWarpsPerBlock * 32, 0, st>>>(
+          base, payload, scales, src, n_workers, n_chunks);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -7,20 +7,34 @@ Phases, one line each; any failure exits non-zero:
 
 1. device   -- the card's name, and its name and power limit from nvidia-smi;
 2. build    -- compiles the CUDA wire kernels from ``bluefog_tpu_torch/csrc``;
-3. parity   -- ``encode`` and ``decode_accumulate`` against their plain
-               PyTorch versions on the card, int8 and int4, on a ragged input
+3. parity   -- every wire kernel (``encode``, ``decode_accumulate``,
+               ``encode_diff``, ``decode_add``, ``decode``) against its plain
+               PyTorch version on the card, int8 and int4, on a ragged input
                with an all-zero and a +-tiny block, over the Exp2(8) plan and
                the StarGraph(8) plan (partial permutations): bitwise;
 4. consensus-- 40 rounds of ``neighbor_allreduce(x, compression="int8")`` on
                ``[8, 2**20]``: the spread shrinks 100x, the worker mean stays;
-5. train    -- the main path: ResNet50 (1000 classes, bf16 compute) on 8
+5. ef       -- 60 rounds of the int4_ef and int8_ef combines (the CTA
+               optimizer at lr = 0) on ``[8, 2**20]``: the CHOCO copies stay
+               bit-identical (``xhat_recv[r][j] == xhat_self[src[r, j]]``),
+               the worker mean is kept to 1e-5, and int4_ef ends at least
+               100x below the spread of the memoryless int4 wire;
+6. train    -- the main path, ResNet50 (1000 classes, bf16 compute) on 8
                virtual workers, 64 images of 224x224 each, seeded synthetic
-               data, ``DistributedAdaptThenCombineOptimizer(sgd(0.1, 0.9))``
-               with the int8 wire on the default Exp graph: 2 warm-up and 4
-               timed steps, then one int4 step and one step of the CTA
-               ``DistributedNeighborAllreduceOptimizer``. The kernels' launch
-               counts are zeroed just before and read just after;
-6. kernels  -- each kernel against its plain version at the main path's
+               data, ``sgd(0.1, 0.9)`` on the default Exp graph, in three
+               paths, each with the kernels' launch counts zeroed just before
+               and read just after:
+               wire -- ATC int8 (2 warm-up, 4 timed steps), one ATC int4 and
+                       one CTA int8 step;
+               ef   -- ATC int4_ef (1 warm-up, 2 timed), one ATC int8_ef and
+                       one CTA int4_ef step;
+               push-sum -- ``DistributedPushSumOptimizer`` with
+                       ``BLUEFOG_WINDOW_WIRE=int4`` (1 warm-up, 2 timed, the
+                       gradients taken at ``params()``), then one step at
+                       lr = 0 that holds the x mass to 1e-5 of sum |x| and
+                       the p mass to 8;
+7. profile  -- one ATC int8 step under ``torch.profiler``;
+8. kernels  -- each kernel against its plain version at the main path's
                shapes (the full packed parameter buffer), timed with CUDA
                events beside its memory bound, then one JSON line.
 
@@ -29,6 +43,7 @@ exits non-zero before printing any result.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -57,9 +72,19 @@ H100_SXM_RATE = 3.35e12
 # Plain float32 arithmetic outside the tensor cores (H100 SXM data sheet).
 F32_RATE = 67e12
 
+# kernel -> the TPU kernel it replaces
 KERNEL_ROWS = {
-    "encode": ("bluefog_tpu/collective/kernels.py:373", "encode"),
-    "decode_accumulate": ("bluefog_tpu/collective/kernels.py:449", "decode_accumulate"),
+    "encode": "bluefog_tpu/collective/kernels.py:373",
+    "decode_accumulate": "bluefog_tpu/collective/kernels.py:449",
+    "encode_diff": "bluefog_tpu/collective/kernels.py:394",
+    "decode_add": "bluefog_tpu/collective/kernels.py:431",
+    "decode": "bluefog_tpu/collective/kernels.py:415",
+}
+# the kernels each path of the train phase must launch
+PATH_KERNELS = {
+    "wire": ("encode", "decode_accumulate"),
+    "ef": ("encode_diff", "decode_add"),
+    "push-sum": ("encode", "decode"),
 }
 
 
@@ -147,28 +172,69 @@ def check_encode(x, wire):
 def check_decode(acc, p, s, src, w, wire):
     got = kernels.decode_accumulate(acc.clone(), p, s, src, w, wire)
     ref = kernels.decode_accumulate_reference(acc.clone(), p, s, src, w, wire)
-    sync(acc.device)
+    return check_same("decode_accumulate", wire, got, ref)
+
+
+def check_same(name, wire, got, ref):
+    """A kernel's f32 output against its plain version's, bitwise;
+    returns the max abs difference (0)."""
+    sync(got.device)
     if not torch.equal(bits(got), bits(ref)):
         raise AssertionError(
-            f"decode_accumulate[{wire}] differs from its plain version: max ulp "
+            f"{name}[{wire}] differs from its plain version: max ulp "
             f"{max_ulp(got, ref)}, max abs {float((got - ref).abs().max())}"
         )
     return float((got - ref).abs().max())
 
 
+def check_encode_diff(x, h, wire):
+    """encode_diff on a copy of ``h`` against its plain version on
+    another: payload, scales and the updated copy. Returns ``(max abs
+    difference, payload, scales, updated copy)``."""
+    hk, hr = h.clone(), h.clone()
+    p, s = kernels.encode_diff(x, hk, wire)
+    rp, rs = kernels.encode_diff_reference(x, hr, wire)
+    sync(x.device)
+    if not (torch.equal(p, rp) and torch.equal(bits(s), bits(rs))):
+        raise AssertionError(
+            f"encode_diff[{wire}] differs from its plain version: payload max diff "
+            f"{int((p.int() - rp.int()).abs().max())}, scales max ulp {max_ulp(s, rs)}"
+        )
+    return check_same("encode_diff", wire, hk, hr), p, s, hk
+
+
+def check_decode_add(base, p, s, src_r, wire):
+    got = kernels.decode_add(base.clone(), p, s, src_r, wire)
+    ref = kernels.decode_add_reference(base.clone(), p, s, src_r, wire)
+    return check_same("decode_add", wire, got, ref)
+
+
+def check_decode_rows(p, s, src_r, wire):
+    return check_same("decode", wire, kernels.decode(p, s, src_r, wire),
+                      kernels.decode_reference(p, s, src_r, wire))
+
+
 def phase_parity(device):
     x = kernels.pad_blocks(ragged_input(device)).contiguous()
+    h = kernels.pad_blocks(ragged_input(device, seed=1) * 0.5).contiguous()
+    h[:, :1024] = 0.0  # the zero and the +-tiny blocks keep their difference
     plans = {
         "exp2": plan_from_topology(topo.ExponentialTwoGraph(SIZE), weighted=True),
         "star": plan_from_topology(topo.StarGraph(SIZE), weighted=True),
     }
     for wire in ("int8", "int4"):
         _err, p, s = check_encode(x, wire)
+        _err, pd, sd, _h = check_encode_diff(x, h, wire)
+        check_decode_rows(pd, sd, None, wire)
         for name, plan in plans.items():
             src, _self_w, recv_w = inner.plan_operands(plan, device)
             check_decode(x, p, s, src, recv_w, wire)
-        log("parity", f"{wire}: encode and decode_accumulate (exp2, star) bitwise "
-                      f"equal to the plain versions on [{SIZE}, {x.shape[1]}]")
+            for r in range(src.shape[0]):
+                check_decode_add(h, pd, sd, src[r], wire)
+                check_decode_rows(pd, sd, src[r], wire)
+        log("parity", f"{wire}: encode, decode_accumulate, encode_diff, decode_add and "
+                      f"decode (exp2, star) bitwise equal to the plain versions on "
+                      f"[{SIZE}, {x.shape[1]}]")
 
 
 def phase_consensus(device, n=1 << 20, rounds=40):
@@ -189,6 +255,53 @@ def phase_consensus(device, n=1 << 20, rounds=40):
         raise AssertionError(f"worker mean drifted {drift:.3g} (> 1e-5 relative)")
 
 
+def spread(t):
+    return float((t - t.mean(0)).abs().max())
+
+
+def phase_ef(device, n=1 << 20, rounds=60):
+    """The CHOCO copies' identity, the mean, and int4_ef against the
+    memoryless int4 wire after the same rounds, at lr = 0."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    x0 = torch.randn(SIZE, n, generator=gen, device=device)
+    mean0 = x0.mean(0)
+    src = bft.get_context().static_plan().sources()
+    zero = {"w": torch.zeros_like(x0)}
+    spreads = {}
+    for tier in ("int4_ef", "int8_ef"):
+        opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.0))
+        opt.compression = tier
+        params = {"w": x0.clone()}
+        state = opt.init(params)
+        for _ in range(rounds):
+            opt.step(params, state, zero)
+        (xhat_self, xhat_recv), = opt._ef
+        for r in range(src.shape[0]):
+            for j in range(SIZE):
+                if src[r, j] >= 0 and not torch.equal(bits(xhat_recv[r][j]),
+                                                      bits(xhat_self[src[r, j]])):
+                    raise AssertionError(f"{tier}: copy of round {r} at worker {j} "
+                                         "differs from its source's own copy")
+        drift = float((params["w"].mean(0) - mean0).abs().max()) / float(mean0.abs().max())
+        if not drift <= 1e-5:
+            raise AssertionError(f"{tier}: worker mean drifted {drift:.3g} (> 1e-5 relative)")
+        spreads[tier] = spread(params["w"])
+        log("ef", f"{tier}: {rounds} rounds on [{SIZE}, {n}]: spread {spread(x0):.4g} -> "
+                  f"{spreads[tier]:.4g}, mean drift {drift:.3g} (relative), copies "
+                  "bit-identical to their sources'")
+        opt.free()
+        del params, state
+    plain = x0.clone()
+    for _ in range(rounds):
+        plain = bft.neighbor_allreduce(plain, compression="int4")
+    spreads["int4"] = spread(plain)
+    ratio = spreads["int4"] / max(spreads["int4_ef"], float(np.finfo(np.float32).tiny))
+    log("ef", f"int4 (no memory) after the same rounds: spread {spreads['int4']:.4g}; "
+              f"int4_ef is {ratio:.4g}x below it")
+    if not spreads["int4_ef"] * 100 <= spreads["int4"]:
+        raise AssertionError(f"int4_ef spread only {ratio:.3g}x below int4 (< 100x)")
+
+
 def build_trainer(device, stage_sizes=None, num_filters=64, batch=BATCH, image=IMAGE,
                   num_classes=1000, seed=0):
     kw = {} if stage_sizes is None else {"stage_sizes": stage_sizes}
@@ -203,48 +316,126 @@ def build_trainer(device, stage_sizes=None, num_filters=64, batch=BATCH, image=I
     return sm, images, labels
 
 
-def phase_train(device, sm, images, labels, warmup=WARMUP, timed=TIMED):
-    """The main path. Returns ``(params, launch counts, [(step, forward
-    and backward, optimizer) seconds per timed step])``; the split
-    synchronises the card between the two parts."""
-    params = sm.replicate()
-    grads = torch.empty_like(params)
-    atc = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
-    atc.compression = "int8"
-    state = atc.init(params)
-    losses, times = [], []
+class Trainer:
+    """Runs and logs the tiers of the train phase on one parameter buffer."""
 
-    def step(opt, st):
+    def __init__(self, device, sm, images, labels):
+        self.device, self.sm, self.images, self.labels = device, sm, images, labels
+        self.params = sm.replicate()
+        self.grads = torch.empty_like(self.params)
+        self.tiers = {}
+
+    def _timed(self, at, opt_step):
+        """One step: the gradient at ``at``, then ``opt_step()``; returns
+        ``(loss [N], forward+backward s, optimizer s)``. The split
+        synchronises the card between the two parts."""
         t0 = time.perf_counter()
-        loss, _ = sm.loss_and_grad(params, images, labels, grads)
-        sync(device)
+        loss, _ = self.sm.loss_and_grad(at, self.images, self.labels, self.grads)
+        sync(self.device)
         t1 = time.perf_counter()
-        opt.step(params, st, grads)
-        sync(device)
-        t2 = time.perf_counter()
-        losses.append(loss.float().cpu())
-        return t2 - t0, t1 - t0, t2 - t1
+        opt_step()
+        sync(self.device)
+        return loss.float().cpu(), t1 - t0, time.perf_counter() - t1
 
+    def run(self, name, warmup, timed, step):
+        """``warmup + timed`` calls of ``step() -> (loss, fb s, opt s)``;
+        logs the losses, the median timed step and the peak memory."""
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+        losses, times = [], []
+        for i in range(warmup + timed):
+            loss, fb, opt = step()
+            losses.append(loss)
+            if i >= warmup:
+                times.append((fb + opt, fb, opt))
+        table = torch.stack(losses)
+        if not torch.isfinite(table).all() or not torch.isfinite(self.params).all():
+            raise AssertionError(f"{name}: non-finite loss or parameters")
+        peak = (torch.cuda.max_memory_allocated(self.device) / 2**30
+                if self.device.type == "cuda" else float("nan"))
+        med = [statistics.median(t[k] for t in times) for k in range(3)] if times else None
+        self.tiers[name] = {"times": times, "median": med, "peak_gib": peak,
+                            "losses": [float(r.mean()) for r in table]}
+        for i, row in enumerate(table):
+            log("train", f"{name} step {i}: mean loss {float(row.mean()):.5f} "
+                         f"(workers {float(row.min()):.4f}..{float(row.max()):.4f})")
+        if med:
+            log("train", f"{name}: median step {med[0]:.4f} s over {len(times)} (steps "
+                         f"{', '.join(f'{t[0]:.4f}' for t in times)} s) = forward+backward "
+                         f"{med[1]:.4f} s + optimizer {med[2]:.4f} s; peak memory "
+                         f"{peak:.2f} GiB")
+
+    def gossip(self, name, order, compression, warmup, timed):
+        make = {"atc": bft.DistributedAdaptThenCombineOptimizer,
+                "cta": bft.DistributedNeighborAllreduceOptimizer}[order]
+        opt = make(bft.sgd(0.1, momentum=0.9))
+        opt.compression = compression
+        state = opt.init(self.params)
+        self.run(name, warmup, timed, lambda: self._timed(
+            self.params, lambda: opt.step(self.params, state, self.grads)))
+        opt.free()
+
+    def pushsum(self, name, warmup, timed):
+        """Push-sum on the int4 window wire, the gradients taken at
+        ``params()``; then one step at lr = 0 that must keep the x mass
+        (values plus buffers, float64 sums) to 1e-5 of sum |x| and the p
+        mass at 8. Returns that step's numbers."""
+        os.environ["BLUEFOG_WINDOW_WIRE"] = "int4"
+        opt = bft.DistributedPushSumOptimizer(bft.sgd(0.1, momentum=0.9))
+        state = opt.init(self.params)
+        est = [opt.params()]
+
+        def step():
+            def opt_step():
+                est[0], _ = opt.step(state, self.grads)
+            return self._timed(est[0], opt_step)
+
+        self.run(name, warmup, timed, step)
+        win = bft.get_context().windows[opt._name]
+
+        def mass():
+            f64 = torch.float64
+            x = float(torch.sum(win.value, dtype=f64) + torch.sum(win.buffers, dtype=f64))
+            total = float(torch.sum(win.value.abs(), dtype=f64)
+                          + torch.sum(win.buffers.abs(), dtype=f64))
+            p = float(torch.sum(win.p, dtype=f64) + torch.sum(win.p_buffers, dtype=f64))
+            return x, total, p
+
+        x0, abs0, _p0 = mass()
+        opt.tx = bft.sgd(0.0, momentum=0.9)
+        self.sm.loss_and_grad(est[0], self.images, self.labels, self.grads)
+        opt.step(state, self.grads)
+        sync(self.device)
+        x1, _abs1, p1 = mass()
+        self.params.copy_(win.value / win.p[:, None])
+        opt.free()
+        del os.environ["BLUEFOG_WINDOW_WIRE"]
+        log("train", f"{name}: lr 0 step: x mass {x0:.9g} -> {x1:.9g} (drift "
+                     f"{abs(x1 - x0) / abs0:.3g} of sum |x| = {abs0:.6g}), p mass {p1:.9g}")
+        if not abs(x1 - x0) <= 1e-5 * abs0:
+            raise AssertionError(f"push-sum x mass drifted {abs(x1 - x0):.4g} (> 1e-5 of {abs0:.4g})")
+        if not abs(p1 - SIZE) <= 1e-5:
+            raise AssertionError(f"push-sum p mass {p1} is not {SIZE}")
+
+
+def phase_train(trainer, warmup=WARMUP, timed=TIMED):
+    """The main path, in three paths; returns the launch counts of each,
+    zeroed just before the path and read just after."""
+    counts = {}
     kernels.reset_launch_counts()
-    for i in range(warmup + timed):
-        dt = step(atc, state)
-        if i >= warmup:
-            times.append(dt)
-    atc.compression = "int4"
-    step(atc, state)
-    cta = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1, momentum=0.9))
-    cta.compression = "int8"
-    step(cta, cta.init(params))
-    counts = kernels.launch_counts()
-
-    table = torch.stack(losses)
-    if not torch.isfinite(table).all() or not torch.isfinite(params).all():
-        raise AssertionError("non-finite loss or parameters")
-    for i, row in enumerate(table):
-        kind = "atc/int8" if i < warmup + timed else ("atc/int4" if i == warmup + timed else "cta/int8")
-        log("train", f"step {i} {kind}: mean loss {float(row.mean()):.5f} "
-                     f"(workers {float(row.min()):.4f}..{float(row.max()):.4f})")
-    return params, counts, times
+    trainer.gossip("atc/int8", "atc", "int8", warmup, timed)
+    trainer.gossip("atc/int4", "atc", "int4", 0, 1)
+    trainer.gossip("cta/int8", "cta", "int8", 0, 1)
+    counts["wire"] = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    trainer.gossip("atc/int4_ef", "atc", "int4_ef", 1, 2)
+    trainer.gossip("atc/int8_ef", "atc", "int8_ef", 0, 1)
+    trainer.gossip("cta/int4_ef", "cta", "int4_ef", 0, 1)
+    counts["ef"] = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    trainer.pushsum("push-sum/int4", 1, 2)
+    counts["push-sum"] = kernels.launch_counts()
+    return counts
 
 
 def phase_profile(device, sm, images, labels, params, top=12):
@@ -282,62 +473,84 @@ def phase_profile(device, sm, images, labels, params, top=12):
         log("profile", f"{100 * us / busy_us:5.1f}% {us / 1e3:9.2f} ms x{count:5d} {key[:110]}")
 
 
-def phase_kernels(device, params, counts, rate):
+def phase_kernels(device, params, launches, rate):
     """Each kernel against its plain version at the main path's shapes,
     and timed; returns the rows of the kernels JSON line."""
     plan = bft.get_context().static_plan()
     src, _self_w, recv_w = inner.plan_operands(plan, device)
     n_workers, width = params.shape
     elems = n_workers * width
-    rows, lines = [], []
+    rows, lines = {}, []
+    plain_time = lambda fn: time_ms(fn, device, iters=3, warmup=1)
     for wire in ("int8", "int4"):
         x = params.clone()
-        enc_err, p, s = check_encode(x, wire)
-        dec_err = check_decode(x, p, s, src, recv_w, wire)
-        acc = x.clone()
-        enc_ms = time_ms(lambda: kernels.encode(x, wire), device)
-        enc_plain = time_ms(lambda: kernels.encode_reference(x, wire), device, iters=3, warmup=1)
-        dec_ms = time_ms(lambda: kernels.decode_accumulate(acc, p, s, src, recv_w, wire), device)
-        dec_plain = time_ms(
-            lambda: kernels.decode_accumulate_reference(acc, p, s, src, recv_w, wire),
-            device, iters=3, warmup=1,
-        )
-        payload_b = p.numel() * p.element_size()
-        scales_b = s.numel() * s.element_size()
+        h = params * 0.999  # a CHOCO copy near the parameters
+        errs = {}
+        errs["encode"], p, s = check_encode(x, wire)
+        errs["decode_accumulate"] = check_decode(x, p, s, src, recv_w, wire)
+        errs["encode_diff"], pd, sd, _h = check_encode_diff(x, h, wire)
+        # every source row the paths give these two: each round's, and
+        # (decode) the sender's own payload
+        errs["decode_add"] = max(check_decode_add(h, pd, sd, src[r], wire)
+                                 for r in range(src.shape[0]))
+        errs["decode"] = max(check_decode_rows(pd, sd, src_r, wire)
+                             for src_r in [None] + list(src))
+        acc, hk, base = x.clone(), h.clone(), h.clone()
+        calls = {
+            "encode": (lambda: kernels.encode(x, wire),
+                       lambda: kernels.encode_reference(x, wire)),
+            "decode_accumulate": (
+                lambda: kernels.decode_accumulate(acc, p, s, src, recv_w, wire),
+                lambda: kernels.decode_accumulate_reference(acc, p, s, src, recv_w, wire)),
+            "encode_diff": (lambda: kernels.encode_diff(x, hk, wire),
+                            lambda: kernels.encode_diff_reference(x, hk, wire)),
+            "decode_add": (
+                lambda: kernels.decode_add(base, pd, sd, src[0], wire, src_in_range=True),
+                lambda: kernels.decode_add_reference(base, pd, sd, src[0], wire)),
+            "decode": (lambda: kernels.decode(pd, sd, src[0], wire, src_in_range=True),
+                       lambda: kernels.decode_reference(pd, sd, src[0], wire)),
+        }
+        wire_b = p.numel() * p.element_size() + s.numel() * s.element_size()
+        f32_b = elems * 4
         # bytes: every input read once, every output written once
-        enc_bytes = elems * 4 + payload_b + scales_b
-        dec_bytes = 2 * elems * 4 + payload_b + scales_b + src.numel() * 4 + recv_w.numel() * 4
-        # operations: |x| and max per element, then divide and round (int4:
-        # and pack); decode: the self dequant, then per round a dequant,
-        # a subtract, a multiply and an add
-        enc_ops = 4 * elems
-        dec_ops = (1 + 4 * src.shape[0]) * elems
-        for name, ms, plain, nbytes, ops, err in (
-            ("encode", enc_ms, enc_plain, enc_bytes, enc_ops, enc_err),
-            ("decode_accumulate", dec_ms, dec_plain, dec_bytes, dec_ops, dec_err),
-        ):
-            t_bytes, t_ops = nbytes / rate * 1e3, ops / F32_RATE * 1e3
+        nbytes = {
+            "encode": f32_b + wire_b,
+            "decode_accumulate": 2 * f32_b + wire_b + src.numel() * 4 + recv_w.numel() * 4,
+            "encode_diff": 3 * f32_b + wire_b,
+            "decode_add": 2 * f32_b + wire_b + n_workers * 4,
+            "decode": f32_b + wire_b + n_workers * 4,
+        }
+        # f32 operations per element: encode |x|, max, divide, round (int4:
+        # and pack); decode_accumulate the self dequant, then per round a
+        # dequant, a subtract, a multiply and an add; encode_diff the
+        # subtract, encode's four, and the copy's multiply and add;
+        # decode_add a multiply and an add; decode a multiply
+        ops = {"encode": 4, "decode_accumulate": 1 + 4 * src.shape[0], "encode_diff": 7,
+               "decode_add": 2, "decode": 1}
+        for name, (kernel, plain) in calls.items():
+            ms, plain_ms = time_ms(kernel, device), plain_time(plain)
+            t_bytes, t_ops = nbytes[name] / rate * 1e3, ops[name] * elems / F32_RATE * 1e3
+            bound = max(t_bytes, t_ops)
             lines.append(
                 f"{name}[{wire}] [{n_workers}, {width}]: {ms:.4f} ms kernel, "
-                f"{plain:.4f} ms plain, bound {max(t_bytes, t_ops):.4f} ms "
-                f"({nbytes / 1e9:.4f} GB), {nbytes / ms / 1e6:.1f} GB/s"
+                f"{plain_ms:.4f} ms plain, bound {bound:.4f} ms "
+                f"({nbytes[name] / 1e9:.4f} GB), {nbytes[name] / ms / 1e6:.1f} GB/s, "
+                f"{100 * bound / ms:.1f}% of the bound"
             )
-            if wire == "int8":
-                replaces, _ = KERNEL_ROWS[name]
-                rows.append({
+            if name not in rows:
+                rows[name] = {
                     "name": name, "route": "cuda",
                     "source": "bluefog_tpu_torch/csrc/wire_kernels.cu",
-                    "replaces": replaces, "launches": counts[name],
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": max(t_bytes, t_ops),
+                    "replaces": KERNEL_ROWS[name], "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound,
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "library_ms": None,
-                })
+                }
             else:
-                row = next(r for r in rows if r["name"] == name)
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-        del x, acc, p, s
-    return rows, lines
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], errs[name])
+        del x, h, acc, hk, base, p, s, pd, sd, calls
+    return list(rows.values()), lines
 
 
 def main():
@@ -350,40 +563,49 @@ def main():
     smi = nvidia_smi_line()
     log("device", f"{kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
                   f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     libs = _build.build(["wire_kernels"])
     _build.wire_library()
     log("build", f"wire_kernels built in {time.perf_counter() - t0:.1f} s -> {libs['wire_kernels']}")
     for line in libs["wire_kernels"].with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("build", line.strip())
 
     bft.init(size=SIZE)
     phase_parity(device)
     phase_consensus(device)
+    phase_ef(device)
 
     sm, images, labels = build_trainer(device)
     if sm.n_params != RESNET50_PARAMS:
         raise AssertionError(f"ResNet50 has {sm.n_params} parameters, expected {RESNET50_PARAMS}")
-    params, counts, times = phase_train(device, sm, images, labels)
-    missing = [k for k in KERNEL_ROWS if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"the main path launched no {missing} kernel: {counts}")
-    step_s, fwd_s, opt_s = (statistics.median(t[k] for t in times) for k in range(3))
+    trainer = Trainer(device, sm, images, labels)
+    counts = phase_train(trainer)
+    for path, names in PATH_KERNELS.items():
+        missing = [k for k in names if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    launches = {k: sum(c[k] for c in counts.values()) for k in KERNEL_ROWS}
+    med = trainer.tiers["atc/int8"]["median"]
     log("train", f"ResNet50 x{SIZE} workers, {BATCH} images of {IMAGE}x{IMAGE} each, "
-                 f"{sm.n_params} parameters per worker ({sm.width} packed): median step "
-                 f"{step_s:.4f} s over {len(times)} (steps "
-                 f"{', '.join(f'{t[0]:.4f}' for t in times)} s) = forward+backward "
-                 f"{fwd_s:.4f} s + optimizer (SGD and int8 gossip) {opt_s:.4f} s; "
-                 f"{SIZE * BATCH / step_s:.1f} images/s; peak memory "
-                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}; on {smi}")
+                 f"{sm.n_params} parameters per worker ({sm.width} packed); atc/int8: "
+                 f"median step {med[0]:.4f} s, {SIZE * BATCH / med[0]:.1f} images/s; "
+                 f"launches per path {counts}; on {smi}")
+    for name, tier in trainer.tiers.items():
+        if tier["median"]:
+            step_s, fb_s, opt_s = tier["median"]
+            log("train", f"tier {name}: step {step_s:.4f} s, forward+backward {fb_s:.4f} s, "
+                         f"optimizer {opt_s:.4f} s, peak {tier['peak_gib']:.2f} GiB")
+    params = trainer.params
     phase_profile(device, sm, images, labels, params)
-    del images, labels
+    del images, labels, trainer
 
-    rows, lines = phase_kernels(device, params, counts, memory_rate(kind))
+    rows, lines = phase_kernels(device, params, launches, memory_rate(kind))
     for line in lines:
         log("kernels", f"{line}; on {smi}")
+    log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print("kernels: " + json.dumps([r["name"] for r in rows]))
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -36,7 +36,7 @@ def _imported_modules(path: Path):
 
 def test_port_sources_exist():
     names = {p.name for p in _port_sources()}
-    assert {"chip_smoke.py", "kernels.py", "optimizers.py", "resnet.py"} <= names
+    assert {"chip_smoke.py", "kernels.py", "optimizers.py", "resnet.py", "windows.py"} <= names
     assert (ROOT / "bluefog_tpu_torch" / "csrc" / "wire_kernels.cu").is_file()
 
 
@@ -64,9 +64,20 @@ def test_wrappers_take_plain_versions_only_on_cpu():
     other device is refused rather than computed elsewhere."""
     kernels.reset_launch_counts()
     x = torch.randn(2, 1024)
+    src = torch.tensor([[1, 0]], dtype=torch.int32)
     p, s = kernels.encode(x, "int8")
-    kernels.decode_accumulate(x.clone(), p, s, torch.tensor([[1, 0]], dtype=torch.int32),
-                              torch.full((1, 2), 0.5), "int8")
-    assert kernels.launch_counts() == {"encode": 0, "decode_accumulate": 0}
-    with pytest.raises(ValueError):
-        kernels.encode(x.to("meta"), "int8")
+    kernels.decode_accumulate(x.clone(), p, s, src, torch.full((1, 2), 0.5), "int8")
+    kernels.encode_diff(x, torch.zeros_like(x), "int8")
+    kernels.decode_add(x.clone(), p, s, src[0], "int8")
+    kernels.decode(p, s, src[0], "int8")
+    kernels.decode(p, s, None, "int8")
+    assert kernels.launch_counts() == {
+        "encode": 0, "encode_diff": 0, "decode": 0, "decode_add": 0, "decode_accumulate": 0,
+    }
+    for call in (
+        lambda m: kernels.encode(m, "int8"),
+        lambda m: kernels.encode_diff(m, m.clone(), "int8"),
+        lambda m: kernels.decode_add(m, p.to("meta"), s.to("meta"), src[0].to("meta"), "int8"),
+    ):
+        with pytest.raises(ValueError):
+            call(x.to("meta"))

@@ -112,7 +112,7 @@ def test_optimizer_trajectories_match(contexts, order, compression):
 
 def test_optimizer_rejects_unknown_compression(contexts):
     opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
-    opt.compression = "int8_ef"
+    opt.compression = "bf16_ef"
     p = {"w": torch.zeros(SIZE, 4)}
     with pytest.raises(ValueError):
         opt.step(p, opt.init(p), {"w": torch.zeros(SIZE, 4)})

@@ -255,3 +255,198 @@ def test_wrappers_validate_shapes():
         tk.decode_accumulate(acc, p, s, torch.zeros(1, 3, dtype=torch.int32),
                              torch.zeros(1, 3), "int8")
 
+
+
+# -- encode_diff, decode_add, decode ---------------------------------------------
+
+
+def _copy_input(seed, n=3000, small=None):
+    """A CHOCO sender's public copy ``h`` beside ``ragged_input``: of the
+    size of ``x`` elsewhere, zero on the all-zero block (so that block's
+    difference is zero too) and on the small block (whose difference is
+    then the small values themselves)."""
+    rng = np.random.RandomState(seed)
+    h = (rng.randn(SIZE, n) * 4.0).astype(np.float32)
+    h[:, :min(n, 1024)] = 0.0
+    return h
+
+
+def _fma_bound(a, b):
+    """One ulp of each of two roundings: what separates ``h + q * s``
+    rounded twice (the port) from one FMA (XLA:CPU's contraction)."""
+    return np.spacing(np.abs(a)) + np.spacing(np.abs(b))
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_encode_diff_matches_jax_kernel(wire):
+    """Payload and scales bitwise; the updated copy ``h + q * s`` bitwise
+    for int4 (a nibble times a bf16 scale is exact in f32, so an FMA
+    rounds as the separate add does) and within one ulp of the product
+    and of the sum for int8, where XLA:CPU may contract the add into an
+    FMA and the port (and its CUDA kernel, built with -fmad=false) rounds
+    twice."""
+    k = _jax_kernels()
+    x = ragged_input(seed=6, small=JAX_SMALL)
+    h0 = _copy_input(seed=7)
+    h = tk.pad_blocks(torch.from_numpy(h0)).clone()
+    payload, scales = tk.encode_diff(tk.pad_blocks(torch.from_numpy(x)), h, wire)
+    enc = jax.jit(k.encode_diff, static_argnums=2)
+    n = x.shape[1]
+    for j in range(SIZE):
+        jp, js, jh = enc(jnp.asarray(x[j]), jnp.asarray(h0[j]), wire)
+        np.testing.assert_array_equal(payload[j].numpy(), np.asarray(jp))
+        got_s, ref_s = _scales_np(scales[j]), _bits(js)
+        assert ref_s[0] == 0  # the zero block's subnormal scale, flushed by XLA:CPU
+        np.testing.assert_array_equal(got_s[1:], ref_s[1:])
+        got, want = h[j, :n].numpy(), np.asarray(jh)
+        if wire == "int4":
+            np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+        else:
+            step = tk.unpad_blocks(tk.dequantize(payload, scales), n)[j].numpy()
+            assert (np.abs(got - want) <= _fma_bound(step, got)).all()
+        assert not h[j, n:].any()  # the padded tail stays zero
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_encode_diff_matches_wire_ref(wire):
+    """Against the numpy wire reference, zero and subnormal-scale blocks
+    included: the payload quantizes ``x - h`` with the programs' scale,
+    and the new copy is ``h + np_decode(payload)``, bit for bit."""
+    x = ragged_input(seed=8)
+    h0 = _copy_input(seed=9)
+    h = tk.pad_blocks(torch.from_numpy(h0)).clone()
+    payload, scales = tk.encode_diff(tk.pad_blocks(torch.from_numpy(x)), h, wire)
+    n = x.shape[1]
+    lim = 7 if wire == "int4" else 127
+    for j in range(SIZE):
+        d = x[j] - h0[j]
+        sw = np.asarray(_np_scale(d, wire))
+        np.testing.assert_array_equal(_scales_np(scales[j]), _bits(sw))
+        blocks = np.pad(d, (0, -n % 512)).reshape(-1, 512)
+        q = np.clip(np.round(blocks / sw.astype(np.float32)[:, None]), -lim, lim).astype(np.int8)
+        np.testing.assert_array_equal(
+            payload[j].numpy(), wire_ref.np_pack_nibbles(q) if wire == "int4" else q
+        )
+        want = h0[j] + wire_ref.np_decode(payload[j].numpy(), sw, n, wire)
+        np.testing.assert_array_equal(h[j, :n].numpy().view(np.uint32), want.view(np.uint32))
+
+
+def _delivered(sent, src_r, j):
+    """What ``ppermute`` hands worker ``j`` in a round: its sender's
+    payload pair, or zeros."""
+    i = int(src_r[j])
+    if i >= 0:
+        return sent[i]
+    return tuple(jnp.zeros_like(a) for a in sent[j])
+
+
+@pytest.mark.parametrize("topo", ["exp2", "star"])
+@pytest.mark.parametrize("wire", WIRES)
+def test_decode_add_matches_jax_kernel(wire, topo):
+    """One round's receive integration ``base + deq(payload[src[j]])``
+    against the JAX kernel fed what ``ppermute`` delivers: bitwise for
+    int4, within one ulp of the product and of the sum for int8 (the
+    FMA contraction of ``test_encode_diff_matches_jax_kernel``). A
+    worker outside the round's partial permutation (the star) adds the
+    zero payload: its base, holding -0.0 here, comes back as +0.0."""
+    k = _jax_kernels()
+    _jgen, tgen = _topologies()[topo]
+    src, _self_w, _recv_w = tinner.plan_operands(
+        plan_from_topology(tgen(SIZE), weighted=True), "cpu")
+    x = ragged_input(seed=10, small=JAX_SMALL)
+    n = x.shape[1]
+    payload, scales = tk.encode(tk.pad_blocks(torch.from_numpy(x)), wire)
+    enc = jax.jit(k.encode, static_argnums=1)
+    sent = [enc(jnp.asarray(x[j]), wire) for j in range(SIZE)]
+    dadd = jax.jit(k.decode_add, static_argnums=3)
+    base0 = _copy_input(seed=11)
+    base0[:, 1024:1030] = -0.0
+    for r in range(src.shape[0]):
+        base = tk.pad_blocks(torch.from_numpy(base0)).clone()
+        out = tk.decode_add(base, payload, scales, src[r], wire)
+        assert out is base
+        deq = tk.unpad_blocks(tk.decode(payload, scales, src[r], wire), n).numpy()
+        for j in range(SIZE):
+            rq, rs = _delivered(sent, src[r], j)
+            want = np.asarray(dadd(jnp.asarray(base0[j]), rq, rs, wire))
+            got = base[j, :n].numpy()
+            if wire == "int4":
+                np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+            else:
+                assert (np.abs(got - want) <= _fma_bound(deq[j], got)).all()
+            if int(src[r, j]) < 0:
+                assert not np.signbit(got[1024:1030]).any()
+
+
+@pytest.mark.parametrize("topo", ["exp2", "star"])
+@pytest.mark.parametrize("wire", WIRES)
+def test_decode_bitwise_equals_jax_kernel(wire, topo):
+    """Full-width decode of each worker's own payload and of each round's
+    delivered payload: a single multiply, exact in f32, so bitwise."""
+    k = _jax_kernels()
+    _jgen, tgen = _topologies()[topo]
+    src, _self_w, _recv_w = tinner.plan_operands(
+        plan_from_topology(tgen(SIZE), weighted=True), "cpu")
+    x = ragged_input(seed=12, small=JAX_SMALL)
+    n = x.shape[1]
+    payload, scales = tk.encode(tk.pad_blocks(torch.from_numpy(x)), wire)
+    enc = jax.jit(k.encode, static_argnums=1)
+    sent = [enc(jnp.asarray(x[j]), wire) for j in range(SIZE)]
+    dec = jax.jit(k.decode, static_argnums=(2, 3))
+    own = tk.decode(payload, scales, None, wire)
+    assert own.shape == (SIZE, payload.shape[1] * 512)
+    for j in range(SIZE):
+        want = np.asarray(dec(sent[j][0], sent[j][1], n, wire))
+        # block 0's scale is flushed to 0 in JAX, subnormal in the port:
+        # both decode its zero payload to +0.0
+        np.testing.assert_array_equal(own[j, :n].numpy().view(np.uint32), want.view(np.uint32))
+    for r in range(src.shape[0]):
+        got = tk.decode(payload, scales, src[r], wire)
+        for j in range(SIZE):
+            rq, rs = _delivered(sent, src[r], j)
+            want = np.asarray(dec(rq, rs, n, wire))
+            np.testing.assert_array_equal(got[j, :n].numpy().view(np.uint32),
+                                          want.view(np.uint32))
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_decode_and_decode_add_match_wire_ref(wire):
+    """``decode`` is ``wire_ref.np_decode`` and ``decode_add`` is ``base +
+    np_decode`` of the sender's row, bit for bit, with the subnormal
+    scales kept."""
+    src, _self_w, _recv_w = tinner.plan_operands(
+        plan_from_topology(ttu.StarGraph(SIZE), weighted=True), "cpu")
+    x = ragged_input(seed=13)
+    n = x.shape[1]
+    payload, scales = tk.encode(tk.pad_blocks(torch.from_numpy(x)), wire)
+    s_np = [scales[j].float().numpy() for j in range(SIZE)]
+    ref = [wire_ref.np_decode(payload[j].numpy(), s_np[j], n, wire) for j in range(SIZE)]
+    own = tk.decode(payload, scales, None, wire)
+    base0 = _copy_input(seed=14)
+    for j in range(SIZE):
+        np.testing.assert_array_equal(own[j, :n].numpy().view(np.uint32), ref[j].view(np.uint32))
+    for r in range(src.shape[0]):
+        base = tk.pad_blocks(torch.from_numpy(base0)).clone()
+        tk.decode_add(base, payload, scales, src[r], wire)
+        for j in range(SIZE):
+            i = int(src[r, j])
+            want = base0[j] + (ref[i] if i >= 0 else np.zeros(n, np.float32))
+            np.testing.assert_array_equal(base[j, :n].numpy().view(np.uint32),
+                                          want.view(np.uint32))
+
+
+def test_new_wrappers_validate_operands():
+    x = torch.zeros(2, 512)
+    p, s = tk.encode(x, "int8")
+    with pytest.raises(ValueError):
+        tk.encode_diff(x, torch.zeros(2, 1024), "int8")
+    with pytest.raises(ValueError):
+        tk.encode_diff(torch.zeros(2, 100), torch.zeros(2, 100), "int8")
+    with pytest.raises(ValueError):
+        tk.decode_add(x.clone(), p, s, torch.tensor([0, 2], dtype=torch.int32), "int8")
+    with pytest.raises(ValueError):
+        tk.decode_add(x.clone(), p, s, torch.tensor([0, -2], dtype=torch.int32), "int8")
+    with pytest.raises(ValueError):
+        tk.decode(p, s, torch.tensor([0], dtype=torch.int32), "int8")
+    with pytest.raises(ValueError):
+        tk.decode(p, s, None, "int4")
