@@ -8,12 +8,15 @@ queries, ``worker_values`` and ``neighbor_allreduce`` (exact or with the
 int8/int4 wire), the neighbor-allreduce gossip optimizers (with the
 int8/int4 wires and their error-feedback tiers int8_ef/int4_ef), the
 window ops (``win_*``, the associated-p lane) and the window optimizers
-(win-put, pull-get, push-sum). The quantized wires run through
-hand-written CUDA kernels for Hopper (``csrc/wire_kernels.cu``). Entry
+(win-put, pull-get, push-sum), and ``ops`` (``flash_attention``,
+``flash_attention_with_lse``, ``reference_attention``); the models
+(ResNet, ``TransformerLM``) are in :mod:`bluefog_tpu_torch.models`. The
+quantized wires and the attention run through hand-written CUDA kernels
+for Hopper (``csrc/wire_kernels.cu``, ``csrc/flash_kernels.cu``). Entry
 points run on ``"cuda"`` unless ``device="cpu"`` is passed.
 """
 
-from bluefog_tpu_torch import topology
+from bluefog_tpu_torch import ops, topology
 from bluefog_tpu_torch.collective.ops import neighbor_allreduce, worker_values
 from bluefog_tpu_torch.context import (
     BluefogContext,
@@ -77,6 +80,7 @@ def out_neighbor_ranks(rank: int = None):
 
 
 __all__ = [
+    "ops",
     "topology",
     "BluefogContext",
     "init",

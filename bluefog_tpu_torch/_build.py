@@ -8,7 +8,7 @@ minutes a ``torch.utils.cpp_extension`` build of the same code takes; the
 wrappers pass ``data_ptr()`` pointers and the current stream.
 
 Libraries land in ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of their source and flags, so an edited source rebuilds
+named by a hash of their source and that source's own flags, so an edited source rebuilds
 and an unchanged one is reused. A failed build raises with the compiler's
 output; nothing falls back to the plain PyTorch versions.
 """
@@ -20,9 +20,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
-__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "build", "wire_library"]
+__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "flags", "build_dir", "find_nvcc", "build",
+           "wire_library", "flash_library"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -30,10 +31,20 @@ _CSRC = _PKG / "csrc"
 NVCC_FLAGS = (
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
-    "-fmad=false",
     "-std=c++17",
     "-Xptxas=-v",
 )
+# Each source's own flags. The wire kernels' bits are pinned to the JAX
+# programs' (no FMA contraction); the flash kernels have no pinned bits.
+SOURCE_FLAGS = {
+    "wire_kernels": ("-fmad=false",),
+    "flash_kernels": (),
+}
+
+
+def flags(name: str) -> Tuple[str, ...]:
+    """The ``nvcc`` flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
 
 
 def build_dir() -> Path:
@@ -62,13 +73,13 @@ def find_nvcc() -> str:
 
 def _library_path(source: Path) -> Path:
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(flags(source.stem)).encode()
     ).hexdigest()[:16]
     return build_dir() / f"lib{source.stem}_{digest}.so"
 
 
 def _command(source: Path, out: Path) -> List[str]:
-    return [find_nvcc(), *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC",
+    return [find_nvcc(), *flags(source.stem), "-shared", "-Xcompiler", "-fPIC",
             "-o", str(out), str(source)]
 
 
@@ -119,4 +130,17 @@ def wire_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ci
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def flash_library() -> ctypes.CDLL:
+    """The flash-attention kernels (``csrc/flash_kernels.cu``), built if
+    needed. Each entry point takes the address of a ``BfFlashArgs`` block
+    and the stream, and returns a ``cudaError_t``."""
+    lib = ctypes.CDLL(str(build(["flash_kernels"])["flash_kernels"]))
+    for name in ("bf_flash_fwd", "bf_flash_bwd_dkv", "bf_flash_bwd_dq"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

@@ -3,9 +3,12 @@
 
 - Model parameters: flax ``params`` / ``batch_stats`` trees as nested
   dicts of numpy arrays (``jax.device_get(variables["params"])``) become
-  PyTorch tensors keyed by the dotted module path of
-  :mod:`models.resnet`. Conv kernels go HWIO -> OIHW and dense kernels
-  ``[in, out]`` -> ``[out, in]``; vectors are copied as they are.
+  PyTorch tensors keyed by the dotted module path of :mod:`models.resnet`
+  and :mod:`models.transformer`. The layout is chosen per parameter, as
+  :class:`models.stacked.StackedModel` chooses it
+  (:func:`models.stacked.jax_layout`): conv kernels go HWIO -> OIHW, dense
+  kernels ``[in, out]`` -> ``[out, in]``; everything else (vectors, the
+  embedding table, the position table) is copied as it is.
 - Error-feedback copies: the JAX optimizer's ``_ef`` (per dtype group
   ``(xhat_self [size, n], xhat_recv [size, R, n])``) and the port's
   (``(xhat_self [size, d], xhat_recv [R, size, d])``, ``d`` = ``n``
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from bluefog_tpu_torch.collective.kernels import CHUNK
+from bluefog_tpu_torch.models.stacked import CONV, DENSE, jax_layout
 
 __all__ = [
     "flatten_tree",
@@ -47,10 +51,10 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _to_torch_layout(a: np.ndarray) -> np.ndarray:
-    if a.ndim == 4:  # HWIO -> OIHW
+def _to_torch_layout(a: np.ndarray, layout: str) -> np.ndarray:
+    if layout == CONV:  # HWIO -> OIHW
         return a.transpose(3, 2, 0, 1)
-    if a.ndim == 2:  # [in, out] -> [out, in]
+    if layout == DENSE:  # [in, out] -> [out, in]
         return a.T
     return a
 
@@ -59,7 +63,7 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
     """flax ``params`` tree -> PyTorch-layout f32 tensors by name."""
     return {
         name: torch.from_numpy(
-            np.ascontiguousarray(_to_torch_layout(a)).astype(np.float32)
+            np.ascontiguousarray(_to_torch_layout(a, jax_layout(name, a.ndim))).astype(np.float32)
         )
         for name, a in flatten_tree(tree).items()
     }

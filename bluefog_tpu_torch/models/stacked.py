@@ -6,18 +6,24 @@ The JAX package trains a worker-stacked params pytree inside
 into one flat payload per dtype group for the gossip. Here that packed
 payload IS the parameter store: one ``[N, C * 512]`` f32 buffer whose row
 ``j`` holds worker ``j``'s parameters in the flax tree order, each leaf in
-the JAX element order (conv kernels HWIO, dense kernels ``[in, out]``),
-with a zero tail to the next 512-element wire block. Each worker's
+the JAX element order, with a zero tail to the next 512-element wire
+block. Which leaves change layout between the frameworks is a choice per
+parameter (:func:`jax_layout`): a flax ``kernel`` is a conv kernel (HWIO
+in JAX, OIHW here) or a dense kernel (``[in, out]`` in JAX, ``[out, in]``
+here); every other parameter, embedding and position tables included, has
+one layout in both. Each worker's
 forward runs through ``torch.func.functional_call`` on (permuted) views
 of its row, so gradients land in the same flat layout and the optimizer
 gossips the buffer in place, with no pack or unpack copy.
 
 Only parameters are gossiped; BatchNorm statistics stay per worker in
-:attr:`StackedModel.buffers` (``[N, ...]`` each).
+:attr:`StackedModel.buffers` (``[N, ...]`` each). The training loss is
+the model's: :func:`classification_loss` (the classifier's default) or
+:func:`next_token_loss` (a language model's).
 """
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +33,31 @@ from torch.func import functional_call
 from bluefog_tpu_torch.collective.kernels import CHUNK
 from bluefog_tpu_torch.context import resolve_device
 
-__all__ = ["ParamSlot", "StackedModel", "jax_order"]
+__all__ = [
+    "ParamSlot",
+    "StackedModel",
+    "jax_order",
+    "jax_layout",
+    "classification_loss",
+    "next_token_loss",
+]
+
+# A parameter's JAX layout against its PyTorch layout.
+CONV = "conv"  # JAX HWIO, PyTorch OIHW
+DENSE = "dense"  # JAX [in, out], PyTorch [out, in]
+SAME = "same"  # one layout in both
+
+
+def jax_layout(name: str, ndim: int) -> str:
+    """The layout rule of one parameter, from its flax name: a ``kernel``
+    of rank 4 is a conv kernel, of rank 2 a dense kernel; every other
+    parameter (biases, scales, ``embedding``, ``pos``) keeps its layout."""
+    if name.rsplit(".", 1)[-1] == "kernel":
+        if ndim == 4:
+            return CONV
+        if ndim == 2:
+            return DENSE
+    return SAME
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,33 +68,48 @@ class ParamSlot:
     shape: Tuple[int, ...]  # PyTorch layout
     offset: int
     numel: int
+    layout: str = SAME
 
     @property
     def jax_shape(self) -> Tuple[int, ...]:
-        if len(self.shape) == 4:  # OIHW -> HWIO
+        if self.layout == CONV:  # OIHW -> HWIO
             o, i, kh, kw = self.shape
             return (kh, kw, i, o)
-        if len(self.shape) == 2:  # [out, in] -> [in, out]
+        if self.layout == DENSE:  # [out, in] -> [in, out]
             return (self.shape[1], self.shape[0])
         return self.shape
 
 
-def to_jax_layout(t: torch.Tensor) -> torch.Tensor:
+def to_jax_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
     """A PyTorch-layout parameter as a view in the JAX layout."""
-    if t.dim() == 4:
+    if layout == CONV:
         return t.permute(2, 3, 1, 0)
-    if t.dim() == 2:
+    if layout == DENSE:
         return t.t()
     return t
 
 
-def from_jax_layout(t: torch.Tensor) -> torch.Tensor:
+def from_jax_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
     """Inverse of :func:`to_jax_layout`."""
-    if t.dim() == 4:
+    if layout == CONV:
         return t.permute(3, 2, 0, 1)
-    if t.dim() == 2:
+    if layout == DENSE:
         return t.t()
     return t
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of integer labels
+    (``optax.softmax_cross_entropy_with_integer_labels(...).mean()``)."""
+    return F.cross_entropy(logits.to(torch.float32), labels)
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy: ``logits[:, :-1]`` against
+    ``tokens[:, 1:]``."""
+    vocab = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].reshape(-1, vocab).to(torch.float32),
+                           tokens[:, 1:].reshape(-1))
 
 
 def jax_order(names) -> List[str]:
@@ -77,19 +122,23 @@ def jax_order(names) -> List[str]:
 class StackedModel:
     """``size`` workers of ``module`` with their parameters in one flat
     ``[size, width]`` f32 buffer (see module docstring), on ``device``
-    (default ``"cuda"``)."""
+    (default ``"cuda"``); ``loss(outputs, targets)`` is the training loss
+    of one worker."""
 
-    def __init__(self, module: nn.Module, size: int, device=None):
+    def __init__(self, module: nn.Module, size: int, device=None,
+                 loss: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = classification_loss):
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.size = size
+        self.loss = loss
         shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
         slots, off = [], 0
         for name in jax_order(shapes):
             n = 1
             for d in shapes[name]:
                 n *= d
-            slots.append(ParamSlot(name, shapes[name], off, n))
+            slots.append(ParamSlot(name, shapes[name], off, n,
+                                   jax_layout(name, len(shapes[name]))))
             off += n
         self.slots: List[ParamSlot] = slots
         self.n_params = off
@@ -107,7 +156,7 @@ class StackedModel:
         row = torch.zeros(self.width, dtype=torch.float32, device=self.device)
         for s in self.slots:
             row[s.offset:s.offset + s.numel].view(s.jax_shape).copy_(
-                to_jax_layout(tensors[s.name])
+                to_jax_layout(tensors[s.name], s.layout)
             )
         return row
 
@@ -117,7 +166,8 @@ class StackedModel:
 
     def views(self, row: torch.Tensor) -> Dict[str, torch.Tensor]:
         """PyTorch-layout views of one worker row, by parameter name."""
-        return {s.name: from_jax_layout(v) for s, v in zip(self.slots, self._jax_views(row))}
+        return {s.name: from_jax_layout(v, s.layout)
+                for s, v in zip(self.slots, self._jax_views(row))}
 
     def replicate(self) -> torch.Tensor:
         """``[size, width]`` with every worker holding ``module``'s current
@@ -133,31 +183,31 @@ class StackedModel:
             buf.copy_(tensors[name].to(buf.device).expand_as(buf))
 
     def _worker_state(self, jax_views: List[torch.Tensor], j: int) -> Dict[str, torch.Tensor]:
-        state = {s.name: from_jax_layout(v) for s, v in zip(self.slots, jax_views)}
+        state = {s.name: from_jax_layout(v, s.layout) for s, v in zip(self.slots, jax_views)}
         state.update({name: buf[j] for name, buf in self.buffers.items()})
         return state
 
-    def forward(self, params: torch.Tensor, images: torch.Tensor,
+    def forward(self, params: torch.Tensor, inputs: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
-        """Logits ``[size, B, classes]`` of every worker on its images
-        ``[size, B, H, W, 3]`` (NHWC). ``train=True`` uses and updates
+        """Outputs ``[size, ...]`` of every worker on its inputs ``[size,
+        ...]`` (images NHWC, or tokens). ``train=True`` uses and updates
         the batch statistics."""
         self.module.train(train)
         with torch.no_grad():
             return torch.stack([
                 functional_call(self.module,
                                 self._worker_state(self._jax_views(params[j]), j),
-                                (images[j],))
+                                (inputs[j],))
                 for j in range(self.size)
             ])
 
-    def loss_and_grad(self, params: torch.Tensor, images: torch.Tensor,
-                      labels: torch.Tensor, grads: torch.Tensor = None):
-        """Training forward and backward of every worker: returns ``(loss
-        [size] f32, grads [size, width])`` with the gradient in the flat
-        JAX layout (zero in the tail), and updates the batch statistics.
-        The loss is the mean softmax cross-entropy of the integer labels
-        (``optax.softmax_cross_entropy_with_integer_labels(...).mean()``)."""
+    def loss_and_grad(self, params: torch.Tensor, inputs: torch.Tensor,
+                      targets: torch.Tensor, grads: torch.Tensor = None):
+        """Training forward and backward of every worker, one after
+        another: returns ``(loss [size] f32, grads [size, width])`` with the
+        gradient in the flat JAX layout (zero in the tail), and updates the
+        batch statistics. Worker ``j``'s loss is ``self.loss(module(inputs[j]),
+        targets[j])``."""
         self.module.train(True)
         if grads is None:
             grads = torch.empty_like(params)
@@ -167,10 +217,10 @@ class StackedModel:
             # view: with respect to the whole row, the backward of every
             # slice would build and add a row-sized zero-padded gradient
             leaves = [v.requires_grad_(True) for v in self._jax_views(params[j].detach())]
-            logits = functional_call(
-                self.module, self._worker_state(leaves, j), (images[j],)
+            outputs = functional_call(
+                self.module, self._worker_state(leaves, j), (inputs[j],)
             )
-            loss = F.cross_entropy(logits.to(torch.float32), labels[j])
+            loss = self.loss(outputs, targets[j])
             for dst, g in zip(self._jax_views(grads[j]), torch.autograd.grad(loss, leaves)):
                 dst.copy_(g)
             losses[j] = loss.detach()

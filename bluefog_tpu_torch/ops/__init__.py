@@ -1,0 +1,16 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""Attention ops: the flash kernels and their dense oracle."""
+
+from bluefog_tpu_torch.ops.attention import reference_attention
+from bluefog_tpu_torch.ops.flash import (
+    flash_attention,
+    flash_attention_supported,
+    flash_attention_with_lse,
+)
+
+__all__ = [
+    "reference_attention",
+    "flash_attention",
+    "flash_attention_with_lse",
+    "flash_attention_supported",
+]

@@ -6,7 +6,8 @@
 Phases, one line each; any failure exits non-zero:
 
 1. device   -- the card's name, and its name and power limit from nvidia-smi;
-2. build    -- compiles the CUDA wire kernels from ``bluefog_tpu_torch/csrc``;
+2. build    -- compiles the CUDA wire and flash-attention kernels from
+               ``bluefog_tpu_torch/csrc`` (one ``nvcc`` each, together);
 3. parity   -- every wire kernel (``encode``, ``decode_accumulate``,
                ``encode_diff``, ``decode_add``, ``decode``) against its plain
                PyTorch version on the card, int8 and int4, on a ragged input
@@ -34,15 +35,38 @@ Phases, one line each; any failure exits non-zero:
                        lr = 0 that holds the x mass to 1e-5 of sum |x| and
                        the p mass to 8;
 7. profile  -- one ATC int8 step under ``torch.profiler``;
-8. kernels  -- each kernel against its plain version at the main path's
-               shapes (the full packed parameter buffer), timed with CUDA
-               events beside its memory bound, then one JSON line.
+8. kernels  -- each wire kernel against its plain version at the main
+               path's shapes (the full packed parameter buffer), timed with
+               CUDA events beside its memory bound;
+9. flash-parity -- the flash kernels (``flash_fwd``, ``flash_bwd_dkv``,
+               ``flash_bwd_dq``) against their plain versions on the card,
+               on q/k/v split from one fused projection as the model gives
+               them: bf16 at the transformer's shape (b 2, T 4096, 16
+               heads of 64) causal and not, a ragged T, head_dim 96 and
+               128, grouped-query K/V, rows off 16 bytes (head_dim 36, a
+               buffer shifted by one element), f32 inputs, and the lse form
+               (f32 out and cotangent, a nonzero lse cotangent); every
+               output row within ``FLASH_ROW_TOL`` of its own norm;
+10. train, path transformer -- ``TransformerLM`` (vocab 16384, dim 1024, 16
+               heads, 12 layers, T 4096, bf16 compute over f32 parameters:
+               188 872 704 per worker) on 8 virtual workers, 2 sequences of
+               seeded random tokens each, next-token loss, ``sgd(0.01,
+               0.9)``: ATC int8 (1 warm-up, 3 timed steps), then ATC
+               int4_ef (1 warm-up, 1 timed step); launch counts zeroed just
+               before and read just after; then worker 0's forward at full
+               size with every block's attention held against the plain
+               version on its own q, k, v, and one profiled ATC int8 step;
+11. kernels  -- the flash kernels at the transformer's shape, timed beside
+               their operation bound, their plain versions and
+               ``F.scaled_dot_product_attention`` (the yardstick only:
+               the port never calls it); then the eight-row JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,26 +75,42 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.func import functional_call
 
 import bluefog_tpu_torch as bft
 from bluefog_tpu_torch import _build
 from bluefog_tpu_torch import topology as topo
 from bluefog_tpu_torch.collective import inner, kernels
 from bluefog_tpu_torch.collective.plan import plan_from_topology
-from bluefog_tpu_torch.models import ResNet50, StackedModel, init_flax_like
+from bluefog_tpu_torch.models import (
+    ResNet50,
+    StackedModel,
+    TransformerLM,
+    next_token_loss,
+    resnet,
+    transformer,
+)
+from bluefog_tpu_torch.ops import flash
 
 SIZE = 8
 BATCH = 64
 IMAGE = 224
 WARMUP, TIMED = 2, 4
 RESNET50_PARAMS = 25_557_032  # the flax ResNet50 at 1000 classes
+# bench.py::run_transformer's configuration on a chip, in full
+LM_CONFIG = dict(vocab=16384, dim=1024, heads=16, layers=12, max_len=4096)
+LM_SEQ, LM_BATCH = 4096, 2
+LM_PARAMS = 188_872_704
 
 # Device memory rate by card (bytes/s; NVIDIA data sheets). The H100 SXM's
 # 3.35 TB/s is the default for an unlisted Hopper part.
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_RATE = 3.35e12
-# Plain float32 arithmetic outside the tensor cores (H100 SXM data sheet).
+# Plain float32 arithmetic outside the tensor cores, and the dense bf16
+# tensor-core rate (H100 SXM data sheet).
 F32_RATE = 67e12
+BF16_RATE = 989e12
 
 # kernel -> the TPU kernel it replaces
 KERNEL_ROWS = {
@@ -79,17 +119,32 @@ KERNEL_ROWS = {
     "encode_diff": "bluefog_tpu/collective/kernels.py:394",
     "decode_add": "bluefog_tpu/collective/kernels.py:431",
     "decode": "bluefog_tpu/collective/kernels.py:415",
+    "flash_fwd": "bluefog_tpu/ops/flash.py:156",
+    "flash_bwd_dkv": "bluefog_tpu/ops/flash.py:343",
+    "flash_bwd_dq": "bluefog_tpu/ops/flash.py:369",
 }
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # the kernels each path of the train phase must launch
 PATH_KERNELS = {
     "wire": ("encode", "decode_accumulate"),
     "ef": ("encode_diff", "decode_add"),
     "push-sum": ("encode", "decode"),
+    "transformer": FLASH_KERNELS + ("encode", "decode_accumulate", "encode_diff",
+                                    "decode_add"),
 }
 
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def reset_launch_counts():
+    kernels.reset_launch_counts()
+    flash.reset_launch_counts()
+
+
+def launch_counts():
+    return {**kernels.launch_counts(), **flash.launch_counts()}
 
 
 def nvidia_smi_line():
@@ -305,7 +360,7 @@ def phase_ef(device, n=1 << 20, rounds=60):
 def build_trainer(device, stage_sizes=None, num_filters=64, batch=BATCH, image=IMAGE,
                   num_classes=1000, seed=0):
     kw = {} if stage_sizes is None else {"stage_sizes": stage_sizes}
-    model = init_flax_like(
+    model = resnet.init_flax_like(
         ResNet50(num_classes=num_classes, num_filters=num_filters, **kw), seed
     )
     sm = StackedModel(model, SIZE, device)
@@ -316,11 +371,24 @@ def build_trainer(device, stage_sizes=None, num_filters=64, batch=BATCH, image=I
     return sm, images, labels
 
 
+def build_lm(device, config=None, seq=LM_SEQ, batch=LM_BATCH, seed=0):
+    """The transformer path's model (bf16 compute over f32 parameters) on
+    ``SIZE`` workers with the next-token loss, and seeded random tokens
+    ``[SIZE, batch, seq]`` (inputs and targets alike)."""
+    config = LM_CONFIG if config is None else config
+    model = transformer.init_flax_like(TransformerLM(dtype=torch.bfloat16, **config), seed)
+    sm = StackedModel(model, SIZE, device, loss=next_token_loss)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, config["vocab"], (SIZE, batch, seq), generator=gen,
+                           device=device)
+    return sm, tokens, tokens
+
+
 class Trainer:
     """Runs and logs the tiers of the train phase on one parameter buffer."""
 
-    def __init__(self, device, sm, images, labels):
-        self.device, self.sm, self.images, self.labels = device, sm, images, labels
+    def __init__(self, device, sm, inputs, targets):
+        self.device, self.sm, self.inputs, self.targets = device, sm, inputs, targets
         self.params = sm.replicate()
         self.grads = torch.empty_like(self.params)
         self.tiers = {}
@@ -330,7 +398,7 @@ class Trainer:
         ``(loss [N], forward+backward s, optimizer s)``. The split
         synchronises the card between the two parts."""
         t0 = time.perf_counter()
-        loss, _ = self.sm.loss_and_grad(at, self.images, self.labels, self.grads)
+        loss, _ = self.sm.loss_and_grad(at, self.inputs, self.targets, self.grads)
         sync(self.device)
         t1 = time.perf_counter()
         opt_step()
@@ -365,10 +433,10 @@ class Trainer:
                          f"{med[1]:.4f} s + optimizer {med[2]:.4f} s; peak memory "
                          f"{peak:.2f} GiB")
 
-    def gossip(self, name, order, compression, warmup, timed):
+    def gossip(self, name, order, compression, warmup, timed, lr=0.1):
         make = {"atc": bft.DistributedAdaptThenCombineOptimizer,
                 "cta": bft.DistributedNeighborAllreduceOptimizer}[order]
-        opt = make(bft.sgd(0.1, momentum=0.9))
+        opt = make(bft.sgd(lr, momentum=0.9))
         opt.compression = compression
         state = opt.init(self.params)
         self.run(name, warmup, timed, lambda: self._timed(
@@ -403,7 +471,7 @@ class Trainer:
 
         x0, abs0, _p0 = mass()
         opt.tx = bft.sgd(0.0, momentum=0.9)
-        self.sm.loss_and_grad(est[0], self.images, self.labels, self.grads)
+        self.sm.loss_and_grad(est[0], self.inputs, self.targets, self.grads)
         opt.step(state, self.grads)
         sync(self.device)
         x1, _abs1, p1 = mass()
@@ -418,44 +486,108 @@ class Trainer:
             raise AssertionError(f"push-sum p mass {p1} is not {SIZE}")
 
 
+def log_tiers(trainer):
+    for name, tier in trainer.tiers.items():
+        if tier["median"]:
+            step_s, fb_s, opt_s = tier["median"]
+            log("train", f"tier {name}: step {step_s:.4f} s, forward+backward {fb_s:.4f} s, "
+                         f"optimizer {opt_s:.4f} s, peak {tier['peak_gib']:.2f} GiB")
+
+
 def phase_train(trainer, warmup=WARMUP, timed=TIMED):
     """The main path, in three paths; returns the launch counts of each,
     zeroed just before the path and read just after."""
     counts = {}
-    kernels.reset_launch_counts()
+    reset_launch_counts()
     trainer.gossip("atc/int8", "atc", "int8", warmup, timed)
     trainer.gossip("atc/int4", "atc", "int4", 0, 1)
     trainer.gossip("cta/int8", "cta", "int8", 0, 1)
-    counts["wire"] = kernels.launch_counts()
-    kernels.reset_launch_counts()
+    counts["wire"] = launch_counts()
+    reset_launch_counts()
     trainer.gossip("atc/int4_ef", "atc", "int4_ef", 1, 2)
     trainer.gossip("atc/int8_ef", "atc", "int8_ef", 0, 1)
     trainer.gossip("cta/int4_ef", "cta", "int4_ef", 0, 1)
-    counts["ef"] = kernels.launch_counts()
-    kernels.reset_launch_counts()
+    counts["ef"] = launch_counts()
+    reset_launch_counts()
     trainer.pushsum("push-sum/int4", 1, 2)
-    counts["push-sum"] = kernels.launch_counts()
+    counts["push-sum"] = launch_counts()
     return counts
 
 
-def phase_profile(device, sm, images, labels, params, top=12):
+def phase_train_lm(trainer, warmup=1, timed=3):
+    """The transformer path: ATC int8 (``warmup + timed`` steps), then ATC
+    int4_ef (one warm-up step, which allocates the CHOCO copies, and one
+    timed step), under ``sgd(0.01, 0.9)``; returns ``(launch counts,
+    steps)``, the counts zeroed just before and read just after."""
+    reset_launch_counts()
+    trainer.gossip("lm atc/int8", "atc", "int8", warmup, timed, lr=0.01)
+    trainer.gossip("lm atc/int4_ef", "atc", "int4_ef", 1, 1, lr=0.01)
+    return launch_counts(), warmup + timed + 2
+
+
+def lm_flops_per_step(sm, seq, batch):
+    """bench.py's model FLOPs of one step of every worker: per token
+    ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
+    attention at mean context T / 2, forward and twice that backward)."""
+    m = sm.module
+    return SIZE * batch * seq * 3 * (2 * sm.n_params + 2 * seq * m.dim * m.layers)
+
+
+def lm_attention_check(sm, params, tokens):
+    """Worker 0's forward on the trained parameters, in which every block's
+    attention (the flash kernels on the card) is held against the plain
+    version of the forward kernel on that block's own q, k and v: each
+    query row to ``FLASH_ROW_TOL`` of its norm, as in flash-parity."""
+    blocks = [getattr(sm.module, f"Block_{i}") for i in range(sm.module.layers)]
+    saved = [b.attend for b in blocks]
+    errs = []
+
+    def checked(attend):
+        def run(q, k, v):
+            out = attend(q, k, v)
+            want, _ = flash.flash_fwd_reference(q, k, v, True, 1.0 / math.sqrt(q.shape[-1]))
+            errs.append(row_err(out, want))
+            return out
+        return run
+
+    for b, attend in zip(blocks, saved):
+        b.attend = checked(attend)
+    try:
+        with torch.no_grad():
+            functional_call(sm.module, sm.views(params[0]), (tokens[0],))
+    finally:
+        for b, attend in zip(blocks, saved):
+            b.attend = attend
+    dtype = sm.module.dtype
+    tol = FLASH_ROW_TOL[dtype]["out"]
+    log("train", f"transformer worker 0, attention of each block against the plain version "
+                 f"on its own q, k, v: largest row error relative to the row's norm "
+                 f"{max(errs):.3g} (limit {tol:g}; by block "
+                 f"{', '.join(f'{e:.3g}' for e in errs)})")
+    if len(errs) != len(blocks) or not max(errs) <= tol:
+        raise AssertionError(f"the transformer's attention differs from the plain version: {errs}")
+
+
+def phase_profile(device, name, sm, inputs, targets, params, lr=0.1, top=12):
     """One more ATC int8 step under ``torch.profiler``: the card's busy
     share of the step's wall time, and the kernels that take the most
     device time. Runs after the main path's launch counts were read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(lr, momentum=0.9))
     opt.compression = "int8"
     state = opt.init(params)
     grads = torch.empty_like(params)
     sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sm.loss_and_grad(params, images, labels, grads)
+        sm.loss_and_grad(params, inputs, targets, grads)
         opt.step(params, state, grads)
         sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
+    opt.free()
+    del state, grads
     # kernels only: an operator's self device time repeats its kernels'
     rows = [
         (e.self_device_time_total, e.count, e.key)
@@ -463,19 +595,21 @@ def phase_profile(device, sm, images, labels, params, top=12):
     ]
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
-        log("profile", "the profiler reported no device time: busy share not measured")
+        log("profile", f"{name}: the profiler reported no device time: busy share not measured")
         return
-    log("profile", f"one profiled step (the profiler slows the host): wall "
+    log("profile", f"{name}: one profiled step (the profiler slows the host): wall "
                    f"{wall_us / 1e3:.1f} ms, kernels "
                    f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), idle "
                    f"{100 * (1 - busy_us / wall_us):.1f}%")
     for us, count, key in sorted(rows, reverse=True)[:top]:
-        log("profile", f"{100 * us / busy_us:5.1f}% {us / 1e3:9.2f} ms x{count:5d} {key[:110]}")
+        log("profile", f"{name}: {100 * us / busy_us:5.1f}% {us / 1e3:9.2f} ms x{count:5d} "
+                       f"{key[:110]}")
 
 
-def phase_kernels(device, params, launches, rate):
-    """Each kernel against its plain version at the main path's shapes,
-    and timed; returns the rows of the kernels JSON line."""
+def phase_kernels(device, params, rate):
+    """Each wire kernel against its plain version at the main path's
+    shapes, and timed; returns the rows of the kernels JSON line (their
+    ``launches`` are filled in once every path has run)."""
     plan = bft.get_context().static_plan()
     src, _self_w, recv_w = inner.plan_operands(plan, device)
     n_workers, width = params.shape
@@ -541,7 +675,7 @@ def phase_kernels(device, params, launches, rate):
                 rows[name] = {
                     "name": name, "route": "cuda",
                     "source": "bluefog_tpu_torch/csrc/wire_kernels.cu",
-                    "replaces": KERNEL_ROWS[name], "launches": launches[name],
+                    "replaces": KERNEL_ROWS[name], "launches": None,
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound,
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -551,6 +685,188 @@ def phase_kernels(device, params, launches, rate):
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], errs[name])
         del x, h, acc, hk, base, p, s, pd, sd, calls
     return list(rows.values()), lines
+
+
+# (name, b, t, h, h_kv, d, causal, dtype, with_lse, offset); "main" is the
+# transformer path's shape. head_dim 36 and an operand buffer shifted by
+# one element (offset 1) leave rows off 16 bytes: the bf16 route then
+# stages its tiles with scalar loads.
+FLASH_CASES = [
+    ("main", 2, 4096, 16, 16, 64, True, torch.bfloat16, False, 0),
+    ("full", 2, 4096, 16, 16, 64, False, torch.bfloat16, False, 0),
+    ("ragged", 1, 1000, 16, 16, 64, True, torch.bfloat16, False, 0),
+    ("d96", 1, 1000, 16, 16, 96, True, torch.bfloat16, False, 0),
+    ("d128", 1, 1024, 16, 16, 128, False, torch.bfloat16, False, 0),
+    ("gqa", 2, 1000, 16, 4, 64, True, torch.bfloat16, False, 0),
+    ("d36", 1, 300, 4, 2, 36, True, torch.bfloat16, False, 0),
+    ("unaligned", 1, 300, 4, 2, 64, True, torch.bfloat16, False, 1),
+    ("f32", 1, 257, 4, 2, 64, True, torch.float32, False, 0),
+    ("lse", 1, 1000, 16, 4, 64, True, torch.bfloat16, True, 0),
+]
+
+# Limits of the flash kernels against their plain versions on the same
+# inputs. Each row of an output (a query's out or dQ, a key's dK or dV,
+# over head_dim) is held to its own norm: the largest ``||got - want|| /
+# ||want||`` over the rows, so the small rows (late causal queries, late
+# keys) count as much as the large ones; only a row below ``ROW_FLOOR`` of
+# the rows' root-mean-square norm is held to that floor. Each limit is
+# about 3x the largest value measured over these cases and the ``-m cuda``
+# tests' on an H100 (PERF.md; bf16: each side rounds its outputs to bf16,
+# and the kernels round P to bf16 at a running row maximum, the plain
+# version at the final one; f32: sums in another order). The lse is held
+# absolutely: an error e in it is a relative error e of every probability
+# recomputed from it.
+FLASH_ROW_TOL = {
+    torch.bfloat16: {"out": 1.6e-2, "dq": 1.6e-2, "dk": 2.2e-2, "dv": 1.2e-2},
+    torch.float32: {"out": 2e-6, "dq": 2e-6, "dk": 2e-6, "dv": 2e-6},
+}
+FLASH_LSE_TOL = 6e-6
+ROW_FLOOR = 1e-3
+
+
+def flash_operands(device, b, t, h, h_kv, d, dtype, with_lse, seed=0, offset=0):
+    """q, k, v split from one fused ``[b, t, (h + 2 h_kv) d]`` projection
+    (strided views, as the model gives them; ``offset`` elements into their
+    buffer), the output cotangent in the output's dtype (f32 for the lse
+    form) and the lse cotangent (lse form only, else None)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    width = (h + 2 * h_kv) * d
+    flat = torch.randn(offset + b * t * width, generator=gen, device=device).to(dtype)
+    qkv = flat[offset:].view(b, t, width)
+    q, k, v = (x.reshape(b, t, -1, d) for x in qkv.split([h * d, h_kv * d, h_kv * d], -1))
+    do = torch.randn(b, t, h, d, generator=gen, device=device).to(
+        torch.float32 if with_lse else dtype)
+    dlse = torch.randn(b, h, t, generator=gen, device=device) if with_lse else None
+    return q, k, v, do, dlse
+
+
+def row_err(got, want, floor=ROW_FLOOR):
+    """Largest ``||got - want|| / ||want||`` over the rows (the last axis),
+    each row's norm floored at ``floor`` times the rows' root-mean-square
+    norm: a row that cancels to rounding noise (causal dQ of the first
+    query, whose ``dS = P (dP - delta)`` is 0 in exact arithmetic) is held
+    to that floor, not to its own noise. An all-zero ``want`` must be
+    matched exactly."""
+    want = want.float()
+    diff = (got.float() - want).norm(dim=-1)
+    norm = want.norm(dim=-1)
+    denom = norm.clamp_min(floor * float(norm.square().mean().sqrt()))
+    rel = torch.where(denom > 0, diff / denom, torch.where(diff > 0, math.inf, 0.0))
+    return float(rel.max())
+
+
+def check_flash_case(device, case):
+    """The three kernels against their plain versions on one case, each
+    output row held to ``FLASH_ROW_TOL`` of its own norm and the lse to
+    ``FLASH_LSE_TOL``; returns ``{kernel: max abs difference}``."""
+    name, b, t, h, h_kv, d, causal, dtype, with_lse, offset = case
+    q, k, v, do, dlse = flash_operands(device, b, t, h, h_kv, d, dtype, with_lse,
+                                       offset=offset)
+    scale = 1.0 / math.sqrt(d)
+    out_dtype = torch.float32 if with_lse else dtype
+    out, lse = flash.flash_fwd(q, k, v, causal, scale, out_dtype)
+    rout, rlse = flash.flash_fwd_reference(q, k, v, causal, scale, out_dtype)
+    # both backward versions take the plain forward's out and lse
+    delta = flash.attention_delta(rout, do)
+    args = (q, k, v, do, rlse, delta, dlse, causal, scale)
+    dk, dv = flash.flash_bwd_dkv(*args)
+    dq = flash.flash_bwd_dq(*args)
+    rdk, rdv = flash.flash_bwd_dkv_reference(*args)
+    rdq = flash.flash_bwd_dq_reference(*args)
+    sync(device)
+    if not torch.equal(torch.isneginf(lse), torch.isneginf(rlse)):
+        raise AssertionError(f"flash[{name}]: lse is -inf on other rows than the plain version's")
+    finite = torch.isfinite(rlse)
+    errs = {"out": row_err(out, rout), "dq": row_err(dq, rdq), "dk": row_err(dk, rdk),
+            "dv": row_err(dv, rdv),
+            "lse": float((lse[finite] - rlse[finite]).abs().max())}
+    limits = {**FLASH_ROW_TOL[dtype], "lse": FLASH_LSE_TOL}
+    log("flash-parity", f"{name} (b {b}, T {t}, h {h}/{h_kv}, d {d}, "
+                        f"{'causal' if causal else 'full'}, {str(dtype)[6:]}"
+                        f"{', lse form' if with_lse else ''}"
+                        f"{f', offset {offset}' if offset else ''}): largest row error "
+                        "relative to the row's norm "
+                        + ", ".join(f"{key} {errs[key]:.3g} (limit {limits[key]:g})"
+                                    for key in ("out", "dq", "dk", "dv"))
+                        + f"; lse abs {errs['lse']:.3g} (limit {FLASH_LSE_TOL:g})")
+    bad = [key for key in errs if not errs[key] <= limits[key]]
+    if bad:
+        raise AssertionError(f"flash[{name}]: {bad} differ from the plain versions: {errs}")
+    absdiff = lambda a, b: float((a.float() - b.float()).abs().max())
+    return {"flash_fwd": max(absdiff(out, rout), absdiff(lse[finite], rlse[finite])),
+            "flash_bwd_dkv": max(absdiff(dk, rdk), absdiff(dv, rdv)),
+            "flash_bwd_dq": absdiff(dq, rdq)}
+
+
+def phase_flash_parity(device, cases=FLASH_CASES):
+    """Every case of ``cases``; returns the max abs differences of the
+    first (the main path's shape)."""
+    errs = [check_flash_case(device, case) for case in cases]
+    return errs[0]
+
+
+def phase_flash_kernels(device, errs, rate, b=LM_BATCH, t=LM_SEQ, h=LM_CONFIG["heads"],
+                        d=LM_CONFIG["dim"] // LM_CONFIG["heads"]):
+    """The flash kernels at the transformer path's shape (causal bf16, q/k/v
+    split from the fused projection), timed beside their operation bound,
+    their plain versions and ``F.scaled_dot_product_attention`` (forward on
+    the forward's row; its backward, which gives dQ, dK and dV together, on
+    both backward rows); returns ``(rows, lines)``."""
+    q, k, v, do, _ = flash_operands(device, b, t, h, h, d, torch.bfloat16, False, seed=1)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash.flash_fwd(q, k, v, True, scale)
+    delta = flash.attention_delta(out, do)
+    args = (q, k, v, do, lse, delta, None, True, scale)
+    calls = {
+        "flash_fwd": (lambda: flash.flash_fwd(q, k, v, True, scale),
+                      lambda: flash.flash_fwd_reference(q, k, v, True, scale)),
+        "flash_bwd_dkv": (lambda: flash.flash_bwd_dkv(*args),
+                          lambda: flash.flash_bwd_dkv_reference(*args)),
+        "flash_bwd_dq": (lambda: flash.flash_bwd_dq(*args),
+                         lambda: flash.flash_bwd_dq_reference(*args)),
+    }
+    # the library call on [b, h, t, d] copies of the same inputs
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    o = sdpa()
+    library = {"flash_fwd": time_ms(sdpa, device)}
+    library["flash_bwd_dkv"] = library["flash_bwd_dq"] = time_ms(
+        lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), device)
+    # (query, key) pairs the causal mask keeps; a product over them is
+    # 2 d operations per pair: S = Q K^T and O = P V forward; S, dP = dO
+    # V^T, dV = P^T dO and dK = dS^T Q for dK/dV; S, dP and dQ = dS K for dQ
+    pairs = b * h * t * (t + 1) // 2
+    products = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
+    # bytes: every input read once, every output written once
+    tile = b * t * h * d * 2
+    row = b * h * t * 4
+    nbytes = {"flash_fwd": 4 * tile + row,  # q, k, v -> out, lse
+              "flash_bwd_dkv": 6 * tile + 2 * row,  # q, k, v, dO, lse, delta -> dK, dV
+              "flash_bwd_dq": 5 * tile + 2 * row}  # q, k, v, dO, lse, delta -> dQ
+    rows, lines = [], []
+    for name, (kernel, plain) in calls.items():
+        ms = time_ms(kernel, device)
+        plain_ms = time_ms(plain, device, iters=3, warmup=1)
+        ops = products[name] * 2 * d * pairs
+        t_ops, t_bytes = ops / BF16_RATE * 1e3, nbytes[name] / rate * 1e3
+        bound = max(t_ops, t_bytes)
+        lines.append(
+            f"{name} (b {b}, T {t}, h {h}, d {d}, causal, bf16): {ms:.4f} ms kernel "
+            f"({ops / ms / 1e9:.1f} TFLOP/s), {plain_ms:.4f} ms plain, "
+            f"{library[name]:.4f} ms scaled_dot_product_attention "
+            f"{'forward' if name == 'flash_fwd' else 'backward (dQ, dK, dV together)'}, "
+            f"bound {bound:.4f} ms ({ops / 1e9:.1f} GFLOP at {BF16_RATE / 1e12:.0f} TFLOP/s; "
+            f"{nbytes[name] / 1e6:.1f} MB: {t_bytes:.4f} ms), {100 * bound / ms:.1f}% of the bound")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "bluefog_tpu_torch/csrc/flash_kernels.cu",
+            "replaces": KERNEL_ROWS[name], "launches": None,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library[name],
+        })
+    return rows, lines
 
 
 def main():
@@ -566,12 +882,16 @@ def main():
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    libs = _build.build(["wire_kernels"])
+    names = ["wire_kernels", "flash_kernels"]
+    libs = _build.build(names)
     _build.wire_library()
-    log("build", f"wire_kernels built in {time.perf_counter() - t0:.1f} s -> {libs['wire_kernels']}")
-    for line in libs["wire_kernels"].with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("build", line.strip())
+    _build.flash_library()
+    log("build", f"{' and '.join(names)} built in {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        log("build", f"{name} -> {libs[name]}")
+        for line in libs[name].with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("build", line.strip())
 
     bft.init(size=SIZE)
     phase_parity(device)
@@ -583,26 +903,55 @@ def main():
         raise AssertionError(f"ResNet50 has {sm.n_params} parameters, expected {RESNET50_PARAMS}")
     trainer = Trainer(device, sm, images, labels)
     counts = phase_train(trainer)
-    for path, names in PATH_KERNELS.items():
-        missing = [k for k in names if counts[path][k] == 0]
-        if missing:
-            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
-    launches = {k: sum(c[k] for c in counts.values()) for k in KERNEL_ROWS}
     med = trainer.tiers["atc/int8"]["median"]
     log("train", f"ResNet50 x{SIZE} workers, {BATCH} images of {IMAGE}x{IMAGE} each, "
                  f"{sm.n_params} parameters per worker ({sm.width} packed); atc/int8: "
                  f"median step {med[0]:.4f} s, {SIZE * BATCH / med[0]:.1f} images/s; "
                  f"launches per path {counts}; on {smi}")
-    for name, tier in trainer.tiers.items():
-        if tier["median"]:
-            step_s, fb_s, opt_s = tier["median"]
-            log("train", f"tier {name}: step {step_s:.4f} s, forward+backward {fb_s:.4f} s, "
-                         f"optimizer {opt_s:.4f} s, peak {tier['peak_gib']:.2f} GiB")
+    log_tiers(trainer)
     params = trainer.params
-    phase_profile(device, sm, images, labels, params)
+    phase_profile(device, "resnet50", sm, images, labels, params)
     del images, labels, trainer
+    rows, lines = phase_kernels(device, params, memory_rate(kind))
+    del sm, params
+    torch.cuda.empty_cache()
 
-    rows, lines = phase_kernels(device, params, launches, memory_rate(kind))
+    flash_errs = phase_flash_parity(device)
+    sm, tokens, _ = build_lm(device)
+    if sm.n_params != LM_PARAMS:
+        raise AssertionError(f"TransformerLM has {sm.n_params} parameters, expected {LM_PARAMS}")
+    trainer = Trainer(device, sm, tokens, tokens)
+    counts["transformer"], steps = phase_train_lm(trainer)
+    per_step = SIZE * sm.module.layers  # attention calls per step
+    short = [k for k in FLASH_KERNELS if counts["transformer"][k] < per_step * steps]
+    if short:
+        raise AssertionError(f"the transformer path launched fewer than {per_step} {short} "
+                             f"per step over {steps} steps: {counts['transformer']}")
+    for path, kernel_names in PATH_KERNELS.items():
+        missing = [k for k in kernel_names if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    step_s = trainer.tiers["lm atc/int8"]["median"][0]
+    tokens_per_step = SIZE * LM_BATCH * LM_SEQ
+    log("train", f"TransformerLM x{SIZE} workers, {LM_BATCH} x {LM_SEQ} tokens each, "
+                 f"{sm.n_params} parameters per worker ({sm.width} packed); lm atc/int8: "
+                 f"median step {step_s:.4f} s, {tokens_per_step / step_s:.1f} tokens/s, mfu "
+                 f"{lm_flops_per_step(sm, LM_SEQ, LM_BATCH) / step_s / BF16_RATE:.4f} "
+                 f"({lm_flops_per_step(sm, LM_SEQ, LM_BATCH) / 1e12:.1f} TFLOP per step at "
+                 f"{BF16_RATE / 1e12:.0f} TFLOP/s); launches {counts['transformer']} over "
+                 f"{steps} steps; on {smi}")
+    log_tiers(trainer)
+    lm_attention_check(sm, trainer.params, tokens)
+    phase_profile(device, "transformer", sm, tokens, tokens, trainer.params, lr=0.01)
+    del sm, tokens, trainer
+    torch.cuda.empty_cache()
+
+    flash_rows, flash_lines = phase_flash_kernels(device, flash_errs, memory_rate(kind))
+    rows += flash_rows
+    lines += flash_lines
+    launches = {k: sum(c[k] for c in counts.values()) for k in KERNEL_ROWS}
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     for line in lines:
         log("kernels", f"{line}; on {smi}")
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")

@@ -182,3 +182,133 @@ def test_new_wrappers_refuse_bad_cuda_operands(cuda):
         kernels.decode(p, s, src.long(), "int8")
     with pytest.raises(ValueError):  # scales of the other wire
         kernels.decode(p, s.to(torch.bfloat16), None, "int8")
+
+
+# -- flash attention (B6-B8) ----------------------------------------------------
+
+# (b, t, h, h_kv, d, causal, dtype, with_lse, offset): bf16 causal and not, a
+# ragged T with GQA, head_dim 96 and 128, rows off 16 bytes (head_dim 36, and
+# operands shifted by one element in their buffer: the bf16 route's scalar
+# loads), f32, and the lse form (f32 out, so an f32 cotangent beside bf16
+# q/k/v) with a nonzero lse cotangent
+FLASH_CASES = [
+    (2, 256, 4, 4, 64, True, torch.bfloat16, False, 0),
+    (1, 300, 4, 2, 64, False, torch.bfloat16, False, 0),
+    (1, 200, 2, 2, 96, True, torch.bfloat16, False, 0),
+    (1, 130, 2, 1, 128, True, torch.bfloat16, False, 0),
+    (1, 150, 4, 2, 36, True, torch.bfloat16, False, 0),
+    (1, 150, 4, 2, 64, True, torch.bfloat16, False, 1),
+    (1, 100, 2, 2, 64, True, torch.float32, False, 0),
+    (1, 150, 4, 2, 64, True, torch.bfloat16, True, 0),
+]
+
+# Each output row (a query's out or dQ, a key's dK or dV) is held to its own
+# norm, with chip_smoke.py's limits (about 3x the largest value measured on
+# an H100): bf16 inputs, where each side rounds its outputs to bf16 and the
+# kernels round P at a running row maximum; f32, where sums run in another
+# order. The lse is held absolutely.
+_ROW_TOL = {
+    torch.bfloat16: {"out": 1.6e-2, "dq": 1.6e-2, "dk": 2.2e-2, "dv": 1.2e-2},
+    torch.float32: {"out": 2e-6, "dq": 2e-6, "dk": 2e-6, "dv": 2e-6},
+}
+_LSE_TOL = 6e-6
+
+
+def _row_err(got, want, floor=1e-3):
+    """Largest ``||got - want|| / ||want||`` over the rows (the last axis),
+    each row's norm floored at ``floor`` times the rows' root-mean-square
+    norm (causal dQ of the first query cancels to rounding noise); an
+    all-zero ``want`` must be matched exactly."""
+    want = want.float()
+    diff = (got.float() - want).norm(dim=-1)
+    norm = want.norm(dim=-1)
+    denom = norm.clamp_min(floor * float(norm.square().mean().sqrt()))
+    return float(torch.where(denom > 0, diff / denom,
+                             torch.where(diff > 0, float("inf"), 0.0)).max())
+
+
+def _operands(rng, cuda, dtype, offset, *shapes):
+    """Tensors of ``shapes`` from ``rng``, each ``offset`` elements into its
+    own buffer on the card."""
+    out = []
+    for shape in shapes:
+        n = int(np.prod(shape))
+        flat = torch.from_numpy(rng.randn(offset + n).astype(np.float32)).to(cuda, dtype)
+        out.append(flat[offset:].view(*shape))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: f"t{c[1]}-h{c[2]}x{c[3]}-d{c[4]}-"
+                         f"{'causal' if c[5] else 'full'}-{str(c[6])[6:]}{'-lse' if c[7] else ''}"
+                         f"{'-offset' if c[8] else ''}")
+def test_flash_kernels_match_plain_versions(cuda, case):
+    """flash_fwd, flash_bwd_dkv and flash_bwd_dq against their plain
+    versions on the same inputs, every output row within ``_ROW_TOL`` of
+    its own norm. Each wrapper counts one launch."""
+    from bluefog_tpu_torch.ops import flash
+
+    b, t, h, h_kv, d, causal, dtype, with_lse, offset = case
+    rng = np.random.RandomState(21)
+    q, k, v = _operands(rng, cuda, dtype, offset, (b, t, h, d), (b, t, h_kv, d), (b, t, h_kv, d))
+    scale = 1.0 / np.sqrt(d)
+    out_dtype = torch.float32 if with_lse else dtype
+    tol = _ROW_TOL[dtype]
+    before = flash.launch_counts()
+    out, lse = flash.flash_fwd(q, k, v, causal, scale, out_dtype)
+    rout, rlse = flash.flash_fwd_reference(q, k, v, causal, scale, out_dtype)
+    assert out.dtype == out_dtype and _row_err(out, rout) <= tol["out"]
+    assert float((lse - rlse).abs().max()) <= _LSE_TOL
+    do = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(cuda, out_dtype)
+    dlse = torch.from_numpy(rng.randn(b, h, t).astype(np.float32)).to(cuda) if with_lse else None
+    delta = flash.attention_delta(rout, do)
+    args = (q, k, v, do, rlse, delta, dlse, causal, scale)
+    dk, dv = flash.flash_bwd_dkv(*args)
+    dq = flash.flash_bwd_dq(*args)
+    rdk, rdv = flash.flash_bwd_dkv_reference(*args)
+    rdq = flash.flash_bwd_dq_reference(*args)
+    torch.cuda.synchronize()
+    for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert _row_err(got, want) <= tol[name], (name, _row_err(got, want))
+    after = flash.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_on_card_match_cpu(cuda):
+    """The autograd path end to end: bf16 causal attention on the card
+    (kernels) against the same call on the CPU (plain versions), every
+    row within ``_ROW_TOL`` of its norm."""
+    from bluefog_tpu_torch.ops import flash_attention
+
+    rng = np.random.RandomState(22)
+    base = [torch.from_numpy(rng.randn(2, 200, 4, 64).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(3)]
+    w = torch.from_numpy(rng.randn(2, 200, 4, 64).astype(np.float32))
+    results = {}
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (x.to(dev).requires_grad_(True) for x in base)
+        out = flash_attention(q, k, v, causal=True)
+        (out.float() * w.to(dev)).sum().backward()
+        results[dev.type] = [x.detach().cpu() for x in (out, q.grad, k.grad, v.grad)]
+    tol = _ROW_TOL[torch.bfloat16]
+    for name, got, want in zip(("out", "dq", "dk", "dv"), results["cuda"], results["cpu"]):
+        assert _row_err(got, want) <= tol[name], (name, _row_err(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_bad_cuda_operands(cuda):
+    from bluefog_tpu_torch.ops import flash
+
+    q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # mixed dtypes
+        flash.flash_fwd(q, q.float(), q, True, 0.125)
+    with pytest.raises(ValueError):  # head_dim above 128
+        z = torch.zeros(1, 64, 2, 136, device=cuda, dtype=torch.bfloat16)
+        flash.flash_fwd(z, z, z, True, 0.125)
+    with pytest.raises(ValueError):  # last axis not contiguous
+        flash.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, True, 0.125)
+    with pytest.raises(ValueError):  # operands on two devices
+        flash.flash_fwd(q, q.cpu(), q, True, 0.125)

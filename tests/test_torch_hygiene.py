@@ -15,6 +15,7 @@ import torch
 
 import bluefog_tpu_torch as bft
 from bluefog_tpu_torch.collective import kernels
+from bluefog_tpu_torch.ops import flash, flash_attention
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "networkx", "bluefog_tpu")
@@ -36,8 +37,19 @@ def _imported_modules(path: Path):
 
 def test_port_sources_exist():
     names = {p.name for p in _port_sources()}
-    assert {"chip_smoke.py", "kernels.py", "optimizers.py", "resnet.py", "windows.py"} <= names
-    assert (ROOT / "bluefog_tpu_torch" / "csrc" / "wire_kernels.cu").is_file()
+    assert {"chip_smoke.py", "kernels.py", "optimizers.py", "resnet.py", "windows.py",
+            "flash.py", "attention.py", "transformer.py"} <= names
+    for source in ("wire_kernels.cu", "flash_kernels.cu"):
+        assert (ROOT / "bluefog_tpu_torch" / "csrc" / source).is_file()
+
+
+@pytest.mark.parametrize("call", ["scaled_dot_product_attention", "torch.compile", "cudnn"])
+def test_port_calls_no_library_attention_or_compiler(call):
+    """The port's attention is its own kernels: no module of the package
+    calls PyTorch's fused attention, cuDNN or ``torch.compile`` (only
+    ``chip_smoke.py`` times SDPA, as a yardstick)."""
+    for path in sorted((ROOT / "bluefog_tpu_torch").rglob("*.py")):
+        assert call not in path.read_text(), f"{path.name} mentions {call}"
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -81,3 +93,27 @@ def test_wrappers_take_plain_versions_only_on_cpu():
     ):
         with pytest.raises(ValueError):
             call(x.to("meta"))
+
+
+def test_flash_wrappers_take_plain_versions_only_on_cpu():
+    """The flash kernels' wrappers likewise: CPU tensors take the plain
+    versions and count no launch (forward, both backward kernels, and
+    autograd through ``flash_attention``); a ``meta`` tensor is refused."""
+    flash.reset_launch_counts()
+    q = torch.randn(1, 24, 2, 8, requires_grad=True)
+    flash_attention(q, q, q, causal=True).sum().backward()
+    out, lse = flash.flash_fwd(q.detach(), q.detach(), q.detach(), True, 0.5)
+    delta = flash.attention_delta(out, out)
+    args = (q.detach(), q.detach(), q.detach(), out, lse, delta, None, True, 0.5)
+    flash.flash_bwd_dkv(*args)
+    flash.flash_bwd_dq(*args)
+    assert flash.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    m = q.detach().to("meta")
+    for call in (
+        lambda: flash.flash_fwd(m, m, m, True, 0.5),
+        lambda: flash.flash_bwd_dkv(m, m, m, m, lse.to("meta"), delta.to("meta"), None, True, 0.5),
+        lambda: flash.flash_bwd_dq(m, m, m, m, lse.to("meta"), delta.to("meta"), None, True, 0.5),
+        lambda: flash_attention(m, m, m, causal=True),
+    ):
+        with pytest.raises(ValueError):
+            call()
