@@ -8,8 +8,9 @@ minutes a ``torch.utils.cpp_extension`` build of the same code takes; the
 wrappers pass ``data_ptr()`` pointers and the current stream.
 
 Libraries land in ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of their source and that source's own flags, so an edited source rebuilds
-and an unchanged one is reused. A failed build raises with the compiler's
+named by a hash of their source, the headers under ``csrc/`` it includes
+and that source's own flags, so an edited source or header rebuilds and an
+unchanged one is reused. A failed build raises with the compiler's
 output; nothing falls back to the plain PyTorch versions.
 """
 
@@ -17,13 +18,15 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
 __all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "flags", "build_dir", "find_nvcc", "build",
-           "wire_library", "flash_library"]
+           "local_headers", "wire_library", "flash_library", "flash_sm90_library"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -39,6 +42,7 @@ NVCC_FLAGS = (
 SOURCE_FLAGS = {
     "wire_kernels": ("-fmad=false",),
     "flash_kernels": (),
+    "flash_sm90": (),
 }
 
 
@@ -71,11 +75,29 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> List[Path]:
+    """The headers beside ``source`` that it includes with ``#include
+    "..."``, directly or through another such header, in the order met."""
+    found: List[Path] = []
+    pending = [source]
+    while pending:
+        for name in _INCLUDE.findall(pending.pop(0).read_bytes()):
+            header = source.parent / name.decode()
+            if header.is_file() and header not in found:
+                found.append(header)
+                pending.append(header)
+    return found
+
+
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(flags(source.stem)).encode()
-    ).hexdigest()[:16]
-    return build_dir() / f"lib{source.stem}_{digest}.so"
+    digest = hashlib.sha256()
+    for part in [source] + local_headers(source):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(flags(source.stem)).encode())
+    return build_dir() / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def _command(source: Path, out: Path) -> List[str]:
@@ -87,7 +109,8 @@ def build(sources: List[str]) -> Dict[str, Path]:
     """Compile every ``csrc/<name>.cu`` in ``sources`` that is not built
     yet, one ``nvcc`` per source, all started together. Returns
     ``{name: library path}``; the compiler's output of each build is kept
-    beside its library as ``.log``. Raises if any build fails."""
+    beside its library as ``.log``, ending with a ``# built in <s> s`` line.
+    Raises if any build fails."""
     build_dir().mkdir(parents=True, exist_ok=True)
     libs = {name: _library_path(_CSRC / f"{name}.cu") for name in sources}
     running = []
@@ -95,19 +118,23 @@ def build(sources: List[str]) -> Dict[str, Path]:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            _command(_CSRC / f"{name}.cu", tmp),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running.append((name, lib, tmp, proc))
+        command = _command(_CSRC / f"{name}.cu", tmp)
+        log = lib.with_suffix(".log").open("w")
+        proc = subprocess.Popen(command, stdout=log, stderr=subprocess.STDOUT)
+        running.append((name, lib, tmp, log, proc, time.perf_counter()))
     failures = []
-    for name, lib, tmp, proc in running:
-        output, _ = proc.communicate()
-        lib.with_suffix(".log").write_text(output)
-        if proc.returncode != 0:
-            failures.append(f"{name}.cu (exit {proc.returncode}):\n{output}")
-            continue
-        os.replace(tmp, lib)
+    while running:
+        for job in [j for j in running if j[4].poll() is not None]:
+            running.remove(job)
+            name, lib, tmp, log, proc, start = job
+            log.write(f"# built in {time.perf_counter() - start:.1f} s\n")
+            log.close()
+            if proc.returncode != 0:
+                output = lib.with_suffix(".log").read_text()
+                failures.append(f"{name}.cu (exit {proc.returncode}):\n{output}")
+            else:
+                os.replace(tmp, lib)
+        time.sleep(0.05)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return libs
@@ -138,8 +165,20 @@ def flash_library() -> ctypes.CDLL:
     """The flash-attention kernels (``csrc/flash_kernels.cu``), built if
     needed. Each entry point takes the address of a ``BfFlashArgs`` block
     and the stream, and returns a ``cudaError_t``."""
-    lib = ctypes.CDLL(str(build(["flash_kernels"])["flash_kernels"]))
-    for name in ("bf_flash_fwd", "bf_flash_bwd_dkv", "bf_flash_bwd_dq"):
+    return _flash_entry_points("flash_kernels",
+                               ("bf_flash_fwd", "bf_flash_bwd_dkv", "bf_flash_bwd_dq"))
+
+
+@functools.lru_cache(maxsize=None)
+def flash_sm90_library() -> ctypes.CDLL:
+    """The wgmma/TMA flash kernels (``csrc/flash_sm90.cu``), built if
+    needed, with the entry points of :func:`flash_library`."""
+    return _flash_entry_points("flash_sm90", ("bf_flash_fwd_sm90", "bf_flash_bwd_dkv_sm90"))
+
+
+def _flash_entry_points(source: str, names) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build([source])[source]))
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -26,12 +26,15 @@
 // (K's) type before dS^T.Q (dS.K). No padding copy exists: a ragged tail is
 // zero-filled in shared memory and masked.
 //
-// Two routes:
-// - bf16 q/k/v with a bf16 cotangent (the training path): tensor cores through
-//   mma.sync.m16n8k16 (bf16 operands, f32 accumulation), operands brought
-//   from shared memory by ldmatrix, tiles staged by cp.async in two stages so
-//   the next tile loads while this one computes. Four warps, 16 rows each.
-//   head_dim is zero-padded in shared memory to DP = 64 or 128.
+// Two routes here (ops/flash.py::_route chooses; the bf16 forward and dK/dV
+// whose rows TMA can address take flash_sm90.cu instead):
+// - bf16 q/k/v with a bf16 cotangent: tensor cores through mma.sync.m16n8k16
+//   (bf16 operands, f32 accumulation), operands brought from shared memory by
+//   ldmatrix, tiles staged by cp.async (or scalar loads where rows are off 16
+//   bytes) in two stages so the next tile loads while this one computes. Four
+//   warps, 16 rows each. head_dim is zero-padded in shared memory to DP = 64
+//   or 128. This is the training path's dQ, and the forward and dK/dV of
+//   rows off 16 bytes or head_dim not a multiple of 8.
 // - f32 q/k/v, or an f32 cotangent beside bf16 q/k/v (flash_attention_with_lse
 //   returns f32 out, so its cotangent is f32): CUDA cores, all arithmetic in
 //   f32, with the same roundings emulated (P stays f32 when dO is f32, dS is
@@ -45,49 +48,15 @@
 // entirely (scores and probabilities live in registers, one 16-row strip per
 // warp), feeds the tensor cores from shared memory with ldmatrix, skips the
 // K tiles above the causal diagonal (the loop bound, not a mask) and runs the
-// heaviest causal tiles first. wgmma, TMA and warp specialisation, which the
-// card's full rate needs, are left for a later change.
+// heaviest causal tiles first. flash_sm90.cu redesigns the forward and dK/dV
+// with wgmma, TMA and warp specialisation; dQ is next.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-extern "C" {
-
-// One argument block for all three entry points (mirrored by a ctypes
-// Structure in bluefog_tpu_torch/ops/flash.py). Strides are in elements:
-// batch, sequence, head.
-struct BfFlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* d_o;
-  void* out;
-  void* dq;
-  void* dk;
-  void* dv;
-  float* lse;
-  const float* delta;
-  const float* dlse;
-  long long q_stride[3];
-  long long k_stride[3];
-  long long v_stride[3];
-  long long do_stride[3];
-  int b;
-  int t;
-  int h;
-  int h_kv;
-  int d;
-  float scale;
-  int causal;
-  int qkv_bf16;  // q, k, v are bf16 (else f32)
-  int out_f32;   // forward output f32 (else q's type)
-  int do_f32;    // backward cotangent f32 (else q's type)
-  int vec;       // every row of q, k, v (and dO) is 16-byte aligned, d % 8 == 0
-};
-
-}  // extern "C"
+#include "flash_args.cuh"
 
 // Dynamic shared memory of the tensor-core kernels.
 extern __shared__ __align__(16) unsigned char flash_smem[];

@@ -2,9 +2,9 @@
 """Flash attention: the forward and the FlashAttention-2 backward.
 
 Counterpart of ``bluefog_tpu/ops/flash.py`` on ``[batch, seq, heads,
-head_dim]`` tensors. Three functions have a hand-written CUDA kernel for
-Hopper (``csrc/flash_kernels.cu``, built at first use by
-:mod:`bluefog_tpu_torch._build`) and a plain PyTorch version beside it:
+head_dim]`` tensors. Three functions have hand-written CUDA kernels for
+Hopper (built at first use by :mod:`bluefog_tpu_torch._build`) and a plain
+PyTorch version beside them:
 
 - :func:`flash_fwd` (replaces ``_fwd_call``): ``out`` and the per-row
   logsumexp ``lse [b, h, t]`` f32;
@@ -12,14 +12,29 @@ Hopper (``csrc/flash_kernels.cu``, built at first use by
   ``_bwd_call``): dK and dV, summed over each KV head's query group;
 - :func:`flash_bwd_dq` (replaces the dQ ``pallas_call`` of ``_bwd_call``).
 
-A CUDA tensor always takes the kernel; a CPU tensor takes the plain
-version; anything else raises. The plain versions compute what the kernels
-compute, with the same masks, guards and roundings: scores in f32 from the
-inputs, masked to -inf, probabilities from the f32 scores, rounded to V's
-dtype before ``P.V`` (forward), to dO's before ``P^T.dO`` and ``dS`` to Q's
-(K's) before ``dS^T.Q`` (``dS.K``) in the backward. Only the softmax differs
-in form: the kernels run it online over key tiles, the plain version over
-the whole row.
+A CUDA tensor always takes a kernel; a CPU tensor takes the plain version;
+anything else raises. :func:`_route` chooses the kernel before the launch,
+from dtypes, head_dim, pointers, strides and the scale, never after a
+failure:
+
+- ``sm90`` (``csrc/flash_sm90.cu``, flash_fwd and flash_bwd_dkv): bf16
+  q/k/v (and a bf16 cotangent), head_dim a multiple of 8 up to 128, every
+  operand's base and batch, sequence and head strides on 16 bytes (the
+  Tensor Memory Accelerator's condition), scale > 0: wgmma fed by TMA,
+  a producer and two consumer warpgroups;
+- ``mma`` (``csrc/flash_kernels.cu``): the other bf16 calls (rows off 16
+  bytes, head_dim 36, ...), ``mma.sync`` with ``cp.async`` or scalar
+  loads; flash_bwd_dq always takes it for bf16;
+- ``simt`` (``csrc/flash_kernels.cu``): f32 q/k/v, or an f32 cotangent
+  (the lse form), on the CUDA cores.
+
+The plain versions compute what the kernels compute, with the same masks,
+guards and roundings: scores in f32 from the inputs, masked to -inf,
+probabilities from the f32 scores, rounded to V's dtype before ``P.V``
+(forward), to dO's before ``P^T.dO`` and ``dS`` to Q's (K's) before
+``dS^T.Q`` (``dS.K``) in the backward. Only the softmax differs in form:
+the kernels run it online over key tiles, the plain version over the
+whole row.
 
 :func:`flash_attention` and :func:`flash_attention_with_lse` are
 differentiable (``torch.autograd.Function``; the backward launches dK/dV
@@ -49,7 +64,9 @@ __all__ = [
     "flash_bwd_dq_reference",
     "attention_delta",
     "launch_counts",
+    "route_counts",
     "reset_launch_counts",
+    "ROUTES",
 ]
 
 MAX_HEAD_DIM = 128
@@ -132,22 +149,30 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, dlse, causal: bool,
 
 # -- kernels -------------------------------------------------------------------
 
-_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+ROUTES = ("sm90", "mma", "simt")
+_LAUNCHES = {k: dict.fromkeys(ROUTES, 0) for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last :func:`reset_launch_counts` (the
-    plain versions never count)."""
-    return dict(_LAUNCHES)
+    """Kernel launches by kernel, over all routes, since the last
+    :func:`reset_launch_counts` (the plain versions never count)."""
+    return {k: sum(by_route.values()) for k, by_route in _LAUNCHES.items()}
+
+
+def route_counts() -> dict:
+    """Kernel launches by kernel and route (``{kernel: {route: n}}``)
+    since the last :func:`reset_launch_counts`."""
+    return {k: dict(by_route) for k, by_route in _LAUNCHES.items()}
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    for by_route in _LAUNCHES.values():
+        for r in by_route:
+            by_route[r] = 0
 
 
 class _Args(ctypes.Structure):
-    """``BfFlashArgs`` of ``csrc/flash_kernels.cu``."""
+    """``BfFlashArgs`` of ``csrc/flash_args.cuh``."""
 
     _fields_ = (
         [(n, ctypes.c_void_p) for n in
@@ -169,9 +194,14 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+_MAP_ERRORS = {100000: "no cuTensorMapEncodeTiled in the driver",
+               100001: "cuTensorMapEncodeTiled refused an operand's layout"}
+
+
 def _raise_on_status(status: int, what: str) -> None:
     if status != 0:
-        raise RuntimeError(f"{what} kernel launch failed with cudaError {status}")
+        why = _MAP_ERRORS.get(status, f"cudaError {status}")
+        raise RuntimeError(f"{what} kernel launch failed: {why}")
 
 
 def _check_shapes(q, k, v) -> None:
@@ -213,6 +243,22 @@ def _rows_aligned(tensors, d: int) -> bool:
                for t in tensors)
 
 
+def _route(q, k, v, do=None, scale: float = 1.0) -> str:
+    """The kernel a CUDA call of :func:`flash_fwd` (``do`` None) or
+    :func:`flash_bwd_dkv` takes: ``"sm90"``, ``"mma"`` or ``"simt"`` (the
+    module docstring states the rule). The tensor maps of ``sm90`` need
+    16-byte aligned, positive strides; its softmax takes the row maximum
+    before the scale, which needs ``scale > 0``."""
+    if q.dtype == torch.float32 or (do is not None and do.dtype == torch.float32):
+        return "simt"
+    operands = [q, k, v] + ([do] if do is not None else [])
+    if (q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_HEAD_DIM and scale > 0
+            and _rows_aligned(operands, q.shape[-1])
+            and all(s > 0 for t in operands for s in t.stride()[:3])):
+        return "sm90"
+    return "mma"
+
+
 def _args(q, k, v, causal: bool, scale: float, **ptrs) -> _Args:
     b, t, h, d = q.shape
     a = _Args()
@@ -231,10 +277,17 @@ def _args(q, k, v, causal: bool, scale: float, **ptrs) -> _Args:
     return a
 
 
-def _library():
+def _launch(kernel: str, route: str, a: _Args, like: torch.Tensor) -> None:
+    """Launches ``kernel`` by ``route`` on ``like``'s stream; raises on a
+    refused launch; counts it."""
     from bluefog_tpu_torch import _build
 
-    return _build.flash_library()
+    if route == "sm90":
+        fn = getattr(_build.flash_sm90_library(), f"bf_{kernel}_sm90")
+    else:
+        fn = getattr(_build.flash_library(), f"bf_{kernel}")
+    _raise_on_status(fn(ctypes.addressof(a), _stream(like)), f"{kernel} ({route})")
+    _LAUNCHES[kernel][route] += 1
 
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
@@ -250,10 +303,10 @@ def flash_fwd(q, k, v, causal: bool, scale: float,
     out_dtype = q.dtype if out_dtype is None else out_dtype
     if _dispatch_device(q, k, v) == "cpu":
         return flash_fwd_reference(q, k, v, causal, scale, out_dtype)
-    return _fwd_kernel(q, k, v, causal, scale, out_dtype)
+    return _fwd_kernel(q, k, v, causal, scale, out_dtype, _route(q, k, v, scale=scale))
 
 
-def _fwd_kernel(q, k, v, causal, scale, out_dtype):
+def _fwd_kernel(q, k, v, causal, scale, out_dtype, route):
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_rows(x, name, (q.dtype,) if name != "q" else _FLOAT_TYPES)
     _require(out_dtype in (q.dtype, torch.float32),
@@ -263,9 +316,7 @@ def _fwd_kernel(q, k, v, causal, scale, out_dtype):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     a = _args(q, k, v, causal, scale, out=out, lse=lse)
     a.out_f32 = int(out_dtype == torch.float32)
-    status = _library().bf_flash_fwd(ctypes.addressof(a), _stream(q))
-    _raise_on_status(status, "flash_fwd")
-    _LAUNCHES["flash_fwd"] += 1
+    _launch("flash_fwd", route, a, q)
     return out, lse
 
 
@@ -304,13 +355,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dlse, causal: bool,
     group's (replaces the dK/dV kernel of ``_bwd_call``)."""
     if _check_backward(q, k, v, do, lse, delta, dlse) == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, dlse, causal, scale)
+    return _dkv_kernel(q, k, v, do, lse, delta, dlse, causal, scale,
+                       _route(q, k, v, do, scale))
+
+
+def _dkv_kernel(q, k, v, do, lse, delta, dlse, causal, scale, route):
     _check_backward_cuda(q, k, v, do, lse, delta, dlse)
     dk, dv = torch.empty(k.shape, dtype=k.dtype, device=k.device), \
         torch.empty(v.shape, dtype=v.dtype, device=v.device)
     a = _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, dk=dk, dv=dv)
-    status = _library().bf_flash_bwd_dkv(ctypes.addressof(a), _stream(q))
-    _raise_on_status(status, "flash_bwd_dkv")
-    _LAUNCHES["flash_bwd_dkv"] += 1
+    _launch("flash_bwd_dkv", route, a, q)
     return dk, dv
 
 
@@ -323,9 +377,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dlse, causal: bool,
     _check_backward_cuda(q, k, v, do, lse, delta, dlse)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     a = _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, dq=dq)
-    status = _library().bf_flash_bwd_dq(ctypes.addressof(a), _stream(q))
-    _raise_on_status(status, "flash_bwd_dq")
-    _LAUNCHES["flash_bwd_dq"] += 1
+    # dQ has no sm90 kernel: bf16 takes mma.sync
+    _launch("flash_bwd_dq", "simt" if _route(q, k, v, do, scale) == "simt" else "mma", a, q)
     return dq
 
 

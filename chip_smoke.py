@@ -6,8 +6,11 @@
 Phases, one line each; any failure exits non-zero:
 
 1. device   -- the card's name, and its name and power limit from nvidia-smi;
-2. build    -- compiles the CUDA wire and flash-attention kernels from
-               ``bluefog_tpu_torch/csrc`` (one ``nvcc`` each, together);
+2. build    -- compiles the CUDA wire kernels and the two flash-attention
+               sources (``flash_kernels.cu``, ``flash_sm90.cu``) from
+               ``bluefog_tpu_torch/csrc`` (one ``nvcc`` each, together), and
+               prints each one's build time and ptxas lines (registers,
+               spills);
 3. parity   -- every wire kernel (``encode``, ``decode_accumulate``,
                ``encode_diff``, ``decode_add``, ``decode``) against its plain
                PyTorch version on the card, int8 and int4, on a ragged input
@@ -46,23 +49,35 @@ Phases, one line each; any failure exits non-zero:
                128, grouped-query K/V, rows off 16 bytes (head_dim 36, a
                buffer shifted by one element), f32 inputs, and the lse form
                (f32 out and cotangent, a nonzero lse cotangent); every
-               output row within ``FLASH_ROW_TOL`` of its own norm;
+               output row within ``FLASH_ROW_TOL`` of its own norm, and
+               each case's ``flash_fwd`` and ``flash_bwd_dkv`` on the route
+               ``FLASH_ROUTES`` names (``sm90``: wgmma fed by TMA);
 10. train, path transformer -- ``TransformerLM`` (vocab 16384, dim 1024, 16
                heads, 12 layers, T 4096, bf16 compute over f32 parameters:
                188 872 704 per worker) on 8 virtual workers, 2 sequences of
                seeded random tokens each, next-token loss, ``sgd(0.01,
                0.9)``: ATC int8 (1 warm-up, 3 timed steps), then ATC
                int4_ef (1 warm-up, 1 timed step); launch counts zeroed just
-               before and read just after; then worker 0's forward at full
+               before and read just after, with at least 96 ``sm90``
+               launches of ``flash_fwd`` and ``flash_bwd_dkv`` a step;
+               then worker 0's forward at full
                size with every block's attention held against the plain
                version on its own q, k, v, and one profiled ATC int8 step;
 11. kernels  -- the flash kernels at the transformer's shape, timed beside
-               their operation bound, their plain versions and
+               their operation bound, their plain versions,
                ``F.scaled_dot_product_attention`` (the yardstick only:
-               the port never calls it); then the eight-row JSON line.
+               the port never calls it) and, for ``flash_fwd`` and
+               ``flash_bwd_dkv``, the ``mma`` route's kernel on the same
+               inputs (``earlier_ms``); then the eight-row JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
+
+    python3 chip_smoke.py --planted-faults
+
+builds each fault of ``PLANTED_FAULTS`` into its own copy of the package
+under ``build/faults/`` and runs flash-parity's cases on it: it fails unless
+every planted fault fails some case.
 """
 
 import json
@@ -518,11 +533,12 @@ def phase_train_lm(trainer, warmup=1, timed=3):
     """The transformer path: ATC int8 (``warmup + timed`` steps), then ATC
     int4_ef (one warm-up step, which allocates the CHOCO copies, and one
     timed step), under ``sgd(0.01, 0.9)``; returns ``(launch counts,
-    steps)``, the counts zeroed just before and read just after."""
+    flash route counts, steps)``, the counts zeroed just before and read
+    just after."""
     reset_launch_counts()
     trainer.gossip("lm atc/int8", "atc", "int8", warmup, timed, lr=0.01)
     trainer.gossip("lm atc/int4_ef", "atc", "int4_ef", 1, 1, lr=0.01)
-    return launch_counts(), warmup + timed + 2
+    return launch_counts(), flash.route_counts(), warmup + timed + 2
 
 
 def lm_flops_per_step(sm, seq, batch):
@@ -722,6 +738,15 @@ FLASH_ROW_TOL = {
 }
 FLASH_LSE_TOL = 6e-6
 ROW_FLOOR = 1e-3
+# The route each case's flash_fwd and flash_bwd_dkv must take on the card
+# (``ops/flash.py::_route``): sm90 where TMA can address every row; mma for
+# rows off 16 bytes; simt for f32 operands or the lse form's f32 cotangent.
+FLASH_ROUTES = {
+    "main": ("sm90", "sm90"), "full": ("sm90", "sm90"), "ragged": ("sm90", "sm90"),
+    "d96": ("sm90", "sm90"), "d128": ("sm90", "sm90"), "gqa": ("sm90", "sm90"),
+    "d36": ("mma", "mma"), "unaligned": ("mma", "mma"), "f32": ("simt", "simt"),
+    "lse": ("sm90", "simt"),
+}
 
 
 def flash_operands(device, b, t, h, h_kv, d, dtype, with_lse, seed=0, offset=0):
@@ -755,25 +780,45 @@ def row_err(got, want, floor=ROW_FLOOR):
     return float(rel.max())
 
 
+def with_poisoned_tail(x, value, n=256):
+    """``x`` copied to the front of a longer buffer whose last ``n`` elements
+    hold ``value``: a kernel that reads past the end of ``x`` meets them."""
+    buf = torch.full((x.numel() + n,), value, dtype=x.dtype, device=x.device)
+    buf[:x.numel()] = x.flatten()
+    return buf[:x.numel()].view(x.shape)
+
+
 def check_flash_case(device, case):
     """The three kernels against their plain versions on one case, each
     output row held to ``FLASH_ROW_TOL`` of its own norm and the lse to
-    ``FLASH_LSE_TOL``; returns ``{kernel: max abs difference}``."""
+    ``FLASH_LSE_TOL``; returns ``{kernel: max abs difference}``. The
+    backward's per-row vectors lie in front of poisoned tails (lse a huge
+    negative number, delta and dlse NaN), so a kernel that reads the rows
+    past t of the last head without masking them gives NaN."""
     name, b, t, h, h_kv, d, causal, dtype, with_lse, offset = case
     q, k, v, do, dlse = flash_operands(device, b, t, h, h_kv, d, dtype, with_lse,
                                        offset=offset)
     scale = 1.0 / math.sqrt(d)
     out_dtype = torch.float32 if with_lse else dtype
+    before = flash.route_counts()
     out, lse = flash.flash_fwd(q, k, v, causal, scale, out_dtype)
     rout, rlse = flash.flash_fwd_reference(q, k, v, causal, scale, out_dtype)
     # both backward versions take the plain forward's out and lse
-    delta = flash.attention_delta(rout, do)
-    args = (q, k, v, do, rlse, delta, dlse, causal, scale)
+    delta = with_poisoned_tail(flash.attention_delta(rout, do), math.nan)
+    if dlse is not None:
+        dlse = with_poisoned_tail(dlse, math.nan)
+    args = (q, k, v, do, with_poisoned_tail(rlse, -1e30), delta, dlse, causal, scale)
     dk, dv = flash.flash_bwd_dkv(*args)
     dq = flash.flash_bwd_dq(*args)
     rdk, rdv = flash.flash_bwd_dkv_reference(*args)
     rdq = flash.flash_bwd_dq_reference(*args)
     sync(device)
+    after = flash.route_counts()
+    routes = tuple(next((r for r in flash.ROUTES if after[k][r] > before[k][r]), "plain")
+                   for k in ("flash_fwd", "flash_bwd_dkv"))
+    if device.type == "cuda" and name in FLASH_ROUTES and routes != FLASH_ROUTES[name]:
+        raise AssertionError(f"flash[{name}]: flash_fwd and flash_bwd_dkv took the routes "
+                             f"{routes}, not {FLASH_ROUTES[name]}")
     if not torch.equal(torch.isneginf(lse), torch.isneginf(rlse)):
         raise AssertionError(f"flash[{name}]: lse is -inf on other rows than the plain version's")
     finite = torch.isfinite(rlse)
@@ -784,7 +829,8 @@ def check_flash_case(device, case):
     log("flash-parity", f"{name} (b {b}, T {t}, h {h}/{h_kv}, d {d}, "
                         f"{'causal' if causal else 'full'}, {str(dtype)[6:]}"
                         f"{', lse form' if with_lse else ''}"
-                        f"{f', offset {offset}' if offset else ''}): largest row error "
+                        f"{f', offset {offset}' if offset else ''}; routes {routes[0]}, "
+                        f"{routes[1]}): largest row error "
                         "relative to the row's norm "
                         + ", ".join(f"{key} {errs[key]:.3g} (limit {limits[key]:g})"
                                     for key in ("out", "dq", "dk", "dv"))
@@ -811,12 +857,22 @@ def phase_flash_kernels(device, errs, rate, b=LM_BATCH, t=LM_SEQ, h=LM_CONFIG["h
     split from the fused projection), timed beside their operation bound,
     their plain versions and ``F.scaled_dot_product_attention`` (forward on
     the forward's row; its backward, which gives dQ, dK and dV together, on
-    both backward rows); returns ``(rows, lines)``."""
+    both backward rows); ``flash_fwd`` and ``flash_bwd_dkv`` also beside the
+    ``mma`` route's kernel on the same inputs (``earlier_ms``); returns
+    ``(rows, lines)``."""
     q, k, v, do, _ = flash_operands(device, b, t, h, h, d, torch.bfloat16, False, seed=1)
     scale = 1.0 / math.sqrt(d)
     out, lse = flash.flash_fwd(q, k, v, True, scale)
     delta = flash.attention_delta(out, do)
     args = (q, k, v, do, lse, delta, None, True, scale)
+    # the route each kernel's row times, its source and design, and the
+    # mma.sync kernel of the same function where the route is sm90
+    route = {"flash_fwd": flash._route(q, k, v, scale=scale),
+             "flash_bwd_dkv": flash._route(q, k, v, do, scale), "flash_bwd_dq": "mma"}
+    earlier = {
+        "flash_fwd": lambda: flash._fwd_kernel(q, k, v, True, scale, q.dtype, "mma"),
+        "flash_bwd_dkv": lambda: flash._dkv_kernel(*args, "mma"),
+    }
     calls = {
         "flash_fwd": (lambda: flash.flash_fwd(q, k, v, True, scale),
                       lambda: flash.flash_fwd_reference(q, k, v, True, scale)),
@@ -844,29 +900,118 @@ def phase_flash_kernels(device, errs, rate, b=LM_BATCH, t=LM_SEQ, h=LM_CONFIG["h
     nbytes = {"flash_fwd": 4 * tile + row,  # q, k, v -> out, lse
               "flash_bwd_dkv": 6 * tile + 2 * row,  # q, k, v, dO, lse, delta -> dK, dV
               "flash_bwd_dq": 5 * tile + 2 * row}  # q, k, v, dO, lse, delta -> dQ
+    if route["flash_fwd"] != "sm90" or route["flash_bwd_dkv"] != "sm90":
+        raise AssertionError(f"the transformer's shape did not take the sm90 route: {route}")
     rows, lines = [], []
     for name, (kernel, plain) in calls.items():
         ms = time_ms(kernel, device)
+        earlier_ms = (time_ms(earlier[name], device)
+                      if name in earlier and device.type == "cuda" else None)
         plain_ms = time_ms(plain, device, iters=3, warmup=1)
         ops = products[name] * 2 * d * pairs
         t_ops, t_bytes = ops / BF16_RATE * 1e3, nbytes[name] / rate * 1e3
         bound = max(t_ops, t_bytes)
+        was = (f"{earlier_ms:.4f} ms on the mma route ({ops / earlier_ms / 1e9:.1f} TFLOP/s), "
+               if earlier_ms is not None else "")
         lines.append(
-            f"{name} (b {b}, T {t}, h {h}, d {d}, causal, bf16): {ms:.4f} ms kernel "
-            f"({ops / ms / 1e9:.1f} TFLOP/s), {plain_ms:.4f} ms plain, "
+            f"{name} (b {b}, T {t}, h {h}, d {d}, causal, bf16): {ms:.4f} ms kernel, route "
+            f"{route[name]} ({ops / ms / 1e9:.1f} TFLOP/s), {was}{plain_ms:.4f} ms plain, "
             f"{library[name]:.4f} ms scaled_dot_product_attention "
             f"{'forward' if name == 'flash_fwd' else 'backward (dQ, dK, dV together)'}, "
             f"bound {bound:.4f} ms ({ops / 1e9:.1f} GFLOP at {BF16_RATE / 1e12:.0f} TFLOP/s; "
             f"{nbytes[name] / 1e6:.1f} MB: {t_bytes:.4f} ms), {100 * bound / ms:.1f}% of the bound")
+        sm90 = route[name] == "sm90"
         rows.append({
             "name": name, "route": "cuda",
-            "source": "bluefog_tpu_torch/csrc/flash_kernels.cu",
+            "source": f"bluefog_tpu_torch/csrc/{'flash_sm90' if sm90 else 'flash_kernels'}.cu",
             "replaces": KERNEL_ROWS[name], "launches": None,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library[name],
+            "design": "wgmma+tma" if sm90 else "mma.sync", "earlier_ms": earlier_ms,
         })
     return rows, lines
+
+
+# Faults planted in scratch copies of csrc/flash_sm90.cu (``--planted-faults``):
+# (name, text of the source, its faulty replacement, flash-parity cases run).
+# Each must fail ``check_flash_case`` on some case.
+PLANTED_FAULTS = [
+    ("consumer reads a K/V stage one phase early (mbarrier parity)",
+     "mbar_wait(&full[st], (kt / kStages) & 1);",
+     "mbar_wait(&full[st], ((kt / kStages) & 1) ^ 1);",
+     ("main", "ragged", "d128")),
+    ("dK/dV walk starts one Q tile late",
+     "const int qt0 = a.causal ? k0 / BM : 0;",
+     "const int qt0 = (a.causal ? k0 / BM : 0) + 1;",
+     ("main", "ragged", "gqa")),
+    ("lse, delta and dlse rows past t left unmasked in dK/dV",
+     "const float lse = ok ? a.lse[base + row] : -INFINITY;",
+     "const float lse = a.lse[base + row];",
+     ("ragged", "gqa")),
+    ("K tile 1 skipped in the forward",
+     "fwd_softmax(s, pn, m_run, l_run, corr, a, kt * BN, row_lo, masked(kt));",
+     "fwd_softmax(s, pn, m_run, l_run, corr, a, kt * BN, row_lo, masked(kt));\n"
+     "      if (kt == 1) for (int i = 0; i < BN / 4; ++i) pn[i] = 0u;",
+     ("main", "ragged", "d128")),
+]
+
+
+def run_fault_cases(names):
+    """flash-parity's cases ``names`` on this checkout's kernels; prints one
+    JSON line per case: ``{"case", "passed", "errors"}``."""
+    device = torch.device("cuda")
+    for case in [c for c in FLASH_CASES if c[0] in names]:
+        try:
+            check_flash_case(device, case)
+            print(json.dumps({"case": case[0], "passed": True, "errors": None}), flush=True)
+        except (AssertionError, RuntimeError) as e:  # a wrong row, or a CUDA error
+            print(json.dumps({"case": case[0], "passed": False,
+                              "errors": f"{type(e).__name__}: {str(e)[:300]}"}), flush=True)
+
+
+def planted_faults(root="build/faults"):
+    """Each fault of ``PLANTED_FAULTS`` in its own copy of the package under
+    ``root`` (built and run there, all copies at once); fails unless every
+    fault fails flash-parity on some case. Returns the result lines."""
+    import shutil
+
+    src = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for i, (name, old, new, cases) in enumerate(PLANTED_FAULTS):
+        copy = os.path.join(src, root, f"fault{i}")
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(os.path.join(src, "bluefog_tpu_torch"),
+                        os.path.join(copy, "bluefog_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(src, "chip_smoke.py"), copy)
+        cu = os.path.join(copy, "bluefog_tpu_torch", "csrc", "flash_sm90.cu")
+        text = open(cu).read()
+        if text.count(old) != 1:
+            raise AssertionError(f"fault {name!r}: its text is not once in flash_sm90.cu")
+        open(cu, "w").write(text.replace(old, new))
+        cmd = [sys.executable, "-c", "import chip_smoke as cs; cs.run_fault_cases(%r)" % (cases,)]
+        procs.append((name, subprocess.Popen(cmd, cwd=copy, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True)))
+    lines, missed = [], []
+    for name, proc in procs:
+        out, _ = proc.communicate(timeout=900)
+        results = [json.loads(l) for l in out.splitlines() if l.startswith('{"case"')]
+        caught = [r for r in results if not r["passed"]]
+        if proc.returncode != 0:
+            caught.append({"case": "-", "errors": f"exit {proc.returncode}: {out[-600:]}"})
+        for r in results:
+            lines.append(f"{name}: {r['case']} {'passed' if r['passed'] else 'FAILED'}"
+                         f"{'' if r['passed'] else ': ' + r['errors']}")
+        if proc.returncode != 0:
+            lines.append(f"{name}: exit {proc.returncode}: {out[-600:]}")
+        if not caught:
+            missed.append(name)
+    for line in lines:
+        log("faults", line)
+    if missed:
+        raise AssertionError(f"planted faults that flash-parity did not catch: {missed}")
+    return lines
 
 
 def main():
@@ -874,6 +1019,9 @@ def main():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--planted-faults"]:
+        planted_faults()
+        return 0
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -882,16 +1030,18 @@ def main():
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    names = ["wire_kernels", "flash_kernels"]
+    names = ["wire_kernels", "flash_kernels", "flash_sm90"]
     libs = _build.build(names)
     _build.wire_library()
     _build.flash_library()
-    log("build", f"{' and '.join(names)} built in {time.perf_counter() - t0:.1f} s")
+    _build.flash_sm90_library()
+    log("build", f"{', '.join(names)} built together in {time.perf_counter() - t0:.1f} s")
     for name in names:
         log("build", f"{name} -> {libs[name]}")
         for line in libs[name].with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log("build", line.strip())
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "built in",
+                                       "Performance Loss", "setmaxnreg", "warning")):
+                log("build", f"{name}: {line.strip()}")
 
     bft.init(size=SIZE)
     phase_parity(device)
@@ -921,12 +1071,15 @@ def main():
     if sm.n_params != LM_PARAMS:
         raise AssertionError(f"TransformerLM has {sm.n_params} parameters, expected {LM_PARAMS}")
     trainer = Trainer(device, sm, tokens, tokens)
-    counts["transformer"], steps = phase_train_lm(trainer)
+    counts["transformer"], routes, steps = phase_train_lm(trainer)
     per_step = SIZE * sm.module.layers  # attention calls per step
     short = [k for k in FLASH_KERNELS if counts["transformer"][k] < per_step * steps]
+    short += [f"{k} (sm90)" for k in ("flash_fwd", "flash_bwd_dkv")
+              if routes[k]["sm90"] < per_step * steps]
     if short:
         raise AssertionError(f"the transformer path launched fewer than {per_step} {short} "
-                             f"per step over {steps} steps: {counts['transformer']}")
+                             f"per step over {steps} steps: {counts['transformer']}, "
+                             f"routes {routes}")
     for path, kernel_names in PATH_KERNELS.items():
         missing = [k for k in kernel_names if counts[path][k] == 0]
         if missing:
@@ -939,7 +1092,9 @@ def main():
                  f"{lm_flops_per_step(sm, LM_SEQ, LM_BATCH) / step_s / BF16_RATE:.4f} "
                  f"({lm_flops_per_step(sm, LM_SEQ, LM_BATCH) / 1e12:.1f} TFLOP per step at "
                  f"{BF16_RATE / 1e12:.0f} TFLOP/s); launches {counts['transformer']} over "
-                 f"{steps} steps; on {smi}")
+                 f"{steps} steps, flash routes "
+                 f"{ {k: {r: n for r, n in v.items() if n} for k, v in routes.items()} }; "
+                 f"on {smi}")
     log_tiers(trainer)
     lm_attention_check(sm, trainer.params, tokens)
     phase_profile(device, "transformer", sm, tokens, tokens, trainer.params, lr=0.01)

@@ -312,3 +312,65 @@ def test_flash_wrappers_refuse_bad_cuda_operands(cuda):
         flash.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, True, 0.125)
     with pytest.raises(ValueError):  # operands on two devices
         flash.flash_fwd(q, q.cpu(), q, True, 0.125)
+
+
+# (b, t, h, h_kv, d, causal): the wgmma/TMA route's edges. T 1, 127, 129 and
+# 200 against its 128-row tiles (and the dK/dV kernel's 64-row Q tiles), a
+# causal T below one tile, grouped-query 16/4 at T 1000, head_dim 96 (TMA
+# zero-fills the columns 96..127) and 128 (two 64-column panels)
+SM90_CASES = [
+    (1, 1, 2, 2, 64, True),
+    (2, 127, 2, 2, 64, True),
+    (1, 129, 4, 2, 64, True),
+    (1, 200, 2, 2, 64, False),
+    (2, 50, 4, 4, 64, True),
+    (1, 1000, 16, 4, 64, True),
+    (1, 300, 4, 4, 96, True),
+    (1, 300, 4, 2, 128, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SM90_CASES, ids=lambda c: f"t{c[1]}-h{c[2]}x{c[3]}-d{c[4]}-"
+                         f"{'causal' if c[5] else 'full'}")
+def test_sm90_route_matches_plain_versions(cuda, case):
+    """q, k and v split from one fused bf16 projection (as the transformer
+    gives them) take the sm90 route for flash_fwd and flash_bwd_dkv (dQ
+    stays on mma.sync); every output row within ``_ROW_TOL`` of its norm,
+    the lse within ``_LSE_TOL``."""
+    from bluefog_tpu_torch.ops import flash
+    from chip_smoke import with_poisoned_tail
+
+    b, t, h, h_kv, d, causal = case
+    rng = np.random.RandomState(23)
+    width = (h + 2 * h_kv) * d
+    qkv = torch.from_numpy(rng.randn(b, t, width).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (x.reshape(b, t, -1, d) for x in qkv.split([h * d, h_kv * d, h_kv * d], -1))
+    do = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(cuda, torch.bfloat16)
+    scale = 1.0 / np.sqrt(d)
+    tol = _ROW_TOL[torch.bfloat16]
+    before = flash.route_counts()
+    out, lse = flash.flash_fwd(q, k, v, causal, scale)
+    rout, rlse = flash.flash_fwd_reference(q, k, v, causal, scale)
+    # the per-row vectors before poisoned tails: a read past t of the last
+    # head meets a huge negative lse or a NaN delta and gives NaN
+    delta = with_poisoned_tail(flash.attention_delta(rout, do), float("nan"))
+    args = (q, k, v, do, with_poisoned_tail(rlse, -1e30), delta, None, causal, scale)
+    dk, dv = flash.flash_bwd_dkv(*args)
+    dq = flash.flash_bwd_dq(*args)
+    rdk, rdv = flash.flash_bwd_dkv_reference(*args)
+    rdq = flash.flash_bwd_dq_reference(*args)
+    torch.cuda.synchronize()
+    after = flash.route_counts()
+    took = {k: [r for r in flash.ROUTES if after[k][r] > before[k][r]] for k in after}
+    assert took == {"flash_fwd": ["sm90"], "flash_bwd_dkv": ["sm90"], "flash_bwd_dq": ["mma"]}
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(rlse))
+    assert float((lse - rlse).abs().max()) <= _LSE_TOL
+    for name, got, want in (("out", out, rout), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        if t == 1 and name in ("dq", "dk"):
+            # one key: P = 1 and dP = delta, so dS, dQ and dK are 0 in exact
+            # arithmetic and every row is rounding noise
+            assert float(got.float().abs().max()) <= 1e-5, name
+            continue
+        assert _row_err(got, want) <= tol[name], (name, _row_err(got, want))

@@ -1,0 +1,169 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""The flash kernels' route rule (``ops/flash.py::_route``) and the build's
+source hashing, on the CPU.
+
+The rule is a plain function of dtypes, head_dim, pointers, strides and the
+scale, so it is tested here on CPU tensors laid out as the card would get
+them: q, k and v split from one fused projection as the transformer splits
+them take ``sm90`` (wgmma fed by TMA); rows off 16 bytes, head_dim 36 or a
+non-positive scale take ``mma``; f32 operands or an f32 cotangent take
+``simt``.
+"""
+
+import pytest
+import torch
+
+from bluefog_tpu_torch import _build
+from bluefog_tpu_torch.ops import flash
+
+
+def _fused(b, t, h, h_kv, d, dtype=torch.bfloat16, offset=0):
+    """q, k, v as strided views of one ``[b, t, (h + 2 h_kv) d]`` buffer,
+    ``offset`` elements into it (``models/transformer.py``'s split)."""
+    width = (h + 2 * h_kv) * d
+    flat = torch.zeros(offset + b * t * width, dtype=dtype)
+    qkv = flat[offset:].view(b, t, width)
+    return tuple(x.reshape(b, t, -1, d) for x in qkv.split([h * d, h_kv * d, h_kv * d], -1))
+
+
+@pytest.mark.parametrize("h,h_kv,d", [(16, 16, 64), (16, 4, 64), (4, 4, 96), (2, 1, 128),
+                                      (4, 2, 72), (2, 2, 8)])
+def test_fused_projection_views_take_sm90(h, h_kv, d):
+    q, k, v = _fused(2, 40, h, h_kv, d)
+    assert not q.is_contiguous()
+    assert flash._route(q, k, v, scale=d ** -0.5) == "sm90"
+    assert flash._route(q, k, v, torch.zeros_like(q), d ** -0.5) == "sm90"
+
+
+def test_the_transformer_shape_takes_sm90():
+    """b 2, T 4096, 16 heads of 64: 6144-byte rows, 128-byte heads."""
+    q, k, v = _fused(2, 4096, 16, 16, 64)
+    assert q.stride() == (4096 * 3072, 3072, 64, 1)
+    assert flash._route(q, k, v, scale=0.125) == "sm90"
+
+
+@pytest.mark.parametrize("why,case", [
+    ("head_dim 36", dict(d=36)),
+    ("head_dim 100", dict(d=100)),
+    ("offset of one element", dict(d=64, offset=1)),
+    ("offset of four elements", dict(d=64, offset=4)),
+])
+def test_rows_tma_cannot_address_take_mma(why, case):
+    q, k, v = _fused(1, 30, 4, 2, **case)
+    assert flash._route(q, k, v, scale=0.1) == "mma", why
+    assert flash._route(q, k, v, torch.zeros_like(q), 0.1) == "mma", why
+
+
+def test_an_unaligned_cotangent_takes_mma():
+    q, k, v = _fused(1, 30, 4, 2, 64)
+    do = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)[1:].view(q.shape)
+    assert flash._route(q, k, v, scale=0.1) == "sm90"
+    assert flash._route(q, k, v, do, 0.1) == "mma"
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_a_scale_that_is_not_positive_takes_mma(scale):
+    q, k, v = _fused(1, 30, 4, 2, 64)
+    assert flash._route(q, k, v, scale=scale) == "mma"
+
+
+def test_f32_operands_or_cotangent_take_simt():
+    q, k, v = _fused(1, 30, 4, 2, 64, dtype=torch.float32)
+    assert flash._route(q, k, v, scale=0.1) == "simt"
+    q, k, v = _fused(1, 30, 4, 2, 64)
+    assert flash._route(q, k, v, torch.zeros(q.shape), 0.1) == "simt"
+
+
+def test_zero_strides_take_mma():
+    """An expanded operand (stride 0) has no tensor map."""
+    q, k, v = _fused(1, 30, 4, 4, 64)
+    k0 = k[:, :, :1].expand(k.shape)
+    assert k0.stride(2) == 0
+    assert flash._route(q, k0, v, scale=0.1) == "mma"
+
+
+def test_route_counts_stay_zero_on_the_cpu():
+    """CPU tensors take the plain versions: no launch on any route, and
+    :func:`launch_counts` keeps exactly its three keys."""
+    flash.reset_launch_counts()
+    q = torch.randn(1, 24, 2, 8, requires_grad=True)
+    flash.flash_attention(q, q, q, causal=True).sum().backward()
+    out, lse = flash.flash_attention_with_lse(q, q, q, causal=True)
+    (out.sum() + lse.sum()).backward()
+    assert flash.route_counts() == {k: dict.fromkeys(flash.ROUTES, 0)
+                                    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    assert flash.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+
+
+def _fake_csrc(tmp_path, monkeypatch, header_text):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "flash_sm90.cu").write_text('#include <cuda.h>\n#include "flash_args.cuh"\nint x;\n')
+    (csrc / "flash_args.cuh").write_text('#include "inner.cuh"\nstruct A { int a; };\n')
+    (csrc / "inner.cuh").write_text(header_text)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    return csrc / "flash_sm90.cu"
+
+
+def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
+    """An edited header under ``csrc/`` (directly or through another
+    header) names another library, so it rebuilds; system headers are not
+    read."""
+    source = _fake_csrc(tmp_path, monkeypatch, "// one\n")
+    assert [p.name for p in _build.local_headers(source)] == ["flash_args.cuh", "inner.cuh"]
+    first = _build._library_path(source)
+    assert _build._library_path(source) == first
+    (source.parent / "inner.cuh").write_text("// two\n")
+    second = _build._library_path(source)
+    assert second != first and second.parent == first.parent
+    (source.parent / "flash_args.cuh").write_text('#include "inner.cuh"\nstruct A { int b; };\n')
+    assert _build._library_path(source) not in (first, second)
+
+
+def test_every_source_has_its_flags_and_the_sm90_source_exists():
+    for name in ("wire_kernels", "flash_kernels", "flash_sm90"):
+        assert (_build._CSRC / f"{name}.cu").is_file()
+        assert _build.flags(name)[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+    assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    headers = [p.name for p in _build.local_headers(_build._CSRC / "flash_sm90.cu")]
+    assert headers == ["flash_args.cuh"]
+
+
+def test_sm90_source_is_wgmma_fed_by_tma_and_calls_no_library():
+    """The redesigned kernels issue wgmma from shared memory and registers,
+    bring tiles by TMA onto mbarriers under warp specialisation, and no CUDA
+    source includes cuBLAS, cuDNN or CUTLASS."""
+    text = (_build._CSRC / "flash_sm90.cu").read_text()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                   "setmaxnreg.dec", "setmaxnreg.inc", "__grid_constant__",
+                   "cudaGetDriverEntryPoint", "CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert needle in text, needle
+    for source in sorted(_build._CSRC.glob("*.cu*")):
+        for line in source.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert not any(lib in line.lower() for lib in ("cublas", "cudnn", "cutlass")), line
+
+
+def test_chip_smoke_routes_and_planted_faults_match_the_sources():
+    """Every flash-parity case names its expected routes, and every planted
+    fault's text occurs exactly once in the source it mutates."""
+    import chip_smoke
+
+    assert {c[0] for c in chip_smoke.FLASH_CASES} == set(chip_smoke.FLASH_ROUTES)
+    for fwd, dkv in chip_smoke.FLASH_ROUTES.values():
+        assert fwd in flash.ROUTES and dkv in flash.ROUTES
+    text = (_build._CSRC / "flash_sm90.cu").read_text()
+    names = {c[0] for c in chip_smoke.FLASH_CASES}
+    for name, old, new, cases in chip_smoke.PLANTED_FAULTS:
+        assert text.count(old) == 1 and old != new, name
+        assert set(cases) <= names, name
+
+
+def test_poisoned_tail_keeps_the_values_and_poisons_past_the_end():
+    import chip_smoke
+
+    x = torch.arange(6.0).view(2, 3)
+    y = chip_smoke.with_poisoned_tail(x, float("nan"), n=4)
+    assert torch.equal(y, x) and y.is_contiguous()
+    past = torch.as_strided(y, (4,), (1,), y.storage_offset() + x.numel())
+    assert torch.isnan(past).all()
