@@ -173,7 +173,8 @@ def flash_library() -> ctypes.CDLL:
 def flash_sm90_library() -> ctypes.CDLL:
     """The wgmma/TMA flash kernels (``csrc/flash_sm90.cu``), built if
     needed, with the entry points of :func:`flash_library`."""
-    return _flash_entry_points("flash_sm90", ("bf_flash_fwd_sm90", "bf_flash_bwd_dkv_sm90"))
+    return _flash_entry_points("flash_sm90", ("bf_flash_fwd_sm90", "bf_flash_bwd_dkv_sm90",
+                                              "bf_flash_bwd_dq_sm90"))
 
 
 def _flash_entry_points(source: str, names) -> ctypes.CDLL:

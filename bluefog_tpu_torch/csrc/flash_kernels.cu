@@ -26,15 +26,15 @@
 // (K's) type before dS^T.Q (dS.K). No padding copy exists: a ragged tail is
 // zero-filled in shared memory and masked.
 //
-// Two routes here (ops/flash.py::_route chooses; the bf16 forward and dK/dV
-// whose rows TMA can address take flash_sm90.cu instead):
+// Two routes here (ops/flash.py::_route chooses; the bf16 calls whose rows
+// TMA can address take flash_sm90.cu instead):
 // - bf16 q/k/v with a bf16 cotangent: tensor cores through mma.sync.m16n8k16
 //   (bf16 operands, f32 accumulation), operands brought from shared memory by
 //   ldmatrix, tiles staged by cp.async (or scalar loads where rows are off 16
 //   bytes) in two stages so the next tile loads while this one computes. Four
 //   warps, 16 rows each. head_dim is zero-padded in shared memory to DP = 64
-//   or 128. This is the training path's dQ, and the forward and dK/dV of
-//   rows off 16 bytes or head_dim not a multiple of 8.
+//   or 128. This is the route of rows off 16 bytes, head_dim not a multiple
+//   of 8 or a scale that is not positive, for all three kernels.
 // - f32 q/k/v, or an f32 cotangent beside bf16 q/k/v (flash_attention_with_lse
 //   returns f32 out, so its cotangent is f32): CUDA cores, all arithmetic in
 //   f32, with the same roundings emulated (P stays f32 when dO is f32, dS is
@@ -48,8 +48,8 @@
 // entirely (scores and probabilities live in registers, one 16-row strip per
 // warp), feeds the tensor cores from shared memory with ldmatrix, skips the
 // K tiles above the causal diagonal (the loop bound, not a mask) and runs the
-// heaviest causal tiles first. flash_sm90.cu redesigns the forward and dK/dV
-// with wgmma, TMA and warp specialisation; dQ is next.
+// heaviest causal tiles first. flash_sm90.cu redesigns all three with
+// wgmma, TMA and warp specialisation.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -1,6 +1,6 @@
 // Copyright 2026. Licensed under the Apache License, Version 2.0.
 //
-// Flash attention for Hopper (sm_90a), the bf16 training route of two
+// Flash attention for Hopper (sm_90a), the bf16 training route of all three
 // kernels, in FlashAttention-3's shape: wgmma fed by the Tensor Memory
 // Accelerator, one producer warpgroup and two consumer warpgroups.
 //
@@ -8,8 +8,9 @@
 //   bf_flash_fwd_sm90      <- _fwd_call (_fwd_kernel; pallas_call at :169)
 //   bf_flash_bwd_dkv_sm90  <- _bwd_call (_bwd_dkv_kernel with _recompute_p;
 //                                        pallas_call at :343)
-// The dQ kernel and the routes for rows TMA cannot address (off 16 bytes,
-// head_dim not a multiple of 8) and for f32 operands stay in flash_kernels.cu;
+//   bf_flash_bwd_dq_sm90   <- _bwd_call (_bwd_dq_kernel; pallas_call at :369)
+// The routes for rows TMA cannot address (off 16 bytes, head_dim not a
+// multiple of 8) and for f32 operands stay in flash_kernels.cu;
 // ops/flash.py::_route chooses before the launch.
 //
 // What is computed is flash_kernels.cu's arithmetic (its header states it):
@@ -36,8 +37,8 @@
 //
 // Bound: operations. At the training shape (b 2, h 16, t 4096, d 64,
 // causal) the forward does two products over the lower triangle, 68.7
-// GFLOP: 0.069 ms at 989 TFLOP/s; dK/dV four, 0.139 ms. Their bytes take
-// 0.02 ms at 3.35 TB/s. The design:
+// GFLOP: 0.069 ms at 989 TFLOP/s; dK/dV four, 0.139 ms; dQ three, 0.104 ms.
+// Their bytes take 0.02-0.03 ms at 3.35 TB/s. The design:
 // - Forward: one block per (Q tile of 128 rows, b h), heaviest causal tiles
 //   first. Warpgroup 0 is the producer: one thread issues TMA for Q (once)
 //   and for K and V through a ring of 2-3 stages of BN keys, each stage
@@ -61,6 +62,18 @@
 //   once, Q and dO streamed, both K-major), then dV += P^T dO and dK += dS^T
 //   Q with P^T and dS^T from registers and dO and Q MN-major. dK and dV stay
 //   in f32 registers; the group's heads sum in the loop, without atomics.
+// - dQ: the forward's shape. One block per (Q tile of 128 rows, b h),
+//   heaviest first; the producer loads Q and dO once and streams K and V
+//   tiles of 64 keys through the ring. Each consumer thread reads the lse (as -lse
+//   log2 e), delta and dlse of its own two rows once, bounds-checked (past t:
+//   -inf and 0, whatever the next head holds there). Per tile, S = Q K^T and
+//   dP = dO V^T (wgmma from shared memory, K-major), P = ex2 of one FFMA,
+//   dS = P ((dP - delta) + dlse) scale packed to bf16 in registers, and dQ
+//   += dS K with K MN-major (the forward's P V descriptor). The product
+//   dS_j K_j is issued between S_{j+1} and dP_{j+1}, so P_{j+1} is
+//   computed while both run on the tensor cores. dQ stays in f32 registers
+//   and is written once, through the warpgroup's own Q rows of shared
+//   memory.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -837,6 +850,231 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// B8: dQ.
+// ---------------------------------------------------------------------------
+
+constexpr int kDqBM = 128;  // query rows per block, 64 per consumer
+// Keys per streamed tile. 64 rather than the forward's 128: a warpgroup's
+// last causal tile then wastes at most 64 masked keys, and S, dP, dQ and dS
+// take 112 registers a thread at head_dim 64 (128 keys measured slower).
+constexpr int kDqBN = 64;
+// Depth of the K/V ring: a 64-key tile is short work, so more tiles are
+// kept in flight than in the forward (3 stages measured slower).
+constexpr int kDqStages = 4;
+
+template <int DP>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  // Q and dO (128 rows), the K and V stages (BN rows), DP / 64 panels
+  // apiece; the barriers; 1024 bytes to align the swizzled tiles.
+  return (2 * kDqBM + 2 * kDqStages * kDqBN) * (DP / 64) * kRowBytes + 256 + 1024;
+}
+
+// acc (64 x BN) = A (this warpgroup's 64 rows of Q or dO) . B^T (K or V of
+// one stage), both K-major.
+template <int DP, int BN>
+__device__ __forceinline__ void dq_issue_rows(float (&acc)[BN / 2], const unsigned char* rows,
+                                              const unsigned char* st) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int col = (kk & 3) * 32;  // 16 columns of a 64-column panel
+    wgmma_ss<BN>(acc, desc_sw128(rows + (kk >> 2) * kDqBM * kRowBytes + col, 16),
+                 desc_sw128(st + (kk >> 2) * BN * kRowBytes + col, 16), kk > 0);
+  }
+}
+
+// dQ += dS . K of one stage (dS from registers, K MN-major).
+template <int DP, int BN>
+__device__ __forceinline__ void dq_issue_ds_k(float (&dq)[DP / 2], const uint32_t (&ds)[BN / 4],
+                                              const unsigned char* k_st) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    wgmma_rs<DP>(dq, &ds[4 * kk], desc_sw128(k_st + kk * 16 * kRowBytes, BN * kRowBytes), 1);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const BfFlashArgs a) {
+  constexpr int BM = kDqBM, BN = kDqBN, kPanels = DP / 64, kStages = kDqStages;
+  constexpr int kQPanel = BM * kRowBytes, kKPanel = BN * kRowBytes;
+  constexpr int kStageBytes = kPanels * kKPanel;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sO = sQ + kPanels * kQPanel;  // dO
+  unsigned char* sK = sO + kPanels * kQPanel;
+  unsigned char* sV = sK + kStages * kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qo_full = empty + kStages;
+
+  const int bh = blockIdx.x, bi = bh / a.h, hi = bh % a.h;
+  const int hk = hi / (a.h / a.h_kv);
+  const int n_qt = (a.t + BM - 1) / BM;
+  const int q0 = (n_qt - 1 - blockIdx.y) * BM;  // heaviest tiles first
+  const int all = (a.t + BN - 1) / BN;
+  const int n_kt = a.causal ? min(all, (q0 + BM + BN - 1) / BN) : all;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(qo_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qo_full, 2 * kPanels * kQPanel);
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(sQ + p * kQPanel, &tq, qo_full, 64 * p, hi, q0, bi);
+        tma_load(sO + p * kQPanel, &tdo, qo_full, 64 * p, hi, q0, bi);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * kStageBytes);
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(sK + st * kStageBytes + p * kKPanel, &tk, &full[st], 64 * p, hk, j * BN, bi);
+          tma_load(sV + st * kStageBytes + p * kKPanel, &tv, &full[st], 64 * p, hk, j * BN, bi);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    setmaxnreg_inc<240>();
+    const int wg = (threadIdx.x >> 7) - 1;
+    const int tid = threadIdx.x & 127, lane = tid & 31;
+    const int tg = lane & 3;
+    const int row_lo = q0 + 64 * wg + (tid >> 5) * 16 + (lane >> 2);  // and + 8
+    const unsigned char* q_rows = sQ + wg * 64 * kRowBytes;
+    const unsigned char* o_rows = sO + wg * 64 * kRowBytes;
+    const float c2 = a.scale * kLog2e;
+
+    // this thread's two rows of -lse log2 e, delta and dlse; TMA zero-fills
+    // the Q and dO rows past t, but these vectors would meet the next head's
+    float nl[2], delta[2], dlse[2];
+    const long long vbase = (long long)bh * a.t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int vrow = row_lo + 8 * r;
+      const bool in_t = vrow < a.t;
+      const float lse_row = in_t ? a.lse[vbase + vrow] : -INFINITY;
+      nl[r] = isfinite(lse_row) ? -lse_row * kLog2e : -INFINITY;
+      delta[r] = in_t ? a.delta[vbase + vrow] : 0.0f;
+      dlse[r] = (in_t && a.dlse != nullptr) ? a.dlse[vbase + vrow] : 0.0f;
+    }
+    // a tile needs masks when it crosses this warpgroup's diagonal or t
+    auto masked = [&](int j) {
+      return (a.causal && j * BN + BN - 1 > q0 + 64 * wg) || (j * BN + BN > a.t);
+    };
+    // P of tile j's scores s, in place (exponent as one FFMA; masked only on
+    // diagonal and ragged tiles)
+    auto probabilities = [&](float (&s)[BN / 2], int j) {
+      const bool m = masked(j);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row_lo + 8 * (e >> 1);
+          const int col = j * BN + 8 * i + 2 * tg + (e & 1);
+          float pe = pow2(fmaf(s[4 * i + e], c2, nl[e >> 1]));
+          if (m && ((a.causal && col > row) || col >= a.t)) pe = 0.0f;
+          s[4 * i + e] = pe;
+        }
+      }
+    };
+    // dS = P ((dP - delta) + dlse) scale in place of dP (f32)
+    auto grad_scores = [&](const float (&p)[BN / 2], float (&dp)[BN / 2]) {
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          dp[4 * i + e] = p[4 * i + e] * ((dp[4 * i + e] - delta[r]) + dlse[r]) * a.scale;
+        }
+      }
+    };
+
+    float dq[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+    float s[BN / 2], dp[BN / 2];
+    uint32_t ds[BN / 4];  // dS of the tile whose dS.K is in flight
+
+    mbar_wait(qo_full, 0);
+    if (n_kt > 0) {
+      mbar_wait(&full[0], 0);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      dq_issue_rows<DP, BN>(s, q_rows, sK);
+      wgmma_commit();
+      dq_issue_rows<DP, BN>(dp, o_rows, sV);
+      wgmma_commit();
+      wgmma_wait<1>();  // S; dP still runs
+      fence_regs(s);
+      probabilities(s, 0);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      grad_scores(s, dp);
+      pack_a<BN>(ds, dp);  // rounded to K's type
+    }
+    for (int j = 1; j < n_kt; ++j) {
+      const int st = j % kStages, prev = (j - 1) % kStages;
+      mbar_wait(&full[st], (j / kStages) & 1);
+      fence_regs(s);
+      fence_regs(dp);
+      fence_regs(dq);
+      fence_regs(ds);
+      wgmma_fence();
+      dq_issue_rows<DP, BN>(s, q_rows, sK + st * kStageBytes);
+      wgmma_commit();
+      dq_issue_ds_k<DP, BN>(dq, ds, sK + prev * kStageBytes);
+      wgmma_commit();
+      dq_issue_rows<DP, BN>(dp, o_rows, sV + st * kStageBytes);
+      wgmma_commit();
+      // P of tile j while dS.K of tile j - 1 and dP of tile j run; ds takes
+      // dS of tile j once dS.K has completed
+      wgmma_wait<2>();
+      fence_regs(s);
+      probabilities(s, j);
+      wgmma_wait<1>();
+      fence_regs(dq);
+      fence_regs(ds);
+      mbar_arrive(&empty[prev]);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      grad_scores(s, dp);
+      pack_a<BN>(ds, dp);
+    }
+    if (n_kt > 0) {
+      fence_regs(dq);
+      fence_regs(ds);
+      wgmma_fence();
+      dq_issue_ds_k<DP, BN>(dq, ds, sK + ((n_kt - 1) % kStages) * kStageBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      mbar_arrive(&empty[(n_kt - 1) % kStages]);
+    }
+
+    const float one[2] = {1.0f, 1.0f};
+    bf16* dst = static_cast<bf16*>(a.dq) + ((long long)bi * a.t * a.h + hi) * a.d;
+    // this warpgroup's Q rows are free once its last S has completed
+    store_tile<DP>(sQ + wg * 64 * kRowBytes, kQPanel, dq, one, dst, (long long)a.h * a.d,
+                   q0 + 64 * wg, a.t, a.d, 1 + wg);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side: tensor maps and launchers.
 // ---------------------------------------------------------------------------
 
@@ -918,6 +1156,16 @@ int launch_dkv(const BfFlashArgs& a, const CUtensorMap* maps, cudaStream_t strea
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP>
+int launch_dq(const BfFlashArgs& a, const CUtensorMap* maps, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_sm90<DP>;
+  const int smem = dq_smem_bytes<DP>();
+  if (int err = prepare(kernel, smem)) return err;
+  const dim3 grid(a.b * a.h, (a.t + kDqBM - 1) / kDqBM);
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -953,6 +1201,22 @@ int bf_flash_bwd_dkv_sm90(const BfFlashArgs* args, void* stream) {
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a.d <= 64 ? launch_dkv<64>(a, maps, s) : launch_dkv<128>(a, maps, s);
+}
+
+// dq <- the dQ half of the backward, with the conditions of
+// bf_flash_bwd_dkv_sm90. Returns a cudaError_t, or kNoEncoder /
+// kEncodeFailed.
+int bf_flash_bwd_dq_sm90(const BfFlashArgs* args, void* stream) {
+  const BfFlashArgs& a = *args;
+  if (a.t <= 0 || a.b * a.h <= 0) return 0;
+  CUtensorMap maps[4];
+  int err = make_map(&maps[0], a.q, a.q_stride, a.b, a.t, a.h, a.d, kDqBM);
+  if (!err) err = make_map(&maps[1], a.k, a.k_stride, a.b, a.t, a.h_kv, a.d, kDqBN);
+  if (!err) err = make_map(&maps[2], a.v, a.v_stride, a.b, a.t, a.h_kv, a.d, kDqBN);
+  if (!err) err = make_map(&maps[3], a.d_o, a.do_stride, a.b, a.t, a.h, a.d, kDqBM);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.d <= 64 ? launch_dq<64>(a, maps, s) : launch_dq<128>(a, maps, s);
 }
 
 }  // extern "C"

@@ -35,6 +35,8 @@
 // and written with 16-byte (int8 wire) or 8-byte (int4 wire) accesses so a
 // warp touches contiguous 2 KiB of f32 and 512/256 B of payload. The block
 // absmax is a warp shuffle reduction; nothing goes through shared memory.
+// decode, which only stores f32, has its own mapping (four blocks per warp,
+// each warp store one contiguous 512-byte run; see decode_kernel).
 // A round's sender row src[j] is read straight from the senders' payload:
 // the stacked ppermute is fused into the gather, and src[j] == -1 delivers
 // a zero payload with a zero scale, as ppermute does. decode_accumulate
@@ -246,26 +248,85 @@ encode_diff_kernel(const float* __restrict__ x, float* __restrict__ h,
   store_block<PACKED>(h + g * kChunk, lane, hv);
 }
 
-// out[j] = deq(payload[src[j]]) (src == nullptr: src[j] = j).
+// decode has a lane mapping of its own, since its time is its stores (4
+// bytes written per element, 1 or 1/2 read): every warp-wide float4 store
+// writes one contiguous 512-byte run. int8 wire: lane l holds elements 4l +
+// 128k .. +3 (k = 0..3), from the payload bytes at the same offsets. int4
+// wire: lane l reads bytes 4l .. +3 and 128 + 4l .. +3; their low nibbles
+// are elements 4l.. and 128 + 4l.., their high nibbles 256 + 4l.. and 384 +
+// 4l... A warp takes kDecodeBlocks blocks at a time and issues all their
+// loads before their stores.
+constexpr int kDecodeBlocks = 4;
+
+// Lane `lane`'s payload words of block c of sender row i (i < 0: zeros and
+// a zero scale): int8, the words at bytes 4 lane + 128 k; int4, k = 0, 1.
+template <bool PACKED>
+__device__ __forceinline__ float load_words(const int8_t* payload, const void* scales,
+                                            int i, long long n_chunks, long long c,
+                                            int lane, uint32_t (&w)[4]) {
+  if (i < 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = 0u;
+    return 0.0f;
+  }
+  const long long gi = (long long)i * n_chunks + c;
+  const uint32_t* p =
+      reinterpret_cast<const uint32_t*>(payload + gi * (PACKED ? kHalf : kChunk)) + lane;
+#pragma unroll
+  for (int k = 0; k < (PACKED ? 2 : 4); ++k) w[k] = p[32 * k];
+  return load_scale<PACKED>(scales, gi);
+}
+
+// Stores q * s of a lane's words into its four float4 slots of a block,
+// elements 4 lane + 128 k (int4: word k & 1, high nibbles for k >= 2;
+// sign-extended as load_q does).
+template <bool PACKED>
+__device__ __forceinline__ void store_words(float* out, int lane, const uint32_t (&w)[4],
+                                            float s) {
+  float4* o = reinterpret_cast<float4*>(out) + lane;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t word = w[PACKED ? (k & 1) : k];
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int byte = static_cast<int8_t>(word >> (8 * e));
+      const int q = !PACKED ? byte : (k < 2 ? ((byte & 15) ^ 8) - 8 : byte >> 4);
+      v[e] = __fmul_rn(static_cast<float>(q), s);
+    }
+    o[32 * k] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// out[j] = deq(payload[src[j]]) (src == nullptr: src[j] = j); a grid-stride
+// loop over groups of kDecodeBlocks blocks per warp.
 template <bool PACKED>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 decode_kernel(float* __restrict__ out, const int8_t* __restrict__ payload,
               const void* __restrict__ scales, const int32_t* __restrict__ src,
               int n_workers, long long n_chunks) {
-  const long long g =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const long long n_blocks = (long long)n_workers * n_chunks;
+  const long long stride = (long long)gridDim.x * kWarpsPerBlock * kDecodeBlocks;
   const int lane = threadIdx.x & 31;
-  if (g >= (long long)n_workers * n_chunks) return;
-  const int j = static_cast<int>(g / n_chunks);
-  const long long c = g - (long long)j * n_chunks;
-
-  int q[kPerLane];
-  const float s = load_sender<PACKED>(payload, scales, src ? src[j] : j,
-                                      n_chunks, c, lane, q);
-  float o[kPerLane];
+  for (long long g0 = ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) *
+                      kDecodeBlocks;
+       g0 < n_blocks; g0 += stride) {
+    uint32_t w[kDecodeBlocks][4];
+    float s[kDecodeBlocks];
 #pragma unroll
-  for (int k = 0; k < kPerLane; ++k) o[k] = __fmul_rn(static_cast<float>(q[k]), s);
-  store_block<PACKED>(out + g * kChunk, lane, o);
+    for (int u = 0; u < kDecodeBlocks; ++u) {
+      const long long g = g0 + u;
+      if (g < n_blocks) {
+        const int j = static_cast<int>(g / n_chunks);
+        s[u] = load_words<PACKED>(payload, scales, src ? src[j] : j, n_chunks,
+                                  g - (long long)j * n_chunks, lane, w[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDecodeBlocks; ++u) {
+      if (g0 + u < n_blocks) store_words<PACKED>(out + (g0 + u) * kChunk, lane, w[u], s[u]);
+    }
+  }
 }
 
 // base[j] += deq(payload[src[j]]) in place. A missing sender adds the
@@ -385,7 +446,8 @@ int bf_wire_encode_diff(const float* x, float* h, int8_t* payload,
 int bf_wire_decode(float* out, const int8_t* payload, const void* scales,
                    const int32_t* src, int n_workers, long long n_chunks,
                    int packed, void* stream) {
-  const long long warps = (long long)n_workers * n_chunks;
+  const long long warps =
+      ((long long)n_workers * n_chunks + kDecodeBlocks - 1) / kDecodeBlocks;
   if (warps > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (packed) {

@@ -17,14 +17,14 @@ anything else raises. :func:`_route` chooses the kernel before the launch,
 from dtypes, head_dim, pointers, strides and the scale, never after a
 failure:
 
-- ``sm90`` (``csrc/flash_sm90.cu``, flash_fwd and flash_bwd_dkv): bf16
-  q/k/v (and a bf16 cotangent), head_dim a multiple of 8 up to 128, every
-  operand's base and batch, sequence and head strides on 16 bytes (the
-  Tensor Memory Accelerator's condition), scale > 0: wgmma fed by TMA,
-  a producer and two consumer warpgroups;
+- ``sm90`` (``csrc/flash_sm90.cu``, all three kernels): bf16 q/k/v (and
+  a bf16 cotangent), head_dim a multiple of 8 up to 128, every operand's
+  base and batch, sequence and head strides on 16 bytes (the Tensor Memory
+  Accelerator's condition), scale > 0: wgmma fed by TMA, a producer and
+  two consumer warpgroups;
 - ``mma`` (``csrc/flash_kernels.cu``): the other bf16 calls (rows off 16
-  bytes, head_dim 36, ...), ``mma.sync`` with ``cp.async`` or scalar
-  loads; flash_bwd_dq always takes it for bf16;
+  bytes, head_dim 36, a scale that is not positive, ...), ``mma.sync``
+  with ``cp.async`` or scalar loads;
 - ``simt`` (``csrc/flash_kernels.cu``): f32 q/k/v, or an f32 cotangent
   (the lse form), on the CUDA cores.
 
@@ -244,9 +244,10 @@ def _rows_aligned(tensors, d: int) -> bool:
 
 
 def _route(q, k, v, do=None, scale: float = 1.0) -> str:
-    """The kernel a CUDA call of :func:`flash_fwd` (``do`` None) or
-    :func:`flash_bwd_dkv` takes: ``"sm90"``, ``"mma"`` or ``"simt"`` (the
-    module docstring states the rule). The tensor maps of ``sm90`` need
+    """The kernel a CUDA call of :func:`flash_fwd` (``do`` None),
+    :func:`flash_bwd_dkv` or :func:`flash_bwd_dq` takes: ``"sm90"``,
+    ``"mma"`` or ``"simt"`` (the module docstring states the rule; dK/dV
+    and dQ take the same route). The tensor maps of ``sm90`` need
     16-byte aligned, positive strides; its softmax takes the row maximum
     before the scale, which needs ``scale > 0``."""
     if q.dtype == torch.float32 or (do is not None and do.dtype == torch.float32):
@@ -374,11 +375,15 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dlse, causal: bool,
     :func:`flash_bwd_dkv` (replaces the dQ kernel of ``_bwd_call``)."""
     if _check_backward(q, k, v, do, lse, delta, dlse) == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, dlse, causal, scale)
+    return _dq_kernel(q, k, v, do, lse, delta, dlse, causal, scale,
+                      _route(q, k, v, do, scale))
+
+
+def _dq_kernel(q, k, v, do, lse, delta, dlse, causal, scale, route):
     _check_backward_cuda(q, k, v, do, lse, delta, dlse)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     a = _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, dq=dq)
-    # dQ has no sm90 kernel: bf16 takes mma.sync
-    _launch("flash_bwd_dq", "simt" if _route(q, k, v, do, scale) == "simt" else "mma", a, q)
+    _launch("flash_bwd_dq", route, a, q)
     return dq
 
 

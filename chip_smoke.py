@@ -50,8 +50,8 @@ Phases, one line each; any failure exits non-zero:
                buffer shifted by one element), f32 inputs, and the lse form
                (f32 out and cotangent, a nonzero lse cotangent); every
                output row within ``FLASH_ROW_TOL`` of its own norm, and
-               each case's ``flash_fwd`` and ``flash_bwd_dkv`` on the route
-               ``FLASH_ROUTES`` names (``sm90``: wgmma fed by TMA);
+               each case's three kernels on the routes ``FLASH_ROUTES``
+               names (``sm90``: wgmma fed by TMA);
 10. train, path transformer -- ``TransformerLM`` (vocab 16384, dim 1024, 16
                heads, 12 layers, T 4096, bf16 compute over f32 parameters:
                188 872 704 per worker) on 8 virtual workers, 2 sequences of
@@ -59,16 +59,16 @@ Phases, one line each; any failure exits non-zero:
                0.9)``: ATC int8 (1 warm-up, 3 timed steps), then ATC
                int4_ef (1 warm-up, 1 timed step); launch counts zeroed just
                before and read just after, with at least 96 ``sm90``
-               launches of ``flash_fwd`` and ``flash_bwd_dkv`` a step;
+               launches of each flash kernel a step;
                then worker 0's forward at full
                size with every block's attention held against the plain
                version on its own q, k, v, and one profiled ATC int8 step;
 11. kernels  -- the flash kernels at the transformer's shape, timed beside
                their operation bound, their plain versions,
                ``F.scaled_dot_product_attention`` (the yardstick only:
-               the port never calls it) and, for ``flash_fwd`` and
-               ``flash_bwd_dkv``, the ``mma`` route's kernel on the same
-               inputs (``earlier_ms``); then the eight-row JSON line.
+               the port never calls it) and the ``mma`` route's kernel on
+               the same inputs (``earlier_ms``); then the eight-row JSON
+               line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -139,6 +139,10 @@ KERNEL_ROWS = {
     "flash_bwd_dq": "bluefog_tpu/ops/flash.py:369",
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# the lane mapping of csrc/wire_kernels.cu::decode_kernel that the kernels
+# phase times
+DECODE_MAPPING = ("4 blocks per warp, all loads before the stores, each warp-wide "
+                  "float4 store one contiguous 512-byte run")
 # the kernels each path of the train phase must launch
 PATH_KERNELS = {
     "wire": ("encode", "decode_accumulate"),
@@ -681,8 +685,9 @@ def phase_kernels(device, params, rate):
             ms, plain_ms = time_ms(kernel, device), plain_time(plain)
             t_bytes, t_ops = nbytes[name] / rate * 1e3, ops[name] * elems / F32_RATE * 1e3
             bound = max(t_bytes, t_ops)
+            mapping = f" (lane mapping: {DECODE_MAPPING})" if name == "decode" else ""
             lines.append(
-                f"{name}[{wire}] [{n_workers}, {width}]: {ms:.4f} ms kernel, "
+                f"{name}[{wire}] [{n_workers}, {width}]{mapping}: {ms:.4f} ms kernel, "
                 f"{plain_ms:.4f} ms plain, bound {bound:.4f} ms "
                 f"({nbytes[name] / 1e9:.4f} GB), {nbytes[name] / ms / 1e6:.1f} GB/s, "
                 f"{100 * bound / ms:.1f}% of the bound"
@@ -697,6 +702,8 @@ def phase_kernels(device, params, rate):
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "library_ms": None,
                 }
+                if name == "decode":
+                    rows[name]["design"] = DECODE_MAPPING
             else:
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], errs[name])
         del x, h, acc, hk, base, p, s, pd, sd, calls
@@ -738,14 +745,15 @@ FLASH_ROW_TOL = {
 }
 FLASH_LSE_TOL = 6e-6
 ROW_FLOOR = 1e-3
-# The route each case's flash_fwd and flash_bwd_dkv must take on the card
-# (``ops/flash.py::_route``): sm90 where TMA can address every row; mma for
-# rows off 16 bytes; simt for f32 operands or the lse form's f32 cotangent.
+# The routes each case's flash_fwd, flash_bwd_dkv and flash_bwd_dq must take
+# on the card (``ops/flash.py::_route``): sm90 where TMA can address every
+# row; mma for rows off 16 bytes; simt for f32 operands or the lse form's
+# f32 cotangent (dK/dV and dQ always take the same route).
 FLASH_ROUTES = {
-    "main": ("sm90", "sm90"), "full": ("sm90", "sm90"), "ragged": ("sm90", "sm90"),
-    "d96": ("sm90", "sm90"), "d128": ("sm90", "sm90"), "gqa": ("sm90", "sm90"),
-    "d36": ("mma", "mma"), "unaligned": ("mma", "mma"), "f32": ("simt", "simt"),
-    "lse": ("sm90", "simt"),
+    "main": ("sm90",) * 3, "full": ("sm90",) * 3, "ragged": ("sm90",) * 3,
+    "d96": ("sm90",) * 3, "d128": ("sm90",) * 3, "gqa": ("sm90",) * 3,
+    "d36": ("mma",) * 3, "unaligned": ("mma",) * 3, "f32": ("simt",) * 3,
+    "lse": ("sm90", "simt", "simt"),
 }
 
 
@@ -815,9 +823,9 @@ def check_flash_case(device, case):
     sync(device)
     after = flash.route_counts()
     routes = tuple(next((r for r in flash.ROUTES if after[k][r] > before[k][r]), "plain")
-                   for k in ("flash_fwd", "flash_bwd_dkv"))
+                   for k in FLASH_KERNELS)
     if device.type == "cuda" and name in FLASH_ROUTES and routes != FLASH_ROUTES[name]:
-        raise AssertionError(f"flash[{name}]: flash_fwd and flash_bwd_dkv took the routes "
+        raise AssertionError(f"flash[{name}]: {', '.join(FLASH_KERNELS)} took the routes "
                              f"{routes}, not {FLASH_ROUTES[name]}")
     if not torch.equal(torch.isneginf(lse), torch.isneginf(rlse)):
         raise AssertionError(f"flash[{name}]: lse is -inf on other rows than the plain version's")
@@ -829,8 +837,8 @@ def check_flash_case(device, case):
     log("flash-parity", f"{name} (b {b}, T {t}, h {h}/{h_kv}, d {d}, "
                         f"{'causal' if causal else 'full'}, {str(dtype)[6:]}"
                         f"{', lse form' if with_lse else ''}"
-                        f"{f', offset {offset}' if offset else ''}; routes {routes[0]}, "
-                        f"{routes[1]}): largest row error "
+                        f"{f', offset {offset}' if offset else ''}; routes "
+                        f"{', '.join(routes)}): largest row error "
                         "relative to the row's norm "
                         + ", ".join(f"{key} {errs[key]:.3g} (limit {limits[key]:g})"
                                     for key in ("out", "dq", "dk", "dv"))
@@ -857,21 +865,22 @@ def phase_flash_kernels(device, errs, rate, b=LM_BATCH, t=LM_SEQ, h=LM_CONFIG["h
     split from the fused projection), timed beside their operation bound,
     their plain versions and ``F.scaled_dot_product_attention`` (forward on
     the forward's row; its backward, which gives dQ, dK and dV together, on
-    both backward rows); ``flash_fwd`` and ``flash_bwd_dkv`` also beside the
-    ``mma`` route's kernel on the same inputs (``earlier_ms``); returns
-    ``(rows, lines)``."""
+    both backward rows) and the ``mma`` route's kernel on the same inputs
+    (``earlier_ms``); returns ``(rows, lines)``."""
     q, k, v, do, _ = flash_operands(device, b, t, h, h, d, torch.bfloat16, False, seed=1)
     scale = 1.0 / math.sqrt(d)
     out, lse = flash.flash_fwd(q, k, v, True, scale)
     delta = flash.attention_delta(out, do)
     args = (q, k, v, do, lse, delta, None, True, scale)
     # the route each kernel's row times, its source and design, and the
-    # mma.sync kernel of the same function where the route is sm90
+    # mma.sync kernel of the same function
     route = {"flash_fwd": flash._route(q, k, v, scale=scale),
-             "flash_bwd_dkv": flash._route(q, k, v, do, scale), "flash_bwd_dq": "mma"}
+             "flash_bwd_dkv": flash._route(q, k, v, do, scale),
+             "flash_bwd_dq": flash._route(q, k, v, do, scale)}
     earlier = {
         "flash_fwd": lambda: flash._fwd_kernel(q, k, v, True, scale, q.dtype, "mma"),
         "flash_bwd_dkv": lambda: flash._dkv_kernel(*args, "mma"),
+        "flash_bwd_dq": lambda: flash._dq_kernel(*args, "mma"),
     }
     calls = {
         "flash_fwd": (lambda: flash.flash_fwd(q, k, v, True, scale),
@@ -900,7 +909,7 @@ def phase_flash_kernels(device, errs, rate, b=LM_BATCH, t=LM_SEQ, h=LM_CONFIG["h
     nbytes = {"flash_fwd": 4 * tile + row,  # q, k, v -> out, lse
               "flash_bwd_dkv": 6 * tile + 2 * row,  # q, k, v, dO, lse, delta -> dK, dV
               "flash_bwd_dq": 5 * tile + 2 * row}  # q, k, v, dO, lse, delta -> dQ
-    if route["flash_fwd"] != "sm90" or route["flash_bwd_dkv"] != "sm90":
+    if any(r != "sm90" for r in route.values()):
         raise AssertionError(f"the transformer's shape did not take the sm90 route: {route}")
     rows, lines = [], []
     for name, (kernel, plain) in calls.items():
@@ -954,6 +963,18 @@ PLANTED_FAULTS = [
      "fwd_softmax(s, pn, m_run, l_run, corr, a, kt * BN, row_lo, masked(kt));\n"
      "      if (kt == 1) for (int i = 0; i < BN / 4; ++i) pn[i] = 0u;",
      ("main", "ragged", "d128")),
+    ("dQ walk stops one K tile short of the diagonal",
+     "const int n_kt = a.causal ? min(all, (q0 + BM + BN - 1) / BN) : all;",
+     "const int n_kt = a.causal ? min(all, (q0 + BM + BN - 1) / BN - 1) : all;",
+     ("main", "ragged", "gqa")),
+    ("dQ's causal mask left off the diagonal tiles",
+     "return (a.causal && j * BN + BN - 1 > q0 + 64 * wg) || (j * BN + BN > a.t);",
+     "return j * BN + BN > a.t;",
+     ("main", "ragged", "d96")),
+    ("dQ's lse, delta and dlse read one row off",
+     "const int vrow = row_lo + 8 * r;",
+     "const int vrow = row_lo + 8 * r + 1;",
+     ("main", "ragged", "gqa")),
 ]
 
 
@@ -965,6 +986,8 @@ def run_fault_cases(names):
         try:
             check_flash_case(device, case)
             print(json.dumps({"case": case[0], "passed": True, "errors": None}), flush=True)
+        except torch.OutOfMemoryError:
+            raise  # the copies that share the card, not the fault
         except (AssertionError, RuntimeError) as e:  # a wrong row, or a CUDA error
             print(json.dumps({"case": case[0], "passed": False,
                               "errors": f"{type(e).__name__}: {str(e)[:300]}"}), flush=True)
@@ -972,12 +995,14 @@ def run_fault_cases(names):
 
 def planted_faults(root="build/faults"):
     """Each fault of ``PLANTED_FAULTS`` in its own copy of the package under
-    ``root`` (built and run there, all copies at once); fails unless every
-    fault fails flash-parity on some case. Returns the result lines."""
+    ``root`` (built and run there, four copies at a time, so their plain
+    versions fit on the card together); fails unless every fault fails
+    flash-parity on some case. Returns the result lines."""
     import shutil
 
+    at_once = 4
     src = os.path.dirname(os.path.abspath(__file__))
-    procs = []
+    jobs = []
     for i, (name, old, new, cases) in enumerate(PLANTED_FAULTS):
         copy = os.path.join(src, root, f"fault{i}")
         shutil.rmtree(copy, ignore_errors=True)
@@ -991,20 +1016,28 @@ def planted_faults(root="build/faults"):
             raise AssertionError(f"fault {name!r}: its text is not once in flash_sm90.cu")
         open(cu, "w").write(text.replace(old, new))
         cmd = [sys.executable, "-c", "import chip_smoke as cs; cs.run_fault_cases(%r)" % (cases,)]
-        procs.append((name, subprocess.Popen(cmd, cwd=copy, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True)))
+        jobs.append((name, cmd, copy))
+    finished = []
+    for first in range(0, len(jobs), at_once):
+        procs = [(name, subprocess.Popen(cmd, cwd=copy, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+                 for name, cmd, copy in jobs[first:first + at_once]]
+        for name, proc in procs:
+            out, _ = proc.communicate(timeout=900)
+            finished.append((name, proc.returncode, out))
     lines, missed = [], []
-    for name, proc in procs:
-        out, _ = proc.communicate(timeout=900)
+    for name, returncode, out in finished:
+        if "OutOfMemoryError" in out:
+            raise AssertionError(f"fault {name!r}: the card ran out of memory: {out[-600:]}")
         results = [json.loads(l) for l in out.splitlines() if l.startswith('{"case"')]
         caught = [r for r in results if not r["passed"]]
-        if proc.returncode != 0:
-            caught.append({"case": "-", "errors": f"exit {proc.returncode}: {out[-600:]}"})
+        if returncode != 0:
+            caught.append({"case": "-", "errors": f"exit {returncode}: {out[-600:]}"})
         for r in results:
             lines.append(f"{name}: {r['case']} {'passed' if r['passed'] else 'FAILED'}"
                          f"{'' if r['passed'] else ': ' + r['errors']}")
-        if proc.returncode != 0:
-            lines.append(f"{name}: exit {proc.returncode}: {out[-600:]}")
+        if returncode != 0:
+            lines.append(f"{name}: exit {returncode}: {out[-600:]}")
         if not caught:
             missed.append(name)
     for line in lines:
@@ -1074,8 +1107,7 @@ def main():
     counts["transformer"], routes, steps = phase_train_lm(trainer)
     per_step = SIZE * sm.module.layers  # attention calls per step
     short = [k for k in FLASH_KERNELS if counts["transformer"][k] < per_step * steps]
-    short += [f"{k} (sm90)" for k in ("flash_fwd", "flash_bwd_dkv")
-              if routes[k]["sm90"] < per_step * steps]
+    short += [f"{k} (sm90)" for k in FLASH_KERNELS if routes[k]["sm90"] < per_step * steps]
     if short:
         raise AssertionError(f"the transformer path launched fewer than {per_step} {short} "
                              f"per step over {steps} steps: {counts['transformer']}, "

@@ -161,6 +161,25 @@ def test_ef_and_pushsum_on_card_equal_cpu(cuda, wire, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("n_workers,n_chunks,src", [(3, 7, [2, -1, 0]), (8, 5, None),
+                                                   (5, 13, [4, 3, -1, 1, 0])])
+def test_decode_tail_bitwise_equals_plain_version(cuda, wire, n_workers, n_chunks, src):
+    """decode on block counts (21, 40, 65) that are no multiple of the four
+    blocks a warp takes or the 32 a CTA takes, with missing senders (-1):
+    bitwise equal to its plain version."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy((rng.randn(n_workers, n_chunks * 512) * 3.0).astype(np.float32))
+    x[:, :512] = 0.0
+    p, s = kernels.encode(x.to(cuda), wire)
+    src_r = None if src is None else torch.tensor(src, dtype=torch.int32, device=cuda)
+    got = kernels.decode(p, s, src_r, wire)
+    want = kernels.decode_reference(p, s, src_r, wire)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
 def test_new_wrappers_refuse_bad_cuda_operands(cuda):
     x = torch.zeros(SIZE, 1024, device=cuda)
     p, s = kernels.encode(x, "int8")
@@ -335,9 +354,8 @@ SM90_CASES = [
                          f"{'causal' if c[5] else 'full'}")
 def test_sm90_route_matches_plain_versions(cuda, case):
     """q, k and v split from one fused bf16 projection (as the transformer
-    gives them) take the sm90 route for flash_fwd and flash_bwd_dkv (dQ
-    stays on mma.sync); every output row within ``_ROW_TOL`` of its norm,
-    the lse within ``_LSE_TOL``."""
+    gives them) take the sm90 route for all three kernels; every output row
+    within ``_ROW_TOL`` of its norm, the lse within ``_LSE_TOL``."""
     from bluefog_tpu_torch.ops import flash
     from chip_smoke import with_poisoned_tail
 
@@ -363,7 +381,7 @@ def test_sm90_route_matches_plain_versions(cuda, case):
     torch.cuda.synchronize()
     after = flash.route_counts()
     took = {k: [r for r in flash.ROUTES if after[k][r] > before[k][r]] for k in after}
-    assert took == {"flash_fwd": ["sm90"], "flash_bwd_dkv": ["sm90"], "flash_bwd_dq": ["mma"]}
+    assert took == {"flash_fwd": ["sm90"], "flash_bwd_dkv": ["sm90"], "flash_bwd_dq": ["sm90"]}
     assert torch.equal(torch.isneginf(lse), torch.isneginf(rlse))
     assert float((lse - rlse).abs().max()) <= _LSE_TOL
     for name, got, want in (("out", out, rout), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
@@ -374,3 +392,50 @@ def test_sm90_route_matches_plain_versions(cuda, case):
             assert float(got.float().abs().max()) <= 1e-5, name
             continue
         assert _row_err(got, want) <= tol[name], (name, _row_err(got, want))
+
+
+# (b, t, h, h_kv, d, causal, with_dlse): the sm90 dQ kernel's edges. Ragged T
+# against its 128-row Q tiles and 128- (d 64) or 64-key (d 128) K tiles,
+# head_dim 96 (TMA zero-fills columns 96..127) and 128, grouped-query K/V,
+# a non-causal case, and a nonzero lse cotangent beside a bf16 cotangent
+SM90_DQ_CASES = [
+    (1, 1000, 4, 4, 64, True, False),
+    (2, 300, 4, 4, 96, True, False),
+    (1, 259, 4, 2, 128, True, False),
+    (1, 1000, 16, 4, 64, True, False),
+    (1, 333, 4, 2, 64, False, False),
+    (1, 200, 4, 4, 128, False, True),
+    (1, 517, 4, 4, 64, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SM90_DQ_CASES, ids=lambda c: f"t{c[1]}-h{c[2]}x{c[3]}-d{c[4]}-"
+                         f"{'causal' if c[5] else 'full'}{'-dlse' if c[6] else ''}")
+def test_sm90_dq_matches_plain_version(cuda, case):
+    """flash_bwd_dq on the sm90 route against flash_bwd_dq_reference, every
+    row within ``_ROW_TOL``, with lse, delta and dlse in front of poisoned
+    tails (a read past t of the last head meets a huge negative lse or NaN)."""
+    from bluefog_tpu_torch.ops import flash
+    from chip_smoke import with_poisoned_tail
+
+    b, t, h, h_kv, d, causal, with_dlse = case
+    rng = np.random.RandomState(24)
+    width = (h + 2 * h_kv) * d
+    qkv = torch.from_numpy(rng.randn(b, t, width).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (x.reshape(b, t, -1, d) for x in qkv.split([h * d, h_kv * d, h_kv * d], -1))
+    do = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(cuda, torch.bfloat16)
+    dlse = (with_poisoned_tail(torch.from_numpy(rng.randn(b, h, t).astype(np.float32)).to(cuda),
+                               float("nan")) if with_dlse else None)
+    scale = 1.0 / np.sqrt(d)
+    rout, rlse = flash.flash_fwd_reference(q, k, v, causal, scale)
+    delta = with_poisoned_tail(flash.attention_delta(rout, do), float("nan"))
+    args = (q, k, v, do, with_poisoned_tail(rlse, -1e30), delta, dlse, causal, scale)
+    before = flash.route_counts()["flash_bwd_dq"]
+    dq = flash.flash_bwd_dq(*args)
+    rdq = flash.flash_bwd_dq_reference(*args)
+    torch.cuda.synchronize()
+    after = flash.route_counts()["flash_bwd_dq"]
+    assert {r: after[r] - before[r] for r in flash.ROUTES} == {"sm90": 1, "mma": 0, "simt": 0}
+    assert dq.dtype == q.dtype and dq.shape == q.shape and dq.is_contiguous()
+    assert _row_err(dq, rdq) <= _ROW_TOL[torch.bfloat16]["dq"], _row_err(dq, rdq)

@@ -7,7 +7,7 @@ scale, so it is tested here on CPU tensors laid out as the card would get
 them: q, k and v split from one fused projection as the transformer splits
 them take ``sm90`` (wgmma fed by TMA); rows off 16 bytes, head_dim 36 or a
 non-positive scale take ``mma``; f32 operands or an f32 cotangent take
-``simt``.
+``simt``. dK/dV and dQ of one backward always take the same route.
 """
 
 import pytest
@@ -74,6 +74,63 @@ def test_f32_operands_or_cotangent_take_simt():
     assert flash._route(q, k, v, torch.zeros(q.shape), 0.1) == "simt"
 
 
+def _backward_routes(monkeypatch, q, k, v, do, scale):
+    """The routes :func:`flash.flash_bwd_dkv` and :func:`flash.flash_bwd_dq`
+    hand their kernels for these operands, as on the card (the device check
+    answers "cuda"; the kernels record their route instead of launching)."""
+    taken = {}
+    monkeypatch.setattr(flash, "_dispatch_device", lambda *tensors: "cuda")
+    monkeypatch.setattr(flash, "_dkv_kernel", lambda *args: taken.setdefault("dkv", args[-1]))
+    monkeypatch.setattr(flash, "_dq_kernel", lambda *args: taken.setdefault("dq", args[-1]))
+    b, t, h, _d = q.shape
+    vec = torch.zeros(b, h, t)
+    flash.flash_bwd_dkv(q, k, v, do, vec, vec, None, True, scale)
+    flash.flash_bwd_dq(q, k, v, do, vec, vec, None, True, scale)
+    return taken["dkv"], taken["dq"]
+
+
+@pytest.mark.parametrize("why,shape,expect", [
+    ("fused views, 16 heads of 64", (2, 40, 16, 16, 64), "sm90"),
+    ("fused views, grouped-query 16/4", (2, 40, 16, 4, 64), "sm90"),
+    ("fused views, head_dim 96", (1, 40, 4, 4, 96), "sm90"),
+    ("fused views, head_dim 128", (1, 40, 2, 1, 128), "sm90"),
+    ("the transformer's shape", (2, 4096, 16, 16, 64), "sm90"),
+    ("head_dim 36", (1, 30, 4, 2, 36), "mma"),
+])
+def test_dq_takes_the_route_of_dkv(monkeypatch, why, shape, expect):
+    q, k, v = _fused(*shape)
+    do = torch.zeros(q.shape, dtype=q.dtype)
+    assert _backward_routes(monkeypatch, q, k, v, do, shape[-1] ** -0.5) == (expect, expect), why
+
+
+def test_dq_of_an_operand_one_element_off_takes_mma(monkeypatch):
+    q, k, v = _fused(1, 30, 4, 2, 64, offset=1)
+    do = torch.zeros(q.shape, dtype=q.dtype)
+    assert _backward_routes(monkeypatch, q, k, v, do, 0.125) == ("mma", "mma")
+
+
+def test_dq_of_an_unaligned_cotangent_takes_mma(monkeypatch):
+    q, k, v = _fused(1, 30, 4, 2, 64)
+    do = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)[1:].view(q.shape)
+    assert _backward_routes(monkeypatch, q, k, v, do, 0.125) == ("mma", "mma")
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_dq_with_a_scale_that_is_not_positive_takes_mma(monkeypatch, scale):
+    q, k, v = _fused(1, 30, 4, 2, 64)
+    do = torch.zeros(q.shape, dtype=q.dtype)
+    assert _backward_routes(monkeypatch, q, k, v, do, scale) == ("mma", "mma")
+
+
+def test_dq_of_an_f32_cotangent_or_f32_operands_takes_simt(monkeypatch):
+    q, k, v = _fused(1, 30, 4, 2, 64)
+    assert _backward_routes(monkeypatch, q, k, v, torch.zeros(q.shape), 0.125) == ("simt",
+                                                                                  "simt")
+    q, k, v = _fused(1, 30, 4, 2, 64, dtype=torch.float32)
+    assert _backward_routes(monkeypatch, q, k, v, torch.zeros(q.shape), 0.125) == ("simt",
+                                                                                  "simt")
+
+
 def test_zero_strides_take_mma():
     """An expanded operand (stride 0) has no tensor map."""
     q, k, v = _fused(1, 30, 4, 4, 64)
@@ -136,7 +193,9 @@ def test_sm90_source_is_wgmma_fed_by_tma_and_calls_no_library():
     text = (_build._CSRC / "flash_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                    "setmaxnreg.dec", "setmaxnreg.inc", "__grid_constant__",
-                   "cudaGetDriverEntryPoint", "CU_TENSOR_MAP_SWIZZLE_128B"):
+                   "cudaGetDriverEntryPoint", "CU_TENSOR_MAP_SWIZZLE_128B",
+                   "int bf_flash_fwd_sm90(", "int bf_flash_bwd_dkv_sm90(",
+                   "int bf_flash_bwd_dq_sm90("):
         assert needle in text, needle
     for source in sorted(_build._CSRC.glob("*.cu*")):
         for line in source.read_text().splitlines():
@@ -150,8 +209,8 @@ def test_chip_smoke_routes_and_planted_faults_match_the_sources():
     import chip_smoke
 
     assert {c[0] for c in chip_smoke.FLASH_CASES} == set(chip_smoke.FLASH_ROUTES)
-    for fwd, dkv in chip_smoke.FLASH_ROUTES.values():
-        assert fwd in flash.ROUTES and dkv in flash.ROUTES
+    for fwd, dkv, dq in chip_smoke.FLASH_ROUTES.values():
+        assert {fwd, dkv, dq} <= set(flash.ROUTES) and dq == dkv
     text = (_build._CSRC / "flash_sm90.cu").read_text()
     names = {c[0] for c in chip_smoke.FLASH_CASES}
     for name, old, new, cases in chip_smoke.PLANTED_FAULTS:
