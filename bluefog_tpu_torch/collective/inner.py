@@ -11,13 +11,14 @@ the JAX functions op for op, so the stacked results equal the mesh
 results slot for slot.
 """
 
+import weakref
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from bluefog_tpu_torch.collective import kernels
-from bluefog_tpu_torch.collective.plan import CommPlan
+from bluefog_tpu_torch.collective.plan import CommPlan, SchedulePlan
 
 __all__ = [
     "weighted_combine",
@@ -27,7 +28,12 @@ __all__ = [
     "weighted_combine_quantized_ef_operands",
     "ef_state_zeros",
     "neighbor_allreduce",
+    "neighbor_allreduce_step",
+    "hierarchical_neighbor_allreduce",
+    "hierarchical_neighbor_allreduce_operands",
+    "hierarchical_neighbor_allreduce_step",
     "plan_operands",
+    "schedule_operands",
 ]
 
 
@@ -81,6 +87,80 @@ def weighted_combine(x: torch.Tensor, plan: CommPlan) -> torch.Tensor:
 def neighbor_allreduce(x: torch.Tensor, plan: CommPlan) -> torch.Tensor:
     """Weighted neighbor averaging over a static plan."""
     return weighted_combine(x, plan)
+
+
+# {schedule: {device: stacked operands on it}}, dropped with the schedule
+_SCHEDULE_OPERANDS: "weakref.WeakKeyDictionary[SchedulePlan, dict]" = weakref.WeakKeyDictionary()
+
+
+def schedule_operands(schedule: SchedulePlan, device):
+    """``(src [period, R, N] int32, self_w [period, N] f32, recv_w [period,
+    R, N] f32)`` of a schedule (:attr:`SchedulePlan.stacked_operands`) on
+    ``device``, moved there once per schedule and device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    cache = _SCHEDULE_OPERANDS.setdefault(schedule, {})
+    if device not in cache:
+        cache[device] = tuple(torch.from_numpy(np.array(a)).to(device)
+                              for a in schedule.stacked_operands)
+    return cache[device]
+
+
+def neighbor_allreduce_step(x: torch.Tensor, step, schedule: SchedulePlan) -> torch.Tensor:
+    """Dynamic-topology neighbor averaging selected by the step index
+    (``lax.switch`` over the period in the JAX function): the period's
+    operands are stacked on the device once (:func:`schedule_operands`) and
+    indexed with ``step % period``, so a changing peer set rebuilds nothing
+    and ``step`` (an int or an integer tensor on ``x``'s device) is never
+    read back to the host. Rounds a step does not use have sender -1 and
+    weight 0."""
+    idx = torch.as_tensor(step, device=x.device).reshape(1).long() % schedule.period
+    src, self_w, recv_w = (a.index_select(0, idx)[0]
+                           for a in schedule_operands(schedule, x.device))
+    return weighted_combine_operands(x, src, self_w, recv_w)
+
+
+def _hierarchical(x: torch.Tensor, local_size: int, combine) -> torch.Tensor:
+    """Sum over each machine's ``local_size`` workers (worker ``m * local +
+    l``, the JAX mesh ``(machines, local)`` in row-major order), combine the
+    ``[machines, ...]`` sums, divide by ``local_size`` and give every local
+    slot its machine's result."""
+    if local_size < 1 or x.shape[0] % local_size:
+        raise ValueError(f"{x.shape[0]} workers do not split into machines of {local_size}")
+    local_sum = x.reshape((x.shape[0] // local_size, local_size) + tuple(x.shape[1:])).sum(1)
+    combined = combine(local_sum) / local_size
+    return combined.unsqueeze(1).expand(
+        (combined.shape[0], local_size) + tuple(combined.shape[1:])
+    ).reshape((x.shape[0],) + tuple(combined.shape[1:]))
+
+
+def hierarchical_neighbor_allreduce(
+    x: torch.Tensor, machine_plan: CommPlan, local_size: int
+) -> torch.Tensor:
+    """Machine-level gossip: the local sum over each machine's workers (the
+    JAX ``psum`` over the local axis), the machine plan's combine over the
+    machines, divided by ``local_size``, broadcast back to every local slot."""
+    return _hierarchical(x, local_size, lambda y: weighted_combine(y, machine_plan))
+
+
+def hierarchical_neighbor_allreduce_operands(
+    x: torch.Tensor, src: torch.Tensor, self_w: torch.Tensor, recv_w: torch.Tensor,
+    local_size: int,
+) -> torch.Tensor:
+    """:func:`hierarchical_neighbor_allreduce` with the machine-level
+    weights as runtime operands (see :func:`weighted_combine_operands`)."""
+    return _hierarchical(x, local_size,
+                         lambda y: weighted_combine_operands(y, src, self_w, recv_w))
+
+
+def hierarchical_neighbor_allreduce_step(
+    x: torch.Tensor, step, machine_schedule: SchedulePlan, local_size: int
+) -> torch.Tensor:
+    """Dynamic machine-topology variant (one-peer Exp2 at machine level,
+    :func:`bluefog_tpu_torch.topology.GetExp2DynamicSendRecvMachineRanks`)."""
+    return _hierarchical(x, local_size,
+                         lambda y: neighbor_allreduce_step(y, step, machine_schedule))
 
 
 def _check_combine_normalized(plan: CommPlan, what: str) -> None:

@@ -8,12 +8,14 @@ after round ``r`` rank ``j`` multiplies what it received by
 axis of one tensor) a round is a gather along that axis, described by
 :meth:`CommPlan.sources`: ``src[r, j]`` is the rank that sends to ``j`` in
 round ``r``, or -1 when ``j`` receives nothing (a partial permutation, for
-which ``ppermute`` delivers zeros and the weight is 0).
+which ``ppermute`` delivers zeros and the weight is 0). A
+:class:`SchedulePlan` is a periodic sequence of plans for the dynamic
+(one-peer) topologies, lowered by :func:`schedule_from_dynamic`.
 """
 
 import dataclasses
 import functools
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -24,9 +26,12 @@ from bluefog_tpu_torch.topology.graphs import edges as topo_edges
 __all__ = [
     "CommRound",
     "CommPlan",
+    "SchedulePlan",
+    "check_send_recv_symmetry",
     "perms_from_edges",
     "plan_from_matrix",
     "plan_from_topology",
+    "schedule_from_dynamic",
 ]
 
 
@@ -86,6 +91,10 @@ class CommPlan:
                 ins[d].append(s)
         return tuple(tuple(sorted(lst)) for lst in ins)
 
+    @property
+    def max_in_degree(self) -> int:
+        return max((len(n) for n in self.in_neighbors), default=0)
+
     def weight_matrix(self) -> np.ndarray:
         """The effective combine matrix ``W`` (``W[i, j]`` = weight rank
         ``j`` applies to rank ``i``'s value)."""
@@ -96,6 +105,44 @@ class CommPlan:
             for s, d in rnd.perm:
                 w[s, d] = rnd.recv_weights[d]
         return w
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulePlan:
+    """A periodic sequence of :class:`CommPlan` for dynamic topologies: all
+    plans share one ``size``, and step ``t`` uses ``plans[t % period]``."""
+
+    plans: Tuple[CommPlan, ...]
+
+    @property
+    def period(self) -> int:
+        return len(self.plans)
+
+    @property
+    def size(self) -> int:
+        return self.plans[0].size
+
+    @property
+    def max_in_degree(self) -> int:
+        return max(p.max_in_degree for p in self.plans)
+
+    @functools.cached_property
+    def stacked_operands(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(src [period, R, N] int32, self_w [period, N] f32, recv_w
+        [period, R, N] f32)`` over the period, each plan's rounds padded to
+        the most rounds ``R`` of any step with sender -1 and weight 0
+        (read-only)."""
+        rounds = max(max(len(p.rounds) for p in self.plans), 1)
+        src = np.full((self.period, rounds, self.size), -1, np.int32)
+        self_w = np.zeros((self.period, self.size), np.float32)
+        recv_w = np.zeros((self.period, rounds, self.size), np.float32)
+        for t, plan in enumerate(self.plans):
+            n = len(plan.rounds)
+            src[t, :n] = plan.sources()
+            self_w[t], recv_w[t, :n] = plan.weight_operands()
+        for a in (src, self_w, recv_w):
+            a.setflags(write=False)
+        return src, self_w, recv_w
 
 
 def perms_from_edges(
@@ -156,3 +203,84 @@ def plan_from_topology(
                 u[i, j] = uniform
         w = u
     return plan_from_matrix(w, edges=edge_list, method=method)
+
+
+def check_send_recv_symmetry(
+    src_per_rank: Sequence[Dict[int, float]],
+    dst_per_rank: Sequence[Dict[int, float]],
+) -> None:
+    """Raise unless the declared send pattern is the transpose of the
+    receive pattern (``src_per_rank[j]``: rank ``j``'s in-neighbors,
+    ``dst_per_rank[i]``: rank ``i``'s out-neighbors)."""
+    sends = {(i, j) for i, dsts in enumerate(dst_per_rank) for j in dsts}
+    recvs = {(i, j) for j, srcs in enumerate(src_per_rank) for i in srcs}
+    if sends != recvs:
+        missing_recv = sorted(sends - recvs)
+        missing_send = sorted(recvs - sends)
+        raise ValueError(
+            "Send/recv neighbor pattern mismatch (topology check failed): "
+            f"declared sends with no matching recv: {missing_recv[:8]}; "
+            f"declared recvs with no matching send: {missing_send[:8]}."
+        )
+
+
+def schedule_from_dynamic(
+    size: int,
+    make_iterator,
+    period: Optional[int] = None,
+    self_weight: Optional[float] = None,
+    uniform: bool = True,
+    method: str = "auto",
+) -> SchedulePlan:
+    """Lower a dynamic generator (``make_iterator(rank)`` yields ``([send],
+    [recv])`` per iteration, :mod:`bluefog_tpu_torch.topology.dynamic`) to a
+    periodic schedule. The period is found by replaying the iterators
+    until the send pattern repeats, or given.
+
+    ``uniform=True``: rank ``j`` averages itself and its ``recv`` with
+    ``1 / (len(recv) + 1)``. ``uniform=False`` (push-sum): each sender keeps
+    ``self_weight`` (default 0.5) and splits ``1 - self_weight`` equally over
+    its destinations, so every column of the send pattern sums to 1."""
+    iters = [make_iterator(r) for r in range(size)]
+    max_period = period or 4 * size + 8
+    steps: List[Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], ...]] = []
+    for _ in range(max_period):
+        steps.append(tuple((tuple(send), tuple(recv))
+                           for send, recv in (next(it) for it in iters)))
+    if period is None:
+        period = _detect_period(steps)
+        steps = steps[:period]
+
+    plans = []
+    for step in steps:
+        dst_per_rank = [{d: 1.0 for d in send} for send, _ in step]
+        src_per_rank = [{s: 1.0 for s in recv} for _, recv in step]
+        check_send_recv_symmetry(src_per_rank, dst_per_rank)
+        w = np.zeros((size, size))
+        edge_list = [(i, j) for j, (_, recv) in enumerate(step) for i in recv]
+        if uniform:
+            for j, (_, recv) in enumerate(step):
+                wt = 1.0 / (len(recv) + 1)
+                w[j, j] = wt
+                for i in recv:
+                    w[i, j] = wt
+        else:
+            sw = 0.5 if self_weight is None else self_weight
+            for i, (send, _) in enumerate(step):
+                if not send:
+                    w[i, i] = 1.0
+                else:
+                    w[i, i] = sw
+                    for j in send:
+                        w[i, j] = (1.0 - sw) / len(send)
+        plans.append(plan_from_matrix(w, edges=edge_list, method=method))
+    return SchedulePlan(plans=tuple(plans))
+
+
+def _detect_period(steps: Sequence) -> int:
+    """Smallest p with steps[t] == steps[t + p] over the observed window."""
+    n = len(steps)
+    for p in range(1, n // 2 + 1):
+        if all(steps[t] == steps[t + p] for t in range(n - p)):
+            return p
+    return n

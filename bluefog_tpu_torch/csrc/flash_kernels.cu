@@ -32,13 +32,18 @@
 //   (bf16 operands, f32 accumulation), operands brought from shared memory by
 //   ldmatrix, tiles staged by cp.async (or scalar loads where rows are off 16
 //   bytes) in two stages so the next tile loads while this one computes. Four
-//   warps, 16 rows each. head_dim is zero-padded in shared memory to DP = 64
-//   or 128. This is the route of rows off 16 bytes, head_dim not a multiple
-//   of 8 or a scale that is not positive, for all three kernels.
+//   warps, 16 rows each. head_dim is zero-padded in shared memory to DP = 64,
+//   128 or 256. At DP = 256 a block accumulates one 128-column half of its
+//   output (blockIdx.z picks the half; the scores are computed over the
+//   whole head_dim in both halves), so the accumulators keep to 64 registers
+//   a thread, and dQ reads its A operands from shared memory. This is the
+//   route of rows off 16 bytes, head_dim not a multiple of 8, above 128 or a
+//   scale that is not positive, for all three kernels.
 // - f32 q/k/v, or an f32 cotangent beside bf16 q/k/v (flash_attention_with_lse
 //   returns f32 out, so its cotangent is f32): CUDA cores, all arithmetic in
 //   f32, with the same roundings emulated (P stays f32 when dO is f32, dS is
-//   rounded to bf16 when Q is bf16), so nothing rounds dO to bf16.
+//   rounded to bf16 when Q is bf16), so nothing rounds dO to bf16. head_dim
+//   is zero-padded in shared memory to SD = 64, 128 or 256.
 //
 // Bound: operations. At the training shape (b 2, h 16, t 4096, d 64, causal)
 // the forward does 2 products over the lower triangle, 68.7 GFLOP, 0.069 ms
@@ -250,6 +255,27 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NB][4],
   }
 }
 
+// mma_rows with the a-strip read from shared memory (16 rows of a row-major
+// tile, row stride a_stride) at each depth step: registers for the head_dims
+// whose fragments would not fit beside the accumulators.
+template <int NB, int KB>
+__device__ __forceinline__ void mma_rows_smem(float (&acc)[NB][4], const bf16* sa,
+                                              int a_stride, const bf16* x,
+                                              int row_stride) {
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk) {
+    uint32_t a[4];
+    load_a(a, sa, a_stride, kk * 16);
+#pragma unroll
+    for (int nb = 0; nb < NB / 2; ++nb) {
+      uint32_t b[4];
+      load_b_rows(b, x, row_stride, nb * 16, kk * 16);
+      mma_bf16(acc[2 * nb], a, b[0], b[1]);
+      mma_bf16(acc[2 * nb + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // acc[NB][4] (16 x 8*NB) += P (16 x 8*KB8, given as f32 accumulator blocks,
 // rounded to bf16 here) . X (X row-major, KB8*8 rows, 8*NB columns).
 template <int NB, int KB8>
@@ -315,16 +341,24 @@ __device__ __forceinline__ void store_strip(T* dst, long long ld,
 // Tensor-core route (bf16).
 // ---------------------------------------------------------------------------
 
+// Output columns a block accumulates: all of DP up to 128, one half at 256.
+template <int DP>
+__host__ __device__ constexpr int out_cols() {
+  return DP > 128 ? 128 : DP;
+}
+
 template <int DP>
 __host__ __device__ constexpr int fwd_smem_bytes() {
   return (kBM + 4 * 64) * (DP + 8) * 2;
 }
 
-// B6: one block per (Q tile, b*h); K and V tiles of 64 keys in two stages.
+// B6: one block per (Q tile, b*h, column half); K and V tiles of 64 keys in
+// two stages.
 template <int DP, typename OutT>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma(const BfFlashArgs a) {
-  constexpr int BN = 64, kRow = DP + 8, KB = DP / 16;
+  constexpr int BN = 64, kRow = DP + 8, KB = DP / 16, DC = out_cols<DP>();
+  const int c0 = blockIdx.z * DC;  // this block's output columns
   bf16* sQ = reinterpret_cast<bf16*>(flash_smem);
   bf16* sK = sQ + kBM * kRow;     // [2][BN][kRow]
   bf16* sV = sK + 2 * BN * kRow;  // [2][BN][kRow]
@@ -350,7 +384,7 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_commit();
 
   uint32_t qf[KB][4];
-  float acc[DP / 8][4];
+  float acc[DC / 8][4];
   zero(acc);
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
 
@@ -421,13 +455,13 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 #pragma unroll
-    for (int nb = 0; nb < DP / 8; ++nb) {
+    for (int nb = 0; nb < DC / 8; ++nb) {
       acc[nb][0] *= corr[0];
       acc[nb][1] *= corr[0];
       acc[nb][2] *= corr[1];
       acc[nb][3] *= corr[1];
     }
-    mma_cols(acc, s, sv, kRow);
+    mma_cols(acc, s, sv + c0, kRow);
     __syncthreads();  // this stage is refilled by the next iteration
   }
 
@@ -437,20 +471,20 @@ __global__ void __launch_bounds__(kThreads)
     const float l = quad_sum(l_run[r]);
     l_safe[r] = l > 0.0f ? l : 1.0f;
     const int row = q0 + warp * 16 + g + 8 * r;
-    if (tg == 0 && row < a.t) {
+    if (tg == 0 && row < a.t && blockIdx.z == 0) {
       a.lse[(long long)blockIdx.y * a.t + row] =
           l > 0.0f ? m_run[r] + logf(l_safe[r]) : -INFINITY;
     }
   }
   OutT* out = static_cast<OutT*>(a.out) +
-              ((long long)bi * a.t * a.h + hi) * a.d;
-  store_strip<OutT>(out, (long long)a.h * a.d, acc, q0 + warp * 16, a.t, a.d,
-                    l_safe);
+              ((long long)bi * a.t * a.h + hi) * a.d + c0;
+  store_strip<OutT>(out, (long long)a.h * a.d, acc, q0 + warp * 16, a.t,
+                    a.d - c0, l_safe);
 }
 
 template <int DP>
 __host__ __device__ constexpr int dq_bn() {
-  return DP == 128 ? 32 : 64;
+  return DP >= 128 ? 32 : 64;
 }
 
 template <int DP>
@@ -458,10 +492,14 @@ __host__ __device__ constexpr int dq_smem_bytes() {
   return (2 * kBM + 4 * dq_bn<DP>()) * (DP + 8) * 2;
 }
 
-// B8: one block per (Q tile, b*h), looping over K tiles up to the diagonal.
+// B8: one block per (Q tile, b*h, column half), looping over K tiles up to
+// the diagonal. Q and dO fragments stay in registers up to DP 128; at 256
+// they are read from shared memory at each product.
 template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma(const BfFlashArgs a) {
-  constexpr int BN = dq_bn<DP>(), kRow = DP + 8, KB = DP / 16;
+  constexpr int BN = dq_bn<DP>(), kRow = DP + 8, KB = DP / 16, DC = out_cols<DP>();
+  constexpr bool kFragsInRegs = DP <= 128;
+  const int c0 = blockIdx.z * DC;  // this block's dQ columns
   bf16* sQ = reinterpret_cast<bf16*>(flash_smem);
   bf16* sO = sQ + kBM * kRow;     // dO
   bf16* sK = sO + kBM * kRow;     // [2][BN][kRow]
@@ -502,8 +540,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma(const BfFlashArgs a
     dlse_r[r] = (ok && a.dlse != nullptr) ? a.dlse[i] : 0.0f;
   }
 
-  uint32_t qf[KB][4], of[KB][4];
-  float dq[DP / 8][4];
+  uint32_t qf[kFragsInRegs ? KB : 1][4], of[kFragsInRegs ? KB : 1][4];
+  float dq[DC / 8][4];
   zero(dq);
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -519,21 +557,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma(const BfFlashArgs a
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KB; ++kk) {
-        load_a(qf[kk], sQ + warp * 16 * kRow, kRow, kk * 16);
-        load_a(of[kk], sO + warp * 16 * kRow, kRow, kk * 16);
-      }
-    }
     const bf16* sk = sK + st * BN * kRow;
     const bf16* sv = sV + st * BN * kRow;
-
     float s[BN / 8][4], dp[BN / 8][4];
     zero(s);
     zero(dp);
-    mma_rows(s, qf, sk, kRow);
-    mma_rows(dp, of, sv, kRow);
+    if constexpr (kFragsInRegs) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) {
+          load_a(qf[kk], sQ + warp * 16 * kRow, kRow, kk * 16);
+          load_a(of[kk], sO + warp * 16 * kRow, kRow, kk * 16);
+        }
+      }
+      mma_rows(s, qf, sk, kRow);
+      mma_rows(dp, of, sv, kRow);
+    } else {
+      mma_rows_smem<BN / 8, KB>(s, sQ + warp * 16 * kRow, kRow, sk, kRow);
+      mma_rows_smem<BN / 8, KB>(dp, sO + warp * 16 * kRow, kRow, sv, kRow);
+    }
 
     const int k0 = kt * BN;
     const int row_base = q0 + warp * 16 + g;
@@ -553,19 +595,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma(const BfFlashArgs a
         s[nb][e] = p * ((dp[nb][e] - delta_r[r]) + dlse_r[r]) * a.scale;
       }
     }
-    mma_cols(dq, s, sk, kRow);  // dS (rounded to K's type) . K
+    mma_cols(dq, s, sk + c0, kRow);  // dS (rounded to K's type) . K
     __syncthreads();
   }
 
   const float one[2] = {1.0f, 1.0f};
-  bf16* dst = static_cast<bf16*>(a.dq) + ((long long)bi * a.t * a.h + hi) * a.d;
-  store_strip<bf16>(dst, (long long)a.h * a.d, dq, q0 + warp * 16, a.t, a.d,
-                    one);
+  bf16* dst = static_cast<bf16*>(a.dq) + ((long long)bi * a.t * a.h + hi) * a.d + c0;
+  store_strip<bf16>(dst, (long long)a.h * a.d, dq, q0 + warp * 16, a.t,
+                    a.d - c0, one);
 }
 
 template <int DP>
 __host__ __device__ constexpr int dkv_bm() {
-  return DP == 128 ? 32 : 64;
+  return DP >= 128 ? 32 : 64;
 }
 
 template <int DP>
@@ -574,13 +616,14 @@ __host__ __device__ constexpr int dkv_smem_bytes() {
          2 * 3 * dkv_bm<DP>() * 4;
 }
 
-// B7: one block per (K tile of 64 keys, b*h_kv); each warp owns 16 keys and
-// walks every query head of the group and every Q tile that reaches its
-// keys, accumulating dK and dV in f32 registers.
+// B7: one block per (K tile of 64 keys, b*h_kv, column half); each warp owns
+// 16 keys and walks every query head of the group and every Q tile that
+// reaches its keys, accumulating dK and dV in f32 registers.
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_mma(const BfFlashArgs a) {
-  constexpr int BN = 64, BM = dkv_bm<DP>(), kRow = DP + 8;
+  constexpr int BN = 64, BM = dkv_bm<DP>(), kRow = DP + 8, DC = out_cols<DP>();
+  const int c0 = blockIdx.z * DC;  // this block's dK and dV columns
   bf16* sK = reinterpret_cast<bf16*>(flash_smem);
   bf16* sV = sK + BN * kRow;
   bf16* sQ = sV + BN * kRow;      // [2][BM][kRow]
@@ -631,7 +674,7 @@ __global__ void __launch_bounds__(kThreads)
   if (n_it > 0) load_q(0, 0);
   cp_async_commit();
 
-  float dk[DP / 8][4], dv[DP / 8][4];
+  float dk[DC / 8][4], dv[DC / 8][4];
   zero(dk);
   zero(dv);
   const bf16* wk = sK + warp * 16 * kRow;  // this warp's 16 keys
@@ -692,38 +735,52 @@ __global__ void __launch_bounds__(kThreads)
         dp[nb][e] = p * ((dp[nb][e] - delta[qi]) + dlse[qi]) * a.scale;
       }
     }
-    mma_cols(dv, s, so, kRow);   // P^T (rounded to dO's type) . dO
-    mma_cols(dk, dp, sq, kRow);  // dS^T (rounded to Q's type) . Q
+    mma_cols(dv, s, so + c0, kRow);   // P^T (rounded to dO's type) . dO
+    mma_cols(dk, dp, sq + c0, kRow);  // dS^T (rounded to Q's type) . Q
     __syncthreads();
   }
 
   const float one[2] = {1.0f, 1.0f};
-  const long long off = ((long long)bi * a.t * a.h_kv + hk) * a.d;
+  const long long off = ((long long)bi * a.t * a.h_kv + hk) * a.d + c0;
   const long long ld = (long long)a.h_kv * a.d;
   store_strip<bf16>(static_cast<bf16*>(a.dk) + off, ld, dk, k0 + warp * 16,
-                    a.t, a.d, one);
+                    a.t, a.d - c0, one);
   store_strip<bf16>(static_cast<bf16*>(a.dv) + off, ld, dv, k0 + warp * 16,
-                    a.t, a.d, one);
+                    a.t, a.d - c0, one);
 }
 
 // ---------------------------------------------------------------------------
 // CUDA-core route (f32, or an f32 cotangent beside bf16 q/k/v). Tiles of 32
-// keys and 8 query rows; head_dim up to 128, zero-padded in shared memory.
+// keys and 8 query rows; head_dim zero-padded in shared memory to SD = 64,
+// 128 or 256 (dynamic shared memory: 74-84 KB a block at 256).
 // ---------------------------------------------------------------------------
 
 constexpr int kSK = 32;         // keys per tile
 constexpr int kSM = 8;          // query rows per block (or chunk)
 constexpr int kRowsPerWarp = kSM / 4;
-constexpr int kSD = 128;        // padded head_dim
-constexpr int kSRow = kSD + 1;  // key rows padded: lane j reads row j conflict-free
 
-// rows [row0, row0 + rows) of a [t, d] matrix into f32 shared rows of `ld`.
-template <typename T>
+// Key rows are padded to SD + 1 floats: lane j reads row j conflict-free.
+template <int SD>
+__host__ __device__ constexpr int simt_fwd_smem_bytes() {
+  return (kSM * SD + 2 * kSK * (SD + 1)) * 4;
+}
+template <int SD>
+__host__ __device__ constexpr int simt_dq_smem_bytes() {
+  return (2 * kSM * SD + 2 * kSK * (SD + 1)) * 4;
+}
+template <int SD>
+__host__ __device__ constexpr int simt_dkv_smem_bytes() {
+  return (2 * kSK * (SD + 1) + 2 * kSM * SD + 2 * kSM * kSK) * 4;
+}
+
+// rows [row0, row0 + rows) of a [t, d] matrix into f32 shared rows of `ld`,
+// SD columns, zero past t and past d.
+template <int SD, typename T>
 __device__ __forceinline__ void load_rows_f32(float* s, int ld, const T* g,
                                               long long stride, int row0,
                                               int rows, int t, int d) {
-  for (int e = threadIdx.x; e < rows * kSD; e += kThreads) {
-    const int r = e / kSD, col = e % kSD, row = row0 + r;
+  for (int e = threadIdx.x; e < rows * SD; e += kThreads) {
+    const int r = e / SD, col = e % SD, row = row0 + r;
     s[r * ld + col] = (row < t && col < d) ? to_f32(g[row * stride + col]) : 0.0f;
   }
 }
@@ -731,10 +788,12 @@ __device__ __forceinline__ void load_rows_f32(float* s, int ld, const T* g,
 // B6 on CUDA cores (f32 q/k/v): one block per (8 query rows, b*h); each
 // warp owns 2 rows; lane j scores key j of the tile, then each lane owns
 // columns lane + 32c of the accumulator.
+template <int SD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const BfFlashArgs a) {
-  __shared__ float sQ[kSM][kSD];
-  __shared__ float sK[kSK][kSRow];
-  __shared__ float sV[kSK][kSRow];
+  constexpr int kSRow = SD + 1, kC = SD / 32;
+  float* sQ = reinterpret_cast<float*>(flash_smem);  // [kSM][SD]
+  float* sK = sQ + kSM * SD;                          // [kSK][kSRow]
+  float* sV = sK + kSK * kSRow;                       // [kSK][kSRow]
   const int n_qt = (a.t + kSM - 1) / kSM;
   const int q0 = (n_qt - 1 - blockIdx.x) * kSM;
   const int bi = blockIdx.y / a.h, hi = blockIdx.y % a.h;
@@ -747,26 +806,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const BfFlashArgs a) 
                    hk * a.v_stride[2];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_kt = key_tiles(a, q0, kSM, kSK);
-  load_rows_f32(&sQ[0][0], kSD, q, a.q_stride[1], q0, kSM, a.t, a.d);
+  load_rows_f32<SD>(sQ, SD, q, a.q_stride[1], q0, kSM, a.t, a.d);
 
-  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][4];
+  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][kC];
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     m_run[rr] = -INFINITY;
     l_run[rr] = 0.0f;
-    acc[rr][0] = acc[rr][1] = acc[rr][2] = acc[rr][3] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[rr][c] = 0.0f;
   }
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kSK;
     __syncthreads();
-    load_rows_f32(&sK[0][0], kSRow, k, a.k_stride[1], k0, kSK, a.t, a.d);
-    load_rows_f32(&sV[0][0], kSRow, v, a.v_stride[1], k0, kSK, a.t, a.d);
+    load_rows_f32<SD>(sK, kSRow, k, a.k_stride[1], k0, kSK, a.t, a.d);
+    load_rows_f32<SD>(sV, kSRow, v, a.v_stride[1], k0, kSK, a.t, a.d);
     __syncthreads();
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr, row = q0 + r, key = k0 + lane;
       float x = 0.0f;
-      for (int c = 0; c < a.d; ++c) x += sQ[r][c] * sK[lane][c];
+      for (int c = 0; c < a.d; ++c) x += sQ[r * SD + c] * sK[lane * kSRow + c];
       x *= a.scale;
       if ((a.causal && key > row) || key >= a.t) x = -INFINITY;
       const float m_new = fmaxf(m_run[rr], warp_max(x));
@@ -776,11 +836,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const BfFlashArgs a) 
       l_run[rr] = l_run[rr] * corr + warp_sum(p);
       m_run[rr] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[rr][c] *= corr;
+      for (int c = 0; c < kC; ++c) acc[rr][c] *= corr;
       for (int j = 0; j < kSK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[rr][c] += pj * sV[j][lane + 32 * c];
+        for (int c = 0; c < kC; ++c) acc[rr][c] += pj * sV[j * kSRow + lane + 32 * c];
       }
     }
   }
@@ -796,7 +856,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const BfFlashArgs a) 
     }
     const long long base = (((long long)bi * a.t + row) * a.h + hi) * a.d;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < kC; ++c) {
       const int col = lane + 32 * c;
       if (col >= a.d) continue;
       static_cast<float*>(a.out)[base + col] = acc[rr][c] / l_safe;
@@ -806,12 +866,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const BfFlashArgs a) 
 
 // B8 on CUDA cores: one block per (8 query rows, b*h), warp per 2 rows,
 // lane j on key j of the tile for S and dP, then lane on columns for dQ.
-template <typename InT, typename DoT>
+template <int SD, typename InT, typename DoT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_simt(const BfFlashArgs a) {
-  __shared__ float sQ[kSM][kSD];
-  __shared__ float sO[kSM][kSD];
-  __shared__ float sK[kSK][kSRow];
-  __shared__ float sV[kSK][kSRow];
+  constexpr int kSRow = SD + 1, kC = SD / 32;
+  float* sQ = reinterpret_cast<float*>(flash_smem);  // [kSM][SD]
+  float* sO = sQ + kSM * SD;                          // [kSM][SD]
+  float* sK = sO + kSM * SD;                          // [kSK][kSRow]
+  float* sV = sK + kSK * kSRow;                       // [kSK][kSRow]
   const int n_qt = (a.t + kSM - 1) / kSM;
   const int q0 = (n_qt - 1 - blockIdx.x) * kSM;
   const int bi = blockIdx.y / a.h, hi = blockIdx.y % a.h;
@@ -823,11 +884,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_simt(const BfFlashArgs 
   const InT* v = static_cast<const InT*>(a.v) + bi * a.v_stride[0] + hk * a.v_stride[2];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_kt = key_tiles(a, q0, kSM, kSK);
-  load_rows_f32(&sQ[0][0], kSD, q, a.q_stride[1], q0, kSM, a.t, a.d);
-  load_rows_f32(&sO[0][0], kSD, dout, a.do_stride[1], q0, kSM, a.t, a.d);
+  load_rows_f32<SD>(sQ, SD, q, a.q_stride[1], q0, kSM, a.t, a.d);
+  load_rows_f32<SD>(sO, SD, dout, a.do_stride[1], q0, kSM, a.t, a.d);
 
   float lse_r[kRowsPerWarp], delta_r[kRowsPerWarp], dlse_r[kRowsPerWarp],
-      dq[kRowsPerWarp][4];
+      dq[kRowsPerWarp][kC];
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = q0 + warp * kRowsPerWarp + rr;
@@ -836,21 +897,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_simt(const BfFlashArgs 
     lse_r[rr] = ok ? a.lse[i] : -INFINITY;
     delta_r[rr] = ok ? a.delta[i] : 0.0f;
     dlse_r[rr] = (ok && a.dlse != nullptr) ? a.dlse[i] : 0.0f;
-    dq[rr][0] = dq[rr][1] = dq[rr][2] = dq[rr][3] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) dq[rr][c] = 0.0f;
   }
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kSK;
     __syncthreads();
-    load_rows_f32(&sK[0][0], kSRow, k, a.k_stride[1], k0, kSK, a.t, a.d);
-    load_rows_f32(&sV[0][0], kSRow, v, a.v_stride[1], k0, kSK, a.t, a.d);
+    load_rows_f32<SD>(sK, kSRow, k, a.k_stride[1], k0, kSK, a.t, a.d);
+    load_rows_f32<SD>(sV, kSRow, v, a.v_stride[1], k0, kSK, a.t, a.d);
     __syncthreads();
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr, row = q0 + r, key = k0 + lane;
       float x = 0.0f, dp = 0.0f;
       for (int c = 0; c < a.d; ++c) {
-        x += sQ[r][c] * sK[lane][c];
-        dp += sO[r][c] * sV[lane][c];
+        x += sQ[r * SD + c] * sK[lane * kSRow + c];
+        dp += sO[r * SD + c] * sV[lane * kSRow + c];
       }
       x *= a.scale;
       if ((a.causal && key > row) || key >= a.t) x = -INFINITY;
@@ -860,7 +922,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_simt(const BfFlashArgs 
       for (int j = 0; j < kSK; ++j) {
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) dq[rr][c] += dsj * sK[j][lane + 32 * c];
+        for (int c = 0; c < kC; ++c) dq[rr][c] += dsj * sK[j * kSRow + lane + 32 * c];
       }
     }
   }
@@ -870,7 +932,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_simt(const BfFlashArgs 
     if (row >= a.t) continue;
     const long long base = (((long long)bi * a.t + row) * a.h + hi) * a.d;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < kC; ++c) {
       const int col = lane + 32 * c;
       if (col < a.d) static_cast<InT*>(a.dq)[base + col] = from_f32<InT>(dq[rr][c]);
     }
@@ -882,26 +944,27 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_simt(const BfFlashArgs 
 // keys), phase 1 puts P and dS in shared memory (warp per 2 rows, lane j on
 // key j), phase 2 accumulates dV and dK (lane on key, warp on columns warp +
 // 4c) in registers.
-template <typename InT, typename DoT>
+template <int SD, typename InT, typename DoT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_simt(const BfFlashArgs a) {
-  __shared__ float sK[kSK][kSRow];
-  __shared__ float sV[kSK][kSRow];
-  __shared__ float sQ[kSM][kSD];
-  __shared__ float sO[kSM][kSD];
-  __shared__ float sP[kSM][kSK];
-  __shared__ float sS[kSM][kSK];
+  constexpr int kSRow = SD + 1, kC = SD / 4;
+  float* sK = reinterpret_cast<float*>(flash_smem);  // [kSK][kSRow]
+  float* sV = sK + kSK * kSRow;                       // [kSK][kSRow]
+  float* sQ = sV + kSK * kSRow;                       // [kSM][SD]
+  float* sO = sQ + kSM * SD;                          // [kSM][SD]
+  float* sP = sO + kSM * SD;                          // [kSM][kSK]
+  float* sS = sP + kSM * kSK;                         // [kSM][kSK]
   const int k0 = blockIdx.x * kSK;
   const int bi = blockIdx.y / a.h_kv, hk = blockIdx.y % a.h_kv;
   const int group = a.h / a.h_kv;
   const InT* k = static_cast<const InT*>(a.k) + bi * a.k_stride[0] + hk * a.k_stride[2];
   const InT* v = static_cast<const InT*>(a.v) + bi * a.v_stride[0] + hk * a.v_stride[2];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  load_rows_f32(&sK[0][0], kSRow, k, a.k_stride[1], k0, kSK, a.t, a.d);
-  load_rows_f32(&sV[0][0], kSRow, v, a.v_stride[1], k0, kSK, a.t, a.d);
+  load_rows_f32<SD>(sK, kSRow, k, a.k_stride[1], k0, kSK, a.t, a.d);
+  load_rows_f32<SD>(sV, kSRow, v, a.v_stride[1], k0, kSK, a.t, a.d);
 
-  float dk[32], dv[32];
+  float dk[kC], dv[kC];
 #pragma unroll
-  for (int c = 0; c < 32; ++c) dk[c] = dv[c] = 0.0f;
+  for (int c = 0; c < kC; ++c) dk[c] = dv[c] = 0.0f;
   const int n_qt = (a.t + kSM - 1) / kSM;
   const int qt0 = a.causal ? k0 / kSM : 0;
   for (int gi = 0; gi < group; ++gi) {
@@ -913,8 +976,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_simt(const BfFlashArgs
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int r0 = qt * kSM;
       __syncthreads();
-      load_rows_f32(&sQ[0][0], kSD, q, a.q_stride[1], r0, kSM, a.t, a.d);
-      load_rows_f32(&sO[0][0], kSD, dout, a.do_stride[1], r0, kSM, a.t, a.d);
+      load_rows_f32<SD>(sQ, SD, q, a.q_stride[1], r0, kSM, a.t, a.d);
+      load_rows_f32<SD>(sO, SD, dout, a.do_stride[1], r0, kSM, a.t, a.d);
       __syncthreads();
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
@@ -925,22 +988,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_simt(const BfFlashArgs
         const float dlse = (ok && a.dlse != nullptr) ? a.dlse[base + row] : 0.0f;
         float x = 0.0f, dp = 0.0f;
         for (int c = 0; c < a.d; ++c) {
-          x += sQ[r][c] * sK[lane][c];
-          dp += sO[r][c] * sV[lane][c];
+          x += sQ[r * SD + c] * sK[lane * kSRow + c];
+          dp += sO[r * SD + c] * sV[lane * kSRow + c];
         }
         x *= a.scale;
         if ((a.causal && key > row) || key >= a.t) x = -INFINITY;
         const float p = recompute_p(x, lse);
-        sP[r][lane] = round_to<DoT>(p);
-        sS[r][lane] = round_to<InT>(p * ((dp - delta) + dlse) * a.scale);
+        sP[r * kSK + lane] = round_to<DoT>(p);
+        sS[r * kSK + lane] = round_to<InT>(p * ((dp - delta) + dlse) * a.scale);
       }
       __syncthreads();
       for (int r = 0; r < kSM; ++r) {
-        const float p = sP[r][lane], ds = sS[r][lane];
+        const float p = sP[r * kSK + lane], ds = sS[r * kSK + lane];
 #pragma unroll
-        for (int c = 0; c < 32; ++c) {
-          dv[c] += p * sO[r][warp + 4 * c];
-          dk[c] += ds * sQ[r][warp + 4 * c];
+        for (int c = 0; c < kC; ++c) {
+          dv[c] += p * sO[r * SD + warp + 4 * c];
+          dk[c] += ds * sQ[r * SD + warp + 4 * c];
         }
       }
     }
@@ -949,7 +1012,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_simt(const BfFlashArgs
   if (key < a.t) {
     const long long base = (((long long)bi * a.t + key) * a.h_kv + hk) * a.d;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
+    for (int c = 0; c < kC; ++c) {
       const int col = warp + 4 * c;
       if (col < a.d) {
         static_cast<InT*>(a.dk)[base + col] = from_f32<InT>(dk[c]);
@@ -979,6 +1042,50 @@ bool tensor_core_route(const BfFlashArgs& a, bool backward) {
   return a.qkv_bf16 != 0 && !(backward && a.do_f32 != 0);
 }
 
+// The padded head_dim of a call: 64, 128 or 256 (the wrapper refuses more).
+int padded_head_dim(int d) { return d <= 64 ? 64 : (d <= 128 ? 128 : 256); }
+
+template <int DP>
+int fwd_mma(const BfFlashArgs& a, void* stream) {
+  const dim3 grid((a.t + kBM - 1) / kBM, a.b * a.h, DP / out_cols<DP>());
+  return a.out_f32 ? launch(flash_fwd_mma<DP, float>, grid, fwd_smem_bytes<DP>(), a, stream)
+                   : launch(flash_fwd_mma<DP, bf16>, grid, fwd_smem_bytes<DP>(), a, stream);
+}
+
+template <int SD>
+int fwd_simt(const BfFlashArgs& a, void* stream) {
+  const dim3 grid((a.t + kSM - 1) / kSM, a.b * a.h);
+  return launch(flash_fwd_simt<SD>, grid, simt_fwd_smem_bytes<SD>(), a, stream);
+}
+
+template <int DP>
+int dkv_mma(const BfFlashArgs& a, void* stream) {
+  const dim3 grid((a.t + 63) / 64, a.b * a.h_kv, DP / out_cols<DP>());
+  return launch(flash_bwd_dkv_mma<DP>, grid, dkv_smem_bytes<DP>(), a, stream);
+}
+
+template <int SD>
+int dkv_simt(const BfFlashArgs& a, void* stream) {
+  const dim3 grid((a.t + kSK - 1) / kSK, a.b * a.h_kv);
+  const int smem = simt_dkv_smem_bytes<SD>();
+  return a.qkv_bf16 ? launch(flash_bwd_dkv_simt<SD, bf16, float>, grid, smem, a, stream)
+                    : launch(flash_bwd_dkv_simt<SD, float, float>, grid, smem, a, stream);
+}
+
+template <int DP>
+int dq_mma(const BfFlashArgs& a, void* stream) {
+  const dim3 grid((a.t + kBM - 1) / kBM, a.b * a.h, DP / out_cols<DP>());
+  return launch(flash_bwd_dq_mma<DP>, grid, dq_smem_bytes<DP>(), a, stream);
+}
+
+template <int SD>
+int dq_simt(const BfFlashArgs& a, void* stream) {
+  const dim3 grid((a.t + kSM - 1) / kSM, a.b * a.h);
+  const int smem = simt_dq_smem_bytes<SD>();
+  return a.qkv_bf16 ? launch(flash_bwd_dq_simt<SD, bf16, float>, grid, smem, a, stream)
+                    : launch(flash_bwd_dq_simt<SD, float, float>, grid, smem, a, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -987,45 +1094,33 @@ extern "C" {
 int bf_flash_fwd(const BfFlashArgs* args, void* stream) {
   const BfFlashArgs& a = *args;
   if (a.t <= 0 || a.b * a.h <= 0) return 0;
-  if (tensor_core_route(a, false)) {
-    const dim3 grid((a.t + kBM - 1) / kBM, a.b * a.h);
-    if (a.d <= 64) {
-      return a.out_f32 ? launch(flash_fwd_mma<64, float>, grid, fwd_smem_bytes<64>(), a, stream)
-                       : launch(flash_fwd_mma<64, bf16>, grid, fwd_smem_bytes<64>(), a, stream);
-    }
-    return a.out_f32 ? launch(flash_fwd_mma<128, float>, grid, fwd_smem_bytes<128>(), a, stream)
-                     : launch(flash_fwd_mma<128, bf16>, grid, fwd_smem_bytes<128>(), a, stream);
+  switch (padded_head_dim(a.d)) {
+    case 64: return tensor_core_route(a, false) ? fwd_mma<64>(a, stream) : fwd_simt<64>(a, stream);
+    case 128: return tensor_core_route(a, false) ? fwd_mma<128>(a, stream) : fwd_simt<128>(a, stream);
+    default: return tensor_core_route(a, false) ? fwd_mma<256>(a, stream) : fwd_simt<256>(a, stream);
   }
-  const dim3 grid((a.t + kSM - 1) / kSM, a.b * a.h);
-  return launch(flash_fwd_simt, grid, 0, a, stream);
 }
 
 // dk, dv <- the dK/dV half of the backward. Returns a cudaError_t.
 int bf_flash_bwd_dkv(const BfFlashArgs* args, void* stream) {
   const BfFlashArgs& a = *args;
   if (a.t <= 0 || a.b * a.h_kv <= 0) return 0;
-  if (tensor_core_route(a, true)) {
-    const dim3 grid((a.t + 63) / 64, a.b * a.h_kv);
-    return a.d <= 64 ? launch(flash_bwd_dkv_mma<64>, grid, dkv_smem_bytes<64>(), a, stream)
-                     : launch(flash_bwd_dkv_mma<128>, grid, dkv_smem_bytes<128>(), a, stream);
+  switch (padded_head_dim(a.d)) {
+    case 64: return tensor_core_route(a, true) ? dkv_mma<64>(a, stream) : dkv_simt<64>(a, stream);
+    case 128: return tensor_core_route(a, true) ? dkv_mma<128>(a, stream) : dkv_simt<128>(a, stream);
+    default: return tensor_core_route(a, true) ? dkv_mma<256>(a, stream) : dkv_simt<256>(a, stream);
   }
-  const dim3 grid((a.t + kSK - 1) / kSK, a.b * a.h_kv);
-  if (a.qkv_bf16) return launch(flash_bwd_dkv_simt<bf16, float>, grid, 0, a, stream);
-  return launch(flash_bwd_dkv_simt<float, float>, grid, 0, a, stream);
 }
 
 // dq <- the dQ half of the backward. Returns a cudaError_t.
 int bf_flash_bwd_dq(const BfFlashArgs* args, void* stream) {
   const BfFlashArgs& a = *args;
   if (a.t <= 0 || a.b * a.h <= 0) return 0;
-  if (tensor_core_route(a, true)) {
-    const dim3 grid((a.t + kBM - 1) / kBM, a.b * a.h);
-    return a.d <= 64 ? launch(flash_bwd_dq_mma<64>, grid, dq_smem_bytes<64>(), a, stream)
-                     : launch(flash_bwd_dq_mma<128>, grid, dq_smem_bytes<128>(), a, stream);
+  switch (padded_head_dim(a.d)) {
+    case 64: return tensor_core_route(a, true) ? dq_mma<64>(a, stream) : dq_simt<64>(a, stream);
+    case 128: return tensor_core_route(a, true) ? dq_mma<128>(a, stream) : dq_simt<128>(a, stream);
+    default: return tensor_core_route(a, true) ? dq_mma<256>(a, stream) : dq_simt<256>(a, stream);
   }
-  const dim3 grid((a.t + kSM - 1) / kSM, a.b * a.h);
-  if (a.qkv_bf16) return launch(flash_bwd_dq_simt<bf16, float>, grid, 0, a, stream);
-  return launch(flash_bwd_dq_simt<float, float>, grid, 0, a, stream);
 }
 
 }  // extern "C"

@@ -133,8 +133,10 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """Causal LM on ``tokens [batch, seq]`` (int) -> logits ``[batch, seq,
     vocab]`` f32. ``dtype`` is the compute dtype over f32 parameters.
-    ``pos_offset`` is this sequence's first global position; an int offset
-    is checked against ``max_len``."""
+    ``pos_offset`` is the first global position of the rows: an int for
+    all of them, or an integer tensor ``[batch]`` with one offset per row
+    (sequence-sharded blocks folded into the batch, as the JAX model takes
+    a traced per-worker offset). A position at or past ``max_len`` raises."""
 
     def __init__(self, vocab: int = 64, dim: int = 32, heads: int = 4, layers: int = 2,
                  max_len: int = 4096, dtype: torch.dtype = torch.float32,
@@ -156,10 +158,19 @@ class TransformerLM(nn.Module):
             if t + pos_offset > self.max_len:
                 raise ValueError(f"sequence of {t} tokens at offset {pos_offset} "
                                  f"exceeds max_len={self.max_len}")
-        elif t > self.max_len:
-            raise ValueError(f"block of {t} tokens exceeds max_len={self.max_len}")
-        pos = torch.arange(t, device=tokens.device) + pos_offset
-        x = self.Embed_0(tokens) + self.pos[pos][None].to(self.dtype)
+            pos = (torch.arange(t, device=tokens.device) + pos_offset)[None]
+        else:
+            offsets = torch.as_tensor(pos_offset)
+            if offsets.shape != (tokens.shape[0],) or offsets.is_floating_point():
+                raise ValueError(f"pos_offset must be an int or one integer per row "
+                                 f"[{tokens.shape[0]}], got {tuple(offsets.shape)} "
+                                 f"{offsets.dtype}")
+            last = t + int(offsets.max())
+            if last > self.max_len:
+                raise ValueError(f"block of {t} tokens at offset {last - t} "
+                                 f"exceeds max_len={self.max_len}")
+            pos = torch.arange(t, device=tokens.device)[None] + offsets.to(tokens.device)[:, None]
+        x = self.Embed_0(tokens) + self.pos[pos].to(self.dtype)
         for i in range(self.layers):
             block = getattr(self, f"Block_{i}")
             if self.remat and torch.is_grad_enabled():

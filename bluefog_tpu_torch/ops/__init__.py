@@ -1,7 +1,12 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
-"""Attention ops: the flash kernels and their dense oracle."""
+"""Attention ops: the flash kernels, the sequence-parallel layers (ring,
+Ulysses) and their dense oracle."""
 
-from bluefog_tpu_torch.ops.attention import reference_attention
+from bluefog_tpu_torch.ops.attention import (
+    reference_attention,
+    ring_attention,
+    ulysses_attention,
+)
 from bluefog_tpu_torch.ops.flash import (
     flash_attention,
     flash_attention_supported,
@@ -10,6 +15,8 @@ from bluefog_tpu_torch.ops.flash import (
 
 __all__ = [
     "reference_attention",
+    "ring_attention",
+    "ulysses_attention",
     "flash_attention",
     "flash_attention_with_lse",
     "flash_attention_supported",

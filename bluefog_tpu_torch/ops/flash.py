@@ -18,15 +18,19 @@ from dtypes, head_dim, pointers, strides and the scale, never after a
 failure:
 
 - ``sm90`` (``csrc/flash_sm90.cu``, all three kernels): bf16 q/k/v (and
-  a bf16 cotangent), head_dim a multiple of 8 up to 128, every operand's
+  a bf16 cotangent), head_dim a multiple of 8 up to 128
+  (:data:`SM90_MAX_HEAD_DIM`), every operand's
   base and batch, sequence and head strides on 16 bytes (the Tensor Memory
   Accelerator's condition), scale > 0: wgmma fed by TMA, a producer and
   two consumer warpgroups;
 - ``mma`` (``csrc/flash_kernels.cu``): the other bf16 calls (rows off 16
-  bytes, head_dim 36, a scale that is not positive, ...), ``mma.sync``
-  with ``cp.async`` or scalar loads;
+  bytes, head_dim 36 or above 128, a scale that is not positive, ...),
+  ``mma.sync`` with ``cp.async`` or scalar loads;
 - ``simt`` (``csrc/flash_kernels.cu``): f32 q/k/v, or an f32 cotangent
   (the lse form), on the CUDA cores.
+
+The kernels take head_dim up to :data:`MAX_HEAD_DIM` (256); a CUDA call
+above it raises. The plain versions take any head_dim.
 
 The plain versions compute what the kernels compute, with the same masks,
 guards and roundings: scores in f32 from the inputs, masked to -inf,
@@ -40,7 +44,7 @@ whole row.
 differentiable (``torch.autograd.Function``; the backward launches dK/dV
 and dQ, after ``delta = rowsum(dO * O)`` in f32). Cross-attention shapes go
 to the dense reference by shape (:func:`flash_attention_supported`, as in
-the JAX package); head_dim above 128 is refused.
+the JAX package).
 """
 
 import ctypes
@@ -53,6 +57,7 @@ from bluefog_tpu_torch.ops.attention import _expand_kv, causal_keep, reference_a
 
 __all__ = [
     "MAX_HEAD_DIM",
+    "SM90_MAX_HEAD_DIM",
     "flash_attention",
     "flash_attention_with_lse",
     "flash_attention_supported",
@@ -69,7 +74,8 @@ __all__ = [
     "ROUTES",
 ]
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # the mma and simt kernels
+SM90_MAX_HEAD_DIM = 128
 _NEG_INF = float("-inf")
 
 
@@ -212,7 +218,11 @@ def _check_shapes(q, k, v) -> None:
              and k.shape[3] == d and h % k.shape[2] == 0,
              f"self-attention shapes only: q {tuple(q.shape)}, k {tuple(k.shape)}, "
              f"v {tuple(v.shape)}")
-    _require(d <= MAX_HEAD_DIM, f"head_dim {d} > {MAX_HEAD_DIM} is not supported")
+
+
+def _check_kernel_head_dim(d: int) -> None:
+    _require(d <= MAX_HEAD_DIM, f"head_dim {d} is above the flash kernels' limit of "
+                                f"{MAX_HEAD_DIM} (the plain versions on the CPU take it)")
 
 
 def _dispatch_device(*tensors) -> str:
@@ -253,7 +263,7 @@ def _route(q, k, v, do=None, scale: float = 1.0) -> str:
     if q.dtype == torch.float32 or (do is not None and do.dtype == torch.float32):
         return "simt"
     operands = [q, k, v] + ([do] if do is not None else [])
-    if (q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_HEAD_DIM and scale > 0
+    if (q.dtype == torch.bfloat16 and q.shape[-1] <= SM90_MAX_HEAD_DIM and scale > 0
             and _rows_aligned(operands, q.shape[-1])
             and all(s > 0 for t in operands for s in t.stride()[:3])):
         return "sm90"
@@ -308,6 +318,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float,
 
 
 def _fwd_kernel(q, k, v, causal, scale, out_dtype, route):
+    _check_kernel_head_dim(q.shape[-1])
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_rows(x, name, (q.dtype,) if name != "q" else _FLOAT_TYPES)
     _require(out_dtype in (q.dtype, torch.float32),
@@ -331,7 +342,8 @@ def _check_backward(q, k, v, do, lse, delta, dlse) -> str:
 
 
 def _check_backward_cuda(q, k, v, do, lse, delta, dlse) -> None:
-    b, t, h, _d = q.shape
+    b, t, h, d = q.shape
+    _check_kernel_head_dim(d)
     _check_rows(q, "q", _FLOAT_TYPES)
     for name, x in (("k", k), ("v", v)):
         _check_rows(x, name, (q.dtype,))

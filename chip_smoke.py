@@ -48,10 +48,13 @@ Phases, one line each; any failure exits non-zero:
                heads of 64) causal and not, a ragged T, head_dim 96 and
                128, grouped-query K/V, rows off 16 bytes (head_dim 36, a
                buffer shifted by one element), f32 inputs, and the lse form
-               (f32 out and cotangent, a nonzero lse cotangent); every
-               output row within ``FLASH_ROW_TOL`` of its own norm, and
-               each case's three kernels on the routes ``FLASH_ROUTES``
-               names (``sm90``: wgmma fed by TMA);
+               (f32 out and cotangent, a nonzero lse cotangent), head_dim
+               256 in bf16 (the ``mma`` route) and head_dim 160 in f32 in
+               the lse form (``simt``); every output row within
+               ``FLASH_ROW_TOL`` of its own norm (f32 above head_dim 128:
+               ``FLASH_ROW_TOL_F32_WIDE``), and each case's three
+               kernels on the routes ``FLASH_ROUTES`` names (``sm90``:
+               wgmma fed by TMA);
 10. train, path transformer -- ``TransformerLM`` (vocab 16384, dim 1024, 16
                heads, 12 layers, T 4096, bf16 compute over f32 parameters:
                188 872 704 per worker) on 8 virtual workers, 2 sequences of
@@ -63,12 +66,40 @@ Phases, one line each; any failure exits non-zero:
                then worker 0's forward at full
                size with every block's attention held against the plain
                version on its own q, k, v, and one profiled ATC int8 step;
-11. kernels  -- the flash kernels at the transformer's shape, timed beside
+11. dryrun   -- the dry run of ``__graft_entry__.dryrun_multichip``
+               (``bluefog_tpu_torch.dryrun.DryRun``): 8 workers as 4
+               machines x 2, one-peer Exp2 gossip on the step index
+               (period 3), the hierarchical loss average on the weighted
+               machine ring, ``MLP(16, 10)`` per worker from its own seed,
+               ``sgd(0.05, 0.9)``, ring attention (f32, head_dim 2:
+               ``simt``; outside the loss, so its forward only) for step
+               indices 0, 1, 2, held against the same steps on the CPU to
+               ``DRYRUN_TOL`` and each step's ring attention row by row to
+               the f32 ``FLASH_ROW_TOL``; launch counts zeroed just before
+               and read just after;
+12. train, path long-context -- ``examples/long_context.py`` at the
+               transformer's width: one ``TransformerLM`` (vocab 16384,
+               dim 1024, 16 heads, 12 layers, max_len 8192, bf16 compute
+               over f32 parameters), 2 seeded sequences of 8192 tokens
+               sharded into 8 blocks of 1024 on the ring, every block's
+               attention ring attention over the 8 workers, the whole
+               sequence's mean next-token loss, ``sgd(0.01, 0.9)``: 1
+               warm-up and 2 timed steps, each launching ``flash_fwd`` on
+               ``sm90`` and both backward kernels on ``simt`` at least 96
+               times (8 rounds x 12 layers); one profiled step (the
+               ``simt`` kernels' share of device time); then block 0's
+               ring attention at full size against the plain versions on
+               the whole 8192-token sequence;
+13. kernels  -- the flash kernels at the transformer's shape, timed beside
                their operation bound, their plain versions,
                ``F.scaled_dot_product_attention`` (the yardstick only:
                the port never calls it) and the ``mma`` route's kernel on
-               the same inputs (``earlier_ms``); then the eight-row JSON
-               line.
+               the same inputs (``earlier_ms``); the lse form at the ring
+               block's shape (b 16, T 1024: ``sm90`` forward, ``simt``
+               backward) beside its bound, its share of the f32 CUDA-core
+               rate and SDPA (``lse_route`` on the flash rows, with the
+               long-context path's measured launches per step); then the
+               eight-row JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -98,15 +129,17 @@ from bluefog_tpu_torch import _build
 from bluefog_tpu_torch import topology as topo
 from bluefog_tpu_torch.collective import inner, kernels
 from bluefog_tpu_torch.collective.plan import plan_from_topology
+from bluefog_tpu_torch.dryrun import DryRun
 from bluefog_tpu_torch.models import (
     ResNet50,
     StackedModel,
     TransformerLM,
+    long_context,
     next_token_loss,
     resnet,
     transformer,
 )
-from bluefog_tpu_torch.ops import flash
+from bluefog_tpu_torch.ops import flash, ring_attention
 
 SIZE = 8
 BATCH = 64
@@ -117,6 +150,12 @@ RESNET50_PARAMS = 25_557_032  # the flax ResNet50 at 1000 classes
 LM_CONFIG = dict(vocab=16384, dim=1024, heads=16, layers=12, max_len=4096)
 LM_SEQ, LM_BATCH = 4096, 2
 LM_PARAMS = 188_872_704
+# examples/long_context.py at the transformer path's width: one model, each
+# of 2 sequences of 8192 tokens sharded over the SIZE workers of the ring
+LC_CONFIG = dict(vocab=16384, dim=1024, heads=16, layers=12, max_len=8192)
+LC_BLOCK, LC_BATCH = 1024, 2
+# the dry run's three steps on the card against the same steps on the CPU
+DRYRUN_TOL = 1e-5
 
 # Device memory rate by card (bytes/s; NVIDIA data sheets). The H100 SXM's
 # 3.35 TB/s is the default for an unlisted Hopper part.
@@ -150,6 +189,10 @@ PATH_KERNELS = {
     "push-sum": ("encode", "decode"),
     "transformer": FLASH_KERNELS + ("encode", "decode_accumulate", "encode_diff",
                                     "decode_add"),
+    # the dry run's ring attention is outside the differentiated loss (as
+    # in __graft_entry__._dryrun_body): its forward runs, no backward
+    "dryrun": ("flash_fwd",),
+    "long-context": FLASH_KERNELS,
 }
 
 
@@ -588,26 +631,20 @@ def lm_attention_check(sm, params, tokens):
         raise AssertionError(f"the transformer's attention differs from the plain version: {errs}")
 
 
-def phase_profile(device, name, sm, inputs, targets, params, lr=0.1, top=12):
-    """One more ATC int8 step under ``torch.profiler``: the card's busy
-    share of the step's wall time, and the kernels that take the most
-    device time. Runs after the main path's launch counts were read."""
+def profile_once(device, name, run, top=12):
+    """``run()`` once under ``torch.profiler``: logs the card's busy share
+    of its wall time and the kernels that take the most device time;
+    returns ``{kernel name: device us}`` (empty when the profiler reports
+    no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(lr, momentum=0.9))
-    opt.compression = "int8"
-    state = opt.init(params)
-    grads = torch.empty_like(params)
     sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sm.loss_and_grad(params, inputs, targets, grads)
-        opt.step(params, state, grads)
+        run()
         sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
-    opt.free()
-    del state, grads
     # kernels only: an operator's self device time repeats its kernels'
     rows = [
         (e.self_device_time_total, e.count, e.key)
@@ -616,7 +653,7 @@ def phase_profile(device, name, sm, inputs, targets, params, lr=0.1, top=12):
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         log("profile", f"{name}: the profiler reported no device time: busy share not measured")
-        return
+        return {}
     log("profile", f"{name}: one profiled step (the profiler slows the host): wall "
                    f"{wall_us / 1e3:.1f} ms, kernels "
                    f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), idle "
@@ -624,6 +661,23 @@ def phase_profile(device, name, sm, inputs, targets, params, lr=0.1, top=12):
     for us, count, key in sorted(rows, reverse=True)[:top]:
         log("profile", f"{name}: {100 * us / busy_us:5.1f}% {us / 1e3:9.2f} ms x{count:5d} "
                        f"{key[:110]}")
+    return {key: us for us, _count, key in rows}
+
+
+def phase_profile(device, name, sm, inputs, targets, params, lr=0.1, top=12):
+    """One more ATC int8 step under ``torch.profiler`` (:func:`profile_once`).
+    Runs after the main path's launch counts were read."""
+    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(lr, momentum=0.9))
+    opt.compression = "int8"
+    state = opt.init(params)
+    grads = torch.empty_like(params)
+
+    def step():
+        sm.loss_and_grad(params, inputs, targets, grads)
+        opt.step(params, state, grads)
+
+    profile_once(device, name, step, top)
+    opt.free()
 
 
 def phase_kernels(device, params, rate):
@@ -710,6 +764,244 @@ def phase_kernels(device, params, rate):
     return list(rows.values()), lines
 
 
+def phase_dryrun(device, steps=3):
+    """The dry run of ``__graft_entry__.dryrun_multichip`` (``DryRun``: 8
+    workers as 4 machines x 2, one-peer Exp2 gossip, the hierarchical loss
+    average, ``MLP(16, 10)``, ring attention) for step indices ``0 ..
+    steps - 1`` on ``device``, held against the same steps on the CPU (the
+    plain versions): parameters, momentum and metric within ``DRYRUN_TOL``
+    of each one's largest entry, and each step's ring attention (the
+    metric takes it times 0, as in the JAX body) row by row within the f32
+    ``FLASH_ROW_TOL`` of the CPU's. Returns the launch counts of the run on
+    ``device``, zeroed just before it and read just after."""
+    finals, attns, counts, routes = {}, {}, None, None
+    for which, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        run = DryRun(SIZE, device=dev)
+        params = run.init_params()
+        state = run.tx.init(params)
+        metrics, attns[which] = [], []
+        if which == "card":
+            reset_launch_counts()
+        for i in range(steps):
+            params, state, metric, attn = run.step(params, state, torch.tensor([i], device=dev))
+            metrics.append(metric)
+            attns[which].append(attn)
+        sync(dev)
+        if which == "card":
+            counts, routes = launch_counts(), flash.route_counts()
+        finals[which] = [x.cpu() for x in (params, state, torch.cat(metrics, 1))]
+        attns[which] = [a.cpu() for a in attns[which]]
+    errs = {name: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for name, a, b in zip(("params", "momentum", "metric"), finals["card"], finals["cpu"])}
+    attn_err = max(row_err(a, b) for a, b in zip(attns["card"], attns["cpu"]))
+    attn_tol = FLASH_ROW_TOL[torch.float32]["out"]
+    log("dryrun", f"{steps} steps (indices 0..{steps - 1}, one period of the one-peer Exp2 "
+                  f"schedule) on {SIZE} workers ({SIZE // 2} machines x 2): metric "
+                  f"{finals['card'][2][:, -1].tolist()}; against the CPU run, largest difference "
+                  "over the largest entry "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (limit {DRYRUN_TOL:g}); ring attention's largest row error relative "
+                  f"to the row's norm over the {steps} steps {attn_err:.3g} (limit "
+                  f"{attn_tol:g}); flash launches {counts}, routes "
+                  f"{ {k: {r: n for r, n in v.items() if n} for k, v in routes.items()} }")
+    bad = [k for k, v in errs.items() if not v <= DRYRUN_TOL]
+    if not attn_err <= attn_tol:
+        bad.append("ring attention")
+    if bad or not all(torch.isfinite(x).all() for x in finals["card"] + attns["card"]):
+        raise AssertionError(f"the dry run on the card differs from the CPU run: {errs}, "
+                             f"ring attention {attn_err}")
+    if device.type == "cuda" and routes["flash_fwd"]["simt"] < SIZE * steps:
+        raise AssertionError(f"the dry run's ring attention launched fewer than {SIZE} simt "
+                             f"forwards a step: {routes}")
+    return counts
+
+
+def build_long_context(device, config=None, block=LC_BLOCK, batch=LC_BATCH, seed=0):
+    """The long-context path's model (bf16 compute over f32 parameters,
+    ring attention over ``SIZE`` workers) and its seeded token stream,
+    sharded: ``(model, tokens, targets)`` with ``[SIZE, batch, block]``
+    tokens and next-token targets (a block's last target is the next
+    block's first token)."""
+    config = LC_CONFIG if config is None else config
+    model = transformer.init_flax_like(
+        TransformerLM(dtype=torch.bfloat16, attend=long_context.ring_attend(SIZE), **config),
+        seed).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stream = torch.randint(0, config["vocab"], (batch, SIZE * block + 1), generator=gen,
+                           device=device)
+    return (model, long_context.shard_sequence(stream[:, :-1], SIZE),
+            long_context.shard_sequence(stream[:, 1:], SIZE))
+
+
+def phase_long_context(device, model, tokens, targets, warmup=1, timed=2):
+    """The long-context path: ``sgd(0.01, 0.9)`` steps on the whole
+    sequence's mean next-token loss through ring attention; returns
+    ``(launch counts, flash route counts, steps, numbers)``, the counts
+    zeroed just before the steps and read just after."""
+    params = dict(model.named_parameters())
+    names = sorted(params)
+    tx = bft.sgd(0.01, momentum=0.9)
+    state = tx.init(params)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def step():
+        """One step; returns ``(loss, forward+backward s, optimizer s)``."""
+        t0 = time.perf_counter()
+        loss = long_context.sp_global_loss(model, tokens, targets)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        sync(device)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            tx.apply_(params, state, dict(zip(names, grads)))
+        sync(device)
+        return loss.item(), t1 - t0, time.perf_counter() - t1
+
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        loss, fb, opt = step()
+        losses.append(loss)
+        if i >= warmup:
+            times.append((fb + opt, fb, opt))
+    counts, routes = launch_counts(), flash.route_counts()
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else float("nan"))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"long-context: non-finite loss {losses}")
+    step_s, fb_s, opt_s = (statistics.median(t[k] for t in times) for k in range(3))
+    size, batch, block = tokens.shape
+    numbers = {"step_s": step_s, "fb_s": fb_s, "opt_s": opt_s, "peak_gib": peak,
+               "tokens_per_s": size * batch * block / step_s, "losses": losses,
+               "steps": [t[0] for t in times]}
+    log("train", f"long-context: TransformerLM {model.dim} wide, {model.heads} heads, "
+                 f"{model.layers} layers, {batch} sequences of {size * block} tokens, each "
+                 f"sharded into {size} blocks of {block} on the ring; losses "
+                 f"{', '.join(f'{x:.5f}' for x in losses)}; median step {step_s:.4f} s over "
+                 f"{timed} (steps {', '.join(f'{t[0]:.4f}' for t in times)} s) = "
+                 f"forward+backward {fb_s:.4f} s + optimizer {opt_s:.4f} s, "
+                 f"{numbers['tokens_per_s']:.1f} tokens/s, peak memory {peak:.2f} GiB; "
+                 f"launches {counts} over {warmup + timed} steps, flash routes "
+                 f"{ {k: {r: n for r, n in v.items() if n} for k, v in routes.items()} }")
+    kernel_us = profile_once(device, "long-context", step)
+    if kernel_us:
+        simt = {k: us for k, us in kernel_us.items() if "simt" in k}
+        numbers["simt_share"] = sum(simt.values()) / sum(kernel_us.values())
+        log("profile", f"long-context: the simt kernels (the lse form's backward) take "
+                       f"{sum(simt.values()) / 1e3:.1f} ms, {100 * numbers['simt_share']:.1f}% of "
+                       "the profiled step's device time")
+    return counts, routes, warmup + timed, numbers
+
+
+def lc_ring_check(device, model, tokens, seed=4):
+    """Block 0's ring attention at full size on its own q, k, v (the first
+    sequence of the path's tokens, after the steps) against the plain
+    versions of the flash kernels on the whole sequence in f32: out, dQ, dK
+    and dV for a seeded bf16 cotangent, every row within the bf16
+    ``FLASH_ROW_TOL`` of its norm. Returns the row errors."""
+    size, batch, block = tokens.shape
+    blk, captured = model.Block_0, {}
+    saved = blk.attend
+
+    def grab(q, k, v):
+        captured["qkv"] = (q, k, v)
+        return saved(q, k, v)
+
+    blk.attend = grab
+    try:
+        with torch.no_grad():
+            offsets = torch.arange(size).repeat_interleave(batch) * block
+            model(tokens.reshape(size * batch, block), pos_offset=offsets)
+    finally:
+        blk.attend = saved
+    first = lambda x: x.reshape((size, batch) + tuple(x.shape[1:]))[:, :1].detach()
+    q, k, v = (first(x).requires_grad_(True) for x in captured.pop("qkv"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = ring_attention(q, k, v, causal=True)
+    do = torch.randn(out.shape, generator=gen, device=device).to(out.dtype)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    whole = lambda x: x.detach().permute(1, 0, 2, 3, 4).reshape(
+        (1, size * block) + tuple(x.shape[3:]))
+    # the exact attention of these bf16 inputs: the plain versions on q, k,
+    # v and dO upcast to f32 (the bf16 plain version's own roundings differ
+    # from the ring's per-round ones by more than the kernels' limits on the
+    # small rows early in the causal sequence)
+    qw, kw, vw, dow = (whole(x).float() for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(qw.shape[-1])
+    rout, rlse = flash.flash_fwd_reference(qw, kw, vw, True, scale)
+    delta = flash.attention_delta(rout, dow)
+    args = (qw, kw, vw, dow, rlse, delta, None, True, scale)
+    rdk, rdv = flash.flash_bwd_dkv_reference(*args)
+    rdq = flash.flash_bwd_dq_reference(*args)
+    errs = {"out": row_err(whole(out), rout), "dq": row_err(whole(dq), rdq),
+            "dk": row_err(whole(dk), rdk), "dv": row_err(whole(dv), rdv)}
+    tol = FLASH_ROW_TOL[torch.bfloat16]
+    log("train", f"long-context: block 0's ring attention over {size} blocks of {block} "
+                 f"(first sequence) against the plain version on the whole {size * block}-token "
+                 "sequence: largest row error relative to the row's norm "
+                 + ", ".join(f"{n} {e:.3g} (limit {tol[n]:g})" for n, e in errs.items()))
+    bad = [n for n, e in errs.items() if not e <= tol[n]]
+    if bad:
+        raise AssertionError(f"long-context ring attention differs from the plain version: {errs}")
+    return errs
+
+
+def phase_lse_kernels(device, lc_routes, lc_steps, b=SIZE * LC_BATCH, t=LC_BLOCK,
+                      h=LC_CONFIG["heads"], d=LC_CONFIG["dim"] // LC_CONFIG["heads"]):
+    """The flash kernels' lse form at the ring block's shape (b 16, T 1024,
+    16 heads of 64, bf16 q/k/v, not causal): the forward with f32 out on
+    ``sm90``, dK/dV and dQ with an f32 cotangent and a nonzero lse
+    cotangent on ``simt``; each timed (CUDA events, mean of 10 after 2
+    warm-ups) beside its operation bound at the bf16 tensor-core rate, its
+    share of the f32 CUDA-core rate and ``F.scaled_dot_product_attention``
+    on the same shape (the yardstick only). Each entry's launches per
+    long-context step are that path's measured launches on the kernel's
+    route (``lc_routes``, from ``phase_long_context``) over its
+    ``lc_steps`` steps. Returns ``({kernel: lse_route entry}, lines)``."""
+    q, k, v, do, dlse = flash_operands(device, b, t, h, h, d, torch.bfloat16, True, seed=2)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash.flash_fwd(q, k, v, False, scale, torch.float32)
+    delta = flash.attention_delta(out, do)
+    args = (q, k, v, do, lse, delta, dlse, False, scale)
+    route = {"flash_fwd": flash._route(q, k, v, scale=scale),
+             "flash_bwd_dkv": flash._route(q, k, v, do, scale),
+             "flash_bwd_dq": flash._route(q, k, v, do, scale)}
+    if device.type == "cuda" and route != {"flash_fwd": "sm90", "flash_bwd_dkv": "simt",
+                                           "flash_bwd_dq": "simt"}:
+        raise AssertionError(f"the ring block's lse form took the routes {route}")
+    calls = {"flash_fwd": lambda: flash.flash_fwd(q, k, v, False, scale, torch.float32),
+             "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(*args),
+             "flash_bwd_dq": lambda: flash.flash_bwd_dq(*args)}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous().to(torch.bfloat16)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    o = sdpa()
+    library = {"flash_fwd": time_ms(sdpa, device)}
+    library["flash_bwd_dkv"] = library["flash_bwd_dq"] = time_ms(
+        lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), device)
+    products = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
+    shape = f"b {b}, T {t}, h {h}, d {d}, full, bf16 q/k/v, f32 out and dO, nonzero dlse"
+    entries, lines = {}, []
+    for name, call in calls.items():
+        ms = time_ms(call, device)
+        per_step = lc_routes[name][route[name]] // lc_steps
+        ops = products[name] * 2 * d * b * h * t * t
+        bound = ops / BF16_RATE * 1e3
+        entries[name] = {"route": route[name], "shape": shape, "ms": ms, "bound_ms": bound,
+                         "bound_by": "operations", "tflops": ops / ms / 1e9,
+                         "f32_peak_share": ops / ms / 1e-3 / F32_RATE,
+                         "library_ms": library[name], "launches_per_step": per_step}
+        lines.append(f"{name} lse form ({shape}): {ms:.4f} ms, route {route[name]}, "
+                     f"{ops / ms / 1e9:.1f} TFLOP/s ({100 * ops / ms / 1e-3 / F32_RATE:.1f}% of "
+                     f"the f32 CUDA-core rate {F32_RATE / 1e12:.0f} TFLOP/s), bound {bound:.4f} ms "
+                     f"({ops / 1e9:.1f} GFLOP at {BF16_RATE / 1e12:.0f} TFLOP/s; "
+                     f"{100 * bound / ms:.2f}% of it), {library[name]:.4f} ms "
+                     f"scaled_dot_product_attention "
+                     f"{'forward' if name == 'flash_fwd' else 'backward (dQ, dK, dV together)'}; "
+                     f"{per_step} launches per long-context step on {route[name]}")
+    return entries, lines
+
+
 # (name, b, t, h, h_kv, d, causal, dtype, with_lse, offset); "main" is the
 # transformer path's shape. head_dim 36 and an operand buffer shifted by
 # one element (offset 1) leave rows off 16 bytes: the bf16 route then
@@ -725,6 +1017,8 @@ FLASH_CASES = [
     ("unaligned", 1, 300, 4, 2, 64, True, torch.bfloat16, False, 1),
     ("f32", 1, 257, 4, 2, 64, True, torch.float32, False, 0),
     ("lse", 1, 1000, 16, 4, 64, True, torch.bfloat16, True, 0),
+    ("d256", 1, 1024, 16, 16, 256, True, torch.bfloat16, False, 0),
+    ("d160f32", 1, 1000, 16, 4, 160, True, torch.float32, True, 0),
 ]
 
 # Limits of the flash kernels against their plain versions on the same
@@ -743,6 +1037,18 @@ FLASH_ROW_TOL = {
     torch.bfloat16: {"out": 1.6e-2, "dq": 1.6e-2, "dk": 2.2e-2, "dv": 1.2e-2},
     torch.float32: {"out": 2e-6, "dq": 2e-6, "dk": 2e-6, "dv": 2e-6},
 }
+# f32 above head_dim 128 (the d160f32 case: 160 columns in every score and
+# 1000 queries in every dK/dV sum, where the f32 readings at head_dim <= 128
+# were at most 5.85e-7) read dK 1.75e-6 and dV 1.63e-6 on an H100; its own
+# limit is about 3x the larger, still far below a wrong kernel's O(1).
+FLASH_ROW_TOL_F32_WIDE = 5.3e-6
+
+
+def flash_row_tol(dtype, d):
+    """The row limits of a flash case of ``dtype`` at head_dim ``d``."""
+    if dtype == torch.float32 and d > 128:
+        return dict.fromkeys(FLASH_ROW_TOL[dtype], FLASH_ROW_TOL_F32_WIDE)
+    return FLASH_ROW_TOL[dtype]
 FLASH_LSE_TOL = 6e-6
 ROW_FLOOR = 1e-3
 # The routes each case's flash_fwd, flash_bwd_dkv and flash_bwd_dq must take
@@ -753,7 +1059,7 @@ FLASH_ROUTES = {
     "main": ("sm90",) * 3, "full": ("sm90",) * 3, "ragged": ("sm90",) * 3,
     "d96": ("sm90",) * 3, "d128": ("sm90",) * 3, "gqa": ("sm90",) * 3,
     "d36": ("mma",) * 3, "unaligned": ("mma",) * 3, "f32": ("simt",) * 3,
-    "lse": ("sm90", "simt", "simt"),
+    "lse": ("sm90", "simt", "simt"), "d256": ("mma",) * 3, "d160f32": ("simt",) * 3,
 }
 
 
@@ -798,7 +1104,7 @@ def with_poisoned_tail(x, value, n=256):
 
 def check_flash_case(device, case):
     """The three kernels against their plain versions on one case, each
-    output row held to ``FLASH_ROW_TOL`` of its own norm and the lse to
+    output row held to ``flash_row_tol`` of its own norm and the lse to
     ``FLASH_LSE_TOL``; returns ``{kernel: max abs difference}``. The
     backward's per-row vectors lie in front of poisoned tails (lse a huge
     negative number, delta and dlse NaN), so a kernel that reads the rows
@@ -833,7 +1139,7 @@ def check_flash_case(device, case):
     errs = {"out": row_err(out, rout), "dq": row_err(dq, rdq), "dk": row_err(dk, rdk),
             "dv": row_err(dv, rdv),
             "lse": float((lse[finite] - rlse[finite]).abs().max())}
-    limits = {**FLASH_ROW_TOL[dtype], "lse": FLASH_LSE_TOL}
+    limits = {**flash_row_tol(dtype, d), "lse": FLASH_LSE_TOL}
     log("flash-parity", f"{name} (b {b}, T {t}, h {h}/{h_kv}, d {d}, "
                         f"{'causal' if causal else 'full'}, {str(dtype)[6:]}"
                         f"{', lse form' if with_lse else ''}"
@@ -1112,10 +1418,6 @@ def main():
         raise AssertionError(f"the transformer path launched fewer than {per_step} {short} "
                              f"per step over {steps} steps: {counts['transformer']}, "
                              f"routes {routes}")
-    for path, kernel_names in PATH_KERNELS.items():
-        missing = [k for k in kernel_names if counts[path][k] == 0]
-        if missing:
-            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
     step_s = trainer.tiers["lm atc/int8"]["median"][0]
     tokens_per_step = SIZE * LM_BATCH * LM_SEQ
     log("train", f"TransformerLM x{SIZE} workers, {LM_BATCH} x {LM_SEQ} tokens each, "
@@ -1133,9 +1435,35 @@ def main():
     del sm, tokens, trainer
     torch.cuda.empty_cache()
 
+    counts["dryrun"] = phase_dryrun(device)
+    model, lc_tokens, lc_targets = build_long_context(device)
+    counts["long-context"], lc_routes, lc_steps, lc = phase_long_context(
+        device, model, lc_tokens, lc_targets)
+    per_step = SIZE * model.layers  # ring rounds x layers
+    short = [f"{k} ({r})" for k, r in (("flash_fwd", "sm90"), ("flash_bwd_dkv", "simt"),
+                                       ("flash_bwd_dq", "simt"))
+             if lc_routes[k][r] < per_step * lc_steps]
+    if short:
+        raise AssertionError(f"the long-context path launched fewer than {per_step} {short} "
+                             f"per step over {lc_steps} steps: routes {lc_routes}")
+    lc_ring_check(device, model, lc_tokens)
+    log("train", f"long-context: median step {lc['step_s']:.4f} s, {lc['tokens_per_s']:.1f} "
+                 f"tokens/s, forward+backward {lc['fb_s']:.4f} s, peak {lc['peak_gib']:.2f} GiB, "
+                 f"simt share of the profiled step "
+                 f"{100 * lc.get('simt_share', float('nan')):.1f}%; on {smi}")
+    del model, lc_tokens, lc_targets
+    torch.cuda.empty_cache()
+    for path, kernel_names in PATH_KERNELS.items():
+        missing = [k for k in kernel_names if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+
     flash_rows, flash_lines = phase_flash_kernels(device, flash_errs, memory_rate(kind))
+    lse_entries, lse_lines = phase_lse_kernels(device, lc_routes, lc_steps)
+    for row in flash_rows:
+        row["lse_route"] = lse_entries[row["name"]]
     rows += flash_rows
-    lines += flash_lines
+    lines += flash_lines + lse_lines
     launches = {k: sum(c[k] for c in counts.values()) for k in KERNEL_ROWS}
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -225,7 +225,9 @@ FLASH_CASES = [
 # norm, with chip_smoke.py's limits (about 3x the largest value measured on
 # an H100): bf16 inputs, where each side rounds its outputs to bf16 and the
 # kernels round P at a running row maximum; f32, where sums run in another
-# order. The lse is held absolutely.
+# order. The lse is held absolutely. The f32 cases above head_dim 128 here
+# (T <= 100) keep the f32 limit; chip_smoke.py's d160f32 case (T 1000) has
+# its own, ``FLASH_ROW_TOL_F32_WIDE``.
 _ROW_TOL = {
     torch.bfloat16: {"out": 1.6e-2, "dq": 1.6e-2, "dk": 2.2e-2, "dv": 1.2e-2},
     torch.float32: {"out": 2e-6, "dq": 2e-6, "dk": 2e-6, "dv": 2e-6},
@@ -324,13 +326,64 @@ def test_flash_wrappers_refuse_bad_cuda_operands(cuda):
     q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # mixed dtypes
         flash.flash_fwd(q, q.float(), q, True, 0.125)
-    with pytest.raises(ValueError):  # head_dim above 128
-        z = torch.zeros(1, 64, 2, 136, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="limit of 256"):  # head_dim above 256
+        z = torch.zeros(1, 64, 2, 264, device=cuda, dtype=torch.bfloat16)
         flash.flash_fwd(z, z, z, True, 0.125)
     with pytest.raises(ValueError):  # last axis not contiguous
         flash.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, True, 0.125)
     with pytest.raises(ValueError):  # operands on two devices
         flash.flash_fwd(q, q.cpu(), q, True, 0.125)
+
+
+# (b, t, h, h_kv, d, causal, dtype, with_lse, routes): head_dim above 128.
+# bf16 takes the mma route (DP 256, one 128-column half of the outputs a
+# block); f32 operands and the lse form's f32 cotangent take simt (SD 256).
+WIDE_CASES = [
+    (1, 150, 4, 4, 160, True, torch.bfloat16, False, ("mma", "mma", "mma")),
+    (1, 150, 4, 2, 256, False, torch.bfloat16, False, ("mma", "mma", "mma")),
+    (2, 100, 2, 2, 256, True, torch.bfloat16, False, ("mma", "mma", "mma")),
+    (1, 100, 2, 1, 160, True, torch.float32, False, ("simt", "simt", "simt")),
+    (1, 100, 2, 2, 256, False, torch.float32, False, ("simt", "simt", "simt")),
+    (1, 150, 4, 2, 160, True, torch.bfloat16, True, ("mma", "simt", "simt")),
+    (1, 130, 2, 2, 256, False, torch.bfloat16, True, ("mma", "simt", "simt")),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: f"t{c[1]}-h{c[2]}x{c[3]}-d{c[4]}-"
+                         f"{'causal' if c[5] else 'full'}-{str(c[6])[6:]}{'-lse' if c[7] else ''}")
+def test_head_dims_above_128_match_plain_versions(cuda, case):
+    """head_dim 160 and 256 take a hand-written kernel on the route the
+    case names; every output row within ``_ROW_TOL`` of its norm, the lse
+    within ``_LSE_TOL``."""
+    from bluefog_tpu_torch.ops import flash
+
+    b, t, h, h_kv, d, causal, dtype, with_lse, routes = case
+    rng = np.random.RandomState(25)
+    q, k, v = _operands(rng, cuda, dtype, 0, (b, t, h, d), (b, t, h_kv, d), (b, t, h_kv, d))
+    scale = 1.0 / np.sqrt(d)
+    out_dtype = torch.float32 if with_lse else dtype
+    tol = _ROW_TOL[dtype]
+    before = flash.route_counts()
+    out, lse = flash.flash_fwd(q, k, v, causal, scale, out_dtype)
+    rout, rlse = flash.flash_fwd_reference(q, k, v, causal, scale, out_dtype)
+    do = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(cuda, out_dtype)
+    dlse = torch.from_numpy(rng.randn(b, h, t).astype(np.float32)).to(cuda) if with_lse else None
+    delta = flash.attention_delta(rout, do)
+    args = (q, k, v, do, rlse, delta, dlse, causal, scale)
+    dk, dv = flash.flash_bwd_dkv(*args)
+    dq = flash.flash_bwd_dq(*args)
+    rdk, rdv = flash.flash_bwd_dkv_reference(*args)
+    rdq = flash.flash_bwd_dq_reference(*args)
+    torch.cuda.synchronize()
+    after = flash.route_counts()
+    took = tuple(next(r for r in flash.ROUTES if after[n][r] > before[n][r])
+                 for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    assert took == routes
+    assert float((lse - rlse).abs().max()) <= _LSE_TOL
+    for name, got, want in (("out", out, rout), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert _row_err(got, want) <= tol[name], (name, _row_err(got, want))
 
 
 # (b, t, h, h_kv, d, causal): the wgmma/TMA route's edges. T 1, 127, 129 and
@@ -439,3 +492,67 @@ def test_sm90_dq_matches_plain_version(cuda, case):
     assert {r: after[r] - before[r] for r in flash.ROUTES} == {"sm90": 1, "mma": 0, "simt": 0}
     assert dq.dtype == q.dtype and dq.shape == q.shape and dq.is_contiguous()
     assert _row_err(dq, rdq) <= _ROW_TOL[torch.bfloat16]["dq"], _row_err(dq, rdq)
+
+
+# -- the sequence-parallel layers and the dry run ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_on_card_matches_cpu(cuda, causal):
+    """Ring attention over 4 workers (bf16, grouped-query 4/2, head_dim 64)
+    on the card against the same call on the CPU (the plain versions):
+    out and the gradients of q, k and v, every row within ``_ROW_TOL``.
+    Each round launches the forward on ``sm90`` (bf16 q/k/v, f32 out) and
+    both backward kernels on ``simt`` (the f32 cotangent of the lse form)."""
+    from bluefog_tpu_torch.ops import flash, ring_attention
+
+    rng = np.random.RandomState(26)
+    n, b, t, d = 4, 2, 100, 64
+    base = [torch.from_numpy(rng.randn(n, b, t, h, d).astype(np.float32)).to(torch.bfloat16)
+            for h in (4, 2, 2)]
+    w = torch.from_numpy(rng.randn(n, b, t, 4, d).astype(np.float32))
+    results = {}
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (x.to(dev).requires_grad_(True) for x in base)
+        before = flash.route_counts()
+        out = ring_attention(q, k, v, causal=causal)
+        (out.float() * w.to(dev)).sum().backward()
+        after = flash.route_counts()
+        results[dev.type] = [x.detach().float().cpu() for x in (out, q.grad, k.grad, v.grad)]
+        if dev.type == "cuda":
+            took = {kname: {r: after[kname][r] - before[kname][r] for r in flash.ROUTES}
+                    for kname in after}
+            assert took == {"flash_fwd": {"sm90": n, "mma": 0, "simt": 0},
+                            "flash_bwd_dkv": {"sm90": 0, "mma": 0, "simt": n},
+                            "flash_bwd_dq": {"sm90": 0, "mma": 0, "simt": n}}
+    tol = _ROW_TOL[torch.bfloat16]
+    for name, got, want in zip(("out", "dq", "dk", "dv"), results["cuda"], results["cpu"]):
+        assert _row_err(got, want) <= tol[name], (name, _row_err(got, want))
+
+
+@pytest.mark.cuda
+def test_dryrun_on_card_equals_cpu(cuda):
+    """Three dry-run steps (step indices 0, 1, 2: one period of the
+    one-peer Exp2 schedule) on the card and on the CPU from the same
+    seeded parameters: parameters, momentum and metric to 1e-5 relative;
+    each step's ring attention (the card's on ``simt``) row by row within
+    ``_ROW_TOL``."""
+    from bluefog_tpu_torch.dryrun import DryRun
+
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        run = DryRun(8, device=dev)
+        params = run.init_params()
+        state = run.tx.init(params)
+        metrics, attns = [], []
+        for i in range(3):
+            params, state, metric, attn = run.step(params, state, torch.tensor([i], device=dev))
+            metrics.append(metric)
+            attns.append(attn)
+        runs[dev.type] = [x.cpu() for x in (params, state, torch.cat(metrics, 1))]
+        runs[dev.type + "_attn"] = [a.cpu() for a in attns]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    for got, want in zip(runs["cuda_attn"], runs["cpu_attn"]):
+        assert _row_err(got, want) <= _ROW_TOL[torch.float32]["out"], _row_err(got, want)

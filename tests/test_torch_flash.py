@@ -164,11 +164,63 @@ def test_cross_attention_and_mismatched_heads_take_the_dense_path():
 
 
 def test_head_dim_above_128_and_bad_blocks_are_refused():
-    z = torch.zeros(1, 16, 2, 136)
-    with pytest.raises(ValueError):
-        flash.flash_attention(z, z, z, causal=True)
+    """head_dim above 128 is computed (the plain versions on the CPU take
+    any head_dim; the CUDA kernels stop at ``MAX_HEAD_DIM``, 256, and refuse
+    more by name); bad block sizes are refused."""
+    z = torch.randn(1, 16, 2, 136)
+    out = flash.flash_attention(z, z, z, causal=True)
+    want = flash.reference_attention(z, z, z, causal=True)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    assert flash.MAX_HEAD_DIM == 256 and flash.SM90_MAX_HEAD_DIM == 128
+    with pytest.raises(ValueError, match="limit of 256"):
+        flash._check_kernel_head_dim(264)
+    flash._check_kernel_head_dim(256)
     z = torch.zeros(1, 16, 2, 64)
     with pytest.raises(ValueError):
         flash.flash_attention(z, z, z, block_q=0)
     out = flash.flash_attention(z, z, z, block_q=64, block_k=128)  # accepted, unused
     assert out.shape == z.shape
+
+
+# head_dim above 128 (the JAX package has no bound): f32 at 1e-5, forward,
+# lse and all three gradients against the Pallas kernels in the interpreter.
+# A gradient is held at rtol 1e-5 with atol 1e-5 of its largest entry:
+# entries that are zero analytically (causal dQ of query 0) carry float
+# noise in proportion to the gradient's scale, on both sides.
+WIDE = dict(rtol=1e-5, atol=1e-5)
+
+
+def _close_scaled(got, want, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, (what, i)
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * float(np.abs(b).max()),
+                                   err_msg=f"{what} #{i}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [160, 256])
+def test_head_dim_160_and_256_match_jax_kernels(causal, d):
+    q, k, v = _inputs(d + int(causal), 1, 40, 2, d)
+    port = lambda q, k, v: flash.flash_attention(q, k, v, causal=causal)
+    jx = lambda q, k, v: jflash.flash_attention(q, k, v, causal=causal, interpret=True)
+    (out,), grads = _port_grads(port, q, k, v, _sq)
+    (jout,), jgrads = _jax_grads(jx, q, k, v, _sq)
+    np.testing.assert_allclose(out, jout, **WIDE)
+    _close_scaled(grads, jgrads, f"dq/dk/dv d={d} causal={causal}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,h_kv", [(160, 2), (256, 2), (160, 1)])
+def test_head_dim_160_and_256_with_lse_match_jax_kernels(causal, d, h_kv):
+    """The lse form (f32 out and lse, a nonzero lse cotangent) at head_dim
+    160 and 256, and one grouped-query case (2 query heads on 1 KV head)."""
+    q, k, v = _inputs(d + h_kv, 1, 40, 2, d, h_kv=h_kv)
+    port = lambda q, k, v: flash.flash_attention_with_lse(q, k, v, causal=causal)
+    jx = lambda q, k, v: jflash.flash_attention_with_lse(q, k, v, causal=causal,
+                                                         interpret=True)
+    (out, lse), grads = _port_grads(port, q, k, v, _sq_and_lse)
+    (jout, jlse), jgrads = _jax_grads(jx, q, k, v, _sq_and_lse)
+    np.testing.assert_allclose(out, jout, **WIDE)
+    np.testing.assert_allclose(lse, jlse, **WIDE)
+    assert grads[1].shape == k.shape
+    _close_scaled(grads, jgrads, f"with_lse d={d} h_kv={h_kv} causal={causal}")

@@ -45,6 +45,8 @@ def test_the_transformer_shape_takes_sm90():
 @pytest.mark.parametrize("why,case", [
     ("head_dim 36", dict(d=36)),
     ("head_dim 100", dict(d=100)),
+    ("head_dim 160", dict(d=160)),
+    ("head_dim 256", dict(d=256)),
     ("offset of one element", dict(d=64, offset=1)),
     ("offset of four elements", dict(d=64, offset=4)),
 ])

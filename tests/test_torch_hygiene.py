@@ -38,7 +38,8 @@ def _imported_modules(path: Path):
 def test_port_sources_exist():
     names = {p.name for p in _port_sources()}
     assert {"chip_smoke.py", "kernels.py", "optimizers.py", "resnet.py", "windows.py",
-            "flash.py", "attention.py", "transformer.py"} <= names
+            "flash.py", "attention.py", "transformer.py", "dynamic.py", "mlp.py",
+            "long_context.py", "dryrun.py"} <= names
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
         assert (ROOT / "bluefog_tpu_torch" / "csrc" / source).is_file()
 
