@@ -172,9 +172,15 @@ def flash_library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def flash_sm90_library() -> ctypes.CDLL:
     """The wgmma/TMA flash kernels (``csrc/flash_sm90.cu``), built if
-    needed, with the entry points of :func:`flash_library`."""
-    return _flash_entry_points("flash_sm90", ("bf_flash_fwd_sm90", "bf_flash_bwd_dkv_sm90",
-                                              "bf_flash_bwd_dq_sm90"))
+    needed, with the entry points of :func:`flash_library` and
+    ``bf_flash_split_cotangent`` (x, hi, lo, three strides, b, t, h, d,
+    stream)."""
+    lib = _flash_entry_points("flash_sm90", ("bf_flash_fwd_sm90", "bf_flash_bwd_dkv_sm90",
+                                             "bf_flash_bwd_dq_sm90"))
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.bf_flash_split_cotangent.argtypes = [vp, vp, vp, ll, ll, ll, ci, ci, ci, ci, vp]
+    lib.bf_flash_split_cotangent.restype = ci
+    return lib
 
 
 def _flash_entry_points(source: str, names) -> ctypes.CDLL:

@@ -14,6 +14,8 @@ struct BfFlashArgs {
   const void* k;
   const void* v;
   const void* d_o;
+  const void* d_o_lo;  // sm90 with an f32 cotangent: dO's low bf16 half, d_o
+                       // its high half (both with do_stride); else null
   void* out;
   void* dq;
   void* dk;

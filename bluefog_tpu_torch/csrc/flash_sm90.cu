@@ -9,9 +9,24 @@
 //   bf_flash_bwd_dkv_sm90  <- _bwd_call (_bwd_dkv_kernel with _recompute_p;
 //                                        pallas_call at :343)
 //   bf_flash_bwd_dq_sm90   <- _bwd_call (_bwd_dq_kernel; pallas_call at :369)
+//   bf_flash_split_cotangent <- the f32 dO that _bwd_call hands both
+//                               backward kernels in the lse form, as two
+//                               bf16 halves (below)
 // The routes for rows TMA cannot address (off 16 bytes, head_dim not a
 // multiple of 8) and for f32 operands stay in flash_kernels.cu;
 // ops/flash.py::_route chooses before the launch.
+//
+// An f32 cotangent (flash_attention_with_lse, whose out is f32 so that ring
+// attention's merges stay in f32) enters the tensor cores as two bf16
+// halves, hi = bf16(dO) and lo = bf16(dO - hi): dO - hi is exact in f32, so
+// hi + lo keeps 16 of dO's 24 mantissa bits (relative error at most 2^-17),
+// and every bf16 product is exact in the f32 accumulators. The backward
+// kernels then take a fifth tensor map (lo) and compute dP = hi V^T + lo V^T
+// in one accumulator, and dV += P_hi^T hi + P_hi^T lo + P_lo^T hi with P_hi
+// = bf16(P), P_lo = bf16(P - P_hi) from the f32 P in registers; the dropped
+// P_lo^T lo is about 2^-18 of the product. So P stays f32 in P^T dO to
+// about 2^-16, as the plain version's contract (P rounded to dO's type)
+// asks, before the outputs' rounding to bf16.
 //
 // What is computed is flash_kernels.cu's arithmetic (its header states it):
 // f32 scores times scale, causal and ragged-tail masks to -inf, the online
@@ -62,6 +77,10 @@
 //   once, Q and dO streamed, both K-major), then dV += P^T dO and dK += dS^T
 //   Q with P^T and dS^T from registers and dO and Q MN-major. dK and dV stay
 //   in f32 registers; the group's heads sum in the loop, without atomics.
+//   Split (kSplit): a lo tile streams beside every dO tile (107 KB of shared
+//   memory at head_dim 64, 212 KB at 128), the lo chain follows the hi
+//   chain of dP^T, and dV takes the three chains above: 7 products in
+//   place of 4.
 // - dQ: the forward's shape. One block per (Q tile of 128 rows, b h),
 //   heaviest first; the producer loads Q and dO once and streams K and V
 //   tiles of 64 keys through the ring. Each consumer thread reads the lse (as -lse
@@ -73,7 +92,9 @@
 //   dS_j K_j is issued between S_{j+1} and dP_{j+1}, so P_{j+1} is
 //   computed while both run on the tensor cores. dQ stays in f32 registers
 //   and is written once, through the warpgroup's own Q rows of shared
-//   memory.
+//   memory. Split (kSplit): dO's lo panel stays resident beside hi (113 KB
+//   at head_dim 64, 225 KB at 128, of 227) and dP takes a second chain
+//   into its accumulator: 4 products in place of 3.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -337,6 +358,15 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 4], const float (&s)[N 
     a[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
     a[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
+}
+
+// The low bf16 halves of the same blocks: s - bf16(s), rounded to bf16.
+template <int N>
+__device__ __forceinline__ void pack_a_lo(uint32_t (&a)[N / 4], const float (&s)[N / 2]) {
+  float r[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) r[i] = s[i] - __bfloat162float(__float2bfloat16_rn(s[i]));
+  pack_a<N>(a, r);
 }
 
 // Byte offset of the 16-byte chunk `chunk` (0..7) of row `row` in a
@@ -636,20 +666,26 @@ constexpr int kDkvBM = 64;      // query rows per streamed tile
 constexpr int kDkvBN = 128;     // keys per block, 64 per consumer
 constexpr int kDkvStages = 3;  // depth of the Q/dO ring
 
-template <int DP>
+// Streamed tiles a stage: Q and dO, and with a split cotangent dO's low half.
+__host__ __device__ constexpr int dkv_streams(bool split) { return split ? 3 : 2; }
+
+template <int DP, bool kSplit>
 __host__ __device__ constexpr int dkv_smem_bytes() {
-  // K and V (128 rows), Q and dO stages (64 rows), DP / 64 panels apiece;
-  // the per-row vectors; the barriers; 1024 bytes of alignment.
-  return (2 * kDkvBN + 2 * kDkvStages * kDkvBM) * (DP / 64) * kRowBytes +
+  // K and V (128 rows), the streamed stages (64 rows), DP / 64 panels
+  // apiece; the per-row vectors; the barriers; 1024 bytes of alignment.
+  return (2 * kDkvBN + dkv_streams(kSplit) * kDkvStages * kDkvBM) * (DP / 64) * kRowBytes +
          kDkvStages * 3 * kDkvBM * 4 + 256 + 1024;
 }
 
-template <int DP>
+// kSplit: dO comes as hi (tdo) and lo (tdo_lo) halves of an f32 cotangent;
+// else tdo is a bf16 cotangent and tdo_lo is not read.
+template <int DP, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tdo, const BfFlashArgs a) {
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdo_lo, const BfFlashArgs a) {
   constexpr int BM = kDkvBM, BN = kDkvBN, kPanels = DP / 64, kStages = kDkvStages;
   constexpr int kKPanel = BN * kRowBytes, kQPanel = BM * kRowBytes;
   constexpr int kStageBytes = kPanels * kQPanel;
@@ -658,8 +694,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* sK = smem;
   unsigned char* sV = sK + kPanels * kKPanel;
   unsigned char* sQ = sV + kPanels * kKPanel;
-  unsigned char* sO = sQ + kStages * kStageBytes;  // dO
-  float* vec = reinterpret_cast<float*>(sO + kStages * kStageBytes);  // [stage][3][BM]
+  unsigned char* sO = sQ + kStages * kStageBytes;  // dO (its high half when split)
+  unsigned char* sL = sO + kStages * kStageBytes;  // dO's low half (kSplit only)
+  // the per-row vectors, [stage][3][BM]
+  float* vec = reinterpret_cast<float*>(sL + (kSplit ? kStages * kStageBytes : 0));
   uint64_t* full = reinterpret_cast<uint64_t*>(vec + kStages * 3 * BM);
   uint64_t* empty = full + kStages;
   uint64_t* kv_full = empty + kStages;
@@ -697,10 +735,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int hi = hk * group + it / per_head;
         const int r0 = (qt0 + it % per_head) * BM;
         mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[st], 2 * kStageBytes);
+        mbar_expect_tx(&full[st], dkv_streams(kSplit) * kStageBytes);
         for (int p = 0; p < kPanels; ++p) {
           tma_load(sQ + st * kStageBytes + p * kQPanel, &tq, &full[st], 64 * p, hi, r0, bi);
           tma_load(sO + st * kStageBytes + p * kQPanel, &tdo, &full[st], 64 * p, hi, r0, bi);
+          if constexpr (kSplit) {
+            tma_load(sL + st * kStageBytes + p * kQPanel, &tdo_lo, &full[st], 64 * p, hi, r0,
+                     bi);
+          }
         }
       }
     } else if (warp == 1) {
@@ -744,13 +786,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     // (kDefer); at d 128 the registers do not allow it and they are waited
     // for at once.
     constexpr bool kDefer = DP <= 64;
-    uint32_t pa[BM / 4], da[BM / 4];
+    // pl: P^T's low half (kSplit)
+    uint32_t pa[BM / 4], da[BM / 4], pl[kSplit ? BM / 4 : 1];
     mbar_wait(kv_full, 0);
     for (int it = 0; it < n_it; ++it) {
       const int st = it % kStages;
       const int r0 = (qt0 + it % per_head) * BM;
       const unsigned char* q_st = sQ + st * kStageBytes;
       const unsigned char* o_st = sO + st * kStageBytes;
+      const unsigned char* l_st = sL + st * kStageBytes;
       const float* nl = vec + st * 3 * BM;  // -lse log2 e
       const float* delta = nl + BM;
       const float* dlse = nl + 2 * BM;
@@ -774,6 +818,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int qoff = (kk >> 2) * kQPanel + (kk & 3) * 32;
         wgmma_ss<BM>(dp, desc_sw128(v_rows + off, 16), desc_sw128(o_st + qoff, 16), kk > 0);
       }
+      if constexpr (kSplit) {
+        // + V . lo^T, into the same accumulator
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int off = (kk >> 2) * kKPanel + (kk & 3) * 32;
+          const int qoff = (kk >> 2) * kQPanel + (kk & 3) * 32;
+          wgmma_ss<BM>(dp, desc_sw128(v_rows + off, 16), desc_sw128(l_st + qoff, 16), 1);
+        }
+      }
       wgmma_commit();
       wgmma_wait<1>();  // the previous tile's dV/dK and this S^T; dP^T still runs
       fence_regs(s);
@@ -782,6 +835,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(dv);
         fence_regs(pa);
         fence_regs(da);
+        fence_regs(pl);
         if (it > 0) mbar_arrive(&empty[(it - 1) % kStages]);
       }
 
@@ -807,19 +861,30 @@ __global__ void __launch_bounds__(kThreads, 1)
           dp[4 * j + e] = s[4 * j + e] * ((dp[4 * j + e] - delta[qi]) + dlse[qi]) * a.scale;
         }
       }
-      pack_a<BM>(pa, s);   // P^T, rounded to dO's type
+      pack_a<BM>(pa, s);   // P^T, rounded to dO's type (split: its high half)
+      if constexpr (kSplit) pack_a_lo<BM>(pl, s);
       pack_a<BM>(da, dp);  // dS^T, rounded to Q's type
 
-      // dV += P^T . dO and dK += dS^T . Q (Q and dO MN-major)
+      // dV += P^T . dO and dK += dS^T . Q (Q and dO MN-major). Split: dV +=
+      // P_hi^T hi + P_hi^T lo + P_lo^T hi. The last chain is about 2^-9 of
+      // dV, the size of the output's own bf16 rounding, so no check of the
+      // kernel's outputs can see it; tests/test_torch_flash_split.py holds
+      // the composite of these products to the f32 plain version.
       fence_regs(dk);
       fence_regs(dv);
       fence_regs(pa);
       fence_regs(da);
+      fence_regs(pl);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk) {
-        wgmma_rs<DP>(dv, &pa[4 * kk], desc_sw128(o_st + kk * 16 * kRowBytes, kQPanel), 1);
+        const uint64_t o_desc = desc_sw128(o_st + kk * 16 * kRowBytes, kQPanel);
+        wgmma_rs<DP>(dv, &pa[4 * kk], o_desc, 1);
         wgmma_rs<DP>(dk, &da[4 * kk], desc_sw128(q_st + kk * 16 * kRowBytes, kQPanel), 1);
+        if constexpr (kSplit) {
+          wgmma_rs<DP>(dv, &pa[4 * kk], desc_sw128(l_st + kk * 16 * kRowBytes, kQPanel), 1);
+          wgmma_rs<DP>(dv, &pl[4 * kk], o_desc, 1);
+        }
       }
       wgmma_commit();
       if constexpr (!kDefer) {
@@ -835,6 +900,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(dv);
       fence_regs(pa);
       fence_regs(da);
+      fence_regs(pl);
       mbar_arrive(&empty[(n_it - 1) % kStages]);
     }
 
@@ -862,23 +928,25 @@ constexpr int kDqBN = 64;
 // kept in flight than in the forward (3 stages measured slower).
 constexpr int kDqStages = 4;
 
-template <int DP>
+template <int DP, bool kSplit>
 __host__ __device__ constexpr int dq_smem_bytes() {
-  // Q and dO (128 rows), the K and V stages (BN rows), DP / 64 panels
-  // apiece; the barriers; 1024 bytes to align the swizzled tiles.
-  return (2 * kDqBM + 2 * kDqStages * kDqBN) * (DP / 64) * kRowBytes + 256 + 1024;
+  // Q and dO, and with a split cotangent dO's low half (128 rows), the K
+  // and V stages (BN rows), DP / 64 panels apiece; the barriers; 1024
+  // bytes to align the swizzled tiles. Split at DP 128: 230 656 bytes.
+  return ((kSplit ? 3 : 2) * kDqBM + 2 * kDqStages * kDqBN) * (DP / 64) * kRowBytes + 256 +
+         1024;
 }
 
-// acc (64 x BN) = A (this warpgroup's 64 rows of Q or dO) . B^T (K or V of
-// one stage), both K-major.
+// acc (64 x BN) = (accumulate ? acc : 0) + A (this warpgroup's 64 rows of Q
+// or dO) . B^T (K or V of one stage), both K-major.
 template <int DP, int BN>
 __device__ __forceinline__ void dq_issue_rows(float (&acc)[BN / 2], const unsigned char* rows,
-                                              const unsigned char* st) {
+                                              const unsigned char* st, bool accumulate = false) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const int col = (kk & 3) * 32;  // 16 columns of a 64-column panel
     wgmma_ss<BN>(acc, desc_sw128(rows + (kk >> 2) * kDqBM * kRowBytes + col, 16),
-                 desc_sw128(st + (kk >> 2) * BN * kRowBytes + col, 16), kk > 0);
+                 desc_sw128(st + (kk >> 2) * BN * kRowBytes + col, 16), accumulate || kk > 0);
   }
 }
 
@@ -892,20 +960,23 @@ __device__ __forceinline__ void dq_issue_ds_k(float (&dq)[DP / 2], const uint32_
   }
 }
 
-template <int DP>
+// kSplit: as in flash_bwd_dkv_sm90.
+template <int DP, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap tdo, const BfFlashArgs a) {
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tdo_lo, const BfFlashArgs a) {
   constexpr int BM = kDqBM, BN = kDqBN, kPanels = DP / 64, kStages = kDqStages;
   constexpr int kQPanel = BM * kRowBytes, kKPanel = BN * kRowBytes;
   constexpr int kStageBytes = kPanels * kKPanel;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* sQ = smem;
-  unsigned char* sO = sQ + kPanels * kQPanel;  // dO
-  unsigned char* sK = sO + kPanels * kQPanel;
+  unsigned char* sO = sQ + kPanels * kQPanel;  // dO (its high half when split)
+  unsigned char* sL = sO + kPanels * kQPanel;  // dO's low half (kSplit only)
+  unsigned char* sK = sL + (kSplit ? kPanels * kQPanel : 0);
   unsigned char* sV = sK + kStages * kStageBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
@@ -932,10 +1003,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- producer warpgroup ----
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qo_full, 2 * kPanels * kQPanel);
+      mbar_expect_tx(qo_full, (kSplit ? 3 : 2) * kPanels * kQPanel);
       for (int p = 0; p < kPanels; ++p) {
         tma_load(sQ + p * kQPanel, &tq, qo_full, 64 * p, hi, q0, bi);
         tma_load(sO + p * kQPanel, &tdo, qo_full, 64 * p, hi, q0, bi);
+        if constexpr (kSplit) tma_load(sL + p * kQPanel, &tdo_lo, qo_full, 64 * p, hi, q0, bi);
       }
       for (int j = 0; j < n_kt; ++j) {
         const int st = j % kStages;
@@ -956,6 +1028,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row_lo = q0 + 64 * wg + (tid >> 5) * 16 + (lane >> 2);  // and + 8
     const unsigned char* q_rows = sQ + wg * 64 * kRowBytes;
     const unsigned char* o_rows = sO + wg * 64 * kRowBytes;
+    const unsigned char* l_rows = sL + wg * 64 * kRowBytes;
     const float c2 = a.scale * kLog2e;
 
     // this thread's two rows of -lse log2 e, delta and dlse; TMA zero-fills
@@ -1003,6 +1076,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     };
 
+    // dP = dO . V^T of one stage; split: hi . V^T + lo . V^T in one
+    // accumulator
+    auto issue_dp = [&](float (&acc)[BN / 2], const unsigned char* v_st) {
+      dq_issue_rows<DP, BN>(acc, o_rows, v_st);
+      if constexpr (kSplit) dq_issue_rows<DP, BN>(acc, l_rows, v_st, true);
+    };
+
     float dq[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
@@ -1017,7 +1097,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
       dq_issue_rows<DP, BN>(s, q_rows, sK);
       wgmma_commit();
-      dq_issue_rows<DP, BN>(dp, o_rows, sV);
+      issue_dp(dp, sV);
       wgmma_commit();
       wgmma_wait<1>();  // S; dP still runs
       fence_regs(s);
@@ -1039,7 +1119,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_commit();
       dq_issue_ds_k<DP, BN>(dq, ds, sK + prev * kStageBytes);
       wgmma_commit();
-      dq_issue_rows<DP, BN>(dp, o_rows, sV + st * kStageBytes);
+      issue_dp(dp, sV + st * kStageBytes);
       wgmma_commit();
       // P of tile j while dS.K of tile j - 1 and dP of tile j run; ds takes
       // dS of tile j once dS.K has completed
@@ -1071,6 +1151,58 @@ __global__ void __launch_bounds__(kThreads, 1)
     // this warpgroup's Q rows are free once its last S has completed
     store_tile<DP>(sQ + wg * 64 * kRowBytes, kQPanel, dq, one, dst, (long long)a.h * a.d,
                    q0 + 64 * wg, a.t, a.d, 1 + wg);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The f32 cotangent's two bf16 halves.
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitThreads = 256;
+
+__device__ __forceinline__ void split_bf16(float x, bf16& hi, bf16& lo) {
+  hi = __float2bfloat16_rn(x);
+  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
+}
+
+// hi = bf16(x), lo = bf16(x - hi) for x [b, t, h, d] f32 read through its
+// element strides s0, s1, s2 (batch, sequence, head; the last axis
+// contiguous), written to contiguous bf16 [b, t, h, d]: the plain
+// version's bits (ops/flash.py::split_cotangent_reference). Bound: bytes,
+// 4 read and 4 written an element (0.04 ms for the ring block's 64 MiB at
+// 3.35 TB/s). Each thread converts W neighbouring elements of one row: W
+// = 4 (a 16-byte load, two 8-byte stores) when every row starts on 16
+// bytes and d % 4 == 0, else 1; a grid-stride loop over n = b t h d / W.
+template <int W>
+__global__ void __launch_bounds__(kSplitThreads)
+    flash_split_cotangent(const float* __restrict__ x, bf16* __restrict__ hi,
+                          bf16* __restrict__ lo, long long s0, long long s1, long long s2,
+                          int t, int h, int d, long long n) {
+  const int per_row = d / W;
+  for (long long i = blockIdx.x * (long long)kSplitThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kSplitThreads) {
+    const long long row = i / per_row;  // (batch, sequence, head)
+    const int col = static_cast<int>(i - row * per_row) * W;
+    const long long bt = row / h;
+    const long long src = (bt / t) * s0 + (bt % t) * s1 + (row % h) * s2 + col;
+    const long long dst = row * d + col;
+    if constexpr (W == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(x + src);
+      const float e[4] = {v.x, v.y, v.z, v.w};
+      uint32_t hw[2], lw[2];  // element 2j in the low 16 bits of word j
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        bf16 h0, l0, h1, l1;
+        split_bf16(e[2 * j], h0, l0);
+        split_bf16(e[2 * j + 1], h1, l1);
+        hw[j] = __bfloat16_as_ushort(h0) | (static_cast<uint32_t>(__bfloat16_as_ushort(h1)) << 16);
+        lw[j] = __bfloat16_as_ushort(l0) | (static_cast<uint32_t>(__bfloat16_as_ushort(l1)) << 16);
+      }
+      *reinterpret_cast<uint2*>(hi + dst) = make_uint2(hw[0], hw[1]);
+      *reinterpret_cast<uint2*>(lo + dst) = make_uint2(lw[0], lw[1]);
+    } else {
+      split_bf16(x[src], hi[dst], lo[dst]);
+    }
   }
 }
 
@@ -1146,24 +1278,41 @@ int launch_fwd(const BfFlashArgs& a, const CUtensorMap* maps, cudaStream_t strea
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <int DP, bool kSplit>
 int launch_dkv(const BfFlashArgs& a, const CUtensorMap* maps, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_sm90<DP>;
-  const int smem = dkv_smem_bytes<DP>();
+  auto kernel = flash_bwd_dkv_sm90<DP, kSplit>;
+  const int smem = dkv_smem_bytes<DP, kSplit>();
   if (int err = prepare(kernel, smem)) return err;
   const dim3 grid(a.b * a.h_kv, (a.t + kDkvBN - 1) / kDkvBN);
-  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <int DP, bool kSplit>
 int launch_dq(const BfFlashArgs& a, const CUtensorMap* maps, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_sm90<DP>;
-  const int smem = dq_smem_bytes<DP>();
+  auto kernel = flash_bwd_dq_sm90<DP, kSplit>;
+  const int smem = dq_smem_bytes<DP, kSplit>();
   if (int err = prepare(kernel, smem)) return err;
   const dim3 grid(a.b * a.h, (a.t + kDqBM - 1) / kDqBM);
-  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The five maps of a backward launch: q, k, v, dO (its high half when
+// split) with `q_rows`-row boxes for q and dO and `kv_rows` for k and v;
+// the fifth is dO's low half (d_o_lo, with do_stride) or, without a
+// split, a copy of the fourth that the kernel does not read.
+int backward_maps(CUtensorMap* maps, const BfFlashArgs& a, int q_rows, int kv_rows) {
+  int err = make_map(&maps[0], a.q, a.q_stride, a.b, a.t, a.h, a.d, q_rows);
+  if (!err) err = make_map(&maps[1], a.k, a.k_stride, a.b, a.t, a.h_kv, a.d, kv_rows);
+  if (!err) err = make_map(&maps[2], a.v, a.v_stride, a.b, a.t, a.h_kv, a.d, kv_rows);
+  if (!err) err = make_map(&maps[3], a.d_o, a.do_stride, a.b, a.t, a.h, a.d, q_rows);
+  if (err) return err;
+  if (a.d_o_lo == nullptr) {
+    maps[4] = maps[3];
+    return 0;
+  }
+  return make_map(&maps[4], a.d_o_lo, a.do_stride, a.b, a.t, a.h, a.d, q_rows);
 }
 
 }  // namespace
@@ -1189,34 +1338,58 @@ int bf_flash_fwd_sm90(const BfFlashArgs* args, void* stream) {
 }
 
 // dk, dv <- the dK/dV half of the backward, with the conditions of
-// bf_flash_fwd_sm90 and a bf16 cotangent. Returns a cudaError_t.
+// bf_flash_fwd_sm90 and a bf16 cotangent in d_o, or an f32 cotangent as
+// its two bf16 halves (d_o, d_o_lo: bf_flash_split_cotangent). Returns a
+// cudaError_t, or kNoEncoder / kEncodeFailed.
 int bf_flash_bwd_dkv_sm90(const BfFlashArgs* args, void* stream) {
   const BfFlashArgs& a = *args;
   if (a.t <= 0 || a.b * a.h_kv <= 0) return 0;
-  CUtensorMap maps[4];
-  int err = make_map(&maps[0], a.q, a.q_stride, a.b, a.t, a.h, a.d, kDkvBM);
-  if (!err) err = make_map(&maps[1], a.k, a.k_stride, a.b, a.t, a.h_kv, a.d, kDkvBN);
-  if (!err) err = make_map(&maps[2], a.v, a.v_stride, a.b, a.t, a.h_kv, a.d, kDkvBN);
-  if (!err) err = make_map(&maps[3], a.d_o, a.do_stride, a.b, a.t, a.h, a.d, kDkvBM);
-  if (err) return err;
+  CUtensorMap maps[5];
+  if (int err = backward_maps(maps, a, kDkvBM, kDkvBN)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.d <= 64 ? launch_dkv<64>(a, maps, s) : launch_dkv<128>(a, maps, s);
+  if (a.d_o_lo != nullptr) {
+    return a.d <= 64 ? launch_dkv<64, true>(a, maps, s) : launch_dkv<128, true>(a, maps, s);
+  }
+  return a.d <= 64 ? launch_dkv<64, false>(a, maps, s) : launch_dkv<128, false>(a, maps, s);
 }
 
-// dq <- the dQ half of the backward, with the conditions of
+// dq <- the dQ half of the backward, with the operands of
 // bf_flash_bwd_dkv_sm90. Returns a cudaError_t, or kNoEncoder /
 // kEncodeFailed.
 int bf_flash_bwd_dq_sm90(const BfFlashArgs* args, void* stream) {
   const BfFlashArgs& a = *args;
   if (a.t <= 0 || a.b * a.h <= 0) return 0;
-  CUtensorMap maps[4];
-  int err = make_map(&maps[0], a.q, a.q_stride, a.b, a.t, a.h, a.d, kDqBM);
-  if (!err) err = make_map(&maps[1], a.k, a.k_stride, a.b, a.t, a.h_kv, a.d, kDqBN);
-  if (!err) err = make_map(&maps[2], a.v, a.v_stride, a.b, a.t, a.h_kv, a.d, kDqBN);
-  if (!err) err = make_map(&maps[3], a.d_o, a.do_stride, a.b, a.t, a.h, a.d, kDqBM);
-  if (err) return err;
+  CUtensorMap maps[5];
+  if (int err = backward_maps(maps, a, kDqBM, kDqBN)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a.d <= 64 ? launch_dq<64>(a, maps, s) : launch_dq<128>(a, maps, s);
+  if (a.d_o_lo != nullptr) {
+    return a.d <= 64 ? launch_dq<64, true>(a, maps, s) : launch_dq<128, true>(a, maps, s);
+  }
+  return a.d <= 64 ? launch_dq<64, false>(a, maps, s) : launch_dq<128, false>(a, maps, s);
+}
+
+// hi, lo <- the two bf16 halves of the f32 cotangent x [b, t, h, d] (element
+// strides s0, s1, s2; the last axis contiguous), both contiguous. Returns a
+// cudaError_t.
+int bf_flash_split_cotangent(const void* x, void* hi, void* lo, long long s0, long long s1,
+                             long long s2, int b, int t, int h, int d, void* stream) {
+  const long long elems = (long long)b * t * h * d;
+  if (elems <= 0) return 0;
+  const bool vec = d % 4 == 0 && s0 % 4 == 0 && s1 % 4 == 0 && s2 % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long long n = vec ? elems / 4 : elems;
+  const long long blocks = (n + kSplitThreads - 1) / kSplitThreads;
+  const dim3 grid(static_cast<unsigned>(blocks < 132 * 64 ? blocks : 132 * 64));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* src = static_cast<const float*>(x);
+  if (vec) {
+    flash_split_cotangent<4><<<grid, kSplitThreads, 0, s>>>(
+        src, static_cast<bf16*>(hi), static_cast<bf16*>(lo), s0, s1, s2, t, h, d, n);
+  } else {
+    flash_split_cotangent<1><<<grid, kSplitThreads, 0, s>>>(
+        src, static_cast<bf16*>(hi), static_cast<bf16*>(lo), s0, s1, s2, t, h, d, n);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

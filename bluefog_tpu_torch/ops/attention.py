@@ -105,8 +105,9 @@ def ring_attention(q, k, v, causal: bool = False, scale: Optional[float] = None)
     which is wholly past or wholly future of its queries: a future block
     (``causal``) enters the merge with its logsumexp gated to -inf. Each
     round is one differentiable ``flash_attention_with_lse`` call on the
-    workers folded into the batch (the flash kernels on the card; their lse
-    form's backward takes the ``simt`` route, its cotangent being f32)."""
+    workers folded into the batch (the flash kernels on the card: for bf16
+    q/k/v all three on the ``sm90`` route, the backward taking the round's
+    f32 cotangent as two bf16 halves; f32 q/k/v on ``simt``)."""
     from bluefog_tpu_torch.ops.flash import flash_attention_with_lse
 
     _check_stacked(q, k, v)

@@ -10,24 +10,34 @@ PyTorch version beside them:
   logsumexp ``lse [b, h, t]`` f32;
 - :func:`flash_bwd_dkv` (replaces the dK/dV ``pallas_call`` of
   ``_bwd_call``): dK and dV, summed over each KV head's query group;
-- :func:`flash_bwd_dq` (replaces the dQ ``pallas_call`` of ``_bwd_call``).
+- :func:`flash_bwd_dq` (replaces the dQ ``pallas_call`` of ``_bwd_call``);
+
+and one of its own, :func:`split_cotangent`: an f32 cotangent (the lse
+form's) as two bf16 halves ``hi = bf16(dO)``, ``lo = bf16(dO - hi)``, which
+carry 16 of its 24 mantissa bits into the tensor cores of the ``sm90``
+backward.
 
 A CUDA tensor always takes a kernel; a CPU tensor takes the plain version;
 anything else raises. :func:`_route` chooses the kernel before the launch,
 from dtypes, head_dim, pointers, strides and the scale, never after a
 failure:
 
-- ``sm90`` (``csrc/flash_sm90.cu``, all three kernels): bf16 q/k/v (and
-  a bf16 cotangent), head_dim a multiple of 8 up to 128
-  (:data:`SM90_MAX_HEAD_DIM`), every operand's
-  base and batch, sequence and head strides on 16 bytes (the Tensor Memory
-  Accelerator's condition), scale > 0: wgmma fed by TMA, a producer and
-  two consumer warpgroups;
-- ``mma`` (``csrc/flash_kernels.cu``): the other bf16 calls (rows off 16
-  bytes, head_dim 36 or above 128, a scale that is not positive, ...),
-  ``mma.sync`` with ``cp.async`` or scalar loads;
-- ``simt`` (``csrc/flash_kernels.cu``): f32 q/k/v, or an f32 cotangent
-  (the lse form), on the CUDA cores.
+- ``sm90`` (``csrc/flash_sm90.cu``, all three kernels): bf16 q/k/v,
+  head_dim a multiple of 8 up to 128 (:data:`SM90_MAX_HEAD_DIM`), every
+  operand's base and batch, sequence and head strides on 16 bytes (the
+  Tensor Memory Accelerator's condition), scale > 0: wgmma fed by TMA, a
+  producer and two consumer warpgroups. A bf16 cotangent is an operand
+  like the others; an f32 cotangent (the lse form) is split once into its
+  fresh, contiguous halves, so its own layout does not matter, and every
+  product with it is a sum of bf16 products (``dP = hi V^T + lo V^T``,
+  ``dV += P_hi^T hi + P_hi^T lo + P_lo^T hi``; P stays f32 to about
+  2^-16);
+- ``mma`` (``csrc/flash_kernels.cu``): the other bf16 calls with a bf16
+  cotangent (rows off 16 bytes, head_dim 36 or above 128, a scale that is
+  not positive, ...), ``mma.sync`` with ``cp.async`` or scalar loads;
+- ``simt`` (``csrc/flash_kernels.cu``): f32 q/k/v, and the bf16 backward
+  with an f32 cotangent that ``sm90`` does not take (head_dim above 128,
+  rows off 16 bytes, scale <= 0), on the CUDA cores.
 
 The kernels take head_dim up to :data:`MAX_HEAD_DIM` (256); a CUDA call
 above it raises. The plain versions take any head_dim.
@@ -68,7 +78,10 @@ __all__ = [
     "flash_bwd_dq",
     "flash_bwd_dq_reference",
     "attention_delta",
+    "split_cotangent",
+    "split_cotangent_reference",
     "launch_counts",
+    "split_launch_count",
     "route_counts",
     "reset_launch_counts",
     "ROUTES",
@@ -153,10 +166,19 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, dlse, causal: bool,
     return dq.to(q.dtype)
 
 
+def split_cotangent_reference(do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`split_cotangent`: ``hi = bf16(dO)``, ``lo =
+    bf16(dO - hi)``, contiguous."""
+    hi = do.to(torch.bfloat16).contiguous()
+    lo = (do - hi.float()).to(torch.bfloat16).contiguous()
+    return hi, lo
+
+
 # -- kernels -------------------------------------------------------------------
 
 ROUTES = ("sm90", "mma", "simt")
 _LAUNCHES = {k: dict.fromkeys(ROUTES, 0) for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+_SPLIT_LAUNCHES = {"flash_split_cotangent": 0}
 
 
 def launch_counts() -> dict:
@@ -171,10 +193,17 @@ def route_counts() -> dict:
     return {k: dict(by_route) for k, by_route in _LAUNCHES.items()}
 
 
+def split_launch_count() -> int:
+    """Launches of :func:`split_cotangent`'s kernel since the last
+    :func:`reset_launch_counts`."""
+    return _SPLIT_LAUNCHES["flash_split_cotangent"]
+
+
 def reset_launch_counts() -> None:
     for by_route in _LAUNCHES.values():
         for r in by_route:
             by_route[r] = 0
+    _SPLIT_LAUNCHES["flash_split_cotangent"] = 0
 
 
 class _Args(ctypes.Structure):
@@ -182,7 +211,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = (
         [(n, ctypes.c_void_p) for n in
-         ("q", "k", "v", "d_o", "out", "dq", "dk", "dv", "lse", "delta", "dlse")]
+         ("q", "k", "v", "d_o", "d_o_lo", "out", "dq", "dk", "dv", "lse", "delta", "dlse")]
         + [(n, ctypes.c_longlong * 3) for n in
            ("q_stride", "k_stride", "v_stride", "do_stride")]
         + [(n, ctypes.c_int) for n in ("b", "t", "h", "h_kv", "d")]
@@ -259,15 +288,18 @@ def _route(q, k, v, do=None, scale: float = 1.0) -> str:
     ``"mma"`` or ``"simt"`` (the module docstring states the rule; dK/dV
     and dQ take the same route). The tensor maps of ``sm90`` need
     16-byte aligned, positive strides; its softmax takes the row maximum
-    before the scale, which needs ``scale > 0``."""
-    if q.dtype == torch.float32 or (do is not None and do.dtype == torch.float32):
+    before the scale, which needs ``scale > 0``. An f32 cotangent reaches
+    ``sm90`` as fresh contiguous halves, so only a bf16 one must meet the
+    layout conditions itself; ``mma`` takes no f32 cotangent."""
+    if q.dtype == torch.float32:
         return "simt"
-    operands = [q, k, v] + ([do] if do is not None else [])
+    split = do is not None and do.dtype == torch.float32
+    operands = [q, k, v] + ([do] if do is not None and not split else [])
     if (q.dtype == torch.bfloat16 and q.shape[-1] <= SM90_MAX_HEAD_DIM and scale > 0
             and _rows_aligned(operands, q.shape[-1])
             and all(s > 0 for t in operands for s in t.stride()[:3])):
         return "sm90"
-    return "mma"
+    return "simt" if split else "mma"
 
 
 def _args(q, k, v, causal: bool, scale: float, **ptrs) -> _Args:
@@ -353,10 +385,24 @@ def _check_backward_cuda(q, k, v, do, lse, delta, dlse) -> None:
             _check_vector(x, name, (b, h, t))
 
 
-def _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, **outs) -> _Args:
-    a = _args(q, k, v, causal, scale, d_o=do, lse=lse, delta=delta, dlse=dlse, **outs)
-    a.do_f32 = int(do.dtype == torch.float32)
+def _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, halves, **outs) -> _Args:
+    """The argument block of a backward launch; ``halves`` is ``(hi,
+    lo)`` of an f32 ``do`` on ``sm90`` (``d_o`` then points at ``hi``),
+    else None."""
+    if halves is not None:
+        hi, lo = halves
+        a = _args(q, k, v, causal, scale, d_o=hi, d_o_lo=lo, lse=lse, delta=delta, dlse=dlse,
+                  **outs)
+    else:
+        a = _args(q, k, v, causal, scale, d_o=do, lse=lse, delta=delta, dlse=dlse, **outs)
+        a.do_f32 = int(do.dtype == torch.float32)
     return a
+
+
+def _halves(do, route: str):
+    """``split_cotangent(do)`` where ``route`` takes an f32 cotangent as
+    two bf16 halves (``sm90``), else None."""
+    return split_cotangent(do) if route == "sm90" and do.dtype == torch.float32 else None
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, dlse, causal: bool,
@@ -365,18 +411,25 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dlse, causal: bool,
     with cotangent ``do`` (q's dtype or float32), saved ``lse``, ``delta
     = rowsum(dO * O)`` and the lse cotangent ``dlse`` (``[b, h, t]`` f32;
     ``dlse`` may be None: zero). A KV head's gradient sums its query
-    group's (replaces the dK/dV kernel of ``_bwd_call``)."""
+    group's (replaces the dK/dV kernel of ``_bwd_call``). On ``sm90`` an
+    f32 ``do`` enters as its two bf16 halves (:func:`split_cotangent`);
+    a ``delta`` from ``hi + lo`` then matches the dP the kernel forms, as
+    the autograd backward's does."""
     if _check_backward(q, k, v, do, lse, delta, dlse) == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, dlse, causal, scale)
     return _dkv_kernel(q, k, v, do, lse, delta, dlse, causal, scale,
                        _route(q, k, v, do, scale))
 
 
-def _dkv_kernel(q, k, v, do, lse, delta, dlse, causal, scale, route):
+def _dkv_kernel(q, k, v, do, lse, delta, dlse, causal, scale, route, halves=None):
+    """dK/dV by ``route``; ``halves``: ``do``'s split when the caller made
+    it already (else made here where the route needs it)."""
     _check_backward_cuda(q, k, v, do, lse, delta, dlse)
+    if halves is None:
+        halves = _halves(do, route)
     dk, dv = torch.empty(k.shape, dtype=k.dtype, device=k.device), \
         torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    a = _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, dk=dk, dv=dv)
+    a = _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, halves, dk=dk, dv=dv)
     _launch("flash_bwd_dkv", route, a, q)
     return dk, dv
 
@@ -391,10 +444,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dlse, causal: bool,
                       _route(q, k, v, do, scale))
 
 
-def _dq_kernel(q, k, v, do, lse, delta, dlse, causal, scale, route):
+def _dq_kernel(q, k, v, do, lse, delta, dlse, causal, scale, route, halves=None):
+    """dQ by ``route``, ``halves`` as in :func:`_dkv_kernel`."""
     _check_backward_cuda(q, k, v, do, lse, delta, dlse)
+    if halves is None:
+        halves = _halves(do, route)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    a = _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, dq=dq)
+    a = _bwd_args(q, k, v, do, lse, delta, dlse, causal, scale, halves, dq=dq)
     _launch("flash_bwd_dq", route, a, q)
     return dq
 
@@ -405,15 +461,46 @@ def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def split_cotangent(do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An f32 cotangent ``[b, t, h, d]`` (any strides, last axis
+    contiguous) as two contiguous bf16 tensors ``hi = bf16(dO)``, ``lo =
+    bf16(dO - hi)``: ``dO - hi`` is exact in f32, so ``hi + lo`` is dO to a
+    relative 2^-17. The kernel's bits are the plain version's."""
+    _require(do.dim() == 4, "dO must be [batch, seq, heads, head_dim]")
+    _check_rows(do, "dO", (torch.float32,))
+    if _dispatch_device(do) == "cpu":
+        return split_cotangent_reference(do)
+    from bluefog_tpu_torch import _build
+
+    b, t, h, d = do.shape
+    hi = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=do.device)
+    lo = torch.empty_like(hi)
+    fn = _build.flash_sm90_library().bf_flash_split_cotangent
+    _raise_on_status(fn(do.data_ptr(), hi.data_ptr(), lo.data_ptr(), *do.stride()[:3],
+                        b, t, h, d, _stream(do)), "flash_split_cotangent")
+    _SPLIT_LAUNCHES["flash_split_cotangent"] += 1
+    return hi, lo
+
+
 def _backward(ctx, do, dlse):
     q, k, v, out, lse = ctx.saved_tensors
     if do.stride(-1) != 1:
         do = do.contiguous()  # e.g. the expanded gradient of a sum
-    delta = attention_delta(out, do)
     if dlse is not None:
         dlse = dlse.float().contiguous()
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, dlse, ctx.causal, ctx.scale)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, dlse, ctx.causal, ctx.scale)
+    if _check_backward(q, k, v, do, lse, None, dlse) == "cpu":
+        args = (q, k, v, do, lse, attention_delta(out, do), dlse, ctx.causal, ctx.scale)
+        dk, dv = flash_bwd_dkv_reference(*args)
+        return flash_bwd_dq_reference(*args), dk, dv, None, None
+    route = _route(q, k, v, do, ctx.scale)
+    halves = _halves(do, route)  # one split for both kernels
+    # delta of the cotangent the kernels see (hi + lo where split), so that
+    # dP - delta, which cancels in rows with few keys, is one cotangent's:
+    # the gradient is then the f32 contract's for dO to 2^-17
+    seen = do if halves is None else halves[0].float() + halves[1].float()
+    args = (q, k, v, do, lse, attention_delta(out, seen), dlse, ctx.causal, ctx.scale)
+    dk, dv = _dkv_kernel(*args, route, halves)
+    dq = _dq_kernel(*args, route, halves)
     return dq, dk, dv, None, None
 
 

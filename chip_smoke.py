@@ -15,7 +15,11 @@ Phases, one line each; any failure exits non-zero:
                ``encode_diff``, ``decode_add``, ``decode``) against its plain
                PyTorch version on the card, int8 and int4, on a ragged input
                with an all-zero and a +-tiny block, over the Exp2(8) plan and
-               the StarGraph(8) plan (partial permutations): bitwise;
+               the StarGraph(8) plan (partial permutations): bitwise; and
+               the f32 cotangent's split into two bf16 halves
+               (``flash_split_cotangent``) at the ring block's shape with
+               edge values, on a wide view, a view off 16 bytes and an
+               expanded view: bitwise;
 4. consensus-- 40 rounds of ``neighbor_allreduce(x, compression="int8")`` on
                ``[8, 2**20]``: the spread shrinks 100x, the worker mean stays;
 5. ef       -- 60 rounds of the int4_ef and int8_ef combines (the CTA
@@ -47,10 +51,13 @@ Phases, one line each; any failure exits non-zero:
                them: bf16 at the transformer's shape (b 2, T 4096, 16
                heads of 64) causal and not, a ragged T, head_dim 96 and
                128, grouped-query K/V, rows off 16 bytes (head_dim 36, a
-               buffer shifted by one element), f32 inputs, and the lse form
-               (f32 out and cotangent, a nonzero lse cotangent), head_dim
-               256 in bf16 (the ``mma`` route) and head_dim 160 in f32 in
-               the lse form (``simt``); every output row within
+               buffer shifted by one element), f32 inputs, the lse form
+               (f32 out and cotangent, a nonzero lse cotangent) at head_dim
+               64 and 128 (``sm90``, the cotangent as two bf16 halves),
+               two ``split`` cases whose cotangents' high halves cancel
+               (``split_operands``: dV, and dP with dK and dQ, all low
+               halves), head_dim 256 in bf16 (the ``mma`` route) and head_dim
+               160 in f32 in the lse form (``simt``); every output row within
                ``FLASH_ROW_TOL`` of its own norm (f32 above head_dim 128:
                ``FLASH_ROW_TOL_F32_WIDE``), and each case's three
                kernels on the routes ``FLASH_ROUTES`` names (``sm90``:
@@ -84,10 +91,11 @@ Phases, one line each; any failure exits non-zero:
                sharded into 8 blocks of 1024 on the ring, every block's
                attention ring attention over the 8 workers, the whole
                sequence's mean next-token loss, ``sgd(0.01, 0.9)``: 1
-               warm-up and 2 timed steps, each launching ``flash_fwd`` on
-               ``sm90`` and both backward kernels on ``simt`` at least 96
-               times (8 rounds x 12 layers); one profiled step (the
-               ``simt`` kernels' share of device time); then block 0's
+               warm-up and 2 timed steps, each launching all three flash
+               kernels on ``sm90`` (none on another route) and the
+               cotangent's split at least 96 times (8 rounds x 12 layers);
+               one profiled step (the flash backward kernels' share of
+               device time); then block 0's
                ring attention at full size against the plain versions on
                the whole 8192-token sequence;
 13. kernels  -- the flash kernels at the transformer's shape, timed beside
@@ -95,11 +103,12 @@ Phases, one line each; any failure exits non-zero:
                ``F.scaled_dot_product_attention`` (the yardstick only:
                the port never calls it) and the ``mma`` route's kernel on
                the same inputs (``earlier_ms``); the lse form at the ring
-               block's shape (b 16, T 1024: ``sm90`` forward, ``simt``
-               backward) beside its bound, its share of the f32 CUDA-core
-               rate and SDPA (``lse_route`` on the flash rows, with the
-               long-context path's measured launches per step); then the
-               eight-row JSON line.
+               block's shape (b 16, T 1024, all on ``sm90``) held against
+               its plain versions, beside its bound, SDPA and the ``simt``
+               kernels on the same
+               inputs (``lse_route`` on the flash rows, with the
+               long-context path's measured launches per step); the split
+               beside its byte bound; then the nine-row JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -176,6 +185,9 @@ KERNEL_ROWS = {
     "flash_fwd": "bluefog_tpu/ops/flash.py:156",
     "flash_bwd_dkv": "bluefog_tpu/ops/flash.py:343",
     "flash_bwd_dq": "bluefog_tpu/ops/flash.py:369",
+    # the lse form's f32 dO, which _bwd_call hands both backward kernels, as
+    # two bf16 halves for the sm90 backward
+    "flash_split_cotangent": "bluefog_tpu/ops/flash.py:313",
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # the lane mapping of csrc/wire_kernels.cu::decode_kernel that the kernels
@@ -192,7 +204,8 @@ PATH_KERNELS = {
     # the dry run's ring attention is outside the differentiated loss (as
     # in __graft_entry__._dryrun_body): its forward runs, no backward
     "dryrun": ("flash_fwd",),
-    "long-context": FLASH_KERNELS,
+    # each round's f32 cotangent is split once for both backward kernels
+    "long-context": FLASH_KERNELS + ("flash_split_cotangent",),
 }
 
 
@@ -206,7 +219,8 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    return {**kernels.launch_counts(), **flash.launch_counts()}
+    return {**kernels.launch_counts(), **flash.launch_counts(),
+            "flash_split_cotangent": flash.split_launch_count()}
 
 
 def nvidia_smi_line():
@@ -331,6 +345,41 @@ def check_decode_rows(p, s, src_r, wire):
                       kernels.decode_reference(p, s, src_r, wire))
 
 
+def check_split(do):
+    """``flash.split_cotangent``'s kernel against its plain version on
+    ``do``: both halves bitwise, contiguous; returns the max abs difference
+    (0)."""
+    hi, lo = flash.split_cotangent(do)
+    rhi, rlo = flash.split_cotangent_reference(do)
+    sync(do.device)
+    for half, got, want in (("hi", hi, rhi), ("lo", lo, rlo)):
+        if not (got.is_contiguous() and torch.equal(bits(got), bits(want))):
+            raise AssertionError(f"split_cotangent's {half} differs from its plain version on "
+                                 f"{tuple(do.shape)} (strides {do.stride()}): max ulp "
+                                 f"{max_ulp(got, want)}")
+    return 0.0
+
+
+def split_inputs(device, b=SIZE * LC_BATCH, t=LC_BLOCK, h=LC_CONFIG["heads"],
+                 d=LC_CONFIG["dim"] // LC_CONFIG["heads"], seed=3):
+    """f32 cotangents for ``check_split``: the ring block's ``[b, t, h, d]``
+    (the long-context path's shape) with zeros of both signs, f32
+    subnormals, bf16 ties, values that round to bf16's largest and past it
+    to inf; a view of a wider buffer (16-byte rows, the vector path); a view
+    one element off 16 bytes at head_dim 36 and an expanded view (the
+    scalar path)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, t, h, d, generator=gen, device=device) * 3.0
+    edge = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8,
+                         3.389e38, -3.4e38], device=device)
+    x.view(-1)[:edge.numel()] = edge
+    wide = torch.randn(2, 300, 8, 2 * d, generator=gen, device=device)[..., :d]
+    off = torch.randn(1 + 2 * 300 * 8 * 37, generator=gen, device=device)[1:].view(
+        2, 300, 8, 37)[..., :36]
+    expanded = torch.randn(300, 8, d, generator=gen, device=device).expand(2, 300, 8, d)
+    return [x, wide, off, expanded]
+
+
 def phase_parity(device):
     x = kernels.pad_blocks(ragged_input(device)).contiguous()
     h = kernels.pad_blocks(ragged_input(device, seed=1) * 0.5).contiguous()
@@ -352,6 +401,11 @@ def phase_parity(device):
         log("parity", f"{wire}: encode, decode_accumulate, encode_diff, decode_add and "
                       f"decode (exp2, star) bitwise equal to the plain versions on "
                       f"[{SIZE}, {x.shape[1]}]")
+    inputs = split_inputs(device)
+    for do in inputs:
+        check_split(do)
+    log("parity", "flash_split_cotangent: hi and lo bitwise equal to the plain version on "
+                  + ", ".join(f"{tuple(do.shape)} strides {do.stride()}" for do in inputs))
 
 
 def phase_consensus(device, n=1 << 20, rounds=40):
@@ -885,11 +939,12 @@ def phase_long_context(device, model, tokens, targets, warmup=1, timed=2):
                  f"{ {k: {r: n for r, n in v.items() if n} for k, v in routes.items()} }")
     kernel_us = profile_once(device, "long-context", step)
     if kernel_us:
-        simt = {k: us for k, us in kernel_us.items() if "simt" in k}
-        numbers["simt_share"] = sum(simt.values()) / sum(kernel_us.values())
-        log("profile", f"long-context: the simt kernels (the lse form's backward) take "
-                       f"{sum(simt.values()) / 1e3:.1f} ms, {100 * numbers['simt_share']:.1f}% of "
-                       "the profiled step's device time")
+        bwd = {k: us for k, us in kernel_us.items() if "flash_bwd" in k or "flash_split" in k}
+        numbers["flash_bwd_share"] = sum(bwd.values()) / sum(kernel_us.values())
+        log("profile", f"long-context: the flash backward kernels (dK/dV, dQ and the "
+                       f"cotangent's split) take {sum(bwd.values()) / 1e3:.1f} ms, "
+                       f"{100 * numbers['flash_bwd_share']:.1f}% of the profiled step's device "
+                       "time")
     return counts, routes, warmup + timed, numbers
 
 
@@ -946,18 +1001,23 @@ def lc_ring_check(device, model, tokens, seed=4):
     return errs
 
 
-def phase_lse_kernels(device, lc_routes, lc_steps, b=SIZE * LC_BATCH, t=LC_BLOCK,
-                      h=LC_CONFIG["heads"], d=LC_CONFIG["dim"] // LC_CONFIG["heads"]):
+def phase_lse_kernels(device, lc_routes, lc_steps, lc_splits, rate, b=SIZE * LC_BATCH,
+                      t=LC_BLOCK, h=LC_CONFIG["heads"], d=LC_CONFIG["dim"] // LC_CONFIG["heads"]):
     """The flash kernels' lse form at the ring block's shape (b 16, T 1024,
-    16 heads of 64, bf16 q/k/v, not causal): the forward with f32 out on
-    ``sm90``, dK/dV and dQ with an f32 cotangent and a nonzero lse
-    cotangent on ``simt``; each timed (CUDA events, mean of 10 after 2
-    warm-ups) beside its operation bound at the bf16 tensor-core rate, its
-    share of the f32 CUDA-core rate and ``F.scaled_dot_product_attention``
-    on the same shape (the yardstick only). Each entry's launches per
-    long-context step are that path's measured launches on the kernel's
-    route (``lc_routes``, from ``phase_long_context``) over its
-    ``lc_steps`` steps. Returns ``({kernel: lse_route entry}, lines)``."""
+    16 heads of 64, bf16 q/k/v, not causal): the forward with f32 out,
+    dK/dV and dQ with an f32 cotangent (split into two bf16 halves) and a
+    nonzero lse cotangent, all three on ``sm90``; each held against its
+    plain version (every row within the bf16 ``FLASH_ROW_TOL``), timed
+    (CUDA events, mean of 10 after 2 warm-ups) beside its operation bound
+    at the bf16 tensor-core rate (the reference's products: 2, 4 and 3,
+    whatever the split adds), ``F.scaled_dot_product_attention`` on the
+    same shape (the yardstick only) and, for the backward, the ``simt``
+    kernel on the same inputs (``earlier_ms``). The split kernel is timed beside its byte bound and
+    its plain version. Each entry's launches per long-context step are
+    that path's measured launches on the kernel's route (``lc_routes``,
+    ``lc_splits``, from ``phase_long_context``) over its ``lc_steps``
+    steps. Returns ``({kernel: lse_route entry}, the split kernel's JSON
+    row, lines)``."""
     q, k, v, do, dlse = flash_operands(device, b, t, h, h, d, torch.bfloat16, True, seed=2)
     scale = 1.0 / math.sqrt(d)
     out, lse = flash.flash_fwd(q, k, v, False, scale, torch.float32)
@@ -966,12 +1026,32 @@ def phase_lse_kernels(device, lc_routes, lc_steps, b=SIZE * LC_BATCH, t=LC_BLOCK
     route = {"flash_fwd": flash._route(q, k, v, scale=scale),
              "flash_bwd_dkv": flash._route(q, k, v, do, scale),
              "flash_bwd_dq": flash._route(q, k, v, do, scale)}
-    if device.type == "cuda" and route != {"flash_fwd": "sm90", "flash_bwd_dkv": "simt",
-                                           "flash_bwd_dq": "simt"}:
+    if device.type == "cuda" and any(r != "sm90" for r in route.values()):
         raise AssertionError(f"the ring block's lse form took the routes {route}")
+    # the kernels against their plain versions on these inputs
+    rout, rlse = flash.flash_fwd_reference(q, k, v, False, scale, torch.float32)
+    dk, dv = flash.flash_bwd_dkv(*args)
+    dq = flash.flash_bwd_dq(*args)
+    rdk, rdv = flash.flash_bwd_dkv_reference(*args)
+    rdq = flash.flash_bwd_dq_reference(*args)
+    tol = FLASH_ROW_TOL[torch.bfloat16]
+    errs = {"out": row_err(out, rout), "dq": row_err(dq, rdq), "dk": row_err(dk, rdk),
+            "dv": row_err(dv, rdv)}
+    lse_err = float((lse - rlse).abs().max())
+    bad = [n for n, e in errs.items() if not e <= tol[n]]
+    if bad or not lse_err <= FLASH_LSE_TOL:
+        raise AssertionError(f"the ring block's lse form differs from the plain versions: "
+                             f"{errs}, lse {lse_err}")
+    absdiff = lambda a, b: float((a.float() - b.float()).abs().max())
+    max_abs = {"flash_fwd": max(absdiff(out, rout), lse_err),
+               "flash_bwd_dkv": max(absdiff(dk, rdk), absdiff(dv, rdv)),
+               "flash_bwd_dq": absdiff(dq, rdq)}
+    del rout, rlse, dk, dv, dq, rdk, rdv, rdq
     calls = {"flash_fwd": lambda: flash.flash_fwd(q, k, v, False, scale, torch.float32),
              "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(*args),
              "flash_bwd_dq": lambda: flash.flash_bwd_dq(*args)}
+    earlier = {"flash_bwd_dkv": lambda: flash._dkv_kernel(*args, "simt"),
+               "flash_bwd_dq": lambda: flash._dq_kernel(*args, "simt")}
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous().to(torch.bfloat16)
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
@@ -984,22 +1064,47 @@ def phase_lse_kernels(device, lc_routes, lc_steps, b=SIZE * LC_BATCH, t=LC_BLOCK
     entries, lines = {}, []
     for name, call in calls.items():
         ms = time_ms(call, device)
+        earlier_ms = (time_ms(earlier[name], device)
+                      if name in earlier and device.type == "cuda" else None)
         per_step = lc_routes[name][route[name]] // lc_steps
         ops = products[name] * 2 * d * b * h * t * t
         bound = ops / BF16_RATE * 1e3
         entries[name] = {"route": route[name], "shape": shape, "ms": ms, "bound_ms": bound,
                          "bound_by": "operations", "tflops": ops / ms / 1e9,
-                         "f32_peak_share": ops / ms / 1e-3 / F32_RATE,
-                         "library_ms": library[name], "launches_per_step": per_step}
+                         "library_ms": library[name], "launches_per_step": per_step,
+                         "max_abs_err": max_abs[name], "earlier_ms": earlier_ms,
+                         "earlier_route": "simt" if name in earlier else None}
+        was = (f", {earlier_ms:.4f} ms on simt (the earlier route; {earlier_ms / ms:.1f}x)"
+               if earlier_ms is not None else "")
         lines.append(f"{name} lse form ({shape}): {ms:.4f} ms, route {route[name]}, "
-                     f"{ops / ms / 1e9:.1f} TFLOP/s ({100 * ops / ms / 1e-3 / F32_RATE:.1f}% of "
-                     f"the f32 CUDA-core rate {F32_RATE / 1e12:.0f} TFLOP/s), bound {bound:.4f} ms "
+                     f"{ops / ms / 1e9:.1f} TFLOP/s, bound {bound:.4f} ms "
                      f"({ops / 1e9:.1f} GFLOP at {BF16_RATE / 1e12:.0f} TFLOP/s; "
-                     f"{100 * bound / ms:.2f}% of it), {library[name]:.4f} ms "
+                     f"{100 * bound / ms:.2f}% of it){was}, {library[name]:.4f} ms "
                      f"scaled_dot_product_attention "
                      f"{'forward' if name == 'flash_fwd' else 'backward (dQ, dK, dV together)'}; "
                      f"{per_step} launches per long-context step on {route[name]}")
-    return entries, lines
+    lines.append("lse form row errors against the plain versions at the ring block: "
+                 + ", ".join(f"{n} {e:.3g} (limit {tol[n]:g})" for n, e in errs.items())
+                 + f"; lse abs {lse_err:.3g}")
+    # the split: 4 bytes read and 4 written an element
+    split_ms = time_ms(lambda: flash.split_cotangent(do), device)
+    split_plain_ms = time_ms(lambda: flash.split_cotangent_reference(do), device)
+    nbytes = do.numel() * 8
+    split_bound = nbytes / rate * 1e3
+    split_row = {
+        "name": "flash_split_cotangent", "route": "cuda",
+        "source": "bluefog_tpu_torch/csrc/flash_sm90.cu",
+        "replaces": KERNEL_ROWS["flash_split_cotangent"], "launches": None,
+        "max_abs_err": check_split(do), "ms": split_ms, "plain_ms": split_plain_ms,
+        "bound_ms": split_bound, "bound_by": "bytes", "library_ms": None,
+        "launches_per_step": lc_splits // lc_steps,
+    }
+    lines.append(f"flash_split_cotangent [{b}, {t}, {h}, {d}] f32 -> two bf16: {split_ms:.4f} ms "
+                 f"kernel, {split_plain_ms:.4f} ms plain, bound {split_bound:.4f} ms "
+                 f"({nbytes / 1e6:.1f} MB), {nbytes / split_ms / 1e6:.1f} GB/s, "
+                 f"{100 * split_bound / split_ms:.1f}% of the bound; "
+                 f"{lc_splits // lc_steps} launches per long-context step")
+    return entries, split_row, lines
 
 
 # (name, b, t, h, h_kv, d, causal, dtype, with_lse, offset); "main" is the
@@ -1017,9 +1122,17 @@ FLASH_CASES = [
     ("unaligned", 1, 300, 4, 2, 64, True, torch.bfloat16, False, 1),
     ("f32", 1, 257, 4, 2, 64, True, torch.float32, False, 0),
     ("lse", 1, 1000, 16, 4, 64, True, torch.bfloat16, True, 0),
+    ("lse128", 1, 1000, 16, 16, 128, False, torch.bfloat16, True, 0),
+    ("split-dv", 1, 1000, 16, 4, 64, False, torch.bfloat16, True, 0),
+    ("split-dp", 1, 1000, 16, 4, 128, False, torch.bfloat16, True, 0),
     ("d256", 1, 1024, 16, 16, 256, True, torch.bfloat16, False, 0),
     ("d160f32", 1, 1000, 16, 4, 160, True, torch.float32, True, 0),
 ]
+# The split cases (``split_operands``): an f32 cotangent whose high bf16
+# halves cancel in one product, so that product is all low halves and a
+# kernel without that low-half chain is off by O(1). Each holds the
+# outputs named here (the lse always); the others are cancellation noise.
+SPLIT_HELD = {"split-dv": ("out", "dq", "dv"), "split-dp": ("out", "dq", "dk", "dv")}
 
 # Limits of the flash kernels against their plain versions on the same
 # inputs. Each row of an output (a query's out or dQ, a key's dK or dV,
@@ -1053,13 +1166,15 @@ FLASH_LSE_TOL = 6e-6
 ROW_FLOOR = 1e-3
 # The routes each case's flash_fwd, flash_bwd_dkv and flash_bwd_dq must take
 # on the card (``ops/flash.py::_route``): sm90 where TMA can address every
-# row; mma for rows off 16 bytes; simt for f32 operands or the lse form's
-# f32 cotangent (dK/dV and dQ always take the same route).
+# row of bf16 q/k/v up to head_dim 128 (the lse form's f32 cotangent as two
+# bf16 halves); mma for bf16 rows off 16 bytes or above head_dim 128; simt
+# for f32 operands (dK/dV and dQ always take the same route).
 FLASH_ROUTES = {
     "main": ("sm90",) * 3, "full": ("sm90",) * 3, "ragged": ("sm90",) * 3,
     "d96": ("sm90",) * 3, "d128": ("sm90",) * 3, "gqa": ("sm90",) * 3,
     "d36": ("mma",) * 3, "unaligned": ("mma",) * 3, "f32": ("simt",) * 3,
-    "lse": ("sm90", "simt", "simt"), "d256": ("mma",) * 3, "d160f32": ("simt",) * 3,
+    "lse": ("sm90",) * 3, "lse128": ("sm90",) * 3, "split-dv": ("sm90",) * 3,
+    "split-dp": ("sm90",) * 3, "d256": ("mma",) * 3, "d160f32": ("simt",) * 3,
 }
 
 
@@ -1077,6 +1192,63 @@ def flash_operands(device, b, t, h, h_kv, d, dtype, with_lse, seed=0, offset=0):
         torch.float32 if with_lse else dtype)
     dlse = torch.randn(b, h, t, generator=gen, device=device) if with_lse else None
     return q, k, v, do, dlse
+
+
+def split_exact(x):
+    """``x`` (f32) moved to the nearest value that is the exact sum of its
+    two bf16 halves (``hi + lo``, each rounded as ``split_cotangent``)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def paired_cotangent(x, gen):
+    """``(x, -bf16(x) + e)``, f32, with ``|e| < 2^-11 |bf16(x)|``: ``e`` is
+    below half a bf16 step of ``bf16(x)``, so the second's high half is
+    exactly ``-bf16(x)`` and the two high halves cancel; the pair's sum
+    ``x - bf16(x) + e`` lives in the low halves. Both are ``split_exact``,
+    so the split carries that sum exactly and a case reads the low-half
+    chains and the kernels' own bf16 roundings. With arbitrary f32 pairs
+    the low halves carry the sum to 8 bits (dO's 2^-17 is 2^-8 of a sum
+    2^-9 its size), and split-dp's dQ read 0.0154 of its 0.016 limit on an
+    H100, the same as a PyTorch composite of the kernel's products on the
+    same inputs: the design's precision, which the lse cases, the ring
+    check and tests/test_torch_flash_split.py hold."""
+    x = split_exact(x)
+    hx = x.to(torch.bfloat16).float()
+    e = (torch.rand(x.shape, generator=gen, device=x.device) * 2 - 1) * 2.0 ** -11 * (
+        1 - 2.0 ** -7) * hx.abs()
+    return x, split_exact(e - hx)
+
+
+def split_operands(device, name, b, t, h, h_kv, d, seed=0):
+    """q, k, v (views of one fused bf16 projection, as ``flash_operands``),
+    an f32 cotangent and no lse cotangent for a split case:
+
+    - ``split-dv``: query rows 2m and 2m + 1 share their q, so their rows of
+      P are equal and ``dV = P^T dO`` sums their dO rows, a pair of
+      ``paired_cotangent``: the high halves cancel in ``P_hi^T hi`` and dV
+      is all ``P_hi^T lo`` (``P_lo^T hi`` cancels too). dK sums the pair's
+      dS rows against one q, which cancel below bf16's rounding of dS on
+      both sides, so it is noise and not held; dQ (a row of dS against K)
+      is held.
+    - ``split-dp``: V's columns 2c and 2c + 1 are equal in every row, and
+      every dO row's columns 2c and 2c + 1 a pair: ``hi V^T`` is exactly 0,
+      and O has the same paired columns, so ``dP - delta`` is all ``lo
+      V^T``; a kernel without that chain is off by O(1) in dS, dK and dQ."""
+    q, k, v, _do, _dlse = flash_operands(device, b, t, h, h_kv, d, torch.bfloat16, True, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.empty(b, t, h, d, device=device)
+    if name == "split-dv":
+        q[:, 1::2] = q[:, 0::2]  # in the fused buffer
+        x = torch.randn(b, t // 2, h, d, generator=gen, device=device)
+        do[:, 0::2], do[:, 1::2] = paired_cotangent(x, gen)
+    elif name == "split-dp":
+        v[..., 1::2] = v[..., 0::2]
+        x = torch.randn(b, t, h, d // 2, generator=gen, device=device)
+        do[..., 0::2], do[..., 1::2] = paired_cotangent(x, gen)
+    else:
+        raise ValueError(f"no split case {name!r}")
+    return q, k, v, do, None
 
 
 def row_err(got, want, floor=ROW_FLOOR):
@@ -1110,8 +1282,12 @@ def check_flash_case(device, case):
     negative number, delta and dlse NaN), so a kernel that reads the rows
     past t of the last head without masking them gives NaN."""
     name, b, t, h, h_kv, d, causal, dtype, with_lse, offset = case
-    q, k, v, do, dlse = flash_operands(device, b, t, h, h_kv, d, dtype, with_lse,
-                                       offset=offset)
+    if name in SPLIT_HELD:
+        q, k, v, do, dlse = split_operands(device, name, b, t, h, h_kv, d)
+    else:
+        q, k, v, do, dlse = flash_operands(device, b, t, h, h_kv, d, dtype, with_lse,
+                                           offset=offset)
+    held = SPLIT_HELD.get(name, ("out", "dq", "dk", "dv")) + ("lse",)
     scale = 1.0 / math.sqrt(d)
     out_dtype = torch.float32 if with_lse else dtype
     before = flash.route_counts()
@@ -1146,10 +1322,11 @@ def check_flash_case(device, case):
                         f"{f', offset {offset}' if offset else ''}; routes "
                         f"{', '.join(routes)}): largest row error "
                         "relative to the row's norm "
-                        + ", ".join(f"{key} {errs[key]:.3g} (limit {limits[key]:g})"
+                        + ", ".join(f"{key} {errs[key]:.3g} "
+                                    + (f"(limit {limits[key]:g})" if key in held else "(not held)")
                                     for key in ("out", "dq", "dk", "dv"))
                         + f"; lse abs {errs['lse']:.3g} (limit {FLASH_LSE_TOL:g})")
-    bad = [key for key in errs if not errs[key] <= limits[key]]
+    bad = [key for key in held if not errs[key] <= limits[key]]
     if bad:
         raise AssertionError(f"flash[{name}]: {bad} differ from the plain versions: {errs}")
     absdiff = lambda a, b: float((a.float() - b.float()).abs().max())
@@ -1281,6 +1458,18 @@ PLANTED_FAULTS = [
      "const int vrow = row_lo + 8 * r;",
      "const int vrow = row_lo + 8 * r + 1;",
      ("main", "ragged", "gqa")),
+    ("dV's P_hi^T lo chain dropped (split cotangent)",
+     "wgmma_rs<DP>(dv, &pa[4 * kk], desc_sw128(l_st + kk * 16 * kRowBytes, kQPanel), 1);",
+     "(void)l_st;",
+     ("split-dv",)),
+    ("dK/dV's dP^T without dO's low half (split cotangent)",
+     "wgmma_ss<BM>(dp, desc_sw128(v_rows + off, 16), desc_sw128(l_st + qoff, 16), 1);",
+     "(void)off;\n          (void)qoff;",
+     ("split-dp",)),
+    ("dQ's dP without dO's low half (split cotangent)",
+     "if constexpr (kSplit) dq_issue_rows<DP, BN>(acc, l_rows, v_st, true);",
+     "(void)l_rows;",
+     ("split-dp",)),
 ]
 
 
@@ -1440,17 +1629,20 @@ def main():
     counts["long-context"], lc_routes, lc_steps, lc = phase_long_context(
         device, model, lc_tokens, lc_targets)
     per_step = SIZE * model.layers  # ring rounds x layers
-    short = [f"{k} ({r})" for k, r in (("flash_fwd", "sm90"), ("flash_bwd_dkv", "simt"),
-                                       ("flash_bwd_dq", "simt"))
-             if lc_routes[k][r] < per_step * lc_steps]
-    if short:
+    short = [f"{k} (sm90)" for k in FLASH_KERNELS if lc_routes[k]["sm90"] < per_step * lc_steps]
+    if counts["long-context"]["flash_split_cotangent"] < per_step * lc_steps:
+        short.append("flash_split_cotangent")
+    off_route = {k: {r: n for r, n in lc_routes[k].items() if r != "sm90" and n}
+                 for k in FLASH_KERNELS}
+    if short or any(off_route.values()):
         raise AssertionError(f"the long-context path launched fewer than {per_step} {short} "
-                             f"per step over {lc_steps} steps: routes {lc_routes}")
+                             f"per step over {lc_steps} steps, or launched off sm90 "
+                             f"{off_route}: routes {lc_routes}, counts {counts['long-context']}")
     lc_ring_check(device, model, lc_tokens)
     log("train", f"long-context: median step {lc['step_s']:.4f} s, {lc['tokens_per_s']:.1f} "
                  f"tokens/s, forward+backward {lc['fb_s']:.4f} s, peak {lc['peak_gib']:.2f} GiB, "
-                 f"simt share of the profiled step "
-                 f"{100 * lc.get('simt_share', float('nan')):.1f}%; on {smi}")
+                 f"flash backward share of the profiled step "
+                 f"{100 * lc.get('flash_bwd_share', float('nan')):.1f}%; on {smi}")
     del model, lc_tokens, lc_targets
     torch.cuda.empty_cache()
     for path, kernel_names in PATH_KERNELS.items():
@@ -1459,10 +1651,12 @@ def main():
             raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
 
     flash_rows, flash_lines = phase_flash_kernels(device, flash_errs, memory_rate(kind))
-    lse_entries, lse_lines = phase_lse_kernels(device, lc_routes, lc_steps)
+    lse_entries, split_row, lse_lines = phase_lse_kernels(
+        device, lc_routes, lc_steps, counts["long-context"]["flash_split_cotangent"],
+        memory_rate(kind))
     for row in flash_rows:
         row["lse_route"] = lse_entries[row["name"]]
-    rows += flash_rows
+    rows += flash_rows + [split_row]
     lines += flash_lines + lse_lines
     launches = {k: sum(c[k] for c in counts.values()) for k in KERNEL_ROWS}
     for row in rows:

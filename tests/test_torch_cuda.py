@@ -337,7 +337,8 @@ def test_flash_wrappers_refuse_bad_cuda_operands(cuda):
 
 # (b, t, h, h_kv, d, causal, dtype, with_lse, routes): head_dim above 128.
 # bf16 takes the mma route (DP 256, one 128-column half of the outputs a
-# block); f32 operands and the lse form's f32 cotangent take simt (SD 256).
+# block); f32 operands, and the lse form's f32 cotangent beside bf16 q/k/v
+# that sm90 does not take, take simt (SD 256).
 WIDE_CASES = [
     (1, 150, 4, 4, 160, True, torch.bfloat16, False, ("mma", "mma", "mma")),
     (1, 150, 4, 2, 256, False, torch.bfloat16, False, ("mma", "mma", "mma")),
@@ -494,6 +495,83 @@ def test_sm90_dq_matches_plain_version(cuda, case):
     assert _row_err(dq, rdq) <= _ROW_TOL[torch.bfloat16]["dq"], _row_err(dq, rdq)
 
 
+# (b, t, h, h_kv, d, causal): the lse form (f32 out and cotangent, a nonzero
+# lse cotangent) on the sm90 route, the cotangent split into two bf16
+# halves: T 1 and 127 against the 64- and 128-row tiles, a causal T below
+# one tile, grouped-query 16/4 at T 1000, head_dim 96 and 128
+SM90_LSE_CASES = [
+    (1, 1, 2, 2, 64, True),
+    (2, 127, 2, 2, 64, True),
+    (2, 50, 4, 4, 64, True),
+    (1, 1000, 16, 4, 64, True),
+    (1, 300, 4, 4, 96, True),
+    (1, 300, 4, 2, 128, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SM90_LSE_CASES, ids=lambda c: f"t{c[1]}-h{c[2]}x{c[3]}-d{c[4]}-"
+                         f"{'causal' if c[5] else 'full'}")
+def test_sm90_lse_form_matches_plain_versions(cuda, case):
+    """bf16 q/k/v from one fused projection with an f32 cotangent: dK/dV and
+    dQ on ``sm90`` after one split each (a direct call splits for itself),
+    every row within ``_ROW_TOL`` of the plain versions (f32 P and dO), with
+    lse, delta and dlse in front of poisoned tails."""
+    from bluefog_tpu_torch.ops import flash
+    from chip_smoke import with_poisoned_tail
+
+    b, t, h, h_kv, d, causal = case
+    rng = np.random.RandomState(27)
+    width = (h + 2 * h_kv) * d
+    qkv = torch.from_numpy(rng.randn(b, t, width).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (x.reshape(b, t, -1, d) for x in qkv.split([h * d, h_kv * d, h_kv * d], -1))
+    do = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(cuda)
+    dlse = with_poisoned_tail(torch.from_numpy(rng.randn(b, h, t).astype(np.float32)).to(cuda),
+                              float("nan"))
+    scale = 1.0 / np.sqrt(d)
+    rout, rlse = flash.flash_fwd_reference(q, k, v, causal, scale, torch.float32)
+    delta = with_poisoned_tail(flash.attention_delta(rout, do), float("nan"))
+    args = (q, k, v, do, with_poisoned_tail(rlse, -1e30), delta, dlse, causal, scale)
+    before, splits = flash.route_counts(), flash.split_launch_count()
+    dk, dv = flash.flash_bwd_dkv(*args)
+    dq = flash.flash_bwd_dq(*args)
+    rdk, rdv = flash.flash_bwd_dkv_reference(*args)
+    rdq = flash.flash_bwd_dq_reference(*args)
+    torch.cuda.synchronize()
+    after = flash.route_counts()
+    assert {n: {r: after[n][r] - before[n][r] for r in flash.ROUTES}
+            for n in ("flash_bwd_dkv", "flash_bwd_dq")} == {
+        "flash_bwd_dkv": {"sm90": 1, "mma": 0, "simt": 0},
+        "flash_bwd_dq": {"sm90": 1, "mma": 0, "simt": 0}}
+    assert flash.split_launch_count() - splits == 2
+    tol = _ROW_TOL[torch.bfloat16]
+    for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        # (at T 1, dS = P dlse scale: the lse cotangent keeps dQ and dK away
+        # from the cancellation of dP - delta)
+        assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, name
+        assert _row_err(got, want) <= tol[name], (name, _row_err(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "wide", "offset", "expanded"])
+def test_split_cotangent_bitwise_equals_plain_version(cuda, layout):
+    """The f32 cotangent's two bf16 halves, on a contiguous tensor with edge
+    values (zeros of both signs, subnormals, bf16 ties, values that round to
+    bf16's largest and past it), a view of a wider buffer (the vector
+    path), a view one element off 16 bytes at head_dim 36 and an expanded
+    view (the scalar path): bitwise, contiguous, one launch each."""
+    from bluefog_tpu_torch.ops import flash
+    from chip_smoke import check_split, split_inputs
+
+    inputs = dict(zip(["contiguous", "wide", "offset", "expanded"],
+                      split_inputs(cuda, b=2, t=96, h=4, d=64)))
+    do = inputs[layout]
+    assert do.is_contiguous() == (layout == "contiguous")
+    before = flash.split_launch_count()
+    assert check_split(do) == 0.0
+    assert flash.split_launch_count() - before == 1
+
+
 # -- the sequence-parallel layers and the dry run ---------------------------
 
 
@@ -503,8 +581,8 @@ def test_ring_attention_on_card_matches_cpu(cuda, causal):
     """Ring attention over 4 workers (bf16, grouped-query 4/2, head_dim 64)
     on the card against the same call on the CPU (the plain versions):
     out and the gradients of q, k and v, every row within ``_ROW_TOL``.
-    Each round launches the forward on ``sm90`` (bf16 q/k/v, f32 out) and
-    both backward kernels on ``simt`` (the f32 cotangent of the lse form)."""
+    Each round launches all three kernels on ``sm90`` (bf16 q/k/v, f32 out)
+    and splits the round's f32 cotangent once for both backward kernels."""
     from bluefog_tpu_torch.ops import flash, ring_attention
 
     rng = np.random.RandomState(26)
@@ -515,7 +593,7 @@ def test_ring_attention_on_card_matches_cpu(cuda, causal):
     results = {}
     for dev in (cuda, torch.device("cpu")):
         q, k, v = (x.to(dev).requires_grad_(True) for x in base)
-        before = flash.route_counts()
+        before, splits = flash.route_counts(), flash.split_launch_count()
         out = ring_attention(q, k, v, causal=causal)
         (out.float() * w.to(dev)).sum().backward()
         after = flash.route_counts()
@@ -524,8 +602,9 @@ def test_ring_attention_on_card_matches_cpu(cuda, causal):
             took = {kname: {r: after[kname][r] - before[kname][r] for r in flash.ROUTES}
                     for kname in after}
             assert took == {"flash_fwd": {"sm90": n, "mma": 0, "simt": 0},
-                            "flash_bwd_dkv": {"sm90": 0, "mma": 0, "simt": n},
-                            "flash_bwd_dq": {"sm90": 0, "mma": 0, "simt": n}}
+                            "flash_bwd_dkv": {"sm90": n, "mma": 0, "simt": 0},
+                            "flash_bwd_dq": {"sm90": n, "mma": 0, "simt": 0}}
+            assert flash.split_launch_count() - splits == n
     tol = _ROW_TOL[torch.bfloat16]
     for name, got, want in zip(("out", "dq", "dk", "dv"), results["cuda"], results["cpu"]):
         assert _row_err(got, want) <= tol[name], (name, _row_err(got, want))

@@ -5,9 +5,11 @@ source hashing, on the CPU.
 The rule is a plain function of dtypes, head_dim, pointers, strides and the
 scale, so it is tested here on CPU tensors laid out as the card would get
 them: q, k and v split from one fused projection as the transformer splits
-them take ``sm90`` (wgmma fed by TMA); rows off 16 bytes, head_dim 36 or a
-non-positive scale take ``mma``; f32 operands or an f32 cotangent take
-``simt``. dK/dV and dQ of one backward always take the same route.
+them take ``sm90`` (wgmma fed by TMA), with a bf16 cotangent or an f32 one
+(the lse form's, split into two bf16 halves); rows off 16 bytes, head_dim
+36 or a non-positive scale take ``mma`` with a bf16 cotangent and
+``simt`` with an f32 one; f32 operands take ``simt``. dK/dV and dQ of one
+backward always take the same route.
 """
 
 import pytest
@@ -70,10 +72,49 @@ def test_a_scale_that_is_not_positive_takes_mma(scale):
 
 
 def test_f32_operands_or_cotangent_take_simt():
+    """f32 q/k/v take ``simt`` whatever the cotangent; beside bf16 q/k/v
+    that ``sm90`` takes, an f32 cotangent takes ``sm90`` as two bf16
+    halves, and ``simt`` only where ``sm90`` does not take the operands."""
     q, k, v = _fused(1, 30, 4, 2, 64, dtype=torch.float32)
     assert flash._route(q, k, v, scale=0.1) == "simt"
-    q, k, v = _fused(1, 30, 4, 2, 64)
     assert flash._route(q, k, v, torch.zeros(q.shape), 0.1) == "simt"
+    q, k, v = _fused(1, 30, 4, 2, 64)
+    assert flash._route(q, k, v, torch.zeros(q.shape), 0.1) == "sm90"
+    q, k, v = _fused(1, 30, 4, 2, 64, offset=1)
+    assert flash._route(q, k, v, torch.zeros(q.shape), 0.1) == "simt"
+
+
+@pytest.mark.parametrize("why,shape,offset,do_layout", [
+    ("fused views, 16 heads of 64", (2, 40, 16, 16, 64), 0, "contiguous"),
+    ("the ring block's T and heads", (2, 1024, 16, 16, 64), 0, "contiguous"),
+    ("grouped-query 16/4, head_dim 128", (1, 40, 16, 4, 128), 0, "contiguous"),
+    ("head_dim 72", (1, 40, 4, 2, 72), 0, "contiguous"),
+    ("a cotangent one element off 16 bytes", (1, 30, 4, 2, 64), 0, "offset"),
+    ("an expanded cotangent", (1, 30, 4, 2, 64), 0, "expanded"),
+])
+def test_an_f32_cotangent_beside_aligned_bf16_operands_takes_sm90(why, shape, offset, do_layout):
+    """The halves are fresh and contiguous, so the f32 cotangent's own
+    alignment and strides do not matter."""
+    q, k, v = _fused(*shape, offset=offset)
+    if do_layout == "offset":
+        do = torch.zeros(1 + q.numel())[1:].view(q.shape)
+    elif do_layout == "expanded":
+        do = torch.zeros(q.shape[1:]).expand(q.shape)
+    else:
+        do = torch.zeros(q.shape)
+    assert flash._route(q, k, v, do, shape[-1] ** -0.5) == "sm90", why
+
+
+@pytest.mark.parametrize("why,case,scale", [
+    ("rows one element off 16 bytes", dict(d=64, offset=1), 0.125),
+    ("head_dim 36", dict(d=36), 0.125),
+    ("head_dim 160", dict(d=160), 0.125),
+    ("head_dim 256", dict(d=256), 0.125),
+    ("scale 0", dict(d=64), 0.0),
+])
+def test_an_f32_cotangent_beside_bf16_operands_sm90_refuses_takes_simt(why, case, scale):
+    q, k, v = _fused(1, 30, 4, 2, **case)
+    assert flash._route(q, k, v, torch.zeros(q.shape), scale) == "simt", why
 
 
 def _backward_routes(monkeypatch, q, k, v, do, scale):
@@ -125,10 +166,19 @@ def test_dq_with_a_scale_that_is_not_positive_takes_mma(monkeypatch, scale):
 
 
 def test_dq_of_an_f32_cotangent_or_f32_operands_takes_simt(monkeypatch):
+    """dQ takes dK/dV's route with an f32 cotangent too: ``sm90`` beside
+    aligned bf16 q/k/v, ``simt`` beside f32 q/k/v, bf16 rows off 16 bytes
+    or head_dim above 128."""
     q, k, v = _fused(1, 30, 4, 2, 64)
+    assert _backward_routes(monkeypatch, q, k, v, torch.zeros(q.shape), 0.125) == ("sm90",
+                                                                                  "sm90")
+    q, k, v = _fused(1, 30, 4, 2, 64, dtype=torch.float32)
     assert _backward_routes(monkeypatch, q, k, v, torch.zeros(q.shape), 0.125) == ("simt",
                                                                                   "simt")
-    q, k, v = _fused(1, 30, 4, 2, 64, dtype=torch.float32)
+    q, k, v = _fused(1, 30, 4, 2, 64, offset=1)
+    assert _backward_routes(monkeypatch, q, k, v, torch.zeros(q.shape), 0.125) == ("simt",
+                                                                                  "simt")
+    q, k, v = _fused(1, 30, 2, 2, 160)
     assert _backward_routes(monkeypatch, q, k, v, torch.zeros(q.shape), 0.125) == ("simt",
                                                                                   "simt")
 
