@@ -3,10 +3,17 @@
 
 N virtual workers live on one GPU as the leading axis of ``[N, ...]``
 tensors; a gossip round is a gather along that axis. The facade mirrors
-``bluefog_tpu``'s names for the ported slice: ``init`` and the topology
-queries, ``worker_values`` and ``neighbor_allreduce`` (exact or with the
-int8/int4 wire), the neighbor-allreduce gossip optimizers (with the
-int8/int4 wires and their error-feedback tiers int8_ef/int4_ef), the
+``bluefog_tpu``'s names for the ported slice: ``init`` with the machines x
+local split, the rank and topology queries (machine level included), the
+collectives (``allreduce``, ``allgather``, ``broadcast``,
+``neighbor_allreduce`` exact or on the int8/int4 wire with explicit or
+dynamic weights, ``neighbor_allgather`` on the bf16/int8/int4 wire,
+``hierarchical_neighbor_allreduce``, ``pair_gossip``, ``barrier``), each
+with a ``*_nonblocking`` form and ``poll``/``synchronize``/``wait``; the
+gossip optimizers (gradient and weight allreduce, CTA/ATC neighbor gossip
+on the int8/int4 wires and their error-feedback tiers int8_ef/int4_ef,
+hierarchical) with ``make_train_step``, ``sgd`` and ``adam``; the
+parameter broadcast/allreduce utilities; the
 window ops (``win_*``, the associated-p lane) and the window optimizers
 (win-put, pull-get, push-sum), and ``ops`` (``flash_attention``,
 ``flash_attention_with_lse``, ``reference_attention``); the models
@@ -16,8 +23,29 @@ for Hopper (``csrc/wire_kernels.cu``, ``csrc/flash_kernels.cu``). Entry
 points run on ``"cuda"`` unless ``device="cpu"`` is passed.
 """
 
-from bluefog_tpu_torch import ops, topology
-from bluefog_tpu_torch.collective.ops import neighbor_allreduce, worker_values
+from bluefog_tpu_torch import collective, ops, topology
+from bluefog_tpu_torch import topology as topology_util
+from bluefog_tpu_torch.collective.ops import (
+    allgather,
+    allgather_nonblocking,
+    allreduce,
+    allreduce_nonblocking,
+    barrier,
+    broadcast,
+    broadcast_nonblocking,
+    hierarchical_neighbor_allreduce,
+    hierarchical_neighbor_allreduce_nonblocking,
+    neighbor_allgather,
+    neighbor_allgather_nonblocking,
+    neighbor_allreduce,
+    neighbor_allreduce_nonblocking,
+    pair_gossip,
+    pair_gossip_nonblocking,
+    poll,
+    synchronize,
+    wait,
+    worker_values,
+)
 from bluefog_tpu_torch.context import (
     BluefogContext,
     get_context,
@@ -26,12 +54,23 @@ from bluefog_tpu_torch.context import (
     shutdown,
 )
 from bluefog_tpu_torch.optimizers import (
+    CommunicationType,
     DistributedAdaptThenCombineOptimizer,
+    DistributedAdaptWithCombineOptimizer,
+    DistributedAllreduceOptimizer,
+    DistributedGradientAllreduceOptimizer,
+    DistributedHierarchicalNeighborAllreduceOptimizer,
     DistributedNeighborAllreduceOptimizer,
     DistributedPullGetOptimizer,
     DistributedPushSumOptimizer,
     DistributedWinPutOptimizer,
+    adam,
     sgd,
+)
+from bluefog_tpu_torch.utility import (
+    allreduce_parameters,
+    broadcast_optimizer_state,
+    broadcast_parameters,
 )
 from bluefog_tpu_torch.windows import (
     get_current_created_window_names,
@@ -55,12 +94,60 @@ from bluefog_tpu_torch.windows import (
 )
 
 
+def make_train_step(optimizer, loss_fn, has_aux: bool = False, delayed: bool = False):
+    """``optimizer.make_train_step(loss_fn, has_aux, delayed)`` for any
+    gossip-family optimizer::
+
+        opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1))
+        train_step = bft.make_train_step(opt, loss_fn)
+        params, opt_state, loss = train_step(params, opt_state, *batch)
+    """
+    return optimizer.make_train_step(loss_fn, has_aux=has_aux, delayed=delayed)
+
+
 def size() -> int:
+    """Number of workers."""
     return get_context().size
 
 
-def set_topology(topology, is_weighted: bool = False) -> bool:
-    return get_context().set_topology(topology, is_weighted)
+def local_size() -> int:
+    """Workers per machine."""
+    return get_context().local_size
+
+
+def machine_size() -> int:
+    """Number of machines in the hierarchical split."""
+    return get_context().machine_size
+
+
+def rank() -> int:
+    """The controlling process's index: 0, one process drives every
+    worker."""
+    return 0
+
+
+def local_rank() -> int:
+    """Process-local analogue of :func:`rank` (0)."""
+    return 0
+
+
+def machine_rank(worker_rank: int) -> int:
+    """Machine index of a worker rank."""
+    return worker_rank // get_context().local_size
+
+
+def is_homogeneous() -> bool:
+    """Every machine has the same worker count (the split is a reshape)."""
+    return True
+
+
+def set_topology(topology_graph=None, is_weighted: bool = False) -> bool:
+    """Install a topology (a weight matrix); ``None`` restores the default
+    :func:`~bluefog_tpu_torch.topology.ExponentialGraph`."""
+    ctx = get_context()
+    if topology_graph is None:
+        topology_graph = topology_util.ExponentialGraph(ctx.size)
+    return ctx.set_topology(topology_graph, is_weighted)
 
 
 def load_topology():
@@ -69,6 +156,27 @@ def load_topology():
 
 def is_topo_weighted() -> bool:
     return get_context().is_topo_weighted()
+
+
+def set_machine_topology(topology_graph, is_weighted: bool = False) -> bool:
+    """Install the machine-level topology of the hierarchical ops."""
+    return get_context().set_machine_topology(topology_graph, is_weighted)
+
+
+def load_machine_topology():
+    return get_context().load_machine_topology()
+
+
+def is_machine_topo_weighted() -> bool:
+    return get_context().is_machine_topo_weighted()
+
+
+def in_neighbor_machine_ranks(machine_rank: int = None):
+    return get_context().in_neighbor_machine_ranks(machine_rank)
+
+
+def out_neighbor_machine_ranks(machine_rank: int = None):
+    return get_context().out_neighbor_machine_ranks(machine_rank)
 
 
 def in_neighbor_ranks(rank: int = None):
@@ -82,22 +190,62 @@ def out_neighbor_ranks(rank: int = None):
 __all__ = [
     "ops",
     "topology",
+    "topology_util",
+    "collective",
     "BluefogContext",
     "init",
     "shutdown",
     "is_initialized",
     "get_context",
     "size",
+    "local_size",
+    "machine_size",
+    "rank",
+    "local_rank",
+    "machine_rank",
+    "is_homogeneous",
     "set_topology",
     "load_topology",
     "is_topo_weighted",
+    "set_machine_topology",
+    "load_machine_topology",
+    "is_machine_topo_weighted",
     "in_neighbor_ranks",
     "out_neighbor_ranks",
+    "in_neighbor_machine_ranks",
+    "out_neighbor_machine_ranks",
     "worker_values",
+    "allreduce",
+    "allreduce_nonblocking",
+    "allgather",
+    "allgather_nonblocking",
+    "broadcast",
+    "broadcast_nonblocking",
     "neighbor_allreduce",
+    "neighbor_allreduce_nonblocking",
+    "neighbor_allgather",
+    "neighbor_allgather_nonblocking",
+    "hierarchical_neighbor_allreduce",
+    "hierarchical_neighbor_allreduce_nonblocking",
+    "pair_gossip",
+    "pair_gossip_nonblocking",
+    "poll",
+    "synchronize",
+    "wait",
+    "barrier",
+    "make_train_step",
     "sgd",
+    "adam",
+    "CommunicationType",
+    "DistributedGradientAllreduceOptimizer",
+    "DistributedAllreduceOptimizer",
     "DistributedNeighborAllreduceOptimizer",
+    "DistributedHierarchicalNeighborAllreduceOptimizer",
     "DistributedAdaptThenCombineOptimizer",
+    "DistributedAdaptWithCombineOptimizer",
+    "broadcast_parameters",
+    "broadcast_optimizer_state",
+    "allreduce_parameters",
     "DistributedWinPutOptimizer",
     "DistributedPullGetOptimizer",
     "DistributedPushSumOptimizer",

@@ -7,6 +7,7 @@ from bluefog_tpu_torch.collective.plan import (
     CommRound,
     plan_from_matrix,
     plan_from_topology,
+    plan_from_weights,
 )
 
 __all__ = [
@@ -15,5 +16,6 @@ __all__ = [
     "neighbor_allreduce",
     "plan_from_matrix",
     "plan_from_topology",
+    "plan_from_weights",
     "worker_values",
 ]

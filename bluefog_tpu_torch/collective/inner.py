@@ -12,7 +12,7 @@ results slot for slot.
 """
 
 import weakref
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,13 @@ __all__ = [
     "hierarchical_neighbor_allreduce",
     "hierarchical_neighbor_allreduce_operands",
     "hierarchical_neighbor_allreduce_step",
+    "hierarchical_neighbor_allreduce_quantized",
+    "neighbor_allgather",
+    "allreduce",
+    "allgather",
+    "broadcast",
+    "pair_gossip",
+    "barrier",
     "plan_operands",
     "schedule_operands",
 ]
@@ -161,6 +168,131 @@ def hierarchical_neighbor_allreduce_step(
     :func:`bluefog_tpu_torch.topology.GetExp2DynamicSendRecvMachineRanks`)."""
     return _hierarchical(x, local_size,
                          lambda y: neighbor_allreduce_step(y, step, machine_schedule))
+
+
+def hierarchical_neighbor_allreduce_quantized(
+    x: torch.Tensor, src: torch.Tensor, recv_w: torch.Tensor, local_size: int,
+    wire: str = "int8",
+) -> torch.Tensor:
+    """:func:`hierarchical_neighbor_allreduce` with the machine-level leg
+    on the quantized wire: the local sum stays exact, the ``[machines,
+    ...]`` sums go through :func:`weighted_combine_quantized_operands`
+    (``encode`` + ``decode_accumulate`` on the card). ``src``/``recv_w``
+    are the machine plan's (:func:`plan_operands`), normalized."""
+    return _hierarchical(x, local_size, lambda y: weighted_combine_quantized_operands(
+        y, src, recv_w, wire=wire, inplace=True))
+
+
+# -- the classic collectives ----------------------------------------------------------
+
+
+def allreduce(x: torch.Tensor, average: bool = True) -> torch.Tensor:
+    """Every worker's slot becomes the sum over the workers, or with
+    ``average`` the mean in :func:`_weight_dtype`, divided by the static
+    worker count (the JAX ``psum`` of a literal)."""
+    if not average:
+        total = x.sum(0, keepdim=True, dtype=x.dtype)
+    else:
+        wdt = _weight_dtype(x)
+        total = x.to(wdt).sum(0, keepdim=True) / torch.tensor(x.shape[0], dtype=wdt)
+    return total.expand(x.shape).clone()
+
+
+def allgather(x: torch.Tensor) -> torch.Tensor:
+    """``[N, d0, ...]`` -> ``[N, N * d0, ...]``: every worker's copy of the
+    concatenation of all workers' slots along their first axis (a scalar
+    slot per worker gives ``[N, N]``)."""
+    n = x.shape[0]
+    flat = x.reshape((1, -1) + tuple(x.shape[2:]))
+    return flat.expand((n,) + tuple(flat.shape[1:])).clone()
+
+
+def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
+    """Every worker's slot becomes worker ``root_rank``'s."""
+    if not 0 <= root_rank < x.shape[0]:
+        raise ValueError(f"root_rank {root_rank} out of range for {x.shape[0]} workers")
+    return x[root_rank:root_rank + 1].expand(x.shape).clone()
+
+
+def pair_gossip(
+    x: torch.Tensor,
+    pairs: Sequence[Tuple[int, int]],
+    self_weight: Optional[float] = None,
+    pair_weight: Optional[float] = None,
+) -> torch.Tensor:
+    """Each pair ``(a, b)`` averages with its partner, ``self_weight * x +
+    pair_weight * x_partner`` (default 1/2 each), in :func:`_weight_dtype`
+    with the weights in that dtype; ranks outside every pair keep their
+    value, in that dtype."""
+    n = x.shape[0]
+    partner = [-1] * n
+    for a, b in pairs:
+        if a == b:
+            raise ValueError("pair_gossip partner must differ from self")
+        if partner[a] >= 0 or partner[b] >= 0:
+            raise ValueError("pair_gossip: each rank may appear in at most one pair")
+        partner[a], partner[b] = b, a
+    wdt = _weight_dtype(x)
+    xw = x.to(wdt)
+    src = torch.tensor(partner, dtype=torch.int32, device=x.device)
+    sw = torch.tensor(0.5 if self_weight is None else self_weight, dtype=wdt, device=x.device)
+    pw = torch.tensor(0.5 if pair_weight is None else pair_weight, dtype=wdt, device=x.device)
+    gossiped = xw * sw + _gather(xw, src) * pw
+    paired = (src >= 0).view((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(paired, gossiped, xw)
+
+
+def barrier(device) -> None:
+    """Wait until the device has finished all work queued so far."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def neighbor_allgather(
+    x: torch.Tensor, plan: CommPlan, wire: Optional[str] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw (unweighted) in-neighbour values, rank-ascending:
+    ``(gathered [N, max_in_degree, ...], mask [N, max_in_degree] bool)``,
+    row ``k`` of worker ``j`` the value of its ``k``-th in-neighbour, zeros
+    past its in-degree (the JAX layout, with the worker axis in front).
+
+    ``wire`` ships the values as ``'bf16'``, or block-quantized as
+    ``'int8'``/``'int4'``: one :func:`kernels.encode` of every worker's
+    flat f32 payload, then one :func:`kernels.decode` per neighbour slot
+    of the senders' rows, cast back to ``x.dtype`` — receivers get
+    ``dequant(Q(x))``, as in the JAX function. Float payloads only."""
+    if wire not in (None, "bf16", "int8", "int4"):
+        raise ValueError(
+            "neighbor_allgather wire must be None, 'bf16', 'int8', or "
+            f"'int4', got {wire!r}"
+        )
+    if wire is not None and not x.is_floating_point():
+        raise ValueError(f"quantized neighbor_allgather needs a float payload, got {x.dtype}")
+    n_workers = x.shape[0]
+    ins = plan.in_neighbors
+    degree = plan.max_in_degree
+    src = np.full((degree, n_workers), -1, np.int32)
+    for j, nbrs in enumerate(ins):
+        src[:len(nbrs), j] = nbrs
+    mask = torch.from_numpy(src.T >= 0).to(x.device)
+    src_t = torch.from_numpy(src).to(x.device)
+    if degree == 0:
+        return x.new_zeros((n_workers, 0) + tuple(x.shape[1:])), mask
+    if wire in ("int8", "int4"):
+        flat = x.reshape(n_workers, -1).to(torch.float32)
+        n = flat.shape[1]
+        payload, scales = kernels.encode(kernels.pad_blocks(flat), wire)
+        rows = [
+            kernels.unpad_blocks(
+                kernels.decode(payload, scales, src_t[k], wire, src_in_range=True), n
+            ).reshape(x.shape).to(x.dtype)
+            for k in range(degree)
+        ]
+    else:
+        sent = x if wire is None else x.to(torch.bfloat16)
+        rows = [_gather(sent, src_t[k]).to(x.dtype) for k in range(degree)]
+    return torch.stack(rows, dim=1), mask
 
 
 def _check_combine_normalized(plan: CommPlan, what: str) -> None:

@@ -15,7 +15,7 @@ which ``ppermute`` delivers zeros and the weight is 0). A
 
 import dataclasses
 import functools
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -31,6 +31,7 @@ __all__ = [
     "perms_from_edges",
     "plan_from_matrix",
     "plan_from_topology",
+    "plan_from_weights",
     "schedule_from_dynamic",
 ]
 
@@ -202,6 +203,73 @@ def plan_from_topology(
             for i in in_lists[j]:
                 u[i, j] = uniform
         w = u
+    return plan_from_matrix(w, edges=edge_list, method=method)
+
+
+def _normalize_per_rank(
+    size: int,
+    value: Union[Dict[int, Dict[int, float]], Sequence[Dict[int, float]],
+                 Sequence[Sequence[int]], None],
+) -> Optional[List[Dict[int, float]]]:
+    """Per-rank weight specs as ``[{peer: weight}] * size``: a sequence
+    indexed by rank or a dict keyed by rank, each entry a ``{peer:
+    weight}`` dict or a bare peer list (weights 1.0)."""
+    if value is None:
+        return None
+    if isinstance(value, dict):
+        per_rank: List = [value.get(r, {}) for r in range(size)]
+    else:
+        per_rank = list(value)
+        if len(per_rank) != size:
+            raise ValueError(
+                f"per-rank weight spec must have one entry per rank "
+                f"(got {len(per_rank)}, size {size})"
+            )
+    out: List[Dict[int, float]] = []
+    for entry in per_rank:
+        if isinstance(entry, dict):
+            out.append({int(k): float(v) for k, v in entry.items()})
+        else:
+            out.append({int(k): 1.0 for k in entry})
+    return out
+
+
+def plan_from_weights(
+    size: int,
+    self_weight: Union[float, Sequence[float]],
+    src_weights: Union[Dict[int, Dict[int, float]], Sequence[Dict[int, float]]],
+    dst_weights: Union[Dict[int, Dict[int, float]], Sequence, None] = None,
+    enable_topo_check: bool = True,
+    method: str = "auto",
+) -> CommPlan:
+    """A plan from explicit per-rank weights (the dynamic-graph path):
+    ``src_weights[j]`` is rank ``j``'s ``{in_neighbor: weight}``,
+    ``dst_weights[i]`` rank ``i``'s ``{out_neighbor: scale}`` (or a bare
+    list, scale 1.0). With ``dst_weights`` both ends scale the value:
+    ``W[i, j] = dst_w_i[j] * src_w_j[i]``. ``enable_topo_check`` refuses a
+    send pattern that is not the transpose of the receive pattern."""
+    srcs = _normalize_per_rank(size, src_weights)
+    if srcs is None:
+        raise ValueError("src_weights is required")
+    dsts = _normalize_per_rank(size, dst_weights)
+    if isinstance(self_weight, (int, float)):
+        self_w = [float(self_weight)] * size
+    else:
+        self_w = [float(v) for v in self_weight]
+        if len(self_w) != size:
+            raise ValueError(f"self_weight has {len(self_w)} entries for {size} ranks")
+    if dsts is not None and enable_topo_check:
+        check_send_recv_symmetry(srcs, dsts)
+    w = np.zeros((size, size))
+    edge_list: List[Tuple[int, int]] = []
+    for j in range(size):
+        w[j, j] = self_w[j]
+        for i, wt in srcs[j].items():
+            if not (0 <= i < size and i != j):
+                raise ValueError(f"src_weights for rank {j} has invalid in-neighbor {i}")
+            scale = dsts[i].get(j, 1.0) if dsts is not None else 1.0
+            w[i, j] = wt * scale
+            edge_list.append((i, j))
     return plan_from_matrix(w, edges=edge_list, method=method)
 
 

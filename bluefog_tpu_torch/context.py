@@ -1,11 +1,15 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
-"""Runtime context: worker count, device, the active topology, and the
-window registry.
+"""Runtime context: worker count, device, the active topology, the
+machines x local split with its machine topology, and the window
+registry.
 
 Counterpart of ``bluefog_tpu/context.py``. A worker is one slot on the
 leading axis of a ``[size, ...]`` tensor on one device (README "Worker
 model"); a topology is the numpy weight matrix of
-:mod:`bluefog_tpu_torch.topology`. Entry points run on the card: with
+:mod:`bluefog_tpu_torch.topology`. Worker ``m * local_size + l`` is local
+slot ``l`` of machine ``m`` (the JAX machine mesh, row-major); there is no
+machine topology until :meth:`BluefogContext.set_machine_topology` installs
+one, as in the JAX package. Entry points run on the card: with
 ``device=None`` the context takes ``"cuda"`` and raises when CUDA is
 absent; the CPU is used only when the caller asks for it.
 
@@ -64,15 +68,28 @@ class BluefogContext:
         is_weighted: bool = False,
         size: int = 8,
         device=None,
+        nodes_per_machine: Optional[int] = None,
     ):
         if size < 1:
             raise ValueError(f"size must be positive, got {size}")
         self.size = int(size)
         self.device = resolve_device(device)
+        self.local_size = int(nodes_per_machine or self.size)
+        if self.local_size < 1 or self.size % self.local_size:
+            raise ValueError(
+                f"nodes_per_machine={self.local_size} must divide the worker "
+                f"count {self.size}"
+            )
+        self.machine_size = self.size // self.local_size
         self._topology: Optional[np.ndarray] = None
         self._topo_weighted = False
         self.topo_version = 0
         self._plan_cache: Optional[tuple] = None
+        self._neighbor_sets_cache: Optional[tuple] = None
+        self._machine_topology: Optional[np.ndarray] = None
+        self._machine_topo_weighted = False
+        self.machine_topo_version = 0
+        self._machine_plan_cache: Optional[tuple] = None
         self.uid = next(_ctx_uid)
         # name -> windows._Window
         self.windows: Dict[str, object] = {}
@@ -111,6 +128,41 @@ class BluefogContext:
     def is_topo_weighted(self) -> bool:
         return self._topo_weighted
 
+    def set_machine_topology(self, topology: np.ndarray, is_weighted: bool = False) -> bool:
+        """Install the machine-level topology of the hierarchical ops."""
+        topo = np.asarray(topology, dtype=np.float64)
+        if topo.shape != (self.machine_size, self.machine_size):
+            raise ValueError(
+                f"machine topology is {topo.shape} but there are "
+                f"{self.machine_size} machines"
+            )
+        self._machine_topology = topo.copy()
+        self._machine_topology.setflags(write=False)
+        self._machine_topo_weighted = bool(is_weighted)
+        self.machine_topo_version += 1
+        return True
+
+    def load_machine_topology(self) -> Optional[np.ndarray]:
+        return self._machine_topology
+
+    def is_machine_topo_weighted(self) -> bool:
+        return self._machine_topo_weighted
+
+    def machine_plan(self) -> CommPlan:
+        """The plan of the machine topology, rebuilt only when it changes."""
+        if self._machine_topology is None:
+            raise ValueError(
+                "no machine topology set; call set_machine_topology() or pass "
+                "explicit machine weights"
+            )
+        cached = self._machine_plan_cache
+        if cached is None or cached[0] != self.machine_topo_version:
+            plan = plan_from_topology(
+                self._machine_topology, weighted=self._machine_topo_weighted
+            )
+            self._machine_plan_cache = cached = (self.machine_topo_version, plan)
+        return cached[1]
+
     def static_plan(self) -> CommPlan:
         """The plan of the active topology, rebuilt only when it changes."""
         cached = self._plan_cache
@@ -133,6 +185,35 @@ class BluefogContext:
         self.p_refcount += 1
         return self.uid
 
+    def in_neighbor_sets(self):
+        """Per-rank frozen in-neighbour sets of the active topology, cached
+        on ``topo_version`` (the explicit-weight calls validate their keys
+        against them on every call)."""
+        cached = self._neighbor_sets_cache
+        if cached is None or cached[0] != self.topo_version:
+            sets = tuple(frozenset(self.in_neighbor_ranks(r)) for r in range(self.size))
+            self._neighbor_sets_cache = cached = (self.topo_version, sets)
+        return cached[1]
+
+    def in_neighbor_machine_ranks(self, machine_rank: Optional[int] = None):
+        """In-neighbours of a machine in the machine topology (every
+        machine's lists with ``None``); ``None`` without a machine
+        topology."""
+        if self._machine_topology is None:
+            return None
+        if machine_rank is None:
+            return [self.in_neighbor_machine_ranks(m) for m in range(self.machine_size)]
+        col = self._machine_topology[:, machine_rank]
+        return [int(m) for m in np.nonzero(col)[0] if m != machine_rank]
+
+    def out_neighbor_machine_ranks(self, machine_rank: Optional[int] = None):
+        if self._machine_topology is None:
+            return None
+        if machine_rank is None:
+            return [self.out_neighbor_machine_ranks(m) for m in range(self.machine_size)]
+        row = self._machine_topology[machine_rank]
+        return [int(m) for m in np.nonzero(row)[0] if m != machine_rank]
+
     def in_neighbor_ranks(self, rank: Optional[int] = None):
         if rank is None:
             return [self.in_neighbor_ranks(r) for r in range(self.size)]
@@ -151,12 +232,15 @@ def init(
     is_weighted: bool = False,
     size: int = 8,
     device=None,
+    nodes_per_machine: Optional[int] = None,
 ) -> BluefogContext:
     """Install the global context (reference ``bf.init``): ``size``
     virtual workers on ``device`` (default ``"cuda"``), topology
-    ``topology_fn(size)`` (default :func:`ExponentialGraph`)."""
+    ``topology_fn(size)`` (default :func:`ExponentialGraph`), split into
+    machines of ``nodes_per_machine`` workers (default one machine of
+    all) for the hierarchical ops."""
     global _context
-    ctx = BluefogContext(topology_fn, is_weighted, size, device)
+    ctx = BluefogContext(topology_fn, is_weighted, size, device, nodes_per_machine)
     with _lock:
         _context = ctx
     return ctx

@@ -112,6 +112,34 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                            tokens[:, 1:].reshape(-1))
 
 
+class _RowViews(torch.autograd.Function):
+    """A worker row as its parameters' JAX-layout views, whose backward
+    writes each view's gradient into one row-sized buffer (zero tail):
+    the gradient with respect to the row costs one row write, where
+    slicing the row directly would add a zero-padded row per parameter."""
+
+    @staticmethod
+    def forward(row, model):
+        return tuple(model._jax_views(row))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.model = inputs[1]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        model = ctx.model
+        ref = next(g for g in grads if g is not None)
+        row = torch.empty(model.width, dtype=torch.float32, device=ref.device)
+        row[model.n_params:].zero_()
+        for dst, g in zip(model._jax_views(row), grads):
+            if g is None:
+                dst.zero_()
+            else:
+                dst.copy_(g)
+        return row, None
+
+
 def jax_order(names) -> List[str]:
     """Dotted parameter names sorted as ``jax.tree_util`` flattens the
     nested flax dict (keys sorted at every level: ``BottleneckBlock_10``
@@ -200,6 +228,23 @@ class StackedModel:
                                 (inputs[j],))
                 for j in range(self.size)
             ])
+
+    def worker_loss(self, row: torch.Tensor, inputs: torch.Tensor, targets: torch.Tensor,
+                    worker=None) -> torch.Tensor:
+        """The training loss of one worker whose parameters are ``row``
+        (``[width]``, differentiable): the loss function of
+        :meth:`bluefog_tpu_torch.optimizers._GossipOptimizer.make_train_step`
+        for this model. ``worker`` (an int, or a 0-d tensor on the host)
+        names the worker whose batch statistics the forward uses and
+        updates; it may be left out when the model has none. The gradient
+        equals :meth:`loss_and_grad`'s, bit for bit."""
+        if self.buffers and worker is None:
+            raise ValueError("this model has batch statistics: pass the worker index")
+        j = 0 if worker is None else int(worker)
+        self.module.train(True)
+        leaves = _RowViews.apply(row, self)
+        outputs = functional_call(self.module, self._worker_state(list(leaves), j), (inputs,))
+        return self.loss(outputs, targets)
 
     def loss_and_grad(self, params: torch.Tensor, inputs: torch.Tensor,
                       targets: torch.Tensor, grads: torch.Tensor = None):

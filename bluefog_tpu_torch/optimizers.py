@@ -3,15 +3,26 @@
 
 Counterpart of ``bluefog_tpu/optimizers.py`` for two families:
 
-- neighbor-allreduce gossip: :func:`DistributedNeighborAllreduceOptimizer`
-  (combine-then-adapt, CTA) and :func:`DistributedAdaptThenCombineOptimizer`
-  (adapt-then-combine, ATC), with the ``compression`` attribute (``None``,
-  ``"int8"``, ``"int4"``, ``"int8_ef"``, ``"int4_ef"``) selecting the exact
-  combine, the quantized wire, or the quantized wire with error feedback
-  (CHOCO copies kept by the optimizer, one pair per dtype group);
+- the gossip family, one engine (:class:`_GossipOptimizer`) behind six
+  factories: gradient allreduce (:func:`DistributedGradientAllreduceOptimizer`),
+  weight allreduce (:func:`DistributedAllreduceOptimizer`), neighbor
+  gossip combine-then-adapt (:func:`DistributedNeighborAllreduceOptimizer`,
+  :func:`DistributedAdaptWithCombineOptimizer`) and adapt-then-combine
+  (:func:`DistributedAdaptThenCombineOptimizer`), and the machine-level
+  gossip (:func:`DistributedHierarchicalNeighborAllreduceOptimizer`); with
+  the ``compression`` attribute (``None``, ``"int8"``, ``"int4"``,
+  ``"int8_ef"``, ``"int4_ef"``) selecting the exact combine, the quantized
+  wire, or the quantized wire with error feedback (CHOCO copies kept by
+  the optimizer, one pair per dtype group), per-step weights, dynamic
+  schedules, communication every K-th step, and the fused train step
+  :meth:`_GossipOptimizer.make_train_step` (``delayed=True``: one-step
+  stale mixing);
 - windows: :func:`DistributedWinPutOptimizer`,
   :func:`DistributedPullGetOptimizer` and :func:`DistributedPushSumOptimizer`
   over one packed window of :mod:`bluefog_tpu_torch.windows`.
+
+The inner optimizers are :func:`sgd` and :func:`adam`, whose numbers are
+``optax.sgd``'s and ``optax.adam``'s.
 
 A parameter tree is a tensor or a (nested) dict of tensors, each
 ``[size, ...]`` with the worker axis first. Leaves are ordered as
@@ -25,25 +36,36 @@ place with no pack copy.
 
 Unlike optax's pure functions, :meth:`_GossipOptimizer.step` updates the
 given parameter and state tensors in place (it saves a model-sized copy
-per step) and returns them; the window optimizers update their window's
-value in place.
+per step) and returns them; with order ``"grad"`` it also overwrites the
+gradients with their average. The window optimizers update their
+window's value in place.
 """
 
+import enum
 import itertools
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
 import torch
 
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import windows as win_mod
 from bluefog_tpu_torch.collective import inner
+from bluefog_tpu_torch.collective import ops as col_ops
+from bluefog_tpu_torch.collective.plan import CommPlan, SchedulePlan, plan_from_weights
 
 __all__ = [
     "SGD",
     "sgd",
+    "Adam",
+    "adam",
     "tree_leaves",
+    "CommunicationType",
+    "DistributedGradientAllreduceOptimizer",
+    "DistributedAllreduceOptimizer",
     "DistributedNeighborAllreduceOptimizer",
+    "DistributedHierarchicalNeighborAllreduceOptimizer",
     "DistributedAdaptThenCombineOptimizer",
+    "DistributedAdaptWithCombineOptimizer",
     "DistributedWinPutOptimizer",
     "DistributedPullGetOptimizer",
     "DistributedPushSumOptimizer",
@@ -84,35 +106,107 @@ def _tree_zeros_like(tree):
     return type(tree)(_tree_zeros_like(t) for t in tree)
 
 
+def _worker_count(params) -> torch.Tensor:
+    """A zero step count per worker, ``[size]`` int32 on the parameters'
+    device (the optax ``count``, stacked like the rest of the state)."""
+    leaf = tree_leaves(params)[0]
+    return torch.zeros(leaf.shape[0], dtype=torch.int32, device=leaf.device)
+
+
+def _col(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Per-worker vector ``[N]`` shaped to broadcast against ``like``."""
+    return v.to(like.dtype).view((-1,) + (1,) * (like.dim() - 1))
+
+
 class SGD:
     """Functional SGD whose numbers equal ``optax.sgd(lr, momentum)``:
     the trace is ``g + momentum * trace`` from zero, and the update
     ``-lr * trace`` (``-lr * g`` without momentum) is added to the
-    parameters — each as its own rounding step, never fused."""
+    parameters — each as its own rounding step, never fused.
 
-    def __init__(self, learning_rate: float, momentum: Optional[float] = None):
-        self.learning_rate = float(learning_rate)
+    ``learning_rate`` may be a schedule ``count -> lr`` of the per-worker
+    step count (an int32 tensor ``[size]``, from 0), as an optax schedule;
+    the state is then ``{"count": [size] int32, "trace": trace or ()}``."""
+
+    def __init__(self, learning_rate: Union[float, Callable], momentum: Optional[float] = None):
+        self.learning_rate = learning_rate if callable(learning_rate) else float(learning_rate)
         self.momentum = None if momentum is None else float(momentum)
 
     def init(self, params):
-        """The momentum trace (zeros like ``params``), or ``()``."""
-        return () if self.momentum is None else _tree_zeros_like(params)
+        """The momentum trace (zeros like ``params``), or ``()``; with a
+        schedule, the trace beside the step count."""
+        trace = () if self.momentum is None else _tree_zeros_like(params)
+        if callable(self.learning_rate):
+            return {"count": _worker_count(params), "trace": trace}
+        return trace
 
     def apply_(self, params, state, grads) -> None:
         """One update of ``params`` (and the trace in ``state``) in place."""
+        scheduled = callable(self.learning_rate)
+        trace = state["trace"] if scheduled else state
         p_leaves, g_leaves = tree_leaves(params), tree_leaves(grads)
-        t_leaves = tree_leaves(state) if self.momentum is not None else g_leaves
+        t_leaves = tree_leaves(trace) if self.momentum is not None else g_leaves
         if not len(p_leaves) == len(g_leaves) == len(t_leaves):
             raise ValueError("params, grads and state differ in structure")
+        if scheduled:
+            step_size = -torch.as_tensor(self.learning_rate(state["count"]),
+                                         dtype=torch.float32)
         for p, g, t in zip(p_leaves, g_leaves, t_leaves):
             if self.momentum is not None:
                 t.mul_(self.momentum).add_(g)
-            p.add_(t * (-self.learning_rate))
+            if scheduled:
+                p.add_(t * _col(step_size, t))
+            else:
+                p.add_(t * (-self.learning_rate))
+        if scheduled:
+            state["count"].add_(1)
 
 
-def sgd(learning_rate: float, momentum: Optional[float] = None) -> SGD:
+def sgd(learning_rate: Union[float, Callable], momentum: Optional[float] = None) -> SGD:
     """``optax.sgd`` counterpart (no Nesterov)."""
     return SGD(learning_rate, momentum)
+
+
+class Adam:
+    """Functional Adam whose numbers equal ``optax.adam(learning_rate, b1,
+    b2, eps, eps_root)``: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 +
+    b2 nu``, both bias-corrected by ``1 - b ** count`` (count from 1), and
+    the update ``-lr * mu_hat / (sqrt(nu_hat + eps_root) + eps)``. The
+    state is ``{"count": [size] int32, "mu": tree, "nu": tree}``."""
+
+    def __init__(self, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, eps_root: float = 0.0):
+        self.learning_rate = float(learning_rate)
+        self.b1, self.b2 = float(b1), float(b2)
+        self.eps, self.eps_root = float(eps), float(eps_root)
+
+    def init(self, params):
+        return {"count": _worker_count(params), "mu": _tree_zeros_like(params),
+                "nu": _tree_zeros_like(params)}
+
+    def apply_(self, params, state, grads) -> None:
+        """One update of ``params`` and ``state`` in place."""
+        p_leaves, g_leaves = tree_leaves(params), tree_leaves(grads)
+        mu_leaves, nu_leaves = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        if not len(p_leaves) == len(g_leaves) == len(mu_leaves) == len(nu_leaves):
+            raise ValueError("params, grads and state differ in structure")
+        count = state["count"].add_(1).to(torch.float32)
+        f32 = dict(dtype=torch.float32, device=count.device)
+        bc1 = 1.0 - torch.pow(torch.tensor(self.b1, **f32), count)
+        bc2 = 1.0 - torch.pow(torch.tensor(self.b2, **f32), count)
+        for p, g, mu, nu in zip(p_leaves, g_leaves, mu_leaves, nu_leaves):
+            torch.add(g * (1.0 - self.b1), mu * self.b1, out=mu)
+            torch.add((g * g) * (1.0 - self.b2), nu * self.b2, out=nu)
+            mu_hat = mu / _col(bc1, mu)
+            nu_hat = nu / _col(bc2, nu)
+            update = mu_hat / (torch.sqrt(nu_hat + self.eps_root) + self.eps)
+            p.add_(update * (-self.learning_rate))
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         eps_root: float = 0.0) -> Adam:
+    """``optax.adam`` counterpart."""
+    return Adam(learning_rate, b1, b2, eps, eps_root)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -127,22 +221,30 @@ def _dtype_groups(leaves):
     return sorted(groups.items())
 
 
-def _gossip_group(group, fn) -> None:
-    """Gossip one dtype group in place: ``fn`` takes its packed ``[N, n]``
-    payload (the leaf itself for a single leaf) and returns the result."""
-    if len(group) == 1:
-        leaf = group[0]
-        out = fn(leaf)
-        if out.data_ptr() != leaf.data_ptr():
-            leaf.copy_(out)
-        return
+def _pack(group) -> torch.Tensor:
+    """The packed ``[N, n]`` payload of one dtype group: the leaf itself
+    (a view) for a single leaf, else a concatenated copy."""
     n_workers = group[0].shape[0]
-    out = fn(torch.cat([leaf.reshape(n_workers, -1) for leaf in group], dim=1))
+    if len(group) == 1:
+        return group[0].reshape(n_workers, -1)
+    return torch.cat([leaf.reshape(n_workers, -1) for leaf in group], dim=1)
+
+
+def _unpack_(group, out: torch.Tensor) -> None:
+    """Write a packed ``[N, n]`` result back into the group's leaves."""
     off = 0
     for leaf in group:
         n = leaf[0].numel()
-        leaf.copy_(out[:, off:off + n].reshape(leaf.shape))
+        part = out[:, off:off + n]
+        if part.data_ptr() != leaf.data_ptr():
+            leaf.copy_(part.reshape(leaf.shape))
         off += n
+
+
+def _gossip_group(group, fn) -> None:
+    """Gossip one dtype group in place: ``fn`` takes its packed ``[N, n]``
+    payload (the leaf itself for a single leaf) and returns the result."""
+    _unpack_(group, fn(_pack(group)))
 
 
 def _packed_gossip(tree, gossip_fn: Callable[[torch.Tensor], torch.Tensor]) -> None:
@@ -160,51 +262,153 @@ def _packed_gossip_ef(tree, ef_state, ef_combine) -> None:
         _gossip_group(group, lambda flat, st=state: ef_combine(flat, st))
 
 
+def _group_sig(tree):
+    """``((dtype, elements per worker), ...)`` of a tree's dtype groups."""
+    return tuple((name, sum(leaf[0].numel() for leaf in group))
+                 for name, group in _dtype_groups(tree_leaves(tree)))
+
+
+class CommunicationType(enum.Enum):
+    """What a gossip-family optimizer communicates (the JAX package's
+    ``CommunicationType``)."""
+
+    neighbor_allreduce = "neighbor.allreduce"
+    hierarchical_neighbor_allreduce = "hierarchical.neighbor.allreduce"
+    allreduce = "allreduce"
+    empty = "empty"
+
+
 _EF_TIERS = ("int8_ef", "int4_ef")
 
 
-class _GossipOptimizer:
-    """Shared engine of the neighbor-allreduce optimizers.
+class _Dispatch:
+    """One step's resolved communication: ``combine`` maps a packed ``[N,
+    n]`` payload to its combine (``combine(flat, ef_pair)`` for the EF
+    tiers), ``key`` names its structure, ``self_weight()`` gives each
+    worker's self weight ``[N]`` f32 (for the delayed mix), and ``ef`` says
+    whether the combine threads the CHOCO copies."""
 
-    ``compression``: ``None`` (exact combine), ``"int8"`` or ``"int4"``
-    (block-scaled quantized wire, difference form, through the CUDA wire
-    kernels on the card), ``"int8_ef"`` or ``"int4_ef"`` (the same wires
-    with error feedback: the optimizer keeps the CHOCO copies in ``_ef``,
-    one ``(xhat_self [N, d], xhat_recv [R, N, d])`` pair per dtype group,
-    zeroed whenever the group sizes, the plan's rounds or the tier
-    change)."""
+    def __init__(self, key, combine, self_weight, ef=False):
+        self.key, self.combine, self.self_weight, self.ef = key, combine, self_weight, ef
+
+    @property
+    def identity(self) -> bool:
+        """No communication: an off-step, or ``CommunicationType.empty``."""
+        return self.key in (("local",), ("empty",))
+
+
+class _GossipOptimizer:
+    """Shared engine of the allreduce, neighbor and hierarchical families.
+
+    ``order``: ``"cta"`` gossips the parameters before the inner update,
+    ``"atc"`` after, ``"grad"`` averages the gradients instead (allreduce
+    communication only). The knobs are attributes, as in the JAX package:
+
+    - ``compression``: ``None`` (exact combine), ``"int8"`` or ``"int4"``
+      (block-scaled quantized wire, difference form, through the CUDA wire
+      kernels on the card), ``"int8_ef"`` or ``"int4_ef"`` (the same wires
+      with error feedback: the optimizer keeps the CHOCO copies in ``_ef``,
+      one ``(xhat_self [N, d], xhat_recv [R, N, d])`` pair per dtype group,
+      zeroed whenever the group sizes, the plan's rounds or the tier
+      change); the quantized wires on the static or explicit-weight
+      neighbor path and the machine leg of the hierarchical path, the EF
+      tiers on the neighbor path only;
+    - ``self_weight``, ``src_weights``, ``dst_weights``,
+      ``enable_topo_check``: per-step weights, resolved as
+      :func:`bluefog_tpu_torch.neighbor_allreduce` resolves them;
+    - ``schedule``: a dynamic :class:`SchedulePlan` (machine-level for the
+      hierarchical path), indexed by the communication count;
+    - ``neighbor_machine_weights``, ``send_neighbor_machines``: explicit
+      machine-level weights of the hierarchical path (with
+      ``self_weight``, default 0.5);
+    - ``num_steps_per_communication``: communicate on every K-th call; the
+      calls between run the inner update alone, or, for ``"grad"``,
+      accumulate the gradients and leave the parameters as they are."""
 
     _COMPRESSIONS = (None, "int8", "int4") + _EF_TIERS
 
-    def __init__(self, base_optimizer: SGD, order: str):
-        if order not in ("cta", "atc"):
-            raise ValueError(f"order must be 'cta' or 'atc', got {order!r}")
+    def __init__(self, base_optimizer, communication_type: CommunicationType, order: str,
+                 num_steps_per_communication: int = 1):
+        if not isinstance(communication_type, CommunicationType):
+            raise TypeError(
+                f"communication_type must be a CommunicationType, got {communication_type!r}"
+            )
+        if order not in ("cta", "atc", "grad"):
+            raise ValueError(f"order must be 'cta', 'atc' or 'grad', got {order!r}")
+        if order == "grad" and communication_type != CommunicationType.allreduce:
+            raise ValueError("gradient gossip is only defined for allreduce communication")
         self.tx = base_optimizer
+        self.communication_type = communication_type
         self.order = order
+        self.self_weight = None
+        self.src_weights = None
+        self.dst_weights = None
+        self.enable_topo_check = True
         self.compression: Optional[str] = None
-        self._ef = None
-        self._ef_sig = None
+        self.schedule: Optional[SchedulePlan] = None
+        self.neighbor_machine_weights = None
+        self.send_neighbor_machines = None
+        self.num_steps_per_communication = num_steps_per_communication
+        self._step_count = 0
+        self._comm_count = 0  # schedule index: advances per communication
+        self._grad_accum = None  # "grad" order: the gradient sum between communications
+        self._ef = self._ef_sig = None
+        self._delay_buf = self._delay_sig = None
 
     def init(self, params):
         """Per-worker inner-optimizer state (stacked like ``params``)."""
         return self.tx.init(params)
 
     def free(self) -> None:
-        """Drop the error-feedback copies (a later step starts them anew)."""
+        """Drop the error-feedback copies, the delay buffers and the
+        gradient accumulator (a later step starts them anew)."""
         self._ef = self._ef_sig = None
+        self._delay_buf = self._delay_sig = None
+        self._grad_accum = None
+
+    # -- resolution of the communication --------------------------------------
+
+    def _validate_compression(self) -> None:
+        if self.compression is None:
+            return
+        if self.compression not in self._COMPRESSIONS:
+            raise ValueError(
+                f"compression must be one of {self._COMPRESSIONS}, got {self.compression!r}"
+            )
+        comm = self.communication_type
+        if self.compression in _EF_TIERS and (
+            comm != CommunicationType.neighbor_allreduce or self.schedule is not None
+        ):
+            raise ValueError(
+                f"compression={self.compression!r} (error feedback carries "
+                "per-worker state) is only supported on the static-plan "
+                "neighbor_allreduce path"
+            )
+        if comm not in (CommunicationType.neighbor_allreduce,
+                        CommunicationType.hierarchical_neighbor_allreduce) \
+                or self.schedule is not None:
+            raise ValueError(
+                f"compression={self.compression!r} is only supported on the "
+                "static-plan neighbor_allreduce and hierarchical paths (not "
+                "schedules, allreduce, or empty communication)"
+            )
+
+    def _comm_now(self) -> bool:
+        """Communicate on the K-th call; validates K on every call."""
+        k = int(self.num_steps_per_communication)
+        if k < 1:
+            raise ValueError(
+                "num_steps_per_communication must be a positive int, got "
+                f"{self.num_steps_per_communication!r}"
+            )
+        return self._step_count % k == k - 1
 
     def _ensure_ef_state(self, ctx, params, plan) -> None:
         """Zeroed copies whenever the per-worker group sizes, the plan's
         rounds or the tier change: ``xhat_recv[r]`` integrates round
         ``r``'s fixed source, so a stale copy would break the
         bit-identical-copy invariant."""
-        sig = (
-            tuple((name, sum(leaf[0].numel() for leaf in group))
-                  for name, group in _dtype_groups(tree_leaves(params))),
-            plan.perms,
-            self.compression,
-            ctx.device,
-        )
+        sig = (_group_sig(params), plan.perms, self.compression, ctx.device)
         if self._ef_sig == sig:
             return
         self._ef = tuple(
@@ -213,58 +417,360 @@ class _GossipOptimizer:
         )
         self._ef_sig = sig
 
-    def _gossip(self, ctx, params):
-        """This step's in-place gossip of a parameter tree."""
-        if self.compression not in self._COMPRESSIONS:
-            raise ValueError(
-                f"compression must be one of {self._COMPRESSIONS}, got "
-                f"{self.compression!r}"
-            )
-        plan = ctx.static_plan()
+    def _plan_dispatch(self, ctx, params, plan: CommPlan) -> _Dispatch:
+        """The neighbor combine over one plan, in this step's tier."""
         src, self_w, recv_w = inner.plan_operands(plan, ctx.device)
-        if self.compression is None:
-            return lambda tree: _packed_gossip(
-                tree, lambda t: inner.weighted_combine_operands(t, src, self_w, recv_w)
-            )
-        inner._check_combine_normalized(plan, f"compression={self.compression!r}")
-        if self.compression in _EF_TIERS:
-            self._ensure_ef_state(ctx, params, plan)
-            wire = self.compression[:-len("_ef")]
-            return lambda tree: _packed_gossip_ef(
-                tree, self._ef,
-                lambda flat, st: inner.weighted_combine_quantized_ef_operands(
-                    flat, st, src, recv_w, wire=wire, inplace=True
-                ),
-            )
         wire = self.compression
-        return lambda tree: _packed_gossip(
-            tree, lambda t: inner.weighted_combine_quantized_operands(
-                t, src, recv_w, wire=wire, inplace=True
-            )
-        )
+        if wire is None:
+            return _Dispatch(("na", plan.perms),
+                             lambda t: inner.weighted_combine_operands(t, src, self_w, recv_w),
+                             lambda: self_w)
+        inner._check_combine_normalized(plan, f"compression={wire!r}")
+        quantized_self = lambda: 1.0 - recv_w.sum(0)  # noqa: E731
+        if wire in _EF_TIERS:
+            self._ensure_ef_state(ctx, params, plan)
+            base = wire[:-len("_ef")]
+            return _Dispatch(
+                ("na_q_ef", base, plan.perms),
+                lambda flat, st: inner.weighted_combine_quantized_ef_operands(
+                    flat, st, src, recv_w, wire=base, inplace=True),
+                quantized_self, ef=True)
+        return _Dispatch(
+            ("na_q", wire, plan.perms),
+            lambda t: inner.weighted_combine_quantized_operands(
+                t, src, recv_w, wire=wire, inplace=True),
+            quantized_self)
 
-    def step(self, params, state, grads):
-        """One decentralized step over the active topology; updates
-        ``params`` and ``state`` in place and returns ``(params, state)``.
-        CTA gossips the parameters before the inner update, ATC after."""
-        gossip = self._gossip(ctx_mod.get_context(), params)
+    def _schedule_dispatch(self, ctx, sched: SchedulePlan, step: int, local_size=None):
+        """A dynamic schedule at this communication's index (machine-level
+        when ``local_size`` is given)."""
+        size = ctx.size if local_size is None else ctx.machine_size
+        if sched.size != size:
+            what = "machines" if local_size is not None else "workers"
+            raise ValueError(
+                f"opt.schedule is sized for {sched.size} but there are {size} {what}"
+            )
+        if local_size is None:
+            combine = lambda t: inner.neighbor_allreduce_step(t, step, sched)  # noqa: E731
+        else:
+            combine = lambda t: inner.hierarchical_neighbor_allreduce_step(  # noqa: E731
+                t, step, sched, local_size)
+        _src, self_w, _recv_w = inner.schedule_operands(sched, ctx.device)
+        return _Dispatch(("sched", sched, local_size), combine,
+                         lambda: self_w[step % sched.period])
+
+    def _machine_plan(self, ctx) -> CommPlan:
+        if self.neighbor_machine_weights is not None:
+            return plan_from_weights(
+                ctx.machine_size,
+                self.self_weight if self.self_weight is not None else 0.5,
+                self.neighbor_machine_weights,
+                self.send_neighbor_machines,
+                enable_topo_check=self.enable_topo_check
+                and self.send_neighbor_machines is not None,
+            )
+        if ctx.load_machine_topology() is None:
+            raise ValueError(
+                "hierarchical optimizer needs set_machine_topology() or "
+                "explicit neighbor_machine_weights"
+            )
+        return ctx.machine_plan()
+
+    def _hier_dispatch(self, ctx, step: int) -> _Dispatch:
+        """The machine-level gossip: a machine schedule, or the machine
+        plan with its exact combine or the quantized machine leg."""
+        local = ctx.local_size
+        if self.schedule is not None:
+            return self._schedule_dispatch(ctx, self.schedule, step, local)
+        mplan = self._machine_plan(ctx)
+        src, self_w, recv_w = inner.plan_operands(mplan, ctx.device)
+        no_self = lambda: None  # noqa: E731  (the delayed mix refuses this path)
+        if self.compression is not None:
+            inner._check_combine_normalized(mplan, f"compression={self.compression!r}")
+            wire = self.compression
+            return _Dispatch(
+                ("hier_q", wire, mplan.perms),
+                lambda t: inner.hierarchical_neighbor_allreduce_quantized(
+                    t, src, recv_w, local, wire=wire),
+                no_self)
+        return _Dispatch(
+            ("hier", mplan.perms),
+            lambda t: inner.hierarchical_neighbor_allreduce_operands(
+                t, src, self_w, recv_w, local),
+            no_self)
+
+    def _resolve_dispatch(self, ctx, params, comm_now: bool) -> _Dispatch:
+        """This call's communication, shared by :meth:`step` and the fused
+        train step, so a rule cannot reach one and skip the other."""
+        self._validate_compression()
+        comm = self.communication_type
+        if self.schedule is not None and comm not in (
+            CommunicationType.neighbor_allreduce,
+            CommunicationType.hierarchical_neighbor_allreduce,
+        ):
+            raise ValueError(
+                "opt.schedule (a SchedulePlan) only applies to "
+                "neighbor_allreduce or hierarchical communication; "
+                f"this optimizer uses {comm.value!r}"
+            )
+        ones = lambda: torch.ones(ctx.size, dtype=torch.float32, device=ctx.device)  # noqa: E731
+        if not comm_now or comm == CommunicationType.empty:
+            return _Dispatch(("local",) if not comm_now else ("empty",), lambda t: t, ones)
+        step = self._comm_count
+        if comm == CommunicationType.allreduce:
+            return _Dispatch(("allreduce",), lambda t: inner.allreduce(t, average=True),
+                             lambda: ones() / ctx.size)
+        if comm == CommunicationType.hierarchical_neighbor_allreduce:
+            return self._hier_dispatch(ctx, step)
+        if self.schedule is not None:
+            return self._schedule_dispatch(ctx, self.schedule, step)
+        plan = col_ops._resolve_plan(ctx, self.self_weight, self.src_weights,
+                                     self.dst_weights, self.enable_topo_check)
+        return self._plan_dispatch(ctx, params, plan)
+
+    # -- the step -------------------------------------------------------------------
+
+    def _accumulate(self, grads) -> None:
+        """Add an off-step gradient to the ``"grad"`` order's sum."""
+        if self._grad_accum is None:
+            self._grad_accum = [g.clone() for g in tree_leaves(grads)]
+        else:
+            for a, g in zip(self._grad_accum, tree_leaves(grads)):
+                a.add_(g)
+
+    def _take_accumulated(self, grads):
+        """The gradients a communication step applies: this step's plus
+        the sum since the last communication."""
+        if self._grad_accum is None:
+            return grads
+        for a, g in zip(self._grad_accum, tree_leaves(grads)):
+            a.add_(g)
+        out = _tree_unflatten(grads, self._grad_accum)
+        self._grad_accum = None
+        return out
+
+    def _gossip(self, d: _Dispatch, tree) -> None:
+        if d.identity:
+            return
+        if d.ef:
+            _packed_gossip_ef(tree, self._ef, d.combine)
+        else:
+            _packed_gossip(tree, d.combine)
+
+    def _combine_update(self, d: _Dispatch, params, state, grads) -> None:
+        """The gossip + inner-update core of :meth:`step` and the fused
+        train step (the JAX ``_combine_update``), in place."""
+        if self.order == "grad":
+            _packed_gossip(grads, lambda t: inner.allreduce(t, average=True))
         if self.order == "cta":
-            gossip(params)
+            self._gossip(d, params)
         self.tx.apply_(params, state, grads)
         if self.order == "atc":
-            gossip(params)
-        return params, state
+            self._gossip(d, params)
+
+    def step(self, params, opt_state, grads):
+        """One decentralized step; updates ``params`` and ``opt_state`` in
+        place and returns ``(params, opt_state)``."""
+        ctx = ctx_mod.get_context()
+        comm_now = self._comm_now()
+        if not comm_now and self.order == "grad":
+            self._step_count += 1
+            self._accumulate(grads)
+            return params, opt_state
+        d = self._resolve_dispatch(ctx, params, comm_now)
+        if comm_now and self.order == "grad":
+            grads = self._take_accumulated(grads)
+        self._step_count += 1
+        if comm_now:
+            self._comm_count += 1
+        self._combine_update(d, params, opt_state, grads)
+        return params, opt_state
+
+    # -- the fused train step -----------------------------------------------------
+
+    def _ensure_delay_state(self, params, key) -> None:
+        """The ``delayed=True`` double buffer: one packed ``[N, n]`` copy
+        per dtype group of the previous step's gossip input, seeded from
+        the current parameters (step 0 then mixes fresh), rebuilt whenever
+        the groups or the communication structure change."""
+        sig = (_group_sig(params), key)
+        if self._delay_sig == sig:
+            return
+        self._delay_buf = [_pack(group).clone()
+                           for _name, group in _dtype_groups(tree_leaves(params))]
+        self._delay_sig = sig
+
+    def _stale_mix(self, d: _Dispatch, params, sw: torch.Tensor) -> None:
+        """``y = C(buf) + s * (x - buf)`` per dtype group, in place on the
+        parameters, with ``buf`` then refilled with ``x``: the neighbours'
+        values are one step stale, the self weight applies to the fresh
+        ``x`` (the JAX ``stale_mix``)."""
+        for (_name, group), buf in zip(_dtype_groups(tree_leaves(params)), self._delay_buf):
+            fresh = _pack(group)
+            diff = fresh.to(buf.dtype) - buf
+            combined = d.combine(buf)
+            mixed = combined + _col(sw, combined) * diff.to(combined.dtype)
+            buf.copy_(fresh)
+            _unpack_(group, mixed)
+
+    def make_train_step(self, loss_fn, has_aux: bool = False, delayed: bool = False):
+        """The train step: every worker's loss and gradient, the inner
+        update and the gossip, through the same core as :meth:`step`, so
+        the fused and two-program paths are the same arithmetic::
+
+            train_step = opt.make_train_step(loss_fn)
+            params, opt_state, loss = train_step(params, opt_state, *batch)
+
+        ``loss_fn(params, *batch) -> loss`` (``(loss, aux)`` with
+        ``has_aux``) runs per worker on unstacked trees: worker ``j`` gets
+        ``leaf[j]`` of every parameter and ``b[j]`` of every batch operand
+        (a worker-stacked tensor or tree). The gradients are taken worker
+        after worker with ``torch.autograd.grad`` (``torch.func.vmap``
+        cannot run BatchNorm's in-place statistics or the flash attention
+        ``autograd.Function``). Returns ``(params, opt_state, loss [N])``,
+        the loss as ``(loss, aux)`` with ``has_aux``; parameters and state
+        are updated in place.
+
+        ``delayed=True`` (CTA/ATC) mixes against the payload double-buffered
+        from the previous step, the self weight on the fresh value (see
+        :meth:`_stale_mix`); step 0 mixes fresh. It refuses the
+        error-feedback tiers (the CHOCO copies would integrate a stale
+        payload), the hierarchical path, and order ``"grad"``. On one card
+        there is nothing to overlap, so the fused step is the two-program
+        step in one call."""
+        if delayed and self.order == "grad":
+            raise ValueError(
+                "delayed=True applies to the weight-gossip families "
+                "(CTA/ATC); gradient allreduce has no stale-mix variant"
+            )
+        grads_store = []
+
+        def train_step(params, opt_state, *batch):
+            ctx = ctx_mod.get_context()
+            if delayed and self.compression in _EF_TIERS:
+                raise ValueError(
+                    f"compression={self.compression!r} cannot carry error "
+                    "feedback across a one-step delay (the CHOCO copies "
+                    "would integrate a stale payload and desynchronize); use "
+                    "delayed=False or a memoryless wire (None/'int8'/'int4')"
+                )
+            comm_now = self._comm_now()
+            d = self._resolve_dispatch(ctx, params, comm_now)
+            if delayed and self.communication_type == \
+                    CommunicationType.hierarchical_neighbor_allreduce:
+                raise ValueError(
+                    "delayed=True is not supported for hierarchical "
+                    "communication (the intra-machine sum has no stale-mix "
+                    "form); use flat neighbor_allreduce or delayed=False"
+                )
+            delay_now = delayed and comm_now
+            if delay_now:
+                self._ensure_delay_state(params, d.key)
+            loss, aux, grads = _worker_grads(loss_fn, has_aux, params, batch, grads_store)
+            if self.order == "grad" and not comm_now:
+                self._step_count += 1
+                self._accumulate(grads)
+            else:
+                if comm_now and self.order == "grad":
+                    grads = self._take_accumulated(grads)
+                self._step_count += 1
+                if comm_now:
+                    self._comm_count += 1
+                if delay_now:
+                    sw = d.self_weight()
+                    if self.order == "cta":
+                        self._stale_mix(d, params, sw)
+                        self.tx.apply_(params, opt_state, grads)
+                    else:
+                        self.tx.apply_(params, opt_state, grads)
+                        self._stale_mix(d, params, sw)
+                else:
+                    self._combine_update(d, params, opt_state, grads)
+            return params, opt_state, ((loss, aux) if has_aux else loss)
+
+        return train_step
 
 
-def DistributedNeighborAllreduceOptimizer(base_optimizer: SGD) -> _GossipOptimizer:
+def _worker_grads(loss_fn, has_aux, params, batch, store):
+    """Every worker's loss and gradient, one worker after another:
+    ``(loss [N] f32, aux stacked or None, grads)``, the gradients in a tree
+    like ``params`` whose buffers (``store``) are reused from call to call."""
+    leaves = tree_leaves(params)
+    n_workers = leaves[0].shape[0]
+    if len(store) != len(leaves) or any(
+            s.shape != l.shape or s.dtype != l.dtype or s.device != l.device
+            for s, l in zip(store, leaves)):
+        store[:] = [torch.empty_like(l) for l in leaves]
+    losses = torch.empty(n_workers, dtype=torch.float32, device=leaves[0].device)
+    auxes = []
+    for j in range(n_workers):
+        wl = [l[j].detach().requires_grad_(True) for l in leaves]
+        out = loss_fn(_tree_unflatten(params, wl),
+                      *(_tree_unflatten(b, [t[j] for t in tree_leaves(b)]) for b in batch))
+        loss, aux = out if has_aux else (out, None)
+        for dst, g in zip(store, torch.autograd.grad(loss, wl, allow_unused=True)):
+            if g is None:
+                dst[j].zero_()
+            else:
+                dst[j].copy_(g)
+        losses[j] = loss.detach()
+        if has_aux:
+            auxes.append([t.detach() for t in tree_leaves(aux)])
+    stacked_aux = (_tree_unflatten(aux, [torch.stack(ts) for ts in zip(*auxes)])
+                   if has_aux else None)
+    return losses, stacked_aux, _tree_unflatten(params, store)
+
+
+def DistributedGradientAllreduceOptimizer(base_optimizer,
+                                          num_steps_per_communication: int = 1
+                                          ) -> _GossipOptimizer:
+    """Synchronous gradient averaging (Horovod style)."""
+    return _GossipOptimizer(base_optimizer, CommunicationType.allreduce, order="grad",
+                            num_steps_per_communication=num_steps_per_communication)
+
+
+def DistributedAllreduceOptimizer(base_optimizer,
+                                  num_steps_per_communication: int = 1) -> _GossipOptimizer:
+    """CTA with global weight averaging."""
+    return _GossipOptimizer(base_optimizer, CommunicationType.allreduce, order="cta",
+                            num_steps_per_communication=num_steps_per_communication)
+
+
+def DistributedNeighborAllreduceOptimizer(base_optimizer,
+                                          num_steps_per_communication: int = 1
+                                          ) -> _GossipOptimizer:
     """CTA with neighbor weight gossip, the flagship decentralized
     optimizer."""
-    return _GossipOptimizer(base_optimizer, order="cta")
+    return _GossipOptimizer(base_optimizer, CommunicationType.neighbor_allreduce,
+                            order="cta",
+                            num_steps_per_communication=num_steps_per_communication)
 
 
-def DistributedAdaptThenCombineOptimizer(base_optimizer: SGD) -> _GossipOptimizer:
+def DistributedHierarchicalNeighborAllreduceOptimizer(
+        base_optimizer, num_steps_per_communication: int = 1) -> _GossipOptimizer:
+    """CTA with the machine-level gossip: the average over each machine's
+    workers, combined over the machine topology."""
+    return _GossipOptimizer(base_optimizer,
+                            CommunicationType.hierarchical_neighbor_allreduce, order="cta",
+                            num_steps_per_communication=num_steps_per_communication)
+
+
+def DistributedAdaptThenCombineOptimizer(
+        base_optimizer,
+        communication_type: CommunicationType = CommunicationType.neighbor_allreduce,
+        num_steps_per_communication: int = 1) -> _GossipOptimizer:
     """ATC: local step first, then gossip the updated weights."""
-    return _GossipOptimizer(base_optimizer, order="atc")
+    return _GossipOptimizer(base_optimizer, communication_type, order="atc",
+                            num_steps_per_communication=num_steps_per_communication)
+
+
+def DistributedAdaptWithCombineOptimizer(
+        base_optimizer,
+        communication_type: CommunicationType = CommunicationType.neighbor_allreduce,
+        num_steps_per_communication: int = 1) -> _GossipOptimizer:
+    """CTA with a selectable communication type."""
+    return _GossipOptimizer(base_optimizer, communication_type, order="cta",
+                            num_steps_per_communication=num_steps_per_communication)
 
 
 # -- the window optimizers -----------------------------------------------------------

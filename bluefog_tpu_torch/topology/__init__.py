@@ -1,6 +1,7 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
-"""Topology generators (numpy weight matrices) and the dynamic one-peer
-schedules."""
+"""Topology generators (numpy weight matrices), their comparisons, the
+dynamic one-peer schedules and the inference of one direction of a
+dynamic graph from the other."""
 
 from bluefog_tpu_torch.topology.dynamic import (
     GetDynamicOnePeerSendRecvRanks,
@@ -16,15 +17,31 @@ from bluefog_tpu_torch.topology.graphs import (
     FullyConnectedGraph,
     GetRecvWeights,
     GetSendWeights,
+    IsRegularGraph,
+    IsTopologyEquivalent,
+    MeshGrid2DGraph,
+    RandomRegularDigraph,
     RingGraph,
     StarGraph,
+    SymmetricExponentialGraph,
     edges,
     isPowerOf,
+)
+from bluefog_tpu_torch.topology.infer import (
+    InferDestinationFromSourceRanks,
+    InferSourceFromDestinationRanks,
 )
 
 __all__ = [
     "ExponentialGraph",
     "ExponentialTwoGraph",
+    "SymmetricExponentialGraph",
+    "MeshGrid2DGraph",
+    "RandomRegularDigraph",
+    "IsTopologyEquivalent",
+    "IsRegularGraph",
+    "InferSourceFromDestinationRanks",
+    "InferDestinationFromSourceRanks",
     "FullyConnectedGraph",
     "GetRecvWeights",
     "GetSendWeights",

@@ -11,16 +11,21 @@ the same matrix, so edge sets and weights match the JAX generators entry
 for entry.
 """
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 __all__ = [
     "ExponentialTwoGraph",
     "ExponentialGraph",
+    "SymmetricExponentialGraph",
+    "MeshGrid2DGraph",
     "StarGraph",
     "RingGraph",
     "FullyConnectedGraph",
+    "RandomRegularDigraph",
+    "IsTopologyEquivalent",
+    "IsRegularGraph",
     "isPowerOf",
     "edges",
     "GetRecvWeights",
@@ -65,6 +70,52 @@ def ExponentialGraph(size: int, base: int = 2) -> np.ndarray:
     return _circulant(row / row.sum())
 
 
+def SymmetricExponentialGraph(size: int, base: int = 4) -> np.ndarray:
+    """The exponential offsets mirrored around ``size / 2``: offset ``i``
+    is an edge when ``min(i, size - i)`` is a power of ``base``."""
+    if size < 1:
+        raise ValueError(f"size must be positive, got {size}")
+    row = np.zeros(size)
+    row[0] = 1.0
+    for i in range(1, size):
+        index = i if i <= size // 2 else size - i
+        if isPowerOf(index, base):
+            row[i] = 1.0
+    return _circulant(row / row.sum())
+
+
+def MeshGrid2DGraph(size: int, shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """2-D grid (``shape`` rows x columns, default the most square split)
+    with Metropolis-Hastings weights: ``1 / max(deg(i), deg(j))`` between
+    grid neighbours, self loops counted, and the self weight the rest of
+    the row."""
+    if size < 1:
+        raise ValueError(f"size must be positive, got {size}")
+    if shape is None:
+        i = int(np.sqrt(size))
+        while size % i != 0:
+            i -= 1
+        shape = (i, size // i)
+    nrow, ncol = shape
+    if size != nrow * ncol:
+        raise ValueError(f"grid shape {shape} covers {nrow * ncol} nodes, not size={size}")
+    adj = np.zeros((size, size))
+    for i in range(size):
+        adj[i, i] = 1.0
+        if (i + 1) % ncol != 0:  # right neighbour within the row
+            adj[i, i + 1] = adj[i + 1, i] = 1.0
+        if i + ncol < size:  # neighbour in the row below
+            adj[i, i + ncol] = adj[i + ncol, i] = 1.0
+    degree = [np.count_nonzero(adj[i]) for i in range(size)]
+    mat = np.zeros((size, size))
+    for i in range(size):
+        for j in np.nonzero(adj[i])[0]:
+            if i != j:
+                mat[i, j] = 1.0 / max(degree[i], degree[j])
+        mat[i, i] = 1.0 - mat[i].sum()
+    return mat
+
+
 def StarGraph(size: int, center_rank: int = 0) -> np.ndarray:
     """Bidirectional star centred on ``center_rank``: every round of its
     plan is a partial permutation (leaves receive in one round only)."""
@@ -97,6 +148,68 @@ def RingGraph(size: int, connect_style: int = 0) -> np.ndarray:
 def FullyConnectedGraph(size: int) -> np.ndarray:
     """All-to-all with uniform ``1/size`` weights."""
     return _circulant(np.full(size, 1.0 / size))
+
+
+def RandomRegularDigraph(size: int, degree: int, seed: int = 0) -> np.ndarray:
+    """Random ``degree``-regular digraph: the union of ``degree``
+    edge-disjoint random derangements drawn from
+    ``np.random.RandomState(seed)`` (the JAX generator's stream, draw for
+    draw), uniform weights ``1 / (degree + 1)`` over self and the
+    in-neighbours. Where rejection sampling fails 1000 times (the dense
+    regime), the untaken complement is split into perfect matchings by the
+    plan compiler's edge colouring and one is drawn at random."""
+    if not (size > 1 and 0 < degree < size):
+        raise ValueError(
+            f"need 0 < degree < size for a simple digraph, got degree={degree} size={size}"
+        )
+    rng = np.random.RandomState(seed)
+    taken = set()
+    mat = np.zeros((size, size))
+    uniform = 1.0 / (degree + 1)
+    for _ in range(degree):
+        for _attempt in range(1000):
+            perm = rng.permutation(size)
+            if (perm == np.arange(size)).any():
+                continue  # not a derangement
+            if any((i, int(perm[i])) in taken for i in range(size)):
+                continue  # would repeat an edge
+            break
+        else:
+            from bluefog_tpu_torch.collective.compiler import coloring_perms
+
+            remaining = [(i, j) for i in range(size) for j in range(size)
+                         if i != j and (i, j) not in taken]
+            classes = coloring_perms(remaining, size)
+            cls = classes[rng.randint(len(classes))]
+            perm = np.empty(size, np.intp)
+            for i, j in cls:
+                perm[i] = j
+        for i in range(size):
+            taken.add((i, int(perm[i])))
+            mat[i, perm[i]] = uniform
+    for i in range(size):
+        mat[i, i] = uniform
+    return mat
+
+
+def IsTopologyEquivalent(topo1: Optional[np.ndarray], topo2: Optional[np.ndarray]) -> bool:
+    """Weighted-adjacency equality (not isomorphism): the same size and
+    the same nonzero entries with the same weights."""
+    if topo1 is None or topo2 is None:
+        return False
+    a, b = np.asarray(topo1), np.asarray(topo2)
+    if a.shape != b.shape:
+        return False
+    nz1, nz2 = a != 0, b != 0
+    return bool(np.array_equal(nz1, nz2) and np.array_equal(a[nz1], b[nz2]))
+
+
+def IsRegularGraph(topo: np.ndarray) -> bool:
+    """True iff every node has the same degree, in-edges plus out-edges
+    (a self loop counts once each way, as ``networkx`` counts it)."""
+    nz = np.asarray(topo) != 0
+    degree = nz.sum(axis=0) + nz.sum(axis=1)
+    return bool((degree == degree[0]).all())
 
 
 def edges(topo: np.ndarray) -> List[Tuple[int, int]]:

@@ -27,7 +27,34 @@ Phases, one line each; any failure exits non-zero:
                bit-identical (``xhat_recv[r][j] == xhat_self[src[r, j]]``),
                the worker mean is kept to 1e-5, and int4_ef ends at least
                100x below the spread of the memoryless int4 wire;
-6. train    -- the main path, ResNet50 (1000 classes, bf16 compute) on 8
+6. facade   -- every collective of the facade on ``[8, 25 557 504]`` f32
+               (ResNet50's packed width) on the card, 4 machines x 2, the
+               weighted Exp2 graph: ``allreduce``, ``allgather``,
+               ``broadcast``, ``neighbor_allreduce`` with explicit weights,
+               with one step of one-peer dynamic weights (exact and int8),
+               ``neighbor_allgather`` exact, bf16, int8 and int4,
+               ``hierarchical_neighbor_allreduce`` on the ring of machines,
+               ``pair_gossip``; each timed once with CUDA events beside its
+               byte bound and held against the same call on a CPU copy
+               (the plain versions): bitwise for the copies and the wires,
+               ``FACADE_TOL`` of the largest value for the sums; then one
+               nonblocking op of each kind through ``synchronize``, bitwise
+               its blocking twin; ``barrier``; launch counts zeroed just
+               before and read just after the card's ops;
+7. train-step -- ResNet50 as below through ``opt.make_train_step
+               (sm.worker_loss)`` with the weighted Exp2 graph and
+               ``sgd(0.1, 0.9)``: atc, atc/int8, atc/int4_ef,
+               grad-allreduce, hier/int8 (4 machines x 2, ring of
+               machines), cta k=2 and atc/int8 delayed, each 1 warm-up and
+               2 timed steps from the replicated parameters; every tier but
+               the delayed one then runs the same steps as two programs
+               (``loss_and_grad``, ``opt.step``) from the same parameters
+               and batch statistics, and the parameters must agree bit for
+               bit (cuDNN's deterministic algorithms); one line per tier
+               with step s, images/s, optimizer ms and peak GiB; launch
+               counts zeroed just before each tier's fused steps and read
+               just after;
+8. train    -- the main path, ResNet50 (1000 classes, bf16 compute) on 8
                virtual workers, 64 images of 224x224 each, seeded synthetic
                data, ``sgd(0.1, 0.9)`` on the default Exp graph, in three
                paths, each with the kernels' launch counts zeroed just before
@@ -41,11 +68,11 @@ Phases, one line each; any failure exits non-zero:
                        gradients taken at ``params()``), then one step at
                        lr = 0 that holds the x mass to 1e-5 of sum |x| and
                        the p mass to 8;
-7. profile  -- one ATC int8 step under ``torch.profiler``;
-8. kernels  -- each wire kernel against its plain version at the main
+9. profile  -- one ATC int8 step under ``torch.profiler``;
+10. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
-9. flash-parity -- the flash kernels (``flash_fwd``, ``flash_bwd_dkv``,
+11. flash-parity -- the flash kernels (``flash_fwd``, ``flash_bwd_dkv``,
                ``flash_bwd_dq``) against their plain versions on the card,
                on q/k/v split from one fused projection as the model gives
                them: bf16 at the transformer's shape (b 2, T 4096, 16
@@ -62,7 +89,7 @@ Phases, one line each; any failure exits non-zero:
                ``FLASH_ROW_TOL_F32_WIDE``), and each case's three
                kernels on the routes ``FLASH_ROUTES`` names (``sm90``:
                wgmma fed by TMA);
-10. train, path transformer -- ``TransformerLM`` (vocab 16384, dim 1024, 16
+12. train, path transformer -- ``TransformerLM`` (vocab 16384, dim 1024, 16
                heads, 12 layers, T 4096, bf16 compute over f32 parameters:
                188 872 704 per worker) on 8 virtual workers, 2 sequences of
                seeded random tokens each, next-token loss, ``sgd(0.01,
@@ -73,7 +100,7 @@ Phases, one line each; any failure exits non-zero:
                then worker 0's forward at full
                size with every block's attention held against the plain
                version on its own q, k, v, and one profiled ATC int8 step;
-11. dryrun   -- the dry run of ``__graft_entry__.dryrun_multichip``
+13. dryrun   -- the dry run of ``__graft_entry__.dryrun_multichip``
                (``bluefog_tpu_torch.dryrun.DryRun``): 8 workers as 4
                machines x 2, one-peer Exp2 gossip on the step index
                (period 3), the hierarchical loss average on the weighted
@@ -84,7 +111,7 @@ Phases, one line each; any failure exits non-zero:
                ``DRYRUN_TOL`` and each step's ring attention row by row to
                the f32 ``FLASH_ROW_TOL``; launch counts zeroed just before
                and read just after;
-12. train, path long-context -- ``examples/long_context.py`` at the
+14. train, path long-context -- ``examples/long_context.py`` at the
                transformer's width: one ``TransformerLM`` (vocab 16384,
                dim 1024, 16 heads, 12 layers, max_len 8192, bf16 compute
                over f32 parameters), 2 seeded sequences of 8192 tokens
@@ -98,7 +125,7 @@ Phases, one line each; any failure exits non-zero:
                device time); then block 0's
                ring attention at full size against the plain versions on
                the whole 8192-token sequence;
-13. kernels  -- the flash kernels at the transformer's shape, timed beside
+15. kernels  -- the flash kernels at the transformer's shape, timed beside
                their operation bound, their plain versions,
                ``F.scaled_dot_product_attention`` (the yardstick only:
                the port never calls it) and the ``mma`` route's kernel on
@@ -155,6 +182,9 @@ BATCH = 64
 IMAGE = 224
 WARMUP, TIMED = 2, 4
 RESNET50_PARAMS = 25_557_032  # the flax ResNet50 at 1000 classes
+RESNET50_WIDTH = 25_557_504  # its packed width: whole 512-element wire blocks
+LOCAL = 2  # workers per machine in the facade and train-step phases
+FACADE_TOL = 1e-6  # of the largest |value|: the facade's inexact ops, card vs CPU
 # bench.py::run_transformer's configuration on a chip, in full
 LM_CONFIG = dict(vocab=16384, dim=1024, heads=16, layers=12, max_len=4096)
 LM_SEQ, LM_BATCH = 4096, 2
@@ -196,6 +226,10 @@ DECODE_MAPPING = ("4 blocks per warp, all loads before the stores, each warp-wid
                   "float4 store one contiguous 512-byte run")
 # the kernels each path of the train phase must launch
 PATH_KERNELS = {
+    # the facade's quantized neighbor_allreduce and neighbor_allgather
+    "facade": ("encode", "decode"),
+    # the fused ResNet50 steps of every optimizer tier
+    "train-step": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
     "wire": ("encode", "decode_accumulate"),
     "ef": ("encode_diff", "decode_add"),
     "push-sum": ("encode", "decode"),
@@ -471,6 +505,313 @@ def phase_ef(device, n=1 << 20, rounds=60):
               f"int4_ef is {ratio:.4g}x below it")
     if not spreads["int4_ef"] * 100 <= spreads["int4"]:
         raise AssertionError(f"int4_ef spread only {ratio:.3g}x below int4 (< 100x)")
+
+
+def facade_context(device):
+    """The facade's context: 8 workers as 4 machines x 2, the weighted
+    Exp2 graph, the unweighted ring of machines."""
+    bft.init(size=SIZE, device=device, nodes_per_machine=LOCAL)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    bft.set_machine_topology(topo.RingGraph(SIZE // LOCAL))
+
+
+def one_peer_weights(step=1):
+    """``(self_weight, src_weights, dst_weights)`` of one step of
+    ``GetDynamicOnePeerSendRecvRanks`` over the exponential graph."""
+    gens = [topo.GetDynamicOnePeerSendRecvRanks(topo.ExponentialGraph(SIZE), r)
+            for r in range(SIZE)]
+    for _ in range(step):
+        for g in gens:
+            next(g)
+    pairs = [next(g) for g in gens]
+    return ([1.0 / (len(recv) + 1) for _s, recv in pairs],
+            [{i: 1.0 / (len(recv) + 1) for i in recv} for _s, recv in pairs],
+            [list(send) for send, _r in pairs])
+
+
+def facade_ops():
+    """``name -> (call, exact, bytes moved / x.nbytes)``: each facade op on
+    a worker tensor ``x``; ``exact`` ops must be bitwise equal across
+    devices, the others within ``FACADE_TOL``. The byte factor counts the
+    input read once and the output written once (a broadcast reads one
+    row; the gathers write ``max_in_degree`` = 3 rows per worker)."""
+    topology = topo.ExponentialTwoGraph(SIZE)
+    self_w = [float(topology[j, j]) for j in range(SIZE)]
+    src_w = [{int(i): float(topology[i, j]) for i in np.nonzero(topology[:, j])[0] if i != j}
+             for j in range(SIZE)]
+    dyn_self, dyn_src, dyn_dst = one_peer_weights()
+    gather = lambda wire: lambda x: torch.stack(  # noqa: E731
+        [r for r in bft.neighbor_allgather(x, compression=wire)])
+    return {
+        "allreduce": (lambda x: bft.allreduce(x), False, 2),
+        "allgather": (lambda x: bft.allgather(x), True, 1 + SIZE),
+        "broadcast": (lambda x: bft.broadcast(x, 3), True, 1 + 1 / SIZE),
+        "neighbor_allreduce explicit": (
+            lambda x: bft.neighbor_allreduce(x, self_weight=self_w, src_weights=src_w),
+            False, 2),
+        "neighbor_allreduce dynamic": (
+            lambda x: bft.neighbor_allreduce(x, self_weight=dyn_self, src_weights=dyn_src,
+                                             dst_weights=dyn_dst), False, 2),
+        "neighbor_allreduce dynamic int8": (
+            lambda x: bft.neighbor_allreduce(x, self_weight=dyn_self, src_weights=dyn_src,
+                                             dst_weights=dyn_dst, compression="int8"),
+            True, 2),
+        "neighbor_allgather": (gather(None), True, 4),
+        "neighbor_allgather bf16": (gather("bf16"), True, 4),
+        "neighbor_allgather int8": (gather("int8"), True, 4),
+        "neighbor_allgather int4": (gather("int4"), True, 4),
+        "hierarchical_neighbor_allreduce": (
+            lambda x: bft.hierarchical_neighbor_allreduce(x), False, 2),
+        "pair_gossip": (lambda x: bft.pair_gossip(x, [(0, 5), (1, 2), (3, 7)]), False, 2),
+    }
+
+
+def nonblocking_ops():
+    """One nonblocking op of each kind, ``name -> (start, blocking twin)``."""
+    dyn_self, dyn_src, dyn_dst = one_peer_weights()
+    return {
+        "allreduce": (bft.allreduce_nonblocking, bft.allreduce),
+        "allgather": (bft.allgather_nonblocking, bft.allgather),
+        "broadcast": (lambda x: bft.broadcast_nonblocking(x, 3), lambda x: bft.broadcast(x, 3)),
+        "neighbor_allreduce int8": (
+            lambda x: bft.neighbor_allreduce_nonblocking(
+                x, self_weight=dyn_self, src_weights=dyn_src, dst_weights=dyn_dst,
+                compression="int8"),
+            lambda x: bft.neighbor_allreduce(
+                x, self_weight=dyn_self, src_weights=dyn_src, dst_weights=dyn_dst,
+                compression="int8")),
+        "neighbor_allgather int4": (
+            lambda x: bft.neighbor_allgather_nonblocking(x, compression="int4"),
+            lambda x: bft.neighbor_allgather(x, compression="int4")),
+        "hierarchical_neighbor_allreduce": (bft.hierarchical_neighbor_allreduce_nonblocking,
+                                            bft.hierarchical_neighbor_allreduce),
+        "pair_gossip": (lambda x: bft.pair_gossip_nonblocking(x, [(0, 5)]),
+                        lambda x: bft.pair_gossip(x, [(0, 5)])),
+    }
+
+
+def as_tensor(out):
+    return torch.stack(out) if isinstance(out, list) else out
+
+
+def phase_facade(device, rate, n=RESNET50_WIDTH):
+    """Every facade op on ``[8, n]`` f32 on the card, timed once with CUDA
+    events beside its byte bound, against the same call on a CPU copy of
+    the input (the plain versions); then one nonblocking op of each kind
+    through ``synchronize`` against its blocking twin on the card. Returns
+    the launch counts of the card's ops, zeroed just before and read just
+    after."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(SIZE, n, generator=gen, device=device) * 5.0
+    x_cpu = x.cpu()
+    ops = facade_ops()
+    results, counts = {}, {k: 0 for k in launch_counts()}
+    for name, (call, _exact, _factor) in ops.items():
+        facade_context(device)
+        reset_launch_counts()
+        call(x)  # warm-up: the allocator's first segments
+        sync(device)
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = as_tensor(call(x))
+            end.record()
+            sync(device)
+            ms = start.elapsed_time(end)
+        else:
+            out, ms = as_tensor(call(x)), float("nan")
+        for k, v in launch_counts().items():
+            counts[k] += v
+        results[name] = (out.cpu(), ms)
+        del out
+    t0 = time.perf_counter()
+    facade_context(torch.device("cpu"))
+    for name, (call, exact, factor) in ops.items():
+        t_cpu = time.perf_counter()
+        want = as_tensor(call(x_cpu))
+        t_cpu = time.perf_counter() - t_cpu
+        got, ms = results.pop(name)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"facade {name}: {tuple(got.shape)} {got.dtype} on the card, "
+                                 f"{tuple(want.shape)} {want.dtype} on the CPU")
+        scale = float(want.abs().max())
+        same = torch.equal(bits(got), bits(want))
+        err = 0.0 if same else float((got - want).abs().max())
+        bound = factor * x.numel() * x.element_size() / rate * 1e3
+        log("facade", f"{name}: {ms:.3f} ms on the card (bound {bound:.3f} ms, "
+                      f"{100 * bound / ms:.1f}% of it), max |card - cpu| {err:.3g} "
+                      f"({'bitwise equal' if same else f'tolerance {FACADE_TOL * scale:.3g}'}); "
+                      f"the CPU's call {t_cpu:.2f} s")
+        if exact and not same:
+            raise AssertionError(f"facade {name}: not bitwise equal to the CPU's result "
+                                 f"(max diff {err:.3g})")
+        if not err <= FACADE_TOL * scale:
+            raise AssertionError(f"facade {name}: max |card - cpu| {err:.3g} > "
+                                 f"{FACADE_TOL} * {scale:.3g}")
+        del want, got
+    log("facade", f"CPU references in {time.perf_counter() - t0:.1f} s")
+    del x_cpu
+    facade_context(device)
+    for name, (start_op, blocking) in nonblocking_ops().items():
+        reset_launch_counts()
+        handle = start_op(x)
+        polled = bft.poll(handle)
+        got = as_tensor(bft.synchronize(handle))
+        want = as_tensor(blocking(x))
+        for k, v in launch_counts().items():
+            counts[k] += v
+        if not bft.poll(handle) or not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"facade {name}_nonblocking: synchronize differs from "
+                                 "the blocking op, or the handle is still pending")
+        log("facade", f"{name}_nonblocking: synchronize bitwise equal to the blocking op "
+                      f"(poll before synchronize: {polled})")
+        del got, want
+    bft.barrier()
+    del x
+    log("facade", f"launches {counts}")
+    return counts
+
+
+def train_step_tiers():
+    """``name -> (factory, compression, K, delayed)`` of the train-step
+    phase."""
+    return {
+        "atc": (bft.DistributedAdaptThenCombineOptimizer, None, 1, False),
+        "atc/int8": (bft.DistributedAdaptThenCombineOptimizer, "int8", 1, False),
+        "atc/int4_ef": (bft.DistributedAdaptThenCombineOptimizer, "int4_ef", 1, False),
+        "grad-allreduce": (bft.DistributedGradientAllreduceOptimizer, None, 1, False),
+        "hier/int8": (bft.DistributedHierarchicalNeighborAllreduceOptimizer, "int8", 1, False),
+        "cta k=2": (bft.DistributedNeighborAllreduceOptimizer, None, 2, False),
+        "atc/int8 delayed": (bft.DistributedAdaptThenCombineOptimizer, "int8", 1, True),
+    }
+
+
+def phase_train_step(device, sm, images, labels, warmup=1, timed=2, smi=""):
+    """ResNet50 through ``opt.make_train_step(sm.worker_loss)``: each tier
+    ``warmup + timed`` fused steps from the replicated parameters, then
+    (all but the delayed tier) the same steps as two programs,
+    ``loss_and_grad`` then ``opt.step``, from the same parameters and
+    batch statistics: the parameters must agree bit for bit. cuDNN runs
+    its deterministic algorithms here, so two runs of one gradient agree.
+    Returns ``(launch counts of the fused steps, each zeroed just before
+    a tier's fused run and read just after, {tier: numbers})``."""
+    bft.init(size=SIZE, device=device, nodes_per_machine=LOCAL)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    bft.set_machine_topology(topo.RingGraph(SIZE // LOCAL))
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    params0 = sm.replicate()
+    workers = torch.arange(SIZE)  # host-side worker indices: no read-back per worker
+    counts = {k: 0 for k in launch_counts()}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    numbers = {}
+    try:
+        for name, (factory, compression, k, delayed) in train_step_tiers().items():
+            row = {}
+            for fused in ((True,) if delayed else (True, False)):
+                sm.load_buffers(stats0)
+                opt = factory(bft.sgd(0.1, momentum=0.9), num_steps_per_communication=k)
+                opt.compression = compression
+                params = params0.clone()
+                state = opt.init(params)
+                if fused:
+                    step = opt.make_train_step(sm.worker_loss, delayed=delayed)
+                else:
+                    grads = torch.empty_like(params)
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(device)
+                if fused:
+                    reset_launch_counts()
+                times, losses = [], []
+                for i in range(warmup + timed):
+                    sync(device)
+                    t0 = time.perf_counter()
+                    if fused:
+                        params, state, loss = step(params, state, images, labels, workers)
+                        sync(device)
+                        t1 = t2 = time.perf_counter()
+                    else:
+                        loss = sm.loss_and_grad(params, images, labels, grads)[0]
+                        sync(device)
+                        t1 = time.perf_counter()
+                        opt.step(params, state, grads)
+                        sync(device)
+                        t2 = time.perf_counter()
+                    losses.append(loss.float().cpu())
+                    if i >= warmup:
+                        times.append((t2 - t0, t1 - t0, t2 - t1))
+                if fused:
+                    for key, v in launch_counts().items():
+                        counts[key] += v
+                table = torch.stack(losses)
+                if not torch.isfinite(table).all() or not torch.isfinite(params).all():
+                    raise AssertionError(f"train-step {name}: non-finite loss or parameters")
+                med = [statistics.median(t[c] for t in times) for c in range(3)]
+                peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                        if device.type == "cuda" else float("nan"))
+                if fused:
+                    row.update(step_s=med[0], peak_gib=peak, params=params,
+                               losses=[float(r.mean()) for r in table])
+                else:
+                    row.update(fb_s=med[1], opt_ms=med[2] * 1e3, two_program_step_s=med[0],
+                               two_program_peak_gib=peak)
+                    fused_params = row.pop("params")
+                    if not torch.equal(bits(fused_params), bits(params)):
+                        raise AssertionError(
+                            f"train-step {name}: the fused parameters differ from the "
+                            f"two-program path's (max diff "
+                            f"{float((fused_params - params).abs().max()):.3g})")
+                    del fused_params
+                opt.free()
+                del opt, state, params
+                grads = None
+            row.pop("params", None)
+            numbers[name] = row
+        # the delayed tier has no two-program form: time the fused step on a
+        # zero-cost loss (its gradient pass a row copy per worker), beside
+        # atc/int8's on the same loss
+        for name in ("atc/int8", "atc/int8 delayed"):
+            factory, compression, k, delayed = train_step_tiers()[name]
+            opt = factory(bft.sgd(0.1, momentum=0.9), num_steps_per_communication=k)
+            opt.compression = compression
+            params = params0.clone()
+            state = opt.init(params)
+            step = opt.make_train_step(lambda row, *_batch: row.sum() * 0.0, delayed=delayed)
+            times = []
+            for i in range(warmup + timed):
+                sync(device)
+                t0 = time.perf_counter()
+                step(params, state, images, labels, workers)
+                sync(device)
+                if i >= warmup:
+                    times.append(time.perf_counter() - t0)
+            numbers[name]["zero_loss_ms"] = statistics.median(times) * 1e3
+            opt.free()
+            del opt, state, params
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        sm.load_buffers(stats0)
+    delayed_row = numbers["atc/int8 delayed"]
+    delayed_row["opt_ms"] = delayed_row["zero_loss_ms"]
+    log("train-step", f"fused step on a zero-cost loss: atc/int8 "
+                      f"{numbers['atc/int8']['zero_loss_ms']:.1f} ms, atc/int8 delayed "
+                      f"{delayed_row['zero_loss_ms']:.1f} ms")
+    for name, row in numbers.items():
+        opt_from = ("the two-program opt.step" if "two_program_step_s" in row
+                    else "the fused step on a zero-cost loss")
+        log("train-step", f"{name}: step {row['step_s']:.4f} s, "
+                          f"{SIZE * images.shape[1] / row['step_s']:.1f} images/s, optimizer "
+                          f"{row['opt_ms']:.1f} ms ({opt_from}), peak {row['peak_gib']:.2f} GiB; "
+                          "losses "
+                          f"{', '.join(f'{v:.5f}' for v in row['losses'])}"
+                          + ("" if "two_program_step_s" not in row else
+                             f"; two-program step {row['two_program_step_s']:.4f} s "
+                             f"(forward+backward {row['fb_s']:.4f} s), parameters bitwise "
+                             "equal to the fused step's")
+                          + f"; on {smi}")
+    log("train-step", f"launches of the fused steps {counts}")
+    bft.init(size=SIZE, device=device)
+    return counts, numbers
 
 
 def build_trainer(device, stage_sizes=None, num_filters=64, batch=BATCH, image=IMAGE,
@@ -1575,12 +1916,17 @@ def main():
     phase_parity(device)
     phase_consensus(device)
     phase_ef(device)
+    counts = {"facade": phase_facade(device, memory_rate(kind))}
+    torch.cuda.empty_cache()
 
     sm, images, labels = build_trainer(device)
-    if sm.n_params != RESNET50_PARAMS:
-        raise AssertionError(f"ResNet50 has {sm.n_params} parameters, expected {RESNET50_PARAMS}")
+    if sm.n_params != RESNET50_PARAMS or sm.width != RESNET50_WIDTH:
+        raise AssertionError(f"ResNet50 has {sm.n_params} parameters ({sm.width} packed), "
+                             f"expected {RESNET50_PARAMS} ({RESNET50_WIDTH})")
+    counts["train-step"], _tiers = phase_train_step(device, sm, images, labels, smi=smi)
+    torch.cuda.empty_cache()
     trainer = Trainer(device, sm, images, labels)
-    counts = phase_train(trainer)
+    counts.update(phase_train(trainer))
     med = trainer.tiers["atc/int8"]["median"]
     log("train", f"ResNet50 x{SIZE} workers, {BATCH} images of {IMAGE}x{IMAGE} each, "
                  f"{sm.n_params} parameters per worker ({sm.width} packed); atc/int8: "

@@ -635,3 +635,127 @@ def test_dryrun_on_card_equals_cpu(cuda):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
     for got, want in zip(runs["cuda_attn"], runs["cpu_attn"]):
         assert _row_err(got, want) <= _ROW_TOL[torch.float32]["out"], _row_err(got, want)
+
+
+def _facade_context(dev):
+    bft.init(size=SIZE, device=dev, nodes_per_machine=2)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    bft.set_machine_topology(topo.RingGraph(SIZE // 2))
+
+
+def _facade_ops():
+    """``name -> (call, bitwise)``: the copies and the quantized wires are
+    bitwise equal across devices, the sums within 1e-6 of the largest
+    value (another summation order)."""
+    gens = [topo.GetDynamicOnePeerSendRecvRanks(topo.ExponentialGraph(SIZE), r)
+            for r in range(SIZE)]
+    pairs = [next(g) for g in gens]
+    dyn = dict(self_weight=[1.0 / (len(r) + 1) for _s, r in pairs],
+               src_weights=[{i: 1.0 / (len(r) + 1) for i in r} for _s, r in pairs],
+               dst_weights=[list(s) for s, _r in pairs])
+    gather = lambda wire: lambda x: torch.stack(  # noqa: E731
+        bft.neighbor_allgather(x, compression=wire))
+    return {
+        "allreduce": (bft.allreduce, False),
+        "allgather": (bft.allgather, True),
+        "broadcast": (lambda x: bft.broadcast(x, 5), True),
+        "neighbor_allreduce dynamic": (lambda x: bft.neighbor_allreduce(x, **dyn), False),
+        "neighbor_allreduce dynamic int4": (
+            lambda x: bft.neighbor_allreduce(x, compression="int4", **dyn), True),
+        "neighbor_allgather": (gather(None), True),
+        "neighbor_allgather bf16": (gather("bf16"), True),
+        "neighbor_allgather int8": (gather("int8"), True),
+        "neighbor_allgather int4": (gather("int4"), True),
+        "hierarchical": (bft.hierarchical_neighbor_allreduce, False),
+        "pair_gossip": (lambda x: bft.pair_gossip(x, [(0, 3), (5, 6)]), False),
+        "allreduce nonblocking": (lambda x: bft.synchronize(bft.allreduce_nonblocking(x)), False),
+        "neighbor_allgather int8 nonblocking": (
+            lambda x: torch.stack(bft.synchronize(
+                bft.neighbor_allgather_nonblocking(x, compression="int8"))), True),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(_facade_ops()))
+def test_facade_on_card_matches_cpu(cuda, op):
+    """Each facade op on the card against the same call on the CPU (the
+    plain versions), on a ragged width; the int8/int4 wires launch their
+    kernels."""
+    call, bitwise = _facade_ops()[op]
+    x = ragged_input(torch.device("cpu"), seed=21)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        _facade_context(dev)
+        before = kernels.launch_counts()
+        outs[dev.type] = call(x.to(dev)).cpu()
+        if dev.type == "cuda" and ("int8" in op or "int4" in op):
+            after = kernels.launch_counts()
+            assert after["encode"] > before["encode"]
+    got, want = outs["cuda"], outs["cpu"]
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if bitwise:
+        assert torch.equal(_bits(got), _bits(want))
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", WIRES)
+def test_neighbor_allgather_quantized_on_card_is_bitwise_the_cpu(cuda, wire):
+    """int8/int4 ``neighbor_allgather`` on the ragged star graph: the
+    card's ``encode`` and ``decode`` kernels give the CPU's bits."""
+    x = ragged_input(torch.device("cpu"), seed=22)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        bft.init(size=SIZE, device=dev)
+        bft.set_topology(topo.StarGraph(SIZE))
+        outs[dev.type] = [t.cpu() for t in bft.neighbor_allgather(x.to(dev), compression=wire)]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compression", [None, "int8"])
+def test_make_train_step_on_card_matches_cpu(cuda, compression):
+    """Two fused steps of a small f32 ResNet through ``make_train_step`` on
+    the card (TF32 off) and on the CPU from the same parameters: losses to
+    1e-4, parameters within 1e-4 of the largest (convolutions sum in
+    another order on the card), or with the int8 wire within one quantum
+    (the largest value / 127) a step, since a value that lands on the
+    other side of a rounding boundary moves by a whole quantum. 8 images
+    of 64x64 a worker: with 2 of 32x32 the last stages' BatchNorm
+    normalizes over 2 values, and the card's gradient differs from the
+    CPU's by 1e-3 of its norm already at the first step."""
+    from bluefog_tpu_torch.models import ResNet50, StackedModel, resnet
+
+    outs = {}
+    gen = torch.Generator().manual_seed(3)
+    images = torch.randn(SIZE, 8, 64, 64, 3, generator=gen)
+    labels = torch.randint(0, 10, (SIZE, 8), generator=gen)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            bft.init(size=SIZE, device=dev)
+            model = resnet.init_flax_like(ResNet50(num_classes=10, num_filters=8,
+                                                   stage_sizes=[1, 1, 1, 1],
+                                                   dtype=torch.float32), 0)
+            sm = StackedModel(model, SIZE, dev)
+            opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+            opt.compression = compression
+            params = sm.replicate()
+            state = opt.init(params)
+            step = opt.make_train_step(sm.worker_loss)
+            for _ in range(2):
+                params, state, loss = step(params, state, images.to(dev), labels.to(dev),
+                                           torch.arange(SIZE))
+            outs[dev.type] = (params.cpu(), loss.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (pg, lg), (pw, lw) = outs["cuda"], outs["cpu"]
+    assert torch.isfinite(pg).all()
+    torch.testing.assert_close(lg, lw, rtol=1e-4, atol=1e-4)
+    scale = float(pw.abs().max())
+    tol = 1e-4 * scale if compression is None else 2 * scale / 127
+    torch.testing.assert_close(pg, pw, rtol=0, atol=tol)

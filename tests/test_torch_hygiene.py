@@ -39,7 +39,8 @@ def test_port_sources_exist():
     names = {p.name for p in _port_sources()}
     assert {"chip_smoke.py", "kernels.py", "optimizers.py", "resnet.py", "windows.py",
             "flash.py", "attention.py", "transformer.py", "dynamic.py", "mlp.py",
-            "long_context.py", "dryrun.py"} <= names
+            "long_context.py", "dryrun.py", "ops.py", "inner.py", "plan.py", "infer.py",
+            "graphs.py", "utility.py", "context.py", "stacked.py"} <= names
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
         assert (ROOT / "bluefog_tpu_torch" / "csrc" / source).is_file()
 
