@@ -6,15 +6,17 @@ tensors; a gossip round is a gather along that axis. The facade mirrors
 ``bluefog_tpu``'s names for the ported slice: ``init`` with the machines x
 local split, the rank and topology queries (machine level included), the
 collectives (``allreduce``, ``allgather``, ``broadcast``,
-``neighbor_allreduce`` exact or on the int8/int4 wire with explicit or
-dynamic weights, ``neighbor_allgather`` on the bf16/int8/int4 wire,
+``neighbor_allreduce`` exact or on the bf16/int8/int4 wire with explicit
+or dynamic weights, ``neighbor_allgather`` on the bf16/int8/int4 wire,
 ``hierarchical_neighbor_allreduce``, ``pair_gossip``, ``barrier``), each
 with a ``*_nonblocking`` form and ``poll``/``synchronize``/``wait``; the
 gossip optimizers (gradient and weight allreduce, CTA/ATC neighbor gossip
-on the int8/int4 wires and their error-feedback tiers int8_ef/int4_ef,
+on the bf16/int8/int4 wires and the error-feedback tiers int8_ef/int4_ef,
 hierarchical) with ``make_train_step``, ``sgd`` and ``adam``; the
+asynchronous push-sum gossip ``make_async_train_step``; the
 parameter broadcast/allreduce utilities; the
-window ops (``win_*``, the associated-p lane) and the window optimizers
+window ops (``win_*``, the associated-p lane, the age lane
+``get_win_age``) and the window optimizers
 (win-put, pull-get, push-sum), and ``ops`` (``flash_attention``,
 ``flash_attention_with_lse``, ``reference_attention``); the models
 (ResNet, ``TransformerLM``) are in :mod:`bluefog_tpu_torch.models`. The
@@ -23,7 +25,7 @@ for Hopper (``csrc/wire_kernels.cu``, ``csrc/flash_kernels.cu``). Entry
 points run on ``"cuda"`` unless ``device="cpu"`` is passed.
 """
 
-from bluefog_tpu_torch import collective, ops, topology
+from bluefog_tpu_torch import async_gossip, collective, ops, topology
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.collective.ops import (
     allgather,
@@ -72,8 +74,10 @@ from bluefog_tpu_torch.utility import (
     broadcast_optimizer_state,
     broadcast_parameters,
 )
+from bluefog_tpu_torch.async_gossip import make_async_train_step
 from bluefog_tpu_torch.windows import (
     get_current_created_window_names,
+    get_win_age,
     get_win_version,
     turn_off_win_ops_with_associated_p,
     turn_on_win_ops_with_associated_p,
@@ -84,6 +88,7 @@ from bluefog_tpu_torch.windows import (
     win_free,
     win_get,
     win_get_nonblocking,
+    win_mutex,
     win_poll,
     win_put,
     win_put_nonblocking,
@@ -188,6 +193,7 @@ def out_neighbor_ranks(rank: int = None):
 
 
 __all__ = [
+    "async_gossip",
     "ops",
     "topology",
     "topology_util",
@@ -234,6 +240,7 @@ __all__ = [
     "wait",
     "barrier",
     "make_train_step",
+    "make_async_train_step",
     "sgd",
     "adam",
     "CommunicationType",
@@ -263,6 +270,8 @@ __all__ = [
     "win_wait",
     "win_poll",
     "get_win_version",
+    "get_win_age",
+    "win_mutex",
     "get_current_created_window_names",
     "turn_on_win_ops_with_associated_p",
     "turn_off_win_ops_with_associated_p",

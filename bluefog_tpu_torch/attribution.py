@@ -1,0 +1,24 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""Structured diagnoses: the ``Advisory`` record of the JAX package's
+``bluefog_tpu.attribution``, which the asynchronous gossip engine files
+when its staleness gate acts (:mod:`bluefog_tpu_torch.async_gossip`).
+
+The step-time attribution observatory itself (the doctor's sampling,
+probes and blame) is not ported here."""
+
+import dataclasses
+from typing import Any, Dict
+
+__all__ = ["Advisory"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Advisory:
+    """One structured diagnosis; ``detail`` is JSON-serializable."""
+
+    kind: str
+    step: int
+    detail: Dict[str, Any]
+
+    def to_json(self) -> dict:
+        return {"kind": self.kind, "step": self.step, **self.detail}

@@ -175,9 +175,10 @@ def hierarchical_neighbor_allreduce_quantized(
     wire: str = "int8",
 ) -> torch.Tensor:
     """:func:`hierarchical_neighbor_allreduce` with the machine-level leg
-    on the quantized wire: the local sum stays exact, the ``[machines,
-    ...]`` sums go through :func:`weighted_combine_quantized_operands`
-    (``encode`` + ``decode_accumulate`` on the card). ``src``/``recv_w``
+    on the quantized wire (``"bf16"``, ``"int8"`` or ``"int4"``): the local
+    sum stays exact, the ``[machines, ...]`` sums go through
+    :func:`weighted_combine_quantized_operands` (on the integer wires
+    ``encode`` + ``decode_accumulate`` on the card). ``src``/``recv_w``
     are the machine plan's (:func:`plan_operands`), normalized."""
     return _hierarchical(x, local_size, lambda y: weighted_combine_quantized_operands(
         y, src, recv_w, wire=wire, inplace=True))
@@ -341,19 +342,64 @@ def weighted_combine_quantized_operands(
 ) -> torch.Tensor:
     """Quantized-wire combine in the difference form
     ``y = x + sum_r w_r (x_hat_r - x_hat_self)`` (exact consensus is a
-    fixed point): one :func:`kernels.encode` of every worker's flat
-    payload, then one :func:`kernels.decode_accumulate` with all rounds
-    folded in — the monolithic int8/int4 branch of the JAX function.
+    fixed point), in :func:`_weight_dtype` — the monolithic branches of the
+    JAX function:
 
-    ``x`` must be float32 (the combine dtype of the kernels). With
-    ``inplace=True`` and a contiguous ``x`` whose per-worker size is a
-    multiple of 512, ``x`` itself is the accumulator and is overwritten;
-    otherwise a padded copy is."""
-    if x.dtype != torch.float32:
+    - ``"bf16"``: every worker ships ``x`` rounded to bf16; each round adds
+      ``((recv - x_hat) * w_r)`` computed in f32 and cast to the weight
+      dtype, rounds in plan order. Data movement and elementwise
+      arithmetic, as JAX computes it outside any kernel.
+    - ``"int8"``/``"int4"`` on a float32 (or integer) ``x``: one
+      :func:`kernels.encode` of every worker's flat payload, then one
+      :func:`kernels.decode_accumulate` with all rounds folded in. With
+      ``inplace=True`` and a contiguous f32 ``x`` whose per-worker size is
+      a multiple of 512, ``x`` itself is the accumulator and is
+      overwritten; otherwise a padded copy is.
+    - ``"int8"``/``"int4"`` on a bf16 or f16 ``x``: the payload is encoded
+      from ``x`` cast to f32 (:func:`kernels.encode`), each round's payload
+      and the sender's own are decoded to f32 (:func:`kernels.decode`) and
+      cast to the weight dtype, and the rounds are added in it, as the JAX
+      composite branch does (the f32 accumulator of ``decode_accumulate``
+      would round differently).
+
+    A float64 ``x`` is refused: the JAX package holds no float64."""
+    if wire not in ("int8", "bf16", "int4"):
         raise ValueError(
-            f"the quantized wire combines float32 payloads, got {x.dtype}"
+            f"wire must be 'int8', 'bf16', or 'int4', got {wire!r}"
         )
+    wdt = _weight_dtype(x)
+    if wdt == torch.float64:
+        raise ValueError(
+            "the quantized wire combines float32, bfloat16 or float16 "
+            f"payloads (integers in float32), got {x.dtype}"
+        )
+    if wire == "bf16":
+        xw = x.to(wdt)
+        q16 = xw.to(torch.bfloat16)
+        xhat = q16.to(torch.float32)
+        y = xw
+        for r in range(src.shape[0]):
+            recv = _gather(q16, src[r]).to(torch.float32)
+            y = y + ((recv - xhat) * _col(recv_w[r], recv)).to(wdt)
+        return y
     n_workers = x.shape[0]
+    if wdt != torch.float32:
+        xw = x.to(wdt)
+        flat = xw.to(torch.float32).reshape(n_workers, -1)
+        n = flat.shape[1]
+        payload, scales = kernels.encode(kernels.pad_blocks(flat).contiguous(), wire)
+
+        def full(src_r):
+            out = kernels.decode(payload, scales, src_r, wire, src_in_range=True)
+            return kernels.unpad_blocks(out, n).reshape(x.shape).to(wdt)
+
+        xhat = full(None)
+        y = xw
+        for r in range(src.shape[0]):
+            y = y + (full(src[r]) - xhat) * _col(recv_w[r], xhat)
+        return y
+    if x.dtype != torch.float32:  # an integer payload combines in f32
+        x, inplace = x.to(torch.float32), False
     flat = x.reshape(n_workers, -1)
     n = flat.shape[1]
     aligned = n % kernels.CHUNK == 0 and flat.is_contiguous()

@@ -53,7 +53,7 @@ __all__ = [
     "barrier",
 ]
 
-_COMPRESSIONS = (None, "int8", "int4")
+_COMPRESSIONS = (None, "int8", "bf16", "int4")
 
 # -- handle model ----------------------------------------------------------------------
 
@@ -264,7 +264,8 @@ def neighbor_allreduce_nonblocking(
 ) -> int:
     if compression not in _COMPRESSIONS:
         raise ValueError(
-            f"compression must be one of {_COMPRESSIONS}, got {compression!r}"
+            "compression must be None, 'int8', 'bf16', or 'int4', got "
+            f"{compression!r}"
         )
     ctx = ctx_mod.get_context()
     x = _check_worker_tensor(ctx, x)
@@ -288,8 +289,9 @@ def neighbor_allreduce(
     with explicit (``self_weight``, ``src_weights``) or dynamic
     (``dst_weights`` too) weights. ``compression='int8'`` or ``'int4'``
     ships the block-scaled quantized wire through the CUDA ``encode`` and
-    ``decode_accumulate`` kernels, in the difference form, and refuses
-    weights whose receiver sums are not 1."""
+    ``decode_accumulate`` kernels, ``'bf16'`` the payload rounded to bf16,
+    each in the difference form, and each refuses weights whose receiver
+    sums are not 1."""
     return synchronize(neighbor_allreduce_nonblocking(
         x, self_weight=self_weight, src_weights=src_weights, dst_weights=dst_weights,
         enable_topo_check=enable_topo_check, compression=compression, name=name,

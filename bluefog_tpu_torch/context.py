@@ -240,16 +240,22 @@ def init(
     machines of ``nodes_per_machine`` workers (default one machine of
     all) for the hierarchical ops."""
     global _context
+    from bluefog_tpu_torch import async_gossip
+
     ctx = BluefogContext(topology_fn, is_weighted, size, device, nodes_per_machine)
     with _lock:
         _context = ctx
+    async_gossip.on_init(ctx)
     return ctx
 
 
 def shutdown() -> None:
     global _context
+    from bluefog_tpu_torch import async_gossip
+
     with _lock:
         _context = None
+    async_gossip.on_shutdown()
 
 
 def release_associated_p(ctx_uid: int) -> None:

@@ -10,9 +10,9 @@ Counterpart of ``bluefog_tpu/optimizers.py`` for two families:
   :func:`DistributedAdaptWithCombineOptimizer`) and adapt-then-combine
   (:func:`DistributedAdaptThenCombineOptimizer`), and the machine-level
   gossip (:func:`DistributedHierarchicalNeighborAllreduceOptimizer`); with
-  the ``compression`` attribute (``None``, ``"int8"``, ``"int4"``,
-  ``"int8_ef"``, ``"int4_ef"``) selecting the exact combine, the quantized
-  wire, or the quantized wire with error feedback (CHOCO copies kept by
+  the ``compression`` attribute (``None``, ``"int8"``, ``"bf16"``,
+  ``"int4"``, ``"int8_ef"``, ``"int4_ef"``) selecting the exact combine, the
+  quantized wire, or the quantized wire with error feedback (CHOCO copies kept by
   the optimizer, one pair per dtype group), per-step weights, dynamic
   schedules, communication every K-th step, and the fused train step
   :meth:`_GossipOptimizer.make_train_step` (``delayed=True``: one-step
@@ -86,16 +86,18 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def _tree_unflatten(template, leaves):
     """A tree shaped like ``template`` holding ``leaves`` in
     :func:`tree_leaves` order."""
-    it = iter(leaves)
+    return _build_tree(template, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(template)
+def _build_tree(t, it):
+    # a module-level function, not a closure over ``it``: a recursive
+    # closure is a reference cycle that keeps the leaves alive until the
+    # garbage collector runs
+    if isinstance(t, dict):
+        return {k: _build_tree(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build_tree(x, it) for x in t)
+    return next(it)
 
 
 def _tree_zeros_like(tree):
@@ -306,7 +308,8 @@ class _GossipOptimizer:
 
     - ``compression``: ``None`` (exact combine), ``"int8"`` or ``"int4"``
       (block-scaled quantized wire, difference form, through the CUDA wire
-      kernels on the card), ``"int8_ef"`` or ``"int4_ef"`` (the same wires
+      kernels on the card), ``"bf16"`` (the payload rounded to bf16, the
+      same difference form), ``"int8_ef"`` or ``"int4_ef"`` (the same wires
       with error feedback: the optimizer keeps the CHOCO copies in ``_ef``,
       one ``(xhat_self [N, d], xhat_recv [R, N, d])`` pair per dtype group,
       zeroed whenever the group sizes, the plan's rounds or the tier
@@ -325,7 +328,7 @@ class _GossipOptimizer:
       calls between run the inner update alone, or, for ``"grad"``,
       accumulate the gradients and leave the parameters as they are."""
 
-    _COMPRESSIONS = (None, "int8", "int4") + _EF_TIERS
+    _COMPRESSIONS = (None, "int8", "bf16", "int4") + _EF_TIERS
 
     def __init__(self, base_optimizer, communication_type: CommunicationType, order: str,
                  num_steps_per_communication: int = 1):
@@ -373,7 +376,8 @@ class _GossipOptimizer:
             return
         if self.compression not in self._COMPRESSIONS:
             raise ValueError(
-                f"compression must be one of {self._COMPRESSIONS}, got {self.compression!r}"
+                "compression must be None, 'int8', 'bf16', 'int4', "
+                f"'int8_ef', or 'int4_ef', got {self.compression!r}"
             )
         comm = self.communication_type
         if self.compression in _EF_TIERS and (
@@ -690,34 +694,59 @@ class _GossipOptimizer:
 
         return train_step
 
+    def make_async_train_step(self, loss_fn, has_aux: bool = False, **kwargs):
+        """The asynchronous train step of
+        :func:`bluefog_tpu_torch.async_gossip.make_async_train_step`: this
+        optimizer gives the inner optimizer and, through ``compression``,
+        the default wire. With ``BLUEFOG_ASYNC=0`` it is
+        :meth:`make_train_step`."""
+        from bluefog_tpu_torch import async_gossip
+
+        return async_gossip.make_async_train_step(self, loss_fn, has_aux=has_aux, **kwargs)
+
+
+def _grad_store(params, store) -> List[torch.Tensor]:
+    """Gradient buffers like ``params``' leaves, ``store`` reused from call
+    to call while the leaves keep their shapes."""
+    leaves = tree_leaves(params)
+    if len(store) != len(leaves) or any(
+            s.shape != l.shape or s.dtype != l.dtype or s.device != l.device
+            for s, l in zip(store, leaves)):
+        store[:] = [torch.empty_like(l) for l in leaves]
+    return store
+
+
+def _worker_loss_grad(loss_fn, has_aux, params, batch, j: int, store):
+    """Worker ``j``'s loss and gradient: the gradient into row ``j`` of the
+    ``store`` leaves, returns ``(loss, aux)`` detached (``aux`` None
+    without ``has_aux``)."""
+    wl = [l[j].detach().requires_grad_(True) for l in tree_leaves(params)]
+    out = loss_fn(_tree_unflatten(params, wl),
+                  *(_tree_unflatten(b, [t[j] for t in tree_leaves(b)]) for b in batch))
+    loss, aux = out if has_aux else (out, None)
+    for dst, g in zip(store, torch.autograd.grad(loss, wl, allow_unused=True)):
+        if g is None:
+            dst[j].zero_()
+        else:
+            dst[j].copy_(g)
+    if has_aux:
+        aux = _tree_unflatten(aux, [t.detach() for t in tree_leaves(aux)])
+    return loss.detach(), aux
+
 
 def _worker_grads(loss_fn, has_aux, params, batch, store):
     """Every worker's loss and gradient, one worker after another:
     ``(loss [N] f32, aux stacked or None, grads)``, the gradients in a tree
     like ``params`` whose buffers (``store``) are reused from call to call."""
-    leaves = tree_leaves(params)
-    n_workers = leaves[0].shape[0]
-    if len(store) != len(leaves) or any(
-            s.shape != l.shape or s.dtype != l.dtype or s.device != l.device
-            for s, l in zip(store, leaves)):
-        store[:] = [torch.empty_like(l) for l in leaves]
-    losses = torch.empty(n_workers, dtype=torch.float32, device=leaves[0].device)
+    store = _grad_store(params, store)
+    n_workers = store[0].shape[0]
+    losses = torch.empty(n_workers, dtype=torch.float32, device=store[0].device)
     auxes = []
     for j in range(n_workers):
-        wl = [l[j].detach().requires_grad_(True) for l in leaves]
-        out = loss_fn(_tree_unflatten(params, wl),
-                      *(_tree_unflatten(b, [t[j] for t in tree_leaves(b)]) for b in batch))
-        loss, aux = out if has_aux else (out, None)
-        for dst, g in zip(store, torch.autograd.grad(loss, wl, allow_unused=True)):
-            if g is None:
-                dst[j].zero_()
-            else:
-                dst[j].copy_(g)
-        losses[j] = loss.detach()
-        if has_aux:
-            auxes.append([t.detach() for t in tree_leaves(aux)])
-    stacked_aux = (_tree_unflatten(aux, [torch.stack(ts) for ts in zip(*auxes)])
-                   if has_aux else None)
+        losses[j], aux = _worker_loss_grad(loss_fn, has_aux, params, batch, j, store)
+        auxes.append(aux)
+    stacked_aux = (_tree_unflatten(auxes[0], [torch.stack(ts) for ts in zip(
+        *(tree_leaves(a) for a in auxes))]) if has_aux else None)
     return losses, stacked_aux, _tree_unflatten(params, store)
 
 
@@ -906,18 +935,22 @@ class _WindowOptimizer:
         for view, c in zip(views, cur):
             if c.data_ptr() != view.data_ptr():
                 view.copy_(c)
-        if comm_now:
-            if self.mode == "push_sum":
-                sw, dst = self._pushsum_weights(ctx_mod.get_context())
-                win_mod.win_accumulate(name=self._name, self_weight=sw, dst_weights=dst)
-                win_mod.win_update_then_collect(self._name)
-            else:
-                if self.mode == "put":
-                    win_mod.win_put(name=self._name, self_weight=self.self_weight,
-                                    dst_weights=self.dst_weights)
-                else:
-                    win_mod.win_get(self._name, src_weights=self.src_weights)
-                win_mod.win_update(self._name)
+        if not comm_now:
+            win_mod._note_local_step(win)
+            return self.params(), opt_state
+        ctx = ctx_mod.get_context()
+        if self.mode == "push_sum":
+            sw, dst = self._pushsum_weights(ctx)
+            win_mod._exchange(ctx, win, "acc", None, sw, dst)
+            update_sw, update_nw = win_mod._collect_weights(win)
+        else:
+            weights = self.dst_weights if self.mode == "put" else self.src_weights
+            win_mod._exchange(ctx, win, self.mode, None, self.self_weight, weights)
+            update_sw = update_nw = None
+        # the exchange and the combine are one local step of the age lane,
+        # as in the JAX package's fused window step
+        win_mod._dispatch_update(win, ctx, update_sw, update_nw, reset=self.mode == "push_sum",
+                                 tick=False)
         return self.params(), opt_state
 
 

@@ -34,13 +34,21 @@ column sums stay exact. The p lane is never quantized.
 
 Per-rank weight specs are sequences indexed by rank; entry ``None`` means
 that rank sits out the call. Calls run eagerly: a ``*_nonblocking`` op
-returns a handle whose op has already completed. With ``win_mutex`` left
-out, the ops take no ``require_mutex`` argument.
+returns a handle whose op has already completed. ``require_mutex`` is
+taken for the JAX package's signatures and changes nothing: one process
+drives every worker, so no two writers ever race, and ``win_mutex`` only
+checks that the window exists.
 
-Not ported here: the host age lane (``get_win_age``), staleness, metrics
-and flight hooks, ``win_mutex`` and the asynchronous tick.
+The host age lane follows the JAX package's: each window counts its
+local window steps (``clock``: every exchange, update, local adapt of a
+window optimizer and asynchronous tick), stamps each buffer slot with the
+clock of its last write (``slot_written``) and each slot's oldest
+uncollected accumulate with its clock (``mass_birth``, -1 for none);
+:func:`get_win_age` reads them. The staleness observatory, metrics and
+flight hooks are not ported here.
 """
 
+import contextlib
 import itertools
 import os
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -69,6 +77,8 @@ __all__ = [
     "win_wait",
     "win_poll",
     "get_win_version",
+    "get_win_age",
+    "win_mutex",
     "get_current_created_window_names",
     "turn_on_win_ops_with_associated_p",
     "turn_off_win_ops_with_associated_p",
@@ -94,6 +104,11 @@ class _Window:
         self.out_neighbors = out_neighbors
         self.shape = tuple(value.shape[1:])
         self.dtype = value.dtype
+        # the host age lane (numpy, see the module docstring)
+        size = len(in_neighbors)
+        self.clock = 0
+        self.slot_written = np.zeros((size, max(self.max_deg, 1)), np.int64)
+        self.mass_birth = np.full((size, max(self.max_deg, 1)), -1, np.int64)
 
     @property
     def max_deg(self) -> int:
@@ -274,6 +289,54 @@ def _slot_table(win: _Window, perms) -> np.ndarray:
     return table
 
 
+# -- the host age lane ------------------------------------------------------------
+
+
+def _note_exchange_age(win: _Window, slot_table, mode: str) -> None:
+    """After an exchange: advance the clock and stamp the written slots;
+    an accumulate also records the birth of the oldest pending mass."""
+    win.clock += 1
+    written = np.asarray(slot_table) >= 0
+    if written.any():
+        win.slot_written[written] = win.clock
+        if mode == "acc":
+            fresh = written & (win.mass_birth < 0)
+            win.mass_birth[fresh] = win.clock
+
+
+def _note_update_age(win: _Window, participating, reset: bool,
+                     tick: bool = True) -> None:
+    """After a ``win_update``: advance the clock (not with ``tick=False``,
+    the window optimizer's exchange and combine being one local step) and,
+    when the update collects (``reset``), clear the participating ranks'
+    pending-mass births. The slot ages persist."""
+    if tick:
+        win.clock += 1
+    if reset:
+        win.mass_birth[np.asarray(participating, bool)] = -1
+
+
+def _note_local_step(win: _Window) -> None:
+    """A local adapt between exchanges is one local step."""
+    win.clock += 1
+
+
+def _note_async_tick(win: _Window, written, folded) -> None:
+    """One asynchronous gossip tick: advance the clock, stamp the slots a
+    participating sender wrote (``written [size, max_deg]`` bool), record
+    their pending-mass births, then clear the births of the ``folded``
+    slots."""
+    win.clock += 1
+    w = np.asarray(written, bool)
+    if w.any():
+        win.slot_written[w] = win.clock
+        fresh = w & (win.mass_birth < 0)
+        win.mass_birth[fresh] = win.clock
+    f = np.asarray(folded, bool)
+    if f.any():
+        win.mass_birth[f] = -1
+
+
 # -- the quantized window wire -------------------------------------------------
 
 
@@ -422,7 +485,8 @@ def _exchange_core(mode: str, low: _Lowering, update_p: bool, max_deg: int,
 
 
 def _dispatch_exchange(win: _Window, ctx, mode: str, w_edges, participating,
-                       self_weight, x) -> _Window:
+                       self_weight, x) -> None:
+    """Run one exchange on the window's lanes and note it in the age lane."""
     wire = window_wire()
     if wire is not None and not win.dtype.is_floating_point:
         raise ValueError(
@@ -447,7 +511,19 @@ def _dispatch_exchange(win: _Window, ctx, mode: str, w_edges, participating,
         _f32(_round_weights(low.perms, w_edges), dev), _f32(self_vec, dev),
         wire=wire, sent_w=_f32(w_edges.sum(axis=1), dev),
     )
-    return win
+    _note_exchange_age(win, low.slot_table, mode)
+
+
+def _exchange(ctx, win: _Window, mode: str, x=None, self_weight=None, weights=None) -> None:
+    """A ``'put'`` or ``'acc'`` exchange under per-rank ``dst_weights``, or
+    a ``'get'`` under receiver-keyed ``src_weights`` (``weights``), as the
+    ``win_*`` ops resolve them."""
+    if mode == "get":
+        w_recv, participating = _per_rank_edges(ctx, weights, win.in_neighbors, "src_weights")
+        _dispatch_exchange(win, ctx, "get", w_recv.T, np.zeros_like(participating), None, None)
+    else:
+        w, participating = _per_rank_edges(ctx, weights, win.out_neighbors, "dst_weights")
+        _dispatch_exchange(win, ctx, mode, w, participating, self_weight, x)
 
 
 # -- put / accumulate / get ------------------------------------------------------
@@ -476,47 +552,47 @@ def win_poll(handle: int) -> bool:
 
 
 def win_put_nonblocking(x=None, name: str = None, self_weight=None,
-                        dst_weights=None) -> int:
+                        dst_weights=None, require_mutex: bool = False) -> int:
     """Write ``dst_weight * x`` into each destination's buffer for me
     (replacing it) and rescale my window value by ``self_weight``."""
     ctx = ctx_mod.get_context()
     win = _get_win(ctx, name)
-    w, participating = _per_rank_edges(ctx, dst_weights, win.out_neighbors, "dst_weights")
-    _dispatch_exchange(win, ctx, "put", w, participating, self_weight, x)
+    _exchange(ctx, win, "put", x, self_weight, dst_weights)
     return _completed(ctx, win.value)
 
 
-def win_put(x=None, name: str = None, self_weight=None, dst_weights=None) -> torch.Tensor:
-    return win_wait(win_put_nonblocking(x, name, self_weight, dst_weights))
+def win_put(x=None, name: str = None, self_weight=None, dst_weights=None,
+            require_mutex: bool = False) -> torch.Tensor:
+    return win_wait(win_put_nonblocking(x, name, self_weight, dst_weights, require_mutex))
 
 
 def win_accumulate_nonblocking(x=None, name: str = None, self_weight=None,
-                               dst_weights=None) -> int:
+                               dst_weights=None, require_mutex: bool = False) -> int:
     """Add ``dst_weight * x`` into each destination's buffer for me."""
     ctx = ctx_mod.get_context()
     win = _get_win(ctx, name)
-    w, participating = _per_rank_edges(ctx, dst_weights, win.out_neighbors, "dst_weights")
-    _dispatch_exchange(win, ctx, "acc", w, participating, self_weight, x)
+    _exchange(ctx, win, "acc", x, self_weight, dst_weights)
     return _completed(ctx, win.value)
 
 
 def win_accumulate(x=None, name: str = None, self_weight=None,
-                   dst_weights=None) -> torch.Tensor:
-    return win_wait(win_accumulate_nonblocking(x, name, self_weight, dst_weights))
+                   dst_weights=None, require_mutex: bool = False) -> torch.Tensor:
+    return win_wait(win_accumulate_nonblocking(x, name, self_weight, dst_weights,
+                                               require_mutex))
 
 
-def win_get_nonblocking(name: str = None, src_weights=None) -> int:
+def win_get_nonblocking(name: str = None, src_weights=None,
+                        require_mutex: bool = False) -> int:
     """Fetch ``src_weight *`` each source's current window value into my
     buffer for that source; ``src_weights[j] = {src: w}``."""
     ctx = ctx_mod.get_context()
     win = _get_win(ctx, name)
-    w_recv, participating = _per_rank_edges(ctx, src_weights, win.in_neighbors, "src_weights")
-    _dispatch_exchange(win, ctx, "get", w_recv.T, np.zeros_like(participating), None, None)
+    _exchange(ctx, win, "get", weights=src_weights)
     return _completed(ctx, win.value)
 
 
-def win_get(name: str = None, src_weights=None) -> torch.Tensor:
-    return win_wait(win_get_nonblocking(name, src_weights))
+def win_get(name: str = None, src_weights=None, require_mutex: bool = False) -> torch.Tensor:
+    return win_wait(win_get_nonblocking(name, src_weights, require_mutex))
 
 
 # -- update ----------------------------------------------------------------------
@@ -630,15 +706,10 @@ def _update_core(reset: bool, update_p: bool, max_deg: int,
     return new_v, bufs, vers, new_p, pbufs
 
 
-def win_update(name: str = None, self_weight=None, neighbor_weights=None,
-               reset: bool = False, clone: bool = False) -> torch.Tensor:
-    """Combine the window value with its buffers and return the new
-    value: ``v_j <- self_w[j] * v_j + sum_k w[j, src_k] * buffer_k``.
-    Default weights follow the active topology (weighted) or the uniform
-    average. Versions reset to zero; ``reset`` also zeroes the buffers.
-    ``clone`` returns a copy rather than the window's own tensor."""
-    ctx = ctx_mod.get_context()
-    win = _get_win(ctx, name)
+def _dispatch_update(win: _Window, ctx, self_weight, neighbor_weights, reset: bool,
+                     tick: bool = True) -> None:
+    """Run one combine on the window's lanes and note it in the age lane
+    (``tick=False``: as part of the exchange's local step)."""
     self_vec, w_recv, participating = _update_weights(ctx, win, self_weight, neighbor_weights)
     dev = ctx.device
     win.value, win.buffers, win.versions, win.p, win.p_buffers = _update_core(
@@ -647,23 +718,47 @@ def win_update(name: str = None, self_weight=None, neighbor_weights=None,
         _f32(self_vec, dev), _f32(_slot_weights(win, w_recv, ctx.size), dev),
         torch.from_numpy(np.array(participating, bool)).to(dev),
     )
+    _note_update_age(win, participating, reset, tick=tick)
+
+
+def _collect_weights(win: _Window):
+    """``(self_weight, neighbor_weights)`` of the push-sum collect: self and
+    every buffer at weight 1."""
+    return 1.0, [{s: 1.0 for s in srcs} for srcs in win.in_neighbors]
+
+
+def win_update(name: str = None, self_weight=None, neighbor_weights=None,
+               reset: bool = False, clone: bool = False,
+               require_mutex: bool = False) -> torch.Tensor:
+    """Combine the window value with its buffers and return the new
+    value: ``v_j <- self_w[j] * v_j + sum_k w[j, src_k] * buffer_k``.
+    Default weights follow the active topology (weighted) or the uniform
+    average. Versions reset to zero; ``reset`` also zeroes the buffers.
+    ``clone`` returns a copy rather than the window's own tensor."""
+    ctx = ctx_mod.get_context()
+    win = _get_win(ctx, name)
+    _dispatch_update(win, ctx, self_weight, neighbor_weights, reset)
     return win.value.clone() if clone else win.value
 
 
-def win_update_then_collect(name: str = None) -> torch.Tensor:
+def win_update_then_collect(name: str = None, require_mutex: bool = False) -> torch.Tensor:
     """Sum self and all neighbor buffers, then zero the buffers: the
     push-sum collect."""
     win = _get_win(ctx_mod.get_context(), name)
-    ones = [{s: 1.0 for s in srcs} for srcs in win.in_neighbors]
-    return win_update(name, self_weight=1.0, neighbor_weights=ones, reset=True)
+    self_weight, ones = _collect_weights(win)
+    return win_update(name, self_weight=self_weight, neighbor_weights=ones, reset=True)
 
 
 # -- versions / associated p ------------------------------------------------------
 
 
-def get_win_version(name: str = None, rank: Optional[int] = None):
+def get_win_version(name: str = None, rank: Optional[int] = None, ages: bool = False):
     """Writes per in-neighbor buffer since the last ``win_update``:
-    per-rank dicts ``{in_neighbor: count}``, or one dict for ``rank``."""
+    per-rank dicts ``{in_neighbor: count}``, or one dict for ``rank``.
+    ``ages=True`` answers with :func:`get_win_age` instead: the write
+    counter resets at every update, the age counts on from the write."""
+    if ages:
+        return get_win_age(name, rank)
     ctx = ctx_mod.get_context()
     win = _get_win(ctx, name)
     vers = win.versions.cpu().numpy()
@@ -672,6 +767,40 @@ def get_win_version(name: str = None, rank: Optional[int] = None):
         for r in range(ctx.size)
     ]
     return out[rank] if rank is not None else out
+
+
+def get_win_age(name: str = None, rank: Optional[int] = None, mass: bool = False):
+    """Per in-neighbor buffer age in local window steps: how many of this
+    window's local steps (exchanges, updates, local adapts, asynchronous
+    ticks) have passed since neighbor ``k``'s slot was last written; 0
+    everywhere on a fresh window. ``mass=True`` gives the age of the oldest
+    uncollected ``win_accumulate`` mass per slot instead (``None`` when
+    none is pending). Per-rank dicts ``{in_neighbor: age}``, or one dict
+    for ``rank``."""
+    ctx = ctx_mod.get_context()
+    win = _get_win(ctx, name)
+    clock = int(win.clock)
+    out = []
+    for r in range(ctx.size):
+        entry = {}
+        for k, s in enumerate(win.in_neighbors[r]):
+            if mass:
+                b = int(win.mass_birth[r, k])
+                entry[s] = (clock - b) if b >= 0 else None
+            else:
+                entry[s] = clock - int(win.slot_written[r, k])
+        out.append(entry)
+    return out[rank] if rank is not None else out
+
+
+@contextlib.contextmanager
+def win_mutex(name: str = None, for_self: bool = False,
+              ranks: Optional[Sequence[int]] = None):
+    """Checks that the window exists and holds nothing: one process drives
+    every worker's ops in order, so there is no concurrent writer to keep
+    out."""
+    _get_win(ctx_mod.get_context(), name)
+    yield
 
 
 def turn_on_win_ops_with_associated_p() -> None:

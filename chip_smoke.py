@@ -69,10 +69,31 @@ Phases, one line each; any failure exits non-zero:
                        lr = 0 that holds the x mass to 1e-5 of sum |x| and
                        the p mass to 8;
 9. profile  -- one ATC int8 step under ``torch.profiler``;
-10. kernels  -- each wire kernel against its plain version at the main
+10. async   -- bench.py::run_async's straggler scenario at the main path's
+               width: ``make_async_train_step`` over the same ResNet50 with
+               ``DistributedNeighborAllreduceOptimizer(sgd(0.1, 0.9))`` on
+               ``RingGraph(8, connect_style=1)``, rank 6 at one tenth of the
+               cadence, ``max_age`` 4, the drop policy; int8 (1 warm-up, 12
+               timed ticks), fp32, bf16 and int4 (1 + 3); one line per wire
+               (median tick, the due ranks' forward+backward and update, the
+               exchange and fold as the rest of the tick, participants per
+               tick, images/s over local steps, peak, ``stale_drops``, the
+               advisories' slow ranks); every loss finite, the p mass 8 to
+               1e-5, over the int8 run a participation ratio of at least
+               1 - 1.5/8, ``stale_drops > 0`` and an ``async_staleness``
+               advisory naming rank 6 and only its edges; ``encode`` and
+               ``decode`` launched on every int8 and int4 tick (counts
+               zeroed just before each wire's ticks, read just after); one
+               profiled int8 tick;
+11. async check -- bench.py::run_async's problem (quad loss, dim 4096,
+               ``RandomState(0)``, 24 ticks) on each wire on the card and on
+               a CPU copy: every tick's estimates within ``ASYNC_TOL`` of the
+               largest value; at ``sgd(0.0)`` the value mass kept to
+               ``ASYNC_MASS_TOL`` of sum |x| and the p mass at 8;
+12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
-11. flash-parity -- the flash kernels (``flash_fwd``, ``flash_bwd_dkv``,
+13. flash-parity -- the flash kernels (``flash_fwd``, ``flash_bwd_dkv``,
                ``flash_bwd_dq``) against their plain versions on the card,
                on q/k/v split from one fused projection as the model gives
                them: bf16 at the transformer's shape (b 2, T 4096, 16
@@ -89,7 +110,7 @@ Phases, one line each; any failure exits non-zero:
                ``FLASH_ROW_TOL_F32_WIDE``), and each case's three
                kernels on the routes ``FLASH_ROUTES`` names (``sm90``:
                wgmma fed by TMA);
-12. train, path transformer -- ``TransformerLM`` (vocab 16384, dim 1024, 16
+14. train, path transformer -- ``TransformerLM`` (vocab 16384, dim 1024, 16
                heads, 12 layers, T 4096, bf16 compute over f32 parameters:
                188 872 704 per worker) on 8 virtual workers, 2 sequences of
                seeded random tokens each, next-token loss, ``sgd(0.01,
@@ -100,7 +121,7 @@ Phases, one line each; any failure exits non-zero:
                then worker 0's forward at full
                size with every block's attention held against the plain
                version on its own q, k, v, and one profiled ATC int8 step;
-13. dryrun   -- the dry run of ``__graft_entry__.dryrun_multichip``
+15. dryrun   -- the dry run of ``__graft_entry__.dryrun_multichip``
                (``bluefog_tpu_torch.dryrun.DryRun``): 8 workers as 4
                machines x 2, one-peer Exp2 gossip on the step index
                (period 3), the hierarchical loss average on the weighted
@@ -111,7 +132,7 @@ Phases, one line each; any failure exits non-zero:
                ``DRYRUN_TOL`` and each step's ring attention row by row to
                the f32 ``FLASH_ROW_TOL``; launch counts zeroed just before
                and read just after;
-14. train, path long-context -- ``examples/long_context.py`` at the
+16. train, path long-context -- ``examples/long_context.py`` at the
                transformer's width: one ``TransformerLM`` (vocab 16384,
                dim 1024, 16 heads, 12 layers, max_len 8192, bf16 compute
                over f32 parameters), 2 seeded sequences of 8192 tokens
@@ -125,7 +146,7 @@ Phases, one line each; any failure exits non-zero:
                device time); then block 0's
                ring attention at full size against the plain versions on
                the whole 8192-token sequence;
-15. kernels  -- the flash kernels at the transformer's shape, timed beside
+17. kernels  -- the flash kernels at the transformer's shape, timed beside
                their operation bound, their plain versions,
                ``F.scaled_dot_product_attention`` (the yardstick only:
                the port never calls it) and the ``mma`` route's kernel on
@@ -195,6 +216,14 @@ LC_CONFIG = dict(vocab=16384, dim=1024, heads=16, layers=12, max_len=8192)
 LC_BLOCK, LC_BATCH = 1024, 2
 # the dry run's three steps on the card against the same steps on the CPU
 DRYRUN_TOL = 1e-5
+# bench.py::run_async's straggler scenario: rank SIZE - 2 at one tenth of the
+# cadence, the staleness bound 4, the drop policy; (wire, warm-up, timed ticks)
+ASYNC_SLOW, ASYNC_FACTOR, ASYNC_MAX_AGE = SIZE - 2, 10, 4
+ASYNC_WIRES = (("int8", 1, 12), ("fp32", 1, 3), ("bf16", 1, 3), ("int4", 1, 3))
+# bench.py::run_async's problem (quad loss, RandomState(0)) on the card against
+# a CPU run: estimates within ASYNC_TOL of the largest value
+ASYNC_DIM, ASYNC_TICKS, ASYNC_LR, ASYNC_TOL = 4096, 24, 0.05, 1e-6
+ASYNC_MASS_TOL = 1e-5  # of sum |x|: the value mass at lr 0, float64 sums
 
 # Device memory rate by card (bytes/s; NVIDIA data sheets). The H100 SXM's
 # 3.35 TB/s is the default for an unlisted Hopper part.
@@ -233,6 +262,8 @@ PATH_KERNELS = {
     "wire": ("encode", "decode_accumulate"),
     "ef": ("encode_diff", "decode_add"),
     "push-sum": ("encode", "decode"),
+    # the asynchronous ticks' int8 and int4 window wires
+    "async": ("encode", "decode"),
     "transformer": FLASH_KERNELS + ("encode", "decode_accumulate", "encode_diff",
                                     "decode_add"),
     # the dry run's ring attention is outside the differentiated loss (as
@@ -969,6 +1000,202 @@ def phase_train(trainer, warmup=WARMUP, timed=TIMED):
     trainer.pushsum("push-sum/int4", 1, 2)
     counts["push-sum"] = launch_counts()
     return counts
+
+
+def window_mass(win):
+    """``(x mass, sum |x|, p mass)`` of a window: values plus buffers, in
+    float64 sums."""
+    f64 = torch.float64
+    return (float(torch.sum(win.value, dtype=f64) + torch.sum(win.buffers, dtype=f64)),
+            float(torch.sum(win.value.abs(), dtype=f64) + torch.sum(win.buffers.abs(), dtype=f64)),
+            float(torch.sum(win.p, dtype=f64) + torch.sum(win.p_buffers, dtype=f64)))
+
+
+def async_ticks(device, sm, images, labels, wire, warmup, timed, max_age):
+    """One wire of the async phase: ``make_async_train_step`` over the
+    ResNet50 (CTA ``sgd(0.1, 0.9)`` on the ring), ``warmup + timed`` ticks
+    with rank ``ASYNC_SLOW`` at one tenth of the cadence. Returns its
+    numbers; the launch counts are zeroed just before the ticks and read
+    just after."""
+    opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1, momentum=0.9))
+    params = sm.replicate()
+    state = opt.init(params)
+    step = bft.make_async_train_step(opt, sm.worker_loss, cadence={ASYNC_SLOW: ASYNC_FACTOR},
+                                     max_age=max_age, policy="drop", wire=wire)
+    eng = step.engine
+    local_s = []
+
+    def timed_local_step(*args):
+        # the due ranks' forward+backward and inner update, timed apart from
+        # the exchange and the fold
+        sync(device)
+        t0 = time.perf_counter()
+        eng_local(*args)
+        sync(device)
+        local_s.append(time.perf_counter() - t0)
+
+    eng_local = eng._local_step
+    eng._local_step = timed_local_step
+    workers = torch.arange(SIZE)  # host-side worker indices: no read-back per worker
+    start = float("nan")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        start = torch.cuda.memory_allocated(device) / 2**30
+    losses, ticks, per_tick = [], [], []
+    reset_launch_counts()
+    for i in range(warmup + timed):
+        before, steps_before = launch_counts(), eng._local_steps
+        sync(device)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, images, labels, workers)
+        sync(device)
+        tick_s = time.perf_counter() - t0
+        after = launch_counts()
+        losses.append(loss.float().cpu())
+        per_tick.append({"participants": eng._local_steps - steps_before,
+                         "launches": {k: after[k] - before[k] for k in after},
+                         "tick_s": tick_s, "local_s": local_s[-1]})
+        if i >= warmup:
+            ticks.append(per_tick[-1])
+    counts = launch_counts()
+    del eng._local_step  # the class's method again (no cycle holds the engine)
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else float("nan"))
+    win = bft.get_context().windows[eng._name]
+    x_mass, abs_mass, p_mass = window_mass(win)
+    table = torch.stack(losses)
+    if not torch.isfinite(table).all() or not torch.isfinite(params).all():
+        raise AssertionError(f"async/{wire}: non-finite loss or estimate")
+    if not abs(p_mass - SIZE) <= 1e-5:
+        raise AssertionError(f"async/{wire}: p mass {p_mass!r} is not {SIZE}")
+    if device.type == "cuda" and wire in ("int8", "int4"):
+        short = [i for i, t in enumerate(per_tick)
+                 if t["launches"]["encode"] < 1 or t["launches"]["decode"] < 1]
+        if short:
+            raise AssertionError(f"async/{wire}: ticks {short} launched no encode or decode: "
+                                 f"{[t['launches'] for t in per_tick]}")
+    timed_s = sum(t["tick_s"] for t in ticks)
+    summary = eng.summary()
+    out = {
+        "wire": wire, "ticks": summary["ticks"], "local_steps": summary["local_steps"],
+        "participation": summary["local_steps"] / (summary["ticks"] * SIZE),
+        "participants": [t["participants"] for t in per_tick],
+        "tick_s": statistics.median(t["tick_s"] for t in ticks),
+        "exchange_ms": statistics.median(1e3 * (t["tick_s"] - t["local_s"]) for t in ticks),
+        "local_s": statistics.median(t["local_s"] for t in ticks),
+        "images_per_s": images.shape[1] * sum(t["participants"] for t in ticks) / timed_s,
+        "start_gib": start, "peak_gib": peak, "stale_drops": summary["stale_drops"],
+        "advisories": [a.to_json() for a in eng.advisories],
+        "x_mass": x_mass, "abs_mass": abs_mass, "p_mass": p_mass,
+        "losses": [float(r.mean()) for r in table], "counts": counts,
+    }
+    if wire == "int8" and device.type == "cuda":
+        profile_once(device, "async/int8 tick", lambda: step(params, state, images, labels,
+                                                               workers))
+    eng.free()
+    return out
+
+
+def phase_async(device, sm, images, labels, wires=ASYNC_WIRES, max_age=ASYNC_MAX_AGE, smi=""):
+    """bench.py::run_async's straggler scenario at ResNet50's width:
+    ``make_async_train_step`` on ``RingGraph(SIZE, connect_style=1)``, rank
+    ``ASYNC_SLOW`` at one tenth of the cadence, ``max_age`` 4, the drop
+    policy, on each wire of ``wires``; every loss finite, the p mass at
+    ``SIZE``; over the first wire's run the participation ratio at least
+    ``1 - 1.5 / SIZE``, ``stale_drops > 0`` and an ``async_staleness``
+    advisory naming only the slow rank and only its edges; on the card,
+    ``encode`` and ``decode`` launched on every int8/int4 tick. Returns the
+    launch counts summed over the wires."""
+    bft.init(size=SIZE, device=device)
+    bft.set_topology(topo.RingGraph(SIZE, connect_style=1))
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    counts = {k: 0 for k in launch_counts()}
+    runs = []
+    for wire, warmup, timed in wires:
+        sm.load_buffers(stats0)
+        run = async_ticks(device, sm, images, labels, wire, warmup, timed, max_age)
+        runs.append(run)
+        for k, v in run["counts"].items():
+            counts[k] += v
+        slow = sorted({r for a in run["advisories"] for r in a["slow_ranks"]})
+        log("async", f"{wire}: {run['ticks']} ticks, median tick {run['tick_s']:.4f} s "
+                     f"(forward+backward and update of the due ranks {run['local_s']:.4f} s, "
+                     f"exchange and fold {run['exchange_ms']:.2f} ms), participants per tick "
+                     f"{run['participants']}, participation {run['participation']:.4f}, "
+                     f"{run['images_per_s']:.1f} images/s over local steps, peak "
+                     f"{run['peak_gib']:.2f} GiB (allocated at the wire's start "
+                     f"{run['start_gib']:.2f}), stale_drops {run['stale_drops']}, advisories "
+                     f"{len(run['advisories'])} naming slow ranks {slow}, x mass "
+                     f"{run['x_mass']:.9g}, p mass {run['p_mass']:.9g}, launches "
+                     f"{ {k: v for k, v in run['counts'].items() if v} }; on {smi}")
+    sm.load_buffers(stats0)
+    first = runs[0]
+    if first["participation"] < 1 - 1.5 / SIZE:
+        raise AssertionError(f"async/{first['wire']}: participation {first['participation']} "
+                             f"below {1 - 1.5 / SIZE}")
+    if first["stale_drops"] <= 0:
+        raise AssertionError(f"async/{first['wire']}: the gate dropped nothing")
+    stale = [a for a in first["advisories"] if a["kind"] == "async_staleness"]
+    if not stale or any(a["slow_ranks"] != [ASYNC_SLOW] or any(e[0] != ASYNC_SLOW
+                                                              for e in a["edges"])
+                        for a in stale):
+        raise AssertionError(f"async/{first['wire']}: the advisories do not name rank "
+                             f"{ASYNC_SLOW} alone: {first['advisories']}")
+    log("async", f"{first['wire']}: advisory {stale[0]}")
+    bft.init(size=SIZE, device=device)
+    return counts, runs
+
+
+def async_problem(device, wire, lr, ticks, dim=ASYNC_DIM):
+    """bench.py::run_async's problem on ``device``: ``0.5 * mean((w -
+    target)^2)``, ``z0`` and the targets from ``RandomState(0)``, ring(8),
+    rank ``ASYNC_SLOW`` at one tenth of the cadence, ``max_age`` 4. Returns
+    the estimates of every tick (on the host) and the window's masses."""
+    bft.init(size=SIZE, device=device)
+    bft.set_topology(topo.RingGraph(SIZE, connect_style=1))
+    rng = np.random.RandomState(0)
+    z0 = rng.randn(SIZE, dim).astype(np.float32)
+    targets = torch.from_numpy(z0 + rng.randn(SIZE, dim).astype(np.float32)).to(device)
+    opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(lr))
+    params = {"w": torch.from_numpy(z0).to(device)}
+    state = opt.init(params)
+    step = bft.make_async_train_step(
+        opt, lambda p, t: 0.5 * torch.mean((p["w"] - t) ** 2),
+        cadence={ASYNC_SLOW: ASYNC_FACTOR}, max_age=ASYNC_MAX_AGE, wire=wire)
+    seq = []
+    for _ in range(ticks):
+        params, state, _loss = step(params, state, targets)
+        seq.append(params["w"].cpu())
+    masses = window_mass(bft.get_context().windows[step.engine._name])
+    x0 = float(np.sum(z0, dtype=np.float64))
+    step.engine.free()
+    return torch.stack(seq), masses, x0
+
+
+def phase_async_check(device, wires=("fp32", "bf16", "int8", "int4"), dim=ASYNC_DIM,
+                      ticks=ASYNC_TICKS):
+    """bench.py::run_async's problem on the card against a CPU run of the
+    same ticks (the plain versions): every tick's estimates within
+    ``ASYNC_TOL`` of the largest value; then at ``sgd(0.0)`` the value
+    mass stays at its start to ``ASYNC_MASS_TOL`` of ``sum |x|``."""
+    for wire in wires:
+        cpu, _m, _x0 = async_problem(torch.device("cpu"), wire, ASYNC_LR, ticks, dim)
+        card, _m, _x0 = async_problem(device, wire, ASYNC_LR, ticks, dim)
+        err = float((card - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        same = int((card != cpu).sum())
+        _seq, (x1, abs1, p1), x0 = async_problem(device, wire, 0.0, ticks, dim)
+        log("async", f"card against CPU, {wire}, [{SIZE}, {dim}], {ticks} ticks: max |diff| "
+                     f"{err:.3g} ({err / scale:.3g} of the largest value), {same} elements "
+                     f"differ of {card.numel()}; lr 0: x mass {x0:.9g} -> {x1:.9g} (drift "
+                     f"{abs(x1 - x0) / abs1:.3g} of sum |x|), p mass {p1:.9g}")
+        if not err <= ASYNC_TOL * scale:
+            raise AssertionError(f"async check {wire}: card and CPU differ by {err} "
+                                 f"(> {ASYNC_TOL} of {scale})")
+        if not abs(x1 - x0) <= ASYNC_MASS_TOL * abs1 or not abs(p1 - SIZE) <= 1e-5:
+            raise AssertionError(f"async check {wire}: mass {x0} -> {x1} (sum |x| {abs1}), "
+                                 f"p mass {p1}")
+    bft.init(size=SIZE, device=device)
 
 
 def phase_train_lm(trainer, warmup=1, timed=3):
@@ -1935,7 +2162,12 @@ def main():
     log_tiers(trainer)
     params = trainer.params
     phase_profile(device, "resnet50", sm, images, labels, params)
-    del images, labels, trainer
+    del trainer
+    torch.cuda.empty_cache()
+    counts["async"], _runs = phase_async(device, sm, images, labels, smi=smi)
+    phase_async_check(device)
+    del images, labels
+    torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))
     del sm, params
     torch.cuda.empty_cache()

@@ -759,3 +759,54 @@ def test_make_train_step_on_card_matches_cpu(cuda, compression):
     scale = float(pw.abs().max())
     tol = 1e-4 * scale if compression is None else 2 * scale / 127
     torch.testing.assert_close(pg, pw, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["bf16"] + WIRES)
+def test_neighbor_allreduce_wire_on_card_is_bitwise_the_cpu(cuda, wire):
+    """The combine wires, bf16 included, on the weighted Exp2 graph: the
+    card gives the CPU's bits (bf16: a rounding, then per round one
+    subtract, one multiply, one add, each its own kernel)."""
+    x = ragged_input(torch.device("cpu"), seed=23)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        _facade_context(dev)
+        outs[dev.type] = bft.neighbor_allreduce(x.to(dev), compression=wire).cpu()
+    assert torch.equal(_bits(outs["cuda"]), _bits(outs["cpu"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["fp32", "bf16"] + WIRES)
+def test_async_ticks_on_card_match_cpu(cuda, wire):
+    """Twelve ticks of ``make_async_train_step`` on the ring with rank 6 at
+    one tenth of the cadence (the gate drops its edge from tick 6) on the
+    card and on the CPU: estimates within 1e-6 of the largest value (the
+    same elementwise operations on both), the same counters and
+    advisories; on the int8/int4 wires ``encode`` once and ``decode``
+    twice a tick."""
+    rng = np.random.RandomState(0)
+    z0 = rng.randn(SIZE, 3000).astype(np.float32)
+    targets = z0 + rng.randn(SIZE, 3000).astype(np.float32)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        bft.init(size=SIZE, device=dev)
+        bft.set_topology(topo.RingGraph(SIZE, connect_style=1))
+        opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.05, momentum=0.9))
+        params = {"w": torch.from_numpy(z0).to(dev)}
+        state = opt.init(params)
+        step = bft.make_async_train_step(
+            opt, lambda p, t: 0.5 * torch.mean((p["w"] - t) ** 2), cadence={6: 10},
+            max_age=4, wire=wire)
+        before = kernels.launch_counts()
+        for _ in range(12):
+            params, state, loss = step(params, state, torch.from_numpy(targets).to(dev))
+        after = kernels.launch_counts()
+        if dev.type == "cuda" and wire in WIRES:
+            assert after["encode"] - before["encode"] == 12
+            assert after["decode"] - before["decode"] == 24
+        outs[dev.type] = (params["w"].cpu(), loss.cpu(), step.engine.summary(),
+                          [a.to_json() for a in step.engine.advisories])
+    (pg, lg, sg, ag), (pw, lw, sw, aw) = outs["cuda"], outs["cpu"]
+    torch.testing.assert_close(pg, pw, rtol=0, atol=1e-6 * float(pw.abs().max()))
+    torch.testing.assert_close(lg, lw, rtol=1e-6, atol=0)
+    assert sg == sw and ag == aw and sg["stale_drops"] > 0
