@@ -14,8 +14,10 @@ gossip optimizers (gradient and weight allreduce, CTA/ATC neighbor gossip
 on the bf16/int8/int4 wires and the error-feedback tiers int8_ef/int4_ef,
 hierarchical) with ``make_train_step``, ``sgd`` and ``adam``; the
 asynchronous push-sum gossip ``make_async_train_step``; the
-parameter broadcast/allreduce utilities; the
-window ops (``win_*``, the associated-p lane, the age lane
+parameter broadcast/allreduce utilities; weight-update sharding
+(``sharding``: ZeRO-1/2 under ``BLUEFOG_SHARD`` and
+``BLUEFOG_SHARD_GRADS``), ``checkpoint`` (``save``/``restore``) and the
+byte models of ``scaling``; the window ops (``win_*``, the associated-p lane, the age lane
 ``get_win_age``) and the window optimizers
 (win-put, pull-get, push-sum), and ``ops`` (``flash_attention``,
 ``flash_attention_with_lse``, ``reference_attention``); the models
@@ -25,7 +27,7 @@ for Hopper (``csrc/wire_kernels.cu``, ``csrc/flash_kernels.cu``). Entry
 points run on ``"cuda"`` unless ``device="cpu"`` is passed.
 """
 
-from bluefog_tpu_torch import async_gossip, collective, ops, topology
+from bluefog_tpu_torch import async_gossip, checkpoint, collective, ops, scaling, sharding, topology
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.collective.ops import (
     allgather,
@@ -194,6 +196,9 @@ def out_neighbor_ranks(rank: int = None):
 
 __all__ = [
     "async_gossip",
+    "checkpoint",
+    "scaling",
+    "sharding",
     "ops",
     "topology",
     "topology_util",

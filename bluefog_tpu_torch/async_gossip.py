@@ -26,10 +26,14 @@ Each tick:
 
 A rank that sits a tick out passes its window value, p, momentum and any
 module buffers its loss updates (BatchNorm statistics) through bitwise
-unchanged: its gradient is never taken. The loss it reports is the one of
-its last local step (the JAX engine evaluates its pure loss at the
-current estimate; here that forward would run the module's training-mode
-buffers' updates).
+unchanged: its gradient is never taken. It reports its loss (and aux) at
+the current estimate on this tick's batch, as the JAX engine does: one
+forward without a gradient, after which the rank's rows of the module
+buffers named by ``buffers=`` are put back. A loss that updates state in
+place must name it there (for a
+:class:`~bluefog_tpu_torch.models.StackedModel`, ``buffers=sm.buffers``);
+a bound ``worker_loss`` of a model with batch statistics given without it
+is refused.
 
 **Bounded staleness.** The gate reads the host age lane
 (:func:`bluefog_tpu_torch.windows.get_win_age`). An in-edge whose buffer is
@@ -58,7 +62,6 @@ hooks, and ``BLUEFOG_PLAN_METHOD``.
 import collections
 import itertools
 import os
-import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -67,6 +70,7 @@ import torch
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import windows as win_mod
 from bluefog_tpu_torch.attribution import Advisory
+from bluefog_tpu_torch.logging_util import env_int
 from bluefog_tpu_torch.optimizers import (
     _grad_store,
     _tree_unflatten,
@@ -96,24 +100,6 @@ _POLICIES = ("drop", "throttle")
 # ticks an edge's advisory stays muted after it fires: a persistently
 # stale edge does not file one advisory per tick
 BREACH_COOLDOWN = 8
-
-_warned = set()
-
-
-def env_int(name: str, default: int) -> int:
-    """``int(os.environ[name])``; unset or empty gives ``default``, and a
-    malformed value warns once and gives ``default``."""
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return int(default)
-    try:
-        return int(raw)
-    except ValueError:
-        if (name, raw) not in _warned:
-            _warned.add((name, raw))
-            warnings.warn(f"{name}={raw!r} is not an integer; using {default}")
-        return int(default)
-
 
 def async_enabled() -> bool:
     """The kill switch ``BLUEFOG_ASYNC`` (default on)."""
@@ -179,11 +165,13 @@ class AsyncGossipEngine:
                  cadence: Optional[Dict[int, int]] = None,
                  max_age: Optional[int] = None,
                  policy: Optional[str] = None,
-                 wire: Optional[str] = None):
+                 wire: Optional[str] = None,
+                 buffers=None):
         self._uid = next(_engine_uid)
         self.opt = opt
         self.loss_fn = loss_fn
         self.has_aux = bool(has_aux)
+        self.buffers = _buffer_list(loss_fn, buffers)
         self.cadence = {int(r): int(p) for r, p in (cadence or {}).items()}
         for r, p in self.cadence.items():
             if p < 1:
@@ -223,7 +211,7 @@ class AsyncGossipEngine:
         self.advisories: Any = collections.deque(maxlen=256)
         self._advisory_total = 0
         self._grads: List[torch.Tensor] = []
-        self._losses: Optional[torch.Tensor] = None  # [N]: each rank's last local step's
+        self._losses: Optional[torch.Tensor] = None  # [N]: each rank's loss this tick
         self._auxes: List[Any] = []
 
     # -- packing ----------------------------------------------------------------
@@ -433,6 +421,7 @@ class AsyncGossipEngine:
         for j in due:
             self._losses[j], self._auxes[j] = _worker_loss_grad(
                 self.loss_fn, self.has_aux, est, batch, int(j), store)
+        self._sat_out_losses(est, batch, sorted(set(range(win.value.shape[0])) - set(due.tolist())))
         del est
         grads = _tree_unflatten(self._template, store)
         for a, b in _runs(due):
@@ -443,6 +432,27 @@ class AsyncGossipEngine:
             for view, c in zip(views, cur):
                 if c.data_ptr() != view.data_ptr():
                     view.copy_(c)
+
+    def _sat_out_losses(self, est, batch, rows) -> None:
+        """The loss (and aux) of each rank in ``rows`` at the estimate on
+        this tick's batch, without a gradient; the rank's rows of the
+        ``buffers`` are restored afterwards."""
+        if not rows:
+            return
+        bufs = self.buffers
+        for j in rows:
+            saved = [b[j].clone() for b in bufs]
+            with torch.no_grad():
+                out = self.loss_fn(
+                    _tree_unflatten(est, [leaf[j] for leaf in tree_leaves(est)]),
+                    *(_tree_unflatten(b, [t[j] for t in tree_leaves(b)]) for b in batch))
+            for b, v in zip(bufs, saved):
+                b[j].copy_(v)
+            loss, aux = out if self.has_aux else (out, None)
+            self._losses[j] = loss.detach()
+            if self.has_aux:
+                aux = _tree_unflatten(aux, [t.detach() for t in tree_leaves(aux)])
+            self._auxes[j] = aux
 
     def _fold(self, win, fold_mask: np.ndarray) -> None:
         """Fold the admitted slots into the value and p, zero them and clear
@@ -463,7 +473,8 @@ class AsyncGossipEngine:
         """One tick: the due ranks take a local step and push; they fold
         what the staleness gate admits. Returns ``(params estimate,
         opt_state, loss [N])`` (``(loss, aux)`` with ``has_aux``); a rank
-        that sat out reports its last local step's loss. ``params`` seeds
+        that sat out reports its loss at the estimate on this tick's batch.
+        ``params`` seeds
         the window on the first call (and after a shape change); after
         that the window is the state and the returned estimate is what the
         next call is given. ``opt_state`` is updated in place."""
@@ -558,12 +569,34 @@ def on_shutdown() -> None:
     _active = None
 
 
+def _buffer_list(loss_fn, buffers) -> List[torch.Tensor]:
+    """The ``[N, ...]`` tensors ``loss_fn`` updates in place, from a dict or
+    a sequence; a bound ``StackedModel.worker_loss`` of a model with batch
+    statistics must name them."""
+    from bluefog_tpu_torch.models.stacked import StackedModel
+
+    if buffers is None:
+        owner = getattr(loss_fn, "__self__", None)
+        if isinstance(owner, StackedModel) and owner.buffers:
+            raise ValueError(
+                "loss_fn is a StackedModel's worker_loss and the model has batch "
+                "statistics: pass buffers=model.buffers, so that a rank that sits "
+                "a tick out keeps its statistics"
+            )
+        return []
+    out = list(buffers.values()) if isinstance(buffers, dict) else list(buffers)
+    if not all(isinstance(b, torch.Tensor) for b in out):
+        raise TypeError("buffers must be a dict or a sequence of [N, ...] tensors")
+    return out
+
+
 def make_async_train_step(opt, loss_fn, has_aux: bool = False,
                           cadence: Optional[Dict[int, int]] = None,
                           max_age: Optional[int] = None,
                           policy: Optional[str] = None,
                           wire: Optional[str] = None,
-                          enabled: Optional[bool] = None):
+                          enabled: Optional[bool] = None,
+                          buffers=None):
     """The asynchronous train step over the gossip-family optimizer
     ``opt`` (its inner optimizer makes the local updates, its
     ``compression`` is the default wire)::
@@ -575,6 +608,9 @@ def make_async_train_step(opt, loss_fn, has_aux: bool = False,
     rank to its period in ticks (default 1). ``loss_fn(params, *batch)``
     runs per worker on unstacked trees, as in
     :meth:`~bluefog_tpu_torch.optimizers._GossipOptimizer.make_train_step`.
+    ``buffers`` (a dict or a sequence of ``[N, ...]`` tensors, such as
+    ``StackedModel.buffers``) is the state ``loss_fn`` updates in place: a
+    rank that sits a tick out gets its rows back after its loss is taken.
     The callable's ``engine`` attribute is the :class:`AsyncGossipEngine`.
     With async off (``enabled=False`` or ``BLUEFOG_ASYNC=0``) this returns
     ``opt.make_train_step(loss_fn, has_aux=has_aux)``."""
@@ -583,7 +619,7 @@ def make_async_train_step(opt, loss_fn, has_aux: bool = False,
         return opt.make_train_step(loss_fn, has_aux=has_aux)
     global _active
     engine = AsyncGossipEngine(opt, loss_fn, has_aux=has_aux, cadence=cadence,
-                               max_age=max_age, policy=policy, wire=wire)
+                               max_age=max_age, policy=policy, wire=wire, buffers=buffers)
     _active = engine
 
     def train_step(params, opt_state, *batch):

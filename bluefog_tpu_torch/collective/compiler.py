@@ -7,22 +7,180 @@ is a partial permutation: every rank sends at most once and receives at
 most once, which is all the stacked combine (a gather along the worker
 axis per round) relies on.
 
-Left out: the short-cut relay family, the measured calibration and the
-chunk chooser. The stacked transport has no wire to pipeline, so it always
-runs one chunk; the JAX package pins chunked == monolithic bitwise, so the
-numbers are the same either way.
+It also holds the alpha-beta cost model of the chunked wavefront (the
+class constants, the calibration store, :func:`pipelined_cost_s`), the
+chunk chooser (:func:`chunk_option`, :func:`choose_chunks`, with
+``BLUEFOG_PLAN_CHUNKS``) and the reduce-scatter family
+(:func:`compile_reduce_scatter`, :func:`reduce_scatter_chunks`), equal to
+the JAX package's. The port declares no torus, so every round is priced at
+congestion 1. The port's own transport, the stacked worker axis of one
+process, is the link class ``"stacked"`` (:data:`TRANSPORT_LINK_CLASS`): a
+round is a gather in device memory and the chunks of a wavefront run one
+after another on one stream, so pipelining gains nothing and the chooser
+picks one chunk unless ``BLUEFOG_PLAN_CHUNKS`` asks for more. Left out: the
+short-cut relay family and the measured probe ``calibrate``
+(``BLUEFOG_PLAN_CALIBRATE=1`` raises).
 """
 
 import dataclasses
-from typing import Dict, Iterable, List, Tuple
+import os
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 __all__ = [
+    "ROUND_ALPHA_S",
+    "ICI_LINK_BYTES_PER_S",
+    "DCN_ROUND_ALPHA_S",
+    "DCN_LINK_BYTES_PER_S",
+    "LINK_CLASSES",
+    "TRANSPORT_LINK_CLASS",
+    "DEFAULT_PAYLOAD_BYTES",
     "CompiledEdges",
     "compile_edges",
     "offset_perms",
     "coloring_perms",
     "min_rounds",
+    "round_cost_s",
+    "plan_cost_s",
+    "pipelined_cost_s",
+    "chunk_option",
+    "choose_chunks",
+    "CompiledReduceScatter",
+    "compile_reduce_scatter",
+    "reduce_scatter_chunks",
+    "calibration",
+    "set_calibration",
+    "clear_calibration",
+    "clear_compile_cache",
 ]
+
+# The alpha-beta constants of the JAX package's cost model (its ICI and
+# DCN link classes): the defaults until a calibration is installed.
+ROUND_ALPHA_S = 1.0e-6
+ICI_LINK_BYTES_PER_S = 9.0e10
+DCN_ROUND_ALPHA_S = 5.0e-5
+DCN_LINK_BYTES_PER_S = 2.5e10
+
+LINK_CLASSES = ("ici", "dcn", "stacked")
+
+# The link class the port's optimizers price their chunks with: the stacked
+# single-process transport (A14 brings a transport with a wire).
+TRANSPORT_LINK_CLASS = "stacked"
+
+# ResNet50 f32 model payload: the default basis of a compiled structure's
+# recorded predicted cost.
+DEFAULT_PAYLOAD_BYTES = 25_557_032 * 4
+
+# Chunk splits snap to the quantization block.
+CHUNK_ALIGN_ELEMS = 512
+
+# Search cap of the chunk chooser (powers of two up to this).
+MAX_CHUNKS = 64
+
+_CAL: Dict[str, Dict[str, float]] = {}
+
+_CLASS_DEFAULTS: Dict[str, Dict[str, object]] = {
+    "ici": {
+        "alpha_s": ROUND_ALPHA_S,
+        "beta_bytes_per_s": ICI_LINK_BYTES_PER_S,
+        "pipeline_eff": 1.0,
+        "source": "class-constants",
+    },
+    "dcn": {
+        "alpha_s": DCN_ROUND_ALPHA_S,
+        "beta_bytes_per_s": DCN_LINK_BYTES_PER_S,
+        "pipeline_eff": 0.0,
+        "source": "class-constants",
+    },
+    # no wire: a round is a gather in device memory, and chunks on one
+    # stream cannot overlap, so only the extra launches are priced
+    "stacked": {
+        "alpha_s": ROUND_ALPHA_S,
+        "beta_bytes_per_s": float("inf"),
+        "pipeline_eff": 0.0,
+        "source": "class-constants",
+    },
+}
+
+
+def _check_link_class(link_class: str) -> str:
+    if link_class not in LINK_CLASSES:
+        raise ValueError(
+            f"link_class must be one of {LINK_CLASSES}, got {link_class!r}"
+        )
+    return link_class
+
+
+def calibration(link_class: str = "ici") -> Dict[str, object]:
+    """The active constants of one link class: an installed calibration,
+    else the class defaults (``pipeline_eff`` is the fraction of the ideal
+    chunk-pipeline overlap the fabric delivers)."""
+    cal = _CAL.get(_check_link_class(link_class))
+    out = dict(cal) if cal is not None else dict(_CLASS_DEFAULTS[link_class])
+    out["link_class"] = link_class
+    return out
+
+
+def set_calibration(alpha_s: float, beta_bytes_per_s: float, pipeline_eff: float = 1.0,
+                    source: str = "manual", link_class: str = "ici") -> None:
+    """Install the cost model's constants for one link class."""
+    _CAL[_check_link_class(link_class)] = {
+        "alpha_s": float(alpha_s),
+        "beta_bytes_per_s": float(beta_bytes_per_s),
+        "pipeline_eff": min(1.0, max(0.0, float(pipeline_eff))),
+        "source": source,
+    }
+
+
+def clear_calibration(link_class: Optional[str] = None) -> None:
+    """Drop the installed calibration of ``link_class``, or of every class."""
+    if link_class is None:
+        _CAL.clear()
+    else:
+        _CAL.pop(_check_link_class(link_class), None)
+
+
+def _maybe_autocalibrate() -> None:
+    """``BLUEFOG_PLAN_CALIBRATE=1`` asks for the measured probe, which the
+    port does not have yet: refuse rather than quietly price with the class
+    constants."""
+    if os.environ.get("BLUEFOG_PLAN_CALIBRATE", "0") in ("1", "true", "on"):
+        raise NotImplementedError(
+            "BLUEFOG_PLAN_CALIBRATE=1: the measured probe compiler.calibrate is "
+            "not ported; unset it (the chooser then prices with the class "
+            "constants) or install constants with compiler.set_calibration()"
+        )
+
+
+def round_cost_s(payload_bytes: float, congestion: float = 1.0,
+                 link_class: str = "ici") -> float:
+    """One round: fixed latency plus the payload over the link."""
+    cal = calibration(link_class)
+    return cal["alpha_s"] + congestion * payload_bytes / cal["beta_bytes_per_s"]
+
+
+def plan_cost_s(n_rounds: int, payload_bytes: float, link_class: str = "ici") -> float:
+    """Rounds are sequential: rounds x the cost of one."""
+    return n_rounds * round_cost_s(payload_bytes, link_class=link_class)
+
+
+def pipelined_cost_s(payload_bytes: float, n_chunks: int, congestions: Sequence[float],
+                     link_class: str = "ici") -> float:
+    """Cost of a chunked wavefront over rounds with the given congestion
+    factors: the serial plan for one chunk; for ``k > 1`` the ideal
+    pipeline of ``R + k - 1`` waves of ``B / k`` bytes, weighed by
+    ``pipeline_eff`` against the serial plan plus its ``R (k - 1)`` extra
+    launches."""
+    cal = calibration(link_class)
+    alpha, beta, gamma = cal["alpha_s"], cal["beta_bytes_per_s"], cal["pipeline_eff"]
+    k = max(1, int(n_chunks))
+    serial = sum(alpha + c * payload_bytes / beta for c in congestions)
+    if k == 1:
+        return serial
+    serial_k = serial + len(congestions) * (k - 1) * alpha
+    b = payload_bytes / k
+    bottleneck = alpha + max(congestions, default=1.0) * b / beta
+    ideal = sum(alpha + c * b / beta for c in congestions) + (k - 1) * bottleneck
+    return gamma * ideal + (1.0 - gamma) * serial_k
 
 Perms = Tuple[Tuple[Tuple[int, int], ...], ...]
 
@@ -170,3 +328,121 @@ def compile_edges(
         offset_rounds=len(naive),
         lower_bound=bound,
     )
+
+
+def _round_congestions(perms: Perms, size: int) -> Tuple[float, ...]:
+    """Per-round link load of the cost model: 1 for every round, since the
+    port declares no physical torus to route on."""
+    return (1.0,) * len(perms)
+
+
+def chunk_option(payload_bytes: float, congestions: Sequence[float],
+                 n_elems: Optional[int] = None, link_class: str = "ici") -> Tuple[int, float]:
+    """The best chunk count for one round structure and its predicted
+    cost: the argmin of :func:`pipelined_cost_s` over powers of two, capped
+    so that every chunk keeps a whole 512-element block."""
+    if not congestions:
+        return 1, 0.0
+    kmax = MAX_CHUNKS
+    if n_elems is not None:
+        kmax = min(kmax, max(1, int(n_elems) // CHUNK_ALIGN_ELEMS))
+    best_k, best_c = 1, pipelined_cost_s(payload_bytes, 1, congestions, link_class=link_class)
+    k = 2
+    while k <= kmax:
+        c = pipelined_cost_s(payload_bytes, k, congestions, link_class=link_class)
+        if c < best_c:
+            best_k, best_c = k, c
+        k *= 2
+    return best_k, best_c
+
+
+def _env_chunks(n_elems: Optional[int]) -> Optional[int]:
+    """The ``BLUEFOG_PLAN_CHUNKS`` override (capped at one block a chunk),
+    or None when unset."""
+    env = os.environ.get("BLUEFOG_PLAN_CHUNKS", "").strip()
+    if not env:
+        return None
+    try:
+        k = int(env)
+    except ValueError:
+        raise ValueError(f"BLUEFOG_PLAN_CHUNKS must be a positive int, got {env!r}")
+    if k < 1:
+        raise ValueError(f"BLUEFOG_PLAN_CHUNKS must be a positive int, got {env!r}")
+    if n_elems is not None:
+        k = min(k, max(1, int(n_elems) // CHUNK_ALIGN_ELEMS))
+    return k
+
+
+def choose_chunks(compiled, payload_bytes: float, n_elems: Optional[int] = None,
+                  method: str = "auto", link_class: str = "ici") -> int:
+    """The chunk count of one dispatch: ``BLUEFOG_PLAN_CHUNKS`` when set;
+    1 under a forced structure method; else :func:`chunk_option` over the
+    compiled structure's rounds (a :class:`CompiledEdges` or a round
+    count)."""
+    k = _env_chunks(n_elems)
+    if k is not None:
+        return k
+    if method not in (None, "auto"):
+        return 1
+    _maybe_autocalibrate()
+    rounds = compiled.rounds if isinstance(compiled, CompiledEdges) else int(compiled)
+    k, _cost = chunk_option(payload_bytes, (1.0,) * rounds, n_elems, link_class=link_class)
+    return k
+
+
+@dataclasses.dataclass(frozen=True)
+class CompiledReduceScatter:
+    """The round structure of a ring reduce-scatter over ``size`` workers:
+    ``size - 1`` circulant rounds, round ``t`` a full permutation ``r ->
+    r + t`` in which every sender ships one slot."""
+
+    perms: Perms
+    size: int
+    rounds: int
+    congestion: Tuple[float, ...]
+    predicted_cost_s: float
+
+
+_RS_CACHE: Dict[int, CompiledReduceScatter] = {}
+
+
+def compile_reduce_scatter(size: int,
+                           payload_bytes: Optional[float] = None) -> CompiledReduceScatter:
+    """The circulant reduce-scatter structure of ``size`` workers (memoized
+    per size; the predicted cost is priced at the first call's payload)."""
+    size = int(size)
+    if size < 1:
+        raise ValueError(f"reduce-scatter needs a positive mesh, got {size}")
+    info = _RS_CACHE.get(size)
+    if info is None:
+        perms = tuple(
+            tuple((r, (r + t) % size) for r in range(size))
+            for t in range(1, size)
+        )
+        congestion = _round_congestions(perms, size)
+        payload = DEFAULT_PAYLOAD_BYTES if payload_bytes is None else float(payload_bytes)
+        info = CompiledReduceScatter(
+            perms=perms, size=size, rounds=size - 1, congestion=congestion,
+            predicted_cost_s=pipelined_cost_s(payload, 1, congestion),
+        )
+        _RS_CACHE[size] = info
+    return info
+
+
+def reduce_scatter_chunks(size: int, payload_bytes: float,
+                          n_elems: Optional[int] = None, link_class: str = "ici") -> int:
+    """The chunk count of a reduce-scatter whose rounds each ship
+    ``payload_bytes`` (one slot of ``n_elems`` elements)."""
+    info = compile_reduce_scatter(size, payload_bytes)
+    k = _env_chunks(n_elems)
+    if k is not None:
+        return k
+    _maybe_autocalibrate()
+    k, _cost = chunk_option(payload_bytes, info.congestion or (1.0,) * info.rounds, n_elems,
+                            link_class=link_class)
+    return k
+
+
+def clear_compile_cache() -> None:
+    """Drop the memoized reduce-scatter structures."""
+    _RS_CACHE.clear()

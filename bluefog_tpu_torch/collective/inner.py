@@ -9,10 +9,24 @@ round is a gather along the leading axis: row ``j`` of round ``r`` is
 delivers to a non-destination, whose weight is 0). The arithmetic follows
 the JAX functions op for op, so the stacked results equal the mesh
 results slot for slot.
+
+Chunking (``chunks > 1``) splits only the transfers, on the 512-element
+grid, in wavefront order (chunk ``c`` of round ``r`` beside chunk ``c + 1``
+of round ``r - 1``): the exact and bf16 combines and the reduce-scatter
+gather each ``(round, chunk)`` and put each round back together before the
+accumulate; the int8/int4 combines copy the payload chunk-major and launch
+their decoders per chunk (per ``(round, chunk)`` for the EF copies). The
+arithmetic is the monolithic one, so the result is bitwise the monolithic
+result. On one card no wire overlaps, so a chunked or bucketed combine
+costs copies and launches and buys nothing: the optimizers price the
+stacked transport (:data:`compiler.TRANSPORT_LINK_CLASS`) and bucket at
+:func:`transport_bucket_cap`, one chunk and one bucket unless
+``BLUEFOG_PLAN_CHUNKS`` or ``BLUEFOG_BUCKET_BYTES`` asks for more.
 """
 
+import os
 import weakref
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +35,10 @@ from bluefog_tpu_torch.collective import kernels
 from bluefog_tpu_torch.collective.plan import CommPlan, SchedulePlan
 
 __all__ = [
+    "bucket_bytes_cap",
+    "transport_bucket_cap",
+    "bucket_bounds",
+    "chunk_bounds",
     "weighted_combine",
     "weighted_combine_operands",
     "weighted_combine_quantized",
@@ -36,12 +54,126 @@ __all__ = [
     "neighbor_allgather",
     "allreduce",
     "allgather",
+    "reduce_scatter",
     "broadcast",
     "pair_gossip",
     "barrier",
     "plan_operands",
     "schedule_operands",
 ]
+
+
+# The quantization block: bucket and chunk bounds snap to it, so a bucketed
+# or chunked payload splits into exactly the blocks of the whole payload.
+_QUANT_CHUNK = kernels.CHUNK
+
+
+def bucket_bytes_cap() -> int:
+    """The gossip bucket cap in bytes: ``BLUEFOG_BUCKET_BYTES`` (default 4
+    MiB); ``BLUEFOG_OVERLAP=0`` turns bucketing off (0, no cap)."""
+    if os.environ.get("BLUEFOG_OVERLAP", "1").lower() in ("0", "false", "off"):
+        return 0
+    from bluefog_tpu_torch.logging_util import env_int
+
+    return env_int("BLUEFOG_BUCKET_BYTES", 4 << 20)
+
+
+def transport_bucket_cap() -> int:
+    """The bucket cap of the port's stacked transport: buckets let one
+    bucket's wire time hide behind the next one's work, and one process
+    on one card has no wire, so one bucket (0) unless
+    ``BLUEFOG_BUCKET_BYTES`` is set; then :func:`bucket_bytes_cap`
+    (``BLUEFOG_OVERLAP=0`` still turns it off)."""
+    if not os.environ.get("BLUEFOG_BUCKET_BYTES", "").strip():
+        return 0
+    return bucket_bytes_cap()
+
+
+def bucket_bounds(n_elems: int, itemsize: int,
+                  cap_bytes: Optional[int] = None) -> List[Tuple[int, int]]:
+    """Contiguous ``[start, end)`` bucket bounds of a flat payload of
+    ``n_elems`` per worker: one bucket under the cap (or with ``cap_bytes
+    <= 0``), else buckets of the cap's width snapped down to whole 512-element
+    blocks (at least one block), so the quantized wire's block scales are
+    those of the whole payload."""
+    if cap_bytes is None:
+        cap_bytes = bucket_bytes_cap()
+    if cap_bytes <= 0 or n_elems == 0:
+        return [(0, n_elems)]
+    per = max(1, cap_bytes // max(1, itemsize))
+    per = max(per - per % _QUANT_CHUNK, _QUANT_CHUNK)
+    if per >= n_elems:
+        return [(0, n_elems)]
+    return [(i, min(i + per, n_elems)) for i in range(0, n_elems, per)]
+
+
+def chunk_bounds(n_elems: int, chunks: int) -> List[Tuple[int, int]]:
+    """Contiguous splits of a flat payload into about ``chunks`` pipeline
+    chunks, every interior bound on the 512-element grid; ``chunks <= 1``
+    or a payload of one block gives one chunk, and a payload too small for
+    the count gives fewer."""
+    k = max(1, int(chunks))
+    if k <= 1 or n_elems <= _QUANT_CHUNK:
+        return [(0, n_elems)]
+    per = -(-n_elems // k)
+    if per % _QUANT_CHUNK:
+        per += _QUANT_CHUNK - per % _QUANT_CHUNK
+    if per >= n_elems:
+        return [(0, n_elems)]
+    return [(i, min(i + per, n_elems)) for i in range(0, n_elems, per)]
+
+
+def _chunk_group_bounds(bounds: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """Element bounds -> quantization block bounds: chunk ``[a, b)`` covers
+    blocks ``a // 512 .. ceil(b / 512)`` of the whole payload's wire pair."""
+    return [(a // _QUANT_CHUNK, -(-b // _QUANT_CHUNK)) for a, b in bounds]
+
+
+def _wavefront(n_rounds: int, n_chunks: int):
+    """The pipelined issue order: wave ``w`` holds every ``(round r, chunk
+    c)`` with ``r + c == w``."""
+    for wave in range(n_rounds + n_chunks - 1):
+        for c in range(n_chunks):
+            r = wave - c
+            if 0 <= r < n_rounds:
+                yield r, c
+
+
+def _chunk_layout(n_elems: int, chunks: int) -> Tuple[int, int]:
+    """``(chunk count, chunk width)`` of :func:`chunk_bounds`, the width
+    padded to whole 512-element blocks."""
+    bounds = chunk_bounds(n_elems, chunks)
+    return len(bounds), -(-(bounds[0][1] - bounds[0][0]) // _QUANT_CHUNK) * _QUANT_CHUNK
+
+
+def _to_chunk_major(t: torch.Tensor, n_chunks: int, width: int) -> torch.Tensor:
+    """A chunk-major copy of ``t [..., N, m]`` (unit stride along ``m``):
+    ``[..., n_chunks, N, width]``, chunk ``c`` holding columns ``[c *
+    width, (c + 1) * width)``, zeros past ``m``; each chunk of it is
+    contiguous, as the wire kernels take their operands."""
+    lead, (rows, m) = tuple(t.shape[:-2]), tuple(t.shape[-2:])
+    full = min(m // width, n_chunks)
+    shape = lead + (n_chunks, rows, width)
+    out = t.new_empty(shape) if full * width == m and full == n_chunks else t.new_zeros(shape)
+    if full:
+        out[..., :full, :, :] = t[..., :full * width].view(lead + (rows, full, width)) \
+            .transpose(-3, -2)
+    if m > full * width:
+        out[..., full, :, :m - full * width] = t[..., full * width:]
+    return out
+
+
+def _from_chunk_major(cm: torch.Tensor, t: torch.Tensor) -> None:
+    """Write a chunk-major tensor back into ``t [..., N, m]`` (its first
+    ``m`` columns), the inverse of :func:`_to_chunk_major`."""
+    lead, (rows, m) = tuple(t.shape[:-2]), tuple(t.shape[-2:])
+    width = cm.shape[-1]
+    full = min(m // width, cm.shape[-3])
+    if full:
+        t[..., :full * width].view(lead + (rows, full, width)).copy_(
+            cm[..., :full, :, :].transpose(-3, -2))
+    if m > full * width:
+        t[..., full * width:] = cm[..., full, :, :m - full * width]
 
 
 def _weight_dtype(x: torch.Tensor) -> torch.dtype:
@@ -74,26 +206,75 @@ def _col(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.to(like.dtype).view((-1,) + (1,) * (like.dim() - 1))
 
 
+def _zero_unsent(t: torch.Tensor, has: torch.Tensor) -> torch.Tensor:
+    """``t`` with the rows of no sender (``has`` False) zeroed."""
+    return torch.where(has.view((-1,) + (1,) * (t.dim() - 1)), t,
+                       torch.zeros((), dtype=t.dtype, device=t.device))
+
+
+def _wavefront_gathers(parts: List[Tuple[torch.Tensor, ...]], src: torch.Tensor):
+    """The transfers of a chunked combine: chunk ``c`` of round ``r`` is
+    every tensor of ``parts[c]`` gathered by ``src[r]``, issued in
+    wavefront order; returns each round's chunks put back together along
+    the flat axis (one list per round, one tensor per tensor of a part).
+    A row with no sender (``src[r, j] == -1``) holds worker 0's values: the
+    caller zeroes or skips it."""
+    n_rounds, n_chunks = src.shape[0], len(parts)
+    safe = [src[r].to(torch.long).clamp(min=0) for r in range(n_rounds)]
+    recv = [[None] * n_chunks for _ in range(n_rounds)]
+    for r, c in _wavefront(n_rounds, n_chunks):
+        recv[r][c] = [t.index_select(0, safe[r]) for t in parts[c]]
+    return [[row[0][k] if n_chunks == 1 else torch.cat([p[k] for p in row], dim=1)
+             for k in range(len(parts[0]))]
+            for row in recv]
+
+
+def _chunked_rounds(parts: List[torch.Tensor], src: torch.Tensor) -> List[torch.Tensor]:
+    """:func:`_wavefront_gathers` of single tensors: each round's received
+    ``[N, n]`` payload, zeros where no sender sent (as ``ppermute``
+    delivers)."""
+    return [_zero_unsent(got, src[r] >= 0)
+            for r, (got,) in enumerate(_wavefront_gathers([(p,) for p in parts], src))]
+
+
+def _chunked_exact_combine(xw: torch.Tensor, src: torch.Tensor, self_w: torch.Tensor,
+                           recv_w: torch.Tensor, chunks: int) -> torch.Tensor:
+    """The exact combine with chunked transfers (``_chunked_exact_combine``
+    without the relay rounds): the flat payload's chunks are gathered per
+    ``(round, chunk)`` in wavefront order, each round's chunks are put back
+    together at full width, and the accumulate is the monolithic one."""
+    flat = xw.reshape(xw.shape[0], -1)
+    parts = [flat[:, a:b] for a, b in chunk_bounds(flat.shape[1], chunks)]
+    y = xw * _col(self_w, xw)
+    for r, recv in enumerate(_chunked_rounds(parts, src)):
+        y = y + recv.reshape(xw.shape) * _col(recv_w[r], xw)
+    return y
+
+
 def weighted_combine_operands(
-    x: torch.Tensor, src: torch.Tensor, self_w: torch.Tensor, recv_w: torch.Tensor
+    x: torch.Tensor, src: torch.Tensor, self_w: torch.Tensor, recv_w: torch.Tensor,
+    chunks: int = 1,
 ) -> torch.Tensor:
     """``y_j = self_w[j] * x_j + sum_r recv_w[r, j] * x_{src[r, j]}``, the
-    weights as runtime operands."""
+    weights as runtime operands; ``chunks > 1`` chunks the transfers
+    (:func:`_chunked_exact_combine`, bitwise the same result)."""
     xw = x.to(_weight_dtype(x))
+    if chunks > 1:
+        return _chunked_exact_combine(xw, src, self_w, recv_w, chunks)
     y = xw * _col(self_w, xw)
     for r in range(src.shape[0]):
         y = y + _gather(xw, src[r]) * _col(recv_w[r], xw)
     return y
 
 
-def weighted_combine(x: torch.Tensor, plan: CommPlan) -> torch.Tensor:
+def weighted_combine(x: torch.Tensor, plan: CommPlan, chunks: int = 1) -> torch.Tensor:
     """:func:`weighted_combine_operands` with the plan's weights."""
-    return weighted_combine_operands(x, *plan_operands(plan, x.device))
+    return weighted_combine_operands(x, *plan_operands(plan, x.device), chunks=chunks)
 
 
-def neighbor_allreduce(x: torch.Tensor, plan: CommPlan) -> torch.Tensor:
+def neighbor_allreduce(x: torch.Tensor, plan: CommPlan, chunks: int = 1) -> torch.Tensor:
     """Weighted neighbor averaging over a static plan."""
-    return weighted_combine(x, plan)
+    return weighted_combine(x, plan, chunks=chunks)
 
 
 # {schedule: {device: stacked operands on it}}, dropped with the schedule
@@ -206,6 +387,246 @@ def allgather(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     flat = x.reshape((1, -1) + tuple(x.shape[2:]))
     return flat.expand((n,) + tuple(flat.shape[1:])).clone()
+
+
+# device index tensors of the slot gathers, by (values, device): a few per
+# worker count, so a gather never copies its indices to the card again
+_ROW_INDEX = {}
+
+
+def _row_index(values: Sequence[int], device, dtype=torch.long) -> torch.Tensor:
+    key = (tuple(values), str(device), dtype)
+    t = _ROW_INDEX.get(key)
+    if t is None:
+        t = _ROW_INDEX[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return t
+
+
+def _slot_rows(x2: torch.Tensor, senders: Sequence[int], positions: Sequence[int], slot: int,
+               a: int = 0, b: Optional[int] = None) -> torch.Tensor:
+    """``[N, b - a]`` rows of a ``[N, m]`` payload: row ``j`` holds columns
+    ``[a, b)`` of worker ``senders[j]``'s slot at owner position
+    ``positions[j]``, zeros past the payload's end (the padding of the
+    shard layout, which the payload need not carry). One gather for the
+    rows whose slot the payload holds whole; a copy each for the others."""
+    b = slot if b is None else b
+    m = x2.shape[1]
+    n_full = m // slot
+    whole = [j for j, pos in enumerate(positions) if pos < n_full]
+    if x2.stride(1) != 1:
+        whole = []
+    x3 = x2[:, :n_full * slot].view(x2.shape[0], n_full, slot) if whole else None
+    if len(whole) == len(positions):
+        return x3[_row_index(senders, x2.device), _row_index(positions, x2.device), a:b]
+    out = x2.new_zeros((len(senders), b - a))
+    if whole:
+        out[_row_index(whole, x2.device)] = x3[
+            _row_index([senders[j] for j in whole], x2.device),
+            _row_index([positions[j] for j in whole], x2.device), a:b]
+    for j, (snd, pos) in enumerate(zip(senders, positions)):
+        if pos < n_full and whole:
+            continue
+        lo, hi = pos * slot + a, min(pos * slot + b, m)
+        if hi > lo:
+            out[j, :hi - lo] = x2[snd, lo:hi]
+    return out
+
+
+def _quantize_rows(rows: torch.Tensor, wire: str):
+    """The plain block quantizer of ``[N, slot]`` f32 rows: ``(payload,
+    scales, reconstruction [N, slot])`` (the JAX composite quantizer)."""
+    p, s = kernels.encode_reference(kernels.pad_blocks(rows), wire)
+    return p, s, kernels.unpad_blocks(kernels.dequantize(p, s), rows.shape[1])
+
+
+def reduce_scatter(
+    x: torch.Tensor,
+    live_index: Sequence[int],
+    slot: int,
+    average: bool = True,
+    wire: Optional[str] = None,
+    chunks: int = 1,
+    ef: Optional[torch.Tensor] = None,
+    live_mask: Optional[Sequence[float]] = None,
+    fast: bool = True,
+):
+    """Ring reduce-scatter, the ZeRO-2 gradient leg: worker ``j`` gets only
+    its owned ``[slot]`` row of the sum over workers, ``[N, slot]`` in
+    all (divided by the full worker count under ``average``, dead workers'
+    rows included, as :func:`allreduce`).
+
+    ``x`` is ``[N, n_live * slot]`` (a flat payload per worker, ``slot`` on
+    the 512-element grid in the shard layout); ``live_index[r]`` is worker
+    ``r``'s owner position among the live set (dead workers 0,
+    :meth:`bluefog_tpu_torch.sharding.ShardLayout.live_index`).
+
+    Lowering: ``size - 1`` circulant rounds of
+    :func:`compiler.compile_reduce_scatter`; in round ``t`` every worker
+    ships the slot owned by the worker ``t`` ahead of it. A receiver adds
+    its own row first, then the rounds in order, a fixed order, so chunked
+    (transfers per ``(round, chunk)`` in wavefront order, each round put
+    back together at full slot width before the add) is bitwise
+    monolithic. ``fast`` takes the one-sum form (the JAX ``psum_scatter``)
+    on the exact tier with one chunk and every worker live.
+
+    ``wire`` compresses what the rounds ship, per 512-element block:
+    ``'bf16'``; ``'int8'``/``'int4'`` through :func:`kernels.encode` (one
+    launch per round: the rows of one round, ``[N, slot]``, so no copy of
+    all rounds' rows exists) and :func:`kernels.decode` (one per round, the
+    gather fused in); ``'int8_ef'``/``'int4_ef'`` through the plain
+    quantizer on every device (the JAX function uses its composite there),
+    with the residual ``ef [N, n_live * slot]`` f32: each round ships ``Q(x +
+    e)`` of its row and keeps the quantization error in ``e``, except where
+    the destination is dead (``live_mask``). The own row is always exact.
+    The EF tiers return ``(own, new_ef)``."""
+    n_workers = x.shape[0]
+    size = len(live_index)
+    slot = int(slot)
+    flat = x.reshape(n_workers, -1)
+    if slot <= 0 or flat.shape[1] % slot:
+        raise ValueError(
+            f"reduce_scatter payload of {flat.shape[1]} is not a multiple of slot {slot}"
+        )
+    if size != n_workers:
+        raise ValueError(f"live_index has {size} entries for {n_workers} workers")
+    if live_mask is not None and len(live_mask) != size:
+        raise ValueError(f"live_mask has {len(live_mask)} entries for a mesh of {size}")
+    if ef is not None and wire in ("int8_ef", "int4_ef") and ef.numel() != flat.numel():
+        raise ValueError(
+            f"residual has {ef.numel() // n_workers} elements, payload has {flat.shape[1]}"
+        )
+    return _reduce_scatter(flat, live_index, slot, average, wire, chunks, ef, live_mask, fast)
+
+
+def _one_sum_scatter(flat: torch.Tensor, slot: int, average: bool) -> torch.Tensor:
+    """The one-sum form of the reduce-scatter (the JAX ``psum_scatter``)
+    over every worker: ``[N, slot]``, row ``j`` the sum over workers of
+    slot ``j``. The sum is :func:`allreduce`'s, over the unpadded ``[N,
+    m]`` payload, so its bits are the allreduce's; only that ``[m]`` sum is
+    padded to the slots, never the whole payload."""
+    size, m = flat.shape
+    wdt = _weight_dtype(flat)
+    y = flat.to(wdt).sum(0)
+    if m < size * slot:
+        y = torch.nn.functional.pad(y, (0, size * slot - m))
+    y = y[:size * slot].view(size, slot)
+    return y / torch.tensor(size, dtype=wdt) if average else y
+
+
+def _reduce_scatter(flat, live_index, slot, average, wire, chunks, ef, live_mask,
+                    fast=False):
+    """:func:`reduce_scatter` on a ``[N, m]`` payload whose slots past
+    ``m`` read as zeros (the shard layout's padding)."""
+    from bluefog_tpu_torch.collective import compiler
+
+    size = flat.shape[0]
+    lidx = [int(v) for v in live_index]
+    if (fast and ef is None and wire in (None, "fp32") and chunks <= 1
+            and lidx == list(range(size))):
+        return _one_sum_scatter(flat, slot, average)
+    wdt = _weight_dtype(flat)
+    norm = torch.tensor(size, dtype=torch.float32)
+    perms = compiler.compile_reduce_scatter(size).perms
+    # round t: receiver j's sender, and the owner position it ships
+    senders = []
+    for perm in perms:
+        src_of = [0] * size
+        for snd, dst in perm:
+            src_of[dst] = snd
+        senders.append(src_of)
+    own_pos = lidx
+    me = list(range(size))
+    bounds = chunk_bounds(slot, chunks)
+
+    def rounds(rows_of):
+        """Each round's received rows put back together at full slot
+        width, in round order as each round's last chunk arrives, from
+        ``rows_of(r, a, b)``: the ``[a, b)`` columns round ``r`` ships,
+        issued per (round, chunk) in wavefront order (round ``r`` ends on
+        wave ``r + chunks - 1``, so at most ``chunks`` rounds are in
+        flight)."""
+        n_c = len(bounds)
+        recv = {}
+        for r, c in _wavefront(len(perms), n_c):
+            recv.setdefault(r, [None] * n_c)[c] = rows_of(r, *bounds[c])
+            if c == n_c - 1:
+                row = recv.pop(r)
+                yield row[0] if n_c == 1 else torch.cat(row, dim=1)
+
+    if wire in (None, "fp32"):
+        xw = flat.to(wdt)
+        y = _slot_rows(xw, me, own_pos, slot)
+        for got in rounds(lambda r, a, b: _slot_rows(xw, senders[r], own_pos, slot, a, b)):
+            y = y + got
+        return y / norm.to(wdt) if average else y
+
+    xf = flat.to(torch.float32)
+    y = _slot_rows(xf, me, own_pos, slot)
+    if wire == "bf16":
+        for got in rounds(lambda r, a, b: _slot_rows(
+                xf, senders[r], own_pos, slot, a, b).to(torch.bfloat16)):
+            y = y + got.to(torch.float32)
+        if average:
+            y = y / norm
+        return y.to(wdt)
+
+    if wire in ("int8", "int4"):
+        groups = _chunk_group_bounds(bounds)
+        for r, perm in enumerate(perms):
+            # sender s ships its row for the worker r + 1 ahead of it
+            dest = [lidx[d] for _s, d in sorted(perm)]
+            payload, scales = kernels.encode(
+                kernels.pad_blocks(_slot_rows(xf, me, dest, slot)).contiguous(), wire)
+            if len(groups) == 1:
+                got = kernels.decode(payload, scales, _row_index(senders[r], xf.device, torch.int32),
+                                     wire, src_in_range=True)
+            else:
+                # the round's chunks, each gathered from its sender (every
+                # worker sends in every round), put back together
+                idx = _row_index(senders[r], xf.device)
+                got = kernels.decode(
+                    torch.cat([payload[:, ga:gb].index_select(0, idx) for ga, gb in groups], 1),
+                    torch.cat([scales[:, ga:gb].index_select(0, idx) for ga, gb in groups], 1),
+                    None, wire)
+            y = y + kernels.unpad_blocks(got, slot)
+        if average:
+            y = y / norm
+        return y.to(wdt)
+
+    if wire not in ("int8_ef", "int4_ef"):
+        raise ValueError(
+            "reduce_scatter wire must be None/'fp32'/'bf16'/'int8'/"
+            f"'int4'/'int8_ef'/'int4_ef', got {wire!r}"
+        )
+    if ef is None:
+        raise ValueError(f"wire {wire!r} needs the per-slot residual ef")
+    e = ef.reshape(size, -1).to(torch.float32)
+    if e.shape[1] % slot or e.shape[1] < flat.shape[1]:
+        raise ValueError(
+            f"residual has {e.shape[1]} elements a worker, payload has {flat.shape[1]}"
+        )
+    e_new = e.clone()
+    live = [True] * size if live_mask is None else [bool(v) for v in live_mask]
+    groups = _chunk_group_bounds(bounds)
+    for r, perm in enumerate(perms):
+        dest_rank = [d for _s, d in sorted(perm)]
+        dest = [lidx[d] for d in dest_rank]
+        row_d = _slot_rows(xf, me, dest, slot) + _slot_rows(e, me, dest, slot)
+        q, sc, rowhat = _quantize_rows(row_d, wire[:-3])
+        # the shipped error stays in the residual where the destination is
+        # live; a dead destination never consumes the payload
+        for s_, pos in enumerate(dest):
+            if live[dest_rank[s_]]:
+                e_new[s_, pos * slot:(pos + 1) * slot] = row_d[s_] - rowhat[s_]
+        del row_d, rowhat
+        idx = _row_index(senders[r], xf.device)
+        got = kernels.dequantize(
+            torch.cat([q[:, ga:gb].index_select(0, idx) for ga, gb in groups], dim=1),
+            torch.cat([sc[:, ga:gb].index_select(0, idx) for ga, gb in groups], dim=1))
+        y = y + kernels.unpad_blocks(got.reshape(size, -1), slot)
+    if average:
+        y = y / norm
+    return y.to(wdt), e_new.reshape(ef.shape)
 
 
 def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
@@ -333,17 +754,34 @@ def _dequant4(packed: torch.Tensor, s16: torch.Tensor, n: int) -> torch.Tensor:
     return kernels.unpad_blocks(kernels.dequantize(packed, s16), n)
 
 
+def _chunked_wire_rounds(payload: torch.Tensor, scales: torch.Tensor, src: torch.Tensor,
+                         chunks: int, n: int):
+    """The transfers of a chunked quantized combine: the wire pair of the
+    whole payload (``n`` elements a worker) sliced into the blocks of
+    :func:`chunk_bounds`, each ``(round, chunk)`` slice gathered by
+    ``src[r]`` in wavefront order; returns each round's ``(payload, scales,
+    rows)`` put back together at full width, ``rows [N]`` int32 naming the
+    row each worker decodes: its own gathered row, or -1 where no sender
+    sent (the decoders' zero payload)."""
+    parts = [(payload[:, ga:gb], scales[:, ga:gb])
+             for ga, gb in _chunk_group_bounds(chunk_bounds(n, chunks))]
+    own = torch.arange(payload.shape[0], dtype=torch.int32, device=payload.device)
+    minus = torch.full_like(own, -1)
+    return [(p, s, torch.where(src[r] >= 0, own, minus))
+            for r, (p, s) in enumerate(_wavefront_gathers(parts, src))]
+
+
 def weighted_combine_quantized_operands(
     x: torch.Tensor,
     src: torch.Tensor,
     recv_w: torch.Tensor,
     wire: str = "int8",
     inplace: bool = False,
+    chunks: int = 1,
 ) -> torch.Tensor:
     """Quantized-wire combine in the difference form
     ``y = x + sum_r w_r (x_hat_r - x_hat_self)`` (exact consensus is a
-    fixed point), in :func:`_weight_dtype` — the monolithic branches of the
-    JAX function:
+    fixed point), in :func:`_weight_dtype`, as the JAX function computes it:
 
     - ``"bf16"``: every worker ships ``x`` rounded to bf16; each round adds
       ``((recv - x_hat) * w_r)`` computed in f32 and cast to the weight
@@ -352,15 +790,24 @@ def weighted_combine_quantized_operands(
     - ``"int8"``/``"int4"`` on a float32 (or integer) ``x``: one
       :func:`kernels.encode` of every worker's flat payload, then one
       :func:`kernels.decode_accumulate` with all rounds folded in. With
-      ``inplace=True`` and a contiguous f32 ``x`` whose per-worker size is
-      a multiple of 512, ``x`` itself is the accumulator and is
-      overwritten; otherwise a padded copy is.
+      ``inplace=True`` the result overwrites an f32 ``x``: a contiguous
+      ``x`` whose per-worker size is a multiple of 512 is itself the
+      accumulator, otherwise a padded contiguous copy is, written back.
     - ``"int8"``/``"int4"`` on a bf16 or f16 ``x``: the payload is encoded
       from ``x`` cast to f32 (:func:`kernels.encode`), each round's payload
       and the sender's own are decoded to f32 (:func:`kernels.decode`) and
       cast to the weight dtype, and the rounds are added in it, as the JAX
       composite branch does (the f32 accumulator of ``decode_accumulate``
       would round differently).
+
+    ``chunks > 1`` chunks the transfers on the 512-element grid, bitwise
+    the monolithic result: the bf16 payload and the bf16/f16 path's wire
+    pair are gathered per ``(round, chunk)`` in wavefront order and put
+    back together before the accumulate; on the f32 path the payload is
+    copied chunk-major (each chunk's columns contiguous), encoded once, and
+    each chunk accumulated over every round by one ``decode_accumulate``
+    (the chunk's transfers are the sender rows that launch reads). A
+    column slice that is not contiguous (a bucket) takes that copy too.
 
     A float64 ``x`` is refused: the JAX package holds no float64."""
     if wire not in ("int8", "bf16", "int4"):
@@ -373,57 +820,74 @@ def weighted_combine_quantized_operands(
             "the quantized wire combines float32, bfloat16 or float16 "
             f"payloads (integers in float32), got {x.dtype}"
         )
+    n_workers = x.shape[0]
     if wire == "bf16":
         xw = x.to(wdt)
         q16 = xw.to(torch.bfloat16)
         xhat = q16.to(torch.float32)
         y = xw
-        for r in range(src.shape[0]):
-            recv = _gather(q16, src[r]).to(torch.float32)
+        if chunks > 1:
+            flat16 = q16.reshape(n_workers, -1)
+            parts = [flat16[:, a:b] for a, b in chunk_bounds(flat16.shape[1], chunks)]
+            received = [t.reshape(x.shape) for t in _chunked_rounds(parts, src)]
+        else:
+            received = [_gather(q16, src[r]) for r in range(src.shape[0])]
+        for r, got in enumerate(received):
+            recv = got.to(torch.float32)
             y = y + ((recv - xhat) * _col(recv_w[r], recv)).to(wdt)
         return y
-    n_workers = x.shape[0]
     if wdt != torch.float32:
         xw = x.to(wdt)
         flat = xw.to(torch.float32).reshape(n_workers, -1)
         n = flat.shape[1]
         payload, scales = kernels.encode(kernels.pad_blocks(flat).contiguous(), wire)
 
-        def full(src_r):
-            out = kernels.decode(payload, scales, src_r, wire, src_in_range=True)
+        def full(p, s, src_r):
+            out = kernels.decode(p, s, src_r, wire, src_in_range=True)
             return kernels.unpad_blocks(out, n).reshape(x.shape).to(wdt)
 
-        xhat = full(None)
+        xhat = full(payload, scales, None)
+        if chunks > 1:
+            received = [full(p, s, rows)
+                        for p, s, rows in _chunked_wire_rounds(payload, scales, src, chunks, n)]
+        else:
+            received = [full(payload, scales, src[r]) for r in range(src.shape[0])]
         y = xw
-        for r in range(src.shape[0]):
-            y = y + (full(src[r]) - xhat) * _col(recv_w[r], xhat)
+        for r, got in enumerate(received):
+            y = y + (got - xhat) * _col(recv_w[r], xhat)
         return y
     if x.dtype != torch.float32:  # an integer payload combines in f32
         x, inplace = x.to(torch.float32), False
     flat = x.reshape(n_workers, -1)
     n = flat.shape[1]
-    aligned = n % kernels.CHUNK == 0 and flat.is_contiguous()
-    if inplace and aligned and flat.data_ptr() == x.data_ptr():
-        acc = flat
-    else:
-        acc = kernels.pad_blocks(flat)
-        if acc is flat:
-            acc = flat.clone()
-    payload, scales = kernels.encode(acc, wire)
-    kernels.decode_accumulate(acc, payload, scales, src, recv_w, wire)
-    if acc is flat:
+    in_x = inplace and flat.data_ptr() == x.data_ptr()
+    n_chunks, width = _chunk_layout(n, chunks)
+    if in_x and n_chunks == 1 and n % kernels.CHUNK == 0 and flat.is_contiguous():
+        payload, scales = kernels.encode(flat, wire)
+        kernels.decode_accumulate(flat, payload, scales, src, recv_w, wire)
         return x
-    return kernels.unpad_blocks(acc, n).reshape(x.shape)
+    # a chunk-major copy: one encode of every chunk's blocks, then one
+    # decode_accumulate over every round per chunk (the chunk's transfers
+    # are the sender rows that launch reads)
+    acc = _to_chunk_major(flat, n_chunks, width)
+    payload, scales = kernels.encode(acc.view(-1, width), wire)
+    payload = payload.view((n_chunks, n_workers) + tuple(payload.shape[1:]))
+    scales = scales.view(n_chunks, n_workers, -1)
+    for c in range(n_chunks):
+        kernels.decode_accumulate(acc[c], payload[c], scales[c], src, recv_w, wire)
+    out = flat if in_x else torch.empty((n_workers, n), dtype=torch.float32, device=x.device)
+    _from_chunk_major(acc, out)
+    return x if out is flat else out.reshape(x.shape)
 
 
 def weighted_combine_quantized(
-    x: torch.Tensor, plan: CommPlan, wire: str = "int8"
+    x: torch.Tensor, plan: CommPlan, wire: str = "int8", chunks: int = 1
 ) -> torch.Tensor:
     """:func:`weighted_combine_quantized_operands` with the plan's
     weights; validates that the plan is normalized."""
     _check_combine_normalized(plan, f"compression={wire!r}")
     src, _self_w, recv_w = plan_operands(plan, x.device)
-    return weighted_combine_quantized_operands(x, src, recv_w, wire=wire)
+    return weighted_combine_quantized_operands(x, src, recv_w, wire=wire, chunks=chunks)
 
 
 def ef_state_zeros(n_workers: int, n: int, n_rounds: int, device):
@@ -445,6 +909,7 @@ def weighted_combine_quantized_ef_operands(
     recv_w: torch.Tensor,
     wire: str = "int8",
     inplace: bool = False,
+    chunks: int = 1,
 ) -> torch.Tensor:
     """Quantized wire with memory (CHOCO-style difference compression),
     the monolithic branch of the JAX function: every worker keeps a
@@ -466,9 +931,14 @@ def weighted_combine_quantized_ef_operands(
     ranks are in range by construction. ``x`` must be float32 ``[N,
     ...]`` with ``n`` elements per worker;
     with ``inplace=True`` and a contiguous, block-aligned ``x`` the result
-    overwrites ``x``. The combine is always monolithic: the JAX
-    function's chunked wavefront (``chunks``) does not apply on one card,
-    so there is no such argument."""
+    overwrites ``x``.
+
+    ``chunks > 1`` chunks the transfers: ``x`` and the copies are copied
+    chunk-major (each chunk's columns contiguous, the copies written back
+    after), step 2 is one ``decode_add`` per ``(round, chunk)`` in
+    wavefront order, and the accumulate runs at full width; copies, output
+    and state are bitwise the monolithic ones. Copies given as column
+    slices (a bucket's) take the same path."""
     kernels._check_wire(wire)
     if x.dtype != torch.float32:
         raise ValueError(
@@ -486,20 +956,43 @@ def weighted_combine_quantized_ef_operands(
             f"{tuple(xhat_recv.shape)} does not fit x {tuple(x.shape)} on "
             f"{src.shape[0]} rounds"
         )
-    aligned = n % kernels.CHUNK == 0 and flat.is_contiguous()
-    if inplace and aligned and flat.data_ptr() == x.data_ptr():
-        y = flat
-    else:
-        y = kernels.pad_blocks(flat)
+    n_chunks, width = _chunk_layout(n, chunks)
+    if n_chunks == 1 and xhat_self.is_contiguous() and xhat_recv.is_contiguous():
+        aligned = n % kernels.CHUNK == 0 and flat.is_contiguous()
+        if inplace and aligned and flat.data_ptr() == x.data_ptr():
+            y = flat
+        else:
+            y = kernels.pad_blocks(flat)
+            if y is flat:
+                y = flat.clone()
+        payload, scales = kernels.encode_diff(y, xhat_self, wire)
+        diff = torch.empty_like(y)
+        for r in range(src.shape[0]):
+            hat_r = kernels.decode_add(xhat_recv[r], payload, scales, src[r], wire,
+                                       src_in_range=True)
+            torch.sub(hat_r, xhat_self, out=diff)
+            y.add_(diff.mul_(_col(recv_w[r], diff)))
         if y is flat:
-            y = flat.clone()
-    payload, scales = kernels.encode_diff(y, xhat_self, wire)
+            return x
+        return kernels.unpad_blocks(y, n).reshape(x.shape)
+    # chunk-major copies of x and of the copies (each chunk contiguous): one
+    # encode_diff, then a decode_add per (round, chunk) in wavefront order,
+    # the round's transfers of that chunk; the accumulate at full width
+    y = _to_chunk_major(flat, n_chunks, width)
+    hs = _to_chunk_major(xhat_self, n_chunks, width)
+    hr = _to_chunk_major(xhat_recv, n_chunks, width)
+    payload, scales = kernels.encode_diff(y.view(-1, width), hs.view(-1, width), wire)
+    payload = payload.view((n_chunks, n_workers) + tuple(payload.shape[1:]))
+    scales = scales.view(n_chunks, n_workers, -1)
+    for r, c in _wavefront(src.shape[0], n_chunks):
+        kernels.decode_add(hr[r, c], payload[c], scales[c], src[r], wire, src_in_range=True)
     diff = torch.empty_like(y)
     for r in range(src.shape[0]):
-        hat_r = kernels.decode_add(xhat_recv[r], payload, scales, src[r], wire,
-                                   src_in_range=True)
-        torch.sub(hat_r, xhat_self, out=diff)
-        y.add_(diff.mul_(_col(recv_w[r], diff)))
-    if y is flat:
-        return x
-    return kernels.unpad_blocks(y, n).reshape(x.shape)
+        torch.sub(hr[r], hs, out=diff)
+        y.add_(diff.mul_(recv_w[r].view(1, -1, 1)))
+    _from_chunk_major(hs, xhat_self)
+    _from_chunk_major(hr, xhat_recv)
+    in_x = inplace and flat.data_ptr() == x.data_ptr()
+    out = flat if in_x else torch.empty((n_workers, n), dtype=torch.float32, device=x.device)
+    _from_chunk_major(y, out)
+    return x if out is flat else out.reshape(x.shape)

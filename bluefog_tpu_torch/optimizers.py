@@ -24,6 +24,30 @@ Counterpart of ``bluefog_tpu/optimizers.py`` for two families:
 The inner optimizers are :func:`sgd` and :func:`adam`, whose numbers are
 ``optax.sgd``'s and ``optax.adam``'s.
 
+Bucketing and chunking: each packed group is gossiped in buckets of at
+most :func:`~bluefog_tpu_torch.collective.inner.transport_bucket_cap`
+bytes, snapped to the 512-element wire blocks, and the static-plan
+neighbor combine and the ZeRO-2 scatter split their transfers into the
+chunk count the JAX package's chooser gives for the port's transport
+(:meth:`_GossipOptimizer._plan_chunks`, link class
+:data:`~bluefog_tpu_torch.collective.compiler.TRANSPORT_LINK_CLASS`); both
+are bitwise the monolithic combine. One process on one card has no wire to
+overlap, so that is one bucket and one chunk unless
+``BLUEFOG_BUCKET_BYTES`` (``BLUEFOG_OVERLAP=0``: one bucket) or
+``BLUEFOG_PLAN_CHUNKS`` asks for more. A bucket is a column slice of the
+stacked ``[N, n]`` payload, not contiguous, so the quantized wire copies
+it, and the EF copies' columns, chunk-major (each chunk contiguous, as the
+wire kernels take their operands) and writes the results back.
+
+Weight-update sharding (:mod:`bluefog_tpu_torch.sharding`): with
+``BLUEFOG_SHARD=1`` the gradient-allreduce family keeps each worker's
+1/N slot of the inner state (a :class:`~bluefog_tpu_torch.sharding.ShardedOptState`),
+updates the slots and gathers them back into every worker's parameters
+(ZeRO-1); ``BLUEFOG_SHARD_GRADS=1`` replaces the gradient allreduce by
+:func:`bluefog_tpu_torch.collective.inner.reduce_scatter` on the wire of
+``compression`` (ZeRO-2). Every other family warns once and runs the
+replicated path.
+
 A parameter tree is a tensor or a (nested) dict of tensors, each
 ``[size, ...]`` with the worker axis first. Leaves are ordered as
 ``jax.tree_util`` orders a dict (keys sorted at every level) and packed
@@ -47,11 +71,15 @@ from typing import Callable, List, Optional, Union
 
 import torch
 
+import numpy as np
+
 from bluefog_tpu_torch import context as ctx_mod
+from bluefog_tpu_torch import sharding
 from bluefog_tpu_torch import windows as win_mod
-from bluefog_tpu_torch.collective import inner
+from bluefog_tpu_torch.collective import compiler, inner
 from bluefog_tpu_torch.collective import ops as col_ops
 from bluefog_tpu_torch.collective.plan import CommPlan, SchedulePlan, plan_from_weights
+from bluefog_tpu_torch.logging_util import warn_once
 
 __all__ = [
     "SGD",
@@ -95,6 +123,8 @@ def _build_tree(t, it):
     # garbage collector runs
     if isinstance(t, dict):
         return {k: _build_tree(t[k], it) for k in sorted(t)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):  # a NamedTuple
+        return type(t)(*(_build_tree(x, it) for x in t))
     if isinstance(t, (list, tuple)):
         return type(t)(_build_tree(x, it) for x in t)
     return next(it)
@@ -243,25 +273,68 @@ def _unpack_(group, out: torch.Tensor) -> None:
         off += n
 
 
-def _gossip_group(group, fn) -> None:
-    """Gossip one dtype group in place: ``fn`` takes its packed ``[N, n]``
-    payload (the leaf itself for a single leaf) and returns the result."""
-    _unpack_(group, fn(_pack(group)))
+def _buckets(flat: torch.Tensor, cap_bytes: int):
+    return inner.bucket_bounds(flat.shape[1], flat.element_size(), cap_bytes)
 
 
-def _packed_gossip(tree, gossip_fn: Callable[[torch.Tensor], torch.Tensor]) -> None:
+def _bucketed_flat_gossip(flat: torch.Tensor, fn, cap_bytes: int) -> torch.Tensor:
+    """``fn`` over the size-capped buckets of a packed ``[N, n]`` payload,
+    the results put back together (``_bucketed_flat_gossip``): the combine
+    is elementwise along the flat axis and the bounds sit on the wire's
+    block grid, so the result is bitwise ``fn(flat)``."""
+    bounds = _buckets(flat, cap_bytes)
+    if len(bounds) == 1:
+        return fn(flat)
+    return torch.cat([fn(flat[:, a:b]) for a, b in bounds], dim=1)
+
+
+def _gossip_group(group, fn, cap_bytes: int = 0) -> None:
+    """Gossip one dtype group in place, bucket by bucket: ``fn`` takes a
+    packed ``[N, n]`` payload (the leaf itself for a single leaf in one
+    bucket, else a column slice) and returns the result."""
+    packed = _pack(group)
+    bounds = _buckets(packed, cap_bytes)
+    if len(bounds) == 1:
+        _unpack_(group, fn(packed))
+        return
+    for a, b in bounds:
+        part = packed[:, a:b]
+        out = fn(part)
+        if out.data_ptr() != part.data_ptr():
+            part.copy_(out)
+    if len(group) > 1:
+        _unpack_(group, packed)
+
+
+def _packed_gossip(tree, gossip_fn: Callable[[torch.Tensor], torch.Tensor],
+                   cap_bytes: int = 0) -> None:
     """Gossip every leaf of ``tree`` in place, packed per dtype group in
-    JAX leaf order."""
+    JAX leaf order, in buckets of at most ``cap_bytes`` (0: one)."""
     for _name, group in _dtype_groups(tree_leaves(tree)):
-        _gossip_group(group, gossip_fn)
+        _gossip_group(group, gossip_fn, cap_bytes)
 
 
-def _packed_gossip_ef(tree, ef_state, ef_combine) -> None:
+def _packed_gossip_ef(tree, ef_state, ef_combine, cap_bytes: int = 0) -> None:
     """:func:`_packed_gossip` with error feedback: one ``(xhat_self,
     xhat_recv)`` pair per dtype group, threaded through ``ef_combine(flat,
-    state)`` and updated in place (``_packed_gossip_ef``, no bucketing)."""
-    for (_name, group), state in zip(_dtype_groups(tree_leaves(tree)), ef_state):
-        _gossip_group(group, lambda flat, st=state: ef_combine(flat, st))
+    state)`` and updated in place. A bucket takes the copies' columns of
+    its own blocks (views, which the combine updates in place), so each
+    bucket carries its own error feedback and the copies keep their
+    layout."""
+    for (_name, group), (xs, xr) in zip(_dtype_groups(tree_leaves(tree)), ef_state):
+        packed = _pack(group)
+        bounds = _buckets(packed, cap_bytes)
+        if len(bounds) == 1:
+            _unpack_(group, ef_combine(packed, (xs, xr)))
+            continue
+        for a, b in bounds:
+            end = min(-(-b // inner._QUANT_CHUNK) * inner._QUANT_CHUNK, xs.shape[1])
+            part = packed[:, a:b]
+            out = ef_combine(part, (xs[:, a:end], xr[:, :, a:end]))
+            if out.data_ptr() != part.data_ptr():
+                part.copy_(out)
+        if len(group) > 1:
+            _unpack_(group, packed)
 
 
 def _group_sig(tree):
@@ -292,6 +365,10 @@ class _Dispatch:
 
     def __init__(self, key, combine, self_weight, ef=False):
         self.key, self.combine, self.self_weight, self.ef = key, combine, self_weight, ef
+        self.cap_bytes = 0  # the bucket cap of this step's packed gossip
+        self.shard = None  # the ShardLayout of a sharded step
+        self.scatter_wire = None  # ZeRO-2: the reduce-scatter's wire tier
+        self.scatter_chunks = ()  # ZeRO-2: its chunk count per dtype group
 
     @property
     def identity(self) -> bool:
@@ -315,7 +392,8 @@ class _GossipOptimizer:
       zeroed whenever the group sizes, the plan's rounds or the tier
       change); the quantized wires on the static or explicit-weight
       neighbor path and the machine leg of the hierarchical path, the EF
-      tiers on the neighbor path only;
+      tiers on the neighbor path only; under ZeRO-2 every tier is the
+      gradient reduce-scatter's wire (the EF tiers' residuals per slot);
     - ``self_weight``, ``src_weights``, ``dst_weights``,
       ``enable_topo_check``: per-step weights, resolved as
       :func:`bluefog_tpu_torch.neighbor_allreduce` resolves them;
@@ -357,17 +435,226 @@ class _GossipOptimizer:
         self._grad_accum = None  # "grad" order: the gradient sum between communications
         self._ef = self._ef_sig = None
         self._delay_buf = self._delay_sig = None
+        self._shard_layout = None  # the active ShardLayout under BLUEFOG_SHARD=1
+        self._elementwise = None  # (inner optimizer, whether the probe found it elementwise)
+        self._scatter_ef = self._scatter_ef_sig = None
 
     def init(self, params):
-        """Per-worker inner-optimizer state (stacked like ``params``)."""
+        """Per-worker inner-optimizer state (stacked like ``params``); under
+        ``BLUEFOG_SHARD=1`` on the gradient-allreduce family a
+        :class:`~bluefog_tpu_torch.sharding.ShardedOptState`: each worker's
+        state over its owned slot, and the f32 master slices with
+        ``BLUEFOG_SHARD_MASTER=1``."""
+        if self._shard_active():
+            return self._shard_init(ctx_mod.get_context(), params)
         return self.tx.init(params)
 
     def free(self) -> None:
-        """Drop the error-feedback copies, the delay buffers and the
-        gradient accumulator (a later step starts them anew)."""
+        """Drop the error-feedback copies (the scatter's residuals too), the
+        delay buffers and the gradient accumulator (a later step starts
+        them anew)."""
         self._ef = self._ef_sig = None
         self._delay_buf = self._delay_sig = None
         self._grad_accum = None
+        self._scatter_ef = self._scatter_ef_sig = None
+
+    # -- weight-update sharding -----------------------------------------------------
+
+    def _shard_active(self) -> bool:
+        """Sharding applies where it keeps the trajectory: order
+        ``"grad"`` without a schedule, whose update inputs are the same on
+        every worker after the allreduce. Any other family warns once and
+        runs the replicated path."""
+        if not sharding.enabled():
+            return False
+        if self.order == "grad" and self.schedule is None:
+            return True
+        warn_once(
+            f"shard-family:{self.order}:{self.communication_type.value}",
+            "BLUEFOG_SHARD=1 ignored for the %s/%s family: its inner state "
+            "integrates each worker's own gradient stream, so a "
+            "coordinate-partitioned update would change the algorithm; running "
+            "the replicated path. Weight-update sharding applies to the "
+            "gradient-allreduce family.",
+            self.order, self.communication_type.value,
+        )
+        return False
+
+    def _ensure_shard_layout(self, ctx, params):
+        """``(layout, changed)``: the layout of ``params``' dtype groups over
+        every worker, ``changed`` when a stored layout no longer fits (a
+        flip of ``BLUEFOG_SHARD_GRADS`` alone swaps the gradient leg, not
+        the slots, and is not a change)."""
+        groups = _group_sig(params)
+        master = sharding.master_enabled()
+        grads = sharding.grads_enabled()
+        lay = self._shard_layout
+        if (lay is not None and lay.master == master
+                and tuple((g.dtype, g.elems) for g in lay.groups) == groups):
+            if lay.grads != grads:
+                lay = sharding.build_layout(groups, lay.live, ctx.size, master=master,
+                                            grads=grads)
+                self._shard_layout = lay
+            return lay, False
+        new = sharding.build_layout(groups, range(ctx.size), ctx.size, master=master,
+                                    grads=grads)
+        changed = lay is not None
+        self._shard_layout = new
+        return new, changed
+
+    def _shard_check_elementwise(self) -> None:
+        """Refuse an inner optimizer whose update of a coordinate depends on
+        other coordinates (global-norm clipping, trust ratios): update a
+        vector twice, alike in its first half and not in its second, and
+        require the first half's updates to be equal. Re-run whenever
+        ``tx`` is rebound."""
+        if self._elementwise is None or self._elementwise[0] is not self.tx:
+            d = 2 * sharding.ALIGN_ELEMS
+            half = d // 2
+            rng = np.random.RandomState(0)
+            p = rng.randn(d).astype(np.float32)
+            g1 = rng.randn(d).astype(np.float32)
+            g2 = g1.copy()
+            g2[half:] = rng.randn(half).astype(np.float32)
+            outs = []
+            for g in (g1, g2):
+                pt = torch.from_numpy(p.copy())[None]
+                self.tx.apply_(pt, self.tx.init(pt), torch.from_numpy(g)[None])
+                outs.append(pt[0, :half])
+            self._elementwise = (self.tx, bool(torch.equal(outs[0], outs[1])))
+        if not self._elementwise[1]:
+            raise ValueError(
+                "BLUEFOG_SHARD=1 requires an ELEMENTWISE inner transformation: "
+                "this optimizer's update of a coordinate depends on other "
+                "coordinates (global-norm clipping, LARS/LAMB-style trust "
+                "ratios, ...), so a 1/N-slot update would silently diverge from "
+                "the replicated trajectory. Use an elementwise transform (adam, "
+                "sgd, per-element clipping) or run with BLUEFOG_SHARD=0"
+            )
+
+    def _shard_init(self, ctx, params):
+        self._shard_check_elementwise()
+        layout, _ = self._ensure_shard_layout(ctx, params)
+        own = _shard_own_slices(params, layout)
+        if layout.master:
+            master = tuple(o.to(torch.float32).clone() for o in own)
+            # the moments live beside the f32 master slices
+            state = sharding.ShardedOptState(self.tx.init(master), master)
+        else:
+            state = sharding.ShardedOptState(self.tx.init(own), ())
+        self._register_shard(layout, state)
+        return state
+
+    @staticmethod
+    def _register_shard(layout, state) -> None:
+        from bluefog_tpu_torch import scaling
+
+        sharding.register_active(layout, measured_state_bytes=scaling.optimizer_state_bytes(
+            state=state, world=layout.size))
+
+    @staticmethod
+    def _shard_slot_group(shape, layout):
+        """The group a worker-stacked state leaf of ``shape`` belongs to, or
+        None for a leaf that is not a slot (step counts): slot lengths are
+        unique per layout."""
+        if len(shape) != 2 or shape[0] != layout.size:
+            return None
+        for gi, g in enumerate(layout.groups):
+            if shape[1] == g.slot:
+                return gi
+        return None
+
+    def _shard_prepare(self, ctx, params, opt_state):
+        """The sharded step's prologue: the state must be the sharded form,
+        the inner optimizer elementwise, and the layout unchanged."""
+        if not isinstance(opt_state, sharding.ShardedOptState):
+            raise ValueError(
+                "BLUEFOG_SHARD=1 but the optimizer state is not sharded (was it "
+                "created with BLUEFOG_SHARD=0, or restored from a replicated "
+                "checkpoint?); re-run init(params) or restore a gather-on-save "
+                "sharded checkpoint"
+            )
+        self._shard_check_elementwise()
+        old = self._shard_layout
+        layout, changed = self._ensure_shard_layout(ctx, params)
+        if changed:
+            if old.master != layout.master:
+                raise ValueError(
+                    "BLUEFOG_SHARD_MASTER changed mid-run (was "
+                    f"{int(old.master)}, now {int(layout.master)}); the master "
+                    "slices are part of the optimizer state — re-run "
+                    "init(params) (or restore a checkpoint saved under the same "
+                    "master mode)"
+                )
+            raise ValueError(
+                f"the parameters' dtype groups changed from {old.groups} to "
+                f"{layout.groups} under BLUEFOG_SHARD=1; re-run init(params)"
+            )
+        return layout
+
+    def _scatter_chunks(self, ctx, layout):
+        """The reduce-scatter's chunk count per dtype group, priced on one
+        round's slot on the wire of ``compression`` over the port's
+        transport."""
+        from bluefog_tpu_torch import scaling
+
+        out = []
+        for g in layout.groups:
+            itemsize = getattr(torch, g.dtype).itemsize
+            payload = (scaling.wire_payload_bytes(g.slot, itemsize, self.compression)
+                       if self.compression is not None else g.slot * itemsize)
+            out.append(compiler.reduce_scatter_chunks(
+                ctx.size, payload, n_elems=g.slot, link_class=compiler.TRANSPORT_LINK_CLASS))
+        return tuple(out)
+
+    def _ensure_scatter_ef(self, ctx, layout) -> None:
+        """The ZeRO-2 EF tiers' residuals, ``[N, padded]`` f32 per dtype
+        group, zeroed whenever the layout or the tier changes."""
+        sig = (layout.sig(), self.compression, ctx.device)
+        if self._scatter_ef_sig == sig:
+            return
+        self._scatter_ef = [torch.zeros((ctx.size, g.padded), dtype=torch.float32,
+                                        device=ctx.device) for g in layout.groups]
+        self._scatter_ef_sig = sig
+
+    def _shard_dispatch(self, ctx, d: _Dispatch, params, opt_state, comm_now: bool) -> None:
+        """Resolve this step's sharding onto ``d``, shared by :meth:`step`
+        and the fused train step: the layout, and under ZeRO-2 the
+        scatter's wire, chunk counts and residuals."""
+        if not (comm_now and self._shard_active()):
+            return
+        d.shard = self._shard_prepare(ctx, params, opt_state)
+        if d.shard.grads:
+            d.scatter_wire = self.compression
+            d.scatter_chunks = self._scatter_chunks(ctx, d.shard)
+            if d.scatter_wire in _EF_TIERS:
+                self._ensure_scatter_ef(ctx, d.shard)
+
+    def _scatter_own_grads(self, d: _Dispatch, grads):
+        """The ZeRO-2 gradient leg: each dtype group's packed gradient
+        reduce-scattered (``inner.reduce_scatter``, mean over workers) so
+        each worker gets only its owned slot, ``[N, slot]`` per group; the
+        EF tiers update their residuals in place."""
+        layout = d.shard
+        _shard_check_groups(grads, layout, "gradient")
+        lidx = tuple(int(v) for v in layout.live_index())
+        live = set(layout.live)
+        mask = tuple(1.0 if r in live else 0.0 for r in range(layout.size))
+        own = []
+        for gi, (g, (_name, group)) in enumerate(zip(
+                layout.groups, _dtype_groups(tree_leaves(grads)))):
+            packed = _pack(group)
+            k = d.scatter_chunks[gi] if gi < len(d.scatter_chunks) else 1
+            # the unpadded payload: the slots past it read as zeros, and the
+            # exact tier on one chunk takes the one-sum form
+            if d.scatter_wire in _EF_TIERS:
+                y, self._scatter_ef[gi] = inner._reduce_scatter(
+                    packed, lidx, g.slot, True, d.scatter_wire, k, self._scatter_ef[gi], mask)
+            else:
+                y = inner._reduce_scatter(packed, lidx, g.slot, True, d.scatter_wire, k,
+                                          None, None, fast=True)
+            own.append(y)
+        return tuple(own)
 
     # -- resolution of the communication --------------------------------------
 
@@ -380,6 +667,12 @@ class _GossipOptimizer:
                 f"'int8_ef', or 'int4_ef', got {self.compression!r}"
             )
         comm = self.communication_type
+        if (comm == CommunicationType.allreduce and self.order == "grad"
+                and self.schedule is None and sharding.enabled()
+                and sharding.grads_enabled()):
+            # ZeRO-2: every tier rides the reduce-scatter gradient leg (the EF
+            # tiers' residuals are held per slot by the scatter)
+            return
         if self.compression in _EF_TIERS and (
             comm != CommunicationType.neighbor_allreduce or self.schedule is not None
         ):
@@ -421,13 +714,48 @@ class _GossipOptimizer:
         )
         self._ef_sig = sig
 
+    @staticmethod
+    def _wire_payload(params):
+        """``(bytes, elements)`` per worker of the largest bucket this step
+        ships: the payload the chunk chooser prices."""
+        cap = inner.transport_bucket_cap()
+        best = None
+        for name, n in _group_sig(params):
+            if n == 0:
+                continue
+            itemsize = getattr(torch, name).itemsize
+            elems = max(b - a for a, b in inner.bucket_bounds(n, itemsize, cap))
+            if best is None or elems * itemsize > best[0]:
+                best = (elems * itemsize, elems)
+        return best
+
+    def _plan_chunks(self, plan: CommPlan, payload) -> int:
+        """The chooser's chunk count for one static-plan step, priced on
+        the wire payload of ``compression`` (scale sidecar included); 1
+        when there is no payload."""
+        from bluefog_tpu_torch import scaling
+
+        if payload is None:
+            return 1
+        payload_bytes, n_elems = payload
+        if self.compression is not None:
+            payload_bytes = scaling.wire_payload_bytes(
+                n_elems, payload_bytes // max(n_elems, 1), self.compression)
+        compiled = plan.compile_info
+        return compiler.choose_chunks(
+            compiled if compiled is not None else len(plan.perms), payload_bytes,
+            n_elems=n_elems, link_class=compiler.TRANSPORT_LINK_CLASS)
+
     def _plan_dispatch(self, ctx, params, plan: CommPlan) -> _Dispatch:
-        """The neighbor combine over one plan, in this step's tier."""
+        """The neighbor combine over one plan, in this step's tier, with the
+        chooser's chunk count."""
         src, self_w, recv_w = inner.plan_operands(plan, ctx.device)
         wire = self.compression
+        chunks = self._plan_chunks(plan, self._wire_payload(params))
         if wire is None:
-            return _Dispatch(("na", plan.perms),
-                             lambda t: inner.weighted_combine_operands(t, src, self_w, recv_w),
+            return _Dispatch(("na", plan.perms, chunks),
+                             lambda t: inner.weighted_combine_operands(
+                                 t, src, self_w, recv_w, chunks=chunks),
                              lambda: self_w)
         inner._check_combine_normalized(plan, f"compression={wire!r}")
         quantized_self = lambda: 1.0 - recv_w.sum(0)  # noqa: E731
@@ -435,14 +763,14 @@ class _GossipOptimizer:
             self._ensure_ef_state(ctx, params, plan)
             base = wire[:-len("_ef")]
             return _Dispatch(
-                ("na_q_ef", base, plan.perms),
+                ("na_q_ef", base, plan.perms, chunks),
                 lambda flat, st: inner.weighted_combine_quantized_ef_operands(
-                    flat, st, src, recv_w, wire=base, inplace=True),
+                    flat, st, src, recv_w, wire=base, inplace=True, chunks=chunks),
                 quantized_self, ef=True)
         return _Dispatch(
-            ("na_q", wire, plan.perms),
+            ("na_q", wire, plan.perms, chunks),
             lambda t: inner.weighted_combine_quantized_operands(
-                t, src, recv_w, wire=wire, inplace=True),
+                t, src, recv_w, wire=wire, inplace=True, chunks=chunks),
             quantized_self)
 
     def _schedule_dispatch(self, ctx, sched: SchedulePlan, step: int, local_size=None):
@@ -505,7 +833,13 @@ class _GossipOptimizer:
 
     def _resolve_dispatch(self, ctx, params, comm_now: bool) -> _Dispatch:
         """This call's communication, shared by :meth:`step` and the fused
-        train step, so a rule cannot reach one and skip the other."""
+        train step, so a rule cannot reach one and skip the other; with
+        this step's bucket cap."""
+        d = self._dispatch(ctx, params, comm_now)
+        d.cap_bytes = inner.transport_bucket_cap()
+        return d
+
+    def _dispatch(self, ctx, params, comm_now: bool) -> _Dispatch:
         self._validate_compression()
         comm = self.communication_type
         if self.schedule is not None and comm not in (
@@ -557,15 +891,25 @@ class _GossipOptimizer:
         if d.identity:
             return
         if d.ef:
-            _packed_gossip_ef(tree, self._ef, d.combine)
+            _packed_gossip_ef(tree, self._ef, d.combine, d.cap_bytes)
         else:
-            _packed_gossip(tree, d.combine)
+            _packed_gossip(tree, d.combine, d.cap_bytes)
 
     def _combine_update(self, d: _Dispatch, params, state, grads) -> None:
         """The gossip + inner-update core of :meth:`step` and the fused
-        train step (the JAX ``_combine_update``), in place."""
+        train step (the JAX ``_combine_update``), in place. Order
+        ``"grad"`` averages the gradients in place, except under ZeRO-2,
+        where the reduce-scatter leaves them as they are; a sharded step
+        updates the owned slots and gathers them into the parameters."""
         if self.order == "grad":
-            _packed_gossip(grads, lambda t: inner.allreduce(t, average=True))
+            if d.shard is not None and d.shard.grads:
+                _sharded_inner_update(self.tx, d.shard, params, state,
+                                      own_g=self._scatter_own_grads(d, grads))
+                return
+            _packed_gossip(grads, lambda t: inner.allreduce(t, average=True), d.cap_bytes)
+        if d.shard is not None:
+            _sharded_inner_update(self.tx, d.shard, params, state, grads=grads)
+            return
         if self.order == "cta":
             self._gossip(d, params)
         self.tx.apply_(params, state, grads)
@@ -582,6 +926,7 @@ class _GossipOptimizer:
             self._accumulate(grads)
             return params, opt_state
         d = self._resolve_dispatch(ctx, params, comm_now)
+        self._shard_dispatch(ctx, d, params, opt_state, comm_now)
         if comm_now and self.order == "grad":
             grads = self._take_accumulated(grads)
         self._step_count += 1
@@ -612,7 +957,7 @@ class _GossipOptimizer:
         for (_name, group), buf in zip(_dtype_groups(tree_leaves(params)), self._delay_buf):
             fresh = _pack(group)
             diff = fresh.to(buf.dtype) - buf
-            combined = d.combine(buf)
+            combined = _bucketed_flat_gossip(buf, d.combine, d.cap_bytes)
             mixed = combined + _col(sw, combined) * diff.to(combined.dtype)
             buf.copy_(fresh)
             _unpack_(group, mixed)
@@ -660,6 +1005,7 @@ class _GossipOptimizer:
                 )
             comm_now = self._comm_now()
             d = self._resolve_dispatch(ctx, params, comm_now)
+            self._shard_dispatch(ctx, d, params, opt_state, comm_now)
             if delayed and self.communication_type == \
                     CommunicationType.hierarchical_neighbor_allreduce:
                 raise ValueError(
@@ -703,6 +1049,57 @@ class _GossipOptimizer:
         from bluefog_tpu_torch import async_gossip
 
         return async_gossip.make_async_train_step(self, loss_fn, has_aux=has_aux, **kwargs)
+
+
+def _shard_check_groups(tree, layout, what: str) -> None:
+    """The tree's dtype groups must be the ones the layout was built for."""
+    got = _group_sig(tree)
+    want = tuple((g.dtype, g.elems) for g in layout.groups)
+    if got != want:
+        raise ValueError(
+            f"BLUEFOG_SHARD: the {what} tree packs into dtype groups {got} but the "
+            f"shard layout was built for {want}; gradients must share the "
+            "parameter tree's dtypes (re-init the optimizer state after changing "
+            "the parameters)"
+        )
+
+
+def _shard_own_slices(tree, layout):
+    """Each worker's owned slot of every packed dtype group, ``[N, slot]``
+    per group (zeros past the group's end)."""
+    lidx = [int(v) for v in layout.live_index()]
+    rows = range(layout.size)
+    return tuple(inner._slot_rows(_pack(group), rows, lidx, g.slot)
+                 for g, (_name, group) in zip(layout.groups, _dtype_groups(tree_leaves(tree))))
+
+
+def _sharded_inner_update(tx, layout, params, state, grads=None, own_g=None) -> None:
+    """The ZeRO-1 update, in place: each worker updates only its owned slot
+    of every packed group with its slot of the inner state (against the
+    f32 master slices under ``layout.master``), then the live workers'
+    updated slots are gathered into every worker's parameters. ``own_g``
+    (ZeRO-2) is the scattered gradient slots; otherwise the slots are cut
+    from ``grads``."""
+    _shard_check_groups(params, layout, "parameter")
+    if own_g is None:
+        _shard_check_groups(grads, layout, "gradient")
+        own_g = _shard_own_slices(grads, layout)
+    own_p = _shard_own_slices(params, layout)
+    if layout.master:
+        tx.apply_(state.master, state.inner, tuple(g.to(torch.float32) for g in own_g))
+        new_own = tuple(m.to(o.dtype) for m, o in zip(state.master, own_p))
+    else:
+        tx.apply_(own_p, state.inner, own_g)
+        new_own = own_p
+    live = list(layout.live)
+    for g, own, (_name, group) in zip(layout.groups, new_own,
+                                      _dtype_groups(tree_leaves(params))):
+        full = own[live].reshape(-1)[:g.elems]
+        off = 0
+        for leaf in group:
+            n = leaf[0].numel()
+            leaf.copy_(full[off:off + n].view(leaf.shape[1:]).expand_as(leaf))
+            off += n
 
 
 def _grad_store(params, store) -> List[torch.Tensor]:

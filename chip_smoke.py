@@ -53,7 +53,12 @@ Phases, one line each; any failure exits non-zero:
                bit (cuDNN's deterministic algorithms); one line per tier
                with step s, images/s, optimizer ms and peak GiB; launch
                counts zeroed just before each tier's fused steps and read
-               just after;
+               just after. The gossip runs in one bucket (the stacked
+               transport's default); atc/int8 again as two programs in
+               JAX's default 4 MiB buckets (``BLUEFOG_BUCKET_BYTES``) must
+               give the same bits, on a line with both runs' optimizer ms
+               and encode/decode_accumulate launches a step (the bucketed
+               run's launches count with the tiers');
 8. train    -- the main path, ResNet50 (1000 classes, bf16 compute) on 8
                virtual workers, 64 images of 224x224 each, seeded synthetic
                data, ``sgd(0.1, 0.9)`` on the default Exp graph, in three
@@ -90,6 +95,12 @@ Phases, one line each; any failure exits non-zero:
                a CPU copy: every tick's estimates within ``ASYNC_TOL`` of the
                largest value; at ``sgd(0.0)`` the value mass kept to
                ``ASYNC_MASS_TOL`` of sum |x| and the p mass at 8;
+11a. checkpoint -- the ResNet50 of train-step under zero2/int8 Adam and
+               ATC int4_ef on ``sgd(0.1, 0.9)``: 1 step, ``checkpoint.save``
+               (BatchNorm statistics in ``extra``), ``restore`` into a fresh
+               optimizer, 2 steps: the parameters bitwise those of 3
+               uninterrupted steps; the bytes and the save and restore
+               seconds; written under ``build/checkpoint`` and deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -121,6 +132,24 @@ Phases, one line each; any failure exits non-zero:
                then worker 0's forward at full
                size with every block's attention held against the plain
                version on its own q, k, v, and one profiled ATC int8 step;
+14a. zero    -- the same TransformerLM trained by
+               ``DistributedGradientAllreduceOptimizer(adam(1e-4))`` in six
+               tiers (``ZERO_TIERS``: repl, zero1, zero2 on fp32, int8, int4
+               and int8_ef), 1 warm-up and 2 timed steps each from the same
+               parameters: a line per tier with step s, tokens/s, optimizer
+               ms, peak GiB, Adam state bytes measured and analytic, and
+               encode/decode launches a step; zero1 and zero2/fp32 bitwise
+               repl, measured == analytic bytes, encode and decode on every
+               int8/int4 step; each zero2 tier's scatter, as the optimizer
+               dispatched it, on the last step's gradients within
+               ``ZERO_SUM_TOL`` (fp32) or ``ZERO_ENVELOPE`` of the
+               allreduce's mean, the int8/int4 ones bitwise a plain ring
+               (``plain_ring_scatter``) at the optimizer's chunk count and
+               at the ICI-priced chooser's;
+14b. zero check -- bench.py::run_shard's trajectory problem (quadratic,
+               Adam lr 0.02, dim 4099, 8 steps) in zero1 and zero2 on
+               fp32/int8/int4, on the card and on the CPU: against the numpy
+               Adam replay and the card against the CPU;
 15. dryrun   -- the dry run of ``__graft_entry__.dryrun_multichip``
                (``bluefog_tpu_torch.dryrun.DryRun``): 8 workers as 4
                machines x 2, one-peer Exp2 gossip on the step index
@@ -225,6 +254,34 @@ ASYNC_WIRES = (("int8", 1, 12), ("fp32", 1, 3), ("bf16", 1, 3), ("int4", 1, 3))
 ASYNC_DIM, ASYNC_TICKS, ASYNC_LR, ASYNC_TOL = 4096, 24, 0.05, 1e-6
 ASYNC_MASS_TOL = 1e-5  # of sum |x|: the value mass at lr 0, float64 sums
 
+# The zero phase: the transformer path's model trained by gradient-allreduce
+# Adam in six tiers (name, BLUEFOG_SHARD, BLUEFOG_SHARD_GRADS, compression),
+# 1 warm-up and 2 timed steps each
+ZERO_TIERS = (("repl", 0, 0, None), ("zero1", 1, 0, None), ("zero2/fp32", 1, 1, None),
+              ("zero2/int8", 1, 1, "int8"), ("zero2/int4", 1, 1, "int4"),
+              ("zero2/int8_ef", 1, 1, "int8_ef"))
+ZERO_LR = 1e-4
+ZERO_WARMUP, ZERO_TIMED = 1, 2
+# zero2/fp32's scatter, as the timed steps dispatched it, against the owned
+# slots of the allreduce's mean: the ring (more than one chunk) adds the 8
+# rows in another order than the allreduce's torch.sum (the reference's
+# fast-against-ring bound, tests/test_reduce_scatter.py), of the largest
+# |gradient|; the one-chunk one-sum form is the allreduce's sum
+ZERO_SUM_TOL = 1e-6
+# the reference's envelope of a quantized reduce-scatter against the exact
+# one (tests/test_reduce_scatter.py::test_quantized_tier_envelope), here of
+# the largest |gradient|; the int8/int4 scatters are also held bitwise
+# against the plain ring (plain_ring_scatter)
+ZERO_ENVELOPE = {"fp32": ZERO_SUM_TOL, "int8": 2e-2, "int8_ef": 2e-2, "int4": 2e-1}
+# bench.py::run_shard's trajectory problem: the quadratic, Adam lr 0.02,
+# 8 workers, dim 4099, 8 steps; the fp32 tiers within ZERO_ORACLE_TOL of
+# the numpy Adam replay, the quantized ones within the envelope above;
+# the card within ZERO_CARD_TOL of the largest value of the CPU run
+ZERO_CHECK_DIM, ZERO_CHECK_STEPS, ZERO_CHECK_LR = 4099, 8, 0.02
+ZERO_ORACLE_TOL, ZERO_CARD_TOL = 1e-4, 1e-6
+ZERO_CHECK_TIERS = (("zero1", 0, None), ("zero2/fp32", 1, None), ("zero2/int8", 1, "int8"),
+                    ("zero2/int4", 1, "int4"))
+
 # Device memory rate by card (bytes/s; NVIDIA data sheets). The H100 SXM's
 # 3.35 TB/s is the default for an unlisted Hopper part.
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -266,6 +323,10 @@ PATH_KERNELS = {
     "async": ("encode", "decode"),
     "transformer": FLASH_KERNELS + ("encode", "decode_accumulate", "encode_diff",
                                     "decode_add"),
+    # the ZeRO-2 int8/int4 scatters of the zero phase
+    "zero": ("encode", "decode"),
+    # the checkpoint phase's zero2/int8 scatter and ATC int4_ef copies
+    "checkpoint": ("encode", "decode", "encode_diff", "decode_add"),
     # the dry run's ring attention is outside the differentiated loss (as
     # in __graft_entry__._dryrun_body): its forward runs, no backward
     "dryrun": ("flash_fwd",),
@@ -772,7 +833,8 @@ def phase_train_step(device, sm, images, labels, warmup=1, timed=2, smi=""):
                     if i >= warmup:
                         times.append((t2 - t0, t1 - t0, t2 - t1))
                 if fused:
-                    for key, v in launch_counts().items():
+                    row["launches"] = launch_counts()
+                    for key, v in row["launches"].items():
                         counts[key] += v
                 table = torch.stack(losses)
                 if not torch.isfinite(table).all() or not torch.isfinite(params).all():
@@ -792,12 +854,49 @@ def phase_train_step(device, sm, images, labels, warmup=1, timed=2, smi=""):
                             f"train-step {name}: the fused parameters differ from the "
                             f"two-program path's (max diff "
                             f"{float((fused_params - params).abs().max()):.3g})")
+                    if name == "atc/int8":
+                        one_bucket_params = fused_params
                     del fused_params
                 opt.free()
                 del opt, state, params
                 grads = None
             row.pop("params", None)
             numbers[name] = row
+        # atc/int8 in JAX's default 4 MiB buckets, two-program: the same bits
+        # as the stacked transport's one bucket; its launches count with the
+        # fused tiers'
+        os.environ["BLUEFOG_BUCKET_BYTES"] = str(4 << 20)
+        try:
+            sm.load_buffers(stats0)
+            opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+            opt.compression = "int8"
+            params = params0.clone()
+            state = opt.init(params)
+            grads = torch.empty_like(params)
+            opt_times, step_launches = [], []
+            for i in range(warmup + timed):
+                sm.loss_and_grad(params, images, labels, grads)
+                sync(device)
+                reset_launch_counts()
+                t1 = time.perf_counter()
+                opt.step(params, state, grads)
+                sync(device)
+                if i >= warmup:
+                    opt_times.append(time.perf_counter() - t1)
+                step_launches.append(launch_counts())
+                for key, v in step_launches[-1].items():
+                    counts[key] += v
+            if not torch.equal(bits(one_bucket_params), bits(params)):
+                raise AssertionError(
+                    "train-step atc/int8: 4 MiB buckets changed the parameters (max diff "
+                    f"{float((one_bucket_params - params).abs().max()):.3g})")
+            numbers["atc/int8 4 MiB buckets"] = dict(
+                opt_ms=statistics.median(opt_times) * 1e3,
+                launches={k: step_launches[-1][k] for k in ("encode", "decode_accumulate")})
+            opt.free()
+            del opt, state, params, grads, one_bucket_params
+        finally:
+            del os.environ["BLUEFOG_BUCKET_BYTES"]
         # the delayed tier has no two-program form: time the fused step on a
         # zero-cost loss (its gradient pass a row copy per worker), beside
         # atc/int8's on the same loss
@@ -827,7 +926,20 @@ def phase_train_step(device, sm, images, labels, warmup=1, timed=2, smi=""):
     log("train-step", f"fused step on a zero-cost loss: atc/int8 "
                       f"{numbers['atc/int8']['zero_loss_ms']:.1f} ms, atc/int8 delayed "
                       f"{delayed_row['zero_loss_ms']:.1f} ms")
+    steps_run = warmup + timed
+    one = {k: numbers["atc/int8"]["launches"][k] // steps_run
+           for k in ("encode", "decode_accumulate")}
+    capped = numbers.pop("atc/int8 4 MiB buckets")
+    log("train-step", f"atc/int8 buckets: default (one bucket, the stacked transport), "
+                      f"optimizer {numbers['atc/int8']['opt_ms']:.1f} ms, "
+                      f"encode/decode_accumulate launches a step "
+                      f"{one['encode']}/{one['decode_accumulate']}; BLUEFOG_BUCKET_BYTES="
+                      f"{4 << 20} (JAX's default cap), optimizer {capped['opt_ms']:.1f} ms, "
+                      f"launches a step {capped['launches']['encode']}/"
+                      f"{capped['launches']['decode_accumulate']}; parameters bitwise equal; "
+                      f"on {smi}")
     for name, row in numbers.items():
+        row.pop("launches", None)
         opt_from = ("the two-program opt.step" if "two_program_step_s" in row
                     else "the fused step on a zero-cost loss")
         log("train-step", f"{name}: step {row['step_s']:.4f} s, "
@@ -1021,7 +1133,8 @@ def async_ticks(device, sm, images, labels, wire, warmup, timed, max_age):
     params = sm.replicate()
     state = opt.init(params)
     step = bft.make_async_train_step(opt, sm.worker_loss, cadence={ASYNC_SLOW: ASYNC_FACTOR},
-                                     max_age=max_age, policy="drop", wire=wire)
+                                     max_age=max_age, policy="drop", wire=wire,
+                                     buffers=sm.buffers)
     eng = step.engine
     local_s = []
 
@@ -1208,6 +1321,346 @@ def phase_train_lm(trainer, warmup=1, timed=3):
     trainer.gossip("lm atc/int8", "atc", "int8", warmup, timed, lr=0.01)
     trainer.gossip("lm atc/int4_ef", "atc", "int4_ef", 1, 1, lr=0.01)
     return launch_counts(), flash.route_counts(), warmup + timed + 2
+
+
+def shard_env(shard, grads):
+    os.environ["BLUEFOG_SHARD"] = str(int(shard))
+    os.environ["BLUEFOG_SHARD_GRADS"] = str(int(grads))
+
+
+def clear_shard_env():
+    for key in ("BLUEFOG_SHARD", "BLUEFOG_SHARD_GRADS"):
+        os.environ.pop(key, None)
+
+
+def plain_ring_scatter(grads, slot, wire):
+    """The ring reduce-scatter of ``grads [N, P]`` (the ZeRO-2 layout,
+    every worker live, mean over workers) through the plain quantizer,
+    written out apart from the port's: worker ``j`` owns slot ``j`` (zeros
+    past ``P``); its own row first, then round ``t = 1 .. N-1``'s row from
+    worker ``j - t``, block-quantized on ``wire`` and dequantized."""
+    n, width = grads.shape
+
+    def owned(sender, j):
+        row = grads.new_zeros(slot)
+        lo, hi = j * slot, min((j + 1) * slot, width)
+        if hi > lo:
+            row[:hi - lo] = grads[sender, lo:hi]
+        return row
+
+    y = torch.stack([owned(j, j) for j in range(n)])
+    for t in range(1, n):
+        rows = torch.stack([owned((j - t) % n, j) for j in range(n)])
+        payload, scales = kernels.encode_reference(kernels.pad_blocks(rows), wire)
+        y = y + kernels.unpad_blocks(kernels.dequantize(payload, scales).reshape(n, -1), slot)
+        del rows, payload, scales
+    return y / torch.tensor(n, dtype=torch.float32)
+
+
+def zero_scatter_check(opt, params, state, grads):
+    """The ZeRO-2 scatter of the timed steps, on their last step's
+    gradients ``grads [N, P]``: through the optimizer's own dispatch (its
+    wire and chunk count; the EF residuals zeroed first), against the owned
+    slots of ``inner.allreduce(grads)`` (the largest difference over the
+    largest |gradient|); on int8/int4 also held bitwise against
+    :func:`plain_ring_scatter`, at the optimizer's chunk count and at the
+    ICI-priced chooser's (the chunked decode). Returns its numbers; the
+    launches made here are not counted."""
+    ctx = bft.get_context()
+    d = opt._resolve_dispatch(ctx, params, True)
+    opt._shard_dispatch(ctx, d, params, state, True)
+    wire = d.scatter_wire
+    if wire in ("int8_ef", "int4_ef"):
+        opt._scatter_ef = [torch.zeros_like(e) for e in opt._scatter_ef]
+    n, width = grads.shape
+    own = opt._scatter_own_grads(d, grads)[0]
+    scale = float(grads.abs().max())
+    mean = inner.allreduce(grads)[0]
+    out = dict(wire=wire or "fp32", chunks=d.scatter_chunks[0],
+               dev=float((own.reshape(-1)[:width] - mean).abs().max()) / scale)
+    del mean
+    if wire in ("int8", "int4"):
+        from bluefog_tpu_torch import scaling
+        from bluefog_tpu_torch.collective import compiler
+
+        slot = d.shard.groups[0].slot
+        plain = plain_ring_scatter(grads, slot, wire)
+        k_ici = compiler.reduce_scatter_chunks(
+            n, scaling.wire_payload_bytes(slot, 4, wire), n_elems=slot)
+        chunked = inner._reduce_scatter(grads, tuple(range(n)), slot, True, wire, k_ici,
+                                        None, None)
+        out.update(plain_bitwise=torch.equal(bits(own), bits(plain)),
+                   plain_err=float((own - plain).abs().max()), ici_chunks=k_ici,
+                   chunked_bitwise=torch.equal(bits(chunked), bits(plain)))
+    return out
+
+
+def phase_zero(device, sm, tokens, warmup=ZERO_WARMUP, timed=ZERO_TIMED, smi="",
+               tiers=ZERO_TIERS):
+    """The transformer path's model trained by
+    ``DistributedGradientAllreduceOptimizer(adam(1e-4))`` in the tiers of
+    ``ZERO_TIERS`` (``loss_and_grad`` then ``opt.step``): each from the same
+    replicated parameters and batch statistics, the peak reset at its
+    start. Gates: finite losses; zero1's and zero2/fp32's parameters
+    bitwise repl's (Adam is elementwise, the gather moves data, and the
+    one-chunk fp32 scatter's one sum is the allreduce's); the measured Adam
+    state bytes per worker equal to the analytic ones; on the
+    int8/int4 tiers ``encode`` and ``decode`` launched on every step; and
+    on the last step's gradients (:func:`zero_scatter_check`) each zero2
+    tier's scatter, as the optimizer dispatches it, within ``ZERO_SUM_TOL``
+    (fp32) or ``ZERO_ENVELOPE`` of the owned slots of the allreduce's mean,
+    and the int8/int4 scatters bitwise the plain ring's at the optimizer's
+    and the ICI chooser's chunk counts. Returns ``(launch counts of the tiers' steps,
+    each tier's zeroed just before its steps and read just after, {tier:
+    numbers})``."""
+    from bluefog_tpu_torch import scaling
+
+    params0 = sm.replicate()
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    grads = torch.empty_like(params0)
+    counts = {k: 0 for k in launch_counts()}
+    numbers, finals = {}, {}
+    try:
+        for name, shard, grads_on, wire in tiers:
+            shard_env(shard, grads_on)
+            sm.load_buffers(stats0)
+            params = params0.clone()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(ZERO_LR))
+            opt.compression = wire
+            state = opt.init(params)
+            measured = scaling.optimizer_state_bytes(state=state, world=SIZE)
+            analytic = scaling.optimizer_state_bytes(params, opt, shard=bool(shard))
+            times, losses, per_step = [], [], []
+            for i in range(warmup + timed):
+                reset_launch_counts()
+                sync(device)
+                t0 = time.perf_counter()
+                loss = sm.loss_and_grad(params, tokens, tokens, grads)[0]
+                sync(device)
+                t1 = time.perf_counter()
+                opt.step(params, state, grads)
+                sync(device)
+                t2 = time.perf_counter()
+                step_counts = launch_counts()
+                for key, v in step_counts.items():
+                    counts[key] += v
+                per_step.append((step_counts["encode"], step_counts["decode"]))
+                losses.append(loss.float().cpu())
+                if i >= warmup:
+                    times.append((t2 - t0, t2 - t1))
+            peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                    if device.type == "cuda" else float("nan"))
+            table = torch.stack(losses)
+            if not torch.isfinite(table).all() or not torch.isfinite(params).all():
+                raise AssertionError(f"zero {name}: non-finite loss or parameters")
+            check = zero_scatter_check(opt, params, state, grads) if grads_on else None
+            step_s = statistics.median(t[0] for t in times)
+            row = dict(step_s=step_s, tokens_per_s=SIZE * tokens.shape[1] * tokens.shape[2] / step_s,
+                       opt_ms=statistics.median(t[1] for t in times) * 1e3, peak_gib=peak,
+                       state_bytes=measured, state_bytes_analytic=analytic,
+                       launches=per_step[-1], scatter=check,
+                       losses=[float(r.mean()) for r in table])
+            numbers[name] = row
+            enc, dec = row["launches"]
+            log("zero", f"{name}: step {row['step_s']:.4f} s, {row['tokens_per_s']:.1f} tokens/s, "
+                        f"optimizer {row['opt_ms']:.1f} ms, peak {row['peak_gib']:.2f} GiB; Adam "
+                        f"state {row['state_bytes']} B a worker measured, "
+                        f"{row['state_bytes_analytic']} B analytic "
+                        f"({row['state_bytes'] * SIZE / 1e9:.3f} GB for {SIZE} workers); "
+                        f"encode/decode launches a step {enc}/{dec}"
+                        + ("" if check is None else
+                           f"; scatter ({check['chunks']} chunk(s)) within {check['dev']:.3g} "
+                           "of the largest gradient from the allreduce's mean")
+                        + ("" if check is None or "plain_bitwise" not in check else
+                           f"; against the plain ring: bitwise {check['plain_bitwise']} "
+                           f"(max |diff| {check['plain_err']:.3g}), at the ICI chooser's "
+                           f"{check['ici_chunks']} chunks bitwise {check['chunked_bitwise']}")
+                        + f"; losses {', '.join(f'{v:.5f}' for v in row['losses'])}; on {smi}")
+            if measured != analytic:
+                raise AssertionError(f"zero {name}: measured state {measured} B a worker, "
+                                     f"analytic {analytic} B")
+            if device.type == "cuda" and wire in ("int8", "int4") and \
+                    not all(e > 0 and d > 0 for e, d in per_step):
+                raise AssertionError(f"zero {name}: encode/decode not launched on every step "
+                                     f"{per_step}")
+            if check is not None:
+                if not check["dev"] <= ZERO_ENVELOPE[check["wire"]]:
+                    raise AssertionError(f"zero {name}: the scatter is {check['dev']:.3g} of "
+                                         f"the largest gradient from the allreduce's mean "
+                                         f"(> {ZERO_ENVELOPE[check['wire']]})")
+                if not check.get("plain_bitwise", True) or \
+                        not check.get("chunked_bitwise", True):
+                    raise AssertionError(
+                        f"zero {name}: the scatter differs from the plain ring (max |diff| "
+                        f"{check['plain_err']:.3g}; at {check['ici_chunks']} chunks bitwise "
+                        f"{check['chunked_bitwise']})")
+            if name in ("repl", "zero1", "zero2/fp32"):
+                finals[name] = params.cpu()
+            opt.free()
+            del opt, state, params
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        clear_shard_env()
+        sm.load_buffers(stats0)
+    if "zero1" in finals and not torch.equal(bits(finals["zero1"]), bits(finals["repl"])):
+        raise AssertionError("zero: zero1's parameters differ from repl's (max diff "
+                             f"{float((finals['zero1'] - finals['repl']).abs().max()):.3g})")
+    if "zero2/fp32" in finals and not torch.equal(bits(finals["zero2/fp32"]),
+                                                  bits(finals["repl"])):
+        diff = (finals["zero2/fp32"] - finals["repl"]).abs()
+        raise AssertionError(f"zero: zero2/fp32's parameters differ from repl's (max diff "
+                             f"{float(diff.max()):.3g}, {int((diff > 0).sum())} elements)")
+    log("zero", "zero1 parameters bitwise repl's" + (
+        "; zero2/fp32's bitwise repl's" if "zero2/fp32" in finals else ""))
+    return counts, numbers
+
+
+def zero_problem(device, grads_on, wire, steps=ZERO_CHECK_STEPS):
+    """bench.py::run_shard's trajectory problem on ``device`` under
+    ZeRO-1/2: returns worker 0's parameters after ``steps`` steps."""
+    bft.init(size=SIZE, device=device)
+    rng = np.random.RandomState(0)
+    rng.randn(SIZE, 262145)  # run_shard's memory problem draws first
+    ct = torch.from_numpy(rng.randn(SIZE, ZERO_CHECK_DIM).astype(np.float32)).to(device)
+    shard_env(True, grads_on)
+    try:
+        opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(ZERO_CHECK_LR))
+        opt.compression = wire
+        params = {"w": torch.zeros(SIZE, ZERO_CHECK_DIM, device=device)}
+        state = opt.init(params)
+        for _ in range(steps):
+            opt.step(params, state, {"w": params["w"] - ct})
+    finally:
+        clear_shard_env()
+    return params["w"][0].cpu(), ct.cpu().numpy()
+
+
+def zero_oracle(ct, steps=ZERO_CHECK_STEPS, lr=ZERO_CHECK_LR, b1=0.9, b2=0.999, eps=1e-8):
+    """bench.py's numpy Adam replay of the replicated run."""
+    cm = ct.mean(axis=0)
+    x = np.zeros(ct.shape[1], np.float32)
+    m, v = x.copy(), x.copy()
+    for t in range(1, steps + 1):
+        g = x - cm
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        x = x - lr * (m / (1 - b1 ** t)) / (np.sqrt(v / (1 - b2 ** t)) + eps)
+    return x
+
+
+def phase_zero_check(device, tiers=ZERO_CHECK_TIERS):
+    """bench.py::run_shard's trajectory problem on the card and on the CPU
+    in each tier: against the numpy Adam replay (fp32 tiers within
+    ``ZERO_ORACLE_TOL``, quantized within ``ZERO_ENVELOPE``), and the card
+    against the CPU within ``ZERO_CARD_TOL`` of the largest value (the
+    scatter is bitwise; Adam's power and square root may round otherwise
+    on the card), saying whether it is bitwise."""
+    for name, grads_on, wire in tiers:
+        card, ct = zero_problem(device, grads_on, wire)
+        cpu, _ct = zero_problem(torch.device("cpu"), grads_on, wire)
+        oracle = zero_oracle(ct)
+        dev_oracle = float(np.abs(card.numpy() - oracle).max())
+        diff = float((card - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        tol = ZERO_ENVELOPE.get(wire, ZERO_ORACLE_TOL)
+        log("zero check", f"{name}: card {dev_oracle:.3g} from the numpy Adam replay (tolerance "
+                          f"{tol}); card against CPU max |diff| {diff:.3g} ("
+                          f"{'bitwise' if torch.equal(bits(card), bits(cpu)) else 'not bitwise'})")
+        if not dev_oracle <= tol:
+            raise AssertionError(f"zero check {name}: {dev_oracle} from the numpy replay (> {tol})")
+        if not diff <= ZERO_CARD_TOL * scale:
+            raise AssertionError(f"zero check {name}: card and CPU differ by {diff} "
+                                 f"(> {ZERO_CARD_TOL} of {scale})")
+    bft.init(size=SIZE, device=device)
+
+
+def checkpoint_run(device, sm, images, labels, make_opt, shard, root, steps=(1, 2)):
+    """``steps[0]`` steps, a save, ``steps[1]`` more; then a fresh
+    optimizer restored from the save and its ``steps[1]`` steps: returns
+    ``(uninterrupted parameters, resumed parameters, bytes, save s,
+    restore s)``. BatchNorm statistics ride in ``extra``."""
+    from bluefog_tpu_torch import checkpoint as ckpt
+
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    shard_env(shard, shard)
+    try:
+        params = sm.replicate()
+        grads = torch.empty_like(params)
+        opt = make_opt()
+        state = opt.init(params)
+
+        def run(opt, params, state, n):
+            for _ in range(n):
+                sm.loss_and_grad(params, images, labels, grads)
+                opt.step(params, state, grads)
+
+        run(opt, params, state, steps[0])
+        sync(device)
+        t0 = time.perf_counter()
+        target = ckpt.save(root, steps[0], params, state, optimizer=opt, extra=sm.buffers)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(target, f)) for f in os.listdir(target))
+        run(opt, params, state, steps[1])
+        ref = params.cpu()
+        opt.free()
+        del opt, state, params
+        sm.load_buffers(stats0)
+        opt2 = make_opt()
+        sync(device)
+        t0 = time.perf_counter()
+        _step, p2, s2 = ckpt.restore(root, optimizer=opt2, extra=sm.buffers)
+        sync(device)
+        restore_s = time.perf_counter() - t0
+        run(opt2, p2, s2, steps[1])
+        got = p2.cpu()
+        opt2.free()
+        del opt2, s2, p2, grads
+    finally:
+        clear_shard_env()
+        sm.load_buffers(stats0)
+    return ref, got, nbytes, save_s, restore_s
+
+
+def phase_checkpoint(device, sm, images, labels, root="build/checkpoint", smi=""):
+    """The ResNet50 of the train-step phase: zero2/int8 Adam and ATC
+    int4_ef on ``sgd(0.1, 0.9)`` (the CHOCO copies): 1 step, ``save``,
+    ``restore`` into a fresh optimizer, 2 more steps; the parameters must
+    be bitwise those of 3 uninterrupted steps. cuDNN runs its
+    deterministic algorithms; the directory is deleted afterwards."""
+    import shutil
+
+    def zero2():
+        opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(ZERO_LR))
+        opt.compression = "int8"
+        return opt
+
+    def atc_ef():
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = "int4_ef"
+        return opt
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, make, shard in (("zero2/int8 adam", zero2, True),
+                                  ("atc/int4_ef sgd", atc_ef, False)):
+            path = os.path.join(root, name.split("/")[0])
+            ref, got, nbytes, save_s, restore_s = checkpoint_run(
+                device, sm, images, labels, make, shard, path)
+            shutil.rmtree(path, ignore_errors=True)
+            log("checkpoint", f"{name}: {nbytes / 1e9:.3f} GB saved in {save_s:.2f} s, restored "
+                              f"in {restore_s:.2f} s; resumed parameters "
+                              f"{'bitwise' if torch.equal(bits(ref), bits(got)) else 'NOT bitwise'}"
+                              f" those of 3 uninterrupted steps; on {smi}")
+            if not torch.equal(bits(ref), bits(got)):
+                raise AssertionError(f"checkpoint {name}: the resumed parameters differ (max "
+                                     f"{float((ref - got).abs().max()):.3g})")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def lm_flops_per_step(sm, seq, batch):
@@ -2166,6 +2619,10 @@ def main():
     torch.cuda.empty_cache()
     counts["async"], _runs = phase_async(device, sm, images, labels, smi=smi)
     phase_async_check(device)
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    phase_checkpoint(device, sm, images, labels, smi=smi)
+    counts["checkpoint"] = launch_counts()
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))
@@ -2199,8 +2656,12 @@ def main():
     log_tiers(trainer)
     lm_attention_check(sm, trainer.params, tokens)
     phase_profile(device, "transformer", sm, tokens, tokens, trainer.params, lr=0.01)
-    del sm, tokens, trainer
+    del trainer
     torch.cuda.empty_cache()
+    counts["zero"], _zero = phase_zero(device, sm, tokens, smi=smi)
+    del sm, tokens
+    torch.cuda.empty_cache()
+    phase_zero_check(device)
 
     counts["dryrun"] = phase_dryrun(device)
     model, lc_tokens, lc_targets = build_long_context(device)

@@ -810,3 +810,109 @@ def test_async_ticks_on_card_match_cpu(cuda, wire):
     torch.testing.assert_close(pg, pw, rtol=0, atol=1e-6 * float(pw.abs().max()))
     torch.testing.assert_close(lg, lw, rtol=1e-6, atol=0)
     assert sg == sw and ag == aw and sg["stale_drops"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_reduce_scatter_on_card_is_bitwise_the_cpu(cuda, wire, chunks):
+    """The ZeRO-2 scatter's int8/int4 tiers on the card give the CPU's
+    bits: one ``encode`` and one ``decode`` a round (7 rounds of 8
+    workers), the adds in f32 on both."""
+    rng = np.random.RandomState(31)
+    slot = 3 * 512
+    x = torch.from_numpy((rng.randn(SIZE, SIZE * slot) * 3).astype(np.float32))
+    lidx = tuple(range(SIZE))
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = kernels.launch_counts()
+        outs[dev.type] = inner.reduce_scatter(x.to(dev), lidx, slot, wire=wire, chunks=chunks,
+                                              fast=False).cpu()
+        after = kernels.launch_counts()
+        if dev.type == "cuda":
+            assert after["encode"] - before["encode"] == SIZE - 1
+            assert after["decode"] - before["decode"] == SIZE - 1
+    assert torch.equal(_bits(outs["cuda"]), _bits(outs["cpu"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [SIZE * 1536, SIZE * 1536 - 700, 5 * 1536 + 3])
+def test_one_sum_scatter_on_an_unpadded_payload_on_card(cuda, width):
+    """The ZeRO-2 fp32 scatter's one-sum form reads the unpadded gradient
+    on the card: bitwise the allreduce's owned slots (the bits ZeRO-2
+    shares with the replicated path), and within 1e-6 of the largest value
+    of the padded payload's and of the CPU's (``torch.sum`` may add the 8
+    rows in another order for another width or device)."""
+    rng = np.random.RandomState(34)
+    slot = 1536
+    x = torch.from_numpy(rng.randn(SIZE, width).astype(np.float32))
+    padded = torch.nn.functional.pad(x, (0, SIZE * slot - width))
+    lidx = tuple(range(SIZE))
+    got = inner._reduce_scatter(x.to(cuda), lidx, slot, True, None, 1, None, None, fast=True)
+    mean = inner.allreduce(x.to(cuda))[0]
+    assert torch.equal(_bits(got.reshape(-1)[:width].cpu()), _bits(mean.cpu()))
+    want = inner.reduce_scatter(padded.to(cuda), lidx, slot, fast=True)
+    assert float((got - want).abs().max()) <= 1e-6 * float(x.abs().max())
+    cpu = inner._reduce_scatter(x, lidx, slot, True, None, 1, None, None, fast=True)
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-6 * float(x.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int8", "int4_ef"])
+def test_bucketed_combine_on_card_is_bitwise_monolithic(cuda, wire, monkeypatch):
+    """Three ATC steps on the card with 8 KiB buckets and 3 chunks against
+    the monolithic combine (``BLUEFOG_OVERLAP=0``) on the card: the same
+    bits; the bucketed run launches the wire kernels once a bucket."""
+    rng = np.random.RandomState(32)
+    x0 = torch.from_numpy(rng.randn(SIZE, 9000).astype(np.float32)).to(cuda)
+    outs, launches = {}, {}
+    for name, env in (("mono", {"BLUEFOG_OVERLAP": "0"}),
+                      ("bucketed", {"BLUEFOG_BUCKET_BYTES": "8192", "BLUEFOG_PLAN_CHUNKS": "3"})):
+        for k in ("BLUEFOG_OVERLAP", "BLUEFOG_BUCKET_BYTES", "BLUEFOG_PLAN_CHUNKS"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        bft.init(size=SIZE, device=cuda)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = wire
+        params = {"w": x0.clone()}
+        state = opt.init(params)
+        before = kernels.launch_counts()
+        for _ in range(3):
+            opt.step(params, state, {"w": params["w"] * 0.5})
+        after = kernels.launch_counts()
+        launches[name] = {k: after[k] - before[k] for k in after}
+        outs[name] = params["w"].cpu()
+    assert torch.equal(_bits(outs["bucketed"]), _bits(outs["mono"]))
+    first = "encode" if wire == "int8" else "encode_diff"
+    assert launches["mono"][first] == 3 and launches["bucketed"][first] == 3 * 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int8", "int4"])
+def test_zero2_step_on_card_matches_cpu(cuda, wire, monkeypatch):
+    """Four ZeRO-2 Adam steps with the scatter on the int8/int4 wire, on the
+    card and on the CPU from the same inputs: parameters within 1e-6 of
+    the largest value (the scatter is bitwise; Adam's power and square
+    root may round differently on the card), ``encode`` and ``decode``
+    launched on every step."""
+    monkeypatch.setenv("BLUEFOG_SHARD", "1")
+    monkeypatch.setenv("BLUEFOG_SHARD_GRADS", "1")
+    rng = np.random.RandomState(33)
+    c = torch.from_numpy(rng.randn(SIZE, 4099).astype(np.float32))
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        bft.init(size=SIZE, device=dev)
+        opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(0.02))
+        opt.compression = wire
+        params = {"w": torch.zeros(SIZE, 4099, device=dev)}
+        state = opt.init(params)
+        for _ in range(4):
+            before = kernels.launch_counts()
+            opt.step(params, state, {"w": params["w"] - c.to(dev)})
+            after = kernels.launch_counts()
+            if dev.type == "cuda":
+                assert after["encode"] > before["encode"] and after["decode"] > before["decode"]
+        outs[dev.type] = params["w"].cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0,
+                               atol=1e-6 * float(outs["cpu"].abs().max()))

@@ -41,7 +41,8 @@ def test_port_sources_exist():
             "flash.py", "attention.py", "transformer.py", "dynamic.py", "mlp.py",
             "long_context.py", "dryrun.py", "ops.py", "inner.py", "plan.py", "infer.py",
             "graphs.py", "utility.py", "context.py", "stacked.py", "async_gossip.py",
-            "attribution.py"} <= names
+            "attribution.py", "sharding.py", "scaling.py", "checkpoint.py",
+            "logging_util.py"} <= names
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
         assert (ROOT / "bluefog_tpu_torch" / "csrc" / source).is_file()
 
