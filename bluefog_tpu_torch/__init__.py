@@ -25,10 +25,34 @@ byte models of ``scaling``; the window ops (``win_*``, the associated-p lane, th
 quantized wires and the attention run through hand-written CUDA kernels
 for Hopper (``csrc/wire_kernels.cu``, ``csrc/flash_kernels.cu``). Entry
 points run on ``"cuda"`` unless ``device="cpu"`` is passed.
+
+Observability: ``logger`` and ``set_log_level`` (``BLUEFOG_LOG_LEVEL``);
+the Chrome-trace ``timeline`` (``timeline_init``, ``BLUEFOG_TIMELINE``); the
+stall ``watchdog`` (``set_stall_timeout``, ``suspend``, ``resume``,
+``BLUEFOG_STALL_TIMEOUT``); ``metrics`` (``metrics_snapshot``,
+``metrics_export``; the sampled gossip probe under ``BLUEFOG_METRICS=1``);
+the ``flight`` recorder (``flight_dump``, ``BLUEFOG_FLIGHT_DIR``).
 """
 
+from bluefog_tpu_torch.version import __version__
 from bluefog_tpu_torch import async_gossip, checkpoint, collective, ops, scaling, sharding, topology
+from bluefog_tpu_torch import flight, metrics, timeline, watchdog
 from bluefog_tpu_torch import topology as topology_util
+from bluefog_tpu_torch.flight import dump as flight_dump
+from bluefog_tpu_torch.logging_util import logger, set_log_level
+from bluefog_tpu_torch.metrics import metrics_export
+from bluefog_tpu_torch.metrics import snapshot as metrics_snapshot
+from bluefog_tpu_torch.timeline import (
+    timeline_context,
+    timeline_enabled,
+    timeline_end_activity,
+    timeline_init,
+    timeline_record_counter,
+    timeline_record_instant,
+    timeline_shutdown,
+    timeline_start_activity,
+)
+from bluefog_tpu_torch.watchdog import resume, set_stall_timeout, suspend
 from bluefog_tpu_torch.collective.ops import (
     allgather,
     allgather_nonblocking,
@@ -195,6 +219,27 @@ def out_neighbor_ranks(rank: int = None):
 
 
 __all__ = [
+    "__version__",
+    "flight",
+    "flight_dump",
+    "metrics",
+    "metrics_snapshot",
+    "metrics_export",
+    "timeline",
+    "timeline_init",
+    "timeline_shutdown",
+    "timeline_enabled",
+    "timeline_start_activity",
+    "timeline_end_activity",
+    "timeline_record_instant",
+    "timeline_record_counter",
+    "timeline_context",
+    "watchdog",
+    "suspend",
+    "resume",
+    "set_stall_timeout",
+    "logger",
+    "set_log_level",
     "async_gossip",
     "checkpoint",
     "scaling",

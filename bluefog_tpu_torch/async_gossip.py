@@ -53,10 +53,20 @@ sender's residual absorption already feeds the quantization error back.
 :func:`make_async_train_step` returns ``opt.make_train_step(loss_fn)``
 itself.
 
+**Observability**, as in the JAX engine: every tick counts
+``bluefog.async.ticks``, ``.local_steps`` and ``.wire_bytes``, sets
+``.participants``, observes each in-edge's age in the ``bluefog.async.age``
+histogram and ``.age_max``, and leaves an ``async_tick`` flight record; the
+gate counts ``.throttled`` and ``.stale_drops``, a re-window
+``.rewindows``; an advisory counts ``bluefog.doctor.advisory.<kind>``, sets
+``bluefog.doctor.last_advisory_step`` and goes to the flight recorder and
+the timeline. The tick's work runs inside ``watchdog.watch("async_fold:
+<window>")`` as an ``async_tick`` timeline span. The exchange's rounds
+follow ``BLUEFOG_PLAN_METHOD``.
+
 Not ported here: the elastic session hooks (dispatch guard, the ``slow``
-fault's dilation, the live set, re-windowing after a kill), the metrics,
-flight, timeline, watchdog, staleness-observatory, health and autotune
-hooks, and ``BLUEFOG_PLAN_METHOD``.
+fault's dilation, the live set, re-windowing after a kill; ROADMAP A12a),
+and the staleness-observatory, health and autotune hooks (A13b, A12b).
 """
 
 import collections
@@ -68,9 +78,12 @@ import numpy as np
 import torch
 
 from bluefog_tpu_torch import context as ctx_mod
+from bluefog_tpu_torch import flight, metrics, watchdog
+from bluefog_tpu_torch import timeline as tl
 from bluefog_tpu_torch import windows as win_mod
 from bluefog_tpu_torch.attribution import Advisory
 from bluefog_tpu_torch.logging_util import env_int
+from bluefog_tpu_torch.collective.ops import _enqueue
 from bluefog_tpu_torch.optimizers import (
     _grad_store,
     _tree_unflatten,
@@ -284,6 +297,7 @@ class AsyncGossipEngine:
             # becomes the new mass with p = 1
             packed = win.value / win.p[:, None].to(win.value.dtype)
             self._rewindows += 1
+            metrics.counter("bluefog.async.rewindows").inc()
         win_mod.win_free(self._name)
         created = win_mod.win_create(packed, self._name, zero_init=True)
         assert created, f"window {self._name} already exists"
@@ -347,11 +361,16 @@ class AsyncGossipEngine:
         if self.policy == "throttle":
             throttle_rows = stale.any(axis=1) & participating
             self._throttled += int(throttle_rows.sum())
+            if throttle_rows.any():
+                metrics.counter("bluefog.async.throttled").inc(int(throttle_rows.sum()))
             participating &= ~throttle_rows
             fold_mask = slot_exists & participating[:, None]
         else:
             fold_mask = slot_exists & participating[:, None] & ~stale
-            self._stale_drops += int((stale & participating[:, None]).sum())
+            drops = int((stale & participating[:, None]).sum())
+            if drops:
+                self._stale_drops += drops
+                metrics.counter("bluefog.async.stale_drops").inc(drops)
         return participating, fold_mask, breached
 
     def _decay_mutes(self) -> None:
@@ -371,7 +390,7 @@ class AsyncGossipEngine:
         for e in fresh:
             self._breach_mutes[e] = BREACH_COOLDOWN
         fresh.sort(key=lambda e: (-ages_by_edge.get(e, 0), e))
-        self.advisories.append(Advisory(
+        adv = Advisory(
             kind="async_staleness", step=self._tick,
             detail={
                 "edges": [[int(s), int(d)] for s, d in fresh[:8]],
@@ -384,8 +403,13 @@ class AsyncGossipEngine:
                 "surface": "async",
                 "topo_version": int(ctx.topo_version),
             },
-        ))
+        )
+        self.advisories.append(adv)
         self._advisory_total += 1
+        metrics.counter(f"bluefog.doctor.advisory.{adv.kind}").inc()
+        metrics.gauge("bluefog.doctor.last_advisory_step").set(adv.step)
+        flight.note_advisory(kind=adv.kind, step=adv.step, **adv.detail)
+        tl.timeline_record_advisory(adv.kind, adv.detail)
 
     # -- weights --------------------------------------------------------------------
 
@@ -486,11 +510,16 @@ class AsyncGossipEngine:
         ages = self._slot_ages(win)
         self._decay_mutes()
         participating, fold_mask, breached = self._gate(ctx, win, participating, ages)
+        ages_by_edge = {(int(s), int(r)): int(ages[r, k])
+                        for r, srcs in enumerate(win.in_neighbors)
+                        for k, s in enumerate(srcs)}
         if breached:
-            ages_by_edge = {(int(s), int(r)): int(ages[r, k])
-                            for r, srcs in enumerate(win.in_neighbors)
-                            for k, s in enumerate(srcs)}
             self._advise(ctx, ages_by_edge, breached)
+        if ages_by_edge:  # the gate computed the ages anyway
+            hist = metrics.histogram("bluefog.async.age")
+            for a in ages_by_edge.values():
+                hist.observe(a)
+            metrics.gauge("bluefog.async.age_max").set(float(max(ages_by_edge.values())))
 
         w_edges, self_vec = self._exchange_weights(ctx, win)
         # a rank that is not due: zero edge weights, self weight 1, sent 0
@@ -498,10 +527,37 @@ class AsyncGossipEngine:
         self_masked = np.where(participating, self_vec, 1.0)
         sent_masked = w_masked.sum(axis=1)
         low = win_mod._lowered_exchange(ctx, win, w_edges)
+        flight.record("async_tick", tick=self._tick, participants=int(participating.sum()))
+        # the tick's host blocking point: a hung fold is what the watchdog sees
+        with watchdog.watch(f"async_fold:{self._name}"):
+            written = _enqueue("async_tick", self._tick_work, win, opt_state, batch,
+                               participating, fold_mask, low, w_masked, self_masked,
+                               sent_masked, ctx.device)
+        win_mod._note_async_tick(win, written, fold_mask)
 
+        n_part = int(participating.sum())
+        self._local_steps += n_part
+        metrics.counter("bluefog.async.ticks").inc()
+        metrics.counter("bluefog.async.local_steps").inc(n_part)
+        metrics.gauge("bluefog.async.participants").set(n_part)
+        n_elems = int(np.prod(win.shape)) if win.shape else 1
+        metrics.counter("bluefog.async.wire_bytes").inc(metrics.wire_bytes_per_step(
+            {win.dtype.itemsize: n_elems}, len(low.perms), self.wire))
+        self._tick += 1
+        out = self.params()
+        loss = self._losses.clone()
+        if self.has_aux:
+            aux = _tree_unflatten(self._auxes[0], [
+                torch.stack(ts) for ts in zip(*(tree_leaves(a) for a in self._auxes))])
+            return out, opt_state, (loss, aux)
+        return out, opt_state, loss
+
+    def _tick_work(self, win, opt_state, batch, participating, fold_mask, low, w_masked,
+                   self_masked, sent_masked, dev):
+        """The tick's work: the due ranks' local step, the exchange and the
+        fold; returns the slots written."""
         self._local_step(win, opt_state, batch, np.nonzero(participating)[0])
 
-        dev = ctx.device
         vers_before = win.versions
         win.value, win.buffers, vers, win.p, win.p_buffers = win_mod._exchange_core(
             "acc", low, True, win.max_deg,
@@ -519,17 +575,7 @@ class AsyncGossipEngine:
             gate = torch.from_numpy(written[:, :win.max_deg].astype(np.int32)).to(dev)
             win.versions = vers_before + (vers - vers_before) * gate
         self._fold(win, fold_mask)
-        win_mod._note_async_tick(win, written, fold_mask)
-
-        self._local_steps += int(participating.sum())
-        self._tick += 1
-        out = self.params()
-        loss = self._losses.clone()
-        if self.has_aux:
-            aux = _tree_unflatten(self._auxes[0], [
-                torch.stack(ts) for ts in zip(*(tree_leaves(a) for a in self._auxes))])
-            return out, opt_state, (loss, aux)
-        return out, opt_state, loss
+        return written
 
     def summary(self) -> dict:
         """The engine's counters and settings."""

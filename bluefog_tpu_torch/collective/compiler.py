@@ -17,9 +17,12 @@ congestion 1. The port's own transport, the stacked worker axis of one
 process, is the link class ``"stacked"`` (:data:`TRANSPORT_LINK_CLASS`): a
 round is a gather in device memory and the chunks of a wavefront run one
 after another on one stream, so pipelining gains nothing and the chooser
-picks one chunk unless ``BLUEFOG_PLAN_CHUNKS`` asks for more. Left out: the
-short-cut relay family and the measured probe ``calibrate``
-(``BLUEFOG_PLAN_CALIBRATE=1`` raises).
+picks one chunk unless ``BLUEFOG_PLAN_CHUNKS`` asks for more.
+:func:`compile_edges` memoizes its structures under the JAX package's key
+and counts ``bluefog.plan_cache.hits`` and ``.misses``. Left out until
+ROADMAP A13b: the short-cut relay family (``method="shortcut"``, and so
+``BLUEFOG_PLAN_METHOD=shortcut``, raise) and the measured probe
+``calibrate`` (``BLUEFOG_PLAN_CALIBRATE=1`` raises).
 """
 
 import dataclasses
@@ -51,6 +54,7 @@ __all__ = [
     "set_calibration",
     "clear_calibration",
     "clear_compile_cache",
+    "plan_method",
 ]
 
 # The alpha-beta constants of the JAX package's cost model (its ICI and
@@ -139,15 +143,32 @@ def clear_calibration(link_class: Optional[str] = None) -> None:
         _CAL.pop(_check_link_class(link_class), None)
 
 
+def plan_method() -> str:
+    """The structure method of the plans of the active topology, the
+    explicit-weight plans and the window exchanges:
+    ``BLUEFOG_PLAN_METHOD`` (default ``auto``; ``offset`` and ``coloring``
+    force one pass and pin the chunk count to 1, as in the JAX package).
+    ``shortcut`` raises until the relay family is ported (ROADMAP A13b);
+    other values raise in :func:`compile_edges`."""
+    method = os.environ.get("BLUEFOG_PLAN_METHOD", "auto").strip() or "auto"
+    if method == "shortcut":
+        raise NotImplementedError(
+            "BLUEFOG_PLAN_METHOD=shortcut: the relay plan family is not ported "
+            "yet (ROADMAP A13b); use auto, offset or coloring"
+        )
+    return method
+
+
 def _maybe_autocalibrate() -> None:
     """``BLUEFOG_PLAN_CALIBRATE=1`` asks for the measured probe, which the
-    port does not have yet: refuse rather than quietly price with the class
-    constants."""
+    port has not yet (ROADMAP A13b): refuse rather than quietly price with
+    the class constants."""
     if os.environ.get("BLUEFOG_PLAN_CALIBRATE", "0") in ("1", "true", "on"):
         raise NotImplementedError(
             "BLUEFOG_PLAN_CALIBRATE=1: the measured probe compiler.calibrate is "
-            "not ported; unset it (the chooser then prices with the class "
-            "constants) or install constants with compiler.set_calibration()"
+            "not ported yet (ROADMAP A13b); unset it (the chooser then prices "
+            "with the class constants) or install constants with "
+            "compiler.set_calibration()"
         )
 
 
@@ -297,20 +318,43 @@ def _check_rounds(perms: Perms, edge_list) -> None:
         raise AssertionError("compiled rounds do not partition the edge set")
 
 
+_COMPILE_CACHE: Dict[Tuple, CompiledEdges] = {}
+_COMPILE_CACHE_MAX = 1024
+
+
 def compile_edges(
-    edges: Iterable[Tuple[int, int]], size: int, method: str = "auto"
+    edges: Iterable[Tuple[int, int]], size: int, method: str = "auto",
 ) -> CompiledEdges:
     """Compile a directed edge set into permutation rounds.
 
     ``auto`` takes the coloring only when it strictly reduces the round
     count and keeps the offset grouping on ties (the JAX compiler's rule,
     whose cost model is monotone in the round count); ``offset`` and
-    ``coloring`` force one pass."""
+    ``coloring`` force one pass; ``shortcut`` (the relay family) is not
+    ported yet and raises. Memoized under the JAX package's key
+    ``(canonical edges, size, method, payload, torus dims)``, where the
+    payload is the constant ``DEFAULT_PAYLOAD_BYTES`` (no port caller prices
+    a plan by payload) and the port declares no torus, counting
+    ``bluefog.plan_cache.hits`` and ``.misses``."""
+    if method == "shortcut":
+        raise NotImplementedError(
+            "method='shortcut' (BLUEFOG_PLAN_METHOD=shortcut): the relay plan "
+            "family is not ported yet (ROADMAP A13b); use 'auto', 'offset' or "
+            "'coloring'"
+        )
     if method not in ("auto", "offset", "coloring"):
         raise ValueError(
             f"method must be 'auto', 'offset' or 'coloring', got {method!r}"
         )
+    from bluefog_tpu_torch import metrics
+
     canon = _canonical(edges, size)
+    key = (canon, size, method, DEFAULT_PAYLOAD_BYTES, None)
+    hit = _COMPILE_CACHE.get(key)
+    if hit is not None:
+        metrics.counter("bluefog.plan_cache.hits").inc()
+        return hit
+    metrics.counter("bluefog.plan_cache.misses").inc()
     naive = offset_perms(canon, size)
     bound = min_rounds(canon, size)
     if method == "offset":
@@ -321,13 +365,17 @@ def compile_edges(
             perms, chosen = colored, "coloring"
         else:
             perms, chosen = naive, "offset"
-    return CompiledEdges(
+    result = CompiledEdges(
         perms=perms,
         method=chosen,
         rounds=len(perms),
         offset_rounds=len(naive),
         lower_bound=bound,
     )
+    if len(_COMPILE_CACHE) >= _COMPILE_CACHE_MAX:
+        _COMPILE_CACHE.pop(next(iter(_COMPILE_CACHE)))
+    _COMPILE_CACHE[key] = result
+    return result
 
 
 def _round_congestions(perms: Perms, size: int) -> Tuple[float, ...]:
@@ -444,5 +492,6 @@ def reduce_scatter_chunks(size: int, payload_bytes: float,
 
 
 def clear_compile_cache() -> None:
-    """Drop the memoized reduce-scatter structures."""
+    """Drop the memoized edge and reduce-scatter structures."""
+    _COMPILE_CACHE.clear()
     _RS_CACHE.clear()

@@ -16,7 +16,17 @@ dict raises. With no weights the active topology's plan is used (its
 weights if the context is weighted, else the uniform ``1/(in_degree+1)``);
 ``self_weight`` with ``src_weights`` gives explicit weights, whose keys
 must be in-neighbours of the topology unless ``dst_weights`` (dynamic
-mode, both ends scale the value) is given too.
+mode, both ends scale the value) is given too. Plans follow
+``BLUEFOG_PLAN_METHOD``.
+
+Observability, as in the JAX facade: each op's dispatch is an ``ENQUEUE``
+span of the timeline; :func:`synchronize` is a host blocking point, with
+``sync_begin`` / ``sync_ready`` flight records, a watchdog ``watch`` and a
+``SYNCHRONIZE`` span; a new plan is noted in the flight recorder; a
+compressed ``neighbor_allgather`` counts its wire bytes and, with
+``BLUEFOG_METRICS=1``, samples its quantization error. The JAX facade also
+counts ``bluefog.recompiles`` on a fresh program; the port dispatches
+eagerly and counts none.
 """
 
 import itertools
@@ -28,7 +38,9 @@ import numpy as np
 import torch
 
 from bluefog_tpu_torch import context as ctx_mod
-from bluefog_tpu_torch.collective import inner
+from bluefog_tpu_torch import flight, metrics, watchdog
+from bluefog_tpu_torch import timeline as tl
+from bluefog_tpu_torch.collective import compiler, inner
 from bluefog_tpu_torch.collective.plan import CommPlan, plan_from_weights
 
 __all__ = [
@@ -117,9 +129,25 @@ def synchronize(handle: int):
             "handles promptly when you need their results."
         )
     result, event, post = entry
-    if event is not None:
-        event.synchronize()
+    _blocking_wait(handle, event)
     return post(result) if post is not None else result
+
+
+def _blocking_wait(handle: int, event) -> None:
+    """Wait on ``event`` (None: the op has finished) as a host blocking
+    point, where a hang becomes observable: ``sync_begin`` / ``sync_ready``
+    flight records, a watchdog ``watch`` and a ``SYNCHRONIZE`` span."""
+    flight.record("sync_begin", handle=handle)
+    with watchdog.watch(f"synchronize(handle {handle})"):
+        if tl.timeline_enabled():
+            t0 = tl.timeline_now_us()
+            if event is not None:
+                event.synchronize()
+            tl.timeline_record_complete(f"handle_{handle}", "SYNCHRONIZE", t0,
+                                        tl.timeline_now_us() - t0)
+        elif event is not None:
+            event.synchronize()
+    flight.record("sync_ready", handle=handle)
 
 
 def wait(handle: int):
@@ -129,7 +157,19 @@ def wait(handle: int):
 
 def barrier() -> None:
     """Return when the device has finished all work queued so far."""
-    inner.barrier(ctx_mod.get_context().device)
+    _enqueue("barrier", inner.barrier, ctx_mod.get_context().device)
+
+
+def _enqueue(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``: an op's or an optimizer step's dispatch, an
+    ``ENQUEUE`` span of the timeline when one is open (the JAX
+    ``_timed_dispatch``, without the memory observatory's phase)."""
+    if not tl.timeline_enabled():
+        return fn(*args, **kwargs)
+    t0 = tl.timeline_now_us()
+    out = fn(*args, **kwargs)
+    tl.timeline_record_complete(name, "ENQUEUE", t0, tl.timeline_now_us() - t0)
+    return out
 
 
 # -- helpers ---------------------------------------------------------------------------
@@ -209,10 +249,14 @@ def _resolve_plan(ctx, self_weight, src_weights, dst_weights,
                     f"src_weights for rank {r} contains {sorted(keys - in_sets[r])} "
                     "which are not in-neighbors of the current topology."
                 )
-    return plan_from_weights(
+    plan = plan_from_weights(
         ctx.size, self_weight, src_weights, dst_weights,
         enable_topo_check=enable_topo_check and dst_weights is not None,
+        method=compiler.plan_method(),
     )
+    # rebuilt each call; the recorder keeps each distinct structure once
+    flight.note_plan(plan, ctx.topo_version)
+    return plan
 
 
 # -- classic collectives ---------------------------------------------------------------
@@ -220,7 +264,7 @@ def _resolve_plan(ctx, self_weight, src_weights, dst_weights,
 
 def allreduce_nonblocking(x, average: bool = True, name: Optional[str] = None) -> int:
     x = _check_worker_tensor(ctx_mod.get_context(), x)
-    return _new_handle(inner.allreduce(x, average=average))
+    return _new_handle(_enqueue("allreduce", inner.allreduce, x, average=average))
 
 
 def allreduce(x, average: bool = True, name: Optional[str] = None):
@@ -230,7 +274,7 @@ def allreduce(x, average: bool = True, name: Optional[str] = None):
 
 def allgather_nonblocking(x, name: Optional[str] = None) -> int:
     x = _check_worker_tensor(ctx_mod.get_context(), x)
-    return _new_handle(inner.allgather(x))
+    return _new_handle(_enqueue("allgather", inner.allgather, x))
 
 
 def allgather(x, name: Optional[str] = None):
@@ -241,7 +285,7 @@ def allgather(x, name: Optional[str] = None):
 
 def broadcast_nonblocking(x, root_rank: int, name: Optional[str] = None) -> int:
     x = _check_worker_tensor(ctx_mod.get_context(), x)
-    return _new_handle(inner.broadcast(x, root_rank))
+    return _new_handle(_enqueue("broadcast", inner.broadcast, x, root_rank))
 
 
 def broadcast(x, root_rank: int, name: Optional[str] = None):
@@ -271,8 +315,9 @@ def neighbor_allreduce_nonblocking(
     x = _check_worker_tensor(ctx, x)
     plan = _resolve_plan(ctx, self_weight, src_weights, dst_weights, enable_topo_check)
     if compression is None:
-        return _new_handle(inner.neighbor_allreduce(x, plan))
-    return _new_handle(inner.weighted_combine_quantized(x, plan, wire=compression))
+        return _new_handle(_enqueue("neighbor_allreduce", inner.neighbor_allreduce, x, plan))
+    return _new_handle(_enqueue("neighbor_allreduce", inner.weighted_combine_quantized, x,
+                                plan, wire=compression))
 
 
 def neighbor_allreduce(
@@ -315,12 +360,21 @@ def neighbor_allgather_nonblocking(
             )
     plan = ctx.static_plan()
     in_neighbors = plan.in_neighbors
+    if compression is not None and metrics.enabled():
+        from bluefog_tpu_torch import scaling
+
+        n_elems = x[0].numel()
+        metrics.record_allgather_wire(
+            x, compression,
+            len(plan.rounds) * scaling.wire_payload_bytes(n_elems, x.element_size(),
+                                                          compression))
 
     def post(result):
         vals, _mask = result
         return [vals[r, :len(in_neighbors[r])] for r in range(ctx.size)]
 
-    return _new_handle(inner.neighbor_allgather(x, plan, wire=compression), post)
+    return _new_handle(_enqueue("neighbor_allgather", inner.neighbor_allgather, x, plan,
+                                wire=compression), post)
 
 
 def neighbor_allgather(
@@ -336,7 +390,7 @@ def neighbor_allgather(
 def _machine_plan(ctx, self_weight, neighbor_machine_weights, send_neighbor_machines,
                   enable_topo_check: bool) -> CommPlan:
     if self_weight is None and neighbor_machine_weights is None:
-        return ctx.machine_plan()
+        return ctx.machine_plan(compiler.plan_method())
     if self_weight is None or neighbor_machine_weights is None:
         raise ValueError(
             "self_weight and neighbor_machine_weights must be presented together"
@@ -361,7 +415,8 @@ def hierarchical_neighbor_allreduce_nonblocking(
     x = _check_worker_tensor(ctx, x)
     mplan = _machine_plan(ctx, self_weight, neighbor_machine_weights,
                           send_neighbor_machines, enable_topo_check)
-    return _new_handle(inner.hierarchical_neighbor_allreduce(x, mplan, ctx.local_size))
+    return _new_handle(_enqueue("hier_neighbor_allreduce", inner.hierarchical_neighbor_allreduce,
+                                x, mplan, ctx.local_size))
 
 
 def hierarchical_neighbor_allreduce(
@@ -431,7 +486,8 @@ def pair_gossip_nonblocking(x, target_ranks, self_weight=None, extra_weight=None
     ctx = ctx_mod.get_context()
     x = _check_worker_tensor(ctx, x)
     pairs = _resolve_pairs(ctx, target_ranks)
-    return _new_handle(inner.pair_gossip(x, pairs, self_weight, extra_weight))
+    return _new_handle(_enqueue("pair_gossip", inner.pair_gossip, x, pairs, self_weight,
+                                extra_weight))
 
 
 def pair_gossip(x, target_ranks: Sequence, self_weight=None, extra_weight=None, name=None):

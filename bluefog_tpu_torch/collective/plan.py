@@ -147,12 +147,12 @@ class SchedulePlan:
 
 
 def perms_from_edges(
-    edges: Iterable[Tuple[int, int]], size: int
+    edges: Iterable[Tuple[int, int]], size: int, method: str = "auto"
 ) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
     """Pack directed edges into partial-permutation rounds (the compiler's
-    ``auto`` decomposition): the structure lowering of the window ops
+    ``method`` decomposition): the structure lowering of the window ops
     (:mod:`bluefog_tpu_torch.windows`)."""
-    return compiler.compile_edges(edges, size).perms
+    return compiler.compile_edges(edges, size, method=method).perms
 
 
 def plan_from_matrix(

@@ -16,15 +16,25 @@ absent; the CPU is used only when the caller asks for it.
 The windows of :mod:`bluefog_tpu_torch.windows` and the associated-p
 switch live on the context, so :func:`shutdown` (and a new :func:`init`)
 drops them with it.
+
+``init`` reads the knobs the JAX context reads: ``BLUEFOG_NODES_PER_MACHINE``
+(the machine split when ``nodes_per_machine`` is not given),
+``BLUEFOG_TIMELINE`` (:mod:`bluefog_tpu_torch.timeline`), the flight
+recorder's and the metrics' knobs; it refuses a set ``BLUEFOG_PODS``, a
+declared federation the port cannot honour yet (ROADMAP A12b). The plans
+of the active topology follow ``BLUEFOG_PLAN_METHOD``
+(:func:`bluefog_tpu_torch.collective.compiler.plan_method`).
 """
 
 import itertools
+import os
 import threading
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from bluefog_tpu_torch.collective import compiler
 from bluefog_tpu_torch.collective.plan import CommPlan, plan_from_topology
 from bluefog_tpu_torch.topology import ExponentialGraph
 
@@ -74,6 +84,10 @@ class BluefogContext:
             raise ValueError(f"size must be positive, got {size}")
         self.size = int(size)
         self.device = resolve_device(device)
+        if nodes_per_machine is None:
+            env = os.environ.get("BLUEFOG_NODES_PER_MACHINE")
+            if env:
+                nodes_per_machine = int(env)
         self.local_size = int(nodes_per_machine or self.size)
         if self.local_size < 1 or self.size % self.local_size:
             raise ValueError(
@@ -148,29 +162,41 @@ class BluefogContext:
     def is_machine_topo_weighted(self) -> bool:
         return self._machine_topo_weighted
 
-    def machine_plan(self) -> CommPlan:
-        """The plan of the machine topology, rebuilt only when it changes."""
+    def machine_plan(self, method: str = "auto") -> CommPlan:
+        """The plan of the machine topology under the compiler's ``method``,
+        rebuilt only when either changes (a new one is noted in the flight
+        recorder)."""
         if self._machine_topology is None:
             raise ValueError(
                 "no machine topology set; call set_machine_topology() or pass "
                 "explicit machine weights"
             )
+        key = (self.machine_topo_version, method)
         cached = self._machine_plan_cache
-        if cached is None or cached[0] != self.machine_topo_version:
+        if cached is None or cached[0] != key:
+            from bluefog_tpu_torch import flight
+
             plan = plan_from_topology(
-                self._machine_topology, weighted=self._machine_topo_weighted
+                self._machine_topology, weighted=self._machine_topo_weighted, method=method
             )
-            self._machine_plan_cache = cached = (self.machine_topo_version, plan)
+            self._machine_plan_cache = cached = (key, plan)
+            flight.note_plan(plan, self.machine_topo_version, kind="machine")
         return cached[1]
 
     def static_plan(self) -> CommPlan:
-        """The plan of the active topology, rebuilt only when it changes."""
+        """The plan of the active topology under ``BLUEFOG_PLAN_METHOD``,
+        rebuilt only when either changes (a new one is noted in the flight
+        recorder)."""
+        key = (self.topo_version, compiler.plan_method())
         cached = self._plan_cache
-        if cached is None or cached[0] != self.topo_version:
+        if cached is None or cached[0] != key:
+            from bluefog_tpu_torch import flight
+
             plan = plan_from_topology(
-                self._topology, weighted=self._topo_weighted
+                self._topology, weighted=self._topo_weighted, method=key[1]
             )
-            self._plan_cache = cached = (self.topo_version, plan)
+            self._plan_cache = cached = (key, plan)
+            flight.note_plan(plan, self.topo_version)
         return cached[1]
 
     def p_enabled(self) -> bool:
@@ -237,25 +263,53 @@ def init(
     """Install the global context (reference ``bf.init``): ``size``
     virtual workers on ``device`` (default ``"cuda"``), topology
     ``topology_fn(size)`` (default :func:`ExponentialGraph`), split into
-    machines of ``nodes_per_machine`` workers (default one machine of
-    all) for the hierarchical ops."""
+    machines of ``nodes_per_machine`` workers (default
+    ``BLUEFOG_NODES_PER_MACHINE``, else one machine of all) for the
+    hierarchical ops. Opens the timeline of ``BLUEFOG_TIMELINE`` and a
+    fresh flight recorder, and sets the ``bluefog.size`` and
+    ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` is refused."""
     global _context
-    from bluefog_tpu_torch import async_gossip
+    from bluefog_tpu_torch import async_gossip, flight, metrics
+    from bluefog_tpu_torch import timeline as tl
 
+    pods = os.environ.get("BLUEFOG_PODS", "").strip()
+    if pods:
+        # a declared federation that cannot be honoured must not run flat
+        raise NotImplementedError(
+            f"BLUEFOG_PODS={pods!r} declares a federation, which the port does "
+            "not run yet (ROADMAP A12b: federation.py); unset BLUEFOG_PODS to "
+            "run one flat fabric"
+        )
     ctx = BluefogContext(topology_fn, is_weighted, size, device, nodes_per_machine)
     with _lock:
         _context = ctx
+    tl.maybe_init_from_env()
+    # after the timeline, so the session_start clock triple carries its clock
+    flight.on_init(ctx)
     async_gossip.on_init(ctx)
+    metrics.gauge("bluefog.size").set(ctx.size)
+    metrics.gauge("bluefog.machine_size").set(ctx.machine_size)
     return ctx
 
 
 def shutdown() -> None:
+    """Drop the global context (reference ``bf.shutdown``): close the
+    flight session, fold the pending probe payloads and run the
+    env-configured exporters, then close a timeline ``init`` opened from
+    ``BLUEFOG_TIMELINE`` (a timeline the user opened stays open)."""
     global _context
-    from bluefog_tpu_torch import async_gossip
+    from bluefog_tpu_torch import async_gossip, flight, metrics
+    from bluefog_tpu_torch import timeline as tl
 
+    async_gossip.on_shutdown()
+    if _context is not None:
+        flight.on_shutdown()
+    metrics.flush()
+    metrics.auto_export()
+    if tl.timeline_env_owned():
+        tl.timeline_shutdown()
     with _lock:
         _context = None
-    async_gossip.on_shutdown()
 
 
 def release_associated_p(ctx_uid: int) -> None:

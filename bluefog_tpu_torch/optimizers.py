@@ -63,6 +63,21 @@ given parameter and state tensors in place (it saves a model-sized copy
 per step) and returns them; with order ``"grad"`` it also overwrites the
 gradients with their average. The window optimizers update their
 window's value in place.
+
+Observability, on both dispatch paths (:meth:`_GossipOptimizer.step` and
+the fused train step), as in the JAX package: ``step_begin`` /
+``step_dispatched`` flight records around an ``ENQUEUE`` timeline span
+(``optimizer_step``, ``fused_train_step``, ``window_optimizer_step``); the
+plans noted in the flight recorder; with ``BLUEFOG_METRICS=1`` the rounds,
+wire bytes and ``bluefog.shard.*`` accounting of every communicating step,
+and on one communicating step in ``BLUEFOG_METRICS_INTERVAL`` the
+sub-gossip probe of :mod:`bluefog_tpu_torch.metrics`
+(:meth:`_GossipOptimizer._probe`), whose payload is folded at the next
+sample or at :func:`bluefog_tpu_torch.metrics.flush`. A step that is not
+sampled runs the code it runs with metrics off. The JAX package's
+``compile`` records and ``bluefog.recompiles`` have no counterpart here
+(see :mod:`bluefog_tpu_torch.metrics`), nor has the memory observatory's
+phase of the JAX ``_timed_dispatch`` (ROADMAP A13c).
 """
 
 import enum
@@ -74,7 +89,7 @@ import torch
 import numpy as np
 
 from bluefog_tpu_torch import context as ctx_mod
-from bluefog_tpu_torch import sharding
+from bluefog_tpu_torch import flight, metrics, sharding
 from bluefog_tpu_torch import windows as win_mod
 from bluefog_tpu_torch.collective import compiler, inner
 from bluefog_tpu_torch.collective import ops as col_ops
@@ -343,6 +358,30 @@ def _group_sig(tree):
                  for name, group in _dtype_groups(tree_leaves(tree)))
 
 
+def _packed_prefix(tree, cap: int):
+    """``[(sub [N, k], scale)]`` per dtype group: a new tensor holding the
+    first ``k`` columns of the group's packed payload, ``k`` the probe's
+    512-aligned prefix (:func:`metrics.prefix_elems`), cut from whole
+    leaves and at most one partial leaf (the JAX ``_packed_prefix``);
+    ``scale`` is the group's elements over ``k``."""
+    out = []
+    for _name, group in _dtype_groups(tree_leaves(tree)):
+        n_workers = group[0].shape[0]
+        total = sum(leaf[0].numel() for leaf in group)
+        keep = metrics.prefix_elems(total, cap)
+        parts, got = [], 0
+        for leaf in group:
+            if got >= keep:
+                break
+            take = min(leaf[0].numel(), keep - got)
+            parts.append(leaf.reshape(n_workers, -1)[:, :take])
+            got += take
+        sub = (torch.cat(parts, dim=1) if len(parts) > 1
+               else parts[0].clone(memory_format=torch.contiguous_format))
+        out.append((sub, total / keep))
+    return out
+
+
 class CommunicationType(enum.Enum):
     """What a gossip-family optimizer communicates (the JAX package's
     ``CommunicationType``)."""
@@ -438,6 +477,13 @@ class _GossipOptimizer:
         self._shard_layout = None  # the active ShardLayout under BLUEFOG_SHARD=1
         self._elementwise = None  # (inner optimizer, whether the probe found it elementwise)
         self._scatter_ef = self._scatter_ef_sig = None
+        # the device tier: the sampled probe's payload on its way to the
+        # host, (wire, host payload, event); folded at the next sample or flush
+        self._pending_drain = None
+        self._metrics_hooked = False
+        self._acct_cache = {}  # per-structure rounds and wire bytes
+        self._last_probe = None  # the latest probe's (sub_x, sub_y, scale, ef) per group
+        self._last_payload = None  # the latest probe's payload, on the device
 
     def init(self, params):
         """Per-worker inner-optimizer state (stacked like ``params``); under
@@ -744,7 +790,8 @@ class _GossipOptimizer:
         compiled = plan.compile_info
         return compiler.choose_chunks(
             compiled if compiled is not None else len(plan.perms), payload_bytes,
-            n_elems=n_elems, link_class=compiler.TRANSPORT_LINK_CLASS)
+            n_elems=n_elems, method=compiler.plan_method(),
+            link_class=compiler.TRANSPORT_LINK_CLASS)
 
     def _plan_dispatch(self, ctx, params, plan: CommPlan) -> _Dispatch:
         """The neighbor combine over one plan, in this step's tier, with the
@@ -782,6 +829,11 @@ class _GossipOptimizer:
             raise ValueError(
                 f"opt.schedule is sized for {sched.size} but there are {size} {what}"
             )
+        # the whole period lands in the flight recorder once (deduplicated)
+        for p in sched.plans:
+            flight.note_plan(p, ctx.topo_version if local_size is None
+                             else ctx.machine_topo_version,
+                             kind="worker" if local_size is None else "machine")
         if local_size is None:
             combine = lambda t: inner.neighbor_allreduce_step(t, step, sched)  # noqa: E731
         else:
@@ -793,7 +845,7 @@ class _GossipOptimizer:
 
     def _machine_plan(self, ctx) -> CommPlan:
         if self.neighbor_machine_weights is not None:
-            return plan_from_weights(
+            mplan = plan_from_weights(
                 ctx.machine_size,
                 self.self_weight if self.self_weight is not None else 0.5,
                 self.neighbor_machine_weights,
@@ -801,6 +853,8 @@ class _GossipOptimizer:
                 enable_topo_check=self.enable_topo_check
                 and self.send_neighbor_machines is not None,
             )
+            flight.note_plan(mplan, ctx.machine_topo_version, kind="machine")
+            return mplan
         if ctx.load_machine_topology() is None:
             raise ValueError(
                 "hierarchical optimizer needs set_machine_topology() or "
@@ -895,26 +949,179 @@ class _GossipOptimizer:
         else:
             _packed_gossip(tree, d.combine, d.cap_bytes)
 
-    def _combine_update(self, d: _Dispatch, params, state, grads) -> None:
+    def _combine_update(self, d: _Dispatch, params, state, grads, with_metrics: bool = False,
+                        wire: Optional[str] = None):
         """The gossip + inner-update core of :meth:`step` and the fused
         train step (the JAX ``_combine_update``), in place. Order
         ``"grad"`` averages the gradients in place, except under ZeRO-2,
         where the reduce-scatter leaves them as they are; a sharded step
-        updates the owned slots and gathers them into the parameters."""
+        updates the owned slots and gathers them into the parameters.
+        ``with_metrics`` runs the probe (:meth:`_probe`) on the combine's
+        input just before the combine and returns its payload (else
+        None)."""
+        payload = None
         if self.order == "grad":
+            allreduce = lambda t: inner.allreduce(t, average=True)  # noqa: E731
+            if with_metrics:  # the iterate on the wire is the gradient
+                payload = self._probe(allreduce, grads, grads, wire, ef=False)
             if d.shard is not None and d.shard.grads:
                 _sharded_inner_update(self.tx, d.shard, params, state,
                                       own_g=self._scatter_own_grads(d, grads))
-                return
-            _packed_gossip(grads, lambda t: inner.allreduce(t, average=True), d.cap_bytes)
+                return payload
+            _packed_gossip(grads, allreduce, d.cap_bytes)
         if d.shard is not None:
             _sharded_inner_update(self.tx, d.shard, params, state, grads=grads)
-            return
+            return payload
         if self.order == "cta":
+            if with_metrics:
+                payload = self._probe(d.combine, params, grads, wire, ef=d.ef)
             self._gossip(d, params)
         self.tx.apply_(params, state, grads)
         if self.order == "atc":
+            if with_metrics:
+                payload = self._probe(d.combine, params, grads, wire, ef=d.ef)
             self._gossip(d, params)
+        return payload
+
+    # -- the device tier of the metrics -------------------------------------------
+
+    def _probe(self, combine, tree, grads, wire, ef: bool):
+        """The sub-gossip: ``combine`` on the 512-aligned prefix of each
+        packed dtype group of ``tree`` (a new tensor, so the combine's
+        input is never written), on the EF tiers with copies of the prefix
+        of the CHOCO state, which are then dropped; the combine is
+        elementwise and block-local, so its output is bitwise the first
+        columns of the full combine's. Returns the payload of
+        :func:`metrics.build_probe_payload`; the raw slices stay in
+        ``_last_probe``."""
+        cap = metrics.sample_elems_cap()
+        pairs = []
+        for gi, (sub, scale) in enumerate(_packed_prefix(tree, cap)):
+            if ef:
+                xs, xr = self._ef[gi]
+                k = sub.shape[1]
+                dk = min(-(-k // inner._QUANT_CHUNK) * inner._QUANT_CHUNK, xs.shape[1])
+                es, er = xs[:, :dk].clone(), xr[:, :, :dk].clone()
+                y = combine(sub.clone(), (es, er))
+                pairs.append((sub, y, scale, es[:, :k]))
+            else:
+                pairs.append((sub, combine(sub.clone()), scale, None))
+        self._last_probe = pairs
+        g_subs = _packed_prefix(grads, cap) if grads is not None else ()
+        return metrics.build_probe_payload(pairs, g_subs, wire=wire)
+
+    def _delayed_probe(self, d: _Dispatch, params, grads, sw: torch.Tensor):
+        """The probe of the stale mix (:meth:`_stale_mix` on the prefix of
+        the fresh parameters and of the carried buffers), run before the
+        mix: bitwise the first columns of the full mix. No wire slots."""
+        cap = metrics.sample_elems_cap()
+        pairs = []
+        for (f_sub, scale), buf in zip(_packed_prefix(params, cap), self._delay_buf):
+            b_sub = buf[:, :f_sub.shape[1]].clone()
+            diff = f_sub.to(b_sub.dtype) - b_sub
+            combined = _bucketed_flat_gossip(b_sub, d.combine, d.cap_bytes)
+            pairs.append((f_sub, combined + _col(sw, combined) * diff.to(combined.dtype),
+                          scale, None))
+        self._last_probe = pairs
+        return metrics.build_probe_payload(pairs, _packed_prefix(grads, cap), wire=None)
+
+    def _metrics_wire(self, comm_now: bool) -> Optional[str]:
+        """The quantized wire whose error this step's probe replays, or
+        None: the flat paths' wires (the hierarchical machine leg quantizes
+        a machine sum, not the packed payload); under ZeRO-2 an EF tier's
+        base tier (its residual lives in the scatter)."""
+        if (not comm_now or self.schedule is not None
+                or self.communication_type == CommunicationType.hierarchical_neighbor_allreduce):
+            return None
+        wire = self.compression
+        if wire in ("int8", "bf16", "int8_ef", "int4", "int4_ef"):
+            if wire in _EF_TIERS and self._shard_active() and sharding.grads_enabled():
+                return wire[:-len("_ef")]
+            return wire
+        return None
+
+    def _fold_pending(self, export: bool) -> None:
+        wire, host, event = self._pending_drain
+        self._pending_drain = None
+        if event is not None:  # the copy to pinned memory has landed
+            event.synchronize()
+        metrics.fold_device_payload(host, wire=wire, export=export)
+
+    def _drain_after_sample(self, wire, payload) -> None:
+        """After a sampled step: fold the previous sample's payload (its copy
+        long done), then start this one's copy to pinned host memory
+        without blocking, with a CUDA event beside it."""
+        if not self._metrics_hooked:
+            metrics.register_flush_hook(self)
+            self._metrics_hooked = True
+        if self._pending_drain is not None:
+            self._fold_pending(export=True)
+        host, event = metrics.start_host_copy(payload)
+        self._pending_drain = (wire, host, event)
+        self._last_payload = payload
+
+    def _flush_metrics(self) -> None:
+        """Fold the pending payload now (no exporters: :func:`metrics.flush`'s
+        caller decides)."""
+        if self._pending_drain is not None:
+            self._fold_pending(export=False)
+
+    def _record_comm_accounting(self, d: _Dispatch, params, ctx) -> None:
+        """Rounds and wire bytes of this communicating step (computed once
+        per structure), and the ``bluefog.shard.*`` gauges of a sharded
+        step (the JAX ``_record_comm_accounting``)."""
+        from bluefog_tpu_torch import scaling
+
+        shard = d.shard
+        key = (d.key, _group_sig(params), None if shard is None else shard.sig(),
+               self.compression)
+        acct = self._acct_cache.get(key)
+        if acct is None:
+            tag = d.key[0]
+            wire, rounds = None, 0
+            if tag in ("na", "hier"):
+                rounds = len(d.key[1])
+            elif tag in ("na_q", "na_q_ef", "hier_q"):
+                wire = d.key[1] + ("_ef" if tag == "na_q_ef" else "")
+                rounds = len(d.key[2])
+            elif tag == "sched":
+                rounds = max(len(p.rounds) for p in d.key[1].plans)
+            elif tag == "allreduce":
+                rounds = 1
+            by_item = {}
+            for leaf in tree_leaves(params):
+                n = leaf[0].numel() if leaf.dim() > 1 else 1
+                by_item[leaf.element_size()] = by_item.get(leaf.element_size(), 0) + n
+            scatter_bytes = 0
+            if tag == "allreduce":
+                if shard is not None and shard.grads:
+                    scatter_bytes = scaling.reduce_scatter_bytes(
+                        tuple((g.slot, getattr(torch, g.dtype).itemsize) for g in shard.groups),
+                        shard.size, wire=self.compression)
+                    wire_bytes = scatter_bytes
+                    rounds = shard.size - 1
+                else:  # a ring allreduce ships ~2 (n - 1) / n payloads a worker
+                    payload = sum(i * n for i, n in by_item.items())
+                    wire_bytes = int(2 * (ctx.size - 1) / max(ctx.size, 1) * payload)
+            else:
+                wire_bytes = metrics.wire_bytes_per_step(by_item, rounds, wire)
+            if shard is not None:
+                wire_bytes += sharding.gather_wire_bytes(shard)
+            acct = self._acct_cache[key] = (rounds, wire_bytes, scatter_bytes)
+        rounds, wire_bytes, scatter_bytes = acct
+        metrics.gauge("bluefog.gossip.rounds").set(rounds)
+        metrics.counter("bluefog.wire_bytes").inc(wire_bytes)
+        metrics.counter("bluefog.comm_steps").inc()
+        if shard is not None:
+            metrics.gauge("bluefog.shard.enabled").set(1)
+            metrics.gauge("bluefog.shard.state_bytes").set(sharding.state_bytes(shard))
+            metrics.gauge("bluefog.shard.ratio").set(
+                sharding.state_bytes(shard) / max(sharding.state_bytes(shard, sharded=False), 1))
+            metrics.counter("bluefog.shard.gather_bytes").inc(sharding.gather_wire_bytes(shard))
+            metrics.gauge("bluefog.shard.grads").set(1 if shard.grads else 0)
+            if shard.grads:
+                metrics.counter("bluefog.shard.scatter_bytes").inc(scatter_bytes)
+                metrics.gauge("bluefog.shard.grad_bytes").set(sharding.grad_bytes(shard))
 
     def step(self, params, opt_state, grads):
         """One decentralized step; updates ``params`` and ``opt_state`` in
@@ -927,12 +1134,24 @@ class _GossipOptimizer:
             return params, opt_state
         d = self._resolve_dispatch(ctx, params, comm_now)
         self._shard_dispatch(ctx, d, params, opt_state, comm_now)
+        met_enabled = metrics.enabled() and comm_now
+        # one communicating step in the interval runs the probe; the others
+        # run exactly the code of metrics off
+        met = met_enabled and self._comm_count % metrics.metrics_interval() == 0
+        wire_now = self._metrics_wire(comm_now)
         if comm_now and self.order == "grad":
             grads = self._take_accumulated(grads)
+        flight.record("step_begin", step=self._step_count, comm=comm_now)
         self._step_count += 1
         if comm_now:
             self._comm_count += 1
-        self._combine_update(d, params, opt_state, grads)
+        if met_enabled:
+            self._record_comm_accounting(d, params, ctx)
+        payload = col_ops._enqueue("optimizer_step", self._combine_update, d, params, opt_state,
+                                   grads, with_metrics=met, wire=wire_now)
+        flight.record("step_dispatched", step=self._step_count - 1)
+        if met:
+            self._drain_after_sample(wire_now, payload)
         return params, opt_state
 
     # -- the fused train step -----------------------------------------------------
@@ -1016,29 +1235,55 @@ class _GossipOptimizer:
             delay_now = delayed and comm_now
             if delay_now:
                 self._ensure_delay_state(params, d.key)
-            loss, aux, grads = _worker_grads(loss_fn, has_aux, params, batch, grads_store)
-            if self.order == "grad" and not comm_now:
-                self._step_count += 1
-                self._accumulate(grads)
-            else:
-                if comm_now and self.order == "grad":
-                    grads = self._take_accumulated(grads)
-                self._step_count += 1
-                if comm_now:
-                    self._comm_count += 1
-                if delay_now:
-                    sw = d.self_weight()
-                    if self.order == "cta":
-                        self._stale_mix(d, params, sw)
-                        self.tx.apply_(params, opt_state, grads)
-                    else:
-                        self.tx.apply_(params, opt_state, grads)
-                        self._stale_mix(d, params, sw)
-                else:
-                    self._combine_update(d, params, opt_state, grads)
+            met_enabled = metrics.enabled() and comm_now
+            met = met_enabled and self._comm_count % metrics.metrics_interval() == 0
+            wire_now = self._metrics_wire(comm_now)
+            flight.record("step_begin", step=self._step_count, comm=comm_now, fused=True)
+            if met_enabled:
+                self._record_comm_accounting(d, params, ctx)
+            loss, aux, payload = col_ops._enqueue(
+                "fused_train_step", self._fused_body, d, params, opt_state, batch, loss_fn,
+                has_aux, grads_store, comm_now, delay_now, met, wire_now)
+            flight.record("step_dispatched", step=self._step_count - 1)
+            if met:
+                # the delayed probe measures the stale mix, with no wire slots
+                self._drain_after_sample(None if delay_now else wire_now, payload)
             return params, opt_state, ((loss, aux) if has_aux else loss)
 
         return train_step
+
+    def _fused_body(self, d: _Dispatch, params, opt_state, batch, loss_fn, has_aux,
+                    grads_store, comm_now: bool, delay_now: bool, met: bool, wire_now):
+        """One fused step after its dispatch is resolved: every worker's
+        gradient, then the update and the gossip (``delay_now``: the stale
+        mix); returns ``(loss, aux, probe payload or None)``."""
+        loss, aux, grads = _worker_grads(loss_fn, has_aux, params, batch, grads_store)
+        payload = None
+        if self.order == "grad" and not comm_now:
+            self._step_count += 1
+            self._accumulate(grads)
+            return loss, aux, payload
+        if comm_now and self.order == "grad":
+            grads = self._take_accumulated(grads)
+        self._step_count += 1
+        if comm_now:
+            self._comm_count += 1
+        if delay_now:
+            sw = d.self_weight()
+            if self.order == "cta":
+                if met:
+                    payload = self._delayed_probe(d, params, grads, sw)
+                self._stale_mix(d, params, sw)
+                self.tx.apply_(params, opt_state, grads)
+            else:
+                self.tx.apply_(params, opt_state, grads)
+                if met:
+                    payload = self._delayed_probe(d, params, grads, sw)
+                self._stale_mix(d, params, sw)
+        else:
+            payload = self._combine_update(d, params, opt_state, grads, with_metrics=met,
+                                           wire=wire_now)
+        return loss, aux, payload
 
     def make_async_train_step(self, loss_fn, has_aux: bool = False, **kwargs):
         """The asynchronous train step of
@@ -1326,6 +1571,11 @@ class _WindowOptimizer:
             )
         comm_now = self._step_count % k == k - 1
         self._step_count += 1
+        return col_ops._enqueue(
+            "window_optimizer_step" if comm_now else "window_optimizer_step_local",
+            self._step_body, win, opt_state, grads, comm_now)
+
+    def _step_body(self, win, opt_state, grads, comm_now: bool):
         views = self._leaf_views(win.value)
         cur = [v.to(dtype) for v, (_a, _b, _s, dtype) in zip(views, self._slots)]
         self.tx.apply_(cur, opt_state, grads)
@@ -1336,13 +1586,15 @@ class _WindowOptimizer:
             win_mod._note_local_step(win)
             return self.params(), opt_state
         ctx = ctx_mod.get_context()
+        # the exchange is this optimizer's, not a win_* op: it is not counted
+        # in the window-op series (as the JAX package's fused window step)
         if self.mode == "push_sum":
             sw, dst = self._pushsum_weights(ctx)
-            win_mod._exchange(ctx, win, "acc", None, sw, dst)
+            win_mod._exchange(ctx, win, "acc", None, sw, dst, hooks=False)
             update_sw, update_nw = win_mod._collect_weights(win)
         else:
             weights = self.dst_weights if self.mode == "put" else self.src_weights
-            win_mod._exchange(ctx, win, self.mode, None, self.self_weight, weights)
+            win_mod._exchange(ctx, win, self.mode, None, self.self_weight, weights, hooks=False)
             update_sw = update_nw = None
         # the exchange and the combine are one local step of the age lane,
         # as in the JAX package's fused window step

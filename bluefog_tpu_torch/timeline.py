@@ -1,0 +1,282 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""Tracing: a Chrome-trace timeline of the host's phases, and the
+``torch.profiler`` trace of the device's.
+
+Counterpart of ``bluefog_tpu/timeline.py``. The host phases (a
+collective's dispatch, a ``synchronize`` wait, an optimizer step, user
+activities, stall instants, metric counters) go to one JSON array per
+process, written by :class:`_PyWriter` under a lock (the watchdog thread
+writes its stall instants beside the training thread's spans).
+``timeline_init(path, profiler=True)`` also starts ``torch.profiler`` with
+the CPU and CUDA activities and writes its Chrome trace into
+``<path>.torch/`` at :func:`timeline_shutdown`: the kernels themselves.
+
+``BLUEFOG_TIMELINE=<prefix>`` opens ``<prefix><index>.json`` at ``init``
+(:func:`maybe_init_from_env`; the index is :func:`process_file_index`) and
+closes it at ``shutdown`` or at exit. The JAX package's native C++ writer
+(``native/timeline_writer.cc``) is a host speed-up it falls back from to
+the same Python writer; the port has only the Python writer.
+"""
+
+import contextlib
+import math
+import os
+import threading
+import time
+from typing import Optional
+
+__all__ = [
+    "timeline_init",
+    "timeline_shutdown",
+    "timeline_enabled",
+    "timeline_start_activity",
+    "timeline_end_activity",
+    "timeline_record_complete",
+    "timeline_record_instant",
+    "timeline_record_advisory",
+    "timeline_record_counter",
+    "timeline_context",
+    "timeline_now_us",
+    "process_file_index",
+    "maybe_init_from_env",
+]
+
+
+class _PyWriter:
+    """The Chrome-trace writer: one JSON array, records written by whoever
+    calls, the ``,\\n`` separator handshake under a lock so that records
+    from two threads never interleave."""
+
+    def __init__(self):
+        self._f = None
+        self._first = True
+        self._t0 = time.perf_counter_ns()
+        self._wlock = threading.Lock()
+
+    def bf_timeline_start(self, path: bytes) -> int:
+        with self._wlock:
+            if self._f is not None:
+                return 0
+            self._f = open(path.decode(), "w")
+            self._f.write("[\n")
+            self._first = True
+            return 1
+
+    def bf_timeline_now_us(self) -> int:
+        return (time.perf_counter_ns() - self._t0) // 1000
+
+    def _emit(self, obj: str) -> None:
+        with self._wlock:
+            if self._f is None:
+                return
+            if not self._first:
+                self._f.write(",\n")
+            self._first = False
+            self._f.write(obj)
+
+    @staticmethod
+    def _esc(b: bytes) -> str:
+        return b.decode().replace("\\", "\\\\").replace('"', '\\"')
+
+    def bf_timeline_record(self, name, cat, ph, pid, tid) -> None:
+        ph = ph.decode()
+        suffix = ', "s": "p"' if ph == "i" else ""  # an instant needs a scope
+        self._emit(
+            '{"name": "%s", "cat": "%s", "ph": "%s", "ts": %d, '
+            '"pid": %d, "tid": %d%s}'
+            % (self._esc(name), self._esc(cat), ph, self.bf_timeline_now_us(), pid, tid,
+               suffix)
+        )
+
+    def bf_timeline_record_counter(self, name, cat, pid, tid, value):
+        self._emit(
+            '{"name": "%s", "cat": "%s", "ph": "C", "ts": %d, '
+            '"pid": %d, "tid": %d, "args": {"value": %g}}'
+            % (self._esc(name), self._esc(cat), self.bf_timeline_now_us(), pid, tid, value)
+        )
+
+    def bf_timeline_record_complete(self, name, cat, pid, tid, ts, dur):
+        self._emit(
+            '{"name": "%s", "cat": "%s", "ph": "X", "ts": %d, "dur": %d, '
+            '"pid": %d, "tid": %d}'
+            % (self._esc(name), self._esc(cat), ts, dur, pid, tid)
+        )
+
+    def bf_timeline_stop(self) -> None:
+        with self._wlock:
+            if self._f is not None:
+                self._f.write("\n]\n")
+                self._f.close()
+                self._f = None
+
+
+_writer = _PyWriter()
+_active = False
+_profiler = None  # the running torch.profiler.profile, with its output dir
+_profiler_dir: Optional[str] = None
+_env_owned = False  # opened from BLUEFOG_TIMELINE by init(): closed by shutdown()
+
+
+def timeline_init(file_path: str, profiler: bool = False) -> bool:
+    """Start the timeline at ``file_path`` (reference ``bf.timeline_init``);
+    False when one is already open. ``profiler=True`` also starts
+    ``torch.profiler`` (CPU and, with a card, CUDA activities), whose
+    Chrome trace goes to ``<file_path>.torch/`` at shutdown."""
+    global _active, _profiler, _profiler_dir, _env_owned
+    if not _writer.bf_timeline_start(file_path.encode()):
+        return False
+    _active = True
+    _env_owned = False  # a timeline the user opens is theirs to close
+    if profiler:
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        _profiler_dir = file_path + ".torch"
+        _profiler = torch.profiler.profile(activities=acts)
+        _profiler.start()
+    return True
+
+
+def timeline_shutdown() -> bool:
+    """Flush and close the timeline (and stop the profiler, writing its
+    trace); False when none is open."""
+    global _active, _profiler, _profiler_dir, _env_owned
+    if not _active:
+        return False
+    if _profiler is not None:
+        _profiler.stop()
+        os.makedirs(_profiler_dir, exist_ok=True)
+        _profiler.export_chrome_trace(
+            os.path.join(_profiler_dir, f"trace_{process_file_index()}.json"))
+        _profiler = _profiler_dir = None
+    _writer.bf_timeline_stop()
+    _active = False
+    _env_owned = False
+    return True
+
+
+def timeline_env_owned() -> bool:
+    """True when the open timeline came from ``BLUEFOG_TIMELINE`` at
+    ``init`` (``shutdown`` then closes it)."""
+    return _active and _env_owned
+
+
+def timeline_enabled() -> bool:
+    return _active
+
+
+def timeline_start_activity(name: str, activity: str, rank: int = 0, tid: int = 0) -> bool:
+    """Open an activity span (``ph:"B"``)."""
+    if not _active:
+        return False
+    _writer.bf_timeline_record(name.encode(), activity.encode(), b"B", rank, tid)
+    return True
+
+
+def timeline_end_activity(name: str, activity: str = "", rank: int = 0, tid: int = 0) -> bool:
+    """Close the most recent span of ``name`` (``ph:"E"``)."""
+    if not _active:
+        return False
+    _writer.bf_timeline_record(name.encode(), activity.encode(), b"E", rank, tid)
+    return True
+
+
+def timeline_record_complete(name: str, activity: str, start_us: int, dur_us: int,
+                             rank: int = 0, tid: int = 0) -> bool:
+    """One complete span (``ph:"X"``) with explicit timing."""
+    if not _active:
+        return False
+    _writer.bf_timeline_record_complete(name.encode(), activity.encode(), rank, tid,
+                                        start_us, dur_us)
+    return True
+
+
+def timeline_record_instant(name: str, activity: str = "", rank: int = 0, tid: int = 0) -> bool:
+    """One instant event (``ph:"i"``), e.g. a watchdog stall."""
+    if not _active:
+        return False
+    _writer.bf_timeline_record(name.encode(), activity.encode(), b"i", rank, tid)
+    return True
+
+
+def timeline_record_advisory(kind: str, detail: Optional[dict] = None, rank: int = 0) -> bool:
+    """One instant for an advisory, named ``doctor:<kind> <k=v ...>``."""
+    parts = "".join(
+        f" {k}={v}" for k, v in sorted((detail or {}).items())
+        if isinstance(v, (int, float, str, list, tuple))
+    )
+    return timeline_record_instant(f"doctor:{kind}{parts}", "ADVISORY", rank)
+
+
+def timeline_record_counter(name: str, value: float, activity: str = "COUNTER",
+                            rank: int = 0, tid: int = 0) -> bool:
+    """One counter event (``ph:"C"``): ``name`` at ``value`` now. A
+    non-finite value is dropped (returns False): it would make the whole
+    file invalid JSON."""
+    value = float(value)
+    if not _active or not math.isfinite(value):
+        return False
+    _writer.bf_timeline_record_counter(name.encode(), activity.encode(), rank, tid, value)
+    return True
+
+
+def timeline_now_us() -> int:
+    return int(_writer.bf_timeline_now_us())
+
+
+@contextlib.contextmanager
+def timeline_context(name: str, activity: str, rank: int = 0):
+    """Span context manager (reference ``bf.timeline_context``)."""
+    timeline_start_activity(name, activity, rank)
+    try:
+        yield
+    finally:
+        timeline_end_activity(name, activity, rank)
+
+
+def process_file_index() -> int:
+    """The index in per-process artifact names (``<prefix><index>.json``,
+    ``flight_<index>.json``): ``BLUEFOG_PROCESS_ID`` when set, else the
+    ``torch.distributed`` rank when a process group is up, else 0."""
+    env = os.environ.get("BLUEFOG_PROCESS_ID")
+    if env is not None:
+        try:
+            return int(env.strip())
+        except ValueError:
+            from bluefog_tpu_torch.logging_util import logger
+
+            logger.warning("BLUEFOG_PROCESS_ID=%r is not an integer; using the "
+                           "torch.distributed rank for artifact file naming", env)
+    try:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return int(dist.get_rank())
+    except Exception:
+        pass
+    return 0
+
+
+def maybe_init_from_env() -> bool:
+    """Honour ``BLUEFOG_TIMELINE=<prefix>``: open
+    ``<prefix><process_file_index()>.json`` (creating its directory) and
+    close it at exit if nothing closes it before."""
+    import atexit
+
+    global _env_owned
+    prefix = os.environ.get("BLUEFOG_TIMELINE")
+    if not prefix or _active:
+        return False
+    parent = os.path.dirname(prefix)
+    if parent:
+        try:
+            os.makedirs(parent, exist_ok=True)
+        except OSError:
+            pass
+    ok = timeline_init(prefix + f"{process_file_index()}.json")
+    if ok:
+        _env_owned = True
+        atexit.register(timeline_shutdown)
+    return ok

@@ -44,8 +44,15 @@ local window steps (``clock``: every exchange, update, local adapt of a
 window optimizer and asynchronous tick), stamps each buffer slot with the
 clock of its last write (``slot_written``) and each slot's oldest
 uncollected accumulate with its clock (``mass_birth``, -1 for none);
-:func:`get_win_age` reads them. The staleness observatory, metrics and
-flight hooks are not ported here.
+:func:`get_win_age` reads them.
+
+Observability, as in the JAX package: each exchange of the ``win_*`` ops
+counts ``bluefog.window_ops.<mode>`` and ``bluefog.window_wire_bytes`` and
+leaves a ``window_op`` flight record, and so does each ``win_update``
+(``bluefog.window_ops.update``); the window optimizers' and the
+asynchronous engine's own exchanges are counted by their own series, as
+the JAX programs are. The rounds follow ``BLUEFOG_PLAN_METHOD``. The
+staleness observatory is not ported (ROADMAP A13b).
 """
 
 import contextlib
@@ -57,7 +64,8 @@ import numpy as np
 import torch
 
 from bluefog_tpu_torch import context as ctx_mod
-from bluefog_tpu_torch.collective import inner, kernels
+from bluefog_tpu_torch import flight, metrics
+from bluefog_tpu_torch.collective import compiler, inner, kernels
 from bluefog_tpu_torch.collective.ops import _check_worker_tensor, worker_values
 from bluefog_tpu_torch.collective.plan import perms_from_edges
 from bluefog_tpu_torch.topology import GetRecvWeights
@@ -376,12 +384,13 @@ def _lowered_exchange(ctx, win: _Window, w_edges: np.ndarray) -> _Lowering:
     structure, window topology): training loops repeat one pattern, and
     weight values are not part of the key."""
     mask = w_edges != 0
-    key = ("win_lowering", win.in_neighbors, np.packbits(mask).tobytes())
+    method = compiler.plan_method()
+    key = ("win_lowering", win.in_neighbors, np.packbits(mask).tobytes(), method)
     cached = ctx.op_cache.get(key)
     if cached is None:
         size = w_edges.shape[0]
         edges = tuple((int(i), int(j)) for i, j in zip(*np.nonzero(mask)))
-        perms = perms_from_edges(edges, size)
+        perms = perms_from_edges(edges, size, method=method)
         table = _slot_table(win, perms)
         src = np.full((len(perms), size), -1, np.int32)
         for r, perm in enumerate(perms):
@@ -485,8 +494,10 @@ def _exchange_core(mode: str, low: _Lowering, update_p: bool, max_deg: int,
 
 
 def _dispatch_exchange(win: _Window, ctx, mode: str, w_edges, participating,
-                       self_weight, x) -> None:
-    """Run one exchange on the window's lanes and note it in the age lane."""
+                       self_weight, x, hooks: bool = True) -> None:
+    """Run one exchange on the window's lanes and note it in the age lane;
+    ``hooks`` counts it in the window-op series and the flight recorder
+    (after the checks: a refused exchange counts nothing)."""
     wire = window_wire()
     if wire is not None and not win.dtype.is_floating_point:
         raise ValueError(
@@ -502,8 +513,15 @@ def _dispatch_exchange(win: _Window, ctx, mode: str, w_edges, participating,
                 f"window {win.name!r} holds shape {win.shape}, got "
                 f"{tuple(x.shape[1:])}"
             )
+    if hooks:
+        metrics.counter(f"bluefog.window_ops.{mode}").inc()
+        flight.record("window_op", op=mode, window=win.name)
     self_vec = _self_weight_vec(ctx, self_weight, participating)
     low = _lowered_exchange(ctx, win, w_edges)
+    if hooks:
+        n_elems = int(np.prod(win.shape)) if win.shape else 1
+        metrics.counter("bluefog.window_wire_bytes").inc(metrics.wire_bytes_per_step(
+            {win.dtype.itemsize: n_elems}, len(low.perms), wire))
     dev = ctx.device
     win.value, win.buffers, win.versions, win.p, win.p_buffers = _exchange_core(
         mode, low, ctx.p_enabled(), win.max_deg,
@@ -514,16 +532,18 @@ def _dispatch_exchange(win: _Window, ctx, mode: str, w_edges, participating,
     _note_exchange_age(win, low.slot_table, mode)
 
 
-def _exchange(ctx, win: _Window, mode: str, x=None, self_weight=None, weights=None) -> None:
+def _exchange(ctx, win: _Window, mode: str, x=None, self_weight=None, weights=None,
+              hooks: bool = True) -> None:
     """A ``'put'`` or ``'acc'`` exchange under per-rank ``dst_weights``, or
     a ``'get'`` under receiver-keyed ``src_weights`` (``weights``), as the
     ``win_*`` ops resolve them."""
     if mode == "get":
         w_recv, participating = _per_rank_edges(ctx, weights, win.in_neighbors, "src_weights")
-        _dispatch_exchange(win, ctx, "get", w_recv.T, np.zeros_like(participating), None, None)
+        _dispatch_exchange(win, ctx, "get", w_recv.T, np.zeros_like(participating), None, None,
+                           hooks)
     else:
         w, participating = _per_rank_edges(ctx, weights, win.out_neighbors, "dst_weights")
-        _dispatch_exchange(win, ctx, mode, w, participating, self_weight, x)
+        _dispatch_exchange(win, ctx, mode, w, participating, self_weight, x, hooks)
 
 
 # -- put / accumulate / get ------------------------------------------------------
@@ -539,10 +559,14 @@ def _completed(ctx, result: torch.Tensor) -> int:
 
 
 def win_wait(handle: int) -> torch.Tensor:
-    """The result of a ``*_nonblocking`` window op (already complete)."""
+    """The result of a ``*_nonblocking`` window op (already complete); a
+    host blocking point like :func:`bluefog_tpu_torch.synchronize`."""
+    from bluefog_tpu_torch.collective.ops import _blocking_wait
+
     handles = ctx_mod.get_context().handles
     if handle not in handles:
         raise ValueError(f"unknown handle {handle}: already waited on")
+    _blocking_wait(handle, None)
     return handles.pop(handle)
 
 
@@ -737,6 +761,8 @@ def win_update(name: str = None, self_weight=None, neighbor_weights=None,
     ``clone`` returns a copy rather than the window's own tensor."""
     ctx = ctx_mod.get_context()
     win = _get_win(ctx, name)
+    metrics.counter("bluefog.window_ops.update").inc()
+    flight.record("window_op", op="update", window=win.name)
     _dispatch_update(win, ctx, self_weight, neighbor_weights, reset)
     return win.value.clone() if clone else win.value
 

@@ -59,6 +59,31 @@ Phases, one line each; any failure exits non-zero:
                give the same bits, on a line with both runs' optimizer ms
                and encode/decode_accumulate launches a step (the bucketed
                run's launches count with the tiers');
+7a. observability -- the same ResNet50 and graph through
+               ``opt.make_train_step``, ATC on int8 and int4_ef
+               (``OBS_TIERS``), with ``BLUEFOG_METRICS=1`` at interval 1 for
+               1 + 3 steps (every step runs the sub-gossip probe; the
+               timeline and the flight recorder on), and with metrics off
+               and at interval 10 for 1 + 10 steps (a whole interval whose
+               last step is sampled): the parameters, momentum and EF copies
+               bitwise those of metrics off after as many steps; the probe's
+               output bitwise the first columns of the step's combine; the
+               ``bluefog.gossip.*`` gauges folded from the pinned copy within
+               ``OBS_GAUGE_TOL`` of the fold of a CPU copy of the same
+               payload, and ``param_norm`` and ``disagreement`` within it of
+               float64 sums over the last step's own combine input and
+               output (not the payload); each sampled
+               step launching exactly the probe's kernels more (int8: one
+               ``encode`` and one ``decode_accumulate``; int4_ef: one
+               ``encode_diff`` and a ``decode_add`` a round); the timeline
+               parses, with the ``ENQUEUE`` spans and ``ph:"C"`` counters; a
+               flight dump parses with the JAX package's keys; a
+               ``synchronize`` behind ``torch.cuda._sleep`` past the
+               watchdog's deadline increments ``bluefog.stalls`` and
+               writes a dump; one line per tier with step s and optimizer
+               ms off and at interval 1 (medians of 3 steps), off and at
+               interval 10 (means over the 10-step interval); files under
+               ``build/observability``;
 8. train    -- the main path, ResNet50 (1000 classes, bf16 compute) on 8
                virtual workers, 64 images of 224x224 each, seeded synthetic
                data, ``sgd(0.1, 0.9)`` on the default Exp graph, in three
@@ -86,8 +111,10 @@ Phases, one line each; any failure exits non-zero:
                advisories' slow ranks); every loss finite, the p mass 8 to
                1e-5, over the int8 run a participation ratio of at least
                1 - 1.5/8, ``stale_drops > 0`` and an ``async_staleness``
-               advisory naming rank 6 and only its edges; ``encode`` and
-               ``decode`` launched on every int8 and int4 tick (counts
+               advisory naming rank 6 and only its edges; the
+               ``bluefog.async.ticks`` and ``.local_steps`` counters and the
+               ``.participants`` gauge equal to the engine's own summary;
+               ``encode`` and ``decode`` launched on every int8 and int4 tick (counts
                zeroed just before each wire's ticks, read just after); one
                profiled int8 tick;
 11. async check -- bench.py::run_async's problem (quad loss, dim 4096,
@@ -175,6 +202,11 @@ Phases, one line each; any failure exits non-zero:
                device time); then block 0's
                ring attention at full size against the plain versions on
                the whole 8192-token sequence;
+16a. examples -- the nine invocations of ``examples/run_all_examples.sh``
+               on the port's ``examples/torch_<name>.py`` with the same
+               arguments, as subprocesses started together on the card:
+               each exits 0 (mnist's gate: 90% accuracy), a line each with
+               its seconds and last line;
 17. kernels  -- the flash kernels at the transformer's shape, timed beside
                their operation bound, their plain versions,
                ``F.scaled_dot_product_attention`` (the yardstick only:
@@ -211,7 +243,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 import bluefog_tpu_torch as bft
-from bluefog_tpu_torch import _build
+from bluefog_tpu_torch import _build, flight, metrics, watchdog
 from bluefog_tpu_torch import topology as topo
 from bluefog_tpu_torch.collective import inner, kernels
 from bluefog_tpu_torch.collective.plan import plan_from_topology
@@ -332,6 +364,8 @@ PATH_KERNELS = {
     "dryrun": ("flash_fwd",),
     # each round's f32 cotangent is split once for both backward kernels
     "long-context": FLASH_KERNELS + ("flash_split_cotangent",),
+    # the ResNet50 steps with the metrics probe on: atc/int8 and atc/int4_ef
+    "observability": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
 }
 
 
@@ -957,6 +991,398 @@ def phase_train_step(device, sm, images, labels, warmup=1, timed=2, smi=""):
     return counts, numbers
 
 
+# the observability phase: (tier, wire); metrics on at interval 1 (every
+# step sampled, the timeline and the flight recorder on) takes 1 warm-up and
+# 3 timed steps; metrics off and metrics on at interval 10 take 1 warm-up and
+# OBS_TIMED10 timed steps, a whole interval, whose last step is the sampled
+# one; metrics off is read after OBS_WARMUP + OBS_TIMED steps as well
+OBS_TIERS = (("atc/int8", "int8"), ("atc/int4_ef", "int4_ef"))
+OBS_WARMUP, OBS_TIMED, OBS_TIMED10 = 1, 3, 10
+OBS_GAUGE_TOL = 1e-6  # relative: the card's gauges against the CPU fold
+OBS_ROOT = "build/observability"
+# the top-level keys of the JAX package's flight dump (bluefog_tpu/flight.py
+# _build_dump, without an elastic session)
+FLIGHT_KEYS = ("version", "reason", "process_index", "clock", "world", "comm_plans",
+               "fault_events", "advisories", "autotune_decisions", "slo_snapshots",
+               "metrics", "events", "dump_history")
+
+
+def obs_env(metrics_on, interval=1):
+    """The metrics knobs of one run."""
+    return {"BLUEFOG_METRICS": "1" if metrics_on else "0",
+            "BLUEFOG_METRICS_INTERVAL": str(interval)}
+
+
+def obs_run(device, sm, images, labels, stats0, params0, wire, env, warmup=OBS_WARMUP,
+            timed=OBS_TIMED, snap=None):
+    """``warmup + timed`` ATC steps on ``wire`` through
+    ``opt.make_train_step(sm.worker_loss)`` under ``env``; the optimizer's
+    part (``_combine_update``, the probe included) timed between two
+    synchronisations. Returns the timed steps' seconds and every step's
+    optimizer seconds, the final parameters, momentum and EF copies, the
+    same after ``snap`` steps (when given), the first
+    ``metrics.sample_elems_cap()`` columns of the last step's combine input
+    (the ATC parameters just before the gossip), each step's launches and
+    the optimizer."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        sm.load_buffers(stats0)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = wire
+        params = params0.clone()
+        state = opt.init(params)
+        step = opt.make_train_step(sm.worker_loss)
+        combine, opt_s = opt._combine_update, []
+
+        def timed_combine(*args, **kwargs):
+            sync(device)
+            t0 = time.perf_counter()
+            out = combine(*args, **kwargs)
+            sync(device)
+            opt_s.append(time.perf_counter() - t0)
+            return out
+
+        opt._combine_update = timed_combine
+        drain, drain_s = opt._drain_after_sample, []
+
+        def timed_drain(*args):
+            t0 = time.perf_counter()
+            drain(*args)
+            drain_s.append(time.perf_counter() - t0)
+
+        opt._drain_after_sample = timed_drain
+        gossip, last_input = opt._gossip, []
+
+        def capture_gossip(d, params):
+            if len(opt_s) == warmup + timed - 1:  # the last step
+                last_input.append(params[:, :metrics.sample_elems_cap()].clone())
+            return gossip(d, params)
+
+        opt._gossip = capture_gossip
+        workers = torch.arange(SIZE)
+        times, launches, snapped = [], [], None
+        for i in range(warmup + timed):
+            before = launch_counts()
+            sync(device)
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, images, labels, workers)
+            sync(device)
+            if i >= warmup:
+                times.append(time.perf_counter() - t0)
+            after = launch_counts()
+            launches.append({k: after[k] - before[k] for k in after})
+            if not torch.isfinite(loss).all():
+                raise AssertionError(f"observability {wire}: non-finite loss")
+            if i + 1 == snap:
+                snapped = {"params": params.clone(), "state": state.clone(),
+                           "ef": [t.clone() for pair in (opt._ef or ()) for t in pair]}
+        del opt._combine_update, opt._drain_after_sample, opt._gossip
+        out = {"times": times, "opt_s": opt_s,
+               # the host's fold of the previous sample and the start of this
+               # one's copy (0 when no step was sampled)
+               "drain_ms": 1e3 * statistics.median(drain_s[warmup:] or [0.0]),
+               "params": params, "state": state,
+               "ef": [t.clone() for pair in (opt._ef or ()) for t in pair],
+               "snap": snapped, "last_input": last_input[0] if last_input else None,
+               "launches": launches, "opt": opt}
+        return out
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def obs_gauges():
+    """The probe's ``bluefog.gossip.*`` gauges (not the accounting's rounds)."""
+    return {k: v["value"] for k, v in metrics.snapshot().items()
+            if k.startswith("bluefog.gossip.") and k != "bluefog.gossip.rounds"}
+
+
+def obs_stall(device, root):
+    """One ``synchronize`` that waits behind ``torch.cuda._sleep`` past the
+    watchdog's deadline: ``bluefog.stalls`` must rise by one and the flight
+    recorder must write a dump naming the wait. Returns ``(seconds waited,
+    dump path)``."""
+    stalls = metrics.counter("bluefog.stalls").value
+    x = torch.ones(SIZE, 1 << 10, device=device)
+    watchdog.set_stall_timeout(0.25)
+    try:
+        torch.cuda._sleep(int(2e9))  # about a second of a busy SM at ~1.8 GHz
+        handle = bft.allreduce_nonblocking(x)
+        t0 = time.perf_counter()
+        bft.synchronize(handle)
+        waited = time.perf_counter() - t0
+        time.sleep(0.3)  # the watchdog polls every 0.0625 s at this deadline
+    finally:
+        watchdog.set_stall_timeout(60)
+    path = os.path.join(root, "flight", "flight_0.json")
+    if metrics.counter("bluefog.stalls").value != stalls + 1:
+        raise AssertionError(f"observability: a {waited:.2f} s synchronize past a 0.25 s "
+                             f"deadline counted {metrics.counter('bluefog.stalls').value - stalls}"
+                             " stalls")
+    dump = json.load(open(path))
+    if dump["reason"] != f"stall:synchronize(handle {handle})":
+        raise AssertionError(f"observability: the stall dump's reason is {dump['reason']!r}")
+    return waited, path
+
+
+def phase_observability(device, sm, images, labels, tiers=OBS_TIERS, root=OBS_ROOT, smi=""):
+    """The observability base at the main path's width: ResNet50 on the
+    weighted Exp2 graph through ``opt.make_train_step``, ATC on each wire
+    of ``tiers``, ``OBS_WARMUP + OBS_TIMED10`` steps with metrics off, then
+    ``OBS_WARMUP + OBS_TIMED`` with ``BLUEFOG_METRICS=1`` at interval 1
+    (every step runs the probe) with the timeline and the flight recorder
+    on, then ``OBS_WARMUP + OBS_TIMED10`` at interval 10 (the timed window
+    is one whole interval, its last step sampled). Gates: the parameters,
+    momentum and EF copies of metrics on bitwise those of metrics off
+    after as many steps (cuDNN deterministic); the last step's probe
+    output bitwise the first columns of that step's combine (the ATC
+    parameters); each ``bluefog.gossip.*`` gauge, folded from the pinned
+    copy, within ``OBS_GAUGE_TOL`` of the fold of a synchronous CPU copy
+    of the same payload, and ``param_norm`` and ``disagreement`` within it
+    of sums over the last step's combine input (copied just before its
+    gossip) and output; at interval 10 exactly the warm-up and the last
+    timed step sampled; each sampled step launching exactly the probe's
+    kernels more than the step with metrics off (int8: one ``encode`` and
+    one ``decode_accumulate``; int4_ef: one ``encode_diff`` and a
+    ``decode_add`` a round); the timeline parses with the ``ENQUEUE``
+    spans and ``ph:"C"`` counters; a flight dump parses with the JAX
+    package's keys; on the card a forced stall. Returns the launch counts
+    of the phase (zeroed just before each tier, read just after) and the
+    numbers."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    os.environ["BLUEFOG_FLIGHT_DIR"] = os.path.join(root, "flight")
+    try:
+        bft.init(size=SIZE, device=device)
+        bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+        rounds = len(bft.get_context().static_plan().rounds)
+        stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+        params0 = sm.replicate()
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        counts = {k: 0 for k in launch_counts()}
+        numbers = {}
+        try:
+            for name, wire in tiers:
+                reset_launch_counts()
+                off = obs_run(device, sm, images, labels, stats0, params0, wire, obs_env(False),
+                              timed=OBS_TIMED10, snap=OBS_WARMUP + OBS_TIMED)
+                metrics.reset()
+                trace = os.path.join(root, f"trace_{wire}.json")
+                bft.timeline_init(trace)
+                on = obs_run(device, sm, images, labels, stats0, params0, wire,
+                             obs_env(True, 1))
+                opt = on["opt"]
+                pairs = opt._last_probe
+                payload = metrics._payload_map(opt._last_payload, lambda t: t.cpu())
+                metrics.flush()  # the pinned copy, after its event
+                card = obs_gauges()
+                cpu = metrics.fold_device_payload(payload, wire=wire, export=False)
+                bft.timeline_shutdown()
+                on10 = obs_run(device, sm, images, labels, stats0, params0, wire,
+                               obs_env(True, 10), timed=OBS_TIMED10)
+                counts = {k: counts[k] + v for k, v in launch_counts().items()}
+                # the training bits
+                short = off["snap"]  # metrics off after as many steps as interval 1 took
+                for what, a, b in (("parameters", short["params"], on["params"]),
+                                   ("momentum", short["state"], on["state"]),
+                                   ("parameters at interval 10", off["params"], on10["params"]),
+                                   ("momentum at interval 10", off["state"], on10["state"])):
+                    if not torch.equal(bits(a), bits(b)):
+                        raise AssertionError(f"observability {name}: metrics on changed the "
+                                             f"{what} (max diff {float((a - b).abs().max()):.3g})")
+                for what, a, b in (("", short["ef"], on["ef"]),
+                                   (" at interval 10", off["ef"], on10["ef"])):
+                    if len(a) != len(b) or not all(torch.equal(bits(u), bits(v))
+                                                   for u, v in zip(a, b)):
+                        raise AssertionError(f"observability {name}: metrics on changed the "
+                                             f"EF copies{what}")
+                # the probe is the restriction of the full combine
+                sub, y, scale, _ef = pairs[0]
+                keep = y.shape[1]
+                if not torch.equal(bits(y), bits(on["params"][:, :keep])):
+                    raise AssertionError(f"observability {name}: the probe's output is not the "
+                                         f"first {keep} columns of the combine")
+                # the card's gauges against the CPU fold
+                bad = {k: (card[k], cpu[k[len("bluefog.gossip."):]]) for k in card
+                       if not math.isclose(card[k], cpu[k[len("bluefog.gossip."):]],
+                                           rel_tol=OBS_GAUGE_TOL, abs_tol=1e-30)}
+                if bad or not card:
+                    raise AssertionError(f"observability {name}: gauges against the CPU fold "
+                                         f"{bad or card}")
+                # two gauges against the last step's own tensors, not the
+                # payload: its combine input, copied just before the gossip,
+                # and its output (the ATC parameters), each scaled by the
+                # square root of the coverage in f32 as the payload is, the
+                # per-worker sums in float64 on the card
+                sq = torch.tensor(math.sqrt(on["params"].shape[1] / keep), device=device)
+                x = (on["last_input"][:, :keep] * sq).double()
+                y = (on["params"][:, :keep] * sq).double()
+                own = {"bluefog.gossip.param_norm": (x * x).sum(1),
+                       "bluefog.gossip.disagreement": ((y - x) ** 2).sum(1)}
+                own = {k: float(v.sqrt().mean()) for k, v in own.items()}
+                bad = {k: (card[k], v) for k, v in own.items()
+                       if not math.isclose(card[k], v, rel_tol=OBS_GAUGE_TOL)}
+                if bad:
+                    raise AssertionError(f"observability {name}: gauges against the step's "
+                                         f"own tensors {bad}")
+                # launches: the probe's kernels on every sampled step
+                want = ({"encode": 1, "decode_accumulate": 1} if wire == "int8"
+                        else {"encode_diff": 1, "decode_add": rounds})
+                extra = [{k: a[k] - b[k] for k in a if a[k] != b[k]}
+                         for a, b in zip(on["launches"], off["launches"])]
+                if device.type == "cuda" and any(e != want for e in extra):
+                    raise AssertionError(f"observability {name}: sampled steps launched {extra} "
+                                         f"more than steps with metrics off, not {want}")
+                # interval 10: the timed window holds exactly one sampled step
+                extra10 = [{k: a[k] - b[k] for k in a if a[k] != b[k]}
+                           for a, b in zip(on10["launches"], off["launches"])]
+                sampled10 = [i for i, e in enumerate(extra10) if e]
+                if device.type == "cuda" and sampled10 != [0, OBS_WARMUP + OBS_TIMED10 - 1]:
+                    raise AssertionError(f"observability {name}: at interval 10 the sampled "
+                                         f"steps were {sampled10}, not the warm-up and the "
+                                         "last timed step")
+                # the timeline
+                events = json.load(open(trace))
+                spans = [e for e in events if e.get("cat") == "ENQUEUE"
+                         and e["name"] == "fused_train_step"]
+                counters = [e for e in events if e.get("ph") == "C"]
+                if len(spans) != OBS_WARMUP + OBS_TIMED or not counters:
+                    raise AssertionError(f"observability {name}: the timeline holds "
+                                         f"{len(spans)} fused_train_step spans and "
+                                         f"{len(counters)} counter events")
+                w = OBS_WARMUP
+                numbers[name] = dict(
+                    # medians over interval 1's timed steps and the same
+                    # steps of metrics off
+                    off=(statistics.median(off["times"][:OBS_TIMED]),
+                         1e3 * statistics.median(off["opt_s"][w:w + OBS_TIMED])),
+                    on=(statistics.median(on["times"]), 1e3 * statistics.median(on["opt_s"][w:])),
+                    # means over a whole interval of 10 steps, one sampled
+                    off10=(statistics.mean(off["times"]), 1e3 * statistics.mean(off["opt_s"][w:])),
+                    on10=(statistics.mean(on10["times"]),
+                          1e3 * statistics.mean(on10["opt_s"][w:])),
+                    drain_ms=on["drain_ms"], own=own,
+                    extra=extra[-1], keep=keep,
+                    scale=scale, gauges=card, trace_events=len(events),
+                    counters=len(counters))
+                for run in (off, on, on10):
+                    run["opt"].free()
+                del off, on, on10, opt, pairs, payload
+            # the flight recorder
+            path = bft.flight_dump()
+            dump = json.load(open(path))
+            missing = [k for k in FLIGHT_KEYS if k not in dump]
+            kinds = {e["kind"] for e in dump["events"]}
+            if missing or not {"session_start", "step_begin", "step_dispatched",
+                               "plan_compile"} <= kinds:
+                raise AssertionError(f"observability: the flight dump lacks {missing} or its "
+                                     f"events are {sorted(kinds)}")
+            numbers["flight"] = dict(path=path, events=len(dump["events"]), kinds=sorted(kinds))
+            if device.type == "cuda":
+                numbers["stall"] = obs_stall(device, root)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+            sm.load_buffers(stats0)
+    finally:
+        os.environ.pop("BLUEFOG_FLIGHT_DIR", None)
+        bft.shutdown()
+        bft.init(size=SIZE, device=device)
+    for name, row in numbers.items():
+        if name in ("flight", "stall"):
+            continue
+        (s0, o0), (s1, o1) = row["off"], row["on"]
+        (m0, p0), (m10, p10) = row["off10"], row["on10"]
+        log("observability", f"{name}: metrics off step {s0:.4f} s, optimizer {o0:.2f} ms; "
+                             f"on at interval 1 step {s1:.4f} s ({100 * (s1 / s0 - 1):+.2f}%), "
+                             f"optimizer {o1:.2f} ms ({100 * (o1 / o0 - 1):+.2f}%) (medians of "
+                             f"{OBS_TIMED} steps; drain {row['drain_ms']:.2f} ms); over a whole "
+                             f"interval of {OBS_TIMED10} steps (one sampled) metrics off mean "
+                             f"step {m0:.4f} s, optimizer {p0:.2f} ms; on at interval 10 mean "
+                             f"step {m10:.4f} s ({100 * (m10 / m0 - 1):+.3f}%), optimizer "
+                             f"{p10:.2f} ms ({100 * (p10 / p0 - 1):+.2f}%); probe "
+                             f"{row['keep']} columns (scale {row['scale']:.2f}), launches a "
+                             f"sampled step adds {row['extra']}; parameters, momentum and EF "
+                             f"copies bitwise metrics off; probe output bitwise the combine's; "
+                             f"gauges within {OBS_GAUGE_TOL:g} of the CPU fold "
+                             f"{ {k[len('bluefog.gossip.'):]: round(v, 6) for k, v in row['gauges'].items()} }"
+                             f" and param_norm, disagreement within {OBS_GAUGE_TOL:g} of the "
+                             f"step's own tensors in float64 "
+                             f"{ {k[len('bluefog.gossip.'):]: round(v, 6) for k, v in row['own'].items()} }; "
+                             f"timeline {row['trace_events']} events, {row['counters']} counters; "
+                             f"on {smi}")
+    log("observability", f"flight dump {numbers['flight']['path']}: "
+                         f"{numbers['flight']['events']} events, kinds "
+                         f"{numbers['flight']['kinds']}")
+    if "stall" in numbers:
+        waited, path = numbers["stall"]
+        log("observability", f"forced stall: synchronize waited {waited:.2f} s behind "
+                             f"torch.cuda._sleep past a 0.25 s deadline; bluefog.stalls +1, "
+                             f"dump {path}")
+    return counts, numbers
+
+
+# examples/run_all_examples.sh's invocations, on the port's examples
+EXAMPLES = (
+    ("torch_average_consensus.py",),
+    ("torch_decentralized_optimization.py",),
+    ("torch_long_context.py",),
+    ("torch_checkpoint_resume.py",),
+    ("torch_mnist.py", "--dist-optimizer", "neighbor_allreduce", "--epochs", "80"),
+    ("torch_mnist.py", "--dist-optimizer", "gradient_allreduce", "--epochs", "80"),
+    ("torch_mnist.py", "--dist-optimizer", "win_put", "--epochs", "80"),
+    ("torch_benchmark.py", "--model", "mlp", "--num-iters", "5"),
+    ("torch_benchmark.py", "--model", "mlp", "--dynamic", "--num-iters", "5"),
+)
+EXAMPLE_TIMEOUT = 300
+
+
+def phase_examples(device, examples=EXAMPLES, timeout=EXAMPLE_TIMEOUT, smi=""):
+    """Every invocation of ``examples/run_all_examples.sh`` on the port's
+    ``examples/torch_<name>.py`` with the same arguments, as subprocesses
+    started together on ``device``: each must exit 0 (mnist's own gate is
+    90% accuracy) within ``timeout`` seconds. One line each with its
+    seconds and its last line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BLUEFOG_")}
+
+    def run(argv):
+        start = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(root, argv[0]), "--device", device.type,
+                 *argv[1:]], capture_output=True, text=True, env=env, timeout=timeout)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = "timeout", e.stdout or "", e.stderr or ""
+            out, err = (t.decode() if isinstance(t, bytes) else t for t in (out, err))
+        return argv, rc, time.perf_counter() - start, out, err
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(examples)) as pool:
+        results = list(pool.map(run, examples))
+    failed = []
+    for argv, rc, took, out, err in results:
+        lines = out.strip().splitlines() or ["(no output)"]
+        body = [line for line in lines if line.startswith("[")]
+        log("examples", f"{' '.join(argv)}: rc {rc}, {took:.1f} s; "
+                        f"{body[-1] if body and body[-1] != lines[-1] else ''} | {lines[-1]}; "
+                        f"on {smi}")
+        if rc != 0:
+            failed.append((argv, rc, err.strip().splitlines()[-5:]))
+    log("examples", f"{len(examples)} invocations together in {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+
+
 def build_trainer(device, stage_sizes=None, num_filters=64, batch=BATCH, image=IMAGE,
                   num_classes=1000, seed=0):
     kw = {} if stage_sizes is None else {"stage_sizes": stage_sizes}
@@ -1155,6 +1581,8 @@ def async_ticks(device, sm, images, labels, wire, warmup, timed, max_age):
         torch.cuda.reset_peak_memory_stats(device)
         start = torch.cuda.memory_allocated(device) / 2**30
     losses, ticks, per_tick = [], [], []
+    series = ("bluefog.async.ticks", "bluefog.async.local_steps")
+    before_series = {k: metrics.counter(k).value for k in series}
     reset_launch_counts()
     for i in range(warmup + timed):
         before, steps_before = launch_counts(), eng._local_steps
@@ -1189,6 +1617,15 @@ def async_ticks(device, sm, images, labels, wire, warmup, timed, max_age):
                                  f"{[t['launches'] for t in per_tick]}")
     timed_s = sum(t["tick_s"] for t in ticks)
     summary = eng.summary()
+    # the engine's series against its own summary
+    got = {k: metrics.counter(k).value - before_series[k] for k in series}
+    want = {"bluefog.async.ticks": summary["ticks"],
+            "bluefog.async.local_steps": summary["local_steps"]}
+    participants = metrics.gauge("bluefog.async.participants").value
+    if got != want or participants != per_tick[-1]["participants"]:
+        raise AssertionError(f"async/{wire}: the metrics {got}, participants {participants} "
+                             f"differ from the engine's {want}, "
+                             f"{per_tick[-1]['participants']}")
     out = {
         "wire": wire, "ticks": summary["ticks"], "local_steps": summary["local_steps"],
         "participation": summary["local_steps"] / (summary["ticks"] * SIZE),
@@ -1200,7 +1637,7 @@ def async_ticks(device, sm, images, labels, wire, warmup, timed, max_age):
         "start_gib": start, "peak_gib": peak, "stale_drops": summary["stale_drops"],
         "advisories": [a.to_json() for a in eng.advisories],
         "x_mass": x_mass, "abs_mass": abs_mass, "p_mass": p_mass,
-        "losses": [float(r.mean()) for r in table], "counts": counts,
+        "losses": [float(r.mean()) for r in table], "counts": counts, "series": got,
     }
     if wire == "int8" and device.type == "cuda":
         profile_once(device, "async/int8 tick", lambda: step(params, state, images, labels,
@@ -1240,7 +1677,8 @@ def phase_async(device, sm, images, labels, wires=ASYNC_WIRES, max_age=ASYNC_MAX
                      f"{run['start_gib']:.2f}), stale_drops {run['stale_drops']}, advisories "
                      f"{len(run['advisories'])} naming slow ranks {slow}, x mass "
                      f"{run['x_mass']:.9g}, p mass {run['p_mass']:.9g}, launches "
-                     f"{ {k: v for k, v in run['counts'].items() if v} }; on {smi}")
+                     f"{ {k: v for k, v in run['counts'].items() if v} }, metrics "
+                     f"{run['series']} (equal to the engine's summary); on {smi}")
     sm.load_buffers(stats0)
     first = runs[0]
     if first["participation"] < 1 - 1.5 / SIZE:
@@ -2605,6 +3043,10 @@ def main():
                              f"expected {RESNET50_PARAMS} ({RESNET50_WIDTH})")
     counts["train-step"], _tiers = phase_train_step(device, sm, images, labels, smi=smi)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts["observability"], _obs = phase_observability(device, sm, images, labels, smi=smi)
+    log("observability", f"phase in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     trainer = Trainer(device, sm, images, labels)
     counts.update(phase_train(trainer))
     med = trainer.tiers["atc/int8"]["median"]
@@ -2688,6 +3130,8 @@ def main():
         missing = [k for k in kernel_names if counts[path][k] == 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+
+    phase_examples(device, smi=smi)
 
     flash_rows, flash_lines = phase_flash_kernels(device, flash_errs, memory_rate(kind))
     lse_entries, split_row, lse_lines = phase_lse_kernels(

@@ -916,3 +916,70 @@ def test_zero2_step_on_card_matches_cpu(cuda, wire, monkeypatch):
         outs[dev.type] = params["w"].cpu()
     torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0,
                                atol=1e-6 * float(outs["cpu"].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int8", "int4_ef"])
+def test_metrics_probe_on_card_matches_cpu(cuda, wire, monkeypatch):
+    """``BLUEFOG_METRICS=1`` at interval 1 on the card: the parameters
+    bitwise those of metrics off and of the same steps on the CPU, the
+    probe's output bitwise the first columns of the ATC combine, and the
+    gauges (folded from the pinned copy after its event) within 1e-6
+    relative of the CPU's."""
+    from bluefog_tpu_torch import metrics
+
+    monkeypatch.setenv("BLUEFOG_METRICS_INTERVAL", "1")
+    # the probe covers the zero block, the +-tiny block and a normal one
+    monkeypatch.setenv("BLUEFOG_METRICS_SAMPLE_ELEMS", "2048")
+    x = ragged_input("cpu", seed=8)
+    results = []
+    for device, on in ((cuda, False), (cuda, True), (torch.device("cpu"), True)):
+        monkeypatch.setenv("BLUEFOG_METRICS", "1" if on else "0")
+        metrics.reset()
+        bft.init(device=device)
+        bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = wire
+        p = {"w": x.clone().to(device)}
+        s = opt.init(p)
+        for _ in range(3):
+            opt.step(p, s, {"w": p["w"] * 0.1})
+        metrics.flush()
+        if on:
+            sub, y, _scale, _ef = opt._last_probe[0]
+            assert torch.equal(_bits(y), _bits(p["w"][:, :y.shape[1]].contiguous()))
+        gauges = {k: v["value"] for k, v in metrics.snapshot().items()
+                  if k.startswith("bluefog.gossip.")}
+        results.append((p["w"].cpu(), gauges))
+    bft.shutdown()
+    off, card, cpu = results
+    assert torch.equal(_bits(off[0]), _bits(card[0])) and torch.equal(_bits(card[0]), _bits(cpu[0]))
+    assert set(card[1]) == set(cpu[1]) and "bluefog.gossip.quant_err" in card[1]
+    for k, v in cpu[1].items():
+        assert abs(card[1][k] - v) <= 1e-6 * abs(v), (k, card[1][k], v)
+
+
+@pytest.mark.cuda
+def test_synchronize_behind_a_late_kernel_is_a_stall(cuda, tmp_path, monkeypatch):
+    """A ``synchronize`` waiting behind ``torch.cuda._sleep`` past the
+    watchdog's deadline counts one stall and leaves a flight dump."""
+    import json
+    import time
+
+    from bluefog_tpu_torch import metrics, watchdog
+
+    monkeypatch.setenv("BLUEFOG_FLIGHT_DIR", str(tmp_path))
+    bft.init(device=cuda)
+    before = metrics.counter("bluefog.stalls").value
+    watchdog.set_stall_timeout(0.2)
+    try:
+        torch.cuda._sleep(int(2e9))
+        handle = bft.allreduce_nonblocking(torch.ones(SIZE, 64, device=cuda))
+        bft.synchronize(handle)
+        time.sleep(0.3)  # the watchdog's poll
+    finally:
+        watchdog.set_stall_timeout(60)
+        bft.shutdown()
+    assert metrics.counter("bluefog.stalls").value == before + 1
+    dump = json.load(open(tmp_path / "flight_0.json"))
+    assert dump["reason"] == f"stall:synchronize(handle {handle})"

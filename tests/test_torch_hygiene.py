@@ -2,12 +2,14 @@
 """Import hygiene of the PyTorch/CUDA port, and its refusal to fall back
 to the CPU silently.
 
-``bluefog_tpu_torch`` and ``chip_smoke.py`` run on a machine with no JAX
-and no networkx, so neither may import ``jax``, ``flax``, ``optax``,
-``networkx`` or anything of the JAX package ``bluefog_tpu``.
+``bluefog_tpu_torch``, ``chip_smoke.py`` and the port's examples
+(``examples/torch_*.py``) run on a machine with no JAX and no networkx, so
+none may import ``jax``, ``flax``, ``optax``, ``networkx`` or anything of
+the JAX package ``bluefog_tpu``.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -22,7 +24,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "networkx", "bluefog_tpu")
 
 
 def _port_sources():
-    return sorted((ROOT / "bluefog_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "bluefog_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path):
@@ -42,7 +45,10 @@ def test_port_sources_exist():
             "long_context.py", "dryrun.py", "ops.py", "inner.py", "plan.py", "infer.py",
             "graphs.py", "utility.py", "context.py", "stacked.py", "async_gossip.py",
             "attribution.py", "sharding.py", "scaling.py", "checkpoint.py",
-            "logging_util.py"} <= names
+            "logging_util.py", "watchdog.py", "timeline.py", "metrics.py", "flight.py",
+            "version.py", "torch_average_consensus.py", "torch_decentralized_optimization.py",
+            "torch_mnist.py", "torch_long_context.py", "torch_checkpoint_resume.py",
+            "torch_benchmark.py"} <= names
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
         assert (ROOT / "bluefog_tpu_torch" / "csrc" / source).is_file()
 
@@ -54,6 +60,33 @@ def test_port_calls_no_library_attention_or_compiler(call):
     ``chip_smoke.py`` times SDPA, as a yardstick)."""
     for path in sorted((ROOT / "bluefog_tpu_torch").rglob("*.py")):
         assert call not in path.read_text(), f"{path.name} mentions {call}"
+
+
+def test_observability_exports_have_the_jax_names():
+    """The observability names of ``bluefog_tpu/__init__.py``, with its
+    signatures (compared as source text: the JAX package is not imported)."""
+    import inspect
+
+    names = ("flight", "flight_dump", "metrics", "metrics_export", "metrics_snapshot",
+             "timeline", "timeline_init", "timeline_shutdown", "timeline_enabled",
+             "timeline_start_activity", "timeline_end_activity", "timeline_record_instant",
+             "timeline_record_counter", "timeline_context", "watchdog", "suspend", "resume",
+             "set_stall_timeout", "logger", "set_log_level", "__version__")
+    assert set(names) <= set(bft.__all__)
+    jax_init = (ROOT / "bluefog_tpu" / "__init__.py").read_text()
+    version = (ROOT / "bluefog_tpu" / "version.py").read_text()
+    assert f'__version__ = "{bft.__version__}"' in version
+    for name in names[:-1]:
+        if name in ("timeline", "watchdog"):  # submodules, not in JAX's __all__
+            assert (ROOT / "bluefog_tpu" / f"{name}.py").is_file()
+        else:
+            assert f'"{name}"' in jax_init, name
+    for name in ("timeline_init", "timeline_start_activity", "timeline_record_counter",
+                 "set_stall_timeout", "metrics_export"):
+        src = (ROOT / "bluefog_tpu" / f"{getattr(bft, name).__module__.split('.')[-1]}.py"
+               ).read_text()
+        params = list(inspect.signature(getattr(bft, name)).parameters)
+        assert re.search(rf"def {name}\(\s*{params[0]}\b", src), name
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

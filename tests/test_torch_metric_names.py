@@ -1,0 +1,45 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""Every ``bluefog.*`` series the port emits is a row of the series
+reference of ``docs/metrics.md``, by the rules of
+``tests/test_metric_names.py``: double-quoted literals, f-string ``{...}``
+segments and the docs' ``<x>`` segments as wildcards, and a literal that
+others extend with a dot is a namespace, which must have a row under it."""
+
+import glob
+import os
+import re
+
+from test_metric_names import _LITERAL_RE, _doc_patterns, _matches
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "bluefog_tpu_torch")
+
+
+def _port_patterns():
+    raw = set()
+    for path in glob.glob(PKG + "/**/*.py", recursive=True):
+        with open(path) as f:
+            for m in _LITERAL_RE.finditer(f.read()):
+                raw.add(re.sub(r"\{[^}]*\}", "*", m.group(1)))
+    namespaces = {r for r in raw if any(o.startswith(r + ".") for o in raw if o != r)}
+    return raw - namespaces, namespaces
+
+
+def test_every_series_the_port_emits_is_documented():
+    code, namespaces = _port_patterns()
+    docs = _doc_patterns()
+    undocumented = sorted(c for c in code if not any(_matches(c, d) for d in docs))
+    assert not undocumented, (
+        f"series emitted in bluefog_tpu_torch/ but missing from docs/metrics.md: {undocumented}")
+    for ns in sorted(namespaces):
+        assert any(d.startswith(ns + ".") for d in docs), ns
+
+
+def test_the_guard_sees_the_port_series():
+    code, namespaces = _port_patterns()
+    assert {"bluefog.stalls", "bluefog.plan_cache.hits", "bluefog.wire_bytes",
+            "bluefog.async.ticks", "bluefog.window_ops.*", "bluefog.shard.grads",
+            "bluefog.doctor.advisory.*", "bluefog.allgather.quant_err"} <= code | namespaces
+    assert "bluefog.gossip" in namespaces
+    # eager PyTorch builds no program: the port counts no recompiles
+    assert "bluefog.recompiles" not in code
