@@ -32,11 +32,16 @@ stall ``watchdog`` (``set_stall_timeout``, ``suspend``, ``resume``,
 ``BLUEFOG_STALL_TIMEOUT``); ``metrics`` (``metrics_snapshot``,
 ``metrics_export``; the sampled gossip probe under ``BLUEFOG_METRICS=1``);
 the ``flight`` recorder (``flight_dump``, ``BLUEFOG_FLIGHT_DIR``).
+
+Elastic gossip: ``elastic`` (``start``, ``inject``, ``guard``, ``stop``;
+``BLUEFOG_FAULT_PLAN``, ``BLUEFOG_LIVENESS_TIMEOUT``): a killed or stalled
+rank is pruned from the topology, the ZeRO layout re-shards, the async
+engine re-windows, and a checkpoint records the live set.
 """
 
 from bluefog_tpu_torch.version import __version__
 from bluefog_tpu_torch import async_gossip, checkpoint, collective, ops, scaling, sharding, topology
-from bluefog_tpu_torch import flight, metrics, timeline, watchdog
+from bluefog_tpu_torch import elastic, flight, metrics, timeline, watchdog
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.flight import dump as flight_dump
 from bluefog_tpu_torch.logging_util import logger, set_log_level
@@ -241,6 +246,7 @@ __all__ = [
     "logger",
     "set_log_level",
     "async_gossip",
+    "elastic",
     "checkpoint",
     "scaling",
     "sharding",

@@ -64,9 +64,17 @@ the timeline. The tick's work runs inside ``watchdog.watch("async_fold:
 <window>")`` as an ``async_tick`` timeline span. The exchange's rounds
 follow ``BLUEFOG_PLAN_METHOD``.
 
-Not ported here: the elastic session hooks (dispatch guard, the ``slow``
-fault's dilation, the live set, re-windowing after a kill; ROADMAP A12a),
-and the staleness-observatory, health and autotune hooks (A13b, A12b).
+**Elastic** (:mod:`bluefog_tpu_torch.elastic`), as in the JAX engine: with
+a session open, each tick first runs ``session.before_dispatch(engine)``
+(fault replay and repair; ``mode = "push_sum"`` makes the repair install its
+mass-conserving weights on the engine's ``self_weight`` and
+``dst_weights``); a ``slow`` fault multiplies its rank's period by
+``ceil(factor)``; a dead rank never takes part; and on a change of the live
+set the engine re-windows: the estimate ``x / p`` becomes the new mass with
+``p = 1``, counting ``bluefog.async.rewindows``.
+
+Not ported here: the staleness-observatory, health and autotune hooks
+(ROADMAP A13b, A12b).
 """
 
 import collections
@@ -172,7 +180,12 @@ _engine_uid = itertools.count()
 
 class AsyncGossipEngine:
     """One asynchronous gossip lane over a combo push-sum window; built by
-    :func:`make_async_train_step` and driven through its callable."""
+    :func:`make_async_train_step` and driven through its callable.
+    ``mode = "push_sum"`` is the contract with the elastic repair: it
+    installs its renormalized sender weights on ``dst_weights`` and
+    ``self_weight``, as on the push-sum window optimizer."""
+
+    mode = "push_sum"
 
     def __init__(self, opt, loss_fn, has_aux: bool = False,
                  cadence: Optional[Dict[int, int]] = None,
@@ -203,11 +216,12 @@ class AsyncGossipEngine:
             wire = getattr(opt, "compression", None)
         self.wire = async_wire(wire)
         self.wire_name = (wire or os.environ.get(WIRE_ENV, "") or "fp32").strip().lower() or "fp32"
-        # explicit push weights, as on the window optimizers
+        # explicit push weights, as on the window optimizers; an elastic
+        # repair installs its push-sum weights here
         self.self_weight = None
         self.dst_weights = None
         self._name = f"_async{self._uid}.combo"
-        self._win_sig = None
+        self._win_sig = None  # (aval sig, live token) at creation
         self._win_slots: Optional[tuple] = None  # create-time in-neighbors
         self._template = None
         self._slots = None  # [(start, end, shape, dtype)] per leaf
@@ -283,18 +297,19 @@ class AsyncGossipEngine:
                    for r, srcs in enumerate(ctx.in_neighbor_ranks()))
 
     def _ensure_window(self, ctx, params) -> None:
-        sig = self._aval_sig(params)
+        sig = (self._aval_sig(params), ctx.live_token())
         win = ctx.windows.get(self._name)
         if win is not None and self._win_sig == sig and self._topology_fits_window(ctx):
             return
-        if win is None or self._win_sig != sig:
+        if win is None or self._win_sig is None or self._win_sig[0] != sig[0]:
             # first creation or a parameter-shape change: the window mass is
             # seeded from the given params, p = 1
             self._prepare_layout(ctx, params)
             packed = self._pack(tree_leaves(params), ctx.size)
         else:
-            # a topology the window cannot carry: the current estimate x / p
-            # becomes the new mass with p = 1
+            # a change of the live set, or a topology the window cannot
+            # carry: the current estimate x / p becomes the new mass with
+            # p = 1, so the mass accounting restarts over the live set
             packed = win.value / win.p[:, None].to(win.value.dtype)
             self._rewindows += 1
             metrics.counter("bluefog.async.rewindows").inc()
@@ -320,12 +335,18 @@ class AsyncGossipEngine:
 
     # -- cadence and the staleness gate ---------------------------------------------
 
-    def _periods(self, ctx) -> np.ndarray:
-        """Per-rank local-step period on the tick clock (``cadence``)."""
+    def _periods(self, ctx, session=None) -> np.ndarray:
+        """Per-rank local-step period on the tick clock: ``cadence``, times
+        ``ceil(factor)`` of an active ``slow`` fault of the elastic
+        ``session`` (:meth:`~bluefog_tpu_torch.elastic.ElasticSession.simulated_compute_dilation`)."""
         periods = np.ones(ctx.size, np.int64)
         for r, p in self.cadence.items():
             if 0 <= r < ctx.size:
                 periods[r] = p
+        if session is not None:
+            for r, f in session.simulated_compute_dilation().items():
+                if 0 <= r < ctx.size:
+                    periods[r] *= max(1, int(np.ceil(f)))
         return periods
 
     @staticmethod
@@ -502,11 +523,22 @@ class AsyncGossipEngine:
         the window on the first call (and after a shape change); after
         that the window is the state and the returned estimate is what the
         next call is given. ``opt_state`` is updated in place."""
+        from bluefog_tpu_torch import elastic
+
         ctx = ctx_mod.get_context()
+        session = elastic.active_session()
+        if session is not None:
+            # fault replay and repair before the window and weights are
+            # resolved: a repair this tick shapes this tick's exchange
+            session.before_dispatch(self)
         self._ensure_window(ctx, params)
         win = win_mod._get_win(ctx, self._name)
 
-        participating = self._tick % self._periods(ctx) == 0
+        live = np.ones(ctx.size, bool)
+        if session is not None:
+            live[:] = False
+            live[list(session.membership.live_ranks())] = True
+        participating = live & (self._tick % self._periods(ctx, session) == 0)
         ages = self._slot_ages(win)
         self._decay_mutes()
         participating, fold_mask, breached = self._gate(ctx, win, participating, ages)

@@ -13,7 +13,8 @@ of orbax:
 - ``restore(path, step=None, optimizer=None)`` returns ``(step, params,
   opt_state)`` on the context's device and puts the rest back onto the
   optimizer, refusing a checkpoint of another world size, topology, shape
-  or shard mode.
+  or shard mode; under an open elastic session a checkpoint of another
+  live set is repaired to instead (the session adopts the saved live set).
 
 The module buffers of a model (BatchNorm statistics) are not parameters:
 pass them as ``extra=`` (a tree of tensors) to both calls; ``restore``
@@ -40,6 +41,7 @@ import torch
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import sharding
 from bluefog_tpu_torch import windows as win_mod
+from bluefog_tpu_torch.logging_util import logger
 
 __all__ = ["save", "restore", "latest_step", "topology_digest"]
 
@@ -61,16 +63,18 @@ def topology_digest(topo) -> Optional[str]:
 
 def _graph_info(optimizer=None) -> Optional[dict]:
     """The graph block ``save`` records: world size, topology version and
-    digest, the live ranks (every worker: the port has no elastic session),
-    and the shard layout of a sharding optimizer. None before ``init``."""
+    digest, the elastic live set (every worker without an elastic
+    session), and the shard layout of a sharding optimizer. None before
+    ``init``."""
     if not ctx_mod.is_initialized():
         return None
     ctx = ctx_mod.get_context()
+    m = ctx.elastic_membership
     info = {
         "world_size": int(ctx.size),
         "topo_version": int(ctx.topo_version),
         "topo_digest": topology_digest(ctx.load_topology()),
-        "live_ranks": list(range(ctx.size)),
+        "live_ranks": list(m.live_ranks()) if m is not None else list(range(ctx.size)),
     }
     layout = getattr(optimizer, "_shard_layout", None)
     if layout is not None:
@@ -83,7 +87,12 @@ def _graph_info(optimizer=None) -> Optional[dict]:
 
 
 def _check_graph_info(info: dict, optimizer) -> None:
-    """Refuse a restore whose graph does not match the live context."""
+    """Refuse, or under an open elastic session repair to, a restore whose
+    graph does not match the live context: a different live set is
+    adopted through ``session.adopt_live_set`` (ranks absent from it are
+    condemned, present ones revived, the topology repaired)."""
+    from bluefog_tpu_torch import elastic
+
     ctx = ctx_mod.get_context()
     saved_size = int(info["world_size"])
     if saved_size != ctx.size:
@@ -93,10 +102,19 @@ def _check_graph_info(info: dict, optimizer) -> None:
             "re-shard the checkpoint explicitly"
         )
     saved_live = tuple(int(r) for r in info.get("live_ranks", []))
-    cur_live = tuple(range(ctx.size))
+    cur_m = ctx.elastic_membership
+    cur_live = cur_m.live_ranks() if cur_m is not None else tuple(range(ctx.size))
     saved_digest = info.get("topo_digest")
     cur_digest = topology_digest(ctx.load_topology())
     if saved_live == cur_live and saved_digest == cur_digest:
+        return
+    session = elastic.active_session()
+    if session is not None and saved_live != cur_live:
+        logger.warning(
+            "checkpoint live set %s differs from current %s; repairing topology to "
+            "the saved membership", list(saved_live), list(cur_live),
+        )
+        session.adopt_live_set(saved_live, optimizer)
         return
     raise ValueError(
         "checkpoint topology does not match the live context (saved topology "
@@ -104,7 +122,8 @@ def _check_graph_info(info: dict, optimizer) -> None:
         f"{list(saved_live)}; current digest {cur_digest!r}, live "
         f"{list(cur_live)}): restoring would silently load state shaped for a "
         "different graph. Install the matching topology with "
-        "bft.set_topology()."
+        "bft.set_topology(), or start an elastic session "
+        "(bft.elastic.start()) to repair to the saved live set."
     )
 
 
@@ -162,7 +181,7 @@ def _gather_sharded_state(opt_state, layout) -> Tuple[dict, dict]:
     """Gather-on-save: each slot leaf ``[N, slot]`` becomes its group's full
     vector (the live owners' rows in order, padding cut), every other leaf
     is kept; returns ``(leaves by key, shard info)``."""
-    from bluefog_tpu_torch.optimizers import _GossipOptimizer, tree_leaves
+    from bluefog_tpu_torch.optimizers import _GossipOptimizer, _gather_slot_rows, tree_leaves
 
     out, slot_leaves = {}, []
     leaves = tree_leaves(opt_state)
@@ -172,8 +191,7 @@ def _gather_sharded_state(opt_state, layout) -> Tuple[dict, dict]:
         if gi is None:
             out[f"leaf_{i:03d}"] = leaf.clone()
         else:
-            out[f"leaf_{i:03d}"] = torch.cat(
-                [leaf[r] for r in layout.live])[:layout.groups[gi].elems].clone()
+            out[f"leaf_{i:03d}"] = _gather_slot_rows(leaf, layout, gi).clone()
             slot_leaves.append([i, gi])
     info = {
         "version": 1,
@@ -183,23 +201,6 @@ def _gather_sharded_state(opt_state, layout) -> Tuple[dict, dict]:
         "master": bool(layout.master),
     }
     return out, info
-
-
-def _slice_rows(full: torch.Tensor, layout, gi: int) -> torch.Tensor:
-    """A group's full vector distributed into the ``[size, slot]`` slot
-    array (``sharding.slice_rows`` on tensors; dead workers zero)."""
-    g = layout.groups[gi]
-    full = full.reshape(-1)
-    if full.numel() != g.elems:
-        raise ValueError(
-            f"group {gi} full vector has {full.numel()} elements, layout expects {g.elems}"
-        )
-    padded = torch.zeros(g.padded, dtype=full.dtype)
-    padded[:g.elems] = full
-    out = torch.zeros((layout.size, g.slot), dtype=full.dtype)
-    for i, r in enumerate(layout.live):
-        out[r] = padded[i * g.slot:(i + 1) * g.slot]
-    return out
 
 
 def save(path: str, step: int, params, opt_state, optimizer=None, extra=None) -> str:
@@ -385,7 +386,7 @@ def _reslice_sharded_state(info: dict, payload: dict, params, optimizer, device)
     """Re-slice a gathered sharded state under the current layout: a fresh
     ``optimizer.init(params)`` gives the structure, each gathered vector is
     distributed into it and every other leaf is installed as saved."""
-    from bluefog_tpu_torch.optimizers import _tree_unflatten, tree_leaves
+    from bluefog_tpu_torch.optimizers import _slice_slot_rows, _tree_unflatten, tree_leaves
 
     if optimizer is None:
         raise ValueError(
@@ -427,7 +428,7 @@ def _reslice_sharded_state(info: dict, payload: dict, params, optimizer, device)
         arr = saved[f"leaf_{i:03d}"].to(ref.dtype)
         gi = slot_map.get(i)
         if gi is not None:
-            arr = _slice_rows(arr, layout, gi)
+            arr = _slice_slot_rows(arr, layout, gi)
         elif tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(
                 f"saved state leaf {i} has shape {tuple(arr.shape)} but the live "

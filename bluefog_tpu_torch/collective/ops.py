@@ -255,7 +255,7 @@ def _resolve_plan(ctx, self_weight, src_weights, dst_weights,
         method=compiler.plan_method(),
     )
     # rebuilt each call; the recorder keeps each distinct structure once
-    flight.note_plan(plan, ctx.topo_version)
+    flight.note_plan(plan, ctx.topo_version, ctx.live_token())
     return plan
 
 

@@ -26,6 +26,7 @@ of the active topology follow ``BLUEFOG_PLAN_METHOD``
 (:func:`bluefog_tpu_torch.collective.compiler.plan_method`).
 """
 
+import collections
 import itertools
 import os
 import threading
@@ -99,6 +100,9 @@ class BluefogContext:
         self._topo_weighted = False
         self.topo_version = 0
         self._plan_cache: Optional[tuple] = None
+        # the keys of the static plans built, newest last (bounded): a plan
+        # built under an elastic session carries the live token
+        self.plan_keys: collections.deque = collections.deque(maxlen=64)
         self._neighbor_sets_cache: Optional[tuple] = None
         self._machine_topology: Optional[np.ndarray] = None
         self._machine_topo_weighted = False
@@ -115,6 +119,11 @@ class BluefogContext:
         # live push-sum optimizers
         self.p_switch = False
         self.p_refcount = 0
+        # the elastic live set (bluefog_tpu_torch.elastic): None until an
+        # ElasticSession installs its Membership; the static plan's key
+        # folds live_token() in, so a membership change can never dispatch
+        # a stale plan
+        self.elastic_membership = None
         topo_fn = topology_fn if topology_fn is not None else ExponentialGraph
         self.set_topology(topo_fn(self.size), is_weighted)
 
@@ -180,23 +189,35 @@ class BluefogContext:
                 self._machine_topology, weighted=self._machine_topo_weighted, method=method
             )
             self._machine_plan_cache = cached = (key, plan)
-            flight.note_plan(plan, self.machine_topo_version, kind="machine")
+            flight.note_plan(plan, self.machine_topo_version, self.live_token(), kind="machine")
         return cached[1]
+
+    def live_token(self):
+        """Hashable ``(epoch, live ranks)`` of the elastic live set, or None
+        when no elastic session is open (every worker lives)."""
+        m = self.elastic_membership
+        return None if m is None else m.token()
 
     def static_plan(self) -> CommPlan:
         """The plan of the active topology under ``BLUEFOG_PLAN_METHOD``,
-        rebuilt only when either changes (a new one is noted in the flight
-        recorder)."""
-        key = (self.topo_version, compiler.plan_method())
+        rebuilt only when either or the elastic live set
+        (:meth:`live_token`) changes: a membership change, even one that
+        reinstalls an identical-looking graph, never reuses a plan built
+        for the old live set. A new plan is noted in the flight recorder
+        with its token and its key in :attr:`plan_keys`."""
+        token = self.live_token()
+        key = ("static_plan", self.topo_version, self._topo_weighted,
+               compiler.plan_method(), token)
         cached = self._plan_cache
         if cached is None or cached[0] != key:
             from bluefog_tpu_torch import flight
 
             plan = plan_from_topology(
-                self._topology, weighted=self._topo_weighted, method=key[1]
+                self._topology, weighted=self._topo_weighted, method=key[3]
             )
             self._plan_cache = cached = (key, plan)
-            flight.note_plan(plan, self.topo_version)
+            self.plan_keys.append(key)
+            flight.note_plan(plan, self.topo_version, token)
         return cached[1]
 
     def p_enabled(self) -> bool:
@@ -265,11 +286,12 @@ def init(
     ``topology_fn(size)`` (default :func:`ExponentialGraph`), split into
     machines of ``nodes_per_machine`` workers (default
     ``BLUEFOG_NODES_PER_MACHINE``, else one machine of all) for the
-    hierarchical ops. Opens the timeline of ``BLUEFOG_TIMELINE`` and a
-    fresh flight recorder, and sets the ``bluefog.size`` and
+    hierarchical ops. Closes an open elastic session (it is bound to the
+    old context's membership), opens the timeline of ``BLUEFOG_TIMELINE``
+    and a fresh flight recorder, and sets the ``bluefog.size`` and
     ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` is refused."""
     global _context
-    from bluefog_tpu_torch import async_gossip, flight, metrics
+    from bluefog_tpu_torch import async_gossip, elastic, flight, metrics
     from bluefog_tpu_torch import timeline as tl
 
     pods = os.environ.get("BLUEFOG_PODS", "").strip()
@@ -280,6 +302,7 @@ def init(
             "not run yet (ROADMAP A12b: federation.py); unset BLUEFOG_PODS to "
             "run one flat fabric"
         )
+    elastic.stop()
     ctx = BluefogContext(topology_fn, is_weighted, size, device, nodes_per_machine)
     with _lock:
         _context = ctx
@@ -294,13 +317,15 @@ def init(
 
 def shutdown() -> None:
     """Drop the global context (reference ``bf.shutdown``): close the
-    flight session, fold the pending probe payloads and run the
-    env-configured exporters, then close a timeline ``init`` opened from
-    ``BLUEFOG_TIMELINE`` (a timeline the user opened stays open)."""
+    elastic session and the flight session, fold the pending probe payloads
+    and run the env-configured exporters, then close a timeline ``init``
+    opened from ``BLUEFOG_TIMELINE`` (a timeline the user opened stays
+    open)."""
     global _context
-    from bluefog_tpu_torch import async_gossip, flight, metrics
+    from bluefog_tpu_torch import async_gossip, elastic, flight, metrics
     from bluefog_tpu_torch import timeline as tl
 
+    elastic.stop()
     async_gossip.on_shutdown()
     if _context is not None:
         flight.on_shutdown()

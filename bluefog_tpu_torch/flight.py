@@ -20,15 +20,18 @@ unix ns, monotonic us, timeline us), ``plan_compile`` (a plan noted by
 :func:`note_plan`, its rounds kept in the side table), ``step_begin`` /
 ``step_dispatched``, ``sync_begin`` / ``sync_ready`` (host blocking
 points), ``window_op``, ``async_tick``, ``advisory``, ``stall``, ``crash``
-and ``sigterm``. The JAX package also records ``compile`` for a fresh XLA
+and ``sigterm``; the elastic verdicts ``membership``, ``fault``,
+``repair``, ``migrate`` and ``shard_reshard``. The JAX package also records ``compile`` for a fresh XLA
 program; the port builds no program and records none (see
 :mod:`bluefog_tpu_torch.metrics`).
 
 Dumps: :func:`dump` (``bft.flight_dump()``) writes
 ``<BLUEFOG_FLIGHT_DIR or .>/flight_<process index>.json`` atomically. A
-watchdog stall, an unhandled exception and SIGTERM dump automatically
-when ``BLUEFOG_FLIGHT_DIR`` is set (the crash hooks are installed at
-``init`` then, and removed at ``shutdown``).
+watchdog stall, an elastic SUSPECT or DEAD verdict, an unhandled exception
+and SIGTERM dump automatically when ``BLUEFOG_FLIGHT_DIR`` is set (the
+crash hooks are installed at ``init`` then, and removed at ``shutdown``).
+Under an elastic session a dump carries the ``membership`` block (epoch,
+live, dead, the last 64 transitions) and the plan's ``faults``.
 """
 
 import itertools
@@ -327,6 +330,26 @@ def _build_dump(reason: str) -> dict:
             "topo_version": ctx.topo_version,
             "ranks": _owned_ranks(ctx),
         }
+        m = ctx.elastic_membership
+        if m is not None:
+            out["membership"] = {
+                "epoch": m.epoch,
+                "live": list(m.live_ranks()),
+                "dead": list(m.dead_ranks()),
+                "history": [list(h) for h in m.history[-64:]],
+            }
+    try:
+        from bluefog_tpu_torch import elastic as elastic_mod
+
+        session = elastic_mod.active_session()
+        if session is not None:
+            out["faults"] = [
+                {"kind": f.kind, "rank": f.rank, "step": f.step,
+                 "seconds": f.seconds, "factor": f.factor}
+                for f in session.plan.faults
+            ]
+    except Exception:  # a broken elastic import must not lose the dump
+        pass
     with _plans_lock:
         out["comm_plans"] = list(_plans)
         out["fault_events"] = list(_faults)

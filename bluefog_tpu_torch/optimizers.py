@@ -475,6 +475,7 @@ class _GossipOptimizer:
         self._ef = self._ef_sig = None
         self._delay_buf = self._delay_sig = None
         self._shard_layout = None  # the active ShardLayout under BLUEFOG_SHARD=1
+        self._shard_reshards = 0  # re-shards onto a changed live set
         self._elementwise = None  # (inner optimizer, whether the probe found it elementwise)
         self._scatter_ef = self._scatter_ef_sig = None
         # the device tier: the sampled probe's payload on its way to the
@@ -528,21 +529,25 @@ class _GossipOptimizer:
 
     def _ensure_shard_layout(self, ctx, params):
         """``(layout, changed)``: the layout of ``params``' dtype groups over
-        every worker, ``changed`` when a stored layout no longer fits (a
-        flip of ``BLUEFOG_SHARD_GRADS`` alone swaps the gradient leg, not
+        the live workers (:meth:`~bluefog_tpu_torch.context.BluefogContext.live_token`;
+        every worker without an elastic session), ``changed`` when a stored
+        layout no longer fits the live set, the groups or the master mode
+        (a flip of ``BLUEFOG_SHARD_GRADS`` alone swaps the gradient leg, not
         the slots, and is not a change)."""
+        token = ctx.live_token()
         groups = _group_sig(params)
         master = sharding.master_enabled()
         grads = sharding.grads_enabled()
         lay = self._shard_layout
-        if (lay is not None and lay.master == master
+        if (lay is not None and lay.token == token and lay.master == master
                 and tuple((g.dtype, g.elems) for g in lay.groups) == groups):
             if lay.grads != grads:
                 lay = sharding.build_layout(groups, lay.live, ctx.size, master=master,
-                                            grads=grads)
+                                            token=token, grads=grads)
                 self._shard_layout = lay
             return lay, False
-        new = sharding.build_layout(groups, range(ctx.size), ctx.size, master=master,
+        live = token[1] if token is not None else tuple(range(ctx.size))
+        new = sharding.build_layout(groups, live, ctx.size, master=master, token=token,
                                     grads=grads)
         changed = lay is not None
         self._shard_layout = new
@@ -591,12 +596,12 @@ class _GossipOptimizer:
         self._register_shard(layout, state)
         return state
 
-    @staticmethod
-    def _register_shard(layout, state) -> None:
+    def _register_shard(self, layout, state) -> None:
         from bluefog_tpu_torch import scaling
 
-        sharding.register_active(layout, measured_state_bytes=scaling.optimizer_state_bytes(
-            state=state, world=layout.size))
+        sharding.register_active(layout, reshards=self._shard_reshards,
+                                 measured_state_bytes=scaling.optimizer_state_bytes(
+                                     state=state, world=layout.size))
 
     @staticmethod
     def _shard_slot_group(shape, layout):
@@ -610,9 +615,28 @@ class _GossipOptimizer:
                 return gi
         return None
 
+    def _reshard_state(self, ctx, old, new, opt_state) -> None:
+        """The membership-change re-shard, in place: each slot leaf's full
+        per-coordinate vector is gathered from the old owners' rows
+        (:func:`_gather_slot_rows`) and re-sliced under the new owner map
+        (:func:`_slice_slot_rows`), on the leaf's device, and the leaf takes
+        the new ``[size, slot]`` array (``Tensor.set_``, so every holder of
+        the state sees it). Other leaves (step counts) stay as they are."""
+        for leaf in tree_leaves(opt_state):
+            gi = self._shard_slot_group(tuple(leaf.shape), old)
+            if gi is None:
+                continue
+            full = _gather_slot_rows(leaf, old, gi)
+            leaf.set_(_slice_slot_rows(full, new, gi))
+        self._shard_reshards += 1
+        metrics.counter("bluefog.shard.reshards").inc()
+        flight.record("shard_reshard", live=len(new.live), was=len(old.live))
+
     def _shard_prepare(self, ctx, params, opt_state):
-        """The sharded step's prologue: the state must be the sharded form,
-        the inner optimizer elementwise, and the layout unchanged."""
+        """The sharded step's prologue: the state must be the sharded form
+        and the inner optimizer elementwise; on a change of the live set
+        the state is re-sharded in place onto the new layout. A change of
+        the master mode or of the dtype groups raises."""
         if not isinstance(opt_state, sharding.ShardedOptState):
             raise ValueError(
                 "BLUEFOG_SHARD=1 but the optimizer state is not sharded (was it "
@@ -632,10 +656,14 @@ class _GossipOptimizer:
                     "init(params) (or restore a checkpoint saved under the same "
                     "master mode)"
                 )
-            raise ValueError(
-                f"the parameters' dtype groups changed from {old.groups} to "
-                f"{layout.groups} under BLUEFOG_SHARD=1; re-run init(params)"
-            )
+            if [(g.dtype, g.elems) for g in old.groups] != \
+                    [(g.dtype, g.elems) for g in layout.groups]:
+                raise ValueError(
+                    f"the parameters' dtype groups changed from {old.groups} to "
+                    f"{layout.groups} under BLUEFOG_SHARD=1; re-run init(params)"
+                )
+            self._reshard_state(ctx, old, layout, opt_state)
+            self._register_shard(layout, opt_state)
         return layout
 
     def _scatter_chunks(self, ctx, layout):
@@ -832,7 +860,7 @@ class _GossipOptimizer:
         # the whole period lands in the flight recorder once (deduplicated)
         for p in sched.plans:
             flight.note_plan(p, ctx.topo_version if local_size is None
-                             else ctx.machine_topo_version,
+                             else ctx.machine_topo_version, ctx.live_token(),
                              kind="worker" if local_size is None else "machine")
         if local_size is None:
             combine = lambda t: inner.neighbor_allreduce_step(t, step, sched)  # noqa: E731
@@ -853,7 +881,7 @@ class _GossipOptimizer:
                 enable_topo_check=self.enable_topo_check
                 and self.send_neighbor_machines is not None,
             )
-            flight.note_plan(mplan, ctx.machine_topo_version, kind="machine")
+            flight.note_plan(mplan, ctx.machine_topo_version, ctx.live_token(), kind="machine")
             return mplan
         if ctx.load_machine_topology() is None:
             raise ValueError(
@@ -1307,6 +1335,36 @@ def _shard_check_groups(tree, layout, what: str) -> None:
             "parameter tree's dtypes (re-init the optimizer state after changing "
             "the parameters)"
         )
+
+
+def _gather_slot_rows(rows: torch.Tensor, layout, gi: int) -> torch.Tensor:
+    """A group's full vector ``[d]`` from its ``[size, slot]`` slot array:
+    the live owners' rows in owner order, padding cut
+    (:func:`bluefog_tpu_torch.sharding.gather_rows` on a tensor)."""
+    g = layout.groups[gi]
+    if tuple(rows.shape) != (layout.size, g.slot):
+        raise ValueError(
+            f"group {gi} slot array has shape {tuple(rows.shape)}, layout expects "
+            f"{(layout.size, g.slot)}"
+        )
+    return torch.cat([rows[r] for r in layout.live])[:g.elems]
+
+
+def _slice_slot_rows(full: torch.Tensor, layout, gi: int) -> torch.Tensor:
+    """A group's full vector distributed into the ``[size, slot]`` slot
+    array on its device, dead workers zero
+    (:func:`bluefog_tpu_torch.sharding.slice_rows` on a tensor)."""
+    g = layout.groups[gi]
+    full = full.reshape(-1)
+    if full.numel() != g.elems:
+        raise ValueError(
+            f"group {gi} full vector has {full.numel()} elements, layout expects {g.elems}"
+        )
+    out = full.new_zeros((layout.size, g.slot))
+    for i, r in enumerate(layout.live):
+        part = full[i * g.slot:min((i + 1) * g.slot, g.elems)]
+        out[r, :part.numel()] = part
+    return out
 
 
 def _shard_own_slices(tree, layout):

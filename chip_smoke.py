@@ -128,6 +128,47 @@ Phases, one line each; any failure exits non-zero:
                optimizer, 2 steps: the parameters bitwise those of 3
                uninterrupted steps; the bytes and the save and restore
                seconds; written under ``build/checkpoint`` and deleted;
+11b. elastic -- ``bft.elastic`` at full width, each part's launch counts
+               zeroed just before it and read just after, cuDNN
+               deterministic: (a) the train-step ResNet50 on the weighted
+               Exp2 graph, ATC int8 ``sgd(0.1, 0.9)`` through
+               ``bft.elastic.guard(opt).make_train_step``, a session
+               (``average``) killing rank 4 at step 2, 1 + 5 steps,
+               ``session.rejoin(4, params, opt)`` before the last: one
+               repair at step 2 (detect 0, repair 0), no stale dispatch, no
+               plan edge on rank 4 until the rejoin, every plan keyed with a
+               live token, the ``verdict:dead:rank=4`` dump with the
+               ``membership`` and ``faults`` blocks and the JAX package's
+               keys, the ``bluefog.elastic.*`` series equal to the session's
+               records, and the parameters and momentum bitwise a twin run
+               without a session that installs ``repaired_topology`` by hand
+               before step 2 and the rejoin's topology and
+               ``consensus_restore`` at the rejoin; (b) the same on ATC
+               int4_ef, kill only, 1 + 3 steps, the CHOCO copies rebuilt
+               exactly at the repair; (d) the async phase's straggler on
+               int8 given as a ``slow`` fault (``push_sum`` session), 1 + 4
+               ticks bitwise those of ``cadence``, then rank 5 killed and 3
+               ticks at lr 0: one re-window, rank 5 never due, the live p
+               mass 7 and value mass kept, the estimates within the pre-kill
+               range (one int8 quantum of the largest a tick); (e) a
+               checkpoint saved after (a)'s repair lists 7 live ranks,
+               restores under a fresh session (which condemns rank 4 and
+               repairs) into one step bitwise the uninterrupted run's, and
+               is refused without a session; (f) ``bench.py::run_elastic``'s
+               problem on the card and on the CPU (detect within 1 step,
+               consensus within 1e-3 of the numpy oracle, card within 1e-6
+               of the CPU); (g) a ``synchronize`` behind
+               ``torch.cuda._sleep`` past ``BLUEFOG_LIVENESS_TIMEOUT`` files
+               SUSPECT for the last dispatch's ranks and a
+               ``verdict:suspect:`` dump, a deadline stall fault is
+               condemned and repaired, a shorter one counted; part (c) runs
+               after 14a on its model: zero2/int8 Adam under the guard, rank
+               3 killed at step 2, 1 + 4 steps: one re-shard onto the 7 live
+               ranks, the moments bitwise across it, measured == analytic
+               state bytes for 8 and 7 live, the last scatter bitwise
+               ``plain_ring_scatter`` at the 7-live owner positions, the
+               parameter rows equal, encode/decode every step and the flash
+               kernels on ``sm90``; files under ``build/elastic``, deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -366,6 +407,11 @@ PATH_KERNELS = {
     "long-context": FLASH_KERNELS + ("flash_split_cotangent",),
     # the ResNet50 steps with the metrics probe on: atc/int8 and atc/int4_ef
     "observability": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
+    # the elastic phase's ResNet50 parts: the int8 kill and rejoin, the
+    # int4_ef kill, the async int8 ticks, the resumed checkpoint
+    "elastic": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
+    # its TransformerLM part: the zero2/int8 re-shard
+    "elastic zero": FLASH_KERNELS + ("encode", "decode"),
 }
 
 
@@ -1540,13 +1586,18 @@ def phase_train(trainer, warmup=WARMUP, timed=TIMED):
     return counts
 
 
-def window_mass(win):
-    """``(x mass, sum |x|, p mass)`` of a window: values plus buffers, in
-    float64 sums."""
+def window_mass(win, rows=None):
+    """``(x mass, sum |x|, p mass)`` of a window (of its ``rows`` when
+    given): values plus buffers, in float64 sums."""
     f64 = torch.float64
-    return (float(torch.sum(win.value, dtype=f64) + torch.sum(win.buffers, dtype=f64)),
-            float(torch.sum(win.value.abs(), dtype=f64) + torch.sum(win.buffers.abs(), dtype=f64)),
-            float(torch.sum(win.p, dtype=f64) + torch.sum(win.p_buffers, dtype=f64)))
+    lanes = (win.value, win.buffers, win.p, win.p_buffers)
+    if rows is not None:
+        idx = torch.as_tensor(rows, device=win.value.device)
+        lanes = tuple(t.index_select(0, idx) for t in lanes)
+    v, b, p, pb = lanes
+    return (float(torch.sum(v, dtype=f64) + torch.sum(b, dtype=f64)),
+            float(torch.sum(v.abs(), dtype=f64) + torch.sum(b.abs(), dtype=f64)),
+            float(torch.sum(p, dtype=f64) + torch.sum(pb, dtype=f64)))
 
 
 def async_ticks(device, sm, images, labels, wire, warmup, timed, max_age):
@@ -1771,17 +1822,20 @@ def clear_shard_env():
         os.environ.pop(key, None)
 
 
-def plain_ring_scatter(grads, slot, wire):
-    """The ring reduce-scatter of ``grads [N, P]`` (the ZeRO-2 layout,
-    every worker live, mean over workers) through the plain quantizer,
-    written out apart from the port's: worker ``j`` owns slot ``j`` (zeros
-    past ``P``); its own row first, then round ``t = 1 .. N-1``'s row from
-    worker ``j - t``, block-quantized on ``wire`` and dequantized."""
+def plain_ring_scatter(grads, slot, wire, positions=None):
+    """The ring reduce-scatter of ``grads [N, P]`` (the ZeRO-2 layout, mean
+    over workers) through the plain quantizer, written out apart from the
+    port's: worker ``j`` owns slot ``positions[j]`` (default ``j``: every
+    worker live; after an elastic re-shard the layout's ``live_index()``,
+    a dead worker at position 0, never gathered; zeros past ``P``); its
+    own row first, then round ``t = 1 .. N-1``'s row from worker ``j - t``,
+    block-quantized on ``wire`` and dequantized."""
     n, width = grads.shape
+    positions = list(range(n)) if positions is None else [int(v) for v in positions]
 
     def owned(sender, j):
         row = grads.new_zeros(slot)
-        lo, hi = j * slot, min((j + 1) * slot, width)
+        lo, hi = positions[j] * slot, min((positions[j] + 1) * slot, width)
         if hi > lo:
             row[:hi - lo] = grads[sender, lo:hi]
         return row
@@ -2099,6 +2153,714 @@ def phase_checkpoint(device, sm, images, labels, root="build/checkpoint", smi=""
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(root, ignore_errors=True)
+
+
+# the elastic phase (11b): the gossip parts' kill (rank, session step), the
+# ZeRO part's and the async part's killed rank; files under ELASTIC_ROOT
+ELASTIC_ROOT = "build/elastic"
+ELASTIC_KILL = (4, 2)
+ELASTIC_REJOIN = 5  # the gossip part's step index the rejoin precedes
+ELASTIC_ZERO_KILL = (3, 2)
+ELASTIC_ASYNC_KILL = 5
+# bench.py::run_elastic's problem: dim, kill step, gradient steps, steps, lr;
+# its bound on the survivors' distance from the numpy oracle; the card
+# against a CPU copy, of the largest value
+ELASTIC_DIM, ELASTIC_KILL_STEP, ELASTIC_GRAD_STEPS, ELASTIC_STEPS = 4096, 5, 12, 48
+ELASTIC_LR, ELASTIC_CONSENSUS_TOL, ELASTIC_CARD_TOL = 0.05, 1e-3, 1e-6
+# the JAX package's keys of a dump's membership block and of a fault entry
+# (bluefog_tpu/flight.py _build_dump)
+ELASTIC_MEMBERSHIP_KEYS = ("epoch", "live", "dead", "history")
+ELASTIC_FAULT_KEYS = ("kind", "rank", "step", "seconds", "factor")
+ELASTIC_SERIES = ("faults", "repairs", "rejoins")  # counters read as deltas
+
+
+def elastic_series():
+    """The ``bluefog.elastic.*`` counters, gauges and the repair-time
+    histogram's count."""
+    out = {k: metrics.counter(f"bluefog.elastic.{k}").value for k in ELASTIC_SERIES}
+    out.update({k: metrics.gauge(f"bluefog.elastic.{k}").value
+                for k in ("dead_ranks", "epoch", "last_detect_steps")})
+    out["repair_ms_count"] = metrics.histogram("bluefog.elastic.repair_ms").count
+    out["repair_ms"] = metrics.histogram("bluefog.elastic.repair_ms").last
+    return out
+
+
+def elastic_gossip_run(device, sm, images, labels, stats0, params0, wire, n_steps,
+                       session_on, rejoin_at=None, on_step=None):
+    """ResNet50 on the weighted Exp2 graph through ATC ``sgd(0.1, 0.9)`` on
+    ``wire``, ``n_steps`` fused steps from ``params0``: with ``session_on``
+    through ``bft.elastic.guard(opt).make_train_step`` under a session
+    (policy ``average``) that kills rank ``ELASTIC_KILL[0]`` at step
+    ``ELASTIC_KILL[1]`` and rejoins it before step ``rejoin_at``; without,
+    the twin: ``opt.make_train_step``, the repaired topology installed by
+    hand before the kill step, and at the rejoin the topology the rejoin
+    installs and ``consensus_restore``. ``on_step(i, params, state, opt,
+    session)`` runs after each step. Returns ``(per-step rows, session)``;
+    a row holds the step's seconds and launches."""
+    from bluefog_tpu_torch.elastic import consensus_restore, repaired_topology
+
+    bft.init(size=SIZE, device=device)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    base = bft.load_topology()
+    rank, kill_step = ELASTIC_KILL
+    live = [r for r in range(SIZE) if r != rank]
+    sm.load_buffers(stats0)
+    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+    opt.compression = wire
+    params = params0.clone()
+    state = opt.init(params)
+    session = None
+    if session_on:
+        session = bft.elastic.start(policy="average")
+        session.inject("kill", rank=rank, step=kill_step)
+        step = bft.elastic.guard(opt).make_train_step(sm.worker_loss)
+    else:
+        step = opt.make_train_step(sm.worker_loss)
+    workers = torch.arange(SIZE)
+    rows = []
+    for i in range(n_steps):
+        if i == rejoin_at:
+            if session_on:
+                params = session.rejoin(rank, params, opt)
+            else:
+                bft.set_topology(repaired_topology(base, range(SIZE), "average"),
+                                 is_weighted=True)
+                params = consensus_restore(params, rank, live)
+        if not session_on and i == kill_step:
+            bft.set_topology(repaired_topology(base, live, "average"), is_weighted=True)
+        before = launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, images, labels, workers)
+        sync(device)
+        after = launch_counts()
+        rows.append({"step_s": time.perf_counter() - t0,
+                     "launches": {k: after[k] - before[k] for k in after},
+                     "loss": float(loss.float().mean())})
+        if not torch.isfinite(params).all():
+            raise AssertionError(f"elastic {wire}: non-finite parameters at step {i}")
+        if on_step is not None:
+            on_step(i, params, state, opt, session)
+    opt.free()
+    return rows, session
+
+
+def elastic_twin_check(device, sm, images, labels, stats0, params0, wire, n_steps,
+                       rejoin_at=None, on_step=None):
+    """The session run and its twin (:func:`elastic_gossip_run`): the
+    parameters and the momentum bitwise the twin's after every step.
+    Returns the session run's rows and session."""
+    kept = []
+
+    def keep(i, params, state, opt, session):
+        kept.append((params.clone(), state.clone()))
+        if on_step is not None:
+            on_step(i, params, state, opt, session)
+
+    rows, session = elastic_gossip_run(device, sm, images, labels, stats0, params0, wire,
+                                       n_steps, True, rejoin_at, keep)
+    bft.elastic.stop()
+
+    def compare(i, params, state, _opt, _session):
+        want_p, want_s = kept[i]
+        if not (torch.equal(bits(params), bits(want_p)) and torch.equal(bits(state),
+                                                                        bits(want_s))):
+            raise AssertionError(
+                f"elastic {wire}: step {i} differs from the twin (parameters max "
+                f"{float((params - want_p).abs().max()):.3g}, momentum max "
+                f"{float((state - want_s).abs().max()):.3g})")
+        kept[i] = None
+
+    elastic_gossip_run(device, sm, images, labels, stats0, params0, wire, n_steps, False,
+                       rejoin_at, compare)
+    return rows, session
+
+
+def elastic_session_gates(name, session, repair_step):
+    """One repair at ``repair_step`` with detection and repair in the same
+    step, and no stale dispatch."""
+    recs = session.repairs
+    if len(recs) != 1 or recs[0].step != repair_step or \
+            recs[0].steps_to_detect != {ELASTIC_KILL[0]: 0} or recs[0].steps_to_repair != 0:
+        raise AssertionError(f"elastic {name}: repairs {recs}")
+    if session.stale_dispatches != 0:
+        raise AssertionError(f"elastic {name}: {session.stale_dispatches} stale dispatches")
+
+
+def elastic_gossip(device, sm, images, labels, stats0, params0, root, smi):
+    """Part (a), gossip kill and rejoin on int8 (B1, B2), with part (e),
+    the checkpoint under the changed live set, saved after step 3 of the
+    session run and resumed for one step; returns the part's numbers."""
+    from bluefog_tpu_torch import checkpoint as ckpt
+
+    rank, kill_step = ELASTIC_KILL
+    flight_dir = os.path.join(root, "flight")
+    ckpt_dir = os.path.join(root, "checkpoint")
+    os.environ["BLUEFOG_FLIGHT_DIR"] = flight_dir
+    checks = {"dump": None, "plans": [], "series0": elastic_series()}
+
+    def on_step(i, params, state, opt, session):
+        ctx = bft.get_context()
+        if i == kill_step:
+            checks["dump"] = json.load(open(os.path.join(flight_dir, "flight_0.json")))
+        if kill_step <= i < ELASTIC_REJOIN:
+            checks["plans"].append(ctx.static_plan().perms)
+        if i == ELASTIC_REJOIN - 2:
+            ckpt.save(ckpt_dir, i + 1, params, state, optimizer=opt, extra=sm.buffers)
+            checks["saved_info"] = json.load(open(os.path.join(
+                ckpt_dir, f"{i + 1}.graph.json")))["graph_info"]
+        if i == ELASTIC_REJOIN - 1:
+            checks["resume_want"] = (params.clone(), state.clone())
+            checks["series_pre_rejoin"] = elastic_series()
+        if i == ELASTIC_REJOIN:
+            checks["series"] = elastic_series()
+            # the context is new and the session opened before any plan
+            # was built: every key was built under the session
+            checks["keys"] = list(ctx.plan_keys)
+
+    try:
+        rows, session = elastic_twin_check(device, sm, images, labels, stats0, params0,
+                                           "int8", 1 + ELASTIC_REJOIN, ELASTIC_REJOIN,
+                                           on_step)
+    finally:
+        del os.environ["BLUEFOG_FLIGHT_DIR"]
+    elastic_session_gates("gossip int8", session, kill_step)
+    touched = [p for p in checks["plans"] if any(rank in e for perm in p for e in perm)]
+    if len(checks["plans"]) != ELASTIC_REJOIN - kill_step or touched:
+        raise AssertionError(f"elastic gossip: a plan between the repair and the rejoin "
+                             f"touches rank {rank}: {touched}")
+    untokened = [k for k in checks["keys"] if k[-1] is None]
+    if not checks["keys"] or untokened:
+        raise AssertionError(f"elastic gossip: plans built without a live token {untokened}")
+    dump = checks["dump"]
+    if dump["reason"] != f"verdict:dead:rank={rank}" or \
+            any(k not in dump for k in FLIGHT_KEYS + ("membership", "faults")) or \
+            tuple(dump["membership"]) != ELASTIC_MEMBERSHIP_KEYS or \
+            any(tuple(f) != ELASTIC_FAULT_KEYS for f in dump["faults"]) or \
+            dump["membership"]["dead"] != [rank]:
+        raise AssertionError(f"elastic gossip: the kill's dump {dump.get('reason')!r} has keys "
+                             f"{sorted(dump)}, membership {dump.get('membership')}, faults "
+                             f"{dump.get('faults')}")
+    s0, pre, s1 = checks["series0"], checks["series_pre_rejoin"], checks["series"]
+    rec = session.repairs[0]
+    want_pre = {"faults": 1, "repairs": 1, "rejoins": 0}
+    got_pre = {k: pre[k] - s0[k] for k in ELASTIC_SERIES}
+    if got_pre != want_pre or pre["dead_ranks"] != 1 or pre["epoch"] != rec.epoch or \
+            pre["last_detect_steps"] != 0 or pre["repair_ms_count"] - s0["repair_ms_count"] != 1 \
+            or s1["rejoins"] - s0["rejoins"] != 1 or s1["dead_ranks"] != 0:
+        raise AssertionError(f"elastic gossip: the series {pre} / {s1} (from {s0}) differ from "
+                             f"the session's records {session.repairs}")
+    short = [i for i, r in enumerate(rows)
+             if r["launches"]["encode"] < 1 or r["launches"]["decode_accumulate"] < 1]
+    if device.type == "cuda" and short:
+        raise AssertionError(f"elastic gossip: steps {short} launched no encode or "
+                             f"decode_accumulate: {[r['launches'] for r in rows]}")
+    if checks["saved_info"]["live_ranks"] != [r for r in range(SIZE) if r != rank]:
+        raise AssertionError(f"elastic checkpoint: the graph block lists "
+                             f"{checks['saved_info']['live_ranks']}")
+    resume = elastic_resume(device, sm, images, labels, ckpt_dir, checks["resume_want"])
+    bft.init(size=SIZE, device=device)
+    return {"rows": rows, "repair_ms": pre["repair_ms"], "record": rec,
+            "resume": resume, "saved_live": checks["saved_info"]["live_ranks"]}
+
+
+def elastic_resume(device, sm, images, labels, ckpt_dir, want):
+    """Part (e): the checkpoint of the 7-live run restored into a fresh
+    context under a fresh session, which condemns the missing rank and
+    repairs; one step bitwise the uninterrupted run's next. Restored
+    without a session it must be refused. Returns the numbers."""
+    from bluefog_tpu_torch import checkpoint as ckpt
+
+    rank = ELASTIC_KILL[0]
+    bft.init(size=SIZE, device=device)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    try:
+        ckpt.restore(ckpt_dir, optimizer=bft.DistributedAdaptThenCombineOptimizer(
+            bft.sgd(0.1, momentum=0.9)))
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    if refused is None or "bft.elastic.start()" not in refused:
+        raise AssertionError(f"elastic checkpoint: a restore without a session was not "
+                             f"refused: {refused!r}")
+    bft.init(size=SIZE, device=device)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    session = bft.elastic.start(policy="average")
+    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+    opt.compression = "int8"
+    t0 = time.perf_counter()
+    _step, params, state = ckpt.restore(ckpt_dir, optimizer=opt, extra=sm.buffers)
+    restore_s = time.perf_counter() - t0
+    if session.membership.dead_ranks() != (rank,) or len(session.repairs) != 1:
+        raise AssertionError(f"elastic checkpoint: the restore left dead ranks "
+                             f"{session.membership.dead_ranks()}, repairs {session.repairs}")
+    step = bft.elastic.guard(opt).make_train_step(sm.worker_loss)
+    params, state, _loss = step(params, state, images, labels, torch.arange(SIZE))
+    same = torch.equal(bits(params), bits(want[0])) and torch.equal(bits(state), bits(want[1]))
+    if not same:
+        raise AssertionError(f"elastic checkpoint: the resumed step differs (max "
+                             f"{float((params - want[0]).abs().max()):.3g})")
+    opt.free()
+    bft.elastic.stop()
+    import shutil
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"restore_s": restore_s, "refused": refused[:60], "stale": session.stale_dispatches}
+
+
+def elastic_ef(device, sm, images, labels, stats0, params0):
+    """Part (b): the kill on ATC int4_ef (B3, B4), bitwise its twin; the
+    CHOCO copies rebuilt exactly at the repair."""
+    sigs = []
+
+    def on_step(i, params, state, opt, session):
+        sigs.append((opt._ef_sig, id(opt._ef)))
+
+    rows, session = elastic_twin_check(device, sm, images, labels, stats0, params0,
+                                       "int4_ef", 4, on_step=on_step)
+    bft.elastic.stop()
+    elastic_session_gates("ef int4_ef", session, ELASTIC_KILL[1])
+    k = ELASTIC_KILL[1]
+    changes = [i for i in range(1, len(sigs)) if sigs[i] != sigs[i - 1]]
+    if changes != [k] or sigs[k][0][1] == sigs[k - 1][0][1]:
+        raise AssertionError(f"elastic ef: the CHOCO copies were rebuilt at steps {changes}, "
+                             f"not exactly at the repair step {k}")
+    short = [i for i, r in enumerate(rows)
+             if r["launches"]["encode_diff"] < 1 or r["launches"]["decode_add"] < 1]
+    if device.type == "cuda" and short:
+        raise AssertionError(f"elastic ef: steps {short} launched no encode_diff or "
+                             f"decode_add: {[r['launches'] for r in rows]}")
+    bft.init(size=SIZE, device=device)
+    return {"rows": rows}
+
+
+def elastic_async_run(device, sm, images, labels, stats0, slow, ticks, kept=None):
+    """``ticks`` async int8 ticks of the async phase's ResNet50 scenario,
+    rank ``ASYNC_SLOW`` at one tenth of the cadence: through ``cadence``
+    (``slow=False``; each tick's estimate and due ranks appended to
+    ``kept``), or through a session's ``slow`` fault (held bitwise to
+    ``kept``). Returns ``(step, params, state, opt, session, dues, tick
+    seconds)``; the engine's ``_local_step`` records the due ranks."""
+    sm.load_buffers(stats0)
+    opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1, momentum=0.9))
+    params = sm.replicate()
+    state = opt.init(params)
+    kw = dict(max_age=ASYNC_MAX_AGE, policy="drop", wire="int8", buffers=sm.buffers)
+    session = None
+    if slow:
+        session = bft.elastic.start(policy="push_sum")
+        session.inject("slow", rank=ASYNC_SLOW, step=0, factor=ASYNC_FACTOR)
+        step = bft.make_async_train_step(opt, sm.worker_loss, **kw)
+    else:
+        step = bft.make_async_train_step(opt, sm.worker_loss,
+                                         cadence={ASYNC_SLOW: ASYNC_FACTOR}, **kw)
+    eng = step.engine
+    dues, times = [], []
+    eng_local = eng._local_step
+
+    def local_step(win, opt_state, batch, due):
+        dues.append(sorted(int(r) for r in due))
+        eng_local(win, opt_state, batch, due)
+
+    eng._local_step = local_step
+    workers = torch.arange(SIZE)
+    for i in range(ticks):
+        sync(device)
+        t0 = time.perf_counter()
+        params, state, _loss = step(params, state, images, labels, workers)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        if slow:
+            want, want_due = kept[i]
+            if not torch.equal(bits(params), bits(want)) or dues[i] != want_due:
+                raise AssertionError(f"elastic async: tick {i} under the slow fault differs "
+                                     f"from cadence's (due {dues[i]}, cadence {want_due})")
+            kept[i] = None
+        else:
+            kept.append((params.clone(), dues[i]))
+    return step, params, state, opt, session, dues, times
+
+
+def elastic_async(device, sm, images, labels, stats0, warmup=1, timed=4, after=3):
+    """Part (d): the async phase's straggler on int8 given as bench.py gives
+    it (a session with policy ``push_sum`` and a ``slow`` fault on rank
+    ``ASYNC_SLOW`` at factor ``ASYNC_FACTOR``): ``warmup + timed`` ticks
+    bitwise those of ``cadence``; then rank ``ELASTIC_ASYNC_KILL`` killed
+    and ``after`` ticks at the inner learning rate 0: one re-window, no
+    stale dispatch, the dead rank never due, the live p mass 7 and value
+    mass kept to ``ASYNC_MASS_TOL`` of ``sum |x|``, each live estimate
+    within the pre-kill estimates' elementwise range, widened by one int8
+    quantum of their largest magnitude a tick (the wire rounds what it
+    delivers; JAX's 1e-4 holds the exact wire), ``encode`` and ``decode``
+    on every tick. Returns the part's numbers."""
+    bft.init(size=SIZE, device=device)
+    bft.set_topology(topo.RingGraph(SIZE, connect_style=1))
+    kept = []
+    ticks = warmup + timed
+    step, *_ = elastic_async_run(device, sm, images, labels, stats0, False, ticks, kept)
+    step.engine.free()
+    step, params, state, opt, session, dues, times = elastic_async_run(
+        device, sm, images, labels, stats0, True, ticks, kept)
+    eng = step.engine
+    dead = ELASTIC_ASYNC_KILL
+    live = [r for r in range(SIZE) if r != dead]
+    before = params.clone()
+    # a tick on the int8 wire moves an estimate by at most about one int8
+    # quantum of the largest value (half of it in what it receives, half in
+    # the residual a sender keeps); JAX's 1e-4 holds the exact wire
+    slack = after * float(before.abs().max()) / 127
+    session.inject("kill", rank=dead, step=session.step)
+    opt.tx = bft.sgd(0.0, momentum=0.9)
+    workers = torch.arange(SIZE)
+    masses, launches = [], []
+    for _ in range(after):
+        a = launch_counts()
+        params, state, _loss = step(params, state, images, labels, workers)
+        sync(device)
+        b = launch_counts()
+        launches.append({k: b[k] - a[k] for k in b})
+        masses.append(window_mass(bft.get_context().windows[eng._name], live))
+    post_dues = dues[ticks:]
+    if len(session.repairs) != 1 or session.stale_dispatches != 0 or eng._rewindows != 1:
+        raise AssertionError(f"elastic async: repairs {session.repairs}, stale "
+                             f"{session.stale_dispatches}, rewindows {eng._rewindows}")
+    if any(dead in d for d in post_dues) or len(post_dues) != after:
+        raise AssertionError(f"elastic async: rank {dead} took part after its kill: {post_dues}")
+    x0, abs0, _p0 = masses[0]
+    for x, ax, p in masses:
+        if not abs(x - x0) <= ASYNC_MASS_TOL * ax or not abs(p - len(live)) <= 1e-5:
+            raise AssertionError(f"elastic async: live mass {x} (from {x0}, sum |x| {ax}), "
+                                 f"p mass {p}")
+    idx = torch.as_tensor(live, device=params.device)
+    est = params.index_select(0, idx)
+    over = float(torch.maximum(est.max(0).values - before.max(0).values,
+                               before.min(0).values - est.min(0).values).max())
+    if not over <= slack:
+        raise AssertionError(f"elastic async: a live estimate left the pre-kill range by "
+                             f"{over:.3g} (> {slack:.3g})")
+    if device.type == "cuda":
+        short = [i for i, c in enumerate(launches) if c["encode"] < 1 or c["decode"] < 1]
+        if short:
+            raise AssertionError(f"elastic async: ticks {short} after the kill launched no "
+                                 f"encode or decode: {launches}")
+    eng.free()
+    bft.elastic.stop()
+    bft.init(size=SIZE, device=device)
+    return {"tick_s": statistics.median(times[warmup:]), "dues": dues[:ticks],
+            "post_dues": post_dues, "mass": masses, "over": over, "slack": slack,
+            "rewindows": eng._rewindows}
+
+
+def elastic_problem(device):
+    """Part (f): bench.py::run_elastic's problem on ``device`` (ATC
+    ``sgd(0.05)`` on Exp2(8), rank 4 killed at step 5, 12 gradient steps
+    of 48, ``RandomState(0)``). Returns the final parameters, the repair
+    record, the consensus distance to the numpy survivor oracle (the
+    survivors' mean at the repair plus the later gradients' drift), the
+    stale dispatches and the plan keys built under the session."""
+    bft.init(size=SIZE, device=device)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE))
+    ctx = bft.get_context()
+    session = bft.elastic.start(policy="average")
+    n0 = len(ctx.plan_keys)
+    kill_rank = SIZE // 2
+    session.inject("kill", rank=kill_rank, step=ELASTIC_KILL_STEP)
+    lr = np.float32(ELASTIC_LR)
+    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(float(lr)))
+    guard = bft.elastic.guard(opt)
+    rng = np.random.RandomState(0)
+    x0 = rng.randn(SIZE, ELASTIC_DIM).astype(np.float32)
+    grads = [rng.randn(SIZE, ELASTIC_DIM).astype(np.float32) * 0.1
+             for _ in range(ELASTIC_GRAD_STEPS)]
+    zeros = torch.zeros(SIZE, ELASTIC_DIM, device=device)
+    params = {"w": torch.from_numpy(x0).to(device)}
+    state = opt.init(params)
+    at_repair = None
+    for t in range(ELASTIC_STEPS):
+        g = torch.from_numpy(grads[t]).to(device) if t < ELASTIC_GRAD_STEPS else zeros
+        if t == ELASTIC_KILL_STEP:
+            at_repair = params["w"].cpu().numpy().copy()  # the step updates in place
+        params, state = guard.step(params, state, {"w": g})
+    final = params["w"].cpu().clone()
+    live = list(session.membership.live_ranks())
+    target = at_repair[live].mean(axis=0)
+    for t in range(ELASTIC_KILL_STEP, ELASTIC_GRAD_STEPS):
+        target = target - lr * grads[t][live].mean(axis=0)
+    out = {"final": final, "record": session.repairs[0],
+           "consensus_dist": float(np.abs(final.numpy()[live] - target).max()),
+           "stale": session.stale_dispatches, "keys": list(ctx.plan_keys)[n0:]}
+    bft.elastic.stop()
+    return out
+
+
+def elastic_liveness(device, root):
+    """Part (g): a ``synchronize`` that waits behind ``torch.cuda._sleep``
+    past ``BLUEFOG_LIVENESS_TIMEOUT`` files SUSPECT for every rank of the
+    last dispatch, counts ``bluefog.elastic.suspects`` and writes a
+    ``verdict:suspect:`` dump; a ``stall`` fault at the deadline is
+    condemned and repaired at the next dispatch, a shorter one only counts
+    ``bluefog.elastic.stalls``. Returns the numbers."""
+    flight_dir = os.path.join(root, "liveness")
+    os.environ["BLUEFOG_FLIGHT_DIR"] = flight_dir
+    os.environ["BLUEFOG_LIVENESS_TIMEOUT"] = "0.25"
+    try:
+        bft.init(size=SIZE, device=device)
+        bft.set_topology(topo.ExponentialTwoGraph(SIZE))
+        session = bft.elastic.start()
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.0))
+        guard = bft.elastic.guard(opt)
+        params = {"w": torch.ones(SIZE, 1 << 10, device=device)}
+        state = opt.init(params)
+        params, state = guard.step(params, state, {"w": torch.zeros_like(params["w"])})
+        ranks = session._last_dispatch_ranks
+        suspects0 = metrics.counter("bluefog.elastic.suspects").value
+        watchdog.set_stall_timeout(0.25)
+        try:
+            if device.type == "cuda":
+                torch.cuda._sleep(int(2e9))  # about a second of a busy SM at ~1.8 GHz
+            handle = bft.allreduce_nonblocking(params["w"])
+            t0 = time.perf_counter()
+            bft.synchronize(handle)
+            waited = time.perf_counter() - t0
+            time.sleep(0.3)  # the watchdog polls every 0.0625 s at this deadline
+        finally:
+            watchdog.set_stall_timeout(60)
+        suspected = [r for r in range(SIZE) if session.membership.state(r).value == "suspect"]
+        path = os.path.join(flight_dir, "flight_0.json")
+        # the CPU has no late kernel to wait behind: no stall, no dump
+        dump = json.load(open(path)) if os.path.exists(path) else {"reason": None}
+        counted = metrics.counter("bluefog.elastic.suspects").value - suspects0
+        if device.type == "cuda" and (suspected != sorted(ranks) or counted != len(ranks)
+                                      or not dump["reason"].startswith("verdict:suspect:")):
+            raise AssertionError(f"elastic liveness: a {waited:.2f} s wait past 0.25 s filed "
+                                 f"suspects {suspected} of {ranks}, counted {counted}, dump "
+                                 f"{dump['reason']!r}")
+        stalls0 = metrics.counter("bluefog.elastic.stalls").value
+        session.inject("stall", rank=2, step=session.step, seconds=0.1)
+        session.inject("stall", rank=6, step=session.step + 1, seconds=0.25)
+        for _ in range(2):
+            params, state = guard.step(params, state, {"w": torch.zeros_like(params["w"])})
+        stalls = metrics.counter("bluefog.elastic.stalls").value - stalls0
+        if stalls != 1 or session.membership.dead_ranks() != (6,) or \
+                [r.detected for r in session.repairs] != [(6,)] or session.stale_dispatches:
+            raise AssertionError(f"elastic liveness: stalls {stalls}, dead "
+                                 f"{session.membership.dead_ranks()}, repairs {session.repairs}")
+        bft.elastic.stop()
+    finally:
+        del os.environ["BLUEFOG_FLIGHT_DIR"], os.environ["BLUEFOG_LIVENESS_TIMEOUT"]
+    bft.init(size=SIZE, device=device)
+    return {"waited": waited, "suspected": suspected, "reason": dump["reason"]}
+
+
+def phase_elastic(device, sm, images, labels, root=ELASTIC_ROOT, smi=""):
+    """The elastic phase's parts (a), (b), (d) and (e) on the ResNet50 of
+    the train-step phase, (f) and (g); part (c) is
+    :func:`phase_elastic_zero`, on the transformer path's model. cuDNN runs
+    its deterministic algorithms. Returns ``(launch counts of the parts,
+    each zeroed just before its part and read just after, numbers)``."""
+    import shutil
+
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    params0 = sm.replicate()
+    counts = {k: 0 for k in launch_counts()}
+    numbers = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def part(name, fn, *args):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        numbers[name] = fn(*args)
+        numbers[name]["seconds"] = time.perf_counter() - t0
+        numbers[name]["counts"] = launch_counts()
+        for k, v in numbers[name]["counts"].items():
+            counts[k] += v
+
+    try:
+        shutil.rmtree(root, ignore_errors=True)
+        part("gossip", elastic_gossip, device, sm, images, labels, stats0, params0, root, smi)
+        part("ef", elastic_ef, device, sm, images, labels, stats0, params0)
+        part("async", elastic_async, device, sm, images, labels, stats0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        sm.load_buffers(stats0)
+        bft.elastic.stop()
+    card = elastic_problem(device)
+    cpu = elastic_problem(torch.device("cpu"))
+    err = float((card["final"] - cpu["final"]).abs().max())
+    scale = float(cpu["final"].abs().max())
+    detect = max(card["record"].steps_to_detect.values())
+    if detect > 1 or card["record"].steps_to_repair != 0 or card["stale"] != 0 or \
+            not card["consensus_dist"] < ELASTIC_CONSENSUS_TOL or not card["keys"] or \
+            any(k[-1] is None for k in card["keys"]) or not err <= ELASTIC_CARD_TOL * scale:
+        raise AssertionError(f"elastic problem: detect {detect}, record {card['record']}, stale "
+                             f"{card['stale']}, consensus {card['consensus_dist']}, keys "
+                             f"{card['keys']}, card against CPU {err} of {scale}")
+    numbers["problem"] = {"detect": detect, "consensus_dist": card["consensus_dist"],
+                          "card_err": err, "scale": scale,
+                          "bitwise": torch.equal(bits(card["final"]), bits(cpu["final"]))}
+    numbers["liveness"] = elastic_liveness(device, root)
+    bft.init(size=SIZE, device=device)
+    shutil.rmtree(root, ignore_errors=True)
+    g, e, a = numbers["gossip"], numbers["ef"], numbers["async"]
+    k, rj = ELASTIC_KILL[1], ELASTIC_REJOIN
+    per_img = SIZE * images.shape[1]
+    log("elastic", f"(a) gossip atc/int8, rank {ELASTIC_KILL[0]} killed at step {k}, rejoined "
+                   f"before step {rj}: repair at step {g['record'].step} (detect "
+                   f"{g['record'].steps_to_detect}, repair {g['record'].steps_to_repair} steps), "
+                   f"repair {g['repair_ms']:.3f} ms; step s before the kill "
+                   f"{g['rows'][k - 1]['step_s']:.4f}, at the repair {g['rows'][k]['step_s']:.4f}, "
+                   f"after the rejoin {g['rows'][rj]['step_s']:.4f} "
+                   f"({per_img / g['rows'][rj]['step_s']:.1f} images/s); parameters and momentum "
+                   f"bitwise the twin's after all {len(g['rows'])} steps; no stale dispatch, no "
+                   f"plan edge on rank {ELASTIC_KILL[0]} until the rejoin; part "
+                   f"{g['seconds']:.1f} s; on {smi}")
+    log("elastic", f"(e) checkpoint after the repair lists live {g['saved_live']}; restored "
+                   f"under a fresh session in {g['resume']['restore_s']:.2f} s, repaired, one "
+                   f"step bitwise the uninterrupted run's; without a session refused "
+                   f"({g['resume']['refused']!r}...)")
+    ef_steps = ", ".join(f"{r['step_s']:.4f}" for r in e["rows"])
+    log("elastic", f"(b) ef atc/int4_ef: step s {ef_steps}; "
+                   f"bitwise the twin's, the CHOCO copies rebuilt at step {k} only; part "
+                   f"{e['seconds']:.1f} s")
+    masses = [(round(x, 6), round(p, 9)) for x, _ax, p in a["mass"]]
+    log("elastic", f"(d) async int8, slow rank {ASYNC_SLOW} at factor {ASYNC_FACTOR}: ticks "
+                   f"bitwise cadence's (median tick {a['tick_s']:.4f} s, due {a['dues']}); rank "
+                   f"{ELASTIC_ASYNC_KILL} killed: {a['rewindows']} re-window, due after "
+                   f"{a['post_dues']}, live (x, p) masses {masses}, "
+                   f"estimates within {a['over']:.3g} of the pre-kill range (bound {a['slack']:.3g}); "
+                   f"part {a['seconds']:.1f} s")
+    pr = numbers["problem"]
+    lv = numbers["liveness"]
+    log("elastic", f"(f) bench.py::run_elastic's problem: detect {pr['detect']} step, consensus "
+                   f"distance {pr['consensus_dist']:.3g} (< {ELASTIC_CONSENSUS_TOL}), card against "
+                   f"CPU {pr['card_err']:.3g} of {pr['scale']:.4g} "
+                   f"({'bitwise' if pr['bitwise'] else 'not bitwise'}); (g) a {lv['waited']:.2f} s "
+                   f"synchronize filed suspects {lv['suspected']}, dump {lv['reason']!r}; a 0.1 s "
+                   f"stall counted, a 0.25 s stall condemned and repaired")
+    log("elastic", f"launches of the parts {counts}")
+    return counts, numbers
+
+
+def phase_elastic_zero(device, sm, tokens, warmup=1, timed=4, smi=""):
+    """Part (c) of the elastic phase on the transformer path's model:
+    zero2/int8 ``DistributedGradientAllreduceOptimizer(adam(1e-4))`` under
+    the guard, rank ``ELASTIC_ZERO_KILL[0]`` killed at step
+    ``ELASTIC_ZERO_KILL[1]``, ``warmup + timed`` steps. Gates: exactly one
+    re-shard, onto the 7 live ranks; every slot leaf's gathered vector
+    bitwise across it; measured Adam state bytes a worker equal to the
+    analytic ones for 8 live before and 7 after; the last step's scatter,
+    as the optimizer dispatched it, bitwise :func:`plain_ring_scatter` at
+    the 7-live owner positions; every parameter row equal and finite;
+    ``encode`` and ``decode`` on every step, the flash kernels on ``sm90``.
+    Returns the launch counts, zeroed just before and read just after."""
+    from bluefog_tpu_torch import scaling
+    from bluefog_tpu_torch.optimizers import _gather_slot_rows, tree_leaves
+
+    rank, kill_step = ELASTIC_ZERO_KILL
+    live = [r for r in range(SIZE) if r != rank]
+    params = sm.replicate()
+    grads = torch.empty_like(params)
+    shard_env(True, True)
+    reset_launch_counts()
+    try:
+        bft.init(size=SIZE, device=device)
+        session = bft.elastic.start(policy="average")
+        session.inject("kill", rank=rank, step=kill_step)
+        opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(ZERO_LR))
+        opt.compression = "int8"
+        guard = bft.elastic.guard(opt)
+        state = opt.init(params)
+        byte_rows = [(scaling.optimizer_state_bytes(state=state, world=SIZE),
+                      scaling.optimizer_state_bytes(params, opt, shard=True))]
+        moved = {}
+        reshard = opt._reshard_state
+
+        def checked_reshard(ctx, old, new, st):
+            slots = [(leaf, gi) for leaf in tree_leaves(st)
+                     for gi in [opt._shard_slot_group(tuple(leaf.shape), old)] if gi is not None]
+            before = [_gather_slot_rows(leaf, old, gi).clone() for leaf, gi in slots]
+            reshard(ctx, old, new, st)
+            moved["leaves"] = len(slots)
+            moved["bitwise"] = all(torch.equal(bits(b), bits(_gather_slot_rows(leaf, new, gi)))
+                                   for b, (leaf, gi) in zip(before, slots))
+            del before
+
+        opt._reshard_state = checked_reshard
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        rows, peaks = [], []
+        for i in range(warmup + timed):
+            if i == kill_step:
+                peaks.append(torch.cuda.max_memory_allocated(device) / 2**30
+                             if device.type == "cuda" else float("nan"))
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(device)
+            a = launch_counts()
+            sync(device)
+            t0 = time.perf_counter()
+            sm.loss_and_grad(params, tokens, tokens, grads)
+            sync(device)
+            t1 = time.perf_counter()
+            params, state = guard.step(params, state, grads)
+            sync(device)
+            b = launch_counts()
+            rows.append({"step_s": time.perf_counter() - t0,
+                         "opt_ms": (time.perf_counter() - t1) * 1e3,
+                         "launches": {k: b[k] - a[k] for k in b}})
+        peaks.append(torch.cuda.max_memory_allocated(device) / 2**30
+                     if device.type == "cuda" else float("nan"))
+        del opt._reshard_state
+        byte_rows.append((scaling.optimizer_state_bytes(state=state, world=SIZE),
+                          scaling.optimizer_state_bytes(params, opt, shard=True, live=live)))
+        layout = opt._shard_layout
+        ctx = bft.get_context()
+        d = opt._resolve_dispatch(ctx, params, True)
+        opt._shard_dispatch(ctx, d, params, state, True)
+        own = opt._scatter_own_grads(d, grads)[0]
+        plain = plain_ring_scatter(grads, layout.groups[0].slot, "int8",
+                                   positions=layout.live_index())
+        scatter_bitwise = torch.equal(bits(own), bits(plain))
+        del own, plain
+        counts = launch_counts()
+        routes = flash.route_counts()
+        rows_equal = bool((params == params[0:1]).all()) and bool(torch.isfinite(params).all())
+        failures = []
+        if opt._shard_reshards != 1 or layout.live != tuple(live):
+            failures.append(f"reshards {opt._shard_reshards}, live {layout.live}")
+        if not moved.get("bitwise") or moved.get("leaves") != 2:
+            failures.append(f"the moments moved {moved}")
+        if any(m != a for m, a in byte_rows):
+            failures.append(f"state bytes measured/analytic {byte_rows}")
+        if not scatter_bitwise:
+            failures.append("the scatter differs from the plain ring at 7 live")
+        if not rows_equal:
+            failures.append("parameter rows differ or are not finite")
+        if session.stale_dispatches or len(session.repairs) != 1:
+            failures.append(f"stale {session.stale_dispatches}, repairs {session.repairs}")
+        if device.type == "cuda":
+            short = [i for i, r in enumerate(rows)
+                     if r["launches"]["encode"] < 1 or r["launches"]["decode"] < 1]
+            off = [k for k in FLASH_KERNELS if routes[k]["sm90"] < 1]
+            if short or off:
+                failures.append(f"steps {short} launched no encode/decode, or no sm90 {off}")
+        if failures:
+            raise AssertionError(f"elastic zero: {'; '.join(failures)}")
+    finally:
+        clear_shard_env()
+        bft.elastic.stop()
+    pre, post = rows[:kill_step], rows[kill_step + 1:]
+    log("elastic", f"(c) zero2/int8 adam on the TransformerLM, rank {rank} killed at step "
+                   f"{kill_step}: one re-shard onto {layout.live}, {moved['leaves']} moment "
+                   f"leaves bitwise across it; step s {pre[-1]['step_s']:.4f} before, "
+                   f"{rows[kill_step]['step_s']:.4f} at the re-shard, {post[-1]['step_s']:.4f} "
+                   f"after; optimizer ms {pre[-1]['opt_ms']:.1f} / {rows[kill_step]['opt_ms']:.1f}"
+                   f" / {post[-1]['opt_ms']:.1f}; peak {peaks[0]:.2f} GiB before, {peaks[1]:.2f} "
+                   f"after; Adam state a worker {byte_rows[0][0]} B (8 live) -> {byte_rows[1][0]} "
+                   f"B (7 live), measured = analytic; the scatter bitwise the plain ring at 7 "
+                   f"live; launches {counts}; on {smi}")
+    bft.init(size=SIZE, device=device)
+    return counts
 
 
 def lm_flops_per_step(sm, seq, batch):
@@ -3065,6 +3827,10 @@ def main():
     reset_launch_counts()
     phase_checkpoint(device, sm, images, labels, smi=smi)
     counts["checkpoint"] = launch_counts()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts["elastic"], _elastic = phase_elastic(device, sm, images, labels, smi=smi)
+    elastic_s = time.perf_counter() - t0
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))
@@ -3101,6 +3867,11 @@ def main():
     del trainer
     torch.cuda.empty_cache()
     counts["zero"], _zero = phase_zero(device, sm, tokens, smi=smi)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts["elastic zero"] = phase_elastic_zero(device, sm, tokens, smi=smi)
+    elastic_s += time.perf_counter() - t0
+    log("elastic", f"phase in {elastic_s:.1f} s (parts a, b, d-g and c)")
     del sm, tokens
     torch.cuda.empty_cache()
     phase_zero_check(device)

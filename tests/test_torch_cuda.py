@@ -983,3 +983,51 @@ def test_synchronize_behind_a_late_kernel_is_a_stall(cuda, tmp_path, monkeypatch
     assert metrics.counter("bluefog.stalls").value == before + 1
     dump = json.load(open(tmp_path / "flight_0.json"))
     assert dump["reason"] == f"stall:synchronize(handle {handle})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int8", "int4_ef"])
+def test_elastic_kill_on_card_is_bitwise_its_twin(cuda, wire):
+    """A rank killed under the elastic guard on the card: the parameters
+    after every step bitwise those of a twin run without a session that
+    installs the repaired topology by hand before the kill step, and the
+    wire kernels launched on every step."""
+    from bluefog_tpu_torch.elastic import repaired_topology
+
+    x0 = torch.from_numpy(np.random.RandomState(3).randn(SIZE, 4096).astype(np.float32))
+    grads = [torch.from_numpy(np.random.RandomState(10 + t).randn(SIZE, 4096)
+                              .astype(np.float32)).to(cuda) for t in range(6)]
+    names = ("encode", "decode_accumulate") if wire == "int8" else ("encode_diff", "decode_add")
+
+    def run(session_on):
+        bft.init(device=cuda)
+        bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = wire
+        if session_on:
+            session = bft.elastic.start(policy="average")
+            session.inject("kill", rank=4, step=2)
+            step = bft.elastic.guard(opt).step
+        else:
+            step = opt.step
+        params = {"w": x0.to(cuda)}
+        state = opt.init(params)
+        out = []
+        for t, g in enumerate(grads):
+            if not session_on and t == 2:
+                live = [r for r in range(SIZE) if r != 4]
+                bft.set_topology(repaired_topology(topo.ExponentialTwoGraph(SIZE), live),
+                                 is_weighted=True)
+            before = kernels.launch_counts()
+            params, state = step(params, state, {"w": g})
+            after = kernels.launch_counts()
+            assert all(after[k] > before[k] for k in names), (t, before, after)
+            out.append(params["w"].cpu())
+        if session_on:
+            assert len(session.repairs) == 1 and session.stale_dispatches == 0
+            bft.elastic.stop()
+        bft.shutdown()
+        return out
+
+    for t, (a, b) in enumerate(zip(run(True), run(False))):
+        assert torch.equal(_bits(a), _bits(b)), t

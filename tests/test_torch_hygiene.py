@@ -48,7 +48,10 @@ def test_port_sources_exist():
             "logging_util.py", "watchdog.py", "timeline.py", "metrics.py", "flight.py",
             "version.py", "torch_average_consensus.py", "torch_decentralized_optimization.py",
             "torch_mnist.py", "torch_long_context.py", "torch_checkpoint_resume.py",
-            "torch_benchmark.py"} <= names
+            "torch_benchmark.py", "faults.py", "membership.py", "repair.py",
+            "recovery.py"} <= names
+    for source in ("__init__.py", "faults.py", "membership.py", "repair.py", "recovery.py"):
+        assert (ROOT / "bluefog_tpu_torch" / "elastic" / source).is_file()
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
         assert (ROOT / "bluefog_tpu_torch" / "csrc" / source).is_file()
 
@@ -87,6 +90,28 @@ def test_observability_exports_have_the_jax_names():
                ).read_text()
         params = list(inspect.signature(getattr(bft, name)).parameters)
         assert re.search(rf"def {name}\(\s*{params[0]}\b", src), name
+
+
+def test_elastic_exports_have_the_jax_names():
+    """``bft.elastic`` exports the names of ``bluefog_tpu/elastic/__init__.py``
+    (compared as source text: the JAX package is not imported), with the
+    signatures of its facade functions."""
+    import inspect
+
+    jax_init = (ROOT / "bluefog_tpu" / "elastic" / "__init__.py").read_text()
+    block = jax_init[jax_init.index("__all__ = ["):]
+    jax_names = re.findall(r'"(\w+)"', block[:block.index("]")])
+    assert len(jax_names) == 22
+    assert sorted(bft.elastic.__all__) == sorted(jax_names)
+    assert "elastic" in bft.__all__
+    for name in jax_names:
+        assert hasattr(bft.elastic, name), name
+    for name in ("start", "stop", "active_session", "inject", "guard"):
+        params = list(inspect.signature(getattr(bft.elastic, name)).parameters)
+        m = re.search(rf"def {name}\(([^)]*)\)", jax_init)
+        want = [p.split(":")[0].split("=")[0].strip().lstrip("*")
+                for p in m.group(1).replace("\n", " ").split(",")]
+        assert params == [w for w in want if w], name
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

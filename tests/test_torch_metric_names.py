@@ -41,5 +41,10 @@ def test_the_guard_sees_the_port_series():
             "bluefog.async.ticks", "bluefog.window_ops.*", "bluefog.shard.grads",
             "bluefog.doctor.advisory.*", "bluefog.allgather.quant_err"} <= code | namespaces
     assert "bluefog.gossip" in namespaces
+    # the elastic series, under the JAX package's names
+    assert {f"bluefog.elastic.{k}" for k in (
+        "faults", "suspects", "stalls", "slow_faults", "repairs", "dead_ranks", "epoch",
+        "last_detect_steps", "repair_ms", "migrations", "rejoins")} | {
+        "bluefog.async.rewindows", "bluefog.shard.reshards"} <= code
     # eager PyTorch builds no program: the port counts no recompiles
     assert "bluefog.recompiles" not in code
