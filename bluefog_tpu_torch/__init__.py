@@ -31,7 +31,10 @@ the Chrome-trace ``timeline`` (``timeline_init``, ``BLUEFOG_TIMELINE``); the
 stall ``watchdog`` (``set_stall_timeout``, ``suspend``, ``resume``,
 ``BLUEFOG_STALL_TIMEOUT``); ``metrics`` (``metrics_snapshot``,
 ``metrics_export``; the sampled gossip probe under ``BLUEFOG_METRICS=1``);
-the ``flight`` recorder (``flight_dump``, ``BLUEFOG_FLIGHT_DIR``).
+the ``flight`` recorder (``flight_dump``, ``BLUEFOG_FLIGHT_DIR``); the
+step-time doctor ``attribution`` (alias ``doctor``, ``BLUEFOG_DOCTOR``),
+the ``staleness`` lineage (``BLUEFOG_STALENESS``) and the ``memory``
+observatory with its OOM forensics (``BLUEFOG_MEMORY``).
 
 Elastic gossip: ``elastic`` (``start``, ``inject``, ``guard``, ``stop``;
 ``BLUEFOG_FAULT_PLAN``, ``BLUEFOG_LIVENESS_TIMEOUT``): a killed or stalled
@@ -42,6 +45,8 @@ engine re-windows, and a checkpoint records the live set.
 from bluefog_tpu_torch.version import __version__
 from bluefog_tpu_torch import async_gossip, checkpoint, collective, ops, scaling, sharding, topology
 from bluefog_tpu_torch import elastic, flight, metrics, timeline, watchdog
+from bluefog_tpu_torch import attribution, memory, staleness
+from bluefog_tpu_torch import attribution as doctor  # the bft.doctor facade
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.flight import dump as flight_dump
 from bluefog_tpu_torch.logging_util import logger, set_log_level
@@ -246,6 +251,10 @@ __all__ = [
     "logger",
     "set_log_level",
     "async_gossip",
+    "attribution",
+    "doctor",
+    "staleness",
+    "memory",
     "elastic",
     "checkpoint",
     "scaling",

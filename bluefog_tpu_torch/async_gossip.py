@@ -73,8 +73,10 @@ mass-conserving weights on the engine's ``self_weight`` and
 set the engine re-windows: the estimate ``x / p`` becomes the new mass with
 ``p = 1``, counting ``bluefog.async.rewindows``.
 
-Not ported here: the staleness-observatory, health and autotune hooks
-(ROADMAP A13b, A12b).
+After each tick the window goes to the staleness observatory under
+``surface="async"`` (:func:`bluefog_tpu_torch.staleness.observe_window`):
+the ages it folds are the ones the gate read. Not ported here: the health
+and autotune hooks (ROADMAP A13b, A12b).
 """
 
 import collections
@@ -87,6 +89,7 @@ import torch
 
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import flight, metrics, watchdog
+from bluefog_tpu_torch import staleness as stal_mod
 from bluefog_tpu_torch import timeline as tl
 from bluefog_tpu_torch import windows as win_mod
 from bluefog_tpu_torch.attribution import Advisory
@@ -575,6 +578,7 @@ class AsyncGossipEngine:
         n_elems = int(np.prod(win.shape)) if win.shape else 1
         metrics.counter("bluefog.async.wire_bytes").inc(metrics.wire_bytes_per_step(
             {win.dtype.itemsize: n_elems}, len(low.perms), self.wire))
+        stal_mod.observe_window(ctx, win, step=self._tick, surface="async")
         self._tick += 1
         out = self.params()
         loss = self._losses.clone()

@@ -206,7 +206,15 @@ def _gather_sharded_state(opt_state, layout) -> Tuple[dict, dict]:
 def save(path: str, step: int, params, opt_state, optimizer=None, extra=None) -> str:
     """Write the checkpoint ``<path>/<step>`` (atomically: a temporary
     directory renamed into place) and its graph sidecar; returns the
-    directory. ``extra`` is saved beside the state (module buffers)."""
+    directory. ``extra`` is saved beside the state (module buffers). It
+    runs inside the memory observatory's ``checkpoint_save`` phase."""
+    from bluefog_tpu_torch import memory as mem_mod
+
+    with mem_mod.phase_scope("checkpoint_save"):
+        return _save(path, step, params, opt_state, optimizer, extra)
+
+
+def _save(path: str, step: int, params, opt_state, optimizer, extra) -> str:
     root = os.path.abspath(path)
     os.makedirs(root, exist_ok=True)
     target = os.path.join(root, str(int(step)))

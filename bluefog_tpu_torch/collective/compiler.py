@@ -19,14 +19,27 @@ round is a gather in device memory and the chunks of a wavefront run one
 after another on one stream, so pipelining gains nothing and the chooser
 picks one chunk unless ``BLUEFOG_PLAN_CHUNKS`` asks for more.
 :func:`compile_edges` memoizes its structures under the JAX package's key
-and counts ``bluefog.plan_cache.hits`` and ``.misses``. Left out until
-ROADMAP A13b: the short-cut relay family (``method="shortcut"``, and so
-``BLUEFOG_PLAN_METHOD=shortcut``, raise) and the measured probe
-``calibrate`` (``BLUEFOG_PLAN_CALIBRATE=1`` raises).
+and counts ``bluefog.plan_cache.hits`` and ``.misses``.
+
+The measured calibration (:func:`calibrate`) times the port's own round,
+a gather of a stacked ``[8, elems]`` f32 tensor on the context's device
+(CUDA events on the card, the calls queued behind a device sleep so that
+the host's launches do not pace them; the host clock on the CPU): one
+full-ring round
+at a small and a large payload gives ``alpha_s`` and
+``beta_bytes_per_s`` (one worker's bytes over the round, as in the JAX
+package), two rounds monolithic against the 4-chunk wavefront give
+``pipeline_eff``. It installs them under :data:`TRANSPORT_LINK_CLASS`;
+``BLUEFOG_PLAN_CALIBRATE=1`` runs it before the chooser prices. The
+attribution doctor prices its probes with the same class
+(:func:`predicted_round_costs_s`, :func:`degraded_round_penalty_s`). Left
+out until ROADMAP A13b: the short-cut relay family (``method="shortcut"``,
+and so ``BLUEFOG_PLAN_METHOD=shortcut``, raise).
 """
 
 import dataclasses
 import os
+import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 __all__ = [
@@ -44,12 +57,15 @@ __all__ = [
     "min_rounds",
     "round_cost_s",
     "plan_cost_s",
+    "degraded_round_penalty_s",
     "pipelined_cost_s",
+    "predicted_round_costs_s",
     "chunk_option",
     "choose_chunks",
     "CompiledReduceScatter",
     "compile_reduce_scatter",
     "reduce_scatter_chunks",
+    "calibrate",
     "calibration",
     "set_calibration",
     "clear_calibration",
@@ -159,17 +175,132 @@ def plan_method() -> str:
     return method
 
 
-def _maybe_autocalibrate() -> None:
-    """``BLUEFOG_PLAN_CALIBRATE=1`` asks for the measured probe, which the
-    port has not yet (ROADMAP A13b): refuse rather than quietly price with
-    the class constants."""
+def _timed_round_s(body, x, device, steps: int, windows: int) -> float:
+    """Seconds per call of ``body(x)``: ``windows`` timed windows of
+    ``steps`` calls each after two warm-ups, the best window's mean. On the
+    card CUDA events time the device: a window's calls are queued behind a
+    device sleep, so the host's launches (which alone outlast a small
+    round) do not starve it; the sleep grows until the queue outlasts the
+    launches. Elsewhere the host clock."""
+    for _ in range(2):
+        body(x)
+    best = None
+    for _ in range(max(1, int(windows))):
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+            cycles = 1 << 24
+            for _attempt in range(4):
+                queued, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                queued.record()
+                torch.cuda._sleep(cycles)
+                start.record()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    body(x)
+                launch_ms = (time.perf_counter() - t0) * 1e3
+                end.record()
+                end.synchronize()
+                if launch_ms < queued.elapsed_time(start):
+                    break
+                cycles *= 4
+            else:
+                raise RuntimeError(
+                    f"calibrate: {steps} calls took {launch_ms:.3f} ms to launch, longer than "
+                    "the device sleep queued before them; the probe would time the host")
+            dt = start.elapsed_time(end) / 1e3 / steps
+        else:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                body(x)
+            dt = (time.perf_counter() - t0) / steps
+        best = dt if best is None else min(best, dt)
+    return best
+
+
+def calibrate(force: bool = False, small_elems: int = 2048, large_elems: int = 1 << 21,
+              steps: int = 4, windows: int = 2,
+              link_class: str = TRANSPORT_LINK_CLASS) -> Dict[str, object]:
+    """The measured probe of the cost model's constants, on the stacked
+    transport: a round is ``inner._gather`` of an ``[8, elems]`` f32
+    tensor (``RandomState(0)``) on the context's device, timed on the
+    device (:func:`_timed_round_s`).
+
+    - one full-ring round at ``small_elems`` gives ``alpha_s``;
+    - the same at ``large_elems`` gives ``beta_bytes_per_s``, one worker's
+      byte delta over the time delta (the JAX package's definition; the
+      gather itself reads and writes all eight rows);
+    - two rounds (forward and backward ring) at ``large_elems``,
+      monolithic against the 4-chunk wavefront of
+      ``inner._wavefront_gathers``, give ``pipeline_eff``, the measured
+      share of the ideal pipelined gain ``8 / 5``.
+
+    The result is installed under :data:`TRANSPORT_LINK_CLASS` with
+    ``source="measured-probe"`` and priced from then on; an installed
+    calibration is returned as it is unless ``force``. ``"ici"`` and
+    ``"dcn"`` are fabrics the port does not have: their pin, else their
+    class constants, come back unprobed. A probe that fails raises."""
+    _check_link_class(link_class)
+    if _CAL.get(link_class) is not None and not force:
+        return calibration(link_class)
+    if link_class != TRANSPORT_LINK_CLASS:
+        return calibration(link_class)
+
+    import numpy as np
+    import torch
+
+    from bluefog_tpu_torch import context as ctx_mod
+    from bluefog_tpu_torch.collective import inner
+
+    device = ctx_mod.get_context().device
+    n = 8
+    fwd = torch.tensor([(j - 1) % n for j in range(n)], dtype=torch.int32, device=device)
+    bwd = torch.tensor([(j + 1) % n for j in range(n)], dtype=torch.int32, device=device)
+    src2 = torch.stack([fwd, bwd])
+
+    def payload(elems):
+        return torch.from_numpy(
+            np.random.RandomState(0).randn(n, elems).astype(np.float32)).to(device)
+
+    def one_round(t):
+        return inner._gather(t, fwd)
+
+    def two_round(t):
+        return inner._gather(t, fwd) + inner._gather(t, bwd)
+
+    def two_round_chunked(t):
+        parts = [t[:, a:b] for a, b in inner.chunk_bounds(t.shape[1], 4)]
+        recv = inner._chunked_rounds(parts, src2)
+        return recv[0] + recv[1]
+
+    x_small, x_large = payload(small_elems), payload(large_elems)
+    t_small = _timed_round_s(one_round, x_small, device, steps, windows)
+    t_large = _timed_round_s(one_round, x_large, device, steps, windows)
+    alpha = max(t_small, 1e-9)
+    beta = (large_elems - small_elems) * 4 / max(t_large - t_small, 1e-9)
+    t_mono = _timed_round_s(two_round, x_large, device, steps, windows)
+    t_chunk = _timed_round_s(two_round_chunked, x_large, device, steps, windows)
+    ideal_gain = (2 * 4) / (2 + 4 - 1)
+    gain = t_mono / max(t_chunk, 1e-9)
+    pipeline_eff = min(1.0, max(0.0, (gain - 1.0) / (ideal_gain - 1.0)))
+    _CAL[link_class] = {
+        "alpha_s": float(alpha),
+        "beta_bytes_per_s": float(beta),
+        "pipeline_eff": float(pipeline_eff),
+        "source": "measured-probe",
+        "probe_devices": n,
+        "probe_device": str(device),
+        "probe_gain_2round_4chunk": float(gain),
+    }
+    return calibration(link_class)
+
+
+def _maybe_autocalibrate(link_class: str = TRANSPORT_LINK_CLASS) -> None:
+    """``BLUEFOG_PLAN_CALIBRATE=1``: run :func:`calibrate` for the class the
+    chooser prices with (once; an installed calibration is kept)."""
     if os.environ.get("BLUEFOG_PLAN_CALIBRATE", "0") in ("1", "true", "on"):
-        raise NotImplementedError(
-            "BLUEFOG_PLAN_CALIBRATE=1: the measured probe compiler.calibrate is "
-            "not ported yet (ROADMAP A13b); unset it (the chooser then prices "
-            "with the class constants) or install constants with "
-            "compiler.set_calibration()"
-        )
+        calibrate(link_class=link_class)
 
 
 def round_cost_s(payload_bytes: float, congestion: float = 1.0,
@@ -182,6 +313,30 @@ def round_cost_s(payload_bytes: float, congestion: float = 1.0,
 def plan_cost_s(n_rounds: int, payload_bytes: float, link_class: str = "ici") -> float:
     """Rounds are sequential: rounds x the cost of one."""
     return n_rounds * round_cost_s(payload_bytes, link_class=link_class)
+
+
+def degraded_round_penalty_s(payload_bytes: float, factor: float, congestion: float = 1.0,
+                             link_class: str = "ici") -> float:
+    """Extra seconds a round pays when a crossing link runs at ``factor``
+    of its bandwidth: the round's modeled cost times ``1 / factor - 1``
+    (0 outside ``(0, 1)``); the chaos layer's delay of the doctor's
+    probes."""
+    if not 0.0 < factor < 1.0:
+        return 0.0
+    return (1.0 / factor - 1.0) * round_cost_s(payload_bytes, congestion, link_class)
+
+
+def predicted_round_costs_s(info, payload_bytes: float, n_rounds: Optional[int] = None,
+                            link_class: str = "ici") -> Tuple[float, ...]:
+    """Per-round predicted cost at ``payload_bytes`` under the active
+    calibration, the model the doctor holds its probes to: every round of
+    ``info`` (a :class:`CompiledEdges`; the port prices each at congestion
+    1), or ``n_rounds`` rounds when ``info`` is None or has none."""
+    if info is not None and info.rounds:
+        n = info.rounds
+    else:
+        n = n_rounds if n_rounds is not None else (info.rounds if info is not None else 0)
+    return tuple(round_cost_s(payload_bytes, 1.0, link_class) for _ in range(n))
 
 
 def pipelined_cost_s(payload_bytes: float, n_chunks: int, congestions: Sequence[float],
@@ -432,7 +587,7 @@ def choose_chunks(compiled, payload_bytes: float, n_elems: Optional[int] = None,
         return k
     if method not in (None, "auto"):
         return 1
-    _maybe_autocalibrate()
+    _maybe_autocalibrate(link_class)
     rounds = compiled.rounds if isinstance(compiled, CompiledEdges) else int(compiled)
     k, _cost = chunk_option(payload_bytes, (1.0,) * rounds, n_elems, link_class=link_class)
     return k
@@ -485,7 +640,7 @@ def reduce_scatter_chunks(size: int, payload_bytes: float,
     k = _env_chunks(n_elems)
     if k is not None:
         return k
-    _maybe_autocalibrate()
+    _maybe_autocalibrate(link_class)
     k, _cost = chunk_option(payload_bytes, info.congestion or (1.0,) * info.rounds, n_elems,
                             link_class=link_class)
     return k

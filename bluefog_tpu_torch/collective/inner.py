@@ -58,6 +58,7 @@ __all__ = [
     "broadcast",
     "pair_gossip",
     "barrier",
+    "lineage_exchange",
     "plan_operands",
     "schedule_operands",
 ]
@@ -662,6 +663,18 @@ def pair_gossip(
     gossiped = xw * sw + _gather(xw, src) * pw
     paired = (src >= 0).view((-1,) + (1,) * (x.dim() - 1))
     return torch.where(paired, gossiped, xw)
+
+
+def lineage_exchange(tags: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The staleness observatory's provenance lane: each round's int32
+    lineage tag shipped along that round's gather. ``tags`` is ``[n_rounds,
+    N, k]`` (row ``j`` of round ``r`` the stamp worker ``j`` sends in round
+    ``r``), ``src`` the rounds' sources ``[n_rounds, N]``; returns the
+    delivered tags ``[n_rounds, N, k]``, zeros where a worker receives
+    nothing in a round (the JAX ``lineage_exchange``, stacked)."""
+    if src.shape[0] == 0:
+        return torch.zeros_like(tags)
+    return torch.stack([_gather(tags[r], src[r]) for r in range(src.shape[0])])
 
 
 def barrier(device) -> None:

@@ -163,7 +163,8 @@ def barrier() -> None:
 def _enqueue(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``: an op's or an optimizer step's dispatch, an
     ``ENQUEUE`` span of the timeline when one is open (the JAX
-    ``_timed_dispatch``, without the memory observatory's phase)."""
+    ``_timed_dispatch``; the optimizers' ``_timed_dispatch`` adds the
+    memory observatory's phase)."""
     if not tl.timeline_enabled():
         return fn(*args, **kwargs)
     t0 = tl.timeline_now_us()

@@ -20,7 +20,8 @@ drops them with it.
 ``init`` reads the knobs the JAX context reads: ``BLUEFOG_NODES_PER_MACHINE``
 (the machine split when ``nodes_per_machine`` is not given),
 ``BLUEFOG_TIMELINE`` (:mod:`bluefog_tpu_torch.timeline`), the flight
-recorder's and the metrics' knobs; it refuses a set ``BLUEFOG_PODS``, a
+recorder's and the metrics' knobs, and the observatories' switches
+(``BLUEFOG_DOCTOR``, ``BLUEFOG_STALENESS``, ``BLUEFOG_MEMORY``); it refuses a set ``BLUEFOG_PODS``, a
 declared federation the port cannot honour yet (ROADMAP A12b). The plans
 of the active topology follow ``BLUEFOG_PLAN_METHOD``
 (:func:`bluefog_tpu_torch.collective.compiler.plan_method`).
@@ -287,11 +288,13 @@ def init(
     machines of ``nodes_per_machine`` workers (default
     ``BLUEFOG_NODES_PER_MACHINE``, else one machine of all) for the
     hierarchical ops. Closes an open elastic session (it is bound to the
-    old context's membership), opens the timeline of ``BLUEFOG_TIMELINE``
-    and a fresh flight recorder, and sets the ``bluefog.size`` and
+    old context's membership), opens the timeline of ``BLUEFOG_TIMELINE``,
+    a fresh flight recorder and the observatory sessions their switches
+    ask for, and sets the ``bluefog.size`` and
     ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` is refused."""
     global _context
-    from bluefog_tpu_torch import async_gossip, elastic, flight, metrics
+    from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, memory, metrics
+    from bluefog_tpu_torch import staleness
     from bluefog_tpu_torch import timeline as tl
 
     pods = os.environ.get("BLUEFOG_PODS", "").strip()
@@ -309,6 +312,11 @@ def init(
     tl.maybe_init_from_env()
     # after the timeline, so the session_start clock triple carries its clock
     flight.on_init(ctx)
+    # fresh observatory sessions for a fresh context; memory's OOM hook
+    # installs after the flight recorder's, so it runs first
+    attribution.on_init(ctx)
+    staleness.on_init(ctx)
+    memory.on_init(ctx)
     async_gossip.on_init(ctx)
     metrics.gauge("bluefog.size").set(ctx.size)
     metrics.gauge("bluefog.machine_size").set(ctx.machine_size)
@@ -317,16 +325,20 @@ def init(
 
 def shutdown() -> None:
     """Drop the global context (reference ``bf.shutdown``): close the
-    elastic session and the flight session, fold the pending probe payloads
+    elastic session, the observatory sessions and the flight session, fold the pending probe payloads
     and run the env-configured exporters, then close a timeline ``init``
     opened from ``BLUEFOG_TIMELINE`` (a timeline the user opened stays
     open)."""
     global _context
-    from bluefog_tpu_torch import async_gossip, elastic, flight, metrics
+    from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, memory, metrics
+    from bluefog_tpu_torch import staleness
     from bluefog_tpu_torch import timeline as tl
 
     elastic.stop()
     async_gossip.on_shutdown()
+    attribution.on_shutdown()
+    staleness.on_shutdown()
+    memory.on_shutdown()
     if _context is not None:
         flight.on_shutdown()
     metrics.flush()

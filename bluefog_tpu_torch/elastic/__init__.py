@@ -22,8 +22,9 @@ Quick start::
     ...
     bft.elastic.stop()
 
-The ``oom`` fault kind parses but is refused (``NotImplementedError``) until
-the memory observatory is ported (ROADMAP A13b).
+An ``oom`` fault runs the memory observatory's forensics
+(:mod:`bluefog_tpu_torch.memory`) at its step and raises
+``SimulatedResourceExhausted``.
 """
 
 from typing import Optional

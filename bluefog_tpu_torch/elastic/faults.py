@@ -58,13 +58,12 @@ Plan grammar (``BLUEFOG_FAULT_PLAN``), semicolon-separated clauses::
   This is the 10x-straggler chaos primitive the ``BENCH_MODE=async``
   evidence drives: rank-scoped by definition (``peer=`` is rejected —
   a slow *chip* has no single slow edge).
-- ``oom``      — simulated device allocation failure, served in the JAX
-  package by its memory observatory's OOM forensics. It parses here
-  (rank-scoped like ``slow``: ``peer=``/``seconds=``/``factor=`` are
-  rejected), but the port has no memory observatory yet (ROADMAP A13b:
-  ``memory.py``), so an elastic session refuses a plan that holds one,
-  and :meth:`~bluefog_tpu_torch.elastic.recovery.ElasticSession.inject`
-  refuses the kind, with ``NotImplementedError``.
+- ``oom``      — simulated device allocation failure: at its step the
+  memory observatory's OOM forensics run (:func:`bluefog_tpu_torch.memory.
+  on_oom`: ranked census, flight advisory and dump) and the dispatch
+  raises :class:`~bluefog_tpu_torch.memory.SimulatedResourceExhausted`.
+  Rank-scoped like ``slow``: ``peer=``/``seconds=``/``factor=`` are
+  rejected.
 
 Programmatic equivalent: :func:`bluefog_tpu_torch.elastic.inject`.
 """

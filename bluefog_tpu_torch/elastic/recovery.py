@@ -28,8 +28,10 @@ edge set changed; a ZeRO layout re-shards on the new live set
 (``_GossipOptimizer._shard_prepare``) and the async engine re-windows
 (``AsyncGossipEngine._ensure_window``).
 
-The ``oom`` fault is refused: the JAX package serves it through its memory
-observatory, which the port does not have yet (ROADMAP A13b, ``memory.py``).
+An ``oom`` fault runs the memory observatory's forensics at its step
+(:func:`bluefog_tpu_torch.memory.on_oom`: ranked census, flight advisory
+and dump) and raises :class:`~bluefog_tpu_torch.memory.SimulatedResourceExhausted`
+before the dispatch; it is no verdict and triggers no repair.
 """
 
 import dataclasses
@@ -130,18 +132,6 @@ def rebind(optimizer) -> None:
         optimizer._acct_cache = {}
 
 
-def _refuse_oom(fault: Fault) -> None:
-    """The ``oom`` fault needs the memory observatory's OOM forensics,
-    which the port does not have yet: refuse it where it enters a session,
-    never skip it quietly."""
-    if fault.kind == "oom":
-        raise NotImplementedError(
-            f"the oom fault (rank {fault.rank}, step {fault.step}) needs the memory "
-            "observatory, which the port does not run yet (ROADMAP A13b: memory.py); "
-            "remove it from the plan"
-        )
-
-
 class ElasticSession:
     """One elastic run: chaos replay, liveness, repair, recovery.
 
@@ -170,8 +160,6 @@ class ElasticSession:
         ctx = ctx_mod.get_context()
         plan = plan if plan is not None else FaultPlan.from_env()
         plan.validate(ctx.size)
-        for fault in plan.faults:
-            _refuse_oom(fault)
         self.ctx = ctx
         self.policy = policy
         self.membership = Membership(ctx.size)
@@ -244,11 +232,10 @@ class ElasticSession:
         payload-hold simulation) or bounds a ``slow`` fault's
         compute-dilation window; ``factor`` is the link scale for
         ``degrade`` (in (0, 1]) and the compute dilation for ``slow``
-        (>= 1). An ``oom`` fault raises ``NotImplementedError``."""
+        (>= 1)."""
         fault = Fault(kind=kind, rank=int(rank), step=int(step),
                       seconds=float(seconds), factor=float(factor),
                       peer=int(peer), hold_steps=int(steps))
-        _refuse_oom(fault)
         if not 0 <= fault.rank < self.ctx.size:
             raise ValueError(
                 f"rank {fault.rank} out of range for {self.ctx.size} workers"
@@ -263,9 +250,9 @@ class ElasticSession:
     def simulated_wire_factors(self) -> Dict:
         """Degrade faults active at the current session step, as a
         ``{(src, dst) | rank: factor}`` map — the deterministic wire
-        simulation the JAX package's attribution doctor's probe
-        dispatches consult. The port has no reader of it yet: the probes
-        are ROADMAP A13b. A stacked transport has no physically slow link;
+        simulation the attribution doctor's probes consult
+        (:meth:`bluefog_tpu_torch.attribution.StepDoctor._chaos_delay_s`).
+        A stacked transport has no physically slow link;
         this is the chaos layer's stand-in, so degraded-link
         *localization from timings alone* is a reproducible unit test."""
         out: Dict = {}
@@ -296,10 +283,11 @@ class ElasticSession:
     def simulated_stale_steps(self) -> Dict:
         """Stall faults with a step-clock extent (``steps=``) active at
         the current session step, as a ``{(src, dst) | rank:
-        extra_age}`` map — the JAX package's staleness observatory's
-        deterministic wire simulation (the age analogue of
-        :meth:`simulated_wire_factors`). The port has no reader of it
-        yet: the staleness lineage is ROADMAP A13b.
+        extra_age}`` map — the staleness observatory's deterministic
+        wire simulation (the age analogue of
+        :meth:`simulated_wire_factors`), read when it stamps the lineage
+        lane (:mod:`bluefog_tpu_torch.staleness`) and by the breach
+        suspects (:func:`bluefog_tpu_torch.attribution.suspect_join`).
 
         A rank stalled since fault step ``s`` keeps shipping its
         step-``s`` payload: at session step ``t`` in ``[s, s +
@@ -394,6 +382,23 @@ class ElasticSession:
                 f"elastic:slow rank={fault.rank} "
                 f"factor={fault.factor:g}", "FAULT"
             )
+        elif fault.kind == "oom":
+            # a simulated allocation failure: the memory observatory's
+            # forensics (ranked census -> flight side table -> dump), then
+            # the raise a real one gives; the dispatch of this step never
+            # runs. No verdict and no repair: the fault is consumed, so a
+            # retry proceeds past it.
+            from bluefog_tpu_torch import memory as memory_mod
+
+            metrics_mod.counter("bluefog.elastic.oom_faults").inc()
+            tl.timeline_record_instant(f"elastic:oom rank={fault.rank}", "FAULT")
+            memory_mod.on_oom(f"chaos:rank={fault.rank}",
+                              "RESOURCE_EXHAUSTED: injected allocation failure")
+            exc = memory_mod.SimulatedResourceExhausted(f"rank={fault.rank} step={step}")
+            # the forensics ran: the memory excepthook must not count the
+            # uncaught raise a second time
+            exc._bf_oom_forensics_done = True
+            raise exc
 
     # -- detection + repair --------------------------------------------------
 

@@ -77,19 +77,34 @@ sample or at :func:`bluefog_tpu_torch.metrics.flush`. A step that is not
 sampled runs the code it runs with metrics off. The JAX package's
 ``compile`` records and ``bluefog.recompiles`` have no counterpart here
 (see :mod:`bluefog_tpu_torch.metrics`), nor has the memory observatory's
-phase of the JAX ``_timed_dispatch`` (ROADMAP A13c).
+``compile`` phase (eager PyTorch builds no program).
+
+The observatories, as in the JAX package: every communicating step of
+both dispatch paths times its enqueue for the doctor when it will sample
+(:func:`bluefog_tpu_torch.attribution.dispatch_timer`), and after the
+enqueue hands the step to :func:`bluefog_tpu_torch.attribution.observe_step`,
+:func:`bluefog_tpu_torch.staleness.observe_step` (the fused path with the
+delay buffer's payload age and ``surface="delayed"``) and
+:func:`bluefog_tpu_torch.memory.observe_step`; the window optimizers hand
+their window to :func:`bluefog_tpu_torch.staleness.observe_window`. With a
+memory session open each enqueue runs inside its ``dispatch`` phase
+(:func:`_timed_dispatch`). A step that none of them samples runs the code
+it runs with them off.
 """
 
 import enum
 import itertools
+import time
 from typing import Callable, List, Optional, Union
 
 import torch
 
 import numpy as np
 
+from bluefog_tpu_torch import attribution, flight, metrics, sharding
 from bluefog_tpu_torch import context as ctx_mod
-from bluefog_tpu_torch import flight, metrics, sharding
+from bluefog_tpu_torch import memory as mem_mod
+from bluefog_tpu_torch import staleness as stal_mod
 from bluefog_tpu_torch import windows as win_mod
 from bluefog_tpu_torch.collective import compiler, inner
 from bluefog_tpu_torch.collective import ops as col_ops
@@ -395,6 +410,20 @@ class CommunicationType(enum.Enum):
 _EF_TIERS = ("int8_ef", "int4_ef")
 
 
+def _timed_dispatch(name: str, fn, *args, **kwargs):
+    """An optimizer's enqueue (:func:`bluefog_tpu_torch.collective.ops._enqueue`),
+    inside the memory observatory's ``dispatch`` phase when a session is
+    open (the JAX ``_timed_dispatch``)."""
+    if mem_mod.active() is None:
+        return col_ops._enqueue(name, fn, *args, **kwargs)
+    with mem_mod.phase_scope("dispatch"):
+        return col_ops._enqueue(name, fn, *args, **kwargs)
+
+
+def _elapsed(t0: Optional[float]) -> Optional[float]:
+    return time.perf_counter() - t0 if t0 is not None else None
+
+
 class _Dispatch:
     """One step's resolved communication: ``combine`` maps a packed ``[N,
     n]`` payload to its combine (``combine(flat, ef_pair)`` for the EF
@@ -474,6 +503,12 @@ class _GossipOptimizer:
         self._grad_accum = None  # "grad" order: the gradient sum between communications
         self._ef = self._ef_sig = None
         self._delay_buf = self._delay_sig = None
+        # the communication count the delay buffer was last written at: the
+        # delayed combine's payload age is the distance to it
+        self._delay_birth_comm = 0
+        # the plan this step's gossip runs (None for allreduce, hierarchical
+        # and empty communication): what the doctor and the lineage probe
+        self._last_plan = None
         self._shard_layout = None  # the active ShardLayout under BLUEFOG_SHARD=1
         self._shard_reshards = 0  # re-shards onto a changed live set
         self._elementwise = None  # (inner optimizer, whether the probe found it elementwise)
@@ -934,6 +969,7 @@ class _GossipOptimizer:
                 f"this optimizer uses {comm.value!r}"
             )
         ones = lambda: torch.ones(ctx.size, dtype=torch.float32, device=ctx.device)  # noqa: E731
+        self._last_plan = None
         if not comm_now or comm == CommunicationType.empty:
             return _Dispatch(("local",) if not comm_now else ("empty",), lambda t: t, ones)
         step = self._comm_count
@@ -943,9 +979,11 @@ class _GossipOptimizer:
         if comm == CommunicationType.hierarchical_neighbor_allreduce:
             return self._hier_dispatch(ctx, step)
         if self.schedule is not None:
+            self._last_plan = self.schedule.plans[step % self.schedule.period]
             return self._schedule_dispatch(ctx, self.schedule, step)
         plan = col_ops._resolve_plan(ctx, self.self_weight, self.src_weights,
                                      self.dst_weights, self.enable_topo_check)
+        self._last_plan = plan
         return self._plan_dispatch(ctx, params, plan)
 
     # -- the step -------------------------------------------------------------------
@@ -1175,9 +1213,21 @@ class _GossipOptimizer:
             self._comm_count += 1
         if met_enabled:
             self._record_comm_accounting(d, params, ctx)
-        payload = col_ops._enqueue("optimizer_step", self._combine_update, d, params, opt_state,
-                                   grads, with_metrics=met, wire=wire_now)
+        doc_t0 = attribution.dispatch_timer(comm_now)
+        payload = _timed_dispatch("optimizer_step", self._combine_update, d, params, opt_state,
+                                  grads, with_metrics=met, wire=wire_now)
         flight.record("step_dispatched", step=self._step_count - 1)
+        if comm_now:
+            # host-side observers: the dispatched step above is untouched;
+            # the two-program path always gossips the fresh iterate (age 0)
+            step = self._step_count - 1
+            attribution.observe_step(ctx, step=step, outputs=params, plan=self._last_plan,
+                                     params=params, wire=self.compression,
+                                     dispatch_s=_elapsed(doc_t0))
+            stal_mod.observe_step(ctx, step=step, plan=self._last_plan, payload_age=0,
+                                  surface="sync")
+            mem_mod.observe_step(ctx, step=step, optimizer=self, params=params,
+                                 opt_state=opt_state, grads=grads)
         if met:
             self._drain_after_sample(wire_now, payload)
         return params, opt_state
@@ -1195,6 +1245,9 @@ class _GossipOptimizer:
         self._delay_buf = [_pack(group).clone()
                            for _name, group in _dtype_groups(tree_leaves(params))]
         self._delay_sig = sig
+        # a (re)seeded buffer holds the current parameters: the next
+        # combine's payload age is 0
+        self._delay_birth_comm = self._comm_count
 
     def _stale_mix(self, d: _Dispatch, params, sw: torch.Tensor) -> None:
         """``y = C(buf) + s * (x - buf)`` per dtype group, in place on the
@@ -1269,10 +1322,27 @@ class _GossipOptimizer:
             flight.record("step_begin", step=self._step_count, comm=comm_now, fused=True)
             if met_enabled:
                 self._record_comm_accounting(d, params, ctx)
-            loss, aux, payload = col_ops._enqueue(
+            # the age of the payload this step's combine consumes: 0 fresh,
+            # the communications since the delay buffer was written delayed
+            cur_comm = self._comm_count
+            payload_age = cur_comm - self._delay_birth_comm if delay_now else 0
+            doc_t0 = attribution.dispatch_timer(comm_now)
+            loss, aux, payload = _timed_dispatch(
                 "fused_train_step", self._fused_body, d, params, opt_state, batch, loss_fn,
                 has_aux, grads_store, comm_now, delay_now, met, wire_now)
             flight.record("step_dispatched", step=self._step_count - 1)
+            if comm_now:
+                step = self._step_count - 1
+                attribution.observe_step(ctx, step=step, outputs=loss, plan=self._last_plan,
+                                         params=params, wire=self.compression,
+                                         dispatch_s=_elapsed(doc_t0))
+                stal_mod.observe_step(ctx, step=step, plan=self._last_plan,
+                                      payload_age=payload_age,
+                                      surface="delayed" if delay_now else "sync")
+                mem_mod.observe_step(ctx, step=step, optimizer=self, params=params,
+                                     opt_state=opt_state)
+                if delay_now:  # the step refilled the buffer with its payload
+                    self._delay_birth_comm = cur_comm
             if met:
                 # the delayed probe measures the stale mix, with no wire slots
                 self._drain_after_sample(None if delay_now else wire_now, payload)
@@ -1629,9 +1699,12 @@ class _WindowOptimizer:
             )
         comm_now = self._step_count % k == k - 1
         self._step_count += 1
-        return col_ops._enqueue(
+        out = _timed_dispatch(
             "window_optimizer_step" if comm_now else "window_optimizer_step_local",
             self._step_body, win, opt_state, grads, comm_now)
+        if comm_now:
+            stal_mod.observe_window(ctx_mod.get_context(), win, step=self._step_count - 1)
+        return out
 
     def _step_body(self, win, opt_state, grads, comm_now: bool):
         views = self._leaf_views(win.value)

@@ -51,8 +51,10 @@ counts ``bluefog.window_ops.<mode>`` and ``bluefog.window_wire_bytes`` and
 leaves a ``window_op`` flight record, and so does each ``win_update``
 (``bluefog.window_ops.update``); the window optimizers' and the
 asynchronous engine's own exchanges are counted by their own series, as
-the JAX programs are. The rounds follow ``BLUEFOG_PLAN_METHOD``. The
-staleness observatory is not ported (ROADMAP A13b).
+the JAX programs are. The rounds follow ``BLUEFOG_PLAN_METHOD``. Each
+``win_update`` hands the window to the staleness observatory
+(:func:`bluefog_tpu_torch.staleness.observe_window`) before its combine, at
+the point the ages are consumed.
 """
 
 import contextlib
@@ -65,6 +67,7 @@ import torch
 
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import flight, metrics
+from bluefog_tpu_torch import staleness as stal_mod
 from bluefog_tpu_torch.collective import compiler, inner, kernels
 from bluefog_tpu_torch.collective.ops import _check_worker_tensor, worker_values
 from bluefog_tpu_torch.collective.plan import perms_from_edges
@@ -763,6 +766,7 @@ def win_update(name: str = None, self_weight=None, neighbor_weights=None,
     win = _get_win(ctx, name)
     metrics.counter("bluefog.window_ops.update").inc()
     flight.record("window_op", op="update", window=win.name)
+    stal_mod.observe_window(ctx, win)
     _dispatch_update(win, ctx, self_weight, neighbor_weights, reset)
     return win.value.clone() if clone else win.value
 

@@ -169,6 +169,42 @@ Phases, one line each; any failure exits non-zero:
                ``plain_ring_scatter`` at the 7-live owner positions, the
                parameter rows equal, encode/decode every step and the flash
                kernels on ``sm90``; files under ``build/elastic``, deleted;
+11c. observatories -- the doctor, the staleness lineage and the memory
+               observatory at full width, each part's launch counts zeroed
+               just before it and read just after, one line a part: (a) the
+               stacked transport's measured calibration (gates: source
+               ``measured-probe``, ``alpha > 0``, ``0 < beta x 2 x 8 <=`` the
+               card's memory rate; then cleared), ResNet50 ATC int8 on the
+               weighted Exp2 graph with ``BLUEFOG_DOCTOR=1`` at interval 1,
+               1 + 4 steps bitwise a doctor-off run, a probe for every round
+               of the plan, no advisory; then a ``degrade`` fault on the edge
+               2 -> 3 at 0.05 for 3 steps: ``degraded_link`` naming only that
+               edge on the counter, the flight side table and
+               ``BLUEFOG_DOCTOR_FILE``, triaged by ``tools/doctor.py``; (b)
+               ``BLUEFOG_STALENESS=1`` at interval 1, bound 2: the sync
+               surface at age 0 with no self-check failure; ``delayed=True``
+               at age 1, 0 at the reseed of a topology swap; a ``stall``
+               fault (``steps=3``) on 2 -> 3 ramping 1, 2, 3 and recovering,
+               one ``staleness_breach`` naming only it; the async phase's
+               straggler (int8, 1 + 4 ticks) whose ``surface="async"`` ages
+               equal the engine gate's; every run bitwise staleness off;
+               ``tools/staleness_report.py`` reads the dump; (c) after 11b's
+               part c, the TransformerLM under replicated and zero2/int8 Adam
+               with ``BLUEFOG_MEMORY=1`` at interval 1 (1 + 2 steps each):
+               the census's ``opt_state`` bytes equal to
+               ``scaling.optimizer_state_bytes``, the census total at most
+               the allocator's allocated bytes; a budget of 1.1x zero2's
+               watermark files ``memory_pressure`` with the shard hint on the
+               replicated run and none on zero2; an ``oom`` fault raises
+               ``SimulatedResourceExhausted`` at its step, the flight dump's
+               ``oom`` advisory ranks ``opt_state`` first (also in
+               ``tools/memory_report.py``), ``bluefog.elastic.oom_faults``
+               and ``bluefog.memory.oom_events`` 1 each; a real
+               ``torch.OutOfMemoryError`` through the memory excepthook
+               counts one event; (d) ResNet50 ATC int4_ef with all three at
+               interval 10, 1 + 10 steps bitwise all three off, and a
+               ``checkpoint.save`` recording the ``checkpoint_save`` phase;
+               files under ``build/observatories``, deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -412,6 +448,13 @@ PATH_KERNELS = {
     "elastic": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
     # its TransformerLM part: the zero2/int8 re-shard
     "elastic zero": FLASH_KERNELS + ("encode", "decode"),
+    # the observatories phase: (a) the doctor's ATC int8 steps, (b) the
+    # staleness runs (ATC int8, delayed int8, the async int8 ticks), (c) the
+    # memory runs on the TransformerLM (zero2/int8 scatter), (d) ATC int4_ef
+    "observatories a": ("encode", "decode_accumulate"),
+    "observatories b": ("encode", "decode_accumulate", "decode"),
+    "observatories c": FLASH_KERNELS + ("encode", "decode"),
+    "observatories d": ("encode_diff", "decode_add"),
 }
 
 
@@ -2863,6 +2906,549 @@ def phase_elastic_zero(device, sm, tokens, warmup=1, timed=4, smi=""):
     return counts
 
 
+# -- 11c. observatories -------------------------------------------------------------------
+
+OBSV_ROOT = "build/observatories"
+# (a) the degraded edge, an edge of the weighted Exp2 plan, and its factor
+OBSV_DEGRADE = (2, 3, 0.05)
+# (b) the stalled edge, the fault's step and its extent, and the breach bound
+OBSV_STALL = (2, 3, 2, 3)
+OBSV_BOUND = 2
+OBSV_OFF = {"BLUEFOG_DOCTOR": "0", "BLUEFOG_STALENESS": "0", "BLUEFOG_MEMORY": "0"}
+
+
+class env_set:
+    """Set environment variables for a ``with`` block, then restore them."""
+
+    def __init__(self, env):
+        self.env = {k: str(v) for k, v in env.items()}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def obsv_steps(device, sm, images, labels, stats0, params0, wire, steps, env, delayed=False,
+               faults=(), swap_at=None):
+    """ATC ``sgd(0.1, 0.9)`` on ``wire`` over the weighted Exp2 graph, ``steps``
+    fused steps of ``opt.make_train_step(sm.worker_loss)`` from ``params0``
+    and ``stats0``, under ``env`` (set before ``bft.init``, which opens the
+    observatory sessions its knobs ask for); with ``faults`` (``(kind,
+    kwargs)``) through the guard of an elastic session that injects them;
+    ``swap_at``: the step before which the weighted ring replaces the graph.
+    cuDNN's deterministic algorithms are the caller's. Returns the final
+    parameters and momentum, the step seconds, the optimizer and the open
+    sessions."""
+    from bluefog_tpu_torch import attribution, memory, staleness
+
+    with env_set({**OBSV_OFF, **env}):
+        bft.init(size=SIZE, device=device)
+        bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+        sm.load_buffers(stats0)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = wire
+        params = params0.clone()
+        state = opt.init(params)
+        session = None
+        if faults:
+            session = bft.elastic.start(policy="average")
+            for kind, kw in faults:
+                session.inject(kind, **kw)
+        step = (bft.elastic.guard(opt) if session else opt).make_train_step(
+            sm.worker_loss, delayed=delayed)
+        workers = torch.arange(SIZE)
+        times = []
+        for i in range(steps):
+            if i == swap_at:
+                bft.set_topology(topo.RingGraph(SIZE), is_weighted=True)
+            sync(device)
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, images, labels, workers)
+            sync(device)
+            times.append(time.perf_counter() - t0)
+            if not torch.isfinite(loss).all():
+                raise AssertionError(f"observatories {wire}: non-finite loss at step {i}")
+        out = {"params": params, "state": state, "times": times, "opt": opt,
+               "session": session, "doctor": attribution.active(),
+               "staleness": staleness.active(), "memory": memory.active()}
+        bft.elastic.stop()
+    return out
+
+
+def obsv_bitwise(name, a, b):
+    if not (torch.equal(bits(a["params"]), bits(b["params"]))
+            and torch.equal(bits(a["state"]), bits(b["state"]))):
+        raise AssertionError(f"observatories {name}: parameters or momentum differ from the "
+                             f"run with the observatories off")
+
+
+def obsv_tool(args):
+    """Run a report tool of ``tools/`` on a dump; returns its JSON report."""
+    out = subprocess.run([sys.executable, *args, "--json"], capture_output=True, text=True,
+                         timeout=120, env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    if out.returncode != 0:
+        raise AssertionError(f"observatories: {' '.join(args)} exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+def obsv_doctor(device, sm, images, labels, stats0, params0, rate, root, smi):
+    """Part (a): the stacked transport's calibration, the doctor's clean run
+    against a doctor-off run, and the degraded edge. Returns the part's
+    numbers and the doctor-off run."""
+    from bluefog_tpu_torch import attribution
+    from bluefog_tpu_torch.collective import compiler
+
+    bft.init(size=SIZE, device=device)
+    t0 = time.perf_counter()
+    cal = compiler.calibrate(link_class=compiler.TRANSPORT_LINK_CLASS, force=True)
+    cal_s = time.perf_counter() - t0
+    share = cal["beta_bytes_per_s"] * 2 * SIZE / rate
+    if cal["source"] != "measured-probe" or not cal["alpha_s"] > 0 or not 0 < share <= 1:
+        raise AssertionError(f"observatories (a): calibration {cal}, beta x 2 x {SIZE} is "
+                             f"{share:.3f} of the memory rate {rate:.3g} B/s")
+    compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+    off = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 5, {})
+    doctor_file = os.path.join(root, "doctor.jsonl")
+    env = {"BLUEFOG_DOCTOR": "1", "BLUEFOG_DOCTOR_INTERVAL": "1",
+           "BLUEFOG_DOCTOR_FILE": doctor_file}
+    on = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 5, env)
+    obsv_bitwise("(a) doctor", off, on)
+    doc = on["doctor"]
+    rounds = len(bft.get_context().static_plan().perms)
+    bad = [s["step"] for s in doc.samples
+           if len(s.get("rounds", ())) != rounds
+           or any("probe_ms" not in r or "predicted_ms" not in r for r in s["rounds"])]
+    if len(doc.samples) != 5 or bad or doc.advisories:
+        raise AssertionError(f"observatories (a): {len(doc.samples)} samples, samples without "
+                             f"a probe a round {bad}, advisories "
+                             f"{[a.to_json() for a in doc.advisories]}")
+    timed = list(doc.samples)[1:]
+
+    def med(key):
+        return statistics.median(s[key] for s in timed)
+
+    numbers = {"cal": cal, "cal_s": cal_s, "share": share, "rounds": rounds,
+               "step_ms": med("step_ms"), "dispatch_ms": med("dispatch_ms"),
+               "sync_lag_ms": med("sync_lag_ms"), "comm_wire_ms": med("comm_wire_ms"),
+               "compute_ms": med("compute_ms"), "anchor_tflops": med("anchor_tflops"),
+               "probe_ms": [r["probe_ms"] for r in timed[-1]["rounds"]],
+               "predicted_ms": [r["predicted_ms"] for r in timed[-1]["rounds"]],
+               "step_s": statistics.median(on["times"][1:]),
+               "off_step_s": statistics.median(off["times"][1:])}
+    # the degraded edge, on the same doctor session and parameters
+    rank, peer, factor = OBSV_DEGRADE
+    advisories0 = metrics.counter("bluefog.doctor.advisory.degraded_link").value
+    with env_set(env):
+        session = bft.elastic.start(policy="average")
+        session.inject("degrade", rank=rank, step=0, factor=factor, peer=peer)
+        step = bft.elastic.guard(on["opt"]).make_train_step(sm.worker_loss)
+        params, state = on["params"], on["state"]
+        for _ in range(3):
+            params, state, _loss = step(params, state, images, labels, torch.arange(SIZE))
+        sync(device)
+        bft.elastic.stop()
+    linked = [a for a in doc.advisories if a.kind == "degraded_link"]
+    others = [a.to_json() for a in doc.advisories if a.kind != "degraded_link"]
+    counted = metrics.counter("bluefog.doctor.advisory.degraded_link").value - advisories0
+    table = [a for a in flight._build_dump("observatories")["advisories"]
+             if a.get("kind") == "degraded_link"]
+    lines = [json.loads(line) for line in open(doctor_file)]
+    written = [r for r in lines if r.get("advisory_kind") == "degraded_link"]
+    if not linked or any(a.detail["edge"] != [rank, peer] for a in linked) or others or \
+            counted != len(linked) or not table or any(a["edge"] != [rank, peer] for a in table) \
+            or len(written) != len(linked):
+        raise AssertionError(f"observatories (a): degraded_link advisories "
+                             f"{[a.to_json() for a in linked]}, others {others}, counted "
+                             f"{counted}, flight table {table}, written {len(written)}")
+    dump = os.path.join(root, "doctor_dump.json")
+    bft.doctor.dump(dump)
+    report = obsv_tool(["tools/doctor.py", "--attribution", dump])
+    if f"{rank}->{peer}" not in " ".join(report["summary"]):
+        raise AssertionError(f"observatories (a): tools/doctor.py's summary {report['summary']}")
+    numbers.update(degraded=[a.to_json() for a in linked], triage=report["summary"][:2])
+    attribution.stop()
+    compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+    return numbers, off
+
+
+def obsv_staleness_async(device, sm, images, labels, stats0, on, ticks=5):
+    """The async phase's straggler on int8 (``ticks`` ticks) with the
+    staleness observatory at interval 1 (``on``) or off; returns the
+    estimate, the state, the observatory and the gate's ages a tick."""
+    from bluefog_tpu_torch import staleness
+
+    env = {"BLUEFOG_STALENESS": "1" if on else "0", "BLUEFOG_STALENESS_INTERVAL": "1",
+           "BLUEFOG_STALENESS_BOUND": str(ASYNC_MAX_AGE)}
+    with env_set({**OBSV_OFF, **env}):
+        bft.init(size=SIZE, device=device)
+        bft.set_topology(topo.RingGraph(SIZE, connect_style=1))
+        sm.load_buffers(stats0)
+        opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1, momentum=0.9))
+        params = sm.replicate()
+        state = opt.init(params)
+        step = bft.make_async_train_step(opt, sm.worker_loss, cadence={ASYNC_SLOW: ASYNC_FACTOR},
+                                         max_age=ASYNC_MAX_AGE, policy="drop", wire="int8",
+                                         buffers=sm.buffers)
+        eng = step.engine
+        gate, ages = eng._gate, []
+
+        def spy(ctx, win, participating, slot_ages):
+            ages.append([int(slot_ages[r, k]) for r, srcs in enumerate(win.in_neighbors)
+                         for k in range(len(srcs))])
+            return gate(ctx, win, participating, slot_ages)
+
+        eng._gate = spy
+        workers = torch.arange(SIZE)
+        for _ in range(ticks):
+            params, state, _loss = step(params, state, images, labels, workers)
+        win = bft.get_context().windows[eng._name]
+        last = eng._slot_ages(win)
+        ages.append([int(last[r, k]) for r, srcs in enumerate(win.in_neighbors)
+                     for k in range(len(srcs))])
+        del eng._gate
+        out = {"params": params.clone(), "state": state.clone(), "obs": staleness.active(),
+               "ages": ages[1:]}
+        eng.free()
+    return out
+
+
+def obsv_staleness(device, sm, images, labels, stats0, params0, off, root):
+    """Part (b): the sync, delayed, stalled and async surfaces, each bitwise
+    its staleness-off run; the report tool on the dump."""
+    from bluefog_tpu_torch import staleness
+
+    env = {"BLUEFOG_STALENESS": "1", "BLUEFOG_STALENESS_INTERVAL": "1",
+           "BLUEFOG_STALENESS_BOUND": str(OBSV_BOUND)}
+    numbers = {}
+    sync_run = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 5, env)
+    obsv_bitwise("(b) sync", off, sync_run)
+    obs = sync_run["staleness"]
+    fails = metrics.peek("bluefog.staleness.selfcheck_failures")
+    if len(obs.samples) != 5 or any(s["age_max"] != 0 or not s["lane_ok"] for s in obs.samples) \
+            or (fails is not None and fails.value):
+        raise AssertionError(f"observatories (b) sync: samples {list(obs.samples)}")
+    numbers["sync_edges"] = obs.samples[-1]["edges"]
+
+    swap = 3
+    d_off = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 5, {}, delayed=True,
+                       swap_at=swap)
+    d_on = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 5, env, delayed=True,
+                      swap_at=swap)
+    obsv_bitwise("(b) delayed", d_off, d_on)
+    ages = [s["age_mean"] for s in d_on["staleness"].samples]
+    if ages != [0.0, 1.0, 1.0, 0.0, 1.0] or \
+            {s["surface"] for s in d_on["staleness"].samples} != {"delayed"}:
+        raise AssertionError(f"observatories (b) delayed: ages {ages} (the swap before step "
+                             f"{swap})")
+    numbers["delayed_ages"] = ages
+
+    src, dst, at, extent = OBSV_STALL
+    fault = [("stall", dict(rank=src, step=at, steps=extent, peer=dst))]
+    s_off = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 8, {},
+                       faults=fault)
+    breaches0 = metrics.counter("bluefog.doctor.advisory.staleness_breach").value
+    with env_set({"BLUEFOG_STALENESS_FILE": os.path.join(root, "staleness.jsonl")}):
+        s_on = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 8, env,
+                          faults=fault)
+    obsv_bitwise("(b) stall", s_off, s_on)
+    obs = s_on["staleness"]
+    ramp = [s["age_max"] for s in obs.samples]
+    named = [s.get("max_edge") for s in obs.samples if s["age_max"] > 0]
+    breaches = [a for a in obs.advisories if a.kind == "staleness_breach"]
+    others = {e for e, rec in obs.report()["edge_ages"].items()
+              if rec["max"] > 0 and e != f"{src}->{dst}"}
+    # the session's step runs one ahead of the step index once the guard
+    # has replayed the step's faults, so the hold starts at index at - 1
+    if ramp != [0.0] * (at - 1) + [float(k) for k in range(1, extent + 1)] + \
+            [0.0] * (9 - at - extent) or any(e != [src, dst] for e in named) or \
+            len(breaches) != 1 or breaches[0].detail["edges"] != [[src, dst]] or others or \
+            metrics.counter("bluefog.doctor.advisory.staleness_breach").value != breaches0 + 1:
+        raise AssertionError(f"observatories (b) stall: ages {ramp} on {named}, breaches "
+                             f"{[a.to_json() for a in breaches]}, other aged edges {others}")
+    numbers["stall_ramp"] = ramp
+    dump = os.path.join(root, "staleness_dump.json")
+    staleness.dump(dump)
+    report = obsv_tool(["tools/staleness_report.py", dump])
+    if report["worst_edge"]["edge"] != f"{src}->{dst}" or not report["breaches"]:
+        raise AssertionError(f"observatories (b): tools/staleness_report.py {report}")
+
+    a_off = obsv_staleness_async(device, sm, images, labels, stats0, False)
+    a_on = obsv_staleness_async(device, sm, images, labels, stats0, True)
+    obsv_bitwise("(b) async", a_off, a_on)
+    got = [(s["age_max"], s["age_mean"]) for s in a_on["obs"].samples
+           if s["surface"] == "async"]
+    want = [(float(max(a)), round(float(np.mean(a)), 4)) for a in a_on["ages"]]
+    if got != want or len(got) != 5:
+        raise AssertionError(f"observatories (b) async: folded (max, mean) {got}, the gate's "
+                             f"{want}")
+    numbers["async_ages"] = got
+    return numbers
+
+
+def obsv_all(device, sm, images, labels, stats0, params0, root):
+    """Part (d): ATC int4_ef with the doctor, the staleness and the memory
+    observatories at interval 10 against all three off, 1 + 10 steps (the
+    sampled step 10 falls in the timed window); then a checkpoint save
+    under the memory session."""
+    from bluefog_tpu_torch import checkpoint as ckpt
+    from bluefog_tpu_torch.collective import compiler
+
+    env = {k: "1" for k in OBSV_OFF}
+    env.update({f"{k}_INTERVAL": "10" for k in OBSV_OFF})
+    off = obsv_steps(device, sm, images, labels, stats0, params0, "int4_ef", 11, {})
+    on = obsv_steps(device, sm, images, labels, stats0, params0, "int4_ef", 11, env)
+    obsv_bitwise("(d) all three", off, on)
+    compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+    samples = (len(on["doctor"].samples), len(on["staleness"].samples), len(on["memory"].samples))
+    if samples != (2, 2, 2):
+        raise AssertionError(f"observatories (d): samples {samples}, expected 2 each")
+    unsampled = statistics.mean(on["times"][1:10])
+    with env_set(env):
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(root, "checkpoint"), 11, on["params"], on["state"],
+                  optimizer=on["opt"], extra=sm.buffers)
+        save_s = time.perf_counter() - t0
+    phases = on["memory"].phase_peaks
+    if phases.get("checkpoint_save", {}).get("count") != 1 or "dispatch" not in phases:
+        raise AssertionError(f"observatories (d): phases {phases}")
+    return {"off_ms": 1e3 * statistics.mean(off["times"][1:]),
+            "on_ms": 1e3 * statistics.mean(on["times"][1:]),
+            "unsampled_ms": 1e3 * unsampled,
+            "sampled_extra_ms": 1e3 * (on["times"][10] - unsampled),
+            "save_s": save_s}
+
+
+def phase_observatories(device, sm, images, labels, rate, root=OBSV_ROOT, smi=""):
+    """Parts (a), (b) and (d) of the observatories phase on the ResNet50 of
+    the train-step phase; part (c) is :func:`phase_observatories_lm`. Returns
+    ``({part: launch counts, each zeroed just before its part and read just
+    after}, numbers)``."""
+    import shutil
+
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    params0 = sm.replicate()
+    counts, numbers = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        a, off = obsv_doctor(device, sm, images, labels, stats0, params0, rate, root, smi)
+        numbers["a"] = a
+        a["seconds"] = time.perf_counter() - t0
+        counts["observatories a"] = launch_counts()
+        # the doctor-off run of part (a) is part (b)'s sync baseline
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        b = numbers["b"] = obsv_staleness(device, sm, images, labels, stats0, params0, off, root)
+        b["seconds"] = time.perf_counter() - t0
+        counts["observatories b"] = launch_counts()
+        del off
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        d = numbers["d"] = obsv_all(device, sm, images, labels, stats0, params0, root)
+        d["seconds"] = time.perf_counter() - t0
+        counts["observatories d"] = launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        sm.load_buffers(stats0)
+        bft.elastic.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        bft.init(size=SIZE, device=device)
+    cal = a["cal"]
+    log("observatories", f"(a) calibration of the stacked transport in {a['cal_s']:.2f} s: "
+                         f"alpha {cal['alpha_s'] * 1e6:.2f} us, beta "
+                         f"{cal['beta_bytes_per_s']:.4g} B/s (beta x 2 x {SIZE} = "
+                         f"{100 * a['share']:.1f}% of {rate:.3g} B/s), pipeline_eff "
+                         f"{cal['pipeline_eff']:.3f} (4-chunk gain "
+                         f"{cal['probe_gain_2round_4chunk']:.3f}); doctor at interval 1 on "
+                         f"ResNet50 atc/int8: bitwise the doctor-off run, {a['rounds']} rounds "
+                         f"probed a sample (probe ms {a['probe_ms']}, predicted "
+                         f"{a['predicted_ms']}), no advisory; medians step_ms "
+                         f"{a['step_ms']:.2f}, dispatch_ms {a['dispatch_ms']:.2f}, sync_lag_ms "
+                         f"{a['sync_lag_ms']:.2f}, comm_wire_ms {a['comm_wire_ms']:.3f}, "
+                         f"compute_ms {a['compute_ms']:.2f}, anchor_tflops "
+                         f"{a['anchor_tflops']:.3f}; step s {a['step_s']:.4f} (doctor off "
+                         f"{a['off_step_s']:.4f}); degrade {OBSV_DEGRADE[0]}->{OBSV_DEGRADE[1]} "
+                         f"at {OBSV_DEGRADE[2]}: {len(a['degraded'])} degraded_link advisories, "
+                         f"all on that edge (ratios {[x['ratio'] for x in a['degraded']]}), "
+                         f"triage {a['triage']}; part {a['seconds']:.1f} s; on {smi}")
+    log("observatories", f"(b) staleness at interval 1, bound {OBSV_BOUND}: sync age 0 on all "
+                         f"{b['sync_edges']} edges, no self-check failure; delayed ages "
+                         f"{b['delayed_ages']} (swap before step 3); stall "
+                         f"{OBSV_STALL[0]}->{OBSV_STALL[1]} at step {OBSV_STALL[2]} for "
+                         f"{OBSV_STALL[3]}: age_max {b['stall_ramp']}, one breach on that edge; "
+                         f"async int8 (max, mean) ages {b['async_ages']} = the gate's; every run "
+                         f"bitwise staleness off; part {b['seconds']:.1f} s")
+    log("observatories", f"(d) atc/int4_ef, all three at interval 10 against off: bitwise; mean "
+                         f"step {d['on_ms']:.1f} ms (off {d['off_ms']:.1f} ms), the unsampled "
+                         f"steps {d['unsampled_ms']:.1f} ms, the sampled step "
+                         f"{d['sampled_extra_ms']:+.1f} ms more; checkpoint_save phase "
+                         f"recorded ({d['save_s']:.2f} s); part {d['seconds']:.1f} s")
+    log("observatories", f"launches of the parts {counts}")
+    return counts, numbers
+
+
+def obsv_lm_run(device, sm, tokens, params0, zero, env, steps=3, oom_at=None):
+    """The TransformerLM under ``adam(ZERO_LR)`` gradient allreduce,
+    replicated or zero2/int8 (``zero``), ``steps`` two-program steps under
+    ``env``; with ``oom_at`` through the guard of a session that injects an
+    ``oom`` fault at that step. Returns the memory observatory, the last
+    sample's allocator reading beside it, the step the fault raised at and
+    the analytic state bytes a worker."""
+    from bluefog_tpu_torch import memory, scaling
+
+    shard_env(zero, zero)
+    raised = None
+    try:
+        with env_set({**OBSV_OFF, **env}):
+            bft.init(size=SIZE, device=device)
+            params = params0.clone()
+            grads = torch.empty_like(params)
+            opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(ZERO_LR))
+            opt.compression = "int8" if zero else None
+            state = opt.init(params)
+            step = opt.step
+            if oom_at is not None:
+                session = bft.elastic.start(policy="average")
+                session.inject("oom", rank=0, step=oom_at)
+                step = bft.elastic.guard(opt).step
+            for i in range(steps):
+                sm.loss_and_grad(params, tokens, tokens, grads)
+                try:
+                    params, state = step(params, state, grads)
+                except memory.SimulatedResourceExhausted:
+                    raised = i
+                    break
+                if i == steps - 1:
+                    reading = {"allocated": torch.cuda.memory_allocated(device)
+                               if device.type == "cuda" else None,
+                               "reserved": torch.cuda.memory_reserved(device)
+                               if device.type == "cuda" else None}
+            obs = memory.active()
+            analytic = scaling.optimizer_state_bytes(params, opt, shard=zero)
+            bft.elastic.stop()
+            del params, grads, state, opt
+    finally:
+        clear_shard_env()
+    return obs, (reading if raised is None else None), raised, analytic
+
+
+def obsv_census_gates(name, obs, analytic, reading):
+    s = obs.samples[-1]
+    if s["measured_state_bytes"] != analytic or s["analytic_state_bytes"] != analytic:
+        raise AssertionError(f"observatories (c) {name}: census opt_state {s['measured_state_bytes']}"
+                             f" B a worker, analytic {analytic} B")
+    dev = s["device_bytes_in_use"]
+    classified = sum(r["bytes"] for c, r in s["census"].items() if c != "other")
+    if dev is not None and (classified > dev or s["live_bytes_total"] > dev):
+        raise AssertionError(f"observatories (c) {name}: census {classified} B classified, total "
+                             f"{s['live_bytes_total']} B over the {dev} B allocated")
+    gib = {c: r["bytes"] / 2**30 for c, r in s["census"].items()}
+    return {"gib": gib, "allocated_gib": (dev or 0) / 2**30,
+            "reserved_gib": (reading["reserved"] or 0) / 2**30 if reading else float("nan"),
+            "rss_gib": s["host_peak_rss_bytes"] / 2**30, "state_bytes": analytic,
+            "watermark": obs._peak_bytes}
+
+
+def phase_observatories_lm(device, sm, tokens, root=OBSV_ROOT, smi=""):
+    """Part (c) of the observatories phase on the transformer path's model:
+    the memory observatory under replicated and zero2/int8 Adam, the budget,
+    the ``oom`` fault and a real ``torch.OutOfMemoryError``. Returns the
+    launch counts, zeroed just before and read just after."""
+    import shutil
+
+    from bluefog_tpu_torch import memory
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    params0 = sm.replicate()
+    env = {"BLUEFOG_MEMORY": "1", "BLUEFOG_MEMORY_INTERVAL": "1"}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        z_obs, z_read, _, z_bytes = obsv_lm_run(device, sm, tokens, params0, True, env)
+        z = obsv_census_gates("zero2/int8", z_obs, z_bytes, z_read)
+        budget = int(1.1 * z["watermark"])
+        benv = {**env, "BLUEFOG_MEMORY_BUDGET": str(budget)}
+        zb_obs, _, _, _ = obsv_lm_run(device, sm, tokens, params0, True, benv)
+        r_obs, r_read, _, r_bytes = obsv_lm_run(device, sm, tokens, params0, False, benv)
+        r = obsv_census_gates("replicated", r_obs, r_bytes, r_read)
+        pressure = [a for a in r_obs.advisories if a.kind == "memory_pressure"]
+        if zb_obs.advisories or len(pressure) != 1 or not pressure[0].detail["shard_hint"]:
+            raise AssertionError(f"observatories (c): budget {budget} B, zero2 advisories "
+                                 f"{[a.to_json() for a in zb_obs.advisories]}, replicated "
+                                 f"{[a.to_json() for a in r_obs.advisories]}")
+        flight_dir = os.path.join(root, "flight")
+        faults0 = metrics.counter("bluefog.elastic.oom_faults").value
+        events0 = metrics.counter("bluefog.memory.oom_events").value
+        with env_set({"BLUEFOG_FLIGHT_DIR": flight_dir}):
+            o_obs, _, raised, _ = obsv_lm_run(device, sm, tokens, params0, False, env,
+                                              steps=4, oom_at=2)
+        dump_path = os.path.join(flight_dir, "flight_0.json")
+        dump = json.load(open(dump_path))
+        ooms = [x for x in dump["advisories"] if x.get("kind") == "oom"]
+        counted = (metrics.counter("bluefog.elastic.oom_faults").value - faults0,
+                   metrics.counter("bluefog.memory.oom_events").value - events0)
+        report = obsv_tool(["tools/memory_report.py", "--flight", dump_path])
+        top = report["postmortems"][0]["top_category"] if report["postmortems"] else None
+        if raised != 2 or len(ooms) != 1 or ooms[0]["ranked_census"][0]["category"] != \
+                "opt_state" or counted != (1, 1) or top != "opt_state":
+            raise AssertionError(f"observatories (c) oom: raised at {raised}, advisories {ooms}, "
+                                 f"counted {counted}, tools/memory_report.py top {top}")
+        # a real allocation failure, larger than the card, through the hook
+        # (the CPU rehearsal hands the hook the exception's type alone)
+        prev = memory._prev_excepthook
+        memory._prev_excepthook = lambda *a: None
+        try:
+            if device.type == "cuda":
+                torch.empty(1 << 40, dtype=torch.uint8, device=device)
+                raise AssertionError("observatories (c): a 1 TiB allocation did not fail")
+            raise torch.OutOfMemoryError("CUDA out of memory (rehearsal)")
+        except torch.OutOfMemoryError as e:
+            memory._excepthook(type(e), e, e.__traceback__)
+        finally:
+            memory._prev_excepthook = prev
+        real = metrics.counter("bluefog.memory.oom_events").value - events0 - 1
+        if real != 1:
+            raise AssertionError(f"observatories (c): the real OOM counted {real} events")
+    finally:
+        clear_shard_env()
+        bft.elastic.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        bft.init(size=SIZE, device=device)
+    counts = launch_counts()
+    seconds = time.perf_counter() - t0
+
+    def cats(c):
+        return ", ".join(f"{k} {v:.3f}" for k, v in c["gib"].items())
+
+    log("observatories", f"(c) memory at interval 1 on the TransformerLM: replicated adam "
+                         f"census GiB [{cats(r)}], allocated {r['allocated_gib']:.3f}, reserved "
+                         f"{r['reserved_gib']:.3f}, host RSS {r['rss_gib']:.3f}; zero2/int8 "
+                         f"[{cats(z)}], allocated {z['allocated_gib']:.3f}, reserved "
+                         f"{z['reserved_gib']:.3f}; opt_state a worker {r['state_bytes']} B / "
+                         f"{z['state_bytes']} B = scaling.optimizer_state_bytes; budget "
+                         f"{budget / 2**30:.3f} GiB a worker (1.1x zero2's watermark): "
+                         f"memory_pressure with the shard hint on replicated only "
+                         f"(opt_state fraction {pressure[0].detail['opt_state_fraction']}); oom "
+                         f"fault at step 2 raised, the dump's ranked census "
+                         f"{[x['category'] for x in ooms[0]['ranked_census'][:3]]}; a real "
+                         f"torch.OutOfMemoryError counted once; launches {counts}; part "
+                         f"{seconds:.1f} s; on {smi}")
+    return counts
+
+
 def lm_flops_per_step(sm, seq, batch):
     """bench.py's model FLOPs of one step of every worker: per token
     ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
@@ -3831,6 +4417,11 @@ def main():
     t0 = time.perf_counter()
     counts["elastic"], _elastic = phase_elastic(device, sm, images, labels, smi=smi)
     elastic_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    obsv_counts, _obsv = phase_observatories(device, sm, images, labels, memory_rate(kind),
+                                             smi=smi)
+    counts.update(obsv_counts)
+    observatories_s = time.perf_counter() - t0
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))
@@ -3872,6 +4463,10 @@ def main():
     counts["elastic zero"] = phase_elastic_zero(device, sm, tokens, smi=smi)
     elastic_s += time.perf_counter() - t0
     log("elastic", f"phase in {elastic_s:.1f} s (parts a, b, d-g and c)")
+    t0 = time.perf_counter()
+    counts["observatories c"] = phase_observatories_lm(device, sm, tokens, smi=smi)
+    observatories_s += time.perf_counter() - t0
+    log("observatories", f"phase in {observatories_s:.1f} s (parts a, b, d and c)")
     del sm, tokens
     torch.cuda.empty_cache()
     phase_zero_check(device)

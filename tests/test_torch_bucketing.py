@@ -38,6 +38,7 @@ def context(monkeypatch):
     bft.shutdown()
     # the reduce-scatter structures are priced at their first call's payload
     compiler.clear_compile_cache()
+    compiler.clear_calibration()
 
 
 # -- the grid helpers and the chooser, equal to JAX's --------------------------------------
@@ -120,10 +121,29 @@ def test_chooser_refusals(monkeypatch):
         compiler.choose_chunks(3, 1e6)
     monkeypatch.delenv("BLUEFOG_PLAN_CHUNKS")
     monkeypatch.setenv("BLUEFOG_PLAN_CALIBRATE", "1")
-    with pytest.raises(NotImplementedError, match="calibrate"):
-        compiler.choose_chunks(3, 1e6)
+    # the chooser now prices the stacked transport with the measured probe
+    stacked = compiler.TRANSPORT_LINK_CLASS
+    assert compiler.choose_chunks(3, 1e6, link_class=stacked) >= 1
+    cal = compiler.calibration(stacked)
+    assert cal["source"] == "measured-probe" and cal["alpha_s"] > 0
+    assert 0 < cal["beta_bytes_per_s"] < float("inf")
+    assert compiler.calibration("ici")["source"] == "class-constants"
     with pytest.raises(ValueError, match="link_class"):
         compiler.calibration("nvlink")
+
+
+@pytest.mark.parametrize("payload", [512.0, 1.06e6, 1e8])
+@pytest.mark.parametrize("rounds", [1, 3, 7])
+def test_measured_zero_pipeline_eff_gives_one_chunk(payload, rounds):
+    """One stream runs the chunks of a wavefront one after another: a
+    measured ``pipeline_eff`` of 0, with a finite measured beta, still
+    gives one chunk (each extra chunk only adds its launches)."""
+    stacked = compiler.TRANSPORT_LINK_CLASS
+    compiler.set_calibration(2e-5, 1.5e11, 0.0, source="measured-probe", link_class=stacked)
+    elems = int(payload) // 4
+    assert compiler.choose_chunks(rounds, payload, n_elems=elems, link_class=stacked) == 1
+    assert compiler.reduce_scatter_chunks(SIZE, payload, n_elems=elems,
+                                          link_class=stacked) == 1
 
 
 # -- chunked combines == monolithic ------------------------------------------------------

@@ -1031,3 +1031,49 @@ def test_elastic_kill_on_card_is_bitwise_its_twin(cuda, wire):
 
     for t, (a, b) in enumerate(zip(run(True), run(False))):
         assert torch.equal(_bits(a), _bits(b)), t
+
+
+@pytest.mark.cuda
+def test_calibration_beta_is_bounded_by_the_memory_rate(cuda):
+    """The measured probe of the stacked transport on the card: a round of
+    the ``[8, elems]`` gather reads and writes all eight rows, so ``beta x
+    2 x 8`` (the bytes HBM moves a second) is at most the H100 SXM's 3.35e12
+    B/s; a reading above it timed nothing."""
+    from bluefog_tpu_torch.collective import compiler
+
+    bft.init(size=SIZE, device=cuda)
+    try:
+        cal = compiler.calibrate(link_class=compiler.TRANSPORT_LINK_CLASS, force=True)
+        assert cal["source"] == "measured-probe" and cal["alpha_s"] > 0
+        assert 0 < cal["beta_bytes_per_s"] * 2 * SIZE <= 3.35e12, cal
+        assert 0.0 <= cal["pipeline_eff"] <= 1.0
+    finally:
+        compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+        bft.shutdown()
+
+
+@pytest.mark.cuda
+def test_memory_census_reconciles_with_the_allocator(cuda):
+    """On the card ``other`` is the allocator's allocated bytes less the
+    classified ones, so the census total equals ``allocated_bytes.all.current``
+    as the sample read it (the step's temporaries are freed after it), and the
+    Adam state reconciles exactly."""
+    from bluefog_tpu_torch import memory
+
+    bft.init(size=SIZE, device=cuda)
+    try:
+        obs = memory.start(interval=1)
+        opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(0.01))
+        params = {"w": torch.randn(SIZE, 1 << 16, device=cuda)}
+        state = opt.init(params)
+        params, state = opt.step(params, state, {"w": torch.zeros_like(params["w"])})
+        s = obs.samples[-1]
+        classified = sum(r["bytes"] for c, r in s["census"].items() if c != "other")
+        assert s["live_bytes_total"] == s["device_bytes_in_use"] >= classified
+        assert memory.device_bytes_in_use(bft.get_context()) == \
+            torch.cuda.memory_stats(cuda)["allocated_bytes.all.current"]
+        assert s["measured_state_bytes"] == s["analytic_state_bytes"]
+        assert s["census"]["params"]["bytes"] == SIZE * (1 << 16) * 4
+    finally:
+        memory.stop()
+        bft.shutdown()

@@ -412,24 +412,117 @@ def test_init_and_shutdown_close_the_session():
     assert bft.elastic.active_session() is None
 
 
-def test_oom_refused_from_inject_naming_a13b():
-    _tinit()
+def _oom_run(guard_step, params, state, grads, steps=4):
+    """Guarded steps until the injected ``oom`` raises; returns the step
+    index it raised at and the exception."""
+    for i in range(steps):
+        try:
+            params, state = guard_step(params, state, grads)
+        except MemoryError as e:
+            return i, e
+    return None, None
+
+
+def _oom_postmortem(root):
+    import json
+
+    with open(root / "flight_0.json") as f:
+        d = json.load(f)
+    return d, [a for a in d["advisories"] if a.get("kind") == "oom"]
+
+
+def test_oom_from_inject_raises_at_its_step_with_the_postmortem(tmp_path, monkeypatch,
+                                                                 cpu_devices):
+    """``inject("oom", ...)`` raises ``SimulatedResourceExhausted`` at its
+    step, before the dispatch, and leaves the JAX package's postmortem: one
+    ``bluefog.elastic.oom_faults``, one ``bluefog.memory.oom_events``, the
+    flight dump ``oom:chaos:rank=2`` whose ``oom`` advisory carries the
+    ranked census (the same keys and top category as JAX's on the same
+    problem)."""
+    from bluefog_tpu import flight as jflight
+    from bluefog_tpu import memory as jmemory
+    from bluefog_tpu_torch import flight, memory
+
+    runs = {}
+    for side in ("port", "jax"):
+        root = tmp_path / side
+        monkeypatch.setenv("BLUEFOG_FLIGHT_DIR", str(root))
+        w0 = np.random.RandomState(0).randn(SIZE, 1024).astype(np.float32)
+        if side == "port":
+            _tinit(tu.RingGraph)
+            flight.reconfigure()
+            memory.start(interval=1)
+            session = bft.elastic.start(policy="average")
+            session.inject("oom", rank=2, step=2)
+            opt = bft.DistributedNeighborAllreduceOptimizer(bft.adam(0.01))
+            params = torch.from_numpy(w0.copy())
+            step, exc = _oom_run(bft.elastic.guard(opt).step, params, opt.init(params),
+                                 torch.zeros_like(params))
+            events = memory.active().oom_events
+            ctrs = (metrics.peek("bluefog.elastic.oom_faults").value,
+                    metrics.peek("bluefog.memory.oom_events").value)
+            assert isinstance(exc, memory.SimulatedResourceExhausted)
+            assert session.step == 2 and not session.repairs  # raised before the dispatch
+        else:
+            import optax
+
+            _jinit(cpu_devices, jtu.RingGraph)
+            jflight.reconfigure()
+            jmemory.start(interval=1)
+            session = bf.elastic.start(policy="average")
+            session.inject("oom", rank=2, step=2)
+            opt = bf.DistributedNeighborAllreduceOptimizer(optax.adam(0.01))
+            params = {"w": bf.worker_values(lambda r: w0[r])}
+            zeros = {"w": bf.worker_values(lambda r: np.zeros(1024, np.float32))}
+            step, exc = _oom_run(bf.elastic.guard(opt).step, params, opt.init(params), zeros)
+            events = jmemory.active().oom_events
+            ctrs = (jmetrics.peek("bluefog.elastic.oom_faults").value,
+                    jmetrics.peek("bluefog.memory.oom_events").value)
+            assert isinstance(exc, jmemory.SimulatedResourceExhausted)
+            jmemory.stop()
+            bf.elastic.stop()
+            bf.shutdown()
+        assert step == 2 and "RESOURCE_EXHAUSTED" in str(exc)
+        assert exc._bf_oom_forensics_done and events == 1 and ctrs == (1, 1)
+        runs[side] = _oom_postmortem(root)
+    (dump, advs), (jdump, jadvs) = runs["port"], runs["jax"]
+    assert any(h.startswith("oom:chaos:rank=2") for h in dump["dump_history"])
+    assert len(advs) == len(jadvs) == 1
+    assert set(advs[0]) == set(jadvs[0])
+    # JAX files every unclassified live array under "other"; on the CPU
+    # the port has no allocator to read, so its "other" is 0: the owner
+    # categories agree byte for byte, opt_state first
+    owned = [(r["category"], r["bytes"]) for r in jadvs[0]["ranked_census"]
+             if r["category"] != "other"]
+    assert [(r["category"], r["bytes"]) for r in advs[0]["ranked_census"]] == owned
+    assert advs[0]["top_category"] == owned[0][0] == "opt_state"
+    assert advs[0]["step"] == jadvs[0]["step"] == 1
+    memory.stop()
+
+
+def test_oom_from_the_plan_env_raises_at_its_step_with_the_postmortem(tmp_path, monkeypatch):
+    """A ``BLUEFOG_FAULT_PLAN`` holding ``oom`` starts a session and raises
+    at the fault's step: the kill before it is repaired as usual, the oom
+    is consumed (the next step proceeds), and the dump names the oom."""
+    from bluefog_tpu_torch import flight, memory
+
+    monkeypatch.setenv("BLUEFOG_FLIGHT_DIR", str(tmp_path))
+    _tinit(tu.RingGraph)
+    flight.reconfigure()
+    monkeypatch.setenv(FAULT_PLAN_ENV, "kill:rank=1,step=1; oom:rank=3,step=3")
     session = bft.elastic.start()
-    with pytest.raises(NotImplementedError, match="A13b"):
-        session.inject("oom", rank=3, step=2)
-    with pytest.raises(NotImplementedError, match="memory.py"):
-        bft.elastic.inject("oom", rank=0, step=0)
-    assert session.plan.faults == ()
-
-
-def test_oom_refused_from_the_plan_env_naming_a13b(monkeypatch):
-    ctx = _tinit()
-    monkeypatch.setenv(FAULT_PLAN_ENV, "kill:rank=1,step=4; oom:rank=3,step=12")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        bft.elastic.start()
-    assert bft.elastic.active_session() is None and ctx.elastic_membership is None
-    with pytest.raises(NotImplementedError, match="A13b"):
-        bft.elastic.start(plan=parse_fault_plan("oom:rank=0,step=0"))
+    assert [f.kind for f in session.plan.faults] == ["kill", "oom"]
+    opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1))
+    params = torch.from_numpy(np.random.RandomState(0).randn(SIZE, 512).astype(np.float32))
+    state = opt.init(params)
+    step, exc = _oom_run(bft.elastic.guard(opt).step, params, state, torch.zeros_like(params))
+    assert step == 3 and isinstance(exc, memory.SimulatedResourceExhausted)
+    assert len(session.repairs) == 1 and session.stale_dispatches == 0
+    assert metrics.peek("bluefog.elastic.oom_faults").value == 1
+    bft.elastic.guard(opt).step(params, state, torch.zeros_like(params))  # consumed
+    dump, advs = _oom_postmortem(tmp_path)
+    assert len(advs) == 1 and advs[0]["reason"] == "chaos:rank=3"
+    assert {"kind": "oom", "rank": 3, "step": 3, "seconds": 0.0, "factor": 1.0} in dump["faults"]
 
 
 def test_plan_from_env_is_replayed(monkeypatch):

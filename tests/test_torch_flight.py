@@ -251,7 +251,12 @@ def test_crash_hooks_follow_the_session(tmp_path, monkeypatch):
     bft.shutdown()
     monkeypatch.setenv("BLUEFOG_FLIGHT_DIR", str(tmp_path))
     bft.init(device="cpu")
-    assert sys.excepthook is flight._excepthook
+    # the memory observatory's OOM hook installs after (so runs before) the
+    # flight recorder's, as in the JAX package
+    from bluefog_tpu_torch import memory
+
+    assert sys.excepthook is memory._excepthook
+    assert memory._prev_excepthook is flight._excepthook
     assert signal.getsignal(signal.SIGTERM) is flight._sigterm_handler
     assert flight._on_stall in watchdog._handlers
     bft.shutdown()

@@ -49,7 +49,7 @@ def test_port_sources_exist():
             "version.py", "torch_average_consensus.py", "torch_decentralized_optimization.py",
             "torch_mnist.py", "torch_long_context.py", "torch_checkpoint_resume.py",
             "torch_benchmark.py", "faults.py", "membership.py", "repair.py",
-            "recovery.py"} <= names
+            "recovery.py", "staleness.py", "memory.py"} <= names
     for source in ("__init__.py", "faults.py", "membership.py", "repair.py", "recovery.py"):
         assert (ROOT / "bluefog_tpu_torch" / "elastic" / source).is_file()
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
@@ -112,6 +112,34 @@ def test_elastic_exports_have_the_jax_names():
         want = [p.split(":")[0].split("=")[0].strip().lstrip("*")
                 for p in m.group(1).replace("\n", " ").split(",")]
         assert params == [w for w in want if w], name
+
+
+@pytest.mark.parametrize("module", ["attribution", "staleness", "memory"])
+def test_observatory_exports_have_the_jax_names(module):
+    """``bft.attribution`` (alias ``bft.doctor``), ``bft.staleness`` and
+    ``bft.memory`` export the names of the JAX modules' ``__all__``, with
+    the signatures of their module functions (compared as source text: the
+    JAX package is not imported)."""
+    import inspect
+
+    src = (ROOT / "bluefog_tpu" / f"{module}.py").read_text()
+    block = src[src.index("__all__ = ["):]
+    jax_names = re.findall(r'"(\w+)"', block[:block.index("]")])
+    port = getattr(bft, module)
+    assert sorted(port.__all__) == sorted(jax_names)
+    assert module in bft.__all__ and "doctor" in bft.__all__ and bft.doctor is bft.attribution
+    defs = {n.name: n.args for n in ast.parse(src).body if isinstance(n, ast.FunctionDef)}
+    for name in jax_names:
+        obj = getattr(port, name)
+        if inspect.isfunction(obj):
+            a = defs[name]
+            want = [x.arg for x in a.args + ([a.vararg] if a.vararg else []) + a.kwonlyargs
+                    + ([a.kwarg] if a.kwarg else [])]
+            assert list(inspect.signature(obj).parameters) == want, name
+    for extra in ("suspect_join", "DEGRADE_RATIO", "BREACH_COOLDOWN", "ADVISORY_COOLDOWN",
+                  "DRIFT_STREAK", "ENABLE_ENV", "INTERVAL_ENV", "FILE_ENV"):
+        if re.search(rf"^(def )?{extra}\b", src, re.M):
+            assert hasattr(port, extra), extra
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

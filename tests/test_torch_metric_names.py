@@ -46,5 +46,25 @@ def test_the_guard_sees_the_port_series():
         "faults", "suspects", "stalls", "slow_faults", "repairs", "dead_ranks", "epoch",
         "last_detect_steps", "repair_ms", "migrations", "rejoins")} | {
         "bluefog.async.rewindows", "bluefog.shard.reshards"} <= code
-    # eager PyTorch builds no program: the port counts no recompiles
-    assert "bluefog.recompiles" not in code
+    # the observatories' series, under the JAX package's names
+    assert {"bluefog.doctor.step_ms", "bluefog.doctor.comm_wire_ms",
+            "bluefog.doctor.anchor_tflops", "bluefog.doctor.samples",
+            "bluefog.doctor.last_advisory_step", "bluefog.staleness.age",
+            "bluefog.staleness.edge_age.*_*", "bluefog.staleness.age_mean",
+            "bluefog.staleness.age_max", "bluefog.staleness.samples",
+            "bluefog.staleness.wire_bytes", "bluefog.staleness.selfcheck_failures",
+            "bluefog.staleness.window_age", "bluefog.staleness.window_age_max",
+            "bluefog.staleness.window_mass_age_max", "bluefog.memory.samples",
+            "bluefog.memory.live_bytes.*", "bluefog.memory.peak_bytes",
+            "bluefog.memory.host_rss_bytes", "bluefog.memory.drift_bytes",
+            "bluefog.memory.headroom_bytes", "bluefog.memory.oom_events",
+            "bluefog.memory.phase_peak_bytes.*", "bluefog.elastic.oom_faults"} <= code
+    assert "bluefog.memory.live_bytes" in namespaces
+    # eager PyTorch builds no program: the port counts no recompiles (the
+    # doctor's recompile_storm rule only reads the series, which stays 0)
+    for path in glob.glob(PKG + "/**/*.py", recursive=True):
+        with open(path) as f:
+            text = f.read()
+        assert not re.search(r'(counter|gauge|histogram)\(\s*"bluefog\.recompiles"', text), path
+        if '"bluefog.recompiles"' in text:
+            assert os.path.basename(path) == "attribution.py", path
