@@ -33,8 +33,14 @@ stall ``watchdog`` (``set_stall_timeout``, ``suspend``, ``resume``,
 ``metrics_export``; the sampled gossip probe under ``BLUEFOG_METRICS=1``);
 the ``flight`` recorder (``flight_dump``, ``BLUEFOG_FLIGHT_DIR``); the
 step-time doctor ``attribution`` (alias ``doctor``, ``BLUEFOG_DOCTOR``),
-the ``staleness`` lineage (``BLUEFOG_STALENESS``) and the ``memory``
-observatory with its OOM forensics (``BLUEFOG_MEMORY``).
+the ``staleness`` lineage (``BLUEFOG_STALENESS``), the ``memory``
+observatory with its OOM forensics (``BLUEFOG_MEMORY``), and the fleet
+``health`` plane (the mixing observatory, the push-sum fleet lane and the
+``/healthz`` endpoint; ``BLUEFOG_HEALTH``, ``BLUEFOG_HEALTH_PORT``). The
+spectral engine is in ``topology`` (``second_largest_eigenvalue_modulus``,
+``consensus_decay_rate``, ``mixing_matrix``), and
+``BLUEFOG_PLAN_METHOD=shortcut`` lowers the plans to the relay family on
+the fabric ``BLUEFOG_TORUS_DIMS`` declares.
 
 Elastic gossip: ``elastic`` (``start``, ``inject``, ``guard``, ``stop``;
 ``BLUEFOG_FAULT_PLAN``, ``BLUEFOG_LIVENESS_TIMEOUT``): a killed or stalled
@@ -45,7 +51,7 @@ engine re-windows, and a checkpoint records the live set.
 from bluefog_tpu_torch.version import __version__
 from bluefog_tpu_torch import async_gossip, checkpoint, collective, ops, scaling, sharding, topology
 from bluefog_tpu_torch import elastic, flight, metrics, timeline, watchdog
-from bluefog_tpu_torch import attribution, memory, staleness
+from bluefog_tpu_torch import attribution, health, memory, staleness
 from bluefog_tpu_torch import attribution as doctor  # the bft.doctor facade
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.flight import dump as flight_dump
@@ -255,6 +261,7 @@ __all__ = [
     "doctor",
     "staleness",
     "memory",
+    "health",
     "elastic",
     "checkpoint",
     "scaling",

@@ -75,8 +75,10 @@ set the engine re-windows: the estimate ``x / p`` becomes the new mass with
 
 After each tick the window goes to the staleness observatory under
 ``surface="async"`` (:func:`bluefog_tpu_torch.staleness.observe_window`):
-the ages it folds are the ones the gate read. Not ported here: the health
-and autotune hooks (ROADMAP A13b, A12b).
+the ages it folds are the ones the gate read. The engine's
+:meth:`AsyncGossipEngine.summary` is the ``async`` block of the health
+plane's ``/fleet`` report (:mod:`bluefog_tpu_torch.health`). Not ported
+here: the autotune hook (ROADMAP A12b).
 """
 
 import collections

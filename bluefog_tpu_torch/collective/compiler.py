@@ -12,14 +12,23 @@ class constants, the calibration store, :func:`pipelined_cost_s`), the
 chunk chooser (:func:`chunk_option`, :func:`choose_chunks`, with
 ``BLUEFOG_PLAN_CHUNKS``) and the reduce-scatter family
 (:func:`compile_reduce_scatter`, :func:`reduce_scatter_chunks`), equal to
-the JAX package's. The port declares no torus, so every round is priced at
-congestion 1. The port's own transport, the stacked worker axis of one
+the JAX package's, and the short-cut relay family (:func:`shortcut_perms`,
+``method="shortcut"``): every edge becomes a chain of unit hops on the
+fabric model of :mod:`bluefog_tpu_torch.topology.placement` (the virtual
+ring, or the torus ``BLUEFOG_TORUS_DIMS`` declares) scheduled over
+consecutive rounds, with the JAX package's relay schedule, ``inject`` and
+``delivery`` tables and host-side relay simulation (:func:`_check_relay`).
+A round is priced at congestion 1 unless a torus is declared, then at its
+route model's link load. The port's own transport, the stacked worker axis of one
 process, is the link class ``"stacked"`` (:data:`TRANSPORT_LINK_CLASS`): a
 round is a gather in device memory and the chunks of a wavefront run one
 after another on one stream, so pipelining gains nothing and the chooser
-picks one chunk unless ``BLUEFOG_PLAN_CHUNKS`` asks for more.
+picks one chunk unless ``BLUEFOG_PLAN_CHUNKS`` asks for more; a relay
+forwards verbatim, so on that transport the value a worker receives in a
+relay round is one origin's row (:func:`relay_sources`), one gather.
 :func:`compile_edges` memoizes its structures under the JAX package's key
-and counts ``bluefog.plan_cache.hits`` and ``.misses``.
+(the method and the declared dims in it) and counts
+``bluefog.plan_cache.hits`` and ``.misses``.
 
 The measured calibration (:func:`calibrate`) times the port's own round,
 a gather of a stacked ``[8, elems]`` f32 tensor on the context's device
@@ -32,15 +41,15 @@ package), two rounds monolithic against the 4-chunk wavefront give
 ``pipeline_eff``. It installs them under :data:`TRANSPORT_LINK_CLASS`;
 ``BLUEFOG_PLAN_CALIBRATE=1`` runs it before the chooser prices. The
 attribution doctor prices its probes with the same class
-(:func:`predicted_round_costs_s`, :func:`degraded_round_penalty_s`). Left
-out until ROADMAP A13b: the short-cut relay family (``method="shortcut"``,
-and so ``BLUEFOG_PLAN_METHOD=shortcut``, raise).
+(:func:`predicted_round_costs_s`, :func:`degraded_round_penalty_s`).
 """
 
 import dataclasses
 import os
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+from bluefog_tpu_torch.topology import placement as _placement
 
 __all__ = [
     "ROUND_ALPHA_S",
@@ -54,6 +63,8 @@ __all__ = [
     "compile_edges",
     "offset_perms",
     "coloring_perms",
+    "shortcut_perms",
+    "relay_sources",
     "min_rounds",
     "round_cost_s",
     "plan_cost_s",
@@ -162,17 +173,12 @@ def clear_calibration(link_class: Optional[str] = None) -> None:
 def plan_method() -> str:
     """The structure method of the plans of the active topology, the
     explicit-weight plans and the window exchanges:
-    ``BLUEFOG_PLAN_METHOD`` (default ``auto``; ``offset`` and ``coloring``
-    force one pass and pin the chunk count to 1, as in the JAX package).
-    ``shortcut`` raises until the relay family is ported (ROADMAP A13b);
-    other values raise in :func:`compile_edges`."""
-    method = os.environ.get("BLUEFOG_PLAN_METHOD", "auto").strip() or "auto"
-    if method == "shortcut":
-        raise NotImplementedError(
-            "BLUEFOG_PLAN_METHOD=shortcut: the relay plan family is not ported "
-            "yet (ROADMAP A13b); use auto, offset or coloring"
-        )
-    return method
+    ``BLUEFOG_PLAN_METHOD`` (default ``auto``; ``offset``, ``coloring`` and
+    ``shortcut`` force one pass and pin the chunk count to 1, as in the JAX
+    package; the window exchanges take ``auto`` for ``shortcut``, see
+    :func:`bluefog_tpu_torch.collective.plan.perms_from_edges`). Other
+    values raise in :func:`compile_edges`."""
+    return os.environ.get("BLUEFOG_PLAN_METHOD", "auto").strip() or "auto"
 
 
 def _timed_round_s(body, x, device, steps: int, windows: int) -> float:
@@ -330,12 +336,11 @@ def predicted_round_costs_s(info, payload_bytes: float, n_rounds: Optional[int] 
                             link_class: str = "ici") -> Tuple[float, ...]:
     """Per-round predicted cost at ``payload_bytes`` under the active
     calibration, the model the doctor holds its probes to: every round of
-    ``info`` (a :class:`CompiledEdges`; the port prices each at congestion
-    1), or ``n_rounds`` rounds when ``info`` is None or has none."""
-    if info is not None and info.rounds:
-        n = info.rounds
-    else:
-        n = n_rounds if n_rounds is not None else (info.rounds if info is not None else 0)
+    ``info`` (a :class:`CompiledEdges`) at its congestion, or ``n_rounds``
+    rounds at congestion 1 when ``info`` is None or has none."""
+    if info is not None and info.congestion:
+        return tuple(round_cost_s(payload_bytes, c, link_class) for c in info.congestion)
+    n = n_rounds if n_rounds is not None else (info.rounds if info is not None else 0)
     return tuple(round_cost_s(payload_bytes, 1.0, link_class) for _ in range(n))
 
 
@@ -363,13 +368,27 @@ Perms = Tuple[Tuple[Tuple[int, int], ...], ...]
 
 @dataclasses.dataclass(frozen=True)
 class CompiledEdges:
-    """The chosen round structure and how it was chosen."""
+    """The chosen round structure and how it was chosen.
+
+    ``inject[r]`` lists the ranks that send their own payload in round
+    ``r`` (every other sender forwards what it received in round ``r - 1``),
+    and ``delivery`` maps each edge to the round whose receive completes it,
+    where the receiver's weight for that edge applies. A direct
+    decomposition (offset, coloring; ``route="direct"``) is the case in
+    which every sender injects and every perm pair is an edge delivered in
+    its own round (:func:`_direct_tables`; the JAX package leaves both None
+    there). ``congestion`` is each round's link load under the route model
+    (1 without a declared torus)."""
 
     perms: Perms
-    method: str  # "offset" | "coloring"
+    method: str  # "offset" | "coloring" | "shortcut"
     rounds: int
     offset_rounds: int  # the naive (offset-grouped) round count
     lower_bound: int  # König bound: max(max_in_degree, max_out_degree)
+    route: str  # "direct" | "shortcut"
+    inject: Tuple[Tuple[int, ...], ...]
+    delivery: Tuple[Tuple[Tuple[int, int], int], ...]
+    congestion: Tuple[float, ...]
 
 
 def _canonical(edges: Iterable[Tuple[int, int]], size: int) -> Tuple[Tuple[int, int], ...]:
@@ -459,6 +478,138 @@ def coloring_perms(edges: Iterable[Tuple[int, int]], size: int) -> Perms:
     return perms
 
 
+def shortcut_perms(
+    edges: Iterable[Tuple[int, int]], size: int, dims: Optional[Sequence[int]] = None,
+) -> Tuple[Perms, Tuple[Tuple[int, ...], ...], Tuple[Tuple[Tuple[int, int], int], ...]]:
+    """Short-cut (relay) pass: every edge becomes its unit-hop route
+    (:func:`bluefog_tpu_torch.topology.placement.route_ranks`: the
+    serpentine ring by default, dimension-ordered torus moves under a
+    declared ``BLUEFOG_TORUS_DIMS``), and the hops are scheduled over
+    consecutive rounds, so every round's transfers are single hops. The
+    value moves verbatim (no arithmetic at relays), and the delivering
+    round's receiver weight applies exactly as the direct lowering's.
+
+    Scheduling is greedy earliest-start over the chains sorted longest
+    first (deterministic, the JAX package's order): a chain occupies
+    consecutive rounds (a relay forwards what it received in the previous
+    round), each rank sends at most one value a round and receives at most
+    one. Returns ``(perms, inject, delivery)``, validated by the relay
+    simulation :func:`_check_relay`."""
+    edge_list = _canonical(edges, size)
+    chains = []
+    for u, v in edge_list:
+        ranks = _placement.route_ranks(u, v, size, dims)
+        chains.append(((u, v), tuple(zip(ranks[:-1], ranks[1:]))))
+    chains.sort(key=lambda c: (-len(c[1]), c[0]))
+
+    rounds: List[List[Tuple[int, int]]] = []
+    send_used: List[set] = []
+    recv_used: List[set] = []
+    inject: List[set] = []
+    delivery: List[Tuple[Tuple[int, int], int]] = []
+
+    def fits(start: int, hops) -> bool:
+        for t, (a, b) in enumerate(hops):
+            r = start + t
+            if r < len(rounds) and (a in send_used[r] or b in recv_used[r]):
+                return False
+        return True
+
+    for (u, v), hops in chains:
+        start = 0
+        while not fits(start, hops):
+            start += 1
+        for t, (a, b) in enumerate(hops):
+            r = start + t
+            while r >= len(rounds):
+                rounds.append([])
+                send_used.append(set())
+                recv_used.append(set())
+                inject.append(set())
+            rounds[r].append((a, b))
+            send_used[r].add(a)
+            recv_used[r].add(b)
+            if t == 0:
+                inject[r].add(a)
+        delivery.append(((u, v), start + len(hops) - 1))
+
+    perms = tuple(tuple(sorted(r)) for r in rounds)
+    inject_t = tuple(tuple(sorted(i)) for i in inject)
+    delivery_t = tuple(sorted(delivery))
+    _check_relay(perms, inject_t, delivery_t, edge_list, size)
+    return perms, inject_t, delivery_t
+
+
+def _relay_origins(perms: Perms, inject) -> List[Dict[int, Optional[int]]]:
+    """The transit recursion of a relay schedule, replayed on the host:
+    for each round, ``{receiver: origin}``, the rank whose own payload the
+    receiver gets (None: a forward of nothing, which delivers zeros)."""
+    out: List[Dict[int, Optional[int]]] = []
+    transit: Dict[int, Optional[int]] = {}  # rank -> origin rank it carries
+    for r, perm in enumerate(perms):
+        arriving: Dict[int, Optional[int]] = {}
+        inj = set(inject[r])
+        for a, b in perm:
+            arriving[b] = a if a in inj else transit.get(a)
+        out.append(arriving)
+        transit = arriving
+    return out
+
+
+def _check_relay(
+    perms: Perms,
+    inject: Tuple[Tuple[int, ...], ...],
+    delivery: Tuple[Tuple[Tuple[int, int], int], ...],
+    edge_list: Sequence[Tuple[int, int]],
+    size: int,
+) -> None:
+    """Invariant pass of a relay schedule: every round is a partial
+    permutation, and the host-side simulation of the transit recursion
+    hands every declared delivery's receiver the original source's value."""
+    for perm in perms:
+        srcs = [s for s, _ in perm]
+        dsts = [d for _, d in perm]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+            raise AssertionError(f"relay round is not a partial permutation: {perm}")
+    by_round = {r: {b: o for b, o in arriving.items() if o is not None}
+                for r, arriving in enumerate(_relay_origins(perms, inject))}
+    seen = []
+    for (u, v), r in delivery:
+        if by_round.get(r, {}).get(v) != u:
+            raise AssertionError(f"relay schedule does not deliver {u}->{v} at round {r}")
+        seen.append((u, v))
+    if sorted(seen) != list(edge_list):
+        raise AssertionError("relay deliveries do not cover the edge set exactly")
+
+
+def _direct_tables(perms: Perms):
+    """``(inject, delivery)`` of a direct schedule: every sender injects
+    its own payload, and every perm pair is an edge delivered in its own
+    round."""
+    inject = tuple(tuple(sorted(s for s, _ in perm)) for perm in perms)
+    delivery = tuple(sorted(((s, d), r) for r, perm in enumerate(perms) for s, d in perm))
+    return inject, delivery
+
+
+def relay_sources(perms: Perms, inject, size: int):
+    """``[rounds, size]`` int32: the origin rank whose payload each rank
+    receives in each round of a schedule, -1 where it receives nothing (or
+    a forward of nothing); on a direct schedule, each round's sender. A
+    relay forwards verbatim, so on the
+    stacked transport round ``r`` of a relay plan is one gather from these
+    rows: the JAX relay's transit bits, including the rounds a receiver
+    only passes on (weight 0). An origin may feed two receivers in one
+    round, so a row need not be a permutation."""
+    import numpy as np
+
+    src = np.full((len(perms), size), -1, np.int32)
+    for r, arriving in enumerate(_relay_origins(perms, inject)):
+        for b, o in arriving.items():
+            if o is not None:
+                src[r, b] = o
+    return src
+
+
 def _check_rounds(perms: Perms, edge_list) -> None:
     """Every round is a partial permutation and the rounds partition the
     edge set exactly."""
@@ -484,27 +635,26 @@ def compile_edges(
 
     ``auto`` takes the coloring only when it strictly reduces the round
     count and keeps the offset grouping on ties (the JAX compiler's rule,
-    whose cost model is monotone in the round count); ``offset`` and
-    ``coloring`` force one pass; ``shortcut`` (the relay family) is not
-    ported yet and raises. Memoized under the JAX package's key
-    ``(canonical edges, size, method, payload, torus dims)``, where the
-    payload is the constant ``DEFAULT_PAYLOAD_BYTES`` (no port caller prices
-    a plan by payload) and the port declares no torus, counting
+    whose cost model is monotone in the round count; it never chooses
+    ``shortcut``); ``offset`` and ``coloring`` force one pass;
+    ``shortcut`` is the relay family (:func:`shortcut_perms`, which sets
+    ``route``, ``inject`` and ``delivery``). Memoized under the JAX
+    package's key ``(canonical edges, size, method, payload, torus dims)``,
+    where the payload is the constant ``DEFAULT_PAYLOAD_BYTES`` (no port
+    caller prices a plan by payload) and the dims are
+    :func:`~bluefog_tpu_torch.topology.placement.declared_torus_dims`, so
+    a change of either compiles its own entry; counts
     ``bluefog.plan_cache.hits`` and ``.misses``."""
-    if method == "shortcut":
-        raise NotImplementedError(
-            "method='shortcut' (BLUEFOG_PLAN_METHOD=shortcut): the relay plan "
-            "family is not ported yet (ROADMAP A13b); use 'auto', 'offset' or "
-            "'coloring'"
-        )
-    if method not in ("auto", "offset", "coloring"):
+    if method not in ("auto", "offset", "coloring", "shortcut"):
         raise ValueError(
-            f"method must be 'auto', 'offset' or 'coloring', got {method!r}"
+            "method must be 'auto', 'offset', 'coloring' or 'shortcut', "
+            f"got {method!r}"
         )
     from bluefog_tpu_torch import metrics
 
     canon = _canonical(edges, size)
-    key = (canon, size, method, DEFAULT_PAYLOAD_BYTES, None)
+    dims = _placement.declared_torus_dims(size)
+    key = (canon, size, method, DEFAULT_PAYLOAD_BYTES, dims)
     hit = _COMPILE_CACHE.get(key)
     if hit is not None:
         metrics.counter("bluefog.plan_cache.hits").inc()
@@ -512,20 +662,30 @@ def compile_edges(
     metrics.counter("bluefog.plan_cache.misses").inc()
     naive = offset_perms(canon, size)
     bound = min_rounds(canon, size)
+    route = "direct"
     if method == "offset":
         perms, chosen = naive, "offset"
+    elif method == "shortcut":
+        perms, inject, delivery = shortcut_perms(canon, size, dims)
+        chosen, route = "shortcut", "shortcut"
     else:
         colored = naive if len(naive) <= bound else coloring_perms(canon, size)
         if method == "coloring" or len(colored) < len(naive):
             perms, chosen = colored, "coloring"
         else:
             perms, chosen = naive, "offset"
+    if route == "direct":
+        inject, delivery = _direct_tables(perms)
     result = CompiledEdges(
         perms=perms,
         method=chosen,
         rounds=len(perms),
         offset_rounds=len(naive),
         lower_bound=bound,
+        route=route,
+        inject=inject,
+        delivery=delivery,
+        congestion=_round_congestions(perms, size, route),
     )
     if len(_COMPILE_CACHE) >= _COMPILE_CACHE_MAX:
         _COMPILE_CACHE.pop(next(iter(_COMPILE_CACHE)))
@@ -533,10 +693,17 @@ def compile_edges(
     return result
 
 
-def _round_congestions(perms: Perms, size: int) -> Tuple[float, ...]:
-    """Per-round link load of the cost model: 1 for every round, since the
-    port declares no physical torus to route on."""
-    return (1.0,) * len(perms)
+def _round_congestions(perms: Perms, size: int, route: str = "direct") -> Tuple[float, ...]:
+    """Per-round max-link-load factors of the cost model. Unit-hop relay
+    rounds are 1 by construction; direct rounds are priced by the route
+    model only when a torus is declared (``BLUEFOG_TORUS_DIMS``), 1
+    otherwise."""
+    if route == "shortcut":
+        return (1.0,) * len(perms)
+    dims = _placement.declared_torus_dims(size)
+    if dims is None:
+        return (1.0,) * len(perms)
+    return tuple(float(_placement.perm_congestion(p, size, dims)) for p in perms)
 
 
 def chunk_option(payload_bytes: float, congestions: Sequence[float],
@@ -580,16 +747,19 @@ def choose_chunks(compiled, payload_bytes: float, n_elems: Optional[int] = None,
                   method: str = "auto", link_class: str = "ici") -> int:
     """The chunk count of one dispatch: ``BLUEFOG_PLAN_CHUNKS`` when set;
     1 under a forced structure method; else :func:`chunk_option` over the
-    compiled structure's rounds (a :class:`CompiledEdges` or a round
-    count)."""
+    compiled structure's rounds at their congestion (a
+    :class:`CompiledEdges`) or over a round count."""
     k = _env_chunks(n_elems)
     if k is not None:
         return k
     if method not in (None, "auto"):
         return 1
     _maybe_autocalibrate(link_class)
-    rounds = compiled.rounds if isinstance(compiled, CompiledEdges) else int(compiled)
-    k, _cost = chunk_option(payload_bytes, (1.0,) * rounds, n_elems, link_class=link_class)
+    if isinstance(compiled, CompiledEdges):
+        congestions = compiled.congestion or (1.0,) * compiled.rounds
+    else:
+        congestions = (1.0,) * int(compiled)
+    k, _cost = chunk_option(payload_bytes, congestions, n_elems, link_class=link_class)
     return k
 
 
@@ -622,7 +792,7 @@ def compile_reduce_scatter(size: int,
             tuple((r, (r + t) % size) for r in range(size))
             for t in range(1, size)
         )
-        congestion = _round_congestions(perms, size)
+        congestion = _round_congestions(perms, size, "direct")
         payload = DEFAULT_PAYLOAD_BYTES if payload_bytes is None else float(payload_bytes)
         info = CompiledReduceScatter(
             perms=perms, size=size, rounds=size - 1, congestion=congestion,

@@ -10,6 +10,21 @@ delivers to a non-destination, whose weight is 0). The arithmetic follows
 the JAX functions op for op, so the stacked results equal the mesh
 results slot for slot.
 
+A short-cut (relay) plan's rounds are unit hops along which a relay
+forwards, verbatim, the value it received in the round before (the JAX
+``_chunked_exact_combine`` with ``inject``, and the relay branches of the
+quantized combine and of :func:`neighbor_allgather`). The transit
+recursion is replayed on the host (:func:`compiler.relay_sources`), so
+the value worker ``j`` receives in round ``r`` is bit for bit one origin's
+row, and :meth:`CommPlan.sources` names it: every combine below takes the
+relay plan's origin rows as its ``src`` and stays one gather a round (the
+int8/int4 combine one ``encode`` and one ``decode_accumulate`` over every
+round). A round in which a receiver only passes the value on carries
+weight 0 and is added all the same, as JAX adds ``recv * 0`` (a NaN
+included). :func:`neighbor_allgather` reads the neighbour relations of
+the delivery table, so a relay plan gathers exactly what the direct plan
+does.
+
 Chunking (``chunks > 1``) splits only the transfers, on the 512-element
 grid, in wavefront order (chunk ``c`` of round ``r`` beside chunk ``c + 1``
 of round ``r - 1``): the exact and bf16 combines and the reduce-scatter
@@ -184,7 +199,8 @@ def _weight_dtype(x: torch.Tensor) -> torch.dtype:
 
 def plan_operands(plan: CommPlan, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(src [R, N] int32, self_w [N] f32, recv_w [R, N] f32)`` of a plan,
-    on ``device``."""
+    on ``device``: ``src`` is :meth:`CommPlan.sources`, a relay plan's
+    origin rows."""
     self_w, recv_w = plan.weight_operands()
     return (
         torch.from_numpy(np.array(plan.sources())).to(device),
@@ -258,7 +274,8 @@ def weighted_combine_operands(
 ) -> torch.Tensor:
     """``y_j = self_w[j] * x_j + sum_r recv_w[r, j] * x_{src[r, j]}``, the
     weights as runtime operands; ``chunks > 1`` chunks the transfers
-    (:func:`_chunked_exact_combine`, bitwise the same result)."""
+    (:func:`_chunked_exact_combine`, bitwise the same result). ``src`` of a
+    relay plan names each round's origin rows (:func:`plan_operands`)."""
     xw = x.to(_weight_dtype(x))
     if chunks > 1:
         return _chunked_exact_combine(xw, src, self_w, recv_w, chunks)

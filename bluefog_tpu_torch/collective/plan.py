@@ -11,6 +11,15 @@ round ``r``, or -1 when ``j`` receives nothing (a partial permutation, for
 which ``ppermute`` delivers zeros and the weight is 0). A
 :class:`SchedulePlan` is a periodic sequence of plans for the dynamic
 (one-peer) topologies, lowered by :func:`schedule_from_dynamic`.
+
+A short-cut (relay) plan (``method="shortcut"``) keeps the JAX plan's
+rounds: its perm pairs are unit hops, not edges, and the compiler's
+delivery table (``compile_info.delivery``) says in which round each edge
+arrives, where its weight applies and from which the neighbour relations
+come. A relay forwards verbatim, so :meth:`CommPlan.sources` of such a plan
+names each round's origin row (:func:`compiler.relay_sources`): the
+stacked combine stays one gather a round and computes the JAX relay's
+arithmetic.
 """
 
 import dataclasses
@@ -53,9 +62,7 @@ class CommPlan:
     size: int
     self_weights: Tuple[float, ...]
     rounds: Tuple[CommRound, ...]
-    compile_info: Optional[CompiledEdges] = dataclasses.field(
-        default=None, compare=False
-    )
+    compile_info: CompiledEdges = dataclasses.field(compare=False)
 
     @property
     def perms(self) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
@@ -70,26 +77,34 @@ class CommPlan:
             recv[r] = rnd.recv_weights
         return self_w, recv
 
+    @property
+    def relay(self) -> bool:
+        """Whether the rounds are a short-cut relay schedule."""
+        return self.compile_info.route == "shortcut"
+
     @functools.cached_property
     def _sources(self) -> np.ndarray:
-        src = np.full((len(self.rounds), self.size), -1, np.int32)
-        for r, rnd in enumerate(self.rounds):
-            for s, d in rnd.perm:
-                src[r, d] = s
+        src = compiler.relay_sources(self.perms, self.compile_info.inject, self.size)
         src.setflags(write=False)
         return src
 
     def sources(self) -> np.ndarray:
-        """``[rounds, size]`` int32: the sender of each rank per round, -1
-        for none (read-only)."""
+        """``[rounds, size]`` int32: the rank whose value each rank receives
+        per round, -1 for none (read-only): the round's sender, or on a
+        relay plan the origin of what the relay carries."""
         return self._sources
+
+    def _edge_rounds(self) -> List[Tuple[int, int, int]]:
+        """``(src, dst, delivering round)`` of every edge, from the
+        compiler's delivery table (a relay plan's pairs are transport, not
+        neighbour relations)."""
+        return [(s, d, r) for (s, d), r in self.compile_info.delivery]
 
     @functools.cached_property
     def in_neighbors(self) -> Tuple[Tuple[int, ...], ...]:
         ins: List[List[int]] = [[] for _ in range(self.size)]
-        for rnd in self.rounds:
-            for s, d in rnd.perm:
-                ins[d].append(s)
+        for s, d, _r in self._edge_rounds():
+            ins[d].append(s)
         return tuple(tuple(sorted(lst)) for lst in ins)
 
     @property
@@ -102,9 +117,8 @@ class CommPlan:
         w = np.zeros((self.size, self.size))
         for j in range(self.size):
             w[j, j] = self.self_weights[j]
-        for rnd in self.rounds:
-            for s, d in rnd.perm:
-                w[s, d] = rnd.recv_weights[d]
+        for s, d, r in self._edge_rounds():
+            w[s, d] = self.rounds[r].recv_weights[d]
         return w
 
 
@@ -151,7 +165,11 @@ def perms_from_edges(
 ) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
     """Pack directed edges into partial-permutation rounds (the compiler's
     ``method`` decomposition): the structure lowering of the window ops
-    (:mod:`bluefog_tpu_torch.windows`)."""
+    (:mod:`bluefog_tpu_torch.windows`). A relay schedule is not a set of
+    bare perms (its rounds carry transit, not deliveries), so ``shortcut``
+    gets the direct ``auto`` decomposition here, as in the JAX package."""
+    if method == "shortcut":
+        method = "auto"
     return compiler.compile_edges(edges, size, method=method).perms
 
 
@@ -161,7 +179,8 @@ def plan_from_matrix(
     method: str = "auto",
 ) -> CommPlan:
     """Build a plan from a combine matrix ``W``; edges default to the
-    off-diagonal nonzeros (pass them to keep zero-weighted links)."""
+    off-diagonal nonzeros (pass them to keep zero-weighted links). On a
+    relay plan an edge's weight applies at the round its chain delivers."""
     w = np.asarray(w, dtype=np.float64)
     size = w.shape[0]
     if w.shape != (size, size):
@@ -169,12 +188,11 @@ def plan_from_matrix(
     if edges is None:
         edges = zip(*np.nonzero(w))
     compiled = compiler.compile_edges(edges, size, method=method)
-    rounds = []
-    for perm in compiled.perms:
-        weights = [0.0] * size
-        for s, d in perm:
-            weights[d] = float(w[s, d])
-        rounds.append(CommRound(perm=perm, recv_weights=tuple(weights)))
+    per_round = [[0.0] * size for _ in compiled.perms]
+    for (s, d), r in compiled.delivery:
+        per_round[r][d] = float(w[s, d])
+    rounds = [CommRound(perm=perm, recv_weights=tuple(per_round[r]))
+              for r, perm in enumerate(compiled.perms)]
     return CommPlan(
         size=size,
         self_weights=tuple(float(w[i, i]) for i in range(size)),

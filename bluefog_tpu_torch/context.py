@@ -24,7 +24,10 @@ recorder's and the metrics' knobs, and the observatories' switches
 (``BLUEFOG_DOCTOR``, ``BLUEFOG_STALENESS``, ``BLUEFOG_MEMORY``); it refuses a set ``BLUEFOG_PODS``, a
 declared federation the port cannot honour yet (ROADMAP A12b). The plans
 of the active topology follow ``BLUEFOG_PLAN_METHOD``
-(:func:`bluefog_tpu_torch.collective.compiler.plan_method`).
+(:func:`bluefog_tpu_torch.collective.compiler.plan_method`) and, for the
+relay family, ``BLUEFOG_TORUS_DIMS``; both are in the plans' cache keys.
+The health plane (:mod:`bluefog_tpu_torch.health`, ``BLUEFOG_HEALTH``,
+``BLUEFOG_HEALTH_PORT``) is opened and closed with the context.
 """
 
 import collections
@@ -38,7 +41,7 @@ import torch
 
 from bluefog_tpu_torch.collective import compiler
 from bluefog_tpu_torch.collective.plan import CommPlan, plan_from_topology
-from bluefog_tpu_torch.topology import ExponentialGraph
+from bluefog_tpu_torch.topology import ExponentialGraph, placement
 
 __all__ = [
     "BluefogContext",
@@ -181,7 +184,8 @@ class BluefogContext:
                 "no machine topology set; call set_machine_topology() or pass "
                 "explicit machine weights"
             )
-        key = (self.machine_topo_version, method)
+        key = (self.machine_topo_version, method,
+               placement.declared_torus_dims(self.machine_size))
         cached = self._machine_plan_cache
         if cached is None or cached[0] != key:
             from bluefog_tpu_torch import flight
@@ -200,15 +204,16 @@ class BluefogContext:
         return None if m is None else m.token()
 
     def static_plan(self) -> CommPlan:
-        """The plan of the active topology under ``BLUEFOG_PLAN_METHOD``,
-        rebuilt only when either or the elastic live set
+        """The plan of the active topology under ``BLUEFOG_PLAN_METHOD``
+        (and ``BLUEFOG_TORUS_DIMS``, the relay family's fabric), rebuilt
+        only when one of them or the elastic live set
         (:meth:`live_token`) changes: a membership change, even one that
         reinstalls an identical-looking graph, never reuses a plan built
         for the old live set. A new plan is noted in the flight recorder
         with its token and its key in :attr:`plan_keys`."""
         token = self.live_token()
         key = ("static_plan", self.topo_version, self._topo_weighted,
-               compiler.plan_method(), token)
+               compiler.plan_method(), placement.declared_torus_dims(self.size), token)
         cached = self._plan_cache
         if cached is None or cached[0] != key:
             from bluefog_tpu_torch import flight
@@ -289,12 +294,13 @@ def init(
     ``BLUEFOG_NODES_PER_MACHINE``, else one machine of all) for the
     hierarchical ops. Closes an open elastic session (it is bound to the
     old context's membership), opens the timeline of ``BLUEFOG_TIMELINE``,
-    a fresh flight recorder and the observatory sessions their switches
-    ask for, and sets the ``bluefog.size`` and
+    a fresh flight recorder, the observatory sessions their switches
+    ask for and the health plane (``BLUEFOG_HEALTH``, its endpoint under
+    ``BLUEFOG_HEALTH_PORT``), and sets the ``bluefog.size`` and
     ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` is refused."""
     global _context
-    from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, memory, metrics
-    from bluefog_tpu_torch import staleness
+    from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, health, memory
+    from bluefog_tpu_torch import metrics, staleness
     from bluefog_tpu_torch import timeline as tl
 
     pods = os.environ.get("BLUEFOG_PODS", "").strip()
@@ -315,6 +321,7 @@ def init(
     # fresh observatory sessions for a fresh context; memory's OOM hook
     # installs after the flight recorder's, so it runs first
     attribution.on_init(ctx)
+    health.on_init(ctx)
     staleness.on_init(ctx)
     memory.on_init(ctx)
     async_gossip.on_init(ctx)
@@ -325,18 +332,20 @@ def init(
 
 def shutdown() -> None:
     """Drop the global context (reference ``bf.shutdown``): close the
-    elastic session, the observatory sessions and the flight session, fold the pending probe payloads
+    elastic session, the observatory sessions, the health plane and its
+    endpoint, and the flight session, fold the pending probe payloads
     and run the env-configured exporters, then close a timeline ``init``
     opened from ``BLUEFOG_TIMELINE`` (a timeline the user opened stays
     open)."""
     global _context
-    from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, memory, metrics
-    from bluefog_tpu_torch import staleness
+    from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, health, memory
+    from bluefog_tpu_torch import metrics, staleness
     from bluefog_tpu_torch import timeline as tl
 
     elastic.stop()
     async_gossip.on_shutdown()
     attribution.on_shutdown()
+    health.on_shutdown()
     staleness.on_shutdown()
     memory.on_shutdown()
     if _context is not None:

@@ -50,8 +50,11 @@ elastic ``oom`` fault runs the same path and raises
 :class:`SimulatedResourceExhausted`. ``tools/memory_report.py`` rebuilds
 the postmortem from the dump.
 
-The health plane's two fleet slots and the autotune ``memory_pressure``
-flag wait for ``health.py`` and ``autotune.py`` (ROADMAP A13b, A12b).
+The footprint and the headroom are the ``mem_bytes_per_rank`` and
+``mem_headroom`` slots of the health plane's fleet lane, and the
+observatory's summary is the ``memory`` block of its ``/fleet`` report
+(:mod:`bluefog_tpu_torch.health`). The autotune ``memory_pressure`` flag
+waits for ``autotune.py`` (ROADMAP A12b).
 
 Knobs: ``BLUEFOG_MEMORY=1`` (default off), ``BLUEFOG_MEMORY_INTERVAL``
 (default 20), ``BLUEFOG_MEMORY_BUDGET`` (bytes a worker; 0 / unset: no

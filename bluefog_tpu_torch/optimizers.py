@@ -83,6 +83,7 @@ The observatories, as in the JAX package: every communicating step of
 both dispatch paths times its enqueue for the doctor when it will sample
 (:func:`bluefog_tpu_torch.attribution.dispatch_timer`), and after the
 enqueue hands the step to :func:`bluefog_tpu_torch.attribution.observe_step`,
+the health plane's :func:`bluefog_tpu_torch.health.observe_step`,
 :func:`bluefog_tpu_torch.staleness.observe_step` (the fused path with the
 delay buffer's payload age and ``surface="delayed"``) and
 :func:`bluefog_tpu_torch.memory.observe_step`; the window optimizers hand
@@ -90,6 +91,12 @@ their window to :func:`bluefog_tpu_torch.staleness.observe_window`. With a
 memory session open each enqueue runs inside its ``dispatch`` phase
 (:func:`_timed_dispatch`). A step that none of them samples runs the code
 it runs with them off.
+
+Under ``BLUEFOG_PLAN_METHOD=shortcut`` the static plan is a relay plan:
+its combine gathers each round's origin rows (see
+:mod:`bluefog_tpu_torch.collective.inner`), its injection table joins the
+gossip keys, and the error-feedback tiers refuse it with the JAX package's
+``ValueError`` (their copies integrate a fixed per-round source).
 """
 
 import enum
@@ -103,6 +110,7 @@ import numpy as np
 
 from bluefog_tpu_torch import attribution, flight, metrics, sharding
 from bluefog_tpu_torch import context as ctx_mod
+from bluefog_tpu_torch import health as health_mod
 from bluefog_tpu_torch import memory as mem_mod
 from bluefog_tpu_torch import staleness as stal_mod
 from bluefog_tpu_torch import windows as win_mod
@@ -859,11 +867,21 @@ class _GossipOptimizer:
     def _plan_dispatch(self, ctx, params, plan: CommPlan) -> _Dispatch:
         """The neighbor combine over one plan, in this step's tier, with the
         chooser's chunk count."""
-        src, self_w, recv_w = inner.plan_operands(plan, ctx.device)
         wire = self.compression
+        # a relay plan's injection table joins the gossip keys (the JAX
+        # package's "na"/"na_q" keys): its rounds are transport, not edges
+        inject = plan.compile_info.inject
+        if wire in _EF_TIERS and plan.relay:
+            raise ValueError(
+                f"compression={wire!r} cannot ride a short-cut (relay) plan: the "
+                "CHOCO copies integrate a fixed per-round source, which relay "
+                "rounds do not have. Unset BLUEFOG_PLAN_METHOD=shortcut or use a "
+                "memoryless wire (None/'int8'/'bf16'/'int4')."
+            )
+        src, self_w, recv_w = inner.plan_operands(plan, ctx.device)
         chunks = self._plan_chunks(plan, self._wire_payload(params))
         if wire is None:
-            return _Dispatch(("na", plan.perms, chunks),
+            return _Dispatch(("na", plan.perms, chunks, inject),
                              lambda t: inner.weighted_combine_operands(
                                  t, src, self_w, recv_w, chunks=chunks),
                              lambda: self_w)
@@ -878,7 +896,7 @@ class _GossipOptimizer:
                     flat, st, src, recv_w, wire=base, inplace=True, chunks=chunks),
                 quantized_self, ef=True)
         return _Dispatch(
-            ("na_q", wire, plan.perms, chunks),
+            ("na_q", wire, plan.perms, chunks, inject),
             lambda t: inner.weighted_combine_quantized_operands(
                 t, src, recv_w, wire=wire, inplace=True, chunks=chunks),
             quantized_self)
@@ -1224,6 +1242,7 @@ class _GossipOptimizer:
             attribution.observe_step(ctx, step=step, outputs=params, plan=self._last_plan,
                                      params=params, wire=self.compression,
                                      dispatch_s=_elapsed(doc_t0))
+            health_mod.observe_step(ctx, step=step, plan=self._last_plan)
             stal_mod.observe_step(ctx, step=step, plan=self._last_plan, payload_age=0,
                                   surface="sync")
             mem_mod.observe_step(ctx, step=step, optimizer=self, params=params,
@@ -1336,6 +1355,7 @@ class _GossipOptimizer:
                 attribution.observe_step(ctx, step=step, outputs=loss, plan=self._last_plan,
                                          params=params, wire=self.compression,
                                          dispatch_s=_elapsed(doc_t0))
+                health_mod.observe_step(ctx, step=step, plan=self._last_plan)
                 stal_mod.observe_step(ctx, step=step, plan=self._last_plan,
                                       payload_age=payload_age,
                                       surface="delayed" if delay_now else "sync")

@@ -18,8 +18,8 @@ lengths are unique across groups (a state leaf's trailing dimension names
 its group). The ``i``-th live rank owns ``[i * slot, (i + 1) * slot)``.
 
 The sharded update itself lives in :mod:`bluefog_tpu_torch.optimizers`;
-the registry below is read by :func:`summary` (the JAX package's health
-report reads it too; the port has no health plane yet).
+the registry below is read by :func:`summary`, the ``shard`` block of the
+health plane's ``/fleet`` report (:mod:`bluefog_tpu_torch.health`).
 """
 
 import os

@@ -40,9 +40,10 @@ so the measured age spikes on exactly that edge and a
 
 An advisory counts ``bluefog.doctor.advisory.staleness_breach``, goes to
 the flight side table, the timeline and ``BLUEFOG_STALENESS_FILE``;
-``tools/staleness_report.py`` triages the dump. The fleet push-sum field
-(the worst age on the health plane's lane) waits for ``health.py``
-(ROADMAP A13b).
+``tools/staleness_report.py`` triages the dump. The worst age
+(:meth:`StalenessObservatory.last_age_max`) is the ``stale_age_max`` slot
+of the health plane's fleet lane (:mod:`bluefog_tpu_torch.health`), and
+the mean age discounts its predicted rate (:func:`age_adjusted_rate`).
 
 Knobs: ``BLUEFOG_STALENESS=1`` (default off),
 ``BLUEFOG_STALENESS_INTERVAL`` (default 20 communicating steps),

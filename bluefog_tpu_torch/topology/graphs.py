@@ -30,6 +30,12 @@ __all__ = [
     "edges",
     "GetRecvWeights",
     "GetSendWeights",
+    "mixing_matrix",
+    "second_largest_eigenvalue_modulus",
+    "second_largest_eigenvalue_modulus_info",
+    "spectral_gap",
+    "consensus_decay_rate",
+    "consensus_decay_rate_info",
 ]
 
 
@@ -190,6 +196,63 @@ def RandomRegularDigraph(size: int, degree: int, seed: int = 0) -> np.ndarray:
     for i in range(size):
         mat[i, i] = uniform
     return mat
+
+
+# -- spectral analysis (the mixing observatory's predicted-rate core) ---------
+
+
+def mixing_matrix(topo: np.ndarray) -> np.ndarray:
+    """The combination matrix ``W`` of a topology as a float64 array
+    (``W[i, j]`` = weight rank ``j`` applies to rank ``i``'s value). The
+    port holds a topology as that matrix already, so this is a float64
+    copy of it, the array ``nx.to_numpy_array`` gives for the JAX
+    package's graph. One gossip step maps the stacked iterate ``x`` to
+    ``W^T x``."""
+    return np.array(topo, dtype=np.float64)
+
+
+def second_largest_eigenvalue_modulus(w) -> float:
+    """SLEM of a stochastic combine matrix: the modulus of the largest
+    eigenvalue once one Perron root (the eigenvalue nearest 1) is
+    removed. A disconnected (or periodic) matrix reports 1.0: no
+    contraction is promised.
+
+    Routed through :mod:`bluefog_tpu_torch.topology.spectral`: dense
+    eigvals at ``N <= BLUEFOG_SPECTRAL_DENSE_MAX`` (default 64, the
+    oracle), deflated Arnoldi over the edge list above. Accepts a dense
+    array, an :class:`~bluefog_tpu_torch.topology.spectral.EdgeMatrix`,
+    or an ``(n, {(i, j): w})`` edge-dict pair."""
+    return second_largest_eigenvalue_modulus_info(w)[0]
+
+
+def second_largest_eigenvalue_modulus_info(w) -> Tuple[float, dict]:
+    """:func:`second_largest_eigenvalue_modulus` plus the engine info
+    dict (``engine`` / ``matvecs`` / ``residual`` / ``converged``)."""
+    from bluefog_tpu_torch.topology import spectral as _spectral
+
+    return _spectral.slem_info(w)
+
+
+def spectral_gap(w: np.ndarray) -> float:
+    """``1 - SLEM``: the per-step consensus contraction margin the
+    matrix promises (0: no mixing guarantee, 1: one-step consensus)."""
+    return 1.0 - second_largest_eigenvalue_modulus(w)
+
+
+def consensus_decay_rate(mats) -> float:
+    """Predicted per-step consensus decay rate of one matrix or of a
+    periodic sequence of matrices (the dynamic one-peer schedules, the
+    elastic repair's per-period plans): a single matrix gives its SLEM, a
+    sequence ``SLEM(W_K^T ... W_1^T)^(1/K)``."""
+    return consensus_decay_rate_info(mats)[0]
+
+
+def consensus_decay_rate_info(mats) -> Tuple[float, dict]:
+    """:func:`consensus_decay_rate` plus the engine info dict (``engine``
+    / ``matvecs`` / ``residual`` / ``converged`` / ``period``)."""
+    from bluefog_tpu_torch.topology import spectral as _spectral
+
+    return _spectral.decay_info(mats)
 
 
 def IsTopologyEquivalent(topo1: Optional[np.ndarray], topo2: Optional[np.ndarray]) -> bool:

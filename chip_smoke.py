@@ -205,6 +205,42 @@ Phases, one line each; any failure exits non-zero:
                interval 10, 1 + 10 steps bitwise all three off, and a
                ``checkpoint.save`` recording the ``checkpoint_save`` phase;
                files under ``build/observatories``, deleted;
+11d. health and relay -- the relay (short-cut) plan family and the fleet
+               health plane on the same ResNet50 and weighted Exp2 graph,
+               cuDNN deterministic, each counted part's launch counts zeroed
+               just before it and read just after: (a) under
+               ``BLUEFOG_PLAN_METHOD=shortcut``, on the virtual ring and with
+               ``BLUEFOG_TORUS_DIMS=2,4``: every relay round a partial
+               permutation of unit hops, the deliveries the edge set
+               (``_check_relay``), the weights the direct plan's; integer
+               payloads under dyadic weights (an all-to-all plan) at
+               ``[8, 25 557 504]`` bitwise the offset lowering; the int8/int4
+               relay combine's ``encode`` and ``decode_accumulate`` (Exp2, and
+               the star, whose rounds feed two receivers from one origin) and
+               the relay allgather's ``decode`` at that width bitwise their
+               plain versions (uncounted); counted: ATC fp32, int8 and int4
+               two-program steps (1 + 2) against the direct plan's (rounds,
+               step s, optimizer ms), and ``neighbor_allgather`` exact, int8
+               and int4, bitwise the direct plan's; ``int8_ef`` refused with
+               the JAX package's ``ValueError``; (b) ATC int8 with
+               ``BLUEFOG_HEALTH=1`` at interval 1 (1 + 4 steps) bitwise a
+               health-off twin, only the lane's ``health_pushsum`` op-cache
+               key added, ``predicted_rate`` the dense oracle's for the
+               dispatched plan, ``/healthz``, ``/metrics`` and ``/fleet``
+               served on 127.0.0.1 at an OS-assigned port and read back; the
+               lane on the card within ``HR_LANE_TOL`` of
+               ``fleet_aggregate_np`` (Exp2, rank 6 dead, 12 applications);
+               with staleness and memory on, ``/fleet``'s memory block and the
+               fleet slots; then the default interval (20) against off, 1 +
+               20 steps, the mean step beside JAX's 1% bound (reported); (c)
+               consensus through ``bft.neighbor_allreduce`` at ``[8, 25 557
+               504]`` f32 on the ring and Exp2 (up to 40 steps): the fitted
+               rate within ``HR_DECAY_TOL`` of the prediction, Exp2 faster;
+               (d) a lossy ring edge 2 -> 3 (5 % delivery from step 30)
+               under a ``degrade`` fault: ``mixing_degraded`` naming [2, 3]
+               on the counter, the flight side table and
+               ``BLUEFOG_HEALTH_FILE``, ``/healthz`` warn, then 503 with
+               rank 5 dead; files under ``build/health_relay``, deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -298,6 +334,11 @@ Phases, one line each; any failure exits non-zero:
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
+
+    python3 chip_smoke.py --phase health-relay
+
+runs phase 11d alone on the full-width ResNet50 (the wire kernels built
+first) and prints no result line.
 
     python3 chip_smoke.py --planted-faults
 
@@ -455,6 +496,11 @@ PATH_KERNELS = {
     "observatories b": ("encode", "decode_accumulate", "decode"),
     "observatories c": FLASH_KERNELS + ("encode", "decode"),
     "observatories d": ("encode_diff", "decode_add"),
+    # the health and relay phase: (a) the relay ResNet50 steps (int8/int4)
+    # and the relay neighbor_allgather (int8/int4), (b) the ATC int8 steps
+    # with the health plane on
+    "health relay a": ("encode", "decode_accumulate", "decode"),
+    "health relay b": ("encode", "decode_accumulate"),
 }
 
 
@@ -3449,6 +3495,515 @@ def phase_observatories_lm(device, sm, tokens, root=OBSV_ROOT, smi=""):
     return counts
 
 
+# -- 11d. health and relay -----------------------------------------------------------------
+
+HR_ROOT = "build/health_relay"
+# (a) the relay's fabrics (the serpentine ring, a declared 2 x 4 torus) and the
+# ResNet50 tiers stepped on each (None: fp32)
+HR_DIMS = (None, "2,4")
+HR_WIRES = (None, "int8", "int4")
+# (a) relay against direct after the first step, while the gradients are still
+# the same: JAX's allclose(1e-5) (test_plan_compiler.py, relative and absolute;
+# absolute here of the largest value) on every tier, since both plans combine
+# the same terms (the same payload bits on int8/int4) in another order
+HR_RELAY_TOL = 1e-5
+# (b) the lane on the card against fleet_aggregate_np (bench.py::run_health
+# claim 3: Exp2(8), rank 6 dead, 12 applications), of the largest value (10)
+HR_LANE_TOL = 1e-5
+# (b) JAX's bound on the health plane's cost at the default interval
+# (bench.py::run_health claim 2): reported beside the measured share, not gated
+HR_OVERHEAD_BOUND = 0.01
+# (c) consensus steps and the bound on |mixing efficiency - 1| (claim 1)
+HR_DECAY_STEPS = 40
+HR_DECAY_TOL = 0.15
+# (d) the lossy ring edge and its delivery share (claim 4), the killed rank
+HR_LOSSY = (2, 3, 0.05)
+HR_KILL = 5
+
+
+def hr_plan_gates(name, plan, direct, dims):
+    """A relay plan against its direct twin: every round a partial
+    permutation of unit hops on the fabric, the deliveries the edge set
+    (the relay simulation ``_check_relay`` passes), the weights the direct
+    plan's."""
+    from bluefog_tpu_torch.collective import compiler
+    from bluefog_tpu_torch.topology import placement
+
+    info = plan.compile_info
+    fabric = tuple(int(d) for d in dims.split(",")) if dims else None
+    for perm in plan.perms:
+        if len({s for s, _ in perm}) != len(perm) or len({d for _, d in perm}) != len(perm) \
+                or any(placement.hop_distance(s, d, SIZE, fabric) != 1 for s, d in perm):
+            raise AssertionError(f"health-relay (a) {name}: round {perm} is not a partial "
+                                 f"permutation of unit hops on {fabric}")
+    edges = sorted((s, d) for s, d, _r in direct._edge_rounds())
+    compiler._check_relay(plan.perms, info.inject, info.delivery, tuple(edges), SIZE)
+    if sorted(e for e, _r in info.delivery) != edges or \
+            not np.array_equal(plan.weight_matrix(), direct.weight_matrix()):
+        raise AssertionError(f"health-relay (a) {name}: the deliveries or the weights differ "
+                             f"from the direct plan's")
+
+
+def hr_relay_parity(device, dims, n=RESNET50_WIDTH):
+    """The relay's exactness and its kernels at full width, outside the
+    counted run: integer payloads under dyadic weights (an all-to-all plan)
+    bitwise the offset lowering; the int8/int4 relay combine's ``encode``
+    and ``decode_accumulate`` (Exp2, and the star whose rounds feed two
+    receivers from one origin) and the relay allgather's ``decode`` bitwise
+    their plain versions on the card. Returns the largest difference (0)."""
+    from bluefog_tpu_torch.collective.plan import plan_from_matrix
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    rng = np.random.RandomState(23)
+    w = rng.randint(-64, 65, size=(SIZE, SIZE)).astype(np.float64) / 64.0
+    mask = rng.rand(SIZE, SIZE) < 0.5
+    np.fill_diagonal(mask, True)
+    w = np.where(mask, w, 0.0)
+    edges = [(i, j) for i in range(SIZE) for j in range(SIZE) if i != j]
+    relay = plan_from_matrix(w, edges=edges, method="shortcut")
+    direct = plan_from_matrix(w, edges=edges, method="offset")
+    x = torch.randint(-8, 9, (SIZE, n), generator=gen, device=device).float()
+    got = inner.weighted_combine(x, relay)
+    if not torch.equal(bits(got), bits(inner.weighted_combine(x, direct))):
+        raise AssertionError(f"health-relay (a) dims {dims}: the dyadic relay combine differs "
+                             "from the offset lowering's")
+    del got
+    x = torch.randn(SIZE, n, generator=gen, device=device) * 5.0
+    err = 0.0
+    dup = 0
+    for graph in (topo.ExponentialTwoGraph(SIZE), topo.StarGraph(SIZE)):
+        plan = plan_from_topology(graph, method="shortcut")
+        src, _self_w, recv_w = inner.plan_operands(plan, device)
+        dup += sum(len(set(r.tolist()) - {-1}) < int((r >= 0).sum()) for r in src.cpu())
+        for wire in ("int8", "int4"):
+            e, p, s = check_encode(x, wire)
+            err = max(err, e, check_decode(x, p, s, src, recv_w, wire))
+            for k in range(plan.max_in_degree):
+                rows = [plan.in_neighbors[j][k] if k < len(plan.in_neighbors[j]) else -1
+                        for j in range(SIZE)]
+                err = max(err, check_decode_rows(
+                    p, s, torch.tensor(rows, dtype=torch.int32, device=device), wire))
+            del p, s
+    if not dup:
+        raise AssertionError("health-relay (a): no relay round fed two receivers from one "
+                             "origin")
+    return err
+
+
+def hr_steps(device, sm, images, labels, stats0, params0, wire, env, steps=3):
+    """ATC ``sgd(0.1, 0.9)`` on ``wire`` over the weighted Exp2 graph under
+    ``env`` (set before ``bft.init``): ``steps`` two-program steps
+    (``loss_and_grad``, ``opt.step``) from ``params0``; returns the final
+    parameters, those after the first step, the static plan, and the
+    median step s and optimizer ms over the steps after the first."""
+    with env_set({**OBSV_OFF, **env}):
+        bft.init(size=SIZE, device=device)
+        bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+        sm.load_buffers(stats0)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = wire
+        params = params0.clone()
+        state = opt.init(params)
+        grads = torch.empty_like(params)
+        times = []
+        for i in range(steps):
+            sync(device)
+            t0 = time.perf_counter()
+            loss = sm.loss_and_grad(params, images, labels, grads)[0]
+            sync(device)
+            t1 = time.perf_counter()
+            opt.step(params, state, grads)
+            sync(device)
+            if i:
+                times.append((time.perf_counter() - t0, time.perf_counter() - t1))
+            else:
+                first = params.clone()
+            if not torch.isfinite(loss).all():
+                raise AssertionError(f"health-relay (a) {wire}: non-finite loss at step {i}")
+        plan = bft.get_context().static_plan()
+        out = {"params": params, "first": first, "plan": plan,
+               "step_s": statistics.median(t[0] for t in times),
+               "opt_ms": 1e3 * statistics.median(t[1] for t in times)}
+        opt.free()
+    return out
+
+
+def hr_relay(device, sm, images, labels, stats0, params0, n=RESNET50_WIDTH):
+    """Part (a): the relay family on the ResNet50 train step, on the ring
+    and a declared 2 x 4 torus: the plan gates and the kernel parity
+    (uncounted), then the counted run: fp32, int8 and int4 two-program steps
+    under ``BLUEFOG_PLAN_METHOD=shortcut`` against the direct plan (within
+    ``HR_RELAY_TOL`` after the first step, the drift after the last
+    printed), the relay ``neighbor_allgather`` (exact, int8, int4) bitwise the direct
+    plan's; and the EF refusal. Returns ``(numbers, launch counts)``."""
+    direct = {str(w): hr_steps(device, sm, images, labels, stats0, params0, w, {})
+              for w in HR_WIRES}
+    numbers = {"direct": {k: (v["step_s"], v["opt_ms"]) for k, v in direct.items()},
+               "direct_rounds": len(direct["None"]["plan"].rounds)}
+    counts = {k: 0 for k in KERNEL_ROWS}
+    for dims in HR_DIMS:
+        env = {"BLUEFOG_PLAN_METHOD": "shortcut"}
+        if dims:
+            env["BLUEFOG_TORUS_DIMS"] = dims
+        tag = dims or "ring"
+        with env_set(env):
+            bft.init(size=SIZE, device=device)
+            bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+            plan = bft.get_context().static_plan()
+            hr_plan_gates(tag, plan, direct["None"]["plan"], dims)
+            err = hr_relay_parity(device, dims, n)
+        reset_launch_counts()
+        runs = {str(w): hr_steps(device, sm, images, labels, stats0, params0, w, env)
+                for w in HR_WIRES}
+        drift = {k: float((runs[k]["params"] - direct[k]["params"]).abs().max()
+                          / direct[k]["params"].abs().max()) for k in runs}
+        first = {k: float((runs[k]["first"] - direct[k]["first"]).abs().max()
+                          / direct[k]["first"].abs().max()) for k in runs}
+        close = all(torch.allclose(runs[k]["first"], direct[k]["first"], rtol=HR_RELAY_TOL,
+                                   atol=HR_RELAY_TOL * float(direct[k]["first"].abs().max()))
+                    for k in runs)
+        if not close or any(not math.isfinite(v) for v in drift.values()) or \
+                any(not r["plan"].relay for r in runs.values()):
+            raise AssertionError(f"health-relay (a) {tag}: after the first step {first} from "
+                                 f"the direct run (relative to the largest value; allclose "
+                                 f"{HR_RELAY_TOL}), after the last {drift}")
+        with env_set(env):
+            bft.init(size=SIZE, device=device)
+            bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+            x = torch.randn(SIZE, n, device=device,
+                            generator=torch.Generator(device=device).manual_seed(3))
+            gathered = {wire: bft.neighbor_allgather(x, compression=wire)
+                        for wire in (None, "int8", "int4")}
+            part = launch_counts()
+            # the direct plan's gathers, outside the counted run
+            os.environ["BLUEFOG_PLAN_METHOD"] = "auto"
+            for wire, got in gathered.items():
+                want = bft.neighbor_allgather(x, compression=wire)
+                if any(not torch.equal(bits(g), bits(v)) for g, v in zip(got, want)):
+                    raise AssertionError(f"health-relay (a) {tag}: the relay allgather "
+                                         f"({wire}) differs from the direct plan's")
+                del want
+            del gathered, x
+        for k in counts:
+            counts[k] += part[k]
+        with env_set({**env, "BLUEFOG_PLAN_METHOD": "shortcut"}):
+            bft.init(size=SIZE, device=device)
+            opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+            opt.compression = "int8_ef"
+            p = {"w": torch.zeros(SIZE, 1024, device=device)}
+            try:
+                opt.step(p, opt.init(p), {"w": torch.zeros(SIZE, 1024, device=device)})
+            except ValueError as e:
+                if "short-cut (relay)" not in str(e):
+                    raise
+            else:
+                raise AssertionError("health-relay (a): int8_ef ran on a relay plan")
+        numbers[tag] = {"rounds": len(runs["None"]["plan"].rounds),
+                        "inject": runs["None"]["plan"].compile_info.inject,
+                        "congestion": runs["None"]["plan"].compile_info.congestion,
+                        "runs": {k: (v["step_s"], v["opt_ms"]) for k, v in runs.items()},
+                        "first": first, "drift": drift, "parity_err": err,
+                        "launches": {k: part[k] for k in ("encode", "decode_accumulate",
+                                                          "decode")}}
+        del runs
+    del direct
+    return numbers, counts
+
+
+def hr_get(url):
+    """``(status, body)`` of a GET, the status of an HTTP error included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def hr_health(device, sm, images, labels, stats0, params0, root):
+    """Part (b): the health plane on the ResNet50 ATC int8 step: at
+    interval 1 bitwise a health-off twin, the lane's own op-cache key only,
+    ``predicted_rate`` the dense oracle's, the three endpoints on
+    127.0.0.1; with the staleness and memory observatories on too, their
+    fleet slots; the lane on the card against ``fleet_aggregate_np``; then
+    the default interval (20) against off over 20 steps. Returns the
+    numbers and the launch counts of the health-on runs alone (each zeroed
+    just before its run and read just after; the off twins, the lane and
+    the scrapes are outside them)."""
+    from bluefog_tpu_torch import health
+    from bluefog_tpu_torch.topology import spectral
+
+    counts = {k: 0 for k in KERNEL_ROWS}
+
+    def counted(steps, env):
+        reset_launch_counts()
+        out = obsv_steps(device, sm, images, labels, stats0, params0, "int8", steps, env)
+        part = launch_counts()
+        for k in counts:
+            counts[k] += part[k]
+        return out
+
+    off = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 5, {})
+    off_keys = set(bft.get_context().op_cache)
+    env = {"BLUEFOG_HEALTH": "1", "BLUEFOG_HEALTH_INTERVAL": "1",
+           "BLUEFOG_HEALTH_FILE": os.path.join(root, "health.jsonl")}
+    on = counted(5, env)
+    obsv_bitwise("health-relay (b) interval 1", off, on)
+    ctx = bft.get_context()
+    added = {k[0] for k in set(ctx.op_cache) - off_keys}
+    plane = health.active()
+    want_rate = spectral.dense_slem(on["opt"]._last_plan.weight_matrix())
+    if added != {"health_pushsum"} or len(plane.samples) != 5 or \
+            abs(plane.samples[-1]["predicted_rate"] - want_rate) > 1e-12 or \
+            any("fleet_error" in s for s in plane.samples):
+        raise AssertionError(f"health-relay (b): op-cache keys added {added}, "
+                             f"{len(plane.samples)} samples, predicted "
+                             f"{plane.samples[-1].get('predicted_rate')} against the oracle's "
+                             f"{want_rate}, samples {list(plane.samples)[-1]}")
+    srv = health.serve(0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{srv.port}"
+    served = {p: hr_get(base + p) for p in ("/healthz", "/metrics", "/fleet")}
+    srv.close()
+    verdict = json.loads(served["/healthz"][1])
+    fleet = json.loads(served["/fleet"][1])
+    if served["/healthz"][0] != 200 or verdict["status"] != "ok" or \
+            served["/metrics"][0] != 200 or \
+            b"bluefog_health_samples_total" not in served["/metrics"][1] or \
+            fleet["kind"] != "health_dump" or len(fleet["samples"]) != 5:
+        raise AssertionError(f"health-relay (b): served {served['/healthz']}, /metrics "
+                             f"{served['/metrics'][0]}, /fleet {str(fleet)[:300]}")
+    # the lane on the card against the float64 oracle (claim 3)
+    w = topo.mixing_matrix(topo.ExponentialTwoGraph(SIZE))
+    vals = np.random.RandomState(0).rand(SIZE, len(health.FLEET_FIELDS)) * 10.0
+    dev = health.fleet_aggregate(ctx, vals, rounds=12, w=w, dead=[6])
+    ora = health.fleet_aggregate_np(w, vals, rounds=12, dead=[6])
+    lane_err = max(float(np.max(np.abs(np.array(dev[k]) - np.array(ora[k]))))
+                   for k in ("mean", "min", "max"))
+    if not lane_err <= HR_LANE_TOL:
+        raise AssertionError(f"health-relay (b): the lane is {lane_err:.3g} from the oracle")
+    # with the staleness and memory observatories on: their fleet slots
+    env_all = {**env, "BLUEFOG_STALENESS": "1", "BLUEFOG_STALENESS_INTERVAL": "1",
+               "BLUEFOG_MEMORY": "1", "BLUEFOG_MEMORY_INTERVAL": "1"}
+    both = counted(5, env_all)
+    obsv_bitwise("health-relay (b) with staleness and memory", off, both)
+    plane = health.active()
+    srv = health.serve(0, host="127.0.0.1")
+    status, body = hr_get(f"http://127.0.0.1:{srv.port}/fleet")
+    srv.close()
+    rep = json.loads(body)
+    vec = plane._local_vector(bft.get_context(), None, list(range(SIZE)))
+    fields = health.FLEET_FIELDS
+    i_mem = fields.index("mem_bytes_per_rank")
+    if status != 200 or "memory" not in rep or rep["memory"]["bytes_per_rank"] <= 0 or \
+            not vec[0, i_mem] > 0 or rep["fields"] != list(fields) or \
+            vec[0, fields.index("stale_age_max")] != both["staleness"].last_age_max():
+        raise AssertionError(f"health-relay (b): /fleet {status} {str(rep)[:400]}, local "
+                             f"vector {vec[0]}")
+    # the default interval against off, 1 + 20 steps each
+    off20 = obsv_steps(device, sm, images, labels, stats0, params0, "int8", 21, {})
+    on20 = counted(21, {"BLUEFOG_HEALTH": "1"})
+    obsv_bitwise("health-relay (b) interval 20", off20, on20)
+    if len(health.active().samples) != 2:
+        raise AssertionError(f"health-relay (b): {len(health.active().samples)} samples at "
+                             "interval 20 over 21 steps")
+    health.stop()
+    off_ms = 1e3 * statistics.mean(off20["times"][1:])
+    on_ms = 1e3 * statistics.mean(on20["times"][1:])
+    return {"rate": want_rate, "lane_err": lane_err, "off_ms": off_ms, "on_ms": on_ms,
+            "share": on_ms / off_ms - 1.0,
+            "mem_bytes": float(vec[0, i_mem]),
+            "age_max": float(vec[0, fields.index("stale_age_max")])}, counts
+
+
+def hr_distance(x):
+    """The mean over workers of each worker's distance to the worker mean,
+    in float64 on the device."""
+    x64 = x.double()
+    return float((x64 - x64.mean(0, keepdim=True)).square().sum(1).sqrt().mean())
+
+
+def hr_decay(device, n=RESNET50_WIDTH):
+    """Part (c): consensus through the port's eager combine on the card at
+    ``[8, 25 557 504]`` f32 on the ring and on Exp2, up to
+    ``HR_DECAY_STEPS`` steps (stopped where the distance falls under 1e-4
+    of the first, as bench.py does): the fitted rate within ``HR_DECAY_TOL``
+    of the spectral prediction, Exp2 faster than the ring."""
+    from bluefog_tpu_torch import health
+
+    out = {}
+    for name, graph in (("ring", topo.RingGraph(SIZE)), ("exp2", topo.ExponentialTwoGraph(SIZE))):
+        bft.init(size=SIZE, device=device)
+        bft.set_topology(graph)
+        ctx = bft.get_context()
+        predicted = topo.consensus_decay_rate(topo.mixing_matrix(graph))
+        plane = health.start(interval=1)
+        x = torch.randn(SIZE, n, device=device,
+                        generator=torch.Generator(device=device).manual_seed(11))
+        d0, last, steps = None, None, 0
+        sync(device)
+        t0 = time.perf_counter()
+        for t in range(HR_DECAY_STEPS):
+            x = bft.neighbor_allreduce(x)
+            d = hr_distance(x)
+            d0 = d if d0 is None else d0
+            if d < d0 * 1e-4:
+                break
+            last = plane.observe(ctx, step=t, consensus=d)
+            steps += 1
+        seconds = time.perf_counter() - t0
+        eff = last.get("mixing_efficiency")
+        if eff is None or abs(eff - 1.0) > HR_DECAY_TOL:
+            raise AssertionError(f"health-relay (c) {name}: efficiency {eff} (predicted "
+                                 f"{predicted}, measured {last.get('measured_rate')})")
+        out[name] = {"predicted": predicted, "measured": last["measured_rate"], "eff": eff,
+                     "steps": steps, "ms": 1e3 * seconds / max(steps, 1),
+                     "tte": last.get("time_to_eps_steps")}
+        health.stop()
+        del x
+    if not out["exp2"]["measured"] < out["ring"]["measured"]:
+        raise AssertionError(f"health-relay (c): Exp2 does not mix faster than the ring {out}")
+    return out
+
+
+def hr_chaos(device, root, n=RESNET50_WIDTH):
+    """Part (d): a lossy ring edge (``HR_LOSSY``, replayed on the card's
+    combine at full width) under a ``degrade`` fault on that edge:
+    ``mixing_degraded`` fires naming it on the counter, the flight side
+    table and ``BLUEFOG_HEALTH_FILE``, and ``/healthz`` says warn; then a
+    killed rank makes it 503."""
+    from bluefog_tpu_torch import health
+
+    src, dst, factor = HR_LOSSY
+    path = os.path.join(root, "chaos.jsonl")
+    with env_set({"BLUEFOG_HEALTH_FILE": path}):
+        bft.init(size=SIZE, device=device)
+        bft.set_topology(topo.RingGraph(SIZE))
+        ctx = bft.get_context()
+        w = topo.mixing_matrix(topo.RingGraph(SIZE))
+        session = bft.elastic.start(policy="average")
+        session.inject("degrade", rank=src, step=0, factor=factor, peer=dst)
+        plane = health.start(interval=1)
+        counted0 = metrics.counter("bluefog.doctor.advisory.mixing_degraded").value
+        x = torch.randn(SIZE, n, device=device,
+                        generator=torch.Generator(device=device).manual_seed(12))
+        fired_at = None
+        for t in range(50):
+            y = bft.neighbor_allreduce(x)
+            if t >= 30:
+                y[dst] += (1.0 - factor) * w[src, dst] * (x[dst] - x[src])
+            x = y
+            plane.observe(ctx, step=t, consensus=hr_distance(x))
+            if fired_at is None and plane.advisories:
+                fired_at = t
+            if fired_at is not None and t >= fired_at + 2:
+                break
+        advs = [a for a in plane.advisories if a.kind == "mixing_degraded"]
+        counted = metrics.counter("bluefog.doctor.advisory.mixing_degraded").value - counted0
+        table = [a for a in flight._build_dump("health")["advisories"]
+                 if a.get("kind") == "mixing_degraded"]
+        written = [r for r in (json.loads(line) for line in open(path))
+                   if r.get("advisory_kind") == "mixing_degraded"]
+        srv = health.serve(0, host="127.0.0.1")
+        warn = hr_get(f"http://127.0.0.1:{srv.port}/healthz")
+        session.membership.mark_dead(HR_KILL, "killed", t)
+        dead = hr_get(f"http://127.0.0.1:{srv.port}/healthz")
+        srv.close()
+        bft.elastic.stop()
+        health.stop()
+    if not advs or fired_at is None or fired_at < 30 or \
+            any([src, dst] not in a.detail["suspect_edges"] for a in advs) or \
+            counted != len(advs) or len(table) != len(advs) or len(written) != len(advs) or \
+            any([src, dst] not in a["suspect_edges"] for a in table) or \
+            warn[0] != 200 or json.loads(warn[1])["status"] != "warn" or dead[0] != 503 or \
+            HR_KILL not in json.loads(dead[1])["dead_ranks"]:
+        raise AssertionError(f"health-relay (d): fired at {fired_at}, advisories "
+                             f"{[a.to_json() for a in advs]}, counted {counted}, table {table}, "
+                             f"written {len(written)}, /healthz {warn} then {dead}")
+    return {"fired_at": fired_at, "advisories": len(advs),
+            "efficiency": advs[0].detail["mixing_efficiency"],
+            "baseline": advs[0].detail["baseline_efficiency"],
+            "suspects": advs[0].detail["suspect_edges"]}
+
+
+def phase_health_relay(device, sm, images, labels, root=HR_ROOT, smi="", n=RESNET50_WIDTH):
+    """Parts (a)-(d) of the health and relay phase on the ResNet50 of the
+    train-step phase; ``n`` is the width of the payloads that are not the
+    model's (the relay parity and allgather, the consensus of (c) and (d)).
+    Returns ``({part: launch counts of its counted run}, numbers)``."""
+    import shutil
+
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    params0 = sm.replicate()
+    counts, numbers = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        t0 = time.perf_counter()
+        a, counts["health relay a"] = hr_relay(device, sm, images, labels, stats0, params0, n)
+        a["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b, counts["health relay b"] = hr_health(device, sm, images, labels, stats0, params0,
+                                                root)
+        b["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = hr_decay(device, n)
+        c_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d = hr_chaos(device, root, n)
+        d_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        sm.load_buffers(stats0)
+        bft.elastic.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        bft.init(size=SIZE, device=device)
+    numbers.update(a=a, b=b, c=c, d=d)
+    direct = a["direct"]
+    for tag in ("ring",) + tuple(x for x in HR_DIMS if x):
+        r = a[tag]
+        runs = "; ".join(
+            f"{'fp32' if k == 'None' else k}: step {v[0]:.4f} s (direct {direct[k][0]:.4f}), "
+            f"optimizer {v[1]:.1f} ms (direct {direct[k][1]:.1f})"
+            for k, v in r["runs"].items())
+        log("health-relay", f"(a) relay on {tag}: {r['rounds']} rounds (direct "
+                            f"{a['direct_rounds']}), congestion {r['congestion']}; {runs}; "
+                            f"parameters after the first step within "
+                            f"{ {k: f'{v:.2g}' for k, v in r['first'].items()} } of the direct "
+                            f"run's (relative to the largest value; allclose {HR_RELAY_TOL}), "
+                            f"after 3 steps "
+                            f"{ {k: f'{v:.2g}' for k, v in r['drift'].items()} }; launches encode/decode_accumulate/decode "
+                            f"{r['launches']}; the dyadic relay bitwise the offset lowering, "
+                            f"the relay allgather bitwise the direct one, int8_ef refused; on "
+                            f"one card a relay round is one more gather, so the relay costs "
+                            f"more than direct here; on {smi}")
+    log("health-relay", f"(a) part {a['seconds']:.1f} s")
+    log("health-relay", f"(b) health at interval 1: bitwise off, only the health_pushsum key "
+                        f"added, predicted_rate {b['rate']:.6f} = the dense oracle, /healthz "
+                        f"/metrics /fleet served on 127.0.0.1; lane on the card within "
+                        f"{b['lane_err']:.3g} of fleet_aggregate_np (bound {HR_LANE_TOL}); "
+                        f"fleet slots mem_bytes_per_rank {b['mem_bytes']:.4g}, stale_age_max "
+                        f"{b['age_max']}; interval 20: mean step {b['on_ms']:.1f} ms on, "
+                        f"{b['off_ms']:.1f} ms off ({100 * b['share']:+.2f}%; JAX's bound "
+                        f"{100 * HR_OVERHEAD_BOUND:.0f}%, reported, not gated); part "
+                        f"{b['seconds']:.1f} s; on {smi}")
+    log("health-relay", "(c) decay at [8, 25 557 504] f32: " + "; ".join(
+        f"{k}: predicted {v['predicted']:.6f}, measured {v['measured']:.6f}, efficiency "
+        f"{v['eff']:.4f} (tolerance {HR_DECAY_TOL}), {v['steps']} steps at {v['ms']:.2f} ms, "
+        f"time to eps {v['tte']}" for k, v in c.items()) + f"; part {c_s:.1f} s; on {smi}")
+    log("health-relay", f"(d) lossy {HR_LOSSY[0]}->{HR_LOSSY[1]} at {HR_LOSSY[2]} from step 30: "
+                        f"mixing_degraded at step {d['fired_at']} ({d['advisories']} "
+                        f"advisories, efficiency {d['efficiency']} against baseline "
+                        f"{d['baseline']}, suspects {d['suspects']}) on the counter, the flight "
+                        f"table and the JSONL; /healthz warn, then 503 with rank {HR_KILL} "
+                        f"dead; part {d_s:.1f} s")
+    log("health-relay", f"launches of the parts {counts}")
+    return counts, numbers
+
+
 def lm_flops_per_step(sm, seq, batch):
     """bench.py's model FLOPs of one step of every worker: per token
     ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
@@ -4349,6 +4904,28 @@ def planted_faults(root="build/faults"):
     return lines
 
 
+def run_health_relay_alone():
+    """``python3 chip_smoke.py --phase health-relay``: phase 11d alone on
+    the full-width ResNet50 (the wire kernels built first); its gates as in
+    the whole run, its lines and the launch counts of its parts. Prints no
+    result line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    bft.init(size=SIZE)
+    sm, images, labels = build_trainer(device)
+    t0 = time.perf_counter()
+    counts, _numbers = phase_health_relay(device, sm, images, labels, smi=smi)
+    for path in ("health relay a", "health relay b"):
+        missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    log("health-relay", f"phase in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -4357,6 +4934,8 @@ def main():
     if sys.argv[1:] == ["--planted-faults"]:
         planted_faults()
         return 0
+    if sys.argv[1:] == ["--phase", "health-relay"]:
+        return run_health_relay_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -4422,6 +5001,10 @@ def main():
                                              smi=smi)
     counts.update(obsv_counts)
     observatories_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hr_counts, _hr = phase_health_relay(device, sm, images, labels, smi=smi)
+    counts.update(hr_counts)
+    log("health-relay", f"phase in {time.perf_counter() - t0:.1f} s")
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))

@@ -1077,3 +1077,48 @@ def test_memory_census_reconciles_with_the_allocator(cuda):
     finally:
         memory.stop()
         bft.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", WIRES)
+def test_relay_combine_on_encode_and_decode_accumulate_is_bitwise_plain(cuda, wire):
+    """The relay int8/int4 combine on the card (Exp2(8) under the short-cut
+    family: 7 relay rounds; the star: origins that feed two receivers in one
+    round, so a round's source row is no permutation) launches one
+    ``encode`` and one ``decode_accumulate`` and equals the same call on the
+    plain versions bit for bit."""
+    x = kernels.pad_blocks(ragged_input(cuda, seed=9)).contiguous()
+    for graph, rounds in ((topo.ExponentialTwoGraph(SIZE), 7), (topo.StarGraph(SIZE), 8)):
+        plan = plan_from_topology(graph, method="shortcut")
+        assert plan.relay and len(plan.rounds) == rounds
+        src, _self_w, recv_w = inner.plan_operands(plan, cuda)
+        before = kernels.launch_counts()
+        got = inner.weighted_combine_quantized_operands(x.clone(), src, recv_w, wire=wire,
+                                                        inplace=True)
+        after = kernels.launch_counts()
+        want = inner.weighted_combine_quantized_operands(x.cpu(), src.cpu(), recv_w.cpu(),
+                                                         wire=wire)
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+        assert after["encode"] == before["encode"] + 1
+        assert after["decode_accumulate"] == before["decode_accumulate"] + 1
+    assert any(len(set(row.tolist()) - {-1}) < int((row >= 0).sum()) for row in src.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", WIRES)
+def test_relay_allgather_on_decode_is_bitwise_plain_and_direct(cuda, wire):
+    """The relay ``neighbor_allgather`` on the card (``encode`` once,
+    ``decode`` per neighbour slot) equals the plain versions and the direct
+    plan's gather bit for bit."""
+    graph = topo.ExponentialTwoGraph(SIZE)
+    relay = plan_from_topology(graph, method="shortcut")
+    direct = plan_from_topology(graph)
+    x = ragged_input(cuda, seed=10)
+    before = kernels.launch_counts()
+    got, mask = inner.neighbor_allgather(x, relay, wire=wire)
+    after = kernels.launch_counts()
+    want, _ = inner.neighbor_allgather(x.cpu(), relay, wire=wire)
+    same, _ = inner.neighbor_allgather(x, direct, wire=wire)
+    assert torch.equal(_bits(got.cpu()), _bits(want)) and torch.equal(_bits(got), _bits(same))
+    assert after["decode"] == before["decode"] + relay.max_in_degree
+    assert mask.all()

@@ -126,13 +126,25 @@ def test_plan_method_reaches_the_window_exchange(contexts, monkeypatch):
 
 
 def test_shortcut_is_refused_naming_the_roadmap_item(contexts, monkeypatch):
-    bft.init(device="cpu")
+    """``BLUEFOG_PLAN_METHOD=shortcut`` lowers to the relay family (ROADMAP
+    A13b is ported: the facade's combine equals JAX's relay within 1e-6 of
+    the largest value, the compiler's rounds JAX's). What stays refused under
+    it is the federation, whose relay keys wait for ROADMAP A12b: a set
+    ``BLUEFOG_PODS`` raises naming that item."""
     monkeypatch.setenv("BLUEFOG_PLAN_METHOD", "shortcut")
-    bft.set_topology(_digraph(), is_weighted=True)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        bft.neighbor_allreduce(bft.worker_values(np.float32(1)))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        compiler.compile_edges([(0, 1)], 2, method="shortcut")
+    w = _digraph()
+    bf.init(devices=contexts[:SIZE])
+    bft.init(device="cpu")
+    bf.set_topology(nx.from_numpy_array(w, create_using=nx.DiGraph), is_weighted=True)
+    bft.set_topology(w, is_weighted=True)
+    assert _rounds(bft.get_context().static_plan()) == _rounds(jops._static_plan(bf.get_context()))
+    x = np.random.RandomState(0).randn(SIZE, 1500).astype(np.float32)
+    got = bft.neighbor_allreduce(bft.worker_values(list(x)))
+    _close(got.numpy(), bf.neighbor_allreduce(bf.worker_values(list(x))))
+    assert compiler.compile_edges([(0, 1)], 2, method="shortcut").route == "shortcut"
+    monkeypatch.setenv("BLUEFOG_PODS", "2")
+    with pytest.raises(NotImplementedError, match="A12b"):
+        bft.init(device="cpu")
 
 
 def test_nodes_per_machine_from_the_environment_matches_jax(contexts, monkeypatch):

@@ -49,7 +49,8 @@ def test_port_sources_exist():
             "version.py", "torch_average_consensus.py", "torch_decentralized_optimization.py",
             "torch_mnist.py", "torch_long_context.py", "torch_checkpoint_resume.py",
             "torch_benchmark.py", "faults.py", "membership.py", "repair.py",
-            "recovery.py", "staleness.py", "memory.py"} <= names
+            "recovery.py", "staleness.py", "memory.py", "spectral.py", "placement.py",
+            "health.py"} <= names
     for source in ("__init__.py", "faults.py", "membership.py", "repair.py", "recovery.py"):
         assert (ROOT / "bluefog_tpu_torch" / "elastic" / source).is_file()
     for source in ("wire_kernels.cu", "flash_kernels.cu"):

@@ -1,8 +1,8 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
 """The port's memory observatory (``bft.memory``) against the JAX package's
-``bf.memory``, mirroring ``tests/test_memory.py`` (less the health plane's
-fleet slots and the autotune flag, which wait for ``health.py`` and
-``autotune.py``).
+``bf.memory``, mirroring ``tests/test_memory.py`` (less the autotune flag,
+which waits for ``autotune.py``; the health plane's fleet slots are held
+in ``tests/test_torch_health.py``).
 
 Tolerances. Bytes are integers: the census's owner categories, the
 analytic and measured optimizer-state bytes and the reconciliation are held

@@ -1,7 +1,7 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
 """The port's staleness observatory (``bft.staleness``) against the JAX
-package's ``bf.staleness``, mirroring ``tests/test_staleness.py`` (less the
-health plane's fleet field, which waits for ``health.py``).
+package's ``bf.staleness``, mirroring ``tests/test_staleness.py`` (the health
+plane's fleet field is held in ``tests/test_torch_health.py``).
 
 Tolerances. The delivered ages, the lane's self-check, the advisories and
 every field of a sample are integer bookkeeping over the same steps: held
