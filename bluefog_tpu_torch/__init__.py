@@ -40,7 +40,11 @@ observatory with its OOM forensics (``BLUEFOG_MEMORY``), and the fleet
 spectral engine is in ``topology`` (``second_largest_eigenvalue_modulus``,
 ``consensus_decay_rate``, ``mixing_matrix``), and
 ``BLUEFOG_PLAN_METHOD=shortcut`` lowers the plans to the relay family on
-the fabric ``BLUEFOG_TORUS_DIMS`` declares.
+the fabric ``BLUEFOG_TORUS_DIMS`` declares. ``federation`` (``BLUEFOG_PODS``,
+``BLUEFOG_DCN_PERIOD``, ``BLUEFOG_DCN_WIRE``) makes the optimizers' combine
+two-level: intra-pod every step, the pods' gateways every period; ``slo``
+(``BLUEFOG_SLO``) is the SLO engine with its canary lane; ``fleetsim``
+simulates thousands of ranks on the host.
 
 Elastic gossip: ``elastic`` (``start``, ``inject``, ``guard``, ``stop``;
 ``BLUEFOG_FAULT_PLAN``, ``BLUEFOG_LIVENESS_TIMEOUT``): a killed or stalled
@@ -52,6 +56,7 @@ from bluefog_tpu_torch.version import __version__
 from bluefog_tpu_torch import async_gossip, checkpoint, collective, ops, scaling, sharding, topology
 from bluefog_tpu_torch import elastic, flight, metrics, timeline, watchdog
 from bluefog_tpu_torch import attribution, health, memory, staleness
+from bluefog_tpu_torch import federation, fleetsim, slo
 from bluefog_tpu_torch import attribution as doctor  # the bft.doctor facade
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.flight import dump as flight_dump
@@ -262,6 +267,9 @@ __all__ = [
     "staleness",
     "memory",
     "health",
+    "fleetsim",
+    "federation",
+    "slo",
     "elastic",
     "checkpoint",
     "scaling",

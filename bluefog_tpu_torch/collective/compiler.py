@@ -378,7 +378,9 @@ class CompiledEdges:
     which every sender injects and every perm pair is an edge delivered in
     its own round (:func:`_direct_tables`; the JAX package leaves both None
     there). ``congestion`` is each round's link load under the route model
-    (1 without a declared torus)."""
+    (1 without a declared torus). ``link_class`` names the calibrated
+    alpha-beta class the plan is priced under (``"dcn"`` for a federation's
+    gateway leg)."""
 
     perms: Perms
     method: str  # "offset" | "coloring" | "shortcut"
@@ -389,6 +391,7 @@ class CompiledEdges:
     inject: Tuple[Tuple[int, ...], ...]
     delivery: Tuple[Tuple[Tuple[int, int], int], ...]
     congestion: Tuple[float, ...]
+    link_class: str = "ici"
 
 
 def _canonical(edges: Iterable[Tuple[int, int]], size: int) -> Tuple[Tuple[int, int], ...]:
@@ -630,6 +633,7 @@ _COMPILE_CACHE_MAX = 1024
 
 def compile_edges(
     edges: Iterable[Tuple[int, int]], size: int, method: str = "auto",
+    link_class: str = "ici",
 ) -> CompiledEdges:
     """Compile a directed edge set into permutation rounds.
 
@@ -644,7 +648,10 @@ def compile_edges(
     caller prices a plan by payload) and the dims are
     :func:`~bluefog_tpu_torch.topology.placement.declared_torus_dims`, so
     a change of either compiles its own entry; counts
-    ``bluefog.plan_cache.hits`` and ``.misses``."""
+    ``bluefog.plan_cache.hits`` and ``.misses``. ``link_class`` (one of
+    :data:`LINK_CLASSES`) is recorded on the result; the default ``"ici"``
+    keeps that key shape exactly, any other class appends itself to the
+    key and so compiles its own entry, as in the JAX package."""
     if method not in ("auto", "offset", "coloring", "shortcut"):
         raise ValueError(
             "method must be 'auto', 'offset', 'coloring' or 'shortcut', "
@@ -652,9 +659,12 @@ def compile_edges(
         )
     from bluefog_tpu_torch import metrics
 
+    _check_link_class(link_class)
     canon = _canonical(edges, size)
     dims = _placement.declared_torus_dims(size)
     key = (canon, size, method, DEFAULT_PAYLOAD_BYTES, dims)
+    if link_class != "ici":
+        key += (link_class,)
     hit = _COMPILE_CACHE.get(key)
     if hit is not None:
         metrics.counter("bluefog.plan_cache.hits").inc()
@@ -686,6 +696,7 @@ def compile_edges(
         inject=inject,
         delivery=delivery,
         congestion=_round_congestions(perms, size, route),
+        link_class=link_class,
     )
     if len(_COMPILE_CACHE) >= _COMPILE_CACHE_MAX:
         _COMPILE_CACHE.pop(next(iter(_COMPILE_CACHE)))

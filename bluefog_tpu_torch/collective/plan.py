@@ -177,17 +177,20 @@ def plan_from_matrix(
     w: np.ndarray,
     edges: Optional[Iterable[Tuple[int, int]]] = None,
     method: str = "auto",
+    link_class: str = "ici",
 ) -> CommPlan:
     """Build a plan from a combine matrix ``W``; edges default to the
     off-diagonal nonzeros (pass them to keep zero-weighted links). On a
-    relay plan an edge's weight applies at the round its chain delivers."""
+    relay plan an edge's weight applies at the round its chain delivers.
+    ``link_class`` is the compiler's (:func:`compiler.compile_edges`): a
+    federation's gateway leg compiles under ``"dcn"``."""
     w = np.asarray(w, dtype=np.float64)
     size = w.shape[0]
     if w.shape != (size, size):
         raise ValueError(f"weight matrix must be square, got {w.shape}")
     if edges is None:
         edges = zip(*np.nonzero(w))
-    compiled = compiler.compile_edges(edges, size, method=method)
+    compiled = compiler.compile_edges(edges, size, method=method, link_class=link_class)
     per_round = [[0.0] * size for _ in compiled.perms]
     for (s, d), r in compiled.delivery:
         per_round[r][d] = float(w[s, d])

@@ -21,8 +21,10 @@ drops them with it.
 (the machine split when ``nodes_per_machine`` is not given),
 ``BLUEFOG_TIMELINE`` (:mod:`bluefog_tpu_torch.timeline`), the flight
 recorder's and the metrics' knobs, and the observatories' switches
-(``BLUEFOG_DOCTOR``, ``BLUEFOG_STALENESS``, ``BLUEFOG_MEMORY``); it refuses a set ``BLUEFOG_PODS``, a
-declared federation the port cannot honour yet (ROADMAP A12b). The plans
+(``BLUEFOG_DOCTOR``, ``BLUEFOG_STALENESS``, ``BLUEFOG_MEMORY``) and the SLO
+engine's (``BLUEFOG_SLO``). A set ``BLUEFOG_PODS`` declares a federation,
+which the optimizers' combine follows (:mod:`bluefog_tpu_torch.federation`,
+with ``BLUEFOG_DCN_PERIOD`` and ``BLUEFOG_DCN_WIRE``). The plans
 of the active topology follow ``BLUEFOG_PLAN_METHOD``
 (:func:`bluefog_tpu_torch.collective.compiler.plan_method`) and, for the
 relay family, ``BLUEFOG_TORUS_DIMS``; both are in the plans' cache keys.
@@ -296,21 +298,15 @@ def init(
     old context's membership), opens the timeline of ``BLUEFOG_TIMELINE``,
     a fresh flight recorder, the observatory sessions their switches
     ask for and the health plane (``BLUEFOG_HEALTH``, its endpoint under
-    ``BLUEFOG_HEALTH_PORT``), and sets the ``bluefog.size`` and
-    ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` is refused."""
+    ``BLUEFOG_HEALTH_PORT``), the SLO engine last (``BLUEFOG_SLO``; it
+    reads the others), and sets the ``bluefog.size`` and
+    ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` federates the
+    optimizers' combine (:mod:`bluefog_tpu_torch.federation`)."""
     global _context
     from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, health, memory
-    from bluefog_tpu_torch import metrics, staleness
+    from bluefog_tpu_torch import metrics, slo, staleness
     from bluefog_tpu_torch import timeline as tl
 
-    pods = os.environ.get("BLUEFOG_PODS", "").strip()
-    if pods:
-        # a declared federation that cannot be honoured must not run flat
-        raise NotImplementedError(
-            f"BLUEFOG_PODS={pods!r} declares a federation, which the port does "
-            "not run yet (ROADMAP A12b: federation.py); unset BLUEFOG_PODS to "
-            "run one flat fabric"
-        )
     elastic.stop()
     ctx = BluefogContext(topology_fn, is_weighted, size, device, nodes_per_machine)
     with _lock:
@@ -325,6 +321,7 @@ def init(
     staleness.on_init(ctx)
     memory.on_init(ctx)
     async_gossip.on_init(ctx)
+    slo.on_init(ctx)
     metrics.gauge("bluefog.size").set(ctx.size)
     metrics.gauge("bluefog.machine_size").set(ctx.machine_size)
     return ctx
@@ -332,17 +329,19 @@ def init(
 
 def shutdown() -> None:
     """Drop the global context (reference ``bf.shutdown``): close the
-    elastic session, the observatory sessions, the health plane and its
-    endpoint, and the flight session, fold the pending probe payloads
-    and run the env-configured exporters, then close a timeline ``init``
-    opened from ``BLUEFOG_TIMELINE`` (a timeline the user opened stays
-    open)."""
+    elastic session, the SLO engine (first, so its JSONL tail flushes while
+    the tiers it reads are up), the observatory sessions, the health plane
+    and its endpoint, and the flight session, fold the pending probe
+    payloads and run the env-configured exporters, then close a timeline
+    ``init`` opened from ``BLUEFOG_TIMELINE`` (a timeline the user opened
+    stays open)."""
     global _context
     from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, health, memory
-    from bluefog_tpu_torch import metrics, staleness
+    from bluefog_tpu_torch import metrics, slo, staleness
     from bluefog_tpu_torch import timeline as tl
 
     elastic.stop()
+    slo.on_shutdown()
     async_gossip.on_shutdown()
     attribution.on_shutdown()
     health.on_shutdown()

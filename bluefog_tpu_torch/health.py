@@ -38,8 +38,10 @@ next sample, so the step never waits on the card for it.
 (:class:`HealthServer`): ``/healthz`` (the RAG verdict of
 :func:`healthz_verdict`: 200 on ok/warn, 503 on critical), ``/metrics``
 (the Prometheus lines of :func:`bluefog_tpu_torch.metrics.prom_lines`),
-``/fleet`` (:meth:`HealthPlane.report`), ``/slo`` (the empty SLO dump: the
-SLO engine is ROADMAP A12b's). The handler threads read host-side
+``/fleet`` (:meth:`HealthPlane.report`, with the federated fabric and the
+SLO engine's summary when they are on), ``/slo`` (the SLO engine's report,
+:meth:`bluefog_tpu_torch.slo.SLOEngine.report`). ``/healthz`` goes critical
+while an SLO budget is spent. The handler threads read host-side
 snapshots only, never a CUDA tensor. A port in use logs a warning and
 serves nothing. ``tools/fleet_report.py`` renders a dump.
 
@@ -50,8 +52,8 @@ Knobs: ``BLUEFOG_HEALTH=1`` (the observatory, default off),
 aggregate; 0 disables the lane; unset: from the predicted rate),
 ``BLUEFOG_HEALTH_EPS`` (the time-to-ε target, default 1e-6),
 ``BLUEFOG_HEALTH_FILE`` (JSONL samples and advisories). The
-``slo_burn`` slot reads 0, as the JAX package's does with its SLO engine
-off, until ROADMAP A12b ports the engine.
+``slo_burn`` slot reads :func:`bluefog_tpu_torch.slo.worst_burn` (0 with
+the engine off).
 """
 
 import collections
@@ -632,9 +634,12 @@ class HealthPlane:
 
     @staticmethod
     def _slo_burn() -> float:
-        """The worst fast-window SLO burn rate: 0.0, the JAX package's value
-        with its SLO engine off (the engine is ROADMAP A12b's)."""
-        return 0.0
+        """The worst fast-window SLO burn rate of the SLO engine (0.0 with
+        the engine off); aggregated fleet-wide, its max names the worker
+        burning its budget fastest."""
+        from bluefog_tpu_torch import slo as slo_mod
+
+        return float(slo_mod.worst_burn())
 
     @staticmethod
     def _staleness_age_max() -> float:
@@ -912,12 +917,17 @@ class HealthPlane:
     def report(self) -> dict:
         """The health artifact (``tools/fleet_report.py`` reads it), built
         on demand: the sample history, the fleet aggregate, the
-        :func:`healthz_verdict`, and the async engine's, the shard layout's
-        and the memory observatory's blocks when they are on. Host data
-        only."""
+        :func:`healthz_verdict`, and the async engine's, the shard layout's,
+        the federated fabric's (``federation``: layout, gateways, DCN period
+        and wire, predicted rate), the memory observatory's and the SLO
+        engine's (``slo``: worst burn, spent budgets, alerts, the last canary
+        verdict) blocks when they are on. Host data only."""
         from bluefog_tpu_torch import async_gossip as async_mod
+        from bluefog_tpu_torch import context as ctx_mod
+        from bluefog_tpu_torch import federation as fed_mod
         from bluefog_tpu_torch import memory as mem_mod
         from bluefog_tpu_torch import sharding as sharding_mod
+        from bluefog_tpu_torch import slo as slo_mod
 
         rep = self._build_report()
         rep["healthz"] = healthz_verdict(self)
@@ -927,6 +937,10 @@ class HealthPlane:
         shard = sharding_mod.summary()
         if shard is not None:
             rep["shard"] = shard
+        if fed_mod.enabled() and ctx_mod.is_initialized():
+            fab = fed_mod.get_fabric(ctx_mod.get_context().size)
+            if fab is not None:
+                rep["federation"] = fab.to_json()
         obs = mem_mod.active()
         if obs is not None:
             rep["memory"] = {
@@ -936,6 +950,14 @@ class HealthPlane:
                 "peak_bytes_per_rank": int(obs._peak_bytes),
                 "oom_events": obs.oom_events,
                 "ranked_census": mem_mod.ranked_census(obs.last_census)[:4],
+            }
+        eng = slo_mod.active()
+        if eng is not None:
+            rep["slo"] = {
+                "worst_burn": eng.worst_burn(),
+                "exhausted": eng.exhausted_objectives(),
+                "alerts": len(eng.alerts),
+                "canary": eng.canary.last if eng.canary is not None else None,
             }
         return rep
 
@@ -950,13 +972,14 @@ class HealthPlane:
 
 def healthz_verdict(plane: Optional["HealthPlane"] = None) -> dict:
     """The ``/healthz`` verdict: **critical** when the elastic membership
-    holds dead or suspect ranks; **warn** when an advisory (health or
-    doctor) fired within the last :data:`VERDICT_RECENT_SAMPLES` samples of
-    its own communicating-step clock; **ok** otherwise. HTTP: 200 for
-    ok/warn, 503 for critical. ``slo_exhausted`` is empty (no SLO
-    engine)."""
+    holds dead or suspect ranks, or an SLO error budget is spent
+    (``slo_exhausted``, :func:`bluefog_tpu_torch.slo.exhausted_objectives`);
+    **warn** when an advisory (health or doctor) fired within the last
+    :data:`VERDICT_RECENT_SAMPLES` samples of its own communicating-step
+    clock; **ok** otherwise. HTTP: 200 for ok/warn, 503 for critical."""
     from bluefog_tpu_torch import attribution
     from bluefog_tpu_torch import context as ctx_mod
+    from bluefog_tpu_torch import slo as slo_mod
     from bluefog_tpu_torch.elastic.membership import RankState
 
     plane = plane if plane is not None else _plane
@@ -976,6 +999,10 @@ def healthz_verdict(plane: Optional["HealthPlane"] = None) -> dict:
         if suspects:
             status = "critical"
             reasons.append(f"suspect ranks: {suspects}")
+    exhausted = slo_mod.exhausted_objectives()
+    if exhausted:
+        status = "critical"
+        reasons.append(f"slo budget exhausted: {exhausted}")
     recent: List[dict] = []
     if plane is not None:
         floor = plane._count - VERDICT_RECENT_SAMPLES * plane.interval
@@ -995,7 +1022,7 @@ def healthz_verdict(plane: Optional["HealthPlane"] = None) -> dict:
         "reasons": reasons,
         "dead_ranks": dead,
         "suspect_ranks": suspects,
-        "slo_exhausted": [],
+        "slo_exhausted": exhausted,
         "recent_advisories": recent[-8:],
         "ts": time.time(),
     }
@@ -1007,7 +1034,8 @@ def healthz_verdict(plane: Optional["HealthPlane"] = None) -> dict:
 class HealthServer:
     """A stdlib HTTP endpoint on a daemon thread: ``/healthz`` (the
     verdict, 503 on critical), ``/metrics`` (Prometheus text), ``/fleet``
-    (:meth:`HealthPlane.report`), ``/slo`` (the empty SLO dump). A bind
+    (:meth:`HealthPlane.report`), ``/slo`` (the SLO engine's report, an
+    empty dump with the engine off). A bind
     failure is a logged no-op (:meth:`maybe_start`)."""
 
     def __init__(self, httpd, thread):
@@ -1070,8 +1098,12 @@ class HealthServer:
                             "kind": "health_dump", "healthz": healthz_verdict(None),
                             "fleet": None, "samples": []})
                     elif path == "/slo":
-                        self._json(200, {"kind": "slo_dump", "objectives": [], "alerts": [],
-                                         "canary": None})
+                        from bluefog_tpu_torch import slo as slo_mod
+
+                        eng = slo_mod.active()
+                        self._json(200, eng.report() if eng is not None else {
+                            "kind": "slo_dump", "objectives": [], "alerts": [],
+                            "canary": None})
                     else:
                         self._json(404, {"error": f"unknown path {path!r}",
                                          "paths": ["/healthz", "/metrics", "/fleet", "/slo"]})

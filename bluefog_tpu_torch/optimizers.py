@@ -87,10 +87,16 @@ the health plane's :func:`bluefog_tpu_torch.health.observe_step`,
 :func:`bluefog_tpu_torch.staleness.observe_step` (the fused path with the
 delay buffer's payload age and ``surface="delayed"``) and
 :func:`bluefog_tpu_torch.memory.observe_step`; the window optimizers hand
-their window to :func:`bluefog_tpu_torch.staleness.observe_window`. With a
+their window to :func:`bluefog_tpu_torch.staleness.observe_window`; last,
+:func:`bluefog_tpu_torch.slo.observe_step` (the SLO engine, whose canary
+dispatches under its own op-cache key). With a
 memory session open each enqueue runs inside its ``dispatch`` phase
 (:func:`_timed_dispatch`). A step that none of them samples runs the code
 it runs with them off.
+
+Under ``BLUEFOG_PODS`` the static-plan neighbor combine is the two-level
+federated one (:meth:`_GossipOptimizer._fed_dispatch`), with the
+``bluefog.federation.ici_wire_bytes`` and ``.dcn_wire_bytes`` counters.
 
 Under ``BLUEFOG_PLAN_METHOD=shortcut`` the static plan is a relay plan:
 its combine gathers each round's origin rows (see
@@ -112,6 +118,7 @@ from bluefog_tpu_torch import attribution, flight, metrics, sharding
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import health as health_mod
 from bluefog_tpu_torch import memory as mem_mod
+from bluefog_tpu_torch import slo as slo_mod
 from bluefog_tpu_torch import staleness as stal_mod
 from bluefog_tpu_torch import windows as win_mod
 from bluefog_tpu_torch.collective import compiler, inner
@@ -846,23 +853,39 @@ class _GossipOptimizer:
                 best = (elems * itemsize, elems)
         return best
 
-    def _plan_chunks(self, plan: CommPlan, payload) -> int:
+    @staticmethod
+    def _plan_chunks(plan: CommPlan, payload, wire) -> int:
         """The chooser's chunk count for one static-plan step, priced on
-        the wire payload of ``compression`` (scale sidecar included); 1
-        when there is no payload."""
+        the payload of ``wire`` (scale sidecar included); 1 when there is no
+        payload."""
         from bluefog_tpu_torch import scaling
 
         if payload is None:
             return 1
         payload_bytes, n_elems = payload
-        if self.compression is not None:
+        if wire is not None:
             payload_bytes = scaling.wire_payload_bytes(
-                n_elems, payload_bytes // max(n_elems, 1), self.compression)
+                n_elems, payload_bytes // max(n_elems, 1), wire)
         compiled = plan.compile_info
         return compiler.choose_chunks(
             compiled if compiled is not None else len(plan.perms), payload_bytes,
             n_elems=n_elems, method=compiler.plan_method(),
             link_class=compiler.TRANSPORT_LINK_CLASS)
+
+    @staticmethod
+    def _plan_leg(ctx, plan: CommPlan, wire, chunks: int, knob: str):
+        """One memoryless combine over ``plan`` on ``wire`` (exact when
+        None) and its self weight: ``(combine, self_weight)``. ``knob``
+        names the setting that chose the wire in the normalization error."""
+        src, self_w, recv_w = inner.plan_operands(plan, ctx.device)
+        if wire is None:
+            return (lambda t: inner.weighted_combine_operands(
+                        t, src, self_w, recv_w, chunks=chunks),
+                    lambda: self_w)
+        inner._check_combine_normalized(plan, f"{knob}={wire!r}")
+        return (lambda t: inner.weighted_combine_quantized_operands(
+                    t, src, recv_w, wire=wire, inplace=True, chunks=chunks),
+                lambda: 1.0 - recv_w.sum(0))
 
     def _plan_dispatch(self, ctx, params, plan: CommPlan) -> _Dispatch:
         """The neighbor combine over one plan, in this step's tier, with the
@@ -878,28 +901,21 @@ class _GossipOptimizer:
                 "rounds do not have. Unset BLUEFOG_PLAN_METHOD=shortcut or use a "
                 "memoryless wire (None/'int8'/'bf16'/'int4')."
             )
-        src, self_w, recv_w = inner.plan_operands(plan, ctx.device)
-        chunks = self._plan_chunks(plan, self._wire_payload(params))
-        if wire is None:
-            return _Dispatch(("na", plan.perms, chunks, inject),
-                             lambda t: inner.weighted_combine_operands(
-                                 t, src, self_w, recv_w, chunks=chunks),
-                             lambda: self_w)
-        inner._check_combine_normalized(plan, f"compression={wire!r}")
-        quantized_self = lambda: 1.0 - recv_w.sum(0)  # noqa: E731
+        chunks = self._plan_chunks(plan, self._wire_payload(params), wire)
         if wire in _EF_TIERS:
+            src, _self_w, recv_w = inner.plan_operands(plan, ctx.device)
+            inner._check_combine_normalized(plan, f"compression={wire!r}")
             self._ensure_ef_state(ctx, params, plan)
             base = wire[:-len("_ef")]
             return _Dispatch(
                 ("na_q_ef", base, plan.perms, chunks),
                 lambda flat, st: inner.weighted_combine_quantized_ef_operands(
                     flat, st, src, recv_w, wire=base, inplace=True, chunks=chunks),
-                quantized_self, ef=True)
-        return _Dispatch(
-            ("na_q", wire, plan.perms, chunks, inject),
-            lambda t: inner.weighted_combine_quantized_operands(
-                t, src, recv_w, wire=wire, inplace=True, chunks=chunks),
-            quantized_self)
+                lambda: 1.0 - recv_w.sum(0), ef=True)
+        combine, self_weight = self._plan_leg(ctx, plan, wire, chunks, "compression")
+        key = (("na", plan.perms, chunks, inject) if wire is None
+               else ("na_q", wire, plan.perms, chunks, inject))
+        return _Dispatch(key, combine, self_weight)
 
     def _schedule_dispatch(self, ctx, sched: SchedulePlan, step: int, local_size=None):
         """A dynamic schedule at this communication's index (machine-level
@@ -999,10 +1015,64 @@ class _GossipOptimizer:
         if self.schedule is not None:
             self._last_plan = self.schedule.plans[step % self.schedule.period]
             return self._schedule_dispatch(ctx, self.schedule, step)
+        if self.self_weight is None and self.src_weights is None and self.dst_weights is None:
+            from bluefog_tpu_torch import federation
+
+            fed = federation.get_fabric(ctx.size) if federation.enabled() else None
+            if fed is not None:
+                return self._fed_dispatch(ctx, params, fed)
         plan = col_ops._resolve_plan(ctx, self.self_weight, self.src_weights,
                                      self.dst_weights, self.enable_topo_check)
         self._last_plan = plan
         return self._plan_dispatch(ctx, params, plan)
+
+    def _fed_dispatch(self, ctx, params, fed) -> _Dispatch:
+        """The two-level federated combine of :mod:`bluefog_tpu_torch.federation`
+        (the JAX ``_federated_key_and_fn``): every communicating step
+        combines over the intra-pod plan ``fed.intra`` on the optimizer's
+        wire; on a DCN step (``fed.dcn_step`` of this communication's index,
+        so the first is one) the gateway plan ``fed.inter`` then combines the
+        intra leg's output on the DCN wire ``fed.wire``, in the same combine:
+        ``x -> W_dcn^T (W_ici^T x)``, the step ``federation.composed_rate``
+        scores. On an f32 payload of whole 512-element blocks with the
+        int8/int4 wires each leg is one ``encode`` and one
+        ``decode_accumulate`` in place.
+
+        Keys (a flat run never builds one): ``("fed", "ici", wire, perms,
+        chunks, inject)`` on an ICI-only step, ``("fed", "dcn", wire, perms,
+        chunks, inject, dcn_wire, inter_perms, inter_chunks, inter_inject)``
+        on a DCN step. ``int8_ef``/``int4_ef`` fall back to their memoryless
+        base tier with a one-time warning (the CHOCO residuals would go stale
+        across the DCN period), so no copies are kept; the delayed mix's self
+        weight is the intra leg's in that tier. Both legs' chunk counts come
+        from the port's chooser on the stacked transport
+        (:meth:`_plan_chunks`: one chunk on one card unless
+        ``BLUEFOG_PLAN_CHUNKS`` asks), where the JAX package prices the
+        gateway leg on the ICI class of its own transport."""
+        intra, inter = fed.intra, fed.inter
+        self._last_plan = intra
+        flight.note_plan(intra, ctx.topo_version, ctx.live_token())
+        payload = self._wire_payload(params)
+        wire = self.compression
+        if wire in _EF_TIERS:
+            warn_once("fed-ef-wire",
+                      "compression=%r under bft.federation falls back to the memoryless %r "
+                      "wire: error-feedback residuals would go stale across the "
+                      "BLUEFOG_DCN_PERIOD gap", wire, wire[:-len("_ef")])
+            wire = wire[:-len("_ef")]
+        inject = intra.compile_info.inject
+        chunks = self._plan_chunks(intra, payload, wire)
+        intra_leg, self_weight = self._plan_leg(ctx, intra, wire, chunks, "compression")
+        if not fed.dcn_step(self._comm_count):
+            return _Dispatch(("fed", "ici", wire, intra.perms, chunks, inject), intra_leg,
+                             self_weight)
+        flight.note_plan(inter, ctx.topo_version, ctx.live_token())
+        dcn_wire = fed.wire
+        i_chunks = self._plan_chunks(inter, payload, dcn_wire)
+        inter_leg, _ = self._plan_leg(ctx, inter, dcn_wire, i_chunks, "BLUEFOG_DCN_WIRE")
+        key = ("fed", "dcn", wire, intra.perms, chunks, inject, dcn_wire, inter.perms,
+               i_chunks, inter.compile_info.inject)
+        return _Dispatch(key, lambda t: inter_leg(intra_leg(t)), self_weight)
 
     # -- the step -------------------------------------------------------------------
 
@@ -1109,14 +1179,17 @@ class _GossipOptimizer:
         self._last_probe = pairs
         return metrics.build_probe_payload(pairs, _packed_prefix(grads, cap), wire=None)
 
-    def _metrics_wire(self, comm_now: bool) -> Optional[str]:
+    def _metrics_wire(self, comm_now: bool, key=None) -> Optional[str]:
         """The quantized wire whose error this step's probe replays, or
         None: the flat paths' wires (the hierarchical machine leg quantizes
         a machine sum, not the packed payload); under ZeRO-2 an EF tier's
-        base tier (its residual lives in the scatter)."""
+        base tier (its residual lives in the scatter); under federation the
+        intra leg's wire of the dispatch ``key``."""
         if (not comm_now or self.schedule is not None
                 or self.communication_type == CommunicationType.hierarchical_neighbor_allreduce):
             return None
+        if key is not None and key[0] == "fed":
+            return key[2]
         wire = self.compression
         if wire in ("int8", "bf16", "int8_ef", "int4", "int4_ef"):
             if wire in _EF_TIERS and self._shard_active() and sharding.grads_enabled():
@@ -1172,12 +1245,21 @@ class _GossipOptimizer:
                 rounds = max(len(p.rounds) for p in d.key[1].plans)
             elif tag == "allreduce":
                 rounds = 1
+            elif tag == "fed":
+                rounds = len(d.key[3]) + (len(d.key[7]) if d.key[1] == "dcn" else 0)
             by_item = {}
             for leaf in tree_leaves(params):
                 n = leaf[0].numel() if leaf.dim() > 1 else 1
                 by_item[leaf.element_size()] = by_item.get(leaf.element_size(), 0) + n
-            scatter_bytes = 0
-            if tag == "allreduce":
+            scatter_bytes = ici_bytes = dcn_bytes = 0
+            if tag == "fed":
+                # per leg: the intra-pod rounds on the optimizer's wire, on a
+                # DCN step the gateway rounds on the DCN wire
+                ici_bytes = metrics.wire_bytes_per_step(by_item, len(d.key[3]), d.key[2])
+                if d.key[1] == "dcn":
+                    dcn_bytes = metrics.wire_bytes_per_step(by_item, len(d.key[7]), d.key[6])
+                wire_bytes = ici_bytes + dcn_bytes
+            elif tag == "allreduce":
                 if shard is not None and shard.grads:
                     scatter_bytes = scaling.reduce_scatter_bytes(
                         tuple((g.slot, getattr(torch, g.dtype).itemsize) for g in shard.groups),
@@ -1191,11 +1273,15 @@ class _GossipOptimizer:
                 wire_bytes = metrics.wire_bytes_per_step(by_item, rounds, wire)
             if shard is not None:
                 wire_bytes += sharding.gather_wire_bytes(shard)
-            acct = self._acct_cache[key] = (rounds, wire_bytes, scatter_bytes)
-        rounds, wire_bytes, scatter_bytes = acct
+            acct = self._acct_cache[key] = (rounds, wire_bytes, scatter_bytes, ici_bytes,
+                                            dcn_bytes)
+        rounds, wire_bytes, scatter_bytes, ici_bytes, dcn_bytes = acct
         metrics.gauge("bluefog.gossip.rounds").set(rounds)
         metrics.counter("bluefog.wire_bytes").inc(wire_bytes)
         metrics.counter("bluefog.comm_steps").inc()
+        if ici_bytes or dcn_bytes:
+            metrics.counter("bluefog.federation.ici_wire_bytes").inc(ici_bytes)
+            metrics.counter("bluefog.federation.dcn_wire_bytes").inc(dcn_bytes)
         if shard is not None:
             metrics.gauge("bluefog.shard.enabled").set(1)
             metrics.gauge("bluefog.shard.state_bytes").set(sharding.state_bytes(shard))
@@ -1222,7 +1308,7 @@ class _GossipOptimizer:
         # one communicating step in the interval runs the probe; the others
         # run exactly the code of metrics off
         met = met_enabled and self._comm_count % metrics.metrics_interval() == 0
-        wire_now = self._metrics_wire(comm_now)
+        wire_now = self._metrics_wire(comm_now, d.key)
         if comm_now and self.order == "grad":
             grads = self._take_accumulated(grads)
         flight.record("step_begin", step=self._step_count, comm=comm_now)
@@ -1247,6 +1333,8 @@ class _GossipOptimizer:
                                   surface="sync")
             mem_mod.observe_step(ctx, step=step, optimizer=self, params=params,
                                  opt_state=opt_state, grads=grads)
+            # last: its sampled pass reads the gauges the hooks above set
+            slo_mod.observe_step(ctx, step=step, plan=self._last_plan, wire=self.compression)
         if met:
             self._drain_after_sample(wire_now, payload)
         return params, opt_state
@@ -1337,7 +1425,7 @@ class _GossipOptimizer:
                 self._ensure_delay_state(params, d.key)
             met_enabled = metrics.enabled() and comm_now
             met = met_enabled and self._comm_count % metrics.metrics_interval() == 0
-            wire_now = self._metrics_wire(comm_now)
+            wire_now = self._metrics_wire(comm_now, d.key)
             flight.record("step_begin", step=self._step_count, comm=comm_now, fused=True)
             if met_enabled:
                 self._record_comm_accounting(d, params, ctx)
@@ -1361,6 +1449,8 @@ class _GossipOptimizer:
                                       surface="delayed" if delay_now else "sync")
                 mem_mod.observe_step(ctx, step=step, optimizer=self, params=params,
                                      opt_state=opt_state)
+                slo_mod.observe_step(ctx, step=step, plan=self._last_plan,
+                                     wire=self.compression)
                 if delay_now:  # the step refilled the buffer with its payload
                     self._delay_birth_comm = cur_comm
             if met:

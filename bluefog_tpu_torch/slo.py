@@ -1,0 +1,1030 @@
+# Copyright 2026. Licensed under the Apache License, Version 2.0.
+"""``bft.slo``: the fleet SLO engine, error budgets, multi-window burn-rate
+alerts and a synthetic canary lane.
+
+Counterpart of ``bluefog_tpu/slo.py``. The observatories measure; this
+module answers whether a run meets its targets over time, how much of the
+failure budget is left and how fast it burns.
+
+Registry
+    Each :class:`Objective` names a series (step time, mixing efficiency,
+    delivered parameter age, push-sum mass residual, memory headroom,
+    async participation, the federation's per-leg consensus rates), a
+    target, a comparison and a compliance window in **samples on the
+    communicating-step clock**, so every alert is deterministic.
+
+Error budgets and burn rates
+    A sample is bad when it violates the target. The budget is
+    ``budget_frac x window`` bad samples; the burn rate over ``w`` samples
+    is ``(bad_w / w) / budget_frac``. The **fast** window pages within
+    :func:`page_sample_bound` samples of an acute degradation, the **slow**
+    window tickets a ramp the health plane's EWMA+MAD rules never trip on.
+    A spent budget turns ``/healthz`` ``critical``.
+
+Canary lane
+    One 512-element block per worker (one quantization block of the
+    int8/int4 wires) sent over every round of the active plan on the real
+    wire: on int8/int4 one :func:`~bluefog_tpu_torch.collective.kernels.encode`
+    of the ``[size, 512]`` canary and, for each round, one
+    :func:`~bluefog_tpu_torch.collective.kernels.decode` that reads the
+    round's sender rows; a bf16 round trip on bf16, the raw gather on f32.
+    The op is cached in the context's op cache under its own
+    ``("slo_canary", perms, wire)`` key, so no training key changes and a
+    step the engine does not sample runs what it runs with the engine off.
+    The host holds every delivered edge to the numpy replay of
+    :mod:`bluefog_tpu_torch.collective.wire_ref` within :data:`CANARY_TOL`:
+    the replay divides by 127 (or 7) where the kernels, like the JAX
+    programs, multiply by its f32 reciprocal, so an int8 block can land one
+    ulp away (the JAX package's canary sees the same deviation). Active elastic
+    ``degrade`` faults damage the delivered canary on the host (the
+    session's deterministic wire simulation, as the doctor's probes use
+    it), and the verdict names the edge.
+
+Surfaces: ``bluefog.slo.*`` metrics, the flight recorder's SLO side table
+(:func:`bluefog_tpu_torch.flight.note_slo`) and advisory ring, timeline
+instants, and ``BLUEFOG_SLO_FILE`` JSONL. The worst active burn rides the
+health plane's ``slo_burn`` fleet field, and the report is served at
+``/slo``.
+
+Knobs: ``BLUEFOG_SLO`` (enable, read at ``bft.init``),
+``BLUEFOG_SLO_INTERVAL`` (default 10 communicating steps),
+``BLUEFOG_SLO_FILE`` (JSONL), ``BLUEFOG_SLO_CANARY`` (default on with the
+engine).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from bluefog_tpu_torch.attribution import Advisory
+from bluefog_tpu_torch.logging_util import env_int, logger
+
+__all__ = [
+    "ENV",
+    "INTERVAL_ENV",
+    "FILE_ENV",
+    "CANARY_ENV",
+    "DEFAULT_INTERVAL",
+    "CANARY_ELEMS",
+    "CANARY_TOL",
+    "ALERT_COOLDOWN_SAMPLES",
+    "MAX_SAMPLE_ROWS",
+    "enabled",
+    "slo_interval",
+    "canary_enabled",
+    "burn_rate",
+    "budget_state",
+    "page_sample_bound",
+    "Objective",
+    "default_objectives",
+    "canary_signal",
+    "canary_expected",
+    "CanaryLane",
+    "SLOEngine",
+    "start",
+    "stop",
+    "activate",
+    "active",
+    "register",
+    "observe_step",
+    "worst_burn",
+    "exhausted_objectives",
+    "dump",
+    "on_init",
+    "on_shutdown",
+]
+
+ENV = "BLUEFOG_SLO"
+INTERVAL_ENV = "BLUEFOG_SLO_INTERVAL"
+FILE_ENV = "BLUEFOG_SLO_FILE"
+CANARY_ENV = "BLUEFOG_SLO_CANARY"
+
+DEFAULT_INTERVAL = 10
+
+# one quantization block of the int8/int4 wires: the canary payload is
+# exactly one chunk, one scale per sender
+CANARY_ELEMS = 512
+# delivered-vs-replay deviation above this fails the edge; it absorbs
+# the last-bit scale difference of the reciprocal (about 1e-7 on the
+# [-1, 1] canary) — a lossy-link corruption is O(1), far above it
+CANARY_TOL = 1e-5
+
+# re-fire suppression for a PERSISTENT burn condition, in samples on
+# the engine's own clock (the memory observatory's cooldown
+# discipline: gauges and /healthz stay raised; the flight ring and
+# the advisory counter need not fill)
+ALERT_COOLDOWN_SAMPLES = 30
+
+# bounded history: the /slo block serves the tail, the JSONL file
+# keeps the full series
+MAX_SAMPLE_ROWS = 256
+
+
+def enabled() -> bool:
+    return os.environ.get(ENV, "0") == "1"
+
+
+def slo_interval() -> int:
+    """Sampling interval in communicating steps: one step in the
+    interval runs the evaluation pass and the canary; every other step
+    costs one compare and one increment."""
+    return max(1, env_int(INTERVAL_ENV, DEFAULT_INTERVAL))
+
+
+def canary_enabled() -> bool:
+    """Canary lane default-on when the engine is on (the black-box
+    fabric verdict is the tier's reason to exist); ``0`` disables the
+    extra dispatch for wire-budget-critical runs."""
+    return os.environ.get(CANARY_ENV, "1") == "1"
+
+
+# -- burn-rate / budget arithmetic --------------------------------------------
+#
+# Pure functions over newest-last 0/1 bad-sample flags — THE oracle
+# surface: the engine computes through these and nothing else, and the
+# tests recompute them independently in numpy over
+# the same flag series (acceptance claim e).
+
+
+def burn_rate(flags: Sequence[int], window: int,
+              budget_frac: float) -> Optional[float]:
+    """Burn rate over the trailing ``window`` samples: the fraction of
+    bad samples, normalized by the sustainable bad fraction
+    ``budget_frac``. 1.0 = spending the budget exactly at the rate
+    that exhausts it at the compliance horizon; None until the
+    lookback has filled (an unfilled window must not page on the
+    first bad sample of a fresh session)."""
+    if window <= 0 or budget_frac <= 0 or len(flags) < window:
+        return None
+    bad = int(sum(flags[-window:]))
+    return (bad / window) / budget_frac
+
+
+def budget_state(flags: Sequence[int], window: int,
+                 budget_frac: float) -> dict:
+    """Error-budget account over the trailing compliance ``window``:
+    ``total`` (allowed bad samples), ``spent``, ``remaining``
+    (clamped at 0), ``exhausted``, and ``compliance`` (good fraction
+    of the observed window)."""
+    recent = flags[-window:] if window > 0 else list(flags)
+    total = float(budget_frac * window)
+    spent = int(sum(recent))
+    return {
+        "total": total,
+        "spent": spent,
+        "remaining": max(0.0, total - spent),
+        "exhausted": spent >= total and total > 0,
+        "compliance": (
+            1.0 - spent / len(recent) if recent else 1.0
+        ),
+    }
+
+
+def page_sample_bound(fast_window: int, fast_burn: float,
+                      budget_frac: float) -> int:
+    """The documented page bound: bad samples needed before the fast
+    window fires under total degradation (every sample bad). Burn
+    after ``m`` bad samples is ``(m / fast_window) / budget_frac``,
+    so the page fires at ``m = ceil(fast_burn × budget_frac ×
+    fast_window)`` — never more than ``fast_window`` samples when the
+    thresholds are sane (``fast_burn ≤ 1 / budget_frac``)."""
+    return int(math.ceil(fast_burn * budget_frac * fast_window))
+
+
+# -- objectives ---------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Objective:
+    """One service-level objective: ``value cmp target`` must hold for
+    ``1 - budget_frac`` of the samples in every trailing compliance
+    ``window``. ``resolver`` reads the live signal (None = no data
+    this sample — skipped, never charged against the budget); tests
+    and the fleetsim rehearsal bypass resolvers with explicit
+    ``values=`` feeds."""
+
+    name: str
+    series: str                      # documented signal source
+    target: float
+    comparison: str = "le"           # ok iff value <= target ("le") / >= ("ge")
+    window: int = 240                # compliance window, samples
+    budget_frac: float = 0.05
+    fast_window: int = 5
+    fast_burn: float = 8.0           # page threshold on the fast window
+    slow_window: int = 60
+    slow_burn: float = 2.0           # ticket threshold on the slow window
+    resolver: Optional[Callable[[], Optional[float]]] = \
+        dataclasses.field(default=None, compare=False)
+
+    def ok(self, value: float) -> bool:
+        if self.comparison == "ge":
+            return value >= self.target
+        return value <= self.target
+
+    def to_json(self) -> dict:
+        out = dataclasses.asdict(self)
+        out.pop("resolver", None)
+        return out
+
+
+class _ObjState:
+    """Per-objective running state: the bad-flag series (bounded to
+    the compliance window), last value, skip/alert counters."""
+
+    def __init__(self, obj: Objective):
+        self.obj = obj
+        self.flags: deque = deque(maxlen=max(1, obj.window))
+        self.last_value: Optional[float] = None
+        self.last_step: Optional[int] = None
+        self.samples = 0
+        self.skips = 0
+        self.alerts = 0
+        self._last_fired: Dict[str, int] = {}
+
+    def push(self, step: int, value: float) -> bool:
+        ok = self.obj.ok(value)
+        self.flags.append(0 if ok else 1)
+        self.last_value = float(value)
+        self.last_step = int(step)
+        self.samples += 1
+        return ok
+
+    def cooled(self, kind: str) -> bool:
+        last = self._last_fired.get(kind)
+        return last is None or \
+            self.samples - last >= ALERT_COOLDOWN_SAMPLES
+
+    def mark_fired(self, kind: str) -> None:
+        self._last_fired[kind] = self.samples
+        self.alerts += 1
+
+    def snapshot(self) -> dict:
+        o = self.obj
+        flags = list(self.flags)
+        return {
+            "name": o.name,
+            "series": o.series,
+            "target": o.target,
+            "comparison": o.comparison,
+            "window": o.window,
+            "budget_frac": o.budget_frac,
+            "last_value": self.last_value,
+            "last_step": self.last_step,
+            "samples": self.samples,
+            "skips": self.skips,
+            "alerts": self.alerts,
+            "burn_fast": burn_rate(flags, o.fast_window, o.budget_frac),
+            "burn_slow": burn_rate(flags, o.slow_window, o.budget_frac),
+            "budget": budget_state(flags, o.window, o.budget_frac),
+            "page_sample_bound": page_sample_bound(
+                o.fast_window, o.fast_burn, o.budget_frac
+            ),
+        }
+
+
+# -- default catalog ----------------------------------------------------------
+#
+# Every resolver is a zero-argument read of an existing tier, guarded
+# so an objective whose tier is off yields None (sample skipped) —
+# the engine never forces another observatory on. Targets are LOOSE
+# liveness defaults (a healthy run must not burn budget); operators
+# register their own via bf.slo.register().
+
+
+def _peek_gauge(name: str) -> Optional[float]:
+    from bluefog_tpu_torch import metrics as metrics_mod
+
+    g = metrics_mod.peek(name)
+    return float(g.value) if g is not None else None
+
+
+def _resolve_step_time_ms() -> Optional[float]:
+    from bluefog_tpu_torch import health as health_mod
+
+    plane = health_mod.active()
+    if plane is None or not plane._step_ewma_ms:
+        return None
+    return float(plane._step_ewma_ms)
+
+
+def _resolve_mixing_efficiency() -> Optional[float]:
+    return _peek_gauge("bluefog.health.mixing_efficiency")
+
+
+def _resolve_param_age() -> Optional[float]:
+    return _peek_gauge("bluefog.staleness.age_max")
+
+
+def _resolve_mass_residual() -> Optional[float]:
+    # the push-sum lane's |sum(p) - size| mass-conservation residual
+    return _peek_gauge("bluefog.health.fleet_residual")
+
+
+def _resolve_memory_headroom() -> Optional[float]:
+    return _peek_gauge("bluefog.memory.headroom_bytes")
+
+
+def _resolve_async_participation() -> Optional[float]:
+    from bluefog_tpu_torch import context as ctx_mod
+
+    participants = _peek_gauge("bluefog.async.participants")
+    if participants is None:
+        return None
+    try:
+        size = ctx_mod.get_context().size \
+            if ctx_mod.is_initialized() else None
+    except Exception:
+        size = None
+    return participants / size if size else None
+
+
+# predicted per-leg rates are spectral-engine reads — memoized per
+# fabric signature so the resolver costs a dict lookup per sample
+# (the signature changes exactly when the fabric does: a topology
+# migration, an elastic death, a re-parsed BLUEFOG_PODS)
+_FED_RATE_MEMO: Dict[tuple, Optional[float]] = {}
+
+
+def _resolve_federation_leg(leg: str) -> Optional[float]:
+    """Predicted per-leg consensus decay rate of the federated fabric
+    (``"ici"``: the intra-pod graph alone; ``"dcn"``: the composed
+    period window) — None when no federation is configured. A rate at
+    1.0 means the leg has stopped contracting (a partitioned pod
+    graph, a gateway-less layout); the objective targets strict
+    contraction."""
+    try:
+        from bluefog_tpu_torch import context as ctx_mod
+        from bluefog_tpu_torch import federation as fed_mod
+
+        if not fed_mod.enabled() or not ctx_mod.is_initialized():
+            return None
+        fab = fed_mod.get_fabric(ctx_mod.get_context().size)
+        if fab is None:
+            return None
+        key = (leg, fab.layout.size, tuple(fab.layout.bounds),
+               fab.period, fab.kind)
+        if key not in _FED_RATE_MEMO:
+            from bluefog_tpu_torch.topology import spectral
+
+            n = fab.layout.size
+            if leg == "ici":
+                mats = [(n, fed_mod.intra_edges(fab.layout,
+                                                fab.kind))]
+                _rate, info = spectral.decay_info(mats)
+                _FED_RATE_MEMO[key] = float(info["slem"])
+            else:
+                _FED_RATE_MEMO[key] = float(fed_mod.composed_rate(
+                    fab.layout, fab.period, fab.kind
+                )[0])
+        return _FED_RATE_MEMO[key]
+    except Exception:
+        return None
+
+
+def default_objectives() -> Tuple[Objective, ...]:
+    """The built-in catalog: one objective per observed tier.
+    Resolver-less environments (tier off) simply skip — the catalog
+    costs nothing until a signal exists."""
+    return (
+        Objective("step_time", "health step EWMA (ms)",
+                  target=60_000.0, comparison="le",
+                  resolver=_resolve_step_time_ms),
+        Objective("mixing_efficiency",
+                  "bluefog.health.mixing_efficiency",
+                  target=0.25, comparison="ge",
+                  resolver=_resolve_mixing_efficiency),
+        Objective("param_age", "bluefog.staleness.age_max",
+                  target=16.0, comparison="le",
+                  resolver=_resolve_param_age),
+        Objective("mass_residual", "bluefog.health.fleet_residual",
+                  target=0.5, comparison="le",
+                  resolver=_resolve_mass_residual),
+        Objective("memory_headroom", "bluefog.memory.headroom_bytes",
+                  target=1.0, comparison="ge",
+                  resolver=_resolve_memory_headroom),
+        Objective("async_participation",
+                  "async participants / size",
+                  target=0.5, comparison="ge",
+                  resolver=_resolve_async_participation),
+        Objective("ici_consensus", "federation rate_ici",
+                  target=0.999, comparison="le",
+                  resolver=lambda: _resolve_federation_leg("ici")),
+        Objective("dcn_consensus", "federation rate_dcn",
+                  target=0.999, comparison="le",
+                  resolver=lambda: _resolve_federation_leg("dcn")),
+    )
+
+
+# -- canary lane --------------------------------------------------------------
+
+
+def canary_signal(size: int) -> np.ndarray:
+    """Deterministic per-rank known signal, ``[size, CANARY_ELEMS]``
+    f32 in [-1, 1]: rank-distinct phases so a swapped or corrupted
+    edge can never alias another sender's payload."""
+    i = np.arange(CANARY_ELEMS, dtype=np.float64)
+    r = np.arange(size, dtype=np.float64)[:, None]
+    return np.sin(0.37 * i + 1.618 * (r + 1.0)).astype(np.float32)
+
+
+def _base_wire(wire: Optional[str]) -> Optional[str]:
+    """The canary ships the base tier of an EF wire: the probe is
+    memoryless (error-feedback residuals belong to training state,
+    not to a black-box fabric check) — the DCN-leg precedent."""
+    if wire and wire.endswith("_ef"):
+        return wire[:-3]
+    return wire
+
+
+def _round_sources(perms, size: int) -> np.ndarray:
+    """``src [R, N]`` int32 of a plan's perms: ``src[r, j]`` sends to ``j``
+    in round ``r``, -1 where ``j`` receives nothing."""
+    src = np.full((len(perms), size), -1, np.int32)
+    for r, perm in enumerate(perms):
+        for s, d in perm:
+            src[r, d] = s
+    return src
+
+
+def _canary_program(ctx, perms, wire: Optional[str]):
+    """The canary op, ``fn(canary [size, 512] f32, src [R, size] int32) ->
+    delivered [size, R, 512] f32``: on int8/int4 one
+    :func:`~bluefog_tpu_torch.collective.kernels.encode` of every worker's
+    block and one :func:`~bluefog_tpu_torch.collective.kernels.decode` a
+    round (the decoder reads the round's sender rows, zeros where no one
+    sends); on bf16 each round gathers the bf16 cast and widens it; on f32
+    the raw gather. Cached in ``ctx.op_cache`` under ``("slo_canary",
+    perms, wire)``: training keys are untouched."""
+    key = ("slo_canary", perms, wire)
+    fn = ctx.op_cache.get(key)
+    if fn is None:
+        import torch
+
+        from bluefog_tpu_torch.collective import inner, kernels
+
+        n_rounds = len(perms)
+
+        def fn(c, src):
+            if wire in ("int8", "int4"):
+                payload, scales = kernels.encode(c, wire)
+                outs = [kernels.decode(payload, scales, src[r], wire, src_in_range=True)
+                        for r in range(n_rounds)]
+            else:
+                sent = c.to(torch.bfloat16) if wire == "bf16" else c
+                outs = [inner._gather(sent, src[r]).to(torch.float32) for r in range(n_rounds)]
+            return torch.stack(outs, dim=1)
+
+        ctx.op_cache[key] = fn
+    return fn
+
+
+def canary_expected(canary: np.ndarray,
+                    wire: Optional[str]) -> np.ndarray:
+    """Host replay of what every receiver must reconstruct from rank
+    ``r``'s canary: the :mod:`~bluefog_tpu_torch.collective.wire_ref` numpy
+    encode/decode for the integer tiers (one block; within an ulp of the
+    kernels' reconstruction, see the module docstring), the bf16 round trip
+    (:func:`~bluefog_tpu_torch.collective.wire_ref.bf16_round`) for bf16,
+    identity for f32."""
+    base = _base_wire(wire)
+    if base in ("int8", "int4"):
+        from bluefog_tpu_torch.collective import wire_ref
+
+        return np.stack([
+            wire_ref.np_encode(canary[r], base)[2]
+            for r in range(canary.shape[0])
+        ]).astype(np.float32)
+    if base == "bf16":
+        from bluefog_tpu_torch.collective import wire_ref
+
+        return wire_ref.bf16_round(canary)
+    return canary.astype(np.float32)
+
+
+def _chaos_wire_factors() -> Dict[Any, float]:
+    """Active ``degrade`` faults as a ``{(src, dst) | rank: factor}``
+    map — the elastic session's deterministic wire simulation (one card
+    has no physically lossy link, so the fault damages the *delivered*
+    canary on the host, as the doctor's probes use it)."""
+    try:
+        from bluefog_tpu_torch import elastic as elastic_mod
+
+        session = elastic_mod.active_session()
+        if session is None:
+            return {}
+        return dict(session.simulated_wire_factors())
+    except Exception:
+        return {}
+
+
+class CanaryLane:
+    """The synthetic probe: dispatch, chaos corruption, edge-by-edge
+    verdict against the wire replay."""
+
+    def __init__(self, tol: float = CANARY_TOL):
+        self.tol = tol
+        self.probes = 0
+        self.failures = 0
+        self.last: Optional[dict] = None
+
+    def probe(self, ctx, plan, wire: Optional[str]) -> Optional[dict]:
+        """One sampled-step probe. Returns the verdict dict (also kept
+        on ``self.last``): ``ok``, ``max_dev``, the failing edges as
+        ``[src, dst, round, dev]`` rows (capped), and the wire tier
+        shipped."""
+        perms = tuple(tuple(p) for p in plan.perms)
+        if not perms:
+            return None
+        import torch
+
+        base = _base_wire(wire)
+        canary = canary_signal(ctx.size)
+        fn = _canary_program(ctx, perms, base)
+        src = torch.from_numpy(_round_sources(perms, ctx.size)).to(ctx.device)
+        delivered = fn(torch.from_numpy(canary).to(ctx.device), src)
+        # [size, n_rounds, CANARY_ELEMS] on the host (a copy: the chaos
+        # damage below writes into it)
+        delivered = np.array(delivered.cpu().numpy(), np.float32)
+        expected = canary_expected(canary, base)
+        # chaos parity: active degrade faults corrupt the delivery
+        factors = _chaos_wire_factors()
+        if factors:
+            for r, perm in enumerate(perms):
+                for (src, dst) in perm:
+                    f = factors.get((src, dst),
+                                    factors.get(src, 1.0))
+                    if f < 1.0:
+                        delivered[dst, r] = (
+                            f * delivered[dst, r]
+                            + (1.0 - f) * canary[dst]
+                        )
+        max_dev = 0.0
+        failing: List[List[float]] = []
+        for r, perm in enumerate(perms):
+            for (src, dst) in perm:
+                dev = float(np.max(np.abs(
+                    delivered[dst, r] - expected[src]
+                )))
+                max_dev = max(max_dev, dev)
+                if dev > self.tol:
+                    failing.append([int(src), int(dst), int(r),
+                                    round(dev, 6)])
+        failing.sort(key=lambda e: -e[3])
+        self.probes += 1
+        ok = not failing
+        if not ok:
+            self.failures += 1
+        self.last = {
+            "ok": ok,
+            "max_dev": round(max_dev, 9),
+            "edges": failing[:8],
+            "rounds": len(perms),
+            "wire": base or "fp32",
+        }
+        return self.last
+
+    def summary(self) -> dict:
+        return {
+            "probes": self.probes,
+            "failures": self.failures,
+            "tol": self.tol,
+            "last": self.last,
+        }
+
+
+# -- engine -------------------------------------------------------------------
+
+
+class SLOEngine:
+    """The registry + evaluator. ``observe()`` is the optimizer-layer
+    hook (unsampled steps cost one compare + one increment); tests
+    and the fleetsim rehearsal drive ``observe(None, step=...,
+    values={...})`` directly on a bare engine — no context, no
+    resolvers, fully deterministic."""
+
+    def __init__(self, interval: Optional[int] = None,
+                 objectives: Optional[Sequence[Objective]] = None,
+                 canary: Optional[bool] = None):
+        self.interval = max(
+            1, interval if interval is not None else slo_interval()
+        )
+        self.objectives: List[Objective] = list(
+            objectives if objectives is not None
+            else default_objectives()
+        )
+        self._state: Dict[str, _ObjState] = {
+            o.name: _ObjState(o) for o in self.objectives
+        }
+        use_canary = canary if canary is not None else canary_enabled()
+        self.canary: Optional[CanaryLane] = \
+            CanaryLane() if use_canary else None
+        self._count = 0          # communicating steps seen
+        self._samples = 0        # sampled evaluations run
+        self.alerts: List[Advisory] = []
+        self.alert_marks: List[int] = []
+        self.samples: List[dict] = []
+
+    # -- registry --
+
+    def register(self, obj: Objective) -> Objective:
+        """Add (or replace, by name) an objective. Replacing resets
+        its budget history — a re-targeted objective must not inherit
+        flags judged against the old target."""
+        self.objectives = [
+            o for o in self.objectives if o.name != obj.name
+        ] + [obj]
+        self._state[obj.name] = _ObjState(obj)
+        return obj
+
+    # -- observation --
+
+    def observe(self, ctx, *, step: int, plan=None,
+                wire: Optional[str] = None,
+                values: Optional[Dict[str, float]] = None
+                ) -> Optional[dict]:
+        """Called once per communicating step; samples one in
+        ``interval``."""
+        sampled = self._count % self.interval == 0
+        self._count += 1
+        if not sampled:
+            return None
+        return self._sample(ctx, step=step, plan=plan, wire=wire,
+                            values=values)
+
+    def _resolve(self, obj: Objective,
+                 values: Optional[Dict[str, float]]
+                 ) -> Optional[float]:
+        if values is not None and obj.name in values:
+            v = values[obj.name]
+            if v is None:
+                return None
+            v = float(v)
+            return v if math.isfinite(v) else None
+        if obj.resolver is None:
+            return None
+        try:
+            v = obj.resolver()
+        except Exception:
+            return None
+        if v is None:
+            return None
+        v = float(v)
+        return v if math.isfinite(v) else None
+
+    def _sample(self, ctx, *, step: int, plan=None,
+                wire: Optional[str] = None,
+                values: Optional[Dict[str, float]] = None) -> dict:
+        from bluefog_tpu_torch import metrics as metrics_mod
+
+        self._samples += 1
+        metrics_mod.counter("bluefog.slo.samples").inc()
+        row: dict = {
+            "kind": "sample", "step": int(step),
+            "comm_steps": self._count, "objectives": {},
+        }
+        for obj in self.objectives:
+            st = self._state[obj.name]
+            value = self._resolve(obj, values)
+            if value is None:
+                st.skips += 1
+                continue
+            st.push(step, value)
+            snap = st.snapshot()
+            row["objectives"][obj.name] = {
+                "value": value,
+                "ok": obj.ok(value),
+                "burn_fast": snap["burn_fast"],
+                "burn_slow": snap["burn_slow"],
+                "budget_remaining": snap["budget"]["remaining"],
+            }
+            self._publish(obj, snap)
+            self._alerts(obj, st, snap, step)
+        if self.canary is not None and ctx is not None \
+                and plan is not None:
+            verdict = self._canary_probe(ctx, plan, wire, step)
+            if verdict is not None:
+                row["canary"] = verdict
+        worst = self.worst_burn()
+        metrics_mod.gauge("bluefog.slo.worst_burn").set(worst)
+        row["worst_burn"] = worst
+        exhausted = self.exhausted_objectives()
+        if exhausted:
+            row["exhausted"] = exhausted
+        self.samples.append(row)
+        del self.samples[:-MAX_SAMPLE_ROWS]
+        self._note_flight(row)
+        self._export_line(row)
+        return row
+
+    def _publish(self, obj: Objective, snap: dict) -> None:
+        from bluefog_tpu_torch import metrics as metrics_mod
+
+        name = obj.name
+        if snap["burn_fast"] is not None:
+            metrics_mod.gauge(
+                f"bluefog.slo.burn_fast.{name}"
+            ).set(snap["burn_fast"])
+        if snap["burn_slow"] is not None:
+            metrics_mod.gauge(
+                f"bluefog.slo.burn_slow.{name}"
+            ).set(snap["burn_slow"])
+        metrics_mod.gauge(
+            f"bluefog.slo.budget_remaining.{name}"
+        ).set(snap["budget"]["remaining"])
+        metrics_mod.gauge(
+            f"bluefog.slo.compliance.{name}"
+        ).set(snap["budget"]["compliance"])
+
+    def _alerts(self, obj: Objective, st: _ObjState, snap: dict,
+                step: int) -> None:
+        """Multi-window burn alerts + budget exhaustion, each behind
+        its own cooldown (the condition persists; the surfaces stay
+        raised without refilling the flight ring)."""
+        fast, slow = snap["burn_fast"], snap["burn_slow"]
+        budget = snap["budget"]
+        if fast is not None and fast >= obj.fast_burn \
+                and st.cooled("slo_fast_burn"):
+            st.mark_fired("slo_fast_burn")
+            self._emit(Advisory("slo_fast_burn", int(step), {
+                "objective": obj.name, "severity": "page",
+                "burn": round(fast, 4),
+                "threshold": obj.fast_burn,
+                "window": obj.fast_window,
+                "budget_remaining": round(budget["remaining"], 4),
+            }))
+        if slow is not None and slow >= obj.slow_burn \
+                and st.cooled("slo_slow_burn"):
+            st.mark_fired("slo_slow_burn")
+            self._emit(Advisory("slo_slow_burn", int(step), {
+                "objective": obj.name, "severity": "ticket",
+                "burn": round(slow, 4),
+                "threshold": obj.slow_burn,
+                "window": obj.slow_window,
+                "budget_remaining": round(budget["remaining"], 4),
+            }))
+        if budget["exhausted"] and st.cooled("slo_budget_exhausted"):
+            st.mark_fired("slo_budget_exhausted")
+            self._emit(Advisory("slo_budget_exhausted", int(step), {
+                "objective": obj.name, "severity": "page",
+                "spent": budget["spent"],
+                "total": budget["total"],
+                "window": obj.window,
+            }))
+
+    def _canary_probe(self, ctx, plan, wire: Optional[str],
+                      step: int) -> Optional[dict]:
+        from bluefog_tpu_torch import metrics as metrics_mod
+
+        try:
+            verdict = self.canary.probe(ctx, plan, wire)
+        except Exception as e:
+            # a probe bug must not take down the training loop
+            logger.debug("slo canary probe failed: %s", e)
+            return None
+        if verdict is None:
+            return None
+        metrics_mod.counter("bluefog.slo.canary_probes").inc()
+        metrics_mod.gauge("bluefog.slo.canary_ok").set(
+            1.0 if verdict["ok"] else 0.0
+        )
+        metrics_mod.gauge("bluefog.slo.canary_max_dev").set(
+            verdict["max_dev"]
+        )
+        if not verdict["ok"] and self._canary_cooled():
+            self._canary_fired = self._samples
+            self._emit(Advisory("slo_canary_failed", int(step), {
+                "severity": "page",
+                "edges": verdict["edges"],
+                "max_dev": verdict["max_dev"],
+                "wire": verdict["wire"],
+            }))
+        return verdict
+
+    _canary_fired: Optional[int] = None
+
+    def _canary_cooled(self) -> bool:
+        return self._canary_fired is None or \
+            self._samples - self._canary_fired >= \
+            ALERT_COOLDOWN_SAMPLES
+
+    # -- aggregates the other tiers read --
+
+    def worst_burn(self) -> float:
+        """The worst active fast-window burn rate across objectives —
+        the scalar that rides the health plane's push-sum lane
+        fleet-wide (the ``slo_burn`` fleet field). 0.0 while no window has
+        filled."""
+        worst = 0.0
+        for st in self._state.values():
+            b = burn_rate(list(st.flags), st.obj.fast_window,
+                          st.obj.budget_frac)
+            if b is not None:
+                worst = max(worst, b)
+        return worst
+
+    def exhausted_objectives(self) -> List[str]:
+        """Objectives whose error budget is spent — the ``/healthz``
+        escalation set (RAG verdict goes critical while non-empty)."""
+        out = []
+        for name, st in sorted(self._state.items()):
+            bs = budget_state(list(st.flags), st.obj.window,
+                              st.obj.budget_frac)
+            if bs["exhausted"]:
+                out.append(name)
+        return out
+
+    # -- surfaces --
+
+    def _emit(self, adv: Advisory) -> None:
+        """One advisory on the doctor's surfaces: ``bluefog.doctor.*``
+        metrics, flight side table, timeline instant, SLO JSONL."""
+        from bluefog_tpu_torch import flight as flight_mod
+        from bluefog_tpu_torch import metrics as metrics_mod
+        from bluefog_tpu_torch import timeline as tl
+
+        self.alerts.append(adv)
+        self.alert_marks.append(self._count)
+        metrics_mod.counter(
+            f"bluefog.doctor.advisory.{adv.kind}"
+        ).inc()
+        metrics_mod.counter("bluefog.slo.alerts").inc()
+        metrics_mod.gauge("bluefog.doctor.last_advisory_step").set(
+            adv.step
+        )
+        flight_mod.note_advisory(kind=adv.kind, step=adv.step,
+                                 **adv.detail)
+        tl.timeline_record_advisory(adv.kind, adv.detail)
+        self._export_line({
+            "kind": "advisory", "advisory_kind": adv.kind,
+            "step": adv.step, **adv.detail,
+        })
+
+    def _note_flight(self, row: dict) -> None:
+        """Sampled budget snapshot into the flight recorder's
+        eviction-proof SLO side table (a crash dump must carry the
+        budget state that preceded it even after the ring evicts)."""
+        from bluefog_tpu_torch import flight as flight_mod
+
+        flight_mod.note_slo(
+            step=row["step"],
+            worst_burn=row["worst_burn"],
+            exhausted=row.get("exhausted", []),
+            canary_ok=(
+                row["canary"]["ok"] if "canary" in row else None
+            ),
+        )
+
+    def _export_line(self, obj: dict) -> None:
+        path = os.environ.get(FILE_ENV)
+        if path:
+            from bluefog_tpu_torch.logging_util import append_jsonl
+
+            append_jsonl(FILE_ENV, path, obj)
+
+    # -- artifact --
+
+    def report(self) -> dict:
+        """The SLO artifact ``tools/slo_report.py`` and the ``/slo``
+        endpoint serve."""
+        rep = {
+            "kind": "slo_dump",
+            "interval": self.interval,
+            "comm_steps": self._count,
+            "samples_run": self._samples,
+            "worst_burn": self.worst_burn(),
+            "exhausted": self.exhausted_objectives(),
+            "objectives": [
+                self._state[o.name].snapshot()
+                for o in self.objectives
+            ],
+            "alerts": [a.to_json() for a in self.alerts],
+            "canary": (
+                self.canary.summary()
+                if self.canary is not None else None
+            ),
+            "samples": list(self.samples[-64:]),
+        }
+        # the fleet-wide view: this rank's burn next to the push-sum
+        # aggregate of every rank's burn (the slo_burn fleet field)
+        try:
+            from bluefog_tpu_torch import health as health_mod
+
+            plane = health_mod.active()
+            if plane is not None and plane.fleet:
+                fields = plane.fleet.get("fields") or []
+                if "slo_burn" in fields:
+                    i = fields.index("slo_burn")
+                    rep["fleet_burn"] = {
+                        k: plane.fleet[k][i]
+                        for k in ("min", "mean", "max")
+                        if isinstance(plane.fleet.get(k), list)
+                        and len(plane.fleet[k]) > i
+                    }
+        except Exception:
+            pass
+        return rep
+
+    def dump(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.report(), f)
+        return path
+
+
+# -- module-level session -----------------------------------------------------
+
+_engine: Optional[SLOEngine] = None
+
+
+def start(interval: Optional[int] = None, **kwargs) -> SLOEngine:
+    """Open an SLO session (replacing any active one)."""
+    global _engine
+    _engine = SLOEngine(interval=interval, **kwargs)
+    return _engine
+
+
+def stop() -> None:
+    global _engine
+    _engine = None
+
+
+def activate(engine: Optional[SLOEngine]) -> Optional[SLOEngine]:
+    """Install (or clear, with None) a pre-built session WITHOUT
+    resetting its state, so an A/B rotation can toggle one session on and
+    off around individual steps."""
+    global _engine
+    _engine = engine
+    return engine
+
+
+def active() -> Optional[SLOEngine]:
+    return _engine
+
+
+def register(obj: Objective) -> Optional[Objective]:
+    """Register an objective on the active session (None when no
+    session is up)."""
+    eng = _engine
+    if eng is None:
+        return None
+    return eng.register(obj)
+
+
+def observe_step(ctx, *, step: int, plan=None,
+                 wire: Optional[str] = None,
+                 values: Optional[Dict[str, float]] = None) -> None:
+    """Optimizer-layer hook, called after every communicating dispatch
+    (after the doctor, health, staleness and memory hooks).
+    No-op (one attribute read) when no session is active."""
+    eng = _engine
+    if eng is None:
+        return
+    eng.observe(ctx, step=step, plan=plan, wire=wire, values=values)
+
+
+def worst_burn() -> float:
+    """The active session's worst fast-window burn (0.0 when off) —
+    the read of the health plane's fleet field."""
+    eng = _engine
+    return eng.worst_burn() if eng is not None else 0.0
+
+
+def exhausted_objectives() -> List[str]:
+    """Budget-exhausted objectives of the active session ([] when
+    off) — the ``/healthz`` escalation read."""
+    eng = _engine
+    return eng.exhausted_objectives() if eng is not None else []
+
+
+def dump(path: str) -> Optional[str]:
+    """Write the active session's SLO artifact (None when no session
+    is active)."""
+    eng = _engine
+    if eng is None:
+        return None
+    return eng.dump(path)
+
+
+def on_init(ctx) -> None:
+    """``bf.init()`` hook: fresh session under ``BLUEFOG_SLO=1`` (a
+    new context must not inherit an old one's budget history)."""
+    if enabled():
+        start()
+    else:
+        stop()
+
+
+def on_shutdown() -> None:
+    """``bf.shutdown()`` hook: flush the JSONL tail, drop the
+    session."""
+    eng = _engine
+    if eng is not None and eng._samples:
+        eng._export_line({"kind": "session_end",
+                          "comm_steps": eng._count})
+    stop()

@@ -241,6 +241,25 @@ Phases, one line each; any failure exits non-zero:
                on the counter, the flight side table and
                ``BLUEFOG_HEALTH_FILE``, ``/healthz`` warn, then 503 with
                rank 5 dead; files under ``build/health_relay``, deleted;
+11e. federation and SLO -- the two-level federation (``BLUEFOG_PODS=2``,
+               ``BLUEFOG_DCN_PERIOD=2``) and the SLO engine with its canary
+               on the same ResNet50 (:func:`phase_federation_slo` states
+               every gate): (a) ATC fp32 (exact DCN), int8 and int4 (int4
+               DCN) and int4_ef (its int4 fallback), 1 + 4 two-program
+               steps each: the DCN/ICI cadence and keys, 2 + 2 encode and
+               decode_accumulate launches a DCN step and 1 + 1 an ICI-only
+               step, the first DCN combine bitwise the plain legs on a CPU
+               copy (int8, int4) or within 1e-5 of float64 (fp32), the
+               per-leg counters against ``wire_summary``, int4_ef bitwise
+               int4, ``make_train_step`` bitwise the two-program step, a
+               flat run after ``BLUEFOG_PODS`` is unset bitwise its twin;
+               (b) ATC int8 with ``BLUEFOG_SLO=1``: bitwise the engine off
+               at interval 1 and 10, one encode and a decode a round more a
+               sampled step, the canary ok on every Exp2(8) edge for fp32,
+               bf16, int8 and int4 and equal to the CPU's, a ``degrade``
+               fault named alone, a spent budget turning ``/healthz`` 503
+               and served at ``/slo``; (c) host only: the N = 1024 storm
+               and a 4 x 16 federated fleet losing a pod;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -336,9 +355,10 @@ The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
 
     python3 chip_smoke.py --phase health-relay
+    python3 chip_smoke.py --phase federation-slo
 
-runs phase 11d alone on the full-width ResNet50 (the wire kernels built
-first) and prints no result line.
+run phase 11d, or 11e, alone on the full-width ResNet50 (the wire kernels
+built first) and print no result line.
 
     python3 chip_smoke.py --planted-faults
 
@@ -501,6 +521,11 @@ PATH_KERNELS = {
     # with the health plane on
     "health relay a": ("encode", "decode_accumulate", "decode"),
     "health relay b": ("encode", "decode_accumulate"),
+    # the federation and SLO phase: (a) both legs of the federated int8/int4
+    # steps, (b) the SLO canary (one encode, one decode a round) beside the
+    # ATC int8 steps
+    "federation": ("encode", "decode_accumulate"),
+    "slo canary": ("encode", "decode"),
 }
 
 
@@ -3590,40 +3615,94 @@ def hr_relay_parity(device, dims, n=RESNET50_WIDTH):
     return err
 
 
-def hr_steps(device, sm, images, labels, stats0, params0, wire, env, steps=3):
+def hr_steps(device, sm, images, labels, stats0, params0, wire, env, steps=3, fused=False,
+             capture=False, snap_at=None):
     """ATC ``sgd(0.1, 0.9)`` on ``wire`` over the weighted Exp2 graph under
     ``env`` (set before ``bft.init``): ``steps`` two-program steps
-    (``loss_and_grad``, ``opt.step``) from ``params0``; returns the final
-    parameters, those after the first step, the static plan, and the
-    median step s and optimizer ms over the steps after the first."""
+    (``loss_and_grad``, ``opt.step``) or, ``fused``, steps of
+    ``opt.make_train_step(sm.worker_loss)`` from ``params0``. Per step
+    (``rows``): its dispatch key, whether the federated fabric made it a DCN
+    step, step s, optimizer ms (two-program) and launches. ``capture``: the
+    combine's input and output on the first DCN step at full width (not the
+    metrics probe's prefix). ``snap_at``: the parameters and momentum after
+    that many steps. Returns them with the final parameters and momentum,
+    those after the first step, the static plan, the median step s and
+    optimizer ms over the steps after the first, the fabric, the SLO engine
+    and, under a fabric, the ``bluefog.federation.*`` and
+    ``bluefog.wire_bytes`` counters' deltas."""
+    from bluefog_tpu_torch import federation, slo
+
     with env_set({**OBSV_OFF, **env}):
         bft.init(size=SIZE, device=device)
         bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+        fab = federation.get_fabric(SIZE)
+        names = () if fab is None else (
+            "bluefog.federation.ici_wire_bytes", "bluefog.federation.dcn_wire_bytes",
+            "bluefog.wire_bytes")
         sm.load_buffers(stats0)
         opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
         opt.compression = wire
         params = params0.clone()
         state = opt.init(params)
-        grads = torch.empty_like(params)
-        times = []
+        captured, keys = [], []
+        resolve = opt._resolve_dispatch
+
+        def recording(ctx, p, comm_now):
+            d = resolve(ctx, p, comm_now)
+            keys.append(d.key)
+            combine = d.combine
+
+            def recorded(t):
+                keep = capture and not captured and d.key[:2] == ("fed", "dcn") and \
+                    t.shape == params.shape
+                x = t.clone() if keep else None
+                out = combine(t)
+                if keep:
+                    captured.append((d.key, x, out.clone()))
+                return out
+
+            d.combine = recorded
+            return d
+
+        opt._resolve_dispatch = recording
+        counters0 = [metrics.counter(n).value for n in names]
+        step_fn = opt.make_train_step(sm.worker_loss) if fused else None
+        grads = None if fused else torch.empty_like(params)
+        workers = torch.arange(SIZE)
+        rows, snap = [], None
         for i in range(steps):
+            dcn = fab is not None and fab.dcn_step(opt._comm_count)
+            before = launch_counts()
             sync(device)
             t0 = time.perf_counter()
-            loss = sm.loss_and_grad(params, images, labels, grads)[0]
-            sync(device)
-            t1 = time.perf_counter()
-            opt.step(params, state, grads)
-            sync(device)
-            if i:
-                times.append((time.perf_counter() - t0, time.perf_counter() - t1))
+            if fused:
+                params, state, loss = step_fn(params, state, images, labels, workers)
+                t1 = None
             else:
-                first = params.clone()
+                loss = sm.loss_and_grad(params, images, labels, grads)[0]
+                sync(device)
+                t1 = time.perf_counter()
+                opt.step(params, state, grads)
+            sync(device)
+            t2 = time.perf_counter()
+            after = launch_counts()
             if not torch.isfinite(loss).all():
-                raise AssertionError(f"health-relay (a) {wire}: non-finite loss at step {i}")
-        plan = bft.get_context().static_plan()
-        out = {"params": params, "first": first, "plan": plan,
-               "step_s": statistics.median(t[0] for t in times),
-               "opt_ms": 1e3 * statistics.median(t[1] for t in times)}
+                raise AssertionError(f"ATC {wire} under {env}: non-finite loss at step {i}")
+            rows.append({"dcn": dcn, "key": keys[-1][:2], "step_s": t2 - t0,
+                         "opt_ms": None if t1 is None else 1e3 * (t2 - t1),
+                         "launches": {k: after[k] - before[k] for k in KERNEL_ROWS}})
+            if i == 0:
+                first = params.clone()
+            if snap_at is not None and i + 1 == snap_at:
+                snap = (params.clone(), state.clone())
+        timed = rows[1:]
+        out = {"params": params, "state": state, "first": first, "rows": rows,
+               "captured": captured, "fab": fab, "snap": snap, "engine": slo.active(),
+               "plan": bft.get_context().static_plan(),
+               "step_s": statistics.median(r["step_s"] for r in timed) if timed else None,
+               "opt_ms": None if fused or not timed else
+               statistics.median(r["opt_ms"] for r in timed),
+               "counters": [metrics.counter(n).value - c0 for n, c0 in zip(names, counters0)]}
         opt.free()
     return out
 
@@ -4002,6 +4081,399 @@ def phase_health_relay(device, sm, images, labels, root=HR_ROOT, smi="", n=RESNE
                         f"dead; part {d_s:.1f} s")
     log("health-relay", f"launches of the parts {counts}")
     return counts, numbers
+
+
+# the declared fabric of part (a): 2 pods x 4 workers, a DCN step every 2nd
+FS_PODS = {"BLUEFOG_PODS": "2", "BLUEFOG_DCN_PERIOD": "2"}
+# (tier, the optimizer's compression, its DCN wire): BLUEFOG_DCN_WIRE is
+# "exact" for fp32 and unset (int4) for the others
+FS_TIERS = (("fp32", None, None), ("int8", "int8", "int4"), ("int4", "int4", "int4"),
+            ("int4_ef", "int4_ef", "int4"))
+FS_STEPS = 5  # 1 warm-up + 4 timed: comm steps 0..4 are DCN, ICI, DCN, ICI, DCN
+FS_FP32_TOL = 1e-5  # relative: the fp32 combine against float64 W_dcn^T (W_ici^T x)
+FS_MEAN_TOL = 1e-6  # of the largest value: the workers' mean through the fp32 combine
+FS_TARGET_RATE = 0.9  # choose_dcn_period's target rate on the 2 x 4 fabric (reported)
+FS_SLO_ON = {"BLUEFOG_SLO": "1", "BLUEFOG_SLO_INTERVAL": "1"}
+FS_SLO_STEPS = 11  # the default interval (10) against off: 1 + 10 steps, two samples
+FS_DEGRADE = (2, 3, 0.05)  # (b) the damaged Exp2(8) edge and its delivered share
+FS_FLEET = 1024  # (c) the storm's virtual ranks
+
+
+def fs_same(name, a, b):
+    if not (torch.equal(bits(a["params"]), bits(b["params"]))
+            and torch.equal(bits(a["state"]), bits(b["state"]))):
+        raise AssertionError(f"federation-slo {name}: parameters or momentum differ")
+
+
+def fs_plain_composition(key, x, fab):
+    """The two-leg combine of a DCN step through the plain versions on a
+    CPU copy of the combine's input: the intra leg on the optimizer's wire,
+    then the gateway leg on the DCN wire, each in place."""
+    xc = x.cpu()
+    for plan, wire in ((fab.intra, key[2]), (fab.inter, key[6])):
+        src, _self_w, recv_w = inner.plan_operands(plan, "cpu")
+        xc = inner.weighted_combine_quantized_operands(xc, src, recv_w, wire=wire, inplace=True)
+    return xc
+
+
+def fs_federation(device, sm, images, labels, stats0, params0):
+    """Part (a), see :func:`phase_federation_slo`. Returns the numbers and
+    the launch counts of the federated runs (each zeroed just before its run
+    and read just after; the flat twins and the CPU checks are outside)."""
+    from bluefog_tpu_torch import federation
+
+    counts = {k: 0 for k in KERNEL_ROWS}
+
+    def counted(*args, **kw):
+        reset_launch_counts()
+        out = hr_steps(device, sm, images, labels, stats0, params0, *args, **kw)
+        part = launch_counts()
+        for k in counts:
+            counts[k] += part[k]
+        return out
+
+    flat0 = hr_steps(device, sm, images, labels, stats0, params0, "int8", {}, 3)
+    runs, numbers, plain_s = {}, {}, 0.0
+    for name, wire, dcn_wire in FS_TIERS:
+        env = {**FS_PODS, "BLUEFOG_METRICS": "1"}
+        if dcn_wire is None:
+            env["BLUEFOG_DCN_WIRE"] = "exact"
+        run = runs[name] = counted(wire, env, FS_STEPS, capture=name in ("fp32", "int8", "int4"))
+        fab, rows = run["fab"], run["rows"]
+        ici_wire = None if wire is None else wire.replace("_ef", "")
+        if fab is None or fab.wire != dcn_wire or fab.period != 2 or \
+                [r["dcn"] for r in rows] != [True, False] * 2 + [True] or \
+                [r["key"] for r in rows] != [("fed", "dcn" if r["dcn"] else "ici")
+                                             for r in rows] or \
+                any(k[2] != ici_wire for k in (r["key"] for r in rows) if len(k) > 2):
+            raise AssertionError(f"federation-slo (a) {name}: fabric {fab}, steps "
+                                 f"{[(r['dcn'], r['key']) for r in rows]}")
+        # launches a timed step: each quantized leg is one encode and one
+        # decode_accumulate (in place, whole blocks); exact legs none
+        for r in rows[1:]:
+            legs = (wire is not None) + (r["dcn"] and dcn_wire is not None)
+            want = {k: 0 for k in KERNEL_ROWS}
+            want.update(encode=legs, decode_accumulate=legs)
+            if device.type == "cuda" and r["launches"] != want:  # no launch on the CPU
+                raise AssertionError(f"federation-slo (a) {name}: a {'DCN' if r['dcn'] else 'ICI'}"
+                                     f" step launched {r['launches']}, expected {want}")
+        key, x, y = run["captured"][0] if run["captured"] else (None, None, None)
+        if name == "fp32":
+            w = [torch.from_numpy(p.weight_matrix()).to(device) for p in (fab.intra, fab.inter)]
+            x64 = x.double()
+            want = w[1].t() @ (w[0].t() @ x64)
+            err = float((y.double() - want).abs().max() / want.abs().max())
+            drift = float((y.double().mean(0) - x64.mean(0)).abs().max() / x64.abs().max())
+            del x64, want
+            if not (err <= FS_FP32_TOL and drift <= FS_MEAN_TOL):
+                raise AssertionError(f"federation-slo (a) fp32: combine {err:.3g} from float64 "
+                                     f"(bound {FS_FP32_TOL}), mean drift {drift:.3g} (bound "
+                                     f"{FS_MEAN_TOL})")
+            numbers["fp32_err"], numbers["fp32_drift"] = err, drift
+        elif key is not None:
+            t0 = time.perf_counter()
+            want = fs_plain_composition(key, x, fab)
+            plain_s += time.perf_counter() - t0
+            if not torch.equal(bits(y.cpu()), bits(want)):
+                raise AssertionError(f"federation-slo (a) {name}: the first DCN combine differs "
+                                     f"from the plain two-leg composition in "
+                                     f"{int((bits(y.cpu()) != bits(want)).sum())} elements")
+        run["captured"] = None
+        # per-leg counters against the wire summary: a worker's rounds (JAX's
+        # convention) on ICI every step, on DCN every event; the summary's
+        # event bytes count both directed gateway edges
+        with env_set(env):  # the summary reads an exact DCN wire from the environment
+            ws = federation.wire_summary(fab.layout, sm.width, 4, ici_wire=ici_wire,
+                                         dcn_wire_tier=dcn_wire, period=fab.period)
+        events = sum(r["dcn"] for r in rows)
+        n_edges = sum(1 for (i, j) in federation.inter_edges(fab.layout) if i != j)
+        want_dcn = events * ws["dcn_wire_bytes_per_event"] * len(fab.inter.rounds) // n_edges
+        ici, dcn, total = run["counters"]
+        if ici != FS_STEPS * ws["ici_wire_bytes_per_step"] or dcn != want_dcn or \
+                total != ici + dcn:
+            raise AssertionError(f"federation-slo (a) {name}: counters ici {ici}, dcn {dcn}, "
+                                 f"total {total}; summary {ws}, {events} events")
+        timed = rows[1:]
+        numbers[name] = {
+            leg: (statistics.median(r["step_s"] for r in timed if r["dcn"] == is_dcn),
+                  statistics.median(r["opt_ms"] for r in timed if r["dcn"] == is_dcn))
+            for leg, is_dcn in (("ici", False), ("dcn", True))}
+        numbers[name]["summary"] = ws
+        torch.cuda.empty_cache()
+    fs_same("(a) int4_ef fallback against int4", runs["int4_ef"], runs["int4"])
+    fused = counted("int8", {**FS_PODS, "BLUEFOG_METRICS": "1"}, FS_STEPS, fused=True)
+    fs_same("(a) make_train_step against the two-program step, int8", fused, runs["int8"])
+    flat1 = hr_steps(device, sm, images, labels, stats0, params0, "int8", {}, 3)
+    fs_same("(a) flat int8 after BLUEFOG_PODS is unset against its flat twin", flat1, flat0)
+    if any(r["key"][0] != "na_q" for r in flat0["rows"] + flat1["rows"]):
+        raise AssertionError(f"federation-slo (a): a flat step's key "
+                             f"{[r['key'] for r in flat1['rows']]}")
+    with env_set(FS_PODS):
+        layout = federation.get_fabric(SIZE).layout
+        numbers["choice"] = federation.choose_dcn_period(layout, FS_TARGET_RATE)
+    numbers["flat"] = (statistics.median(r["step_s"] for r in flat0["rows"][1:]),
+                       statistics.median(r["opt_ms"] for r in flat0["rows"][1:]))
+    numbers["plain_s"] = plain_s
+    return numbers, counts
+
+
+def fs_canary(wire, plan):
+    """One canary probe on the current context: the verdict and the
+    delivered blocks of the canary op."""
+    from bluefog_tpu_torch import slo
+
+    ctx = bft.get_context()
+    verdict = slo.CanaryLane().probe(ctx, plan, wire)
+    src = torch.from_numpy(slo._round_sources(plan.perms, SIZE)).to(ctx.device)
+    c = torch.from_numpy(slo.canary_signal(SIZE)).to(ctx.device)
+    return verdict, slo._canary_program(ctx, plan.perms, wire)(c, src).cpu()
+
+
+def fs_slo(device, sm, images, labels, stats0, params0):
+    """Part (b), see :func:`phase_federation_slo`. Returns the numbers and
+    the launch counts of the engine's own runs (the two engine-on step runs
+    and the observation under the damaged edge), each zeroed just before it
+    and read just after; the engine-off twin and the canary's comparison
+    with the CPU run outside them."""
+    from bluefog_tpu_torch import health, slo
+
+    counts = {k: 0 for k in KERNEL_ROWS}
+
+    def add(part):
+        for k in counts:
+            counts[k] += part[k]
+
+    off = hr_steps(device, sm, images, labels, stats0, params0, "int8", {}, FS_SLO_STEPS,
+                   fused=True, snap_at=3)
+    off_keys = set(bft.get_context().op_cache)
+    reset_launch_counts()
+    on = hr_steps(device, sm, images, labels, stats0, params0, "int8", FS_SLO_ON, 3, fused=True)
+    add(launch_counts())
+    eng = on["engine"]
+    if not (torch.equal(bits(on["params"]), bits(off["snap"][0]))
+            and torch.equal(bits(on["state"]), bits(off["snap"][1]))):
+        raise AssertionError("federation-slo (b): three steps with the SLO engine on differ from "
+                             "three with it off")
+    plan = bft.get_context().static_plan()
+    rounds = len(plan.rounds)
+    added = {k[0] for k in set(bft.get_context().op_cache) - off_keys}
+    want = {k: 0 for k in KERNEL_ROWS}
+    want.update(encode=2, decode_accumulate=1, decode=rounds)
+    bad = [r["launches"] for r in on["rows"]
+           if r["launches"] != want and device.type == "cuda"]  # no launch on the CPU
+    if eng is None or eng._samples != 3 or eng.canary.probes != 3 or \
+            not eng.canary.last["ok"] or added != {"slo_canary"} or bad:
+        raise AssertionError(f"federation-slo (b): engine {eng and eng.report()}, op-cache keys "
+                             f"added {added}, sampled steps launched {bad} (expected {want})")
+    reset_launch_counts()
+    on10 = hr_steps(device, sm, images, labels, stats0, params0, "int8", {"BLUEFOG_SLO": "1"},
+                    FS_SLO_STEPS, fused=True)
+    add(launch_counts())
+    fs_same("(b) default interval", on10, off)
+    if on10["engine"]._samples != 2:
+        raise AssertionError(f"federation-slo (b): {on10['engine']._samples} samples at the "
+                             f"default interval over {FS_SLO_STEPS} steps")
+    # the canary on every edge of the Exp2(8) plan, card against the CPU
+    # (a comparison with the plain versions: its launches are not counted)
+    canary = {}
+    for wire in (None, "bf16", "int8", "int4"):
+        got = {}
+        for dev in (device, torch.device("cpu")):
+            bft.init(size=SIZE, device=dev)
+            bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+            got[dev.type] = fs_canary(wire, bft.get_context().static_plan())
+        (v, blocks), (v_cpu, blocks_cpu) = got[device.type], got["cpu"]
+        if not v["ok"] or v != v_cpu or not torch.equal(bits(blocks), bits(blocks_cpu)):
+            raise AssertionError(f"federation-slo (b) canary {wire}: card {v}, CPU {v_cpu}, "
+                                 f"blocks equal {torch.equal(bits(blocks), bits(blocks_cpu))}")
+        canary[wire or "fp32"] = v["max_dev"]
+    # a damaged edge: the canary names it and files its advisory
+    src, dst, factor = FS_DEGRADE
+    bft.init(size=SIZE, device=device)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    ctx = bft.get_context()
+    session = bft.elastic.start(policy="average")
+    session.inject("degrade", rank=src, step=0, factor=factor, peer=dst)
+    eng = slo.start(interval=1, objectives=[], canary=True)
+    fired0 = metrics.counter("bluefog.doctor.advisory.slo_canary_failed").value
+    reset_launch_counts()
+    eng.observe(ctx, step=0, plan=ctx.static_plan(), wire="int8")
+    add(launch_counts())
+    verdict = eng.canary.last
+    advs = [a for a in eng.alerts if a.kind == "slo_canary_failed"]
+    bft.elastic.stop()
+    if verdict is None or verdict["ok"] or \
+            {tuple(e[:2]) for e in verdict["edges"]} != {(src, dst)} or len(advs) != 1 or \
+            advs[0].detail["edges"][0][:2] != [src, dst] or \
+            metrics.counter("bluefog.doctor.advisory.slo_canary_failed").value != fired0 + 1:
+        raise AssertionError(f"federation-slo (b) degrade {FS_DEGRADE}: verdict {verdict}, "
+                             f"advisories {[a.to_json() for a in advs]}")
+    # a spent budget: /healthz critical, /slo the report, /fleet the slo block
+    slo.register(slo.Objective("avail", "chip_smoke", target=0.99, comparison="ge", window=20,
+                               budget_frac=0.1, fast_window=3, fast_burn=5.0, slow_window=10,
+                               slow_burn=1.5))
+    for t in range(40):
+        eng.observe(None, step=t, values={"avail": 0.0})
+    plane = health.start(interval=1)
+    i_burn = health.FLEET_FIELDS.index("slo_burn")
+    burn = float(plane._local_vector(ctx, None, list(range(SIZE)))[0, i_burn])
+    srv = health.serve(0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{srv.port}"
+    served = {p: hr_get(base + p) for p in ("/healthz", "/slo", "/fleet")}
+    srv.close()
+    health.stop()
+    slo.stop()
+    verdict_h = json.loads(served["/healthz"][1])
+    rep = json.loads(served["/slo"][1])
+    fleet = json.loads(served["/fleet"][1])
+    spent = [o for o in rep.get("objectives", []) if o["name"] == "avail"]
+    if served["/healthz"][0] != 503 or verdict_h["status"] != "critical" or \
+            verdict_h["slo_exhausted"] != ["avail"] or served["/slo"][0] != 200 or \
+            rep.get("kind") != "slo_dump" or not spent or \
+            spent[0]["budget"]["exhausted"] is not True or \
+            fleet.get("slo", {}).get("exhausted") != ["avail"] or burn != eng.worst_burn():
+        raise AssertionError(f"federation-slo (b): /healthz {served['/healthz']}, /slo "
+                             f"{str(rep)[:300]}, /fleet slo {fleet.get('slo')}, burn slot {burn}")
+    off_ms = 1e3 * statistics.mean(r["step_s"] for r in off["rows"][1:])
+    on_ms = 1e3 * statistics.mean(r["step_s"] for r in on10["rows"][1:])
+    return {"canary": canary, "rounds": rounds, "off_ms": off_ms, "on_ms": on_ms,
+            "share": on_ms / off_ms - 1.0, "burn": burn, "dev": verdict["max_dev"],
+            "steps_ms": {k: [round(1e3 * r["step_s"], 1) for r in run["rows"][1:]]
+                         for k, run in (("on", on10), ("off", off))}}, counts
+
+
+def fs_fleetsim():
+    """Part (c), host only: the N = 1024 Exp2 storm and a 4 x 16 federated
+    fleet losing pod 1."""
+    from bluefog_tpu_torch import federation, fleetsim
+
+    vf = fleetsim.VirtualFleet(FS_FLEET, topology="exp2", policy="receiver",
+                               plan=fleetsim.storm_plan(FS_FLEET, 0.10, 5, seed=1), seed=1)
+    t0 = time.perf_counter()
+    vf.run(12)
+    run_s = time.perf_counter() - t0
+    s = vf.summary()
+    decision = vf.decision_probe()
+    ff = federation.FederatedFleet(federation.parse_pods("4x16", 64),
+                                   plan=fleetsim.region_plan(64, 16, 32, step=3), audit_edges=True)
+    ff.run(8)
+    fs = ff.summary()
+    repairs = [e for e in ff.fleet.events if e["metric"] == "fleetsim_repair"]
+    if s["live"] != 922 or s["repairs"] != 1 or s["stale_dispatches"] != 0 or \
+            fs["repairs"] != 1 or fs["stale_dispatches"] != 0 or len(repairs) != 1 or \
+            repairs[0]["loss_class"] != "pod_loss" or repairs[0]["pods_lost"] != [1] or \
+            fs["federation"]["gateways"] != [0, 32, 48]:
+        raise AssertionError(f"federation-slo (c): storm {s}, federated fleet {fs}, repairs "
+                             f"{repairs}")
+    return {"run_s": run_s, "event_ms": s["worst_event_ms"],
+            "decision_ms": decision["decision_ms"], "chosen": decision["chosen"],
+            "pod_event_ms": repairs[0]["event_ms"]}
+
+
+def phase_federation_slo(device, sm, images, labels, smi=""):
+    """Phase 11e on the ResNet50 of the train-step phase (8 workers, 64
+    images of 224 x 224 each, ``sgd(0.1, 0.9)``, bf16 compute), ATC over the
+    weighted Exp2 graph, cuDNN deterministic. Returns ``({path: launch
+    counts}, numbers)``.
+
+    (a) Federation, ``BLUEFOG_PODS=2`` (2 x 4) and ``BLUEFOG_DCN_PERIOD=2``,
+    with ``BLUEFOG_METRICS=1``: tiers fp32 (``BLUEFOG_DCN_WIRE=exact``),
+    int8 and int4 (DCN wire int4), int4_ef (falls back to int4), each 1 + 4
+    two-program steps (communicating steps 0..4: DCN, ICI, DCN, ICI, DCN).
+    Gates: each step's key is ``("fed", "dcn" | "ici", base wire, ...)`` on
+    that cadence; a timed step launches, per quantized leg, one ``encode``
+    and one ``decode_accumulate`` (the f32 payload ``[8, 25 557 504]`` is
+    whole 512-blocks and contiguous, so ``weighted_combine_quantized_operands``
+    runs in place: one encode of every worker's row and one accumulate over
+    the leg's rounds; the intra leg every step, the gateway leg on its
+    output on a DCN step), so a DCN step 2 + 2, an ICI-only step 1 + 1, fp32
+    0, and nothing else; on int8 and int4 the first DCN step's combine is
+    bitwise the two legs through the plain versions on a CPU copy of its
+    input; on fp32 it is within ``FS_FP32_TOL`` (relative) of ``W_dcn^T
+    (W_ici^T x)`` in float64, and keeps the workers' mean to ``FS_MEAN_TOL``
+    of the largest value; the ``bluefog.federation.ici_wire_bytes`` counter
+    is 5 x ``wire_summary``'s ICI bytes a step, ``dcn_wire_bytes`` the DCN
+    events x its bytes an event x the inter rounds / the directed gateway
+    edges (the counter counts a worker's rounds, the summary the fleet's
+    edges), ``bluefog.wire_bytes`` their sum; int4_ef bitwise int4;
+    ``make_train_step`` bitwise the two-program int8 run; a flat int8 run
+    after ``BLUEFOG_PODS`` is unset bitwise the flat twin run before any
+    federation, on ``na_q`` keys. Reported: step s and optimizer ms of the
+    ICI-only and DCN steps per tier beside the flat int8's, the per-leg
+    bytes, ``dcn_cut_ratio``, and ``choose_dcn_period(FS_TARGET_RATE)``.
+
+    (b) SLO on flat ATC int8: ``BLUEFOG_SLO=1`` at interval 1 (canary on)
+    for 3 fused steps is bitwise the engine off; it adds only the
+    ``slo_canary`` op-cache key, and every sampled step launches one more
+    ``encode`` and one ``decode`` a round (3) beside the step's own encode
+    and decode_accumulate; at the default interval (10) 1 + 10 steps are
+    bitwise off with two samples (mean step reported against off). The
+    canary on the card is ok on every edge of the Exp2(8) plan for fp32,
+    bf16, int8 and int4, its verdict (deviation included) equal to the
+    CPU's and its delivered blocks bitwise the plain versions'. A ``degrade``
+    fault on edge ``FS_DEGRADE`` makes it name exactly that edge and file one
+    ``slo_canary_failed`` advisory. An objective whose budget is spent turns
+    ``/healthz`` 503 ``critical``, ``/slo`` serves the report, ``/fleet``
+    carries the ``slo`` block and the ``slo_burn`` slot the engine's burn.
+
+    (c) Fleetsim, host only: the N = 1024 Exp2 storm
+    (``storm_plan(1024, 0.10, 5, seed=1)``, receiver) ends with 922 live, 1
+    repair and 0 stale dispatches; a 4 x 16 ``FederatedFleet`` loses pod 1
+    in one repair event (``pod_loss``, gateways [0, 32, 48]); the decision
+    probe's ``decision_ms`` reported."""
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    params0 = sm.replicate()
+    counts = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        a, counts["federation"] = fs_federation(device, sm, images, labels, stats0, params0)
+        a_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        b, counts["slo canary"] = fs_slo(device, sm, images, labels, stats0, params0)
+        b_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = fs_fleetsim()
+        c_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        sm.load_buffers(stats0)
+        bft.elastic.stop()
+        bft.init(size=SIZE, device=device)
+    for name, _wire, _dcn in FS_TIERS:
+        r = a[name]
+        log("federation-slo", f"(a) {name}: ICI-only step {r['ici'][0]:.4f} s, optimizer "
+                              f"{r['ici'][1]:.1f} ms; DCN step {r['dcn'][0]:.4f} s, optimizer "
+                              f"{r['dcn'][1]:.1f} ms (flat int8 {a['flat'][0]:.4f} s, "
+                              f"{a['flat'][1]:.1f} ms); ICI {r['summary']['ici_wire_bytes_per_step']}"
+                              f" B a step, DCN {r['summary']['dcn_wire_bytes_per_event']} B an "
+                              f"event ({r['summary']['dcn_wire']}), dcn_cut_ratio "
+                              f"{r['summary']['dcn_cut_ratio']}; on {smi}")
+    ch = a["choice"]
+    log("federation-slo", f"(a) gates met: cadence and keys, launches 2+2 a DCN step and 1+1 "
+                          f"an ICI step (fp32 0), int8/int4 first DCN combine bitwise the plain "
+                          f"legs (CPU {a['plain_s']:.1f} s), fp32 {a['fp32_err']:.3g} from "
+                          f"float64 (bound {FS_FP32_TOL}), mean drift {a['fp32_drift']:.3g} "
+                          f"(bound {FS_MEAN_TOL}), counters = wire_summary, int4_ef = int4, "
+                          f"fused = two-program, flat after = flat before; choose_dcn_period("
+                          f"{FS_TARGET_RATE}): period {ch['period']}, predicted "
+                          f"{ch['predicted_rate']:.6f}, met {ch['met']}; part {a_s:.1f} s")
+    log("federation-slo", f"(b) SLO at interval 1 bitwise off, +1 encode +{b['rounds']} decode "
+                          f"a sampled step, canary ok on every edge (max deviation from "
+                          f"wire_ref {b['canary']}, card = CPU), degrade {FS_DEGRADE} named "
+                          f"alone (deviation {b['dev']}), spent budget: /healthz 503 critical, "
+                          f"/slo served, slo_burn {b['burn']}; default interval: mean step "
+                          f"{b['on_ms']:.1f} ms on, {b['off_ms']:.1f} off "
+                          f"({100 * b['share']:+.2f}%, reported; steps ms {b['steps_ms']}, "
+                          f"the last sampled); part {b_s:.1f} s; on {smi}")
+    log("federation-slo", f"(c) storm N={FS_FLEET}: 922 live, 1 repair, 0 stale, 12 ticks in "
+                          f"{c['run_s']:.3f} s, repair {c['event_ms']} ms, decision_ms "
+                          f"{c['decision_ms']} ({c['chosen']}); pod 1 of 4 x 16 lost in one "
+                          f"event ({c['pod_event_ms']} ms); part {c_s:.1f} s")
+    log("federation-slo", f"launches of the parts {counts}")
+    return counts, {"a": a, "b": b, "c": c}
 
 
 def lm_flops_per_step(sm, seq, batch):
@@ -4926,6 +5398,28 @@ def run_health_relay_alone():
     return 0
 
 
+def run_federation_slo_alone():
+    """``python3 chip_smoke.py --phase federation-slo``: phase 11e alone on
+    the full-width ResNet50 (the wire kernels built first); its gates as in
+    the whole run, its lines and the launch counts of its parts. Prints no
+    result line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    bft.init(size=SIZE)
+    sm, images, labels = build_trainer(device)
+    t0 = time.perf_counter()
+    counts, _numbers = phase_federation_slo(device, sm, images, labels, smi=smi)
+    for path in ("federation", "slo canary"):
+        missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    log("federation-slo", f"phase in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -4936,6 +5430,8 @@ def main():
         return 0
     if sys.argv[1:] == ["--phase", "health-relay"]:
         return run_health_relay_alone()
+    if sys.argv[1:] == ["--phase", "federation-slo"]:
+        return run_federation_slo_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -5005,6 +5501,11 @@ def main():
     hr_counts, _hr = phase_health_relay(device, sm, images, labels, smi=smi)
     counts.update(hr_counts)
     log("health-relay", f"phase in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fs_counts, _fs = phase_federation_slo(device, sm, images, labels, smi=smi)
+    counts.update(fs_counts)
+    log("federation-slo", f"phase in {time.perf_counter() - t0:.1f} s")
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))

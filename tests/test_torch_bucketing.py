@@ -296,14 +296,15 @@ def test_wire_payload_and_plan_chunks_equal_jax(monkeypatch):
             # the stacked transport: one bucket, one chunk
             payload = opt._wire_payload(params)
             assert payload == (3_001_000 * 4, 3_001_000)
-            assert opt._plan_chunks(plan, payload) == 1
+            assert opt._plan_chunks(plan, payload, opt.compression) == 1
             # JAX's default cap asked for, and the ICI link priced: JAX's
             # bucket and chunk count
             monkeypatch.setenv("BLUEFOG_BUCKET_BYTES", str(4 << 20))
             monkeypatch.setattr(compiler, "TRANSPORT_LINK_CLASS", "ici")
             payload = opt._wire_payload(params)
             assert payload == jopt._wire_payload(jparams)
-            assert opt._plan_chunks(plan, payload) == jopt._plan_chunks(jplan, payload)
+            assert opt._plan_chunks(plan, payload, opt.compression) == \
+                jopt._plan_chunks(jplan, payload)
             monkeypatch.delenv("BLUEFOG_BUCKET_BYTES")
             monkeypatch.setattr(compiler, "TRANSPORT_LINK_CLASS", "stacked")
     finally:

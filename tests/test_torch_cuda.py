@@ -1122,3 +1122,62 @@ def test_relay_allgather_on_decode_is_bitwise_plain_and_direct(cuda, wire):
     assert torch.equal(_bits(got.cpu()), _bits(want)) and torch.equal(_bits(got), _bits(same))
     assert after["decode"] == before["decode"] + relay.max_in_degree
     assert mask.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", WIRES)
+def test_federated_combine_on_the_card_is_bitwise_plain(cuda, wire, monkeypatch):
+    """The federated ATC step (``BLUEFOG_PODS=2``, period 2, DCN wire int4)
+    on the card: a DCN step launches two ``encode`` and two
+    ``decode_accumulate`` (one each a leg), an ICI-only step one each, and
+    the parameters equal the same steps on the CPU's plain versions bit for
+    bit."""
+    monkeypatch.setenv("BLUEFOG_PODS", "2")
+    monkeypatch.setenv("BLUEFOG_DCN_PERIOD", "2")
+    x = kernels.pad_blocks(ragged_input(cuda, seed=11)).contiguous()
+    g = kernels.pad_blocks(ragged_input(cuda, seed=12)).contiguous()
+    out, launches = {}, []
+    try:
+        for dev in ("cuda", "cpu"):
+            bft.init(device=dev)
+            opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+            opt.compression = wire
+            params = {"w": x.to(dev).clone()}
+            state = opt.init(params)
+            for _ in range(2):
+                before = kernels.launch_counts()
+                opt.step(params, state, {"w": g.to(dev)})
+                after = kernels.launch_counts()
+                launches.append((after["encode"] - before["encode"],
+                                 after["decode_accumulate"] - before["decode_accumulate"]))
+            out[dev] = params["w"].cpu()
+    finally:
+        bft.shutdown()
+    assert launches[:2] == [(2, 2), (1, 1)] and launches[2:] == [(0, 0), (0, 0)]
+    assert torch.equal(_bits(out["cuda"]), _bits(out["cpu"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [None, "bf16", "int8", "int4"])
+def test_slo_canary_on_the_card_equals_the_host_replay(cuda, wire):
+    """The canary on the card (int8/int4: one ``encode`` and one ``decode``
+    a round) delivers the plain versions' blocks bit for bit, so its verdict
+    against ``wire_ref`` is the CPU's: ok on every edge of Exp2(8), with the
+    same deviation."""
+    from bluefog_tpu_torch import slo
+
+    verdicts = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            bft.init(device=dev)
+            bft.set_topology(topo.ExponentialTwoGraph(SIZE))
+            plan = plan_from_topology(bft.get_context().load_topology())
+            before = kernels.launch_counts()
+            verdicts[dev] = slo.CanaryLane().probe(bft.get_context(), plan, wire)
+            after = kernels.launch_counts()
+            if dev == "cuda" and wire in WIRES:
+                assert after["encode"] - before["encode"] == 1
+                assert after["decode"] - before["decode"] == len(plan.rounds)
+    finally:
+        bft.shutdown()
+    assert verdicts["cuda"]["ok"] and verdicts["cuda"] == verdicts["cpu"]

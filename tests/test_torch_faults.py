@@ -1,7 +1,9 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
 """Knobs the JAX package reads and the port must not ignore:
 ``BLUEFOG_PLAN_METHOD``, ``BLUEFOG_NODES_PER_MACHINE`` and
-``BLUEFOG_PODS``, each against the JAX package on its 8-device CPU mesh.
+``BLUEFOG_PODS`` (a declared federation runs: the optimizers' combine is
+the two-level one of ``bft.federation``), each against the JAX package on
+its 8-device CPU mesh.
 
 Tolerances: rounds and receive weights are compared exactly; the int8
 facade combine, one ATC int8 optimizer step and the hierarchical results
@@ -105,9 +107,9 @@ def test_forced_plan_method_pins_one_chunk(contexts, monkeypatch):
     opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
     payload = (1 << 28, 1 << 26)
     monkeypatch.setattr(compiler, "TRANSPORT_LINK_CLASS", "ici")  # JAX's chooser
-    assert opt._plan_chunks(plan, payload) > 1
+    assert opt._plan_chunks(plan, payload, opt.compression) > 1
     monkeypatch.setenv("BLUEFOG_PLAN_METHOD", "offset")
-    assert opt._plan_chunks(plan, payload) == 1
+    assert opt._plan_chunks(plan, payload, opt.compression) == 1
 
 
 def test_plan_method_reaches_the_window_exchange(contexts, monkeypatch):
@@ -125,12 +127,31 @@ def test_plan_method_reaches_the_window_exchange(contexts, monkeypatch):
     assert {k[-1] for k in lowered["coloring"]} == {"offset", "coloring"}
 
 
+def _fed_step_matches_jax(wire, seed=4):
+    """One ATC step on ``wire`` with the context's federation: the port's
+    parameters within ``1e-6 * max|want|`` of JAX's, the dispatch key the
+    federated one."""
+    x = np.random.RandomState(seed).randn(SIZE, 1500).astype(np.float32)
+    g = np.random.RandomState(seed + 1).randn(SIZE, 1500).astype(np.float32)
+    jopt = bf.DistributedAdaptThenCombineOptimizer(optax.sgd(0.1))
+    jopt.compression = wire
+    jp = {"w": bf.worker_values(list(x))}
+    jp, _ = jopt.step(jp, jopt.init(jp), {"w": jnp.asarray(g)})
+    topt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+    topt.compression = wire
+    tp = {"w": torch.from_numpy(x.copy())}
+    assert topt._resolve_dispatch(bft.get_context(), tp, True).key[:2] == ("fed", "dcn")
+    topt.step(tp, topt.init(tp), {"w": torch.from_numpy(g)})
+    _close(tp["w"].numpy(), jp["w"])
+
+
 def test_shortcut_is_refused_naming_the_roadmap_item(contexts, monkeypatch):
     """``BLUEFOG_PLAN_METHOD=shortcut`` lowers to the relay family (ROADMAP
     A13b is ported: the facade's combine equals JAX's relay within 1e-6 of
-    the largest value, the compiler's rounds JAX's). What stays refused under
-    it is the federation, whose relay keys wait for ROADMAP A12b: a set
-    ``BLUEFOG_PODS`` raises naming that item."""
+    the largest value, the compiler's rounds JAX's). A federation declared
+    under it (``BLUEFOG_PODS``, refused until ROADMAP A12b) now runs: its
+    legs compile direct plans, as JAX's do, and an ATC int8 step equals
+    JAX's. The name is the one the test had while the port refused both."""
     monkeypatch.setenv("BLUEFOG_PLAN_METHOD", "shortcut")
     w = _digraph()
     bf.init(devices=contexts[:SIZE])
@@ -143,8 +164,9 @@ def test_shortcut_is_refused_naming_the_roadmap_item(contexts, monkeypatch):
     _close(got.numpy(), bf.neighbor_allreduce(bf.worker_values(list(x))))
     assert compiler.compile_edges([(0, 1)], 2, method="shortcut").route == "shortcut"
     monkeypatch.setenv("BLUEFOG_PODS", "2")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        bft.init(device="cpu")
+    bf.init(devices=contexts[:SIZE])
+    bft.init(device="cpu")
+    _fed_step_matches_jax("int8")
 
 
 def test_nodes_per_machine_from_the_environment_matches_jax(contexts, monkeypatch):
@@ -177,9 +199,21 @@ def test_nodes_per_machine_must_divide_the_workers(contexts, monkeypatch):
 
 
 def test_a_declared_federation_is_refused_at_init(contexts, monkeypatch):
+    """A declared federation is no longer refused (ROADMAP A12b): ``init``
+    runs, a 2 x 4 fabric's first (DCN) step equals JAX's on fp32 and int4;
+    a blank spec is flat; a spec that does not split the workers raises
+    JAX's ``ValueError`` at the first dispatch, never a silent flat run.
+    The name is the one the test had while the port refused the spec."""
     monkeypatch.setenv("BLUEFOG_PODS", "2")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        bft.init(device="cpu")
-    assert not bft.is_initialized()
+    bf.init(devices=contexts[:SIZE])
+    assert bft.init(device="cpu").size == SIZE
+    for wire in (None, "int4"):
+        _fed_step_matches_jax(wire)
     monkeypatch.setenv("BLUEFOG_PODS", " ")
     assert bft.init(device="cpu").size == SIZE
+    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+    params = {"w": torch.zeros(SIZE, 512)}
+    assert opt._resolve_dispatch(bft.get_context(), params, True).key[0] == "na"
+    monkeypatch.setenv("BLUEFOG_PODS", "3")
+    with pytest.raises(ValueError, match="equal pods"):
+        opt._resolve_dispatch(bft.get_context(), params, True)

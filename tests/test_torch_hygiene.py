@@ -20,7 +20,7 @@ from bluefog_tpu_torch.collective import kernels
 from bluefog_tpu_torch.ops import flash, flash_attention
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "networkx", "bluefog_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "networkx", "ml_dtypes", "bluefog_tpu")
 
 
 def _port_sources():
@@ -50,7 +50,7 @@ def test_port_sources_exist():
             "torch_mnist.py", "torch_long_context.py", "torch_checkpoint_resume.py",
             "torch_benchmark.py", "faults.py", "membership.py", "repair.py",
             "recovery.py", "staleness.py", "memory.py", "spectral.py", "placement.py",
-            "health.py"} <= names
+            "health.py", "fleetsim.py", "federation.py", "slo.py", "wire_ref.py"} <= names
     for source in ("__init__.py", "faults.py", "membership.py", "repair.py", "recovery.py"):
         assert (ROOT / "bluefog_tpu_torch" / "elastic" / source).is_file()
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
@@ -141,6 +141,37 @@ def test_observatory_exports_have_the_jax_names(module):
                   "DRIFT_STREAK", "ENABLE_ENV", "INTERVAL_ENV", "FILE_ENV"):
         if re.search(rf"^(def )?{extra}\b", src, re.M):
             assert hasattr(port, extra), extra
+
+
+@pytest.mark.parametrize("module", ["fleetsim", "federation", "slo"])
+def test_fleet_exports_have_the_jax_names(module):
+    """``bft.fleetsim``, ``bft.federation`` and ``bft.slo`` export the JAX
+    modules' public names (their ``__all__``; ``slo.py`` has none, so its
+    public top-level names), with the signatures of their module functions
+    (compared as source text: the JAX package is not imported)."""
+    import inspect
+
+    src = (ROOT / "bluefog_tpu" / f"{module}.py").read_text()
+    body = ast.parse(src).body
+    if "__all__ = [" in src:
+        block = src[src.index("__all__ = ["):]
+        jax_names = re.findall(r'"(\w+)"', block[:block.index("]")])
+    else:
+        jax_names = [n.name for n in body if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                     and not n.name.startswith("_")]
+        jax_names += [t.id for n in body if isinstance(n, ast.Assign) for t in n.targets
+                      if isinstance(t, ast.Name) and not t.id.startswith("_")]
+    port = getattr(bft, module)
+    assert module in bft.__all__
+    assert sorted(port.__all__) == sorted(jax_names)
+    defs = {n.name: n.args for n in body if isinstance(n, ast.FunctionDef)}
+    for name in jax_names:
+        obj = getattr(port, name)
+        if inspect.isfunction(obj):
+            a = defs[name]
+            want = [x.arg for x in a.args + ([a.vararg] if a.vararg else []) + a.kwonlyargs
+                    + ([a.kwarg] if a.kwarg else [])]
+            assert list(inspect.signature(obj).parameters) == want, name
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
