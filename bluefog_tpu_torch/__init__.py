@@ -44,7 +44,9 @@ the fabric ``BLUEFOG_TORUS_DIMS`` declares. ``federation`` (``BLUEFOG_PODS``,
 ``BLUEFOG_DCN_PERIOD``, ``BLUEFOG_DCN_WIRE``) makes the optimizers' combine
 two-level: intra-pod every step, the pods' gateways every period; ``slo``
 (``BLUEFOG_SLO``) is the SLO engine with its canary lane; ``fleetsim``
-simulates thousands of ranks on the host.
+simulates thousands of ranks on the host; ``autotune``
+(``BLUEFOG_AUTOTUNE``) is the closed-loop topology controller that migrates
+the live run through the elastic path.
 
 Elastic gossip: ``elastic`` (``start``, ``inject``, ``guard``, ``stop``;
 ``BLUEFOG_FAULT_PLAN``, ``BLUEFOG_LIVENESS_TIMEOUT``): a killed or stalled
@@ -56,7 +58,7 @@ from bluefog_tpu_torch.version import __version__
 from bluefog_tpu_torch import async_gossip, checkpoint, collective, ops, scaling, sharding, topology
 from bluefog_tpu_torch import elastic, flight, metrics, timeline, watchdog
 from bluefog_tpu_torch import attribution, health, memory, staleness
-from bluefog_tpu_torch import federation, fleetsim, slo
+from bluefog_tpu_torch import autotune, federation, fleetsim, slo
 from bluefog_tpu_torch import attribution as doctor  # the bft.doctor facade
 from bluefog_tpu_torch import topology as topology_util
 from bluefog_tpu_torch.flight import dump as flight_dump
@@ -270,6 +272,7 @@ __all__ = [
     "fleetsim",
     "federation",
     "slo",
+    "autotune",
     "elastic",
     "checkpoint",
     "scaling",

@@ -77,8 +77,10 @@ After each tick the window goes to the staleness observatory under
 ``surface="async"`` (:func:`bluefog_tpu_torch.staleness.observe_window`):
 the ages it folds are the ones the gate read. The engine's
 :meth:`AsyncGossipEngine.summary` is the ``async`` block of the health
-plane's ``/fleet`` report (:mod:`bluefog_tpu_torch.health`). Not ported
-here: the autotune hook (ROADMAP A12b).
+plane's ``/fleet`` report (:mod:`bluefog_tpu_torch.health`). While an
+engine is live, the topology controller's decision records carry
+``async_mode`` (:func:`bluefog_tpu_torch.autotune._async_mode` reads
+:func:`active`).
 """
 
 import collections

@@ -298,13 +298,13 @@ def init(
     old context's membership), opens the timeline of ``BLUEFOG_TIMELINE``,
     a fresh flight recorder, the observatory sessions their switches
     ask for and the health plane (``BLUEFOG_HEALTH``, its endpoint under
-    ``BLUEFOG_HEALTH_PORT``), the SLO engine last (``BLUEFOG_SLO``; it
-    reads the others), and sets the ``bluefog.size`` and
-    ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` federates the
+    ``BLUEFOG_HEALTH_PORT``), the topology controller (``BLUEFOG_AUTOTUNE``),
+    the SLO engine last (``BLUEFOG_SLO``; it reads the others), and sets the
+    ``bluefog.size`` and ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` federates the
     optimizers' combine (:mod:`bluefog_tpu_torch.federation`)."""
     global _context
-    from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, health, memory
-    from bluefog_tpu_torch import metrics, slo, staleness
+    from bluefog_tpu_torch import async_gossip, attribution, autotune, elastic, flight, health
+    from bluefog_tpu_torch import memory, metrics, slo, staleness
     from bluefog_tpu_torch import timeline as tl
 
     elastic.stop()
@@ -320,6 +320,7 @@ def init(
     health.on_init(ctx)
     staleness.on_init(ctx)
     memory.on_init(ctx)
+    autotune.on_init(ctx)
     async_gossip.on_init(ctx)
     slo.on_init(ctx)
     metrics.gauge("bluefog.size").set(ctx.size)
@@ -330,18 +331,20 @@ def init(
 def shutdown() -> None:
     """Drop the global context (reference ``bf.shutdown``): close the
     elastic session, the SLO engine (first, so its JSONL tail flushes while
-    the tiers it reads are up), the observatory sessions, the health plane
-    and its endpoint, and the flight session, fold the pending probe
-    payloads and run the env-configured exporters, then close a timeline
+    the tiers it reads are up), the topology controller (its ``session_end``
+    line), the observatory sessions, the health plane and its endpoint, and
+    the flight session, fold the pending probe payloads and run the
+    env-configured exporters, then close a timeline
     ``init`` opened from ``BLUEFOG_TIMELINE`` (a timeline the user opened
     stays open)."""
     global _context
-    from bluefog_tpu_torch import async_gossip, attribution, elastic, flight, health, memory
-    from bluefog_tpu_torch import metrics, slo, staleness
+    from bluefog_tpu_torch import async_gossip, attribution, autotune, elastic, flight, health
+    from bluefog_tpu_torch import memory, metrics, slo, staleness
     from bluefog_tpu_torch import timeline as tl
 
     elastic.stop()
     slo.on_shutdown()
+    autotune.on_shutdown()
     async_gossip.on_shutdown()
     attribution.on_shutdown()
     health.on_shutdown()

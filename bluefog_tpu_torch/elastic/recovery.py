@@ -595,9 +595,10 @@ class ElasticSession:
     # -- controller migration ------------------------------------------------
 
     def adopt_topology(self, topo, optimizer=None) -> None:
-        """Adopt a new BASE topology (a weight matrix) mid-run — the JAX
-        package's ``bf.autotune`` migration path (ROADMAP A12b in the
-        port). The given graph becomes the base future
+        """Adopt a new BASE topology (a weight matrix) mid-run — the
+        topology controller's migration path
+        (:mod:`bluefog_tpu_torch.autotune` calls it for a swap and for a
+        rollback). The given matrix becomes the base future
         repairs (and rejoins) compute from, and what is INSTALLED now
         is its repair to the *current* live set through the same
         prune + renormalize + ``set_topology`` path a failure repair

@@ -917,12 +917,14 @@ class HealthPlane:
     def report(self) -> dict:
         """The health artifact (``tools/fleet_report.py`` reads it), built
         on demand: the sample history, the fleet aggregate, the
-        :func:`healthz_verdict`, and the async engine's, the shard layout's,
-        the federated fabric's (``federation``: layout, gateways, DCN period
+        :func:`healthz_verdict`, and the topology controller's (``autotune``:
+        decisions, swaps, rollbacks, holds, the last action), the async
+        engine's, the shard layout's, the federated fabric's (``federation``: layout, gateways, DCN period
         and wire, predicted rate), the memory observatory's and the SLO
         engine's (``slo``: worst burn, spent budgets, alerts, the last canary
         verdict) blocks when they are on. Host data only."""
         from bluefog_tpu_torch import async_gossip as async_mod
+        from bluefog_tpu_torch import autotune as autotune_mod
         from bluefog_tpu_torch import context as ctx_mod
         from bluefog_tpu_torch import federation as fed_mod
         from bluefog_tpu_torch import memory as mem_mod
@@ -931,6 +933,9 @@ class HealthPlane:
 
         rep = self._build_report()
         rep["healthz"] = healthz_verdict(self)
+        tuner = autotune_mod.active()
+        if tuner is not None:
+            rep["autotune"] = tuner.summary()
         engine = async_mod.active()
         if engine is not None:
             rep["async"] = engine.summary()

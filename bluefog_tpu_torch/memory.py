@@ -53,8 +53,9 @@ the postmortem from the dump.
 The footprint and the headroom are the ``mem_bytes_per_rank`` and
 ``mem_headroom`` slots of the health plane's fleet lane, and the
 observatory's summary is the ``memory`` block of its ``/fleet`` report
-(:mod:`bluefog_tpu_torch.health`). The autotune ``memory_pressure`` flag
-waits for ``autotune.py`` (ROADMAP A12b).
+(:mod:`bluefog_tpu_torch.health`). The topology controller's decision
+records carry ``memory_pressure`` from :meth:`MemoryObservatory.pressure_active`
+(:func:`bluefog_tpu_torch.autotune._memory_pressure`).
 
 Knobs: ``BLUEFOG_MEMORY=1`` (default off), ``BLUEFOG_MEMORY_INTERVAL``
 (default 20), ``BLUEFOG_MEMORY_BUDGET`` (bytes a worker; 0 / unset: no

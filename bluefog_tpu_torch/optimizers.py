@@ -115,6 +115,7 @@ import torch
 import numpy as np
 
 from bluefog_tpu_torch import attribution, flight, metrics, sharding
+from bluefog_tpu_torch import autotune as autotune_mod
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import health as health_mod
 from bluefog_tpu_torch import memory as mem_mod
@@ -1331,6 +1332,9 @@ class _GossipOptimizer:
             health_mod.observe_step(ctx, step=step, plan=self._last_plan)
             stal_mod.observe_step(ctx, step=step, plan=self._last_plan, payload_age=0,
                                   surface="sync")
+            # a migration lands as a topology-version bump that the next
+            # dispatch re-resolves, as after an elastic repair
+            autotune_mod.observe_step(ctx, step=step, optimizer=self, plan=self._last_plan)
             mem_mod.observe_step(ctx, step=step, optimizer=self, params=params,
                                  opt_state=opt_state, grads=grads)
             # last: its sampled pass reads the gauges the hooks above set
@@ -1447,6 +1451,8 @@ class _GossipOptimizer:
                 stal_mod.observe_step(ctx, step=step, plan=self._last_plan,
                                       payload_age=payload_age,
                                       surface="delayed" if delay_now else "sync")
+                autotune_mod.observe_step(ctx, step=step, optimizer=self,
+                                          plan=self._last_plan)
                 mem_mod.observe_step(ctx, step=step, optimizer=self, params=params,
                                      opt_state=opt_state)
                 slo_mod.observe_step(ctx, step=step, plan=self._last_plan,

@@ -260,6 +260,26 @@ Phases, one line each; any failure exits non-zero:
                fault named alone, a spent budget turning ``/healthz`` 503
                and served at ``/slo``; (c) host only: the N = 1024 storm
                and a 4 x 16 federated fleet losing a pod;
+11f. autotune -- the closed-loop topology controller on the same ResNet50
+               and weighted Exp2 graph, ATC through ``make_train_step``
+               (:func:`phase_autotune` states every gate): (a) a ``degrade``
+               fault on 2 -> 3, the doctor at interval 1, a controller fed
+               the live advisories on a pinned step clock: one swap naming
+               [2, 3], none rolled back, w[2, 3] down, zero stale
+               dispatches, the step after the swap on the new plan with one
+               encode and one decode_accumulate, its combine bitwise the
+               plain versions, the decision replayed on the host equal to
+               its record; (b) ``BLUEFOG_AUTOTUNE=1`` at interval 1 and 10
+               on a quiet fabric bitwise off, no op-cache key; (c) the dry
+               run: only ``dry_run_swap`` decisions a cooldown apart, no
+               migration, bitwise off; (d) a 5x delivered step rolls the
+               swap back: Exp2 restored bitwise, the candidate blocklisted,
+               the next combine bitwise plain; (e) ``BLUEFOG_AUTOTUNE_WIRE=
+               int4_ef`` from int8_ef: fresh copies, one encode_diff and a
+               decode_add a round, bitwise plain; (f) the swap on the
+               counters, the flight table, the JSONL, ``/fleet`` and
+               ``tools/autotune_report.py``; files under ``build/autotune``,
+               deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -356,8 +376,9 @@ exits non-zero before printing any result.
 
     python3 chip_smoke.py --phase health-relay
     python3 chip_smoke.py --phase federation-slo
+    python3 chip_smoke.py --phase autotune
 
-run phase 11d, or 11e, alone on the full-width ResNet50 (the wire kernels
+run phase 11d, 11e or 11f alone on the full-width ResNet50 (the wire kernels
 built first) and print no result line.
 
     python3 chip_smoke.py --planted-faults
@@ -526,6 +547,9 @@ PATH_KERNELS = {
     # ATC int8 steps
     "federation": ("encode", "decode_accumulate"),
     "slo canary": ("encode", "decode"),
+    # the topology controller's runs: ATC int8 before and after a swap and a
+    # rollback (B1, B2), and the swap onto int4_ef from int8_ef (B3, B4)
+    "autotune": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
 }
 
 
@@ -4476,6 +4500,641 @@ def phase_federation_slo(device, sm, images, labels, smi=""):
     return counts, {"a": a, "b": b, "c": c}
 
 
+AT_ROOT = "build/autotune"
+AT_DEGRADE = (2, 3, 0.05)  # the damaged Exp2(8) edge and its delivered share
+# the doctor's pinned probe model (stacked class, as tests/test_torch_doctor.py
+# pins it): alpha 2 ms, so a probe crossing the damaged edge sleeps
+# 19 x 2 ms = 38 ms more than its peers, whatever the host's load
+AT_DOCTOR_PIN = (2e-3, 1e12, 0.0)
+AT_TRIG = [{"kind": "degraded_link", "source": "doctor", "edge": [2, 3], "ratio": 20.0}]
+AT_WARMUP = 3  # (a) steps before the controller is fed: their median pins its clock
+AT_STEPS = 10  # (a) steps the controller observes
+AT_DRY_STEPS = 6  # (c) steps the dry-run controller observes, cooldown AT_DRY_COOLDOWN
+AT_DRY_COOLDOWN = 3
+AT_ON = {"BLUEFOG_AUTOTUNE": "1", "BLUEFOG_AUTOTUNE_INTERVAL": "1"}
+AT_OFF = {"BLUEFOG_AUTOTUNE": "0"}
+AT_STEPS10 = 11  # (b) the interval 10 against off: 1 + 10 steps
+AT_ROLLBACK_CLOCK = 5.0  # (d) the delivered step clock after the swap, x the baseline
+
+
+class at_timer:
+    """Milliseconds of one span: CUDA events on the card (read after a
+    synchronize), the host clock elsewhere."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.start, self.end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self):
+        if self.cuda:
+            self.end.record()
+        else:
+            self.t1 = time.perf_counter()
+        return self
+
+    def ms(self):
+        return self.start.elapsed_time(self.end) if self.cuda else 1e3 * (self.t1 - self.t0)
+
+
+def at_recorder(opt, device, width):
+    """Wrap ``opt._resolve_dispatch``: every full-width combine is timed, and
+    while ``rec["arm"]`` the next one is captured (its dispatch key, the plan
+    it ran, its input and CHOCO copies before, its output and copies after)."""
+    rec = {"arm": False, "captured": None, "timers": []}
+    resolve = opt._resolve_dispatch
+
+    def recording(ctx, p, comm_now):
+        d = resolve(ctx, p, comm_now)
+        combine, plan = d.combine, opt._last_plan
+
+        def recorded(*args):
+            if args[0].shape[-1] != width:
+                return combine(*args)
+            keep = rec["arm"] and rec["captured"] is None
+            if keep:
+                before = (args[0].clone(),
+                          tuple(s.clone() for s in args[1]) if len(args) > 1 else None)
+            timer = at_timer(device)
+            out = combine(*args)
+            rec["timers"].append(timer.stop())
+            if keep:
+                rec["captured"] = {
+                    "key": d.key, "plan": plan, "x": before[0], "state": before[1],
+                    "y": out.clone(),
+                    "state_after": tuple(s.clone() for s in args[1]) if len(args) > 1 else None}
+            return out
+
+        d.combine = recorded
+        return d
+
+    opt._resolve_dispatch = recording
+    return rec
+
+
+def at_plain_check(name, cap, wire):
+    """The captured combine through the plain versions on a CPU copy of its
+    input (and CHOCO copies), under the plan it ran: bitwise its output (and
+    copies). Returns the plan's round count."""
+    plan = cap["plan"]
+    chunks = cap["key"][3]
+    if chunks != 1:
+        raise AssertionError(f"autotune {name}: the combine ran in {chunks} chunks")
+    src, _self_w, recv_w = inner.plan_operands(plan, "cpu")
+    x = cap["x"].cpu()
+    if wire.endswith("_ef"):
+        state = tuple(s.cpu() for s in cap["state"])
+        want = inner.weighted_combine_quantized_ef_operands(x, state, src, recv_w,
+                                                            wire=wire[:-3], inplace=True)
+        pairs = [("output", cap["y"], want)] + [
+            (f"copy {i}", got, ref) for i, (got, ref) in enumerate(zip(cap["state_after"], state))]
+    else:
+        want = inner.weighted_combine_quantized_operands(x, src, recv_w, wire=wire, inplace=True)
+        pairs = [("output", cap["y"], want)]
+    for what, got, ref in pairs:
+        got = got.cpu()
+        if not torch.equal(bits(got), bits(ref)):
+            raise AssertionError(f"autotune {name}: the {wire} combine's {what} differs from the "
+                                 f"plain versions in {int((bits(got) != bits(ref)).sum())} "
+                                 f"elements")
+    return len(plan.perms)
+
+
+def at_plan_matches(name, plan, w):
+    """The plan a step ran carries exactly the installed matrix's edges."""
+    edges = {tuple(e) for r in plan.perms for e in r}
+    want = {(int(i), int(j)) for i, j in zip(*np.nonzero(w)) if i != j}
+    if edges != want:
+        raise AssertionError(f"autotune {name}: the step's plan edges {sorted(edges)} are not "
+                             f"the installed matrix's {sorted(want)}")
+
+
+def at_run(device, sm, images, labels, stats0, params0, wire, steps, env=None, fault=True,
+           tuner_kw=None, clock=None, triggers=None, warmup=1, after=0, capture_on="swap"):
+    """ATC ``sgd(0.1, 0.9)`` on ``wire`` over the weighted Exp2 graph through
+    ``opt.make_train_step(sm.worker_loss)`` from ``params0`` and ``stats0``,
+    under ``env`` (set before ``bft.init``), with ``BLUEFOG_METRICS=1`` at
+    interval 1000 (the wire-byte counter every step, the probe on step 0
+    only). ``fault``: an elastic session (``policy="average"``) injects
+    ``degrade`` on ``AT_DEGRADE`` at step 0, the step runs through its guard,
+    and the doctor probes at interval 1 on ``AT_DOCTOR_PIN``. ``tuner_kw``: a
+    ``TopologyAutotuner`` built after ``warmup`` steps and fed after each of
+    the next ``steps`` steps with the step clock ``clock(tuner, base)``
+    (``base``: the median warm-up step) and ``triggers`` (None: the live
+    advisories); then ``after`` more steps. The combine of the step after
+    the first ``capture_on`` decision is captured (:func:`at_recorder`).
+    Returns the run's record; the context stays up for the caller."""
+    from bluefog_tpu_torch import attribution, autotune
+    from bluefog_tpu_torch.collective import compiler
+
+    env = {"BLUEFOG_METRICS": "1", "BLUEFOG_METRICS_INTERVAL": "1000", **AT_OFF, **(env or {})}
+    with env_set({**OBSV_OFF, **env}):
+        bft.init(size=SIZE, device=device)
+        bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+        ctx = bft.get_context()
+        sm.load_buffers(stats0)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = wire
+        params = params0.clone()
+        state = opt.init(params)
+        session = None
+        if fault:
+            compiler.set_calibration(*AT_DOCTOR_PIN, source="chip_smoke",
+                                     link_class=compiler.TRANSPORT_LINK_CLASS)
+            session = bft.elastic.start(policy="average")
+            session.inject("degrade", rank=AT_DEGRADE[0], step=0, factor=AT_DEGRADE[2],
+                           peer=AT_DEGRADE[1])
+            attribution.start(interval=1)
+        rec = at_recorder(opt, device, sm.width)
+        step = (bft.elastic.guard(opt) if session else opt).make_train_step(sm.worker_loss)
+        workers = torch.arange(SIZE)
+        rows, tuner, seen, base, base_w = [], None, [], None, None
+        counts = {k: 0 for k in KERNEL_ROWS}
+        for i in range(warmup + steps + after):
+            if i == warmup and tuner_kw is not None:
+                base = statistics.median(r["step_s"] for r in rows)
+                tuner = autotune.TopologyAutotuner(**tuner_kw)
+                search = tuner._candidates
+
+                def recorded(c, o, factors, search=search):
+                    cands = search(c, o, factors)
+                    seen.append((dict(factors), cands))
+                    return cands
+
+                tuner._candidates = recorded
+                base_w = topo.mixing_matrix(bft.load_topology()).copy()
+            ef_before = None if opt._ef is None else tuple(
+                float(s.abs().max()) for grp in opt._ef for s in grp)
+            n_timers = len(rec["timers"])
+            before = launch_counts()
+            sync(device)
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, images, labels, workers)
+            sync(device)
+            step_s = time.perf_counter() - t0
+            after_c = launch_counts()
+            if not torch.isfinite(loss).all():
+                raise AssertionError(f"autotune: non-finite loss at step {i}")
+            launches = {k: after_c[k] - before[k] for k in KERNEL_ROWS}
+            for k in counts:
+                counts[k] += launches[k]
+            row = {"step_s": step_s, "launches": launches, "plan": opt._last_plan,
+                   "captured": rec["arm"] and rec["captured"] is not None,
+                   "combine_ms": sum(t.ms() for t in rec["timers"][n_timers:]),
+                   "topo_version": ctx.topo_version, "ef_before": ef_before,
+                   "swaps": None, "observe_ms": None, "record": None}
+            rows.append(row)
+            rec["arm"] = False
+            if tuner is not None and i < warmup + steps:
+                n_decisions = len(tuner.decisions)
+                t0 = time.perf_counter()
+                r = tuner.observe(ctx, step=i, optimizer=opt,
+                                  step_s=clock(tuner, base) if clock else base,
+                                  triggers=None if triggers is None else list(triggers))
+                row["observe_ms"] = 1e3 * (time.perf_counter() - t0)
+                row["record"] = r
+                # a rollback is recorded inside the sample, not returned
+                if rec["captured"] is None and any(
+                        d.action == capture_on for d in tuner.decisions[n_decisions:]):
+                    rec["arm"] = True
+                row["swaps"] = (tuner.swaps, tuner.rollbacks)
+        out = {"params": params, "state": state, "rows": rows, "tuner": tuner, "seen": seen,
+               "base_s": base, "base_w": base_w, "opt": opt, "captured": rec["captured"],
+               "counts": counts, "doctor": attribution.active(),
+               "stale": session.stale_dispatches if session else 0}
+        if fault:
+            bft.elastic.stop()
+            compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+    return out
+
+
+def at_replay(record, factors, cands):
+    """The decision on the host: the record's candidates scored again by
+    ``score_candidate`` from its factors and payload, each timed, and the
+    controller's rule (the best eligible candidate beating the incumbent by
+    ``MIN_GAIN_FRAC``) applied to them. Returns the scores, their ms and the
+    choice."""
+    from bluefog_tpu_torch import autotune
+
+    if record.blamed != [[s, d] for (s, d) in sorted(factors)]:
+        raise AssertionError(f"autotune (a): the record blames {record.blamed}, its factors "
+                             f"are {factors}")
+    payload = record.predicted["payload_bytes"]
+    scored, ms = [], []
+    for c in cands:
+        t0 = time.perf_counter()
+        scored.append(autotune.score_candidate(c, payload, factors))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    incumbent = next(s for s in scored if s["name"] == "current")
+    best = incumbent
+    for s in scored:
+        if s is incumbent or not s["eligible"]:
+            continue
+        if autotune._better(s["objective_s"], best["objective_s"],
+                            autotune.MIN_GAIN_FRAC if best is incumbent else 0.0):
+            best = s
+    return scored, ms, None if best is incumbent else best["name"]
+
+
+def at_closed_loop(device, sm, images, labels, stats0, params0, root):
+    """Parts (a) and (f), see :func:`phase_autotune`."""
+    from bluefog_tpu_torch import autotune, health
+
+    jsonl = os.path.join(root, "decisions.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    metric_names = ("bluefog.autotune.decisions", "bluefog.autotune.action.swap")
+    metrics0 = [metrics.counter(n).value for n in metric_names]
+    run = at_run(device, sm, images, labels, stats0, params0, "int8", AT_STEPS,
+                 env={"BLUEFOG_HEALTH": "1", "BLUEFOG_AUTOTUNE_FILE": jsonl},
+                 tuner_kw={"interval": 1, "cooldown": 8}, warmup=AT_WARMUP, after=1)
+    tuner, rows, doc = run["tuner"], run["rows"], run["doctor"]
+    rank, peer, _factor = AT_DEGRADE
+    # the doctor names the damaged edge at every step it blames one (a loaded
+    # host can add a noisy edge beside it; those are reported)
+    linked = [a for a in doc.advisories if a.kind == "degraded_link"]
+    by_step = {}
+    for adv in linked:
+        by_step.setdefault(adv.step, []).append(adv.detail["edge"])
+    if not linked or any([rank, peer] not in edges for edges in by_step.values()):
+        raise AssertionError(f"autotune (a): degraded_link advisories "
+                             f"{[a.to_json() for a in linked]}")
+    others = sorted({tuple(e) for edges in by_step.values() for e in edges} - {(rank, peer)})
+    swaps = [d for d in tuner.decisions if d.action == "swap"]
+    if tuner.swaps != 1 or len(swaps) != 1 or tuner.rollbacks != 0 or \
+            not any(t.get("edge") == [rank, peer] for t in swaps[0].triggers):
+        raise AssertionError(f"autotune (a): decisions "
+                             f"{[(d.action, d.chosen, d.triggers) for d in tuner.decisions]}, "
+                             f"{tuner.swaps} swaps, {tuner.rollbacks} rollbacks")
+    swap = swaps[0]
+    w = topo.mixing_matrix(bft.load_topology())
+    if not w[rank, peer] < run["base_w"][rank, peer] or \
+            not swap.topo_version_after > swap.topo_version_before:
+        raise AssertionError(f"autotune (a): w[{rank}, {peer}] {w[rank, peer]} after the swap, "
+                             f"{run['base_w'][rank, peer]} before; versions "
+                             f"{swap.topo_version_before} -> {swap.topo_version_after}")
+    if run["stale"] != 0 or not torch.isfinite(run["params"]).all():
+        raise AssertionError(f"autotune (a): {run['stale']} stale dispatches, finite parameters "
+                             f"{bool(torch.isfinite(run['params']).all())}")
+    # the first step after the swap: its plan is the installed matrix's, its
+    # combine bitwise the plain versions, its launches one encode and one
+    # decode_accumulate (in place over every round of the new plan)
+    i_swap = next(i for i, r in enumerate(rows) if r["record"] is swap)
+    post = rows[i_swap + 1] if i_swap + 1 < len(rows) else {}
+    cap = run["captured"]
+    if cap is None or not post.get("captured"):
+        raise AssertionError("autotune (a): the step after the swap was not captured")
+    at_plan_matches("(a)", post["plan"], w)
+    t0 = time.perf_counter()
+    rounds = at_plain_check("(a)", cap, "int8")
+    plain_s = time.perf_counter() - t0
+    if cap["plan"] is not post["plan"]:
+        raise AssertionError("autotune (a): the captured combine ran another plan")
+    want = {k: 0 for k in KERNEL_ROWS}
+    want.update(encode=1, decode_accumulate=1)
+    if device.type == "cuda" and post["launches"] != want:  # no launch on the CPU
+        raise AssertionError(f"autotune (a): the step after the swap launched "
+                             f"{post['launches']}, expected {want} ({rounds} rounds)")
+    # the decision replayed on the host
+    factors, cands = run["seen"][swap.seq]
+    scored, score_ms, chosen = at_replay(swap, factors, cands)
+    if scored != swap.candidates or chosen != swap.chosen:
+        raise AssertionError(f"autotune (a): the host replay chose {chosen} with "
+                             f"{[(s['name'], s['objective_s']) for s in scored]}, the record "
+                             f"{swap.chosen} with "
+                             f"{[(s['name'], s['objective_s']) for s in swap.candidates]}")
+    # (f) every surface carries the swap
+    autotune.activate(tuner)
+    plane = health.active()
+    srv = health.serve(0, host="127.0.0.1")
+    status, body = hr_get(f"http://127.0.0.1:{srv.port}/fleet")
+    srv.close()
+    fleet = json.loads(body)
+    dump = flight._build_dump("autotune")
+    lines = [json.loads(line) for line in open(jsonl)]
+    counted = [metrics.counter(n).value - v0 for n, v0 in zip(metric_names, metrics0)]
+    dump_path = os.path.join(root, "autotune_dump.json")
+    autotune.dump(dump_path)
+    report = subprocess.run([sys.executable, "tools/autotune_report.py", dump_path],
+                            capture_output=True, text=True, timeout=120,
+                            env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    autotune.stop()
+    health.stop()
+    written = [r for r in lines if r.get("kind") == "decision" and r.get("action") == "swap"]
+    if plane is None or status != 200 or fleet.get("autotune", {}).get("swaps") != 1 or \
+            counted[0] != len(tuner.decisions) or counted[1] != 1 or \
+            not any(d.get("action") == "swap" for d in dump["autotune_decisions"]) or \
+            len(written) != 1 or written[0]["chosen"] != swap.chosen or \
+            report.returncode != 0 or "decision #0" not in report.stdout:
+        raise AssertionError(f"autotune (f): /fleet {status} {fleet.get('autotune')}, counters "
+                             f"{counted}, flight {dump['autotune_decisions']}, JSONL swaps "
+                             f"{written}, tools/autotune_report.py rc {report.returncode}: "
+                             f"{report.stdout[-500:]} {report.stderr[-1000:]}")
+    pre = rows[:i_swap + 1]
+    return {"swap": swap, "chosen": swap.chosen, "rounds": rounds,
+            "incumbent_rounds": len(rows[0]["plan"].perms),
+            "gain": swap.predicted.get("gain_frac"), "predicted": swap.predicted,
+            "pinned_ms": 1e3 * run["base_s"],
+            "warmup_ms": [round(1e3 * r["step_s"], 1) for r in rows[:AT_WARMUP]],
+            "steps_ms": [round(1e3 * r["step_s"], 1) for r in rows[AT_WARMUP:]],
+            "combine_before_ms": statistics.median(r["combine_ms"] for r in pre[1:]),
+            "combine_after_ms": statistics.median(r["combine_ms"] for r in rows[i_swap + 1:]),
+            "observe_ms": rows[i_swap]["observe_ms"],
+            "observe_quiet_ms": statistics.median(
+                r["observe_ms"] for r in rows if r["observe_ms"] is not None
+                and r["record"] is None),
+            "score_ms": dict(zip((c["name"] for c in cands), score_ms)),
+            "advisories": len(linked), "others": others,
+            "decisions": [d.action for d in tuner.decisions],
+            "plain_s": plain_s, "counts": run["counts"],
+            "swap_step": i_swap, "n_cands": len(cands),
+            "step_launches": [(r["launches"]["encode"], r["launches"]["decode_accumulate"])
+                              for r in rows]}
+
+
+def at_off_is_on(device, sm, images, labels, stats0, params0):
+    """Part (b), see :func:`phase_autotune`."""
+    from bluefog_tpu_torch import autotune
+
+    counts = {k: 0 for k in KERNEL_ROWS}
+    off = hr_steps(device, sm, images, labels, stats0, params0, "int8", AT_OFF, AT_STEPS10,
+                   fused=True, snap_at=3)
+    off_keys = set(bft.get_context().op_cache)
+    reset_launch_counts()
+    on = hr_steps(device, sm, images, labels, stats0, params0, "int8", AT_ON, 3, fused=True)
+    for k, v in launch_counts().items():
+        if k in counts:
+            counts[k] += v
+    tuner = autotune.active()
+    on_keys = set(bft.get_context().op_cache)
+    if not (torch.equal(bits(on["params"]), bits(off["snap"][0]))
+            and torch.equal(bits(on["state"]), bits(off["snap"][1]))):
+        raise AssertionError("autotune (b): three steps with the controller on differ from "
+                             "three with it off")
+    if tuner is None or tuner.interval != 1 or len(tuner.samples) != 3 or tuner.decisions or \
+            on_keys != off_keys:
+        raise AssertionError(f"autotune (b): controller {tuner and tuner.summary()}, op-cache "
+                             f"keys added {on_keys - off_keys}")
+    reset_launch_counts()
+    on10 = hr_steps(device, sm, images, labels, stats0, params0, "int8",
+                    {"BLUEFOG_AUTOTUNE": "1", "BLUEFOG_AUTOTUNE_INTERVAL": "10"}, AT_STEPS10,
+                    fused=True)
+    for k, v in launch_counts().items():
+        if k in counts:
+            counts[k] += v
+    tuner10 = autotune.active()
+    fs_same("autotune (b) interval 10", on10, off)
+    if tuner10 is None or len(tuner10.samples) != 2 or tuner10.decisions:
+        raise AssertionError(f"autotune (b): interval 10 controller "
+                             f"{tuner10 and tuner10.summary()}")
+    autotune.stop()
+    off_ms = 1e3 * statistics.mean(r["step_s"] for r in off["rows"][1:])
+    on_ms = 1e3 * statistics.mean(r["step_s"] for r in on10["rows"][1:])
+    return {"off_ms": off_ms, "on_ms": on_ms, "share": on_ms / off_ms - 1.0,
+            "steps_ms": {k: [round(1e3 * r["step_s"], 1) for r in run["rows"][1:]]
+                         for k, run in (("on", on10), ("off", off))}}, counts
+
+
+def at_dry_run(device, sm, images, labels, stats0, params0):
+    """Part (c), see :func:`phase_autotune`."""
+    twin = at_run(device, sm, images, labels, stats0, params0, "int8", AT_DRY_STEPS)
+    with env_set({"BLUEFOG_AUTOTUNE_DRY_RUN": "1"}):
+        run = at_run(device, sm, images, labels, stats0, params0, "int8", AT_DRY_STEPS,
+                     tuner_kw={"interval": 1, "cooldown": AT_DRY_COOLDOWN})
+    tuner = run["tuner"]
+    acts = [d.action for d in tuner.decisions]
+    marks = [d.comm_steps for d in tuner.decisions]
+    versions = {r["topo_version"] for r in run["rows"]}
+    if not tuner.dry_run or len(acts) < 2 or any(a != "dry_run_swap" for a in acts) or \
+            any(b - a != AT_DRY_COOLDOWN for a, b in zip(marks, marks[1:])) or \
+            tuner.swaps != 0 or len(versions) != 1 or \
+            any(d.topo_version_after != d.topo_version_before for d in tuner.decisions):
+        raise AssertionError(f"autotune (c): decisions {acts} at comm steps {marks}, "
+                             f"{tuner.swaps} swaps, versions {versions}")
+    obsv_bitwise("autotune (c) dry run", twin, run)
+    return {"decisions": acts, "marks": marks, "chosen": tuner.decisions[0].chosen}, run["counts"]
+
+
+def at_rollback(device, sm, images, labels, stats0, params0):
+    """Part (d), see :func:`phase_autotune`."""
+    def clock(tuner, base):
+        return base if tuner.swaps == 0 else AT_ROLLBACK_CLOCK * base
+
+    run = at_run(device, sm, images, labels, stats0, params0, "int8", 6, fault=False,
+                 tuner_kw={"interval": 1, "cooldown": 4}, clock=clock, triggers=AT_TRIG,
+                 capture_on="rollback")
+    tuner, rows = run["tuner"], run["rows"]
+    swaps = [d for d in tuner.decisions if d.action == "swap"]
+    rbs = [d for d in tuner.decisions if d.action == "rollback"]
+    w = topo.mixing_matrix(bft.load_topology())
+    if tuner.rollbacks != 1 or len(rbs) != 1 or len(swaps) != 1 or \
+            not rbs[0].topo_version_after > rbs[0].topo_version_before or \
+            swaps[0].chosen not in tuner._blocked or \
+            not tuner.verifications or tuner.verifications[0]["verdict"] != "regressed" or \
+            not np.array_equal(w.view(np.uint64), run["base_w"].view(np.uint64)):
+        raise AssertionError(f"autotune (d): decisions "
+                             f"{[(d.action, d.chosen) for d in tuner.decisions]}, blocked "
+                             f"{tuner._blocked}, verifications {tuner.verifications}, matrix "
+                             f"restored {np.array_equal(w, run['base_w'])}")
+    post = next((r for r in rows if r["captured"]), None)
+    if post is None:
+        raise AssertionError("autotune (d): the step after the rollback was not captured")
+    at_plan_matches("(d)", post["plan"], w)
+    rounds = at_plain_check("(d)", run["captured"], "int8")
+    want = {k: 0 for k in KERNEL_ROWS}
+    want.update(encode=1, decode_accumulate=1)
+    if device.type == "cuda" and post["launches"] != want:
+        raise AssertionError(f"autotune (d): the step after the rollback launched "
+                             f"{post['launches']}, expected {want}")
+    return {"chosen": swaps[0].chosen, "rounds": rounds,
+            "delivered": tuner.verifications[0]["delivered"],
+            "decisions": [d.action for d in tuner.decisions]}, run["counts"]
+
+
+def at_wire(device, sm, images, labels, stats0, params0):
+    """Part (e), see :func:`phase_autotune`."""
+    with env_set({"BLUEFOG_AUTOTUNE_WIRE": "int4_ef"}):
+        run = at_run(device, sm, images, labels, stats0, params0, "int8_ef", 2, fault=False,
+                     tuner_kw={"interval": 1, "cooldown": 4}, triggers=AT_TRIG, after=1)
+    tuner, rows, opt = run["tuner"], run["rows"], run["opt"]
+    swaps = [d for d in tuner.decisions if d.action == "swap"]
+    if len(swaps) != 1:
+        raise AssertionError(f"autotune (e): decisions "
+                             f"{[(d.action, d.chosen) for d in tuner.decisions]}")
+    chosen, post = swaps[0].chosen, next((r for r in rows if r["captured"]), None)
+    if post is None:
+        raise AssertionError("autotune (e): the step after the swap was not captured")
+    out = {"chosen": chosen, "wire": opt.compression, "rounds": len(post["plan"].perms)}
+    if opt.compression == "int4_ef" and opt.schedule is None:
+        cap = run["captured"]
+        if post["ef_before"] is None or not all(v > 0 for v in post["ef_before"]) or \
+                any(bool(s.any()) for s in cap["state"]) or opt._ef_sig[2] != "int4_ef":
+            raise AssertionError(f"autotune (e): the int8_ef copies before the swap "
+                                 f"(abs max {post['ef_before']}) or the int4_ef copies the "
+                                 f"step started from are not fresh")
+        at_plan_matches("(e)", post["plan"], topo.mixing_matrix(bft.load_topology()))
+        at_plain_check("(e)", cap, "int4_ef")
+        want = {k: 0 for k in KERNEL_ROWS}
+        want.update(encode_diff=1, decode_add=out["rounds"])
+        if device.type == "cuda" and post["launches"] != want:
+            raise AssertionError(f"autotune (e): the step after the swap launched "
+                                 f"{post['launches']}, expected {want}")
+    return out, run["counts"]
+
+
+def phase_autotune(device, sm, images, labels, root=AT_ROOT, smi=""):
+    """Phase 11f on the ResNet50 of the train-step phase (8 workers, 64
+    images of 224 x 224 each, ``sgd(0.1, 0.9)``, bf16 compute), ATC over the
+    weighted Exp2(8) graph through ``opt.make_train_step(sm.worker_loss)``,
+    cuDNN deterministic, ``BLUEFOG_METRICS=1`` at interval 1000 (so the
+    controller's payload is the measured int8 bytes, and the probe runs on
+    step 0 only). Returns ``(launch counts of the controller-on runs,
+    numbers)``; each run's counts are zeroed just before it and read just
+    after; the twins and the plain versions on the CPU are not counted.
+
+    (a) The closed loop: an elastic session (``policy="average"``) injects
+    ``degrade`` on the edge 2 -> 3 at 0.05 from step 0; the doctor probes at
+    interval 1 on a pinned model (``AT_DOCTOR_PIN``); after 3 warm-up steps
+    a ``TopologyAutotuner(interval=1, cooldown=8)`` is fed after each of 10
+    steps with the step clock pinned to the warm-up median (the host moves a
+    step by more than ``ROLLBACK_FRAC``) and the live advisories; then one
+    more step. Gates: every ``degraded_link`` names [2, 3]; exactly one
+    ``swap``, no rollback, its triggers name [2, 3], its version after above
+    before; the installed ``w[2, 3]`` below its value before; zero stale
+    dispatches, finite parameters; the first step after the swap runs the
+    plan of the installed matrix (its edges), launches one ``encode`` and one
+    ``decode_accumulate`` (in place over all the new plan's rounds, the
+    payload being whole 512-blocks) and nothing else, and its combine is
+    bitwise the same combine through the plain versions on a CPU copy of
+    its input; the swap's candidates scored again on the host by
+    ``score_candidate`` from its factors (whose edges are its ``blamed``) and
+    its payload equal its record, names and objectives, and the controller's
+    rule picks its choice. Reported: the pinned and measured step ms, the
+    chosen candidate and its rounds against the incumbent's, the predicted
+    ``gain_frac``, the host ms of the deciding sample, of a quiet one and of
+    scoring each candidate, the combine ms (CUDA events) before and after.
+
+    (b) Off is on: ``BLUEFOG_AUTOTUNE=1`` at interval 1 (set before
+    ``bft.init``; the hook in ``make_train_step`` feeds it), no fault: three
+    steps bitwise three with the controller off, no ``op_cache`` entry
+    added, three samples and no decision; at interval 10, 1 + 10 steps
+    bitwise off with two samples; the mean step on against off reported.
+
+    (c) Dry run: ``BLUEFOG_AUTOTUNE_DRY_RUN=1`` with (a)'s fault and doctor,
+    cooldown 3, 1 + 6 steps: only ``dry_run_swap`` decisions, at least two,
+    spaced by the cooldown; no migration, the topology version unmoved; the
+    parameters and momentum bitwise the same run without the controller.
+
+    (d) Rollback, on the scripted trigger ``AT_TRIG`` (no session: a
+    rollback through ``ctx.set_topology`` restores the pre-swap matrix
+    itself; under an ``average`` session it would install that matrix's
+    symmetrized repair): after the swap the controller's clock reads 5x the
+    baseline. Gates: one rollback with a ``regressed`` verification under a
+    fresh topology version; the installed matrix bitwise the weighted Exp2
+    it replaced; the regressed candidate blocklisted; the next step runs the
+    restored plan, one ``encode`` and one ``decode_accumulate``, its combine
+    bitwise the plain versions.
+
+    (e) Wire crossing, ``BLUEFOG_AUTOTUNE_WIRE=int4_ef`` from ATC int8_ef on
+    ``AT_TRIG``: the chosen candidate and its wire reported; where the wire
+    is ``int4_ef`` the step after the swap starts from zeroed CHOCO copies
+    (the int8_ef ones before it were not), launches one ``encode_diff`` and
+    a ``decode_add`` a round and nothing else, and its output and copies are
+    bitwise the plain versions'.
+
+    (f) Audit, on (a)'s run (``BLUEFOG_HEALTH=1`` at its default interval,
+    ``BLUEFOG_AUTOTUNE_FILE``): the swap is on ``bluefog.autotune.decisions``
+    (one a decision) and ``bluefog.autotune.action.swap`` (one), in the
+    flight dump's ``autotune_decisions``, in the JSONL with its choice and
+    in ``/fleet``'s ``autotune`` block (served on 127.0.0.1);
+    ``tools/autotune_report.py`` on the dump exits 0 and prints
+    ``decision #0``."""
+    os.makedirs(root, exist_ok=True)
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    params0 = sm.replicate()
+    counts = {k: 0 for k in KERNEL_ROWS}
+
+    def add(part):
+        for k in counts:
+            counts[k] += part[k]
+
+    parts_s, parts_n = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        a = at_closed_loop(device, sm, images, labels, stats0, params0, root)
+        add(a["counts"])
+        parts_n["a+f"] = a["counts"]
+        parts_s["a+f"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b, part = at_off_is_on(device, sm, images, labels, stats0, params0)
+        add(part)
+        parts_n["b"] = part
+        parts_s["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c, part = at_dry_run(device, sm, images, labels, stats0, params0)
+        add(part)
+        parts_n["c"] = part
+        parts_s["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d, part = at_rollback(device, sm, images, labels, stats0, params0)
+        add(part)
+        parts_n["d"] = part
+        parts_s["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        e, part = at_wire(device, sm, images, labels, stats0, params0)
+        add(part)
+        parts_n["e"] = part
+        parts_s["e"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        sm.load_buffers(stats0)
+        bft.elastic.stop()
+        from bluefog_tpu_torch import autotune
+
+        autotune.stop()
+        bft.init(size=SIZE, device=device)
+        for name in ("decisions.jsonl", "autotune_dump.json"):
+            if os.path.exists(os.path.join(root, name)):
+                os.remove(os.path.join(root, name))
+    log("autotune", f"(a) degrade {AT_DEGRADE}: {a['advisories']} degraded_link advisories on "
+                    f"[2, 3] (other edges named: {a['others']}); decisions {a['decisions']} (swap after step {a['swap_step']}): "
+                    f"{a['chosen']}, {a['rounds']} rounds against the incumbent's "
+                    f"{a['incumbent_rounds']}, predicted gain_frac {a['gain']} "
+                    f"({a['predicted']}); step clock pinned at {a['pinned_ms']:.1f} ms "
+                    f"(warm-up {a['warmup_ms']}, observed steps {a['steps_ms']}); combine "
+                    f"{a['combine_before_ms']:.2f} ms before, {a['combine_after_ms']:.2f} after "
+                    f"(CUDA events); host ms: deciding sample {a['observe_ms']:.2f}, a quiet "
+                    f"sample {a['observe_quiet_ms']:.3f}, scoring {a['n_cands']} candidates "
+                    f"{ {k: round(v, 3) for k, v in a['score_ms'].items()} }; gates met: one "
+                    f"swap, none rolled back, w[2, 3] down, 0 stale, post-swap combine bitwise "
+                    f"plain (CPU {a['plain_s']:.1f} s), 1 encode + 1 decode_accumulate, host "
+                    f"replay = record; on {smi}")
+    log("autotune", f"(b) controller at interval 1 bitwise off, no op-cache key, 3 samples, 0 "
+                    f"decisions; interval 10: mean step {b['on_ms']:.1f} ms on, "
+                    f"{b['off_ms']:.1f} off ({100 * b['share']:+.2f}%, reported; steps ms "
+                    f"{b['steps_ms']}); on {smi}")
+    log("autotune", f"(c) dry run: {c['decisions']} at comm steps {c['marks']} (chosen "
+                    f"{c['chosen']}), 0 migrations, bitwise off")
+    log("autotune", f"(d) rollback: swap to {d['chosen']}, delivered {d['delivered']}, "
+                    f"decisions {d['decisions']}; Exp2 restored bitwise, blocklisted, next "
+                    f"step ({d['rounds']} rounds) bitwise plain")
+    log("autotune", f"(e) BLUEFOG_AUTOTUNE_WIRE=int4_ef from int8_ef: chosen {e['chosen']}, "
+                    f"wire {e['wire']}, {e['rounds']} rounds"
+                    + ("; fresh copies, 1 encode_diff + a decode_add a round, bitwise plain"
+                       if e["wire"] == "int4_ef" else ""))
+    log("autotune", f"(f) the swap on the counters, the flight table, the JSONL, /fleet and "
+                    f"tools/autotune_report.py; parts "
+                    f"{ {k: round(v, 1) for k, v in parts_s.items()} } s; launches {counts}, by "
+                    f"part { {p: {k: v for k, v in n.items() if v} for p, n in parts_n.items()} }"
+                    f"; (a) B1/B2 a step {a['step_launches']}")
+    return counts, {"a": a, "b": b, "c": c, "d": d, "e": e, "parts_s": parts_s}
+
+
 def lm_flops_per_step(sm, seq, batch):
     """bench.py's model FLOPs of one step of every worker: per token
     ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
@@ -5420,6 +6079,26 @@ def run_federation_slo_alone():
     return 0
 
 
+def run_autotune_alone():
+    """``python3 chip_smoke.py --phase autotune``: phase 11f alone on the
+    full-width ResNet50 (the wire kernels built first); its gates as in the
+    whole run, its lines and its launch counts. Prints no result line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    bft.init(size=SIZE)
+    sm, images, labels = build_trainer(device)
+    t0 = time.perf_counter()
+    counts, _numbers = phase_autotune(device, sm, images, labels, smi=smi)
+    missing = [k for k in PATH_KERNELS["autotune"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the autotune path launched no {missing} kernel: {counts}")
+    log("autotune", f"phase in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -5432,6 +6111,8 @@ def main():
         return run_health_relay_alone()
     if sys.argv[1:] == ["--phase", "federation-slo"]:
         return run_federation_slo_alone()
+    if sys.argv[1:] == ["--phase", "autotune"]:
+        return run_autotune_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -5506,6 +6187,10 @@ def main():
     fs_counts, _fs = phase_federation_slo(device, sm, images, labels, smi=smi)
     counts.update(fs_counts)
     log("federation-slo", f"phase in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts["autotune"], _at = phase_autotune(device, sm, images, labels, smi=smi)
+    log("autotune", f"phase in {time.perf_counter() - t0:.1f} s")
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))

@@ -415,6 +415,18 @@ def test_active_engine_registry_and_shutdown():
     assert async_gossip.active() is None
 
 
+def test_autotune_decision_records_carry_async_mode():
+    """JAX's test of the same name: a live engine flags the controller's
+    decision records, on the port as on JAX."""
+    from bluefog_tpu.autotune import _async_mode as j_async_mode
+    from bluefog_tpu_torch.autotune import _async_mode
+
+    assert _async_mode() is False and j_async_mode() is False
+    z0 = np.random.RandomState(0).randn(SIZE, DIM).astype(np.float32)
+    pair(lr=0.0, z0=z0)
+    assert _async_mode() is True and j_async_mode() is True
+
+
 def test_rewindow_keeps_the_estimate():
     """A topology whose in-edges the window's slots cannot carry re-creates
     the window from the estimate ``x / p`` with ``p = 1``."""

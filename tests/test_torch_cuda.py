@@ -1181,3 +1181,53 @@ def test_slo_canary_on_the_card_equals_the_host_replay(cuda, wire):
     finally:
         bft.shutdown()
     assert verdicts["cuda"]["ok"] and verdicts["cuda"] == verdicts["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire,tiers", [("int8", ""), ("int8", "int4_ef")],
+                         ids=["int8", "to-int4_ef"])
+def test_combine_after_a_controller_swap_is_bitwise_plain(cuda, wire, tiers, monkeypatch):
+    """A persistent degraded-link trigger makes the topology controller
+    migrate the ATC run off the ring (with ``BLUEFOG_AUTOTUNE_WIRE=int4_ef``
+    onto a candidate carrying ``int4_ef``); the step after the swap on the
+    card equals the same steps on the CPU's plain versions bit for bit, and
+    launches what the new plan implies: int8 one ``encode`` and one
+    ``decode_accumulate`` (in place, whole blocks), int4_ef one
+    ``encode_diff`` and a ``decode_add`` a round."""
+    from bluefog_tpu_torch import autotune
+
+    monkeypatch.setenv("BLUEFOG_AUTOTUNE_WIRE", tiers)
+    trig = [{"kind": "degraded_link", "source": "doctor", "edge": [2, 3], "ratio": 20.0}]
+    x = kernels.pad_blocks(ragged_input(cuda, seed=13)).contiguous()
+    g = kernels.pad_blocks(ragged_input(cuda, seed=14)).contiguous()
+    out, chosen, launches = {}, {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            bft.init(device=dev, topology_fn=topo.RingGraph)
+            opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+            opt.compression = wire
+            params = {"w": x.to(dev).clone()}
+            state = opt.init(params)
+            opt.step(params, state, {"w": g.to(dev)})
+            tuner = autotune.TopologyAutotuner(interval=1, cooldown=4)
+            for t in range(2):
+                tuner.observe(bft.get_context(), step=t, optimizer=opt, step_s=0.01,
+                              triggers=trig)
+            assert tuner.swaps == 1
+            chosen[dev] = (tuner.decisions[-1].chosen, opt.compression)
+            before = kernels.launch_counts()
+            opt.step(params, state, {"w": g.to(dev)})
+            after = kernels.launch_counts()
+            launches[dev] = {k: after[k] - before[k] for k in after}
+            out[dev] = params["w"].cpu()
+            rounds = len(bft.get_context().static_plan().rounds)
+    finally:
+        bft.shutdown()
+    assert chosen["cuda"] == chosen["cpu"]
+    if tiers:
+        assert chosen["cuda"][1] == "int4_ef"
+        assert launches["cuda"]["encode_diff"] == 1
+        assert launches["cuda"]["decode_add"] == rounds
+    else:
+        assert launches["cuda"]["encode"] == 1 and launches["cuda"]["decode_accumulate"] == 1
+    assert torch.equal(_bits(out["cuda"]), _bits(out["cpu"]))

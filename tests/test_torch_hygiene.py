@@ -50,7 +50,8 @@ def test_port_sources_exist():
             "torch_mnist.py", "torch_long_context.py", "torch_checkpoint_resume.py",
             "torch_benchmark.py", "faults.py", "membership.py", "repair.py",
             "recovery.py", "staleness.py", "memory.py", "spectral.py", "placement.py",
-            "health.py", "fleetsim.py", "federation.py", "slo.py", "wire_ref.py"} <= names
+            "health.py", "fleetsim.py", "federation.py", "slo.py", "wire_ref.py",
+            "autotune.py"} <= names
     for source in ("__init__.py", "faults.py", "membership.py", "repair.py", "recovery.py"):
         assert (ROOT / "bluefog_tpu_torch" / "elastic" / source).is_file()
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
@@ -143,12 +144,12 @@ def test_observatory_exports_have_the_jax_names(module):
             assert hasattr(port, extra), extra
 
 
-@pytest.mark.parametrize("module", ["fleetsim", "federation", "slo"])
+@pytest.mark.parametrize("module", ["fleetsim", "federation", "slo", "autotune"])
 def test_fleet_exports_have_the_jax_names(module):
-    """``bft.fleetsim``, ``bft.federation`` and ``bft.slo`` export the JAX
-    modules' public names (their ``__all__``; ``slo.py`` has none, so its
-    public top-level names), with the signatures of their module functions
-    (compared as source text: the JAX package is not imported)."""
+    """``bft.fleetsim``, ``bft.federation``, ``bft.slo`` and ``bft.autotune``
+    export the JAX modules' public names (their ``__all__``; ``slo.py`` has
+    none, so its public top-level names), with the signatures of their module
+    functions (compared as source text: the JAX package is not imported)."""
     import inspect
 
     src = (ROOT / "bluefog_tpu" / f"{module}.py").read_text()

@@ -1,8 +1,7 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
 """The port's memory observatory (``bft.memory``) against the JAX package's
-``bf.memory``, mirroring ``tests/test_memory.py`` (less the autotune flag,
-which waits for ``autotune.py``; the health plane's fleet slots are held
-in ``tests/test_torch_health.py``).
+``bf.memory``, mirroring ``tests/test_memory.py`` (the health plane's fleet
+slots are held in ``tests/test_torch_health.py``).
 
 Tolerances. Bytes are integers: the census's owner categories, the
 analytic and measured optimizer-state bytes and the reconciliation are held
@@ -221,6 +220,29 @@ def test_pressure_with_the_shard_hint_and_its_cooldowns():
     assert len([a for a in obs.advisories if a.kind == "memory_pressure"]) == 2
     assert memory.ADVISORY_COOLDOWN == jmemory.ADVISORY_COOLDOWN
     assert memory.WATERMARK_MADS == jmemory.WATERMARK_MADS
+
+
+def test_autotune_decision_records_carry_memory_pressure():
+    """JAX's test of the same name: the controller's flag is 'an
+    un-cooled-down advisory right now', true inside the re-fire window and
+    false once it expires, on the port as on JAX."""
+    from bluefog_tpu import autotune as jautotune
+    from bluefog_tpu_torch import autotune
+
+    flags = {}
+    for side, mem, at in (("port", memory, autotune), ("jax", jmemory, jautotune)):
+        obs = mem.start(interval=1)
+        seen = [at._memory_pressure()]
+        obs.budget = 1
+        opt, params, state, grads = _adam(side=side)
+        params, state = opt.step(params, state, grads)
+        seen.append(at._memory_pressure())
+        obs.budget = 1 << 40  # relieved; let the cooldown run out
+        for _ in range(mem.ADVISORY_COOLDOWN + 1):
+            params, state = opt.step(params, state, grads)
+        seen.append(at._memory_pressure())
+        flags[side] = seen
+    assert flags["port"] == flags["jax"] == [False, True, False]
 
 
 def test_pressure_shard_hint_off_under_zero(monkeypatch):

@@ -10,9 +10,8 @@ composite quantizer): the verdicts, deviations included, are equal. The
 port's numpy wire oracle (``collective/wire_ref.py``, its bf16 snap without
 ``ml_dtypes``) is held bitwise to JAX's: random blocks, an all-zero block,
 ties at the bf16 rounding boundary and a subnormal absmax. The per-leg
-federation rates are within 1e-12 of JAX's. JAX's
-``test_autotune_decision_record_carries_slo_burn`` waits for the port of
-``autotune.py``.
+federation rates are within 1e-12 of JAX's. The topology controller's
+``slo_burn`` flag is held equal to JAX's on the same exhausted budget.
 """
 
 import json
@@ -314,6 +313,29 @@ def test_flight_reconfigure_clears_slo_side_table():
 def _exhaust(eng):
     for t in range(40):
         eng.observe(None, step=t, values={"avail": 0.0})
+
+
+def test_autotune_decision_record_carries_slo_burn():
+    """JAX's test of the same name: the controller's decision records
+    carry the worst fast-window burn, 0.0 with the engine off; equal to
+    JAX's on the same spent budget."""
+    from bluefog_tpu import autotune as jautotune
+    from bluefog_tpu_torch import autotune
+
+    assert autotune._slo_burn() == 0.0 == jautotune._slo_burn()
+    engines = (slo.start(interval=1, objectives=[_objective()], canary=False),
+               jslo.start(interval=1, objectives=[_objective(jslo)], canary=False))
+    for eng in engines:
+        _exhaust(eng)
+    assert autotune._slo_burn() == pytest.approx(10.0)
+    assert autotune._slo_burn() == jautotune._slo_burn()
+    recs = [mod.DecisionRecord(seq=0, step=1, comm_steps=1, action="hold", triggers=[], blamed=[],
+                               candidates=[], chosen=None, predicted={}, hysteresis={},
+                               topo_version_before=0, topo_version_after=0, dry_run=False,
+                               slo_burn=mod._slo_burn())
+            for mod in (autotune, jautotune)]
+    assert recs[0].to_json() == recs[1].to_json()
+    assert recs[0].to_json()["slo_burn"] == pytest.approx(10.0)
 
 
 def test_budget_exhaustion_escalates_healthz_to_critical():
