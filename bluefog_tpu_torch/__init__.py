@@ -2,7 +2,11 @@
 """bluefog_tpu_torch — the PyTorch/CUDA port of bluefog_tpu.
 
 N virtual workers live on one GPU as the leading axis of ``[N, ...]``
-tensors; a gossip round is a gather along that axis. The facade mirrors
+tensors; a gossip round is a gather along that axis. Several processes
+(started by ``bfrun-torch``, :mod:`bluefog_tpu_torch.run`) each hold a
+contiguous range of those rows, and a round reaches the other processes'
+rows through ``torch.distributed`` point-to-point messages
+(:mod:`bluefog_tpu_torch.collective.transport`). The facade mirrors
 ``bluefog_tpu``'s names for the ported slice: ``init`` with the machines x
 local split, the rank and topology queries (machine level included), the
 collectives (``allreduce``, ``allgather``, ``broadcast``,
@@ -175,13 +179,19 @@ def machine_size() -> int:
 
 
 def rank() -> int:
-    """The controlling process's index: 0, one process drives every
-    worker."""
-    return 0
+    """The controlling process's index (the JAX ``jax.process_index()``):
+    0 with one process, which drives every worker (before :func:`init`,
+    the ``torch.distributed`` rank when a group is up)."""
+    from bluefog_tpu_torch import context as ctx_mod
+
+    if ctx_mod.is_initialized():
+        return get_context().process_index
+    return ctx_mod._process_layout()[1]
 
 
 def local_rank() -> int:
-    """Process-local analogue of :func:`rank` (0)."""
+    """Process-local analogue of :func:`rank`: 0, as in the JAX package
+    (one process per machine of the default split)."""
     return 0
 
 

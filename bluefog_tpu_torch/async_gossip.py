@@ -698,8 +698,10 @@ def make_async_train_step(opt, loss_fn, has_aux: bool = False,
     ``StackedModel.buffers``) is the state ``loss_fn`` updates in place: a
     rank that sits a tick out gets its rows back after its loss is taken.
     The callable's ``engine`` attribute is the :class:`AsyncGossipEngine`.
+    Refused across processes (ROADMAP A14c).
     With async off (``enabled=False`` or ``BLUEFOG_ASYNC=0``) this returns
     ``opt.make_train_step(loss_fn, has_aux=has_aux)``."""
+    ctx_mod.require_single_process("the async gossip engine")
     on = async_enabled() if enabled is None else bool(enabled)
     if not on:
         return opt.make_train_step(loss_fn, has_aux=has_aux)

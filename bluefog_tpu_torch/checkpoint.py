@@ -207,8 +207,11 @@ def save(path: str, step: int, params, opt_state, optimizer=None, extra=None) ->
     """Write the checkpoint ``<path>/<step>`` (atomically: a temporary
     directory renamed into place) and its graph sidecar; returns the
     directory. ``extra`` is saved beside the state (module buffers). It
-    runs inside the memory observatory's ``checkpoint_save`` phase."""
+    runs inside the memory observatory's ``checkpoint_save`` phase.
+    Refused across processes (ROADMAP A14c)."""
     from bluefog_tpu_torch import memory as mem_mod
+
+    ctx_mod.require_single_process("checkpoint.save")
 
     with mem_mod.phase_scope("checkpoint_save"):
         return _save(path, step, params, opt_state, optimizer, extra)
@@ -280,7 +283,8 @@ def restore(path: str, step: Optional[int] = None, optimizer=None,
     to the latest), on the context's device; counters, the pending
     gradient sum, the CHOCO copies and the window lanes go back onto
     ``optimizer`` (already ``init``-ed with matching shapes), and ``extra``
-    is filled in place."""
+    is filled in place. Refused across processes (ROADMAP A14c)."""
+    ctx_mod.require_single_process("checkpoint.restore")
     if step is None:
         step = latest_step(path)
         if step is None:

@@ -25,6 +25,28 @@ included). :func:`neighbor_allgather` reads the neighbour relations of
 the delivery table, so a relay plan gathers exactly what the direct plan
 does.
 
+Across processes (a context whose ``process_count > 1``) ``x`` is this
+process's rows ``[n_local, ...]``: :func:`plan_operands` returns a
+:class:`~bluefog_tpu_torch.collective.transport.Route` in place of the
+``src`` tensor, with the weights' local columns, and each combine ships
+the rows the route names first (:meth:`Route.exchange`) and then runs the
+stacked arithmetic on the extended buffer, receiver by receiver in the
+same round order, so the local rows are bitwise the stacked ones: the
+exact and bf16 combines gather from it, the int8/int4 combine runs one
+``encode`` of the local rows, the transport and one ``decode_accumulate``
+over the extended payload, the EF combine ``encode_diff`` of the local rows
+and a ``decode_add`` a round from the extended payload into the local
+copies. The transport ships whole rows, so ``chunks`` is not used there
+(a chunked combine is bitwise the monolithic one anyway). The step-indexed
+combine reads its step on the host (the route depends on it); the machine
+leg of the hierarchical combines runs over the machines' partition (one
+machine per process by default); :func:`allreduce` and :func:`allgather`
+gather every row first (:func:`transport.gather_rows`) and reduce in the
+stacked order, so they are bitwise the stacked results; :func:`broadcast`
+ships the root's row from its owner; :func:`barrier` adds the group's
+barrier. The reduce-scatter and the staleness lineage are refused
+(ROADMAP A14c).
+
 Chunking (``chunks > 1``) splits only the transfers, on the 512-element
 grid, in wavefront order (chunk ``c`` of round ``r`` beside chunk ``c + 1``
 of round ``r - 1``): the exact and bf16 combines and the reduce-scatter
@@ -46,8 +68,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bluefog_tpu_torch.collective import kernels
+from bluefog_tpu_torch.collective import kernels, transport
 from bluefog_tpu_torch.collective.plan import CommPlan, SchedulePlan
+from bluefog_tpu_torch.collective.transport import Route
 
 __all__ = [
     "bucket_bytes_cap",
@@ -197,11 +220,33 @@ def _weight_dtype(x: torch.Tensor) -> torch.dtype:
     return x.dtype if x.is_floating_point() else torch.float32
 
 
+def _multi_process():
+    """The active context when it spans several processes, else None."""
+    from bluefog_tpu_torch import context as ctx_mod
+
+    ctx = ctx_mod._context
+    return ctx if ctx is not None and ctx.process_count > 1 else None
+
+
+def _local_operands(src: np.ndarray, self_w: np.ndarray, recv_w: np.ndarray, device, ctx):
+    """The :class:`Route` of ``src [R, n]`` and the weights' local columns
+    (``self_w [n]``, ``recv_w [R, n]``), on ``device``."""
+    rt = transport.route(src, src.shape[-1], ctx)
+    cols = slice(rt.lo, rt.hi)
+    return (rt, torch.from_numpy(np.array(self_w[cols])).to(device),
+            torch.from_numpy(np.array(recv_w[:, cols])).to(device))
+
+
 def plan_operands(plan: CommPlan, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(src [R, N] int32, self_w [N] f32, recv_w [R, N] f32)`` of a plan,
     on ``device``: ``src`` is :meth:`CommPlan.sources`, a relay plan's
-    origin rows."""
+    origin rows. Across processes ``src`` is the plan's
+    :class:`~bluefog_tpu_torch.collective.transport.Route` and the weights
+    are this process's columns (``[n_local]``, ``[R, n_local]``)."""
     self_w, recv_w = plan.weight_operands()
+    ctx = _multi_process()
+    if ctx is not None:
+        return _local_operands(np.array(plan.sources()), self_w, recv_w, device, ctx)
     return (
         torch.from_numpy(np.array(plan.sources())).to(device),
         torch.from_numpy(self_w).to(device),
@@ -277,6 +322,12 @@ def weighted_combine_operands(
     (:func:`_chunked_exact_combine`, bitwise the same result). ``src`` of a
     relay plan names each round's origin rows (:func:`plan_operands`)."""
     xw = x.to(_weight_dtype(x))
+    if isinstance(src, Route):
+        ext = src.exchange([xw])[0]
+        y = xw * _col(self_w, xw)
+        for r in range(src.n_rounds):
+            y = y + _gather(ext, src[r]) * _col(recv_w[r], xw)
+        return y
     if chunks > 1:
         return _chunked_exact_combine(xw, src, self_w, recv_w, chunks)
     y = xw * _col(self_w, xw)
@@ -321,6 +372,12 @@ def neighbor_allreduce_step(x: torch.Tensor, step, schedule: SchedulePlan) -> to
     and ``step`` (an int or an integer tensor on ``x``'s device) is never
     read back to the host. Rounds a step does not use have sender -1 and
     weight 0."""
+    ctx = _multi_process()
+    if ctx is not None:  # the route depends on the step: read it on the host
+        k = int(step) % schedule.period
+        src, self_w, recv_w = (a[k] for a in schedule.stacked_operands)
+        return weighted_combine_operands(x, *_local_operands(src, self_w, recv_w,
+                                                             x.device, ctx))
     idx = torch.as_tensor(step, device=x.device).reshape(1).long() % schedule.period
     src, self_w, recv_w = (a.index_select(0, idx)[0]
                            for a in schedule_operands(schedule, x.device))
@@ -386,10 +443,27 @@ def hierarchical_neighbor_allreduce_quantized(
 # -- the classic collectives ----------------------------------------------------------
 
 
+def _gathered(x: torch.Tensor, ctx) -> torch.Tensor:
+    """Every process's rows ``[N, ...]`` (:func:`transport.gather_rows`)."""
+    if x.shape[0] != ctx.n_local:
+        raise ValueError(f"expected this process's {ctx.n_local} worker rows, "
+                         f"got {tuple(x.shape)}")
+    return transport.gather_rows(x.contiguous(), ctx)
+
+
 def allreduce(x: torch.Tensor, average: bool = True) -> torch.Tensor:
     """Every worker's slot becomes the sum over the workers, or with
     ``average`` the mean in :func:`_weight_dtype`, divided by the static
-    worker count (the JAX ``psum`` of a literal)."""
+    worker count (the JAX ``psum`` of a literal). Across processes every
+    row is gathered first and reduced in the stacked order, so the local
+    rows are bitwise the stacked result."""
+    ctx = _multi_process()
+    if ctx is not None:
+        return _stacked_allreduce(_gathered(x, ctx), average)[:x.shape[0]].clone()
+    return _stacked_allreduce(x, average)
+
+
+def _stacked_allreduce(x: torch.Tensor, average: bool) -> torch.Tensor:
     if not average:
         total = x.sum(0, keepdim=True, dtype=x.dtype)
     else:
@@ -403,7 +477,9 @@ def allgather(x: torch.Tensor) -> torch.Tensor:
     concatenation of all workers' slots along their first axis (a scalar
     slot per worker gives ``[N, N]``)."""
     n = x.shape[0]
-    flat = x.reshape((1, -1) + tuple(x.shape[2:]))
+    ctx = _multi_process()
+    full = x if ctx is None else _gathered(x, ctx)
+    flat = full.reshape((1, -1) + tuple(x.shape[2:]))
     return flat.expand((n,) + tuple(flat.shape[1:])).clone()
 
 
@@ -497,6 +573,9 @@ def reduce_scatter(
     e)`` of its row and keeps the quantization error in ``e``, except where
     the destination is dead (``live_mask``). The own row is always exact.
     The EF tiers return ``(own, new_ef)``."""
+    from bluefog_tpu_torch import context as ctx_mod
+
+    ctx_mod.require_single_process("the reduce-scatter (ZeRO-2)")
     n_workers = x.shape[0]
     size = len(live_index)
     slot = int(slot)
@@ -648,9 +727,14 @@ def _reduce_scatter(flat, live_index, slot, average, wire, chunks, ef, live_mask
 
 
 def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
-    """Every worker's slot becomes worker ``root_rank``'s."""
-    if not 0 <= root_rank < x.shape[0]:
-        raise ValueError(f"root_rank {root_rank} out of range for {x.shape[0]} workers")
+    """Every worker's slot becomes worker ``root_rank``'s (across
+    processes, its owner ships it to every other process)."""
+    ctx = _multi_process()
+    size = x.shape[0] if ctx is None else ctx.size
+    if not 0 <= root_rank < size:
+        raise ValueError(f"root_rank {root_rank} out of range for {size} workers")
+    if ctx is not None:
+        return transport.broadcast_row(x.contiguous(), root_rank, ctx).expand(x.shape).clone()
     return x[root_rank:root_rank + 1].expand(x.shape).clone()
 
 
@@ -664,7 +748,8 @@ def pair_gossip(
     pair_weight * x_partner`` (default 1/2 each), in :func:`_weight_dtype`
     with the weights in that dtype; ranks outside every pair keep their
     value, in that dtype."""
-    n = x.shape[0]
+    ctx = _multi_process()
+    n = x.shape[0] if ctx is None else ctx.size
     partner = [-1] * n
     for a, b in pairs:
         if a == b:
@@ -674,10 +759,15 @@ def pair_gossip(
         partner[a], partner[b] = b, a
     wdt = _weight_dtype(x)
     xw = x.to(wdt)
-    src = torch.tensor(partner, dtype=torch.int32, device=x.device)
     sw = torch.tensor(0.5 if self_weight is None else self_weight, dtype=wdt, device=x.device)
     pw = torch.tensor(0.5 if pair_weight is None else pair_weight, dtype=wdt, device=x.device)
-    gossiped = xw * sw + _gather(xw, src) * pw
+    if ctx is not None:
+        rt = transport.route(np.array([partner]), n, ctx)
+        src, got = rt[0], _gather(rt.exchange([xw])[0], rt[0])
+    else:
+        src = torch.tensor(partner, dtype=torch.int32, device=x.device)
+        got = _gather(xw, src)
+    gossiped = xw * sw + got * pw
     paired = (src >= 0).view((-1,) + (1,) * (x.dim() - 1))
     return torch.where(paired, gossiped, xw)
 
@@ -689,16 +779,23 @@ def lineage_exchange(tags: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     ``r``), ``src`` the rounds' sources ``[n_rounds, N]``; returns the
     delivered tags ``[n_rounds, N, k]``, zeros where a worker receives
     nothing in a round (the JAX ``lineage_exchange``, stacked)."""
+    from bluefog_tpu_torch import context as ctx_mod
+
+    ctx_mod.require_single_process("the staleness lineage")
     if src.shape[0] == 0:
         return torch.zeros_like(tags)
     return torch.stack([_gather(tags[r], src[r]) for r in range(src.shape[0])])
 
 
 def barrier(device) -> None:
-    """Wait until the device has finished all work queued so far."""
+    """Wait until the device has finished all work queued so far (across
+    processes, then until every process has reached the barrier)."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    ctx = _multi_process()
+    if ctx is not None:
+        transport.barrier(ctx)
 
 
 def neighbor_allgather(
@@ -724,13 +821,32 @@ def neighbor_allgather(
     n_workers = x.shape[0]
     ins = plan.in_neighbors
     degree = plan.max_in_degree
-    src = np.full((degree, n_workers), -1, np.int32)
+    src = np.full((degree, plan.size), -1, np.int32)
     for j, nbrs in enumerate(ins):
         src[:len(nbrs), j] = nbrs
-    mask = torch.from_numpy(src.T >= 0).to(x.device)
+    ctx = _multi_process()
+    rt = None if ctx is None or degree == 0 else transport.route(src, plan.size, ctx)
+    if ctx is not None:
+        src = src[:, ctx.rows.start:ctx.rows.stop]
+    mask = torch.from_numpy(np.ascontiguousarray(src.T >= 0)).to(x.device)
     src_t = torch.from_numpy(src).to(x.device)
     if degree == 0:
         return x.new_zeros((n_workers, 0) + tuple(x.shape[1:])), mask
+    if rt is not None:
+        # across processes: the senders' rows (their wire pairs) through the
+        # transport, then each slot gathered; decoding every row and then
+        # gathering is bitwise the decode of the gathered rows
+        if wire in ("int8", "int4"):
+            flat = x.reshape(n_workers, -1).to(torch.float32)
+            n = flat.shape[1]
+            ext = kernels.decode(*rt.exchange(kernels.encode(kernels.pad_blocks(flat), wire)),
+                                 None, wire)
+            rows = [kernels.unpad_blocks(_gather(ext, rt[k]), n).reshape(x.shape).to(x.dtype)
+                    for k in range(degree)]
+        else:
+            ext = rt.exchange([x if wire is None else x.to(torch.bfloat16)])[0]
+            rows = [_gather(ext, rt[k]).to(x.dtype) for k in range(degree)]
+        return torch.stack(rows, dim=1), mask
     if wire in ("int8", "int4"):
         flat = x.reshape(n_workers, -1).to(torch.float32)
         n = flat.shape[1]
@@ -856,7 +972,10 @@ def weighted_combine_quantized_operands(
         q16 = xw.to(torch.bfloat16)
         xhat = q16.to(torch.float32)
         y = xw
-        if chunks > 1:
+        if isinstance(src, Route):
+            ext = src.exchange([q16])[0]
+            received = [_gather(ext, src[r]) for r in range(src.n_rounds)]
+        elif chunks > 1:
             flat16 = q16.reshape(n_workers, -1)
             parts = [flat16[:, a:b] for a, b in chunk_bounds(flat16.shape[1], chunks)]
             received = [t.reshape(x.shape) for t in _chunked_rounds(parts, src)]
@@ -877,7 +996,13 @@ def weighted_combine_quantized_operands(
             return kernels.unpad_blocks(out, n).reshape(x.shape).to(wdt)
 
         xhat = full(payload, scales, None)
-        if chunks > 1:
+        if isinstance(src, Route):
+            # every received row decoded, then gathered: bitwise the decode
+            # of the gathered rows
+            dec = kernels.decode(*src.exchange([payload, scales]), None, wire)
+            received = [kernels.unpad_blocks(_gather(dec, src[r]), n).reshape(x.shape).to(wdt)
+                        for r in range(src.n_rounds)]
+        elif chunks > 1:
             received = [full(p, s, rows)
                         for p, s, rows in _chunked_wire_rounds(payload, scales, src, chunks, n)]
         else:
@@ -891,6 +1016,23 @@ def weighted_combine_quantized_operands(
     flat = x.reshape(n_workers, -1)
     n = flat.shape[1]
     in_x = inplace and flat.data_ptr() == x.data_ptr()
+    if isinstance(src, Route):
+        # one encode of the local rows, the transport, one decode_accumulate
+        # over the extended payload (the local rows first)
+        if in_x and n % kernels.CHUNK == 0 and flat.is_contiguous():
+            acc = flat
+        else:
+            acc = kernels.pad_blocks(flat)
+            acc = (flat.clone(memory_format=torch.contiguous_format) if acc is flat
+                   else acc.contiguous())
+        payload, scales = src.exchange(kernels.encode(acc, wire))
+        kernels.decode_accumulate(acc, payload, scales, src.local, recv_w, wire)
+        if acc is flat:
+            return x
+        if in_x:
+            flat.copy_(kernels.unpad_blocks(acc, n))
+            return x
+        return kernels.unpad_blocks(acc, n).reshape(x.shape)
     n_chunks, width = _chunk_layout(n, chunks)
     if in_x and n_chunks == 1 and n % kernels.CHUNK == 0 and flat.is_contiguous():
         payload, scales = kernels.encode(flat, wire)
@@ -986,7 +1128,15 @@ def weighted_combine_quantized_ef_operands(
             f"{tuple(xhat_recv.shape)} does not fit x {tuple(x.shape)} on "
             f"{src.shape[0]} rounds"
         )
-    n_chunks, width = _chunk_layout(n, chunks)
+    route = isinstance(src, Route)
+    if route and not (xhat_self.is_contiguous() and xhat_recv.is_contiguous()):
+        # a bucket's columns of the copies: contiguous copies, written back
+        hs, hr = xhat_self.contiguous(), xhat_recv.contiguous()
+        out = weighted_combine_quantized_ef_operands(x, (hs, hr), src, recv_w, wire, inplace)
+        xhat_self.copy_(hs)
+        xhat_recv.copy_(hr)
+        return out
+    n_chunks, width = (1, 0) if route else _chunk_layout(n, chunks)
     if n_chunks == 1 and xhat_self.is_contiguous() and xhat_recv.is_contiguous():
         aligned = n % kernels.CHUNK == 0 and flat.is_contiguous()
         if inplace and aligned and flat.data_ptr() == x.data_ptr():
@@ -996,6 +1146,8 @@ def weighted_combine_quantized_ef_operands(
             if y is flat:
                 y = flat.clone()
         payload, scales = kernels.encode_diff(y, xhat_self, wire)
+        if route:  # the senders' payloads after the local rows
+            payload, scales = src.exchange([payload, scales])
         diff = torch.empty_like(y)
         for r in range(src.shape[0]):
             hat_r = kernels.decode_add(xhat_recv[r], payload, scales, src[r], wire,

@@ -207,7 +207,7 @@ def decode_accumulate_reference(
     _check_wire(wire)
     n_workers = acc.shape[0]
     a3 = acc.view(n_workers, -1, CHUNK)
-    deq_s = dequantize(payload, scales)
+    deq_s = dequantize(payload[:n_workers], scales[:n_workers])
     out = a3
     for r in range(src.shape[0]):
         rq, rs = _receive(payload, scales, src[r])
@@ -337,24 +337,31 @@ def encode_diff(
 
 
 def _check_wire_pair(payload, scales, n_workers, n_chunks, packed) -> None:
-    _require(tuple(payload.shape) == (n_workers, n_chunks, _HALF if packed else CHUNK),
+    """A wire pair of at least ``n_workers`` rows (``P >= N``: the
+    multi-process transport's extended payload holds the local rows first,
+    then the received ones)."""
+    _require(payload.dim() == 3 and payload.shape[0] >= n_workers
+             and tuple(payload.shape[1:]) == (n_chunks, _HALF if packed else CHUNK),
              f"payload shape {tuple(payload.shape)} does not match "
-             f"[{n_workers}, {n_chunks}] blocks")
-    _require(tuple(scales.shape) == (n_workers, n_chunks),
+             f"[>= {n_workers}, {n_chunks}] blocks")
+    _require(tuple(scales.shape) == (payload.shape[0], n_chunks),
              f"scales shape {tuple(scales.shape)} does not match the payload")
 
 
-def _check_round_sources(src_r: torch.Tensor, n_workers: int, in_range: bool) -> None:
-    """``src_r [N]`` with every entry in ``[-1, N)``. The range check
-    reads the tensor back (on the card, a synchronisation); callers whose
-    ``src`` comes from a compiled plan, whose ranks are in range by
-    construction, skip it with ``in_range=True``."""
+def _check_round_sources(src_r: torch.Tensor, n_workers: int, in_range: bool,
+                         n_rows: int = None) -> None:
+    """``src_r [N]`` with every entry in ``[-1, P)``, ``P`` the payload's
+    rows (``n_rows``, default ``N``). The range check reads the tensor
+    back (on the card, a synchronisation); callers whose ``src`` comes from
+    a compiled plan, whose ranks are in range by construction, skip it with
+    ``in_range=True``."""
+    n_rows = n_workers if n_rows is None else n_rows
     _require(src_r.dim() == 1 and src_r.shape[0] == n_workers,
              f"src must be [{n_workers}], got {tuple(src_r.shape)}")
     if not in_range and src_r.numel():
         lo, hi = (int(v) for v in torch.aminmax(src_r.to(torch.int32)))
-        _require(lo >= -1 and hi < n_workers,
-                 f"src entries must lie in [-1, {n_workers}), got {lo}..{hi}")
+        _require(lo >= -1 and hi < n_rows,
+                 f"src entries must lie in [-1, {n_rows}), got {lo}..{hi}")
 
 
 def _check_cuda_pair(payload, scales, src_r, dev, packed) -> None:
@@ -406,7 +413,9 @@ def decode_add(
 ) -> torch.Tensor:
     """The error-feedback receive integration, ``base[j] +=
     deq(payload[src_r[j]])`` in place on ``base [N, C * 512]`` f32, with
-    ``src_r [N]`` int32 naming each row's sender. ``src_r[j] == -1`` adds
+    ``src_r [N]`` int32 naming each row's sender among the ``P >= N``
+    payload rows (across processes: the transport's extended payload, the
+    local rows first). ``src_r[j] == -1`` adds
     the zero payload (``+0.0``: a ``-0.0`` in ``base`` becomes ``+0.0``,
     as XLA's add of what ``ppermute`` delivers does). Returns ``base``
     (replaces ``kernels.decode_add``).
@@ -420,7 +429,7 @@ def decode_add(
     n_workers, n_chunks = base.shape[0], base.shape[1] // CHUNK
     _check_wire_pair(payload, scales, n_workers, n_chunks, packed)
     on_cpu = _dispatch_device(base) == "cpu"
-    _check_round_sources(src_r, n_workers, src_in_range)
+    _check_round_sources(src_r, n_workers, src_in_range, payload.shape[0])
     if on_cpu:
         return decode_add_reference(base, payload, scales, src_r, wire)
     from bluefog_tpu_torch import _build
@@ -453,8 +462,10 @@ def decode_accumulate(
     for ``r = 0 .. R-1`` in order, where ``src [R, N]`` int32 names each
     round's sender (-1: none; that round adds ``(0 - deq_self) * 0``) and
     ``w [R, N]`` f32 the receiver weights. ``payload``/``scales`` are the
-    :func:`encode` outputs of all workers. Returns ``acc`` (replaces
-    ``kernels.decode_accumulate``)."""
+    :func:`encode` outputs of all workers, ``P >= N`` rows with row ``j``'s
+    own payload at ``payload[j]`` (across processes: the transport's
+    extended payload, the local rows first, ``src`` in ``[-1, P)``). Returns
+    ``acc`` (replaces ``kernels.decode_accumulate``)."""
     packed = _check_wire(wire)
     n_workers = acc.shape[0]
     _require(acc.dim() == 2 and acc.shape[1] % CHUNK == 0,

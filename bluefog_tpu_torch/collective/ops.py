@@ -19,6 +19,12 @@ must be in-neighbours of the topology unless ``dst_weights`` (dynamic
 mode, both ends scale the value) is given too. Plans follow
 ``BLUEFOG_PLAN_METHOD``.
 
+Across processes (a context whose ``process_count > 1``) a worker tensor
+is this process's rows ``[n_local, ...]`` (:attr:`BluefogContext.rows`),
+:func:`worker_values` builds them, the weights stay global (one entry per
+rank) and each op's result is the local rows of the stacked result
+(:mod:`bluefog_tpu_torch.collective.inner`).
+
 Observability, as in the JAX facade: each op's dispatch is an ``ENQUEUE``
 span of the timeline; :func:`synchronize` is a host blocking point, with
 ``sync_begin`` / ``sync_ready`` flight records, a watchdog ``watch`` and a
@@ -178,29 +184,31 @@ def _enqueue(name: str, fn, *args, **kwargs):
 
 def worker_values(values, dtype=None) -> torch.Tensor:
     """Stack per-worker values into a ``[size, ...]`` tensor on the
-    context's device. ``values`` is a callable ``rank -> array``, a
-    sequence of per-rank arrays, or one array broadcast to every worker."""
+    context's device (across processes ``[n_local, ...]``, this process's
+    rows). ``values`` is a callable ``rank -> array``, a sequence of
+    per-rank arrays (one per rank of all processes), or one array
+    broadcast to every worker."""
     ctx = ctx_mod.get_context()
     if callable(values):
-        stacked = np.stack([np.asarray(values(r)) for r in range(ctx.size)])
+        stacked = np.stack([np.asarray(values(r)) for r in ctx.rows])
     elif isinstance(values, (list, tuple)):
         if len(values) != ctx.size:
             raise ValueError(
                 f"expected {ctx.size} per-worker values, got {len(values)}"
             )
-        stacked = np.stack([np.asarray(v) for v in values])
+        stacked = np.stack([np.asarray(values[r]) for r in ctx.rows])
     else:
         arr = np.asarray(values)
-        stacked = np.broadcast_to(arr, (ctx.size,) + arr.shape)
+        stacked = np.broadcast_to(arr, (ctx.n_local,) + arr.shape)
     out = torch.from_numpy(np.ascontiguousarray(stacked)).to(ctx.device)
     return out if dtype is None else out.to(dtype)
 
 
 def _check_worker_tensor(ctx, x: torch.Tensor) -> torch.Tensor:
-    if not isinstance(x, torch.Tensor) or x.dim() < 1 or x.shape[0] != ctx.size:
+    if not isinstance(x, torch.Tensor) or x.dim() < 1 or x.shape[0] != ctx.n_local:
         shape = tuple(x.shape) if isinstance(x, torch.Tensor) else type(x)
         raise ValueError(
-            f"expected a worker tensor with leading axis {ctx.size}, got {shape}"
+            f"expected a worker tensor with leading axis {ctx.n_local}, got {shape}"
         )
     if x.device != ctx.device:
         raise ValueError(f"x is on {x.device}, the context on {ctx.device}")
@@ -372,7 +380,7 @@ def neighbor_allgather_nonblocking(
 
     def post(result):
         vals, _mask = result
-        return [vals[r, :len(in_neighbors[r])] for r in range(ctx.size)]
+        return [vals[i, :len(in_neighbors[r])] for i, r in enumerate(ctx.rows)]
 
     return _new_handle(_enqueue("neighbor_allgather", inner.neighbor_allgather, x, plan,
                                 wire=compression), post)

@@ -30,13 +30,31 @@ of the active topology follow ``BLUEFOG_PLAN_METHOD``
 relay family, ``BLUEFOG_TORUS_DIMS``; both are in the plans' cache keys.
 The health plane (:mod:`bluefog_tpu_torch.health`, ``BLUEFOG_HEALTH``,
 ``BLUEFOG_HEALTH_PORT``) is opened and closed with the context.
+
+The process level (the JAX context's ``maybe_init_distributed``,
+``order_devices_for_mesh``, ``default_nodes_per_machine`` and the
+``BLUEFOG_NUM_WORKERS`` check): when the launcher (:mod:`bluefog_tpu_torch.run`)
+sets ``BLUEFOG_COORDINATOR``, ``BLUEFOG_NUM_PROCESSES`` and
+``BLUEFOG_PROCESS_ID``, :func:`init` joins a ``torch.distributed`` process
+group first. Each process then holds a contiguous range of the global
+worker rows, :attr:`BluefogContext.rows` (``BLUEFOG_LOCAL_WORKERS`` of
+them, by default ``size // process_count``), ordered by process index,
+and every worker tensor it passes is ``[n_local, ...]``; the combines
+reach the other processes' rows through
+:mod:`bluefog_tpu_torch.collective.transport`. By default one machine of
+the hierarchical split is one process. The backend is ``gloo`` on the
+CPU; on CUDA the processes exchange their device UUIDs over the
+rendezvous store, and the backend is ``nccl`` unless two of them share a
+device, when it is ``gloo`` with the CUDA rows staged through pinned host
+memory. With one process nothing changes: ``rows == range(size)``.
 """
 
 import collections
+import datetime
 import itertools
 import os
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +66,11 @@ from bluefog_tpu_torch.topology import ExponentialGraph, placement
 __all__ = [
     "BluefogContext",
     "resolve_device",
+    "maybe_init_distributed",
+    "select_backend",
+    "order_devices_for_mesh",
+    "default_nodes_per_machine",
+    "require_single_process",
     "init",
     "shutdown",
     "is_initialized",
@@ -58,6 +81,11 @@ __all__ = [
 _lock = threading.Lock()
 _context: Optional["BluefogContext"] = None
 _ctx_uid = itertools.count()
+_distributed_initialized = False
+
+# how long a process waits for its peers at the rendezvous and in the
+# process group's calls
+_GROUP_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,25 +104,157 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def select_backend(device_type: str, device_uuids: Sequence[str]) -> str:
+    """The process group's backend: ``gloo`` on the CPU; on CUDA ``nccl``
+    when every process has a device of its own (the UUIDs all differ),
+    else ``gloo``, whose CUDA rows the transport stages through pinned host
+    memory (NCCL refuses two ranks of one communicator on one device)."""
+    if device_type != "cuda":
+        return "gloo"
+    return "nccl" if len(set(device_uuids)) == len(device_uuids) else "gloo"
+
+
+def _device_uuid(device: torch.device) -> str:
+    if device.type != "cuda":
+        return f"{device.type}:{os.getpid()}"
+    return str(torch.cuda.get_device_properties(device).uuid)
+
+
+def _rendezvous(coordinator: str, world_size: int, rank: int):
+    """The rendezvous store at ``host:port`` (process 0 serves it)."""
+    import torch.distributed as dist
+
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"BLUEFOG_COORDINATOR must be host:port, got {coordinator!r}")
+    return dist.TCPStore(host, int(port), world_size, rank == 0, timeout=_GROUP_TIMEOUT)
+
+
+def maybe_init_distributed(device=None) -> bool:
+    """Join the process group when the launcher asked (the JAX
+    ``maybe_init_distributed``): with ``BLUEFOG_COORDINATOR`` (``host:port``)
+    set, ``torch.distributed.init_process_group`` over the rendezvous store
+    at that address, ``world_size=BLUEFOG_NUM_PROCESSES``,
+    ``rank=BLUEFOG_PROCESS_ID``, once per process. The backend is
+    :func:`select_backend` of ``device`` (default ``"cuda"``) and the
+    device UUIDs the processes exchange over the store; it is decided here
+    and never retried on another: a failing NCCL init raises. Returns True
+    when the group was joined by this call."""
+    global _distributed_initialized
+    coordinator = os.environ.get("BLUEFOG_COORDINATOR")
+    if not coordinator or _distributed_initialized:
+        return False
+    import torch.distributed as dist
+
+    world_size = int(os.environ["BLUEFOG_NUM_PROCESSES"])
+    rank = int(os.environ.get("BLUEFOG_PROCESS_ID", "0"))
+    dev = resolve_device(device)
+    store = _rendezvous(coordinator, world_size, rank)
+    store.set(f"bluefog/device/{rank}", _device_uuid(dev))
+    uuids = [store.get(f"bluefog/device/{q}").decode() for q in range(world_size)]
+    backend = select_backend(dev.type, uuids)
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=store, world_size=world_size, rank=rank,
+                            timeout=_GROUP_TIMEOUT)
+    _distributed_initialized = True
+    return True
+
+
+def _process_layout():
+    """``(process count, process index, backend)``: the ``torch.distributed``
+    group's when one is up, else one process."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank(), dist.get_backend()
+    return 1, 0, None
+
+
+def order_devices_for_mesh(devices: Sequence, multi_process: bool) -> List:
+    """The worker order of ``devices`` (the JAX ``order_devices_for_mesh``):
+    the serpentine walk, grouped by ``process_index`` in ascending order
+    when several processes run (:func:`placement.worker_device_order`)."""
+    return placement.worker_device_order(devices, multi_process=multi_process)
+
+
+def default_nodes_per_machine(devices: Sequence, process_count: int) -> Optional[int]:
+    """The machine width when none was asked for (the JAX helper): with
+    several processes one machine is one process, of process 0's worker
+    count; one process has no natural split (None)."""
+    if process_count > 1:
+        return len([d for d in devices if d.process_index == 0])
+    return None
+
+
+def _worker_counts(size: int, process_count: int) -> List[int]:
+    """Every process's worker count, exchanged over the group: its
+    ``BLUEFOG_LOCAL_WORKERS``, by default ``size // process_count``. They
+    must sum to ``size`` (the JAX ``_resolve_devices`` check)."""
+    env = os.environ.get("BLUEFOG_LOCAL_WORKERS", "").strip()
+    local = int(env) if env else size // process_count
+    if process_count == 1:
+        counts = [local if env else size]
+    else:
+        import torch.distributed as dist
+
+        counts = [None] * process_count
+        dist.all_gather_object(counts, local)
+    total = sum(counts)
+    requested = os.environ.get("BLUEFOG_NUM_WORKERS", "").strip()
+    for want in ([int(requested)] if requested else []) + [size]:
+        if total != want or min(counts) < 1:
+            raise RuntimeError(
+                f"BLUEFOG_NUM_WORKERS={want} but the {process_count}-process pod exposes "
+                f"{total} workers; host slot counts must sum to -np"
+            )
+    return [int(c) for c in counts]
+
+
+def require_single_process(what: str) -> None:
+    """Refuse ``what`` while the active context spans several processes:
+    it is not ported across processes yet (ROADMAP A14c)."""
+    ctx = _context
+    if ctx is not None and ctx.process_count > 1:
+        raise ValueError(
+            f"{what} does not run across processes yet (ROADMAP A14c); this context "
+            f"spans {ctx.process_count} processes"
+        )
+
+
 class BluefogContext:
-    """Owns the worker count, the device and the active topology."""
+    """Owns the worker count, the device, the process level and the
+    active topology."""
 
     def __init__(
         self,
         topology_fn: Optional[Callable[[int], np.ndarray]] = None,
         is_weighted: bool = False,
-        size: int = 8,
+        size: Optional[int] = None,
         device=None,
         nodes_per_machine: Optional[int] = None,
     ):
+        if size is None:
+            env = os.environ.get("BLUEFOG_NUM_WORKERS", "").strip()
+            size = int(env) if env else 8
         if size < 1:
             raise ValueError(f"size must be positive, got {size}")
         self.size = int(size)
         self.device = resolve_device(device)
+        self.process_count, self.process_index, self.backend = _process_layout()
+        # the process group's device rows go through pinned host memory when
+        # gloo carries CUDA rows (processes sharing a card)
+        self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        self.worker_counts = tuple(_worker_counts(self.size, self.process_count))
+        lo = sum(self.worker_counts[:self.process_index])
+        self.rows = range(lo, lo + self.worker_counts[self.process_index])
+        self.n_local = len(self.rows)
         if nodes_per_machine is None:
             env = os.environ.get("BLUEFOG_NODES_PER_MACHINE")
             if env:
                 nodes_per_machine = int(env)
+            elif self.process_count > 1:
+                nodes_per_machine = self.worker_counts[0]
         self.local_size = int(nodes_per_machine or self.size)
         if self.local_size < 1 or self.size % self.local_size:
             raise ValueError(
@@ -285,12 +445,15 @@ class BluefogContext:
 def init(
     topology_fn: Optional[Callable[[int], np.ndarray]] = None,
     is_weighted: bool = False,
-    size: int = 8,
+    size: Optional[int] = None,
     device=None,
     nodes_per_machine: Optional[int] = None,
 ) -> BluefogContext:
     """Install the global context (reference ``bf.init``): ``size``
-    virtual workers on ``device`` (default ``"cuda"``), topology
+    workers (default ``BLUEFOG_NUM_WORKERS``, else 8) on ``device`` (default
+    ``"cuda"``), after joining the process group the launcher's
+    ``BLUEFOG_COORDINATOR`` names (:func:`maybe_init_distributed`), this
+    process holding its :attr:`~BluefogContext.rows`; topology
     ``topology_fn(size)`` (default :func:`ExponentialGraph`), split into
     machines of ``nodes_per_machine`` workers (default
     ``BLUEFOG_NODES_PER_MACHINE``, else one machine of all) for the
@@ -307,8 +470,13 @@ def init(
     from bluefog_tpu_torch import memory, metrics, slo, staleness
     from bluefog_tpu_torch import timeline as tl
 
+    maybe_init_distributed(device)
     elastic.stop()
     ctx = BluefogContext(topology_fn, is_weighted, size, device, nodes_per_machine)
+    if ctx.process_count > 1:
+        from bluefog_tpu_torch.collective import transport
+
+        transport.check_env_supported()
     with _lock:
         _context = ctx
     tl.maybe_init_from_env()
@@ -325,6 +493,10 @@ def init(
     slo.on_init(ctx)
     metrics.gauge("bluefog.size").set(ctx.size)
     metrics.gauge("bluefog.machine_size").set(ctx.machine_size)
+    if ctx.backend is not None:
+        from bluefog_tpu_torch.collective import transport
+
+        transport.on_init(ctx)
     return ctx
 
 

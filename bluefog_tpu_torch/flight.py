@@ -305,9 +305,9 @@ def _clock_triple() -> dict:
 
 
 def _owned_ranks(ctx) -> List[int]:
-    """Worker slots this process drives: all of them (one process drives
-    every worker of the stacked axis)."""
-    return list(range(ctx.size))
+    """Worker slots this process drives: its rows of the stacked axis (all
+    of them with one process)."""
+    return list(ctx.rows)
 
 
 def _build_dump(reason: str) -> dict:
@@ -494,6 +494,10 @@ def on_init(ctx) -> None:
         size=ctx.size,
         machine_size=ctx.machine_size,
         pid=os.getpid(),
+        process_count=ctx.process_count,
+        rows=[ctx.rows.start, ctx.rows.stop],
+        backend=ctx.backend,
+        staged=ctx.staged,
     )
     watchdog.add_stall_handler(_on_stall)  # idempotent (same fn object)
     if dump_dir() is not None:

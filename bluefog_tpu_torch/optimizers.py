@@ -98,6 +98,17 @@ Under ``BLUEFOG_PODS`` the static-plan neighbor combine is the two-level
 federated one (:meth:`_GossipOptimizer._fed_dispatch`), with the
 ``bluefog.federation.ici_wire_bytes`` and ``.dcn_wire_bytes`` counters.
 
+Across processes (a context whose ``process_count > 1``, see
+:mod:`bluefog_tpu_torch.context`) the leaves are this process's rows
+``[n_local, ...]`` and the gossip family's combines run over the
+multi-process transport (:mod:`bluefog_tpu_torch.collective.transport`),
+bitwise the stacked rows: the static, explicit-weight and dynamic
+neighbor combines on every tier, the hierarchical machine leg (one
+machine per process by default), the gradient and weight allreduce, the
+fused train step and the delayed mix. The window optimizers, the async
+engine, ZeRO, federation, relay plans, the observatories, health, SLO,
+autotune and the metrics probe raise ``ValueError`` naming ROADMAP A14c.
+
 Under ``BLUEFOG_PLAN_METHOD=shortcut`` the static plan is a relay plan:
 its combine gathers each round's origin rows (see
 :mod:`bluefog_tpu_torch.collective.inner`), its injection table joins the
@@ -834,7 +845,7 @@ class _GossipOptimizer:
         if self._ef_sig == sig:
             return
         self._ef = tuple(
-            inner.ef_state_zeros(ctx.size, n, len(plan.perms), ctx.device)
+            inner.ef_state_zeros(ctx.n_local, n, len(plan.perms), ctx.device)
             for _name, n in sig[0]
         )
         self._ef_sig = sig
@@ -938,8 +949,9 @@ class _GossipOptimizer:
             combine = lambda t: inner.hierarchical_neighbor_allreduce_step(  # noqa: E731
                 t, step, sched, local_size)
         _src, self_w, _recv_w = inner.schedule_operands(sched, ctx.device)
+        cols = slice(ctx.rows.start, ctx.rows.stop)  # this process's workers
         return _Dispatch(("sched", sched, local_size), combine,
-                         lambda: self_w[step % sched.period])
+                         lambda: self_w[step % sched.period][cols])
 
     def _machine_plan(self, ctx) -> CommPlan:
         if self.neighbor_machine_weights is not None:
@@ -987,6 +999,10 @@ class _GossipOptimizer:
         """This call's communication, shared by :meth:`step` and the fused
         train step, so a rule cannot reach one and skip the other; with
         this step's bucket cap."""
+        if ctx.process_count > 1:
+            from bluefog_tpu_torch.collective import transport
+
+            transport.check_env_supported()
         d = self._dispatch(ctx, params, comm_now)
         d.cap_bytes = inner.transport_bucket_cap()
         return d
@@ -1003,7 +1019,7 @@ class _GossipOptimizer:
                 "neighbor_allreduce or hierarchical communication; "
                 f"this optimizer uses {comm.value!r}"
             )
-        ones = lambda: torch.ones(ctx.size, dtype=torch.float32, device=ctx.device)  # noqa: E731
+        ones = lambda: torch.ones(ctx.n_local, dtype=torch.float32, device=ctx.device)  # noqa: E731
         self._last_plan = None
         if not comm_now or comm == CommunicationType.empty:
             return _Dispatch(("local",) if not comm_now else ("empty",), lambda t: t, ones)
@@ -1706,6 +1722,7 @@ class _WindowOptimizer:
 
     def __init__(self, base_optimizer: SGD, mode: str, window_prefix=None,
                  num_steps_per_communication: int = 1):
+        ctx_mod.require_single_process("the window optimizers (win-put, pull-get, push-sum)")
         self.tx = base_optimizer
         self.mode = mode  # 'put' | 'get' | 'push_sum'
         self.self_weight = None

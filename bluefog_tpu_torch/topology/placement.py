@@ -13,8 +13,12 @@ equal to the JAX package's, so the compiler's relay schedules are too.
 The port's workers are the leading axis of one tensor on one card, so its
 own transport has no fabric: a relay round is one more gather in device
 memory. :func:`worker_device_order` keeps the JAX signature; CUDA devices
-carry no coordinates and pass through it unchanged (ordering several
-cards is ROADMAP A14's).
+carry no coordinates and keep their order within a process. With several
+processes (``multi_process=True``) it groups the devices by their
+``process_index``, in ascending order, as the JAX context's
+``order_devices_for_mesh`` does: process ``p`` holds a contiguous range
+of worker rows. Placing cards by their NVLink or PCIe distance is not
+done (ROADMAP A14c).
 """
 
 import os
@@ -79,11 +83,14 @@ def serpentine_device_order(devices: Sequence) -> List:
     return ordered
 
 
-def worker_device_order(devices: Optional[Sequence] = None) -> List:
+def worker_device_order(devices: Optional[Sequence] = None,
+                        multi_process: bool = False) -> List:
     """Device order of the worker mesh: :func:`serpentine_device_order` of
     ``devices``, by default every visible CUDA device (none visible
-    raises). CUDA devices carry no coordinates, so they keep their
-    order."""
+    raises). CUDA devices carry no coordinates, so they keep their order.
+    With ``multi_process`` the devices are grouped by ``process_index``,
+    ascending, each group walked on its own (the JAX
+    ``order_devices_for_mesh``)."""
     if devices is None:
         import torch
 
@@ -91,7 +98,12 @@ def worker_device_order(devices: Optional[Sequence] = None) -> List:
             raise RuntimeError("worker_device_order: no CUDA device is visible; pass "
                                "devices= explicitly")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return serpentine_device_order(devices)
+    if not multi_process:
+        return serpentine_device_order(devices)
+    by_proc: Dict[int, list] = {}
+    for d in devices:
+        by_proc.setdefault(d.process_index, []).append(d)
+    return [d for proc in sorted(by_proc) for d in serpentine_device_order(by_proc[proc])]
 
 
 # -- virtual-fabric routing model (used by the comm-plan compiler) -----------

@@ -3,7 +3,8 @@
 
 Counterpart of ``bluefog_tpu/utility.py``. A tree is a tensor or a
 (nested) dict, list or tuple of worker tensors ``[size, ...]``; each
-helper returns a new tree of the same structure.
+helper returns a new tree of the same structure. Across processes the
+leaves are this process's rows ``[n_local, ...]``.
 """
 
 from bluefog_tpu_torch import context as ctx_mod
@@ -26,9 +27,9 @@ def _tree_map(fn, tree):
             return {k: visit(v) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return type(t)(visit(v) for v in t)
-        if t.dim() < 1 or t.shape[0] != ctx.size:
+        if t.dim() < 1 or t.shape[0] != ctx.n_local:
             raise ValueError(
-                f"leaf must be worker-stacked [size={ctx.size}, ...]; got shape "
+                f"leaf must be worker-stacked [size={ctx.n_local}, ...]; got shape "
                 f"{tuple(t.shape)}"
             )
         return fn(t)

@@ -144,7 +144,8 @@ def win_create(x, name: str, zero_init: bool = False) -> bool:
     values, as :func:`worker_values` takes) under ``name``: the value is a
     copy of ``x``, one buffer slot per create-time in-neighbor holds a
     copy of it too (zeros with ``zero_init``). Returns False when the
-    name is taken."""
+    name is taken. Refused across processes (ROADMAP A14c)."""
+    ctx_mod.require_single_process("the window ops")
     ctx = ctx_mod.get_context()
     if name in ctx.windows:
         return False

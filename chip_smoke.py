@@ -280,6 +280,23 @@ Phases, one line each; any failure exits non-zero:
                counters, the flight table, the JSONL, ``/fleet`` and
                ``tools/autotune_report.py``; files under ``build/autotune``,
                deleted;
+11g. transport -- the multi-process transport on the same ResNet50 and
+               weighted Exp2(8), two-program steps (1 + 2) in five tiers
+               (atc, atc/int8, atc/int4_ef, hier/int8 on 2 machines of 4,
+               grad-allreduce), cuDNN deterministic
+               (:func:`phase_transport` states every gate): (a) the stacked
+               run in this process, its parameters saved under
+               ``build/transport``; (b) two processes of four workers
+               sharing the card, started by ``bfrun-torch -np 8 -H
+               localhost:4,localhost:4`` (gloo, the rows staged through
+               pinned host memory), each process's rows bitwise rows ``4p ..
+               4p + 3`` of (a) on every tier, its bytes a step the plan's
+               edges to the other process times ``wire_payload_bytes``,
+               B1-B4 launched in each, a line a tier with step s, optimizer
+               ms, transport ms, bytes and peak; (c) one process on NCCL at
+               world size 1, atc/int8 bitwise (a); a process that exits
+               nonzero or passes ``TP_TIMEOUT`` fails the phase (and is
+               killed); files deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -377,9 +394,11 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --phase health-relay
     python3 chip_smoke.py --phase federation-slo
     python3 chip_smoke.py --phase autotune
+    python3 chip_smoke.py --phase transport
 
-run phase 11d, 11e or 11f alone on the full-width ResNet50 (the wire kernels
-built first) and print no result line.
+run phase 11d, 11e, 11f or 11g alone on the full-width ResNet50 (the wire
+kernels built first) and print no result line. Phase 11g's processes run
+``python3 chip_smoke.py --transport-child <config>``.
 
     python3 chip_smoke.py --planted-faults
 
@@ -550,6 +569,11 @@ PATH_KERNELS = {
     # the topology controller's runs: ATC int8 before and after a swap and a
     # rollback (B1, B2), and the swap onto int4_ef from int8_ef (B3, B4)
     "autotune": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
+    # the transport phase: (a) the stacked reference, (b) both processes'
+    # tiers (each process is gated on its own too), (c) NCCL's atc/int8
+    "transport a": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
+    "transport": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
+    "transport nccl": ("encode", "decode_accumulate"),
 }
 
 
@@ -1568,16 +1592,22 @@ def phase_examples(device, examples=EXAMPLES, timeout=EXAMPLE_TIMEOUT, smi=""):
 
 
 def build_trainer(device, stage_sizes=None, num_filters=64, batch=BATCH, image=IMAGE,
-                  num_classes=1000, seed=0):
+                  num_classes=1000, seed=0, rows=None):
+    """The ResNet50 of the train phases on ``SIZE`` workers, or on the
+    workers ``rows`` of them (a process's rows; the same batches as theirs
+    in the ``SIZE``-worker run)."""
     kw = {} if stage_sizes is None else {"stage_sizes": stage_sizes}
     model = resnet.init_flax_like(
         ResNet50(num_classes=num_classes, num_filters=num_filters, **kw), seed
     )
-    sm = StackedModel(model, SIZE, device)
+    rows = range(SIZE) if rows is None else rows
+    sm = StackedModel(model, len(rows), device)
     gen = torch.Generator(device=device).manual_seed(seed)
     images = torch.randn(SIZE, batch, image, image, 3, generator=gen,
                          device=device).to(torch.bfloat16)
     labels = torch.randint(0, num_classes, (SIZE, batch), generator=gen, device=device)
+    if len(rows) != SIZE:
+        images, labels = images[rows.start:rows.stop].clone(), labels[rows.start:rows.stop].clone()
     return sm, images, labels
 
 
@@ -5135,6 +5165,377 @@ def phase_autotune(device, sm, images, labels, root=AT_ROOT, smi=""):
     return counts, {"a": a, "b": b, "c": c, "d": d, "e": e, "parts_s": parts_s}
 
 
+TP_ROOT = "build/transport"
+# (b): two processes of four workers on the card, through the launcher
+TP_HOSTS = "localhost:4,localhost:4"
+TP_MACHINE = 4  # the hierarchical tier's machines: one per process in (b)
+TP_TIMEOUT = 900  # seconds a spawned job may take before it is killed
+TP_KERNELS = ("encode", "decode_accumulate", "encode_diff", "decode_add")
+
+
+def transport_tiers():
+    """``name -> (factory, compression)`` of the transport phase."""
+    return {
+        "atc": (bft.DistributedAdaptThenCombineOptimizer, None),
+        "atc/int8": (bft.DistributedAdaptThenCombineOptimizer, "int8"),
+        "atc/int4_ef": (bft.DistributedAdaptThenCombineOptimizer, "int4_ef"),
+        "hier/int8": (bft.DistributedHierarchicalNeighborAllreduceOptimizer, "int8"),
+        "grad-allreduce": (bft.DistributedGradientAllreduceOptimizer, None),
+    }
+
+
+def tp_log(msg):
+    """One line in one write: the two processes of part (b) share a pipe."""
+    sys.stdout.write(f"[transport] {msg}\n")
+    sys.stdout.flush()
+
+
+def tp_file(root, name):
+    return os.path.join(root, name.replace("/", "_") + ".pt")
+
+
+def tp_expected_bytes(ctx, name, width):
+    """The bytes process ``ctx.process_index`` hands to ``isend`` in one
+    step of tier ``name``: the gossip plan's edges from its rows to
+    another process's, summed over the rounds (the machine plan's over the
+    machines for hier/int8), times ``wire_payload_bytes`` of a row; the
+    gradient allreduce sends all its rows to every other process."""
+    from bluefog_tpu_torch.scaling import wire_payload_bytes
+
+    _factory, wire = transport_tiers()[name]
+    if name == "grad-allreduce":
+        return ctx.n_local * (ctx.process_count - 1) * wire_payload_bytes(width, 4)
+    bounds = np.concatenate([[0], np.cumsum(ctx.worker_counts)])
+    if name.startswith("hier"):
+        plan, bounds = ctx.machine_plan(), bounds // ctx.local_size
+    else:
+        plan = ctx.static_plan()
+    lo, hi = bounds[ctx.process_index], bounds[ctx.process_index + 1]
+    edges = sum(1 for rnd in plan.perms for j, i in rnd if lo <= j < hi and not lo <= i < hi)
+    return edges * wire_payload_bytes(width, 4, wire)
+
+
+def tp_run_tiers(device, sm, images, labels, names, warmup, timed):
+    """Each tier ``warmup + timed`` two-program steps (``loss_and_grad``,
+    then ``opt.step``) from the replicated parameters and the same batch
+    statistics, on the active context; yields ``(name, parameters,
+    numbers)``, the launch counts zeroed just before the tier and read just
+    after."""
+    from bluefog_tpu_torch.collective import transport
+
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    params0 = sm.replicate()
+    for name in names:
+        factory, wire = transport_tiers()[name]
+        sm.load_buffers(stats0)
+        opt = factory(bft.sgd(0.1, momentum=0.9))
+        opt.compression = wire
+        params = params0.clone()
+        state = opt.init(params)
+        grads = torch.empty_like(params)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        times, sent = [], []
+        for i in range(warmup + timed):
+            sync(device)
+            t0 = time.perf_counter()
+            sm.loss_and_grad(params, images, labels, grads)
+            sync(device)
+            t1 = time.perf_counter()
+            before = transport.stats()
+            opt.step(params, state, grads)
+            sync(device)
+            t2 = time.perf_counter()
+            after = transport.stats()
+            sent.append(after["bytes"] - before["bytes"])
+            if i >= warmup:
+                times.append((t2 - t0, t1 - t0, t2 - t1, after["seconds"] - before["seconds"]))
+        launches = launch_counts()
+        if not torch.isfinite(params).all():
+            raise AssertionError(f"transport {name}: non-finite parameters")
+        med = [statistics.median(t[c] for t in times) for c in range(4)]
+        peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                if device.type == "cuda" else float("nan"))
+        row = dict(step_s=med[0], fb_s=med[1], opt_ms=med[2] * 1e3, transport_ms=med[3] * 1e3,
+                   peak_gib=peak, bytes_per_step=sent, launches=launches)
+        opt.free()
+        del opt, state, grads
+        yield name, params, row
+    sm.load_buffers(stats0)
+
+
+def tp_config(root, device, part, names, warmup, timed, trainer_kw):
+    path = os.path.join(root, f"config_{part}.json")
+    with open(path, "w") as f:
+        json.dump(dict(root=root, device=device.type, part=part, tiers=list(names),
+                       warmup=warmup, timed=timed, trainer=trainer_kw, machine=TP_MACHINE), f)
+    return path
+
+
+def tp_spawn(argv, env, timeout=TP_TIMEOUT):
+    """Run ``argv`` in a session of its own, stdout and stderr captured;
+    past ``timeout`` every process of the session is killed and the phase
+    fails, as it does on a nonzero exit."""
+    import signal
+
+    proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"transport: {argv[2:6]} passed its {timeout} s timeout and was "
+                             f"killed; output:\n{out[-3000:]}\n{err[-3000:]}")
+    for line in out.splitlines():
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"transport: {argv[2:6]} exited with {proc.returncode}:\n"
+                             f"{err[-6000:]}")
+    return out
+
+
+def tp_child_env(extra=None):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BLUEFOG_")}
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra or {})
+    return env
+
+
+def tp_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_transport_child(config_path):
+    """``python3 chip_smoke.py --transport-child <config>``: one process of
+    part (b) (launched by ``bfrun-torch``) or the one process of part (c)
+    (``BLUEFOG_COORDINATOR`` set, world size 1): joins the process group
+    through ``bft.init``, builds its rows of the ResNet50 and of the batch,
+    runs the tiers and holds its rows against part (a)'s, writing its
+    numbers to ``child_<part>_<process>.json``."""
+    import torch.distributed as dist
+
+    with open(config_path) as f:
+        cfg = json.load(f)
+    device = torch.device(cfg["device"])
+    ctx = bft.init(size=SIZE, device=device, nodes_per_machine=cfg["machine"])
+    if device.type == "cuda":
+        _build.wire_library()
+    sm, images, labels = build_trainer(device, rows=ctx.rows, **cfg["trainer"])
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    bft.set_machine_topology(topo.RingGraph(SIZE // cfg["machine"]))
+    res = dict(process=ctx.process_index, process_count=ctx.process_count,
+               rows=[ctx.rows.start, ctx.rows.stop], backend=dist.get_backend(),
+               staged=ctx.staged, tiers={})
+    if cfg["part"] == "c" and device.type == "cuda":
+        t = torch.ones(4, device=device)
+        dist.all_reduce(t)  # the NCCL communicator is built by its first call
+        sync(device)
+        res["nccl_all_reduce"] = float(t.sum())
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, params, row in tp_run_tiers(device, sm, images, labels, cfg["tiers"],
+                                              cfg["warmup"], cfg["timed"]):
+            ref = torch.load(tp_file(cfg["root"], name), map_location="cpu", weights_only=True)
+            want, got = ref[ctx.rows.start:ctx.rows.stop], params.cpu()
+            row["bitwise"] = bool(torch.equal(bits(got), bits(want)))
+            row["max_diff"] = float((got - want).abs().max())
+            row["expected_bytes"] = tp_expected_bytes(ctx, name, sm.width)
+            res["tiers"][name] = row
+            del ref, want, got, params
+            tp_log(f"({cfg['part']}) process {ctx.process_index}/{ctx.process_count} rows "
+                   f"{ctx.rows.start}..{ctx.rows.stop - 1} ({res['backend']}"
+                   f"{', staged' if ctx.staged else ''}) {name}: step {row['step_s']:.4f} s, "
+                   f"optimizer {row['opt_ms']:.1f} ms, transport {row['transport_ms']:.1f} ms "
+                   f"a step, {row['bytes_per_step'][-1]} B sent a step (expected "
+                   f"{row['expected_bytes']}), peak {row['peak_gib']:.2f} GiB, launches "
+                   f"{ {k: v for k, v in row['launches'].items() if v} }, bitwise (a): "
+                   f"{row['bitwise']}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    path = os.path.join(cfg["root"], f"child_{cfg['part']}_{ctx.process_index}.json")
+    with open(path, "w") as f:
+        json.dump(res, f)
+    bft.shutdown()
+    return 0
+
+
+def phase_transport(device, sm, images, labels, root=TP_ROOT, smi="", trainer_kw=None,
+                    names=None, warmup=1, timed=2):
+    """Phase 11g: the multi-process transport on the ResNet50 of the
+    train-step phase (``bench.py::run_headline``'s settings: 8 workers, 64
+    images of 224 x 224 each, the weighted Exp2(8), ``sgd(0.1, 0.9)``, the
+    seeds of phase 7), cuDNN deterministic, each tier 1 warm-up and 2 timed
+    two-program steps (``loss_and_grad``, ``opt.step``) from the replicated
+    parameters: atc, atc/int8, atc/int4_ef, hier/int8 (2 machines of 4 on
+    the ring of machines) and grad-allreduce.
+
+    (a) The stacked reference in this process; each tier's parameters are
+    saved under ``build/transport/``. Then this process frees its tensors
+    and empties the allocator's cache.
+
+    (b) Two processes sharing the card, started by the port's launcher
+    (``bfrun-torch -np 8 -H localhost:4,localhost:4``), four workers each,
+    the backend gloo with the CUDA rows staged through pinned host memory,
+    the same tiers, seeds and batches. Gates: each process exits 0 within
+    ``TP_TIMEOUT`` (else it is killed); its backend is gloo and staged; its
+    parameters equal rows ``4p .. 4p + 3`` of (a) bit for bit on every tier
+    (the allreduce gathers every row and reduces in the stacked order, so
+    grad-allreduce is bitwise too); the bytes it hands to ``isend`` in every
+    step equal the plan's edges from its rows to the other process's times
+    ``wire_payload_bytes`` (:func:`tp_expected_bytes`); it launches
+    ``encode`` and ``decode_accumulate`` (atc/int8, hier/int8) and
+    ``encode_diff`` and ``decode_add`` (atc/int4_ef). Each prints a line a
+    tier: step s, optimizer ms, transport ms a step (staging and gloo
+    together), bytes sent, peak GiB, launches.
+
+    (c) NCCL at world size 1: one process with ``BLUEFOG_COORDINATOR`` set,
+    so the backend is nccl (one all_reduce builds the communicator); atc/int8
+    for the same steps, bitwise (a). On the card only.
+
+    Files under ``build/transport/``, deleted. Returns ``({"transport a":,
+    "transport":, "transport nccl": launch counts}, numbers)``: (b)'s counts
+    are the sum of its two processes'."""
+    import shutil
+
+    names = list(transport_tiers()) if names is None else list(names)
+    trainer_kw = {} if trainer_kw is None else dict(trainer_kw)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in launch_counts()}
+    counts = {"transport a": dict(zero), "transport": dict(zero), "transport nccl": dict(zero)}
+    bft.init(size=SIZE, device=device, nodes_per_machine=TP_MACHINE)
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+    bft.set_machine_topology(topo.RingGraph(SIZE // TP_MACHINE))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    numbers = {"a": {}}
+    try:
+        for name, params, row in tp_run_tiers(device, sm, images, labels, names, warmup, timed):
+            torch.save(params.cpu(), tp_file(root, name))
+            del params
+            numbers["a"][name] = row
+            for k, v in row["launches"].items():
+                counts["transport a"][k] += v
+            log("transport", f"(a) stacked, one process, 8 workers: {name}: step "
+                             f"{row['step_s']:.4f} s, optimizer {row['opt_ms']:.1f} ms, peak "
+                             f"{row['peak_gib']:.2f} GiB, launches "
+                             f"{ {k: v for k, v in row['launches'].items() if v} }")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bft.init(size=SIZE, device=device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "chip_smoke.py")
+    root = os.path.abspath(root)
+    t0 = time.perf_counter()
+    cfg = tp_config(root, device, "b", names, warmup, timed, trainer_kw)
+    tp_spawn([sys.executable, "-m", "bluefog_tpu_torch.run.run", "-np", str(SIZE), "-H", TP_HOSTS,
+              "--coordinator", f"127.0.0.1:{tp_free_port()}", "--num-processes", "2",
+              script, "--transport-child", cfg], tp_child_env())
+    b_s = time.perf_counter() - t0
+    numbers["b"] = []
+    for p in range(2):
+        with open(os.path.join(root, f"child_b_{p}.json")) as f:
+            res = json.load(f)
+        numbers["b"].append(res)
+        if (res["process_count"], res["rows"], res["backend"]) != (2, [4 * p, 4 * p + 4], "gloo"):
+            raise AssertionError(f"transport (b) process {p}: {res['process_count']} processes, "
+                                 f"rows {res['rows']}, backend {res['backend']}")
+        if res["staged"] != (device.type == "cuda"):
+            raise AssertionError(f"transport (b) process {p}: staged {res['staged']}")
+        for name in names:
+            row = res["tiers"][name]
+            if not row["bitwise"]:
+                raise AssertionError(f"transport (b) process {p} {name}: rows {4 * p}..{4 * p + 3}"
+                                     f" differ from (a) (max diff {row['max_diff']:.3g})")
+            if any(b != row["expected_bytes"] for b in row["bytes_per_step"]):
+                raise AssertionError(f"transport (b) process {p} {name}: sent "
+                                     f"{row['bytes_per_step']} B a step, expected "
+                                     f"{row['expected_bytes']}")
+            for k, v in row["launches"].items():
+                counts["transport"][k] += v
+        launched = {k: sum(r["launches"][k] for r in res["tiers"].values()) for k in TP_KERNELS}
+        want = [k for k, tier in (("encode", "atc/int8"), ("decode_accumulate", "atc/int8"),
+                                  ("encode_diff", "atc/int4_ef"), ("decode_add", "atc/int4_ef"))
+                if tier in names]
+        missing = [k for k in want if launched[k] == 0]
+        if device.type == "cuda" and missing:
+            raise AssertionError(f"transport (b) process {p} launched no {missing}: {launched}")
+
+    numbers["c"] = None
+    if device.type == "cuda" and "atc/int8" in names:
+        t0 = time.perf_counter()
+        cfg = tp_config(root, device, "c", ["atc/int8"], warmup, timed, trainer_kw)
+        tp_spawn([sys.executable, script, "--transport-child", cfg], tp_child_env(dict(
+            BLUEFOG_COORDINATOR=f"127.0.0.1:{tp_free_port()}", BLUEFOG_NUM_PROCESSES="1",
+            BLUEFOG_PROCESS_ID="0", BLUEFOG_NUM_WORKERS=str(SIZE))))
+        c_s = time.perf_counter() - t0
+        with open(os.path.join(root, "child_c_0.json")) as f:
+            res = json.load(f)
+        numbers["c"] = res
+        row = res["tiers"]["atc/int8"]
+        if (res["backend"], res["process_count"], res["rows"]) != ("nccl", 1, [0, SIZE]):
+            raise AssertionError(f"transport (c): backend {res['backend']}, "
+                                 f"{res['process_count']} processes, rows {res['rows']}")
+        if res.get("nccl_all_reduce") != 4.0 or not row["bitwise"]:
+            raise AssertionError(f"transport (c): all_reduce {res.get('nccl_all_reduce')}, "
+                                 f"bitwise (a) {row['bitwise']} (max diff {row['max_diff']:.3g})")
+        for k, v in row["launches"].items():
+            counts["transport nccl"][k] += v
+        log("transport", f"(c) NCCL at world size 1 (one process, BLUEFOG_COORDINATOR set): "
+                         f"atc/int8 step {row['step_s']:.4f} s, optimizer {row['opt_ms']:.1f} ms, "
+                         f"bitwise (a); process {c_s:.1f} s")
+    else:
+        log("transport", "(c) NCCL needs the card: skipped on the CPU")
+    shutil.rmtree(root, ignore_errors=True)
+    for name in names:
+        per = [r["tiers"][name] for r in numbers["b"]]
+        how = ("sharing the card, gloo staged through pinned host memory"
+               if numbers["b"][0]["staged"] else "on the CPU, gloo")
+        log("transport", f"(b) {name}: two processes x 4 workers {how}: step "
+                         f"{max(r['step_s'] for r in per):.4f} s (stacked "
+                         f"{numbers['a'][name]['step_s']:.4f}), optimizer "
+                         f"{max(r['opt_ms'] for r in per):.1f} ms (stacked "
+                         f"{numbers['a'][name]['opt_ms']:.1f}), transport "
+                         f"{max(r['transport_ms'] for r in per):.1f} ms a step, "
+                         f"{per[0]['bytes_per_step'][-1]} / {per[1]['bytes_per_step'][-1]} B "
+                         f"sent a step, peak {max(r['peak_gib'] for r in per):.2f} GiB; "
+                         f"rows bitwise (a); on {smi}")
+    log("transport", f"launches {counts}; (b) {b_s:.1f} s of processes; phase "
+                     f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, numbers
+
+
+def run_transport_alone():
+    """``python3 chip_smoke.py --phase transport``: phase 11g alone on the
+    full-width ResNet50 (the wire kernels built first); its gates as in the
+    whole run, its lines and its launch counts. Prints no result line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    bft.init(size=SIZE)
+    sm, images, labels = build_trainer(device)
+    counts, _numbers = phase_transport(device, sm, images, labels, smi=smi)
+    for path in ("transport a", "transport"):
+        missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    return 0
+
+
 def lm_flops_per_step(sm, seq, batch):
     """bench.py's model FLOPs of one step of every worker: per token
     ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
@@ -6100,6 +6501,8 @@ def run_autotune_alone():
 
 
 def main():
+    if sys.argv[1:2] == ["--transport-child"] and len(sys.argv) == 3:
+        return run_transport_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -6113,6 +6516,8 @@ def main():
         return run_federation_slo_alone()
     if sys.argv[1:] == ["--phase", "autotune"]:
         return run_autotune_alone()
+    if sys.argv[1:] == ["--phase", "transport"]:
+        return run_transport_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -6191,6 +6596,9 @@ def main():
     t0 = time.perf_counter()
     counts["autotune"], _at = phase_autotune(device, sm, images, labels, smi=smi)
     log("autotune", f"phase in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    tp_counts, _tp = phase_transport(device, sm, images, labels, smi=smi)
+    counts.update(tp_counts)
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))

@@ -1231,3 +1231,88 @@ def test_combine_after_a_controller_swap_is_bitwise_plain(cuda, wire, tiers, mon
     else:
         assert launches["cuda"]["encode"] == 1 and launches["cuda"]["decode_accumulate"] == 1
     assert torch.equal(_bits(out["cuda"]), _bits(out["cpu"]))
+
+
+STAGED_WORKER = """
+import os, sys
+import numpy as np
+import torch
+import bluefog_tpu_torch as bft
+from bluefog_tpu_torch import topology as topo
+from bluefog_tpu_torch.collective import inner, kernels
+ctx = bft.init(size=8, device="cuda")
+assert ctx.process_count == 2 and ctx.backend == "gloo" and ctx.staged, (ctx.backend, ctx.staged)
+x = bft.worker_values(list(np.load(sys.argv[1])))
+bft.set_topology(topo.ExponentialTwoGraph(8), is_weighted=True)
+out = {"exact": bft.neighbor_allreduce(x)}
+for wire in ("int8", "int4"):
+    out[wire] = bft.neighbor_allreduce(x, compression=wire)
+src, _sw, recv_w = inner.plan_operands(ctx.static_plan(), ctx.device)
+for wire in ("int8", "int4"):
+    state = inner.ef_state_zeros(ctx.n_local, x.shape[1], src.shape[0], ctx.device)
+    z = x.clone()
+    for _ in range(3):
+        z = inner.weighted_combine_quantized_ef_operands(z, state, src, recv_w, wire=wire)
+    out[wire + "_ef"] = z
+out["allreduce"] = bft.allreduce(x)
+out = {k: v.cpu() for k, v in out.items()}
+out["launches"] = kernels.launch_counts()
+out["rows"] = list(ctx.rows)
+torch.save(out, os.path.join(sys.argv[2], f"staged_{ctx.process_index}.pt"))
+bft.shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_sharing_the_card_equal_the_stacked_rows(cuda, tmp_path):
+    """Two processes of four workers on one card (gloo, the CUDA rows staged
+    through pinned host memory), started by ``bfrun-torch``: the exact,
+    int8, int4, int8_ef and int4_ef combines and the allreduce on each
+    process's rows equal the same rows of the stacked run on the card bit
+    for bit, and each process launches ``encode``, ``decode_accumulate``,
+    ``encode_diff`` and ``decode_add`` on payloads received from the other."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    xs = ragged_input("cpu", seed=21).numpy()
+    np.save(tmp_path / "x.npy", xs)
+    script = tmp_path / "worker.py"
+    script.write_text(STAGED_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BLUEFOG_")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.run.run", "-np", "8", "-H",
+         "localhost:4,localhost:4", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+         "2", str(script), str(tmp_path / "x.npy"), str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    ctx = bft.init(size=8, device=cuda)
+    try:
+        x = bft.worker_values(list(xs))
+        bft.set_topology(topo.ExponentialTwoGraph(8), is_weighted=True)
+        want = {"exact": bft.neighbor_allreduce(x)}
+        for wire in WIRES:
+            want[wire] = bft.neighbor_allreduce(x, compression=wire)
+        src, _sw, recv_w = inner.plan_operands(ctx.static_plan(), ctx.device)
+        for wire in WIRES:
+            state = inner.ef_state_zeros(8, x.shape[1], src.shape[0], ctx.device)
+            z = x.clone()
+            for _ in range(3):
+                z = inner.weighted_combine_quantized_ef_operands(z, state, src, recv_w, wire=wire)
+            want[wire + "_ef"] = z
+        want["allreduce"] = bft.allreduce(x)
+    finally:
+        bft.shutdown()
+    for p in range(2):
+        got = torch.load(tmp_path / f"staged_{p}.pt", weights_only=False)
+        assert got["rows"] == list(range(4 * p, 4 * p + 4))
+        for key, ref in want.items():
+            assert torch.equal(_bits(got[key]), _bits(ref.cpu()[4 * p:4 * p + 4])), (p, key)
+        for k in ("encode", "decode_accumulate", "encode_diff", "decode_add"):
+            assert got["launches"][k] > 0, (p, got["launches"])

@@ -1,9 +1,12 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
 """Every ``bluefog.*`` series the port emits is a row of the series
-reference of ``docs/metrics.md``, by the rules of
-``tests/test_metric_names.py``: double-quoted literals, f-string ``{...}``
-segments and the docs' ``<x>`` segments as wildcards, and a literal that
-others extend with a dot is a namespace, which must have a row under it."""
+reference of ``docs/metrics.md``, or, for a series the JAX package has no
+counterpart of (the multi-process transport's), a row of the port's own
+table in ``README.md`` (between the ``torch-series-reference`` markers),
+by the rules of ``tests/test_metric_names.py``: double-quoted literals,
+f-string ``{...}`` segments and the docs' ``<x>`` segments as wildcards,
+and a literal that others extend with a dot is a namespace, which must
+have a row under it."""
 
 import glob
 import os
@@ -25,9 +28,31 @@ def _port_patterns():
     return raw - namespaces, namespaces
 
 
+def _port_doc_patterns():
+    """The rows of the port's own series table in ``README.md``."""
+    text = open(os.path.join(REPO, "README.md")).read()
+    m = re.search(r"<!-- torch-series-reference:begin -->(.*?)"
+                  r"<!-- torch-series-reference:end -->", text, re.S)
+    assert m, "README.md lost its torch-series-reference markers"
+    return {re.sub(r"<[^>]*>", "*", row.group(1))
+            for row in re.finditer(r"^\|\s*`([^`]+)`", m.group(1), re.M)}
+
+
+def test_port_only_series_are_the_ports_and_absent_from_jax():
+    """The port's table holds only series the port emits and the JAX
+    package's reference lacks."""
+    code, _ = _port_patterns()
+    docs = _doc_patterns()
+    own = _port_doc_patterns()
+    assert own == {"bluefog.transport.bytes", "bluefog.transport.staged"}
+    for row in own:
+        assert row in code
+        assert not any(_matches(row, d) for d in docs), row
+
+
 def test_every_series_the_port_emits_is_documented():
     code, namespaces = _port_patterns()
-    docs = _doc_patterns()
+    docs = _doc_patterns() | _port_doc_patterns()
     undocumented = sorted(c for c in code if not any(_matches(c, d) for d in docs))
     assert not undocumented, (
         f"series emitted in bluefog_tpu_torch/ but missing from docs/metrics.md: {undocumented}")
