@@ -73,6 +73,18 @@ mass-conserving weights on the engine's ``self_weight`` and
 set the engine re-windows: the estimate ``x / p`` becomes the new mass with
 ``p = 1``, counting ``bluefog.async.rewindows``.
 
+**Across processes** (a context whose ``process_count > 1``) the window
+holds this process's rows (:mod:`bluefog_tpu_torch.windows`). The periods,
+the due mask, the gate, the ages and the advisories are computed on the
+global host lanes, equally in every process; the local step, the sat-out
+losses and the fold run on the local rows; the exchange is the window
+layer's route under the masked weights (a rank that is not due ships its
+zero-weighted rows still, as the stacked gather reads them, so the rows
+stay bitwise the stacked ones). The loss is ``[n_local]``;
+:meth:`AsyncGossipEngine.summary`'s counts come from the global masks, so
+they are the fleet's in every process. Elastic sessions and the other
+switches still refused across processes raise naming ROADMAP A14c.
+
 After each tick the window goes to the staleness observatory under
 ``surface="async"`` (:func:`bluefog_tpu_torch.staleness.observe_window`):
 the ages it folds are the ones the gate read. The engine's
@@ -253,10 +265,10 @@ class AsyncGossipEngine:
     def _prepare_layout(self, ctx, params) -> None:
         leaves = tree_leaves(params)
         for i, leaf in enumerate(leaves):
-            if leaf.dim() < 1 or leaf.shape[0] != ctx.size:
+            if leaf.dim() < 1 or leaf.shape[0] != ctx.n_local:
                 raise ValueError(
                     f"async parameter leaf {i} must be worker-stacked "
-                    f"[size={ctx.size}, ...]; got shape {tuple(leaf.shape)}"
+                    f"[{ctx.n_local}, ...]; got shape {tuple(leaf.shape)}"
                 )
             if not leaf.dtype.is_floating_point:
                 raise TypeError(
@@ -312,7 +324,7 @@ class AsyncGossipEngine:
             # first creation or a parameter-shape change: the window mass is
             # seeded from the given params, p = 1
             self._prepare_layout(ctx, params)
-            packed = self._pack(tree_leaves(params), ctx.size)
+            packed = self._pack(tree_leaves(params), ctx.n_local)
         else:
             # a change of the live set, or a topology the window cannot
             # carry: the current estimate x / p becomes the new mass with
@@ -463,7 +475,8 @@ class AsyncGossipEngine:
 
     def _local_step(self, win, opt_state, batch, due: np.ndarray) -> None:
         """The due ranks' gradients at ``x / p`` and the inner update of
-        their raw mass rows (in place); the other rows are not touched."""
+        their raw mass rows (in place); the other rows are not touched.
+        ``due`` holds rows of the window's lanes (the local rows)."""
         est = self._tree(win.value / win.p[:, None].to(win.value.dtype))
         store = _grad_store(est, self._grads)
         if self._losses is None or self._losses.device != win.value.device:
@@ -508,7 +521,7 @@ class AsyncGossipEngine:
 
     def _fold(self, win, fold_mask: np.ndarray) -> None:
         """Fold the admitted slots into the value and p, zero them and clear
-        their versions."""
+        their versions (``fold_mask`` the lanes' rows)."""
         k_max = win.max_deg
         if not k_max:
             return
@@ -595,16 +608,18 @@ class AsyncGossipEngine:
     def _tick_work(self, win, opt_state, batch, participating, fold_mask, low, w_masked,
                    self_masked, sent_masked, dev):
         """The tick's work: the due ranks' local step, the exchange and the
-        fold; returns the slots written."""
-        self._local_step(win, opt_state, batch, np.nonzero(participating)[0])
+        fold; returns the slots written (global)."""
+        ctx = ctx_mod.get_context()
+        rows = slice(ctx.rows.start, ctx.rows.stop)
+        self._local_step(win, opt_state, batch, np.nonzero(participating[rows])[0])
 
         vers_before = win.versions
         win.value, win.buffers, vers, win.p, win.p_buffers = win_mod._exchange_core(
             "acc", low, True, win.max_deg,
             win.value, win.buffers, win.versions, win.p, win.p_buffers, win.value,
-            win_mod._f32(win_mod._round_weights(low.perms, w_masked), dev),
-            win_mod._f32(self_masked, dev),
-            wire=self.wire, sent_w=win_mod._f32(sent_masked, dev),
+            win_mod._f32(win_mod._round_weights(low.perms, w_masked)[:, rows], dev),
+            win_mod._f32(self_masked[rows], dev),
+            wire=self.wire, sent_w=win_mod._f32(sent_masked[rows], dev),
         )
         # versions count only the writes of senders that took part
         written = np.zeros_like(fold_mask)
@@ -612,13 +627,14 @@ class AsyncGossipEngine:
             for k, s in enumerate(srcs):
                 written[r, k] = participating[s]
         if win.max_deg:
-            gate = torch.from_numpy(written[:, :win.max_deg].astype(np.int32)).to(dev)
+            gate = torch.from_numpy(written[rows, :win.max_deg].astype(np.int32)).to(dev)
             win.versions = vers_before + (vers - vers_before) * gate
-        self._fold(win, fold_mask)
+        self._fold(win, fold_mask[rows])
         return written
 
     def summary(self) -> dict:
-        """The engine's counters and settings."""
+        """The engine's counters and settings (the fleet's in every process:
+        they count the global masks)."""
         return {
             "ticks": self._tick,
             "local_steps": self._local_steps,
@@ -698,10 +714,14 @@ def make_async_train_step(opt, loss_fn, has_aux: bool = False,
     ``StackedModel.buffers``) is the state ``loss_fn`` updates in place: a
     rank that sits a tick out gets its rows back after its loss is taken.
     The callable's ``engine`` attribute is the :class:`AsyncGossipEngine`.
-    Refused across processes (ROADMAP A14c).
+    Across processes the trees and ``buffers`` are the local rows and the
+    returned loss ``[n_local]`` (see the module docstring).
     With async off (``enabled=False`` or ``BLUEFOG_ASYNC=0``) this returns
     ``opt.make_train_step(loss_fn, has_aux=has_aux)``."""
-    ctx_mod.require_single_process("the async gossip engine")
+    if ctx_mod.is_initialized() and ctx_mod.get_context().process_count > 1:
+        from bluefog_tpu_torch.collective import transport
+
+        transport.check_env_supported()
     on = async_enabled() if enabled is None else bool(enabled)
     if not on:
         return opt.make_train_step(loss_fn, has_aux=has_aux)

@@ -25,6 +25,17 @@ written to a temporary directory and renamed into place, and the sidecar
 ``<path>/<step>.graph.json`` with the graph-info block (JAX's keys),
 which ``restore`` reads first: a mismatch fails before any state is
 loaded. Loading uses ``torch.load(..., weights_only=True)``.
+
+Across processes (a context whose ``process_count > 1``) the file is the
+one the stacked run writes, whatever the layout: ``save`` gathers every
+tree of the payload (the params, opt_state, extra, the pending gradient
+sum, the window lanes, the CHOCO copies and the sharded state) to every
+row (:func:`bluefog_tpu_torch.collective.transport.gather_rows`, each
+process in the same order), process 0 writes ``state.pt`` and the sidecar
+and the others wait at the group's barrier; ``restore`` reads the file in
+every process, each keeping its rows. So a checkpoint written by 2 x 4
+processes restores in one process and the reverse, bitwise. The processes
+must share the directory's file system.
 """
 
 import ast
@@ -41,6 +52,7 @@ import torch
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import sharding
 from bluefog_tpu_torch import windows as win_mod
+from bluefog_tpu_torch.collective import transport
 from bluefog_tpu_torch.logging_util import logger
 
 __all__ = ["save", "restore", "latest_step", "topology_digest"]
@@ -140,18 +152,58 @@ def _to_host(tree):
     return tree
 
 
-def _to_device(tree, device):
+def _multi_process():
+    """The active context when it spans several processes, else None."""
+    if not ctx_mod.is_initialized():
+        return None
+    ctx = ctx_mod.get_context()
+    return ctx if ctx.process_count > 1 else None
+
+
+def _map_tensors(tree, fn):
+    """``tree`` with ``fn`` applied to every tensor, structure kept
+    (a NamedTuple stays one)."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
+        items = [_map_tensors(v, fn) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     return tree
 
 
+def _to_device(tree, device):
+    return _map_tensors(tree, lambda t: t.to(device))
+
+
+def _all_rows(tree, ctx, axis: int = 0):
+    """Across processes, every worker's rows of each tensor of ``tree``
+    (its rows along ``axis``); the tree itself with one process."""
+    if ctx is None:
+        return tree
+
+    def gather(t):
+        t = t.detach().to(ctx.device)
+        rows = t.transpose(0, axis) if axis else t
+        full = transport.gather_rows(rows.contiguous(), ctx)
+        return full.transpose(0, axis) if axis else full
+
+    return _map_tensors(tree, gather)
+
+
+def _own_rows(tree, ctx, axis: int = 0):
+    """Across processes, this process's rows (along ``axis``) of each
+    tensor of a saved tree; the tree itself with one process."""
+    if ctx is None:
+        return tree
+    rows = slice(ctx.rows.start, ctx.rows.stop)
+    return _map_tensors(tree, lambda t: t[(slice(None),) * axis + (rows,)].clone())
+
+
 def _window_state(opt) -> Optional[dict]:
-    """A window optimizer's window lanes (and its age lane), or None."""
+    """A window optimizer's window lanes (and its age lane), or None;
+    across processes every row of the lanes."""
     from bluefog_tpu_torch.optimizers import _WindowOptimizer
 
     if not isinstance(opt, _WindowOptimizer):
@@ -163,7 +215,8 @@ def _window_state(opt) -> Optional[dict]:
         )
     win = win_mod._get_win(ctx_mod.get_context(), opt._name)
     out = {"name": opt._name}
-    out.update({f: getattr(win, f).detach().cpu().clone() for f in _WINDOW_LANES})
+    out.update({f: _all_rows(getattr(win, f), _multi_process()).detach().cpu().clone()
+                for f in _WINDOW_LANES})
     out.update({f: torch.from_numpy(getattr(win, f).copy()) for f in _WINDOW_AGE})
     out["clock"] = int(win.clock)
     return out
@@ -208,22 +261,24 @@ def save(path: str, step: int, params, opt_state, optimizer=None, extra=None) ->
     directory renamed into place) and its graph sidecar; returns the
     directory. ``extra`` is saved beside the state (module buffers). It
     runs inside the memory observatory's ``checkpoint_save`` phase.
-    Refused across processes (ROADMAP A14c)."""
+    Across processes every process calls it: the trees are gathered, and
+    process 0 writes (see the module docstring)."""
     from bluefog_tpu_torch import memory as mem_mod
-
-    ctx_mod.require_single_process("checkpoint.save")
 
     with mem_mod.phase_scope("checkpoint_save"):
         return _save(path, step, params, opt_state, optimizer, extra)
 
 
 def _save(path: str, step: int, params, opt_state, optimizer, extra) -> str:
+    ctx = _multi_process()
     root = os.path.abspath(path)
-    os.makedirs(root, exist_ok=True)
     target = os.path.join(root, str(int(step)))
+    # every process gathers in this order; across processes the trees
+    # hold every row from here on
+    params, opt_state = _all_rows(params, ctx), _all_rows(opt_state, ctx)
     payload = {"step": int(step), "params": _to_host(params), "opt_state": _to_host(opt_state)}
     if extra is not None:
-        payload["extra"] = _to_host(extra)
+        payload["extra"] = _to_host(_all_rows(extra, ctx))
     layout = _shard_layout_of(optimizer, opt_state)
     if layout is not None:
         payload["opt_state"], shard_info = _gather_sharded_state(opt_state, layout)
@@ -238,15 +293,21 @@ def _save(path: str, step: int, params, opt_state, optimizer, extra) -> str:
             payload["opt_comm_count"] = int(optimizer._comm_count)
         accum = getattr(optimizer, "_grad_accum", None)
         if accum is not None:
-            payload["grad_accum"] = _to_host(list(accum))
+            payload["grad_accum"] = _to_host(_all_rows(list(accum), ctx))
         wstate = _window_state(optimizer)
         if wstate is not None:
             payload["window"] = wstate
         ef = getattr(optimizer, "_ef", None)
         if ef is not None:
-            payload["ef_state"] = [[a.detach().cpu().clone() for a in pair] for pair in ef]
+            # the receive copies [R, N, n] hold the workers on their axis 1
+            payload["ef_state"] = [[_all_rows(a, ctx, axis).detach().cpu().clone()
+                                    for axis, a in enumerate(pair)] for pair in ef]
             # the signature without its device, which restore puts back
             payload["ef_sig"] = repr(tuple(optimizer._ef_sig[:3]))
+    if ctx is not None and ctx.process_index != 0:
+        transport.barrier(ctx)
+        return target
+    os.makedirs(root, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f".{int(step)}.", dir=root)
     try:
         torch.save(payload, os.path.join(tmp, _STATE_FILE))
@@ -261,6 +322,8 @@ def _save(path: str, step: int, params, opt_state, optimizer, extra) -> str:
         with open(side + ".tmp", "w") as f:
             json.dump({"graph_info": graph_info}, f)
         os.replace(side + ".tmp", side)
+    if ctx is not None:
+        transport.barrier(ctx)
     return target
 
 
@@ -283,8 +346,9 @@ def restore(path: str, step: Optional[int] = None, optimizer=None,
     to the latest), on the context's device; counters, the pending
     gradient sum, the CHOCO copies and the window lanes go back onto
     ``optimizer`` (already ``init``-ed with matching shapes), and ``extra``
-    is filled in place. Refused across processes (ROADMAP A14c)."""
-    ctx_mod.require_single_process("checkpoint.restore")
+    is filled in place. Across processes each process keeps its rows of
+    the saved trees."""
+    ctx = _multi_process()
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -307,11 +371,11 @@ def restore(path: str, step: Optional[int] = None, optimizer=None,
     if graph_info is not None and not pre_validated and ctx_mod.is_initialized():
         _check_graph_info(json.loads(graph_info), optimizer)
     device = ctx_mod.get_context().device if ctx_mod.is_initialized() else torch.device("cpu")
-    params = _to_device(payload["params"], device)
+    params = _to_device(_own_rows(payload["params"], ctx), device)
     shard_info = payload.get("shard_info")
     if shard_info is not None:
         opt_state = _reslice_sharded_state(ast.literal_eval(shard_info), payload, params,
-                                           optimizer, device)
+                                           optimizer, device, ctx)
     else:
         if (optimizer is not None and callable(getattr(optimizer, "_shard_active", None))
                 and optimizer._shard_active()):
@@ -321,11 +385,11 @@ def restore(path: str, step: Optional[int] = None, optimizer=None,
                 "re-save from a sharded run (sharded saves are gathered and restore "
                 "onto any live set)"
             )
-        opt_state = _to_device(payload["opt_state"], device)
+        opt_state = _to_device(_own_rows(payload["opt_state"], ctx), device)
     if extra is not None:
-        _fill_extra(extra, payload.get("extra"))
+        _fill_extra(extra, _own_rows(payload.get("extra"), ctx))
     if optimizer is not None:
-        _restore_optimizer(optimizer, payload, device)
+        _restore_optimizer(optimizer, payload, device, ctx)
     return int(payload["step"]), params, opt_state
 
 
@@ -342,7 +406,7 @@ def _fill_extra(extra, saved) -> None:
             dst.copy_(src)
 
 
-def _restore_optimizer(optimizer, payload, device) -> None:
+def _restore_optimizer(optimizer, payload, device, ctx=None) -> None:
     from bluefog_tpu_torch.optimizers import _WindowOptimizer
 
     wstate = payload.get("window")
@@ -363,7 +427,8 @@ def _restore_optimizer(optimizer, payload, device) -> None:
                                                 payload.get("opt_step_count", 0)))
     if hasattr(optimizer, "_grad_accum"):
         accum = payload.get("grad_accum")
-        optimizer._grad_accum = None if accum is None else [a.to(device) for a in accum]
+        optimizer._grad_accum = None if accum is None else [
+            a.to(device) for a in _own_rows(accum, ctx)]
     if wstate is not None:
         name = getattr(optimizer, "_name", None)
         if name is None:
@@ -372,6 +437,7 @@ def _restore_optimizer(optimizer, payload, device) -> None:
                 "(call init() on a window optimizer before restore)"
             )
         win = win_mod._get_win(ctx_mod.get_context(), name)
+        wstate = dict(wstate, **{f: _own_rows(wstate[f], ctx) for f in _WINDOW_LANES})
         for field in _WINDOW_LANES:
             saved, cur = wstate[field], getattr(win, field)
             if tuple(saved.shape) != tuple(cur.shape):
@@ -389,15 +455,17 @@ def _restore_optimizer(optimizer, payload, device) -> None:
     if ef_saved is not None:
         # the copies and their signature: the optimizer compares the
         # signature with the step's own and zeroes the copies on a mismatch
-        optimizer._ef = tuple(tuple(a.to(device=device, dtype=torch.float32) for a in pair)
+        optimizer._ef = tuple(tuple(_own_rows(a, ctx, axis).to(device=device, dtype=torch.float32)
+                                    for axis, a in enumerate(pair))
                               for pair in ef_saved)
         optimizer._ef_sig = ast.literal_eval(payload["ef_sig"]) + (device,)
 
 
-def _reslice_sharded_state(info: dict, payload: dict, params, optimizer, device):
+def _reslice_sharded_state(info: dict, payload: dict, params, optimizer, device, ctx=None):
     """Re-slice a gathered sharded state under the current layout: a fresh
     ``optimizer.init(params)`` gives the structure, each gathered vector is
-    distributed into it and every other leaf is installed as saved."""
+    distributed into it and every other leaf is installed as saved (across
+    processes, this process's rows of each)."""
     from bluefog_tpu_torch.optimizers import _slice_slot_rows, _tree_unflatten, tree_leaves
 
     if optimizer is None:
@@ -441,7 +509,8 @@ def _reslice_sharded_state(info: dict, payload: dict, params, optimizer, device)
         gi = slot_map.get(i)
         if gi is not None:
             arr = _slice_slot_rows(arr, layout, gi)
-        elif tuple(arr.shape) != tuple(ref.shape):
+        arr = _own_rows(arr, ctx)
+        if gi is None and tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(
                 f"saved state leaf {i} has shape {tuple(arr.shape)} but the live "
                 f"optimizer expects {tuple(ref.shape)}"

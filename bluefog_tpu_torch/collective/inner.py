@@ -44,7 +44,9 @@ machine per process by default); :func:`allreduce` and :func:`allgather`
 gather every row first (:func:`transport.gather_rows`) and reduce in the
 stacked order, so they are bitwise the stacked results; :func:`broadcast`
 ships the root's row from its owner; :func:`barrier` adds the group's
-barrier. The reduce-scatter and the staleness lineage are refused
+barrier; :func:`reduce_scatter` runs each circulant round as a route
+with one sender row per receiver (one batch a round, see
+:func:`_reduce_scatter_route`). The staleness lineage is refused
 (ROADMAP A14c).
 
 Chunking (``chunks > 1``) splits only the transfers, on the 512-element
@@ -572,14 +574,20 @@ def reduce_scatter(
     with the residual ``ef [N, n_live * slot]`` f32: each round ships ``Q(x +
     e)`` of its row and keeps the quantization error in ``e``, except where
     the destination is dead (``live_mask``). The own row is always exact.
-    The EF tiers return ``(own, new_ef)``."""
-    from bluefog_tpu_torch import context as ctx_mod
+    The EF tiers return ``(own, new_ef)``.
 
-    ctx_mod.require_single_process("the reduce-scatter (ZeRO-2)")
-    n_workers = x.shape[0]
+    Across processes ``x`` (and ``ef``) is this process's rows ``[n_local,
+    n_live * slot]``, ``live_index`` and ``live_mask`` stay global, and the
+    result is the local rows of the stacked result, bitwise
+    (:func:`_reduce_scatter_route`)."""
+    ctx = _multi_process()
+    n_workers = x.shape[0] if ctx is None else ctx.size
+    if ctx is not None and x.shape[0] != ctx.n_local:
+        raise ValueError(f"expected this process's {ctx.n_local} worker rows, "
+                         f"got {tuple(x.shape)}")
     size = len(live_index)
     slot = int(slot)
-    flat = x.reshape(n_workers, -1)
+    flat = x.reshape(x.shape[0], -1)
     if slot <= 0 or flat.shape[1] % slot:
         raise ValueError(
             f"reduce_scatter payload of {flat.shape[1]} is not a multiple of slot {slot}"
@@ -590,7 +598,7 @@ def reduce_scatter(
         raise ValueError(f"live_mask has {len(live_mask)} entries for a mesh of {size}")
     if ef is not None and wire in ("int8_ef", "int4_ef") and ef.numel() != flat.numel():
         raise ValueError(
-            f"residual has {ef.numel() // n_workers} elements, payload has {flat.shape[1]}"
+            f"residual has {ef.numel() // flat.shape[0]} elements, payload has {flat.shape[1]}"
         )
     return _reduce_scatter(flat, live_index, slot, average, wire, chunks, ef, live_mask, fast)
 
@@ -616,11 +624,17 @@ def _reduce_scatter(flat, live_index, slot, average, wire, chunks, ef, live_mask
     ``m`` read as zeros (the shard layout's padding)."""
     from bluefog_tpu_torch.collective import compiler
 
-    size = flat.shape[0]
+    ctx = _multi_process()
+    size = flat.shape[0] if ctx is None else ctx.size
     lidx = [int(v) for v in live_index]
     if (fast and ef is None and wire in (None, "fp32") and chunks <= 1
             and lidx == list(range(size))):
+        if ctx is not None:  # every row gathered, summed in the stacked order
+            return _one_sum_scatter(_gathered(flat, ctx), slot, average)[
+                ctx.rows.start:ctx.rows.stop].clone()
         return _one_sum_scatter(flat, slot, average)
+    if ctx is not None:
+        return _reduce_scatter_route(ctx, flat, lidx, slot, average, wire, ef, live_mask)
     wdt = _weight_dtype(flat)
     norm = torch.tensor(size, dtype=torch.float32)
     perms = compiler.compile_reduce_scatter(size).perms
@@ -721,6 +735,103 @@ def _reduce_scatter(flat, live_index, slot, average, wire, chunks, ef, live_mask
             torch.cat([q[:, ga:gb].index_select(0, idx) for ga, gb in groups], dim=1),
             torch.cat([sc[:, ga:gb].index_select(0, idx) for ga, gb in groups], dim=1))
         y = y + kernels.unpad_blocks(got.reshape(size, -1), slot)
+    if average:
+        y = y / norm
+    return y.to(wdt), e_new.reshape(ef.shape)
+
+
+def _reduce_scatter_route(ctx, flat, lidx, slot, average, wire, ef, live_mask):
+    """:func:`_reduce_scatter` across processes on the local rows ``flat
+    [n_local, m]``: each circulant round of
+    :func:`compiler.compile_reduce_scatter` is a route with one sender row
+    per receiver, sender ``s`` shipping its slot row for its destination
+    (the wire pair of that row on int8/int4, through one ``encode`` of the
+    round's local rows and one ``decode`` over the extended payload; the
+    plain quantizer's pair on the EF tiers). The receiver adds its own row
+    first, then the rounds in order, as the stacked ring does, so the
+    local rows are bitwise its rows. Whole rows ship (``chunks`` is not
+    used; chunked is bitwise monolithic there too).
+
+    One batch a round, not one for all rounds: every round ships different
+    rows (the slots for another destination), so a single batch would hold
+    every round's send rows at once, about ``(N - 1) / N`` of the payload
+    again, and as much received, where the stacked ring holds one round's
+    rows at a time. A batch a round keeps that bound for ``N - 2`` more
+    round trips a call, which the staged transport pays in milliseconds
+    against the payload's own transfer."""
+    from bluefog_tpu_torch.collective import compiler
+
+    size = ctx.size
+    lo, n_local = ctx.rows.start, ctx.n_local
+    here = range(n_local)
+    wdt = _weight_dtype(flat)
+    norm = torch.tensor(size, dtype=torch.float32)
+    perms = compiler.compile_reduce_scatter(size).perms
+    own = [lidx[lo + i] for i in here]
+    rounds = []  # (the round's route, its local senders' owner positions, destinations)
+    for perm in perms:
+        src = np.full((1, size), -1, np.int64)
+        dest_of = [0] * size
+        for snd, dst in perm:
+            src[0, dst] = snd
+            dest_of[snd] = dst
+        dest = [dest_of[lo + i] for i in here]
+        rounds.append((transport.route(src, size, ctx), [lidx[d] for d in dest], dest))
+
+    def received(rt, rows):
+        return _gather(rt.exchange([rows.contiguous()])[0], rt[0])
+
+    if wire in (None, "fp32"):
+        xw = flat.to(wdt)
+        y = _slot_rows(xw, here, own, slot)
+        for rt, pos, _dest in rounds:
+            y = y + received(rt, _slot_rows(xw, here, pos, slot))
+        return y / norm.to(wdt) if average else y
+
+    xf = flat.to(torch.float32)
+    y = _slot_rows(xf, here, own, slot)
+    if wire == "bf16":
+        for rt, pos, _dest in rounds:
+            y = y + received(rt, _slot_rows(xf, here, pos, slot).to(torch.bfloat16)).to(
+                torch.float32)
+        if average:
+            y = y / norm
+        return y.to(wdt)
+
+    if wire in ("int8", "int4"):
+        for rt, pos, _dest in rounds:
+            payload, scales = rt.exchange(kernels.encode(
+                kernels.pad_blocks(_slot_rows(xf, here, pos, slot)).contiguous(), wire))
+            got = kernels.decode(payload, scales, rt[0], wire, src_in_range=True)
+            y = y + kernels.unpad_blocks(got, slot)
+        if average:
+            y = y / norm
+        return y.to(wdt)
+
+    if wire not in ("int8_ef", "int4_ef"):
+        raise ValueError(
+            "reduce_scatter wire must be None/'fp32'/'bf16'/'int8'/"
+            f"'int4'/'int8_ef'/'int4_ef', got {wire!r}"
+        )
+    if ef is None:
+        raise ValueError(f"wire {wire!r} needs the per-slot residual ef")
+    e = ef.reshape(n_local, -1).to(torch.float32)
+    if e.shape[1] % slot or e.shape[1] < flat.shape[1]:
+        raise ValueError(
+            f"residual has {e.shape[1]} elements a worker, payload has {flat.shape[1]}"
+        )
+    e_new = e.clone()
+    live = [True] * size if live_mask is None else [bool(v) for v in live_mask]
+    for rt, pos, dest in rounds:
+        row_d = _slot_rows(xf, here, pos, slot) + _slot_rows(e, here, pos, slot)
+        q, sc, rowhat = _quantize_rows(row_d, wire[:-3])
+        for i, p in enumerate(pos):
+            if live[dest[i]]:
+                e_new[i, p * slot:(p + 1) * slot] = row_d[i] - rowhat[i]
+        del row_d, rowhat
+        eq, es = rt.exchange([q, sc])
+        got = kernels.dequantize(_gather(eq, rt[0]), _gather(es, rt[0]))
+        y = y + kernels.unpad_blocks(got.reshape(n_local, -1), slot)
     if average:
         y = y / norm
     return y.to(wdt), e_new.reshape(ef.shape)

@@ -381,15 +381,19 @@ def decode(
     """Full-width reconstruction ``[N, C * 512]`` f32 of a wire pair:
     row ``j`` is ``deq(payload[src_r[j]])``, zeros where ``src_r[j] ==
     -1``; ``src_r=None`` decodes every row's own payload (replaces
-    ``kernels.decode``). ``src_in_range=True`` skips the range check of
-    ``src_r`` (see :func:`decode_add`)."""
+    ``kernels.decode``). With ``src_r [N]`` the payload may hold ``P >=
+    N`` rows, ``src_r`` in ``[-1, P)`` (across processes: the transport's
+    extended payload, the local rows first); the output has ``N`` rows.
+    ``src_in_range=True`` skips the range check of ``src_r`` (see
+    :func:`decode_add`)."""
     packed = _check_wire(wire)
     _require(payload.dim() == 3, f"payload must be [N, C, w], got {tuple(payload.shape)}")
-    n_workers, n_chunks = payload.shape[:2]
+    n_rows, n_chunks = payload.shape[:2]
+    n_workers = n_rows if src_r is None or src_r.dim() != 1 else src_r.shape[0]
     _check_wire_pair(payload, scales, n_workers, n_chunks, packed)
     on_cpu = _dispatch_device(payload) == "cpu"
     if src_r is not None:
-        _check_round_sources(src_r, n_workers, src_in_range)
+        _check_round_sources(src_r, n_workers, src_in_range, n_rows)
     if on_cpu:
         return decode_reference(payload, scales, src_r, wire)
     from bluefog_tpu_torch import _build

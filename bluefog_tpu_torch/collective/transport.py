@@ -332,15 +332,15 @@ def barrier(ctx=None) -> None:
 
 def check_env_supported() -> None:
     """Refuse the switches whose subsystems do not run across processes
-    yet (ROADMAP A14c): federation, ZeRO, relay plans, the observatories,
-    health, SLO, autotune and the metrics probe."""
+    yet (ROADMAP A14c): federation, relay plans, the observatories,
+    health, SLO, autotune and the metrics probe. ZeRO (``BLUEFOG_SHARD``,
+    with ``BLUEFOG_SHARD_GRADS`` and ``BLUEFOG_SHARD_MASTER``) runs."""
     from bluefog_tpu_torch import attribution, autotune, federation, health, memory
-    from bluefog_tpu_torch import metrics, sharding, slo, staleness
+    from bluefog_tpu_torch import metrics, slo, staleness
     from bluefog_tpu_torch.collective import compiler
 
     refused = [
         ("BLUEFOG_PODS (federation)", federation.enabled()),
-        ("BLUEFOG_SHARD (ZeRO and the reduce-scatter)", sharding.enabled()),
         ("BLUEFOG_PLAN_METHOD=shortcut (relay plans)", compiler.plan_method() == "shortcut"),
         ("BLUEFOG_DOCTOR (the doctor)", attribution.enabled()),
         ("BLUEFOG_STALENESS (the staleness lineage)", staleness.enabled()),

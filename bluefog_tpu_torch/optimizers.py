@@ -105,9 +105,15 @@ multi-process transport (:mod:`bluefog_tpu_torch.collective.transport`),
 bitwise the stacked rows: the static, explicit-weight and dynamic
 neighbor combines on every tier, the hierarchical machine leg (one
 machine per process by default), the gradient and weight allreduce, the
-fused train step and the delayed mix. The window optimizers, the async
-engine, ZeRO, federation, relay plans, the observatories, health, SLO,
-autotune and the metrics probe raise ``ValueError`` naming ROADMAP A14c.
+fused train step and the delayed mix; the window optimizers on the combo
+window's local rows (:mod:`bluefog_tpu_torch.windows`); ZeRO-1 and ZeRO-2,
+each process updating its workers' owned slots, the updated slots of
+every live owner coming back through one
+:func:`~bluefog_tpu_torch.collective.transport.gather_rows` a dtype group
+and the ZeRO-2 gradient leg through the reduce-scatter's routes
+(:func:`bluefog_tpu_torch.collective.inner.reduce_scatter`). Federation,
+relay plans, elastic sessions, the observatories, health, SLO, autotune
+and the metrics probe raise ``ValueError`` naming ROADMAP A14c.
 
 Under ``BLUEFOG_PLAN_METHOD=shortcut`` the static plan is a relay plan:
 its combine gathers each round's origin rows (see
@@ -133,7 +139,7 @@ from bluefog_tpu_torch import memory as mem_mod
 from bluefog_tpu_torch import slo as slo_mod
 from bluefog_tpu_torch import staleness as stal_mod
 from bluefog_tpu_torch import windows as win_mod
-from bluefog_tpu_torch.collective import compiler, inner
+from bluefog_tpu_torch.collective import compiler, inner, transport
 from bluefog_tpu_torch.collective import ops as col_ops
 from bluefog_tpu_torch.collective.plan import CommPlan, SchedulePlan, plan_from_weights
 from bluefog_tpu_torch.logging_util import warn_once
@@ -661,9 +667,10 @@ class _GossipOptimizer:
     def _register_shard(self, layout, state) -> None:
         from bluefog_tpu_torch import scaling
 
+        # the state holds the local workers' rows: bytes a worker over them
         sharding.register_active(layout, reshards=self._shard_reshards,
                                  measured_state_bytes=scaling.optimizer_state_bytes(
-                                     state=state, world=layout.size))
+                                     state=state, world=len(_local_workers(layout))))
 
     @staticmethod
     def _shard_slot_group(shape, layout):
@@ -749,7 +756,7 @@ class _GossipOptimizer:
         sig = (layout.sig(), self.compression, ctx.device)
         if self._scatter_ef_sig == sig:
             return
-        self._scatter_ef = [torch.zeros((ctx.size, g.padded), dtype=torch.float32,
+        self._scatter_ef = [torch.zeros((ctx.n_local, g.padded), dtype=torch.float32,
                                         device=ctx.device) for g in layout.groups]
         self._scatter_ef_sig = sig
 
@@ -1000,8 +1007,6 @@ class _GossipOptimizer:
         train step, so a rule cannot reach one and skip the other; with
         this step's bucket cap."""
         if ctx.process_count > 1:
-            from bluefog_tpu_torch.collective import transport
-
             transport.check_env_supported()
         d = self._dispatch(ctx, params, comm_now)
         d.cap_bytes = inner.transport_bucket_cap()
@@ -1569,11 +1574,23 @@ def _slice_slot_rows(full: torch.Tensor, layout, gi: int) -> torch.Tensor:
     return out
 
 
+def _local_workers(layout) -> range:
+    """The workers whose rows this process holds: every worker with one
+    process."""
+    ctx = ctx_mod._context
+    if ctx is None or ctx.process_count == 1:
+        return range(layout.size)
+    return ctx.rows
+
+
 def _shard_own_slices(tree, layout):
     """Each worker's owned slot of every packed dtype group, ``[N, slot]``
-    per group (zeros past the group's end)."""
-    lidx = [int(v) for v in layout.live_index()]
-    rows = range(layout.size)
+    per group (zeros past the group's end); across processes the local
+    workers' ``[n_local, slot]``."""
+    live_index = layout.live_index()
+    workers = _local_workers(layout)
+    lidx = [int(live_index[r]) for r in workers]
+    rows = range(len(workers))
     return tuple(inner._slot_rows(_pack(group), rows, lidx, g.slot)
                  for g, (_name, group) in zip(layout.groups, _dtype_groups(tree_leaves(tree))))
 
@@ -1582,7 +1599,9 @@ def _sharded_inner_update(tx, layout, params, state, grads=None, own_g=None) -> 
     """The ZeRO-1 update, in place: each worker updates only its owned slot
     of every packed group with its slot of the inner state (against the
     f32 master slices under ``layout.master``), then the live workers'
-    updated slots are gathered into every worker's parameters. ``own_g``
+    updated slots are gathered into every worker's parameters (across
+    processes the local workers' slots, then one
+    :func:`transport.gather_rows` a group brings every worker's). ``own_g``
     (ZeRO-2) is the scattered gradient slots; otherwise the slots are cut
     from ``grads``."""
     _shard_check_groups(params, layout, "parameter")
@@ -1597,8 +1616,11 @@ def _sharded_inner_update(tx, layout, params, state, grads=None, own_g=None) -> 
         tx.apply_(own_p, state.inner, own_g)
         new_own = own_p
     live = list(layout.live)
+    multi = len(_local_workers(layout)) != layout.size
     for g, own, (_name, group) in zip(layout.groups, new_own,
                                       _dtype_groups(tree_leaves(params))):
+        if multi:
+            own = transport.gather_rows(own.contiguous())
         full = own[live].reshape(-1)[:g.elems]
         off = 0
         for leaf in group:
@@ -1712,7 +1734,8 @@ class _WindowOptimizer:
 
     Every leaf of the parameter tree is packed, in JAX leaf order, into
     ONE flat combo window ``[size, D]`` (for :class:`StackedModel` its flat
-    parameter buffer). A step runs the inner update on the window's raw
+    parameter buffer; across processes ``[n_local, D]``, the local rows).
+    A step runs the inner update on the window's raw
     value in place, then — on every ``num_steps_per_communication``-th
     call — the exchange and the combine of :mod:`bluefog_tpu_torch.windows`
     (push-sum: ``win_accumulate`` with the mass-residual absorption, then
@@ -1722,7 +1745,6 @@ class _WindowOptimizer:
 
     def __init__(self, base_optimizer: SGD, mode: str, window_prefix=None,
                  num_steps_per_communication: int = 1):
-        ctx_mod.require_single_process("the window optimizers (win-put, pull-get, push-sum)")
         self.tx = base_optimizer
         self.mode = mode  # 'put' | 'get' | 'push_sum'
         self.self_weight = None
@@ -1744,10 +1766,10 @@ class _WindowOptimizer:
         ctx = ctx_mod.get_context()
         leaves = tree_leaves(params)
         for i, leaf in enumerate(leaves):
-            if leaf.dim() < 1 or leaf.shape[0] != ctx.size:
+            if leaf.dim() < 1 or leaf.shape[0] != ctx.n_local:
                 raise ValueError(
                     f"window-optimizer parameter leaf {i} must be worker-stacked "
-                    f"[size={ctx.size}, ...]; got shape {tuple(leaf.shape)}"
+                    f"[{ctx.n_local}, ...]; got shape {tuple(leaf.shape)}"
                 )
             if not leaf.dtype.is_floating_point:
                 raise TypeError(
@@ -1765,7 +1787,8 @@ class _WindowOptimizer:
             self._slots.append((off, off + n, tuple(leaf.shape[1:]), leaf.dtype))
             off += n
         self._name = f"{self.prefix}.combo"
-        packed = torch.cat([leaf.reshape(ctx.size, -1).to(pack_dtype) for leaf in leaves], dim=1)
+        packed = torch.cat([leaf.reshape(ctx.n_local, -1).to(pack_dtype) for leaf in leaves],
+                           dim=1)
         created = win_mod.win_create(packed, self._name, zero_init=self.mode == "push_sum")
         if not created:
             raise ValueError(f"window {self._name} already exists")

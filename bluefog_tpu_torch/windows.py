@@ -36,8 +36,31 @@ Per-rank weight specs are sequences indexed by rank; entry ``None`` means
 that rank sits out the call. Calls run eagerly: a ``*_nonblocking`` op
 returns a handle whose op has already completed. ``require_mutex`` is
 taken for the JAX package's signatures and changes nothing: one process
-drives every worker, so no two writers ever race, and ``win_mutex`` only
+drives each worker group's ops in order (across processes every process
+runs the same exchange sequence, and each window lane is written only by
+its owner process), so no two writers ever race, and ``win_mutex`` only
 checks that the window exists.
+
+Across processes (a context whose ``process_count > 1``) the lanes hold
+this process's rows (``value [n_local, *S]``, ``buffers [n_local, max_deg,
+*S]``, versions, p, p_buffers), ``max_deg`` the global in-degree maximum,
+so each process's lanes are the same rows of the stacked state. The
+weights, the rounds, the slot table and the host age lane stay global
+and identical in every process. An exchange runs over
+:func:`bluefog_tpu_torch.collective.transport.route` of the rounds'
+global senders: the local sender rows ship once (with the p lane, ``[n_local]``
+f32, in the same messages while it is on), and each round reads the
+extended buffer at :attr:`Route.local`, so the rows are bitwise the
+stacked ones. On the int8/int4 wire the process runs one ``encode`` of its
+rows, ships the wire pairs, one ``decode`` of its own payload (``x_hat``)
+and one ``decode`` a round over the extended payload. The bytes handed to
+``isend`` are the edges ``j -> i`` with ``j`` local and ``i`` remote,
+summed over the rounds, times
+:func:`bluefog_tpu_torch.scaling.wire_payload_bytes` of the window wire,
+plus 4 an edge while the p lane is on. ``win_update`` reads only the
+process's own buffers. :func:`win_read`, :func:`get_win_version` and
+:func:`win_associated_p` answer for the local rows (a ``rank`` of another
+process raises); :func:`get_win_age` reads the global host lane.
 
 The host age lane follows the JAX package's: each window counts its
 local window steps (``clock``: every exchange, update, local adapt of a
@@ -68,8 +91,9 @@ import torch
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import flight, metrics
 from bluefog_tpu_torch import staleness as stal_mod
-from bluefog_tpu_torch.collective import compiler, inner, kernels
+from bluefog_tpu_torch.collective import compiler, inner, kernels, transport
 from bluefog_tpu_torch.collective.ops import _check_worker_tensor, worker_values
+from bluefog_tpu_torch.collective.transport import Route
 from bluefog_tpu_torch.collective.plan import perms_from_edges
 from bluefog_tpu_torch.topology import GetRecvWeights
 
@@ -101,7 +125,8 @@ __all__ = [
 class _Window:
     """State of one named window, stacked on the worker axis: value
     ``[N, *S]``, buffers ``[N, max_deg, *S]``, versions ``[N, max_deg]``
-    int32, p ``[N]`` f32, p_buffers ``[N, max_deg]`` f32."""
+    int32, p ``[N]`` f32, p_buffers ``[N, max_deg]`` f32 (across processes
+    ``n_local`` rows each); the topology and the host age lane global."""
 
     def __init__(self, name, value, buffers, versions, p, p_buffers,
                  in_neighbors, out_neighbors):
@@ -144,31 +169,32 @@ def win_create(x, name: str, zero_init: bool = False) -> bool:
     values, as :func:`worker_values` takes) under ``name``: the value is a
     copy of ``x``, one buffer slot per create-time in-neighbor holds a
     copy of it too (zeros with ``zero_init``). Returns False when the
-    name is taken. Refused across processes (ROADMAP A14c)."""
-    ctx_mod.require_single_process("the window ops")
+    name is taken. Across processes ``x`` is this process's rows
+    ``[n_local, *S]``."""
     ctx = ctx_mod.get_context()
     if name in ctx.windows:
         return False
     x = x if isinstance(x, torch.Tensor) else worker_values(x)
-    if x.dim() < 1 or x.shape[0] != ctx.size:
+    if x.dim() < 1 or x.shape[0] != ctx.n_local:
         raise ValueError(
-            f"win_create expects a worker tensor with leading axis {ctx.size}, "
+            f"win_create expects a worker tensor with leading axis {ctx.n_local}, "
             f"got shape {tuple(x.shape)}"
         )
     in_neighbors = tuple(tuple(lst) for lst in ctx.in_neighbor_ranks())
     out_neighbors = tuple(tuple(lst) for lst in ctx.out_neighbor_ranks())
     max_deg = max((len(n) for n in in_neighbors), default=0)
     value = x.to(ctx.device).clone()
-    shape = (ctx.size, max_deg) + tuple(value.shape[1:])
+    rows = ctx.n_local
+    shape = (rows, max_deg) + tuple(value.shape[1:])
     if zero_init:
         buffers = torch.zeros(shape, dtype=value.dtype, device=ctx.device)
     else:
         buffers = value.unsqueeze(1).expand(shape).clone()
     ctx.windows[name] = _Window(
         name, value, buffers,
-        torch.zeros((ctx.size, max_deg), dtype=torch.int32, device=ctx.device),
-        torch.ones((ctx.size,), dtype=torch.float32, device=ctx.device),
-        torch.zeros((ctx.size, max_deg), dtype=torch.float32, device=ctx.device),
+        torch.zeros((rows, max_deg), dtype=torch.int32, device=ctx.device),
+        torch.ones((rows,), dtype=torch.float32, device=ctx.device),
+        torch.zeros((rows, max_deg), dtype=torch.float32, device=ctx.device),
         in_neighbors, out_neighbors,
     )
     return True
@@ -188,8 +214,30 @@ def get_current_created_window_names() -> List[str]:
 
 
 def win_read(name: str) -> torch.Tensor:
-    """The current window value ``[N, *S]`` (the window's own tensor)."""
+    """The current window value ``[N, *S]`` (the window's own tensor;
+    across processes the local rows)."""
     return _get_win(ctx_mod.get_context(), name).value
+
+
+def _local_cols(ctx, a: np.ndarray) -> np.ndarray:
+    """The local workers' entries of a host array over every worker (its
+    last axis); the array itself with one process."""
+    if ctx.process_count == 1:
+        return a
+    return a[..., ctx.rows.start:ctx.rows.stop]
+
+
+def _local_row(ctx, rank: int) -> int:
+    """``rank``'s row in this process's lanes; a rank another process
+    holds raises, naming its owner."""
+    if not 0 <= rank < ctx.size:
+        raise ValueError(f"rank {rank} out of range for {ctx.size} workers")
+    if rank not in ctx.rows:
+        owner = int(np.searchsorted(np.cumsum(ctx.worker_counts), rank, side="right"))
+        raise ValueError(f"rank {rank} is held by process {owner}; this process "
+                         f"({ctx.process_index}) holds ranks {ctx.rows.start}.."
+                         f"{ctx.rows.stop - 1}")
+    return rank - ctx.rows.start
 
 
 # -- weight specs ------------------------------------------------------------
@@ -374,13 +422,14 @@ def window_wire() -> Optional[str]:
 
 class _Lowering(NamedTuple):
     """An exchange's structure: the rounds, the slot each writes, and the
-    device operands derived from them."""
+    device operands derived from them (across processes ``src`` is the
+    rounds' :class:`Route` and the slot operands hold the local columns)."""
 
     perms: tuple
     slot_table: np.ndarray  # [size, max(max_deg, 1)] round per slot, -1
-    src: torch.Tensor  # [R, size] int32 sender per round, -1 for none
-    slot_round: torch.Tensor  # [max_deg, size] int64 round per slot, clipped at 0
-    slot_written: torch.Tensor  # [max_deg, size] bool
+    src: object  # [R, size] int32 sender per round, -1 for none; or a Route
+    slot_round: torch.Tensor  # [max_deg, n_local] int64 round per slot, clipped at 0
+    slot_written: torch.Tensor  # [max_deg, n_local] bool
 
 
 def _lowered_exchange(ctx, win: _Window, w_edges: np.ndarray) -> _Lowering:
@@ -400,12 +449,14 @@ def _lowered_exchange(ctx, win: _Window, w_edges: np.ndarray) -> _Lowering:
         for r, perm in enumerate(perms):
             for s, d in perm:
                 src[r, d] = s
-        cols = table[:, :win.max_deg].T
+        cols = _local_cols(ctx, table[:, :win.max_deg].T)
+        src_op = (torch.from_numpy(src).to(ctx.device) if ctx.process_count == 1
+                  else transport.route(src, size, ctx))
         cached = ctx.op_cache[key] = _Lowering(
-            perms, table,
-            torch.from_numpy(src).to(ctx.device),
-            torch.from_numpy(np.clip(cols, 0, None).astype(np.int64)).to(ctx.device),
-            torch.from_numpy(cols >= 0).to(ctx.device),
+            perms, table, src_op,
+            torch.from_numpy(np.ascontiguousarray(np.clip(cols, 0, None).astype(np.int64)))
+            .to(ctx.device),
+            torch.from_numpy(np.ascontiguousarray(cols >= 0)).to(ctx.device),
         )
     return cached
 
@@ -421,11 +472,50 @@ def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.to(like.dtype).view((-1,) + (1,) * (like.dim() - 1))
 
 
-def _received(wire: Optional[str], xb: torch.Tensor, src: torch.Tensor):
-    """``(x_hat, [round r's received payload, decoded])`` of the sender
-    payloads ``xb [N, *S]``: ``x_hat`` is the sender's own reconstruction
-    (None on the exact wire)."""
+def _received(wire: Optional[str], xb: torch.Tensor, src, pv: Optional[torch.Tensor] = None):
+    """``(x_hat, [round r's received payload, decoded], [round r's
+    received p] or None)`` of the sender payloads ``xb [N, *S]`` (and of
+    the p lane ``pv [N]`` when given): ``x_hat`` is the sender's own
+    reconstruction (None on the exact wire). Across processes ``src`` is a
+    :class:`Route`: the local rows (their wire pairs) and p ship in one
+    exchange."""
+    if isinstance(src, Route):
+        return _received_route(wire, xb, src, pv)
     n_rounds = src.shape[0]
+    prounds = None if pv is None else [inner._gather(pv, src[r]) for r in range(n_rounds)]
+    return _received_stacked(wire, xb, src, n_rounds) + (prounds,)
+
+
+def _received_route(wire: Optional[str], xb: torch.Tensor, rt: Route, pv):
+    """:func:`_received` over the multi-process transport."""
+    extra = [] if pv is None else [pv.contiguous()]
+    n_rounds = rt.n_rounds
+    xhat = None
+    if wire in ("int8", "int4"):
+        flat = xb.to(torch.float32).reshape(xb.shape[0], -1)
+        n = flat.shape[1]
+        payload, scales = kernels.encode(kernels.pad_blocks(flat).contiguous(), wire)
+        ext = rt.exchange([payload, scales] + extra)
+
+        def full(p, s, src_r):
+            out = kernels.decode(p, s, src_r, wire, src_in_range=True)
+            return kernels.unpad_blocks(out, n).reshape(xb.shape)
+
+        xhat = full(payload, scales, None)
+        rounds = [full(ext[0], ext[1], rt[r]) for r in range(n_rounds)]
+    else:
+        sent = xb.to(torch.bfloat16) if wire == "bf16" else xb
+        ext = rt.exchange([sent.contiguous()] + extra)
+        rounds = [inner._gather(ext[0], rt[r]) for r in range(n_rounds)]
+        if wire == "bf16":
+            xhat = sent.to(torch.float32)
+            rounds = [t.to(torch.float32) for t in rounds]
+    prounds = None if pv is None else [inner._gather(ext[-1], rt[r]) for r in range(n_rounds)]
+    return xhat, rounds, prounds
+
+
+def _received_stacked(wire: Optional[str], xb: torch.Tensor, src: torch.Tensor, n_rounds: int):
+    """:func:`_received`'s ``(x_hat, rounds)`` on the stacked rows."""
     if wire == "bf16":
         q16 = xb.to(torch.bfloat16)
         rounds = [inner._gather(q16, src[r]).to(torch.float32) for r in range(n_rounds)]
@@ -456,7 +546,7 @@ def _exchange_core(mode: str, low: _Lowering, update_p: bool, max_deg: int,
 
     ``bufs`` is updated in place; returns ``(v, bufs, vers, p,
     p_buffers)``, the others new tensors."""
-    xhat, rounds = _received(wire, xb, low.src)
+    xhat, rounds, prounds = _received(wire, xb, low.src, pv if update_p else None)
     n_rounds = len(rounds)
     if n_rounds and max_deg:
         recvs = torch.empty((n_rounds,) + tuple(v.shape), dtype=v.dtype, device=v.device)
@@ -467,10 +557,7 @@ def _exchange_core(mode: str, low: _Lowering, update_p: bool, max_deg: int,
         workers = torch.arange(v.shape[0], device=v.device)
         zero = torch.zeros((), dtype=v.dtype, device=v.device)
         if update_p:
-            precvs = torch.stack([
-                inner._gather(pv, low.src[r]) * recv_w[r].to(pv.dtype)
-                for r in range(n_rounds)
-            ])
+            precvs = torch.stack([prounds[r] * recv_w[r].to(pv.dtype) for r in range(n_rounds)])
             pcols = []
         for k in range(max_deg):
             written = low.slot_written[k]
@@ -530,8 +617,9 @@ def _dispatch_exchange(win: _Window, ctx, mode: str, w_edges, participating,
     win.value, win.buffers, win.versions, win.p, win.p_buffers = _exchange_core(
         mode, low, ctx.p_enabled(), win.max_deg,
         win.value, win.buffers, win.versions, win.p, win.p_buffers, x,
-        _f32(_round_weights(low.perms, w_edges), dev), _f32(self_vec, dev),
-        wire=wire, sent_w=_f32(w_edges.sum(axis=1), dev),
+        _f32(_local_cols(ctx, _round_weights(low.perms, w_edges)), dev),
+        _f32(_local_cols(ctx, self_vec), dev),
+        wire=wire, sent_w=_f32(_local_cols(ctx, w_edges.sum(axis=1)), dev),
     )
     _note_exchange_age(win, low.slot_table, mode)
 
@@ -740,11 +828,12 @@ def _dispatch_update(win: _Window, ctx, self_weight, neighbor_weights, reset: bo
     (``tick=False``: as part of the exchange's local step)."""
     self_vec, w_recv, participating = _update_weights(ctx, win, self_weight, neighbor_weights)
     dev = ctx.device
+    rows = slice(ctx.rows.start, ctx.rows.stop)
     win.value, win.buffers, win.versions, win.p, win.p_buffers = _update_core(
         reset, ctx.p_enabled(), win.max_deg,
         win.value, win.buffers, win.versions, win.p, win.p_buffers,
-        _f32(self_vec, dev), _f32(_slot_weights(win, w_recv, ctx.size), dev),
-        torch.from_numpy(np.array(participating, bool)).to(dev),
+        _f32(self_vec[rows], dev), _f32(_slot_weights(win, w_recv, ctx.size)[rows], dev),
+        torch.from_numpy(np.array(participating[rows], bool)).to(dev),
     )
     _note_update_age(win, participating, reset, tick=tick)
 
@@ -785,7 +874,8 @@ def win_update_then_collect(name: str = None, require_mutex: bool = False) -> to
 
 def get_win_version(name: str = None, rank: Optional[int] = None, ages: bool = False):
     """Writes per in-neighbor buffer since the last ``win_update``:
-    per-rank dicts ``{in_neighbor: count}``, or one dict for ``rank``.
+    per-rank dicts ``{in_neighbor: count}`` (across processes, of the
+    local ranks), or one dict for ``rank`` (a local one).
     ``ages=True`` answers with :func:`get_win_age` instead: the write
     counter resets at every update, the age counts on from the write."""
     if ages:
@@ -794,10 +884,10 @@ def get_win_version(name: str = None, rank: Optional[int] = None, ages: bool = F
     win = _get_win(ctx, name)
     vers = win.versions.cpu().numpy()
     out = [
-        {s: int(vers[r, k]) for k, s in enumerate(win.in_neighbors[r])}
-        for r in range(ctx.size)
+        {s: int(vers[i, k]) for k, s in enumerate(win.in_neighbors[r])}
+        for i, r in enumerate(ctx.rows)
     ]
-    return out[rank] if rank is not None else out
+    return out[_local_row(ctx, rank)] if rank is not None else out
 
 
 def get_win_age(name: str = None, rank: Optional[int] = None, mass: bool = False):
@@ -828,8 +918,8 @@ def get_win_age(name: str = None, rank: Optional[int] = None, mass: bool = False
 def win_mutex(name: str = None, for_self: bool = False,
               ranks: Optional[Sequence[int]] = None):
     """Checks that the window exists and holds nothing: one process drives
-    every worker's ops in order, so there is no concurrent writer to keep
-    out."""
+    each worker group's ops in order, so there is no concurrent writer to
+    keep out."""
     _get_win(ctx_mod.get_context(), name)
     yield
 
@@ -846,8 +936,10 @@ def turn_off_win_ops_with_associated_p() -> None:
 
 
 def win_associated_p(name: str = None, rank: Optional[int] = None):
-    """The push-sum weights of the window: a ``[size]`` numpy array, or a
-    float for one rank."""
-    win = _get_win(ctx_mod.get_context(), name)
+    """The push-sum weights of the window: a ``[size]`` numpy array (across
+    processes ``[n_local]``, the local ranks'), or a float for one (local)
+    rank."""
+    ctx = ctx_mod.get_context()
+    win = _get_win(ctx, name)
     p = win.p.cpu().numpy()
-    return float(p[rank]) if rank is not None else p
+    return float(p[_local_row(ctx, rank)]) if rank is not None else p

@@ -297,6 +297,23 @@ Phases, one line each; any failure exits non-zero:
                world size 1, atc/int8 bitwise (a); a process that exits
                nonzero or passes ``TP_TIMEOUT`` fails the phase (and is
                killed); files deleted;
+11h. transport-state -- the window ops, the async engine, ZeRO and
+               checkpoint across processes on the same ResNet50, cuDNN
+               deterministic, 1 + 2 steps a tier
+               (:func:`phase_transport_state` states every gate):
+               push-sum/int8 and push-sum/int4 (the Exp graph), win-put/fp32,
+               async/int8 (phase 10's straggler, 4 ticks) and zero2/int8
+               (adam); (a) the stacked run in this process, each tier's
+               parameters, window lanes and sharded state saved under
+               ``build/transport_state``, push-sum/int8's checkpoint and its
+               next step; (b) two processes of four workers sharing the card
+               (``bfrun-torch``, gloo staged): every saved row bitwise (a),
+               the x mass over the processes within 1e-5 and p exactly 8 over
+               an lr-0 step, the bytes a step equal to the edge formulas, B1
+               and B5 in each process on every quantized tier, a line a tier;
+               (c) (b)'s checkpoint ``state.pt`` bitwise (a)'s, and (a)'s
+               restored in (b)'s processes, the next step bitwise (a)'s;
+               files deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -395,10 +412,12 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --phase federation-slo
     python3 chip_smoke.py --phase autotune
     python3 chip_smoke.py --phase transport
+    python3 chip_smoke.py --phase transport-state
 
-run phase 11d, 11e, 11f or 11g alone on the full-width ResNet50 (the wire
-kernels built first) and print no result line. Phase 11g's processes run
-``python3 chip_smoke.py --transport-child <config>``.
+run phase 11d, 11e, 11f, 11g or 11h alone on the full-width ResNet50 (the
+wire kernels built first) and print no result line. Phase 11g's processes
+run ``python3 chip_smoke.py --transport-child <config>``, phase 11h's
+``python3 chip_smoke.py --transport-state-child <config>``.
 
     python3 chip_smoke.py --planted-faults
 
@@ -574,6 +593,11 @@ PATH_KERNELS = {
     "transport a": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
     "transport": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
     "transport nccl": ("encode", "decode_accumulate"),
+    # the transport-state phase: (a) the stacked reference, (b) both
+    # processes' window, async and zero2 tiers (each process is gated on its
+    # own too): the window and async wires and the scatter, B1 and B5
+    "transport-state a": ("encode", "decode"),
+    "transport-state": ("encode", "decode"),
 }
 
 
@@ -5536,6 +5560,523 @@ def run_transport_alone():
     return 0
 
 
+TS_ROOT = "build/transport_state"
+TS_KERNELS = ("encode", "decode")
+TS_TICKS = 4  # async/int8: 1 warm-up and 3 timed ticks
+TS_CKPT = "push-sum/int8"  # the tier whose checkpoint (c) restores
+TS_LR0 = ("push-sum/int8", "push-sum/int4")  # the tiers with the mass gates
+TS_QUANTIZED = ("push-sum/int8", "push-sum/int4", "async/int8", "zero2/int8")
+
+
+def ts_tiers():
+    """``name -> env`` of the transport-state phase, in the order it runs
+    them: the window wire of the push-sum tiers, ZeRO-2's switches."""
+    return {
+        "push-sum/int8": {"BLUEFOG_WINDOW_WIRE": "int8"},
+        "push-sum/int4": {"BLUEFOG_WINDOW_WIRE": "int4"},
+        "win-put/fp32": {},
+        "async/int8": {},
+        "zero2/int8": {"BLUEFOG_SHARD": "1", "BLUEFOG_SHARD_GRADS": "1"},
+    }
+
+
+def ts_log(msg):
+    """One line in one write: the two processes of part (b) share a pipe."""
+    sys.stdout.write(f"[transport-state] {msg}\n")
+    sys.stdout.flush()
+
+
+def ts_masses(win):
+    """``[x mass, sum |x|, p mass]`` of a window over every process, float64
+    sums of values plus buffers: one ``gather_rows`` of the local rows'
+    sums."""
+    from bluefog_tpu_torch.collective import transport
+
+    f64 = torch.float64
+    rows = win.value.shape[0]
+    v = win.value.to(f64).reshape(rows, -1)
+    b = win.buffers.reshape(rows, -1)
+    local = torch.stack([v.sum(1) + torch.sum(b, 1, dtype=f64),
+                         v.abs().sum(1) + torch.sum(b.abs(), 1, dtype=f64),
+                         win.p.to(f64) + win.p_buffers.to(f64).sum(1)], dim=1)
+    if bft.get_context().process_count > 1:
+        local = transport.gather_rows(local.contiguous())
+    return [float(t) for t in local.sum(0)]
+
+
+def ts_expected_bytes(ctx, name, width, slot=None):
+    """The bytes process ``ctx.process_index`` hands to ``isend`` in one
+    step of tier ``name``. Window tiers: the exchange's edges from its rows
+    to another process's (push-sum and win-put: the Exp graph's out-edges,
+    async: the ring's) times ``wire_payload_bytes`` of the window wire,
+    plus 4 an edge for the p lane (push-sum, async). zero2/int8: the
+    reduce-scatter's crossing edges over its rounds times
+    ``wire_payload_bytes(slot, 4, 'int8')``, plus ZeRO's gather of the
+    updated slots (its rows to every other process)."""
+    from bluefog_tpu_torch.collective import compiler
+    from bluefog_tpu_torch.scaling import wire_payload_bytes
+
+    rows = ctx.rows
+    crossing = lambda pairs: sum(1 for s, d in pairs if s in rows and d not in rows)  # noqa
+    if name == "zero2/int8":
+        perms = compiler.compile_reduce_scatter(SIZE).perms
+        scatter = crossing([pair for perm in perms for pair in perm])
+        return (scatter * wire_payload_bytes(slot, 4, "int8")
+                + ctx.n_local * (ctx.process_count - 1) * slot * 4)
+    outs = ctx.out_neighbor_ranks()
+    edges = crossing([(s, d) for s in range(SIZE) for d in outs[s]])
+    wire = {"push-sum/int8": "int8", "push-sum/int4": "int4", "async/int8": "int8"}.get(name)
+    p_lane = 0 if name == "win-put/fp32" else 4
+    return edges * (wire_payload_bytes(width, 4, wire) + p_lane)
+
+
+def ts_run_tier(device, sm, images, labels, name, warmup, timed, ckpt=None, restore=None):
+    """Tier ``name`` on the active context: ``warmup + timed`` steps from
+    the replicated parameters and the phase's batch statistics (the async
+    tier: ``TS_TICKS`` ticks). Returns ``(numbers, state)``: ``state`` holds
+    this process's rows (on the CPU) of the parameters, the window lanes
+    (value, p, versions) and the sharded state. With ``ckpt`` (push-sum)
+    the run then saves a checkpoint there and takes one more step
+    (``state["next"]``); with ``restore`` it starts from that checkpoint
+    and takes one step only. The push-sum tiers end with an lr-0 step whose
+    masses (gathered over the processes) are ``numbers["mass"]``."""
+    from bluefog_tpu_torch import checkpoint
+    from bluefog_tpu_torch.collective import transport
+
+    ctx = bft.get_context()
+    workers = torch.arange(ctx.n_local)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    times, sent, state_out = [], [], {}
+    numbers = {}
+
+    def timed_call(i, fb, opt_step):
+        sync(device)
+        t0 = time.perf_counter()
+        fb()
+        sync(device)
+        t1 = time.perf_counter()
+        before = transport.stats()
+        opt_step()
+        sync(device)
+        t2 = time.perf_counter()
+        after = transport.stats()
+        sent.append(after["bytes"] - before["bytes"])
+        if i >= warmup:
+            times.append((t2 - t0, t1 - t0, t2 - t1, after["seconds"] - before["seconds"]))
+
+    with env_set(ts_tiers()[name]):
+        grads = torch.empty((ctx.n_local, sm.width), dtype=torch.float32, device=device)
+        if name.startswith(("push-sum", "win-put")):
+            bft.set_topology(topo.ExponentialGraph(SIZE))
+            make = (bft.DistributedPushSumOptimizer if name.startswith("push-sum")
+                    else bft.DistributedWinPutOptimizer)
+            opt = make(bft.sgd(0.1, momentum=0.9))
+            state = opt.init(sm.replicate())
+            if restore is not None:
+                _s, _p, state = checkpoint.restore(restore, optimizer=opt, extra=sm.buffers)
+            box = [opt.params(), state]
+
+            def step():
+                box[0], box[1] = opt.step(box[1], grads)
+
+            for i in range(1 if restore is not None else warmup + timed):
+                timed_call(i, lambda: sm.loss_and_grad(box[0], images, labels, grads), step)
+            win = ctx.windows[opt._name]
+            # copies now: the next step updates the window value in place
+            state_out = {k: v.detach().cpu().clone() for k, v in dict(
+                params=box[0], value=win.value, p=win.p, versions=win.versions).items()}
+            if ckpt is not None:
+                checkpoint.save(ckpt, warmup + timed, box[0], box[1], optimizer=opt,
+                                extra=sm.buffers)
+                if ctx.process_count == 1:  # (a) takes the step (c) takes after a restore
+                    sm.loss_and_grad(box[0], images, labels, grads)
+                    step()
+                    state_out["next"] = box[0].detach().cpu().clone()
+            if name in TS_LR0 and restore is None:
+                numbers["mass0"] = ts_masses(win)
+                opt.tx = bft.sgd(0.0, momentum=0.9)
+                sm.loss_and_grad(box[0], images, labels, grads)
+                step()
+                sync(device)
+                numbers["mass"] = ts_masses(win)
+            opt.free()
+            del opt, box, win
+        elif name == "async/int8":
+            bft.set_topology(topo.RingGraph(SIZE, connect_style=1))
+            opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1, momentum=0.9))
+            params = sm.replicate()
+            state = opt.init(params)
+            tick = bft.make_async_train_step(opt, sm.worker_loss,
+                                             cadence={ASYNC_SLOW: ASYNC_FACTOR},
+                                             max_age=ASYNC_MAX_AGE, policy="drop", wire="int8",
+                                             buffers=sm.buffers)
+            eng = tick.engine
+            box = [params, state]
+            eng_local, local_s = eng._local_step, []
+
+            def timed_local(*args):
+                # the due ranks' forward+backward and update, timed apart
+                # from the exchange and the fold (the optimizer part)
+                sync(device)
+                t0 = time.perf_counter()
+                eng_local(*args)
+                sync(device)
+                local_s.append(time.perf_counter() - t0)
+
+            eng._local_step = timed_local
+            for i in range(TS_TICKS):
+                sync(device)
+                t0 = time.perf_counter()
+                before = transport.stats()
+                box[0], box[1], _loss = tick(box[0], box[1], images, labels, workers)
+                sync(device)
+                tick_s = time.perf_counter() - t0
+                after = transport.stats()
+                sent.append(after["bytes"] - before["bytes"])
+                if i >= 1:
+                    times.append((tick_s, local_s[-1], tick_s - local_s[-1],
+                                  after["seconds"] - before["seconds"]))
+            del eng._local_step  # the class's method again
+            win = ctx.windows[eng._name]
+            numbers["summary"] = eng.summary()
+            numbers["advisories"] = [a.to_json() for a in eng.advisories]
+            state_out = {k: v.detach().cpu().clone() for k, v in dict(
+                params=box[0], value=win.value, p=win.p, versions=win.versions).items()}
+            eng.free()
+            del eng, tick, box, win, opt, state
+        else:  # zero2/int8
+            opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(ZERO_LR))
+            opt.compression = "int8"
+            params = sm.replicate()
+            state = opt.init(params)
+            for i in range(warmup + timed):
+                timed_call(i, lambda: sm.loss_and_grad(params, images, labels, grads),
+                           lambda: opt.step(params, state, grads))
+            numbers["slot"] = opt._shard_layout.groups[0].slot
+            from bluefog_tpu_torch.optimizers import tree_leaves
+
+            state_out = {"params": params.detach().cpu().clone()}
+            state_out.update({f"shard_{i}": t.detach().cpu().clone()
+                              for i, t in enumerate(tree_leaves(state))})
+            opt.free()
+            del opt, state, params
+        del grads
+    numbers["launches"] = launch_counts()
+    for key, v in state_out.items():
+        if not torch.isfinite(v.float()).all():
+            raise AssertionError(f"transport-state {name}: non-finite {key}")
+    med = [statistics.median(t[c] for t in times) for c in range(4)]
+    numbers.update(step_s=med[0], fb_s=med[1], opt_ms=med[2] * 1e3, transport_ms=med[3] * 1e3,
+                   bytes_per_step=sent,
+                   peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                             if device.type == "cuda" else float("nan")))
+    return numbers, state_out
+
+
+def ts_config(root, device, part, names, warmup, timed, trainer_kw):
+    path = os.path.join(root, f"config_{part}.json")
+    with open(path, "w") as f:
+        json.dump(dict(root=root, device=device.type, part=part, tiers=list(names),
+                       warmup=warmup, timed=timed, trainer=trainer_kw), f)
+    return path
+
+
+def run_transport_state_child(config_path):
+    """``python3 chip_smoke.py --transport-state-child <config>``: one
+    process of part (b) (launched by ``bfrun-torch``): joins the process
+    group through ``bft.init``, builds its rows of the ResNet50 and of the
+    batch, runs the tiers, holds its rows against part (a)'s, writes its own
+    checkpoint, then restores (a)'s for part (c); its numbers go to
+    ``child_<process>.json``."""
+    import torch.distributed as dist
+
+    with open(config_path) as f:
+        cfg = json.load(f)
+    device = torch.device(cfg["device"])
+    root = cfg["root"]
+    ctx = bft.init(size=SIZE, device=device)
+    if device.type == "cuda":
+        _build.wire_library()
+    sm, images, labels = build_trainer(device, rows=ctx.rows, **cfg["trainer"])
+    lo, hi = ctx.rows.start, ctx.rows.stop
+    # (a)'s starting batch statistics, this process's rows
+    stats0 = {k: v[lo:hi].to(device) for k, v in torch.load(
+        tp_file(root, "stats0"), map_location="cpu", weights_only=True).items()}
+    res = dict(process=ctx.process_index, process_count=ctx.process_count, rows=[lo, hi],
+               backend=dist.get_backend(), staged=ctx.staged, tiers={})
+    tag = (f"(b) process {ctx.process_index}/{ctx.process_count} rows {lo}..{hi - 1} "
+           f"({res['backend']}{', staged' if ctx.staged else ''})")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in cfg["tiers"]:
+            sm.load_buffers(stats0)
+            ckpt = os.path.join(root, "ckpt_b") if name == TS_CKPT else None
+            row, state = ts_run_tier(device, sm, images, labels, name, cfg["warmup"],
+                                     cfg["timed"], ckpt=ckpt)
+            ref = torch.load(tp_file(root, name), map_location="cpu", weights_only=True)
+            row["bitwise"] = {k: bool(torch.equal(bits(v), bits(ref[k][lo:hi])))
+                              for k, v in state.items() if k != "next"}
+            row["expected_bytes"] = ts_expected_bytes(ctx, name, sm.width, row.get("slot"))
+            res["tiers"][name] = row
+            del ref, state
+            ts_log(f"{tag} {name}: step {row['step_s']:.4f} s, optimizer {row['opt_ms']:.1f} ms, "
+                   f"transport {row['transport_ms']:.1f} ms a step, {row['bytes_per_step'][-1]} "
+                   f"B sent a step (expected {row['expected_bytes']}), peak "
+                   f"{row['peak_gib']:.2f} GiB, launches "
+                   f"{ {k: v for k, v in row['launches'].items() if v} }, bitwise (a): "
+                   f"{row['bitwise']}"
+                   + (f", masses {row['mass0']} -> {row['mass']}" if "mass" in row else ""))
+        if TS_CKPT in cfg["tiers"]:
+            # (c): (a)'s checkpoint restored here, one more step
+            sm.load_buffers(stats0)
+            row, state = ts_run_tier(device, sm, images, labels, TS_CKPT, 0, 1,
+                                     restore=os.path.join(root, "ckpt_a"))
+            ref = torch.load(tp_file(root, "next"), map_location="cpu", weights_only=True)
+            row["bitwise"] = {"next": bool(torch.equal(bits(state["params"]),
+                                                       bits(ref[lo:hi])))}
+            res["restored"] = row
+            ts_log(f"{tag} (c) {TS_CKPT} restored from (a)'s checkpoint, one step: "
+                   f"{row['step_s']:.4f} s, bitwise (a)'s next step: {row['bitwise']['next']}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    with open(os.path.join(root, f"child_{ctx.process_index}.json"), "w") as f:
+        json.dump(res, f)
+    bft.shutdown()
+    return 0
+
+
+def ts_same_tree(a, b, where=""):
+    """Two loaded checkpoints of one structure, every tensor bitwise
+    equal; returns the tensors compared. Other leaves are not held: the
+    window's name counts the windows a process created before."""
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(bits(a), bits(b))):
+            raise AssertionError(f"transport-state (c): checkpoint leaf {where} differs")
+        return 1
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"transport-state (c): checkpoint keys {where} differ")
+        return sum(ts_same_tree(a[k], b[k], f"{where}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"transport-state (c): checkpoint {where} differs")
+        return sum(ts_same_tree(x, y, f"{where}[{i}]") for i, (x, y) in enumerate(zip(a, b)))
+    return 0
+
+
+def phase_transport_state(device, sm, images, labels, root=TS_ROOT, smi="", trainer_kw=None,
+                          names=None, warmup=1, timed=2):
+    """Phase 11h: the window ops, the async engine, ZeRO and checkpoint
+    across processes, on the ResNet50 of the train-step phase
+    (``bench.py::run_headline``'s settings: 8 workers, 64 images of 224 x
+    224 each, the seeds of phase 7), cuDNN deterministic, each tier 1
+    warm-up and 2 timed steps from the replicated parameters:
+    ``push-sum/int8`` and ``push-sum/int4`` (``DistributedPushSumOptimizer
+    (sgd(0.1, 0.9))`` on ``BLUEFOG_WINDOW_WIRE``, the Exp graph, as phase 8
+    builds it), ``win-put/fp32``, ``async/int8`` (phase 10's straggler:
+    the ring, rank 6 at one tenth of the cadence, ``max_age`` 4, for 4
+    ticks) and ``zero2/int8`` (``DistributedGradientAllreduceOptimizer(
+    adam(1e-4))`` under ``BLUEFOG_SHARD=1 BLUEFOG_SHARD_GRADS=1``, the
+    ``zero2/int8`` row of ``ZERO_TIERS``).
+
+    (a) The stacked reference in this process, every tier from the batch
+    statistics the phase is given (saved for (b)): each tier's parameters,
+    window lanes (value, p, versions) and sharded state are saved under
+    ``build/transport_state/``; ``push-sum/int8`` writes a checkpoint after
+    its timed steps and takes one more step. Then this process frees its
+    tensors and empties the allocator's cache.
+
+    (b) Two processes sharing the card, started by the port's launcher
+    (``bfrun-torch -np 8 -H localhost:4,localhost:4``), four workers each,
+    gloo with the CUDA rows staged through pinned host memory. Gates: each
+    process exits 0 within ``TP_TIMEOUT`` (else it is killed); its rows of
+    every saved tensor equal rows ``4p .. 4p + 3`` of (a) bit for bit on
+    every tier; the x mass summed over the two processes (one
+    ``gather_rows``) stays within ``ASYNC_MASS_TOL`` of its start, relative
+    to its ``sum |x|``, over an lr-0 step, and the p mass is exactly 8 (the
+    push-sum tiers, in (a) too); the bytes it hands to ``isend`` in every
+    step equal :func:`ts_expected_bytes`; it launches ``encode`` and
+    ``decode`` on every quantized tier. Each prints a line a tier: step s,
+    optimizer ms, transport ms a step, bytes sent, peak GiB, launches.
+
+    (c) Checkpoint across layouts: (b)'s processes restore (a)'s
+    ``push-sum/int8`` checkpoint and take one more step, bitwise (a)'s next
+    step; the checkpoint (b) wrote after its timed steps has a ``state.pt``
+    whose tensors are bitwise (a)'s, and the same sidecar.
+
+    Files under ``build/transport_state/``, deleted. Returns
+    ``({"transport-state a":, "transport-state":}, numbers)``: (b)'s counts
+    are the sum of its two processes' (part (c) included)."""
+    import shutil
+
+    names = list(ts_tiers()) if names is None else list(names)
+    trainer_kw = {} if trainer_kw is None else dict(trainer_kw)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    root = os.path.abspath(root)
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in launch_counts()}
+    counts = {"transport-state a": dict(zero), "transport-state": dict(zero)}
+    ctx = bft.init(size=SIZE, device=device)
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    # the batch statistics every tier starts from, here and in (b)'s
+    # processes: the checkpoint holds them, so they must agree bitwise
+    torch.save({k: v.cpu() for k, v in stats0.items()}, tp_file(root, "stats0"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    numbers = {"a": {}}
+    try:
+        for name in names:
+            sm.load_buffers(stats0)
+            ckpt = os.path.join(root, "ckpt_a") if name == TS_CKPT else None
+            row, state = ts_run_tier(device, sm, images, labels, name, warmup, timed, ckpt=ckpt)
+            if "next" in state:
+                torch.save(state.pop("next"), tp_file(root, "next"))
+            torch.save(state, tp_file(root, name))
+            del state
+            numbers["a"][name] = row
+            for k, v in row["launches"].items():
+                counts["transport-state a"][k] += v
+            ts_mass_gate(f"(a) {name}", row)
+            log("transport-state", f"(a) stacked, one process, 8 workers: {name}: step "
+                                   f"{row['step_s']:.4f} s, optimizer {row['opt_ms']:.1f} ms, "
+                                   f"peak {row['peak_gib']:.2f} GiB, launches "
+                                   f"{ {k: v for k, v in row['launches'].items() if v} }"
+                                   + (f", masses {row['mass0']} -> {row['mass']}"
+                                      if "mass" in row else ""))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    sm.load_buffers(stats0)
+    a_s = time.perf_counter() - t_phase
+    bft.init(size=SIZE, device=device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "chip_smoke.py")
+    t0 = time.perf_counter()
+    cfg = ts_config(root, device, "b", names, warmup, timed, trainer_kw)
+    tp_spawn([sys.executable, "-m", "bluefog_tpu_torch.run.run", "-np", str(SIZE), "-H", TP_HOSTS,
+              "--coordinator", f"127.0.0.1:{tp_free_port()}", "--num-processes", "2",
+              script, "--transport-state-child", cfg], tp_child_env())
+    b_s = time.perf_counter() - t0
+    numbers["b"] = []
+    for p in range(2):
+        with open(os.path.join(root, f"child_{p}.json")) as f:
+            res = json.load(f)
+        numbers["b"].append(res)
+        if (res["process_count"], res["rows"], res["backend"]) != (2, [4 * p, 4 * p + 4], "gloo"):
+            raise AssertionError(f"transport-state (b) process {p}: {res['process_count']} "
+                                 f"processes, rows {res['rows']}, backend {res['backend']}")
+        if res["staged"] != (device.type == "cuda"):
+            raise AssertionError(f"transport-state (b) process {p}: staged {res['staged']}")
+        for name in names:
+            row = res["tiers"][name]
+            wrong = [k for k, same in row["bitwise"].items() if not same]
+            if wrong:
+                raise AssertionError(f"transport-state (b) process {p} {name}: rows "
+                                     f"{4 * p}..{4 * p + 3} of {wrong} differ from (a)")
+            if any(b != row["expected_bytes"] for b in row["bytes_per_step"]):
+                raise AssertionError(f"transport-state (b) process {p} {name}: sent "
+                                     f"{row['bytes_per_step']} B a step, expected "
+                                     f"{row['expected_bytes']}")
+            ts_mass_gate(f"(b) process {p} {name}", row)
+            if device.type == "cuda" and name in TS_QUANTIZED:
+                missing = [k for k in TS_KERNELS if row["launches"][k] == 0]
+                if missing:
+                    raise AssertionError(f"transport-state (b) process {p} {name} launched no "
+                                         f"{missing}: {row['launches']}")
+            if name == "async/int8" and row["summary"] != numbers["a"][name]["summary"]:
+                raise AssertionError(f"transport-state (b) process {p}: the async summary "
+                                     f"{row['summary']} differs from (a)'s")
+            for k, v in row["launches"].items():
+                counts["transport-state"][k] += v
+        if TS_CKPT in names:
+            if not res["restored"]["bitwise"]["next"]:
+                raise AssertionError(f"transport-state (c) process {p}: the step after "
+                                     f"restoring (a)'s checkpoint differs from (a)'s next step")
+            for k, v in res["restored"]["launches"].items():
+                counts["transport-state"][k] += v
+
+    numbers["c"] = None
+    if TS_CKPT in names:
+        from bluefog_tpu_torch import checkpoint
+
+        t0 = time.perf_counter()
+        step = checkpoint.latest_step(os.path.join(root, "ckpt_a"))
+        paths = [os.path.join(root, d, str(step)) for d in ("ckpt_a", "ckpt_b")]
+        loaded = [torch.load(os.path.join(p, "state.pt"), map_location="cpu", weights_only=True)
+                  for p in paths]
+        n_tensors = ts_same_tree(loaded[0], loaded[1])
+        sides = []
+        for d in ("ckpt_a", "ckpt_b"):
+            with open(os.path.join(root, d, f"{step}.graph.json")) as f:
+                sides.append(f.read())
+        if sides[0] != sides[1]:
+            raise AssertionError("transport-state (c): the sidecars differ")
+        size = os.path.getsize(os.path.join(paths[0], "state.pt"))
+        del loaded
+        numbers["c"] = {"tensors": n_tensors, "bytes": size, "check_s": time.perf_counter() - t0}
+        log("transport-state", f"(c) {TS_CKPT}: (b)'s checkpoint state.pt ({size} B, "
+                               f"{n_tensors} tensors) bitwise (a)'s, the sidecars equal; (a)'s "
+                               f"restored in both processes, the next step bitwise (a)'s")
+    shutil.rmtree(root, ignore_errors=True)
+    for name in names:
+        per = [r["tiers"][name] for r in numbers["b"]]
+        a = numbers["a"][name]
+        how = ("sharing the card, gloo staged through pinned host memory"
+               if numbers["b"][0]["staged"] else "on the CPU, gloo")
+        log("transport-state", f"(b) {name}: two processes x 4 workers {how}: step "
+                               f"{max(r['step_s'] for r in per):.4f} s (stacked "
+                               f"{a['step_s']:.4f}), optimizer "
+                               f"{max(r['opt_ms'] for r in per):.1f} ms (stacked "
+                               f"{a['opt_ms']:.1f}), transport "
+                               f"{max(r['transport_ms'] for r in per):.1f} ms a step, "
+                               f"{per[0]['bytes_per_step'][-1]} / {per[1]['bytes_per_step'][-1]} "
+                               f"B sent a step, peak {max(r['peak_gib'] for r in per):.2f} GiB "
+                               f"(stacked {a['peak_gib']:.2f}); rows bitwise (a); on {smi}")
+    log("transport-state", f"launches {counts}; (a) {a_s:.1f} s, (b) and (c) {b_s:.1f} s of "
+                           f"processes; phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, numbers
+
+
+def ts_mass_gate(where, row):
+    """The push-sum tiers' masses over an lr-0 step: the x mass within
+    ``ASYNC_MASS_TOL`` of its start, relative to its ``sum |x|``; the p mass
+    exactly ``SIZE`` before and after."""
+    if "mass" not in row:
+        return
+    (x0, abs0, p0), (x1, _abs1, p1) = row["mass0"], row["mass"]
+    if not abs(x1 - x0) <= ASYNC_MASS_TOL * abs0:
+        raise AssertionError(f"transport-state {where}: x mass drifted {abs(x1 - x0):.4g} "
+                             f"(> {ASYNC_MASS_TOL} of {abs0:.4g})")
+    if p0 != SIZE or p1 != SIZE:
+        raise AssertionError(f"transport-state {where}: p mass {p0!r} -> {p1!r}, not {SIZE}")
+
+
+def run_transport_state_alone():
+    """``python3 chip_smoke.py --phase transport-state``: phase 11h alone on
+    the full-width ResNet50 (the wire kernels built first); its gates as in
+    the whole run, its lines and its launch counts. Prints no result line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    bft.init(size=SIZE)
+    sm, images, labels = build_trainer(device)
+    counts, _numbers = phase_transport_state(device, sm, images, labels, smi=smi)
+    for path in ("transport-state a", "transport-state"):
+        missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    return 0
+
+
 def lm_flops_per_step(sm, seq, batch):
     """bench.py's model FLOPs of one step of every worker: per token
     ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
@@ -6503,6 +7044,8 @@ def run_autotune_alone():
 def main():
     if sys.argv[1:2] == ["--transport-child"] and len(sys.argv) == 3:
         return run_transport_child(sys.argv[2])
+    if sys.argv[1:2] == ["--transport-state-child"] and len(sys.argv) == 3:
+        return run_transport_state_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -6518,6 +7061,8 @@ def main():
         return run_autotune_alone()
     if sys.argv[1:] == ["--phase", "transport"]:
         return run_transport_alone()
+    if sys.argv[1:] == ["--phase", "transport-state"]:
+        return run_transport_state_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -6599,6 +7144,9 @@ def main():
     torch.cuda.empty_cache()
     tp_counts, _tp = phase_transport(device, sm, images, labels, smi=smi)
     counts.update(tp_counts)
+    torch.cuda.empty_cache()
+    ts_counts, _ts = phase_transport_state(device, sm, images, labels, smi=smi)
+    counts.update(ts_counts)
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))

@@ -1316,3 +1316,97 @@ def test_two_processes_sharing_the_card_equal_the_stacked_rows(cuda, tmp_path):
             assert torch.equal(_bits(got[key]), _bits(ref.cpu()[4 * p:4 * p + 4])), (p, key)
         for k in ("encode", "decode_accumulate", "encode_diff", "decode_add"):
             assert got["launches"][k] > 0, (p, got["launches"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", WIRES)
+def test_decode_of_an_extended_payload_is_bitwise_plain(cuda, wire):
+    """The ``decode`` kernel with ``src [N]`` over ``P > N`` payload rows
+    (the transport's extended payload: 4 local rows, then 5 received),
+    senders anywhere in ``[-1, P)``, bitwise its plain version."""
+    x = ragged_input(cuda, seed=31)
+    x = torch.cat([x, x[:1] * 0.5])  # P = 9 payload rows
+    p, s = kernels.encode(kernels.pad_blocks(x).contiguous(), wire)
+    src = torch.tensor([8, -1, 0, 5], dtype=torch.int32, device=cuda)
+    before = kernels.launch_counts()["decode"]
+    got = kernels.decode(p, s, src, wire)
+    assert kernels.launch_counts()["decode"] == before + 1
+    want = kernels.decode_reference(p.cpu(), s.cpu(), src.cpu(), wire)
+    assert got.shape == (4, p.shape[1] * kernels.CHUNK)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+WINDOW_WORKER = """
+import os, sys
+import numpy as np
+import torch
+import bluefog_tpu_torch as bft
+from bluefog_tpu_torch import topology as topo
+from bluefog_tpu_torch.collective import kernels
+os.environ["BLUEFOG_WINDOW_WIRE"] = "int8"
+ctx = bft.init(size=8, device="cuda")
+assert ctx.process_count == 2 and ctx.backend == "gloo" and ctx.staged, (ctx.backend, ctx.staged)
+xs = np.load(sys.argv[1])
+bft.set_topology(topo.ExponentialTwoGraph(8))
+bft.win_create(bft.worker_values(list(xs)), "w")
+bft.turn_on_win_ops_with_associated_p()
+bft.win_accumulate(bft.worker_values(list(xs * 0.5)), "w", self_weight=0.5)
+bft.win_put(name="w")
+win = ctx.windows["w"]
+out = {f: getattr(win, f).cpu() for f in ("value", "buffers", "versions", "p", "p_buffers")}
+out["launches"] = kernels.launch_counts()
+out["rows"] = list(ctx.rows)
+torch.save(out, os.path.join(sys.argv[2], f"window_{ctx.process_index}.pt"))
+bft.shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_window_exchange_equals_the_stacked_rows(cuda, tmp_path):
+    """Two processes of four workers sharing the card (gloo, staged): a
+    ``win_accumulate`` and a ``win_put`` on the int8 window wire with the p
+    lane on leave each process's lanes bitwise the same rows of the stacked
+    run on the card, and each process launches ``encode`` and ``decode``
+    (on payload rows received from the other)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    xs = ragged_input("cpu", seed=23).numpy()
+    np.save(tmp_path / "x.npy", xs)
+    script = tmp_path / "worker.py"
+    script.write_text(WINDOW_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BLUEFOG_")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.run.run", "-np", "8", "-H",
+         "localhost:4,localhost:4", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+         "2", str(script), str(tmp_path / "x.npy"), str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    os.environ["BLUEFOG_WINDOW_WIRE"] = "int8"
+    ctx = bft.init(size=8, device=cuda)
+    try:
+        bft.set_topology(topo.ExponentialTwoGraph(8))
+        bft.win_create(bft.worker_values(list(xs)), "w")
+        bft.turn_on_win_ops_with_associated_p()
+        bft.win_accumulate(bft.worker_values(list(xs * 0.5)), "w", self_weight=0.5)
+        bft.win_put(name="w")
+        win = ctx.windows["w"]
+        want = {f: getattr(win, f).cpu() for f in ("value", "buffers", "versions", "p",
+                                                    "p_buffers")}
+    finally:
+        del os.environ["BLUEFOG_WINDOW_WIRE"]
+        bft.shutdown()
+    for p in range(2):
+        got = torch.load(tmp_path / f"window_{p}.pt", weights_only=False)
+        assert got["rows"] == list(range(4 * p, 4 * p + 4))
+        for key, ref in want.items():
+            assert torch.equal(_bits(got[key]), _bits(ref[4 * p:4 * p + 4])), (p, key)
+        for k in ("encode", "decode"):
+            assert got["launches"][k] > 0, (p, got["launches"])

@@ -19,8 +19,10 @@ broadcast, pair gossip, ``neighbor_allgather``, and three
 combine hands to ``isend`` must equal the edges from local to remote rows
 times ``scaling.wire_payload_bytes``. The CTA and hierarchical legs of
 ``tests/test_multiprocess.py``'s worker are mirrored (loss below 0.2 x
-start, the same on every process), and every refused path raises naming
-ROADMAP A14c.
+start, the same on every process), every refused path raises naming
+ROADMAP A14c, and each path refused before the window ops, the async
+engine, ZeRO and checkpoint ran across processes runs and equals the
+stacked rows (``test_torch_transport_state.py`` holds them in depth).
 
 Every job runs once per module (a module-scoped fixture), all of them at
 once, each process under its own timeout.
@@ -52,9 +54,12 @@ TRAIN_STEPS = 3
 JOB_TIMEOUT = 120
 # (name, worker counts per process, nodes per machine)
 CONFIGS = [("2x4", (4, 4), 4), ("4x2", (2, 2, 2, 2), 2), ("3+5", (3, 5), 1)]
-REFUSED = ("win_create", "push_sum", "win_put", "pull_get", "async", "elastic", "checkpoint_save",
-           "checkpoint_restore", "reduce_scatter", "shard", "pods", "shortcut", "doctor",
-           "staleness", "memory", "health", "slo", "autotune", "metrics")
+REFUSED = ("elastic", "pods", "shortcut", "doctor", "staleness", "memory", "health", "slo",
+           "autotune", "metrics")
+# refused until the window ops, the async engine, ZeRO and checkpoint ran
+# across processes; each now runs and equals the stacked rows
+FORMERLY_REFUSED = ("win_create", "push_sum", "win_put", "pull_get", "async", "checkpoint_save",
+                    "checkpoint_restore", "reduce_scatter", "shard", "shard:dispatch")
 
 
 def _tiny_resnet(n_local, rows):
@@ -81,26 +86,12 @@ def _train(out, name, opt, params, loss_fn, *batch):
 
 def _refusals(out, level):
     """Every refused path's message (its ValueError), or 'no error'."""
-    x = bft.worker_values(lambda r: np.full(4, float(r), np.float32))
-    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
-    calls = {
-        "win_create": lambda: bft.win_create(x, "w"),
-        "push_sum": lambda: bft.DistributedPushSumOptimizer(bft.sgd(0.1)),
-        "win_put": lambda: bft.DistributedWinPutOptimizer(bft.sgd(0.1)),
-        "pull_get": lambda: bft.DistributedPullGetOptimizer(bft.sgd(0.1)),
-        "async": lambda: bft.make_async_train_step(opt, lambda p: p.sum()),
-        "elastic": lambda: bft.elastic.start(),
-        "checkpoint_save": lambda: bft.checkpoint.save("unused", 0, x, ()),
-        "checkpoint_restore": lambda: bft.checkpoint.restore("unused", 0),
-        "reduce_scatter": lambda: inner.reduce_scatter(x, list(range(SIZE)), 512),
-    }
-    for name, fn in calls.items():
-        try:
-            fn()
-            out[f"refused:{name}"] = "no error"
-        except ValueError as e:
-            out[f"refused:{name}"] = str(e)
-    env = {"shard": ("BLUEFOG_SHARD", "1"), "pods": ("BLUEFOG_PODS", "2"),
+    try:
+        bft.elastic.start()
+        out["refused:elastic"] = "no error"
+    except ValueError as e:
+        out["refused:elastic"] = str(e)
+    env = {"pods": ("BLUEFOG_PODS", "2"),
            "shortcut": ("BLUEFOG_PLAN_METHOD", "shortcut"), "doctor": ("BLUEFOG_DOCTOR", "1"),
            "staleness": ("BLUEFOG_STALENESS", "1"), "memory": ("BLUEFOG_MEMORY", "1"),
            "health": ("BLUEFOG_HEALTH", "1"), "slo": ("BLUEFOG_SLO", "1"),
@@ -119,16 +110,56 @@ def _refusals(out, level):
             del os.environ[key]
             bft.shutdown()
     bft.init(size=SIZE, device="cpu", nodes_per_machine=level)
-    os.environ["BLUEFOG_SHARD"] = "1"
-    try:
-        params = bft.worker_values(np.zeros(4, np.float32))
-        gopt = bft.DistributedGradientAllreduceOptimizer(bft.sgd(0.1))
-        gopt.step(params, gopt.init(params), params.clone())
-        out["refused:shard:dispatch"] = "no error"
-    except ValueError as e:
-        out["refused:shard:dispatch"] = str(e)
-    finally:
-        del os.environ["BLUEFOG_SHARD"]
+
+
+def _formerly_refused(out, level):
+    """Each path refused across processes before this slice, run: its
+    result, this process's rows (the checkpoint's file: every row)."""
+    x = bft.worker_values(lambda r: np.arange(1024, dtype=np.float32) * 0.01 + r)
+    g = bft.worker_values(lambda r: np.linspace(-1, 1, 1024, dtype=np.float32) * (r + 1))
+    got = {}
+    bft.win_create(x, "fr")
+    bft.win_put(name="fr")
+    got["win_create"] = bft.win_update("fr", clone=True)
+    bft.win_free("fr")
+    for name, make in (("push_sum", bft.DistributedPushSumOptimizer),
+                       ("win_put", bft.DistributedWinPutOptimizer),
+                       ("pull_get", bft.DistributedPullGetOptimizer)):
+        opt = make(bft.sgd(0.1))
+        state = opt.init(x.clone())
+        got[name], _ = opt.step(state, g)
+        opt.free()
+    bft.turn_off_win_ops_with_associated_p()
+    opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1))
+    step = bft.make_async_train_step(opt, lambda w, t: ((w - t) ** 2).sum(), cadence={3: 2})
+    params, state = x.clone(), opt.init(x.clone())
+    for _ in range(3):
+        params, state, _loss = step(params, state, g)
+    got["async"] = params
+    step.engine.free()
+    path = os.path.abspath(f"fr_ckpt_{level}")
+    bft.checkpoint.save(path, 1, x * 2, ())
+    got["checkpoint_save"] = torch.load(os.path.join(path, "1", "state.pt"),
+                                        weights_only=True)["params"]
+    got["checkpoint_restore"] = bft.checkpoint.restore(path, 1)[1]
+    got["reduce_scatter"] = inner.reduce_scatter(x, list(range(SIZE)), 128)
+    params = x.clone()
+    for name, env in (("shard", {"BLUEFOG_SHARD": "1"}),
+                      ("shard:dispatch", {"BLUEFOG_SHARD": "1", "BLUEFOG_SHARD_GRADS": "1"})):
+        os.environ.update(env)
+        try:
+            if name == "shard":  # the switch set at init: no longer refused there
+                bft.init(size=SIZE, device="cpu", nodes_per_machine=level)
+            gopt = bft.DistributedGradientAllreduceOptimizer(bft.adam(0.1))
+            params = x.clone()
+            gstate = gopt.init(params)
+            gopt.step(params, gstate, g.clone())
+            got[name] = params
+        finally:
+            for k in env:
+                del os.environ[k]
+    for name, t in got.items():
+        out[f"formerly_refused:{name}"] = t.clone()
 
 
 def mp_cases(nodes_per_machine):
@@ -252,6 +283,7 @@ def mp_cases(nodes_per_machine):
             world = json.load(f)["world"]
         out["flight"] = {"file": os.path.basename(dump), "ranks": world["ranks"]}
         _refusals(out, nodes_per_machine)
+    _formerly_refused(out, nodes_per_machine)
     bft.barrier()
     bft.shutdown()
     return out
@@ -440,12 +472,26 @@ def test_multiprocess_legs_converge(runs, config, leg):
     assert torch.equal(losses[0], runs["ref"][level][f"leg:{leg}"])
 
 
-@pytest.mark.parametrize("what", REFUSED + ("shard:dispatch",))
+@pytest.mark.parametrize("what", REFUSED)
 def test_refused_paths_name_a14c(runs, what):
     for config, _, level in CONFIGS[:2]:
         for res in runs[config]:
             msg = res[level][f"refused:{what}"]
             assert "ROADMAP A14c" in msg, (config, what, msg)
+
+
+@pytest.mark.parametrize("what", FORMERLY_REFUSED)
+def test_formerly_refused_paths_run(runs, what):
+    """The paths refused across processes until the window ops, the async
+    engine, ZeRO and checkpoint were ported now run, and each process's
+    result equals the same rows of the stacked run (the checkpoint file
+    holds every row, equal to the stacked file's)."""
+    key = f"formerly_refused:{what}"
+    for config, _, level in CONFIGS:
+        ref = runs["ref"][level][key]
+        for p, res in enumerate(runs[config]):
+            want = ref if what == "checkpoint_save" else ref[res[level]["rows"]]
+            assert torch.equal(_bits(res[level][key]), _bits(want)), (config, p, what)
 
 
 def test_single_process_context_is_unchanged():

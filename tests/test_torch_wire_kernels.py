@@ -446,7 +446,30 @@ def test_new_wrappers_validate_operands():
         tk.decode_add(x.clone(), p, s, torch.tensor([0, 2], dtype=torch.int32), "int8")
     with pytest.raises(ValueError):
         tk.decode_add(x.clone(), p, s, torch.tensor([0, -2], dtype=torch.int32), "int8")
+    # decode reads P >= len(src) payload rows (the transport's extended
+    # payload): more output rows than payload rows, or a sender past them,
+    # raise; fewer decode len(src) rows
     with pytest.raises(ValueError):
-        tk.decode(p, s, torch.tensor([0], dtype=torch.int32), "int8")
+        tk.decode(p, s, torch.tensor([0, 1, 0], dtype=torch.int32), "int8")
+    with pytest.raises(ValueError):
+        tk.decode(p, s, torch.tensor([2], dtype=torch.int32), "int8")
+    assert tk.decode(p, s, torch.tensor([1], dtype=torch.int32), "int8").shape == (1, 512)
     with pytest.raises(ValueError):
         tk.decode(p, s, None, "int4")
+
+
+@pytest.mark.parametrize("wire", ["int8", "int4"])
+def test_decode_reads_an_extended_payload(wire):
+    """``decode`` with ``src [N]`` over a payload of ``P > N`` rows (the
+    transport's extended payload, the local rows first): row ``j`` is
+    ``deq(payload[src[j]])``, zeros for -1, bitwise the decode of the rows
+    gathered first."""
+    x = torch.from_numpy(np.random.RandomState(4).randn(5, 1024).astype(np.float32))
+    p, s = tk.encode(x, wire)
+    src = torch.tensor([4, -1, 0], dtype=torch.int32)
+    got = tk.decode(p, s, src, wire)
+    assert got.shape == (3, 1024)
+    want = tk.decode(p[[4, 0, 0]], s[[4, 0, 0]], None, wire)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+    assert not got[1].any()
