@@ -82,8 +82,12 @@ layer's route under the masked weights (a rank that is not due ships its
 zero-weighted rows still, as the stacked gather reads them, so the rows
 stay bitwise the stacked ones). The loss is ``[n_local]``;
 :meth:`AsyncGossipEngine.summary`'s counts come from the global masks, so
-they are the fleet's in every process. Elastic sessions and the other
-switches still refused across processes raise naming ROADMAP A14c.
+they are the fleet's in every process. An elastic session runs there
+too: every process replays the same faults and agrees before each tick,
+and a re-window divides the local rows by their p and rebuilds the window
+from the global live set in every process. The switches still refused
+across processes (the observatories, health, SLO, autotune, the metrics
+probe) raise naming ROADMAP A14c.
 
 After each tick the window goes to the staleness observatory under
 ``surface="async"`` (:func:`bluefog_tpu_torch.staleness.observe_window`):

@@ -28,7 +28,10 @@ does.
 Across processes (a context whose ``process_count > 1``) ``x`` is this
 process's rows ``[n_local, ...]``: :func:`plan_operands` returns a
 :class:`~bluefog_tpu_torch.collective.transport.Route` in place of the
-``src`` tensor, with the weights' local columns, and each combine ships
+``src`` tensor (a relay plan's
+:class:`~bluefog_tpu_torch.collective.transport.RelayRoute`, which
+forwards each row hop by hop as the relay does, one batch a round), with
+the weights' local columns, and each combine ships
 the rows the route names first (:meth:`Route.exchange`) and then runs the
 stacked arithmetic on the extended buffer, receiver by receiver in the
 same round order, so the local rows are bitwise the stacked ones: the
@@ -230,10 +233,9 @@ def _multi_process():
     return ctx if ctx is not None and ctx.process_count > 1 else None
 
 
-def _local_operands(src: np.ndarray, self_w: np.ndarray, recv_w: np.ndarray, device, ctx):
-    """The :class:`Route` of ``src [R, n]`` and the weights' local columns
-    (``self_w [n]``, ``recv_w [R, n]``), on ``device``."""
-    rt = transport.route(src, src.shape[-1], ctx)
+def _local_operands(rt: Route, self_w: np.ndarray, recv_w: np.ndarray, device):
+    """The route ``rt`` and the weights' local columns (``self_w [n]``,
+    ``recv_w [R, n]``), on ``device``."""
     cols = slice(rt.lo, rt.hi)
     return (rt, torch.from_numpy(np.array(self_w[cols])).to(device),
             torch.from_numpy(np.array(recv_w[:, cols])).to(device))
@@ -243,12 +245,16 @@ def plan_operands(plan: CommPlan, device) -> Tuple[torch.Tensor, torch.Tensor, t
     """``(src [R, N] int32, self_w [N] f32, recv_w [R, N] f32)`` of a plan,
     on ``device``: ``src`` is :meth:`CommPlan.sources`, a relay plan's
     origin rows. Across processes ``src`` is the plan's
-    :class:`~bluefog_tpu_torch.collective.transport.Route` and the weights
-    are this process's columns (``[n_local]``, ``[R, n_local]``)."""
+    :class:`~bluefog_tpu_torch.collective.transport.Route` (a relay plan's
+    :class:`~bluefog_tpu_torch.collective.transport.RelayRoute`, which
+    forwards hop by hop) and the weights are this process's columns
+    (``[n_local]``, ``[R, n_local]``)."""
     self_w, recv_w = plan.weight_operands()
     ctx = _multi_process()
     if ctx is not None:
-        return _local_operands(np.array(plan.sources()), self_w, recv_w, device, ctx)
+        # a relay hop by hop, as it ships (not straight from the origin)
+        rt = (transport.relay_route(plan, ctx) if plan.relay else transport.route(np.array(plan.sources()), plan.size, ctx))
+        return _local_operands(rt, self_w, recv_w, device)
     return (
         torch.from_numpy(np.array(plan.sources())).to(device),
         torch.from_numpy(self_w).to(device),
@@ -378,8 +384,8 @@ def neighbor_allreduce_step(x: torch.Tensor, step, schedule: SchedulePlan) -> to
     if ctx is not None:  # the route depends on the step: read it on the host
         k = int(step) % schedule.period
         src, self_w, recv_w = (a[k] for a in schedule.stacked_operands)
-        return weighted_combine_operands(x, *_local_operands(src, self_w, recv_w,
-                                                             x.device, ctx))
+        return weighted_combine_operands(x, *_local_operands(
+            transport.route(src, src.shape[-1], ctx), self_w, recv_w, x.device))
     idx = torch.as_tensor(step, device=x.device).reshape(1).long() % schedule.period
     src, self_w, recv_w = (a.index_select(0, idx)[0]
                            for a in schedule_operands(schedule, x.device))
@@ -936,7 +942,14 @@ def neighbor_allgather(
     for j, nbrs in enumerate(ins):
         src[:len(nbrs), j] = nbrs
     ctx = _multi_process()
-    rt = None if ctx is None or degree == 0 else transport.route(src, plan.size, ctx)
+    rt = slots = None
+    if ctx is not None and degree and plan.relay:
+        # hop by hop: neighbour k's row is the one its delivering round brings
+        rt = transport.relay_route(plan, ctx)
+        slots = rt.neighbors
+    elif ctx is not None and degree:
+        rt = transport.route(src, plan.size, ctx)
+        slots = rt.local
     if ctx is not None:
         src = src[:, ctx.rows.start:ctx.rows.stop]
     mask = torch.from_numpy(np.ascontiguousarray(src.T >= 0)).to(x.device)
@@ -952,11 +965,11 @@ def neighbor_allgather(
             n = flat.shape[1]
             ext = kernels.decode(*rt.exchange(kernels.encode(kernels.pad_blocks(flat), wire)),
                                  None, wire)
-            rows = [kernels.unpad_blocks(_gather(ext, rt[k]), n).reshape(x.shape).to(x.dtype)
+            rows = [kernels.unpad_blocks(_gather(ext, slots[k]), n).reshape(x.shape).to(x.dtype)
                     for k in range(degree)]
         else:
             ext = rt.exchange([x if wire is None else x.to(torch.bfloat16)])[0]
-            rows = [_gather(ext, rt[k]).to(x.dtype) for k in range(degree)]
+            rows = [_gather(ext, slots[k]).to(x.dtype) for k in range(degree)]
         return torch.stack(rows, dim=1), mask
     if wire in ("int8", "int4"):
         flat = x.reshape(n_workers, -1).to(torch.float32)

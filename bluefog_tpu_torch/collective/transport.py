@@ -46,6 +46,26 @@ host-to-device copies into the extended buffer, then a stream
 synchronize, so the decoders read landed rows and the time a combine
 spends in the transport (staging and gloo together) is what
 :func:`stats` holds.
+
+A short-cut (relay) plan is routed hop by hop (:class:`RelayRoute`, from
+the plan's ``perms`` and ``inject``), as the JAX package's transit
+recursion ships it: in round ``r`` a sender ships its own row where it
+injects, else the row it received in round ``r - 1``, verbatim (the wire
+pair of the quantized tiers as one byte row), so a transit row crosses
+only the unit hops of its chain, never straight from its origin's
+process. A round forwards what the round before delivered, so the rounds
+are ordered: one ``batch_isend_irecv`` a round that has a message (on the
+staged path the round's host-to-device copies are queued on the stream
+before the next round's device-to-host copies, whose event is synchronized
+before its ``isend``). A hop between two local rows is an index into the
+extended buffer, with no copy; a hop that carries nothing (a forward of
+nothing, which delivers zeros) posts nothing. The extended buffer and
+:attr:`Route.local` have :class:`Route`'s form, so row ``i`` of round
+``r`` is bitwise the origin row the stacked gather of
+:func:`bluefog_tpu_torch.collective.compiler.relay_sources` delivers, and
+the combines run on it unchanged. The bytes handed to ``isend`` are the
+hops ``a -> b`` with ``a`` local and ``b`` remote, summed over the rounds,
+times :func:`bluefog_tpu_torch.scaling.wire_payload_bytes`.
 """
 
 import collections
@@ -57,7 +77,9 @@ import torch
 
 __all__ = [
     "Route",
+    "RelayRoute",
     "route",
+    "relay_route",
     "partition",
     "exchange_rows",
     "gather_rows",
@@ -185,6 +207,19 @@ _ROUTES: "collections.OrderedDict[tuple, Route]" = collections.OrderedDict()
 _ROUTE_CACHE = 64
 
 
+def _cached(key, build):
+    """``_ROUTES[key]``, built by ``build()`` on a miss (least recently
+    used first out)."""
+    hit = _ROUTES.get(key)
+    if hit is None:
+        hit = _ROUTES[key] = build()
+        while len(_ROUTES) > _ROUTE_CACHE:
+            _ROUTES.popitem(last=False)
+    else:
+        _ROUTES.move_to_end(key)
+    return hit
+
+
 def route(src: np.ndarray, n: Optional[int] = None, ctx=None) -> Route:
     """The cached :class:`Route` of ``src [R, n]`` on the active context's
     partition of ``n`` ranks (workers or machines)."""
@@ -192,14 +227,110 @@ def route(src: np.ndarray, n: Optional[int] = None, ctx=None) -> Route:
     src = np.ascontiguousarray(np.asarray(src, dtype=np.int64))
     counts = partition(ctx, src.shape[1] if n is None else n)
     key = (src.tobytes(), src.shape, counts, ctx.process_index, str(ctx.device))
-    hit = _ROUTES.get(key)
-    if hit is None:
-        hit = _ROUTES[key] = Route(src, counts, ctx.process_index, ctx.device)
-        while len(_ROUTES) > _ROUTE_CACHE:
-            _ROUTES.popitem(last=False)
-    else:
-        _ROUTES.move_to_end(key)
-    return hit
+    return _cached(key, lambda: Route(src, counts, ctx.process_index, ctx.device))
+
+
+class RelayRoute(Route):
+    """A relay plan's rounds across processes, seen from process ``index``
+    (see the module docstring): built from the plan's ``perms`` and
+    ``inject``, it forwards hop by hop. :attr:`sends` are ``(round, peer,
+    rows of the extended buffer)`` (a local row where the sender injects,
+    else the row it received the round before), :attr:`recvs` ``(round,
+    peer, receivers (global), offset)``, each message's rows in receiver
+    order on both ends; :attr:`local` and :meth:`exchange` are
+    :class:`Route`'s. :attr:`neighbors` ``[max in-degree, n_local]`` is, for
+    each local receiver, the extended-buffer row of each in-neighbour's own
+    payload (rank-ascending, from the plan's ``delivery``: the round that
+    brings it), -1 past its in-degree."""
+
+    def __init__(self, perms, inject, delivery, counts: Sequence[int], index: int, device):
+        from bluefog_tpu_torch.collective import compiler
+
+        bounds = _bounds(counts)
+        self.counts, self.index = tuple(int(c) for c in counts), int(index)
+        self.lo, self.hi = int(bounds[index]), int(bounds[index + 1])
+        self.n_local = self.hi - self.lo
+        self.n_rounds = len(perms)
+        self.shape = (self.n_rounds, self.n_local)
+        self.device = torch.device(device)
+        owner = np.repeat(np.arange(len(counts)), counts)
+        origins = compiler._relay_origins(perms, inject)
+        mine = range(self.lo, self.hi)
+        local = np.full((self.n_rounds, self.n_local), -1, np.int64)
+        self.sends: List[Tuple[int, int, np.ndarray]] = []
+        self.recvs: List[Tuple[int, int, np.ndarray, int]] = []
+        carry: Dict[int, int] = {}  # local rank -> buffer row it received last round
+        offset = self.n_local
+        for r, perm in enumerate(perms):
+            inj = set(inject[r])
+            arriving: Dict[int, int] = {}
+            out: Dict[int, List[Tuple[int, int]]] = collections.defaultdict(list)
+            got: Dict[int, List[int]] = collections.defaultdict(list)
+            for a, b in perm:
+                if origins[r].get(b) is None or (a not in mine and b not in mine):
+                    continue  # a forward of nothing, or a hop of two other ranks
+                if a in mine:
+                    row = a - self.lo if a in inj else carry[a]
+                    if b in mine:
+                        arriving[b] = row
+                    else:
+                        out[int(owner[b])].append((b, row))
+                else:
+                    got[int(owner[a])].append(b)
+            for q in sorted(out):
+                self.sends.append((r, q, np.array([row for _b, row in sorted(out[q])],
+                                                  np.int64)))
+            for q in sorted(got):
+                receivers = np.array(sorted(got[q]), np.int64)
+                self.recvs.append((r, q, receivers, offset))
+                for k, b in enumerate(receivers):
+                    arriving[int(b)] = offset + k
+                offset += receivers.size
+            for b, row in arriving.items():
+                local[r, b - self.lo] = row
+            carry = arriving
+        self.n_received = offset - self.n_local
+        self.local = torch.from_numpy(local.astype(np.int32)).to(self.device)
+        ins: Dict[int, List[Tuple[int, int]]] = collections.defaultdict(list)
+        for (s, d), r in delivery:
+            ins[d].append((s, r))
+        neighbors = np.full((max((len(v) for v in ins.values()), default=0), self.n_local), -1,
+                            np.int32)
+        for d in mine:
+            for k, (_s, r) in enumerate(sorted(ins[d])):
+                neighbors[k, d - self.lo] = local[r, d - self.lo]
+        self.neighbors = torch.from_numpy(neighbors).to(self.device)
+        # the batch of each round with a message, in round order, tagged
+        # with the round
+        batches = collections.defaultdict(lambda: ([], []))
+        for r, q, rows in self.sends:
+            batches[r][0].append((q, torch.from_numpy(rows).to(self.device), r))
+        for r, q, rows, off in self.recvs:
+            batches[r][1].append((q, len(rows), off, r))
+        self._batches = [batches[r] for r in sorted(batches)]
+
+    def exchange(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """:meth:`Route.exchange`, round by round: a round's sends read the
+        extended buffers, which hold what the rounds before received."""
+        t0 = time.perf_counter()
+        outs = _extended([t.contiguous() for t in tensors], self.n_local + self.n_received)
+        post = _Poster(outs, outs)
+        for sends, recvs in self._batches:
+            post(sends, recvs)
+        post.finish(t0, self.n_rounds)
+        return outs
+
+
+def relay_route(plan, ctx=None) -> RelayRoute:
+    """The cached :class:`RelayRoute` of a relay plan over its ranks
+    (workers or machines) on the active context's partition."""
+    ctx = _ctx() if ctx is None else ctx
+    counts = partition(ctx, plan.size)
+    info = plan.compile_info
+    key = ("relay", tuple(plan.perms), tuple(info.inject), tuple(info.delivery), counts,
+           ctx.process_index, str(ctx.device))
+    return _cached(key, lambda: RelayRoute(plan.perms, info.inject, info.delivery, counts,
+                                           ctx.process_index, ctx.device))
 
 
 def _byte_rows(t: torch.Tensor) -> torch.Tensor:
@@ -216,80 +347,111 @@ def exchange_rows(tensors: Sequence[torch.Tensor], sends, recvs, n_total: int,
     the local rows at ``local_at`` and each receive at its offset. One tensor
     is sent as its rows, several as one byte row per row (their rows side
     by side)."""
-    import torch.distributed as dist
-
-    from bluefog_tpu_torch import flight, metrics
-
-    ctx = _ctx()
     t0 = time.perf_counter()
     tensors = [t.contiguous() for t in tensors]
+    outs = _extended(tensors, n_total, local_at)
+    post = _Poster(outs, tensors)
+    post(sends, recvs)
+    post.finish(t0, n_rounds)
+    return outs
+
+
+def _extended(tensors: Sequence[torch.Tensor], n_total: int, local_at: int = 0):
+    """Buffers ``[n_total, ...]`` like ``tensors``, their rows at
+    ``local_at``."""
     n_local = tensors[0].shape[0]
     outs = [t.new_empty((n_total,) + tuple(t.shape[1:])) for t in tensors]
     for out, t in zip(outs, tensors):
         out[local_at:local_at + n_local].copy_(t)
-    packed = len(tensors) > 1
-    row_bytes = sum(_byte_rows(t[:1]).shape[1] for t in tensors) if packed else None
-    staged = ctx.staged and tensors[0].device.type == "cuda"
-
-    def wire_of(k):
-        """A message buffer of ``k`` rows: pinned host memory when staged."""
-        where = dict(device="cpu", pin_memory=True) if staged else dict(device=tensors[0].device)
-        if packed:
-            return torch.empty((k, row_bytes), dtype=torch.uint8, **where)
-        return torch.empty((k,) + tuple(tensors[0].shape[1:]), dtype=tensors[0].dtype, **where)
-
-    ops, n_bytes = [], 0
-    send_bufs = []
-    for peer, idx, tag in sends:
-        if packed:
-            buf = torch.cat([_byte_rows(t.index_select(0, idx)) for t in tensors], dim=1)
-        else:
-            buf = tensors[0].index_select(0, idx)
-        if staged:
-            host = wire_of(buf.shape[0])
-            host.copy_(buf, non_blocking=True)
-            buf = host
-        send_bufs.append((peer, buf, tag))
-        n_bytes += buf.numel() * buf.element_size()
-    if staged and send_bufs:
-        # the device-to-host copies must land before isend reads the rows
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(tensors[0].device))
-        ev.synchronize()
-    recv_bufs = []
-    for peer, k, off, tag in recvs:
-        if packed or staged:
-            buf = wire_of(k)
-        else:
-            buf = outs[0][off:off + k]
-        recv_bufs.append((buf, off, k))
-        ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
-    ops += [dist.P2POp(dist.isend, buf, peer, tag=tag) for peer, buf, tag in send_bufs]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    for buf, off, k in recv_bufs:
-        if packed:
-            dev = buf.to(outs[0].device, non_blocking=True) if staged else buf
-            start = 0
-            for out in outs:
-                width = _byte_rows(out[:1]).shape[1]
-                _byte_rows(out[off:off + k]).copy_(dev[:, start:start + width])
-                start += width
-        elif staged:
-            outs[0][off:off + k].copy_(buf, non_blocking=True)
-    if staged and recv_bufs:
-        torch.cuda.current_stream(tensors[0].device).synchronize()
-    dt = time.perf_counter() - t0
-    _STATS["bytes"] += n_bytes
-    _STATS["messages"] += len(send_bufs)
-    _STATS["combines"] += 1
-    _STATS["seconds"] += dt
-    metrics.counter("bluefog.transport.bytes").inc(n_bytes)
-    flight.record("transport", bytes=n_bytes, messages=len(send_bufs),
-                  receives=len(recv_bufs), rounds=n_rounds, staged=bool(staged),
-                  ms=round(dt * 1e3, 3))
     return outs
+
+
+class _Poster:
+    """Posts batches of messages into the extended buffers ``outs``,
+    reading each send's rows from ``sources`` (the local tensors, or the
+    buffers themselves when a relay forwards a received row); counts the
+    bytes, messages and receives of every batch for :meth:`finish`."""
+
+    def __init__(self, outs, sources):
+        self.outs, self.sources = outs, sources
+        self.packed = len(outs) > 1
+        self.row_bytes = (sum(_byte_rows(t[:1]).shape[1] for t in outs) if self.packed
+                          else None)
+        self.staged = _ctx().staged and outs[0].device.type == "cuda"
+        self.n_bytes = self.n_sent = self.n_recv = 0
+
+    def _wire(self, k):
+        """A message buffer of ``k`` rows: pinned host memory when staged."""
+        where = (dict(device="cpu", pin_memory=True) if self.staged
+                 else dict(device=self.outs[0].device))
+        if self.packed:
+            return torch.empty((k, self.row_bytes), dtype=torch.uint8, **where)
+        return torch.empty((k,) + tuple(self.outs[0].shape[1:]), dtype=self.outs[0].dtype,
+                           **where)
+
+    def __call__(self, sends, recvs) -> None:
+        """One ``batch_isend_irecv``: ``sends`` ``(peer, row indices into
+        the sources, tag)``, ``recvs`` ``(peer, rows, offset, tag)``."""
+        import torch.distributed as dist
+
+        outs, staged = self.outs, self.staged
+        send_bufs = []
+        for peer, idx, tag in sends:
+            if self.packed:
+                buf = torch.cat([_byte_rows(t.index_select(0, idx)) for t in self.sources],
+                                dim=1)
+            else:
+                buf = self.sources[0].index_select(0, idx)
+            if staged:
+                host = self._wire(buf.shape[0])
+                host.copy_(buf, non_blocking=True)
+                buf = host
+            send_bufs.append((peer, buf, tag))
+            self.n_bytes += buf.numel() * buf.element_size()
+        if staged and send_bufs:
+            # the device-to-host copies must land before isend reads the rows
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(outs[0].device))
+            ev.synchronize()
+        ops, recv_bufs = [], []
+        for peer, k, off, tag in recvs:
+            buf = self._wire(k) if self.packed or staged else outs[0][off:off + k]
+            recv_bufs.append((buf, off, k))
+            ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+        ops += [dist.P2POp(dist.isend, buf, peer, tag=tag) for peer, buf, tag in send_bufs]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for buf, off, k in recv_bufs:
+            if self.packed:
+                dev = buf.to(outs[0].device, non_blocking=True) if staged else buf
+                start = 0
+                for out in outs:
+                    width = _byte_rows(out[:1]).shape[1]
+                    _byte_rows(out[off:off + k]).copy_(dev[:, start:start + width])
+                    start += width
+            elif staged:
+                outs[0][off:off + k].copy_(buf, non_blocking=True)
+        self.n_sent += len(send_bufs)
+        self.n_recv += len(recv_bufs)
+
+    def finish(self, t0: float, n_rounds: int) -> None:
+        """Wait for the last host-to-device copies and count the exchange
+        (one combine) in :func:`stats`, the metric and the flight
+        recorder."""
+        from bluefog_tpu_torch import flight, metrics
+
+        if self.staged and self.n_recv:
+            torch.cuda.current_stream(self.outs[0].device).synchronize()
+        dt = time.perf_counter() - t0
+        _STATS["bytes"] += self.n_bytes
+        _STATS["messages"] += self.n_sent
+        _STATS["combines"] += 1
+        _STATS["seconds"] += dt
+        metrics.counter("bluefog.transport.bytes").inc(self.n_bytes)
+        flight.record("transport", bytes=self.n_bytes, messages=self.n_sent,
+                      receives=self.n_recv, rounds=n_rounds, staged=bool(self.staged),
+                      ms=round(dt * 1e3, 3))
 
 
 def gather_rows(x: torch.Tensor, ctx=None) -> torch.Tensor:
@@ -332,16 +494,14 @@ def barrier(ctx=None) -> None:
 
 def check_env_supported() -> None:
     """Refuse the switches whose subsystems do not run across processes
-    yet (ROADMAP A14c): federation, relay plans, the observatories,
-    health, SLO, autotune and the metrics probe. ZeRO (``BLUEFOG_SHARD``,
-    with ``BLUEFOG_SHARD_GRADS`` and ``BLUEFOG_SHARD_MASTER``) runs."""
-    from bluefog_tpu_torch import attribution, autotune, federation, health, memory
+    yet (ROADMAP A14c): the observatories, health, SLO, autotune and the
+    metrics probe. ZeRO (``BLUEFOG_SHARD``, with ``BLUEFOG_SHARD_GRADS``
+    and ``BLUEFOG_SHARD_MASTER``), federation (``BLUEFOG_PODS``) and relay
+    plans (``BLUEFOG_PLAN_METHOD=shortcut``) run."""
+    from bluefog_tpu_torch import attribution, autotune, health, memory
     from bluefog_tpu_torch import metrics, slo, staleness
-    from bluefog_tpu_torch.collective import compiler
 
     refused = [
-        ("BLUEFOG_PODS (federation)", federation.enabled()),
-        ("BLUEFOG_PLAN_METHOD=shortcut (relay plans)", compiler.plan_method() == "shortcut"),
         ("BLUEFOG_DOCTOR (the doctor)", attribution.enabled()),
         ("BLUEFOG_STALENESS (the staleness lineage)", staleness.enabled()),
         ("BLUEFOG_MEMORY (the memory observatory)", memory.enabled()),

@@ -84,11 +84,11 @@ def start(plan=None, policy: str = "average",
           liveness_timeout_s: Optional[float] = None) -> ElasticSession:
     """Open the elastic session for the current context (at most one).
     ``plan`` defaults to the ``BLUEFOG_FAULT_PLAN`` environment grammar.
-    Refused across processes (ROADMAP A14c)."""
+    Across processes every process opens its session on the same plan
+    (the launcher forwards the environment) and the sessions agree before
+    every dispatch (:mod:`bluefog_tpu_torch.elastic.recovery`); a plan
+    with an ``oom`` fault is refused there (ROADMAP A14c)."""
     global _session
-    from bluefog_tpu_torch import context as ctx_mod
-
-    ctx_mod.require_single_process("an elastic session")
     if _session is not None:
         raise RuntimeError(
             "an elastic session is already active; call bft.elastic.stop() "

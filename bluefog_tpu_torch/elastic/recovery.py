@@ -32,10 +32,31 @@ An ``oom`` fault runs the memory observatory's forensics at its step
 (:func:`bluefog_tpu_torch.memory.on_oom`: ranked census, flight advisory
 and dump) and raises :class:`~bluefog_tpu_torch.memory.SimulatedResourceExhausted`
 before the dispatch; it is no verdict and triggers no repair.
+
+**Across processes** (a context whose ``process_count > 1``) every process
+opens its session on the same fault plan and runs the same host-side
+numpy: the membership, the repaired matrix and the plans are global and
+equal in every process, the tensors are the local rows. What one process
+alone can observe, a watchdog verdict (:meth:`ElasticSession._on_stall`,
+timing-based), is queued, not applied; each :meth:`ElasticSession.before_dispatch`
+ends with one ``all_gather_object`` of every process's queued verdicts
+and of its view ``(epoch, live set, topology version, the next
+dispatch's plan)``, applies the union of the verdicts in every process
+and raises ``RuntimeError`` naming the processes whose view differs from
+process 0's, before the dispatch (a process that took another branch
+would leave the others waiting in the transport). :meth:`~ElasticSession.rejoin`
+and :meth:`~ElasticSession.adopt_live_set` end with the same agreement.
+:func:`consensus_restore` takes every row through
+:func:`bluefog_tpu_torch.collective.transport.gather_rows` and writes the
+survivors' mean into the rejoining rank's row in its owner process. The
+``oom`` fault is refused across processes with the memory observatory
+(ROADMAP A14c).
 """
 
 import dataclasses
+import hashlib
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -97,18 +118,29 @@ def consensus_restore(params, rank: int, live: Sequence[int]):
     """A copy of a worker-stacked tree (a tensor or a nested dict, list or
     tuple of tensors) whose worker slot ``rank`` holds the survivors'
     consensus: their uniform mean, taken in float32 and cast back, on each
-    tensor's own device. The state a rejoining rank resumes from."""
+    tensor's own device. The state a rejoining rank resumes from. Across
+    processes the tree is this process's rows, every process calls it, and
+    only the owner of ``rank`` writes the mean of the gathered rows (bitwise
+    the stacked mean)."""
+    from bluefog_tpu_torch.collective import transport
     from bluefog_tpu_torch.optimizers import _tree_unflatten, tree_leaves
 
     survivors = sorted(int(r) for r in live if int(r) != int(rank))
     if not survivors:
         raise ValueError("no survivors to restore consensus from")
+    ctx = ctx_mod._context
+    multi = ctx is not None and ctx.process_count > 1
 
     def fix(leaf):
+        # across processes every row first (the leaf is this process's rows)
+        full = transport.gather_rows(leaf.contiguous(), ctx) if multi else leaf
         idx = torch.as_tensor(survivors, dtype=torch.long, device=leaf.device)
+        mean = torch.mean(full.index_select(0, idx).to(torch.float32), dim=0).to(leaf.dtype)
         out = leaf.clone()
-        out[int(rank)] = torch.mean(leaf.index_select(0, idx).to(torch.float32),
-                                    dim=0).to(leaf.dtype)
+        if not multi:
+            out[int(rank)] = mean
+        elif int(rank) in ctx.rows:
+            out[int(rank) - ctx.rows.start] = mean
         return out
 
     return _tree_unflatten(params, [fix(leaf) for leaf in tree_leaves(params)])
@@ -160,6 +192,7 @@ class ElasticSession:
         ctx = ctx_mod.get_context()
         plan = plan if plan is not None else FaultPlan.from_env()
         plan.validate(ctx.size)
+        _refuse_oom_across_processes(plan.faults)
         self.ctx = ctx
         self.policy = policy
         self.membership = Membership(ctx.size)
@@ -184,6 +217,9 @@ class ElasticSession:
         self._edges_cache = None
         # ranks of the most recent dispatch, for watchdog suspicion
         self._last_dispatch_ranks: Tuple[int, ...] = tuple(range(ctx.size))
+        # across processes: watchdog verdicts queued for the next agreement
+        self._queued: List[Tuple[int, str, int]] = []
+        self._queued_lock = threading.Lock()  # the watchdog thread appends
         watchdog.add_stall_handler(self._on_stall)
         metrics_mod.gauge("bluefog.elastic.dead_ranks").set(0)
 
@@ -202,9 +238,20 @@ class ElasticSession:
         limit = self.liveness_timeout_s()
         if limit <= 0 or waited < limit:
             return
+        verdicts = [(int(r), f"stall:{name}", self.step) for r in self._last_dispatch_ranks]
+        if self.ctx.process_count > 1:
+            # one process's timing: every process applies it at the next
+            # agreement (before_dispatch), so the memberships stay equal
+            with self._queued_lock:
+                self._queued.extend(verdicts)
+            return
+        self._suspect(verdicts, name)
+
+    def _suspect(self, verdicts, name: str) -> None:
+        """File SUSPECT verdicts ``(rank, reason, step)``."""
         suspected = [
-            r for r in self._last_dispatch_ranks
-            if self.membership.mark_suspect(r, f"stall:{name}", self.step)
+            r for r, reason, step in verdicts
+            if self.membership.mark_suspect(r, reason, step)
         ]
         for _ in suspected:
             metrics_mod.counter("bluefog.elastic.suspects").inc()
@@ -236,6 +283,7 @@ class ElasticSession:
         fault = Fault(kind=kind, rank=int(rank), step=int(step),
                       seconds=float(seconds), factor=float(factor),
                       peer=int(peer), hold_steps=int(steps))
+        _refuse_oom_across_processes([fault])
         if not 0 <= fault.rank < self.ctx.size:
             raise ValueError(
                 f"rank {fault.rank} out of range for {self.ctx.size} workers"
@@ -478,7 +526,53 @@ class ElasticSession:
             sorted({r for e in post_edges for r in e})
         ) or self.membership.live_ranks()
         self.step += 1
+        self._agree(optimizer, f"before the dispatch of step {step}")
         return self.membership.epoch
+
+    # -- agreement across processes ------------------------------------------
+
+    def _view(self, optimizer):
+        """What every process must hold alike before a dispatch: the
+        membership epoch, the live set, the topology version and the perms
+        of the plan the next dispatch runs (a dynamic schedule's plan at
+        the optimizer's communication index, else the static plan), the
+        perms as the first 16 hex digits of their sha1."""
+        sched = getattr(optimizer, "schedule", None)
+        if sched is not None:
+            perms = sched.plans[getattr(optimizer, "_comm_count", 0) % sched.period].perms
+        elif self.ctx.load_topology() is not None:
+            perms = self.ctx.static_plan().perms
+        else:
+            perms = ()
+        digest = hashlib.sha1(repr(perms).encode()).hexdigest()[:16]
+        return (self.membership.epoch, self.membership.live_ranks(),
+                self.ctx.topo_version, digest)
+
+    def _agree(self, optimizer, when: str) -> None:
+        """Across processes: one ``all_gather_object`` of the queued
+        watchdog verdicts and of :meth:`_view`; raises ``RuntimeError``
+        naming the processes whose view differs from process 0's, else
+        applies the union of the verdicts, in one order, in every process.
+        With one process nothing runs."""
+        if self.ctx.process_count == 1:
+            return
+        import torch.distributed as dist
+
+        with self._queued_lock:
+            queued, self._queued = self._queued, []
+        views = [None] * self.ctx.process_count
+        dist.all_gather_object(views, (self._view(optimizer), queued))
+        differ = [p for p, (view, _q) in enumerate(views) if view != views[0][0]]
+        if differ:
+            raise RuntimeError(
+                f"elastic: the processes disagree {when}: process 0 holds (epoch, live, "
+                f"topology version, plan digest) = {views[0][0]!r}; processes {differ} hold "
+                f"{[views[p][0] for p in differ]!r}. Every process must replay the same "
+                "faults at the same step (the same BLUEFOG_FAULT_PLAN and inject calls)"
+            )
+        verdicts = sorted({v for _view, q in views for v in q})
+        if verdicts:
+            self._suspect(verdicts, "agreement")
 
     def _install_topology(self, optimizer, live, policy, degraded) -> None:
         """Build + install the repaired graph for ``live`` and re-point
@@ -645,6 +739,7 @@ class ElasticSession:
             len(self.membership.dead_ranks())
         )
         tl.timeline_record_instant(f"elastic:rejoin rank={rank}", "REPAIR")
+        self._agree(optimizer, f"after the rejoin of rank {rank}")
         if params is not None:
             params = consensus_restore(params, rank, survivors)
         return params
@@ -674,6 +769,19 @@ class ElasticSession:
                 {r: s for r, s in self._unrepaired.items()},
                 self.step,
             )
+        self._agree(optimizer, "after adopting a recorded live set")
+
+
+def _refuse_oom_across_processes(faults) -> None:
+    """The ``oom`` fault runs the memory observatory's forensics, which do
+    not run across processes yet (ROADMAP A14c)."""
+    ctx = ctx_mod._context
+    if ctx is not None and ctx.process_count > 1 and any(f.kind == "oom" for f in faults):
+        raise ValueError(
+            "the elastic oom fault (the memory observatory's forensics) does not run "
+            f"across processes yet (ROADMAP A14c); this context spans {ctx.process_count} "
+            "processes"
+        )
 
 
 class ElasticGuard:

@@ -667,21 +667,48 @@ def _env_signature(size: int) -> tuple:
 def get_fabric(size: int, kind: str = "exp2") -> Optional[Fabric]:
     """The active fabric for ``size`` ranks, or None when federation is
     off. Cached on the full env signature, so flipping any knob
-    rebuilds (and the optimizer's cache keys change with the plans)."""
+    rebuilds (and the optimizer's cache keys change with the plans).
+
+    Under an elastic session with a dead rank the fabric follows the
+    session's live set (:meth:`~bluefog_tpu_torch.context.BluefogContext.live_token`):
+    the gateways are re-elected among the live ranks
+    (:meth:`PodLayout.gateways`) and the intra-pod combine is pruned to
+    them and renormalized per receiver
+    (:func:`bluefog_tpu_torch.elastic.repair.repaired_matrix`, policy
+    ``receiver``; a dead rank keeps its row). Every process derives the
+    same fabric from the same live set. With every rank live the fabric
+    is the JAX package's; under a dead rank the JAX package's
+    ``get_fabric`` keeps the full fabric, and this one equals its pieces
+    for the live set (``repaired_matrix`` of the intra-pod matrix,
+    ``inter_plan(layout, live)``), as its ``FederatedFleet`` repairs."""
     if not enabled():
         return None
-    sig = _env_signature(size) + (kind,)
+    from bluefog_tpu_torch import context as ctx_mod
+
+    ctx = ctx_mod._context
+    token = None if ctx is None or ctx.size != size else ctx.live_token()
+    live = None if token is None or len(token[1]) >= size else token[1]
+    sig = _env_signature(size) + (kind, live)
     fab = _FABRIC_CACHE.get(sig)
     if fab is None:
         from bluefog_tpu_torch import metrics
 
         layout = parse_pods(os.environ[PODS_ENV], size)
+        if live is None:
+            intra = intra_plan(layout, kind)
+        else:
+            from bluefog_tpu_torch.collective import plan as plan_mod
+            from bluefog_tpu_torch.elastic import repair
+
+            w = repair.repaired_matrix(_matrix_from_edges(size, intra_edges(layout, kind)),
+                                       live, policy="receiver")
+            intra = plan_mod.plan_from_matrix(w)
         fab = Fabric(
             layout=layout,
             period=dcn_period(),
             wire=dcn_wire(),
-            intra=intra_plan(layout, kind),
-            inter=inter_plan(layout),
+            intra=intra,
+            inter=inter_plan(layout, live),
             kind=kind,
         )
         _FABRIC_CACHE[sig] = fab

@@ -111,9 +111,14 @@ each process updating its workers' owned slots, the updated slots of
 every live owner coming back through one
 :func:`~bluefog_tpu_torch.collective.transport.gather_rows` a dtype group
 and the ZeRO-2 gradient leg through the reduce-scatter's routes
-(:func:`bluefog_tpu_torch.collective.inner.reduce_scatter`). Federation,
-relay plans, elastic sessions, the observatories, health, SLO, autotune
-and the metrics probe raise ``ValueError`` naming ROADMAP A14c.
+(:func:`bluefog_tpu_torch.collective.inner.reduce_scatter`); the
+federated legs (:meth:`_GossipOptimizer._fed_dispatch`, the same DCN-step
+cadence in every process), relay plans (forwarded hop by hop,
+:class:`~bluefog_tpu_torch.collective.transport.RelayRoute`) and elastic
+sessions (agreed by every process before each dispatch; ZeRO re-shards
+through one ``gather_rows`` a dtype group, :meth:`_GossipOptimizer._reshard_state`).
+The observatories, health, SLO, autotune and the metrics probe raise
+``ValueError`` naming ROADMAP A14c.
 
 Under ``BLUEFOG_PLAN_METHOD=shortcut`` the static plan is a relay plan:
 its combine gathers each round's origin rows (see
@@ -673,11 +678,12 @@ class _GossipOptimizer:
                                      state=state, world=len(_local_workers(layout))))
 
     @staticmethod
-    def _shard_slot_group(shape, layout):
-        """The group a worker-stacked state leaf of ``shape`` belongs to, or
-        None for a leaf that is not a slot (step counts): slot lengths are
-        unique per layout."""
-        if len(shape) != 2 or shape[0] != layout.size:
+    def _shard_slot_group(shape, layout, rows=None):
+        """The group a worker-stacked state leaf of ``shape`` (``rows``
+        worker rows, every worker by default) belongs to, or None for a
+        leaf that is not a slot (step counts): slot lengths are unique per
+        layout."""
+        if len(shape) != 2 or shape[0] != (layout.size if rows is None else rows):
             return None
         for gi, g in enumerate(layout.groups):
             if shape[1] == g.slot:
@@ -690,13 +696,27 @@ class _GossipOptimizer:
         (:func:`_gather_slot_rows`) and re-sliced under the new owner map
         (:func:`_slice_slot_rows`), on the leaf's device, and the leaf takes
         the new ``[size, slot]`` array (``Tensor.set_``, so every holder of
-        the state sees it). Other leaves (step counts) stay as they are."""
+        the state sees it). Other leaves (step counts) stay as they are.
+
+        Across processes a leaf is this process's ``[n_local, slot]`` rows:
+        the slot leaves of one dtype group and dtype come side by side
+        through one :func:`transport.gather_rows` (every worker's rows, so
+        the old owners' of any process), and each process keeps its
+        workers' rows of the new slot arrays, bitwise the stacked rows."""
+        multi = ctx.process_count > 1
+        groups = {}
         for leaf in tree_leaves(opt_state):
-            gi = self._shard_slot_group(tuple(leaf.shape), old)
-            if gi is None:
-                continue
-            full = _gather_slot_rows(leaf, old, gi)
-            leaf.set_(_slice_slot_rows(full, new, gi))
+            gi = self._shard_slot_group(tuple(leaf.shape), old, ctx.n_local)
+            if gi is not None:
+                groups.setdefault((gi, leaf.dtype), []).append(leaf)
+        for (gi, _dtype), leaves in groups.items():
+            parts = leaves
+            if multi:
+                rows = transport.gather_rows(torch.cat(leaves, dim=1).contiguous(), ctx)
+                parts = rows.split(old.groups[gi].slot, dim=1)
+            for leaf, part in zip(leaves, parts):
+                full = _slice_slot_rows(_gather_slot_rows(part, old, gi), new, gi)
+                leaf.set_(full[ctx.rows.start:ctx.rows.stop].clone() if multi else full)
         self._shard_reshards += 1
         metrics.counter("bluefog.shard.reshards").inc()
         flight.record("shard_reshard", live=len(new.live), was=len(old.live))

@@ -314,6 +314,25 @@ Phases, one line each; any failure exits non-zero:
                (c) (b)'s checkpoint ``state.pt`` bitwise (a)'s, and (a)'s
                restored in (b)'s processes, the next step bitwise (a)'s;
                files deleted;
+11i. transport-topology -- federation, relay plans and elastic sessions
+               across processes on the same ResNet50, cuDNN deterministic
+               (:func:`phase_transport_topology` states every gate):
+               fed/int8 (2 pods, DCN period 2, int4 DCN wire, 4 steps),
+               relay/fp32 and relay/int8 (``shortcut``, 3 steps),
+               elastic/int8 and elastic/int4_ef (rank 5 killed at step 2 of
+               4, a rejoin and one more step), elastic/zero2-int8 (adam,
+               rank 6 killed: the re-shard) and elastic/async-int8 (phase
+               10's straggler, rank 2 killed at tick 2: the re-window);
+               (a) the stacked run in this process, saved under
+               ``build/transport_topology``; (b) two processes of four
+               workers sharing the card (``bfrun-torch``, gloo staged):
+               every saved row bitwise (a), the repair at the same step with
+               no stale dispatch and the live sets equal, the bytes a step
+               equal to the formulas of :func:`tt_expected_bytes`, each
+               case's kernels launched in each process, a line a case; (c)
+               (b)'s elastic/int8 checkpoint (written after the kill)
+               restored in both processes and in this one, the next step
+               bitwise (a)'s; files deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -413,11 +432,13 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --phase autotune
     python3 chip_smoke.py --phase transport
     python3 chip_smoke.py --phase transport-state
+    python3 chip_smoke.py --phase transport-topology
 
-run phase 11d, 11e, 11f, 11g or 11h alone on the full-width ResNet50 (the
-wire kernels built first) and print no result line. Phase 11g's processes
-run ``python3 chip_smoke.py --transport-child <config>``, phase 11h's
-``python3 chip_smoke.py --transport-state-child <config>``.
+run phase 11d, 11e, 11f, 11g, 11h or 11i alone on the full-width ResNet50
+(the wire kernels built first) and print no result line. Phase 11g's
+processes run ``python3 chip_smoke.py --transport-child <config>``, phase
+11h's ``python3 chip_smoke.py --transport-state-child <config>``, phase
+11i's ``python3 chip_smoke.py --transport-topology-child <config>``.
 
     python3 chip_smoke.py --planted-faults
 
@@ -598,6 +619,14 @@ PATH_KERNELS = {
     # own too): the window and async wires and the scatter, B1 and B5
     "transport-state a": ("encode", "decode"),
     "transport-state": ("encode", "decode"),
+    # the transport-topology phase: (a) the stacked reference and (c)'s
+    # restore in one process, (b) both processes' federated, relay and
+    # elastic cases and (c)'s restores: B1 + B2 on the int8 legs, B3 + B4 on
+    # elastic/int4_ef, B1 + B5 in the re-sharded scatter and the re-window
+    "transport-topology a": ("encode", "decode_accumulate", "encode_diff", "decode_add",
+                             "decode"),
+    "transport-topology": ("encode", "decode_accumulate", "encode_diff", "decode_add",
+                           "decode"),
 }
 
 
@@ -3728,15 +3757,15 @@ def hr_steps(device, sm, images, labels, stats0, params0, wire, env, steps=3, fu
         def recording(ctx, p, comm_now):
             d = resolve(ctx, p, comm_now)
             keys.append(d.key)
-            combine = d.combine
+            combine, key = d.combine, d.key  # not ``d``: it holds ``recorded``
 
             def recorded(t):
-                keep = capture and not captured and d.key[:2] == ("fed", "dcn") and \
+                keep = capture and not captured and key[:2] == ("fed", "dcn") and \
                     t.shape == params.shape
                 x = t.clone() if keep else None
                 out = combine(t)
                 if keep:
-                    captured.append((d.key, x, out.clone()))
+                    captured.append((key, x, out.clone()))
                 return out
 
             d.combine = recorded
@@ -3781,6 +3810,10 @@ def hr_steps(device, sm, images, labels, stats0, params0, wire, env, steps=3, fu
                "opt_ms": None if fused or not timed else
                statistics.median(r["opt_ms"] for r in timed),
                "counters": [metrics.counter(n).value - c0 for n, c0 in zip(names, counters0)]}
+        # the class's method again: ``recording`` holds the bound method, and
+        # so the optimizer, whose attribute it is (a cycle the collector
+        # alone would free, with its device tensors)
+        del opt._resolve_dispatch
         opt.free()
     return out
 
@@ -4603,7 +4636,8 @@ def at_recorder(opt, device, width):
 
     def recording(ctx, p, comm_now):
         d = resolve(ctx, p, comm_now)
-        combine, plan = d.combine, opt._last_plan
+        # not ``d`` itself in ``recorded``: ``d`` holds it (a cycle)
+        combine, plan, key = d.combine, opt._last_plan, d.key
 
         def recorded(*args):
             if args[0].shape[-1] != width:
@@ -4617,7 +4651,7 @@ def at_recorder(opt, device, width):
             rec["timers"].append(timer.stop())
             if keep:
                 rec["captured"] = {
-                    "key": d.key, "plan": plan, "x": before[0], "state": before[1],
+                    "key": key, "plan": plan, "x": before[0], "state": before[1],
                     "y": out.clone(),
                     "state_after": tuple(s.clone() for s in args[1]) if len(args) > 1 else None}
             return out
@@ -4755,6 +4789,11 @@ def at_run(device, sm, images, labels, stats0, params0, wire, steps, env=None, f
                         d.action == capture_on for d in tuner.decisions[n_decisions:]):
                     rec["arm"] = True
                 row["swaps"] = (tuner.swaps, tuner.rollbacks)
+        # the classes' methods again (each wrapper holds its object's bound
+        # method: a cycle through the object's own attribute)
+        del opt._resolve_dispatch
+        if tuner is not None:
+            del tuner._candidates
         out = {"params": params, "state": state, "rows": rows, "tuner": tuner, "seen": seen,
                "base_s": base, "base_w": base_w, "opt": opt, "captured": rec["captured"],
                "counts": counts, "doctor": attribution.active(),
@@ -6077,6 +6116,509 @@ def run_transport_state_alone():
     return 0
 
 
+TT_ROOT = "build/transport_topology"
+TT_KILL_STEP = 2  # the session step a case's rank dies at
+TT_CKPT = "elastic/int8"  # the case whose checkpoint (c) restores
+TT_CKPT_AFTER = 3  # its checkpoint is written after 3 steps (the kill's repaired)
+
+
+def tt_cases():
+    """``name -> spec`` of the transport-topology phase, in the order it
+    runs them: ``env`` (the subsystem's switches), the optimizer's ``wire``,
+    ``steps`` (ticks for the async case), the ``kill``ed rank (at session
+    step ``TT_KILL_STEP``), ``rejoin`` (then one more step) and the
+    ``kernels`` each process must launch."""
+    fed = {"BLUEFOG_PODS": "2", "BLUEFOG_DCN_PERIOD": "2", "BLUEFOG_DCN_WIRE": "int4"}
+    relay = {"BLUEFOG_PLAN_METHOD": "shortcut"}
+    b12 = ("encode", "decode_accumulate")
+    return {
+        "fed/int8": dict(env=fed, wire="int8", steps=4, kernels=b12),
+        "relay/fp32": dict(env=relay, wire=None, steps=3, kernels=()),
+        "relay/int8": dict(env=relay, wire="int8", steps=3, kernels=b12),
+        "elastic/int8": dict(env={}, wire="int8", steps=4, kill=5, rejoin=True, kernels=b12),
+        "elastic/int4_ef": dict(env={}, wire="int4_ef", steps=4, kill=5, rejoin=True,
+                                kernels=("encode_diff", "decode_add")),
+        "elastic/zero2-int8": dict(env={"BLUEFOG_SHARD": "1", "BLUEFOG_SHARD_GRADS": "1"},
+                                   wire="int8", steps=4, kill=6, kernels=("encode", "decode")),
+        "elastic/async-int8": dict(env={}, wire="int8", steps=4, kill=2,
+                                   kernels=("encode", "decode")),
+    }
+
+
+def tt_log(msg):
+    """One line in one write: the two processes of part (b) share a pipe."""
+    sys.stdout.write(f"[transport-topology] {msg}\n")
+    sys.stdout.flush()
+
+
+def tt_expected_bytes(ctx, name, sm, opt, i, reshard_slot=None):
+    """The bytes process ``ctx.process_index`` hands to ``isend`` in step
+    ``i`` of case ``name``, read after the step: fed, the intra plan's
+    edges from its rows to another process's on int8 (none with a pod a
+    process) plus, on a DCN step, the gateway plan's on int4; relay, the
+    relay plan's hops from its rows to another process's; elastic, the
+    (repaired) plan's crossing edges; zero2, the reduce-scatter's crossing
+    rows of a slot on int8 plus the gather of the updated slots (and, at a
+    re-shard, the gather of the old layout's two Adam slots); async, the
+    window exchange's crossing edges on int8 plus 4 bytes of p each."""
+    from bluefog_tpu_torch import federation
+    from bluefog_tpu_torch.collective import compiler
+    from bluefog_tpu_torch.scaling import wire_payload_bytes
+
+    rows = ctx.rows
+    crossing = lambda pairs: sum(1 for s, d in pairs if s in rows and d not in rows)  # noqa
+    pairs = lambda perms: [pair for perm in perms for pair in perm]  # noqa
+    others = ctx.n_local * (ctx.process_count - 1)
+    if name == "fed/int8":
+        fab = federation.get_fabric(SIZE)
+        out = crossing(pairs(fab.intra.perms)) * wire_payload_bytes(sm.width, 4, "int8")
+        if fab.dcn_step(i):
+            out += crossing(pairs(fab.inter.perms)) * wire_payload_bytes(sm.width, 4, fab.wire)
+        return out
+    if name == "elastic/zero2-int8":
+        slot = opt._shard_layout.groups[0].slot
+        scatter = crossing(pairs(compiler.compile_reduce_scatter(SIZE).perms))
+        out = scatter * wire_payload_bytes(slot, 4, "int8") + others * slot * 4
+        return out + (others * 2 * reshard_slot * 4 if reshard_slot else 0)
+    if name == "elastic/async-int8":
+        outs = ctx.out_neighbor_ranks()
+        edges = crossing([(s, d) for s in range(SIZE) for d in outs[s]])
+        return edges * (wire_payload_bytes(sm.width, 4, "int8") + 4)
+    wire = tt_cases()[name]["wire"]
+    return crossing(pairs(ctx.static_plan().perms)) * wire_payload_bytes(sm.width, 4, wire)
+
+
+def tt_record(session):
+    """The session's repairs ``(step, dead, live, epoch, policy)``, its
+    ``stale_dispatches`` and its live set."""
+    return {"repairs": [[r.step, list(r.dead), list(r.live), r.epoch, r.policy]
+                        for r in session.repairs],
+            "stale": session.stale_dispatches, "live": list(session.membership.live_ranks())}
+
+
+def tt_run_case(device, sm, images, labels, name, ckpt=None, restore=None):
+    """Case ``name`` on the active context from the replicated parameters
+    and the phase's batch statistics: its steps (an elastic case under a
+    session that kills its rank at step ``TT_KILL_STEP``, then a rejoin and
+    one more step where the case says so; the async case's ticks). Returns
+    ``(numbers, state)``, ``state`` this process's rows (on the CPU) of the
+    final parameters (and the sharded state, the window's value and p).
+    With ``ckpt`` the run saves a checkpoint there after ``TT_CKPT_AFTER``
+    steps and keeps the parameters of the step after (``state["next"]``);
+    with ``restore`` it starts from that checkpoint under a fresh session
+    and takes one step."""
+    from bluefog_tpu_torch import checkpoint
+    from bluefog_tpu_torch.collective import transport
+    from bluefog_tpu_torch.optimizers import tree_leaves
+
+    ctx = bft.get_context()
+    case = tt_cases()[name]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    times, sent, want, state_out, numbers = [], [], [], {}, {}
+    with env_set(case["env"]):
+        session = None
+        if name == "elastic/async-int8":
+            bft.set_topology(topo.RingGraph(SIZE, connect_style=1))
+        elif name == "fed/int8":
+            bft.set_topology(topo.ExponentialTwoGraph(SIZE), is_weighted=True)
+        else:
+            bft.set_topology(topo.ExponentialGraph(SIZE))
+        if name.startswith("elastic"):
+            session = bft.elastic.start(policy="average")
+            if restore is None:
+                session.inject("kill", rank=case["kill"], step=TT_KILL_STEP)
+        grads = torch.empty((ctx.n_local, sm.width), dtype=torch.float32, device=device)
+        if name == "elastic/async-int8":
+            opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1, momentum=0.9))
+            box = [sm.replicate(), None]
+            box[1] = opt.init(box[0])
+            tick = bft.make_async_train_step(opt, sm.worker_loss,
+                                             cadence={ASYNC_SLOW: ASYNC_FACTOR},
+                                             max_age=ASYNC_MAX_AGE, policy="drop", wire="int8",
+                                             buffers=sm.buffers)
+            eng = tick.engine
+            eng_local, local_s = eng._local_step, []
+
+            def timed_local(*args):
+                sync(device)
+                t0 = time.perf_counter()
+                eng_local(*args)
+                sync(device)
+                local_s.append(time.perf_counter() - t0)
+
+            eng._local_step = timed_local
+            workers = torch.arange(ctx.n_local)
+            for i in range(case["steps"]):
+                sync(device)
+                t0 = time.perf_counter()
+                before = transport.stats()
+                box[0], box[1], _loss = tick(box[0], box[1], images, labels, workers)
+                sync(device)
+                tick_s = time.perf_counter() - t0
+                after = transport.stats()
+                sent.append(after["bytes"] - before["bytes"])
+                want.append(tt_expected_bytes(ctx, name, sm, opt, i))
+                times.append((tick_s, local_s[-1], tick_s - local_s[-1],
+                              after["seconds"] - before["seconds"]))
+            del eng._local_step
+            win = ctx.windows[eng._name]
+            numbers["rewindows"] = eng._rewindows
+            state_out = {k: v.detach().cpu().clone() for k, v in dict(
+                params=box[0], value=win.value, p=win.p).items()}
+            eng.free()
+            del eng, tick, box, win
+        else:
+            if name == "elastic/zero2-int8":
+                opt = bft.DistributedGradientAllreduceOptimizer(bft.adam(ZERO_LR))
+            else:
+                opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+            opt.compression = case["wire"]
+            box = [sm.replicate(), None]
+            box[1] = opt.init(box[0])
+            if restore is not None:
+                _s, box[0], box[1] = checkpoint.restore(restore, optimizer=opt, extra=sm.buffers)
+            step_fn = bft.elastic.guard(opt).step if session is not None else opt.step
+
+            def one(i):
+                sync(device)
+                t0 = time.perf_counter()
+                sm.loss_and_grad(box[0], images, labels, grads)
+                sync(device)
+                t1 = time.perf_counter()
+                before = transport.stats()
+                was = opt._shard_reshards, opt._shard_layout
+                step_fn(box[0], box[1], grads)
+                sync(device)
+                t2 = time.perf_counter()
+                after = transport.stats()
+                sent.append(after["bytes"] - before["bytes"])
+                resharded = was[1] is not None and opt._shard_reshards > was[0]
+                want.append(tt_expected_bytes(ctx, name, sm, opt, i,
+                                              was[1].groups[0].slot if resharded else None))
+                times.append((t2 - t0, t1 - t0, t2 - t1, after["seconds"] - before["seconds"]))
+
+            for i in range(1 if restore is not None else case["steps"]):
+                one(i)
+                if ckpt is not None and i == TT_CKPT_AFTER - 1:
+                    checkpoint.save(ckpt, i + 1, box[0], box[1], optimizer=opt,
+                                    extra=sm.buffers)
+                if ckpt is not None and i == TT_CKPT_AFTER:
+                    state_out["next"] = box[0].detach().cpu().clone()
+            if case.get("rejoin") and restore is None:
+                box[0] = session.rejoin(case["kill"], params=box[0], optimizer=opt)
+                one(case["steps"])
+            state_out["params"] = box[0].detach().cpu().clone()
+            if name == "elastic/zero2-int8":
+                numbers["reshards"] = opt._shard_reshards
+                state_out.update({f"shard_{i}": t.detach().cpu().clone()
+                                  for i, t in enumerate(tree_leaves(box[1]))})
+            opt.free()
+            del box
+        del grads
+        if session is not None:
+            numbers["record"] = tt_record(session)
+            bft.elastic.stop()
+    numbers["launches"] = launch_counts()
+    for key, v in state_out.items():
+        if not torch.isfinite(v.float()).all():
+            raise AssertionError(f"transport-topology {name}: non-finite {key}")
+    med = [statistics.median(t[c] for t in times) for c in range(4)]
+    numbers.update(step_s=med[0], fb_s=med[1], opt_ms=med[2] * 1e3, transport_ms=med[3] * 1e3,
+                   transport_s=[t[3] for t in times], bytes_per_step=sent, expected_bytes=want,
+                   peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                             if device.type == "cuda" else float("nan")))
+    return numbers, state_out
+
+
+def tt_check_record(where, name, rec, ref=None):
+    """An elastic case's record: one repair, at ``TT_KILL_STEP``, no stale
+    dispatch, and (across processes) equal to the stacked run's."""
+    case = tt_cases()[name]
+    if rec["stale"] != 0 or [r[0] for r in rec["repairs"]] != [TT_KILL_STEP]:
+        raise AssertionError(f"transport-topology {where} {name}: repairs {rec['repairs']}, "
+                             f"stale dispatches {rec['stale']}")
+    live = list(range(SIZE)) if case.get("rejoin") else [r for r in range(SIZE)
+                                                          if r != case["kill"]]
+    if rec["live"] != live:
+        raise AssertionError(f"transport-topology {where} {name}: live {rec['live']}")
+    if ref is not None and rec != ref:
+        raise AssertionError(f"transport-topology {where} {name}: record {rec} differs from "
+                             f"the stacked run's {ref}")
+
+
+def run_transport_topology_child(config_path):
+    """``python3 chip_smoke.py --transport-topology-child <config>``: one
+    process of part (b) (launched by ``bfrun-torch``): joins the process
+    group, builds its rows of the ResNet50 and of the batch, runs the
+    cases, holds its rows against part (a)'s, then (c) restores its own
+    ``elastic/int8`` checkpoint under a fresh session and takes the next
+    step; its numbers go to ``child_<process>.json``."""
+    import torch.distributed as dist
+
+    from bluefog_tpu_torch import checkpoint
+
+    with open(config_path) as f:
+        cfg = json.load(f)
+    device = torch.device(cfg["device"])
+    root = cfg["root"]
+    ctx = bft.init(size=SIZE, device=device)
+    if device.type == "cuda":
+        _build.wire_library()
+    sm, images, labels = build_trainer(device, rows=ctx.rows, **cfg["trainer"])
+    lo, hi = ctx.rows.start, ctx.rows.stop
+    stats0 = {k: v[lo:hi].to(device) for k, v in torch.load(
+        tp_file(root, "stats0"), map_location="cpu", weights_only=True).items()}
+    res = dict(process=ctx.process_index, process_count=ctx.process_count, rows=[lo, hi],
+               backend=dist.get_backend(), staged=ctx.staged, cases={})
+    tag = (f"(b) process {ctx.process_index}/{ctx.process_count} rows {lo}..{hi - 1} "
+           f"({res['backend']}{', staged' if ctx.staged else ''})")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in cfg["cases"]:
+            sm.load_buffers(stats0)
+            ckpt = os.path.join(root, "ckpt_b") if name == TT_CKPT else None
+            row, state = tt_run_case(device, sm, images, labels, name, ckpt=ckpt)
+            ref = torch.load(tp_file(root, name), map_location="cpu", weights_only=True)
+            row["bitwise"] = {k: bool(torch.equal(bits(v), bits(ref[k][lo:hi])))
+                              for k, v in state.items() if k != "next"}
+            res["cases"][name] = row
+            del ref, state
+            tt_log(f"{tag} {name}: step {row['step_s']:.4f} s, optimizer {row['opt_ms']:.1f} "
+                   f"ms, transport {row['transport_ms']:.1f} ms a step, "
+                   f"{row['bytes_per_step']} B sent (expected {row['expected_bytes']}), peak "
+                   f"{row['peak_gib']:.2f} GiB, launches "
+                   f"{ {k: v for k, v in row['launches'].items() if v} }, record "
+                   f"{row.get('record')}, bitwise (a): {row['bitwise']}")
+        if TT_CKPT in cfg["cases"]:
+            sm.load_buffers(stats0)
+            step = checkpoint.latest_step(os.path.join(root, "ckpt_b"))
+            row, state = tt_run_case(device, sm, images, labels, TT_CKPT,
+                                     restore=os.path.join(root, "ckpt_b"))
+            ref = torch.load(tp_file(root, "next"), map_location="cpu", weights_only=True)
+            row["bitwise"] = {"next": bool(torch.equal(bits(state["params"]),
+                                                       bits(ref[lo:hi])))}
+            res["restored"] = row
+            tt_log(f"{tag} (c) {TT_CKPT}: (b)'s checkpoint of step {step} restored under a "
+                   f"fresh session (live {row['record']['live']}), one step "
+                   f"{row['step_s']:.4f} s, bitwise (a)'s next step: {row['bitwise']['next']}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    with open(os.path.join(root, f"child_{ctx.process_index}.json"), "w") as f:
+        json.dump(res, f)
+    bft.shutdown()
+    return 0
+
+
+def phase_transport_topology(device, sm, images, labels, root=TT_ROOT, smi="",
+                             trainer_kw=None, names=None):
+    """Phase 11i: federation, relay plans and elastic sessions across
+    processes, on the ResNet50 of the train-step phase
+    (``bench.py::run_headline``'s settings: 8 workers, 64 images of 224 x
+    224 each, the seeds of phase 7), cuDNN deterministic, ATC ``sgd(0.1,
+    0.9)`` unless a case names another optimizer (:func:`tt_cases`):
+    ``fed/int8`` (``BLUEFOG_PODS=2``, ``BLUEFOG_DCN_PERIOD=2``, the int4
+    DCN wire, 4 steps: two DCN steps), ``relay/fp32`` and ``relay/int8``
+    (``BLUEFOG_PLAN_METHOD=shortcut`` on the default Exp graph, 3 steps),
+    ``elastic/int8`` and ``elastic/int4_ef`` (rank 5 killed at step 2 of 4,
+    then ``session.rejoin(5, params=...)`` and one more step),
+    ``elastic/zero2-int8`` (``DistributedGradientAllreduceOptimizer(
+    adam(1e-4))`` under ``BLUEFOG_SHARD=1 BLUEFOG_SHARD_GRADS=1``, rank 6
+    killed at step 2 of 4: the re-shard moves slots between the processes)
+    and ``elastic/async-int8`` (phase 10's straggler, 4 ticks, rank 2 killed
+    at tick 2: a re-window).
+
+    (a) The stacked reference in this process, each case from the batch
+    statistics the phase is given (saved for (b)): each case's final
+    parameters (the sharded state, the window's value and p) saved under
+    ``build/transport_topology/``; ``elastic/int8`` writes a checkpoint
+    after 3 steps and keeps its next step's parameters. Its elastic records
+    are gated as (b)'s are.
+
+    (b) Two processes sharing the card, started by ``bfrun-torch -np 8 -H
+    localhost:4,localhost:4``, gloo with the rows staged through pinned
+    host memory, each under ``TP_TIMEOUT``. Gates: every saved row bitwise
+    rows ``4p .. 4p + 3`` of (a); each elastic case repairs once, at step
+    2, with no stale dispatch, and its record (repairs, live set) equals
+    (a)'s; the bytes handed to ``isend`` in every step equal
+    :func:`tt_expected_bytes`; each process launches the case's kernels
+    (B1 + B2 on fed/int8, relay/int8 and elastic/int8; B3 + B4 on
+    elastic/int4_ef; B1 + B5 on zero2 and async). A line a case.
+
+    (c) (b)'s ``elastic/int8`` processes wrote a checkpoint after the kill
+    (its sidecar lists the live set without rank 5): restored in both
+    processes under a fresh session (which adopts the saved live set) and
+    in this one, the next step is bitwise (a)'s.
+
+    Files under ``build/transport_topology/``, deleted. Returns
+    ``({"transport-topology a":, "transport-topology":}, numbers)``."""
+    import shutil
+
+    from bluefog_tpu_torch import checkpoint
+
+    names = list(tt_cases()) if names is None else list(names)
+    trainer_kw = {} if trainer_kw is None else dict(trainer_kw)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    root = os.path.abspath(root)
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in launch_counts()}
+    counts = {"transport-topology a": dict(zero), "transport-topology": dict(zero)}
+    ctx = bft.init(size=SIZE, device=device)
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    torch.save({k: v.cpu() for k, v in stats0.items()}, tp_file(root, "stats0"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    numbers = {"a": {}}
+    try:
+        for name in names:
+            sm.load_buffers(stats0)
+            ckpt = os.path.join(root, "ckpt_a") if name == TT_CKPT else None
+            row, state = tt_run_case(device, sm, images, labels, name, ckpt=ckpt)
+            if "next" in state:
+                torch.save(state.pop("next"), tp_file(root, "next"))
+            torch.save(state, tp_file(root, name))
+            del state
+            numbers["a"][name] = row
+            if "record" in row:
+                tt_check_record("(a)", name, row["record"])
+            for k, v in row["launches"].items():
+                counts["transport-topology a"][k] += v
+            log("transport-topology", f"(a) stacked, one process, 8 workers: {name}: step "
+                                      f"{row['step_s']:.4f} s, optimizer {row['opt_ms']:.1f} "
+                                      f"ms, peak {row['peak_gib']:.2f} GiB, launches "
+                                      f"{ {k: v for k, v in row['launches'].items() if v} }, "
+                                      f"record {row.get('record')}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    sm.load_buffers(stats0)
+    a_s = time.perf_counter() - t_phase
+    bft.init(size=SIZE, device=device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "chip_smoke.py")
+    t0 = time.perf_counter()
+    cfg = os.path.join(root, "config_b.json")
+    with open(cfg, "w") as f:
+        json.dump(dict(root=root, device=device.type, cases=names, trainer=trainer_kw), f)
+    tp_spawn([sys.executable, "-m", "bluefog_tpu_torch.run.run", "-np", str(SIZE), "-H", TP_HOSTS,
+              "--coordinator", f"127.0.0.1:{tp_free_port()}", "--num-processes", "2",
+              script, "--transport-topology-child", cfg], tp_child_env())
+    b_s = time.perf_counter() - t0
+    numbers["b"] = []
+    for p in range(2):
+        with open(os.path.join(root, f"child_{p}.json")) as f:
+            res = json.load(f)
+        numbers["b"].append(res)
+        if (res["process_count"], res["rows"], res["backend"]) != (2, [4 * p, 4 * p + 4], "gloo"):
+            raise AssertionError(f"transport-topology (b) process {p}: {res['process_count']} "
+                                 f"processes, rows {res['rows']}, backend {res['backend']}")
+        if res["staged"] != (device.type == "cuda"):
+            raise AssertionError(f"transport-topology (b) process {p}: staged {res['staged']}")
+        for name in names:
+            row = res["cases"][name]
+            wrong = [k for k, same in row["bitwise"].items() if not same]
+            if wrong:
+                raise AssertionError(f"transport-topology (b) process {p} {name}: rows "
+                                     f"{4 * p}..{4 * p + 3} of {wrong} differ from (a)")
+            if row["bytes_per_step"] != row["expected_bytes"]:
+                raise AssertionError(f"transport-topology (b) process {p} {name}: sent "
+                                     f"{row['bytes_per_step']} B a step, expected "
+                                     f"{row['expected_bytes']}")
+            if "record" in row:
+                tt_check_record(f"(b) process {p}", name, row["record"],
+                                numbers["a"][name]["record"])
+            if device.type == "cuda":
+                missing = [k for k in tt_cases()[name]["kernels"] if row["launches"][k] == 0]
+                if missing:
+                    raise AssertionError(f"transport-topology (b) process {p} {name} launched "
+                                         f"no {missing}: {row['launches']}")
+            for k, v in row["launches"].items():
+                counts["transport-topology"][k] += v
+        if TT_CKPT in names:
+            if not res["restored"]["bitwise"]["next"]:
+                raise AssertionError(f"transport-topology (c) process {p}: the step after "
+                                     "restoring (b)'s checkpoint differs from (a)'s next step")
+            for k, v in res["restored"]["launches"].items():
+                counts["transport-topology"][k] += v
+
+    numbers["c"] = None
+    if TT_CKPT in names:
+        t0 = time.perf_counter()
+        step = checkpoint.latest_step(os.path.join(root, "ckpt_b"))
+        with open(os.path.join(root, "ckpt_b", f"{step}.graph.json")) as f:
+            live = json.load(f)["graph_info"]["live_ranks"]
+        kill = tt_cases()[TT_CKPT]["kill"]
+        if live != [r for r in range(SIZE) if r != kill]:
+            raise AssertionError(f"transport-topology (c): (b)'s checkpoint records live {live}")
+        bft.init(size=SIZE, device=device)
+        sm.load_buffers(stats0)
+        torch.backends.cudnn.deterministic = True
+        try:
+            row, state = tt_run_case(device, sm, images, labels, TT_CKPT,
+                                     restore=os.path.join(root, "ckpt_b"))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        ref = torch.load(tp_file(root, "next"), map_location="cpu", weights_only=True)
+        if not torch.equal(bits(state["params"]), bits(ref)):
+            raise AssertionError("transport-topology (c): (b)'s checkpoint restored in one "
+                                 "process steps off (a)'s next step")
+        del ref, state
+        for k, v in row["launches"].items():
+            counts["transport-topology a"][k] += v
+        numbers["c"] = {"step": step, "live": live, "s": time.perf_counter() - t0}
+        log("transport-topology", f"(c) {TT_CKPT}: (b)'s checkpoint of step {step} (live "
+                                  f"{live}) restored in both processes and in this one under a "
+                                  f"fresh session, the next step bitwise (a)'s")
+        sm.load_buffers(stats0)
+        bft.init(size=SIZE, device=device)
+    shutil.rmtree(root, ignore_errors=True)
+    for name in names:
+        per = [r["cases"][name] for r in numbers["b"]]
+        a = numbers["a"][name]
+        how = ("sharing the card, gloo staged through pinned host memory"
+               if numbers["b"][0]["staged"] else "on the CPU, gloo")
+        gbps = [sum(r["bytes_per_step"]) / sum(r["transport_s"]) / 1e9 if sum(r["transport_s"])
+                else 0.0 for r in per]
+        log("transport-topology", f"(b) {name}: two processes x 4 workers {how}: step "
+                                  f"{max(r['step_s'] for r in per):.4f} s (stacked "
+                                  f"{a['step_s']:.4f}), optimizer "
+                                  f"{max(r['opt_ms'] for r in per):.1f} ms (stacked "
+                                  f"{a['opt_ms']:.1f}), transport "
+                                  f"{max(r['transport_ms'] for r in per):.1f} ms a step "
+                                  f"({min(gbps):.3f} GB/s over the steps), bytes a step "
+                                  f"{per[0]['bytes_per_step']} / {per[1]['bytes_per_step']}, "
+                                  f"peak {max(r['peak_gib'] for r in per):.2f} GiB (stacked "
+                                  f"{a['peak_gib']:.2f}); rows bitwise (a); on {smi}")
+    log("transport-topology", f"launches {counts}; (a) {a_s:.1f} s, (b) {b_s:.1f} s of "
+                              f"processes; phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, numbers
+
+
+def run_transport_topology_alone():
+    """``python3 chip_smoke.py --phase transport-topology``: phase 11i alone
+    on the full-width ResNet50 (the wire kernels built first); its gates as
+    in the whole run, its lines and its launch counts. Prints no result
+    line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    bft.init(size=SIZE)
+    sm, images, labels = build_trainer(device)
+    counts, _numbers = phase_transport_topology(device, sm, images, labels, smi=smi)
+    for path in ("transport-topology a", "transport-topology"):
+        missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    return 0
+
+
 def lm_flops_per_step(sm, seq, batch):
     """bench.py's model FLOPs of one step of every worker: per token
     ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
@@ -7046,6 +7588,8 @@ def main():
         return run_transport_child(sys.argv[2])
     if sys.argv[1:2] == ["--transport-state-child"] and len(sys.argv) == 3:
         return run_transport_state_child(sys.argv[2])
+    if sys.argv[1:2] == ["--transport-topology-child"] and len(sys.argv) == 3:
+        return run_transport_topology_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -7063,6 +7607,8 @@ def main():
         return run_transport_alone()
     if sys.argv[1:] == ["--phase", "transport-state"]:
         return run_transport_state_alone()
+    if sys.argv[1:] == ["--phase", "transport-topology"]:
+        return run_transport_topology_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -7147,6 +7693,9 @@ def main():
     torch.cuda.empty_cache()
     ts_counts, _ts = phase_transport_state(device, sm, images, labels, smi=smi)
     counts.update(ts_counts)
+    torch.cuda.empty_cache()
+    tt_counts, _tt = phase_transport_topology(device, sm, images, labels, smi=smi)
+    counts.update(tt_counts)
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))

@@ -1410,3 +1410,96 @@ def test_two_processes_window_exchange_equals_the_stacked_rows(cuda, tmp_path):
             assert torch.equal(_bits(got[key]), _bits(ref[4 * p:4 * p + 4])), (p, key)
         for k in ("encode", "decode"):
             assert got["launches"][k] > 0, (p, got["launches"])
+
+
+TOPOLOGY_WORKER = """
+import os, sys
+import numpy as np
+import torch
+import bluefog_tpu_torch as bft
+from bluefog_tpu_torch import topology as topo
+from bluefog_tpu_torch.collective import kernels, transport
+ctx = bft.init(size=8, device="cuda")
+assert ctx.process_count == 2 and ctx.backend == "gloo" and ctx.staged, (ctx.backend, ctx.staged)
+xs = np.load(sys.argv[1])
+x = bft.worker_values(list(xs))
+out = {"rows": list(ctx.rows)}
+os.environ["BLUEFOG_PLAN_METHOD"] = "shortcut"
+bft.set_topology(topo.ExponentialTwoGraph(8), is_weighted=True)
+assert ctx.static_plan().relay
+kernels.reset_launch_counts()
+transport.reset_stats()
+out["relay"] = bft.neighbor_allreduce(x, compression="int8").cpu()
+out["relay:bytes"] = transport.stats()["bytes"]
+out["relay:launches"] = kernels.launch_counts()
+del os.environ["BLUEFOG_PLAN_METHOD"]
+os.environ.update(BLUEFOG_PODS="2", BLUEFOG_DCN_PERIOD="2")
+kernels.reset_launch_counts()
+opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+opt.compression = "int8"
+p = {"w": x.clone()}
+opt.step(p, opt.init(p), {"w": x * 0.25})
+out["fed"] = p["w"].cpu()
+out["fed:launches"] = kernels.launch_counts()
+torch.save(out, os.path.join(sys.argv[2], f"topology_{ctx.process_index}.pt"))
+bft.shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_relay_and_federation_equal_the_stacked_rows(cuda, tmp_path):
+    """Two processes of four workers sharing the card (gloo, staged): a
+    relay int8 combine (``BLUEFOG_PLAN_METHOD=shortcut`` on Exp2(8),
+    forwarded hop by hop) and a federated DCN step (``BLUEFOG_PODS=2``, ATC
+    int8, the int4 DCN wire) leave each process's rows bitwise the same rows
+    of the stacked run on the card; each process launches ``encode`` and
+    ``decode_accumulate`` in both."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    xs = ragged_input("cpu", seed=29).numpy()
+    np.save(tmp_path / "x.npy", xs)
+    script = tmp_path / "worker.py"
+    script.write_text(TOPOLOGY_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BLUEFOG_")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.run.run", "-np", "8", "-H",
+         "localhost:4,localhost:4", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+         "2", str(script), str(tmp_path / "x.npy"), str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    ctx = bft.init(size=8, device=cuda)
+    try:
+        x = bft.worker_values(list(xs))
+        os.environ["BLUEFOG_PLAN_METHOD"] = "shortcut"
+        try:
+            bft.set_topology(topo.ExponentialTwoGraph(8), is_weighted=True)
+            want = {"relay": bft.neighbor_allreduce(x, compression="int8").cpu()}
+        finally:
+            del os.environ["BLUEFOG_PLAN_METHOD"]
+        os.environ.update(BLUEFOG_PODS="2", BLUEFOG_DCN_PERIOD="2")
+        try:
+            opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+            opt.compression = "int8"
+            p = {"w": x.clone()}
+            opt.step(p, opt.init(p), {"w": x * 0.25})
+            want["fed"] = p["w"].cpu()
+        finally:
+            del os.environ["BLUEFOG_PODS"], os.environ["BLUEFOG_DCN_PERIOD"]
+    finally:
+        bft.shutdown()
+    for p in range(2):
+        got = torch.load(tmp_path / f"topology_{p}.pt", weights_only=False)
+        assert got["rows"] == list(range(4 * p, 4 * p + 4))
+        for key, ref in want.items():
+            assert torch.equal(_bits(got[key]), _bits(ref[4 * p:4 * p + 4])), (p, key)
+            for k in ("encode", "decode_accumulate"):
+                assert got[f"{key}:launches"][k] > 0, (p, key, got[f"{key}:launches"])
+        assert got["relay:bytes"] > 0, p

@@ -21,8 +21,10 @@ times ``scaling.wire_payload_bytes``. The CTA and hierarchical legs of
 ``tests/test_multiprocess.py``'s worker are mirrored (loss below 0.2 x
 start, the same on every process), every refused path raises naming
 ROADMAP A14c, and each path refused before the window ops, the async
-engine, ZeRO and checkpoint ran across processes runs and equals the
-stacked rows (``test_torch_transport_state.py`` holds them in depth).
+engine, ZeRO, checkpoint, federation, relay plans and elastic sessions ran
+across processes runs and equals the stacked rows
+(``test_torch_transport_state.py`` and ``test_torch_transport_topology.py``
+hold them in depth).
 
 Every job runs once per module (a module-scoped fixture), all of them at
 once, each process under its own timeout.
@@ -54,12 +56,13 @@ TRAIN_STEPS = 3
 JOB_TIMEOUT = 120
 # (name, worker counts per process, nodes per machine)
 CONFIGS = [("2x4", (4, 4), 4), ("4x2", (2, 2, 2, 2), 2), ("3+5", (3, 5), 1)]
-REFUSED = ("elastic", "pods", "shortcut", "doctor", "staleness", "memory", "health", "slo",
-           "autotune", "metrics")
-# refused until the window ops, the async engine, ZeRO and checkpoint ran
-# across processes; each now runs and equals the stacked rows
+REFUSED = ("doctor", "staleness", "memory", "health", "slo", "autotune", "metrics", "oom")
+# refused until the window ops, the async engine, ZeRO, checkpoint,
+# federation, relay plans and elastic sessions ran across processes; each
+# now runs and equals the stacked rows
 FORMERLY_REFUSED = ("win_create", "push_sum", "win_put", "pull_get", "async", "checkpoint_save",
-                    "checkpoint_restore", "reduce_scatter", "shard", "shard:dispatch")
+                    "checkpoint_restore", "reduce_scatter", "shard", "shard:dispatch",
+                    "elastic", "pods", "shortcut")
 
 
 def _tiny_resnet(n_local, rows):
@@ -86,13 +89,16 @@ def _train(out, name, opt, params, loss_fn, *batch):
 
 def _refusals(out, level):
     """Every refused path's message (its ValueError), or 'no error'."""
-    try:
-        bft.elastic.start()
-        out["refused:elastic"] = "no error"
+    from bluefog_tpu_torch.elastic import Fault, FaultPlan
+
+    try:  # the elastic oom fault runs the memory observatory's forensics
+        bft.elastic.start(plan=FaultPlan([Fault(kind="oom", rank=1, step=1)]))
+        out["refused:oom"] = "no error"
     except ValueError as e:
-        out["refused:elastic"] = str(e)
-    env = {"pods": ("BLUEFOG_PODS", "2"),
-           "shortcut": ("BLUEFOG_PLAN_METHOD", "shortcut"), "doctor": ("BLUEFOG_DOCTOR", "1"),
+        out["refused:oom"] = str(e)
+    finally:
+        bft.elastic.stop()
+    env = {"doctor": ("BLUEFOG_DOCTOR", "1"),
            "staleness": ("BLUEFOG_STALENESS", "1"), "memory": ("BLUEFOG_MEMORY", "1"),
            "health": ("BLUEFOG_HEALTH", "1"), "slo": ("BLUEFOG_SLO", "1"),
            "autotune": ("BLUEFOG_AUTOTUNE", "1"), "metrics": ("BLUEFOG_METRICS", "1")}
@@ -154,6 +160,26 @@ def _formerly_refused(out, level):
             params = x.clone()
             gstate = gopt.init(params)
             gopt.step(params, gstate, g.clone())
+            got[name] = params
+        finally:
+            for k in env:
+                del os.environ[k]
+    bft.set_topology(topo.ExponentialTwoGraph(SIZE))
+    session = bft.elastic.start()
+    session.inject("kill", rank=5, step=0)
+    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+    params = x.clone()
+    bft.elastic.guard(opt).step(params, opt.init(params), g.clone())
+    got["elastic"] = params
+    bft.elastic.stop()
+    for name, env in (("pods", {"BLUEFOG_PODS": "2"}),
+                      ("shortcut", {"BLUEFOG_PLAN_METHOD": "shortcut"})):
+        os.environ.update(env)
+        try:
+            opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+            opt.compression = "int8"
+            params = x.clone()
+            opt.step(params, opt.init(params), g.clone())
             got[name] = params
         finally:
             for k in env:
@@ -483,9 +509,10 @@ def test_refused_paths_name_a14c(runs, what):
 @pytest.mark.parametrize("what", FORMERLY_REFUSED)
 def test_formerly_refused_paths_run(runs, what):
     """The paths refused across processes until the window ops, the async
-    engine, ZeRO and checkpoint were ported now run, and each process's
-    result equals the same rows of the stacked run (the checkpoint file
-    holds every row, equal to the stacked file's)."""
+    engine, ZeRO, checkpoint, federation (``BLUEFOG_PODS``), relay plans
+    (``BLUEFOG_PLAN_METHOD=shortcut``) and elastic sessions were ported now
+    run, and each process's result equals the same rows of the stacked run
+    (the checkpoint file holds every row, equal to the stacked file's)."""
     key = f"formerly_refused:{what}"
     for config, _, level in CONFIGS:
         ref = runs["ref"][level][key]
