@@ -85,9 +85,9 @@ stay bitwise the stacked ones). The loss is ``[n_local]``;
 they are the fleet's in every process. An elastic session runs there
 too: every process replays the same faults and agrees before each tick,
 and a re-window divides the local rows by their p and rebuilds the window
-from the global live set in every process. The switches still refused
-across processes (the observatories, health, SLO, autotune, the metrics
-probe) raise naming ROADMAP A14c.
+from the global live set in every process. The staleness observatory's
+``async`` surface reads the host age lane, which is global, so its ages
+are the fleet's in every process.
 
 After each tick the window goes to the staleness observatory under
 ``surface="async"`` (:func:`bluefog_tpu_torch.staleness.observe_window`):
@@ -722,10 +722,6 @@ def make_async_train_step(opt, loss_fn, has_aux: bool = False,
     returned loss ``[n_local]`` (see the module docstring).
     With async off (``enabled=False`` or ``BLUEFOG_ASYNC=0``) this returns
     ``opt.make_train_step(loss_fn, has_aux=has_aux)``."""
-    if ctx_mod.is_initialized() and ctx_mod.get_context().process_count > 1:
-        from bluefog_tpu_torch.collective import transport
-
-        transport.check_env_supported()
     on = async_enabled() if enabled is None else bool(enabled)
     if not on:
         return opt.make_train_step(loss_fn, has_aux=has_aux)

@@ -36,6 +36,17 @@ and off are bitwise equal. Only a sample waits for the device.
   ``anchor_tflops`` (a 256 x 256 bf16 ``torch.matmul``, the ambient
   compute anchor).
 
+**Across processes** a probe round is the multi-process transport's
+:class:`~bluefog_tpu_torch.collective.transport.Route` over that round's
+perm on the probe buffer's local rows, priced by the route's own
+calibration (:func:`~bluefog_tpu_torch.collective.compiler.calibrate`
+times the route there). Every per-process wall time is the slowest
+process's (the anchor the lowest throughput), through one
+``all_gather_object`` each for the host readings (the step, the
+dispatch, the sync lag, the anchor), the rounds' probes and the drilled
+edges, before ``blame_edges`` and the drill-down decide, so every process
+probes the same edges and reports the same sample and advisories.
+
 **Advisories**: ``degraded_link``, ``straggler``, ``recompile_storm``
 (from ``bluefog.recompiles``, which the eager port never counts),
 ``consensus_stall`` and ``ambient_drift``; each counts
@@ -274,35 +285,44 @@ class StepDoctor:
         return t
 
     def _probe_buffer(self, ctx, elems: int):
+        """The ``[size, elems]`` f32 probe buffer (``RandomState(0)``);
+        across processes this process's rows of it."""
         key = (str(ctx.device), ctx.size, elems)
         buf = self._probe_bufs.get(key)
         if buf is None:
             import numpy as np
             import torch
 
-            buf = torch.from_numpy(
-                np.random.RandomState(0).randn(ctx.size, elems).astype(np.float32)
-            ).to(ctx.device)
+            full = np.random.RandomState(0).randn(ctx.size, elems).astype(np.float32)
+            buf = torch.from_numpy(full[ctx.rows.start:ctx.rows.stop]).to(ctx.device)
             self._probe_bufs[key] = buf
         return buf
 
     def _probe_fn(self, ctx, perm: Tuple[Tuple[int, int], ...], elems: int):
         """One round of the stacked transport over exactly ``perm``: a
         gather by the round's sources (-1 where a worker receives
-        nothing), cached in ``ctx.op_cache`` under its own
-        ``doctor_probe`` family."""
+        nothing); across processes that round's
+        :class:`~bluefog_tpu_torch.collective.transport.Route` on the probe
+        buffer's local rows, then the gather. Cached in ``ctx.op_cache``
+        under its own ``doctor_probe`` family."""
         key = ("doctor_probe", perm, elems)
         fn = ctx.op_cache.get(key)
         if fn is None:
+            import numpy as np
             import torch
 
-            from bluefog_tpu_torch.collective import inner
+            from bluefog_tpu_torch.collective import inner, transport
 
-            src = [-1] * ctx.size
+            src = np.full((1, ctx.size), -1, np.int64)
             for s, d in perm:
-                src[d] = s
-            src_t = torch.tensor(src, dtype=torch.int32, device=ctx.device)
-            fn = ctx.op_cache[key] = lambda t: inner._gather(t, src_t)
+                src[0, d] = s
+            if ctx.process_count > 1:
+                rt = transport.route(src, ctx.size, ctx)
+                fn = lambda t: inner._gather(rt.exchange([t])[0], rt[0])  # noqa: E731
+            else:
+                src_t = torch.from_numpy(src[0].astype(np.int32)).to(ctx.device)
+                fn = lambda t: inner._gather(t, src_t)  # noqa: E731
+            ctx.op_cache[key] = fn
         return fn
 
     def _chaos_delay_s(self, perm, payload_bytes: float) -> float:
@@ -368,7 +388,7 @@ class StepDoctor:
         """Probe every round of ``plan`` at the probe payload, price it,
         and drill into the anomalous rounds edge by edge. Returns (rounds
         report, advisories, probe bytes, summed probe seconds)."""
-        from bluefog_tpu_torch.collective import compiler
+        from bluefog_tpu_torch.collective import compiler, transport
 
         link = compiler.TRANSPORT_LINK_CLASS
         perms = plan.perms
@@ -379,7 +399,7 @@ class StepDoctor:
         preds = compiler.predicted_round_costs_s(plan.compile_info, probe_bytes,
                                                  n_rounds=len(perms), link_class=link)
         rb_s = self._readback_s(ctx, elems)
-        times = [self._time_probe(ctx, p, elems, rb_s) for p in perms]
+        times = transport.fleet_max([self._time_probe(ctx, p, elems, rb_s) for p in perms], ctx)
         suspect = blame_edges(times, preds, perms)
         rounds = []
         for i, p in enumerate(perms):
@@ -394,7 +414,9 @@ class StepDoctor:
         blamed: List[Tuple[Tuple[int, int], float, float]] = []
         for i in suspect:
             # a round can only be blamed whole; one edge at a time names it
-            edge_ts = {e: self._time_probe(ctx, (e,), elems, rb_s) for e in perms[i]}
+            edges = list(perms[i])
+            edge_ts = dict(zip(edges, transport.fleet_max(
+                [self._time_probe(ctx, (e,), elems, rb_s) for e in edges], ctx)))
             pred_edge = compiler.round_cost_s(probe_bytes, link_class=link)
             srt_e = sorted(edge_ts.values())
             med = srt_e[(len(srt_e) - 1) // 2]
@@ -483,7 +505,7 @@ class StepDoctor:
 
     def _sample(self, ctx, *, step, outputs, plan, params, wire, dispatch_s) -> dict:
         from bluefog_tpu_torch import metrics as metrics_mod
-        from bluefog_tpu_torch.collective import compiler
+        from bluefog_tpu_torch.collective import compiler, transport
 
         if not self._calibrated:
             # residuals only mean something against measured constants; an
@@ -505,6 +527,13 @@ class StepDoctor:
             t0 = time.perf_counter()
             _settle(ctx.device)
             sync_lag_s = time.perf_counter() - t0
+        anchor = self._anchor_tflops()
+        if ctx is not None and ctx.process_count > 1:
+            # the host readings of every process, the slowest's in every one
+            # (the anchor's lowest throughput: the largest negated)
+            step_s, dispatch_s, sync_lag_s, neg = transport.fleet_max(
+                [step_s, dispatch_s, sync_lag_s, None if anchor is None else -anchor], ctx)
+            anchor = None if neg is None else -neg
 
         sample: Dict[str, Any] = {
             "kind": "sample",
@@ -557,7 +586,6 @@ class StepDoctor:
         if consensus is not None:
             sample["consensus_distance"] = consensus
 
-        anchor = self._anchor_tflops()
         if anchor is not None:
             sample["anchor_tflops"] = round(anchor, 4)
 

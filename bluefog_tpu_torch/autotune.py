@@ -29,6 +29,13 @@ as its float64 weight matrix, so a migration installs the candidate's
 matrix itself where the JAX package builds a networkx graph from it; the
 installed ``mixing_matrix(load_topology())`` is the same array.
 
+**Across processes** the triggers come from the doctor's and the health
+plane's advisories, which every process holds alike, and the clock from
+the slowest process's step time, so every process scores the same
+candidates and swaps, or rolls back, at the same step; before a swap or a
+rollback one ``all_gather_object`` of the decision raises
+``RuntimeError`` in every process if they differ.
+
 **Triggers.** A sample harvests *new* advisories since the previous
 sample: the doctor's ``degraded_link``/``straggler`` (per-edge measured
 blame) and the health plane's ``mixing_degraded`` (broken spectral
@@ -958,8 +965,14 @@ class TopologyAutotuner:
                             plan=plan, step_s=step_s,
                             triggers=triggers)
 
-    def _measure_step_s(self, explicit: Optional[float]
+    def _measure_step_s(self, explicit: Optional[float], ctx=None
                         ) -> Optional[float]:
+        """The step time since the last sample (``explicit`` when given);
+        across processes the slowest process's, the same in every one
+        (:func:`~bluefog_tpu_torch.collective.transport.fleet_max`), so the
+        controller's clock and its rollback verdicts agree."""
+        from bluefog_tpu_torch.collective import transport
+
         t_now = time.perf_counter()
         steps = self._count - self._last_sample_count
         measured = None
@@ -969,14 +982,27 @@ class TopologyAutotuner:
             measured = (t_now - self._last_sample_wall) / steps
         self._last_sample_wall = t_now
         self._last_sample_count = self._count
-        return measured
+        return transport.fleet_max([measured], ctx)[0]
+
+    @staticmethod
+    def _agree_decision(ctx, action: str, seq: int, step: int,
+                        chosen: Optional[str], blamed) -> None:
+        """Across processes: raise ``RuntimeError`` in every process
+        before a migration whose decision differs between them (the next
+        dispatch's elastic agreement would only catch it a step later)."""
+        if ctx is None or ctx.process_count == 1:
+            return
+        from bluefog_tpu_torch.collective import transport
+
+        transport.agree((action, seq, int(step), chosen, [list(e) for e in blamed],
+                         int(ctx.topo_version)), "autotune decision")
 
     def _sample(self, ctx, *, step, optimizer, plan, step_s,
                 triggers) -> Optional[DecisionRecord]:
         from bluefog_tpu_torch import metrics as metrics_mod
 
         steps_elapsed = self._count - self._last_sample_count
-        measured_s = self._measure_step_s(step_s)
+        measured_s = self._measure_step_s(step_s, ctx)
         tr = self._step_tracker
         if measured_s is not None:
             tr.update(measured_s)
@@ -1091,6 +1117,8 @@ class TopologyAutotuner:
             self.holds += 1
 
         if action == "swap":
+            self._agree_decision(ctx, action, len(self.decisions), step, best["name"],
+                                 sorted(factors))
             self._prev = self._snapshot_state(ctx, optimizer)
             self._migrate(ctx, optimizer, by_name[best["name"]])
             self.swaps += 1
@@ -1213,6 +1241,8 @@ class TopologyAutotuner:
             "rolled_back": False,
         }
         if regressed and not self.dry_run and self._prev is not None:
+            self._agree_decision(ctx, "rollback", len(self.decisions), step,
+                                 self._chosen_of(pend["decision_seq"]), [])
             v_before = int(ctx.topo_version)
             self._restore(ctx, optimizer, self._prev)
             self._prev = None

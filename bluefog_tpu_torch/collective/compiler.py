@@ -42,6 +42,9 @@ package), two rounds monolithic against the 4-chunk wavefront give
 ``BLUEFOG_PLAN_CALIBRATE=1`` runs it before the chooser prices. The
 attribution doctor prices its probes with the same class
 (:func:`predicted_round_costs_s`, :func:`degraded_round_penalty_s`).
+Across processes the round it times is the multi-process transport's route
+(:func:`_route_round_times`), whose constants every process agrees on and
+installs under the same class.
 """
 
 import dataclasses
@@ -248,11 +251,44 @@ def calibrate(force: bool = False, small_elems: int = 2048, large_elems: int = 1
     ``"dcn"`` are fabrics the port does not have: their pin, else their
     class constants, come back unprobed. A probe that fails raises."""
     _check_link_class(link_class)
+    from bluefog_tpu_torch import context as ctx_mod
+
+    ctx = ctx_mod._context
+    if ctx is not None and ctx.process_count > 1 and link_class == TRANSPORT_LINK_CLASS:
+        from bluefog_tpu_torch.collective import transport
+
+        # every process probes, or none: the probe is a collective
+        transport.agree(_CAL.get(link_class) is not None and not force, "compiler.calibrate")
     if _CAL.get(link_class) is not None and not force:
         return calibration(link_class)
     if link_class != TRANSPORT_LINK_CLASS:
         return calibration(link_class)
+    if ctx is not None and ctx.process_count > 1:
+        times, probe = _route_round_times(ctx, small_elems, large_elems, steps, windows)
+    else:
+        times, probe = _stacked_round_times(small_elems, large_elems, steps, windows)
+    t_small, t_large, t_mono, t_chunk = times
+    alpha = max(t_small, 1e-9)
+    beta = (large_elems - small_elems) * 4 / max(t_large - t_small, 1e-9)
+    ideal_gain = (2 * 4) / (2 + 4 - 1)
+    gain = t_mono / max(t_chunk, 1e-9)
+    pipeline_eff = min(1.0, max(0.0, (gain - 1.0) / (ideal_gain - 1.0)))
+    _CAL[link_class] = {
+        "alpha_s": float(alpha),
+        "beta_bytes_per_s": float(beta),
+        "pipeline_eff": float(pipeline_eff),
+        "source": "measured-probe",
+        **probe,
+        "probe_gain_2round_4chunk": float(gain),
+    }
+    return calibration(link_class)
 
+
+def _stacked_round_times(small_elems: int, large_elems: int, steps: int, windows: int):
+    """:func:`calibrate`'s four times on the stacked transport (a gather of
+    an ``[8, elems]`` tensor, :func:`_timed_round_s`): one ring round small
+    and large, two rounds monolithic and in the 4-chunk wavefront; and the
+    probe's description."""
     import numpy as np
     import torch
 
@@ -281,25 +317,76 @@ def calibrate(force: bool = False, small_elems: int = 2048, large_elems: int = 1
         return recv[0] + recv[1]
 
     x_small, x_large = payload(small_elems), payload(large_elems)
-    t_small = _timed_round_s(one_round, x_small, device, steps, windows)
-    t_large = _timed_round_s(one_round, x_large, device, steps, windows)
-    alpha = max(t_small, 1e-9)
-    beta = (large_elems - small_elems) * 4 / max(t_large - t_small, 1e-9)
-    t_mono = _timed_round_s(two_round, x_large, device, steps, windows)
-    t_chunk = _timed_round_s(two_round_chunked, x_large, device, steps, windows)
-    ideal_gain = (2 * 4) / (2 + 4 - 1)
-    gain = t_mono / max(t_chunk, 1e-9)
-    pipeline_eff = min(1.0, max(0.0, (gain - 1.0) / (ideal_gain - 1.0)))
-    _CAL[link_class] = {
-        "alpha_s": float(alpha),
-        "beta_bytes_per_s": float(beta),
-        "pipeline_eff": float(pipeline_eff),
-        "source": "measured-probe",
-        "probe_devices": n,
-        "probe_device": str(device),
-        "probe_gain_2round_4chunk": float(gain),
-    }
-    return calibration(link_class)
+    times = tuple(_timed_round_s(body, x, device, steps, windows)
+                  for body, x in ((one_round, x_small), (one_round, x_large),
+                                  (two_round, x_large), (two_round_chunked, x_large)))
+    return times, {"probe_devices": n, "probe_device": str(device)}
+
+
+def _route_round_times(ctx, small_elems: int, large_elems: int, steps: int, windows: int):
+    """:func:`calibrate`'s four times across processes: the round is the
+    multi-process transport's
+    :class:`~bluefog_tpu_torch.collective.transport.Route` of a full ring
+    over every worker (each process's rows of the ``RandomState(0)``
+    ``[size, elems]`` payload, exchanged, then the gather). Each call waits
+    for its messages, so it is timed on the host clock around a device
+    synchronize, ``windows`` windows of ``steps`` calls after two warm-ups,
+    the best window's mean; each time is the slowest process's
+    (:func:`~bluefog_tpu_torch.collective.transport.fleet_max`), so every
+    process installs the same constants. The chunked form exchanges four
+    512-aligned column chunks one after another."""
+    import numpy as np
+    import torch
+
+    from bluefog_tpu_torch.collective import inner, transport
+
+    n, lo, hi = ctx.size, ctx.rows.start, ctx.rows.stop
+    fwd = [(j - 1) % n for j in range(n)]
+    bwd = [(j + 1) % n for j in range(n)]
+    one = transport.route(np.array([fwd]), n, ctx)
+    two = transport.route(np.array([fwd, bwd]), n, ctx)
+
+    def payload(elems):
+        full = np.random.RandomState(0).randn(n, elems).astype(np.float32)
+        return torch.from_numpy(full[lo:hi]).to(ctx.device)
+
+    def one_round(t):
+        return inner._gather(one.exchange([t])[0], one[0])
+
+    def two_round(t):
+        ext = two.exchange([t])[0]
+        return inner._gather(ext, two[0]) + inner._gather(ext, two[1])
+
+    def two_round_chunked(t):
+        parts = []
+        for a, b in inner.chunk_bounds(t.shape[1], 4):
+            ext = two.exchange([t[:, a:b].contiguous()])[0]
+            parts.append(inner._gather(ext, two[0]) + inner._gather(ext, two[1]))
+        return torch.cat(parts, dim=1)
+
+    def timed(body, x):
+        for _ in range(2):
+            body(x)
+        best = None
+        for _ in range(max(1, int(windows))):
+            if ctx.device.type == "cuda":
+                torch.cuda.synchronize(ctx.device)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                body(x)
+            if ctx.device.type == "cuda":
+                torch.cuda.synchronize(ctx.device)
+            dt = (time.perf_counter() - t0) / steps
+            best = dt if best is None else min(best, dt)
+        return best
+
+    x_small, x_large = payload(small_elems), payload(large_elems)
+    times = transport.fleet_max([timed(one_round, x_small), timed(one_round, x_large),
+                                 timed(two_round, x_large), timed(two_round_chunked, x_large)],
+                                ctx)
+    return tuple(times), {"probe_devices": n, "probe_device": str(ctx.device),
+                          "probe_processes": ctx.process_count, "probe_backend": ctx.backend,
+                          "probe_staged": bool(ctx.staged)}
 
 
 def _maybe_autocalibrate(link_class: str = TRANSPORT_LINK_CLASS) -> None:

@@ -49,8 +49,8 @@ stacked order, so they are bitwise the stacked results; :func:`broadcast`
 ships the root's row from its owner; :func:`barrier` adds the group's
 barrier; :func:`reduce_scatter` runs each circulant round as a route
 with one sender row per receiver (one batch a round, see
-:func:`_reduce_scatter_route`). The staleness lineage is refused
-(ROADMAP A14c).
+:func:`_reduce_scatter_route`); :func:`lineage_exchange` ships each
+round's tags on that round's route.
 
 Chunking (``chunks > 1``) splits only the transfers, on the 512-element
 grid, in wavefront order (chunk ``c`` of round ``r`` beside chunk ``c + 1``
@@ -889,18 +889,30 @@ def pair_gossip(
     return torch.where(paired, gossiped, xw)
 
 
-def lineage_exchange(tags: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+def lineage_exchange(tags: torch.Tensor, src) -> torch.Tensor:
     """The staleness observatory's provenance lane: each round's int32
     lineage tag shipped along that round's gather. ``tags`` is ``[n_rounds,
     N, k]`` (row ``j`` of round ``r`` the stamp worker ``j`` sends in round
     ``r``), ``src`` the rounds' sources ``[n_rounds, N]``; returns the
     delivered tags ``[n_rounds, N, k]``, zeros where a worker receives
-    nothing in a round (the JAX ``lineage_exchange``, stacked)."""
-    from bluefog_tpu_torch import context as ctx_mod
+    nothing in a round (the JAX ``lineage_exchange``, stacked).
 
-    ctx_mod.require_single_process("the staleness lineage")
+    Across processes ``tags`` is this process's rows ``[n_rounds, n_local,
+    k]`` and ``src`` the global sources (host or device); each round's tags
+    travel on that round's route, one batch a round (every round ships
+    other tags, as :func:`_reduce_scatter_route` ships other slots), and
+    the local receivers' delivered tags ``[n_rounds, n_local, k]`` come
+    back, bitwise the stacked lane's rows."""
     if src.shape[0] == 0:
         return torch.zeros_like(tags)
+    ctx = _multi_process()
+    if ctx is not None:
+        src = np.asarray(src.cpu() if isinstance(src, torch.Tensor) else src, np.int64)
+        out = []
+        for r in range(src.shape[0]):
+            rt = transport.route(src[r:r + 1], ctx.size, ctx)
+            out.append(_gather(rt.exchange([tags[r].contiguous()])[0], rt[0]))
+        return torch.stack(out)
     return torch.stack([_gather(tags[r], src[r]) for r in range(src.shape[0])])
 
 

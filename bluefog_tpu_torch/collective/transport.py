@@ -85,13 +85,13 @@ __all__ = [
     "gather_rows",
     "broadcast_row",
     "barrier",
+    "gather_objects",
+    "fleet_max",
+    "agree",
     "stats",
     "reset_stats",
-    "check_env_supported",
     "on_init",
 ]
-
-A14C = "ROADMAP A14c"
 
 _STATS = {"bytes": 0, "messages": 0, "combines": 0, "seconds": 0.0}
 
@@ -454,17 +454,21 @@ class _Poster:
                       ms=round(dt * 1e3, 3))
 
 
-def gather_rows(x: torch.Tensor, ctx=None) -> torch.Tensor:
+def gather_rows(x, ctx=None):
     """Every process's rows, ``[N, ...]`` in global order: each process
-    sends all its rows to every other process (one message a peer)."""
+    sends all its rows to every other process (one message a peer). ``x``
+    may be a list of ``[n_local, ...]`` tensors on one device, which travel
+    together (one byte row a worker); a list comes back."""
     ctx = _ctx() if ctx is None else ctx
+    tensors = [x] if isinstance(x, torch.Tensor) else list(x)
     bounds = _bounds(ctx.worker_counts)
     me = ctx.process_index
-    idx = torch.arange(x.shape[0], device=x.device)
+    idx = torch.arange(tensors[0].shape[0], device=tensors[0].device)
     peers = [q for q in range(ctx.process_count) if q != me]
-    return exchange_rows([x], [(q, idx, 0) for q in peers],
-                         [(q, int(bounds[q + 1] - bounds[q]), int(bounds[q]), 0) for q in peers],
-                         ctx.size, local_at=int(bounds[me]))[0]
+    out = exchange_rows(tensors, [(q, idx, 0) for q in peers],
+                        [(q, int(bounds[q + 1] - bounds[q]), int(bounds[q]), 0) for q in peers],
+                        ctx.size, local_at=int(bounds[me]))
+    return out[0] if isinstance(x, torch.Tensor) else out
 
 
 def broadcast_row(x: torch.Tensor, root: int, ctx=None) -> torch.Tensor:
@@ -483,6 +487,48 @@ def broadcast_row(x: torch.Tensor, root: int, ctx=None) -> torch.Tensor:
     return exchange_rows([x[:0]], [], [(owner, 1, 0, 0)], 1)[0]
 
 
+def gather_objects(obj, ctx=None) -> list:
+    """Every process's ``obj`` (picklable), in process order: one
+    ``all_gather_object``; ``[obj]`` with one process. The fleet samplers
+    reduce a per-process host reading (a wall time, the allocator's bytes)
+    from it by a stated rule, the same in every process."""
+    ctx = _ctx() if ctx is None else ctx
+    if ctx.process_count == 1:
+        return [obj]
+    import torch.distributed as dist
+
+    out = [None] * ctx.process_count
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def fleet_max(values: Sequence[Optional[float]], ctx=None) -> List[Optional[float]]:
+    """Each value's maximum over the processes (one :func:`gather_objects`;
+    None where any process holds None), the same in every process: the
+    fleet samplers' rule for a per-process wall time. With one process (or
+    no context) ``values`` itself."""
+    if ctx is None or ctx.process_count == 1:
+        return list(values)
+    views = gather_objects(list(values), ctx)
+    return [None if any(v[i] is None for v in views) else max(v[i] for v in views)
+            for i in range(len(values))]
+
+
+def agree(obj, what: str, ctx=None) -> None:
+    """Raise ``RuntimeError`` in every process when some process holds
+    another ``obj`` than process 0 (one :func:`gather_objects`): a branch
+    that launches communication taken in one process only would leave the
+    others waiting in the transport."""
+    views = gather_objects(obj, ctx)
+    differ = [p for p, v in enumerate(views) if v != views[0]]
+    if differ:
+        raise RuntimeError(
+            f"{what}: the processes disagree: process 0 holds {views[0]!r}; processes "
+            f"{differ} hold {[views[p] for p in differ]!r}. Every process must set the same "
+            "switches and replay the same faults"
+        )
+
+
 def barrier(ctx=None) -> None:
     import torch.distributed as dist
 
@@ -490,29 +536,6 @@ def barrier(ctx=None) -> None:
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     dist.barrier()
-
-
-def check_env_supported() -> None:
-    """Refuse the switches whose subsystems do not run across processes
-    yet (ROADMAP A14c): the observatories, health, SLO, autotune and the
-    metrics probe. ZeRO (``BLUEFOG_SHARD``, with ``BLUEFOG_SHARD_GRADS``
-    and ``BLUEFOG_SHARD_MASTER``), federation (``BLUEFOG_PODS``) and relay
-    plans (``BLUEFOG_PLAN_METHOD=shortcut``) run."""
-    from bluefog_tpu_torch import attribution, autotune, health, memory
-    from bluefog_tpu_torch import metrics, slo, staleness
-
-    refused = [
-        ("BLUEFOG_DOCTOR (the doctor)", attribution.enabled()),
-        ("BLUEFOG_STALENESS (the staleness lineage)", staleness.enabled()),
-        ("BLUEFOG_MEMORY (the memory observatory)", memory.enabled()),
-        ("BLUEFOG_HEALTH (the health plane)", health.enabled()),
-        ("BLUEFOG_SLO (the SLO engine)", slo.enabled()),
-        ("BLUEFOG_AUTOTUNE (the topology controller)", autotune.enabled()),
-        ("BLUEFOG_METRICS (the metrics probe)", metrics.enabled()),
-    ]
-    for what, on in refused:
-        if on:
-            raise ValueError(f"{what} does not run across processes yet ({A14C})")
 
 
 _LOGGED: Dict[tuple, bool] = {}

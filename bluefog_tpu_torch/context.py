@@ -70,7 +70,6 @@ __all__ = [
     "select_backend",
     "order_devices_for_mesh",
     "default_nodes_per_machine",
-    "require_single_process",
     "init",
     "shutdown",
     "is_initialized",
@@ -209,17 +208,6 @@ def _worker_counts(size: int, process_count: int) -> List[int]:
                 f"{total} workers; host slot counts must sum to -np"
             )
     return [int(c) for c in counts]
-
-
-def require_single_process(what: str) -> None:
-    """Refuse ``what`` while the active context spans several processes:
-    it is not ported across processes yet (ROADMAP A14c)."""
-    ctx = _context
-    if ctx is not None and ctx.process_count > 1:
-        raise ValueError(
-            f"{what} does not run across processes yet (ROADMAP A14c); this context "
-            f"spans {ctx.process_count} processes"
-        )
 
 
 class BluefogContext:
@@ -442,6 +430,20 @@ class BluefogContext:
         return [int(j) for j in np.nonzero(row)[0] if j != rank]
 
 
+def _sampler_switches() -> tuple:
+    """``(name, on, interval)`` of every fleet sampler as the environment
+    sets it, which every process must hold alike."""
+    from bluefog_tpu_torch import attribution, autotune, health, memory, metrics, slo, staleness
+
+    return (("metrics", metrics.enabled(), metrics.metrics_interval()),
+            ("doctor", attribution.enabled(), attribution.doctor_interval()),
+            ("staleness", staleness.enabled(), staleness.staleness_interval()),
+            ("memory", memory.enabled(), memory.memory_interval()),
+            ("health", health.enabled(), health.health_interval()),
+            ("slo", slo.enabled(), slo.slo_interval(), slo.canary_enabled()),
+            ("autotune", autotune.enabled(), autotune.autotune_interval()))
+
+
 def init(
     topology_fn: Optional[Callable[[int], np.ndarray]] = None,
     is_weighted: bool = False,
@@ -464,7 +466,10 @@ def init(
     ``BLUEFOG_HEALTH_PORT``), the topology controller (``BLUEFOG_AUTOTUNE``),
     the SLO engine last (``BLUEFOG_SLO``; it reads the others), and sets the
     ``bluefog.size`` and ``bluefog.machine_size`` gauges. A set ``BLUEFOG_PODS`` federates the
-    optimizers' combine (:mod:`bluefog_tpu_torch.federation`)."""
+    optimizers' combine (:mod:`bluefog_tpu_torch.federation`). Across
+    processes every process must set the samplers' switches and intervals
+    alike: one ``all_gather_object`` raises ``RuntimeError`` in every
+    process otherwise."""
     global _context
     from bluefog_tpu_torch import async_gossip, attribution, autotune, elastic, flight, health
     from bluefog_tpu_torch import memory, metrics, slo, staleness
@@ -476,7 +481,9 @@ def init(
     if ctx.process_count > 1:
         from bluefog_tpu_torch.collective import transport
 
-        transport.check_env_supported()
+        # a sampler on in one process only would leave the others waiting
+        # in its first gather: refuse it in every process, before anything
+        transport.agree(_sampler_switches(), "bft.init: the fleet samplers' switches", ctx)
     with _lock:
         _context = ctx
     tl.maybe_init_from_env()

@@ -86,8 +86,8 @@ def start(plan=None, policy: str = "average",
     ``plan`` defaults to the ``BLUEFOG_FAULT_PLAN`` environment grammar.
     Across processes every process opens its session on the same plan
     (the launcher forwards the environment) and the sessions agree before
-    every dispatch (:mod:`bluefog_tpu_torch.elastic.recovery`); a plan
-    with an ``oom`` fault is refused there (ROADMAP A14c)."""
+    every dispatch (:mod:`bluefog_tpu_torch.elastic.recovery`); an ``oom``
+    fault runs the memory observatory's forensics in every process."""
     global _session
     if _session is not None:
         raise RuntimeError(

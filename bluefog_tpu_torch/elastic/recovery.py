@@ -49,8 +49,9 @@ and :meth:`~ElasticSession.adopt_live_set` end with the same agreement.
 :func:`consensus_restore` takes every row through
 :func:`bluefog_tpu_torch.collective.transport.gather_rows` and writes the
 survivors' mean into the rejoining rank's row in its owner process. The
-``oom`` fault is refused across processes with the memory observatory
-(ROADMAP A14c).
+``oom`` fault fires at the same step in every process; each runs the
+memory observatory's forensics, whose ranked census is the fleet's (the
+last sample's, summed over the processes), the same in every process.
 """
 
 import dataclasses
@@ -192,7 +193,6 @@ class ElasticSession:
         ctx = ctx_mod.get_context()
         plan = plan if plan is not None else FaultPlan.from_env()
         plan.validate(ctx.size)
-        _refuse_oom_across_processes(plan.faults)
         self.ctx = ctx
         self.policy = policy
         self.membership = Membership(ctx.size)
@@ -283,7 +283,6 @@ class ElasticSession:
         fault = Fault(kind=kind, rank=int(rank), step=int(step),
                       seconds=float(seconds), factor=float(factor),
                       peer=int(peer), hold_steps=int(steps))
-        _refuse_oom_across_processes([fault])
         if not 0 <= fault.rank < self.ctx.size:
             raise ValueError(
                 f"rank {fault.rank} out of range for {self.ctx.size} workers"
@@ -770,18 +769,6 @@ class ElasticSession:
                 self.step,
             )
         self._agree(optimizer, "after adopting a recorded live set")
-
-
-def _refuse_oom_across_processes(faults) -> None:
-    """The ``oom`` fault runs the memory observatory's forensics, which do
-    not run across processes yet (ROADMAP A14c)."""
-    ctx = ctx_mod._context
-    if ctx is not None and ctx.process_count > 1 and any(f.kind == "oom" for f in faults):
-        raise ValueError(
-            "the elastic oom fault (the memory observatory's forensics) does not run "
-            f"across processes yet (ROADMAP A14c); this context spans {ctx.process_count} "
-            "processes"
-        )
 
 
 class ElasticGuard:

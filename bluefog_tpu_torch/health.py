@@ -34,6 +34,19 @@ no training key changes; a sampled step dispatches one application whose
 result is copied to pinned host memory behind an event and read at the
 next sample, so the step never waits on the card for it.
 
+**Across processes** every process holds the lane's host state of every
+row; a sample ships its rows to the device, runs the applications over
+the push plan's route (the sum lanes through
+:func:`~bluefog_tpu_torch.collective.inner.weighted_combine_operands`, the
+min/max lanes' senders in one exchange an application) and gathers every
+row back, so the estimates, ``mixing_degraded`` and the ``/healthz``
+verdict's fleet fields are the stacked run's, bitwise, in every process;
+the read one sample later and the min/max re-seed happen at the same
+sample in every process. The step time is the slowest process's (one
+``all_gather_object`` a sample, with each process's memory fields, which
+fill its own rows). Two processes on one host that both ask for
+``BLUEFOG_HEALTH_PORT``: the second warns and serves nothing.
+
 **(c) Serving.** ``BLUEFOG_HEALTH_PORT`` starts a stdlib HTTP endpoint
 (:class:`HealthServer`): ``/healthz`` (the RAG verdict of
 :func:`healthz_verdict`: 200 on ok/warn, 503 on critical), ``/metrics``
@@ -357,7 +370,7 @@ def _lane_program(ctx, perms, n_apps: int, k: int):
     if fn is None:
         import torch
 
-        from bluefog_tpu_torch.collective import inner
+        from bluefog_tpu_torch.collective import inner, transport
 
         n_rounds = len(perms)
 
@@ -369,6 +382,10 @@ def _lane_program(ctx, perms, n_apps: int, k: int):
             for _ in range(n_apps):
                 x = inner.weighted_combine_operands(x, src, self_w, recv_w)
                 mn0, mx0 = mn, mx
+                if isinstance(src, transport.Route):
+                    # across processes the senders' min/max rows arrive
+                    # together, once an application
+                    mn0, mx0 = src.exchange([mn0, mx0])
                 for r in range(n_rounds):
                     m = (dmask[r] > 0).view(-1, 1)
                     mn = torch.minimum(mn, torch.where(m, inner._gather(mn0, src[r]), inf))
@@ -394,8 +411,30 @@ def _to_device(a: np.ndarray, device):
 
 
 def _lane_tensors(ctx, src, self_w, recv_w, dmask):
-    """The lane's operands on the context's device."""
+    """The lane's operands on the context's device; across processes the
+    push plan's :class:`~bluefog_tpu_torch.collective.transport.Route` and
+    this process's columns of the weights and the mask."""
+    if ctx.process_count > 1:
+        from bluefog_tpu_torch.collective import transport
+
+        cols = slice(ctx.rows.start, ctx.rows.stop)
+        return (transport.route(src, ctx.size, ctx),) + tuple(
+            _to_device(a, ctx.device) for a in (self_w[cols], recv_w[:, cols], dmask[:, cols]))
     return tuple(_to_device(a, ctx.device) for a in (src, self_w, recv_w, dmask))
+
+
+def _apply_lane(ctx, fn, st: np.ndarray, operands):
+    """One call of the lane ``fn`` on the host state ``st [size, 3k + 1]``:
+    the whole state on one process; across processes this process's rows,
+    the applications over the route, and every row back through one
+    :func:`~bluefog_tpu_torch.collective.transport.gather_rows`, so every
+    process holds the stacked lane's output, bitwise."""
+    if ctx.process_count == 1:
+        return fn(_to_device(st, ctx.device), *operands)
+    from bluefog_tpu_torch.collective import transport
+
+    mine = fn(_to_device(st[ctx.rows.start:ctx.rows.stop], ctx.device), *operands)
+    return transport.gather_rows(mine.contiguous(), ctx)
 
 
 def fleet_aggregate(ctx, values: np.ndarray, rounds: Optional[int] = None,
@@ -405,9 +444,9 @@ def fleet_aggregate(ctx, values: np.ndarray, rounds: Optional[int] = None,
     max through the lane on the context's device (``rounds`` applications,
     the result read back). ``w`` defaults to the active topology's combine
     matrix, ``dead`` to the elastic membership's dead ranks. Held against
-    :func:`fleet_aggregate_np`."""
-    import torch
-
+    :func:`fleet_aggregate_np`. Across processes ``values`` is the whole
+    ``[size, K]`` summary in every process; the lane runs over the transport
+    (:func:`_apply_lane`)."""
     values = np.asarray(values, np.float64)
     size, k = values.shape
     if w is None:
@@ -426,9 +465,10 @@ def fleet_aggregate(ctx, values: np.ndarray, rounds: Optional[int] = None,
         return _fleet_estimates(values.copy(), np.ones(size), values.copy(), values.copy(),
                                 live or range(size))
     perms, src, self_w, recv_w, dmask = _lane_operands(w, dead)
-    seed = torch.from_numpy(_seed_state(values.astype(np.float32), dead, k)).to(ctx.device)
+    seed = _seed_state(values.astype(np.float32), dead, k)
     fn = _lane_program(ctx, perms, int(rounds), k)
-    out = fn(seed, *_lane_tensors(ctx, src, self_w, recv_w, dmask)).cpu().numpy()
+    out = _apply_lane(ctx, fn, seed, _lane_tensors(ctx, src, self_w, recv_w, dmask))
+    out = out.cpu().numpy()
     out = out.astype(np.float64)
     rep = _fleet_estimates(out[:, :k], out[:, k], out[:, k + 1: 2 * k + 1],
                            out[:, 2 * k + 1:], live)
@@ -502,6 +542,8 @@ class HealthPlane:
         self._lane_prev: Optional[np.ndarray] = None
         self._lane_age = 0
         self._published_mm: Optional[tuple] = None
+        # across processes, each process's memory fields at this sample
+        self._mem_rows: Optional[list] = None
 
     # -- spectral side --------------------------------------------------------
 
@@ -600,8 +642,9 @@ class HealthPlane:
     def _local_vector(self, ctx, consensus, live) -> np.ndarray:
         """The ``[size, K]`` summary the lane aggregates: the per-worker
         consensus from the metrics drain's worker rows when there are any,
-        the other fields (one process holds every worker) the same on every
-        row."""
+        the other fields the same on every row (agreed across processes),
+        except the memory fields, which across processes are each
+        process's own on its rows."""
         from bluefog_tpu_torch import metrics as metrics_mod
 
         size = ctx.size
@@ -617,7 +660,13 @@ class HealthPlane:
         vec[:, 4] = float(sum((j + 1) * 31 ** i for i, j in enumerate(sorted(live)))
                           % 1_000_003)
         vec[:, 5] = self._staleness_age_max()
-        vec[:, 6], vec[:, 7] = self._memory_fields()
+        if self._mem_rows is None:
+            vec[:, 6], vec[:, 7] = self._memory_fields()
+        else:  # across processes: each process's fields on its own rows
+            lo = 0
+            for count, fields in zip(ctx.worker_counts, self._mem_rows):
+                vec[lo:lo + count, 6], vec[lo:lo + count, 7] = fields
+                lo += count
         vec[:, 8] = self._slo_burn()
         return vec
 
@@ -700,7 +749,7 @@ class HealthPlane:
         # dispatch this sample's application without waiting for it: the
         # estimates below are one application behind
         self._lane_state = st
-        self._lane_pending = _Pending(fn(_to_device(st, ctx.device), *operands))
+        self._lane_pending = _Pending(_apply_lane(ctx, fn, st, operands))
         self._lane_age += 1
         mm = (self._published_mm if self._published_mm is not None
               else (st[:, k + 1: 2 * k + 1], st[:, 2 * k + 1:]))
@@ -724,6 +773,16 @@ class HealthPlane:
             step_s = (t_now - self._last_sample_wall) / steps_elapsed
         self._last_sample_wall = t_now
         self._last_sample_count = self._count
+        self._mem_rows = None
+        if ctx.process_count > 1:
+            from bluefog_tpu_torch.collective import transport
+
+            # the host readings of every process: the slowest step time in
+            # every one, and each process's memory fields for its own rows
+            views = transport.gather_objects((step_s, self._memory_fields()), ctx)
+            times = [v[0] for v in views]
+            step_s = None if any(t is None for t in times) else max(times)
+            self._mem_rows = [v[1] for v in views]
         if step_s is not None:
             ms = step_s * 1e3
             self._step_ewma_ms = ms if self._step_ewma_ms is None \
@@ -849,7 +908,11 @@ class HealthPlane:
             if fleet.get("warming"):
                 sample["fleet"]["warming"] = True
             metrics_mod.gauge("bluefog.health.fleet_residual").set(fleet["residual"])
-        except Exception as e:  # the lane must never kill training
+        except Exception as e:  # the lane must never kill training ...
+            if ctx.process_count > 1:
+                # ... but one process's failure leaves the others' transport
+                # waiting: never switched off quietly there
+                raise
             sample["fleet_error"] = str(e)[:200]
 
         # -- emission ---------------------------------------------------------

@@ -50,6 +50,18 @@ elastic ``oom`` fault runs the same path and raises
 :class:`SimulatedResourceExhausted`. ``tools/memory_report.py`` rebuilds
 the postmortem from the dump.
 
+**Across processes** each process takes the census of its own rows and
+one ``all_gather_object`` a sample sums the processes' censuses by
+category, so the census, its ranked form and the reconciliation are the
+fleet's (their byte counts the stacked census's) in every process, and an
+``oom`` fault's forensics record is the same in every process. The
+allocator fields (``device_bytes_in_use``, the measured footprint a worker,
+the peak and the headroom) stay the process's own, over its own
+``allocator_workers`` workers; on one card shared by several processes the
+allocator's counters are still each process's. The SLO engine's
+``memory_headroom`` objective reads :meth:`MemoryObservatory.fleet_headroom`,
+the least headroom of any process.
+
 The footprint and the headroom are the ``mem_bytes_per_rank`` and
 ``mem_headroom`` slots of the health plane's fleet lane, and the
 observatory's summary is the ``memory`` block of its ``/fleet`` report
@@ -296,6 +308,7 @@ class MemoryObservatory:
         self._last_total = 0.0
         self._last_per_rank = 0.0
         self._last_headroom: Optional[float] = None
+        self._fleet_headroom: Optional[float] = None
         self._analytic_cache: Optional[tuple] = None
         self._last_step = 0
         self.oom_events = 0
@@ -404,19 +417,46 @@ class MemoryObservatory:
         self._analytic_cache = (key, val)
         return val
 
+    def _fleet_census(self, ctx, c, dev_bytes):
+        """Across processes: the fleet census, every process's census
+        summed by category (bytes and storages), and each process's
+        allocator bytes, in process order (one ``all_gather_object``). With
+        one process ``(c, [dev_bytes])``."""
+        if getattr(ctx, "process_count", 1) == 1:
+            return c, [dev_bytes]
+        from bluefog_tpu_torch.collective import transport
+
+        views = transport.gather_objects((c, dev_bytes), ctx)
+        fleet = {cat: {"bytes": 0, "arrays": 0} for cat in CATEGORIES}
+        for view, _dev in views:
+            for cat, rec in view.items():
+                out = fleet.setdefault(cat, {"bytes": 0, "arrays": 0})
+                out["bytes"] += int(rec["bytes"])
+                out["arrays"] += int(rec["arrays"])
+        return fleet, [dev for _view, dev in views]
+
+    def fleet_headroom(self) -> Optional[float]:
+        """The least headroom of any process at the latest sample (None
+        before a sample under a budget): across processes the value the SLO
+        engine's ``memory_headroom`` objective reads, the same in every
+        process; with one process :meth:`last_headroom`'s."""
+        return self._fleet_headroom
+
     def _sample(self, ctx, *, step, optimizer, params, opt_state, grads=None) -> dict:
         from bluefog_tpu_torch import flight as flight_mod
         from bluefog_tpu_torch import metrics as metrics_mod
 
         self._tick_mutes()
         owners = self._owner_trees(ctx, optimizer, params, opt_state, grads=grads)
-        c = census(owners)
+        dev_bytes = device_bytes_in_use(ctx)
+        c, devs = self._fleet_census(ctx, census(owners), dev_bytes)
         self.last_census = c
         total = float(sum(rec["bytes"] for rec in c.values()))
         size = max(int(getattr(ctx, "size", 1)), 1)
         per_rank = total / size
-        dev_bytes = device_bytes_in_use(ctx)
-        measured_per_rank = dev_bytes / size if dev_bytes is not None else per_rank
+        # the allocator's bytes are this process's, over its own workers
+        n_local = max(int(getattr(ctx, "n_local", size)), 1)
+        measured_per_rank = dev_bytes / n_local if dev_bytes is not None else per_rank
         self._last_total = total
         self._last_per_rank = measured_per_rank
         self._peak_bytes = max(self._peak_bytes, measured_per_rank)
@@ -445,6 +485,8 @@ class MemoryObservatory:
             "live_bytes_total": int(total),
             "live_bytes_per_rank": int(per_rank),
             "device_bytes_in_use": dev_bytes,
+            # the allocator fields' scope: this process's workers
+            "allocator_workers": n_local,
             "measured_source": ("device_memory_stats" if dev_bytes is not None
                                 else "live_array_census"),
             "host_peak_rss_bytes": host_peak_rss_bytes(),
@@ -475,6 +517,10 @@ class MemoryObservatory:
         if self.budget:
             headroom = float(self.budget) - measured_per_rank
             self._last_headroom = headroom
+            counts = getattr(ctx, "worker_counts", (size,))
+            self._fleet_headroom = min(
+                float(self.budget) - (dev / counts[p] if dev is not None else per_rank)
+                for p, dev in enumerate(devs))
             metrics_mod.gauge("bluefog.memory.headroom_bytes").set(headroom)
             tr = self._peak_tracker
             predicted_next = max(float(tr.mean or measured_per_rank)

@@ -28,7 +28,12 @@ without blocking, with a CUDA event beside it, and the host folds them
 (:func:`fold_device_payload`, after waiting on the event) at the next
 sample or at :func:`flush`. The fold replays the quantizer with the port's
 plain versions on CPU tensors (:func:`kernels.encode_reference`,
-:func:`kernels.dequantize`; bf16 by ``torch.bfloat16`` rounding).
+:func:`kernels.dequantize`; bf16 by ``torch.bfloat16`` rounding). Across
+processes the probe runs on each process's rows over the transport, and
+its payload's ``[n_local, k]`` prefix rows are gathered to every process
+before the copy (:func:`gather_probe_payload`), so the consensus distance,
+the gradient norm and the quantizer replay's error are the stacked fold's,
+bitwise, in every process; the counters keep their per-worker accounting.
 
 **Exporters**: JSONL (``BLUEFOG_METRICS_FILE`` or :func:`export_jsonl`),
 the Prometheus textfile (``BLUEFOG_METRICS_PROM`` or :func:`export_prom`)
@@ -76,6 +81,7 @@ __all__ = [
     "quant_replay",
     "fold_device_payload",
     "drain_device_buffer",
+    "gather_probe_payload",
     "wire_bytes_per_step",
     "record_allgather_wire",
 ]
@@ -357,6 +363,29 @@ def build_probe_payload(pairs, g_subs, wire=None) -> dict:
     if wire in _EF_WIRES:
         payload["ef"] = tuple(e for _sx, _sy, _sc, e in pairs)
     return payload
+
+
+def gather_probe_payload(payload, ctx) -> dict:
+    """Across processes: the probe payload of this process's rows with
+    every worker's rows, ``[N, k]`` in global order, in every process (one
+    :func:`~bluefog_tpu_torch.collective.transport.gather_rows` of all its
+    ``[n_local, k]`` tensors, the probe's prefix only), so the fold is the
+    stacked fold, bitwise, in every process. The ``pack`` ratios stay as
+    they are. With one process the payload itself."""
+    if ctx is None or ctx.process_count == 1:
+        return payload
+    from bluefog_tpu_torch.collective import transport
+
+    rows = (list(payload["x"]) + list(payload["y"]) + list(payload["g"])
+            + [sub for sub, _ratio in payload["pack"]] + list(payload["ef"]))
+    if not rows:
+        return payload
+    full = iter(transport.gather_rows([t.contiguous() for t in rows], ctx))
+    take = lambda group: tuple(next(full) for _ in group)  # noqa: E731
+    out = {"x": take(payload["x"]), "y": take(payload["y"]), "g": take(payload["g"])}
+    out["pack"] = tuple((next(full), ratio) for _sub, ratio in payload["pack"])
+    out["ef"] = take(payload["ef"])
+    return out
 
 
 def _payload_map(payload, fn):

@@ -117,8 +117,9 @@ cadence in every process), relay plans (forwarded hop by hop,
 :class:`~bluefog_tpu_torch.collective.transport.RelayRoute`) and elastic
 sessions (agreed by every process before each dispatch; ZeRO re-shards
 through one ``gather_rows`` a dtype group, :meth:`_GossipOptimizer._reshard_state`).
-The observatories, health, SLO, autotune and the metrics probe raise
-``ValueError`` naming ROADMAP A14c.
+The samplers the hooks feed run there too and report the fleet's numbers
+in every process: the metrics probe gathers its payload's prefix rows
+(:meth:`_GossipOptimizer._probe`), so the fold is the stacked fold.
 
 Under ``BLUEFOG_PLAN_METHOD=shortcut`` the static plan is a relay plan:
 its combine gathers each round's origin rows (see
@@ -1026,8 +1027,6 @@ class _GossipOptimizer:
         """This call's communication, shared by :meth:`step` and the fused
         train step, so a rule cannot reach one and skip the other; with
         this step's bucket cap."""
-        if ctx.process_count > 1:
-            transport.check_env_supported()
         d = self._dispatch(ctx, params, comm_now)
         d.cap_bytes = inner.transport_bucket_cap()
         return d
@@ -1188,8 +1187,9 @@ class _GossipOptimizer:
         of the CHOCO state, which are then dropped; the combine is
         elementwise and block-local, so its output is bitwise the first
         columns of the full combine's. Returns the payload of
-        :func:`metrics.build_probe_payload`; the raw slices stay in
-        ``_last_probe``."""
+        :func:`metrics.build_probe_payload`, across processes with every
+        worker's prefix rows (:func:`metrics.gather_probe_payload`); the raw
+        slices (this process's rows) stay in ``_last_probe``."""
         cap = metrics.sample_elems_cap()
         pairs = []
         for gi, (sub, scale) in enumerate(_packed_prefix(tree, cap)):
@@ -1204,12 +1204,14 @@ class _GossipOptimizer:
                 pairs.append((sub, combine(sub.clone()), scale, None))
         self._last_probe = pairs
         g_subs = _packed_prefix(grads, cap) if grads is not None else ()
-        return metrics.build_probe_payload(pairs, g_subs, wire=wire)
+        return metrics.gather_probe_payload(metrics.build_probe_payload(pairs, g_subs, wire=wire),
+                                            ctx_mod.get_context())
 
     def _delayed_probe(self, d: _Dispatch, params, grads, sw: torch.Tensor):
         """The probe of the stale mix (:meth:`_stale_mix` on the prefix of
         the fresh parameters and of the carried buffers), run before the
-        mix: bitwise the first columns of the full mix. No wire slots."""
+        mix: bitwise the first columns of the full mix. No wire slots;
+        gathered across processes as :meth:`_probe`'s."""
         cap = metrics.sample_elems_cap()
         pairs = []
         for (f_sub, scale), buf in zip(_packed_prefix(params, cap), self._delay_buf):
@@ -1219,7 +1221,9 @@ class _GossipOptimizer:
             pairs.append((f_sub, combined + _col(sw, combined) * diff.to(combined.dtype),
                           scale, None))
         self._last_probe = pairs
-        return metrics.build_probe_payload(pairs, _packed_prefix(grads, cap), wire=None)
+        return metrics.gather_probe_payload(
+            metrics.build_probe_payload(pairs, _packed_prefix(grads, cap), wire=None),
+            ctx_mod.get_context())
 
     def _metrics_wire(self, comm_now: bool, key=None) -> Optional[str]:
         """The quantized wire whose error this step's probe replays, or

@@ -40,6 +40,17 @@ Canary lane
     session's deterministic wire simulation, as the doctor's probes use
     it), and the verdict names the edge.
 
+Across processes
+    Each process encodes its rows of the canary and ships the wire pairs
+    (the rows on bf16/f32) on the plan's
+    :class:`~bluefog_tpu_torch.collective.transport.Route`; a ``decode`` a
+    round reads the extended payload, and one ``gather_rows`` brings every
+    receiver's delivery, so the verdict is the fleet's in every process. The
+    objectives resolve from agreed values (the health plane's step time is
+    the slowest process's, the memory headroom the least of them), so burn
+    rates, budgets, pages and the canary's cooldown are equal in every
+    process. A canary that fails there raises instead of being skipped.
+
 Surfaces: ``bluefog.slo.*`` metrics, the flight recorder's SLO side table
 (:func:`bluefog_tpu_torch.flight.note_slo`) and advisory ring, timeline
 instants, and ``BLUEFOG_SLO_FILE`` JSONL. The worst active burn rides the
@@ -328,6 +339,14 @@ def _resolve_mass_residual() -> Optional[float]:
 
 
 def _resolve_memory_headroom() -> Optional[float]:
+    # across processes the allocator's headroom is each process's own: the
+    # objective reads the least of them, agreed at the memory sample
+    from bluefog_tpu_torch import context as ctx_mod
+    from bluefog_tpu_torch import memory as mem_mod
+
+    ctx, obs = ctx_mod._context, mem_mod.active()
+    if ctx is not None and ctx.process_count > 1 and obs is not None and obs.budget:
+        return obs.fleet_headroom()
     return _peek_gauge("bluefog.memory.headroom_bytes")
 
 
@@ -467,17 +486,24 @@ def _canary_program(ctx, perms, wire: Optional[str]):
     if fn is None:
         import torch
 
-        from bluefog_tpu_torch.collective import inner, kernels
+        from bluefog_tpu_torch.collective import inner, kernels, transport
 
         n_rounds = len(perms)
 
         def fn(c, src):
+            # across processes ``src`` is the plan's route: the senders' wire
+            # pairs (or rows) arrive in one exchange, and each round decodes
+            # (gathers) from the extended buffer
+            routed = isinstance(src, transport.Route)
             if wire in ("int8", "int4"):
-                payload, scales = kernels.encode(c, wire)
+                pair = kernels.encode(c, wire)
+                payload, scales = src.exchange(pair) if routed else pair
                 outs = [kernels.decode(payload, scales, src[r], wire, src_in_range=True)
                         for r in range(n_rounds)]
             else:
                 sent = c.to(torch.bfloat16) if wire == "bf16" else c
+                if routed:
+                    sent = src.exchange([sent])[0]
                 outs = [inner._gather(sent, src[r]).to(torch.float32) for r in range(n_rounds)]
             return torch.stack(outs, dim=1)
 
@@ -547,8 +573,18 @@ class CanaryLane:
         base = _base_wire(wire)
         canary = canary_signal(ctx.size)
         fn = _canary_program(ctx, perms, base)
-        src = torch.from_numpy(_round_sources(perms, ctx.size)).to(ctx.device)
-        delivered = fn(torch.from_numpy(canary).to(ctx.device), src)
+        if ctx.process_count > 1:
+            from bluefog_tpu_torch.collective import transport
+
+            # this process's rows through the route; every receiver's
+            # delivery gathered, so the verdict is the fleet's everywhere
+            lo, hi = ctx.rows.start, ctx.rows.stop
+            rt = transport.route(_round_sources(perms, ctx.size), ctx.size, ctx)
+            mine = fn(torch.from_numpy(np.ascontiguousarray(canary[lo:hi])).to(ctx.device), rt)
+            delivered = transport.gather_rows(mine.contiguous(), ctx)
+        else:
+            src = torch.from_numpy(_round_sources(perms, ctx.size)).to(ctx.device)
+            delivered = fn(torch.from_numpy(canary).to(ctx.device), src)
         # [size, n_rounds, CANARY_ELEMS] on the host (a copy: the chaos
         # damage below writes into it)
         delivered = np.array(delivered.cpu().numpy(), np.float32)
@@ -785,6 +821,10 @@ class SLOEngine:
         try:
             verdict = self.canary.probe(ctx, plan, wire)
         except Exception as e:
+            if ctx.process_count > 1:
+                # a probe that failed in one process leaves the others'
+                # transport waiting: never switched off quietly there
+                raise
             # a probe bug must not take down the training loop
             logger.debug("slo canary probe failed: %s", e)
             return None

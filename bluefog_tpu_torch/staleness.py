@@ -32,6 +32,12 @@ sample changes no training value. The tag is priced as
 - the asynchronous gossip engine (:mod:`bluefog_tpu_torch.async_gossip`):
   the same lane under ``surface="async"``, the ages its gate reads.
 
+**Across processes** each process stamps and ships its rows' tags on the
+plan's routes and gathers the delivered tags of every row, so the ages
+and the ``staleness_breach`` advisories are the fleet's, bitwise the
+stacked run's, in every process; the window and ``async`` surfaces read
+the window's host age lane, which is global.
+
 **Chaos parity.** An elastic ``stall`` fault with ``steps=`` (and
 ``peer=``) holds the stamped birth step of its sender or edge
 (:meth:`~bluefog_tpu_torch.elastic.recovery.ElasticSession.simulated_stale_steps`),
@@ -140,8 +146,9 @@ def age_adjusted_rate(rate: Optional[float], age: Optional[float],
 
 def _lane_sources(ctx, perms):
     """The rounds' sources ``[n_rounds, size]`` on the device (-1 where a
-    worker receives nothing), cached in ``ctx.op_cache`` under the
-    ``staleness_lane`` family: no training key moves."""
+    worker receives nothing; across processes on the host, where the
+    transport builds its routes from them), cached in ``ctx.op_cache``
+    under the ``staleness_lane`` family: no training key moves."""
     key = ("staleness_lane", perms)
     src = ctx.op_cache.get(key)
     if src is None:
@@ -151,8 +158,30 @@ def _lane_sources(ctx, perms):
         for r, perm in enumerate(perms):
             for s, d in perm:
                 rows[r, d] = s
-        src = ctx.op_cache[key] = torch.from_numpy(rows).to(ctx.device)
+        src = ctx.op_cache[key] = (rows if ctx.process_count > 1
+                                   else torch.from_numpy(rows).to(ctx.device))
     return src
+
+
+def _exchange_lane(ctx, tags: np.ndarray, src) -> np.ndarray:
+    """The delivered tags ``[n_rounds, size, 3]`` of the stamps ``tags
+    [size, n_rounds, 3]``. Across processes each process ships its rows'
+    stamps (:func:`~bluefog_tpu_torch.collective.inner.lineage_exchange`)
+    and the delivered rows of every process come back through one
+    :func:`~bluefog_tpu_torch.collective.transport.gather_rows`, so every
+    process folds the fleet's ages, bitwise the stacked lane's."""
+    import torch
+
+    from bluefog_tpu_torch.collective import inner, transport
+
+    n_rounds = src.shape[0]
+    sent = np.ascontiguousarray(tags[ctx.rows.start:ctx.rows.stop].transpose(1, 0, 2))
+    out = inner.lineage_exchange(torch.from_numpy(sent).to(ctx.device), src)
+    if ctx.process_count == 1:
+        return out.cpu().numpy()
+    rows = out.transpose(0, 1).reshape(ctx.n_local, -1).contiguous()
+    full = transport.gather_rows(rows, ctx).cpu().numpy()
+    return full.reshape(ctx.size, n_rounds, -1).transpose(1, 0, 2)
 
 
 def _chaos_holds() -> Dict:
@@ -251,12 +280,9 @@ class StalenessObservatory:
             self._breach_mutes = {}
 
     def _sample(self, ctx, *, step, plan, payload_age, surface) -> dict:
-        import torch
-
         from bluefog_tpu_torch import flight as flight_mod
         from bluefog_tpu_torch import metrics as metrics_mod
         from bluefog_tpu_torch import scaling
-        from bluefog_tpu_torch.collective import inner
 
         self._reset_if_remapped(ctx)
         t_now = self._count
@@ -280,9 +306,7 @@ class StalenessObservatory:
                     if h:
                         tags[s, r, 0] = t_now - payload_age - int(h)
 
-        src = _lane_sources(ctx, perms)
-        sent = torch.from_numpy(np.ascontiguousarray(tags[:, :n_rounds].transpose(1, 0, 2)))
-        out = inner.lineage_exchange(sent.to(ctx.device), src).cpu().numpy()
+        out = _exchange_lane(ctx, tags[:, :n_rounds], _lane_sources(ctx, perms))
 
         ages: Dict[Tuple[int, int], int] = {}
         mismatches = 0

@@ -333,6 +333,21 @@ Phases, one line each; any failure exits non-zero:
                (b)'s elastic/int8 checkpoint (written after the kill)
                restored in both processes and in this one, the next step
                bitwise (a)'s; files deleted;
+11j. transport-fleet -- the fleet samplers across processes on the same
+               ResNet50, cuDNN deterministic, 1 + 2 steps a case
+               (:func:`phase_transport_fleet` states every gate):
+               samplers/int8 (the metrics probe, the doctor, staleness,
+               memory, health serving ``/healthz`` and the SLO canary at
+               interval 1), doctor-autotune/int8 (the crossing edge 3 -> 4
+               degraded, the controller at interval 1, one route
+               calibration), oom/int4_ef (the ``oom`` fault on rank 5) and
+               async/int8 (staleness and health); (a) the stacked run in
+               this process; (b) two processes of four workers sharing the
+               card (``bfrun-torch``, gloo staged): every row bitwise (a),
+               the samplers' outputs equal the other process's and (a)'s,
+               the degraded edge named and one swap, the forensics' census,
+               the scraped ``/healthz``, each case's kernels launched in each
+               process, a line a case; files deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -433,12 +448,14 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --phase transport
     python3 chip_smoke.py --phase transport-state
     python3 chip_smoke.py --phase transport-topology
+    python3 chip_smoke.py --phase transport-fleet
 
-run phase 11d, 11e, 11f, 11g, 11h or 11i alone on the full-width ResNet50
-(the wire kernels built first) and print no result line. Phase 11g's
-processes run ``python3 chip_smoke.py --transport-child <config>``, phase
-11h's ``python3 chip_smoke.py --transport-state-child <config>``, phase
-11i's ``python3 chip_smoke.py --transport-topology-child <config>``.
+run phase 11d, 11e, 11f, 11g, 11h, 11i or 11j alone on the full-width
+ResNet50 (the wire kernels built first) and print no result line. Phase
+11g's processes run ``python3 chip_smoke.py --transport-child <config>``,
+phase 11h's ``python3 chip_smoke.py --transport-state-child <config>``,
+phase 11i's ``python3 chip_smoke.py --transport-topology-child <config>``,
+phase 11j's ``python3 chip_smoke.py --transport-fleet-child <config>``.
 
     python3 chip_smoke.py --planted-faults
 
@@ -627,6 +644,12 @@ PATH_KERNELS = {
                              "decode"),
     "transport-topology": ("encode", "decode_accumulate", "encode_diff", "decode_add",
                            "decode"),
+    # the transport-fleet phase: (a) the stacked cases, (b) both processes'
+    # (each process is gated on its own too): B1 + B2 on the int8 combines
+    # and the metrics probe, the SLO canary's B1 + B5, B3 + B4 on int4_ef
+    # under the oom fault, B1 + B5 on the async ticks
+    "transport-fleet a": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
+    "transport-fleet": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
 }
 
 
@@ -6619,6 +6642,585 @@ def run_transport_topology_alone():
     return 0
 
 
+TF_ROOT = "build/transport_fleet"
+# the six samplers of the samplers case, each at interval 1
+TF_SAMPLERS = {"BLUEFOG_METRICS": "1", "BLUEFOG_METRICS_INTERVAL": "1",
+               "BLUEFOG_DOCTOR": "1", "BLUEFOG_DOCTOR_INTERVAL": "1",
+               "BLUEFOG_STALENESS": "1", "BLUEFOG_STALENESS_INTERVAL": "1",
+               "BLUEFOG_MEMORY": "1", "BLUEFOG_MEMORY_INTERVAL": "1",
+               "BLUEFOG_HEALTH": "1", "BLUEFOG_HEALTH_INTERVAL": "1",
+               "BLUEFOG_SLO": "1", "BLUEFOG_SLO_INTERVAL": "1"}
+# the doctor's model without a fault: no probe round can pass 3 x 1 s, so
+# no degraded_link can fire in one run and not in another
+TF_QUIET_PIN = (1.0, 1e12, 0.0)
+TF_DEGRADE = (3, 4, 0.05)  # the damaged Exp(8) edge, from process 0's rows to process 1's
+TF_OOM = (5, 2)  # the oom fault's rank (a row of process 1) and step
+TF_STEPS = 3  # 1 warm-up and 2 timed steps (ticks) a case
+# the lane's fields that are a process's own across processes: the step
+# time is a wall clock, the memory fields the allocator's
+TF_OWN_FIELDS = ("step_ms", "mem_bytes_per_rank", "mem_headroom")
+# the SLO objectives that read those
+TF_OWN_OBJECTIVES = ("step_time", "mass_residual", "memory_headroom")
+TF_HOOKS = (("attribution", "observe_step"), ("health", "observe_step"),
+            ("staleness", "observe_step"), ("staleness", "observe_window"),
+            ("autotune", "observe_step"), ("memory", "observe_step"), ("slo", "observe_step"))
+
+
+def tf_cases():
+    """``name -> spec`` of the transport-fleet phase, in the order it runs
+    them: ``env`` (the samplers' switches, set before ``bft.init``), the
+    ``wire``, the doctor's ``pin``, an elastic ``degrade`` or ``oom``
+    fault, ``serve`` (the health plane's endpoint) and the ``kernels`` each
+    process must launch."""
+    doc = {"BLUEFOG_DOCTOR": "1", "BLUEFOG_DOCTOR_INTERVAL": "1",
+           "BLUEFOG_AUTOTUNE": "1", "BLUEFOG_AUTOTUNE_INTERVAL": "1"}
+    stal_mem = {"BLUEFOG_STALENESS": "1", "BLUEFOG_STALENESS_INTERVAL": "1",
+                "BLUEFOG_MEMORY": "1", "BLUEFOG_MEMORY_INTERVAL": "1"}
+    stal_health = {"BLUEFOG_STALENESS": "1", "BLUEFOG_STALENESS_INTERVAL": "1",
+                   "BLUEFOG_HEALTH": "1", "BLUEFOG_HEALTH_INTERVAL": "1"}
+    return {
+        "samplers/int8": dict(env=TF_SAMPLERS, wire="int8", pin=TF_QUIET_PIN, serve=True,
+                              kernels=("encode", "decode_accumulate", "decode")),
+        "doctor-autotune/int8": dict(env=doc, wire="int8", pin=AT_DOCTOR_PIN,
+                                     degrade=TF_DEGRADE,
+                                     kernels=("encode", "decode_accumulate")),
+        "oom/int4_ef": dict(env=stal_mem, wire="int4_ef", oom=TF_OOM,
+                            kernels=("encode_diff", "decode_add")),
+        "async/int8": dict(env=stal_health, wire="int8", kernels=("encode", "decode")),
+    }
+
+
+def tf_log(msg):
+    """One line in one write: the two processes of part (b) share a pipe."""
+    sys.stdout.write(f"[transport-fleet] {msg}\n")
+    sys.stdout.flush()
+
+
+class tf_hook_timer:
+    """Seconds spent in the samplers' hooks (the module functions the
+    optimizers and the async engine call after a dispatch), wrapped for a
+    ``with`` block and restored after it."""
+
+    def __init__(self):
+        import importlib
+
+        self.seconds = 0.0
+        self.calls = 0
+        self._saved = []
+        for mod_name, fn_name in TF_HOOKS:
+            mod = importlib.import_module(f"bluefog_tpu_torch.{mod_name}")
+            self._saved.append((mod, fn_name, getattr(mod, fn_name)))
+
+    def __enter__(self):
+        for mod, fn_name, fn in self._saved:
+            def timed(*args, _fn=fn, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+            setattr(mod, fn_name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, fn in self._saved:
+            setattr(mod, fn_name, fn)
+        self._saved = []
+        return False
+
+
+def tf_view(ctx):
+    """The samplers' outputs after a case, as plain values (JSON)."""
+    from bluefog_tpu_torch import attribution, autotune, health, memory, slo, staleness
+
+    metrics.flush()  # the pending probe payload, folded
+    gauges = {}
+    for name in ("disagreement", "param_norm", "grad_norm", "quant_err", "ef_residual"):
+        for series in (f"bluefog.gossip.{name}", f"bluefog.gossip.{name}.max"):
+            g = metrics.peek(series)
+            gauges[series] = None if g is None else g.value
+    view = {"gauges": gauges, "worker_rows": {
+        k: [float(v) for v in vals] for k, vals in metrics.last_worker_rows().items()}}
+    doc = attribution.active()
+    view["doctor"] = None if doc is None else {
+        "advisories": [[a.kind, a.step, a.detail.get("edge")] for a in doc.advisories],
+        "rounds": [[r["edges"] for r in s.get("rounds", [])] for s in doc.samples]}
+    obs = staleness.active()
+    view["staleness"] = None if obs is None else {
+        "samples": list(obs.samples), "advisories": [a.to_json() for a in obs.advisories]}
+    mem = memory.active()
+    view["memory"] = None if mem is None or mem.last_census is None else {
+        "census": {c: r["bytes"] for c, r in mem.last_census.items()},
+        "ranked": [[r["category"], r["bytes"]] for r in memory.ranked_census()]}
+    plane = health.active()
+    fleet = (plane.fleet or {}) if plane is not None else {}
+    view["health"] = None if plane is None else {
+        "fleet": {k: fleet.get(k) for k in ("mean", "min", "max", "residual", "live")},
+        "samples": [{k: s.get(k) for k in ("step", "comm_steps", "consensus", "predicted_rate",
+                                             "measured_rate", "mixing_efficiency")}
+                    for s in plane.samples],
+        "advisories": [a.to_json() for a in plane.advisories],
+        "healthz": {k: v for k, v in health.healthz_verdict(plane).items() if k != "ts"},
+        "async": plane.report().get("async")}
+    eng = slo.active()
+    view["slo"] = None if eng is None else {
+        "rows": [{"step": r["step"], "canary": r.get("canary"),
+                  "flags": {n: o["ok"] for n, o in r["objectives"].items()},
+                  "values": {n: o["value"] for n, o in r["objectives"].items()
+                             if n not in TF_OWN_OBJECTIVES}} for r in eng.samples],
+        "alerts": [a.to_json() for a in eng.alerts]}
+    tuner = autotune.active()
+    view["autotune"] = None if tuner is None else [
+        [d.action, d.step, d.chosen, [list(e) for e in d.blamed]] for d in tuner.decisions]
+    return view
+
+
+def tf_fleet_part(view):
+    """The parts of a view that every process and the stacked run share:
+    the lane's fields but the process's own (the step time, the allocator's
+    memory fields) and its residual, the census but the allocator's
+    ``other``, and the staleness samples but a window's name (its uid
+    counts the windows this process made before)."""
+    from bluefog_tpu_torch import health
+
+    out = {k: v for k, v in view.items() if k not in ("health", "memory", "staleness")}
+    if view.get("staleness") is not None:
+        out["staleness"] = dict(view["staleness"], samples=[
+            {k: v for k, v in s.items() if k != "window"} for s in view["staleness"]["samples"]])
+    if view.get("memory") is not None:
+        out["memory"] = {"census": {c: b for c, b in view["memory"]["census"].items()
+                                    if c != "other"},
+                         "ranked": [r for r in view["memory"]["ranked"] if r[0] != "other"]}
+    if view.get("health") is not None:
+        keep = [i for i, f in enumerate(health.FLEET_FIELDS) if f not in TF_OWN_FIELDS]
+        fleet = view["health"]["fleet"]
+        out["health"] = dict(view["health"], fleet={
+            k: (None if fleet[k] is None else [fleet[k][i] for i in keep])
+            for k in ("mean", "min", "max")})
+        out["health"]["fleet"]["live"] = fleet["live"]
+    return out
+
+
+def tf_run_case(device, sm, images, labels, name, port=0):
+    """Case ``name`` (:func:`tf_cases`) on a fresh context whose samplers
+    its ``env`` switches on: ``TF_STEPS`` two-program steps (ticks for the
+    async case) from the replicated parameters and the phase's batch
+    statistics, under an elastic session where the case has a fault. The
+    doctor-autotune case first runs one unpinned ``compiler.calibrate()``
+    and times a healthy crossing edge (0 -> 4) against its prediction.
+    Returns ``(numbers, state, view)``: ``state`` this process's rows (on
+    the CPU) of the final parameters (and the window's p), ``view``
+    :func:`tf_view` with the matrix installed after every step."""
+    from bluefog_tpu_torch import attribution, health, memory
+    from bluefog_tpu_torch.collective import compiler, transport
+
+    case = tf_cases()[name]
+    env = dict(case["env"], BLUEFOG_HEALTH_PORT=str(port) if case.get("serve") else "0")
+    numbers, state = {}, {}
+    with env_set({**OBSV_OFF, **AT_OFF, **env}):
+        ctx = bft.init(size=SIZE, device=device)
+        # the gauges of earlier phases must not reach a first sample
+        metrics.reset()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        if name == "async/int8":
+            bft.set_topology(topo.RingGraph(SIZE, connect_style=1))
+        else:
+            bft.set_topology(topo.ExponentialGraph(SIZE))
+        if "degrade" in case:
+            compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+            cal = compiler.calibrate()
+            elems = attribution.probe_elems_cap()
+            doc = attribution.StepDoctor()
+            edge_s = transport.fleet_max([doc._time_probe(
+                ctx, ((0, 4),), elems, doc._readback_s(ctx, elems))], ctx)[0]
+            numbers["calibration"] = {
+                "alpha_us": cal["alpha_s"] * 1e6, "beta_gbps": cal["beta_bytes_per_s"] / 1e9,
+                "pipeline_eff": cal["pipeline_eff"], "edge_ms": edge_s * 1e3,
+                "edge_predicted_ms": compiler.round_cost_s(
+                    elems * 4.0, link_class=compiler.TRANSPORT_LINK_CLASS) * 1e3,
+                "processes": cal.get("probe_processes", 1)}
+            del doc
+        if case.get("pin"):
+            compiler.set_calibration(*case["pin"], source="chip_smoke",
+                                     link_class=compiler.TRANSPORT_LINK_CLASS)
+        session = None
+        if "degrade" in case or "oom" in case:
+            session = bft.elastic.start(policy="average")
+            if "degrade" in case:
+                r, peer, factor = case["degrade"]
+                session.inject("degrade", rank=r, step=0, factor=factor, peer=peer)
+            else:
+                session.inject("oom", rank=case["oom"][0], step=case["oom"][1])
+        matrices, times, raised = [], [], []
+        hooks = tf_hook_timer()
+        with hooks:
+            if name == "async/int8":
+                opt = bft.DistributedNeighborAllreduceOptimizer(bft.sgd(0.1, momentum=0.9))
+                box = [sm.replicate(), None]
+                box[1] = opt.init(box[0])
+                tick = bft.make_async_train_step(opt, sm.worker_loss,
+                                                 cadence={ASYNC_SLOW: ASYNC_FACTOR},
+                                                 max_age=ASYNC_MAX_AGE, policy="drop",
+                                                 wire=case["wire"], buffers=sm.buffers)
+                workers = torch.arange(ctx.n_local)
+                for _i in range(TF_STEPS):
+                    sync(device)
+                    h0, b0 = hooks.seconds, transport.stats()["seconds"]
+                    t0 = time.perf_counter()
+                    box[0], box[1], _loss = tick(box[0], box[1], images, labels, workers)
+                    sync(device)
+                    times.append((time.perf_counter() - t0, 0.0,
+                                  transport.stats()["seconds"] - b0, hooks.seconds - h0))
+                    matrices.append(np.asarray(ctx.load_topology()).tolist())
+                state["p"] = ctx.windows[tick.engine._name].p.detach().cpu().clone()
+                state["params"] = box[0].detach().cpu().clone()
+                tick.engine.free()
+                del tick
+            else:
+                opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+                opt.compression = case["wire"]
+                box = [sm.replicate(), None]
+                box[1] = opt.init(box[0])
+                step_fn = bft.elastic.guard(opt).step if session is not None else opt.step
+                grads = torch.empty((ctx.n_local, sm.width), dtype=torch.float32, device=device)
+                for i in range(TF_STEPS):
+                    sync(device)
+                    t0 = time.perf_counter()
+                    sm.loss_and_grad(box[0], images, labels, grads)
+                    sync(device)
+                    t1 = time.perf_counter()
+                    h0, b0 = hooks.seconds, transport.stats()["seconds"]
+                    try:
+                        step_fn(box[0], box[1], grads)
+                    except memory.SimulatedResourceExhausted as e:
+                        # the forensics ran in every process; the fault is
+                        # consumed, so the step runs again
+                        raised.append([i, str(e)])
+                        numbers["forensics"] = {
+                            "ranked": [[r["category"], r["bytes"]]
+                                       for r in memory.ranked_census()],
+                            "events": memory.active().oom_events}
+                        step_fn(box[0], box[1], grads)
+                    sync(device)
+                    t2 = time.perf_counter()
+                    times.append((t2 - t0, (t2 - t1) * 1e3, transport.stats()["seconds"] - b0,
+                                  hooks.seconds - h0))
+                    matrices.append(np.asarray(ctx.load_topology()).tolist())
+                state["params"] = box[0].detach().cpu().clone()
+                del grads
+                opt.free()
+            del box
+        view = tf_view(ctx)
+        view["matrices"] = matrices
+        if session is not None:
+            view["stale"] = session.stale_dispatches
+            bft.elastic.stop()
+        view["raised"] = raised
+        if case.get("serve"):
+            srv = health.server()
+            numbers["served"] = srv is not None
+            if srv is not None:
+                status, body = hr_get(f"http://127.0.0.1:{port}/healthz")
+                verdict = json.loads(body)
+                numbers["healthz"] = [status, {k: v for k, v in verdict.items() if k != "ts"}]
+        compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+        numbers["launches"] = launch_counts()
+        bft.shutdown()
+    for key, v in state.items():
+        if not torch.isfinite(v.float()).all():
+            raise AssertionError(f"transport-fleet {name}: non-finite {key}")
+    timed = times[1:]
+    numbers.update(step_s=statistics.median(t[0] for t in timed),
+                   opt_ms=statistics.median(t[1] for t in timed),
+                   transport_ms=statistics.median(t[2] for t in timed) * 1e3,
+                   sampler_ms=statistics.median(t[3] for t in timed) * 1e3,
+                   peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                             if device.type == "cuda" else float("nan")))
+    return numbers, state, view
+
+
+def tf_check_case(where, name, view, numbers):
+    """The gates a case's run must pass on its own, stacked or not."""
+    from bluefog_tpu_torch import attribution
+
+    if name == "doctor-autotune/int8":
+        edges = {tuple(e) for kind, _s, e in view["doctor"]["advisories"]
+                 if kind == "degraded_link"}
+        swaps = [d for d in view["autotune"] if d[0] == "swap"]
+        if edges != {TF_DEGRADE[:2]} or len(swaps) != 1 or view["stale"] != 0:
+            raise AssertionError(f"transport-fleet {where} {name}: degraded_link on {edges}, "
+                                 f"decisions {view['autotune']}, stale {view['stale']}")
+        cal = numbers["calibration"]
+        # across processes the doctor prices a probe with the route's own
+        # calibration: a healthy crossing edge must stay under its ratio
+        if not cal["alpha_us"] > 0 or not cal["beta_gbps"] > 0 or (
+                cal["processes"] > 1
+                and cal["edge_ms"] >= attribution.DEGRADE_RATIO * cal["edge_predicted_ms"]):
+            raise AssertionError(f"transport-fleet {where} {name}: route calibration {cal}: a "
+                                 "healthy crossing edge passes the doctor's degrade ratio")
+    if name == "oom/int4_ef":
+        if [r[0] for r in view["raised"]] != [TF_OOM[1]] or numbers["forensics"]["events"] != 1:
+            raise AssertionError(f"transport-fleet {where} {name}: raised {view['raised']}, "
+                                 f"forensics {numbers.get('forensics')}")
+    if name == "samplers/int8":
+        canaries = [r["canary"] for r in view["slo"]["rows"]]
+        if len(canaries) != TF_STEPS or not all(c is not None and c["ok"] for c in canaries):
+            raise AssertionError(f"transport-fleet {where} {name}: canary verdicts {canaries}")
+        if view["doctor"]["advisories"] or len(view["staleness"]["samples"]) != TF_STEPS:
+            raise AssertionError(f"transport-fleet {where} {name}: doctor "
+                                 f"{view['doctor']['advisories']}, staleness samples "
+                                 f"{len(view['staleness']['samples'])}")
+    if name == "async/int8":
+        surfaces = {s["surface"] for s in view["staleness"]["samples"]}
+        if surfaces != {"async"}:
+            raise AssertionError(f"transport-fleet {where} {name}: surfaces {surfaces}")
+
+
+def tf_roundtrip(obj):
+    """``obj`` as JSON gives it back (tuples as lists), so a view compares
+    equal to one read from a file."""
+    return json.loads(json.dumps(obj))
+
+
+def run_transport_fleet_child(config_path):
+    """``python3 chip_smoke.py --transport-fleet-child <config>``: one
+    process of part (b) (launched by ``bfrun-torch``): builds its rows of
+    the ResNet50 and of the batch, runs the cases, holds its rows against
+    part (a)'s and writes its numbers and views to ``child_<process>.json``."""
+    import torch.distributed as dist
+
+    from bluefog_tpu_torch import health
+
+    with open(config_path) as f:
+        cfg = json.load(f)
+    device = torch.device(cfg["device"])
+    root = cfg["root"]
+    ctx = bft.init(size=SIZE, device=device)
+    if device.type == "cuda":
+        _build.wire_library()
+    health.DEFAULT_HOST = "127.0.0.1"
+    sm, images, labels = build_trainer(device, rows=ctx.rows, **cfg["trainer"])
+    lo, hi = ctx.rows.start, ctx.rows.stop
+    stats0 = {k: v[lo:hi].to(device) for k, v in torch.load(
+        tp_file(root, "stats0"), map_location="cpu", weights_only=True).items()}
+    res = dict(process=ctx.process_index, process_count=ctx.process_count, rows=[lo, hi],
+               backend=dist.get_backend(), staged=ctx.staged, cases={})
+    tag = (f"(b) process {ctx.process_index}/{ctx.process_count} rows {lo}..{hi - 1} "
+           f"({res['backend']}{', staged' if ctx.staged else ''})")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in cfg["cases"]:
+            sm.load_buffers(stats0)
+            row, state, view = tf_run_case(device, sm, images, labels, name, port=cfg["port"])
+            ref = torch.load(tp_file(root, name), map_location="cpu", weights_only=True)
+            row["bitwise"] = {k: bool(torch.equal(bits(v), bits(ref[k][lo:hi])))
+                              for k, v in state.items()}
+            row["view"] = tf_roundtrip(view)
+            res["cases"][name] = row
+            del ref, state
+            tf_log(f"{tag} {name}: step {row['step_s']:.4f} s, optimizer {row['opt_ms']:.1f} "
+                   f"ms, transport {row['transport_ms']:.1f} ms, samplers "
+                   f"{row['sampler_ms']:.1f} ms a step, peak {row['peak_gib']:.2f} GiB, "
+                   f"launches { {k: v for k, v in row['launches'].items() if v} }, bitwise "
+                   f"(a): {row['bitwise']}")
+        bft.init(size=SIZE, device=device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    with open(os.path.join(root, f"child_{ctx.process_index}.json"), "w") as f:
+        json.dump(res, f)
+    bft.shutdown()
+    return 0
+
+
+def phase_transport_fleet(device, sm, images, labels, root=TF_ROOT, smi="", trainer_kw=None,
+                          names=None):
+    """Phase 11j: the fleet samplers across processes, on the ResNet50 of
+    the train-step phase (8 workers, 64 images of 224 x 224 each, the seeds
+    of phase 7, the default Exp graph), cuDNN deterministic, ATC
+    ``sgd(0.1, 0.9)`` (the async case: phase 10's straggler), 1 warm-up and
+    2 timed steps a case (:func:`tf_cases`): ``samplers/int8`` (the
+    metrics probe, the doctor on a quiet pin, the staleness lane, the
+    memory observatory, the health plane serving ``/healthz`` and the SLO
+    engine with its canary, each at interval 1), ``doctor-autotune/int8``
+    (an elastic ``degrade`` of the crossing edge 3 -> 4 at 0.05, the doctor
+    on ``AT_DOCTOR_PIN`` and the controller at interval 1, after one
+    unpinned route calibration), ``oom/int4_ef`` (staleness and memory, an
+    ``oom`` fault on rank 5 at step 2) and ``async/int8`` (staleness on the
+    ``async`` surface and health).
+
+    (a) Every case stacked in this process: its rows saved under
+    ``build/transport_fleet/``, its samplers' outputs kept. (b) All cases
+    in one launch of two processes of four workers sharing the card
+    (``bfrun-torch -np 8 -H localhost:4,localhost:4``, gloo staged), each
+    under ``TP_TIMEOUT``. Gates in every process: every row bitwise (a)'s;
+    the samplers' outputs (:func:`tf_view`) equal the other process's, and
+    (a)'s but for a process's own readings (:func:`tf_fleet_part`): the
+    metrics gauges and worker rows, the staleness samples, the census's
+    byte counts, the lane's fields, the canary's verdicts and the installed
+    matrices bitwise, the advisories and the decision records equal; in
+    doctor-autotune ``degraded_link`` on exactly [3, 4], one swap at (a)'s
+    step, no stale dispatch, and a healthy crossing edge under
+    ``DEGRADE_RATIO`` of the route calibration's prediction; the oom
+    forensics at step 2 with (a)'s ranked census; the ``/healthz`` of the
+    process that serves it, scraped, with (a)'s fields; each case's
+    kernels launched in each process. A line a case with step, optimizer,
+    transport and sampler ms and peak GiB.
+
+    Returns ``({"transport-fleet a":, "transport-fleet":}, numbers)``."""
+    import shutil
+
+    from bluefog_tpu_torch import health
+
+    names = list(tf_cases()) if names is None else list(names)
+    trainer_kw = {} if trainer_kw is None else dict(trainer_kw)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    root = os.path.abspath(root)
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in launch_counts()}
+    counts = {"transport-fleet a": dict(zero), "transport-fleet": dict(zero)}
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    torch.save({k: v.cpu() for k, v in stats0.items()}, tp_file(root, "stats0"))
+    host = health.DEFAULT_HOST
+    health.DEFAULT_HOST = "127.0.0.1"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    numbers = {"a": {}}
+    try:
+        for name in names:
+            sm.load_buffers(stats0)
+            row, state, view = tf_run_case(device, sm, images, labels, name,
+                                           port=tp_free_port())
+            torch.save(state, tp_file(root, name))
+            del state
+            row["view"] = tf_roundtrip(view)
+            tf_check_case("(a)", name, row["view"], row)
+            numbers["a"][name] = row
+            for k, v in row["launches"].items():
+                counts["transport-fleet a"][k] += v
+            log("transport-fleet", f"(a) stacked, one process, 8 workers: {name}: step "
+                                   f"{row['step_s']:.4f} s, optimizer {row['opt_ms']:.1f} ms, "
+                                   f"samplers {row['sampler_ms']:.1f} ms a step, peak "
+                                   f"{row['peak_gib']:.2f} GiB, launches "
+                                   f"{ {k: v for k, v in row['launches'].items() if v} }"
+                                   + (f", route calibration {row['calibration']}"
+                                      if "calibration" in row else ""))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        health.DEFAULT_HOST = host
+    sm.load_buffers(stats0)
+    a_s = time.perf_counter() - t_phase
+    bft.init(size=SIZE, device=device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "chip_smoke.py")
+    t0 = time.perf_counter()
+    cfg = os.path.join(root, "config_b.json")
+    with open(cfg, "w") as f:
+        json.dump(dict(root=root, device=device.type, cases=names, trainer=trainer_kw,
+                       port=tp_free_port()), f)
+    tp_spawn([sys.executable, "-m", "bluefog_tpu_torch.run.run", "-np", str(SIZE), "-H", TP_HOSTS,
+              "--coordinator", f"127.0.0.1:{tp_free_port()}", "--num-processes", "2",
+              script, "--transport-fleet-child", cfg], tp_child_env())
+    b_s = time.perf_counter() - t0
+    numbers["b"] = []
+    for p in range(2):
+        with open(os.path.join(root, f"child_{p}.json")) as f:
+            numbers["b"].append(json.load(f))
+    for p, res in enumerate(numbers["b"]):
+        if (res["process_count"], res["rows"], res["backend"]) != (2, [4 * p, 4 * p + 4], "gloo"):
+            raise AssertionError(f"transport-fleet (b) process {p}: {res['process_count']} "
+                                 f"processes, rows {res['rows']}, backend {res['backend']}")
+        if res["staged"] != (device.type == "cuda"):
+            raise AssertionError(f"transport-fleet (b) process {p}: staged {res['staged']}")
+        other = numbers["b"][1 - p]
+        for name in names:
+            row, a = res["cases"][name], numbers["a"][name]
+            wrong = [k for k, same in row["bitwise"].items() if not same]
+            if wrong:
+                raise AssertionError(f"transport-fleet (b) process {p} {name}: rows "
+                                     f"{4 * p}..{4 * p + 3} of {wrong} differ from (a)")
+            tf_check_case(f"(b) process {p}", name, row["view"], row)
+            if row["view"] != other["cases"][name]["view"]:
+                diff = [k for k in row["view"] if row["view"][k] != other["cases"][name]["view"][k]]
+                raise AssertionError(f"transport-fleet (b) process {p} {name}: the samplers' "
+                                     f"{diff} differ from the other process's")
+            mine, want = tf_fleet_part(row["view"]), tf_fleet_part(a["view"])
+            if mine != want:
+                diff = [k for k in mine if mine[k] != want.get(k)]
+                raise AssertionError(f"transport-fleet (b) process {p} {name}: the samplers' "
+                                     f"{diff} differ from (a)'s: {[mine[k] for k in diff]} "
+                                     f"against {[want.get(k) for k in diff]}")
+            if name == "oom/int4_ef":
+                strip = lambda ranked: [r for r in ranked if r[0] != "other"]  # noqa: E731
+                if strip(row["forensics"]["ranked"]) != strip(a["forensics"]["ranked"]) or \
+                        row["forensics"] != other["cases"][name]["forensics"]:
+                    raise AssertionError(f"transport-fleet (b) process {p} {name}: forensics "
+                                         f"{row['forensics']} against (a)'s {a['forensics']}")
+            if device.type == "cuda":
+                missing = [k for k in tf_cases()[name]["kernels"] if row["launches"][k] == 0]
+                if missing:
+                    raise AssertionError(f"transport-fleet (b) process {p} {name} launched "
+                                         f"no {missing}: {row['launches']}")
+            for k, v in row["launches"].items():
+                counts["transport-fleet"][k] += v
+    for name in names:
+        if not tf_cases()[name].get("serve"):
+            continue
+        served = [res["cases"][name] for res in numbers["b"] if res["cases"][name]["served"]]
+        want = numbers["a"][name]["healthz"]
+        if len(served) != 1 or served[0]["healthz"] != want or want[0] != 200:
+            raise AssertionError(f"transport-fleet (b) {name}: {len(served)} processes serve "
+                                 f"/healthz, scraped {[s.get('healthz') for s in served]}, "
+                                 f"(a) {want}")
+    shutil.rmtree(root, ignore_errors=True)
+    for name in names:
+        per = [r["cases"][name] for r in numbers["b"]]
+        a = numbers["a"][name]
+        how = ("sharing the card, gloo staged through pinned host memory"
+               if numbers["b"][0]["staged"] else "on the CPU, gloo")
+        extra = (f", route calibration {[r['calibration'] for r in per][0]}"
+                 if "calibration" in per[0] else "")
+        log("transport-fleet", f"(b) {name}: two processes x 4 workers {how}: step "
+                               f"{max(r['step_s'] for r in per):.4f} s (stacked "
+                               f"{a['step_s']:.4f}), optimizer "
+                               f"{max(r['opt_ms'] for r in per):.1f} ms (stacked "
+                               f"{a['opt_ms']:.1f}), transport "
+                               f"{max(r['transport_ms'] for r in per):.1f} ms a step, samplers "
+                               f"{max(r['sampler_ms'] for r in per):.1f} ms a sample (stacked "
+                               f"{a['sampler_ms']:.1f}), peak "
+                               f"{max(r['peak_gib'] for r in per):.2f} GiB a process (stacked "
+                               f"{a['peak_gib']:.2f}){extra}; rows and samplers as (a); "
+                               f"on {smi}")
+    log("transport-fleet", f"launches {counts}; (a) {a_s:.1f} s, (b) {b_s:.1f} s of "
+                           f"processes; phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, numbers
+
+
+def run_transport_fleet_alone():
+    """``python3 chip_smoke.py --phase transport-fleet``: phase 11j alone on
+    the full-width ResNet50 (the wire kernels built first); its gates as in
+    the whole run, its lines and its launch counts. Prints no result line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    bft.init(size=SIZE)
+    sm, images, labels = build_trainer(device)
+    counts, _numbers = phase_transport_fleet(device, sm, images, labels, smi=smi)
+    for path in ("transport-fleet a", "transport-fleet"):
+        missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    return 0
+
+
 def lm_flops_per_step(sm, seq, batch):
     """bench.py's model FLOPs of one step of every worker: per token
     ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
@@ -7590,6 +8192,8 @@ def main():
         return run_transport_state_child(sys.argv[2])
     if sys.argv[1:2] == ["--transport-topology-child"] and len(sys.argv) == 3:
         return run_transport_topology_child(sys.argv[2])
+    if sys.argv[1:2] == ["--transport-fleet-child"] and len(sys.argv) == 3:
+        return run_transport_fleet_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -7609,6 +8213,8 @@ def main():
         return run_transport_state_alone()
     if sys.argv[1:] == ["--phase", "transport-topology"]:
         return run_transport_topology_alone()
+    if sys.argv[1:] == ["--phase", "transport-fleet"]:
+        return run_transport_fleet_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -7696,6 +8302,9 @@ def main():
     torch.cuda.empty_cache()
     tt_counts, _tt = phase_transport_topology(device, sm, images, labels, smi=smi)
     counts.update(tt_counts)
+    torch.cuda.empty_cache()
+    tf_counts, _tf = phase_transport_fleet(device, sm, images, labels, smi=smi)
+    counts.update(tf_counts)
     del images, labels
     torch.cuda.empty_cache()
     rows, lines = phase_kernels(device, params, memory_rate(kind))

@@ -1503,3 +1503,129 @@ def test_two_processes_relay_and_federation_equal_the_stacked_rows(cuda, tmp_pat
             for k in ("encode", "decode_accumulate"):
                 assert got[f"{key}:launches"][k] > 0, (p, key, got[f"{key}:launches"])
         assert got["relay:bytes"] > 0, p
+
+
+FLEET_ENV = {"BLUEFOG_METRICS": "1", "BLUEFOG_METRICS_INTERVAL": "1",
+             "BLUEFOG_DOCTOR": "1", "BLUEFOG_DOCTOR_INTERVAL": "1",
+             "BLUEFOG_STALENESS": "1", "BLUEFOG_STALENESS_INTERVAL": "1",
+             "BLUEFOG_MEMORY": "1", "BLUEFOG_MEMORY_INTERVAL": "1",
+             "BLUEFOG_HEALTH": "1", "BLUEFOG_HEALTH_INTERVAL": "1",
+             "BLUEFOG_SLO": "1", "BLUEFOG_SLO_INTERVAL": "1"}
+FLEET_GAUGES = ("bluefog.gossip.disagreement", "bluefog.gossip.param_norm",
+                "bluefog.gossip.grad_norm", "bluefog.gossip.quant_err",
+                "bluefog.staleness.age_max", "bluefog.slo.canary_max_dev")
+
+FLEET_WORKER = """
+import os, sys
+import torch
+import bluefog_tpu_torch as bft
+from bluefog_tpu_torch import metrics, memory
+from bluefog_tpu_torch.collective import compiler, kernels
+from bluefog_tpu_torch.models import ResNet50, StackedModel, resnet
+torch.backends.cudnn.deterministic = True
+os.environ.update({env!r})
+ctx = bft.init(size=8)
+compiler.set_calibration(1.0, 1e12, 0.0, link_class=compiler.TRANSPORT_LINK_CLASS)
+rows = list(ctx.rows)
+model = resnet.init_flax_like(ResNet50(num_classes=10, num_filters=8, stage_sizes=[1, 1, 1, 1]),
+                              0)
+sm = StackedModel(model, len(rows), "cuda")
+gen = torch.Generator().manual_seed(0)
+images = torch.randn(8, 2, 32, 32, 3, generator=gen)[rows].cuda()
+labels = torch.randint(0, 10, (8, 2), generator=gen)[rows].cuda()
+opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+opt.compression = "int8"
+params = sm.replicate()
+state = opt.init(params)
+before = kernels.launch_counts()
+for _ in range(2):
+    _, grads = sm.loss_and_grad(params, images, labels)
+    opt.step(params, state, grads)
+metrics.flush()
+after = kernels.launch_counts()
+out = {{"rows": rows, "params": params.cpu(),
+        "launches": {{k: after[k] - before[k] for k in after}},
+        "gauges": {{n: metrics.peek(n).value for n in {gauges!r}}},
+        "census": {{c: r["bytes"] for c, r in memory.active().last_census.items()
+                    if c != "other"}}}}
+torch.save(out, os.path.join(sys.argv[1], f"fleet_{{ctx.process_index}}.pt"))
+opt.free()
+bft.shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_run_the_fleet_samplers_as_the_stacked_run(cuda, tmp_path):
+    """Two processes of four workers sharing the card (gloo, staged) run
+    ATC int8 on the tiny ResNet with the metrics probe, the doctor, the
+    staleness lane, the memory observatory, the health plane and the SLO
+    canary at interval 1: each process's rows and the gauges (the gathered
+    probe's fold, the ages, the canary's deviation) and the census's byte
+    counts are the stacked run's on the card, bitwise; each process launches
+    ``encode`` and ``decode_accumulate`` (the combine and the probe) and
+    ``decode`` (the canary's)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from bluefog_tpu_torch import memory, metrics
+    from bluefog_tpu_torch.collective import compiler
+    from bluefog_tpu_torch.models import ResNet50, StackedModel, resnet
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(FLEET_WORKER.format(env=FLEET_ENV, gauges=FLEET_GAUGES))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BLUEFOG_")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.run.run", "-np", "8", "-H",
+         "localhost:4,localhost:4", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+         "2", str(script), str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    old = {k: os.environ.get(k) for k in FLEET_ENV}
+    os.environ.update(FLEET_ENV)
+    try:
+        bft.init(size=8, device=cuda)
+        compiler.set_calibration(1.0, 1e12, 0.0, link_class=compiler.TRANSPORT_LINK_CLASS)
+        model = resnet.init_flax_like(ResNet50(num_classes=10, num_filters=8,
+                                               stage_sizes=[1, 1, 1, 1]), 0)
+        sm = StackedModel(model, 8, "cuda")
+        gen = torch.Generator().manual_seed(0)
+        images = torch.randn(8, 2, 32, 32, 3, generator=gen).to(cuda)
+        labels = torch.randint(0, 10, (8, 2), generator=gen).to(cuda)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = "int8"
+        params = sm.replicate()
+        state = opt.init(params)
+        for _ in range(2):
+            _, grads = sm.loss_and_grad(params, images, labels)
+            opt.step(params, state, grads)
+        metrics.flush()
+        want = params.cpu()
+        gauges = {n: metrics.peek(n).value for n in FLEET_GAUGES}
+        census = {c: r["bytes"] for c, r in memory.active().last_census.items() if c != "other"}
+        opt.free()
+    finally:
+        bft.shutdown()
+        compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+        torch.backends.cudnn.deterministic = deterministic
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for p in range(2):
+        got = torch.load(tmp_path / f"fleet_{p}.pt", weights_only=False)
+        assert got["rows"] == list(range(4 * p, 4 * p + 4))
+        assert torch.equal(_bits(got["params"]), _bits(want[4 * p:4 * p + 4])), p
+        assert got["gauges"] == gauges, (p, got["gauges"], gauges)
+        assert got["census"] == census, (p, got["census"], census)
+        for k in ("encode", "decode_accumulate", "decode"):
+            assert got["launches"][k] > 0, (p, got["launches"])

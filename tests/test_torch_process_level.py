@@ -228,14 +228,3 @@ def test_rank_and_local_rank_equal_jax(monkeypatch):
 def test_rank_before_init_is_the_group_rank():
     assert not bft.is_initialized()
     assert bft.rank() == 0 and bft.local_rank() == 0
-
-
-def test_require_single_process_names_a14c(monkeypatch):
-    c = bft.init(device="cpu")
-    try:
-        ctx.require_single_process("anything")  # one process: no error
-        monkeypatch.setattr(c, "process_count", 2)
-        with pytest.raises(ValueError, match="ROADMAP A14c"):
-            ctx.require_single_process("the window ops")
-    finally:
-        bft.shutdown()

@@ -19,11 +19,11 @@ broadcast, pair gossip, ``neighbor_allgather``, and three
 combine hands to ``isend`` must equal the edges from local to remote rows
 times ``scaling.wire_payload_bytes``. The CTA and hierarchical legs of
 ``tests/test_multiprocess.py``'s worker are mirrored (loss below 0.2 x
-start, the same on every process), every refused path raises naming
-ROADMAP A14c, and each path refused before the window ops, the async
-engine, ZeRO, checkpoint, federation, relay plans and elastic sessions ran
-across processes runs and equals the stacked rows
-(``test_torch_transport_state.py`` and ``test_torch_transport_topology.py``
+start, the same on every process), and each path refused before the
+window ops, the async engine, ZeRO, checkpoint, federation, relay plans,
+elastic sessions and the fleet samplers ran across processes runs and
+equals the stacked rows (``test_torch_transport_state.py``,
+``test_torch_transport_topology.py`` and ``test_torch_transport_fleet.py``
 hold them in depth).
 
 Every job runs once per module (a module-scoped fixture), all of them at
@@ -42,7 +42,7 @@ import torch
 
 import bluefog_tpu_torch as bft
 from bluefog_tpu_torch import topology as topo
-from bluefog_tpu_torch.collective import inner, transport
+from bluefog_tpu_torch.collective import compiler, inner, transport
 from bluefog_tpu_torch.collective.plan import plan_from_topology, schedule_from_dynamic
 from bluefog_tpu_torch.models import MLP, ResNet50, StackedModel, mlp, resnet
 from bluefog_tpu_torch.scaling import wire_payload_bytes
@@ -56,13 +56,17 @@ TRAIN_STEPS = 3
 JOB_TIMEOUT = 120
 # (name, worker counts per process, nodes per machine)
 CONFIGS = [("2x4", (4, 4), 4), ("4x2", (2, 2, 2, 2), 2), ("3+5", (3, 5), 1)]
-REFUSED = ("doctor", "staleness", "memory", "health", "slo", "autotune", "metrics", "oom")
+# the fleet samplers' switches (and the elastic oom fault), refused until
+# they ran across processes
+SAMPLERS = {"doctor": "BLUEFOG_DOCTOR", "staleness": "BLUEFOG_STALENESS",
+            "memory": "BLUEFOG_MEMORY", "health": "BLUEFOG_HEALTH", "slo": "BLUEFOG_SLO",
+            "autotune": "BLUEFOG_AUTOTUNE", "metrics": "BLUEFOG_METRICS"}
 # refused until the window ops, the async engine, ZeRO, checkpoint,
-# federation, relay plans and elastic sessions ran across processes; each
-# now runs and equals the stacked rows
+# federation, relay plans, elastic sessions and the fleet samplers ran
+# across processes; each now runs and equals the stacked rows
 FORMERLY_REFUSED = ("win_create", "push_sum", "win_put", "pull_get", "async", "checkpoint_save",
                     "checkpoint_restore", "reduce_scatter", "shard", "shard:dispatch",
-                    "elastic", "pods", "shortcut")
+                    "elastic", "pods", "shortcut") + tuple(SAMPLERS) + ("oom",)
 
 
 def _tiny_resnet(n_local, rows):
@@ -85,37 +89,6 @@ def _train(out, name, opt, params, loss_fn, *batch):
     out[f"train:{name}"] = params.clone() if isinstance(params, torch.Tensor) else {
         k: v.clone() for k, v in params.items()}
     out[f"train:{name}:loss"] = torch.stack(losses, dim=1)
-
-
-def _refusals(out, level):
-    """Every refused path's message (its ValueError), or 'no error'."""
-    from bluefog_tpu_torch.elastic import Fault, FaultPlan
-
-    try:  # the elastic oom fault runs the memory observatory's forensics
-        bft.elastic.start(plan=FaultPlan([Fault(kind="oom", rank=1, step=1)]))
-        out["refused:oom"] = "no error"
-    except ValueError as e:
-        out["refused:oom"] = str(e)
-    finally:
-        bft.elastic.stop()
-    env = {"doctor": ("BLUEFOG_DOCTOR", "1"),
-           "staleness": ("BLUEFOG_STALENESS", "1"), "memory": ("BLUEFOG_MEMORY", "1"),
-           "health": ("BLUEFOG_HEALTH", "1"), "slo": ("BLUEFOG_SLO", "1"),
-           "autotune": ("BLUEFOG_AUTOTUNE", "1"), "metrics": ("BLUEFOG_METRICS", "1")}
-    for name, (key, value) in env.items():
-        os.environ[key] = value
-        try:
-            # the switches are refused at init; a switch set after init at the
-            # optimizer's next dispatch
-            try:
-                bft.init(size=SIZE, device="cpu", nodes_per_machine=level)
-                out[f"refused:{name}"] = "no error"
-            except ValueError as e:
-                out[f"refused:{name}"] = str(e)
-        finally:
-            del os.environ[key]
-            bft.shutdown()
-    bft.init(size=SIZE, device="cpu", nodes_per_machine=level)
 
 
 def _formerly_refused(out, level):
@@ -184,6 +157,33 @@ def _formerly_refused(out, level):
         finally:
             for k in env:
                 del os.environ[k]
+    for name, env in SAMPLERS.items():
+        # the switch set at init, at interval 1 (the doctor's model pinned)
+        os.environ.update({env: "1", f"{env}_INTERVAL": "1"})
+        try:
+            bft.init(size=SIZE, device="cpu", nodes_per_machine=level)
+            compiler.set_calibration(1.0, 1e12, 0.0, link_class=compiler.TRANSPORT_LINK_CLASS)
+            opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+            opt.compression = "int8"
+            params = x.clone()
+            opt.step(params, opt.init(params), g.clone())
+            got[name] = params
+        finally:
+            for k in (env, f"{env}_INTERVAL"):
+                del os.environ[k]
+            compiler.clear_calibration(compiler.TRANSPORT_LINK_CLASS)
+    bft.init(size=SIZE, device="cpu", nodes_per_machine=level)
+    session = bft.elastic.start()
+    session.inject("oom", rank=1, step=0)
+    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1))
+    params = x.clone()
+    state = opt.init(params)
+    try:  # the memory observatory's forensics, then the raise; the retry runs
+        bft.elastic.guard(opt).step(params, state, g.clone())
+    except MemoryError:
+        bft.elastic.guard(opt).step(params, state, g.clone())
+    got["oom"] = params
+    bft.elastic.stop()
     for name, t in got.items():
         out[f"formerly_refused:{name}"] = t.clone()
 
@@ -308,7 +308,6 @@ def mp_cases(nodes_per_machine):
         with open(dump) as f:
             world = json.load(f)["world"]
         out["flight"] = {"file": os.path.basename(dump), "ranks": world["ranks"]}
-        _refusals(out, nodes_per_machine)
     _formerly_refused(out, nodes_per_machine)
     bft.barrier()
     bft.shutdown()
@@ -498,21 +497,15 @@ def test_multiprocess_legs_converge(runs, config, leg):
     assert torch.equal(losses[0], runs["ref"][level][f"leg:{leg}"])
 
 
-@pytest.mark.parametrize("what", REFUSED)
-def test_refused_paths_name_a14c(runs, what):
-    for config, _, level in CONFIGS[:2]:
-        for res in runs[config]:
-            msg = res[level][f"refused:{what}"]
-            assert "ROADMAP A14c" in msg, (config, what, msg)
-
-
 @pytest.mark.parametrize("what", FORMERLY_REFUSED)
 def test_formerly_refused_paths_run(runs, what):
     """The paths refused across processes until the window ops, the async
     engine, ZeRO, checkpoint, federation (``BLUEFOG_PODS``), relay plans
-    (``BLUEFOG_PLAN_METHOD=shortcut``) and elastic sessions were ported now
-    run, and each process's result equals the same rows of the stacked run
-    (the checkpoint file holds every row, equal to the stacked file's)."""
+    (``BLUEFOG_PLAN_METHOD=shortcut``), elastic sessions and the fleet
+    samplers (each switch at interval 1, and the elastic ``oom`` fault) were
+    ported now run, and each process's result equals the same rows of the
+    stacked run (the checkpoint file holds every row, equal to the stacked
+    file's)."""
     key = f"formerly_refused:{what}"
     for config, _, level in CONFIGS:
         ref = runs["ref"][level][key]
