@@ -1,11 +1,14 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
-"""Build and load the CUDA kernels under ``csrc/`` at first use.
+"""Build and load the CUDA kernels and the host library under ``csrc/`` at
+first use.
 
 Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The sources
 include no PyTorch header, so a build takes seconds rather than the
 minutes a ``torch.utils.cpp_extension`` build of the same code takes; the
-wrappers pass ``data_ptr()`` pointers and the current stream.
+wrappers pass ``data_ptr()`` pointers and the current stream. The one
+``.cc`` source, the timeline's writer thread (``timeline_writer.cc``), is
+compiled by the host's ``g++`` (:func:`timeline_library`).
 
 Libraries land in ``build/torch_kernels/`` at the root of the checkout,
 named by a hash of their source, the headers under ``csrc/`` it includes
@@ -23,10 +26,11 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
-__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "flags", "build_dir", "find_nvcc", "build",
-           "local_headers", "wire_library", "flash_library", "flash_sm90_library"]
+__all__ = ["NVCC_FLAGS", "CXX_FLAGS", "SOURCE_FLAGS", "flags", "build_dir", "find_nvcc",
+           "find_cxx", "build", "local_headers", "wire_library", "flash_library",
+           "flash_sm90_library", "timeline_library"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -37,18 +41,30 @@ NVCC_FLAGS = (
     "-std=c++17",
     "-Xptxas=-v",
 )
+# The host compiler's flags for a ``.cc`` source (the JAX package builds
+# its timeline writer with the same).
+CXX_FLAGS = ("-O2", "-std=c++17", "-pthread")
 # Each source's own flags. The wire kernels' bits are pinned to the JAX
 # programs' (no FMA contraction); the flash kernels have no pinned bits.
 SOURCE_FLAGS = {
     "wire_kernels": ("-fmad=false",),
     "flash_kernels": (),
     "flash_sm90": (),
+    "timeline_writer": (),
 }
 
 
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu``, else ``csrc/<name>.cc``."""
+    cu = _CSRC / f"{name}.cu"
+    return cu if cu.exists() else _CSRC / f"{name}.cc"
+
+
 def flags(name: str) -> Tuple[str, ...]:
-    """The ``nvcc`` flags of ``csrc/<name>.cu``."""
-    return NVCC_FLAGS + SOURCE_FLAGS[name]
+    """The compiler flags of ``csrc/<name>.cu`` (``nvcc``) or
+    ``csrc/<name>.cc`` (``g++``)."""
+    base = CXX_FLAGS if _source(name).suffix == ".cc" else NVCC_FLAGS
+    return base + SOURCE_FLAGS[name]
 
 
 def build_dir() -> Path:
@@ -73,6 +89,11 @@ def find_nvcc() -> str:
         "nvcc not found (set CUDA_HOME); the CUDA kernels of "
         "bluefog_tpu_torch are built from source at first use"
     )
+
+
+def find_cxx() -> Optional[str]:
+    """``g++`` on ``PATH``, or None."""
+    return shutil.which("g++")
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -101,24 +122,29 @@ def _library_path(source: Path) -> Path:
 
 
 def _command(source: Path, out: Path) -> List[str]:
+    if source.suffix == ".cc":
+        cxx = find_cxx()
+        if cxx is None:
+            raise RuntimeError(f"g++ not found; {source.name} is built from source at first use")
+        return [cxx, *flags(source.stem), "-shared", "-fPIC", "-o", str(out), str(source)]
     return [find_nvcc(), *flags(source.stem), "-shared", "-Xcompiler", "-fPIC",
             "-o", str(out), str(source)]
 
 
 def build(sources: List[str]) -> Dict[str, Path]:
-    """Compile every ``csrc/<name>.cu`` in ``sources`` that is not built
-    yet, one ``nvcc`` per source, all started together. Returns
+    """Compile every ``csrc/<name>.cu`` (or ``.cc``) in ``sources`` that is
+    not built yet, one compiler per source, all started together. Returns
     ``{name: library path}``; the compiler's output of each build is kept
     beside its library as ``.log``, ending with a ``# built in <s> s`` line.
     Raises if any build fails."""
     build_dir().mkdir(parents=True, exist_ok=True)
-    libs = {name: _library_path(_CSRC / f"{name}.cu") for name in sources}
+    libs = {name: _library_path(_source(name)) for name in sources}
     running = []
     for name, lib in libs.items():
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        command = _command(_CSRC / f"{name}.cu", tmp)
+        command = _command(_source(name), tmp)
         log = lib.with_suffix(".log").open("w")
         proc = subprocess.Popen(command, stdout=log, stderr=subprocess.STDOUT)
         running.append((name, lib, tmp, log, proc, time.perf_counter()))
@@ -131,12 +157,12 @@ def build(sources: List[str]) -> Dict[str, Path]:
             log.close()
             if proc.returncode != 0:
                 output = lib.with_suffix(".log").read_text()
-                failures.append(f"{name}.cu (exit {proc.returncode}):\n{output}")
+                failures.append(f"{_source(name).name} (exit {proc.returncode}):\n{output}")
             else:
                 os.replace(tmp, lib)
         time.sleep(0.05)
     if failures:
-        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+        raise RuntimeError("the build failed for " + "\n".join(failures))
     return libs
 
 
@@ -189,4 +215,26 @@ def _flash_entry_points(source: str, names) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def timeline_library() -> ctypes.CDLL:
+    """The timeline's native writer (``csrc/timeline_writer.cc``), built by
+    ``g++`` if needed, with the argument and return types of its entry
+    points (the JAX package's ``timeline._load_native``)."""
+    lib = ctypes.CDLL(str(build(["timeline_writer"])["timeline_writer"]))
+    cp, ci, ll = ctypes.c_char_p, ctypes.c_int, ctypes.c_longlong
+    lib.bf_timeline_start.argtypes = [cp]
+    lib.bf_timeline_start.restype = ci
+    lib.bf_timeline_stop.argtypes = []
+    lib.bf_timeline_stop.restype = None
+    lib.bf_timeline_record.argtypes = [cp, cp, ctypes.c_char, ci, ll]
+    lib.bf_timeline_record.restype = None
+    lib.bf_timeline_record_complete.argtypes = [cp, cp, ci, ll, ll, ll]
+    lib.bf_timeline_record_complete.restype = None
+    lib.bf_timeline_record_counter.argtypes = [cp, cp, ci, ll, ctypes.c_double]
+    lib.bf_timeline_record_counter.restype = None
+    lib.bf_timeline_now_us.argtypes = []
+    lib.bf_timeline_now_us.restype = ll
     return lib

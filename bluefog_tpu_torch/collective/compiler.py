@@ -97,7 +97,9 @@ DCN_LINK_BYTES_PER_S = 2.5e10
 LINK_CLASSES = ("ici", "dcn", "stacked")
 
 # The link class the port's optimizers price their chunks with: the stacked
-# single-process transport (A14 brings a transport with a wire).
+# transport of one process. Across processes a round is a
+# ``transport.Route``, which ``calibrate()`` times and installs under this
+# same class.
 TRANSPORT_LINK_CLASS = "stacked"
 
 # ResNet50 f32 model payload: the default basis of a compiled structure's

@@ -66,6 +66,7 @@ stacked transport (:data:`compiler.TRANSPORT_LINK_CLASS`) and bucket at
 ``BLUEFOG_PLAN_CHUNKS`` or ``BLUEFOG_BUCKET_BYTES`` asks for more.
 """
 
+import contextlib
 import os
 import weakref
 from typing import List, Optional, Sequence, Tuple
@@ -104,6 +105,7 @@ __all__ = [
     "lineage_exchange",
     "plan_operands",
     "schedule_operands",
+    "record_transfers",
 ]
 
 
@@ -262,9 +264,41 @@ def plan_operands(plan: CommPlan, device) -> Tuple[torch.Tensor, torch.Tensor, t
     )
 
 
+# The logs of the open record_transfers() blocks.
+_RECORDERS: List[list] = []
+
+
+@contextlib.contextmanager
+def record_transfers():
+    """Log the transfers the combines make inside the block, in order:
+    ``("gather", bytes)`` for each gather along the worker axis (the
+    stacked ``ppermute``; the bytes are one worker's row), ``("route",
+    route)`` for each :class:`Route` a combine posted across processes,
+    ``("all-reduce", bytes)`` for each :func:`allreduce` (one worker's
+    logical payload). Yields the log, a list
+    (:func:`bluefog_tpu_torch.scaling.gossip_comm_stats` counts it)."""
+    log: list = []
+    _RECORDERS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDERS.remove(log)
+
+
+def _note(kind: str, value) -> None:
+    for log in _RECORDERS:
+        log.append((kind, value))
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return t[0].numel() * t.element_size() if t.shape[0] else 0
+
+
 def _gather(x: torch.Tensor, src_r: torch.Tensor) -> torch.Tensor:
     """One round of the stacked ``ppermute``: row ``j`` is
     ``x[src_r[j]]``, zeros where ``src_r[j] < 0``."""
+    if _RECORDERS:
+        _note("gather", _row_bytes(x))
     idx = src_r.to(torch.long)
     got = x.index_select(0, idx.clamp(min=0))
     has = (idx >= 0).view((-1,) + (1,) * (x.dim() - 1))
@@ -293,6 +327,8 @@ def _wavefront_gathers(parts: List[Tuple[torch.Tensor, ...]], src: torch.Tensor)
     safe = [src[r].to(torch.long).clamp(min=0) for r in range(n_rounds)]
     recv = [[None] * n_chunks for _ in range(n_rounds)]
     for r, c in _wavefront(n_rounds, n_chunks):
+        if _RECORDERS:
+            _note("gather", sum(_row_bytes(t) for t in parts[c]))
         recv[r][c] = [t.index_select(0, safe[r]) for t in parts[c]]
     return [[row[0][k] if n_chunks == 1 else torch.cat([p[k] for p in row], dim=1)
              for k in range(len(parts[0]))]
@@ -331,6 +367,8 @@ def weighted_combine_operands(
     relay plan names each round's origin rows (:func:`plan_operands`)."""
     xw = x.to(_weight_dtype(x))
     if isinstance(src, Route):
+        if _RECORDERS:
+            _note("route", src)
         ext = src.exchange([xw])[0]
         y = xw * _col(self_w, xw)
         for r in range(src.n_rounds):
@@ -465,6 +503,9 @@ def allreduce(x: torch.Tensor, average: bool = True) -> torch.Tensor:
     worker count (the JAX ``psum`` of a literal). Across processes every
     row is gathered first and reduced in the stacked order, so the local
     rows are bitwise the stacked result."""
+    if _RECORDERS:
+        dtype = _weight_dtype(x) if average else x.dtype
+        _note("all-reduce", (x[0].numel() if x.shape[0] else 0) * dtype.itemsize)
     ctx = _multi_process()
     if ctx is not None:
         return _stacked_allreduce(_gathered(x, ctx), average)[:x.shape[0]].clone()

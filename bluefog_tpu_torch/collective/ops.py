@@ -370,13 +370,8 @@ def neighbor_allgather_nonblocking(
     plan = ctx.static_plan()
     in_neighbors = plan.in_neighbors
     if compression is not None and metrics.enabled():
-        from bluefog_tpu_torch import scaling
-
-        n_elems = x[0].numel()
         metrics.record_allgather_wire(
-            x, compression,
-            len(plan.rounds) * scaling.wire_payload_bytes(n_elems, x.element_size(),
-                                                          compression))
+            x, compression, plan.wire_bytes(x[0].numel(), x.element_size(), wire=compression))
 
     def post(result):
         vals, _mask = result

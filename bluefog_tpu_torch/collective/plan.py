@@ -53,6 +53,14 @@ class CommRound:
     perm: Tuple[Tuple[int, int], ...]
     recv_weights: Tuple[float, ...]
 
+    @property
+    def sources(self) -> Tuple[int, ...]:
+        return tuple(s for s, _ in self.perm)
+
+    @property
+    def destinations(self) -> Tuple[int, ...]:
+        return tuple(d for _, d in self.perm)
+
 
 @dataclasses.dataclass(frozen=True)
 class CommPlan:
@@ -110,6 +118,15 @@ class CommPlan:
     @property
     def max_in_degree(self) -> int:
         return max((len(n) for n in self.in_neighbors), default=0)
+
+    def wire_bytes(self, n_elems: int, itemsize: int = 4, wire: Optional[str] = None) -> int:
+        """Wire bytes a worker ships in one gossip step over this plan for
+        an ``n_elems`` payload: every round re-ships it, priced by
+        :func:`bluefog_tpu_torch.scaling.wire_bytes_per_step` (the value
+        the facade's ``bluefog.wire_bytes`` counter records)."""
+        from bluefog_tpu_torch import scaling  # scaling imports this module
+
+        return scaling.wire_bytes_per_step({itemsize: n_elems}, len(self.rounds), wire)
 
     def weight_matrix(self) -> np.ndarray:
         """The effective combine matrix ``W`` (``W[i, j]`` = weight rank

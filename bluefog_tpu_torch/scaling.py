@@ -1,19 +1,29 @@
 # Copyright 2026. Licensed under the Apache License, Version 2.0.
-"""Byte models of the wire, the optimizer state and the reduce-scatter.
+"""Byte models of the wire, the optimizer state and the reduce-scatter,
+and the accounting of the transfers a combine makes.
 
-Counterpart of the analytic half of ``bluefog_tpu/scaling.py``: what one
-round of a wire tier ships (:func:`wire_payload_bytes`, the single
-accounting the chunk chooser prices from), a step's wire bytes, the
-temporaries of the quantized wire, the optimizer state per worker
-(measured from a state tree, or analytic), a plan's round and byte
-summary, and the ring allreduce, one-peer gossip and ring reduce-scatter
-costs. The JAX module's HLO-reading half (``hlo_collective_stats``,
-``gossip_comm_stats``, ``weak_scaling_times``) waits for a transport whose
-calls can be counted.
+Counterpart of ``bluefog_tpu/scaling.py``: what one round of a wire tier
+ships (:func:`wire_payload_bytes`, the single accounting the chunk chooser
+prices from), a step's wire bytes, the temporaries of the quantized wire,
+the optimizer state per worker (measured from a state tree, or analytic),
+a plan's round and byte summary, and the ring allreduce, one-peer gossip
+and ring reduce-scatter costs.
+
+The JAX package compiles one combine and reads its collectives out of the
+optimized HLO (:func:`hlo_collective_stats`, kept here as the same regex
+reader). The port runs eagerly, so :func:`gossip_comm_stats` runs one
+combine and counts the transfers it made (``inner.record_transfers``): in one
+process a gather along the worker axis is a ``collective-permute`` of one
+worker's payload, across processes a round of the :class:`Route` the
+combine posted. :func:`weak_scaling_times` times a step over 1, 2, 4, ...
+stacked workers (CUDA events on the card, the host clock on the CPU).
 """
 
-from typing import Dict, Optional, Sequence
+import re
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from bluefog_tpu_torch import sharding
@@ -27,6 +37,9 @@ from bluefog_tpu_torch.collective.compiler import (  # noqa: F401  (re-export)
 from bluefog_tpu_torch.collective.plan import CommPlan
 
 __all__ = [
+    "hlo_collective_stats",
+    "gossip_comm_stats",
+    "weak_scaling_times",
     "plan_comm_summary",
     "wire_payload_bytes",
     "wire_bytes_per_step",
@@ -173,15 +186,17 @@ def plan_comm_summary(plan: CommPlan, payload_bytes: int, wire: Optional[str] = 
     info = plan.compile_info
     rounds = len(plan.perms)
     naive_rounds = info.offset_rounds if info else rounds
-    congestion = (1.0,) * rounds
+    congestion = info.congestion if info and info.congestion else (1.0,) * rounds
+    link_class = getattr(info, "link_class", "ici") if info else "ici"
     n_elems = int(payload_bytes) // max(int(itemsize), 1)
     wire_bytes = wire_payload_bytes(n_elems, itemsize, wire)
-    auto_chunks, chunked_cost = _compiler.chunk_option(wire_bytes, congestion, n_elems=n_elems)
+    auto_chunks, chunked_cost = _compiler.chunk_option(wire_bytes, congestion, n_elems=n_elems,
+                                                       link_class=link_class)
     return {
         "rounds": rounds,
         "decomposition": info.method if info else "offset",
-        "route": "direct",
-        "link_class": "ici",
+        "route": info.route if info else "direct",
+        "link_class": link_class,
         "naive_rounds": naive_rounds,
         "lower_bound": info.lower_bound if info else rounds,
         "wire": wire or "exact",
@@ -191,11 +206,141 @@ def plan_comm_summary(plan: CommPlan, payload_bytes: int, wire: Optional[str] = 
         ),
         "max_congestion": max(congestion, default=1.0),
         "lineage_sidecar_bytes_per_round": LINEAGE_TAG_BYTES,
-        "predicted_cost_us": plan_cost_s(rounds, wire_bytes) * 1e6,
-        "naive_cost_us": plan_cost_s(naive_rounds, wire_bytes) * 1e6,
+        "predicted_cost_us": plan_cost_s(rounds, wire_bytes, link_class=link_class) * 1e6,
+        "naive_cost_us": plan_cost_s(naive_rounds, wire_bytes, link_class=link_class) * 1e6,
         "auto_chunks": auto_chunks,
         "chunked_cost_us": chunked_cost * 1e6,
     }
+
+
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
+    "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8, "c64": 8,
+    "c128": 16, "f8e4m3fn": 1, "f8e5m2": 1, "f8e4m3": 1, "f8e3m4": 1,
+    "f8e4m3fnuz": 1, "f8e5m2fnuz": 1,
+}
+
+# ``dtype[d0,d1,...]{layout} collective-permute(``: the instruction's result
+# shape is its payload. An async ``-start`` carries the op and the payload
+# (counted), its ``-done`` does not; the shape may be a tuple (an async
+# start's operands, results and contexts, or a variadic collective's
+# results), so the whole shape string is captured and every element read.
+_COLLECTIVE_RE = re.compile(
+    r"=\s*((?:\()?\w+\[[\d,]*\][^=\n]*?)\s"
+    r"(collective-permute|all-reduce|all-gather|reduce-scatter|"
+    r"all-to-all)(-start)?\("
+)
+
+_SHAPE_ELEM_RE = re.compile(r"(\w+)\[([\d,]*)\]")
+
+
+def _shape_bytes(dtype: str, dims: str) -> int:
+    n = 1
+    if dims:
+        for d in dims.split(","):
+            n *= int(d)
+    return n * _DTYPE_BYTES.get(dtype, 4)
+
+
+# Async starts whose result tuple is ``(operands..., results...,
+# contexts...)``, the operands aliasing the results shape for shape; the
+# all-reduce, reduce-scatter and all-to-all starts return results only.
+_ALIASING_STARTS = ("collective-permute", "all-gather")
+
+
+def _instruction_bytes(shape_str: str, kind: str, is_start: bool) -> int:
+    """Payload bytes of one collective from its (possibly tuple) shape: a
+    plain shape is the payload; a variadic collective's tuple sums its
+    results; an aliasing async start's tuple, its scalar context lanes
+    dropped, is counted by its second half (the results). An unknown dtype
+    counts 4 bytes an element rather than none."""
+    elems = _SHAPE_ELEM_RE.findall(shape_str)
+    if not shape_str.lstrip().startswith("("):
+        return _shape_bytes(*elems[0]) if elems else 0
+    if is_start and kind in _ALIASING_STARTS:
+        data = [e for e in elems if e[1]]
+        if len(data) % 2 == 0 and data:
+            data = data[len(data) // 2:]
+        return sum(_shape_bytes(dt, dims) for dt, dims in data)
+    return sum(_shape_bytes(dt, dims) for dt, dims in elems)
+
+
+def hlo_collective_stats(hlo_text: str) -> Dict[str, Dict[str, int]]:
+    """Collective instructions and their payload bytes in optimized HLO
+    text: ``{kind: {"count", "bytes"}}`` over collective-permute,
+    all-reduce, all-gather, reduce-scatter and all-to-all. For a permute
+    the bytes are one device's wire transfer; for an all-reduce the
+    logical payload. The JAX package's reader, for HLO written by it."""
+    stats: Dict[str, Dict[str, int]] = {}
+    for m in _COLLECTIVE_RE.finditer(hlo_text):
+        shape_str, kind, start = m.group(1), m.group(2), m.group(3)
+        entry = stats.setdefault(kind, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += _instruction_bytes(shape_str, kind, start is not None)
+    return stats
+
+
+def gossip_comm_stats(plan: CommPlan, payload_elems: int, dtype=torch.float32,
+                      mode: str = "neighbor_allreduce",
+                      include_plan: bool = False) -> Dict[str, Dict[str, int]]:
+    """Run one combine over ``plan`` on ``[N, payload_elems]`` zeros and
+    count the transfers it made, in the JAX function's form ``{kind: {"count",
+    "bytes"}}``.
+
+    ``mode`` is ``"neighbor_allreduce"`` (the plan's rounds) or
+    ``"allreduce"`` (one ``all-reduce`` of the logical payload). In one
+    process each gather along the worker axis is one
+    ``collective-permute`` of one worker's payload; across processes
+    (``x`` is then this process's rows) a round counts once if some process
+    posted a message in it on the combine's
+    :class:`~bluefog_tpu_torch.collective.transport.Route` or read a row
+    of it, however many peers it has, agreed over the processes, so every
+    process returns the stacked run's dict. ``include_plan=True`` adds
+    :func:`plan_comm_summary` under ``"plan"``. The zeros lie on the
+    context's device (``"cuda"`` without a context)."""
+    from bluefog_tpu_torch import context as ctx_mod
+    from bluefog_tpu_torch.collective import inner, transport
+
+    if mode not in ("neighbor_allreduce", "allreduce"):
+        raise ValueError(f"unknown mode {mode!r}")
+    ctx = ctx_mod._context
+    device = ctx.device if ctx is not None else torch.device("cuda")
+    multi = inner._multi_process()
+    rows = plan.size
+    if multi is not None:
+        if plan.size != multi.size:
+            raise ValueError(f"a plan over {plan.size} ranks across processes of "
+                             f"{multi.size} workers")
+        rows = multi.n_local
+    x = torch.zeros((rows, int(payload_elems)), dtype=dtype, device=device)
+    with inner.record_transfers() as log:
+        if mode == "neighbor_allreduce":
+            inner.neighbor_allreduce(x, plan)
+        else:
+            inner.allreduce(x, average=True)
+    stats: Dict[str, Dict[str, int]] = {}
+
+    def add(kind, n_bytes):
+        entry = stats.setdefault(kind, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += int(n_bytes)
+
+    routes = [v for k, v in log if k == "route"]
+    for kind, value in log:
+        if kind == "all-reduce":
+            add("all-reduce", value)
+        elif kind == "gather" and not routes:
+            add("collective-permute", value)
+    if routes:
+        row_bytes = int(payload_elems) * inner._weight_dtype(x).itemsize
+        for rt in routes:
+            mine = {int(r) for r, *_ in rt.sends} | {int(r) for r, *_ in rt.recvs}
+            mine |= {int(r) for r in np.nonzero((rt.local >= 0).any(dim=1).cpu().numpy())[0]}
+            for _ in set().union(*transport.gather_objects(sorted(mine), multi)):
+                add("collective-permute", row_bytes)
+    if include_plan:
+        stats["plan"] = plan_comm_summary(plan, int(payload_elems) * dtype.itemsize)
+    return stats
 
 
 def ring_allreduce_cost(n: int, payload_bytes: int) -> Dict[str, float]:
@@ -222,3 +367,64 @@ def reduce_scatter_bytes(groups, n: int, wire: Optional[str] = None) -> int:
 def ring_reduce_scatter_cost(n: int, slot_bytes: int) -> Dict[str, float]:
     """Ring reduce-scatter per worker: ``N - 1`` hops of one slot each."""
     return {"latency_hops": n - 1, "wire_bytes": float((n - 1) * slot_bytes)}
+
+
+def _first_tensor(tree) -> Optional[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return tree
+    items = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, (list, tuple)) else ())
+    for item in items:
+        found = _first_tensor(item)
+        if found is not None:
+            return found
+    return None
+
+
+def _read_back(out) -> None:
+    t = _first_tensor(out)
+    if t is not None:
+        t.reshape(-1)[:1].tolist()
+
+
+def weak_scaling_times(make_step: Callable[[int], Tuple[Callable, tuple]], ns: Sequence[int],
+                       steps: int = 10, warmup: int = 3) -> List[Dict[str, float]]:
+    """Time one step at each worker count in ``ns``.
+
+    ``make_step(n)`` returns ``(fn, args)``: ``fn(*args)`` runs one step of
+    ``n`` stacked workers and returns outputs whose first tensor lies on
+    the device the step runs on. Each worker's work must stay the same
+    over ``ns`` (weak scaling), so ``efficiency = t[0] / t[n]``. After
+    ``warmup`` steps (at least one: its output names the device),
+    ``steps`` steps are timed: with CUDA events on a
+    CUDA output, else with the host clock, reading the first output back
+    before and after. Returns ``[{"n", "ms_per_step", "efficiency"}]``."""
+    out: List[Dict[str, float]] = []
+    t1 = None
+    for n in ns:
+        fn, args = make_step(n)
+        res = fn(*args)
+        for _ in range(max(int(warmup) - 1, 0)):
+            res = fn(*args)
+        first = _first_tensor(res)
+        if first is not None and first.is_cuda:
+            with torch.cuda.device(first.device):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(steps):
+                    res = fn(*args)
+                end.record()
+                end.synchronize()
+                dt = start.elapsed_time(end) / 1e3 / steps
+        else:
+            _read_back(res)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                res = fn(*args)
+            _read_back(res)
+            dt = (time.perf_counter() - t0) / steps
+        if t1 is None:
+            t1 = dt
+        out.append({"n": n, "ms_per_step": dt * 1e3, "efficiency": t1 / dt})
+    return out

@@ -5,20 +5,28 @@
 Counterpart of ``bluefog_tpu/timeline.py``. The host phases (a
 collective's dispatch, a ``synchronize`` wait, an optimizer step, user
 activities, stall instants, metric counters) go to one JSON array per
-process, written by :class:`_PyWriter` under a lock (the watchdog thread
-writes its stall instants beside the training thread's spans).
-``timeline_init(path, profiler=True)`` also starts ``torch.profiler`` with
-the CPU and CUDA activities and writes its Chrome trace into
-``<path>.torch/`` at :func:`timeline_shutdown`: the kernels themselves.
+process. The writer is the native one, ``csrc/timeline_writer.cc`` (a
+background thread drains a queue of records, so a record costs the
+caller a lock and a push), built by ``g++`` at the timeline's first use
+(:func:`bluefog_tpu_torch._build.timeline_library`, into
+``build/torch_kernels/``, keyed by the source's hash) and loaded with
+``ctypes``. Where the host has no ``g++`` or the build directory is not
+writable, :class:`_PyWriter` writes the same records under a lock (the
+watchdog thread writes its stall instants beside the training thread's
+spans), as the JAX package falls back; a ``g++`` whose build fails
+raises with the compiler's output. :func:`using_native_writer` says
+which. ``timeline_init(path, profiler=True)`` also starts
+``torch.profiler`` with the CPU and CUDA activities and writes its Chrome
+trace into ``<path>.torch/`` at :func:`timeline_shutdown`: the kernels
+themselves.
 
 ``BLUEFOG_TIMELINE=<prefix>`` opens ``<prefix><index>.json`` at ``init``
 (:func:`maybe_init_from_env`; the index is :func:`process_file_index`) and
-closes it at ``shutdown`` or at exit. The JAX package's native C++ writer
-(``native/timeline_writer.cc``) is a host speed-up it falls back from to
-the same Python writer; the port has only the Python writer.
+closes it at ``shutdown`` or at exit.
 """
 
 import contextlib
+import ctypes
 import math
 import os
 import threading
@@ -39,13 +47,19 @@ __all__ = [
     "timeline_now_us",
     "process_file_index",
     "maybe_init_from_env",
+    "using_native_writer",
 ]
 
 
+# str.translate table deleting the control characters (below U+0020)
+_CONTROL = dict.fromkeys(range(0x20))
+
+
 class _PyWriter:
-    """The Chrome-trace writer: one JSON array, records written by whoever
-    calls, the ``,\\n`` separator handshake under a lock so that records
-    from two threads never interleave."""
+    """The Python writer, with the native writer's contract and records:
+    one JSON array, each record written by whoever calls, the ``,\\n``
+    separator handshake under a lock so that records from two threads
+    never interleave."""
 
     def __init__(self):
         self._f = None
@@ -76,7 +90,9 @@ class _PyWriter:
 
     @staticmethod
     def _esc(b: bytes) -> str:
-        return b.decode().replace("\\", "\\\\").replace('"', '\\"')
+        # the native writer's Escape(): backslash and quote escaped, control
+        # characters dropped (a raw newline would break the JSON string)
+        return b.decode().replace("\\", "\\\\").replace('"', '\\"').translate(_CONTROL)
 
     def bf_timeline_record(self, name, cat, ph, pid, tid) -> None:
         ph = ph.decode()
@@ -110,11 +126,61 @@ class _PyWriter:
                 self._f = None
 
 
-_writer = _PyWriter()
+_writer = None  # the native library once loaded, else a _PyWriter
+_writer_lock = threading.Lock()
 _active = False
 _profiler = None  # the running torch.profiler.profile, with its output dir
 _profiler_dir: Optional[str] = None
 _env_owned = False  # opened from BLUEFOG_TIMELINE by init(): closed by shutdown()
+
+
+def _build_dir_writable() -> bool:
+    from bluefog_tpu_torch import _build
+
+    try:
+        _build.build_dir().mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return False
+    return os.access(_build.build_dir(), os.W_OK)
+
+
+def _load_native():
+    """The writer: the native library (built once), or :class:`_PyWriter`
+    where there is no ``g++`` or no writable build directory."""
+    global _writer
+    if _writer is None:
+        with _writer_lock:
+            if _writer is None:
+                from bluefog_tpu_torch import _build
+
+                if _build.find_cxx() is None or not _build_dir_writable():
+                    _writer = _PyWriter()
+                else:
+                    _writer = _build.timeline_library()
+    return _writer
+
+
+def using_native_writer() -> bool:
+    """Whether the timeline writes through the native writer."""
+    return isinstance(_load_native(), ctypes.CDLL)
+
+
+@contextlib.contextmanager
+def python_writer():
+    """Test hook: the timelines opened inside the block write through a
+    :class:`_PyWriter`; the writer chosen before is restored after. Refused
+    while a timeline is open."""
+    global _writer
+    if _active:
+        raise RuntimeError("python_writer() while a timeline is open")
+    saved = _writer
+    _writer = _PyWriter()
+    try:
+        yield _writer
+    finally:
+        if _active:
+            timeline_shutdown()
+        _writer = saved
 
 
 def timeline_init(file_path: str, profiler: bool = False) -> bool:
@@ -123,7 +189,7 @@ def timeline_init(file_path: str, profiler: bool = False) -> bool:
     ``torch.profiler`` (CPU and, with a card, CUDA activities), whose
     Chrome trace goes to ``<file_path>.torch/`` at shutdown."""
     global _active, _profiler, _profiler_dir, _env_owned
-    if not _writer.bf_timeline_start(file_path.encode()):
+    if not _load_native().bf_timeline_start(file_path.encode()):
         return False
     _active = True
     _env_owned = False  # a timeline the user opens is theirs to close
@@ -151,7 +217,7 @@ def timeline_shutdown() -> bool:
         _profiler.export_chrome_trace(
             os.path.join(_profiler_dir, f"trace_{process_file_index()}.json"))
         _profiler = _profiler_dir = None
-    _writer.bf_timeline_stop()
+    _load_native().bf_timeline_stop()
     _active = False
     _env_owned = False
     return True
@@ -171,7 +237,7 @@ def timeline_start_activity(name: str, activity: str, rank: int = 0, tid: int = 
     """Open an activity span (``ph:"B"``)."""
     if not _active:
         return False
-    _writer.bf_timeline_record(name.encode(), activity.encode(), b"B", rank, tid)
+    _load_native().bf_timeline_record(name.encode(), activity.encode(), b"B", rank, tid)
     return True
 
 
@@ -179,7 +245,7 @@ def timeline_end_activity(name: str, activity: str = "", rank: int = 0, tid: int
     """Close the most recent span of ``name`` (``ph:"E"``)."""
     if not _active:
         return False
-    _writer.bf_timeline_record(name.encode(), activity.encode(), b"E", rank, tid)
+    _load_native().bf_timeline_record(name.encode(), activity.encode(), b"E", rank, tid)
     return True
 
 
@@ -188,7 +254,7 @@ def timeline_record_complete(name: str, activity: str, start_us: int, dur_us: in
     """One complete span (``ph:"X"``) with explicit timing."""
     if not _active:
         return False
-    _writer.bf_timeline_record_complete(name.encode(), activity.encode(), rank, tid,
+    _load_native().bf_timeline_record_complete(name.encode(), activity.encode(), rank, tid,
                                         start_us, dur_us)
     return True
 
@@ -197,7 +263,7 @@ def timeline_record_instant(name: str, activity: str = "", rank: int = 0, tid: i
     """One instant event (``ph:"i"``), e.g. a watchdog stall."""
     if not _active:
         return False
-    _writer.bf_timeline_record(name.encode(), activity.encode(), b"i", rank, tid)
+    _load_native().bf_timeline_record(name.encode(), activity.encode(), b"i", rank, tid)
     return True
 
 
@@ -218,12 +284,12 @@ def timeline_record_counter(name: str, value: float, activity: str = "COUNTER",
     value = float(value)
     if not _active or not math.isfinite(value):
         return False
-    _writer.bf_timeline_record_counter(name.encode(), activity.encode(), rank, tid, value)
+    _load_native().bf_timeline_record_counter(name.encode(), activity.encode(), rank, tid, value)
     return True
 
 
 def timeline_now_us() -> int:
-    return int(_writer.bf_timeline_now_us())
+    return int(_load_native().bf_timeline_now_us())
 
 
 @contextlib.contextmanager

@@ -17,8 +17,8 @@ carry no coordinates and keep their order within a process. With several
 processes (``multi_process=True``) it groups the devices by their
 ``process_index``, in ascending order, as the JAX context's
 ``order_devices_for_mesh`` does: process ``p`` holds a contiguous range
-of worker rows. Placing cards by their NVLink or PCIe distance is not
-done (ROADMAP A14c).
+of worker rows. Placing cards by their NVLink or PCIe distance waits for
+a machine with several cards (ROADMAP A item 4).
 """
 
 import os

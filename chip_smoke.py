@@ -3,7 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero:
+Phases, one line each; any failure exits non-zero. The main path's phases
+(7, 8, 9 and 11k) train the whole ResNet50; the phases that check the
+subsystems on it (7a, 10, 11a-11j) train it cut to one block a stage
+(``PATH_TRAINER``: the same widths, 64 images of 224x224 a worker, the same
+tiers, steps and gates, about a third of the host's launches a step), which
+keeps the script inside its time limit. The last ``[done]`` line lists the
+seconds of each phase.
 
 1. device   -- the card's name, and its name and power limit from nvidia-smi;
 2. build    -- compiles the CUDA wire kernels and the two flash-attention
@@ -348,6 +354,29 @@ Phases, one line each; any failure exits non-zero:
                the degraded edge named and one swap, the forensics' census,
                the scraped ``/healthz``, each case's kernels launched in each
                process, a line a case; files deleted;
+11k. scaling-trace -- the scaling stats, the native timeline writer and
+               the trace tools on the same ResNet50
+               (:func:`phase_scaling_trace` states every gate): (a)
+               ``scaling.gossip_comm_stats`` on the card at 25 557 032 f32
+               elements: one ``collective-permute`` of the payload's bytes
+               for one-peer Exp2 at n = 2, 4, 8, 3 for the static Exp2(8),
+               an ``all-reduce``, the ``include_plan`` summary; (b)
+               ``scaling.weak_scaling_times`` of ``opt.make_train_step``, ATC
+               int8, 64 images a worker, at 1, 2, 4 and 8 workers (the
+               one-peer Exp2 plan; one worker: the fully connected graph of
+               one), 1 warm-up and 3 timed steps, a line each n with ms a
+               step, images/s and efficiency (n workers share one card);
+               one ``encode`` and one ``decode_accumulate`` a step, the first
+               step's combine bitwise the plain versions'; (c) the timeline
+               through the native writer (``using_native_writer()``) and
+               through the Python writer, 1 + 2 ATC/int8 steps each: the same
+               event names and counts, and the host us of one
+               ``timeline_record_complete`` (median of 100 000 calls, one
+               and two recording threads, each writer); (d)
+               ``tools/trace_merge.py --report`` and
+               ``tools/metrics_report.py --flight`` on (c)'s native run: exit
+               0, 8 rank lanes, every step's rounds the Exp(8) plan's; files
+               under ``build/scaling_trace``, deleted;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -449,9 +478,11 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --phase transport-state
     python3 chip_smoke.py --phase transport-topology
     python3 chip_smoke.py --phase transport-fleet
+    python3 chip_smoke.py --phase scaling-trace
 
-run phase 11d, 11e, 11f, 11g, 11h, 11i or 11j alone on the full-width
-ResNet50 (the wire kernels built first) and print no result line. Phase
+run phase 11d, 11e, 11f, 11g, 11h, 11i, 11j or 11k alone on the ResNet50 of
+the whole run (11d-11j at ``PATH_TRAINER``'s depth; the wire kernels built
+first) and print no result line. Phase
 11g's processes run ``python3 chip_smoke.py --transport-child <config>``,
 phase 11h's ``python3 chip_smoke.py --transport-state-child <config>``,
 phase 11i's ``python3 chip_smoke.py --transport-topology-child <config>``,
@@ -464,6 +495,7 @@ under ``build/faults/`` and runs flash-parity's cases on it: it fails unless
 every planted fault fails some case.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -496,6 +528,11 @@ from bluefog_tpu_torch.ops import flash, ring_attention
 
 SIZE = 8
 BATCH = 64
+# the ResNet50 of the phases that check the subsystems on it (7a, 10,
+# 11a-11j): its depth cut to one block a stage (10 064 936 parameters), its
+# widths whole; a step is bound by the host's kernel launches, so depth, not
+# the batch, sets its time
+PATH_TRAINER = {"stage_sizes": [1, 1, 1, 1]}
 IMAGE = 224
 WARMUP, TIMED = 2, 4
 RESNET50_PARAMS = 25_557_032  # the flax ResNet50 at 1000 classes
@@ -650,6 +687,9 @@ PATH_KERNELS = {
     # under the oom fault, B1 + B5 on the async ticks
     "transport-fleet a": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
     "transport-fleet": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
+    # the scaling-trace phase's weak scaling: the ATC/int8 steps at 1, 2, 4
+    # and 8 workers
+    "scaling-trace": ("encode", "decode_accumulate"),
 }
 
 
@@ -4505,10 +4545,10 @@ def fs_fleetsim():
 
 
 def phase_federation_slo(device, sm, images, labels, smi=""):
-    """Phase 11e on the ResNet50 of the train-step phase (8 workers, 64
-    images of 224 x 224 each, ``sgd(0.1, 0.9)``, bf16 compute), ATC over the
-    weighted Exp2 graph, cuDNN deterministic. Returns ``({path: launch
-    counts}, numbers)``.
+    """Phase 11e on the ResNet50 of the train-step phase at
+    ``PATH_TRAINER``'s depth (8 workers, 64 images of 224 x 224 each,
+    ``sgd(0.1, 0.9)``, bf16 compute), ATC over the weighted Exp2 graph,
+    cuDNN deterministic. Returns ``({path: launch counts}, numbers)``.
 
     (a) Federation, ``BLUEFOG_PODS=2`` (2 x 4) and ``BLUEFOG_DCN_PERIOD=2``,
     with ``BLUEFOG_METRICS=1``: tiers fp32 (``BLUEFOG_DCN_WIRE=exact``),
@@ -5102,10 +5142,11 @@ def at_wire(device, sm, images, labels, stats0, params0):
 
 
 def phase_autotune(device, sm, images, labels, root=AT_ROOT, smi=""):
-    """Phase 11f on the ResNet50 of the train-step phase (8 workers, 64
-    images of 224 x 224 each, ``sgd(0.1, 0.9)``, bf16 compute), ATC over the
-    weighted Exp2(8) graph through ``opt.make_train_step(sm.worker_loss)``,
-    cuDNN deterministic, ``BLUEFOG_METRICS=1`` at interval 1000 (so the
+    """Phase 11f on the ResNet50 of the train-step phase at
+    ``PATH_TRAINER``'s depth (8 workers, 64 images of 224 x 224 each,
+    ``sgd(0.1, 0.9)``, bf16 compute), ATC over the weighted Exp2(8) graph
+    through ``opt.make_train_step(sm.worker_loss)``, cuDNN deterministic,
+    ``BLUEFOG_METRICS=1`` at interval 1000 (so the
     controller's payload is the measured int8 bytes, and the probe runs on
     step 0 only). Returns ``(launch counts of the controller-on runs,
     numbers)``; each run's counts are zeroed just before it and read just
@@ -5456,9 +5497,10 @@ def run_transport_child(config_path):
 def phase_transport(device, sm, images, labels, root=TP_ROOT, smi="", trainer_kw=None,
                     names=None, warmup=1, timed=2):
     """Phase 11g: the multi-process transport on the ResNet50 of the
-    train-step phase (``bench.py::run_headline``'s settings: 8 workers, 64
-    images of 224 x 224 each, the weighted Exp2(8), ``sgd(0.1, 0.9)``, the
-    seeds of phase 7), cuDNN deterministic, each tier 1 warm-up and 2 timed
+    train-step phase at ``PATH_TRAINER``'s depth (``bench.py::run_headline``'s
+    settings: 8 workers, 64 images of 224 x 224 each, the weighted Exp2(8),
+    ``sgd(0.1, 0.9)``, the seeds of phase 7), cuDNN deterministic, each tier
+    1 warm-up and 2 timed
     two-program steps (``loss_and_grad``, ``opt.step``) from the replicated
     parameters: atc, atc/int8, atc/int4_ef, hier/int8 (2 machines of 4 on
     the ring of machines) and grad-allreduce.
@@ -5605,16 +5647,18 @@ def phase_transport(device, sm, images, labels, root=TP_ROOT, smi="", trainer_kw
 
 def run_transport_alone():
     """``python3 chip_smoke.py --phase transport``: phase 11g alone on the
-    full-width ResNet50 (the wire kernels built first); its gates as in the
-    whole run, its lines and its launch counts. Prints no result line."""
+    full-width ResNet50 at ``PATH_TRAINER``'s depth (the wire kernels built
+    first); its gates as in the whole run, its lines and its launch counts.
+    Prints no result line."""
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.build(["wire_kernels"])
     _build.wire_library()
     bft.init(size=SIZE)
-    sm, images, labels = build_trainer(device)
-    counts, _numbers = phase_transport(device, sm, images, labels, smi=smi)
+    sm, images, labels = build_trainer(device, **PATH_TRAINER)
+    counts, _numbers = phase_transport(device, sm, images, labels, smi=smi,
+                                       trainer_kw=PATH_TRAINER)
     for path in ("transport a", "transport"):
         missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
         if missing:
@@ -5934,9 +5978,10 @@ def phase_transport_state(device, sm, images, labels, root=TS_ROOT, smi="", trai
                           names=None, warmup=1, timed=2):
     """Phase 11h: the window ops, the async engine, ZeRO and checkpoint
     across processes, on the ResNet50 of the train-step phase
-    (``bench.py::run_headline``'s settings: 8 workers, 64 images of 224 x
-    224 each, the seeds of phase 7), cuDNN deterministic, each tier 1
-    warm-up and 2 timed steps from the replicated parameters:
+    at ``PATH_TRAINER``'s depth (``bench.py::run_headline``'s settings: 8
+    workers, 64 images of 224 x 224 each, the seeds of phase 7), cuDNN
+    deterministic, each tier 1 warm-up and 2 timed steps from the
+    replicated parameters:
     ``push-sum/int8`` and ``push-sum/int4`` (``DistributedPushSumOptimizer
     (sgd(0.1, 0.9))`` on ``BLUEFOG_WINDOW_WIRE``, the Exp graph, as phase 8
     builds it), ``win-put/fp32``, ``async/int8`` (phase 10's straggler:
@@ -6121,17 +6166,19 @@ def ts_mass_gate(where, row):
 
 
 def run_transport_state_alone():
-    """``python3 chip_smoke.py --phase transport-state``: phase 11h alone on
-    the full-width ResNet50 (the wire kernels built first); its gates as in
-    the whole run, its lines and its launch counts. Prints no result line."""
+    """``python3 chip_smoke.py --phase transport-state``: phase 11h alone on the
+    full-width ResNet50 at ``PATH_TRAINER``'s depth (the wire kernels built
+    first); its gates as in the whole run, its lines and its launch counts.
+    Prints no result line."""
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.build(["wire_kernels"])
     _build.wire_library()
     bft.init(size=SIZE)
-    sm, images, labels = build_trainer(device)
-    counts, _numbers = phase_transport_state(device, sm, images, labels, smi=smi)
+    sm, images, labels = build_trainer(device, **PATH_TRAINER)
+    counts, _numbers = phase_transport_state(device, sm, images, labels, smi=smi,
+                                             trainer_kw=PATH_TRAINER)
     for path in ("transport-state a", "transport-state"):
         missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
         if missing:
@@ -6439,9 +6486,10 @@ def phase_transport_topology(device, sm, images, labels, root=TT_ROOT, smi="",
                              trainer_kw=None, names=None):
     """Phase 11i: federation, relay plans and elastic sessions across
     processes, on the ResNet50 of the train-step phase
-    (``bench.py::run_headline``'s settings: 8 workers, 64 images of 224 x
-    224 each, the seeds of phase 7), cuDNN deterministic, ATC ``sgd(0.1,
-    0.9)`` unless a case names another optimizer (:func:`tt_cases`):
+    at ``PATH_TRAINER``'s depth (``bench.py::run_headline``'s settings: 8
+    workers, 64 images of 224 x 224 each, the seeds of phase 7), cuDNN
+    deterministic, ATC ``sgd(0.1, 0.9)`` unless a case names another
+    optimizer (:func:`tt_cases`):
     ``fed/int8`` (``BLUEFOG_PODS=2``, ``BLUEFOG_DCN_PERIOD=2``, the int4
     DCN wire, 4 steps: two DCN steps), ``relay/fp32`` and ``relay/int8``
     (``BLUEFOG_PLAN_METHOD=shortcut`` on the default Exp graph, 3 steps),
@@ -6623,18 +6671,19 @@ def phase_transport_topology(device, sm, images, labels, root=TT_ROOT, smi="",
 
 
 def run_transport_topology_alone():
-    """``python3 chip_smoke.py --phase transport-topology``: phase 11i alone
-    on the full-width ResNet50 (the wire kernels built first); its gates as
-    in the whole run, its lines and its launch counts. Prints no result
-    line."""
+    """``python3 chip_smoke.py --phase transport-topology``: phase 11i alone on
+    the full-width ResNet50 at ``PATH_TRAINER``'s depth (the wire kernels
+    built first); its gates as in the whole run, its lines and its launch
+    counts. Prints no result line."""
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.build(["wire_kernels"])
     _build.wire_library()
     bft.init(size=SIZE)
-    sm, images, labels = build_trainer(device)
-    counts, _numbers = phase_transport_topology(device, sm, images, labels, smi=smi)
+    sm, images, labels = build_trainer(device, **PATH_TRAINER)
+    counts, _numbers = phase_transport_topology(device, sm, images, labels, smi=smi,
+                                                trainer_kw=PATH_TRAINER)
     for path in ("transport-topology a", "transport-topology"):
         missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
         if missing:
@@ -7038,9 +7087,10 @@ def run_transport_fleet_child(config_path):
 def phase_transport_fleet(device, sm, images, labels, root=TF_ROOT, smi="", trainer_kw=None,
                           names=None):
     """Phase 11j: the fleet samplers across processes, on the ResNet50 of
-    the train-step phase (8 workers, 64 images of 224 x 224 each, the seeds
-    of phase 7, the default Exp graph), cuDNN deterministic, ATC
-    ``sgd(0.1, 0.9)`` (the async case: phase 10's straggler), 1 warm-up and
+    the train-step phase at ``PATH_TRAINER``'s depth (8 workers, 64 images
+    of 224 x 224 each, the seeds of phase 7, the default Exp graph), cuDNN
+    deterministic, ATC ``sgd(0.1, 0.9)`` (the async case: phase 10's
+    straggler), 1 warm-up and
     2 timed steps a case (:func:`tf_cases`): ``samplers/int8`` (the
     metrics probe, the doctor on a quiet pin, the staleness lane, the
     memory observatory, the health plane serving ``/healthz`` and the SLO
@@ -7203,7 +7253,330 @@ def phase_transport_fleet(device, sm, images, labels, root=TF_ROOT, smi="", trai
 
 
 def run_transport_fleet_alone():
-    """``python3 chip_smoke.py --phase transport-fleet``: phase 11j alone on
+    """``python3 chip_smoke.py --phase transport-fleet``: phase 11j alone on the
+    full-width ResNet50 at ``PATH_TRAINER``'s depth (the wire kernels built
+    first); its gates as in the whole run, its lines and its launch counts.
+    Prints no result line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    bft.init(size=SIZE)
+    sm, images, labels = build_trainer(device, **PATH_TRAINER)
+    counts, _numbers = phase_transport_fleet(device, sm, images, labels, smi=smi,
+                                             trainer_kw=PATH_TRAINER)
+    for path in ("transport-fleet a", "transport-fleet"):
+        missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    return 0
+
+
+SC_ROOT = "build/scaling_trace"
+SC_NS = (1, 2, 4, 8)  # weak scaling: workers on the card
+SC_STEPS, SC_WARMUP = 3, 1
+SC_TIMELINE_STEPS = (1, 2)  # (c): warm-up, then timed ATC/int8 steps
+SC_RECORD_CALLS = 100_000  # (c): timeline_record_complete calls a median
+
+
+def sc_log(msg):
+    log("scaling-trace", msg)
+
+
+def sc_one_peer_plan(n):
+    """Step 0 of the one-peer Exp2 schedule over ``n`` workers, or the fully
+    connected graph of one (bench.py::run_scaling's ``make_step``)."""
+    from bluefog_tpu_torch.collective.plan import schedule_from_dynamic
+
+    if n == 1:
+        return plan_from_topology(topo.FullyConnectedGraph(1))
+    return schedule_from_dynamic(n, lambda r: topo.GetDynamicOnePeerSendRecvRanks(
+        topo.ExponentialGraph(n), r)).plans[0]
+
+
+def sc_comm_stats(device, width=RESNET50_PARAMS):
+    """(a) ``scaling.gossip_comm_stats`` on the card at ResNet50's width:
+    one ``collective-permute`` of ``width * 4`` bytes for one-peer Exp2 at
+    n = 2, 4, 8 (flat in n), 3 for the static Exp2(8), an ``all-reduce`` of
+    the payload, and the ``include_plan`` summary equal to
+    ``plan_comm_summary``. Returns ``{case: stats}``."""
+    from bluefog_tpu_torch import scaling
+
+    bft.init(size=SIZE, device=device)
+    row = width * 4
+    out = {}
+    for n in (2, 4, 8):
+        t0 = time.perf_counter()
+        got = scaling.gossip_comm_stats(sc_one_peer_plan(n), width)
+        sync(device)
+        out[f"one-peer n={n}"] = got
+        if got != {"collective-permute": {"count": 1, "bytes": row}}:
+            raise AssertionError(f"scaling-trace (a): one-peer Exp2 at n = {n}: {got}, want one "
+                                 f"collective-permute of {row} bytes")
+        sc_log(f"(a) one-peer Exp2 n={n}: {got} in {time.perf_counter() - t0:.3f} s")
+    exp2 = plan_from_topology(topo.ExponentialTwoGraph(SIZE))
+    got = scaling.gossip_comm_stats(exp2, width, include_plan=True)
+    summary = got.pop("plan")
+    out["exp2(8)"] = got
+    if got != {"collective-permute": {"count": 3, "bytes": 3 * row}}:
+        raise AssertionError(f"scaling-trace (a): static Exp2(8): {got}, want 3 rounds")
+    want = scaling.plan_comm_summary(exp2, row)
+    if summary != want or summary["rounds"] != 3:
+        raise AssertionError(f"scaling-trace (a): the include_plan summary {summary} is not "
+                             f"plan_comm_summary's {want}")
+    got = scaling.gossip_comm_stats(exp2, width, mode="allreduce")
+    out["allreduce"] = got
+    if got != {"all-reduce": {"count": 1, "bytes": row}}:
+        raise AssertionError(f"scaling-trace (a): mode allreduce: {got}")
+    sc_log(f"(a) static Exp2(8): {out['exp2(8)']}, plan summary rounds {summary['rounds']} "
+           f"({summary['decomposition']}, {summary['wire_bytes_per_round']} B a round); "
+           f"allreduce: {got}")
+    bft.shutdown()
+    return out
+
+
+def sc_weak_scaling(device, sm, images, labels, ns=SC_NS, steps=SC_STEPS, warmup=SC_WARMUP,
+                    smi=""):
+    """(b) ``scaling.weak_scaling_times`` over ``opt.make_train_step`` of the
+    ResNet50 (the phase's module on ``n`` workers, their images), ATC
+    ``sgd(0.1, 0.9)`` on int8, the one-peer Exp2 plan (one worker: the fully
+    connected graph of one), ``bft.init(size=n)`` anew for each ``n``. Gates:
+    each step launches one ``encode`` and one ``decode_accumulate`` (the
+    packed combine, one bucket), nothing else; at each n >= 2 the first
+    step's combine bitwise the plain versions' on a CPU copy of its input.
+    Returns ``(launch counts over every n, rows)``."""
+    from bluefog_tpu_torch import scaling
+
+    counts = {k: 0 for k in KERNEL_ROWS}
+    per_n, checked = {}, {}
+    live = {}  # the size in flight: n, its captured combine
+
+    def close():
+        """The size in flight's launches and its combine's plain check."""
+        n = live.pop("n", None)
+        if n is not None:
+            per_n[n] = launch_counts()
+            for k, v in per_n[n].items():
+                counts[k] += v
+            if live.get("captured") is not None:
+                checked[n] = at_plain_check(f"scaling-trace (b) n={n}", live["captured"], "int8")
+        live.clear()
+        bft.shutdown()
+
+    def make_step(n):
+        close()
+        bft.init(size=n, device=device)
+        bft.set_topology(sc_one_peer_plan(n).weight_matrix(), is_weighted=True)
+        stacked = StackedModel(sm.module, n, device)
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = "int8"
+        params = stacked.replicate()
+        state = opt.init(params)
+        rec = at_recorder(opt, device, stacked.width) if n > 1 else None
+        if rec is not None:
+            rec["arm"] = True  # the first (warm-up) step's combine
+        step = opt.make_train_step(stacked.worker_loss)
+        batch = (images[:n].contiguous(), labels[:n].contiguous(), torch.arange(n))
+        live["n"] = n
+
+        def fn():
+            out = step(params, state, *batch)
+            if rec is not None and "captured" not in live:
+                live["captured"] = rec["captured"]
+                del opt._resolve_dispatch  # the recorder holds the optimizer: a cycle
+            return out
+
+        reset_launch_counts()
+        return fn, ()
+
+    rows = scaling.weak_scaling_times(make_step, ns, steps=steps, warmup=warmup)
+    close()
+    for n in ns:
+        want = {k: (steps + warmup if k in PATH_KERNELS["scaling-trace"] else 0)
+                for k in KERNEL_ROWS}
+        if device.type == "cuda" and per_n[n] != want:
+            raise AssertionError(f"scaling-trace (b) n={n}: launches {per_n[n]}, a step "
+                                 f"predicts one encode and one decode_accumulate: {want}")
+    missing = [n for n in ns if n > 1 and n not in checked]
+    if missing:
+        raise AssertionError(f"scaling-trace (b): no combine captured at n = {missing}")
+    for r in rows:
+        n = r["n"]
+        sc_log(f"(b) weak scaling n={n}: {r['ms_per_step']:.3f} ms a step, "
+               f"{n * images.shape[1] / (r['ms_per_step'] / 1e3):.1f} images/s, efficiency "
+               f"{r['efficiency']:.4f} (n stacked workers share one card: about 1/n is "
+               f"expected, not a claim about scaling across cards); launches "
+               f"{ {k: v for k, v in per_n[n].items() if v} }; "
+               f"combine bitwise the plain versions: "
+               f"{'n/a' if n == 1 else f'{checked[n]} round(s)'}; on {smi}")
+    return counts, rows
+
+
+def sc_timeline_run(device, sm, images, labels, root, python):
+    """(c) ATC/int8 steps of the ResNet50 on the default Exp(8) graph with
+    ``BLUEFOG_TIMELINE`` and ``BLUEFOG_FLIGHT_DIR`` under ``root`` (the
+    Python writer if ``python``), then a flight dump. Returns the timeline's
+    events."""
+    from bluefog_tpu_torch import timeline as tl
+
+    os.makedirs(root, exist_ok=True)
+    writer = tl.python_writer() if python else contextlib.nullcontext()
+    with env_set({"BLUEFOG_TIMELINE": os.path.join(root, "trace_"),
+                  "BLUEFOG_FLIGHT_DIR": root}), writer:
+        bft.init(size=SIZE, device=device)
+        if tl.using_native_writer() == python:
+            raise AssertionError(f"scaling-trace (c): the {'Python' if python else 'native'} "
+                                 f"writer was not the one in use")
+        opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(0.1, momentum=0.9))
+        opt.compression = "int8"
+        params = sm.replicate()
+        state = opt.init(params)
+        step = opt.make_train_step(sm.worker_loss)
+        for _ in range(sum(SC_TIMELINE_STEPS)):
+            params, state, loss = step(params, state, images, labels, torch.arange(SIZE))
+        sync(device)
+        if not torch.isfinite(loss).all():
+            raise AssertionError("scaling-trace (c): non-finite loss")
+        bft.flight_dump()
+        bft.shutdown()
+    with open(os.path.join(root, "trace_0.json")) as f:
+        events = json.load(f)
+    if not isinstance(events, list) or not events:
+        raise AssertionError(f"scaling-trace (c): {root}/trace_0.json is not a JSON array "
+                             f"of events")
+    return events
+
+
+def sc_record_cost(root, python, threads, calls=SC_RECORD_CALLS):
+    """Median host microseconds of one ``timeline_record_complete`` over
+    ``calls`` calls, with ``threads - 1`` more threads recording too."""
+    import threading
+
+    from bluefog_tpu_torch import timeline as tl
+
+    writer = tl.python_writer() if python else contextlib.nullcontext()
+    with writer:
+        if not tl.timeline_init(os.path.join(root, f"cost_{int(python)}_{threads}.json")):
+            raise AssertionError("scaling-trace (c): a timeline was already open")
+        stop = threading.Event()
+
+        def other():
+            while not stop.is_set():
+                tl.timeline_record_complete("other", "BENCH", 0, 1, tid=1)
+
+        others = [threading.Thread(target=other) for _ in range(threads - 1)]
+        for t in others:
+            t.start()
+        times = []
+        clock = time.perf_counter_ns
+        for _ in range(calls):
+            t0 = clock()
+            tl.timeline_record_complete("span", "BENCH", 0, 1)
+            times.append(clock() - t0)
+        stop.set()
+        for t in others:
+            t.join()
+        tl.timeline_shutdown()
+    return statistics.median(times) / 1e3
+
+
+def sc_native_writer(device, sm, images, labels, root, smi=""):
+    """(c) The native writer: in use on this machine; an ATC/int8 run through
+    it and through the Python writer give the same event names and counts;
+    the record cost of each, one and two threads. Returns the native run's
+    directory and the costs."""
+    from collections import Counter
+
+    from bluefog_tpu_torch import timeline as tl
+
+    if not tl.using_native_writer():
+        raise AssertionError("scaling-trace (c): the timeline writes through the Python writer "
+                             "on this machine (no g++?)")
+    native = sc_timeline_run(device, sm, images, labels, os.path.join(root, "native"), False)
+    python = sc_timeline_run(device, sm, images, labels, os.path.join(root, "python"), True)
+    names = Counter(e["name"] for e in native), Counter(e["name"] for e in python)
+    if names[0] != names[1]:
+        raise AssertionError(f"scaling-trace (c): the native and Python timelines differ: "
+                             f"{names[0] - names[1]} / {names[1] - names[0]}")
+    sc_log(f"(c) native writer in use; {len(native)} events in both timelines, "
+           f"{len(names[0])} names, the same counts")
+    costs = {}
+    for python_writer in (False, True):
+        for threads in (1, 2):
+            costs[(python_writer, threads)] = sc_record_cost(root, python_writer, threads)
+    sc_log("(c) host us a timeline_record_complete (median of "
+           f"{SC_RECORD_CALLS} calls): native {costs[(False, 1)]:.3f} alone, "
+           f"{costs[(False, 2)]:.3f} beside a second recording thread; Python "
+           f"{costs[(True, 1)]:.3f} alone, {costs[(True, 2)]:.3f} beside a second; on {smi}")
+    return os.path.join(root, "native"), costs
+
+
+def sc_tools(run_dir):
+    """(d) ``tools/trace_merge.py --report`` and ``tools/metrics_report.py
+    --flight`` on (c)'s native run: both exit 0, 8 rank lanes, and every
+    step's rounds ``len(plan.rounds)`` of the default Exp(8) plan."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    report_path = os.path.join(run_dir, "report.json")
+    outs = {}
+    for name, args in (("trace_merge", ["tools/trace_merge.py", run_dir, "--report",
+                                        report_path]),
+                       ("metrics_report", ["tools/metrics_report.py", "--flight", run_dir,
+                                           "--json"])):
+        out = subprocess.run([sys.executable, *args], capture_output=True, text=True,
+                             timeout=120, cwd=here, env=env)
+        if out.returncode != 0:
+            raise AssertionError(f"scaling-trace (d): {name} exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        outs[name] = out.stdout
+    with open(report_path) as f:
+        report = json.load(f)
+    with open(os.path.join(run_dir, "merged_trace.json")) as f:
+        merged = json.load(f)
+    lanes = sorted(e["pid"] for e in merged["traceEvents"]
+                   if e.get("ph") == "M" and e["args"]["name"].startswith("rank "))
+    want = len(plan_from_topology(topo.ExponentialGraph(SIZE)).rounds)
+    rounds = [s["rounds"] for s in report["per_step_rounds"]]
+    if lanes != list(range(SIZE)) or report["ranks"] != list(range(SIZE)):
+        raise AssertionError(f"scaling-trace (d): rank lanes {lanes}, want 0..{SIZE - 1}")
+    if len(rounds) != sum(SC_TIMELINE_STEPS) or any(r != want for r in rounds):
+        raise AssertionError(f"scaling-trace (d): per-step rounds {rounds}, want {want} on "
+                             f"each of {sum(SC_TIMELINE_STEPS)} steps")
+    flight_report = json.loads(outs["metrics_report"])
+    sc_log(f"(d) trace_merge: {len(lanes)} rank lanes, per-step rounds {rounds} (the default "
+           f"Exp(8) plan's {want}); metrics_report --flight: {len(flight_report['dumps'])} "
+           f"dump(s), {flight_report['dumps'][0]['events']} events")
+    return report
+
+
+def phase_scaling_trace(device, sm, images, labels, root=SC_ROOT, smi="", width=RESNET50_PARAMS,
+                        ns=SC_NS):
+    """Phase 11k: (a) ``gossip_comm_stats`` on the card (:func:`sc_comm_stats`),
+    (b) weak scaling of the ATC/int8 ResNet50 through B1 and B2
+    (:func:`sc_weak_scaling`), (c) the native timeline writer
+    (:func:`sc_native_writer`), (d) the trace tools on (c)'s artifacts
+    (:func:`sc_tools`); files under ``root``, deleted. Returns ``(launch
+    counts of (b), numbers)``."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    stats = sc_comm_stats(device, width)
+    t_a = time.perf_counter()
+    counts, rows = sc_weak_scaling(device, sm, images, labels, ns=ns, smi=smi)
+    t_b = time.perf_counter()
+    run_dir, costs = sc_native_writer(device, sm, images, labels, root, smi=smi)
+    sc_tools(run_dir)
+    shutil.rmtree(root, ignore_errors=True)
+    bft.init(size=SIZE, device=device)
+    sc_log(f"phase in {time.perf_counter() - t0:.1f} s ((a) {t_a - t0:.1f}, (b) {t_b - t_a:.1f}, "
+           f"(c) and (d) {time.perf_counter() - t_b:.1f})")
+    return counts, {"stats": stats, "weak": rows, "record_us": costs}
+
+
+def run_scaling_trace_alone():
+    """``python3 chip_smoke.py --phase scaling-trace``: phase 11k alone on
     the full-width ResNet50 (the wire kernels built first); its gates as in
     the whole run, its lines and its launch counts. Prints no result line."""
     device = torch.device("cuda")
@@ -7213,11 +7586,10 @@ def run_transport_fleet_alone():
     _build.wire_library()
     bft.init(size=SIZE)
     sm, images, labels = build_trainer(device)
-    counts, _numbers = phase_transport_fleet(device, sm, images, labels, smi=smi)
-    for path in ("transport-fleet a", "transport-fleet"):
-        missing = [k for k in PATH_KERNELS[path] if counts[path][k] == 0]
-        if missing:
-            raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
+    counts, _numbers = phase_scaling_trace(device, sm, images, labels, smi=smi)
+    missing = [k for k in PATH_KERNELS["scaling-trace"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the scaling-trace path launched no {missing} kernel: {counts}")
     return 0
 
 
@@ -8122,17 +8494,17 @@ def planted_faults(root="build/faults"):
 
 
 def run_health_relay_alone():
-    """``python3 chip_smoke.py --phase health-relay``: phase 11d alone on
-    the full-width ResNet50 (the wire kernels built first); its gates as in
-    the whole run, its lines and the launch counts of its parts. Prints no
-    result line."""
+    """``python3 chip_smoke.py --phase health-relay``: phase 11d alone on the
+    full-width ResNet50 at ``PATH_TRAINER``'s depth (the wire kernels built
+    first); its gates as in the whole run, its lines and the launch counts
+    of its parts. Prints no result line."""
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.build(["wire_kernels"])
     _build.wire_library()
     bft.init(size=SIZE)
-    sm, images, labels = build_trainer(device)
+    sm, images, labels = build_trainer(device, **PATH_TRAINER)
     t0 = time.perf_counter()
     counts, _numbers = phase_health_relay(device, sm, images, labels, smi=smi)
     for path in ("health relay a", "health relay b"):
@@ -8144,17 +8516,17 @@ def run_health_relay_alone():
 
 
 def run_federation_slo_alone():
-    """``python3 chip_smoke.py --phase federation-slo``: phase 11e alone on
-    the full-width ResNet50 (the wire kernels built first); its gates as in
-    the whole run, its lines and the launch counts of its parts. Prints no
-    result line."""
+    """``python3 chip_smoke.py --phase federation-slo``: phase 11e alone on the
+    full-width ResNet50 at ``PATH_TRAINER``'s depth (the wire kernels built
+    first); its gates as in the whole run, its lines and the launch counts
+    of its parts. Prints no result line."""
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.build(["wire_kernels"])
     _build.wire_library()
     bft.init(size=SIZE)
-    sm, images, labels = build_trainer(device)
+    sm, images, labels = build_trainer(device, **PATH_TRAINER)
     t0 = time.perf_counter()
     counts, _numbers = phase_federation_slo(device, sm, images, labels, smi=smi)
     for path in ("federation", "slo canary"):
@@ -8167,15 +8539,16 @@ def run_federation_slo_alone():
 
 def run_autotune_alone():
     """``python3 chip_smoke.py --phase autotune``: phase 11f alone on the
-    full-width ResNet50 (the wire kernels built first); its gates as in the
-    whole run, its lines and its launch counts. Prints no result line."""
+    full-width ResNet50 at ``PATH_TRAINER``'s depth (the wire kernels built
+    first); its gates as in the whole run, its lines and its launch counts.
+    Prints no result line."""
     device = torch.device("cuda")
     smi = nvidia_smi_line()
     log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.build(["wire_kernels"])
     _build.wire_library()
     bft.init(size=SIZE)
-    sm, images, labels = build_trainer(device)
+    sm, images, labels = build_trainer(device, **PATH_TRAINER)
     t0 = time.perf_counter()
     counts, _numbers = phase_autotune(device, sm, images, labels, smi=smi)
     missing = [k for k in PATH_KERNELS["autotune"] if counts[k] == 0]
@@ -8215,12 +8588,21 @@ def main():
         return run_transport_topology_alone()
     if sys.argv[1:] == ["--phase", "transport-fleet"]:
         return run_transport_fleet_alone()
+    if sys.argv[1:] == ["--phase", "scaling-trace"]:
+        return run_scaling_trace_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log("device", f"{kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
                   f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    laps, t_lap = [], [t_start]
+
+    def lap(name):
+        """Closes the phase ``name``: its seconds since the last lap."""
+        now = time.perf_counter()
+        laps.append(f"{name} {now - t_lap[0]:.1f}")
+        t_lap[0] = now
 
     t0 = time.perf_counter()
     names = ["wire_kernels", "flash_kernels", "flash_sm90"]
@@ -8236,23 +8618,30 @@ def main():
                                        "Performance Loss", "setmaxnreg", "warning")):
                 log("build", f"{name}: {line.strip()}")
 
+    lap("build")
     bft.init(size=SIZE)
     phase_parity(device)
     phase_consensus(device)
     phase_ef(device)
+    lap("parity, consensus, ef")
     counts = {"facade": phase_facade(device, memory_rate(kind))}
     torch.cuda.empty_cache()
+    lap("facade")
 
     sm, images, labels = build_trainer(device)
+    # the ResNet50 of the phases that check the subsystems (7a, 10, 11a-11j)
+    p_sm, _, _ = build_trainer(device, **PATH_TRAINER)
     if sm.n_params != RESNET50_PARAMS or sm.width != RESNET50_WIDTH:
         raise AssertionError(f"ResNet50 has {sm.n_params} parameters ({sm.width} packed), "
                              f"expected {RESNET50_PARAMS} ({RESNET50_WIDTH})")
     counts["train-step"], _tiers = phase_train_step(device, sm, images, labels, smi=smi)
     torch.cuda.empty_cache()
+    lap("train-step")
     t0 = time.perf_counter()
-    counts["observability"], _obs = phase_observability(device, sm, images, labels, smi=smi)
+    counts["observability"], _obs = phase_observability(device, p_sm, images, labels, smi=smi)
     log("observability", f"phase in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    lap("observability")
     trainer = Trainer(device, sm, images, labels)
     counts.update(phase_train(trainer))
     med = trainer.tiers["atc/int8"]["median"]
@@ -8265,53 +8654,75 @@ def main():
     phase_profile(device, "resnet50", sm, images, labels, params)
     del trainer
     torch.cuda.empty_cache()
-    counts["async"], _runs = phase_async(device, sm, images, labels, smi=smi)
+    lap("train, profile")
+    counts["async"], _runs = phase_async(device, p_sm, images, labels, smi=smi)
     phase_async_check(device)
     torch.cuda.empty_cache()
+    lap("async, async check")
     reset_launch_counts()
-    phase_checkpoint(device, sm, images, labels, smi=smi)
+    phase_checkpoint(device, p_sm, images, labels, smi=smi)
     counts["checkpoint"] = launch_counts()
     torch.cuda.empty_cache()
+    lap("checkpoint")
     t0 = time.perf_counter()
-    counts["elastic"], _elastic = phase_elastic(device, sm, images, labels, smi=smi)
+    counts["elastic"], _elastic = phase_elastic(device, p_sm, images, labels, smi=smi)
     elastic_s = time.perf_counter() - t0
+    lap("elastic")
     t0 = time.perf_counter()
-    obsv_counts, _obsv = phase_observatories(device, sm, images, labels, memory_rate(kind),
+    obsv_counts, _obsv = phase_observatories(device, p_sm, images, labels, memory_rate(kind),
                                              smi=smi)
     counts.update(obsv_counts)
     observatories_s = time.perf_counter() - t0
+    lap("observatories")
     t0 = time.perf_counter()
-    hr_counts, _hr = phase_health_relay(device, sm, images, labels, smi=smi)
+    hr_counts, _hr = phase_health_relay(device, p_sm, images, labels, smi=smi)
     counts.update(hr_counts)
     log("health-relay", f"phase in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    lap("health-relay")
     t0 = time.perf_counter()
-    fs_counts, _fs = phase_federation_slo(device, sm, images, labels, smi=smi)
+    fs_counts, _fs = phase_federation_slo(device, p_sm, images, labels, smi=smi)
     counts.update(fs_counts)
     log("federation-slo", f"phase in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    lap("federation-slo")
     t0 = time.perf_counter()
-    counts["autotune"], _at = phase_autotune(device, sm, images, labels, smi=smi)
+    counts["autotune"], _at = phase_autotune(device, p_sm, images, labels, smi=smi)
     log("autotune", f"phase in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    tp_counts, _tp = phase_transport(device, sm, images, labels, smi=smi)
+    lap("autotune")
+    tp_counts, _tp = phase_transport(device, p_sm, images, labels, smi=smi,
+                                     trainer_kw=PATH_TRAINER)
     counts.update(tp_counts)
     torch.cuda.empty_cache()
-    ts_counts, _ts = phase_transport_state(device, sm, images, labels, smi=smi)
+    lap("transport")
+    ts_counts, _ts = phase_transport_state(device, p_sm, images, labels, smi=smi,
+                                           trainer_kw=PATH_TRAINER)
     counts.update(ts_counts)
     torch.cuda.empty_cache()
-    tt_counts, _tt = phase_transport_topology(device, sm, images, labels, smi=smi)
+    lap("transport-state")
+    tt_counts, _tt = phase_transport_topology(device, p_sm, images, labels, smi=smi,
+                                              trainer_kw=PATH_TRAINER)
     counts.update(tt_counts)
     torch.cuda.empty_cache()
-    tf_counts, _tf = phase_transport_fleet(device, sm, images, labels, smi=smi)
+    lap("transport-topology")
+    tf_counts, _tf = phase_transport_fleet(device, p_sm, images, labels, smi=smi,
+                                           trainer_kw=PATH_TRAINER)
     counts.update(tf_counts)
+    del p_sm
+    torch.cuda.empty_cache()
+    lap("transport-fleet")
+    counts["scaling-trace"], _sc = phase_scaling_trace(device, sm, images, labels, smi=smi)
     del images, labels
     torch.cuda.empty_cache()
+    lap("scaling-trace")
     rows, lines = phase_kernels(device, params, memory_rate(kind))
     del sm, params
     torch.cuda.empty_cache()
+    lap("kernels")
 
     flash_errs = phase_flash_parity(device)
+    lap("flash-parity")
     sm, tokens, _ = build_lm(device)
     if sm.n_params != LM_PARAMS:
         raise AssertionError(f"TransformerLM has {sm.n_params} parameters, expected {LM_PARAMS}")
@@ -8340,21 +8751,27 @@ def main():
     phase_profile(device, "transformer", sm, tokens, tokens, trainer.params, lr=0.01)
     del trainer
     torch.cuda.empty_cache()
+    lap("transformer, profile")
     counts["zero"], _zero = phase_zero(device, sm, tokens, smi=smi)
     torch.cuda.empty_cache()
+    lap("zero")
     t0 = time.perf_counter()
     counts["elastic zero"] = phase_elastic_zero(device, sm, tokens, smi=smi)
     elastic_s += time.perf_counter() - t0
     log("elastic", f"phase in {elastic_s:.1f} s (parts a, b, d-g and c)")
+    lap("elastic c")
     t0 = time.perf_counter()
     counts["observatories c"] = phase_observatories_lm(device, sm, tokens, smi=smi)
     observatories_s += time.perf_counter() - t0
     log("observatories", f"phase in {observatories_s:.1f} s (parts a, b, d and c)")
     del sm, tokens
     torch.cuda.empty_cache()
+    lap("observatories c")
     phase_zero_check(device)
+    lap("zero check")
 
     counts["dryrun"] = phase_dryrun(device)
+    lap("dryrun")
     model, lc_tokens, lc_targets = build_long_context(device)
     counts["long-context"], lc_routes, lc_steps, lc = phase_long_context(
         device, model, lc_tokens, lc_targets)
@@ -8375,12 +8792,14 @@ def main():
                  f"{100 * lc.get('flash_bwd_share', float('nan')):.1f}%; on {smi}")
     del model, lc_tokens, lc_targets
     torch.cuda.empty_cache()
+    lap("long-context")
     for path, kernel_names in PATH_KERNELS.items():
         missing = [k for k in kernel_names if counts[path][k] == 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing} kernel: {counts[path]}")
 
     phase_examples(device, smi=smi)
+    lap("examples")
 
     flash_rows, flash_lines = phase_flash_kernels(device, flash_errs, memory_rate(kind))
     lse_entries, split_row, lse_lines = phase_lse_kernels(
@@ -8395,7 +8814,9 @@ def main():
         row["launches"] = launches[row["name"]]
     for line in lines:
         log("kernels", f"{line}; on {smi}")
-    log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
+    lap("flash and lse kernels")
+    log("done", f"all phases in {time.perf_counter() - t_start:.1f} s; seconds a phase: "
+                f"{', '.join(laps)}")
     print("kernels: " + json.dumps([r["name"] for r in rows]))
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1629,3 +1629,24 @@ def test_two_processes_run_the_fleet_samplers_as_the_stacked_run(cuda, tmp_path)
         assert got["census"] == census, (p, got["census"], census)
         for k in ("encode", "decode_accumulate", "decode"):
             assert got["launches"][k] > 0, (p, got["launches"])
+
+
+@pytest.mark.cuda
+def test_weak_scaling_of_the_int8_train_step_launches_and_matches_plain(cuda):
+    """Phase 11k (b) at a small depth: ``scaling.weak_scaling_times`` over
+    ATC int8 ``make_train_step`` of the tiny ResNet at 1, 2 and 4 workers on
+    the card; each step launches one ``encode`` and one
+    ``decode_accumulate``, and at n >= 2 the first step's combine is bitwise
+    the plain versions' on a CPU copy of its input (the phase's gates)."""
+    from chip_smoke import build_trainer, sc_weak_scaling
+
+    bft.init(device="cuda")
+    try:
+        sm, images, labels = build_trainer(cuda, stage_sizes=[1, 1, 1, 1], num_filters=8,
+                                           batch=2, image=32, num_classes=10)
+        counts, rows = sc_weak_scaling(cuda, sm, images, labels, ns=(1, 2, 4), steps=2,
+                                       warmup=1)
+    finally:
+        bft.shutdown()
+    assert [r["n"] for r in rows] == [1, 2, 4] and rows[0]["efficiency"] == 1.0
+    assert counts["encode"] == counts["decode_accumulate"] == 3 * 3

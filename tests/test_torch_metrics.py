@@ -284,6 +284,24 @@ def test_allgather_wire_telemetry_matches_jax(wire, monkeypatch):
     assert got["bluefog.allgather.wire_bytes"] == want["bluefog.allgather.wire_bytes"]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wire", ["int8", "int4", "bf16"])
+def test_allgather_wire_counter_is_the_plan_wire_bytes(wire, dtype, monkeypatch):
+    """The facade's ``bluefog.allgather.wire_bytes`` goes through
+    ``CommPlan.wire_bytes``: one call adds the plan's rounds times one
+    round's wire payload, as the JAX facade's counter does."""
+    from bluefog_tpu_torch.scaling import wire_payload_bytes
+
+    monkeypatch.setenv("BLUEFOG_METRICS", "1")
+    x = torch.from_numpy(np.random.RandomState(7).randn(SIZE, 600).astype(np.float32)).to(dtype)
+    before = metrics.counter("bluefog.allgather.wire_bytes").value
+    bft.neighbor_allgather(x, compression=wire)
+    added = metrics.counter("bluefog.allgather.wire_bytes").value - before
+    plan = bft.get_context().static_plan()
+    assert added == plan.wire_bytes(600, x.element_size(), wire=wire)
+    assert added == len(plan.rounds) * wire_payload_bytes(600, x.element_size(), wire)
+
+
 # -- counters: deltas equal to JAX's --------------------------------------------------
 
 

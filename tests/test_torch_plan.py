@@ -91,3 +91,35 @@ def test_context_neighbor_queries_match(cpu_devices):
     finally:
         bf.shutdown()
         bft.shutdown()
+
+
+WIRES = [None, "bf16", "int8", "int8_ef", "int4", "int4_ef"]
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("size", [4, 8])
+@pytest.mark.parametrize("name", sorted(GENERATORS))
+def test_round_sources_and_destinations_equal_jax(name, size, weighted):
+    jgen, tgen = GENERATORS[name]
+    jp = jplan.plan_from_topology(jgen(size), weighted=weighted)
+    tp = tplan.plan_from_topology(tgen(size), weighted=weighted)
+    assert [r.sources for r in tp.rounds] == [r.sources for r in jp.rounds]
+    assert [r.destinations for r in tp.rounds] == [r.destinations for r in jp.rounds]
+    assert all(isinstance(r.sources, tuple) and isinstance(r.destinations, tuple)
+               for r in tp.rounds)
+
+
+@pytest.mark.parametrize("wire", WIRES)
+@pytest.mark.parametrize("size", [4, 8])
+@pytest.mark.parametrize("name", sorted(GENERATORS))
+def test_wire_bytes_equal_jax(name, size, wire):
+    """Every wire tier, whole and ragged 512-element blocks, f32 and bf16
+    payloads, the default itemsize."""
+    jgen, tgen = GENERATORS[name]
+    jp = jplan.plan_from_topology(jgen(size))
+    tp = tplan.plan_from_topology(tgen(size))
+    for n_elems in (0, 1, 512, 70_123, 25_557_032):
+        for itemsize in (4, 2):
+            assert tp.wire_bytes(n_elems, itemsize, wire=wire) == jp.wire_bytes(
+                n_elems, itemsize, wire=wire)
+        assert tp.wire_bytes(n_elems, wire=wire) == jp.wire_bytes(n_elems, wire=wire)

@@ -327,3 +327,130 @@ def test_profiler_tier(tmp_path):
     trace = json.load(open(prof))
     assert trace["traceEvents"]
     assert json.load(open(path))
+
+
+# -- the native writer --------------------------------------------------------------
+
+
+def _record_sequence(w, path):
+    """One call of each record kind through a writer (the native library or
+    a ``_PyWriter``), names with a quote, a backslash and a control
+    character; returns the parsed records without ``ts`` and ``dur``."""
+    assert w.bf_timeline_start(str(path).encode())
+    w.bf_timeline_record(b'sp"an\\', b"CAT", b"B", 0, 1)
+    w.bf_timeline_record(b"line\nbreak\ttab", b"STALL", b"i", 2, 0)
+    w.bf_timeline_record_counter(b"ctr", b"COUNTER", 0, 0, 1.5e-7)
+    w.bf_timeline_record_counter(b"big", b"COUNTER", 3, 4, 123456789.0)
+    w.bf_timeline_record_complete(b"op", b"ENQUEUE", 0, 0, 17, 42)
+    w.bf_timeline_record(b'sp"an\\', b"", b"E", 0, 1)
+    w.bf_timeline_stop()
+    return [{k: v for k, v in e.items() if k not in ("ts", "dur")}
+            for e in json.load(open(path))]
+
+
+def test_native_writer_builds():
+    """The C++ writer compiles and loads here, where ``g++`` exists (the
+    JAX package's ``tests/test_timeline.py::test_native_writer_builds``)."""
+    assert tl.using_native_writer()
+    import ctypes
+
+    assert isinstance(tl._load_native(), ctypes.CDLL)
+
+
+def test_native_records_equal_python_and_jax_native(tmp_path):
+    """The same calls through the port's native writer, its ``_PyWriter``
+    and the JAX package's native writer give the same records."""
+    import ctypes
+
+    from bluefog_tpu import timeline as jtl
+    from bluefog_tpu_torch import _build
+
+    jlib = jtl._load_native()
+    assert isinstance(jlib, ctypes.CDLL)
+    native = _record_sequence(_build.timeline_library(), tmp_path / "native.json")
+    python = _record_sequence(tl._PyWriter(), tmp_path / "python.json")
+    jax_native = _record_sequence(jlib, tmp_path / "jax.json")
+    assert native == python == jax_native
+    assert native[1]["name"] == "linebreaktab" and native[0]["name"] == 'sp"an\\'
+    assert [e["ph"] for e in native] == ["B", "i", "C", "C", "X", "E"]
+
+
+def test_native_writer_concurrent_records_stay_valid_json(tmp_path):
+    from bluefog_tpu_torch import _build
+
+    w = _build.timeline_library()
+    path = tmp_path / "native.json"
+    assert w.bf_timeline_start(str(path).encode())
+
+    def spam(tid):
+        for _ in range(200):
+            w.bf_timeline_record(b"span", b"CAT", b"B", 0, tid)
+            w.bf_timeline_record_counter(b"ctr", b"CAT", 0, tid, 1.5)
+            w.bf_timeline_record(b"span", b"CAT", b"E", 0, tid)
+
+    threads = [threading.Thread(target=spam, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    w.bf_timeline_stop()
+    assert len(json.load(open(path))) == 4 * 200 * 3
+
+
+@pytest.mark.parametrize("writer", ["native", "python"])
+def test_counter_nonfinite_guard_on_each_writer(tmp_path, writer):
+    import contextlib
+
+    hook = tl.python_writer() if writer == "python" else contextlib.nullcontext()
+    path = str(tmp_path / "nonfinite.json")
+    with hook:
+        assert tl.using_native_writer() == (writer == "native")
+        assert bft.timeline_init(path)
+        assert bft.timeline_record_counter("ok", 1.0) is True
+        for bad in (float("nan"), float("inf"), float("-inf")):
+            assert bft.timeline_record_counter("bad", bad) is False
+        assert bft.timeline_shutdown()
+    counters = [e for e in json.load(open(path)) if e.get("ph") == "C"]
+    assert {e["name"] for e in counters} == {"ok"}
+    assert tl.using_native_writer()
+
+
+def test_python_writer_hook_restores_and_refuses_an_open_timeline(tmp_path):
+    assert bft.timeline_init(str(tmp_path / "open.json"))
+    with pytest.raises(RuntimeError, match="open"):
+        with tl.python_writer():
+            pass
+    assert bft.timeline_shutdown()
+    with tl.python_writer():
+        assert not tl.using_native_writer()
+    assert tl.using_native_writer()
+
+
+def test_python_writer_only_without_gxx_or_a_writable_build_dir(monkeypatch, tmp_path):
+    """JAX's rule for the fallback: no ``g++``, or no writable build
+    directory; a ``g++`` whose build fails raises with its output."""
+    from bluefog_tpu_torch import _build
+
+    monkeypatch.setattr(tl, "_writer", None)
+    monkeypatch.setattr(_build, "find_cxx", lambda: None)
+    assert not tl.using_native_writer()
+    monkeypatch.setattr(tl, "_writer", None)
+    monkeypatch.undo()
+    monkeypatch.setattr(tl, "_writer", None)
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    monkeypatch.setattr(_build, "build_dir", lambda: blocker / "torch_kernels")
+    assert not tl.using_native_writer()
+    monkeypatch.setattr(tl, "_writer", None)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "timeline_writer.cc").write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
+    _build.timeline_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="timeline_writer.cc"):
+            tl.using_native_writer()
+    finally:
+        _build.timeline_library.cache_clear()
+        monkeypatch.setattr(tl, "_writer", None)
