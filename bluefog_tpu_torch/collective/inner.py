@@ -223,8 +223,9 @@ def _from_chunk_major(cm: torch.Tensor, t: torch.Tensor) -> None:
 
 
 def _weight_dtype(x: torch.Tensor) -> torch.dtype:
-    """Float inputs combine in their own dtype; integers in float32."""
-    return x.dtype if x.is_floating_point() else torch.float32
+    """Float and complex inputs combine in their own dtype (JAX's
+    ``inexact``); integers in float32."""
+    return x.dtype if x.is_floating_point() or x.is_complex() else torch.float32
 
 
 def _multi_process():
@@ -1132,13 +1133,14 @@ def weighted_combine_quantized_operands(
     (the chunk's transfers are the sender rows that launch reads). A
     column slice that is not contiguous (a bucket) takes that copy too.
 
-    A float64 ``x`` is refused: the JAX package holds no float64."""
+    A float64 or complex ``x`` is refused: the JAX package quantizes
+    neither."""
     if wire not in ("int8", "bf16", "int4"):
         raise ValueError(
             f"wire must be 'int8', 'bf16', or 'int4', got {wire!r}"
         )
     wdt = _weight_dtype(x)
-    if wdt == torch.float64:
+    if wdt == torch.float64 or wdt.is_complex:
         raise ValueError(
             "the quantized wire combines float32, bfloat16 or float16 "
             f"payloads (integers in float32), got {x.dtype}"

@@ -315,14 +315,26 @@ def neighbor_allreduce_nonblocking(
     compression: Optional[str] = None,
     name: Optional[str] = None,
 ) -> int:
+    _check_compression(compression)
+    ctx = ctx_mod.get_context()
+    x = _check_worker_tensor(ctx, x)
+    plan = _resolve_plan(ctx, self_weight, src_weights, dst_weights, enable_topo_check)
+    return _combine_nonblocking(x, plan, compression)
+
+
+def _check_compression(compression: Optional[str]) -> None:
+    """Refuse a ``neighbor_allreduce`` wire other than None, int8, bf16
+    or int4."""
     if compression not in _COMPRESSIONS:
         raise ValueError(
             "compression must be None, 'int8', 'bf16', or 'int4', got "
             f"{compression!r}"
         )
-    ctx = ctx_mod.get_context()
-    x = _check_worker_tensor(ctx, x)
-    plan = _resolve_plan(ctx, self_weight, src_weights, dst_weights, enable_topo_check)
+
+
+def _combine_nonblocking(x, plan: CommPlan, compression: Optional[str]) -> int:
+    """The combine of a checked worker tensor over a resolved plan, exact
+    or on the ``compression`` wire."""
     if compression is None:
         return _new_handle(_enqueue("neighbor_allreduce", inner.neighbor_allreduce, x, plan))
     return _new_handle(_enqueue("neighbor_allreduce", inner.weighted_combine_quantized, x,

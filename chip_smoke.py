@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one line each; any failure exits non-zero. The main path's phases
-(7, 8, 9 and 11k) train the whole ResNet50; the phases that check the
+(7, 8, 9, 11k and 11l) train the whole ResNet50; the phases that check the
 subsystems on it (7a, 10, 11a-11j) train it cut to one block a stage
 (``PATH_TRAINER``: the same widths, 64 images of 224x224 a worker, the same
 tiers, steps and gates, about a third of the host's launches a step), which
@@ -377,6 +377,26 @@ seconds of each phase.
                ``tools/metrics_report.py --flight`` on (c)'s native run: exit
                0, 8 rank lanes, every step's rounds the Exp(8) plan's; files
                under ``build/scaling_trace``, deleted;
+11l. frontend -- the torch frontend (``bluefog_tpu_torch.torch``,
+               :func:`phase_frontend` states every gate): (a) its ops on
+               ``[8, 25 557 504]`` f32 over Exp(8): ``neighbor_allreduce``
+               exact and on the bf16, int8 and int4 wires, its forward
+               bitwise the facade's (int8 and int4: one ``encode`` and one
+               ``decode_accumulate`` a call), its backward launching no wire
+               kernel and bitwise the exact combine over ``W^T`` (within
+               1e-6 of W's product in float64 on 2**20 columns);
+               ``allreduce`` and ``broadcast``, forward and backward,
+               bitwise the facade's calls composed by hand; (b) the whole
+               ResNet50 (64 images a worker, bf16 compute) trained by the
+               user's ``torch.optim.SGD(lr=0.1, momentum=0.9)`` under
+               ``StepLR(2, 0.5)`` wrapped by
+               ``DistributedNeighborAllreduceOptimizer`` on the int8 wire,
+               1 warm-up and 3 timed steps: one ``encode`` and one
+               ``decode_accumulate`` a step, the parameters bitwise the same
+               steps composed by hand, within ``FE_FUNC_TOL`` of the
+               functional optimizer over the first two steps, a
+               ``state_dict`` round trip; 1 + 2 steps of the wrapped
+               gradient allreduce against the functional one;
 12. kernels  -- each wire kernel against its plain version at the main
                path's shapes (the full packed parameter buffer), timed with
                CUDA events beside its memory bound;
@@ -479,9 +499,10 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --phase transport-topology
     python3 chip_smoke.py --phase transport-fleet
     python3 chip_smoke.py --phase scaling-trace
+    python3 chip_smoke.py --phase frontend
 
-run phase 11d, 11e, 11f, 11g, 11h, 11i, 11j or 11k alone on the ResNet50 of
-the whole run (11d-11j at ``PATH_TRAINER``'s depth; the wire kernels built
+run phase 11d, 11e, 11f, 11g, 11h, 11i, 11j, 11k or 11l alone on the ResNet50
+of the whole run (11d-11j at ``PATH_TRAINER``'s depth; the wire kernels built
 first) and print no result line. Phase
 11g's processes run ``python3 chip_smoke.py --transport-child <config>``,
 phase 11h's ``python3 chip_smoke.py --transport-state-child <config>``,
@@ -496,6 +517,7 @@ every planted fault fails some case.
 """
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -510,6 +532,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 import bluefog_tpu_torch as bft
+import bluefog_tpu_torch.torch as bftt
 from bluefog_tpu_torch import _build, flight, metrics, watchdog
 from bluefog_tpu_torch import topology as topo
 from bluefog_tpu_torch.collective import inner, kernels
@@ -690,6 +713,8 @@ PATH_KERNELS = {
     # the scaling-trace phase's weak scaling: the ATC/int8 steps at 1, 2, 4
     # and 8 workers
     "scaling-trace": ("encode", "decode_accumulate"),
+    # the frontend phase's wrapped torch.optim.SGD on the int8 wire
+    "frontend": ("encode", "decode_accumulate"),
 }
 
 
@@ -7593,6 +7618,335 @@ def run_scaling_trace_alone():
     return 0
 
 
+# phase 11l, the torch frontend: (a) the wires of its neighbor_allreduce; the
+# columns of the float64 check of its adjoint, and that check's tolerance, of
+# max |g|
+FE_WIRES = (None, "bf16", "int8", "int4")
+FE_SLICE = 1 << 20
+FE_ADJ_TOL = 1e-6
+# (b) the wrapped SGD's warm-up and timed steps, the gradient allreduce's
+# steps, and the steps held against the functional optimizer (before StepLR
+# halves the rate), which is fed the wrapped run's gradients. The functional
+# SGD rounds ``-lr * trace`` and the add apart, torch's SGD adds ``alpha *
+# buf`` in one fused operation: a ulp of a parameter a step. On the int8
+# wire such a ulp can move a value across a rounding boundary, one quantum
+# (1/127 of its block's largest value) at most: the tolerance, of the
+# largest parameter, and the share of the elements off by more than FE_NEAR
+# of it
+FE_WARMUP, FE_TIMED = 1, 3
+FE_GRAD_STEPS = 3
+FE_FUNC_STEPS = 2
+FE_FUNC_TOL = {"int8": 1 / 127, "fp32": 1e-6}
+FE_NEAR, FE_NEAR_SHARE = 1e-6, 1e-3
+
+
+def host_copy(t):
+    """A copy of ``t`` in host memory (``.cpu()`` of a CPU tensor is the
+    tensor itself)."""
+    return t.to("cpu", copy=True)
+
+
+def fe_log(msg):
+    log("frontend", msg)
+
+
+def fe_same(name, got, want):
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(bits(got),
+                                                                             bits(want)):
+        diff = (float((got.double() - want.double()).abs().max())
+                if got.shape == want.shape else float("nan"))
+        raise AssertionError(f"frontend {name}: not bitwise equal (max diff {diff:.3g})")
+
+
+def fe_wire_launches(name, counts, wire, device):
+    """Gate: one ``encode`` and one ``decode_accumulate`` on int8 and int4
+    on the card, no wire kernel otherwise (the CPU launches none)."""
+    want = {k: 0 for k in counts}
+    if wire in ("int8", "int4") and device.type == "cuda":
+        want.update(encode=1, decode_accumulate=1)
+    if counts != want:
+        raise AssertionError(f"frontend {name}: launches {counts}, expected {want}")
+
+
+def fe_ops(device, n=RESNET50_WIDTH):
+    """(a): the frontend's ops on ``[8, n]`` f32 over the default Exp(8)
+    plan against the facade's calls on the same input; returns the times."""
+    from bluefog_tpu_torch.collective.plan import plan_from_matrix
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn(SIZE, n, generator=gen, device=device) * 5.0
+    g = torch.randn(SIZE, n, generator=gen, device=device)
+    w = bft.get_context().static_plan().weight_matrix()
+    adjoint = inner.neighbor_allreduce(g, plan_from_matrix(w.T))
+    cols = min(FE_SLICE, n)
+    ref64 = torch.from_numpy(w).to(device) @ g[:, :cols].double()
+    err = float((adjoint[:, :cols].double() - ref64).abs().max())
+    scale = float(g.abs().max())
+    if not err <= FE_ADJ_TOL * scale:
+        raise AssertionError(f"frontend: the transposed combine is {err:.3g} from W g in "
+                             f"float64 (> {FE_ADJ_TOL} * {scale:.3g})")
+    del ref64
+    times = {}
+    for wire in FE_WIRES:
+        name = f"neighbor_allreduce/{wire or 'fp32'}"
+        xg = x.clone().requires_grad_(True)
+        sync(device)
+        reset_launch_counts()
+        y = bftt.neighbor_allreduce(xg, compression=wire)
+        sync(device)
+        fe_wire_launches(f"{name} forward", kernels.launch_counts(), wire, device)
+        fe_same(f"{name} forward", y.detach(), bft.neighbor_allreduce(x, compression=wire))
+        reset_launch_counts()
+        y.backward(g)
+        sync(device)
+        fe_wire_launches(f"{name} backward", kernels.launch_counts(), None, device)
+        fe_same(f"{name} backward", xg.grad, adjoint)
+        del y, xg
+        with torch.no_grad():
+            times[name] = (time_ms(lambda: bftt.neighbor_allreduce(x, compression=wire), device,
+                                   iters=5, warmup=1),
+                           time_ms(lambda: bft.neighbor_allreduce(x, compression=wire), device,
+                                   iters=5, warmup=1))
+    for name, root in (("allreduce", None), ("broadcast", 3)):
+        xg = x.clone().requires_grad_(True)
+        if root is None:
+            y, want = bftt.allreduce(xg), bft.allreduce(x)
+        else:
+            y, want = bftt.broadcast(xg, root), bft.broadcast(x, root)
+        fe_same(f"{name} forward", y.detach(), want)
+        y.backward(g)
+        if root is None:
+            want = bft.allreduce(g)
+        else:
+            summed = bft.allreduce(g, average=False)
+            want = torch.zeros_like(summed)
+            want[root] = summed[root]
+        fe_same(f"{name} backward", xg.grad, want)
+        del y, xg, want
+    fe_log(f"(a) on [{SIZE}, {n}] f32, Exp(8): neighbor_allreduce (fp32, bf16, int8, int4) "
+           f"forward bitwise the facade's, one encode and one decode_accumulate a call on "
+           f"int8 and int4, none on the others; backward no wire kernel, bitwise the exact "
+           f"combine over W^T, which is {err:.3g} from W g in float64 on {cols} columns "
+           f"(tolerance {FE_ADJ_TOL * scale:.3g}); allreduce and broadcast forward and backward "
+           f"bitwise the facade's calls; forward ms, frontend / facade: "
+           + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items()))
+    return times
+
+
+def fe_wrapped(device, sm, images, labels, params0, stats0, wire, steps, timed=0,
+               factory_name="DistributedNeighborAllreduceOptimizer", hand=False):
+    """``steps`` ResNet50 steps of the user's ``torch.optim.SGD(lr=0.1,
+    momentum=0.9)`` under ``StepLR(2, 0.5)`` on one ``nn.Parameter``, the
+    flat stacked buffer: wrapped by the frontend's ``factory_name``, or
+    (``hand``) unwrapped after the facade's combine composed by hand. The
+    last ``timed`` steps are timed (the gradient and the step; the host
+    copies below are not). Returns ``(optimizer, parameter, host copies
+    of the parameters after each step and of each step's gradient,
+    per-step launches, numbers)``."""
+    sm.load_buffers(stats0)
+    flat = torch.nn.Parameter(params0.clone())
+    flat.grad = torch.empty_like(flat)
+    opt = torch.optim.SGD([flat], lr=0.1, momentum=0.9)
+    if not hand:
+        assert getattr(bftt, factory_name)(opt) is opt
+        if wire is not None:
+            opt.compression = wire
+    sched = torch.optim.lr_scheduler.StepLR(opt, step_size=2, gamma=0.5)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kept, grads, launches, times = [], [], [], []
+    for i in range(steps):
+        sync(device)
+        t0 = time.perf_counter()
+        sm.loss_and_grad(flat.detach(), images, labels, flat.grad)
+        sync(device)
+        t1 = time.perf_counter()
+        grads.append(host_copy(flat.grad))  # before a gradient allreduce averages it
+        before = kernels.launch_counts()
+        sync(device)
+        t2 = time.perf_counter()
+        if hand:
+            with torch.no_grad():
+                flat.copy_(bft.neighbor_allreduce(flat.detach(), compression=wire))
+        opt.step()
+        sync(device)
+        t3 = time.perf_counter()
+        after = kernels.launch_counts()
+        sched.step()
+        launches.append({k: after[k] - before[k] for k in after})
+        if i >= steps - timed:
+            times.append((t1 - t0 + t3 - t2, t3 - t2))
+        kept.append(host_copy(flat.detach()))
+    numbers = {}
+    if times:
+        numbers = dict(step_s=statistics.median(t[0] for t in times),
+                       opt_ms=statistics.median(t[1] for t in times) * 1e3,
+                       peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                                 if device.type == "cuda" else float("nan")))
+    if not torch.isfinite(flat).all():
+        raise AssertionError(f"frontend {factory_name}/{wire}: non-finite parameters")
+    return opt, flat, kept, grads, launches, numbers
+
+
+def fe_step_lr(count):
+    """``StepLR(step_size=2, gamma=0.5)`` of ``lr=0.1`` as a functional
+    schedule of the step count."""
+    return 0.1 * 0.5 ** (count // 2)
+
+
+def fe_functional(device, params0, grads, factory, wire, lr=0.1):
+    """The port's functional ``factory(bft.sgd(lr, momentum=0.9))``
+    (``opt.step``) from ``params0``, fed the gradients ``grads`` (host
+    copies, one a step) of a wrapped run; returns the parameters after
+    each step (host copies) and the last step's optimizer ms."""
+    opt = factory(bft.sgd(lr, momentum=0.9))
+    opt.compression = wire
+    params = params0.clone()
+    state = opt.init(params)
+    kept = []
+    for g in grads:
+        g = g.to(device)
+        sync(device)
+        t0 = time.perf_counter()
+        opt.step(params, state, g)
+        sync(device)
+        opt_ms = (time.perf_counter() - t0) * 1e3
+        kept.append(host_copy(params))
+    opt.free()
+    return kept, opt_ms
+
+
+def fe_near(name, got, want, tol):
+    """Gate: ``max |got - want|`` within ``tol`` of the largest |want|, and
+    at most ``FE_NEAR_SHARE`` of the elements beyond ``FE_NEAR`` of it."""
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    err = float(diff.max())
+    share = int((diff > FE_NEAR * scale).sum()) / diff.numel()
+    if not (err <= tol * scale and share <= FE_NEAR_SHARE):
+        raise AssertionError(f"frontend {name}: max diff {err:.3g} (tolerance {tol * scale:.3g}),"
+                             f" share beyond {FE_NEAR} of the largest {share:.3g} "
+                             f"(bound {FE_NEAR_SHARE})")
+    return err / scale, share
+
+
+def fe_train(device, sm, images, labels, smi=""):
+    """(b): the whole ResNet50 through the wrapped ``torch.optim.SGD``;
+    returns ``(launch counts of the wrapped int8 run, numbers)``."""
+    stats0 = {k: v.clone() for k, v in sm.buffers.items()}
+    params0 = sm.replicate()
+    steps = FE_WARMUP + FE_TIMED
+    reset_launch_counts()
+    opt, flat, kept, grads, launches, numbers = fe_wrapped(
+        device, sm, images, labels, params0, stats0, "int8", steps, timed=FE_TIMED)
+    counts = launch_counts()
+    for i, step in enumerate(launches):
+        fe_wire_launches(f"wrapped SGD int8 step {i}", step, "int8", device)
+    # the state_dict round trip: a fresh wrapped SGD loads a copy of it (as a
+    # checkpoint would hand it back), then both take one more step on the
+    # same gradient
+    state = copy.deepcopy(opt.state_dict())
+    twin = torch.nn.Parameter(flat.detach().clone())
+    twin_opt = torch.optim.SGD([twin], lr=1.0)
+    bftt.DistributedNeighborAllreduceOptimizer(twin_opt)
+    twin_opt.compression = "int8"
+    twin_opt.load_state_dict(state)
+    buf, twin_buf = opt.state[flat]["momentum_buffer"], twin_opt.state[twin]["momentum_buffer"]
+    if twin_buf.device != flat.device or twin_opt.param_groups[0]["lr"] != \
+            opt.param_groups[0]["lr"]:
+        raise AssertionError("frontend: the loaded state is off the card or has another lr")
+    fe_same("state_dict round trip, momentum", twin_buf, buf)
+    twin.grad = flat.grad.clone()
+    opt.step()
+    twin_opt.step()
+    fe_same("state_dict round trip, one more step", twin.detach(), flat.detach())
+    lr_after = opt.param_groups[0]["lr"]
+    del opt, flat, twin_opt, twin, state, buf, twin_buf
+    torch.cuda.empty_cache()
+    hand = fe_wrapped(device, sm, images, labels, params0, stats0, "int8", steps, hand=True)[2]
+    for i, (got, want) in enumerate(zip(kept, hand)):
+        fe_same(f"wrapped SGD int8 after step {i} against the steps composed by hand", got, want)
+    del hand
+    func, func_opt_ms = fe_functional(device, params0, grads[:FE_FUNC_STEPS],
+                                      bft.DistributedNeighborAllreduceOptimizer, "int8")
+    na_err = [fe_near(f"wrapped SGD int8 after step {i} against the functional optimizer",
+                      kept[i], want, FE_FUNC_TOL["int8"]) for i, want in enumerate(func)]
+    del func, kept, grads
+    _, ga_flat, ga_kept, ga_grads, ga_launches, _ = fe_wrapped(
+        device, sm, images, labels, params0, stats0, None, FE_GRAD_STEPS,
+        factory_name="DistributedGradientAllreduceOptimizer")
+    if any(any(v for v in step.values()) for step in ga_launches):
+        raise AssertionError(f"frontend: the gradient allreduce launched wire kernels "
+                             f"{ga_launches}")
+    if not torch.equal(bits(ga_flat.detach()), bits(ga_flat.detach()[:1].expand_as(ga_flat))):
+        raise AssertionError("frontend: the wrapped gradient allreduce left the workers apart")
+    func, _ = fe_functional(device, params0, ga_grads,
+                            bft.DistributedGradientAllreduceOptimizer, None, lr=fe_step_lr)
+    ga_err = [fe_near(f"wrapped gradient allreduce after step {i} against the functional "
+                      "optimizer", ga_kept[i], want, FE_FUNC_TOL["fp32"])
+              for i, want in enumerate(func)]
+    del func, ga_flat, ga_kept, ga_grads
+    sm.load_buffers(stats0)
+    numbers.update(func_opt_ms=func_opt_ms, na_err=na_err, ga_err=ga_err, lr=lr_after)
+    fe_log(f"(b) ResNet50 x{SIZE} workers, {images.shape[1]} images of "
+           f"{images.shape[2]}x{images.shape[3]} each, "
+           f"{sm.n_params} parameters per worker, torch.optim.SGD(0.1, momentum 0.9) under "
+           f"StepLR(2, 0.5) wrapped by DistributedNeighborAllreduceOptimizer, int8: median "
+           f"step {numbers['step_s']:.4f} s, {SIZE * images.shape[1] / numbers['step_s']:.1f} "
+           f"images/s, optimizer {numbers['opt_ms']:.1f} ms (the functional optimizer's "
+           f"{func_opt_ms:.1f} ms), peak {numbers['peak_gib']:.2f} GiB; encode and "
+           f"decode_accumulate once a step; parameters bitwise the steps composed by hand "
+           f"after each of {steps} steps; the functional optimizer fed the same gradients, "
+           f"after steps 1 and 2: max diff of the largest parameter and share of the elements "
+           f"beyond {FE_NEAR} of it {', '.join(f'{e:.3g} / {f:.3g}' for e, f in na_err)} "
+           f"(tolerance {FE_FUNC_TOL['int8']:.3g} / {FE_NEAR_SHARE}); state_dict round trip "
+           f"bitwise (lr {lr_after}); gradient allreduce, {FE_GRAD_STEPS} steps: workers "
+           f"bitwise equal, from the functional optimizer on the same gradients "
+           f"{', '.join(f'{e:.3g}' for e, _f in ga_err)} of the largest parameter "
+           f"(tolerance {FE_FUNC_TOL['fp32']:.3g}); on {smi}")
+    return counts, numbers
+
+
+def phase_frontend(device, sm, images, labels, smi="", n=RESNET50_WIDTH):
+    """Phase 11l: (a) the frontend's ops at full width (:func:`fe_ops`), (b)
+    the whole ResNet50 through the wrapped ``torch.optim.SGD``
+    (:func:`fe_train`). cuDNN runs its deterministic algorithms, so two
+    runs of one gradient agree. Returns ``(launch counts of (b)'s wrapped
+    int8 run, zeroed just before it and read just after, numbers)``."""
+    t0 = time.perf_counter()
+    bft.init(size=SIZE, device=device)
+    times = fe_ops(device, n)
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts, numbers = fe_train(device, sm, images, labels, smi=smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    numbers["ops_ms"] = times
+    fe_log(f"phase in {time.perf_counter() - t0:.1f} s ((a) {t_a - t0:.1f}, "
+           f"(b) {time.perf_counter() - t_a:.1f}); launches of the wrapped int8 run {counts}")
+    return counts, numbers
+
+
+def run_frontend_alone():
+    """``python3 chip_smoke.py --phase frontend``: phase 11l alone on the
+    whole ResNet50 (the wire kernels built first); its gates as in the whole
+    run. Prints no result line."""
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build(["wire_kernels"])
+    _build.wire_library()
+    sm, images, labels = build_trainer(device)
+    counts, _numbers = phase_frontend(device, sm, images, labels, smi=smi)
+    missing = [k for k in PATH_KERNELS["frontend"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the frontend path launched no {missing} kernel: {counts}")
+    return 0
+
+
 def lm_flops_per_step(sm, seq, batch):
     """bench.py's model FLOPs of one step of every worker: per token
     ``3 * (2 P + 2 T dim layers)`` (the parameters' products and causal
@@ -8590,6 +8944,8 @@ def main():
         return run_transport_fleet_alone()
     if sys.argv[1:] == ["--phase", "scaling-trace"]:
         return run_scaling_trace_alone()
+    if sys.argv[1:] == ["--phase", "frontend"]:
+        return run_frontend_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -8713,9 +9069,12 @@ def main():
     torch.cuda.empty_cache()
     lap("transport-fleet")
     counts["scaling-trace"], _sc = phase_scaling_trace(device, sm, images, labels, smi=smi)
-    del images, labels
     torch.cuda.empty_cache()
     lap("scaling-trace")
+    counts["frontend"], _fe = phase_frontend(device, sm, images, labels, smi=smi)
+    del images, labels
+    torch.cuda.empty_cache()
+    lap("frontend")
     rows, lines = phase_kernels(device, params, memory_rate(kind))
     del sm, params
     torch.cuda.empty_cache()

@@ -1650,3 +1650,36 @@ def test_weak_scaling_of_the_int8_train_step_launches_and_matches_plain(cuda):
         bft.shutdown()
     assert [r["n"] for r in rows] == [1, 2, 4] and rows[0]["efficiency"] == 1.0
     assert counts["encode"] == counts["decode_accumulate"] == 3 * 3
+
+
+@pytest.mark.cuda
+def test_frontend_int8_neighbor_allreduce_on_the_card(cuda):
+    """The torch frontend's int8 ``neighbor_allreduce`` on the card: its
+    forward is bitwise the facade's and launches one ``encode`` and one
+    ``decode_accumulate``; its backward launches no wire kernel and is
+    bitwise the exact combine over the transposed weights."""
+    import bluefog_tpu_torch.torch as bftt
+    from bluefog_tpu_torch.collective.plan import plan_from_matrix
+
+    try:
+        bft.init(device="cuda")
+        x = ragged_input(cuda, seed=7).requires_grad_(True)
+        g = ragged_input(cuda, seed=8)
+        c0 = kernels.launch_counts()
+        y = bftt.neighbor_allreduce(x, compression="int8")
+        torch.cuda.synchronize()
+        c1 = kernels.launch_counts()
+        y.backward(g)
+        torch.cuda.synchronize()
+        c2 = kernels.launch_counts()
+        ref = bft.neighbor_allreduce(x.detach(), compression="int8")
+        w = bft.get_context().static_plan().weight_matrix()
+        adjoint = inner.neighbor_allreduce(g, plan_from_matrix(w.T))
+        torch.cuda.synchronize()
+    finally:
+        bft.shutdown()
+    assert torch.equal(_bits(y.detach()), _bits(ref))
+    assert torch.equal(_bits(x.grad), _bits(adjoint))
+    assert {k: c1[k] - c0[k] for k in c0} == {
+        "encode": 1, "encode_diff": 0, "decode": 0, "decode_add": 0, "decode_accumulate": 1}
+    assert c2 == c1

@@ -52,7 +52,7 @@ def test_port_sources_exist():
             "recovery.py", "staleness.py", "memory.py", "spectral.py", "placement.py",
             "health.py", "fleetsim.py", "federation.py", "slo.py", "wire_ref.py",
             "autotune.py", "transport.py", "run.py", "network_util.py",
-            "interactive_run.py"} <= names
+            "interactive_run.py", "mpi_ops.py"} <= names
     for source in ("__init__.py", "run.py", "network_util.py", "interactive_run.py"):
         assert (ROOT / "bluefog_tpu_torch" / "run" / source).is_file()
     assert (ROOT / "bluefog_tpu_torch" / "collective" / "transport.py").is_file()
@@ -60,6 +60,9 @@ def test_port_sources_exist():
         assert (ROOT / "bluefog_tpu_torch" / "elastic" / source).is_file()
     for source in ("wire_kernels.cu", "flash_kernels.cu"):
         assert (ROOT / "bluefog_tpu_torch" / "csrc" / source).is_file()
+    for source in ("__init__.py", "mpi_ops.py", "optimizers.py"):
+        path = ROOT / "bluefog_tpu_torch" / "torch" / source
+        assert path.is_file() and path in _port_sources()
 
 
 @pytest.mark.parametrize("call", ["scaled_dot_product_attention", "torch.compile", "cudnn"])
@@ -118,6 +121,36 @@ def test_elastic_exports_have_the_jax_names():
         want = [p.split(":")[0].split("=")[0].strip().lstrip("*")
                 for p in m.group(1).replace("\n", " ").split(",")]
         assert params == [w for w in want if w], name
+
+
+def test_torch_frontend_exports_have_the_jax_names():
+    """``bluefog_tpu_torch.torch`` exports ``bluefog_tpu.torch``'s
+    ``__all__``, in its order, each function taking JAX's parameters first
+    (read from the source with ``ast``: the JAX package is not imported).
+    The package does not import its frontend, as ``bluefog_tpu`` does not
+    import its own."""
+    import inspect
+
+    import bluefog_tpu_torch.torch as bftt
+
+    jax_dir = ROOT / "bluefog_tpu" / "torch"
+    (jax_all,) = [ast.literal_eval(n.value) for n in ast.parse((jax_dir / "__init__.py")
+                                                              .read_text()).body
+                  if isinstance(n, ast.Assign) and n.targets[0].id == "__all__"]
+    assert bftt.__all__ == jax_all
+    defs = {n.name: [a.arg for a in n.args.args + n.args.kwonlyargs]
+            for source in ("mpi_ops.py", "optimizers.py")
+            for n in ast.parse((jax_dir / source).read_text()).body
+            if isinstance(n, ast.FunctionDef)}
+    for name in jax_all:
+        params = list(inspect.signature(getattr(bftt, name)).parameters)
+        assert params[:len(defs[name])] == defs[name], name
+    init = ast.parse((ROOT / "bluefog_tpu_torch" / "__init__.py").read_text())
+    for node in ast.walk(init):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            assert not node.module.startswith("bluefog_tpu_torch.torch")
+            if node.module == "bluefog_tpu_torch":
+                assert "torch" not in [a.name for a in node.names]
 
 
 @pytest.mark.parametrize("module", ["attribution", "staleness", "memory"])
