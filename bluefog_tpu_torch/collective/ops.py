@@ -26,9 +26,11 @@ rank) and each op's result is the local rows of the stacked result
 (:mod:`bluefog_tpu_torch.collective.inner`).
 
 Observability, as in the JAX facade: each op's dispatch is an ``ENQUEUE``
-span of the timeline; :func:`synchronize` is a host blocking point, with
-``sync_begin`` / ``sync_ready`` flight records, a watchdog ``watch`` and a
-``SYNCHRONIZE`` span; a new plan is noted in the flight recorder; a
+span of the timeline (and, while ``torch.profiler`` records, a
+``bluefog.<op>`` range of its trace); :func:`synchronize` is a host
+blocking point, with ``sync_begin`` / ``sync_ready`` flight records, a
+watchdog ``watch`` and a ``SYNCHRONIZE`` span (``bluefog.handle_<n>`` in
+the profiler's trace); a new plan is noted in the flight recorder; a
 compressed ``neighbor_allgather`` counts its wire bytes and, with
 ``BLUEFOG_METRICS=1``, samples its quantization error. The JAX facade also
 counts ``bluefog.recompiles`` on a fresh program; the port dispatches
@@ -145,14 +147,9 @@ def _blocking_wait(handle: int, event) -> None:
     flight records, a watchdog ``watch`` and a ``SYNCHRONIZE`` span."""
     flight.record("sync_begin", handle=handle)
     with watchdog.watch(f"synchronize(handle {handle})"):
-        if tl.timeline_enabled():
-            t0 = tl.timeline_now_us()
+        with tl.span(f"handle_{handle}", "SYNCHRONIZE"):
             if event is not None:
                 event.synchronize()
-            tl.timeline_record_complete(f"handle_{handle}", "SYNCHRONIZE", t0,
-                                        tl.timeline_now_us() - t0)
-        elif event is not None:
-            event.synchronize()
     flight.record("sync_ready", handle=handle)
 
 
@@ -168,15 +165,11 @@ def barrier() -> None:
 
 def _enqueue(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``: an op's or an optimizer step's dispatch, an
-    ``ENQUEUE`` span of the timeline when one is open (the JAX
+    ``ENQUEUE`` :func:`~bluefog_tpu_torch.timeline.span` (the JAX
     ``_timed_dispatch``; the optimizers' ``_timed_dispatch`` adds the
     memory observatory's phase)."""
-    if not tl.timeline_enabled():
+    with tl.span(name, "ENQUEUE"):
         return fn(*args, **kwargs)
-    t0 = tl.timeline_now_us()
-    out = fn(*args, **kwargs)
-    tl.timeline_record_complete(name, "ENQUEUE", t0, tl.timeline_now_us() - t0)
-    return out
 
 
 # -- helpers ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from bluefog_tpu_torch import timeline as tl
 from bluefog_tpu_torch.collective.kernels import CHUNK
 from bluefog_tpu_torch.context import resolve_device
 
@@ -252,7 +253,8 @@ class StackedModel:
         another: returns ``(loss [size] f32, grads [size, width])`` with the
         gradient in the flat JAX layout (zero in the tail), and updates the
         batch statistics. Worker ``j``'s loss is ``self.loss(module(inputs[j]),
-        targets[j])``."""
+        targets[j])``; each worker's is a ``forward`` and a ``backward``
+        phase span, as in the fused train step."""
         self.module.train(True)
         if grads is None:
             grads = torch.empty_like(params)
@@ -262,12 +264,14 @@ class StackedModel:
             # view: with respect to the whole row, the backward of every
             # slice would build and add a row-sized zero-padded gradient
             leaves = [v.requires_grad_(True) for v in self._jax_views(params[j].detach())]
-            outputs = functional_call(
-                self.module, self._worker_state(leaves, j), (inputs[j],)
-            )
-            loss = self.loss(outputs, targets[j])
-            for dst, g in zip(self._jax_views(grads[j]), torch.autograd.grad(loss, leaves)):
-                dst.copy_(g)
+            with tl.span("forward", tl.PHASE):
+                outputs = functional_call(
+                    self.module, self._worker_state(leaves, j), (inputs[j],)
+                )
+                loss = self.loss(outputs, targets[j])
+            with tl.span("backward", tl.PHASE):
+                for dst, g in zip(self._jax_views(grads[j]), torch.autograd.grad(loss, leaves)):
+                    dst.copy_(g)
             losses[j] = loss.detach()
         grads[:, self.n_params:].zero_()
         return losses, grads

@@ -67,7 +67,13 @@ window's value in place.
 Observability, on both dispatch paths (:meth:`_GossipOptimizer.step` and
 the fused train step), as in the JAX package: ``step_begin`` /
 ``step_dispatched`` flight records around an ``ENQUEUE`` timeline span
-(``optimizer_step``, ``fused_train_step``, ``window_optimizer_step``); the
+(``optimizer_step``, ``fused_train_step``, ``window_optimizer_step``),
+inside which the gossip family's step opens its phase spans
+(:data:`bluefog_tpu_torch.timeline.PHASE`): ``forward`` and ``backward``
+once a worker (:func:`_worker_loss_grad`), ``update`` around the inner
+update (:func:`_apply_update`) and ``combine`` around the gossip, the
+gradient allreduce, ZeRO-2's reduce-scatter and ZeRO's gather of the
+owned slots (the probe of the metrics stays outside all four); the
 plans noted in the flight recorder; with ``BLUEFOG_METRICS=1`` the rounds,
 wire bytes and ``bluefog.shard.*`` accounting of every communicating step,
 and on one communicating step in ``BLUEFOG_METRICS_INTERVAL`` the
@@ -144,6 +150,7 @@ from bluefog_tpu_torch import health as health_mod
 from bluefog_tpu_torch import memory as mem_mod
 from bluefog_tpu_torch import slo as slo_mod
 from bluefog_tpu_torch import staleness as stal_mod
+from bluefog_tpu_torch import timeline as tl
 from bluefog_tpu_torch import windows as win_mod
 from bluefog_tpu_torch.collective import compiler, inner, transport
 from bluefog_tpu_torch.collective import ops as col_ops
@@ -1139,10 +1146,11 @@ class _GossipOptimizer:
     def _gossip(self, d: _Dispatch, tree) -> None:
         if d.identity:
             return
-        if d.ef:
-            _packed_gossip_ef(tree, self._ef, d.combine, d.cap_bytes)
-        else:
-            _packed_gossip(tree, d.combine, d.cap_bytes)
+        with tl.span("combine", tl.PHASE):
+            if d.ef:
+                _packed_gossip_ef(tree, self._ef, d.combine, d.cap_bytes)
+            else:
+                _packed_gossip(tree, d.combine, d.cap_bytes)
 
     def _combine_update(self, d: _Dispatch, params, state, grads, with_metrics: bool = False,
                         wire: Optional[str] = None):
@@ -1160,10 +1168,12 @@ class _GossipOptimizer:
             if with_metrics:  # the iterate on the wire is the gradient
                 payload = self._probe(allreduce, grads, grads, wire, ef=False)
             if d.shard is not None and d.shard.grads:
-                _sharded_inner_update(self.tx, d.shard, params, state,
-                                      own_g=self._scatter_own_grads(d, grads))
+                with tl.span("combine", tl.PHASE):
+                    own_g = self._scatter_own_grads(d, grads)
+                _sharded_inner_update(self.tx, d.shard, params, state, own_g=own_g)
                 return payload
-            _packed_gossip(grads, allreduce, d.cap_bytes)
+            with tl.span("combine", tl.PHASE):
+                _packed_gossip(grads, allreduce, d.cap_bytes)
         if d.shard is not None:
             _sharded_inner_update(self.tx, d.shard, params, state, grads=grads)
             return payload
@@ -1171,7 +1181,7 @@ class _GossipOptimizer:
             if with_metrics:
                 payload = self._probe(d.combine, params, grads, wire, ef=d.ef)
             self._gossip(d, params)
-        self.tx.apply_(params, state, grads)
+        _apply_update(self.tx, params, state, grads)
         if self.order == "atc":
             if with_metrics:
                 payload = self._probe(d.combine, params, grads, wire, ef=d.ef)
@@ -1409,14 +1419,16 @@ class _GossipOptimizer:
         """``y = C(buf) + s * (x - buf)`` per dtype group, in place on the
         parameters, with ``buf`` then refilled with ``x``: the neighbours'
         values are one step stale, the self weight applies to the fresh
-        ``x`` (the JAX ``stale_mix``)."""
-        for (_name, group), buf in zip(_dtype_groups(tree_leaves(params)), self._delay_buf):
-            fresh = _pack(group)
-            diff = fresh.to(buf.dtype) - buf
-            combined = _bucketed_flat_gossip(buf, d.combine, d.cap_bytes)
-            mixed = combined + _col(sw, combined) * diff.to(combined.dtype)
-            buf.copy_(fresh)
-            _unpack_(group, mixed)
+        ``x`` (the JAX ``stale_mix``); a ``combine`` phase span."""
+        with tl.span("combine", tl.PHASE):
+            for (_name, group), buf in zip(_dtype_groups(tree_leaves(params)),
+                                           self._delay_buf):
+                fresh = _pack(group)
+                diff = fresh.to(buf.dtype) - buf
+                combined = _bucketed_flat_gossip(buf, d.combine, d.cap_bytes)
+                mixed = combined + _col(sw, combined) * diff.to(combined.dtype)
+                buf.copy_(fresh)
+                _unpack_(group, mixed)
 
     def make_train_step(self, loss_fn, has_aux: bool = False, delayed: bool = False):
         """The train step: every worker's loss and gradient, the inner
@@ -1533,9 +1545,9 @@ class _GossipOptimizer:
                 if met:
                     payload = self._delayed_probe(d, params, grads, sw)
                 self._stale_mix(d, params, sw)
-                self.tx.apply_(params, opt_state, grads)
+                _apply_update(self.tx, params, opt_state, grads)
             else:
-                self.tx.apply_(params, opt_state, grads)
+                _apply_update(self.tx, params, opt_state, grads)
                 if met:
                     payload = self._delayed_probe(d, params, grads, sw)
                 self._stale_mix(d, params, sw)
@@ -1627,30 +1639,39 @@ def _sharded_inner_update(tx, layout, params, state, grads=None, own_g=None) -> 
     processes the local workers' slots, then one
     :func:`transport.gather_rows` a group brings every worker's). ``own_g``
     (ZeRO-2) is the scattered gradient slots; otherwise the slots are cut
-    from ``grads``."""
+    from ``grads``. The update is an ``update`` phase span, the gather a
+    ``combine`` one."""
     _shard_check_groups(params, layout, "parameter")
     if own_g is None:
         _shard_check_groups(grads, layout, "gradient")
         own_g = _shard_own_slices(grads, layout)
     own_p = _shard_own_slices(params, layout)
     if layout.master:
-        tx.apply_(state.master, state.inner, tuple(g.to(torch.float32) for g in own_g))
+        _apply_update(tx, state.master, state.inner,
+                      tuple(g.to(torch.float32) for g in own_g))
         new_own = tuple(m.to(o.dtype) for m, o in zip(state.master, own_p))
     else:
-        tx.apply_(own_p, state.inner, own_g)
+        _apply_update(tx, own_p, state.inner, own_g)
         new_own = own_p
     live = list(layout.live)
     multi = len(_local_workers(layout)) != layout.size
-    for g, own, (_name, group) in zip(layout.groups, new_own,
-                                      _dtype_groups(tree_leaves(params))):
-        if multi:
-            own = transport.gather_rows(own.contiguous())
-        full = own[live].reshape(-1)[:g.elems]
-        off = 0
-        for leaf in group:
-            n = leaf[0].numel()
-            leaf.copy_(full[off:off + n].view(leaf.shape[1:]).expand_as(leaf))
-            off += n
+    with tl.span("combine", tl.PHASE):
+        for g, own, (_name, group) in zip(layout.groups, new_own,
+                                          _dtype_groups(tree_leaves(params))):
+            if multi:
+                own = transport.gather_rows(own.contiguous())
+            full = own[live].reshape(-1)[:g.elems]
+            off = 0
+            for leaf in group:
+                n = leaf[0].numel()
+                leaf.copy_(full[off:off + n].view(leaf.shape[1:]).expand_as(leaf))
+                off += n
+
+
+def _apply_update(tx, params, state, grads) -> None:
+    """The inner update ``tx.apply_``, in an ``update`` phase span."""
+    with tl.span("update", tl.PHASE):
+        tx.apply_(params, state, grads)
 
 
 def _grad_store(params, store) -> List[torch.Tensor]:
@@ -1667,16 +1688,21 @@ def _grad_store(params, store) -> List[torch.Tensor]:
 def _worker_loss_grad(loss_fn, has_aux, params, batch, j: int, store):
     """Worker ``j``'s loss and gradient: the gradient into row ``j`` of the
     ``store`` leaves, returns ``(loss, aux)`` detached (``aux`` None
-    without ``has_aux``)."""
+    without ``has_aux``). The loss is a ``forward`` phase span, the
+    gradient with its copy into the store a ``backward`` one (the autograd
+    engine launches the backward's kernels from its own thread while this
+    one waits inside the span)."""
     wl = [l[j].detach().requires_grad_(True) for l in tree_leaves(params)]
-    out = loss_fn(_tree_unflatten(params, wl),
-                  *(_tree_unflatten(b, [t[j] for t in tree_leaves(b)]) for b in batch))
+    with tl.span("forward", tl.PHASE):
+        out = loss_fn(_tree_unflatten(params, wl),
+                      *(_tree_unflatten(b, [t[j] for t in tree_leaves(b)]) for b in batch))
     loss, aux = out if has_aux else (out, None)
-    for dst, g in zip(store, torch.autograd.grad(loss, wl, allow_unused=True)):
-        if g is None:
-            dst[j].zero_()
-        else:
-            dst[j].copy_(g)
+    with tl.span("backward", tl.PHASE):
+        for dst, g in zip(store, torch.autograd.grad(loss, wl, allow_unused=True)):
+            if g is None:
+                dst[j].zero_()
+            else:
+                dst[j].copy_(g)
     if has_aux:
         aux = _tree_unflatten(aux, [t.detach() for t in tree_leaves(aux)])
     return loss.detach(), aux

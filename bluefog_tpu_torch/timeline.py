@@ -20,6 +20,15 @@ which. ``timeline_init(path, profiler=True)`` also starts
 trace into ``<path>.torch/`` at :func:`timeline_shutdown`: the kernels
 themselves.
 
+:func:`span` is the one span primitive with two sinks: a complete record
+of the timeline when one is open, and a ``record_function`` range named
+``bluefog.<name>`` while ``torch.profiler`` records, so the port's spans
+(each collective's and optimizer step's ``ENQUEUE``, each wait's
+``SYNCHRONIZE``, the train step's phases) sit in the profiler's trace
+beside the kernels they launch, on the clock of those launches. With
+neither on, a span costs two attribute reads. :func:`timeline_context`
+keeps its ``B`` / ``E`` records and opens the same range.
+
 ``BLUEFOG_TIMELINE=<prefix>`` opens ``<prefix><index>.json`` at ``init``
 (:func:`maybe_init_from_env`; the index is :func:`process_file_index`) and
 closes it at ``shutdown`` or at exit.
@@ -33,6 +42,8 @@ import threading
 import time
 from typing import Optional
 
+import torch.autograd.profiler as _torch_profiler
+
 __all__ = [
     "timeline_init",
     "timeline_shutdown",
@@ -45,6 +56,8 @@ __all__ = [
     "timeline_record_counter",
     "timeline_context",
     "timeline_now_us",
+    "span",
+    "PHASE",
     "process_file_index",
     "maybe_init_from_env",
     "using_native_writer",
@@ -292,14 +305,74 @@ def timeline_now_us() -> int:
     return int(_load_native().bf_timeline_now_us())
 
 
+PHASE = "PHASE"  # the timeline category of the train step's phase spans
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _range(name: str):
+    """The profiler range of the span ``name``: a ``torch.profiler``
+    range, not a metric series."""
+    return _torch_profiler.record_function(f"bluefog.{name}")
+
+
 @contextlib.contextmanager
 def timeline_context(name: str, activity: str, rank: int = 0):
-    """Span context manager (reference ``bf.timeline_context``)."""
+    """Span context manager (reference ``bf.timeline_context``): a
+    ``ph:"B"`` / ``ph:"E"`` pair of the timeline and, while
+    ``torch.profiler`` records, the ``bluefog.<name>`` range of
+    :func:`span`."""
     timeline_start_activity(name, activity, rank)
     try:
-        yield
+        with _range(name) if _torch_profiler._is_profiler_enabled else _NO_SPAN:
+            yield
     finally:
         timeline_end_activity(name, activity, rank)
+
+
+class _Span:
+    """An open :func:`span`: its timeline start and its profiler range."""
+
+    __slots__ = ("_name", "_activity", "_range", "_t0")
+
+    def __init__(self, name: str, activity: str, profiling: bool):
+        self._name, self._activity = name, activity
+        self._range = _range(name) if profiling else None
+        self._t0 = None
+
+    def __enter__(self):
+        if _active:
+            self._t0 = timeline_now_us()
+        if self._range is not None:
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        if self._t0 is not None and exc_type is None:
+            timeline_record_complete(self._name, self._activity, self._t0,
+                                     timeline_now_us() - self._t0)
+        return False
+
+
+def span(name: str, activity: str):
+    """A span of the host's work, as a context manager::
+
+        with span("combine", PHASE):
+            ...
+
+    With a timeline open, a complete record (``ph:"X"``) of ``name`` in
+    category ``activity``, written when the block returns (a block that
+    raises leaves none). While ``torch.profiler`` records (its own flag,
+    read once as the span opens), also a ``record_function`` range
+    ``bluefog.<name>``: a kernel in the profiler's trace then names the
+    span by its launch (the runtime call with the kernel's
+    ``correlation``), whatever the device clock's offset. With neither on,
+    the block runs as it is, with no ``record_function`` call."""
+    profiling = _torch_profiler._is_profiler_enabled
+    if not (_active or profiling):
+        return _NO_SPAN
+    return _Span(name, activity, profiling)
 
 
 def process_file_index() -> int:

@@ -104,7 +104,8 @@ seconds of each phase.
                        gradients taken at ``params()``), then one step at
                        lr = 0 that holds the x mass to 1e-5 of sum |x| and
                        the p mass to 8;
-9. profile  -- one ATC int8 step under ``torch.profiler``;
+9. (none: the benchmark's traced cells, ``gossipbench/``, profile the
+               ATC int8 step phase by phase);
 10. async   -- bench.py::run_async's straggler scenario at the main path's
                width: ``make_async_train_step`` over the same ResNet50 with
                ``DistributedNeighborAllreduceOptimizer(sgd(0.1, 0.9))`` on
@@ -427,7 +428,7 @@ seconds of each phase.
                launches of each flash kernel a step;
                then worker 0's forward at full
                size with every block's attention held against the plain
-               version on its own q, k, v, and one profiled ATC int8 step;
+               version on its own q, k, v;
 14a. zero    -- the same TransformerLM trained by
                ``DistributedGradientAllreduceOptimizer(adam(1e-4))`` in six
                tiers (``ZERO_TIERS``: repl, zero1, zero2 on fp32, int8, int4
@@ -8023,22 +8024,6 @@ def profile_once(device, name, run, top=12):
     return {key: us for us, _count, key in rows}
 
 
-def phase_profile(device, name, sm, inputs, targets, params, lr=0.1, top=12):
-    """One more ATC int8 step under ``torch.profiler`` (:func:`profile_once`).
-    Runs after the main path's launch counts were read."""
-    opt = bft.DistributedAdaptThenCombineOptimizer(bft.sgd(lr, momentum=0.9))
-    opt.compression = "int8"
-    state = opt.init(params)
-    grads = torch.empty_like(params)
-
-    def step():
-        sm.loss_and_grad(params, inputs, targets, grads)
-        opt.step(params, state, grads)
-
-    profile_once(device, name, step, top)
-    opt.free()
-
-
 def phase_kernels(device, params, rate):
     """Each wire kernel against its plain version at the main path's
     shapes, and timed; returns the rows of the kernels JSON line (their
@@ -9007,10 +8992,9 @@ def main():
                  f"launches per path {counts}; on {smi}")
     log_tiers(trainer)
     params = trainer.params
-    phase_profile(device, "resnet50", sm, images, labels, params)
     del trainer
     torch.cuda.empty_cache()
-    lap("train, profile")
+    lap("train")
     counts["async"], _runs = phase_async(device, p_sm, images, labels, smi=smi)
     phase_async_check(device)
     torch.cuda.empty_cache()
@@ -9107,10 +9091,9 @@ def main():
                  f"on {smi}")
     log_tiers(trainer)
     lm_attention_check(sm, trainer.params, tokens)
-    phase_profile(device, "transformer", sm, tokens, tokens, trainer.params, lr=0.01)
     del trainer
     torch.cuda.empty_cache()
-    lap("transformer, profile")
+    lap("transformer")
     counts["zero"], _zero = phase_zero(device, sm, tokens, smi=smi)
     torch.cuda.empty_cache()
     lap("zero")

@@ -16,13 +16,19 @@ from test_metric_names import _LITERAL_RE, _doc_patterns, _matches
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "bluefog_tpu_torch")
+# a literal that names a ``torch.profiler`` range (the argument of
+# ``record_function``) is no series: the scan leaves it out
+_RANGE_RE = re.compile(r'record_function\(\s*f?"(bluefog\.[^"\n]*)"')
 
 
 def _port_patterns():
     raw = set()
     for path in glob.glob(PKG + "/**/*.py", recursive=True):
         with open(path) as f:
-            for m in _LITERAL_RE.finditer(f.read()):
+            text = f.read()
+        ranges = {m.start(1) for m in _RANGE_RE.finditer(text)}
+        for m in _LITERAL_RE.finditer(text):
+            if m.start(1) not in ranges:
                 raw.add(re.sub(r"\{[^}]*\}", "*", m.group(1)))
     namespaces = {r for r in raw if any(o.startswith(r + ".") for o in raw if o != r)}
     return raw - namespaces, namespaces
@@ -93,3 +99,12 @@ def test_the_guard_sees_the_port_series():
         assert not re.search(r'(counter|gauge|histogram)\(\s*"bluefog\.recompiles"', text), path
         if '"bluefog.recompiles"' in text:
             assert os.path.basename(path) == "attribution.py", path
+
+
+def test_profiler_ranges_are_not_series():
+    """``timeline.span``'s ``bluefog.<name>`` is a ``torch.profiler`` range:
+    the scan finds it and counts it as no series."""
+    with open(os.path.join(PKG, "timeline.py")) as f:
+        assert [m.group(1) for m in _RANGE_RE.finditer(f.read())] == ["bluefog.{name}"]
+    code, namespaces = _port_patterns()
+    assert "bluefog.*" not in code and "bluefog" not in namespaces
