@@ -30,7 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 __all__ = ["NVCC_FLAGS", "CXX_FLAGS", "SOURCE_FLAGS", "flags", "build_dir", "find_nvcc",
            "find_cxx", "build", "local_headers", "wire_library", "flash_library",
-           "flash_sm90_library", "timeline_library"]
+           "flash_sm90_library", "batchnorm_library", "timeline_library"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -45,11 +45,14 @@ NVCC_FLAGS = (
 # its timeline writer with the same).
 CXX_FLAGS = ("-O2", "-std=c++17", "-pthread")
 # Each source's own flags. The wire kernels' bits are pinned to the JAX
-# programs' (no FMA contraction); the flash kernels have no pinned bits.
+# programs' (no FMA contraction); the flash and BatchNorm kernels have no
+# pinned bits (the BatchNorm kernels round explicitly where they follow
+# the plain version's order of operations).
 SOURCE_FLAGS = {
     "wire_kernels": ("-fmad=false",),
     "flash_kernels": (),
     "flash_sm90": (),
+    "batchnorm_kernels": (),
     "timeline_writer": (),
 }
 
@@ -206,6 +209,24 @@ def flash_sm90_library() -> ctypes.CDLL:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.bf_flash_split_cotangent.argtypes = [vp, vp, vp, ll, ll, ll, ci, ci, ci, ci, vp]
     lib.bf_flash_split_cotangent.restype = ci
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def batchnorm_library() -> ctypes.CDLL:
+    """The BatchNorm kernels (``csrc/batchnorm_kernels.cu``), built if
+    needed, with every entry point's argument and return types declared.
+    Only a model with BatchNorm on the card builds and loads it."""
+    lib = ctypes.CDLL(str(build(["batchnorm_kernels"])["batchnorm_kernels"]))
+    vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    signatures = {
+        "bf_bn_forward": [vp] * 9 + [ll, ci, ci, ci, ci, cf, cf, cf, ci, ci, ci, vp],
+        "bf_bn_backward": [vp] * 11 + [ll, ci, ci, ci, ci, ci, ci, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ci
     return lib
 
 

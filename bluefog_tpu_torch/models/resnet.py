@@ -9,6 +9,13 @@ in the JAX model; inside, activations are NCHW views of the same memory
 (``channels_last``). Weights are held in PyTorch's layouts (OIHW convs,
 ``[out, in]`` dense); :mod:`bluefog_tpu_torch.interop` converts.
 
+BatchNorm, with the residual add and the ReLU after it fused, is
+:func:`bluefog_tpu_torch.ops.batchnorm.batch_norm`: on the CPU the plain
+composite (what the model has always computed), on CUDA the hand-written
+kernels of ``csrc/batchnorm_kernels.cu`` (statistics, normalize with the
+residual and the ReLU, and the backward), which take the channels-last bf16
+or f32 activations the convolutions write.
+
 Where flax and PyTorch differ, this follows flax:
 
 - ``padding="SAME"`` is asymmetric for even strides (7x7/2 on 224 pads 2
@@ -30,6 +37,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from bluefog_tpu_torch.ops.batchnorm import batch_norm
 
 __all__ = [
     "BasicBlock",
@@ -98,21 +107,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training:
-            mu = xf.mean(dim=(0, 2, 3))
-            mu2 = (xf * xf).mean(dim=(0, 2, 3))
-            var = torch.clamp(mu2 - mu * mu, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mu)
-                self.var.copy_(m * self.var + (1 - m) * var)
-        else:
-            mu, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.epsilon) * self.scale
-        y = (xf - mu[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(self.dtype)
+    def forward(self, x: torch.Tensor, residual: torch.Tensor = None,
+                relu: bool = False) -> torch.Tensor:
+        """``relu(residual + bn(x))``, each part optional; training updates
+        the running statistics in place."""
+        return batch_norm(x, self.scale, self.bias, self.mean, self.var, self.training,
+                          self.momentum, self.epsilon, residual=residual, relu=relu)
 
 
 class Dense(nn.Module):
@@ -159,10 +159,9 @@ class BottleneckBlock(nn.Module):
         _project(self, in_features, filters * 4, strides, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
-        y = self.BatchNorm_2(self.Conv_2(y))
-        return F.relu(_residual(self, x) + y)
+        y = self.BatchNorm_0(self.Conv_0(x), relu=True)
+        y = self.BatchNorm_1(self.Conv_1(y), relu=True)
+        return self.BatchNorm_2(self.Conv_2(y), residual=_residual(self, x), relu=True)
 
 
 class BasicBlock(nn.Module):
@@ -180,9 +179,8 @@ class BasicBlock(nn.Module):
         _project(self, in_features, filters, strides, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.BatchNorm_1(self.Conv_1(y))
-        return F.relu(_residual(self, x) + y)
+        y = self.BatchNorm_0(self.Conv_0(x), relu=True)
+        return self.BatchNorm_1(self.Conv_1(y), residual=_residual(self, x), relu=True)
 
 
 class ResNet(nn.Module):
@@ -211,7 +209,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = self.bn_init(self.conv_init(x), relu=True)
         x, _ = _pad_same(x, (3, 3), (2, 2), value=float("-inf"))
         x = F.max_pool2d(x, 3, 2)
         for name in self.blocks:

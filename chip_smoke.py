@@ -487,7 +487,17 @@ seconds of each phase.
                kernels on the same
                inputs (``lse_route`` on the flash rows, with the
                long-context path's measured launches per step); the split
-               beside its byte bound; then the nine-row JSON line.
+               beside its byte bound;
+17a. batchnorm -- the BatchNorm kernel pairs (forward: stats, finish,
+               apply; backward: bwd_reduce, bwd_finish, bwd_dx) held to the
+               plain versions at the ResNet50's largest BatchNorm
+               (``bn_init``, ``[256*112*112, 64]`` bf16 with the ReLU
+               fused) and at two block ends with the residual and the ReLU
+               fused (``[256*56*56, 256]``, ``[256*7*7, 2048]``); the first
+               timed beside the two-pass design's byte bound and the
+               one-pass floor, the plain composite and ``F.batch_norm``
+               (the yardstick only: the port never calls it); then the
+               eleven-row JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -501,6 +511,7 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --phase transport-fleet
     python3 chip_smoke.py --phase scaling-trace
     python3 chip_smoke.py --phase frontend
+    python3 chip_smoke.py --phase batchnorm
 
 run phase 11d, 11e, 11f, 11g, 11h, 11i, 11j, 11k or 11l alone on the ResNet50
 of the whole run (11d-11j at ``PATH_TRAINER``'s depth; the wire kernels built
@@ -509,6 +520,8 @@ first) and print no result line. Phase
 phase 11h's ``python3 chip_smoke.py --transport-state-child <config>``,
 phase 11i's ``python3 chip_smoke.py --transport-topology-child <config>``,
 phase 11j's ``python3 chip_smoke.py --transport-fleet-child <config>``.
+
+(``--phase batchnorm`` runs 17a alone and prints its lines and rows.)
 
     python3 chip_smoke.py --planted-faults
 
@@ -548,6 +561,7 @@ from bluefog_tpu_torch.models import (
     resnet,
     transformer,
 )
+from bluefog_tpu_torch.ops import batchnorm as bn_ops
 from bluefog_tpu_torch.ops import flash, ring_attention
 
 SIZE = 8
@@ -634,88 +648,98 @@ KERNEL_ROWS = {
     "flash_split_cotangent": "bluefog_tpu/ops/flash.py:313",
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# phase 17a's BatchNorm cases, (shape [N, C, H, W], the residual fused),
+# all bf16 with the ReLU fused: the ResNet50's largest (bn_init, timed for
+# the kernel rows), then two block ends: the largest and the widest C
+BN_CASES = (((256, 64, 112, 112), False), ((256, 256, 56, 56), True),
+            ((256, 2048, 7, 7), True))
+# the BatchNorm kernels under their launch-count names
+BN_KERNELS = tuple(f"bn_{k}" for k in bn_ops.KERNELS)
 # the lane mapping of csrc/wire_kernels.cu::decode_kernel that the kernels
 # phase times
 DECODE_MAPPING = ("4 blocks per warp, all loads before the stores, each warp-wide "
                   "float4 store one contiguous 512-byte run")
-# the kernels each path of the train phase must launch
+# the kernels each path of the train phase must launch (every path that
+# trains a ResNet on the card launches the BatchNorm kernels too)
 PATH_KERNELS = {
     # the facade's quantized neighbor_allreduce and neighbor_allgather
     "facade": ("encode", "decode"),
     # the fused ResNet50 steps of every optimizer tier
-    "train-step": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
-    "wire": ("encode", "decode_accumulate"),
-    "ef": ("encode_diff", "decode_add"),
-    "push-sum": ("encode", "decode"),
+    "train-step": ("encode", "decode_accumulate", "encode_diff", "decode_add") + BN_KERNELS,
+    "wire": ("encode", "decode_accumulate") + BN_KERNELS,
+    "ef": ("encode_diff", "decode_add") + BN_KERNELS,
+    "push-sum": ("encode", "decode") + BN_KERNELS,
     # the asynchronous ticks' int8 and int4 window wires
-    "async": ("encode", "decode"),
+    "async": ("encode", "decode") + BN_KERNELS,
     "transformer": FLASH_KERNELS + ("encode", "decode_accumulate", "encode_diff",
                                     "decode_add"),
     # the ZeRO-2 int8/int4 scatters of the zero phase
     "zero": ("encode", "decode"),
     # the checkpoint phase's zero2/int8 scatter and ATC int4_ef copies
-    "checkpoint": ("encode", "decode", "encode_diff", "decode_add"),
+    "checkpoint": ("encode", "decode", "encode_diff", "decode_add") + BN_KERNELS,
     # the dry run's ring attention is outside the differentiated loss (as
     # in __graft_entry__._dryrun_body): its forward runs, no backward
     "dryrun": ("flash_fwd",),
     # each round's f32 cotangent is split once for both backward kernels
     "long-context": FLASH_KERNELS + ("flash_split_cotangent",),
     # the ResNet50 steps with the metrics probe on: atc/int8 and atc/int4_ef
-    "observability": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
+    "observability": ("encode", "decode_accumulate", "encode_diff", "decode_add") + BN_KERNELS,
     # the elastic phase's ResNet50 parts: the int8 kill and rejoin, the
     # int4_ef kill, the async int8 ticks, the resumed checkpoint
-    "elastic": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
+    "elastic": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode") + BN_KERNELS,
     # its TransformerLM part: the zero2/int8 re-shard
     "elastic zero": FLASH_KERNELS + ("encode", "decode"),
     # the observatories phase: (a) the doctor's ATC int8 steps, (b) the
     # staleness runs (ATC int8, delayed int8, the async int8 ticks), (c) the
     # memory runs on the TransformerLM (zero2/int8 scatter), (d) ATC int4_ef
-    "observatories a": ("encode", "decode_accumulate"),
-    "observatories b": ("encode", "decode_accumulate", "decode"),
+    "observatories a": ("encode", "decode_accumulate") + BN_KERNELS,
+    "observatories b": ("encode", "decode_accumulate", "decode") + BN_KERNELS,
     "observatories c": FLASH_KERNELS + ("encode", "decode"),
-    "observatories d": ("encode_diff", "decode_add"),
+    "observatories d": ("encode_diff", "decode_add") + BN_KERNELS,
     # the health and relay phase: (a) the relay ResNet50 steps (int8/int4)
     # and the relay neighbor_allgather (int8/int4), (b) the ATC int8 steps
     # with the health plane on
-    "health relay a": ("encode", "decode_accumulate", "decode"),
-    "health relay b": ("encode", "decode_accumulate"),
+    "health relay a": ("encode", "decode_accumulate", "decode") + BN_KERNELS,
+    "health relay b": ("encode", "decode_accumulate") + BN_KERNELS,
     # the federation and SLO phase: (a) both legs of the federated int8/int4
     # steps, (b) the SLO canary (one encode, one decode a round) beside the
     # ATC int8 steps
-    "federation": ("encode", "decode_accumulate"),
-    "slo canary": ("encode", "decode"),
+    "federation": ("encode", "decode_accumulate") + BN_KERNELS,
+    "slo canary": ("encode", "decode") + BN_KERNELS,
     # the topology controller's runs: ATC int8 before and after a swap and a
     # rollback (B1, B2), and the swap onto int4_ef from int8_ef (B3, B4)
-    "autotune": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
+    "autotune": ("encode", "decode_accumulate", "encode_diff", "decode_add") + BN_KERNELS,
     # the transport phase: (a) the stacked reference, (b) both processes'
     # tiers (each process is gated on its own too), (c) NCCL's atc/int8
-    "transport a": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
-    "transport": ("encode", "decode_accumulate", "encode_diff", "decode_add"),
-    "transport nccl": ("encode", "decode_accumulate"),
+    "transport a": ("encode", "decode_accumulate", "encode_diff", "decode_add") + BN_KERNELS,
+    "transport": ("encode", "decode_accumulate", "encode_diff", "decode_add") + BN_KERNELS,
+    "transport nccl": ("encode", "decode_accumulate") + BN_KERNELS,
     # the transport-state phase: (a) the stacked reference, (b) both
     # processes' window, async and zero2 tiers (each process is gated on its
     # own too): the window and async wires and the scatter, B1 and B5
-    "transport-state a": ("encode", "decode"),
-    "transport-state": ("encode", "decode"),
+    "transport-state a": ("encode", "decode") + BN_KERNELS,
+    "transport-state": ("encode", "decode") + BN_KERNELS,
     # the transport-topology phase: (a) the stacked reference and (c)'s
     # restore in one process, (b) both processes' federated, relay and
     # elastic cases and (c)'s restores: B1 + B2 on the int8 legs, B3 + B4 on
     # elastic/int4_ef, B1 + B5 in the re-sharded scatter and the re-window
     "transport-topology a": ("encode", "decode_accumulate", "encode_diff", "decode_add",
-                             "decode"),
+                             "decode") + BN_KERNELS,
     "transport-topology": ("encode", "decode_accumulate", "encode_diff", "decode_add",
-                           "decode"),
+                           "decode") + BN_KERNELS,
     # the transport-fleet phase: (a) the stacked cases, (b) both processes'
     # (each process is gated on its own too): B1 + B2 on the int8 combines
     # and the metrics probe, the SLO canary's B1 + B5, B3 + B4 on int4_ef
     # under the oom fault, B1 + B5 on the async ticks
-    "transport-fleet a": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
-    "transport-fleet": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode"),
+    "transport-fleet a": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode")
+                         + BN_KERNELS,
+    "transport-fleet": ("encode", "decode_accumulate", "encode_diff", "decode_add", "decode")
+                       + BN_KERNELS,
     # the scaling-trace phase's weak scaling: the ATC/int8 steps at 1, 2, 4
     # and 8 workers
-    "scaling-trace": ("encode", "decode_accumulate"),
+    "scaling-trace": ("encode", "decode_accumulate") + BN_KERNELS,
     # the frontend phase's wrapped torch.optim.SGD on the int8 wire
-    "frontend": ("encode", "decode_accumulate"),
+    "frontend": ("encode", "decode_accumulate") + BN_KERNELS,
 }
 
 
@@ -726,11 +750,13 @@ def log(phase, msg):
 def reset_launch_counts():
     kernels.reset_launch_counts()
     flash.reset_launch_counts()
+    bn_ops.reset_launch_counts()
 
 
 def launch_counts():
     return {**kernels.launch_counts(), **flash.launch_counts(),
-            "flash_split_cotangent": flash.split_launch_count()}
+            "flash_split_cotangent": flash.split_launch_count(),
+            **{f"bn_{k}": v for k, v in bn_ops.launch_counts().items()}}
 
 
 def nvidia_smi_line():
@@ -3919,7 +3945,7 @@ def hr_relay(device, sm, images, labels, stats0, params0, n=RESNET50_WIDTH):
               for w in HR_WIRES}
     numbers = {"direct": {k: (v["step_s"], v["opt_ms"]) for k, v in direct.items()},
                "direct_rounds": len(direct["None"]["plan"].rounds)}
-    counts = {k: 0 for k in KERNEL_ROWS}
+    counts = {k: 0 for k in launch_counts()}
     for dims in HR_DIMS:
         env = {"BLUEFOG_PLAN_METHOD": "shortcut"}
         if dims:
@@ -4014,7 +4040,7 @@ def hr_health(device, sm, images, labels, stats0, params0, root):
     from bluefog_tpu_torch import health
     from bluefog_tpu_torch.topology import spectral
 
-    counts = {k: 0 for k in KERNEL_ROWS}
+    counts = {k: 0 for k in launch_counts()}
 
     def counted(steps, env):
         reset_launch_counts()
@@ -4322,7 +4348,7 @@ def fs_federation(device, sm, images, labels, stats0, params0):
     and read just after; the flat twins and the CPU checks are outside)."""
     from bluefog_tpu_torch import federation
 
-    counts = {k: 0 for k in KERNEL_ROWS}
+    counts = {k: 0 for k in launch_counts()}
 
     def counted(*args, **kw):
         reset_launch_counts()
@@ -4437,7 +4463,7 @@ def fs_slo(device, sm, images, labels, stats0, params0):
     with the CPU run outside them."""
     from bluefog_tpu_torch import health, slo
 
-    counts = {k: 0 for k in KERNEL_ROWS}
+    counts = {k: 0 for k in launch_counts()}
 
     def add(part):
         for k in counts:
@@ -4829,7 +4855,7 @@ def at_run(device, sm, images, labels, stats0, params0, wire, steps, env=None, f
         step = (bft.elastic.guard(opt) if session else opt).make_train_step(sm.worker_loss)
         workers = torch.arange(SIZE)
         rows, tuner, seen, base, base_w = [], None, [], None, None
-        counts = {k: 0 for k in KERNEL_ROWS}
+        counts = {k: 0 for k in launch_counts()}
         for i in range(warmup + steps + after):
             if i == warmup and tuner_kw is not None:
                 base = statistics.median(r["step_s"] for r in rows)
@@ -4857,7 +4883,7 @@ def at_run(device, sm, images, labels, stats0, params0, wire, steps, env=None, f
                 raise AssertionError(f"autotune: non-finite loss at step {i}")
             launches = {k: after_c[k] - before[k] for k in KERNEL_ROWS}
             for k in counts:
-                counts[k] += launches[k]
+                counts[k] += after_c[k] - before[k]
             row = {"step_s": step_s, "launches": launches, "plan": opt._last_plan,
                    "captured": rec["arm"] and rec["captured"] is not None,
                    "combine_ms": sum(t.ms() for t in rec["timers"][n_timers:]),
@@ -5041,7 +5067,7 @@ def at_off_is_on(device, sm, images, labels, stats0, params0):
     """Part (b), see :func:`phase_autotune`."""
     from bluefog_tpu_torch import autotune
 
-    counts = {k: 0 for k in KERNEL_ROWS}
+    counts = {k: 0 for k in launch_counts()}
     off = hr_steps(device, sm, images, labels, stats0, params0, "int8", AT_OFF, AT_STEPS10,
                    fused=True, snap_at=3)
     off_keys = set(bft.get_context().op_cache)
@@ -5238,7 +5264,7 @@ def phase_autotune(device, sm, images, labels, root=AT_ROOT, smi=""):
     os.makedirs(root, exist_ok=True)
     stats0 = {k: v.clone() for k, v in sm.buffers.items()}
     params0 = sm.replicate()
-    counts = {k: 0 for k in KERNEL_ROWS}
+    counts = {k: 0 for k in launch_counts()}
 
     def add(part):
         for k in counts:
@@ -7369,12 +7395,12 @@ def sc_weak_scaling(device, sm, images, labels, ns=SC_NS, steps=SC_STEPS, warmup
     ``sgd(0.1, 0.9)`` on int8, the one-peer Exp2 plan (one worker: the fully
     connected graph of one), ``bft.init(size=n)`` anew for each ``n``. Gates:
     each step launches one ``encode`` and one ``decode_accumulate`` (the
-    packed combine, one bucket), nothing else; at each n >= 2 the first
+    packed combine, one bucket), no other wire or flash kernel; at each n >= 2 the first
     step's combine bitwise the plain versions' on a CPU copy of its input.
     Returns ``(launch counts over every n, rows)``."""
     from bluefog_tpu_torch import scaling
 
-    counts = {k: 0 for k in KERNEL_ROWS}
+    counts = {k: 0 for k in launch_counts()}
     per_n, checked = {}, {}
     live = {}  # the size in flight: n, its captured combine
 
@@ -7421,7 +7447,7 @@ def sc_weak_scaling(device, sm, images, labels, ns=SC_NS, steps=SC_STEPS, warmup
     for n in ns:
         want = {k: (steps + warmup if k in PATH_KERNELS["scaling-trace"] else 0)
                 for k in KERNEL_ROWS}
-        if device.type == "cuda" and per_n[n] != want:
+        if device.type == "cuda" and {k: per_n[n][k] for k in KERNEL_ROWS} != want:
             raise AssertionError(f"scaling-trace (b) n={n}: launches {per_n[n]}, a step "
                                  f"predicts one encode and one decode_accumulate: {want}")
     missing = [n for n in ns if n > 1 and n not in checked]
@@ -8106,6 +8132,183 @@ def phase_kernels(device, params, rate):
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], errs[name])
         del x, h, acc, hk, base, p, s, pd, sd, calls
     return list(rows.values()), lines
+
+
+def bn_case(device, shape, with_residual, seed=0):
+    """One BatchNorm case of phase 17a: ``shape`` bf16 channels-last with
+    the ReLU fused, and the residual too if ``with_residual``, through the
+    forward and backward kernels, held to the plain versions:
+
+    - ``stats`` and ``finish``: mean and rstd within
+      ``batch_norm_stats_bounds`` of the plain f32 statistics (another
+      summation order), the clipped-variance flags equal;
+    - ``apply``: bit for bit the plain normalization on the kernels'
+      statistics;
+    - ``bwd_reduce`` and ``bwd_finish``: dbias and dscale within
+      ``batch_norm_sum_bound`` of the plain sums;
+    - ``bwd_dx``: dx (and the residual's gradient) bit for bit the plain
+      formula given the kernels' sums;
+    - against the plain composite: the output within one bf16 ulp of each
+      rounding (the normalization's, and the residual add's), at most
+      ``2**-7`` of the largest value each rounds; dx within one ulp of the
+      largest dx.
+
+    Returns the operands, the kernels' calls and the composite's
+    differences, and one line."""
+    n, c, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def act(spread, shift):
+        t = torch.randn(n, h, w, c, generator=gen, device=device) * spread + shift
+        return t.to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    x = act(2.0, 0.5)
+    res = act(1.0, 0.0) if with_residual else None
+    dy = act(1.0, 0.0)
+    scale = torch.randn(c, generator=gen, device=device)
+    bias = torch.randn(c, generator=gen, device=device)
+    rm, rv = torch.zeros(c, device=device), torch.ones(c, device=device)
+    where = f"batchnorm [{n * h * w}, {c}]{' + residual' if with_residual else ''}"
+    fwd = lambda: bn_ops.batch_norm_fwd(x, scale, bias, res, rm, rv, True, 0.9, 1e-5, True)
+    y, stats = fwd()
+    ref = bn_ops.batch_norm_stats_reference(x)
+    d_mean, _, d_rstd = bn_ops.batch_norm_stats_bounds(x, ref)
+    stat_share = max(float(((stats[0].double() - ref[0].double()).abs() / d_mean).max()),
+                     float(((stats[1].double() - ref[1].double()).abs() / d_rstd).max()))
+    if not stat_share <= 1 or not torch.equal(stats[2], ref[2]):
+        raise AssertionError(f"{where}: stats + finish off the plain statistics by "
+                             f"{stat_share:.3g} of their summation-order bound, or the "
+                             f"clipped-variance flags differ")
+    del ref, d_mean, d_rstd
+    if not torch.equal(bits(y), bits(bn_ops.batch_norm_apply_reference(x, stats, scale, bias,
+                                                                        res, True))):
+        raise AssertionError(f"{where}: apply differs from the plain normalization on its "
+                             f"statistics")
+    plain_y = bn_ops.batch_norm_reference(x, scale, bias, rm.clone(), rv.clone(), True,
+                                          residual=res, relu=True)
+    fwd_err = float((y.float() - plain_y.float()).abs().max())
+    fwd_lim = 2.0 ** -7 * float(plain_y.float().abs().max())
+    if with_residual:
+        fwd_lim += 2.0 ** -7 * float(
+            bn_ops.batch_norm_apply_reference(x, stats, scale, bias).float().abs().max())
+    del plain_y
+    if not fwd_err <= fwd_lim:
+        raise AssertionError(f"{where}: the output is {fwd_err:.4g} off the plain composite's, "
+                             f"over one bf16 ulp a rounding ({fwd_lim:.4g})")
+
+    bwd = lambda: bn_ops.batch_norm_bwd(dy, x, y, stats, scale, True, with_residual)
+    dx, dscale, dbias, g = bwd()
+    pdx, pdscale, pdbias, pg = bn_ops.batch_norm_backward_reference(dy, x, y, stats, scale)
+    gd = torch.where(y > 0, dy.double(), 0.0)
+    sum_share = float(((dbias.double() - pdbias.double()).abs()
+                       / bn_ops.batch_norm_sum_bound(gd)).max())
+    gd *= (x.double() - stats[0].double()[:, None, None]) * stats[1].double()[:, None, None]
+    sum_share = max(sum_share, float(((dscale.double() - pdscale.double()).abs()
+                                      / bn_ops.batch_norm_sum_bound(gd)).max()))
+    del gd
+    if not sum_share <= 1:
+        raise AssertionError(f"{where}: bwd_reduce + bwd_finish's dbias or dscale off the "
+                             f"plain sums by {sum_share:.3g} of their summation-order bound")
+    sdx, _, _, sg = bn_ops.batch_norm_backward_reference(dy, x, y, stats, scale,
+                                                         sums=(dbias, dscale))
+    if not torch.equal(bits(dx), bits(sdx)) or (
+            with_residual and not (torch.equal(bits(g), bits(sg))
+                                   and torch.equal(bits(g), bits(pg)))):
+        raise AssertionError(f"{where}: bwd_dx differs from the plain formula on its sums")
+    del sdx, sg, pg
+    bwd_err = float((dx.float() - pdx.float()).abs().max())
+    bwd_lim = 2.0 ** -7 * float(pdx.float().abs().max())
+    del pdx
+    if not bwd_err <= bwd_lim:
+        raise AssertionError(f"{where}: dx is {bwd_err:.4g} off the plain formula's, over one "
+                             f"bf16 ulp of the largest dx ({bwd_lim:.4g})")
+    line = (f"{where} bf16, ReLU fused: statistics at {stat_share:.3g} and dbias/dscale at "
+            f"{sum_share:.3g} of their summation-order bounds, apply and bwd_dx bit for bit "
+            f"the plain formulas on them; against the plain composite: output {fwd_err:.4g} "
+            f"(limit {fwd_lim:.4g}), dx {bwd_err:.4g} (limit {bwd_lim:.4g})")
+    return {"x": x, "dy": dy, "scale": scale, "bias": bias, "rm": rm, "rv": rv, "fwd": fwd,
+            "bwd": bwd, "fwd_err": fwd_err, "bwd_err": bwd_err}, line
+
+
+def phase_batchnorm_kernels(device, rate, cases=BN_CASES):
+    """The BatchNorm kernels' forward triple (stats, finish, apply) and
+    backward triple (bwd_reduce, bwd_finish, bwd_dx), each case of
+    ``cases`` held to the plain versions (:func:`bn_case`); the first case
+    (``bn_init``'s, the largest) timed beside two byte bounds at ``rate``:
+    the two-pass design's (forward: x read twice, y written; backward: dy,
+    y and x read twice, dx written) and the one-pass floor (each input read
+    once, the output written once), the per-channel partials left out;
+    beside the plain composite's forward and its autograd backward, and
+    ``F.batch_norm`` (the library yardstick: the port never calls it).
+    Returns the two rows of the kernels JSON line (``launches`` filled in
+    from the main path's counts) and the phase's lines."""
+    lines = []
+    for shape, with_residual in cases[1:]:
+        lines.append(bn_case(device, shape, with_residual, seed=len(lines) + 1)[1])
+        torch.cuda.empty_cache()
+    case, line = bn_case(device, *cases[0])
+    lines.insert(0, line)
+    x, dy, rm, rv = case["x"], case["dy"], case["rm"], case["rv"]
+    ms_fwd, ms_bwd = time_ms(case["fwd"], device), time_ms(case["bwd"], device)
+    xg, sg, bg = (t.detach().requires_grad_(True) for t in (x, case["scale"], case["bias"]))
+    plain_fwd = lambda: bn_ops.batch_norm_reference(xg, sg, bg, rm, rv, True, relu=True)
+    plain_fwd_ms = time_ms(plain_fwd, device, iters=3, warmup=1)
+    out = plain_fwd()
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(out, (xg, sg, bg), dy, retain_graph=True),
+                           device, iters=3, warmup=1)
+    del out
+    lib_fwd = lambda: F.relu(F.batch_norm(xg, rm, rv, sg, bg, True, 0.1, 1e-5))
+    lib_fwd_ms = time_ms(lib_fwd, device)
+    out = lib_fwd()
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(out, (xg, sg, bg), dy, retain_graph=True),
+                         device)
+    del out, xg
+
+    n, c, h, w = x.shape
+    elems, size = x.numel(), x.element_size()
+    rows = []
+    for name, ms, plain_ms, lib_ms, moved, least, err, kernels_, design in (
+        ("batchnorm_fwd", ms_fwd, plain_fwd_ms, lib_fwd_ms, 3, 2, case["fwd_err"],
+         "stats + finish + apply", "two passes over x: the statistics, then the output"),
+        ("batchnorm_bwd", ms_bwd, plain_bwd_ms, lib_bwd_ms, 7, 4, case["bwd_err"],
+         "bwd_reduce + bwd_finish + bwd_dx",
+         "two passes over dy, y and x: the sums, then dx"),
+    ):
+        nbytes, floor_bytes = moved * elems * size, least * elems * size
+        bound, floor = nbytes / rate * 1e3, floor_bytes / rate * 1e3
+        lines.append(
+            f"{name} ({kernels_}) [{n * h * w}, {c}] bf16, ReLU fused: {ms:.4f} ms kernels, "
+            f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms F.batch_norm (+ relu); the two-pass "
+            f"design's bound {bound:.4f} ms ({nbytes / 1e9:.4f} GB, {moved * size} B an "
+            f"element), {100 * bound / ms:.1f}% of it; the one-pass floor {floor:.4f} ms "
+            f"({least * size} B an element), {100 * floor / ms:.1f}% of it; "
+            f"{nbytes / ms / 1e6:.1f} GB/s; max abs difference from the plain composite "
+            f"{err:.4g}")
+        rows.append({
+            "name": name, "route": "cuda", "source": "bluefog_tpu_torch/csrc/batchnorm_kernels.cu",
+            "replaces": "new, replaces no TPU kernel", "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "design": design, "floor_ms": floor, "library_ms": lib_ms,
+        })
+    return rows, lines
+
+
+def run_batchnorm_alone():
+    """``python3 chip_smoke.py --phase batchnorm``: phase 17a alone; prints
+    its lines and its two rows (``launches`` None: no main path ran)."""
+    device = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    log("device", f"{kind}; nvidia-smi: {smi}")
+    libs = _build.build(["batchnorm_kernels"])
+    for line in libs["batchnorm_kernels"].with_suffix(".log").read_text().splitlines():
+        if any(w in line for w in ("registers", "spill", "built in", "warning")):
+            log("build", f"batchnorm_kernels: {line.strip()}")
+    rows, lines = phase_batchnorm_kernels(device, memory_rate(kind))
+    for line in lines:
+        log("kernels", f"{line}; on {smi}")
+    print(json.dumps({"kernels": rows}))
+    return 0
 
 
 def phase_dryrun(device, steps=3):
@@ -8931,6 +9134,8 @@ def main():
         return run_scaling_trace_alone()
     if sys.argv[1:] == ["--phase", "frontend"]:
         return run_frontend_alone()
+    if sys.argv[1:] == ["--phase", "batchnorm"]:
+        return run_batchnorm_alone()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -8946,11 +9151,12 @@ def main():
         t_lap[0] = now
 
     t0 = time.perf_counter()
-    names = ["wire_kernels", "flash_kernels", "flash_sm90"]
+    names = ["wire_kernels", "flash_kernels", "flash_sm90", "batchnorm_kernels"]
     libs = _build.build(names)
     _build.wire_library()
     _build.flash_library()
     _build.flash_sm90_library()
+    _build.batchnorm_library()
     log("build", f"{', '.join(names)} built together in {time.perf_counter() - t0:.1f} s")
     for name in names:
         log("build", f"{name} -> {libs[name]}")
@@ -9149,9 +9355,12 @@ def main():
         memory_rate(kind))
     for row in flash_rows:
         row["lse_route"] = lse_entries[row["name"]]
-    rows += flash_rows + [split_row]
-    lines += flash_lines + lse_lines
-    launches = {k: sum(c[k] for c in counts.values()) for k in KERNEL_ROWS}
+    bn_rows, bn_lines = phase_batchnorm_kernels(device, memory_rate(kind))
+    rows += flash_rows + [split_row] + bn_rows
+    lines += flash_lines + lse_lines + bn_lines
+    launches = {k: sum(c[k] for c in counts.values())
+                for k in (*KERNEL_ROWS, "bn_stats", "bn_bwd_reduce")}
+    launches.update(batchnorm_fwd=launches["bn_stats"], batchnorm_bwd=launches["bn_bwd_reduce"])
     for row in rows:
         row["launches"] = launches[row["name"]]
     for line in lines:

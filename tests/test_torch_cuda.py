@@ -18,6 +18,7 @@ import bluefog_tpu_torch as bft
 from bluefog_tpu_torch import topology as topo
 from bluefog_tpu_torch.collective import inner, kernels
 from bluefog_tpu_torch.collective.plan import plan_from_topology
+from bluefog_tpu_torch.ops import batchnorm as bn_ops
 
 SIZE = 8
 WIRES = ["int8", "int4"]
@@ -1683,3 +1684,209 @@ def test_frontend_int8_neighbor_allreduce_on_the_card(cuda):
     assert {k: c1[k] - c0[k] for k in c0} == {
         "encode": 1, "encode_diff": 0, "decode": 0, "decode_add": 0, "decode_accumulate": 1}
     assert c2 == c1
+
+
+# -- BatchNorm kernels (ops/batchnorm.py, csrc/batchnorm_kernels.cu) -----------
+
+# every BatchNorm input shape [C, H, W] of the ResNet50 at 224x224 (53 layers)
+RESNET50_BN_SHAPES = [(64, 112, 112), (64, 56, 56), (256, 56, 56), (128, 56, 56),
+                      (128, 28, 28), (512, 28, 28), (256, 28, 28), (256, 14, 14),
+                      (1024, 14, 14), (512, 14, 14), (512, 7, 7), (2048, 7, 7)]
+# batch 256 at every ResNet50 shape; C = 8, the narrowest 16-byte bf16 row;
+# C = 13, no 16-byte access in either dtype
+BN_CASES = ([(256,) + s for s in RESNET50_BN_SHAPES]
+            + [(64, 8, 28, 28), (16, 13, 15, 9)])
+
+
+def _bn_operands(device, n, c, h, w, dtype, seed=0, offset_elems=0):
+    """x and a residual ``[n, c, h, w]`` channels-last in ``dtype`` (x with a
+    per-channel offset and spread), the output's gradient, f32 scale and
+    bias, and running statistics as rows of a stacked ``[3, c]`` buffer.
+    ``offset_elems`` starts every activation that many elements into its
+    buffer (off 16 bytes: the one-element path)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def act(shift, spread):
+        base = torch.randn(n * h * w * c + offset_elems, generator=gen, device=device)
+        t = base[offset_elems:].view(n, h, w, c) * spread + shift
+        out = torch.empty(n * h * w * c + offset_elems, dtype=dtype, device=device)
+        view = out[offset_elems:].view(n, h, w, c)
+        view.copy_(t)
+        return view.permute(0, 3, 1, 2)
+
+    shift = torch.randn(c, generator=gen, device=device)
+    spread = torch.rand(c, generator=gen, device=device) * 2 + 0.25
+    x, res, dy = act(shift, spread), act(0.0, 1.0), act(0.0, 1.0)
+    scale = torch.randn(c, generator=gen, device=device)
+    bias = torch.randn(c, generator=gen, device=device) * 0.5
+    mean = torch.randn(3, c, generator=gen, device=device)
+    var = torch.rand(3, c, generator=gen, device=device) + 0.5
+    return x, res, dy, scale, bias, mean, var
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", BN_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_batchnorm_kernels_match_plain_versions(cuda, shape, dtype):
+    """The forward and backward kernels at every ResNet50 BatchNorm shape
+    (batch 256), C = 8 and C = 13, with the residual and the ReLU fused:
+
+    - statistics within the summation-order bounds of
+      ``batch_norm_stats_bounds``;
+    - ``apply`` bit for bit the plain normalization on the kernel's own
+      statistics (one rounding an operation on both; so the output is
+      within one rounding of the activation dtype, one ulp either way, of
+      the composite's);
+    - the running mean in the stacked buffer's row bit for bit ``0.9 *
+      running + 0.1 * mean``, the variance within the sums' bound, the
+      other rows untouched;
+    - the backward's sums (dbias, dscale) within 2e-5 of the sum of their
+      terms' magnitudes (another summation order), and dx and the
+      residual's gradient bit for bit the plain formula given those sums;
+    - two calls the same bits (no atomics)."""
+    x, res, dy, scale, bias, mean, var = _bn_operands(cuda, *shape, dtype)
+    mean0, var0 = mean.clone(), var.clone()
+    y, stats = bn_ops.batch_norm_fwd(x, scale, bias, res, mean[1], var[1], True, 0.9, 1e-5,
+                                     True)
+    ref = bn_ops.batch_norm_stats_reference(x)
+    d_mean, d_var, d_rstd = bn_ops.batch_norm_stats_bounds(x, ref)
+    assert ((stats[0].double() - ref[0].double()).abs() <= d_mean).all()
+    assert ((stats[1].double() - ref[1].double()).abs() <= d_rstd).all()
+    assert torch.equal(stats[2], ref[2])
+    want = bn_ops.batch_norm_apply_reference(x, stats, scale, bias, res, True)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits(y), _bits(want))
+    assert torch.equal(_bits(mean[1]), _bits(0.9 * mean0[1] + (1 - 0.9) * stats[0]))
+    plain_var = torch.clamp((x.float() ** 2).mean(dim=(0, 2, 3)) - ref[0] ** 2, min=0)
+    assert ((var[1].double() - (0.9 * var0[1] + 0.1 * plain_var).double()).abs()
+            <= 0.1 * d_var + 1e-6).all()
+    for rows in (mean, var):
+        assert torch.equal(rows[0], (mean0 if rows is mean else var0)[0])
+        assert torch.equal(rows[2], (mean0 if rows is mean else var0)[2])
+    y2, stats2 = bn_ops.batch_norm_fwd(x, scale, bias, res, mean0[1].clone(), var0[1].clone(),
+                                       True, 0.9, 1e-5, True)
+    assert torch.equal(_bits(stats2), _bits(stats)) and torch.equal(_bits(y2), _bits(y))
+
+    dx, dscale, dbias, g = bn_ops.batch_norm_bwd(dy, x, y, stats, scale, True, True)
+    pdx, pdscale, pdbias, pg = bn_ops.batch_norm_backward_reference(dy, x, y, stats, scale)
+    gf = torch.where(y > 0, dy.double(), 0.0)
+    xhat = (x.double() - stats[0].double()[:, None, None]) * stats[1].double()[:, None, None]
+    for got, plain, terms in ((dbias, pdbias, gf), (dscale, pdscale, gf * xhat)):
+        bound = bn_ops.batch_norm_sum_bound(terms)
+        assert ((got.double() - plain.double()).abs() <= bound).all()
+    sdx, _, _, sg = bn_ops.batch_norm_backward_reference(dy, x, y, stats, scale,
+                                                         sums=(dbias, dscale))
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits(dx), _bits(sdx)) and torch.equal(_bits(g), _bits(sg))
+    assert torch.equal(_bits(g), _bits(pg))
+    again = bn_ops.batch_norm_bwd(dy, x, y, stats, scale, True, True)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(again, (dx, dscale, dbias, g)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+@pytest.mark.parametrize("with_residual", [False, True], ids=["no_res", "res"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off16"])
+def test_batchnorm_kernels_fusions_and_eval_match_plain_versions(cuda, dtype, relu,
+                                                                 with_residual, offset):
+    """Every fusion (residual, ReLU, both, neither), on 16-byte aligned
+    activations and one element off them (the one-element path), in
+    training and eval mode: outputs and dx bit for bit the plain versions
+    on the kernels' own statistics and sums (eval: the running
+    statistics, no batch terms in dx)."""
+    x, res, dy, scale, bias, mean, var = _bn_operands(cuda, 8, 64, 14, 14, dtype, seed=1,
+                                                      offset_elems=offset)
+    res = res if with_residual else None
+    for training in (True, False):
+        y, stats = bn_ops.batch_norm_fwd(x, scale, bias, res, mean[0], var[0], training, 0.9,
+                                         1e-5, relu)
+        want = bn_ops.batch_norm_apply_reference(x, stats, scale, bias, res, relu)
+        assert torch.equal(_bits(y), _bits(want)), training
+        dx, dscale, dbias, g = bn_ops.batch_norm_bwd(dy, x, y if relu else None, stats, scale,
+                                                     training, with_residual)
+        sdx, _, _, sg = bn_ops.batch_norm_backward_reference(
+            dy, x, y if relu else None, stats, scale, batch_stats=training,
+            sums=(dbias, dscale))
+        assert torch.equal(_bits(dx), _bits(sdx)), training
+        assert (g is None) == (not with_residual)
+        if with_residual:
+            assert torch.equal(_bits(g), _bits(sg))
+
+
+@pytest.mark.cuda
+def test_batchnorm_module_on_card_saves_no_f32_activation_and_matches_cpu(cuda):
+    """``resnet.BatchNorm`` on a bf16 channels-last activation through
+    autograd: what it saves is x, its output and per-channel vectors
+    (nothing f32 the size of an activation), the running statistics land
+    in the stacked buffer's row, and output and gradients stay within the
+    composite's on the CPU (one bf16 rounding either way; the sums in
+    another order)."""
+    from bluefog_tpu_torch.models import resnet
+
+    x, res, dy, scale, bias, mean, var = _bn_operands(cuda, 16, 256, 14, 14, torch.bfloat16,
+                                                      seed=2)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = resnet.BatchNorm(256, torch.bfloat16).to(dev)
+        with torch.no_grad():
+            m.scale.copy_(scale)
+            m.bias.copy_(bias)
+        rows_mean, rows_var = mean.clone().to(dev), var.clone().to(dev)
+        m.mean, m.var = rows_mean[1], rows_var[1]
+        leaves = [x.to(dev).detach().requires_grad_(True),
+                  res.to(dev).detach().requires_grad_(True)]
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t,
+                                                      lambda t: t):
+            y = m(leaves[0], residual=leaves[1], relu=True)
+        grads = torch.autograd.grad(y, leaves + [m.scale, m.bias], dy.to(dev))
+        outs[dev.type] = [t.detach().cpu() for t in [y, *grads, rows_mean, rows_var]]
+        if dev.type == "cuda":
+            assert all(t.dtype != torch.float32 or t.numel() <= 3 * 256 for t in saved), \
+                [(t.dtype, tuple(t.shape)) for t in saved]
+            assert sum(t.numel() == x.numel() for t in saved) == 2
+    got, want = outs["cuda"], outs["cpu"]
+    for name, a, b in zip(("y", "dx", "dres", "dscale", "dbias", "mean", "var"), got, want):
+        scale_ = float(b.abs().max())
+        tol = 2 ** -7 * scale_ if a.dtype == torch.bfloat16 else 1e-4 * scale_
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_batchnorm_wrapper_refuses_bad_cuda_operands(cuda):
+    """An NCHW-contiguous activation, an f16 one or a residual of another
+    dtype raise; nothing falls back."""
+    x, res, dy, scale, bias, mean, var = _bn_operands(cuda, 2, 16, 4, 4, torch.bfloat16)
+    args = (scale, bias, mean[0], var[0], True)
+    with pytest.raises(ValueError, match="channels-last"):
+        bn_ops.batch_norm(x.contiguous(), *args)
+    with pytest.raises(ValueError, match="channels-last"):
+        bn_ops.batch_norm(x, *args, residual=res.contiguous())
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        bn_ops.batch_norm(x.half(), *args)
+    with pytest.raises(ValueError, match="residual"):
+        bn_ops.batch_norm(x, *args, residual=res.float())
+    with pytest.raises(ValueError, match="running_mean"):
+        bn_ops.batch_norm(x, scale, bias, mean[0].double(), var[0], True)
+
+
+@pytest.mark.cuda
+def test_resnet50_worker_step_launches_each_batchnorm_kernel_53_times(cuda):
+    """One ResNet50 worker's forward and backward (bf16, 2 images of 64x64)
+    launches each forward kernel and each backward kernel once for each of
+    its 53 BatchNorms; eval mode launches ``apply`` alone."""
+    from bluefog_tpu_torch.models import ResNet50, resnet
+
+    model = resnet.init_flax_like(ResNet50(num_classes=10), 0).to(cuda)
+    images = torch.randn(2, 64, 64, 3, device=cuda)
+    bn_ops.reset_launch_counts()
+    loss = model(images).float().square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert bn_ops.launch_counts() == dict.fromkeys(bn_ops.KERNELS, 53)
+    bn_ops.reset_launch_counts()
+    model.eval()
+    with torch.no_grad():
+        model(images)
+    assert bn_ops.launch_counts() == {**dict.fromkeys(bn_ops.KERNELS, 0), "apply": 53}

@@ -230,7 +230,7 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
 
 
 def test_every_source_has_its_flags_and_the_sm90_source_exists():
-    for name in ("wire_kernels", "flash_kernels", "flash_sm90"):
+    for name in ("wire_kernels", "flash_kernels", "flash_sm90", "batchnorm_kernels"):
         assert (_build._CSRC / f"{name}.cu").is_file()
         assert _build.flags(name)[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -52,13 +52,13 @@ def test_port_sources_exist():
             "recovery.py", "staleness.py", "memory.py", "spectral.py", "placement.py",
             "health.py", "fleetsim.py", "federation.py", "slo.py", "wire_ref.py",
             "autotune.py", "transport.py", "run.py", "network_util.py",
-            "interactive_run.py", "mpi_ops.py"} <= names
+            "interactive_run.py", "mpi_ops.py", "batchnorm.py"} <= names
     for source in ("__init__.py", "run.py", "network_util.py", "interactive_run.py"):
         assert (ROOT / "bluefog_tpu_torch" / "run" / source).is_file()
     assert (ROOT / "bluefog_tpu_torch" / "collective" / "transport.py").is_file()
     for source in ("__init__.py", "faults.py", "membership.py", "repair.py", "recovery.py"):
         assert (ROOT / "bluefog_tpu_torch" / "elastic" / source).is_file()
-    for source in ("wire_kernels.cu", "flash_kernels.cu"):
+    for source in ("wire_kernels.cu", "flash_kernels.cu", "batchnorm_kernels.cu"):
         assert (ROOT / "bluefog_tpu_torch" / "csrc" / source).is_file()
     for source in ("__init__.py", "mpi_ops.py", "optimizers.py"):
         path = ROOT / "bluefog_tpu_torch" / "torch" / source
